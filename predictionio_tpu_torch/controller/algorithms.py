@@ -1,0 +1,39 @@
+"""Algorithm flavors: the parallel-to-local one serving needs.
+
+The port's copy of ``P2LAlgorithm`` from
+``predictionio_tpu/controller/algorithms.py``: the model lives on the
+host and is served through the device, and ``predict_base`` routes to
+the subclass's ``predict``.
+"""
+
+from __future__ import annotations
+
+import abc
+from typing import Any, List, Sequence, Tuple
+
+from predictionio_tpu_torch.core.base import BaseAlgorithm
+
+
+class P2LAlgorithm(BaseAlgorithm):
+    """Parallel-to-local: train on the device, keep a host-local model."""
+
+    @abc.abstractmethod
+    def train(self, ctx: Any, pd: Any) -> Any: ...
+
+    @abc.abstractmethod
+    def predict(self, model: Any, query: Any) -> Any: ...
+
+    def batch_predict(self, ctx: Any, model: Any,
+                      indexed_queries: Sequence[Tuple[int, Any]]
+                      ) -> List[Tuple[int, Any]]:
+        """Default: map predict over the queries."""
+        return [(qx, self.predict(model, q)) for qx, q in indexed_queries]
+
+    def train_base(self, ctx: Any, pd: Any) -> Any:
+        return self.train(ctx, pd)
+
+    def batch_predict_base(self, ctx, model, indexed_queries):
+        return self.batch_predict(ctx, model, indexed_queries)
+
+    def predict_base(self, model: Any, query: Any) -> Any:
+        return self.predict(model, query)

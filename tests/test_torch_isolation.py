@@ -1,0 +1,98 @@
+"""The port stands alone: no module of ``predictionio_tpu_torch`` (nor
+``chip_smoke.py``) imports ``jax`` or anything of ``predictionio_tpu``,
+and the whole query path imports and serves in a process where both are
+unimportable. ``chip_smoke.py`` refuses to run without a GPU."""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "predictionio_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "predictionio_tpu")
+
+
+def port_sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    offenders = [
+        f"{p.relative_to(ROOT)}: {mod}" for p in port_sources()
+        for mod in imported_modules(p)
+        if mod.split(".")[0] in FORBIDDEN]
+    assert len(port_sources()) > 10
+    assert offenders == []
+
+
+BLOCKED_RUN = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["predictionio_tpu"] = None
+import importlib, pathlib, pkgutil
+import numpy as np
+import predictionio_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+from predictionio_tpu_torch.templates.recommendation.engine import engine_factory
+from predictionio_tpu_torch.weights import als_model_from_numpy
+from predictionio_tpu_torch.workflow.create_server import (
+    build_deployment, serve_query, to_jsonable)
+rng = np.random.default_rng(0)
+X = rng.integers(-3, 4, (5, 4)).astype(np.float32)
+Y = rng.integers(-3, 4, (40, 4)).astype(np.float32)
+model = als_model_from_numpy(X, Y, [f"u{i}" for i in range(5)],
+                             [f"i{i}" for i in range(40)], {0: [1, 2]},
+                             device="cpu")
+engine = engine_factory()
+dep = build_deployment(engine, engine.engine_params_from_variant({}), [model])
+out = to_jsonable(serve_query(dep, {"user": "u0", "num": 3}))
+assert len(out["itemScores"]) == 3, out
+assert not any(m == "jax" or m.startswith(("jax.", "predictionio_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("served", len(names), "modules")
+"""
+
+
+def test_query_path_runs_with_jax_unimportable():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env.pop("PIO_SERVE_PRECISION", None)
+    proc = subprocess.run([sys.executable, "-c", BLOCKED_RUN], env=env,
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("served")
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_refuses_without_a_gpu(tmp_path, alone):
+    """No GPU here: exit non-zero and print no result, whether run from
+    the checkout or from a directory holding only the script."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    cwd = ROOT
+    if alone:
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
