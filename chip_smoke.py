@@ -1,25 +1,41 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's query path once on one GPU.
+"""Drive the PyTorch/CUDA port's training and query paths once on one GPU.
 
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure raises and the script exits non-zero):
 
-1. Print the card (``nvidia-smi``), build every kernel of the path with
-   ``nvcc`` from this checkout's sources and print the build time.
-2. Hold each kernel against its plain PyTorch version on the card at the
-   serving path's shapes (M=26,744 items, R=64; B in {1, 8, 256}; k in
-   {16, 128, 26,744}; fp32, bf16 and int8 stores; seen mask on and off),
-   on random data and on integer data with ties across tiles.
-3. Serve the recommendation template at MovieLens-20M width (138,493
-   users x 26,744 items x rank 64, random factors from ``--seed``,
-   heavy-tailed seen lists of mean ~144): start the port's QueryServer,
-   send user, blacklist, category, item-similarity and unknown-user
-   queries, some from 8 concurrent clients, and check every answer
-   against the same pipeline with the plain version in place of the
-   kernel. The kernel's launch count must rise.
-4. Time each kernel at every (store, B, k) against its bound, its plain
-   version and one library call; print the HTTP p50/p99.
+1. Print the card (``nvidia-smi``), build every kernel source with
+   ``nvcc`` from this checkout (one ``nvcc`` per source, started
+   together) and print the build times.
+2. Hold the serving kernel against its plain PyTorch version on the card
+   at the serving path's shapes (M=26,744 items, R=64; B in {1, 8, 256};
+   k in {16, 128, 26,744}; fp32, bf16 and int8 stores; seen mask on and
+   off), on random data and on integer data with ties across tiles.
+5. Train the recommendation template at MovieLens-20M width: about 20M
+   synthetic ratings of 138,493 users x 26,744 items from ``--seed``
+   (lognormal row lengths of mean ~140 capped at 2,048, power-law item
+   popularity, 0.5-5.0 stars) through a local data source,
+   ``RatingsPreparator(bucketed=True)`` and ``Engine.train`` with
+   ``ALSParams(rank=64, num_iterations=3)``, implicit. Both training
+   kernels' launch counts must rise. One more iteration runs under the
+   profiler (time and device busy share), and the plain trainer runs the
+   same 3 iterations from the same init on the card for comparison.
+2b. Hold the two training kernels against their plain versions: the
+   assembly on every row of every bucket of both sides (trained and
+   integer factors, implicit and explicit weights, the layout's own
+   zero-weight padding), the solve on B in {1, 127, 4,096, 138,493}
+   random SPD systems, an ill-scaled family and real training systems.
+3. Serve the model phase 5 trained: start the port's QueryServer, send
+   user, blacklist, category, item-similarity and unknown-user queries,
+   some from 8 concurrent clients, and check every answer against the
+   same pipeline with the plain version in place of the serving kernel.
+   Its launch count must rise.
+4. Time the serving kernel at every (store, B, k) against its bound, its
+   plain version and one library call; print the HTTP p50/p99.
+4b. Time the training kernels at the full-width shapes (the assembly on
+   every bucket of both sides, the solve on each side's whole batch)
+   against their bounds, plain versions and one library call each.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -43,6 +59,14 @@ H100_FP32_FLOPS = 67e12       # fp32 outside the tensor cores
 M_ITEMS, N_USERS, RANK = 26_744, 138_493, 64
 BATCHES, KS = (1, 8, 256), (16, 128, M_ITEMS)
 RTOL = 1e-5
+ITERATIONS, LAMBDA, ALPHA = 3, 0.01, 1.0
+# relative Frobenius distance allowed between the kernel-trained and the
+# plain-trained factors after ITERATIONS iterations from one init: both
+# sum in fp32 in different orders (about 1e-7 relative per normal
+# equation), which the solves amplify by the systems' condition numbers
+# and the iterations carry on; the JAX package holds its own trainers to
+# 1e-3 after 3 implicit iterations
+TRAIN_RTOL = 1e-3
 
 
 def nvidia_smi() -> str:
@@ -55,14 +79,17 @@ def nvidia_smi() -> str:
 # -- phase 1 ----------------------------------------------------------------
 
 def build_kernels() -> float:
+    """Build every source at once, one nvcc each."""
     from predictionio_tpu_torch.ops import _build, als_cuda
 
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    _build.load_kernel_library(als_cuda.KERNEL_NAME)
+    _build.build_libraries(als_cuda.KERNEL_NAMES)
     seconds = time.perf_counter() - t0
-    print(f"[build] {als_cuda.KERNEL_NAME}: nvcc sm_90a {seconds:.1f} s -> "
-          f"{_build.library_path(als_cuda.KERNEL_NAME).name}")
+    print(f"[build] {', '.join(n + '.cu' for n in als_cuda.KERNEL_NAMES)}: "
+          f"nvcc sm_90a, started together, {seconds:.1f} s -> "
+          + ", ".join(_build.library_path(n).name
+                      for n in als_cuda.KERNEL_NAMES))
     return seconds
 
 
@@ -206,41 +233,322 @@ def kernel_checks(dev, seed: int) -> float:
     return worst
 
 
-# -- phase 3 ----------------------------------------------------------------
+# -- phase 5: training -----------------------------------------------------
 
-def ml20m_model(seed: int):
-    """Random factors and heavy-tailed seen lists at MovieLens-20M width,
-    wrapped as the port's ALSModel (served as a deployment would be:
-    the default device store on the default card)."""
-    from predictionio_tpu_torch.weights import als_model_from_numpy
-
+def ml20m_ratings(seed: int):
+    """About 20M ratings at MovieLens-20M width: lognormal row lengths
+    (mean ~140 = 20M / 138,493 users) capped at 2,048 (the heaviest user
+    reaches the cap), each user's distinct items drawn by a power-law
+    popularity (twice over, first occurrences kept, cut to length), 0.5
+    to 5.0 stars; and 1-3 of 20 genres per item."""
     rng = np.random.default_rng(seed)
-    X = (rng.normal(size=(N_USERS, RANK)) * 0.3).astype(np.float32)
-    Y = (rng.normal(size=(M_ITEMS, RANK)) * 0.3).astype(np.float32)
-    # lognormal lengths (mean ~144 = 20M ratings / 138,493 users), capped
-    # at 2,048 (the heaviest user reaches the cap); distinct items drawn
-    # by a power-law popularity, twice over and cut to length
     lens = np.clip(rng.lognormal(4.25, 1.2, N_USERS).astype(np.int64), 1,
                    2048)
     lens[np.argmax(lens)] = 2048
     pop = 1.0 / (np.arange(M_ITEMS) + 10.0) ** 0.8
     draws = rng.choice(M_ITEMS, size=int(2 * lens.sum()), p=pop / pop.sum())
-    bounds = np.concatenate([[0], np.cumsum(2 * lens)])
-    seen = {}
-    for u in range(N_USERS):
-        items, first = np.unique(draws[bounds[u]:bounds[u + 1]],
-                                 return_index=True)
-        seen[u] = items[np.argsort(first)][:lens[u]]
+    user_of = np.repeat(np.arange(N_USERS), 2 * lens)
+    key = user_of * M_ITEMS + draws
+    order = np.argsort(key, kind="stable")
+    first = np.ones(len(key), dtype=bool)
+    first[1:] = key[order][1:] != key[order][:-1]
+    kept = np.sort(order[first])            # first draws, in draw order
+    users = user_of[kept]
+    rank = np.arange(len(kept)) - np.searchsorted(users, users)
+    sel = rank < lens[users]
+    rows, cols = users[sel], draws[kept][sel]
+    values = (rng.integers(1, 11, len(rows)) * 0.5).astype(np.float32)
     genres = [f"g{g}" for g in range(20)]
-    cats = {i: tuple(rng.choice(genres, size=rng.integers(1, 4),
-                                replace=False)) for i in range(M_ITEMS)}
-    model = als_model_from_numpy(
-        X, Y, [f"u{u}" for u in range(N_USERS)],
-        [f"i{i}" for i in range(M_ITEMS)], seen, item_categories=cats)
-    sizes = np.asarray([len(v) for v in seen.values()])
-    print(f"[serve] seen lists: mean {sizes.mean():.1f}, max {sizes.max()}")
-    return model
+    cats = {f"i{i}": tuple(rng.choice(genres, size=rng.integers(1, 4),
+                                      replace=False))
+            for i in range(M_ITEMS)}
+    return rows, cols, values, cats
 
+
+def smoke_engine():
+    """The template's engine with a local data source registered (the
+    event-store reader is not ported yet) and a preparator that records
+    its time and output for the later phases."""
+    import dataclasses
+
+    from predictionio_tpu_torch.controller import Engine, Params, PDataSource
+    from predictionio_tpu_torch.data.bimap import StringIndexBiMap
+    from predictionio_tpu_torch.templates.recommendation.engine import (
+        IndexedTrainingData,
+        RatingsPreparator,
+        engine_factory,
+    )
+
+    @dataclasses.dataclass(frozen=True)
+    class SourceParams(Params):
+        seed: int = 0
+
+    class SyntheticSource(PDataSource):
+        """Already-indexed ratings (no 20M-string np.unique)."""
+
+        params_class = SourceParams
+
+        def read_training(self, ctx):
+            t0 = time.perf_counter()
+            rows, cols, values, cats = ml20m_ratings(self.params.seed)
+            td = IndexedTrainingData(
+                StringIndexBiMap.from_distinct(
+                    [f"u{u}" for u in range(N_USERS)]),
+                StringIndexBiMap.from_distinct(
+                    [f"i{i}" for i in range(M_ITEMS)]),
+                rows, cols, values)
+            td.item_categories = cats
+            print(f"[train] read: {len(td)} ratings made in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            return td
+
+    class RecordingPreparator(RatingsPreparator):
+        last: dict = {}
+
+        def prepare(self, ctx, td):
+            t0 = time.perf_counter()
+            pd = super().prepare(ctx, td)
+            RecordingPreparator.last = {
+                "seconds": time.perf_counter() - t0, "pd": pd}
+            return pd
+
+    base = engine_factory()
+    return (Engine(SyntheticSource, RecordingPreparator,
+                   base.algorithm_class_map, base.serving_class_map),
+            SourceParams, RecordingPreparator)
+
+
+def bucket_tables(side, dev):
+    return [(b.row_ids, b.cols, b.weights, b.mask)
+            for b in side.to_device(dev).buckets]
+
+
+def train_full_width(dev, seed: int) -> dict:
+    import torch
+
+    from predictionio_tpu_torch.controller import EngineParams
+    from predictionio_tpu_torch.core.context import ComputeContext
+    from predictionio_tpu_torch.ops import als as als_mod
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.templates.recommendation.engine import (
+        PreparatorParams,
+    )
+
+    engine, SourceParams, preparator = smoke_engine()
+    params = als_mod.ALSParams(rank=RANK, num_iterations=ITERATIONS,
+                               lambda_=LAMBDA, alpha=ALPHA, seed=seed)
+    engine_params = EngineParams(
+        data_source_params=("", SourceParams(seed)),
+        preparator_params=("", PreparatorParams(bucketed=True)),
+        algorithm_params_list=[("als", params)])
+    t0 = time.perf_counter()
+    als_cuda.assemble_launches.reset()
+    als_cuda.spd_launches.reset()
+    model, = engine.train(ComputeContext(), engine_params)
+    torch.cuda.synchronize()
+    launches = {"assemble_normal_equations": als_cuda.assemble_launches.value,
+                "spd_solve": als_cuda.spd_launches.value}
+    total = time.perf_counter() - t0
+    pd, prep_s = preparator.last["pd"], preparator.last["seconds"]
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name} was never launched on the "
+                                 "training path")
+    if not (np.isfinite(model.user_factors).all()
+            and np.isfinite(model.item_factors).all()):
+        raise AssertionError("non-finite trained factors")
+    print(f"[train] Engine.train {total:.1f} s (prepare {prep_s:.1f} s on "
+          f"the host); model {model.user_factors.shape} x "
+          f"{model.item_factors.shape} on {model.device}")
+    for name, side in (("user", pd.user_side), ("item", pd.item_side)):
+        print(f"[train] {name} side: {len(side.buckets)} buckets, L "
+              f"{[b.max_len for b in side.buckets]}, {side.nnz} ratings in "
+              f"{side.padded_slots} padded slots, occupancy "
+              f"{side.occupancy!r}")
+    print(f"[train] launches on the training path: {launches} "
+          f"({ITERATIONS} iterations)")
+
+    # one more iteration, profiled: its time and the device's busy share
+    u_t, i_t = bucket_tables(pd.user_side, dev), bucket_tables(pd.item_side,
+                                                               dev)
+    kw = dict(lam=LAMBDA, alpha=ALPHA, implicit=True, slot_budget=None)
+    X0, Y0 = als_mod.init_factors(pd.user_side.n_rows, pd.item_side.n_rows,
+                                  RANK, seed, dev)
+    als_mod.als_iterations_bucketed(X0, Y0, u_t, i_t, num_iterations=1, **kw)
+    wall, busy, kernels = device_busy(lambda: als_mod.als_iterations_bucketed(
+        X0, Y0, u_t, i_t, num_iterations=1, **kw))
+    print(f"[train] one iteration: wall {wall!r} ms, device busy {busy!r} ms "
+          f"({100 * busy / wall:.2f}%); kernels "
+          f"{dict(kernels.most_common(8))}")
+
+    # the plain trainer from the same init, on the card
+    saved = (als_cuda.assemble_normal_equations, als_cuda.spd_solve)
+    als_cuda.assemble_normal_equations = \
+        als_cuda.assemble_normal_equations_plain
+    als_cuda.spd_solve = als_cuda.spd_solve_plain
+    try:
+        t1 = time.perf_counter()
+        Xp, Yp = als_mod.als_iterations_bucketed(
+            X0, Y0, u_t, i_t, num_iterations=ITERATIONS, **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t1
+    finally:
+        als_cuda.assemble_normal_equations, als_cuda.spd_solve = saved
+    errs = {}
+    for name, got, want in (("user", model.user_factors, Xp),
+                            ("item", model.item_factors, Yp)):
+        want = want.cpu().numpy()
+        errs[name] = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    print(f"[train] kernel vs plain trainer after {ITERATIONS} iterations "
+          f"(plain {plain_s:.1f} s): relative Frobenius error {errs} "
+          f"(allowed {TRAIN_RTOL})")
+    if max(errs.values()) > TRAIN_RTOL:
+        raise AssertionError(f"trained factors differ from the plain "
+                             f"trainer's: {errs}")
+    del u_t, i_t, X0, Y0, Xp, Yp
+    return {"model": model, "pd": pd, "launches": launches,
+            "iteration_ms": wall, "busy_ms": busy, "prepare_s": prep_s,
+            "train_errs": errs}
+
+
+# -- phase 2b: training kernels against their plain versions -------------------
+
+def side_factors(model, side: str):
+    """The fixed factors a side's solve reads."""
+    return model.item_factors if side == "user" else model.user_factors
+
+
+def assembly_weights(bucket, explicit: bool, dev):
+    import torch
+
+    from predictionio_tpu_torch.ops.als import implicit_weights
+
+    m = torch.as_tensor(bucket.mask, device=dev)
+    w = torch.as_tensor(bucket.weights, device=dev) * m
+    return (m, w) if explicit else implicit_weights(w, ALPHA)
+
+
+def assembly_tolerance(Y, cols, aw, bw, gram, L: int):
+    """Elementwise allowance for two fp32 sums of the same terms in
+    different orders: each lies within (L+3) * 2^-24 of the sum of the
+    terms' magnitudes (the products' own roundings add two units), so
+    they differ by at most twice that."""
+    from predictionio_tpu_torch.ops import als_cuda
+
+    Aa, ba = als_cuda.assemble_normal_equations_plain(
+        Y.abs(), cols, aw.abs(), bw.abs(), gram.abs())
+    u = 2.0 * (L + 3) * 2.0 ** -24
+    return u * Aa, u * ba
+
+
+def training_kernel_checks(dev, trained: dict, seed: int) -> dict:
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+
+    model, pd = trained["model"], trained["pd"]
+    rng = np.random.default_rng(seed + 3)
+    worst = {"assemble": 0.0, "spd": 0.0}
+    cases = rows_checked = 0
+    for side_name, side in (("user", pd.user_side), ("item", pd.item_side)):
+        Yt = torch.from_numpy(side_factors(model, side_name)).to(dev)
+        Yi = torch.from_numpy(rng.integers(-3, 4, tuple(Yt.shape)).astype(
+            np.float32)).to(dev)
+        for bucket in side.buckets:
+            B, L = bucket.cols.shape
+            n = max(1, (1 << 22) // L)    # rows per plain [n, L, R] gather
+            cols = torch.as_tensor(bucket.cols, device=dev)
+            for explicit in (False, True):
+                aw, bw = assembly_weights(bucket, explicit, dev)
+                for kind, Y in (("trained", Yt), ("integer", Yi)):
+                    if kind == "integer":
+                        gram = torch.from_numpy(rng.integers(
+                            -4, 5, (RANK, RANK)).astype(np.float32)).to(dev)
+                    elif explicit:
+                        gram = torch.zeros((RANK, RANK), device=dev)
+                    else:
+                        gram = Y.T @ Y + LAMBDA * torch.eye(RANK, device=dev)
+                    # the kernel on the whole bucket, plain in row slices
+                    A, b = als_cuda.assemble_normal_equations(
+                        Y, cols, aw, bw, gram)
+                    torch.cuda.synchronize()
+                    for s in range(0, B, n):
+                        r = slice(s, s + n)
+                        Ap, bp = als_cuda.assemble_normal_equations_plain(
+                            Y, cols[r], aw[r], bw[r], gram)
+                        eA, eb = (A[r] - Ap).abs(), (b[r] - bp).abs()
+                        if kind == "integer":
+                            if not (torch.equal(A[r], Ap)
+                                    and torch.equal(b[r], bp)):
+                                raise AssertionError(
+                                    f"assembly {side_name} L={L} rows "
+                                    f"{s}+: integer fixture differs from "
+                                    "plain")
+                        else:
+                            tA, tb = assembly_tolerance(
+                                Y, cols[r], aw[r], bw[r], gram, L)
+                            if (eA > tA).any() or (eb > tb).any():
+                                raise AssertionError(
+                                    f"assembly {side_name} L={L} rows {s}+ "
+                                    f"explicit={explicit}: beyond the "
+                                    "reordering bound")
+                        worst["assemble"] = max(
+                            worst["assemble"], float(eA.max()),
+                            float(eb.max()))
+                    cases += 1
+            rows_checked += B
+    print(f"[kernel] assemble_normal_equations == plain in {cases} cases "
+          f"(every row of every bucket of both sides, {rows_checked} rows, "
+          f"in 4 kinds each; integer fixtures exact; max |err| "
+          f"{worst['assemble']!r})")
+
+    # solve: random SPD systems, an ill-scaled family, real systems
+    def systems(B, ill=False):
+        G = torch.randn((B, RANK, RANK), device=dev,
+                        generator=torch.Generator(dev).manual_seed(B))
+        A = G @ G.transpose(1, 2)
+        if ill:
+            A = A * 10.0 ** (torch.rand((B, 1, 1), device=dev) * 4 - 2) \
+                + 0.01 * torch.eye(RANK, device=dev)
+        else:
+            A = A / RANK + torch.eye(RANK, device=dev)
+        return A, torch.randn((B, RANK), device=dev)
+
+    real_bucket = pd.user_side.buckets[len(pd.user_side.buckets) // 2]
+    aw, bw = assembly_weights(real_bucket, False, dev)
+    Yt = torch.from_numpy(model.item_factors).to(dev)
+    real = als_cuda.assemble_normal_equations(
+        Yt, torch.as_tensor(real_bucket.cols, device=dev), aw, bw,
+        Yt.T @ Yt + LAMBDA * torch.eye(RANK, device=dev))
+    results = []
+    for label, (A, b) in [(f"B={B}", systems(B))
+                          for B in (1, 127, 4096, N_USERS)] + [
+            ("ill-scaled B=4096", systems(4096, ill=True)),
+            (f"training B={real[1].shape[0]}", real)]:
+        x = als_cuda.spd_solve(A, b)
+        torch.cuda.synchronize()
+        xp = als_cuda.spd_solve_plain(A, b)
+        res = float(torch.linalg.vector_norm(
+            (A @ x[:, :, None])[:, :, 0] - b) / torch.linalg.vector_norm(b))
+        res_p = float(torch.linalg.vector_norm(
+            (A @ xp[:, :, None])[:, :, 0] - b) / torch.linalg.vector_norm(b))
+        err = float((x - xp).abs().max())
+        rel = err / max(float(xp.abs().max()), 1e-30)
+        # the kernel repeats the plain version's operations one by one;
+        # 1e-5 of the largest entry leaves room for a different rounding
+        # of the compiler's sqrt or division, nothing more
+        if not (rel <= 1e-5 and res <= max(2 * res_p, 1e-5) and res < 1e-2):
+            raise AssertionError(f"spd_solve {label}: rel err {rel!r}, "
+                                 f"residual {res!r} (plain {res_p!r})")
+        worst["spd"] = max(worst["spd"], err)
+        results.append((label, bool(torch.equal(x, xp)), res))
+    print(f"[kernel] spd_solve == plain: "
+          + "; ".join(f"{lab}: bitwise {eq}, relative residual {r:.3g}"
+                      for lab, eq, r in results))
+    return worst
+
+
+# -- phase 3: serving the trained model ----------------------------------------
 
 def post(url: str, payload) -> tuple:
     req = urllib.request.Request(url, data=json.dumps(payload).encode(),
@@ -312,7 +620,7 @@ def device_busy(fn) -> tuple:
     return wall, busy / 1e3, names
 
 
-def serve_full_width(seed: int) -> dict:
+def serve_full_width(model, seed: int) -> dict:
     import torch
 
     from predictionio_tpu_torch.ops import als_cuda
@@ -329,13 +637,15 @@ def serve_full_width(seed: int) -> dict:
     )
 
     t0 = time.perf_counter()
-    model = ml20m_model(seed)
+    sizes = np.asarray([len(v) for v in model.seen.values()])
+    print(f"[serve] the trained model; seen lists: mean {sizes.mean():.1f}, "
+          f"max {sizes.max()}")
     engine = engine_factory()
     params = engine.engine_params_from_variant(
         {"algorithms": [{"name": "als", "params": {"rank": RANK}}]})
     dep = build_deployment(engine, params, [model])
     server = QueryServer(ServerConfig(ip="127.0.0.1", port=0), dep).start()
-    print(f"[serve] model, store and warm-up: "
+    print(f"[serve] store and warm-up: "
           f"{time.perf_counter() - t0:.1f} s")
     srv = model.device_server()
     if not isinstance(srv, serving_mod.DeviceTopK):
@@ -520,6 +830,105 @@ def timings(dev, seed: int) -> list:
     return rows
 
 
+# -- phase 4b: training kernel times ------------------------------------------
+
+def bound_of(nbytes: float, ops: float) -> tuple:
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def assembly_work(B: int, L: int, nnz: int, M: int) -> tuple:
+    """(bytes, operations) of one assembly: the fixed factors ``Y [M, R]``
+    read once (they fit in L2, so the gather re-reads no device memory),
+    the cols/aw/bw tables read once, gram read once, A and b written
+    once; per real slot, one FMA for each entry of A's upper triangle (A
+    is symmetric) and R for b."""
+    nbytes = M * RANK * 4 + B * L * 12 + RANK * RANK * 4 \
+        + B * (RANK * RANK + RANK) * 4
+    return nbytes, 2.0 * nnz * (RANK * (RANK + 1) / 2 + RANK)
+
+
+def solve_work(B: int) -> tuple:
+    """(bytes, operations) of one batched solve: the upper triangle of A
+    and b read once, x written once; R^3/3 + 2R^2 operations per
+    system."""
+    return B * (RANK * (RANK + 1) // 2 + 2 * RANK) * 4, \
+        B * (RANK ** 3 / 3.0 + 2.0 * RANK * RANK)
+
+
+def training_timings(dev, trained: dict) -> dict:
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+
+    model, pd = trained["model"], trained["pd"]
+    eye = torch.eye(RANK, device=dev)
+    out = {"assemble_normal_equations": [], "spd_solve": []}
+    for side_name, side in (("user", pd.user_side), ("item", pd.item_side)):
+        Y = torch.from_numpy(side_factors(model, side_name)).to(dev)
+        gram = Y.T @ Y + LAMBDA * eye
+        A_parts, b_parts = [], []
+        for bucket in side.buckets:
+            B, L = bucket.cols.shape
+            cols = torch.as_tensor(bucket.cols, device=dev)
+            aw, bw = assembly_weights(bucket, False, dev)
+            nnz = int(((aw != 0) | (bw != 0)).sum())
+            Yg = Y[cols.long()]
+            awYg = (aw[:, :, None] * Yg).transpose(1, 2)
+
+            def kernel():
+                return als_cuda.assemble_normal_equations(Y, cols, aw, bw,
+                                                          gram)
+
+            t_k = time_ms(kernel, 5)
+            t_p = time_ms(lambda: als_cuda.assemble_normal_equations_plain(
+                Y, cols, aw, bw, gram), 2)
+            t_l = time_ms(lambda: torch.bmm(awYg, Yg), 3)
+            del Yg, awYg
+            work = assembly_work(B, L, nnz, Y.shape[0])
+            b_ms, b_by = bound_of(*work)
+            out["assemble_normal_equations"].append({
+                "side": side_name, "B": B, "L": L, "slots": nnz,
+                "work": work, "ms": t_k, "plain_ms": t_p,
+                "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by})
+            print(f"[time] assemble {side_name:>4} B={B:<6} L={L:<6} kernel "
+                  f"{t_k!r} ms  plain {t_p!r} ms  library {t_l!r} ms  bound "
+                  f"{b_ms!r} ms ({b_by})")
+            A, b = kernel()
+            A_parts.append(A)
+            b_parts.append(b)
+        A, b = torch.cat(A_parts), torch.cat(b_parts)
+        del A_parts, b_parts
+        B = b.shape[0]
+
+        def library():
+            torch.cholesky_solve(b[:, :, None], torch.linalg.cholesky(A))
+
+        t_k = time_ms(lambda: als_cuda.spd_solve(A, b), 3)
+        t_p = time_ms(lambda: als_cuda.spd_solve_plain(A, b), 1)
+        t_l = time_ms(library, 3)
+        b_ms, b_by = bound_of(*solve_work(B))
+        out["spd_solve"].append({
+            "side": side_name, "B": B, "work": solve_work(B), "ms": t_k,
+            "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
+            "bound_by": b_by})
+        print(f"[time] spd_solve {side_name:>4} B={B:<6} kernel {t_k!r} ms  "
+              f"plain {t_p!r} ms  library {t_l!r} ms  bound {b_ms!r} ms "
+              f"({b_by})")
+        del A, b
+    heads = {}
+    for name, rows in out.items():
+        b_ms, b_by = bound_of(sum(r["work"][0] for r in rows),
+                              sum(r["work"][1] for r in rows))
+        heads[name] = {key: sum(r[key] for r in rows)
+                       for key in ("ms", "plain_ms", "library_ms")}
+        heads[name].update(bound_ms=b_ms, bound_by=b_by)
+        print(f"[time] {name} over one iteration's work: kernel "
+              f"{heads[name]['ms']!r} ms, bound {b_ms!r} ms ({b_by})")
+    return {"rows": out, "heads": heads}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -538,8 +947,11 @@ def main() -> int:
     t0 = time.perf_counter()
     build_kernels()
     max_err = kernel_checks(dev, args.seed)
-    served = serve_full_width(args.seed)
+    trained = train_full_width(dev, args.seed)
+    train_err = training_kernel_checks(dev, trained, args.seed)
+    served = serve_full_width(trained["model"], args.seed)
     rows = timings(dev, args.seed)
+    train_times = training_timings(dev, trained)
     # the line's headline shape: a full micro-batch (B=256) at the
     # default k bucket (16) on the default GPU store (bf16)
     head = next(r for r in rows
@@ -553,15 +965,28 @@ def main() -> int:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "shape": "bf16 store, B=256, k=16",
         "timings": rows}]
+    for name, replaces, err, shape in (
+            ("assemble_normal_equations", 141, train_err["assemble"],
+             "every bucket of both sides (one iteration), R=64"),
+            ("spd_solve", 277, train_err["spd"],
+             "each side's whole batch (one iteration), R=64")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "predictionio_tpu_torch/ops/csrc/als_solve.cu",
+            "replaces": f"predictionio_tpu/ops/als_pallas.py:{replaces}",
+            "launches": trained["launches"][name], "max_abs_err": err,
+            **train_times["heads"][name], "shape": shape,
+            "timings": train_times["rows"][name]})
     print(f"[done] {time.perf_counter() - t0:.1f} s; HTTP p50 "
-          f"{served['p50_ms']!r} ms p99 {served['p99_ms']!r} ms")
+          f"{served['p50_ms']!r} ms p99 {served['p99_ms']!r} ms; training "
+          f"iteration {trained['iteration_ms']!r} ms")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
+    # one card: the run used cuda:0 alone, whatever else is visible
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,12 +1,44 @@
-"""Serving flavors: the port's copy of ``LServing`` / ``LFirstServing``
-from ``predictionio_tpu/controller/controllers.py``."""
+"""Data-source, preparator and serving flavors: the port's copy of
+``PDataSource``, ``PPreparator``, ``IdentityPreparator``, ``LServing``
+and ``LFirstServing`` from ``predictionio_tpu/controller/controllers.py``."""
 
 from __future__ import annotations
 
 import abc
 from typing import Any, Sequence
 
-from predictionio_tpu_torch.core.base import BaseServing
+from predictionio_tpu_torch.core.base import (
+    BaseDataSource,
+    BasePreparator,
+    BaseServing,
+)
+
+
+class PDataSource(BaseDataSource):
+    """Parallel data source: ``read_training(ctx)`` returns TD."""
+
+    @abc.abstractmethod
+    def read_training(self, ctx: Any) -> Any: ...
+
+    def read_training_base(self, ctx):
+        return self.read_training(ctx)
+
+
+class PPreparator(BasePreparator):
+    """Parallel preparator: ``prepare(ctx, td)`` returns PD."""
+
+    @abc.abstractmethod
+    def prepare(self, ctx: Any, td: Any) -> Any: ...
+
+    def prepare_base(self, ctx, td):
+        return self.prepare(ctx, td)
+
+
+class IdentityPreparator(BasePreparator):
+    """TD passes through unchanged."""
+
+    def prepare_base(self, ctx, td):
+        return td
 
 
 class LServing(BaseServing):

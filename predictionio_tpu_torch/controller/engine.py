@@ -1,24 +1,29 @@
-"""Engine and EngineParams, the subset that builds a deployment.
+"""Engine, EngineParams and the train dataflow.
 
-The port's copy of ``predictionio_tpu/controller/engine.py`` for
-serving: name -> class maps for the algorithms and the serving, typed
-params from engine.json blocks, and the variant -> ``EngineParams``
-step. The data-source and preparator stages (and so the ``datasource``
-and ``preparator`` sections of a variant) come with the slices that
-port storage and training; a variant's other sections are not read
-here.
+The port's copy of ``predictionio_tpu/controller/engine.py``: name ->
+class maps for the four DASE stages, typed params from engine.json
+blocks, the variant -> ``EngineParams`` step, and ``Engine.train`` /
+``train_pipeline`` (read -> prepare -> train each algorithm, with the
+sanity checks and stop-after interruptions). Persisting the trained
+models waits for the storage slice: ``Engine.train`` returns them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 from predictionio_tpu_torch.core.base import (
     BaseAlgorithm,
+    BaseDataSource,
+    BasePreparator,
     Doer,
     EmptyParams,
     Params,
+    StopAfterPrepareInterruption,
+    StopAfterReadInterruption,
+    WorkflowParams,
+    run_sanity_check,
 )
 
 
@@ -32,9 +37,11 @@ def _snake_name(name: str) -> str:
 
 @dataclasses.dataclass
 class EngineParams:
-    """The serving half of one engine parameterization: (name, params)
-    per algorithm, and the serving's (name, params)."""
+    """One engine parameterization: (name, params) for the data source,
+    the preparator, each algorithm and the serving."""
 
+    data_source_params: Tuple[str, Params] = ("", EmptyParams())
+    preparator_params: Tuple[str, Params] = ("", EmptyParams())
     algorithm_params_list: Sequence[Tuple[str, Params]] = (("", EmptyParams()),)
     serving_params: Tuple[str, Params] = ("", EmptyParams())
 
@@ -93,12 +100,19 @@ def _named_block(block: Any, where: str) -> Tuple[str, Mapping[str, Any]]:
 
 
 class Engine:
-    """Name -> class maps for the algorithms and the serving."""
+    """Name -> class maps for the data source, the preparator, the
+    algorithms and the serving; a bare class means ``{"": cls}``."""
 
-    def __init__(self, algorithm_class_map: Mapping[str, type],
-                 serving_class_map: Mapping[str, type]):
+    def __init__(self, data_source_class_map: Any, preparator_class_map: Any,
+                 algorithm_class_map: Mapping[str, type],
+                 serving_class_map: Any):
+        def one_or_map(x) -> Dict[str, type]:
+            return dict(x) if isinstance(x, Mapping) else {"": x}
+
+        self.data_source_class_map = one_or_map(data_source_class_map)
+        self.preparator_class_map = one_or_map(preparator_class_map)
         self.algorithm_class_map = dict(algorithm_class_map)
-        self.serving_class_map = dict(serving_class_map)
+        self.serving_class_map = one_or_map(serving_class_map)
 
     def _make(self, class_map: Mapping[str, type], name: str,
               params: Params, stage: str) -> Any:
@@ -122,40 +136,104 @@ class Engine:
         name, params = engine_params.serving_params
         return self._make(self.serving_class_map, name, params, "serving")
 
+    def train(self, ctx: Any, engine_params: EngineParams,
+              params: Optional[WorkflowParams] = None) -> List[Any]:
+        """Run the train dataflow and return one trained model per
+        algorithm. ``ctx`` names the device (a
+        :class:`~predictionio_tpu_torch.core.context.ComputeContext`;
+        None = cuda)."""
+        ds_name, ds_params = engine_params.data_source_params
+        data_source = self._make(self.data_source_class_map, ds_name,
+                                 ds_params, "datasource")
+        prep_name, prep_params = engine_params.preparator_params
+        preparator = self._make(self.preparator_class_map, prep_name,
+                                prep_params, "preparator")
+        return train_pipeline(ctx, data_source, preparator,
+                              self._algorithms(engine_params),
+                              params or WorkflowParams())
+
     def engine_params_from_variant(
             self, variant: Mapping[str, Any]) -> EngineParams:
-        """The ``algorithms`` and ``serving`` sections of an engine.json
-        variant as EngineParams; an absent section means the default
-        ("") controller with EmptyParams."""
-        serving: Tuple[str, Params] = ("", EmptyParams())
-        if variant.get("serving") is not None:
-            name, data = _named_block(variant["serving"], "serving")
-            if name not in self.serving_class_map:
-                raise EngineConfigError(
-                    f"serving: controller named {name!r} not registered; "
-                    f"known: {sorted(self.serving_class_map)}")
-            serving = (name, params_from_dict(
-                getattr(self.serving_class_map[name], "params_class", None),
-                data, where=f"serving[{name!r}]"))
+        """A variant's ``datasource``, ``preparator``, ``algorithms`` and
+        ``serving`` sections as EngineParams; an absent section means the
+        default ("") controller with EmptyParams. A data source that is
+        not registered keeps its name with EmptyParams (the port reads no
+        event store yet, so a deployment's engine.json still parses);
+        training with it raises."""
+        return EngineParams(
+            data_source_params=_stage(variant, "datasource",
+                                      self.data_source_class_map,
+                                      defer_unknown=True),
+            preparator_params=_stage(variant, "preparator",
+                                     self.preparator_class_map),
+            algorithm_params_list=self._algorithm_params(variant),
+            serving_params=_stage(variant, "serving",
+                                  self.serving_class_map))
+
+    def _algorithm_params(self, variant: Mapping[str, Any]
+                          ) -> List[Tuple[str, Params]]:
         algo_blocks = variant.get("algorithms")
         if algo_blocks is None:
-            algos: List[Tuple[str, Params]] = [("", EmptyParams())]
-        else:
-            if not isinstance(algo_blocks, Sequence):
-                raise EngineConfigError("'algorithms' must be a list")
-            algos = []
-            for i, block in enumerate(algo_blocks):
-                name, data = _named_block(block, f"algorithms[{i}]")
-                if name not in self.algorithm_class_map:
-                    raise EngineConfigError(
-                        f"algorithms[{i}]: {name!r} not registered; known: "
-                        f"{sorted(self.algorithm_class_map)}")
-                cls = self.algorithm_class_map[name]
-                algos.append((name, params_from_dict(
-                    getattr(cls, "params_class", None), data,
-                    where=f"algorithms[{i}][{name!r}]")))
-        return EngineParams(algorithm_params_list=algos,
-                            serving_params=serving)
+            return [("", EmptyParams())]
+        if not isinstance(algo_blocks, Sequence):
+            raise EngineConfigError("'algorithms' must be a list")
+        algos = []
+        for i, block in enumerate(algo_blocks):
+            name, data = _named_block(block, f"algorithms[{i}]")
+            if name not in self.algorithm_class_map:
+                raise EngineConfigError(
+                    f"algorithms[{i}]: {name!r} not registered; known: "
+                    f"{sorted(self.algorithm_class_map)}")
+            cls = self.algorithm_class_map[name]
+            algos.append((name, params_from_dict(
+                getattr(cls, "params_class", None), data,
+                where=f"algorithms[{i}][{name!r}]")))
+        return algos
 
 
-__all__ = ["Engine", "EngineConfigError", "EngineParams", "params_from_dict"]
+def _stage(variant: Mapping[str, Any], field: str,
+           class_map: Mapping[str, type],
+           defer_unknown: bool = False) -> Tuple[str, Params]:
+    """One stage's (name, params) from its variant section."""
+    if variant.get(field) is None:
+        return "", EmptyParams()
+    name, data = _named_block(variant[field], field)
+    if name not in class_map:
+        if defer_unknown:
+            return name, EmptyParams()
+        raise EngineConfigError(
+            f"{field}: controller named {name!r} not registered; "
+            f"known: {sorted(class_map)}")
+    return name, params_from_dict(
+        getattr(class_map[name], "params_class", None), data,
+        where=f"{field}[{name!r}]")
+
+
+def train_pipeline(ctx: Any, data_source: BaseDataSource,
+                   preparator: BasePreparator,
+                   algorithms: Sequence[BaseAlgorithm],
+                   params: WorkflowParams) -> List[Any]:
+    """The train dataflow: read -> sanity -> [stop after read] ->
+    prepare -> sanity -> [stop after prepare] -> train each algorithm
+    -> sanity each model."""
+    td = data_source.read_training_base(ctx)
+    if not params.skip_sanity_check:
+        run_sanity_check(td)
+    if params.stop_after_read:
+        raise StopAfterReadInterruption(
+            "Stopping after read (stop_after_read)")
+    pd = preparator.prepare_base(ctx, td)
+    if not params.skip_sanity_check:
+        run_sanity_check(pd)
+    if params.stop_after_prepare:
+        raise StopAfterPrepareInterruption(
+            "Stopping after prepare (stop_after_prepare)")
+    models = [algo.train_base(ctx, pd) for algo in algorithms]
+    if not params.skip_sanity_check:
+        for m in models:
+            run_sanity_check(m)
+    return models
+
+
+__all__ = ["Engine", "EngineConfigError", "EngineParams", "params_from_dict",
+           "train_pipeline"]

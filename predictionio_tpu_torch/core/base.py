@@ -1,16 +1,19 @@
-"""Base contracts of the DASE pipeline, the subset serving needs.
+"""Base contracts of the DASE pipeline, the subset training and serving
+need.
 
 The port's copy of ``predictionio_tpu/core/base.py``: ``Params``, the
-controller base with its one ``params`` argument, ``BaseAlgorithm`` and
-``BaseServing``. The data-source, preparator and evaluator bases come
-with the slices that port training and evaluation.
+workflow controls (``WorkflowParams``, the stop-after interruptions,
+``run_sanity_check``), the controller base with its one ``params``
+argument, and the data-source, preparator, algorithm and serving bases.
+The evaluator bases come with the slice that ports evaluation.
 """
 
 from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Protocol, Sequence, Tuple, \
+    runtime_checkable
 
 
 class Params:
@@ -21,6 +24,43 @@ class Params:
 @dataclasses.dataclass(frozen=True)
 class EmptyParams(Params):
     """No parameters."""
+
+
+@dataclasses.dataclass
+class WorkflowParams:
+    """Training-process controls: ``stop_after_read`` /
+    ``stop_after_prepare`` interrupt the train dataflow after that
+    stage; ``skip_sanity_check`` skips the data and model checks."""
+
+    skip_sanity_check: bool = False
+    stop_after_read: bool = False
+    stop_after_prepare: bool = False
+
+
+class TrainingInterruption(Exception):
+    """Base of the deliberate workflow interruptions."""
+
+
+class StopAfterReadInterruption(TrainingInterruption):
+    pass
+
+
+class StopAfterPrepareInterruption(TrainingInterruption):
+    pass
+
+
+@runtime_checkable
+class SanityCheck(Protocol):
+    """Objects that check themselves: ``sanity_check`` raises on bad
+    data."""
+
+    def sanity_check(self) -> None: ...
+
+
+def run_sanity_check(obj: Any) -> None:
+    """Run the object's check iff it has one."""
+    if isinstance(obj, SanityCheck):
+        obj.sanity_check()
 
 
 class AbstractDoer:
@@ -36,6 +76,21 @@ class AbstractDoer:
 def Doer(clazz: type, params: Optional[Params] = None) -> Any:
     """Instantiate a controller with its params."""
     return clazz(params)
+
+
+class BaseDataSource(AbstractDoer, abc.ABC):
+    """Reads the training data."""
+
+    @abc.abstractmethod
+    def read_training_base(self, ctx: Any) -> Any:
+        """Return TD."""
+
+
+class BasePreparator(AbstractDoer, abc.ABC):
+    """TD -> PD."""
+
+    @abc.abstractmethod
+    def prepare_base(self, ctx: Any, td: Any) -> Any: ...
 
 
 class BaseAlgorithm(AbstractDoer, abc.ABC):

@@ -6,6 +6,8 @@ shared library with a plain C interface, which is loaded with
 file (listed in ``.gitignore``); the library's file name carries a
 digest of its source, so an edited source is rebuilt. A failed build
 raises: nothing falls back to a plain PyTorch version.
+:func:`build_libraries` starts one ``nvcc`` per missing source, all at
+once.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -51,26 +53,44 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def _build_missing(names: Iterable[str]) -> None:
+    """Compile every source of ``names`` whose library is not on disk,
+    one ``nvcc`` each, all started together; raises after all have
+    ended if any failed."""
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        jobs.append((name, out, tmp, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+             str(SRC_DIR / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs = [(job, *job[3].communicate()) for job in jobs]
+    for (name, out, tmp, proc), stdout, stderr in logs:
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"CUDA kernel build of {name} failed (nvcc exited "
+                f"{proc.returncode}):\n{stdout}{stderr}")
+        os.replace(tmp, out)
+
+
+def build_libraries(names: Iterable[str]) -> None:
+    """Build the libraries of ``names`` that are not on disk yet."""
+    with _lock:
+        _build_missing(names)
+
+
 def load_kernel_library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if it is not
     on disk yet."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            out = library_path(name)
-            if not out.exists():
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                tmp = out.with_suffix(f".{os.getpid()}.tmp")
-                proc = subprocess.run(
-                    [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                     str(SRC_DIR / f"{name}.cu")],
-                    capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"CUDA kernel build of {name} failed (nvcc exited "
-                        f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
-                os.replace(tmp, out)
-            lib = ctypes.CDLL(str(out))
+            _build_missing([name])
+            lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib
 

@@ -1,25 +1,52 @@
-"""ALS hyper-parameters.
+"""Alternating least squares: host layouts, the device math and trainers.
 
-The port's copy of ``predictionio_tpu.ops.als.ALSParams``, so an
-engine.json written for the JAX package parses here unchanged. The
-trainers of that module (``train_als``, ``train_als_bucketed``,
-``_solve_rows``) and their two kernels come with the ALS training slice
-(ROADMAP, queue A item 1).
+The port's copy of ``predictionio_tpu/ops/als.py`` (names kept, so each
+counterpart is easy to find):
+
+- **Host layouts** (numpy only): ``PaddedRatings`` / ``pad_ratings`` /
+  ``pad_rows_to_block``, the uniform ``[N, L]`` tables, and
+  ``RatingsBucket`` / ``BucketedRatings`` / ``bucket_ratings`` /
+  ``bucket_ratings_pair``, the length-bucketed ones. The JAX versions
+  try a native fill first; the port takes their numpy scatter, which
+  gives the same bytes.
+- **Device math** (fp32 torch): ``_solve_rows`` solves one batch of rows
+  through the two CUDA kernels of :mod:`~predictionio_tpu_torch.ops.
+  als_cuda`, ``assemble_normal_equations`` then ``spd_solve`` (their
+  plain versions on CPU tensors); ``als_iterations`` and
+  ``als_iterations_bucketed`` are the training loops, as Python loops.
+  ``Y^T Y`` is a plain large product and stays ``torch.matmul``.
+- **Trainers**: ``train_als`` and ``train_als_bucketed`` return host
+  fp32 numpy ``(X [N, R], Y [M, R])`` as the JAX ones do.
+
+Implicit objective (Hu-Koren-Volinsky, as in MLlib): confidence
+``c = 1 + alpha * |r|``, preference ``p = 1`` iff ``r > 0``; per row
+``(Y^T Y + Y^T (C - I) Y + lambda I) x = Y^T C p``. Explicit (ALS-WR):
+``(Y_u^T Y_u + lambda * n_u * I) x = Y_u^T r_u``.
+
+Not in this slice (they raise ``NotImplementedError``): the bf16
+training precision and checkpointed training (ROADMAP queue A item 1,
+deferred), and the config grid's ``extra_ridge`` (queue A item 6).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import os
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
 
 from predictionio_tpu_torch.core.base import Params
+from predictionio_tpu_torch.device import DeviceLike, resolve_device
+from predictionio_tpu_torch.ops import als_cuda
 
 
 @dataclasses.dataclass(frozen=True)
 class ALSParams(Params):
-    """Field for field the reference's ALS parameters; see
-    ``predictionio_tpu/ops/als.py:44-90`` for what each one does in
-    training."""
+    """Field for field the reference's ALS parameters, so an engine.json
+    written for the JAX package parses here unchanged; see
+    ``predictionio_tpu/ops/als.py:44-90`` for what each one does."""
 
     rank: int = 10
     num_iterations: int = 10
@@ -32,3 +59,509 @@ class ALSParams(Params):
     precision: str = "fp32"
     solve_refine: bool = False
     checkpoint_every: Optional[int] = None
+
+
+# -- host layouts --------------------------------------------------------------
+
+@dataclasses.dataclass
+class PaddedRatings:
+    """One side's ragged ratings padded to ``[n_rows, max_len]``:
+    ``cols`` the column index of each rating (0 when padded),
+    ``weights`` its value, ``mask`` 1.0 for real entries. Rows at or
+    past ``n_valid_rows`` (set by :func:`pad_rows_to_block`) are
+    padding."""
+
+    cols: np.ndarray      # int32 [n_rows, L]
+    weights: np.ndarray   # float32 [n_rows, L]
+    mask: np.ndarray      # float32 [n_rows, L]
+    n_rows: int
+    n_cols: int
+    n_valid_rows: Optional[int] = None
+
+    @property
+    def max_len(self) -> int:
+        return int(self.cols.shape[1])
+
+    @property
+    def valid_rows(self) -> int:
+        return self.n_rows if self.n_valid_rows is None \
+            else self.n_valid_rows
+
+
+# rows pad to a multiple of this in every solve-table layout
+PAD_MULTIPLE = 8
+
+
+def dedup_sum_ratings(rows: np.ndarray, cols: np.ndarray,
+                      values: np.ndarray, n_cols: int):
+    """Sum duplicate (row, col) pairs (the template's ``reduceByKey(_ +
+    _)``); returns unique (rows, cols, summed values) sorted by (row,
+    col)."""
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    values = np.asarray(values, dtype=np.float32)
+    if not len(rows):
+        return rows, cols, values
+    key = rows * n_cols + cols
+    order = np.argsort(key, kind="stable")
+    return dedup_sum_sorted(key[order], rows[order], cols[order],
+                            values[order])
+
+
+def dedup_sum_sorted(key: np.ndarray, rows: np.ndarray, cols: np.ndarray,
+                     values: np.ndarray):
+    """The dedup-sum over triples already stably sorted by the (row,
+    col) key: segment starts, then one ``np.add.reduceat``."""
+    if not len(rows):
+        return (np.asarray(rows, dtype=np.int64),
+                np.asarray(cols, dtype=np.int64),
+                np.asarray(values, dtype=np.float32))
+    starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+    sums = np.add.reduceat(values, starts).astype(np.float32)
+    return (rows[starts].astype(np.int64),
+            cols[starts].astype(np.int64), sums)
+
+
+def _strongest_first(rows, cols, values):
+    """Each row's ratings strongest magnitude first, so a ``max_len``
+    cut keeps the heaviest."""
+    order = np.lexsort((-np.abs(values), rows))
+    return rows[order], cols[order], values[order]
+
+
+def pad_ratings(rows: np.ndarray, cols: np.ndarray, values: np.ndarray,
+                n_rows: int, n_cols: int, pad_multiple: int = PAD_MULTIPLE,
+                max_len: Optional[int] = None) -> PaddedRatings:
+    """Host-side padding of rating triples for one solve side, after
+    summing duplicates. ``max_len`` truncates long rows, keeping their
+    largest-magnitude ratings."""
+    rows, cols, values = dedup_sum_ratings(rows, cols, values, n_cols)
+    counts = np.bincount(rows, minlength=n_rows)
+    true_top = int(counts.max()) if len(counts) and counts.max() > 0 else 1
+    L = true_top if max_len is None else min(true_top, int(max_len))
+    L = max(1, -(-L // pad_multiple) * pad_multiple)
+    if true_top > L:
+        rows, cols, values = _strongest_first(rows, cols, values)
+    row_starts = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(counts, out=row_starts[1:])
+    pos = np.arange(len(rows)) - row_starts[rows]
+    if true_top > L:
+        keep = pos < L
+        rows, cols, values, pos = rows[keep], cols[keep], values[keep], \
+            pos[keep]
+    out_cols = np.zeros((n_rows, L), dtype=np.int32)
+    out_w = np.zeros((n_rows, L), dtype=np.float32)
+    out_m = np.zeros((n_rows, L), dtype=np.float32)
+    out_cols[rows, pos] = cols
+    out_w[rows, pos] = values
+    out_m[rows, pos] = 1.0
+    return PaddedRatings(out_cols, out_w, out_m, n_rows, n_cols)
+
+
+def pad_rows_to_block(side: PaddedRatings, block: int) -> PaddedRatings:
+    """Pad the row dimension to a multiple of ``block`` with empty rows,
+    recording the true row count in ``n_valid_rows``."""
+    pad = (-side.n_rows) % block
+    if pad == 0:
+        return side
+
+    def z(a):
+        return np.concatenate([a, np.zeros((pad, a.shape[1]), a.dtype)])
+
+    return PaddedRatings(z(side.cols), z(side.weights), z(side.mask),
+                         side.n_rows + pad, side.n_cols,
+                         n_valid_rows=side.valid_rows)
+
+
+@dataclasses.dataclass
+class RatingsBucket:
+    """Rows of one length class, padded to the bucket's own ``L``.
+    ``row_ids[i]`` is the true row of table row ``i``; rows added to
+    round the count up carry the sentinel ``n_rows`` and a zero mask,
+    and the half-step drops them. Tables are numpy arrays, or torch
+    tensors after :meth:`BucketedRatings.to_device`."""
+
+    row_ids: np.ndarray   # int32 [B]
+    cols: np.ndarray      # int32 [B, L]
+    weights: np.ndarray   # float32 [B, L]
+    mask: np.ndarray      # float32 [B, L]
+
+    @property
+    def max_len(self) -> int:
+        return int(self.cols.shape[1])
+
+
+@dataclasses.dataclass
+class BucketedRatings:
+    """One solve side's ratings grouped into row-length buckets, each
+    padded only to its own length class."""
+
+    buckets: List[RatingsBucket]
+    n_rows: int
+    n_cols: int
+
+    @property
+    def padded_slots(self) -> int:
+        return sum(int(np.prod(b.cols.shape)) for b in self.buckets)
+
+    @property
+    def nnz(self) -> int:
+        return int(sum(float(b.mask.sum()) for b in self.buckets))
+
+    @property
+    def occupancy(self) -> float:
+        slots = self.padded_slots
+        return self.nnz / slots if slots else 0.0
+
+    def to_device(self, device: DeviceLike = None) -> "BucketedRatings":
+        """A new BucketedRatings whose tables are torch tensors on
+        ``device`` (None = cuda); the original stays as it is. Tables
+        already there are not copied."""
+        dev = resolve_device(device)
+
+        def put(a):
+            return torch.as_tensor(a, device=dev)
+
+        return dataclasses.replace(self, buckets=[
+            RatingsBucket(put(b.row_ids), put(b.cols), put(b.weights),
+                          put(b.mask)) for b in self.buckets])
+
+
+def bucket_ratings(rows: np.ndarray, cols: np.ndarray, values: np.ndarray,
+                   n_rows: int, n_cols: int,
+                   bucket_lengths: Optional[Sequence[int]] = None,
+                   max_len: Optional[int] = None,
+                   pad_multiple: int = PAD_MULTIPLE,
+                   row_multiple: int = 8) -> BucketedRatings:
+    """Group rows by rating count into geometric length buckets, after
+    summing duplicates. ``max_len=None`` truncates nothing;
+    ``bucket_lengths=None`` builds a x2 ladder from 16 up to the longest
+    row."""
+    rows, cols, values = dedup_sum_ratings(rows, cols, values, n_cols)
+    return _bucket_grouped(rows, cols, values, n_rows, n_cols,
+                           bucket_lengths, max_len, pad_multiple,
+                           row_multiple)
+
+
+def bucket_ratings_pair(
+        rows: np.ndarray, cols: np.ndarray, values: np.ndarray,
+        n_rows: int, n_cols: int,
+        bucket_lengths: Optional[Sequence[int]] = None,
+        max_len: Optional[int] = None, pad_multiple: int = PAD_MULTIPLE,
+        row_multiple: int = 8) -> Tuple[BucketedRatings, BucketedRatings]:
+    """Both solve sides from one dedup-sum: the row side from the
+    row-grouped result, the column side after one stable re-sort.
+    Returns ``(row_side, col_side)``."""
+    rows, cols, values = dedup_sum_ratings(rows, cols, values, n_cols)
+    row_side = _bucket_grouped(rows, cols, values, n_rows, n_cols,
+                               bucket_lengths, max_len, pad_multiple,
+                               row_multiple)
+    o = np.argsort(cols, kind="stable")
+    col_side = _bucket_grouped(cols[o], rows[o], values[o], n_cols, n_rows,
+                               bucket_lengths, max_len, pad_multiple,
+                               row_multiple)
+    return row_side, col_side
+
+
+def _bucket_grouped(rows, cols, values, n_rows: int, n_cols: int,
+                    bucket_lengths, max_len, pad_multiple: int,
+                    row_multiple: int) -> BucketedRatings:
+    """Bucketing over deduplicated triples sorted by row."""
+    counts = np.bincount(rows, minlength=n_rows)
+    true_top = int(counts.max()) if counts.size and counts.max() > 0 else 1
+    L_top = true_top if max_len is None else min(true_top, int(max_len))
+    L_top = max(1, -(-L_top // pad_multiple) * pad_multiple)
+    if bucket_lengths is None:
+        lengths = []
+        L = min(16, L_top)
+        while L < L_top:
+            lengths.append(L)
+            L *= 2
+        lengths.append(L_top)
+    else:
+        lengths = sorted({min(int(x), L_top) for x in bucket_lengths})
+        if not lengths or lengths[-1] < L_top:
+            lengths.append(L_top)
+    lengths = sorted({max(1, -(-x // pad_multiple) * pad_multiple)
+                      for x in lengths})
+
+    if true_top > L_top:
+        rows, cols, values = _strongest_first(rows, cols, values)
+    row_starts = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(counts, out=row_starts[1:])
+    pos = np.arange(len(rows)) - row_starts[rows]
+    if true_top > L_top:
+        keep = pos < L_top
+        rows, cols, values, pos = rows[keep], cols[keep], values[keep], \
+            pos[keep]
+
+    eff = np.minimum(counts, L_top)
+    b_of_row = np.searchsorted(lengths, eff, side="left")
+    b_of_entry = b_of_row[rows]
+    rank = np.empty(n_rows, dtype=np.int64)  # valid only at member rows
+    out: List[RatingsBucket] = []
+    for b, L in enumerate(lengths):
+        members = np.nonzero((b_of_row == b) & (eff > 0))[0]
+        if members.size == 0:
+            continue
+        B = int(members.size)
+        Bp = -(-B // row_multiple) * row_multiple
+        rank[members] = np.arange(B)
+        oc = np.zeros((Bp, L), dtype=np.int32)
+        ow = np.zeros((Bp, L), dtype=np.float32)
+        om = np.zeros((Bp, L), dtype=np.float32)
+        row_ids = np.full(Bp, n_rows, dtype=np.int32)  # pad sentinel
+        row_ids[:B] = members
+        sel = b_of_entry == b
+        r, p = rank[rows[sel]], pos[sel]
+        oc[r, p] = cols[sel]
+        ow[r, p] = values[sel]
+        om[r, p] = 1.0
+        out.append(RatingsBucket(row_ids, oc, ow, om))
+    return BucketedRatings(out, n_rows, n_cols)
+
+
+# -- device math ----------------------------------------------------------------
+
+def implicit_weights(w: torch.Tensor, alpha: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Hu-Koren-Volinsky weights: A weights ``alpha*|r|`` and b weights
+    ``pref*(1+alpha*|r|)`` with ``pref = 1 iff r > 0``."""
+    aw = alpha * torch.abs(w)
+    return aw, (w > 0).to(w.dtype) * (1.0 + aw)
+
+
+def zero_empty_rows(X: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Rows with no ratings keep a zero factor."""
+    return X * (mask.sum(dim=1) > 0).to(X.dtype)[:, None]
+
+
+def _check_supported(params: ALSParams) -> None:
+    """Raise on the training features this slice does not port, named
+    with their ROADMAP item; an unknown precision raises too."""
+    forced = os.environ.get("PIO_ALS_PRECISION", "").strip().lower()
+    source = "PIO_ALS_PRECISION" if forced else "ALSParams.precision"
+    mode = forced or str(params.precision or "fp32").strip().lower()
+    mode = {"float32": "fp32", "bfloat16": "bf16"}.get(mode, mode)
+    if mode == "bf16":
+        raise NotImplementedError(
+            f"{source}=bf16: the bf16 training precision is not ported yet "
+            "(ROADMAP queue A item 1, deferred); train in fp32")
+    if mode != "fp32":
+        raise ValueError(f"{source}={mode!r} is not a known precision mode "
+                         "(expected one of: fp32, bf16)")
+    every = os.environ.get("PIO_CHECKPOINT_EVERY", "").strip()
+    if params.checkpoint_every or every not in ("", "0"):
+        raise NotImplementedError(
+            "checkpointed training (checkpoint_every / PIO_CHECKPOINT_EVERY) "
+            "is not ported yet (ROADMAP queue A item 1, deferred)")
+
+
+def init_factors(n_rows: int, n_cols: int, rank: int, seed: Optional[int],
+                 device: DeviceLike = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MLlib-style init: normal factors scaled by ``1/sqrt(rank)``,
+    drawn on the host from a ``torch.Generator`` seeded with ``seed``
+    (0 when None), so every device starts from the same numbers. They
+    are not ``jax.random``'s numbers: differential tests inject one
+    shared init."""
+    g = torch.Generator().manual_seed(0 if seed is None else int(seed))
+    scale = 1.0 / np.sqrt(rank)
+    X = torch.randn((n_rows, rank), generator=g) * scale
+    Y = torch.randn((n_cols, rank), generator=g) * scale
+    dev = resolve_device(device)
+    return X.to(dev), Y.to(dev)
+
+
+def _solve_rows(Y: torch.Tensor, cols: torch.Tensor, weights: torch.Tensor,
+                mask: torch.Tensor, lam: float, alpha: float, implicit: bool,
+                gram: Optional[torch.Tensor] = None, refine: bool = False,
+                extra_ridge=None) -> torch.Tensor:
+    """Normal-equation solve for one batch of rows: fixed factors
+    ``Y [M, R]`` and padded ratings ``[B, L]`` (+ validity mask) give new
+    factors ``[B, R]``, fp32. ``gram`` (``Y^T Y``) may be passed in so
+    bucketed solves share one.
+
+    Implicit: ``lam * I`` is folded into the Gram term the assembly
+    adds (as the JAX ``solve_side_pallas`` does; the JAX XLA path adds
+    it after the sum, so the two differ in the last bits). Explicit: the
+    assembly's Gram term is zero and ``lam * max(n_b, 1)`` joins the
+    diagonal after it, ``n_b`` counted over the real slots.
+    ``refine`` adds one refinement pass ``x += solve(A, b - A x)``.
+
+    The counterpart of both JAX ``_solve_rows`` and ``solve_side_pallas``:
+    the port has one solver, the ``spd_solve`` kernel, so JAX's solver
+    dispatch ``_spd_solve`` has no counterpart of its own."""
+    if extra_ridge is not None:
+        raise NotImplementedError(
+            "extra_ridge (the config grid's rank padding) is not ported yet "
+            "(ROADMAP queue A item 6: the tuning grid)")
+    R = Y.shape[1]
+    mask = mask.to(Y.dtype)
+    w = weights.to(Y.dtype) * mask            # zero out padded slots
+    eye = torch.eye(R, dtype=Y.dtype, device=Y.device)
+    if implicit:
+        aw, bw = implicit_weights(w, alpha)
+        if gram is None:
+            gram = Y.T @ Y
+        A, b = als_cuda.assemble_normal_equations(
+            Y, cols, aw, bw, gram + lam * eye)
+    else:
+        A, b = als_cuda.assemble_normal_equations(
+            Y, cols, mask, w, torch.zeros_like(eye))
+        n_b = mask.sum(dim=1)
+        A.diagonal(dim1=1, dim2=2).add_((lam * n_b.clamp(min=1.0))[:, None])
+    X = als_cuda.spd_solve(A, b)
+    if refine:
+        X = X + als_cuda.spd_solve(A, b - torch.einsum("brs,bs->br", A, X))
+    return zero_empty_rows(X, mask)
+
+
+def _solve_side_blocked(Y, cols, weights, mask, lam: float, alpha: float,
+                        implicit: bool, block: Optional[int],
+                        refine: bool = False) -> torch.Tensor:
+    """One uniform-table half-step, over sequential row blocks of
+    ``block`` rows when set (the caller pads rows to a multiple)."""
+    B = cols.shape[0]
+    if not block or B <= block:
+        return _solve_rows(Y, cols, weights, mask, lam, alpha, implicit,
+                           refine=refine)
+    return torch.cat([
+        _solve_rows(Y, cols[s:s + block], weights[s:s + block],
+                    mask[s:s + block], lam, alpha, implicit, refine=refine)
+        for s in range(0, B, block)])
+
+
+def als_iterations(X, Y, u_cols, u_w, u_m, i_cols, i_w, i_m, *, lam: float,
+                   alpha: float, implicit: bool, num_iterations: int,
+                   block: Optional[int] = None, refine: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The uniform training loop (``_als_iterations_impl``): each
+    iteration solves the user side against ``Y``, then the item side
+    against the new ``X``. Returns new tensors; the inputs are not
+    changed."""
+    for _ in range(int(num_iterations)):
+        X = _solve_side_blocked(Y, u_cols, u_w, u_m, lam, alpha, implicit,
+                                block, refine)
+        Y = _solve_side_blocked(X, i_cols, i_w, i_m, lam, alpha, implicit,
+                                block, refine)
+    return X, Y
+
+
+def _solve_side_bucketed(Y: torch.Tensor, buckets, n_rows_out: int,
+                         lam: float, alpha: float, implicit: bool,
+                         slot_budget: Optional[int],
+                         refine: bool = False) -> torch.Tensor:
+    """One half-step over length buckets: one shared Gram matrix, one
+    batched solve per bucket (in row blocks of at most ``slot_budget``
+    slots when set), results written into the ``[n_rows_out, R]``
+    factors. Rows in no bucket keep zero factors; bucket pad rows carry
+    the sentinel ``row_id == n_rows_out`` and are dropped."""
+    gram = Y.T @ Y if implicit else None
+    # one spare row takes every sentinel write (no host sync to filter
+    # them), and is cut off at the end
+    X = torch.zeros((n_rows_out + 1, Y.shape[1]), dtype=Y.dtype,
+                    device=Y.device)
+    for row_ids, cols, w, m in buckets:
+        B, L = cols.shape
+        step = B
+        if slot_budget and B * L > slot_budget:
+            step = max(8, (slot_budget // L) // 8 * 8)
+        Xb = torch.cat([
+            _solve_rows(Y, cols[s:s + step], w[s:s + step], m[s:s + step],
+                        lam, alpha, implicit, gram, refine)
+            for s in range(0, B, step)])
+        X[row_ids.long()] = Xb
+    return X[:n_rows_out]
+
+
+def als_iterations_bucketed(X, Y, u_buckets, i_buckets, *, lam: float,
+                            alpha: float, implicit: bool,
+                            num_iterations: int,
+                            slot_budget: Optional[int] = None,
+                            refine: bool = False
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bucketed training loop (``_als_iterations_bucketed_impl``);
+    ``u_buckets``/``i_buckets`` are sequences of ``(row_ids, cols,
+    weights, mask)`` tensors."""
+    n_u, n_i = X.shape[0], Y.shape[0]
+    for _ in range(int(num_iterations)):
+        X = _solve_side_bucketed(Y, u_buckets, n_u, lam, alpha, implicit,
+                                 slot_budget, refine)
+        Y = _solve_side_bucketed(X, i_buckets, n_i, lam, alpha, implicit,
+                                 slot_budget, refine)
+    return X, Y
+
+
+# -- trainers ---------------------------------------------------------------------
+
+def _loop_kwargs(params: ALSParams) -> dict:
+    return dict(lam=float(params.lambda_), alpha=float(params.alpha),
+                implicit=bool(params.implicit_prefs),
+                num_iterations=int(params.num_iterations),
+                refine=bool(params.solve_refine))
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    return t.to("cpu", torch.float32).numpy()
+
+
+def train_als_bucketed(user_side: BucketedRatings, item_side: BucketedRatings,
+                       params: ALSParams, device: DeviceLike = None
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """Train on length-bucketed tables (built with
+    :func:`bucket_ratings_pair`) on ``device`` (None = cuda) and return
+    host numpy ``(user_factors [N, R], item_factors [M, R])``. The same
+    per-row solves as :func:`train_als` on the same ratings."""
+    assert user_side.n_rows >= item_side.n_cols
+    assert item_side.n_rows >= user_side.n_cols
+    _check_supported(params)
+    dev = resolve_device(device)
+    X, Y = init_factors(user_side.n_rows, item_side.n_rows, params.rank,
+                        params.seed, dev)
+
+    def tables(side):
+        return [(b.row_ids, b.cols, b.weights, b.mask)
+                for b in side.to_device(dev).buckets]
+
+    budget = params.bucket_slot_budget
+    X, Y = als_iterations_bucketed(
+        X, Y, tables(user_side), tables(item_side),
+        slot_budget=int(budget) if budget else None, **_loop_kwargs(params))
+    return _to_host(X), _to_host(Y)
+
+
+def train_als(user_side: PaddedRatings, item_side: PaddedRatings,
+              params: ALSParams, device: DeviceLike = None
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """Train on uniform tables (``user_side`` padded by user, its cols
+    item indices; ``item_side`` by item) on ``device`` (None = cuda) and
+    return host numpy ``(user_factors [N, R], item_factors [M, R])``.
+    With ``solve_block_rows`` set, rows pad to a block multiple; the pad
+    rows' init is zeroed before the first Gram term and the result is
+    cut back to the true rows."""
+    assert user_side.n_rows >= item_side.n_cols
+    assert item_side.n_rows >= user_side.n_cols
+    _check_supported(params)
+    block = params.solve_block_rows
+    if block:
+        user_side = pad_rows_to_block(user_side, block)
+        item_side = pad_rows_to_block(item_side, block)
+    dev = resolve_device(device)
+    n_u, n_i = user_side.valid_rows, item_side.valid_rows
+    X, Y = init_factors(user_side.n_rows, item_side.n_rows, params.rank,
+                        params.seed, dev)
+    # the init filled the pad rows too: zero them, or the first Gram
+    # term (Y^T Y over all rows) would see phantom factors
+    X[n_u:] = 0.0
+    Y[n_i:] = 0.0
+
+    def put(a):
+        return torch.as_tensor(a, device=dev)
+
+    X, Y = als_iterations(
+        X, Y, put(user_side.cols), put(user_side.weights),
+        put(user_side.mask), put(item_side.cols), put(item_side.weights),
+        put(item_side.mask), block=int(block) if block else None,
+        **_loop_kwargs(params))
+    return _to_host(X)[:n_u], _to_host(Y)[:n_i]

@@ -1,26 +1,43 @@
-"""The fused serving kernel: ``top_k(mask(Y @ Q^T))`` on the GPU.
+"""The port's hand-written CUDA kernels for ALS, and their plain versions.
 
-Counterpart of ``predictionio_tpu/ops/als_pallas.py``. This slice ports
-its serving kernel, ``fused_gather_score_topk`` (the TPU kernel at
-``als_pallas.py:453``, body ``_fused_topk_body``, selection
-``_topk_select_body``), as the hand-written CUDA kernel in
-``csrc/fused_topk.cu``. The training kernels of that module
-(``spd_solve``, ``assemble_normal_equations``) come with the ALS
-training slice.
+Counterpart of ``predictionio_tpu/ops/als_pallas.py``; each TPU kernel
+there has one here:
 
-Bound on an H100: the item table is read once, ``M*R*bytes(dtype)``
-bytes at 3.35 TB/s, and the scores cost ``2*B*M*R`` fp32 FMAs at the
-67 TFLOP/s non-tensor fp32 rate; bytes bind at small B, operations at
-B=256. The design scores with fp32 FMAs only (the reference pins
-``Precision.HIGHEST``), masks seen items by one scatter per (slot, query)
-instead of comparing every tile with every seen slot, and selects each
-query's top k by a radix select plus a bitonic sort, so k may be any
-value up to the number of items. The [B, M] scores make one round trip
-through device memory; keeping them on chip is later work.
+- ``fused_gather_score_topk`` (serving; the TPU kernel at
+  ``als_pallas.py:453``, body ``_fused_topk_body``, selection
+  ``_topk_select_body``) is ``csrc/fused_topk.cu``. Bound on an H100:
+  the item table is read once, ``M*R*bytes(dtype)`` bytes at 3.35 TB/s,
+  and the scores cost ``2*B*M*R`` fp32 FMAs at the 67 TFLOP/s non-tensor
+  fp32 rate; bytes bind at small B, operations at B=256. The design
+  scores with fp32 FMAs only (the reference pins ``Precision.HIGHEST``),
+  masks seen items by one scatter per (slot, query) instead of comparing
+  every tile with every seen slot, and selects each query's top k by a
+  radix select plus a bitonic sort, so k may be any value up to the
+  number of items. The [B, M] scores make one round trip through device
+  memory; keeping them on chip is later work.
+- ``assemble_normal_equations`` (training; ``als_pallas.py:141``, kernel
+  ``_kernel``) is ``assemble_kernel`` in ``csrc/als_solve.cu``. Bound:
+  ``slots*(R(R+1) + 2R)`` fp32 operations (``A`` is symmetric: one FMA
+  per entry of its upper triangle, and ``R`` for ``b``, per real slot)
+  against ``Y`` read once (it fits in L2), the ``[B, L]`` tables and
+  the ``A``/``b`` outputs; the operations bind except for the shortest
+  rows. One block per (row, 64x64 tile of A) gathers its
+  slots' factor rows in chunks into shared memory and sums in
+  registers, so no ``[B, L, R]`` gather reaches device memory; padding
+  slots are skipped.
+- ``spd_solve`` (training; ``als_pallas.py:277``, kernel
+  ``_spd_solve_kernel``) is ``spd_solve_kernel`` in the same source.
+  Bound: ``B*(R(R+1)/2+2R)*4`` bytes (the upper triangle of ``A``,
+  ``b`` and ``x``) against ``B*(R^3/3+2R^2)`` operations; the bytes
+  bind. One block per system, resident in shared memory;
+  non-pivoted Cholesky with the pivot clamped at ``max(d, 1e-30)``,
+  then two substitutions, repeating the plain version's arithmetic.
+  Ranks up to what one block's shared memory holds (240 on an H100);
+  above that it raises.
 
-For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
-tensor it runs :func:`fused_gather_score_topk_plain`, the plain PyTorch
-version that the tests hold against the JAX package.
+For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
+tensor it runs the plain PyTorch version beside it, which the tests
+hold against the JAX package. Each wrapper counts its launches.
 """
 
 from __future__ import annotations
@@ -39,11 +56,17 @@ from predictionio_tpu_torch.ops.quantize import dequantize_rows, is_quantized
 TOPK_TILE_M = 128
 
 KERNEL_NAME = "fused_topk"
+SOLVE_KERNEL_NAME = "als_solve"
+KERNEL_NAMES = (KERNEL_NAME, SOLVE_KERNEL_NAME)
 launches = LaunchCounter()
+assemble_launches = LaunchCounter()
+spd_launches = LaunchCounter()
 
 _Y_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _bound = None
 _ready_devices: set = set()
+_solve_bound = None
+_solve_ready: dict = {}
 _bind_lock = threading.Lock()
 
 
@@ -118,7 +141,7 @@ def fused_gather_score_topk(Q: torch.Tensor, Y, seen_cols: Optional[torch.Tensor
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
              device: torch.device, contiguous: bool = True) -> None:
     if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, the item table on {device}")
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -126,6 +149,16 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
                          f"got {tuple(t.shape)}")
     if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _check_launch(err: int, what: str, err_string) -> None:
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
+                           f"({err_string(err).decode()})")
 
 
 def _launch(Q, Y, seen_cols, seen_mask, *, k, n_items, mask_seen, row_valid):
@@ -165,7 +198,7 @@ def _launch(Q, Y, seen_cols, seen_mask, *, k, n_items, mask_seen, row_valid):
                  contiguous=False)
         sc_ptr, sm_ptr = seen_cols.data_ptr(), seen_mask.data_ptr()
         strides = (*seen_cols.stride(), *seen_mask.stride())
-    device = dev.index if dev.index is not None else torch.cuda.current_device()
+    device = _device_index(dev)
     fn, err_string, smem_sort_max = _kernel(device)
     N = 1 << (k - 1).bit_length()
     scores = torch.empty((B, M), dtype=torch.float32, device=dev)
@@ -173,14 +206,12 @@ def _launch(Q, Y, seen_cols, seen_mask, *, k, n_items, mask_seen, row_valid):
     if N > smem_sort_max:
         scratch = torch.empty((B, 2 * N), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(device, Q.data_ptr(), B, R, data.data_ptr(), code, scale, rv, M,
-             int(n_items), sc_ptr, sm_ptr, L, *strides, int(bool(mask_seen)),
-             k, N, scores.data_ptr(),
-             None if scratch is None else scratch.data_ptr(),
-             vals.data_ptr(), idx.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"fused_topk kernel launch failed: CUDA error "
-                           f"{err} ({err_string(err).decode()})")
+    _check_launch(fn(device, Q.data_ptr(), B, R, data.data_ptr(), code, scale,
+                     rv, M, int(n_items), sc_ptr, sm_ptr, L, *strides,
+                     int(bool(mask_seen)), k, N, scores.data_ptr(),
+                     None if scratch is None else scratch.data_ptr(),
+                     vals.data_ptr(), idx.data_ptr(), stream),
+                  "fused_topk", err_string)
     launches.add()
     return vals, idx
 
@@ -211,3 +242,157 @@ def fused_gather_score_topk_plain(Q: torch.Tensor, Y,
         scores[query, cols[slot, query]] = float("-inf")
     vals, order = torch.sort(scores, dim=1, descending=True, stable=True)
     return vals[:, :k].contiguous(), order[:, :k].to(torch.int32)
+
+
+# -- training: normal-equation assembly and the batched SPD solve ------------
+
+def _solve_kernels(device: int):
+    """(assemble fn, solve fn, error-string fn, assembly rank limit,
+    solve rank limit on ``device``), bound once per process and set up
+    once per device; the first call builds the library."""
+    global _solve_bound
+    with _bind_lock:
+        if _solve_bound is None:
+            lib = load_kernel_library(SOLVE_KERNEL_NAME)
+            p, i = ctypes.c_void_p, ctypes.c_int
+            asm = lib.pio_assemble_normal_equations
+            asm.argtypes = [i, p, i, i, p, p, p, i, i, p, p, p, p]
+            asm.restype = i
+            solve = lib.pio_spd_solve
+            solve.argtypes = [i, p, p, i, i, p, p]
+            solve.restype = i
+            err = lib.pio_als_error_string
+            err.argtypes = [i]
+            err.restype = ctypes.c_char_p
+            for name, args in (("pio_assemble_max_rank", []),
+                               ("pio_spd_max_rank", [i]),
+                               ("pio_als_solve_init", [i, i])):
+                getattr(lib, name).argtypes = args
+                getattr(lib, name).restype = i
+            _solve_bound = (lib, asm, solve, err,
+                            int(lib.pio_assemble_max_rank()))
+        lib, asm, solve, err_string, asm_max = _solve_bound
+        if device not in _solve_ready:
+            max_rank = int(lib.pio_spd_max_rank(device))
+            code = -max_rank if max_rank < 0 else lib.pio_als_solve_init(
+                device, max_rank)
+            if code:
+                raise RuntimeError(f"als_solve set-up on cuda:{device} failed: "
+                                   f"CUDA error {code} "
+                                   f"({err_string(code).decode()})")
+            _solve_ready[device] = max_rank
+    return asm, solve, err_string, asm_max, _solve_ready[device]
+
+
+def assemble_normal_equations(Y: torch.Tensor, cols: torch.Tensor,
+                              aw: torch.Tensor, bw: torch.Tensor,
+                              gram: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused gather + normal-equation assembly, the contract of the JAX
+    package's ``als_pallas.assemble_normal_equations``: returns
+    ``(A [B, R, R], b [B, R])`` fp32 with ``A[b] = gram + sum_l
+    aw[b, l] * y y^T`` and ``b[b] = sum_l bw[b, l] * y`` over
+    ``y = Y[cols[b, l]]``.
+
+    ``Y [M, R]`` fp32 fixed-side factors; ``cols [B, L]`` int32 gather
+    indices; ``aw``/``bw [B, L]`` fp32 weights (padding slots carry
+    weight 0 in both); ``gram [R, R]`` the shared term."""
+    if Y.device.type == "cpu":
+        return assemble_normal_equations_plain(Y, cols, aw, bw, gram)
+    if Y.device.type != "cuda":
+        raise ValueError(f"unsupported device {Y.device}")
+    dev = Y.device
+    if Y.ndim != 2 or cols.ndim != 2:
+        raise ValueError(f"Y must be [M, R] and cols [B, L]; got "
+                         f"{tuple(Y.shape)} and {tuple(cols.shape)}")
+    M, R = Y.shape
+    B, L = cols.shape
+    _require(Y, "Y", torch.float32, (M, R), dev)
+    _require(cols, "cols", torch.int32, (B, L), dev)
+    _require(aw, "aw", torch.float32, (B, L), dev)
+    _require(bw, "bw", torch.float32, (B, L), dev)
+    _require(gram, "gram", torch.float32, (R, R), dev)
+    device = _device_index(dev)
+    fn, _, err_string, max_rank, _ = _solve_kernels(device)
+    if R > max_rank:
+        raise ValueError(f"assemble_normal_equations takes rank <= "
+                         f"{max_rank} on the GPU, got {R}")
+    A = torch.empty((B, R, R), dtype=torch.float32, device=dev)
+    b = torch.empty((B, R), dtype=torch.float32, device=dev)
+    if B == 0:
+        return A, b
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _check_launch(fn(device, Y.data_ptr(), M, R, cols.data_ptr(),
+                     aw.data_ptr(), bw.data_ptr(), B, L, gram.data_ptr(),
+                     A.data_ptr(), b.data_ptr(), stream),
+                  "assemble_normal_equations", err_string)
+    assemble_launches.add()
+    return A, b
+
+
+def assemble_normal_equations_plain(Y: torch.Tensor, cols: torch.Tensor,
+                                    aw: torch.Tensor, bw: torch.Tensor,
+                                    gram: torch.Tensor
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of :func:`assemble_normal_equations`:
+    gather ``[B, L, R]``, then two fp32 einsums."""
+    Yg = Y.float()[cols.long()]                                  # [B, L, R]
+    A = gram.float() + torch.einsum("bl,blr,bls->brs", aw.float(), Yg, Yg)
+    return A, torch.einsum("bl,blr->br", bw.float(), Yg)
+
+
+def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched SPD solve ``x: A @ x = b`` with ``A [B, R, R]`` and
+    ``b [B, R]`` fp32, the contract of the JAX package's
+    ``als_pallas.spd_solve``: non-pivoted Cholesky with the pivot
+    clamped at ``max(d, 1e-30)``, then forward and backward
+    substitution. Reads the upper triangle of ``A``. On the GPU the rank
+    is limited by one block's shared memory (240 on an H100); a larger
+    one raises."""
+    if A.device.type == "cpu":
+        return spd_solve_plain(A, b)
+    if A.device.type != "cuda":
+        raise ValueError(f"unsupported device {A.device}")
+    dev = A.device
+    if b.ndim != 2:
+        raise ValueError(f"b must be [B, R], got shape {tuple(b.shape)}")
+    B, R = b.shape
+    _require(A, "A", torch.float32, (B, R, R), dev)
+    _require(b, "b", torch.float32, (B, R), dev)
+    device = _device_index(dev)
+    _, fn, err_string, _, max_rank = _solve_kernels(device)
+    if R > max_rank:
+        raise ValueError(f"spd_solve takes rank <= {max_rank} on "
+                         f"cuda:{device} (one system per block's shared "
+                         f"memory), got {R}")
+    x = torch.empty((B, R), dtype=torch.float32, device=dev)
+    if B == 0:
+        return x
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _check_launch(fn(device, A.data_ptr(), b.data_ptr(), B, R, x.data_ptr(),
+                     stream), "spd_solve", err_string)
+    spd_launches.add()
+    return x
+
+
+def spd_solve_plain(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :func:`spd_solve`, operation for
+    operation the kernel's arithmetic: right-looking Cholesky ``A = U^T
+    U`` on the upper triangle (pivot ``max(d, 1e-30)``), then ``U^T y =
+    b`` and ``U x = y`` by column sweeps."""
+    U = A.float().clone()
+    v = b.float().clone()
+    R = v.shape[1]
+    for k in range(R):
+        inv = 1.0 / torch.sqrt(torch.clamp(U[:, k, k], min=1e-30))
+        U[:, k, k:] *= inv[:, None]
+        u = U[:, k, k + 1:]
+        U[:, k + 1:, k + 1:] -= u[:, :, None] * u[:, None, :]
+    for k in range(R):
+        v[:, k] /= U[:, k, k]
+        v[:, k + 1:] -= U[:, k, k + 1:] * v[:, k:k + 1]
+    for k in reversed(range(R)):
+        v[:, k] /= U[:, k, k]
+        v[:, :k] -= U[:, :k, k] * v[:, k:k + 1]
+    return v
+

@@ -1,8 +1,8 @@
-"""Carry a trained ALS model into the port.
+"""Carry an ALS model trained elsewhere into the port.
 
-Until the port trains, its models come from arrays: the JAX package's
-``ALSModel`` fields (numpy factors, the user/item maps' string keys, the
-seen lists) or factors made from a seed.
+Besides ``ALSAlgorithm.train``, a model may come from arrays: the JAX
+package's ``ALSModel`` fields (numpy factors, the user/item maps' string
+keys, the seen lists) or factors made from a seed.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``predictionio_tpu_torch`` (nor
 ``chip_smoke.py``) imports ``jax`` or anything of ``predictionio_tpu``,
-and the whole query path imports and serves in a process where both are
-unimportable. ``chip_smoke.py`` refuses to run without a GPU."""
+and the training and query paths import, train and serve in a process
+where both are unimportable. ``chip_smoke.py`` refuses to run without a
+GPU."""
 
 import ast
 import os
@@ -64,9 +65,29 @@ engine = engine_factory()
 dep = build_deployment(engine, engine.engine_params_from_variant({}), [model])
 out = to_jsonable(serve_query(dep, {"user": "u0", "num": 3}))
 assert len(out["itemScores"]) == 3, out
+from predictionio_tpu_torch.controller import Engine, PDataSource
+from predictionio_tpu_torch.core.context import ComputeContext
+from predictionio_tpu_torch.templates.recommendation.engine import TrainingData
+
+class Source(PDataSource):
+    def read_training(self, ctx):
+        return TrainingData(users=np.asarray([f"u{u}" for u in rng.integers(0, 9, 80)], object),
+                            items=np.asarray([f"i{i}" for i in rng.integers(0, 12, 80)], object),
+                            values=np.ones(80, np.float32))
+
+trainer = Engine(Source, engine.preparator_class_map, engine.algorithm_class_map,
+                 engine.serving_class_map)
+for bucketed in (False, True):
+    tp = trainer.engine_params_from_variant({
+        "preparator": {"params": {"bucketed": bucketed}},
+        "algorithms": [{"name": "als", "params": {"rank": 3, "numIterations": 1}}]})
+    trained, = trainer.train(ComputeContext(device="cpu"), tp)
+    dep = build_deployment(trainer, tp, [trained])
+    out = to_jsonable(serve_query(dep, {"user": "u1", "num": 2}))
+    assert 1 <= len(out["itemScores"]) <= 2, out
 assert not any(m == "jax" or m.startswith(("jax.", "predictionio_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
-print("served", len(names), "modules")
+print("served", len(names), "modules; trained twice")
 """
 
 
