@@ -10,8 +10,15 @@ Phases (any failure raises and the script exits non-zero):
    together) and print the build times.
 2. Hold the serving kernel against its plain PyTorch version on the card
    at the serving path's shapes (M=26,744 items, R=64; B in {1, 8, 256};
-   k in {16, 128, 26,744}; fp32, bf16 and int8 stores; seen mask on and
-   off), on random data and on integer data with ties across tiles.
+   k in {16, 128, 2,048, 2,049, 6,000, 26,741}: both sides of the
+   threshold between the bitonic sort of the k winners and the cluster
+   sort of the whole row, and k ending inside the row; fp32, bf16 and
+   int8 stores), on random data with the seen mask on and on integer
+   data with ties across tiles with it on and off; then k = M
+   = 26,744 at B in {1, 256} on the integer fixture and with 20,000 of
+   each query's items seen-masked, and stores of 60,000 and 120,000 items
+   (wide cluster shares, and one block sorting a row too wide for the
+   cluster), exactly.
 5. Train the recommendation template at MovieLens-20M width: about 20M
    synthetic ratings of 138,493 users x 26,744 items from ``--seed``
    (lognormal row lengths of mean ~140 capped at 2,048, power-law item
@@ -24,7 +31,10 @@ Phases (any failure raises and the script exits non-zero):
 2b. Hold the two training kernels against their plain versions: the
    assembly on every row of every bucket of both sides (trained and
    integer factors, implicit and explicit weights, the layout's own
-   zero-weight padding), the solve on B in {1, 127, 4,096, 138,493}
+   zero-weight padding), on synthetic rows the kernel splits across
+   blocks (8 of 100,000 slots, 64 of 5,000 ending mid-span) and at ranks
+   1, 10, 30, 128 and 208 on rows it groups and rows it splits; the solve on
+   B in {1, 127, 4,096, 138,493}
    random SPD systems, an ill-scaled family and real training systems.
 3. Serve the model phase 5 trained: start the port's QueryServer, send
    user, blacklist, category, item-similarity and unknown-user queries,
@@ -58,8 +68,15 @@ H100_BYTES_PER_S = 3.35e12    # HBM3 rate of an H100 SXM
 H100_FP32_FLOPS = 67e12       # fp32 outside the tensor cores
 M_ITEMS, N_USERS, RANK = 26_744, 138_493, 64
 BATCHES, KS = (1, 8, 256), (16, 128, M_ITEMS)
+# phase 2's k: both sides of the threshold between the bitonic sort of
+# the winners and the sort of the whole row (sort width 2,048), a k that
+# ends inside the row (6,000), and the whole row (category queries)
+CHECK_KS = (16, 128, 2048, 2049, 6000, M_ITEMS)
 RTOL = 1e-5
 ITERATIONS, LAMBDA, ALPHA = 3, 0.01, 1.0
+# phase 2b's other assembly ranks: one warp a block at 1 and 10, up to
+# the kernel's limit on an H100 (208)
+OTHER_RANKS = (1, 10, 30, 128, 208)
 # relative Frobenius distance allowed between the kernel-trained and the
 # plain-trained factors after ITERATIONS iterations from one init: both
 # sum in fp32 in different orders (about 1e-7 relative per normal
@@ -131,10 +148,14 @@ def check_topk(kv, ki, pv, pi, tol, exact: bool) -> float:
 def _check_topk(kv, ki, pv, pi, tol, exact, B, k, fin) -> float:
     if not (np.isfinite(kv) == fin).all():
         raise AssertionError("-inf slots differ between kernel and plain")
-    for b in range(B):
-        ids = ki[b][fin[b]]
-        if (ids < 0).any() or len(np.unique(ids)) != len(ids):
-            raise AssertionError(f"row {b}: negative or repeated ids")
+    # each row's ids, sorted (a sort per row: np.unique per row is a
+    # hash per call on newer numpy, many times slower at B = 256)
+    ids = np.sort(np.where(fin, ki, -1), axis=1)
+    bad = (ki < 0) & fin
+    bad[:, 1:] |= (ids[:, 1:] == ids[:, :-1]) & (ids[:, 1:] >= 0)
+    if bad.any():
+        raise AssertionError(f"row {np.argwhere(bad)[0][0]}: negative or "
+                             "repeated ids")
     err = np.abs(kv - pv[:, :k], where=fin, out=np.zeros_like(kv))
     if exact:
         if not ((kv[fin] == pv[:, :k][fin]).all()
@@ -177,10 +198,30 @@ def fixture(kind: str, B: int, rng):
     return Q, Y, cols, mask
 
 
-def kernel_checks(dev, seed: int) -> float:
+def topk_case(Qt, store, ct, mt, *, k, n_items, mask_seen=True,
+              row_valid=None, tol=None, m=M_ITEMS) -> float:
+    """One kernel call held against plain (exact when ``tol`` is None)."""
     import torch
 
     from predictionio_tpu_torch.ops import als_cuda
+
+    B = Qt.shape[0]
+    kw = dict(n_items=n_items, mask_seen=mask_seen, row_valid=row_valid)
+    kv, ki = als_cuda.fused_gather_score_topk(Qt, store, ct, mt, k=k, **kw)
+    torch.cuda.synchronize()
+    pv, pi = als_cuda.fused_gather_score_topk_plain(
+        Qt, store, ct, mt, k=min(k + 1, m), **kw)
+    pv, pi = pv.cpu().numpy(), pi.cpu().numpy()
+    if pv.shape[1] == k:
+        pv = np.pad(pv, ((0, 0), (0, 1)), constant_values=-np.inf)
+        pi = np.pad(pi, ((0, 0), (0, 1)))
+    exact = tol is None
+    return check_topk(kv.cpu().numpy(), ki.cpu().numpy(), pv, pi,
+                      np.zeros(B, np.float32) if exact else tol, exact=exact)
+
+
+def kernel_checks(dev, seed: int) -> float:
+    import torch
 
     rng = np.random.default_rng(seed)
     worst, cases = 0.0, 0
@@ -195,41 +236,51 @@ def kernel_checks(dev, seed: int) -> float:
                 tol = (RTOL * torch.linalg.vector_norm(Qt, dim=1)
                        * torch.linalg.vector_norm(Ydq, dim=1).max()
                        ).cpu().numpy()
-                for k in KS:
-                    for mask_seen in (True, False):
+                for k in CHECK_KS:
+                    for mask_seen in (True, False)[:2 if kind == "integer"
+                                                  else 1]:
                         n_items = M_ITEMS - 3
-                        kk = min(k, n_items)
-                        kv, ki = als_cuda.fused_gather_score_topk(
-                            Qt, store, ct, mt, k=kk, n_items=n_items,
-                            mask_seen=mask_seen)
-                        torch.cuda.synchronize()
-                        pv, pi = als_cuda.fused_gather_score_topk_plain(
-                            Qt, store, ct, mt, k=min(kk + 1, M_ITEMS),
-                            n_items=n_items, mask_seen=mask_seen)
-                        pv, pi = pv.cpu().numpy(), pi.cpu().numpy()
-                        if pv.shape[1] == kk:
-                            pv = np.pad(pv, ((0, 0), (0, 1)),
-                                        constant_values=-np.inf)
-                            pi = np.pad(pi, ((0, 0), (0, 1)))
-                        worst = max(worst, check_topk(
-                            kv.cpu().numpy(), ki.cpu().numpy(), pv, pi,
-                            tol, exact=kind == "integer"))
+                        worst = max(worst, topk_case(
+                            Qt, store, ct, mt, k=min(k, n_items),
+                            n_items=n_items, mask_seen=mask_seen,
+                            tol=None if kind == "integer" else tol))
                         cases += 1
+    # the whole row, k = M: the integer fixture (ties across tiles), and
+    # a seen mask over most of the row (many -inf keys)
+    for B in (1, 256):
+        Q, Yf, cols, mask = fixture("integer", B, rng)
+        L = 20_000
+        many = np.stack([rng.permutation(M_ITEMS)[:L] for _ in range(B)],
+                        axis=1).astype(np.int32)
+        for ct_np, mt_np in ((cols, mask), (many, np.ones((L, B), np.float32))):
+            for dtype in ("fp32", "int8"):
+                store, _ = make_store(Yf, dtype, dev)
+                Qt, ct, mt = (torch.from_numpy(a).to(dev)
+                              for a in (Q, ct_np, mt_np))
+                topk_case(Qt, store, ct, mt, k=M_ITEMS, n_items=M_ITEMS)
+                cases += 1
+    # wider stores: the cluster sort with shares of 7,500 pairs (60,000
+    # items, k = 30,000 and k = M), and rows too wide for the cluster,
+    # sorted by one block through device memory (120,000 items)
+    Qt = torch.from_numpy(Q).to(dev)
+    ct, mt = (torch.from_numpy(a).to(dev) for a in (cols, mask))
+    for wide, k in ((60_000, 30_000), (60_000, 60_000), (120_000, 3000),
+                    (120_000, 120_000)):
+        Yw = torch.from_numpy(np.concatenate([Yf] * 5)[:wide]).to(dev)
+        topk_case(Qt, Yw, ct, mt, k=k, n_items=wide, m=wide)
+        cases += 1
     # the optional per-row validity vector (sharded stores use it)
     Q, Yf, cols, mask = fixture("integer", 8, rng)
     store, _ = make_store(Yf, "fp32", dev)
     rv = torch.from_numpy((rng.random(M_ITEMS) < 0.9).astype(np.float32)
                           ).to(dev)
     Qt, ct, mt = (torch.from_numpy(a).to(dev) for a in (Q, cols, mask))
-    kv, ki = als_cuda.fused_gather_score_topk(
-        Qt, store, ct, mt, k=128, n_items=M_ITEMS, row_valid=rv)
-    torch.cuda.synchronize()
-    pv, pi = als_cuda.fused_gather_score_topk_plain(
-        Qt, store, ct, mt, k=129, n_items=M_ITEMS, row_valid=rv)
-    check_topk(kv.cpu().numpy(), ki.cpu().numpy(), pv.cpu().numpy(),
-               pi.cpu().numpy(), np.zeros(8, np.float32), exact=True)
-    print(f"[kernel] fused_gather_score_topk == plain in {cases + 1} cases "
-          f"(max |value err| {worst!r})")
+    for k in (128, 4096):
+        topk_case(Qt, store, ct, mt, k=k, n_items=M_ITEMS, row_valid=rv)
+        cases += 1
+    print(f"[kernel] fused_gather_score_topk == plain in {cases} cases "
+          f"(k in {CHECK_KS} and k = M; integer fixtures exact; max |value "
+          f"err| {worst!r})")
     return worst
 
 
@@ -441,6 +492,60 @@ def assembly_tolerance(Y, cols, aw, bw, gram, L: int):
     return u * Aa, u * ba
 
 
+def check_assembly(Y, cols, aw, bw, gram, exact: bool, label: str) -> float:
+    """The kernel on the whole batch, held against plain in row slices of
+    at most 2^22 slots: equal on integer fixtures, else within the
+    reordering bound. Returns the largest |error|."""
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+
+    A, b = als_cuda.assemble_normal_equations(Y, cols, aw, bw, gram)
+    torch.cuda.synchronize()
+    B, L = cols.shape
+    n = max(1, (1 << 22) // max(L, 1))    # rows per plain [n, L, R] gather
+    worst = 0.0
+    for s in range(0, B, n):
+        r = slice(s, s + n)
+        Ap, bp = als_cuda.assemble_normal_equations_plain(
+            Y, cols[r], aw[r], bw[r], gram)
+        eA, eb = (A[r] - Ap).abs(), (b[r] - bp).abs()
+        if exact:
+            if not (torch.equal(A[r], Ap) and torch.equal(b[r], bp)):
+                raise AssertionError(f"assembly {label} rows {s}+: integer "
+                                     "fixture differs from plain")
+        else:
+            tA, tb = assembly_tolerance(Y, cols[r], aw[r], bw[r], gram, L)
+            if (eA > tA).any() or (eb > tb).any():
+                raise AssertionError(f"assembly {label} rows {s}+: beyond "
+                                     "the reordering bound")
+        worst = max(worst, float(eA.max()), float(eb.max()))
+    return worst
+
+
+def synthetic_rows(dev, rng, shapes=((8, 100_000), (64, 5_000))) -> list:
+    """Synthetic rows of ``B x L`` slots, each real up to a random length
+    from L/2 (implicit weights, padding last). The default shapes are
+    longer than the assembly's span, so the kernel splits them: 8 rows of
+    100,000 slots, and 64 rows of 5,000 whose real slots end in the
+    middle of a span."""
+    import torch
+
+    from predictionio_tpu_torch.ops.als import implicit_weights
+
+    out = []
+    for B, L in shapes:
+        lens = rng.integers(L // 2, L + 1, B)
+        lens[0] = L
+        mask = (np.arange(L)[None, :] < lens[:, None]).astype(np.float32)
+        cols = np.where(mask > 0, rng.integers(0, M_ITEMS, (B, L)), 0)
+        w = (rng.integers(1, 11, (B, L)) * 0.5).astype(np.float32) * mask
+        aw, bw = implicit_weights(torch.from_numpy(w).to(dev), ALPHA)
+        out.append((torch.from_numpy(cols.astype(np.int32)).to(dev), aw, bw,
+                    f"synthetic {B} x {L}"))
+    return out
+
+
 def training_kernel_checks(dev, trained: dict, seed: int) -> dict:
     import torch
 
@@ -450,57 +555,52 @@ def training_kernel_checks(dev, trained: dict, seed: int) -> dict:
     rng = np.random.default_rng(seed + 3)
     worst = {"assemble": 0.0, "spd": 0.0}
     cases = rows_checked = 0
+
+    def both_kinds(Yt, Yi, cols, aw, bw, explicit, label):
+        nonlocal cases
+        for kind, Y in (("trained", Yt), ("integer", Yi)):
+            R = Y.shape[1]
+            if kind == "integer":
+                gram = torch.from_numpy(rng.integers(
+                    -4, 5, (R, R)).astype(np.float32)).to(dev)
+            elif explicit:
+                gram = torch.zeros((R, R), device=dev)
+            else:
+                gram = Y.T @ Y + LAMBDA * torch.eye(R, device=dev)
+            worst["assemble"] = max(worst["assemble"], check_assembly(
+                Y, cols, aw, bw, gram, kind == "integer",
+                f"{label} explicit={explicit} {kind}"))
+            cases += 1
+
     for side_name, side in (("user", pd.user_side), ("item", pd.item_side)):
         Yt = torch.from_numpy(side_factors(model, side_name)).to(dev)
         Yi = torch.from_numpy(rng.integers(-3, 4, tuple(Yt.shape)).astype(
             np.float32)).to(dev)
         for bucket in side.buckets:
             B, L = bucket.cols.shape
-            n = max(1, (1 << 22) // L)    # rows per plain [n, L, R] gather
             cols = torch.as_tensor(bucket.cols, device=dev)
             for explicit in (False, True):
                 aw, bw = assembly_weights(bucket, explicit, dev)
-                for kind, Y in (("trained", Yt), ("integer", Yi)):
-                    if kind == "integer":
-                        gram = torch.from_numpy(rng.integers(
-                            -4, 5, (RANK, RANK)).astype(np.float32)).to(dev)
-                    elif explicit:
-                        gram = torch.zeros((RANK, RANK), device=dev)
-                    else:
-                        gram = Y.T @ Y + LAMBDA * torch.eye(RANK, device=dev)
-                    # the kernel on the whole bucket, plain in row slices
-                    A, b = als_cuda.assemble_normal_equations(
-                        Y, cols, aw, bw, gram)
-                    torch.cuda.synchronize()
-                    for s in range(0, B, n):
-                        r = slice(s, s + n)
-                        Ap, bp = als_cuda.assemble_normal_equations_plain(
-                            Y, cols[r], aw[r], bw[r], gram)
-                        eA, eb = (A[r] - Ap).abs(), (b[r] - bp).abs()
-                        if kind == "integer":
-                            if not (torch.equal(A[r], Ap)
-                                    and torch.equal(b[r], bp)):
-                                raise AssertionError(
-                                    f"assembly {side_name} L={L} rows "
-                                    f"{s}+: integer fixture differs from "
-                                    "plain")
-                        else:
-                            tA, tb = assembly_tolerance(
-                                Y, cols[r], aw[r], bw[r], gram, L)
-                            if (eA > tA).any() or (eb > tb).any():
-                                raise AssertionError(
-                                    f"assembly {side_name} L={L} rows {s}+ "
-                                    f"explicit={explicit}: beyond the "
-                                    "reordering bound")
-                        worst["assemble"] = max(
-                            worst["assemble"], float(eA.max()),
-                            float(eb.max()))
-                    cases += 1
+                both_kinds(Yt, Yi, cols, aw, bw, explicit, f"{side_name} L={L}")
             rows_checked += B
+        if side_name == "item":
+            for cols, aw, bw, label in synthetic_rows(dev, rng):
+                both_kinds(Yt, Yi, cols, aw, bw, False, label)
+    # other ranks, from blocks of one warp up to the kernel's limit: rows
+    # a block groups and rows it splits, random and integer factors
+    for R in OTHER_RANKS:
+        Yr = torch.from_numpy(0.3 * rng.standard_normal(
+            (M_ITEMS, R)).astype(np.float32)).to(dev)
+        Yi = torch.from_numpy(rng.integers(-3, 4, (M_ITEMS, R)).astype(
+            np.float32)).to(dev)
+        for cols, aw, bw, label in synthetic_rows(dev, rng,
+                                                  ((300, 40), (9, 5_000))):
+            both_kinds(Yr, Yi, cols, aw, bw, False, f"R={R} {label}")
     print(f"[kernel] assemble_normal_equations == plain in {cases} cases "
           f"(every row of every bucket of both sides, {rows_checked} rows, "
-          f"in 4 kinds each; integer fixtures exact; max |err| "
-          f"{worst['assemble']!r})")
+          f"in 4 kinds each; 8 x 100,000 and 64 x 5,000 synthetic split "
+          f"rows; R in {OTHER_RANKS} on 300 x 40 and 9 x 5,000 rows; "
+          f"integer fixtures exact; max |err| {worst['assemble']!r})")
 
     # solve: random SPD systems, an ill-scaled family, real systems
     def systems(B, ill=False):
@@ -945,13 +1045,23 @@ def main() -> int:
     card = nvidia_smi()
     print(f"[card] {card}")
     t0 = time.perf_counter()
-    build_kernels()
-    max_err = kernel_checks(dev, args.seed)
-    trained = train_full_width(dev, args.seed)
-    train_err = training_kernel_checks(dev, trained, args.seed)
-    served = serve_full_width(trained["model"], args.seed)
-    rows = timings(dev, args.seed)
-    train_times = training_timings(dev, trained)
+
+    def phase(name, fn, *fn_args):
+        t = time.perf_counter()
+        out = fn(*fn_args)
+        print(f"[phase] {name}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    phase("1 build", build_kernels)
+    max_err = phase("2 serving kernel checks", kernel_checks, dev, args.seed)
+    trained = phase("5 training", train_full_width, dev, args.seed)
+    train_err = phase("2b training kernel checks", training_kernel_checks,
+                      dev, trained, args.seed)
+    served = phase("3 serving", serve_full_width, trained["model"],
+                   args.seed)
+    rows = phase("4 serving kernel times", timings, dev, args.seed)
+    train_times = phase("4b training kernel times", training_timings, dev,
+                        trained)
     # the line's headline shape: a full micro-batch (B=256) at the
     # default k bucket (16) on the default GPU store (bf16)
     head = next(r for r in rows
@@ -964,6 +1074,12 @@ def main() -> int:
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "shape": "bf16 store, B=256, k=16",
+        # the category queries' shape: the whole row sorted
+        "large_k": [{key: r[key] for key in ("store", "B", "k", "ms",
+                                             "plain_ms", "library_ms",
+                                             "bound_ms", "bound_by")}
+                    for r in rows if r["store"] == "bf16"
+                    and r["B"] in (1, 256) and r["k"] == M_ITEMS],
         "timings": rows}]
     for name, replaces, err, shape in (
             ("assemble_normal_equations", 141, train_err["assemble"],

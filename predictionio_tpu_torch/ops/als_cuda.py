@@ -11,20 +11,34 @@ there has one here:
   fp32 rate; bytes bind at small B, operations at B=256. The design
   scores with fp32 FMAs only (the reference pins ``Precision.HIGHEST``),
   masks seen items by one scatter per (slot, query) instead of comparing
-  every tile with every seen slot, and selects each query's top k by a
-  radix select plus a bitonic sort, so k may be any value up to the
-  number of items. The [B, M] scores make one round trip through device
-  memory; keeping them on chip is later work.
+  every tile with every seen slot, and orders each query's row by the
+  route that :func:`topk_sort_plan` picks: a radix select and a bitonic
+  sort in shared memory while the sort width is at most 2,048 (personal
+  top-N queries); above it (category queries ask for nearly every item)
+  a stable LSD radix sort of the whole row, in id order, so the lowest
+  id stays first among equal scores, by a cluster of 8 blocks that hold
+  the row in their shared memory and scatter through distributed shared
+  memory, or by one block through a device-memory scratch the wrapper
+  allocates, for a row too wide for the cluster. The [B, M] scores make
+  one round trip through device memory; keeping them on chip is later
+  work.
 - ``assemble_normal_equations`` (training; ``als_pallas.py:141``, kernel
   ``_kernel``) is ``assemble_kernel`` in ``csrc/als_solve.cu``. Bound:
   ``slots*(R(R+1) + 2R)`` fp32 operations (``A`` is symmetric: one FMA
   per entry of its upper triangle, and ``R`` for ``b``, per real slot)
   against ``Y`` read once (it fits in L2), the ``[B, L]`` tables and
   the ``A``/``b`` outputs; the operations bind except for the shortest
-  rows. One block per (row, 64x64 tile of A) gathers its
-  slots' factor rows in chunks into shared memory and sums in
-  registers, so no ``[B, L, R]`` gather reaches device memory; padding
-  slots are skipped.
+  rows. :func:`assembly_plan` cuts rows longer than ``ASSEMBLY_SPAN``
+  slots into spans, one block each, whose partial sums a second pass
+  adds to ``gram`` in span order (deterministic, no float atomics). A
+  block sums only the upper 8x8 tiles of ``A`` and mirrors them as it
+  writes; each thread holds one tile in registers fed by 16-byte
+  shared-memory loads. A block stages its slice of the ``[B, L]``
+  tables in shared memory once, and the next chunk of gathered factor
+  rows arrives by ``cp.async`` while this one is summed, one barrier a
+  chunk. No ``[B, L, R]`` gather reaches device memory; padding slots
+  are neither gathered nor summed. Ranks up to 208 on an H100; above
+  that it raises.
 - ``spd_solve`` (training; ``als_pallas.py:277``, kernel
   ``_spd_solve_kernel``) is ``spd_solve_kernel`` in the same source.
   Bound: ``B*(R(R+1)/2+2R)*4`` bytes (the upper triangle of ``A``,
@@ -44,7 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -64,16 +78,16 @@ spd_launches = LaunchCounter()
 
 _Y_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _bound = None
-_ready_devices: set = set()
+_ready_devices: dict = {}
 _solve_bound = None
 _solve_ready: dict = {}
 _bind_lock = threading.Lock()
 
 
 def _kernel(device: int):
-    """(launch fn, error-string fn, widest shared-memory sort), bound
-    once per process and set up once per device; the first call builds
-    the library."""
+    """(launch fn, error-string fn, the widest row the cluster sort takes
+    on ``device``), bound once per process and set up once per device;
+    the first call builds the library."""
     global _bound
     with _bind_lock:
         if _bound is None:
@@ -81,25 +95,56 @@ def _kernel(device: int):
             fn = lib.pio_fused_topk
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             fn.argtypes = [i, p, i, i, p, i, p, p, i, i, p, p, i, ll, ll, ll,
-                           ll, i, i, i, p, p, p, p, p]
+                           ll, i, i, i, p, p, ll, p, p, p]
             fn.restype = ctypes.c_int
             err = lib.pio_cuda_error_string
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            lib.pio_topk_smem_sort_max.argtypes = []
-            lib.pio_topk_smem_sort_max.restype = ctypes.c_int
-            lib.pio_fused_topk_init.argtypes = [i]
-            lib.pio_fused_topk_init.restype = ctypes.c_int
-            _bound = (lib, fn, err, int(lib.pio_topk_smem_sort_max()))
-        lib, fn, err_string, smem_sort_max = _bound
+            for name in ("pio_topk_cluster_max_row", "pio_fused_topk_init"):
+                getattr(lib, name).argtypes = [i]
+                getattr(lib, name).restype = i
+            _bound = (lib, fn, err)
+        lib, fn, err_string = _bound
         if device not in _ready_devices:
             code = lib.pio_fused_topk_init(device)
             if code:
                 raise RuntimeError(f"fused_topk set-up on cuda:{device} "
                                    f"failed: CUDA error {code} "
                                    f"({err_string(code).decode()})")
-            _ready_devices.add(device)
-    return fn, err_string, smem_sort_max
+            _ready_devices[device] = int(lib.pio_topk_cluster_max_row(device))
+    return fn, err_string, _ready_devices[device]
+
+
+class TopkSortPlan(NamedTuple):
+    """How the selection kernels order one query's row.
+
+    ``route``: "bitonic" (a radix select of the k winners and a bitonic
+    sort of them in shared memory), "cluster_row" (no select: a stable
+    radix sort of the whole row, in id order, by a cluster of blocks
+    that hold it in their shared memory; the first k are kept) or
+    "radix_row" (the same by one block, in device memory, for a row wider
+    than the cluster holds). ``scratch_pairs``: key/id pairs of device
+    memory per query."""
+
+    route: str
+    scratch_pairs: int
+
+
+# Widest bitonic sort (a power of two >= k); wider k sort the whole row.
+BITONIC_MAX = 2048
+_ROUTE_CODE = {"bitonic": 0, "cluster_row": 1, "radix_row": 2}
+
+
+def topk_sort_plan(k: int, m: int, cluster_max_row: int) -> TopkSortPlan:
+    """The sort route and scratch of a top-``k`` over ``m`` items when
+    the cluster sort takes rows of up to ``cluster_max_row`` items (the
+    library's ``pio_topk_cluster_max_row``). The kernel launches the route
+    it is given; it refuses only a launch its buffers cannot hold."""
+    if 1 << (k - 1).bit_length() <= BITONIC_MAX:
+        return TopkSortPlan("bitonic", 0)
+    if m <= cluster_max_row:
+        return TopkSortPlan("cluster_row", 0)
+    return TopkSortPlan("radix_row", 2 * m)
 
 
 def _check_k(k: int, m: int) -> int:
@@ -199,18 +244,21 @@ def _launch(Q, Y, seen_cols, seen_mask, *, k, n_items, mask_seen, row_valid):
         sc_ptr, sm_ptr = seen_cols.data_ptr(), seen_mask.data_ptr()
         strides = (*seen_cols.stride(), *seen_mask.stride())
     device = _device_index(dev)
-    fn, err_string, smem_sort_max = _kernel(device)
-    N = 1 << (k - 1).bit_length()
+    fn, err_string, cluster_max_row = _kernel(device)
+    plan = topk_sort_plan(k, M, cluster_max_row)
     scores = torch.empty((B, M), dtype=torch.float32, device=dev)
     scratch = None
-    if N > smem_sort_max:
-        scratch = torch.empty((B, 2 * N), dtype=torch.int32, device=dev)
+    if plan.scratch_pairs:
+        scratch = torch.empty((B, 2 * plan.scratch_pairs), dtype=torch.int32,
+                              device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _check_launch(fn(device, Q.data_ptr(), B, R, data.data_ptr(), code, scale,
                      rv, M, int(n_items), sc_ptr, sm_ptr, L, *strides,
-                     int(bool(mask_seen)), k, N, scores.data_ptr(),
+                     int(bool(mask_seen)), k, _ROUTE_CODE[plan.route],
+                     scores.data_ptr(),
                      None if scratch is None else scratch.data_ptr(),
-                     vals.data_ptr(), idx.data_ptr(), stream),
+                     plan.scratch_pairs, vals.data_ptr(), idx.data_ptr(),
+                     stream),
                   "fused_topk", err_string)
     launches.add()
     return vals, idx
@@ -247,7 +295,7 @@ def fused_gather_score_topk_plain(Q: torch.Tensor, Y,
 # -- training: normal-equation assembly and the batched SPD solve ------------
 
 def _solve_kernels(device: int):
-    """(assemble fn, solve fn, error-string fn, assembly rank limit,
+    """(assemble fn, solve fn, error-string fn, assembly rank limit and
     solve rank limit on ``device``), bound once per process and set up
     once per device; the first call builds the library."""
     global _solve_bound
@@ -256,7 +304,7 @@ def _solve_kernels(device: int):
             lib = load_kernel_library(SOLVE_KERNEL_NAME)
             p, i = ctypes.c_void_p, ctypes.c_int
             asm = lib.pio_assemble_normal_equations
-            asm.argtypes = [i, p, i, i, p, p, p, i, i, p, p, p, p]
+            asm.argtypes = [i, p, i, i, p, p, p, i, i, i, i, i, p, p, p, p, p]
             asm.restype = i
             solve = lib.pio_spd_solve
             solve.argtypes = [i, p, p, i, i, p, p]
@@ -264,24 +312,88 @@ def _solve_kernels(device: int):
             err = lib.pio_als_error_string
             err.argtypes = [i]
             err.restype = ctypes.c_char_p
-            for name, args in (("pio_assemble_max_rank", []),
+            for name, args in (("pio_assemble_max_rank", [i]),
                                ("pio_spd_max_rank", [i]),
                                ("pio_als_solve_init", [i, i])):
                 getattr(lib, name).argtypes = args
                 getattr(lib, name).restype = i
-            _solve_bound = (lib, asm, solve, err,
-                            int(lib.pio_assemble_max_rank()))
-        lib, asm, solve, err_string, asm_max = _solve_bound
+            _solve_bound = (lib, asm, solve, err)
+        lib, asm, solve, err_string = _solve_bound
         if device not in _solve_ready:
-            max_rank = int(lib.pio_spd_max_rank(device))
-            code = -max_rank if max_rank < 0 else lib.pio_als_solve_init(
-                device, max_rank)
+            ranks = (int(lib.pio_assemble_max_rank(device)),
+                     int(lib.pio_spd_max_rank(device)))
+            code = next((-r for r in ranks if r < 0), 0) or \
+                lib.pio_als_solve_init(device, ranks[1])
             if code:
                 raise RuntimeError(f"als_solve set-up on cuda:{device} failed: "
                                    f"CUDA error {code} "
                                    f"({err_string(code).decode()})")
-            _solve_ready[device] = max_rank
-    return asm, solve, err_string, asm_max, _solve_ready[device]
+            _solve_ready[device] = ranks
+    return (asm, solve, err_string) + _solve_ready[device]
+
+
+# Most slots one assembly block sums (a multiple of the kernel's 64-slot
+# chunk, and at most the 2,048 it stages in shared memory): a longer row
+# is split into spans of this many slots, one block each, whose partial
+# sums a second pass adds in span order.
+ASSEMBLY_SPAN = 2048
+# Rows of at most this many slots are grouped: one block sums several
+# rows, one per group of its threads, instead of one row with all.
+ASSEMBLY_GROUPED_MAX = 512
+_ASSEMBLY_CHUNK = 64
+
+
+class AssemblyPlan(NamedTuple):
+    """How ``assemble_kernel`` covers a bucket of rows of ``L`` slots:
+    each row cut into ``n_spans`` spans of at most ``span`` slots, one
+    block per (row, span), row-major. With one span a block writes ``A``
+    and ``b`` itself, and ``grouped`` rows share a block, one per group
+    of its threads; with more, each block writes a partial ``[R*R + R]``
+    to a scratch of ``scratch_floats(rows, R)`` fp32 values, and a second
+    pass adds ``gram`` and the partials in span order."""
+
+    span: int
+    n_spans: int
+    grouped: bool
+
+    def scratch_floats(self, rows: int, R: int) -> int:
+        return 0 if self.n_spans == 1 else rows * self.n_spans * (R * R + R)
+
+
+def assembly_plan(L: int, span: int = ASSEMBLY_SPAN) -> AssemblyPlan:
+    """The plan the wrapper hands ``pio_assemble_normal_equations`` for
+    rows of ``L`` slots; the kernel carries it out and refuses only a
+    plan its staging area cannot hold."""
+    if not 0 < span <= ASSEMBLY_SPAN or span % _ASSEMBLY_CHUNK:
+        raise ValueError(f"span={span} must be a multiple of "
+                         f"{_ASSEMBLY_CHUNK} in [64, {ASSEMBLY_SPAN}]")
+    n_spans = -(-L // span) if L > span else 1
+    return AssemblyPlan(span, n_spans,
+                        n_spans == 1 and L <= ASSEMBLY_GROUPED_MAX)
+
+
+def check_assembly_args(Y: torch.Tensor, cols: torch.Tensor, aw: torch.Tensor,
+                        bw: torch.Tensor, gram: torch.Tensor, max_rank: int
+                        ) -> Tuple[int, int, int, int]:
+    """``(M, R, B, L)`` of an assembly launch, or the error the GPU
+    wrapper raises: tensors on ``Y``'s device, fp32 (``cols`` int32),
+    contiguous, of shapes ``Y [M, R]``, ``cols``/``aw``/``bw [B, L]``,
+    ``gram [R, R]``, and ``R`` at most the kernel's ``max_rank``."""
+    dev = Y.device
+    if Y.ndim != 2 or cols.ndim != 2:
+        raise ValueError(f"Y must be [M, R] and cols [B, L]; got "
+                         f"{tuple(Y.shape)} and {tuple(cols.shape)}")
+    M, R = Y.shape
+    B, L = cols.shape
+    _require(Y, "Y", torch.float32, (M, R), dev)
+    _require(cols, "cols", torch.int32, (B, L), dev)
+    _require(aw, "aw", torch.float32, (B, L), dev)
+    _require(bw, "bw", torch.float32, (B, L), dev)
+    _require(gram, "gram", torch.float32, (R, R), dev)
+    if R > max_rank:
+        raise ValueError(f"assemble_normal_equations takes rank <= "
+                         f"{max_rank} on {dev}, got {R}")
+    return M, R, B, L
 
 
 def assemble_normal_equations(Y: torch.Tensor, cols: torch.Tensor,
@@ -302,29 +414,24 @@ def assemble_normal_equations(Y: torch.Tensor, cols: torch.Tensor,
     if Y.device.type != "cuda":
         raise ValueError(f"unsupported device {Y.device}")
     dev = Y.device
-    if Y.ndim != 2 or cols.ndim != 2:
-        raise ValueError(f"Y must be [M, R] and cols [B, L]; got "
-                         f"{tuple(Y.shape)} and {tuple(cols.shape)}")
-    M, R = Y.shape
-    B, L = cols.shape
-    _require(Y, "Y", torch.float32, (M, R), dev)
-    _require(cols, "cols", torch.int32, (B, L), dev)
-    _require(aw, "aw", torch.float32, (B, L), dev)
-    _require(bw, "bw", torch.float32, (B, L), dev)
-    _require(gram, "gram", torch.float32, (R, R), dev)
     device = _device_index(dev)
     fn, _, err_string, max_rank, _ = _solve_kernels(device)
-    if R > max_rank:
-        raise ValueError(f"assemble_normal_equations takes rank <= "
-                         f"{max_rank} on the GPU, got {R}")
+    M, R, B, L = check_assembly_args(Y, cols, aw, bw, gram, max_rank)
     A = torch.empty((B, R, R), dtype=torch.float32, device=dev)
     b = torch.empty((B, R), dtype=torch.float32, device=dev)
     if B == 0:
         return A, b
+    plan = assembly_plan(L)
+    partial = None
+    if plan.n_spans > 1:
+        partial = torch.empty(plan.scratch_floats(B, R), dtype=torch.float32,
+                              device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _check_launch(fn(device, Y.data_ptr(), M, R, cols.data_ptr(),
-                     aw.data_ptr(), bw.data_ptr(), B, L, gram.data_ptr(),
-                     A.data_ptr(), b.data_ptr(), stream),
+                     aw.data_ptr(), bw.data_ptr(), B, L, plan.span,
+                     plan.n_spans, int(plan.grouped), gram.data_ptr(),
+                     A.data_ptr(), b.data_ptr(),
+                     None if partial is None else partial.data_ptr(), stream),
                   "assemble_normal_equations", err_string)
     assemble_launches.add()
     return A, b

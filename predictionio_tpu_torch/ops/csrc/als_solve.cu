@@ -9,23 +9,39 @@
 // y_l = Y[cols[b, l]] and writes
 //   A[b] = gram + sum_l aw[b, l] * y_l y_l^T      b[b] = sum_l bw[b, l] * y_l
 // in fp32 FMAs (no tensor cores, no TF32: the reference pins
-// Precision.HIGHEST). One block owns one row and one 64 x 64 tile of its
-// A (one tile at R <= 64); 256 threads hold 4 x 4 of the tile each in
-// registers. The block walks the row's slots in chunks of 32, gathers
-// the chunk's factor rows into shared memory (coalesced: one row of R
-// floats per slot) and folds them into its registers, so nothing
-// [B, L, R]-sized ever reaches device memory; that is what the TPU
-// kernel's VMEM gather bought. Slots whose two weights are both 0
-// (padding) are neither gathered nor summed, and a chunk of padding
-// only is skipped whole. Rank is taken as given; the TPU kernel padded
-// it to 128 for DMA alignment.
+// Precision.HIGHEST). Nothing [B, L, R]-sized ever reaches device
+// memory: each block gathers its slots' factor rows into shared memory,
+// which is what the TPU kernel's VMEM gather bought. Rank is taken as
+// given (the TPU kernel padded it to 128 for DMA alignment), up to what
+// one block holds (pio_assemble_max_rank: 208 on an H100).
 // Bound on this card: slots * (R(R+1) + 2R) fp32 operations at 67
 // TFLOP/s (A is symmetric: one FMA per upper-triangle entry per slot)
 // against Y read once (it fits in L2), the [B, L] tables and the A/b
 // outputs at 3.35 TB/s; at R = 64 the operations bind for all but the
-// shortest rows. This kernel computes all R^2 entries, twice the work. A few very long rows (the
-// item side under power-law popularity) run as one block each and
-// leave a tail; splitting them is later work.
+// shortest rows. What the design does about it:
+// - Long rows are split. A row of L slots is ceil(L / span) blocks
+//   (span = 2,048 from the wrapper), so the few item rows of 10^4-10^5
+//   slots under power-law popularity fill the card instead of leaving a
+//   tail of one block each; each block writes a partial [R*R + R], and
+//   assemble_reduce_kernel adds gram and the partials in span order, so
+//   the result is deterministic (no float atomics).
+// - Only the upper triangle is summed: RT(RT+1)/2 of the RT x RT tiles
+//   of 8 x 8 (36 of 64 at R = 64), mirrored as A is written.
+// - Each thread holds one 8 x 8 tile in registers and takes its 16 inputs
+//   per slot as four 16-byte shared-memory loads: 64 FMAs for 5 loads.
+//   Four groups of threads sum disjoint slots; their tiles are added in
+//   group order at the end. Stripes of 8 entries of b are items of their
+//   own, so b costs no extra pass.
+// - The block stages its whole slice of (cols, aw, bw), at most 2,048
+//   slots, in shared memory once, so no chunk waits on a device-memory
+//   load, and stops after the last chunk that holds a live slot.
+// - The gather is double-buffered with one barrier a chunk: warp 0
+//   compacts each 64-slot chunk's live slots (padding is neither gathered
+//   nor summed) and the next chunk's factor rows arrive by cp.async while
+//   this one is summed.
+// - The tensor cores are not used. A 3xTF32 version (mma.sync m16n8k8,
+//   which keeps fp32 accuracy) was slower on an H100: the kernel waits on
+//   its gathers and barriers far more than on its FMAs.
 //
 // spd_solve_kernel. One block solves one system A x = b, resident in
 // shared memory (a row stride of R | 1 keeps row and column walks free
@@ -43,93 +59,385 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <cstdint>
+
 namespace {
 
-constexpr int ASM_THREADS = 256;
-constexpr int ASM_TILE = 64;   // rows and columns of A per block
-constexpr int ASM_CHUNK = 32;  // slots gathered into shared memory at a time
+constexpr int ASM_CHUNK = 64;        // slots gathered into shared memory at a time
+constexpr int ASM_GROUPS = 4;        // slot groups: group g sums live slots g, g+4, ...
+constexpr int ASM_MAX_THREADS = 384;
+constexpr int ASM_SMALL_THREADS = 192;  // up to here three blocks share an SM
+constexpr int ASM_META = 3;          // chunks of (cols, aw, bw) in flight
+constexpr int ASM_SLICE = 2048;      // most (col, aw, bw) slots a block stages at its start
+constexpr int REDUCE_THREADS = 256;
 constexpr int SOLVE_THREADS = 128;
-constexpr int ASM_SMEM_MAX = 48 * 1024;
 
-__global__ void __launch_bounds__(ASM_THREADS)
-assemble_kernel(const float* __restrict__ Y, int M, int R, const int* __restrict__ cols,
-                const float* __restrict__ aw, const float* __restrict__ bw, int L,
-                const float* __restrict__ gram, float* __restrict__ A,
-                float* __restrict__ bvec, int n_tiles) {
-  extern __shared__ float smem[];
-  float* ys = smem;                 // [ASM_CHUNK][R] gathered factor rows
-  float* saw = ys + ASM_CHUNK * R;  // [ASM_CHUNK] A weights of the chunk
-  float* sbw = saw + ASM_CHUNK;     // [ASM_CHUNK] b weights of the chunk
-  const long long row = blockIdx.x;
-  const int i0 = (blockIdx.y / n_tiles) * ASM_TILE;
-  const int j0 = (blockIdx.y % n_tiles) * ASM_TILE;
-  const int tid = threadIdx.x;
-  const int ti = tid / 16, tj = tid % 16;  // rows i0+ti+16a, columns j0+tj+16c
-  const bool does_b = j0 == 0 && tid < ASM_TILE && i0 + tid < R;
-  const int* crow = cols + row * L;
-  const float* arow = aw + row * L;
-  const float* brow = bw + row * L;
-  float acc[4][4] = {};
-  float bacc = 0.f;
+// The geometry of one assembly block at rank R: RT x RT tiles of 8 x 8,
+// of which the `tiles` on or above the diagonal are summed, and RT
+// stripes of 8 entries of b; each of these `items` by `groups` threads
+// over disjoint slots.
+struct AsmShape {
+  int rs;      // the row stride of a gathered chunk (R rounded up to 8, skewed)
+  int rt;      // tiles per side
+  int tiles;   // rt (rt + 1) / 2
+  int items;   // tiles + rt
+  int groups;  // slot groups
+  int workers; // items * groups threads sum; the rest, up to a whole warp, only gather
+  int threads;
+  size_t smem_bytes;
+};
 
-  for (int l0 = 0; l0 < L; l0 += ASM_CHUNK) {
-    const int n = min(ASM_CHUNK, L - l0);
-    int live = 0;
-    if (tid < ASM_CHUNK) {
-      const float a = tid < n ? arow[l0 + tid] : 0.f;
-      const float b = tid < n ? brow[l0 + tid] : 0.f;
-      saw[tid] = a;
-      sbw[tid] = b;
-      live = a != 0.f || b != 0.f;
+// Where column c of a gathered factor row sits in shared memory: four
+// spare floats after every 32, so the 16-byte loads of the tiles' 8-column
+// segments at c and c + 32 fall in different banks.
+__host__ __device__ inline int skew(int c) { return c + 4 * (c >> 5); }
+
+inline AsmShape asm_shape(int R) {
+  AsmShape s;
+  s.rt = (R + 7) / 8;
+  s.rs = (skew(8 * s.rt - 1) + 4) & ~3;
+  s.tiles = s.rt * (s.rt + 1) / 2;
+  s.items = s.tiles + s.rt;
+  s.groups = 1;  // a power of two, so a chunk splits evenly between grouped rows
+  while (2 * s.groups <= std::min(ASM_GROUPS, ASM_MAX_THREADS / s.items)) s.groups *= 2;
+  if (s.items > ASM_MAX_THREADS) s.groups = 0;
+  s.workers = s.items * s.groups;
+  s.threads = (s.workers + 31) / 32 * 32;  // warp 0's ballots need a whole warp
+  const size_t ys = 2 * static_cast<size_t>(ASM_CHUNK) * s.rs;
+  const size_t red = static_cast<size_t>(std::max(s.groups - 1, 0)) * s.items * 64;
+  s.smem_bytes =
+      (std::max(ys, red) + ASM_META * (3 * ASM_CHUNK + ASM_GROUPS) + 4 + 3 * ASM_SLICE) *
+      sizeof(float);
+  return s;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// dst[0..n) = (add[c] +) v[c] for the n <= 8 entries of a row segment
+// inside the matrix; two 16-byte stores when `vec` and n == 8.
+__device__ __forceinline__ void store_row8(float* dst, const float (&v)[8], int n,
+                                           const float* add, bool vec) {
+  if (vec && n == 8) {
+    float4 a = make_float4(v[0], v[1], v[2], v[3]);
+    float4 b = make_float4(v[4], v[5], v[6], v[7]);
+    if (add != nullptr) {
+      const float4 g0 = reinterpret_cast<const float4*>(add)[0];
+      const float4 g1 = reinterpret_cast<const float4*>(add)[1];
+      a = make_float4(g0.x + a.x, g0.y + a.y, g0.z + a.z, g0.w + a.w);
+      b = make_float4(g1.x + b.x, g1.y + b.y, g1.z + b.z, g1.w + b.w);
     }
-    if (!__syncthreads_or(live)) continue;  // padding only
-    for (int e = tid; e < ASM_CHUNK * R; e += ASM_THREADS) {
-      const int s = e / R;
-      float v = 0.f;
-      if (saw[s] != 0.f || sbw[s] != 0.f) {  // so s < n
-        const int c = crow[l0 + s];
-        if (c >= 0 && c < M) v = Y[static_cast<long long>(c) * R + (e - s * R)];
-      }
-      ys[e] = v;
-    }
-    __syncthreads();
-    for (int s = 0; s < n; ++s) {
-      const float w = saw[s];
-      if (w == 0.f) continue;  // the same s for every thread: no divergence
-      const float* y = ys + s * R;
-      float yi[4], yj[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int i = i0 + ti + 16 * a;
-        yi[a] = i < R ? w * y[i] : 0.f;
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = j0 + tj + 16 * c;
-        yj[c] = j < R ? y[j] : 0.f;
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(yi[a], yj[c], acc[a][c]);
-    }
-    if (does_b)
-      for (int s = 0; s < n; ++s) bacc = fmaf(sbw[s], ys[s * R + i0 + tid], bacc);
-    __syncthreads();
+    reinterpret_cast<float4*>(dst)[0] = a;
+    reinterpret_cast<float4*>(dst)[1] = b;
+    return;
   }
-
-  float* Arow = A + row * R * R;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + ti + 16 * a;
+  for (int c = 0; c < 8; ++c)
+    if (c < n) dst[c] = add != nullptr ? add[c] + v[c] : v[c];
+}
+
+// Sums slots of solve rows into S = sum aw * y y^T and s = sum bw * y and
+// writes gram + S (its upper tiles, mirrored) to out_A and s to out_b;
+// with gram null it writes S alone, a partial for assemble_reduce_kernel.
+// Thread g * items + it sums item `it` (an 8 x 8 tile of A on or above
+// the diagonal, or a stripe of 8 entries of b) in registers. Two modes:
+// - split (grouped == 0): the block owns task = row * n_spans + span, the
+//   slots [span * W, span * W + W) of one row; each 64-slot chunk is one
+//   list of live slots that the groups stride through (g, g + groups,
+//   ...), and their sums are added in group order at the end;
+// - grouped (rows of at most W slots): group g owns row
+//   blockIdx.x * groups + g alone; a chunk holds 64 / groups slots of
+//   each of the block's rows, and no sums are exchanged.
+// The block's slice of (cols, aw, bw) is staged in shared memory first.
+// Warp 0 compacts each chunk's live slots (a weight not 0) from it, so
+// padding is neither gathered nor summed, and the chunks ping-pong
+// between two shared buffers: the next chunk's factor rows load by
+// cp.async while this one is summed. Threads past items * groups (the
+// block is a whole number of warps) only stage and gather.
+template <int MAX_THREADS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
+assemble_kernel(const float* __restrict__ Y, int M, int R, const int* __restrict__ cols,
+                const float* __restrict__ aw, const float* __restrict__ bw, int B, int L,
+                int W, int n_spans, int grouped, const float* __restrict__ gram,
+                float* __restrict__ out_A, float* __restrict__ out_b, long long stride_A,
+                long long stride_b, AsmShape shape, int vec) {
+  extern __shared__ float smem[];
+  const int rs = shape.rs, rt = shape.rt, tiles = shape.tiles, items = shape.items;
+  const int groups = shape.groups;
+  const int nsub = grouped ? groups : 1;  // lists of live slots per chunk
+  const int sub = ASM_CHUNK / nsub;       // slots of one list
+  float* ys = smem;  // [2][ASM_CHUNK][rs]; after the slots, [groups - 1][items][64]
+  float* red = smem;
+  int* scol = reinterpret_cast<int*>(smem + max(2 * ASM_CHUNK * rs, (groups - 1) * items * 64));
+  float* saw = reinterpret_cast<float*>(scol + ASM_META * ASM_CHUNK);
+  float* sbw = saw + ASM_META * ASM_CHUNK;
+  int* snlive = reinterpret_cast<int*>(sbw + ASM_META * ASM_CHUNK);  // [ASM_META][nsub]
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int g = tid / items, it = tid - g * items;
+  const bool worker = tid < shape.workers;
+  const long long n_tasks = static_cast<long long>(B) * n_spans;
+  const long long task = grouped ? blockIdx.x * static_cast<long long>(groups) + g : blockIdx.x;
+  const int l_begin = grouped ? 0 : static_cast<int>(blockIdx.x % n_spans) * W;
+  const int lj = grouped ? L : min(W, L - l_begin);  // slots of one list
+  int& s_last = snlive[ASM_META * ASM_GROUPS];  // the last live slot of any list
+  if (tid == 0) s_last = -1;
+
+  // the block's slice of (cols, aw, bw), [nsub][lj] each, staged once:
+  // the chunks then read it from shared memory, so no chunk waits on a
+  // device-memory load; rows past the batch stage as zeros (not live)
+  int* mcol = snlive + ASM_META * ASM_GROUPS + 4;
+  float* maw = reinterpret_cast<float*>(mcol + nsub * lj);
+  float* mbw = maw + nsub * lj;
+  for (int j = 0; j < nsub; ++j) {
+    const long long t = grouped ? blockIdx.x * static_cast<long long>(groups) + j : blockIdx.x;
+    const bool in = t < n_tasks;
+    const long long base = in ? (t / n_spans) * L + l_begin : 0;
+    for (int u = tid; u < lj; u += blockDim.x) {
+      cp_async4(mcol + j * lj + u, cols + base + u, in ? 4 : 0);
+      cp_async4(maw + j * lj + u, aw + base + u, in ? 4 : 0);
+      cp_async4(mbw + j * lj + u, bw + base + u, in ? 4 : 0);
+    }
+  }
+  cp_async_commit();
+
+  const bool is_b = it >= tiles;
+  int ti = is_b ? it - tiles : 0, tj = 0;
+  if (!is_b) {
+    int p = it;
+    while (p >= rt - ti) {
+      p -= rt - ti;
+      ++ti;
+    }
+    tj = ti + p;
+  }
+  const int i0 = ti * 8, j0 = tj * 8;
+  const int si = skew(i0), sj = skew(j0);  // their segments in a gathered row
+
+  float acc[8][8];
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
+
+  // The last live slot of any list: the chunks after it are padding and
+  // are not visited.
+  cp_async_wait<0>();
+  __syncthreads();
+  {
+    int last = -1;
+    for (int j = 0; j < nsub; ++j)
+      for (int u = tid; u < lj; u += blockDim.x)
+        if (maw[j * lj + u] != 0.f || mbw[j * lj + u] != 0.f) last = max(last, u);
+    if (last >= 0) atomicMax(&s_last, last);
+  }
+  __syncthreads();
+  const int n_chunks = (s_last + sub) / sub;
+
+  auto stage = [&](int c) {  // warp 0: each list's live slots of chunk c, in slot order
+    if (tid >= 32) return;
+    const int m = c % ASM_META, m0 = m * ASM_CHUNK;
+    int first_half = 0;  // the one list's live slots in positions 0..31
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = 32 * h + lane, j = p * nsub / ASM_CHUNK, u = c * sub + p - j * sub;
+      const int k = j * lj + u;
+      const float a = u < lj ? maw[k] : 0.f, w = u < lj ? mbw[k] : 0.f;
+      const bool live = a != 0.f || w != 0.f;
+      const unsigned ballot = __ballot_sync(0xffffffffu, live);
+      const unsigned seg = sub >= 32 ? 0xffffffffu : 0xffffu << (lane & 16);
+      const int before = h == 1 && sub == ASM_CHUNK ? first_half : 0;
+      if (live) {
+        const int s = m0 + j * sub + before + __popc(ballot & seg & below);
+        scol[s] = mcol[k];
+        saw[s] = a;
+        sbw[s] = w;
+      }
+      const int count = __popc(ballot & seg);
+      if (sub == ASM_CHUNK) {
+        if (h == 0)
+          first_half = count;
+        else if (lane == 0)
+          snlive[m * nsub] = first_half + count;
+      } else if (lane % sub == 0) {
+        snlive[m * nsub + j] = count;
+      }
+    }
+  };
+  // each warp copies whole factor rows, spw rows a pass, lane lq of a row
+  // taking copies lq, lq + qstep, ... of 16 (or 4) bytes
+  const int per = vec ? R / 4 : R;
+  const int spw = per >= 32 ? 1 : 32 / per;
+  const int lrow = per >= 32 ? 0 : lane / per, lq = lane - lrow * per;
+  const int qstep = per >= 32 ? 32 : per, warp = tid >> 5, n_warps = blockDim.x >> 5;
+  auto gather = [&](int c) {  // factor rows of chunk c's live slots
+    const int m = c % ASM_META, m0 = m * ASM_CHUNK;
+    float* dst = ys + (c & 1) * ASM_CHUNK * rs;
+    if (lrow >= spw) return;
+    for (int s = warp * spw + lrow; s < ASM_CHUNK; s += n_warps * spw) {
+      const int j = s * nsub / ASM_CHUNK;
+      if (s - j * sub >= snlive[m * nsub + j]) continue;  // past the list's live slots
+      const int col = scol[m0 + s];
+      const bool ok = col >= 0 && col < M;
+      const float* src = ok ? Y + static_cast<long long>(col) * R : Y;
+      for (int q = lq; q < per; q += qstep) {
+        if (vec)
+          cp_async16(dst + s * rs + skew(4 * q), src + 4 * q, ok ? 16 : 0);
+        else
+          cp_async4(dst + s * rs + skew(q), src + q, ok ? 4 : 0);
+      }
+    }
+  };
+
+  // One barrier a chunk: it publishes chunk c's factor rows and chunk
+  // c + 1's live slots, and frees the buffer chunk c - 1 was summed from
+  // for chunk c + 1's copies, which then overlap chunk c's sums.
+  if (n_chunks > 0) {
+    stage(0);
+    __syncthreads();
+    gather(0);
+    cp_async_commit();
+  }
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<0>();
+    if (c + 1 < n_chunks) stage(c + 1);
+    __syncthreads();
+    if (c + 1 < n_chunks) {
+      gather(c + 1);
+      cp_async_commit();
+    }
+    const int m = c % ASM_META;
+    const float* yb = ys + (c & 1) * ASM_CHUNK * rs;
+    const int s0 = grouped ? g * sub : g, step = grouped ? 1 : groups;
+    const int s_end = !worker ? s0 : grouped ? g * sub + snlive[m * nsub + g] : snlive[m * nsub];
+    const float* wts = (is_b ? sbw : saw) + m * ASM_CHUNK;
+    if (!is_b) {
+      for (int s = s0; s < s_end; s += step) {
+        const float w = wts[s];
+        const float* y = yb + s * rs;
+        const float4 a0 = *reinterpret_cast<const float4*>(y + si);
+        const float4 a1 = *reinterpret_cast<const float4*>(y + si + 4);
+        const float4 b0 = *reinterpret_cast<const float4*>(y + sj);
+        const float4 b1 = *reinterpret_cast<const float4*>(y + sj + 4);
+        const float yi[8] = {w * a0.x, w * a0.y, w * a0.z, w * a0.w,
+                             w * a1.x, w * a1.y, w * a1.z, w * a1.w};
+        const float yj[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int a = 0; a < 8; ++a)
+#pragma unroll
+          for (int cc = 0; cc < 8; ++cc) acc[a][cc] = fmaf(yi[a], yj[cc], acc[a][cc]);
+      }
+    } else {
+      for (int s = s0; s < s_end; s += step) {
+        const float w = wts[s];
+        const float* y = yb + s * rs;
+        const float4 a0 = *reinterpret_cast<const float4*>(y + si);
+        const float4 a1 = *reinterpret_cast<const float4*>(y + si + 4);
+        const float yi[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+        for (int a = 0; a < 8; ++a) acc[0][a] = fmaf(w, yi[a], acc[0][a]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  if (!grouped) {  // groups 1.. hand their sums to group 0, added in group order
+    __syncthreads();
+    if (g > 0 && worker) {
+      float4* mine =
+          reinterpret_cast<float4*>(red + (static_cast<size_t>(g - 1) * items + it) * 64);
+#pragma unroll
+      for (int a = 0; a < 8; ++a) {
+        mine[2 * a] = make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+        mine[2 * a + 1] = make_float4(acc[a][4], acc[a][5], acc[a][6], acc[a][7]);
+      }
+    }
+    __syncthreads();
+    if (g > 0) return;
+    for (int gg = 1; gg < groups; ++gg) {
+      const float* o = red + (static_cast<size_t>(gg - 1) * items + it) * 64;
+#pragma unroll
+      for (int a = 0; a < 8; ++a)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[a][c] += o[a * 8 + c];
+    }
+  }
+  if (!worker || task >= n_tasks) return;
+  if (is_b) {
+    float* ob = out_b + task * stride_b;
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+      if (i0 + a < R) ob[i0 + a] = acc[0][a];
+    return;
+  }
+  float* oA = out_A + task * stride_A;
+  float v[8];
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {  // rows i0.., on a diagonal tile from its upper half
+    const int i = i0 + a;
     if (i >= R) continue;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = j0 + tj + 16 * c;
-      if (j < R) Arow[i * R + j] = gram[i * R + j] + acc[a][c];
-    }
+    for (int c = 0; c < 8; ++c) v[c] = ti == tj && c < a ? acc[c][a] : acc[a][c];
+    store_row8(oA + i * R + j0, v, min(8, R - j0),
+               gram != nullptr ? gram + i * R + j0 : nullptr, vec);
   }
-  if (does_b) bvec[row * R + i0 + tid] = bacc;
+  if (ti == tj) return;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {  // the mirror: rows j0.., columns i0..
+    const int j = j0 + c;
+    if (j >= R) continue;
+#pragma unroll
+    for (int a = 0; a < 8; ++a) v[a] = acc[a][c];
+    store_row8(oA + j * R + i0, v, min(8, R - i0),
+               gram != nullptr ? gram + j * R + i0 : nullptr, vec);
+  }
+}
+
+// A[row] = gram + (P[row, 0] + P[row, 1] + ...), b[row] = Pb[row, 0] + ...:
+// the spans' partials of assemble_kernel, added in span order.
+__global__ void __launch_bounds__(REDUCE_THREADS)
+assemble_reduce_kernel(const float* __restrict__ P, int n_spans, int R,
+                       const float* __restrict__ gram, float* __restrict__ A,
+                       float* __restrict__ b) {
+  const long long row = blockIdx.x;
+  const long long stride = static_cast<long long>(R) * R + R;
+  const float* pr = P + row * n_spans * stride;
+  for (int e = threadIdx.x; e < R * R + R; e += blockDim.x) {
+    float v = pr[e];
+    for (int s = 1; s < n_spans; ++s) v += pr[s * stride + e];
+    if (e < R * R)
+      A[row * R * R + e] = gram[e] + v;
+    else
+      b[row * R + e - R * R] = v;
+  }
+}
+
+// assemble_kernel for `shape`: built for three blocks an SM up to
+// ASM_SMALL_THREADS threads a block (R <= 64), else for one.
+template <typename... Args>
+void launch_assemble(unsigned blocks, const AsmShape& shape, cudaStream_t s, Args... args) {
+  if (shape.threads <= ASM_SMALL_THREADS)
+    assemble_kernel<ASM_SMALL_THREADS, 3><<<blocks, shape.threads, shape.smem_bytes, s>>>(args...);
+  else
+    assemble_kernel<ASM_MAX_THREADS, 1><<<blocks, shape.threads, shape.smem_bytes, s>>>(args...);
 }
 
 __host__ __device__ inline int solve_stride(int R) { return R | 1; }
@@ -189,10 +497,6 @@ spd_solve_kernel(const float* __restrict__ A, const float* __restrict__ b,
   for (int i = tid; i < R; i += SOLVE_THREADS) x[sys * R + i] = v[i];
 }
 
-inline size_t assemble_smem_bytes(int R) {
-  return (static_cast<size_t>(ASM_CHUNK) * R + 2 * ASM_CHUNK) * sizeof(float);
-}
-
 }  // namespace
 
 extern "C" {
@@ -201,12 +505,22 @@ const char* pio_als_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Largest rank assemble_kernel takes: its chunk of factor rows stays
-// within the 48 KB of shared memory a block has without opting in.
-int pio_assemble_max_rank() {
-  int r = 1;
-  while (assemble_smem_bytes(r + 1) <= ASM_SMEM_MAX) ++r;
-  return r;
+// Largest rank assemble_kernel takes on `device`: one thread for each
+// upper tile and stripe of b fits a block, and its shared memory (two
+// chunks of factor rows, or the groups' sums) what a block may opt into.
+// Negative: a CUDA error.
+int pio_assemble_max_rank(int device) {
+  int optin = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int r = 0;
+  for (;;) {
+    const AsmShape s = asm_shape(r + 1);
+    if (s.groups < 1 || s.smem_bytes > static_cast<size_t>(optin))
+      return r;
+    ++r;
+  }
 }
 
 // Largest rank spd_solve_kernel takes on `device`: the system must fit
@@ -221,31 +535,80 @@ int pio_spd_max_rank(int device) {
   return r;
 }
 
-// Once per device, before its first pio_spd_solve: lets spd_solve_kernel
-// take up to `max_rank`'s shared memory (above the 48 KB default).
+// Once per device, before its first pio_spd_solve or
+// pio_assemble_normal_equations: lets spd_solve_kernel take up to
+// `max_rank`'s shared memory and assemble_kernel all a block may opt into
+// (above the 48 KB default), and asks for the largest shared-memory
+// carve-out so several assembly blocks share an SM.
 int pio_als_solve_init(int device, int max_rank) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const void* kernels[] = {reinterpret_cast<const void*>(assemble_kernel<ASM_SMALL_THREADS, 3>),
+                           reinterpret_cast<const void*>(assemble_kernel<ASM_MAX_THREADS, 1>)};
+  for (const void* k : kernels) {
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(k, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return static_cast<int>(cudaFuncSetAttribute(spd_solve_kernel,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(solve_smem_bytes(max_rank))));
 }
 
 // A [B, R, R] and b [B, R] from Y [M, R], cols / aw / bw [B, L] and gram
-// [R, R]; all fp32 except cols (int32), contiguous, on `device`. Launches
-// on `stream`; returns cudaGetLastError().
+// [R, R]; all fp32 except cols (int32), contiguous, on `device`, which
+// pio_als_solve_init has set up. The host's plan (assembly_plan in
+// ops/als_cuda.py) gives `span` (a multiple of 64), the most slots one
+// block sums for a row, and `n_spans`: with more than one, each row is
+// n_spans blocks of `span` slots (the last holds the rest), each writing
+// a partial to `partial` ([B, n_spans, R * R + R] fp32), which
+// assemble_reduce_kernel adds to gram in span order. With `grouped` (one
+// span) a block sums several rows, one per slot group. R at most
+// pio_assemble_max_rank(device). Launches on `stream`; returns
+// cudaGetLastError().
 int pio_assemble_normal_equations(int device, const float* Y, int M, int R, const int* cols,
-                                  const float* aw, const float* bw, int B, int L,
-                                  const float* gram, float* A, float* b, void* stream) {
-  if (B <= 0 || R <= 0 || R > pio_assemble_max_rank() || L < 0 || M <= 0)
+                                  const float* aw, const float* bw, int B, int L, int span,
+                                  int n_spans, int grouped, const float* gram, float* A,
+                                  float* b, float* partial, void* stream) {
+  if (B <= 0 || R <= 0 || L < 0 || M <= 0 || span <= 0 || span % ASM_CHUNK != 0 ||
+      n_spans < 1 || static_cast<long long>(n_spans) * span < L ||
+      (n_spans > 1 && (static_cast<long long>(n_spans - 1) * span >= L || partial == nullptr ||
+                       grouped)))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  const AsmShape shape = asm_shape(R);
+  int optin = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_tiles = (R + ASM_TILE - 1) / ASM_TILE;
-  const dim3 grid(static_cast<unsigned>(B), static_cast<unsigned>(n_tiles * n_tiles));
-  assemble_kernel<<<grid, ASM_THREADS, assemble_smem_bytes(R),
-                    static_cast<cudaStream_t>(stream)>>>(Y, M, R, cols, aw, bw, L, gram, A, b,
-                                                         n_tiles);
+  if (shape.groups < 1 || shape.smem_bytes > static_cast<size_t>(optin))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // a block's slice of the tables must fit its staging area
+  if ((grouped ? static_cast<long long>(shape.groups) * L : std::min(span, L)) > ASM_SLICE)
+    return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto aligned = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
+  const int vec = R % 4 == 0 && aligned(Y) && aligned(gram) && aligned(A) &&
+                  (partial == nullptr || aligned(partial));
+  const long long rr = static_cast<long long>(R) * R;
+  if (n_spans == 1) {
+    const long long blocks = grouped ? (B + shape.groups - 1) / shape.groups : B;
+    launch_assemble(static_cast<unsigned>(blocks), shape, s, Y, M, R, cols, aw, bw, B, L, span,
+                    1, grouped ? 1 : 0, gram, A, b, rr, static_cast<long long>(R), shape, vec);
+    return static_cast<int>(cudaGetLastError());
+  }
+  launch_assemble(static_cast<unsigned>(static_cast<long long>(B) * n_spans), shape, s, Y, M, R,
+                  cols, aw, bw, B, L, span, n_spans, 0, static_cast<const float*>(nullptr),
+                  partial, partial + rr, rr + R, rr + R, shape, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  assemble_reduce_kernel<<<static_cast<unsigned>(B), REDUCE_THREADS, 0, s>>>(partial, n_spans,
+                                                                            R, gram, A, b);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,24 +19,47 @@
 //      writes the [B, M] score matrix. seen_mask_kernel then scatters
 //      -inf into each query's seen ids: O(L*B) work, where the TPU kernel
 //      compared every tile against all L seen slots.
-//   2. select_sort_kernel: one block per query finds the k-th largest
-//      score by an MSB-first radix select over order-preserving 32-bit
-//      keys (a second select over ids resolves ties at the threshold to
-//      the lowest ids), gathers the k winners, and sorts them by
-//      (score desc, id asc) with a bitonic network, in shared memory
-//      when the padded width fits and in a global scratch otherwise, so
-//      any k up to M works.
+//   2. The selection orders each query's row by the route the host picks
+//      (topk_sort_plan in ops/als_cuda.py):
+//      - bitonic (k up to 2,048, as for every personal top-N query):
+//        select_bitonic_kernel finds the k-th largest score by an
+//        MSB-first radix select over order-preserving 32-bit keys (a
+//        second select over ids resolves ties at the threshold to the
+//        lowest ids), gathers the k winners and sorts them by (score
+//        desc, id asc) with a bitonic network in shared memory;
+//      - cluster_row (wider k, as for category queries, which ask for
+//        nearly every item): no select; sort_row_cluster_kernel sorts the
+//        whole masked row with a stable LSD radix sort, four 8-bit passes
+//        over the inverted keys, and keeps the first k. A cluster of 8
+//        blocks on 8 SMs holds the row, an eighth of the pairs in each
+//        block's shared memory, and each pass's scatter crosses blocks
+//        through distributed shared memory. The row enters in id order
+//        and the sort is stable, so the lowest id stays first among equal
+//        scores with no second key. Each pass ranks tiles of 2,048 pairs,
+//        four a thread, finding equal digits in a warp with eight ballots;
+//      - radix_row: the same sort by one block (sort_row_kernel) through
+//        a device-memory scratch that stays mostly in L2, for a row wider
+//        than the cluster's shared memory holds (about 108,000 items on
+//        an H100).
 //
 // Bound on this card: the item table is read once (M*R*bytes(dtype)) and
 // the product is 2*B*M*R fp32 FMAs at the non-tensor fp32 rate; at B=1 the
 // bytes bound it, at B=256 the operations do. The [B, M] score matrix
 // makes one round trip through device memory (about 27 MB at B=256,
-// M=26,744), which the TPU design avoided; keeping scores on chip is the
-// first thing a faster version removes.
+// M=26,744), which the TPU design avoided. The whole-row sort replaces a
+// bitonic network that ran log2(N)(log2(N)+1)/2 = 120 block-wide passes
+// through device memory at N = 32,768: a radix pass touches each pair
+// twice with two block barriers per 2,048 pairs, and a pass whose digit
+// is the same for every key is skipped. A query's whole row is sorted
+// by 8 SMs, not one: at B = 1 one block alone took about 3x as long on
+// an H100.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -44,8 +67,24 @@ constexpr int TM = 64;          // items per score tile
 constexpr int TB = 16;          // queries per score tile
 constexpr int RC = 32;          // rank chunk held in shared memory
 constexpr int SCORE_THREADS = 256;
-constexpr int SELECT_THREADS = 1024;
-constexpr int SMEM_SORT_MAX = 16384;  // widest sort kept in shared memory
+constexpr int SELECT_THREADS = 1024;  // the bitonic route
+constexpr int RADIX_THREADS = 512;    // the whole-row routes
+constexpr int RADIX_WARPS = RADIX_THREADS / 32;
+constexpr int RADIX_SUB = 4;          // keys a thread ranks in each tile of a pass
+constexpr int RADIX_TILE = RADIX_THREADS * RADIX_SUB;
+constexpr int MAX_DEVICES = 64;
+
+// Sort routes of the selection, as the host's topk_sort_plan names them.
+constexpr int ROUTE_BITONIC = 0;      // select, gather, bitonic sort of k
+constexpr int ROUTE_CLUSTER_ROW = 1;  // radix sort of the whole row by a cluster
+constexpr int ROUTE_RADIX_ROW = 2;    // the same by one block, in device memory
+constexpr int SORT_CLUSTER = 8;       // blocks of a cluster that sorts one row
+
+inline int next_pow2(int k) {
+  int n = 1;
+  while (n < k) n <<= 1;
+  return n;
+}
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
@@ -132,6 +171,22 @@ __device__ __forceinline__ float key_float(unsigned key) {
   return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
 }
 
+// The lanes of this warp that hold the same digit d in 0..255 (d < 0:
+// none, and such a lane is nobody's peer and has none): eight ballots, one
+// per bit. In the radix sort, where every lane holds a digit, this is
+// cheaper than __match_any_sync; in the select, where most lanes hold
+// none, __match_any_sync is.
+__device__ __forceinline__ unsigned digit_peers(int d) {
+  unsigned peers = __ballot_sync(0xffffffffu, d >= 0);
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const bool bit = (d >> b) & 1;
+    const unsigned v = __ballot_sync(0xffffffffu, bit);
+    peers &= bit ? v : ~v;
+  }
+  return d >= 0 ? peers : 0u;
+}
+
 // Block-wide MSB-first radix select. Returns the key T of the element of
 // descending rank `rank` (1-based). With by_id false the keys are the
 // scores' keys over the whole row; with by_id true the candidates are the
@@ -194,17 +249,152 @@ __device__ __forceinline__ bool before(unsigned ka, unsigned ia, unsigned kb, un
   return ka > kb || (ka == kb && ia < ib);
 }
 
+// Shared state of the radix sort (RADIX_THREADS threads).
+struct RadixSmem {
+  unsigned hist[4][256];                     // digit counts of the four passes
+  unsigned short wofs[RADIX_WARPS][256];     // per tile: digit count, then offset, per warp
+  unsigned dbase[256];                       // next free slot of each digit in the pass
+  unsigned tbase[256];                       // the tile's first slot of each digit
+  unsigned skip[4];                          // pass p moves nothing
+};
+
+// One pass of the stable LSD radix sort over this block's n pairs (k0,
+// i0) by the digit at `shift`: tiles of RADIX_TILE pairs in order, each
+// warp a contiguous run of 32 * RADIX_SUB of them; a pair with digit d
+// goes to sm.dbase[d] (which advances), plus the counts of d in the
+// tile's earlier warps, plus its rank among the equal digits before it in
+// its warp's run (digit_peers and a running count per digit), so equal
+// keys keep their order. put(pos, key, id) stores a pair.
+template <typename Put>
+__device__ void scatter_pass(int n, const unsigned* k0, const unsigned* i0, int shift,
+                             RadixSmem& sm, Put put) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  for (int base = 0; base < n; base += RADIX_TILE) {
+    unsigned key[RADIX_SUB], id[RADIX_SUB], rank[RADIX_SUB];
+    int d[RADIX_SUB];
+    bool lead[RADIX_SUB];
+#pragma unroll
+    for (int q = 0; q < RADIX_SUB; ++q) {  // this warp's run, in order
+      const int i = base + (warp * RADIX_SUB + q) * 32 + lane;
+      const bool valid = i < n;
+      key[q] = valid ? k0[i] : 0u;
+      id[q] = valid ? i0[i] : 0u;
+      d[q] = valid ? static_cast<int>((key[q] >> shift) & 255u) : -1;
+      const unsigned peers = digit_peers(d[q]);
+      lead[q] = valid && lane == __ffs(peers) - 1;
+      const unsigned before = valid ? sm.wofs[warp][d[q]] : 0u;
+      rank[q] = before + __popc(peers & below);
+      __syncwarp();
+      if (lead[q]) sm.wofs[warp][d[q]] = static_cast<unsigned short>(before + __popc(peers));
+      __syncwarp();
+    }
+    __syncthreads();
+    if (tid < 256) {  // digit tid: offsets of the tile's warps, in warp order
+      unsigned run = 0u;
+      for (int w = 0; w < RADIX_WARPS; ++w) {
+        const unsigned c = sm.wofs[w][tid];
+        if (c) {
+          sm.wofs[w][tid] = static_cast<unsigned short>(run);
+          run += c;
+        }
+      }
+      sm.tbase[tid] = sm.dbase[tid];
+      sm.dbase[tid] += run;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < RADIX_SUB; ++q)
+      if (d[q] >= 0) put(sm.tbase[d[q]] + sm.wofs[warp][d[q]] + rank[q], key[q], id[q]);
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < RADIX_SUB; ++q)  // zero again for the next tile
+      if (lead[q]) sm.wofs[warp][d[q]] = 0;
+    __syncwarp();
+  }
+}
+
+// Stable LSD radix sort of the n pairs (k0, i0) by key, descending: the
+// keys are inverted once and sorted ascending in four 8-bit passes
+// (scatter_pass) that ping-pong between (k0, i0) and (k1, i1). A pass
+// whose digit is the same for every key is skipped. On return (k0, i0)
+// hold the sorted pairs, keys inverted.
+__device__ void radix_sort_desc(int n, unsigned*& k0, unsigned*& i0, unsigned*& k1,
+                                unsigned*& i1, RadixSmem& sm) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  for (int e = tid; e < 4 * 256; e += blockDim.x) (&sm.hist[0][0])[e] = 0u;
+  for (int e = tid; e < RADIX_WARPS * 256; e += blockDim.x) (&sm.wofs[0][0])[e] = 0;
+  __syncthreads();
+  for (int base = 0; base < n; base += blockDim.x) {  // invert, count all four digits
+    const int i = base + tid;
+    unsigned key = 0u;
+    if (i < n) {
+      key = ~k0[i];
+      k0[i] = key;
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int d = i < n ? static_cast<int>((key >> (8 * p)) & 255u) : -1;
+      const unsigned peers = digit_peers(d);
+      if (d >= 0 && lane == __ffs(peers) - 1) atomicAdd(&sm.hist[p][d], static_cast<unsigned>(__popc(peers)));
+    }
+  }
+  __syncthreads();
+
+  for (int p = 0; p < 4; ++p) {
+    if (tid < 32) {  // exclusive scan of the pass's histogram, 8 digits a lane
+      unsigned c[8], s = 0u;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        c[j] = sm.hist[p][lane * 8 + j];
+        s += c[j];
+      }
+      unsigned inc = s;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned v = __shfl_up_sync(0xffffffffu, inc, o);
+        if (lane >= o) inc += v;
+      }
+      unsigned run = inc - s;
+      bool whole = false;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        sm.dbase[lane * 8 + j] = run;
+        run += c[j];
+        whole |= c[j] == static_cast<unsigned>(n);
+      }
+      whole = __any_sync(0xffffffffu, whole);
+      if (lane == 0) sm.skip[p] = whole;
+    }
+    __syncthreads();
+    if (sm.skip[p]) continue;
+    scatter_pass(n, k0, i0, 8 * p, sm, [&](unsigned pos, unsigned key, unsigned id) {
+      k1[pos] = key;
+      i1[pos] = id;
+    });
+    unsigned* t = k0;
+    k0 = k1;
+    k1 = t;
+    t = i0;
+    i0 = i1;
+    i1 = t;
+  }
+  __syncthreads();
+}
+
+// The bitonic route, one block per query: select, gather the k winners in
+// any order, and sort them by (key desc, id asc) in shared memory (width
+// N = next_pow2(k)).
 __global__ void __launch_bounds__(SELECT_THREADS)
-select_sort_kernel(const float* __restrict__ S, int M, int k, int N,
-                   unsigned* gscratch, float* __restrict__ vals,
-                   int* __restrict__ idx) {
+select_bitonic_kernel(const float* __restrict__ S, int M, int k, int N,
+                      float* __restrict__ vals, int* __restrict__ idx) {
   extern __shared__ unsigned dyn[];
   __shared__ unsigned hist[256];
   __shared__ unsigned sh[4];
   const long long b = blockIdx.x;
   const float* row = S + b * M;
-  unsigned* skey = gscratch != nullptr ? gscratch + b * 2 * N : dyn;
-  unsigned* sid = skey + N;
+  unsigned* skey = dyn;
+  unsigned* sid = dyn + N;
 
   unsigned need, eq;
   const unsigned T = radix_select(row, M, static_cast<unsigned>(k), false, 0u, hist, sh,
@@ -230,7 +420,6 @@ select_sort_kernel(const float* __restrict__ S, int M, int k, int N,
     sid[i] = 0xffffffffu;
   }
   __syncthreads();
-
   for (int size = 2; size <= N; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
       for (int t = threadIdx.x; t < N / 2; t += blockDim.x) {
@@ -249,52 +438,198 @@ select_sort_kernel(const float* __restrict__ S, int M, int k, int N,
       __syncthreads();
     }
   }
-
   for (int j = threadIdx.x; j < k; j += blockDim.x) {
     vals[b * k + j] = key_float(skey[j]);
     idx[b * k + j] = static_cast<int>(sid[j]);
   }
 }
 
+// The radix_row route, one block per query: the whole row's key/id pairs,
+// in id order, stably radix-sorted by key, descending, in two ping-pong
+// buffers of gscratch (4 * M words per query); the first k are the result.
+__global__ void __launch_bounds__(RADIX_THREADS)
+sort_row_kernel(const float* __restrict__ S, int M, int k, unsigned* gscratch,
+                float* __restrict__ vals, int* __restrict__ idx) {
+  __shared__ RadixSmem sm;
+  const long long b = blockIdx.x;
+  const float* row = S + b * M;
+  unsigned* k0 = gscratch + b * 4 * M;
+  unsigned *i0 = k0 + M, *k1 = k0 + 2 * M, *i1 = k0 + 3 * M;
+  for (int i = threadIdx.x; i < M; i += blockDim.x) {
+    k0[i] = float_key(row[i]);
+    i0[i] = static_cast<unsigned>(i);
+  }
+  __syncthreads();
+  radix_sort_desc(M, k0, i0, k1, i1, sm);
+  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+    vals[b * k + j] = key_float(~k0[j]);
+    idx[b * k + j] = static_cast<int>(i0[j]);
+  }
+}
+
+// The whole-row route by a cluster of SORT_CLUSTER blocks, one cluster
+// per query: block r holds the share [r * share, r * share + share) of
+// the row's pairs in two ping-pong buffers in its shared memory. Each of
+// the four passes counts its digits, reads every block's counts through
+// distributed shared memory (a pair of digit d in block r goes after all
+// pairs of smaller digits and after those of digit d in blocks 0..r-1,
+// so the sort stays stable), and scatter_pass writes each pair into the
+// block that owns its slot. The first k slots are the result.
+__global__ void __cluster_dims__(SORT_CLUSTER, 1, 1) __launch_bounds__(RADIX_THREADS)
+sort_row_cluster_kernel(const float* __restrict__ S, int M, int k, float* __restrict__ vals,
+                        int* __restrict__ idx) {
+  extern __shared__ unsigned dyn[];
+  __shared__ RadixSmem sm;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int r = static_cast<int>(cluster.block_rank());
+  const long long b = blockIdx.x / SORT_CLUSTER;
+  const float* row = S + b * M;
+  const int share = (M + SORT_CLUSTER - 1) / SORT_CLUSTER;
+  const int lo = r * share, n = max(0, min(M, lo + share) - lo);
+  unsigned *k0 = dyn, *i0 = dyn + share, *k1 = dyn + 2 * share, *i1 = dyn + 3 * share;
+  for (int i = tid; i < n; i += blockDim.x) {  // inverted keys: ascending = descending scores
+    k0[i] = ~float_key(row[lo + i]);
+    i0[i] = static_cast<unsigned>(lo + i);
+  }
+  for (int e = tid; e < RADIX_WARPS * 256; e += blockDim.x) (&sm.wofs[0][0])[e] = 0;
+
+  for (int p = 0; p < 4; ++p) {
+    const int shift = 8 * p;
+    for (int e = tid; e < 256; e += blockDim.x) sm.hist[0][e] = 0u;
+    __syncthreads();
+    for (int base = 0; base < n; base += blockDim.x) {
+      const int i = base + tid;
+      const int d = i < n ? static_cast<int>((k0[i] >> shift) & 255u) : -1;
+      const unsigned peers = digit_peers(d);
+      if (d >= 0 && lane == __ffs(peers) - 1)
+        atomicAdd(&sm.hist[0][d], static_cast<unsigned>(__popc(peers)));
+    }
+    cluster.sync();  // every block's counts are in
+    if (tid < 32) {  // digits lane * 8 ..: their bases in the row, then this block's
+      unsigned tot[8], before[8], s = 0u;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        tot[j] = before[j] = 0u;
+        for (int rr = 0; rr < SORT_CLUSTER; ++rr) {
+          const unsigned c = cluster.map_shared_rank(&sm.hist[0][0], rr)[lane * 8 + j];
+          tot[j] += c;
+          if (rr < r) before[j] += c;
+        }
+        s += tot[j];
+      }
+      unsigned inc = s;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned v = __shfl_up_sync(0xffffffffu, inc, o);
+        if (lane >= o) inc += v;
+      }
+      unsigned run = inc - s;
+      bool whole = false;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        sm.dbase[lane * 8 + j] = run + before[j];
+        run += tot[j];
+        whole |= tot[j] == static_cast<unsigned>(M);
+      }
+      whole = __any_sync(0xffffffffu, whole);
+      if (lane == 0) sm.skip[p] = whole;
+    }
+    __syncthreads();
+    if (!sm.skip[p]) {  // the same in every block: a digit shared by the whole row
+      scatter_pass(n, k0, i0, shift, sm, [&](unsigned pos, unsigned key, unsigned id) {
+        const int owner = static_cast<int>(pos) / share;
+        const unsigned off = pos - static_cast<unsigned>(owner * share);
+        cluster.map_shared_rank(k1, owner)[off] = key;
+        cluster.map_shared_rank(i1, owner)[off] = id;
+      });
+    }
+    cluster.sync();  // every pair has landed; the counts may be cleared
+    if (!sm.skip[p]) {
+      unsigned* t = k0;
+      k0 = k1;
+      k1 = t;
+      t = i0;
+      i0 = i1;
+      i1 = t;
+    }
+  }
+  for (int i = tid; i < n && lo + i < k; i += blockDim.x) {
+    vals[b * k + lo + i] = key_float(~k0[i]);
+    idx[b * k + lo + i] = static_cast<int>(i0[i]);
+  }
+}
+
+// Widest row sort_row_cluster_kernel holds on each device: two ping-pong
+// buffers of a share of ceil(M / SORT_CLUSTER) pairs per block.
+int g_cluster_max_row[MAX_DEVICES];
+
 }  // namespace
 
 extern "C" {
-
-// Largest sort width select_sort_kernel keeps in shared memory; wider
-// sorts need a [B, 2*N] uint32 scratch from the caller.
-int pio_topk_smem_sort_max() { return SMEM_SORT_MAX; }
 
 const char* pio_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Once per device, before its first pio_fused_topk: lets select_sort_kernel
-// take its widest shared-memory sort (2 * SMEM_SORT_MAX keys and ids,
-// above the 48 KB default). Returns the CUDA error code.
+// Once per device, before its first pio_fused_topk: lets the cluster
+// sort take all the dynamic shared memory a block may opt into. Returns
+// the CUDA error code.
 int pio_fused_topk_init(int device) {
+  if (device < 0 || device >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaFuncSetAttribute(
-      select_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      2 * SMEM_SORT_MAX * static_cast<int>(sizeof(unsigned))));
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, sort_row_cluster_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int dyn = optin - static_cast<int>(attr.sharedSizeBytes);
+  err = cudaFuncSetAttribute(sort_row_cluster_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int share = dyn / static_cast<int>(4 * sizeof(unsigned));
+  g_cluster_max_row[device] = SORT_CLUSTER * share;
+  return 0;
+}
+
+// The widest row (items) the cluster sort takes on `device`, which
+// pio_fused_topk_init has set up; a wider one takes the radix_row route.
+int pio_topk_cluster_max_row(int device) {
+  if (device < 0 || device >= MAX_DEVICES) return 0;
+  return g_cluster_max_row[device];
 }
 
 // y_dtype: 0 = fp32, 1 = bf16, 2 = int8 (scale required). scale and
 // row_valid may be null. seen_cols / seen_mask are [L, B] with the given
-// element strides. N is the sort width: a power of two >= k; sort_scratch
-// is null when N <= pio_topk_smem_sort_max(). scores is a [B, M] fp32
-// scratch. Launches on `stream` of CUDA device `device`, which
-// pio_fused_topk_init has set up; returns cudaGetLastError().
+// element strides. route is the host's sort route (ROUTE_*): cluster_row
+// takes rows up to pio_topk_cluster_max_row(device) items, and radix_row
+// needs sort_scratch of scratch_pairs >= 2 * M uint32 key/id pairs per
+// query (it may be null otherwise). scores is a [B, M] fp32 scratch.
+// Launches on `stream` of CUDA device `device`, which pio_fused_topk_init
+// has set up; returns cudaGetLastError().
 int pio_fused_topk(int device, const float* Q, int B, int R, const void* Y, int y_dtype,
                    const float* scale, const float* row_valid, int M, int n_items,
                    const int* seen_cols, const float* seen_mask, int L,
                    long long col_sl, long long col_sb, long long mask_sl,
-                   long long mask_sb, int mask_seen, int k, int N, float* scores,
-                   unsigned* sort_scratch, float* vals, int* idx, void* stream) {
+                   long long mask_sb, int mask_seen, int k, int route, float* scores,
+                   unsigned* sort_scratch, long long scratch_pairs, float* vals, int* idx,
+                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || M <= 0 || R <= 0 || k <= 0 || k > M || N < k || (N & (N - 1)) != 0 ||
-      (sort_scratch == nullptr && N > SMEM_SORT_MAX) || (y_dtype == 2 && scale == nullptr))
+  if (B <= 0 || M <= 0 || R <= 0 || k <= 0 || k > M || (y_dtype == 2 && scale == nullptr) ||
+      device < 0 || device >= MAX_DEVICES || g_cluster_max_row[device] <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem = 0;
+  const int N = next_pow2(k);  // the bitonic sort's width
+  if (route == ROUTE_BITONIC) {
+    smem = 2 * static_cast<size_t>(N) * sizeof(unsigned);
+  } else if (route == ROUTE_CLUSTER_ROW) {
+    if (M > g_cluster_max_row[device]) return static_cast<int>(cudaErrorInvalidValue);
+    smem = 4 * static_cast<size_t>((M + SORT_CLUSTER - 1) / SORT_CLUSTER) * sizeof(unsigned);
+  } else if (route != ROUTE_RADIX_ROW || sort_scratch == nullptr || scratch_pairs < 2LL * M) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -327,9 +662,13 @@ int pio_fused_topk(int device, const float* Q, int B, int R, const void* Y, int 
     if (err != cudaSuccess) return static_cast<int>(err);
   }
 
-  const size_t smem = sort_scratch == nullptr ? 2 * static_cast<size_t>(N) * sizeof(unsigned) : 0;
-  select_sort_kernel<<<B, SELECT_THREADS, smem, s>>>(scores, M, k, N, sort_scratch, vals,
-                                                     idx);
+  if (route == ROUTE_BITONIC)
+    select_bitonic_kernel<<<B, SELECT_THREADS, smem, s>>>(scores, M, k, N, vals, idx);
+  else if (route == ROUTE_CLUSTER_ROW)
+    sort_row_cluster_kernel<<<B * SORT_CLUSTER, RADIX_THREADS, smem, s>>>(scores, M, k, vals,
+                                                                        idx);
+  else
+    sort_row_kernel<<<B, RADIX_THREADS, 0, s>>>(scores, M, k, sort_scratch, vals, idx);
   return static_cast<int>(cudaGetLastError());
 }
 
