@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's training and query paths once on one GPU.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --serving-times   # phases 1 and 4 only
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -10,15 +11,19 @@ Phases (any failure raises and the script exits non-zero):
    together) and print the build times.
 2. Hold the serving kernel against its plain PyTorch version on the card
    at the serving path's shapes (M=26,744 items, R=64; B in {1, 8, 256};
-   k in {16, 128, 2,048, 2,049, 6,000, 26,741}: both sides of the
-   threshold between the bitonic sort of the k winners and the cluster
-   sort of the whole row, and k ending inside the row; fp32, bf16 and
-   int8 stores), on random data with the seen mask on and on integer
-   data with ties across tiles with it on and off; then k = M
-   = 26,744 at B in {1, 256} on the integer fixture and with 20,000 of
-   each query's items seen-masked, and stores of 60,000 and 120,000 items
-   (wide cluster shares, and one block sorting a row too wide for the
-   cluster), exactly.
+   k in {16, 128, 129, 2,048, 2,049, 6,000, 26,741}: both sides of the
+   chunked route's limit and of the threshold between the bitonic sort
+   of the k winners and the cluster sort of the whole row, and k ending
+   inside the row; fp32, bf16 and int8 stores), on random data with the
+   seen mask on and on integer data with ties across tiles with it on
+   and off; then k = M = 26,744 at B in {1, 256} on the integer fixture
+   and with 20,000 of each query's items seen-masked, and stores of
+   60,000 and 120,000 items (wide cluster shares, and one block sorting a
+   row too wide for the cluster), exactly. Then the chunked route's
+   edges, exactly: a store of 2,048 * 13 + 100 items (a last chunk
+   shorter than k), top scores tied across chunk boundaries, and rows
+   with all but 0, 5, 300 or 6,744 items seen. Prints the launches by
+   route.
 5. Train the recommendation template at MovieLens-20M width: about 20M
    synthetic ratings of 138,493 users x 26,744 items from ``--seed``
    (lognormal row lengths of mean ~140 capped at 2,048, power-law item
@@ -46,9 +51,20 @@ Phases (any failure raises and the script exits non-zero):
    user, blacklist, category, item-similarity and unknown-user queries,
    some from 8 concurrent clients, and check every answer against the
    same pipeline with the plain version in place of the serving kernel.
-   Its launch count must rise.
+   Its launch count must rise, and every launch at k <= 128 (in batches
+   below ``CHUNKED_MAX_B``) must take the chunked route; the launches are
+   printed by (route, k, B).
 4. Time the serving kernel at every (store, B, k) against its bound, its
-   plain version and one library call; print the HTTP p50/p99.
+   plain version and one library call, and at k <= 128 (bf16, and every
+   store at B = 8) split its device time by kernel name under the
+   profiler; print the HTTP p50/p99. With ``--serving-times`` the script
+   builds and runs this phase alone: copied to the root of another
+   checkout, it times that checkout's kernel the same way.
+4c. At k in {16, 128} on the bf16 store, run the chunked and the bitonic
+   route on the same inputs at B from 1 to 256: their answers must be
+   bitwise equal; print each route's device and event-timed ms and the
+   batch from which the bitonic route is as fast, beside the plan's
+   ``CHUNKED_MAX_B``.
 4b. Time the training kernels at the full-width shapes (the assembly on
    every bucket of both sides, the solve on each side's whole batch)
    against their bounds, plain versions and one library call each; and,
@@ -75,11 +91,15 @@ import numpy as np
 H100_BYTES_PER_S = 3.35e12    # HBM3 rate of an H100 SXM
 H100_FP32_FLOPS = 67e12       # fp32 outside the tensor cores
 M_ITEMS, N_USERS, RANK = 26_744, 138_493, 64
-BATCHES, KS = (1, 8, 256), (16, 128, M_ITEMS)
-# phase 2's k: both sides of the threshold between the bitonic sort of
-# the winners and the sort of the whole row (sort width 2,048), a k that
-# ends inside the row (6,000), and the whole row (category queries)
-CHECK_KS = (16, 128, 2048, 2049, 6000, M_ITEMS)
+BATCHES = (1, 8, 256)
+# phase 4's k: the main path's two small k (the chunked route), the
+# widest bitonic sort and the whole row (category queries)
+TIME_KS = (16, 128, 2048, M_ITEMS)
+# phase 2's k: both sides of the chunked route's limit (128) and of the
+# threshold between the bitonic sort of the winners and the sort of the
+# whole row (sort width 2,048), a k that ends inside the row (6,000), and
+# the whole row (category queries)
+CHECK_KS = (16, 128, 129, 2048, 2049, 6000, M_ITEMS)
 RTOL = 1e-5
 ITERATIONS, LAMBDA, ALPHA = 3, 0.01, 1.0
 # phase 2b's other assembly ranks: one warp a block at 1 and 10, up to
@@ -235,9 +255,20 @@ def topk_case(Qt, store, ct, mt, *, k, n_items, mask_seen=True,
                       np.zeros(B, np.float32) if exact else tol, exact=exact)
 
 
-def kernel_checks(dev, seed: int) -> float:
+def routes_of(by_key: dict) -> dict:
+    """Launches by route, from the wrapper's counts by (route, k, B)."""
+    out: dict = {}
+    for (route, _, _), n in sorted(by_key.items()):
+        out[route] = out.get(route, 0) + n
+    return out
+
+
+def kernel_checks(dev, seed: int) -> tuple:
     import torch
 
+    from predictionio_tpu_torch.ops import als_cuda
+
+    als_cuda.launches.reset()
     rng = np.random.default_rng(seed)
     worst, cases = 0.0, 0
     for kind in ("random", "integer"):
@@ -293,10 +324,63 @@ def kernel_checks(dev, seed: int) -> float:
     for k in (128, 4096):
         topk_case(Qt, store, ct, mt, k=k, n_items=M_ITEMS, row_valid=rv)
         cases += 1
+    cases += chunked_route_checks(dev, rng)
+    routes = routes_of(als_cuda.launches.by_key())
     print(f"[kernel] fused_gather_score_topk == plain in {cases} cases "
           f"(k in {CHECK_KS} and k = M; integer fixtures exact; max |value "
-          f"err| {worst!r})")
-    return worst
+          f"err| {worst!r}); launches by route {routes}")
+    return worst, routes
+
+
+def chunked_route_checks(dev, rng) -> int:
+    """The chunked route's edges, each exact on integer data: a last chunk
+    shorter than k (2,048 * 13 + 100 rows holding the top scores in their
+    last 100), top scores tied across chunk boundaries, and rows with all
+    but 0, 5, 300 or 6,744 items seen (whole chunks -inf)."""
+    import torch
+
+    cases = 0
+    Q, Yf, cols, mask = fixture("integer", 8, rng)
+    Qt, ct, mt = (torch.from_numpy(a).to(dev) for a in (Q, cols, mask))
+    short = 2048 * 13 + 100
+    Ys = Yf[:short].copy()
+    Ys[-100:] = 5.0
+    cs = torch.from_numpy(cols % short).to(dev)
+    for dtype in ("fp32", "int8"):
+        store, _ = make_store(Ys, dtype, dev)
+        for k in (16, 100, 128, 129):
+            topk_case(Qt, store, cs, mt, k=k, n_items=short, m=short)
+            cases += 1
+    # the fixture's tied top rows 120..219, plus rows 2,040..2,059 and
+    # 4,090..4,099 (each across a chunk boundary) and the last 50
+    Yt = Yf.copy()
+    for lo, hi in ((2040, 2060), (4090, 4100), (M_ITEMS - 50, M_ITEMS)):
+        Yt[lo:hi] = 5.0
+    for B in BATCHES:
+        Q, _, cols, mask = fixture("integer", B, rng)
+        cols[4:8] = np.asarray([2045, 2050, 4095, 4096])[:, None]
+        Qt, ct, mt = (torch.from_numpy(a).to(dev) for a in (Q, cols, mask))
+        for dtype in ("fp32", "bf16", "int8"):
+            store, _ = make_store(Yt, dtype, dev)
+            for k in (1, 16, 128):
+                topk_case(Qt, store, ct, mt, k=k, n_items=M_ITEMS)
+                cases += 1
+    # all but `left` items of each query seen (L = 20,000 at 6,744 left),
+    # with the bitonic route's k = 129 beside the chunked route's k
+    for B in (1, 256):
+        Q, Yf, _, _ = fixture("integer", B, rng)
+        Qt = torch.from_numpy(Q).to(dev)
+        store, _ = make_store(Yf, "fp32", dev)
+        for left in (0, 5, 300, M_ITEMS - 20_000):
+            L = M_ITEMS - left
+            many = np.stack([rng.permutation(M_ITEMS)[:L] for _ in range(B)],
+                            axis=1).astype(np.int32)
+            ct = torch.from_numpy(many).to(dev)
+            mt = torch.ones((L, B), device=dev)
+            for k in (16, 128, 129):
+                topk_case(Qt, store, ct, mt, k=k, n_items=M_ITEMS)
+                cases += 1
+    return cases
 
 
 # -- phase 5: training -----------------------------------------------------
@@ -866,6 +950,12 @@ def serve_full_width(model, seed: int) -> dict:
     launches = als_cuda.launches.value
     if launches == 0:
         raise AssertionError("the kernel was never launched on the main path")
+    by_key = als_cuda.launches.by_key()
+    small = [route for route, k, b in by_key
+             if k <= als_cuda.CHUNK_K_MAX and b < als_cuda.CHUNKED_MAX_B]
+    if not small or any(route != "chunked" for route in small):
+        raise AssertionError(f"the main path's launches at k <= 128 did not "
+                             f"all take the chunked route: {by_key}")
     stats = srv.stats()
 
     # expected answers: the same pipeline with the plain version in place
@@ -914,6 +1004,9 @@ def serve_full_width(model, seed: int) -> dict:
     print(f"[serve] {checked} answers match the plain pipeline; kernel "
           f"launches {launches}; users lane {stats['users']['dispatches']} "
           f"dispatches for {stats['users']['batchedQueries']} queries")
+    print("[serve] kernel launches by (route, k, B): "
+          + ", ".join(f"{r} k={k} B={b}: {n}"
+                      for (r, k, b), n in sorted(by_key.items())))
     print(f"[serve] HTTP latency over {len(lat)} requests: p50 "
           f"{float(np.percentile(lat, 50))!r} ms, p99 "
           f"{float(np.percentile(lat, 99))!r} ms")
@@ -934,7 +1027,8 @@ def serve_full_width(model, seed: int) -> dict:
         print("[serve] device busy share not measured: the profiler "
               "recorded no CUDA kernels")
     server.stop()
-    return {"launches": launches, "p50_ms": float(np.percentile(lat, 50)),
+    return {"launches": launches, "routes": routes_of(by_key),
+            "p50_ms": float(np.percentile(lat, 50)),
             "p99_ms": float(np.percentile(lat, 99))}
 
 
@@ -968,6 +1062,39 @@ def bound_ms(B: int, k: int, L: int, dtype: str) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernel_split(fn, iters: int) -> dict:
+    """Device ms per launch of each kernel ``fn`` launches (once a call),
+    by name, over two ``torch.profiler`` sessions of ``iters`` calls: the
+    mean of the CUDA kernel intervals recorded. The profiler on the card
+    machine sometimes records fewer launches of a kernel than ran, or
+    none of a session; a kernel counts if either session recorded it."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    total: collections.Counter = collections.Counter()
+    count: collections.Counter = collections.Counter()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = e.name.replace("(anonymous namespace)::", "")
+                name = name.split("(")[0].replace("void ", "").split("<")[0]
+                total[name] += (e.time_range.end - e.time_range.start) / 1e3
+                count[name] += 1
+    if any(n != 2 * iters for n in count.values()):
+        print(f"[time]   the profiler recorded {dict(count)} launches of "
+              f"{2 * iters} calls")
+    return {name: total[name] / count[name] for name in total}
+
+
 def timings(dev, seed: int) -> list:
     import torch
 
@@ -983,7 +1110,7 @@ def timings(dev, seed: int) -> list:
             hit = (mt > 0).nonzero(as_tuple=True)
             hit_b, hit_c = hit[1], ct[hit].long()
 
-            for k in KS:
+            for k in TIME_KS:
                 iters = 3 if k == M_ITEMS else 20
 
                 def kernel():
@@ -1002,13 +1129,70 @@ def timings(dev, seed: int) -> list:
                 t_k, t_p, t_l = (time_ms(f, iters)
                                  for f in (kernel, plain, library))
                 b_ms, b_by = bound_ms(B, k, cols.shape[0], dtype)
-                rows.append({"store": dtype, "B": B, "k": k, "ms": t_k,
-                             "plain_ms": t_p, "library_ms": t_l,
-                             "bound_ms": b_ms, "bound_by": b_by})
+                row = {"store": dtype, "B": B, "k": k, "ms": t_k,
+                       "plain_ms": t_p, "library_ms": t_l,
+                       "bound_ms": b_ms, "bound_by": b_by}
+                split = ""
+                if k <= 128 and (dtype == "bf16" or B == 8):
+                    row["device_ms"] = kernel_split(kernel, 20)
+                    split = (f"  device {sum(row['device_ms'].values())!r} "
+                             f"ms {row['device_ms']}")
+                rows.append(row)
                 print(f"[time] {dtype:>4} B={B:<3} k={k:<5} kernel "
                       f"{t_k!r} ms  plain {t_p!r} ms  library {t_l!r} ms  "
-                      f"bound {b_ms!r} ms ({b_by})")
+                      f"bound {b_ms!r} ms ({b_by}){split}")
     return rows
+
+
+# phase 4c's batches: the chunked route against the bitonic route
+CROSSOVER_BATCHES = (1, 8, 16, 32, 64, 96, 128, 192, 256)
+
+
+def route_crossover(dev, seed: int) -> dict:
+    """The chunked and the bitonic route on the same bf16 inputs at k in
+    {16, 128} and each batch of ``CROSSOVER_BATCHES``: their answers
+    bitwise equal, and each route's device ms per call (profiler, summed
+    over its kernels) and event-timed ms. Returns, per k, the smallest
+    batch from which the bitonic route's device time is at most the
+    chunked route's (None if it never is)."""
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+
+    rng = np.random.default_rng(seed + 4)
+    first: dict = {}
+    for k in (16, 128):
+        first[k] = None
+        for B in CROSSOVER_BATCHES:
+            Q, Yf, cols, mask = fixture("random", B, rng)
+            store, _ = make_store(Yf, "bf16", dev)
+            Qt, ct, mt = (torch.from_numpy(a).to(dev) for a in (Q, cols, mask))
+            out, ev, devt = {}, {}, {}
+            for route in ("chunked", "bitonic"):
+                def call(route=route):
+                    return als_cuda._launch(Qt, store, ct, mt, k=k,
+                                            n_items=M_ITEMS, mask_seen=True,
+                                            row_valid=None, route=route)
+                out[route] = call()
+                ev[route] = time_ms(call, 20)
+                devt[route] = sum(kernel_split(call, 20).values())
+            (cv, ci), (bv, bi) = out["chunked"], out["bitonic"]
+            fin = torch.isfinite(bv)
+            if not (torch.equal(cv.view(torch.int32), bv.view(torch.int32))
+                    and torch.equal(ci[fin], bi[fin])):
+                raise AssertionError(f"the chunked and bitonic routes differ "
+                                     f"at B={B}, k={k}")
+            if first[k] is None and devt["bitonic"] <= devt["chunked"]:
+                first[k] = B
+            print(f"[time] bf16 B={B:<3} k={k:<3} chunked device "
+                  f"{devt['chunked']!r} ms, event {ev['chunked']!r} ms; "
+                  f"bitonic device {devt['bitonic']!r} ms, event "
+                  f"{ev['bitonic']!r} ms")
+    print(f"[time] the bitonic route is as fast from B = {first} on (the "
+          f"plan takes the chunked route below CHUNKED_MAX_B = "
+          f"{als_cuda.CHUNKED_MAX_B}); both routes equal in "
+          f"{2 * len(CROSSOVER_BATCHES)} cases")
+    return first
 
 
 # -- phase 4b: training kernel times ------------------------------------------
@@ -1164,6 +1348,11 @@ def large_rank_timings(dev) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument(
+        "--serving-times", action="store_true",
+        help="build, then only time the serving kernel (phase 4) and print "
+             "its rows; with a copy of this script at another checkout's "
+             "root, times that checkout's package")
     args = parser.parse_args()
 
     import torch
@@ -1185,13 +1374,20 @@ def main() -> int:
         return out
 
     phase("1 build", build_kernels)
-    max_err = phase("2 serving kernel checks", kernel_checks, dev, args.seed)
+    if args.serving_times:
+        rows = phase("4 serving kernel times", timings, dev, args.seed)
+        print(json.dumps({"serving_times": rows}))
+        print(nvidia_smi())
+        return 0
+    max_err, checked_routes = phase("2 serving kernel checks", kernel_checks,
+                                    dev, args.seed)
     trained = phase("5 training", train_full_width, dev, args.seed)
     train_err = phase("2b training kernel checks", training_kernel_checks,
                       dev, trained, args.seed)
     served = phase("3 serving", serve_full_width, trained["model"],
                    args.seed)
     rows = phase("4 serving kernel times", timings, dev, args.seed)
+    crossover = phase("4c route crossover", route_crossover, dev, args.seed)
     train_times = phase("4b training kernel times", training_timings, dev,
                         trained)
     # the line's headline shape: a full micro-batch (B=256) at the
@@ -1206,6 +1402,10 @@ def main() -> int:
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "shape": "bf16 store, B=256, k=16",
+        # launches by route on the main path (phase 3) and in phase 2
+        "routes": served["routes"], "checked_routes": checked_routes,
+        # the batch from which the bitonic route is as fast, per k
+        "crossover_batch": crossover,
         # the category queries' shape: the whole row sorted
         "large_k": [{key: r[key] for key in ("store", "B", "k", "ms",
                                              "plain_ms", "library_ms",

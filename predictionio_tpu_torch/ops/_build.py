@@ -18,8 +18,9 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Hashable, Iterable
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -96,20 +97,29 @@ def load_kernel_library(name: str) -> ctypes.CDLL:
 
 
 class LaunchCounter:
-    """How many times a wrapper launched its kernel (thread-safe)."""
+    """How many times a wrapper launched its kernel (thread-safe), in
+    all and by an optional key the wrapper gives (a route and a shape)."""
 
     def __init__(self) -> None:
         self._n = 0
+        self._by: Counter = Counter()
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, key: Hashable = None) -> None:
         with self._lock:
             self._n += 1
+            if key is not None:
+                self._by[key] += 1
 
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+            self._by.clear()
 
     @property
     def value(self) -> int:
         return self._n
+
+    def by_key(self) -> Dict[Hashable, int]:
+        with self._lock:
+            return dict(self._by)

@@ -12,9 +12,14 @@ there has one here:
   scores with fp32 FMAs only (the reference pins ``Precision.HIGHEST``),
   masks seen items by one scatter per (slot, query) instead of comparing
   every tile with every seen slot, and orders each query's row by the
-  route that :func:`topk_sort_plan` picks: a radix select and a bitonic
-  sort in shared memory while the sort width is at most 2,048 (personal
-  top-N queries); above it (category queries ask for nearly every item)
+  route that :func:`topk_sort_plan` picks: for k up to 128 on rows over
+  2,048 items (personal top-N queries) in batches too small to fill the
+  card with one block per query, a radix select per 2,048-item chunk,
+  one block each, into a candidate row per query in item order, then
+  one block per query selecting and sorting the k winners of that row
+  (exactly what one select over the row gives); else a radix select
+  and a bitonic sort in shared memory while the sort width is at most
+  2,048; above it (category queries ask for nearly every item)
   a stable LSD radix sort of the whole row, in id order, so the lowest
   id stays first among equal scores, by a cluster of 8 blocks that hold
   the row in their shared memory and scatter through distributed shared
@@ -123,13 +128,16 @@ def _kernel(device: int):
 class TopkSortPlan(NamedTuple):
     """How the selection kernels order one query's row.
 
-    ``route``: "bitonic" (a radix select of the k winners and a bitonic
-    sort of them in shared memory), "cluster_row" (no select: a stable
-    radix sort of the whole row, in id order, by a cluster of blocks
-    that hold it in their shared memory; the first k are kept) or
-    "radix_row" (the same by one block, in device memory, for a row wider
-    than the cluster holds). ``scratch_pairs``: key/id pairs of device
-    memory per query."""
+    ``route``: "chunked" (each chunk of ``TOPK_CHUNK`` items selects its
+    own top k, one block each, into a candidate row of ``scratch_pairs``
+    value/id pairs per query, in item order; one block per query then
+    selects and sorts the k winners of that row), "bitonic" (a radix
+    select of the k winners of the whole row and a bitonic sort of them
+    in shared memory), "cluster_row" (no select: a stable radix sort of
+    the whole row, in id order, by a cluster of blocks that hold it in
+    their shared memory; the first k are kept) or "radix_row" (the same
+    by one block, in device memory, for a row wider than the cluster
+    holds). ``scratch_pairs``: key/id pairs of device memory per query."""
 
     route: str
     scratch_pairs: int
@@ -137,14 +145,40 @@ class TopkSortPlan(NamedTuple):
 
 # Widest bitonic sort (a power of two >= k); wider k sort the whole row.
 BITONIC_MAX = 2048
-_ROUTE_CODE = {"bitonic": 0, "cluster_row": 1, "radix_row": 2}
+# The chunked route: items per chunk (one block selects each; the
+# kernel's TOPK_CHUNK), and the widest k it takes.
+TOPK_CHUNK = 2048
+CHUNK_K_MAX = 128
+# The chunked route takes batches below this many queries. From there
+# the bitonic route's one block per query fills enough of the card that
+# reading the row five times from L2 costs less than the chunk blocks'
+# fixed costs: on an H100 80GB HBM3 (700 W) its device time was at most
+# the chunked route's from B = 96 on, at k = 16 and at k = 128, and
+# above it at B = 64 (chip_smoke.py phase 4c).
+CHUNKED_MAX_B = 96
+_ROUTE_CODE = {"bitonic": 0, "cluster_row": 1, "radix_row": 2, "chunked": 3}
 
 
-def topk_sort_plan(k: int, m: int, cluster_max_row: int) -> TopkSortPlan:
-    """The sort route and scratch of a top-``k`` over ``m`` items when
-    the cluster sort takes rows of up to ``cluster_max_row`` items (the
-    library's ``pio_topk_cluster_max_row``). The kernel launches the route
-    it is given; it refuses only a launch its buffers cannot hold."""
+def chunk_candidates(k: int, m: int) -> int:
+    """Candidates per query of the chunked route: ``min(k, n_c)`` from
+    each chunk of ``n_c`` items. Every chunk but the last holds
+    ``TOPK_CHUNK >= k`` items, so the candidate row has no gaps."""
+    if not 0 < k <= CHUNK_K_MAX:
+        raise ValueError(f"the chunked route takes k in [1, {CHUNK_K_MAX}], "
+                         f"got {k}")
+    last = m - (-(-m // TOPK_CHUNK) - 1) * TOPK_CHUNK
+    return (m - last) // TOPK_CHUNK * k + min(k, last)
+
+
+def topk_sort_plan(k: int, m: int, batch: int,
+                   cluster_max_row: int) -> TopkSortPlan:
+    """The sort route and scratch of a top-``k`` over ``m`` items for
+    ``batch`` queries when the cluster sort takes rows of up to
+    ``cluster_max_row`` items (the library's ``pio_topk_cluster_max_row``).
+    The kernel launches the route it is given; it refuses only a launch
+    its buffers cannot hold."""
+    if k <= CHUNK_K_MAX and m > TOPK_CHUNK and batch < CHUNKED_MAX_B:
+        return TopkSortPlan("chunked", chunk_candidates(k, m))
     if 1 << (k - 1).bit_length() <= BITONIC_MAX:
         return TopkSortPlan("bitonic", 0)
     if m <= cluster_max_row:
@@ -211,7 +245,11 @@ def _check_launch(err: int, what: str, err_string) -> None:
                            f"({err_string(err).decode()})")
 
 
-def _launch(Q, Y, seen_cols, seen_mask, *, k, n_items, mask_seen, row_valid):
+def _launch(Q, Y, seen_cols, seen_mask, *, k, n_items, mask_seen, row_valid,
+            route: Optional[str] = None):
+    """Launch the kernel on the route :func:`topk_sort_plan` picks, or on
+    ``route`` ("chunked" or "bitonic", where the shape allows it: the
+    measurement of the batch at which one overtakes the other)."""
     quant = is_quantized(Y)
     data = Y.data if quant else Y
     dev = data.device
@@ -250,22 +288,24 @@ def _launch(Q, Y, seen_cols, seen_mask, *, k, n_items, mask_seen, row_valid):
         strides = (*seen_cols.stride(), *seen_mask.stride())
     device = _device_index(dev)
     fn, err_string, cluster_max_row = _kernel(device)
-    plan = topk_sort_plan(k, M, cluster_max_row)
-    scores = torch.empty((B, M), dtype=torch.float32, device=dev)
-    scratch = None
-    if plan.scratch_pairs:
-        scratch = torch.empty((B, 2 * plan.scratch_pairs), dtype=torch.int32,
-                              device=dev)
+    plan = topk_sort_plan(k, M, B, cluster_max_row)
+    if route == "chunked":
+        plan = TopkSortPlan(route, chunk_candidates(k, M))
+    elif route is not None:
+        plan = TopkSortPlan(route, 0)
+    # the [B, M] scores, then the route's scratch (B rows of 2 *
+    # scratch_pairs words), in one allocation
+    buf = torch.empty(B * (M + 2 * plan.scratch_pairs), dtype=torch.float32,
+                      device=dev)
+    scratch = buf.data_ptr() + B * M * 4 if plan.scratch_pairs else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     _check_launch(fn(device, Q.data_ptr(), B, R, data.data_ptr(), code, scale,
                      rv, M, int(n_items), sc_ptr, sm_ptr, L, *strides,
                      int(bool(mask_seen)), k, _ROUTE_CODE[plan.route],
-                     scores.data_ptr(),
-                     None if scratch is None else scratch.data_ptr(),
-                     plan.scratch_pairs, vals.data_ptr(), idx.data_ptr(),
-                     stream),
+                     buf.data_ptr(), scratch, plan.scratch_pairs,
+                     vals.data_ptr(), idx.data_ptr(), stream),
                   "fused_topk", err_string)
-    launches.add()
+    launches.add((plan.route, k, B))
     return vals, idx
 
 
@@ -276,12 +316,26 @@ def fused_gather_score_topk_plain(Q: torch.Tensor, Y,
                                   row_valid: Optional[torch.Tensor] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of :func:`fused_gather_score_topk`:
-    an fp32 product, the same masks, and a stable descending sort (so
-    ties go to the lowest item id, as in ``lax.top_k``; ``torch.topk``
-    does not promise that)."""
+    :func:`masked_scores_plain`, then a stable descending sort (so ties
+    go to the lowest item id, as in ``lax.top_k``; ``torch.topk`` does
+    not promise that)."""
+    k = _check_k(k, (Y.data if is_quantized(Y) else Y).shape[0])
+    scores = masked_scores_plain(Q, Y, seen_cols, seen_mask, n_items=n_items,
+                                 mask_seen=mask_seen, row_valid=row_valid)
+    vals, order = torch.sort(scores, dim=1, descending=True, stable=True)
+    return vals[:, :k].contiguous(), order[:, :k].to(torch.int32)
+
+
+def masked_scores_plain(Q: torch.Tensor, Y, seen_cols: Optional[torch.Tensor],
+                        seen_mask: Optional[torch.Tensor], *, n_items: int,
+                        mask_seen: bool = True,
+                        row_valid: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """The ``[B, M]`` scores that :func:`fused_gather_score_topk` ranks:
+    an fp32 product, -inf on padding rows, invalid rows and each query's
+    seen items."""
     Yf = dequantize_rows(Y) if is_quantized(Y) else Y.float()
     M = Yf.shape[0]
-    k = _check_k(k, M)
     # + 0.0 turns -0.0 into +0.0, so the two tie as in the kernel
     scores = Q.float() @ Yf.T + 0.0
     invalid = torch.arange(M, device=Yf.device) >= n_items
@@ -293,8 +347,7 @@ def fused_gather_score_topk_plain(Q: torch.Tensor, Y,
         hit = (seen_mask > 0) & (cols >= 0) & (cols < M)       # [L, B]
         slot, query = hit.nonzero(as_tuple=True)
         scores[query, cols[slot, query]] = float("-inf")
-    vals, order = torch.sort(scores, dim=1, descending=True, stable=True)
-    return vals[:, :k].contiguous(), order[:, :k].to(torch.int32)
+    return scores
 
 
 # -- training: normal-equation assembly and the batched SPD solve ------------

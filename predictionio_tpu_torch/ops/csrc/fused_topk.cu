@@ -21,12 +21,33 @@
 //      compared every tile against all L seen slots.
 //   2. The selection orders each query's row by the route the host picks
 //      (topk_sort_plan in ops/als_cuda.py):
-//      - bitonic (k up to 2,048, as for every personal top-N query):
+//      - chunked (k up to 128 on rows wider than a chunk of 2,048 items,
+//        in batches under 96 queries, as for every personal top-N query;
+//        larger batches fill the card with one bitonic block per query
+//        and are faster there): the TPU kernel selects each
+//        item tile as it is scored and merges it into a running top-k;
+//        here every chunk is selected at once, each by its own block
+//        (select_chunk_kernel: the chunk's scores copied once into shared
+//        memory, its min(k, n_c) winners selected there as below and
+//        ordered by item id), into a candidate row per query in device
+//        memory; then select_bitonic_kernel, one block per query, selects
+//        and sorts the k winners of that row and maps positions to ids.
+//        Invariant: along a candidate row, positions ascend with item ids
+//        (chunks in order, each in id order, every chunk but the last
+//        giving k), so the merge's (key desc, position asc) is (score
+//        desc, id asc), and the top k of the row lies in the union of the
+//        chunks' top k: the route returns exactly what the bitonic route
+//        returns. At M = 26,744 that is 14 blocks per query instead of
+//        one, each reading its 8 KB chunk once, and a merge over 224
+//        candidates at k = 16 (1,784 at k = 128);
+//      - bitonic (k up to 2,048 where the chunked route does not apply):
 //        select_bitonic_kernel finds the k-th largest score by an
 //        MSB-first radix select over order-preserving 32-bit keys (a
 //        second select over ids resolves ties at the threshold to the
 //        lowest ids), gathers the k winners and sorts them by (score
-//        desc, id asc) with a bitonic network in shared memory;
+//        desc, id asc) with a bitonic network in shared memory. The
+//        select's digit search between passes is one warp's scan; its
+//        passes read the row from device memory (5 walks with ties);
 //      - cluster_row (wider k, as for category queries, which ask for
 //        nearly every item): no select; sort_row_cluster_kernel sorts the
 //        whole masked row with a stable LSD radix sort, four 8-bit passes
@@ -46,7 +67,9 @@
 // the product is 2*B*M*R fp32 FMAs at the non-tensor fp32 rate; at B=1 the
 // bytes bound it, at B=256 the operations do. The [B, M] score matrix
 // makes one round trip through device memory (about 27 MB at B=256,
-// M=26,744), which the TPU design avoided. The whole-row sort replaces a
+// M=26,744; under 1 MB at B <= 8, which stays in L2), which the TPU
+// design avoided; the chunked route reads it once more and adds the
+// candidate rows (B * cands * 8 bytes). The whole-row sort replaces a
 // bitonic network that ran log2(N)(log2(N)+1)/2 = 120 block-wide passes
 // through device memory at N = 32,768: a radix pass touches each pair
 // twice with two block barriers per 2,048 pairs, and a pass whose digit
@@ -54,6 +77,7 @@
 // by 8 SMs, not one: at B = 1 one block alone took about 3x as long on
 // an H100.
 
+#include <algorithm>
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -67,7 +91,10 @@ constexpr int TM = 64;          // items per score tile
 constexpr int TB = 16;          // queries per score tile
 constexpr int RC = 32;          // rank chunk held in shared memory
 constexpr int SCORE_THREADS = 256;
-constexpr int SELECT_THREADS = 1024;  // the bitonic route
+constexpr int SELECT_THREADS = 1024;  // the bitonic route and the chunked route's merge
+constexpr int CHUNK_THREADS = 512;    // the chunked route's chunk select
+constexpr int CHUNK_K_MAX = 128;      // the widest k of the chunked route
+constexpr int TOPK_CHUNK = 2048;      // items per chunk (8 KB of shared scores)
 constexpr int RADIX_THREADS = 512;    // the whole-row routes
 constexpr int RADIX_WARPS = RADIX_THREADS / 32;
 constexpr int RADIX_SUB = 4;          // keys a thread ranks in each tile of a pass
@@ -78,6 +105,7 @@ constexpr int MAX_DEVICES = 64;
 constexpr int ROUTE_BITONIC = 0;      // select, gather, bitonic sort of k
 constexpr int ROUTE_CLUSTER_ROW = 1;  // radix sort of the whole row by a cluster
 constexpr int ROUTE_RADIX_ROW = 2;    // the same by one block, in device memory
+constexpr int ROUTE_CHUNKED = 3;      // a select per chunk, then a merge per query
 constexpr int SORT_CLUSTER = 8;       // blocks of a cluster that sorts one row
 
 inline int next_pow2(int k) {
@@ -187,12 +215,17 @@ __device__ __forceinline__ unsigned digit_peers(int d) {
   return d >= 0 ? peers : 0u;
 }
 
-// Block-wide MSB-first radix select. Returns the key T of the element of
-// descending rank `rank` (1-based). With by_id false the keys are the
-// scores' keys over the whole row; with by_id true the candidates are the
-// elements whose score key equals `tie_key` and their key is ~id, so the
-// select counts ids in ascending order. *need receives rank minus the
-// number of candidates with key > T; *eq the number with key == T.
+// Block-wide MSB-first radix select of the element of descending rank
+// `rank` (1-based). With by_id false the keys are the scores' keys over
+// the whole row; with by_id true the candidates are the elements whose
+// score key equals `tie_key` and their key is ~id, so the select counts
+// ids in ascending order. Returns T, where the `rank` largest keys are
+// those > T and the *need largest of those == T; *eq receives the number
+// of candidates == T. A pass that selects a digit whose every key is
+// among the `rank` largest ends the select: T is then the digits so far
+// with zero low bits, so the winners are exactly the keys >= T, and
+// *need == *eq (every key == T wins; so do the keys above T in those
+// low bits). Otherwise T is the exact key of rank `rank`.
 __device__ unsigned radix_select(const float* row, int n, unsigned rank, bool by_id,
                                  unsigned tie_key, unsigned* hist, unsigned* sh,
                                  unsigned* need, unsigned* eq) {
@@ -213,31 +246,58 @@ __device__ unsigned radix_select(const float* row, int n, unsigned rank, bool by
           if ((key & pmask) == prefix) bin = static_cast<int>((key >> shift) & 255u);
         }
       }
-      const unsigned peers = __match_any_sync(0xffffffffu, bin);
-      if (bin >= 0 && lane == __ffs(peers) - 1)
-        atomicAdd(&hist[bin], static_cast<unsigned>(__popc(peers)));
+      if (__any_sync(0xffffffffu, bin >= 0)) {  // after the first pass, most warps hold none
+        const unsigned peers = __match_any_sync(0xffffffffu, bin);
+        if (bin >= 0 && lane == __ffs(peers) - 1)
+          atomicAdd(&hist[bin], static_cast<unsigned>(__popc(peers)));
+      }
     }
     __syncthreads();
-    if (threadIdx.x == 0) {
-      unsigned cum = 0u;
-      int sel = 0;
-      for (int d = 255; d >= 0; --d) {
-        const unsigned h = hist[d];
-        if (cum + h >= remaining) {
-          sel = d;
-          break;
-        }
-        cum += h;
+    if (threadIdx.x < 32) {
+      // the digit: the highest d whose count, with all counts above it,
+      // reaches `remaining`. Warp 0 scans the bins from the top, 8 a lane
+      // (lane l holds 255 - 8l down to 248 - 8l), with shuffles; the one
+      // lane whose range crosses `remaining` walks its 8 bins.
+      unsigned c[8], s = 0u;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        c[j] = hist[255 - lane * 8 - j];
+        s += c[j];
       }
-      sh[0] = static_cast<unsigned>(sel);
-      sh[1] = remaining - cum;
-      sh[2] = hist[sel];
+      unsigned inc = s;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned v = __shfl_up_sync(0xffffffffu, inc, o);
+        if (lane >= o) inc += v;
+      }
+      unsigned cum = inc - s;  // the counts of every bin above this lane's
+      const bool mine = cum < remaining && remaining <= inc;
+      if (mine) {
+        bool found = false;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (!found && cum + c[j] >= remaining) {
+            found = true;
+            sh[0] = static_cast<unsigned>(255 - lane * 8 - j);
+            sh[1] = remaining - cum;
+            sh[2] = c[j];
+          }
+          if (!found) cum += c[j];
+        }
+      }
+      const unsigned total = __shfl_sync(0xffffffffu, inc, 31);
+      if (__ballot_sync(0xffffffffu, mine) == 0u && lane == 0) {  // no digit: rank > n
+        sh[0] = 0u;
+        sh[1] = remaining - total;
+        sh[2] = hist[0];
+      }
     }
     __syncthreads();
     prefix |= sh[0] << shift;
     pmask |= 255u << shift;
     remaining = sh[1];
     eq_count = sh[2];
+    if (eq_count == remaining) break;  // the digit's keys all win: no lower digit decides
   }
   *need = remaining;
   *eq = eq_count;
@@ -382,35 +442,60 @@ __device__ void radix_sort_desc(int n, unsigned*& k0, unsigned*& i0, unsigned*& 
   __syncthreads();
 }
 
-// The bitonic route, one block per query: select, gather the k winners in
-// any order, and sort them by (key desc, id asc) in shared memory (width
-// N = next_pow2(k)).
-__global__ void __launch_bounds__(SELECT_THREADS)
-select_bitonic_kernel(const float* __restrict__ S, int M, int k, int N,
-                      float* __restrict__ vals, int* __restrict__ idx) {
-  extern __shared__ unsigned dyn[];
-  __shared__ unsigned hist[256];
-  __shared__ unsigned sh[4];
-  const long long b = blockIdx.x;
-  const float* row = S + b * M;
-  unsigned* skey = dyn;
-  unsigned* sid = dyn + N;
-
+// The k winners of row[0, n) are the keys > T and, of the keys == T, the
+// positions <= *id_cut (all ones when every key == T wins): radix_select,
+// and when some keys == T lose, a second select over their positions.
+__device__ __forceinline__ unsigned select_winners(const float* row, int n, int k,
+                                                   unsigned* hist, unsigned* sh,
+                                                   unsigned* id_cut) {
   unsigned need, eq;
-  const unsigned T = radix_select(row, M, static_cast<unsigned>(k), false, 0u, hist, sh,
+  const unsigned T = radix_select(row, n, static_cast<unsigned>(k), false, 0u, hist, sh,
                                   &need, &eq);
-  // the k winners: every key above T, and the `need` lowest ids at T
-  unsigned id_cut = 0xffffffffu;
+  // every key above T, and the `need` lowest positions at T
+  *id_cut = 0xffffffffu;
   if (need < eq) {
     unsigned need2, eq2;
-    id_cut = ~radix_select(row, M, need, true, T, hist, sh, &need2, &eq2);
+    *id_cut = ~radix_select(row, n, need, true, T, hist, sh, &need2, &eq2);
   }
-  if (threadIdx.x == 0) sh[3] = 0u;
+  return T;
+}
+
+// The compare-exchanges of one stage (size, stride) of a bitonic network
+// over skey/sid, spread over the block: by (key desc, position asc), or
+// with ById by position alone, ascending.
+template <bool ById>
+__device__ __forceinline__ void bitonic_stage(unsigned* skey, unsigned* sid, int N, int size,
+                                              int stride) {
+  for (int t = threadIdx.x; t < N / 2; t += blockDim.x) {
+    const int lo = (t / stride) * 2 * stride + (t % stride);
+    const int hi = lo + stride;
+    const unsigned ka = skey[lo], ia = sid[lo], kb = skey[hi], ib = sid[hi];
+    const bool up = (lo & size) == 0;
+    const bool swap = ById ? (up ? ib < ia : ia < ib)
+                           : (up ? before(kb, ib, ka, ia) : before(ka, ia, kb, ib));
+    if (swap) {
+      skey[lo] = kb;
+      sid[lo] = ib;
+      skey[hi] = ka;
+      sid[hi] = ia;
+    }
+  }
+}
+
+// Gathers the k winners of row[0, n) (select_winners) into skey/sid in any
+// order, pads the slots [k, N) to sort last, and sorts the N pairs in
+// shared memory with a bitonic network (bitonic_stage).
+template <bool ById>
+__device__ __forceinline__ void gather_and_sort(const float* row, int n, int k, int N,
+                                                unsigned T, unsigned id_cut,
+                                                unsigned* skey, unsigned* sid,
+                                                unsigned* count) {
+  if (threadIdx.x == 0) *count = 0u;
   __syncthreads();
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const unsigned key = float_key(row[i]);
     if (key > T || (key == T && static_cast<unsigned>(i) <= id_cut)) {
-      const unsigned slot = atomicAdd(&sh[3], 1u);
+      const unsigned slot = atomicAdd(count, 1u);
       skey[slot] = key;
       sid[slot] = static_cast<unsigned>(i);
     }
@@ -422,25 +507,73 @@ select_bitonic_kernel(const float* __restrict__ S, int M, int k, int N,
   __syncthreads();
   for (int size = 2; size <= N; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < N / 2; t += blockDim.x) {
-        const int lo = (t / stride) * 2 * stride + (t % stride);
-        const int hi = lo + stride;
-        const unsigned ka = skey[lo], ia = sid[lo], kb = skey[hi], ib = sid[hi];
-        const bool up = (lo & size) == 0;
-        const bool swap = up ? before(kb, ib, ka, ia) : before(ka, ia, kb, ib);
-        if (swap) {
-          skey[lo] = kb;
-          sid[lo] = ib;
-          skey[hi] = ka;
-          sid[hi] = ia;
-        }
-      }
+      bitonic_stage<ById>(skey, sid, N, size, stride);
       __syncthreads();
     }
   }
+}
+
+// One block per query: select the k winners of the row's n scores, gather
+// them and sort them by (key desc, position asc) in shared memory (width
+// N = next_pow2(k)). The bitonic route runs it on the score rows (stride
+// M, ids null: a position is an item id); the chunked route's merge on
+// the candidate rows (stride 2 * pairs), whose position p holds item
+// ids[p], ascending along the row.
+__global__ void __launch_bounds__(SELECT_THREADS)
+select_bitonic_kernel(const float* __restrict__ S, long long stride, int n, int k, int N,
+                      const int* __restrict__ ids, float* __restrict__ vals,
+                      int* __restrict__ idx) {
+  extern __shared__ unsigned dyn[];
+  __shared__ unsigned hist[256];
+  __shared__ unsigned sh[4];
+  const long long b = blockIdx.x;
+  const float* row = S + b * stride;
+  unsigned* skey = dyn;
+  unsigned* sid = dyn + N;
+
+  unsigned id_cut;
+  const unsigned T = select_winners(row, n, k, hist, sh, &id_cut);
+  gather_and_sort<false>(row, n, k, N, T, id_cut, skey, sid, &sh[3]);
   for (int j = threadIdx.x; j < k; j += blockDim.x) {
     vals[b * k + j] = key_float(skey[j]);
-    idx[b * k + j] = static_cast<int>(sid[j]);
+    idx[b * k + j] = ids != nullptr ? ids[b * stride + sid[j]] : static_cast<int>(sid[j]);
+  }
+}
+
+// The chunked route's first step, block x: chunk c = x % chunks (items
+// [c * TOPK_CHUNK, c * TOPK_CHUNK + n_c), n_c <= TOPK_CHUNK) of query
+// b = x / chunks.
+// The block copies the chunk's scores into shared memory once, selects
+// its k_c = min(k, n_c) winners there, orders them by item id, and
+// writes them to candidate slots [c * k, c * k + k_c) of query b: the
+// values (key_float of the key, so -0.0 is +0.0) in words [0, pairs) of
+// the query's row of `cand`, the item ids in words [pairs, 2 * pairs).
+// Every chunk but the last has k_c = k, so positions along a candidate
+// row ascend with item ids.
+__global__ void __launch_bounds__(CHUNK_THREADS)
+select_chunk_kernel(const float* __restrict__ S, int M, int k, int chunks,
+                    unsigned* __restrict__ cand, long long pairs) {
+  __shared__ float srow[TOPK_CHUNK];
+  __shared__ unsigned hist[256];
+  __shared__ unsigned sh[4];
+  __shared__ unsigned skey[CHUNK_K_MAX], sid[CHUNK_K_MAX];
+  const int c = static_cast<int>(blockIdx.x % chunks);
+  const long long b = blockIdx.x / chunks;
+  const int lo = c * TOPK_CHUNK;
+  const int n = min(TOPK_CHUNK, M - lo);
+  const int kc = min(k, n);
+  const float* row = S + b * M + lo;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) srow[i] = row[i];
+  __syncthreads();
+  unsigned id_cut;
+  const unsigned T = select_winners(srow, n, kc, hist, sh, &id_cut);
+  int N = 1;
+  while (N < kc) N <<= 1;
+  gather_and_sort<true>(srow, n, kc, N, T, id_cut, skey, sid, &sh[3]);
+  unsigned* out = cand + b * 2 * pairs + static_cast<long long>(c) * k;
+  for (int j = threadIdx.x; j < kc; j += blockDim.x) {
+    out[j] = __float_as_uint(key_float(skey[j]));
+    out[pairs + j] = static_cast<unsigned>(lo) + sid[j];
   }
 }
 
@@ -604,25 +737,35 @@ int pio_topk_cluster_max_row(int device) {
 // y_dtype: 0 = fp32, 1 = bf16, 2 = int8 (scale required). scale and
 // row_valid may be null. seen_cols / seen_mask are [L, B] with the given
 // element strides. route is the host's sort route (ROUTE_*): cluster_row
-// takes rows up to pio_topk_cluster_max_row(device) items, and radix_row
+// takes rows up to pio_topk_cluster_max_row(device) items; radix_row
 // needs sort_scratch of scratch_pairs >= 2 * M uint32 key/id pairs per
-// query (it may be null otherwise). scores is a [B, M] fp32 scratch.
-// Launches on `stream` of CUDA device `device`, which pio_fused_topk_init
-// has set up; returns cudaGetLastError().
+// query; chunked (k <= CHUNK_K_MAX) cuts the row into chunks of
+// TOPK_CHUNK items and needs sort_scratch of scratch_pairs >= (chunks -
+// 1) * k + min(k, last chunk) value/id pairs per query (sort_scratch may
+// be null on the other routes). scores is a [B, M] fp32 scratch. Launches
+// on `stream` of CUDA device `device`, which pio_fused_topk_init has set
+// up; returns cudaGetLastError().
 int pio_fused_topk(int device, const float* Q, int B, int R, const void* Y, int y_dtype,
                    const float* scale, const float* row_valid, int M, int n_items,
                    const int* seen_cols, const float* seen_mask, int L,
                    long long col_sl, long long col_sb, long long mask_sl,
-                   long long mask_sb, int mask_seen, int k, int route, float* scores,
-                   unsigned* sort_scratch, long long scratch_pairs, float* vals, int* idx,
-                   void* stream) {
+                   long long mask_sb, int mask_seen, int k, int route,
+                   float* scores, unsigned* sort_scratch, long long scratch_pairs,
+                   float* vals, int* idx, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || M <= 0 || R <= 0 || k <= 0 || k > M || (y_dtype == 2 && scale == nullptr) ||
       device < 0 || device >= MAX_DEVICES || g_cluster_max_row[device] <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   size_t smem = 0;
   const int N = next_pow2(k);  // the bitonic sort's width
-  if (route == ROUTE_BITONIC) {
+  int chunks = 0, cands = 0;
+  if (route == ROUTE_CHUNKED) {
+    if (k > CHUNK_K_MAX || sort_scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    chunks = (M + TOPK_CHUNK - 1) / TOPK_CHUNK;
+    cands = (chunks - 1) * k + std::min(k, M - (chunks - 1) * TOPK_CHUNK);
+    if (scratch_pairs < cands) return static_cast<int>(cudaErrorInvalidValue);
+    smem = 2 * static_cast<size_t>(N) * sizeof(unsigned);
+  } else if (route == ROUTE_BITONIC) {
     smem = 2 * static_cast<size_t>(N) * sizeof(unsigned);
   } else if (route == ROUTE_CLUSTER_ROW) {
     if (M > g_cluster_max_row[device]) return static_cast<int>(cudaErrorInvalidValue);
@@ -662,13 +805,24 @@ int pio_fused_topk(int device, const float* Q, int B, int R, const void* Y, int 
     if (err != cudaSuccess) return static_cast<int>(err);
   }
 
-  if (route == ROUTE_BITONIC)
-    select_bitonic_kernel<<<B, SELECT_THREADS, smem, s>>>(scores, M, k, N, vals, idx);
-  else if (route == ROUTE_CLUSTER_ROW)
+  if (route == ROUTE_CHUNKED) {
+    select_chunk_kernel<<<static_cast<unsigned>(static_cast<long long>(B) * chunks),
+                          CHUNK_THREADS, 0, s>>>(scores, M, k, chunks, sort_scratch,
+                                                 scratch_pairs);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    select_bitonic_kernel<<<B, SELECT_THREADS, smem, s>>>(
+        reinterpret_cast<const float*>(sort_scratch), 2 * scratch_pairs, cands, k, N,
+        reinterpret_cast<const int*>(sort_scratch + scratch_pairs), vals, idx);
+  } else if (route == ROUTE_BITONIC) {
+    select_bitonic_kernel<<<B, SELECT_THREADS, smem, s>>>(scores, M, M, k, N, nullptr, vals,
+                                                          idx);
+  } else if (route == ROUTE_CLUSTER_ROW) {
     sort_row_cluster_kernel<<<B * SORT_CLUSTER, RADIX_THREADS, smem, s>>>(scores, M, k, vals,
                                                                         idx);
-  else
+  } else {
     sort_row_kernel<<<B, RADIX_THREADS, 0, s>>>(scores, M, k, sort_scratch, vals, idx);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -250,7 +250,17 @@ class TestTopkSortPlan:
 
     @pytest.mark.parametrize("k,m,route,scratch", [
         (1, 10, "bitonic", 0),
-        (16, 26_744, "bitonic", 0),
+        (16, 26_744, "chunked", 224),               # 13 chunks x 16 + 16
+        (128, 26_744, "chunked", 1784),             # 13 x 128 + 120
+        (129, 26_744, "bitonic", 0),                # past the chunked k
+        (128, 2048, "bitonic", 0),                  # one chunk: no split
+        (16, 2048, "bitonic", 0),
+        (128, 2049, "chunked", 129),                # a last chunk of 1
+        (16, 2049, "chunked", 17),
+        (100, 2048 * 13 + 100, "chunked", 1400),    # last chunk of 100 = k
+        (128, 2048 * 13 + 100, "chunked", 1764),    # last chunk shorter than k
+        (16, 200_000, "chunked", 1568),             # 98 chunks
+        (128, 108_721, "chunked", 6912),            # too wide for the cluster
         (1025, 26_744, "bitonic", 0),               # sort width 2,048
         (2048, 26_744, "bitonic", 0),               # the widest bitonic sort
         (2048, 200_000, "bitonic", 0),              # whatever the row width
@@ -266,22 +276,40 @@ class TestTopkSortPlan:
         (108_721, 108_721, "radix_row", 217_442),
     ])
     def test_route_and_scratch(self, k, m, route, scratch):
-        assert als_cuda.topk_sort_plan(k, m, self.CLUSTER_MAX) == \
+        assert als_cuda.topk_sort_plan(k, m, 1, self.CLUSTER_MAX) == \
             als_cuda.TopkSortPlan(route, scratch)
 
     def test_every_k_has_one_route(self):
         m = 3000
-        routes = [als_cuda.topk_sort_plan(k, m, 4096).route
+        routes = [als_cuda.topk_sort_plan(k, m, 1, 4096).route
                   for k in range(1, m + 1)]
         first = {r: routes.index(r) + 1 for r in set(routes)}
-        assert first == {"bitonic": 1,
+        assert first == {"chunked": 1,
+                         "bitonic": als_cuda.CHUNK_K_MAX + 1,
                          "cluster_row": als_cuda.BITONIC_MAX + 1}
         # each route holds a contiguous range of k
-        assert routes == sorted(routes, key=["bitonic",
+        assert routes == sorted(routes, key=["chunked", "bitonic",
                                              "cluster_row"].index)
+
+    @pytest.mark.parametrize("k,batch,route,scratch", [
+        (16, 8, "chunked", 224),                    # the main path's batches
+        (128, 8, "chunked", 1784),
+        (16, als_cuda.CHUNKED_MAX_B - 1, "chunked", 224),
+        (16, als_cuda.CHUNKED_MAX_B, "bitonic", 0),  # one block a query fills the card
+        (128, 256, "bitonic", 0),
+    ])
+    def test_large_batches_keep_one_block_per_query(self, k, batch, route,
+                                                    scratch):
+        assert als_cuda.topk_sort_plan(k, 26_744, batch, self.CLUSTER_MAX) \
+            == als_cuda.TopkSortPlan(route, scratch)
+
+    @pytest.mark.parametrize("k", [0, 129, -1])
+    def test_chunked_k_out_of_range_raises(self, k):
+        with pytest.raises(ValueError, match="chunked route takes k"):
+            als_cuda.chunk_candidates(k, 5000)
 
     def test_a_row_too_wide_for_the_cluster_takes_one_block(self):
         m = 4097
-        plan = als_cuda.topk_sort_plan(m, m, 4096)
+        plan = als_cuda.topk_sort_plan(m, m, 1, 4096)
         assert plan == als_cuda.TopkSortPlan("radix_row", 2 * m)
-        assert als_cuda.topk_sort_plan(m, m, 4097).route == "cluster_row"
+        assert als_cuda.topk_sort_plan(m, m, 1, 4097).route == "cluster_row"
