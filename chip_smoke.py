@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --serving-times   # phases 1 and 4 only
+    python3 chip_smoke.py --prepare-times   # phase 5's prepare step only
 
 Phases (any failure raises and the script exits non-zero):
 
 1. Print the card (``nvidia-smi``), build every kernel source with
    ``nvcc`` from this checkout (one ``nvcc`` per source, started
-   together) and print the build times.
+   together) and the native ingest kernels with ``g++`` beside them,
+   and print the build times.
 2. Hold the serving kernel against its plain PyTorch version on the card
    at the serving path's shapes (M=26,744 items, R=64; B in {1, 8, 256};
    k in {16, 128, 129, 2,048, 2,049, 6,000, 26,741}: both sides of the
@@ -30,9 +32,15 @@ Phases (any failure raises and the script exits non-zero):
    popularity, 0.5-5.0 stars) through a local data source,
    ``RatingsPreparator(bucketed=True)`` and ``Engine.train`` with
    ``ALSParams(rank=64, num_iterations=3)``, implicit. Both training
-   kernels' launch counts must rise. One more iteration runs under the
-   profiler (time and device busy share), and the plain trainer runs the
-   same 3 iterations from the same init on the card for comparison.
+   kernels' launch counts must rise, and the prepare step must fill its
+   tables through the native ``bucket_fill`` and ``segment_starts``; its
+   split is printed (the dedup's sort and sum, each side's fill, the
+   column re-sort, the seen lists, the categories). One more iteration
+   runs under the profiler (time and device busy share), and the plain
+   trainer runs the same 3 iterations from the same init on the card for
+   comparison. With ``--prepare-times`` the script runs only the
+   prepare step on these ratings: copied to the root of another
+   checkout, it times that checkout's prepare step the same way.
 2b. Hold the two training kernels against their plain versions: the
    assembly on every row of every bucket of both sides (trained and
    integer factors, implicit and explicit weights, the layout's own
@@ -70,6 +78,28 @@ Phases (any failure raises and the script exits non-zero):
    against their bounds, plain versions and one library call each; and,
    off the main path, the device-memory solve at rank 320 and the
    large-rank assembly at rank 256.
+6. The lifecycle at MovieLens-1M's size (6,040 users x 3,706 items,
+   1,000,209 ratings, rank 64): a sqlite event store in a temporary
+   directory (``PIO_STORAGE_*`` set before the registry's first use),
+   an app and its access key, the ratings as ``rate`` events (100,000-row
+   ``insert_raw_batch`` chunks, 1,000 more through ``insert_batch``) and
+   one ``$set`` of categories per item; ``create_workflow`` reads them
+   through ``EventDataSource`` in 250,000-event blocks, trains and
+   stores a ``COMPLETED`` engine instance (both training kernels and the
+   native merge must run). A second process deploys it from the sqlite
+   file (``resolve_engine_instance`` -> ``build_deployment`` ->
+   ``QueryServer``) and answers 50 queries over HTTP, each equal to
+   ``serve_query`` on the model training returned; a second instance
+   (the next seed) is trained and ``POST /reload`` swaps to it while 8
+   clients query (no query may fail; the answers then equal the second
+   model's), and a reload to the older instance must answer 409. The
+   second process must have launched the top-k kernel. Each step's
+   seconds are printed.
+7. Model quality on ``bench_quality.run``'s protocol at its shape
+   (943 x 1,682 x 100,000, leave-last-2-out, rank 32, 10 iterations):
+   Precision@10 and NDCG@10 of the port's trainer at seeds 3, 17 and
+   42, its ratio to the plain trainer from seed 3's init (must be
+   0.99-1.01) and the seed band's lift over popularity (must exceed 1).
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -84,6 +114,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -131,17 +162,37 @@ def nvidia_smi() -> str:
 # -- phase 1 ----------------------------------------------------------------
 
 def build_kernels() -> float:
-    """Build every source at once, one nvcc each."""
+    """Build every source at once: one nvcc per CUDA source, and g++ for
+    the native ingest kernels on a thread beside them."""
+    from predictionio_tpu_torch import native
     from predictionio_tpu_torch.ops import _build, als_cuda
 
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
+    shutil.rmtree(native.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
+    host = {}
+
+    def build_host():
+        try:
+            native.load("ingest_kernels")
+            host["seconds"] = time.perf_counter() - t0
+        except BaseException as e:  # raised below, after nvcc ends
+            host["error"] = e
+
+    gxx = threading.Thread(target=build_host)
+    gxx.start()
     _build.build_libraries(als_cuda.KERNEL_NAMES)
     seconds = time.perf_counter() - t0
+    gxx.join()
+    if "error" in host:
+        raise host["error"]
     print(f"[build] {', '.join(n + '.cu' for n in als_cuda.KERNEL_NAMES)}: "
           f"nvcc sm_90a, started together, {seconds:.1f} s -> "
           + ", ".join(_build.library_path(n).name
                       for n in als_cuda.KERNEL_NAMES))
+    print(f"[build] native/src/ingest_kernels.cpp: g++ -O3, beside them, "
+          f"{host['seconds']:.1f} s -> "
+          f"{native.library_path('ingest_kernels').name}")
     return seconds
 
 
@@ -395,10 +446,18 @@ def ml20m_ratings(seed: int):
     lens = np.clip(rng.lognormal(4.25, 1.2, N_USERS).astype(np.int64), 1,
                    2048)
     lens[np.argmax(lens)] = 2048
-    pop = 1.0 / (np.arange(M_ITEMS) + 10.0) ** 0.8
-    draws = rng.choice(M_ITEMS, size=int(2 * lens.sum()), p=pop / pop.sum())
-    user_of = np.repeat(np.arange(N_USERS), 2 * lens)
-    key = user_of * M_ITEMS + draws
+    return power_law_ratings(rng, lens, M_ITEMS)
+
+
+def power_law_ratings(rng, lens, n_items: int):
+    """Each user's ``lens[u]`` distinct items, drawn by a power-law
+    popularity (twice over, first occurrences kept, cut to length), 0.5
+    to 5.0 stars, and 1-3 of 20 genres per item."""
+    n_users = len(lens)
+    pop = 1.0 / (np.arange(n_items) + 10.0) ** 0.8
+    draws = rng.choice(n_items, size=int(2 * lens.sum()), p=pop / pop.sum())
+    user_of = np.repeat(np.arange(n_users), 2 * lens)
+    key = user_of * n_items + draws
     order = np.argsort(key, kind="stable")
     first = np.ones(len(key), dtype=bool)
     first[1:] = key[order][1:] != key[order][:-1]
@@ -407,18 +466,91 @@ def ml20m_ratings(seed: int):
     rank = np.arange(len(kept)) - np.searchsorted(users, users)
     sel = rank < lens[users]
     rows, cols = users[sel], draws[kept][sel]
-    values = (rng.integers(1, 11, len(rows)) * 0.5).astype(np.float32)
+    return (rows, cols) + stars_and_genres(rng, len(rows), n_items)
+
+
+def stars_and_genres(rng, n_ratings: int, n_items: int) -> tuple:
+    """0.5-5.0 stars per rating, and 1-3 of 20 genres per item."""
+    values = (rng.integers(1, 11, n_ratings) * 0.5).astype(np.float32)
     genres = [f"g{g}" for g in range(20)]
     cats = {f"i{i}": tuple(rng.choice(genres, size=rng.integers(1, 4),
                                       replace=False))
-            for i in range(M_ITEMS)}
-    return rows, cols, values, cats
+            for i in range(n_items)}
+    return values, cats
+
+
+class PrepareSplit:
+    """Times the parts of the preparator's step by wrapping, while it is
+    entered, the functions the step calls through module attributes:
+    the dedup (its sort, then its sum), each side's bucket fill, the
+    column re-sort between them (the layout's remainder), the seen lists
+    and the categories. Functions a tree lacks are left out (the parent
+    of the native fill has no ``seen_lists`` / ``index_categories``:
+    their time stays in ``rest``)."""
+
+    def __init__(self):
+        self.calls: dict = {}
+        self._saved: list = []
+
+    def _wrap(self, mod, name: str, label: str) -> None:
+        fn = getattr(mod, name, None)
+        if fn is None:
+            return
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.calls.setdefault(label, []).append(
+                    time.perf_counter() - t0)
+
+        self._saved.append((mod, name, fn))
+        setattr(mod, name, timed)
+
+    def __enter__(self) -> "PrepareSplit":
+        from predictionio_tpu_torch.ops import als
+        from predictionio_tpu_torch.templates.recommendation import engine
+
+        self._wrap(als, "dedup_sum_ratings", "dedup")
+        self._wrap(als, "dedup_sum_sorted", "dedup sum")
+        self._wrap(als, "_bucket_grouped", "fill")
+        self._wrap(engine, "bucket_ratings_pair", "layout")
+        self._wrap(engine, "seen_lists", "seen lists")
+        self._wrap(engine, "index_categories", "categories")
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        self._saved = []
+
+    def split(self, total: float) -> dict:
+        """Seconds per part of a prepare step that took ``total``."""
+        def s(label):
+            return sum(self.calls.get(label, []))
+
+        fills = self.calls.get("fill", [])
+        if len(fills) != 2 or len(self.calls.get("layout", [])) != 1:
+            raise AssertionError(f"not one bucketed layout: {self.calls}")
+        out = {"dedup sort": s("dedup") - s("dedup sum"),
+               "dedup sum": s("dedup sum"),
+               "user fill": fills[0], "column re-sort":
+               s("layout") - s("dedup") - fills[0] - fills[1],
+               "item fill": fills[1]}
+        for label in ("seen lists", "categories"):
+            out[label] = s(label) if label in self.calls else None
+        out["rest"] = (total - s("layout") - s("seen lists")
+                       - s("categories"))
+        out["total"] = total
+        return out
 
 
 def smoke_engine():
-    """The template's engine with a local data source registered (the
-    event-store reader is not ported yet) and a preparator that records
-    its time and output for the later phases."""
+    """The template's engine with a local data source in place of the
+    event store (20M events through sqlite would add minutes of host
+    time; the MovieLens-20M ingest path is later work) and a preparator
+    that records its time and output for the later phases."""
     import dataclasses
 
     from predictionio_tpu_torch.controller import Engine, Params, PDataSource
@@ -478,6 +610,7 @@ def train_full_width(dev, seed: int) -> dict:
 
     from predictionio_tpu_torch.controller import EngineParams
     from predictionio_tpu_torch.core.context import ComputeContext
+    from predictionio_tpu_torch.native import codec
     from predictionio_tpu_torch.ops import als as als_mod
     from predictionio_tpu_torch.ops import als_cuda
     from predictionio_tpu_torch.templates.recommendation.engine import (
@@ -494,16 +627,30 @@ def train_full_width(dev, seed: int) -> dict:
     t0 = time.perf_counter()
     als_cuda.assemble_launches.reset()
     als_cuda.spd_launches.reset()
-    model, = engine.train(ComputeContext(), engine_params)
+    for counter in (codec.fill_calls, codec.segment_calls,
+                    codec.merge_calls):
+        counter.reset()
+    with PrepareSplit() as split:
+        model, = engine.train(ComputeContext(), engine_params)
     torch.cuda.synchronize()
     launches = {"assemble_normal_equations": als_cuda.assemble_launches.value,
                 "spd_solve": als_cuda.spd_launches.value}
+    native_calls = {"bucket_fill": codec.fill_calls.value,
+                    "segment_starts": codec.segment_calls.value,
+                    "merge_sorted_runs": codec.merge_calls.value}
     total = time.perf_counter() - t0
     pd, prep_s = preparator.last["pd"], preparator.last["seconds"]
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} was never launched on the "
                                  "training path")
+    for name in ("bucket_fill", "segment_starts"):
+        if native_calls[name] == 0:
+            raise AssertionError(f"the native {name} was never called in "
+                                 "the prepare step")
+    prepare_split = split.split(prep_s)
+    print(f"[train] prepare step split (s): {json.dumps(prepare_split)}; "
+          f"native calls {native_calls}")
     if not (np.isfinite(model.user_factors).all()
             and np.isfinite(model.item_factors).all()):
         raise AssertionError("non-finite trained factors")
@@ -558,7 +705,46 @@ def train_full_width(dev, seed: int) -> dict:
     del u_t, i_t, X0, Y0, Xp, Yp
     return {"model": model, "pd": pd, "launches": launches,
             "iteration_ms": wall, "busy_ms": busy, "prepare_s": prep_s,
+            "prepare_split": prepare_split, "native_calls": native_calls,
             "train_errs": errs}
+
+
+def prepare_times(seed: int) -> dict:
+    """``--prepare-times``: the phase-5 ratings through the preparator
+    alone (bucketed), with its split. Copied to the root of another
+    checkout (e.g. the parent, from ``git archive``), it times that
+    checkout's prepare step the same way."""
+    from predictionio_tpu_torch.data.bimap import StringIndexBiMap
+    from predictionio_tpu_torch.templates.recommendation.engine import (
+        IndexedTrainingData,
+        PreparatorParams,
+        RatingsPreparator,
+    )
+
+    rows, cols, values, cats = ml20m_ratings(seed)
+    td = IndexedTrainingData(
+        StringIndexBiMap.from_distinct([f"u{u}" for u in range(N_USERS)]),
+        StringIndexBiMap.from_distinct([f"i{i}" for i in range(M_ITEMS)]),
+        rows, cols, values)
+    td.item_categories = cats
+    try:
+        from predictionio_tpu_torch import native
+        from predictionio_tpu_torch.native import codec
+    except ImportError:  # a tree without the native fill
+        codec = None
+    else:
+        native.load("ingest_kernels")   # built before the clock starts
+        for counter in (codec.fill_calls, codec.segment_calls):
+            counter.reset()
+    preparator = RatingsPreparator(PreparatorParams(bucketed=True))
+    with PrepareSplit() as split:
+        t0 = time.perf_counter()
+        preparator.prepare(None, td)
+        total = time.perf_counter() - t0
+    return {"ratings": int(len(rows)), "split": split.split(total),
+            "native_calls": None if codec is None else {
+                "bucket_fill": codec.fill_calls.value,
+                "segment_starts": codec.segment_calls.value}}
 
 
 # -- phase 2b: training kernels against their plain versions -------------------
@@ -898,7 +1084,7 @@ def serve_full_width(model, seed: int) -> dict:
     from predictionio_tpu_torch.workflow.create_server import (
         QueryServer,
         ServerConfig,
-        build_deployment,
+        deployment_from_models,
     )
 
     t0 = time.perf_counter()
@@ -908,7 +1094,7 @@ def serve_full_width(model, seed: int) -> dict:
     engine = engine_factory()
     params = engine.engine_params_from_variant(
         {"algorithms": [{"name": "als", "params": {"rank": RANK}}]})
-    dep = build_deployment(engine, params, [model])
+    dep = deployment_from_models(engine, params, [model])
     server = QueryServer(ServerConfig(ip="127.0.0.1", port=0), dep).start()
     print(f"[serve] store and warm-up: "
           f"{time.perf_counter() - t0:.1f} s")
@@ -1345,6 +1531,581 @@ def large_rank_timings(dev) -> dict:
     return out
 
 
+# -- phase 6: the lifecycle from the event store ---------------------------------
+
+# MovieLens-1M's published size
+ML1M_USERS, ML1M_ITEMS, ML1M_RATINGS = 6_040, 3_706, 1_000_209
+ML1M_BLOCK = 250_000    # the streaming read's block: 5 blocks, 5 runs
+PORT_FACTORY = ("predictionio_tpu_torch.templates.recommendation.engine:"
+                "engine_factory")
+
+
+def ml1m_ratings(seed: int):
+    """1,000,209 ratings of 6,040 users x 3,706 items, built like
+    ``ml20m_ratings``: lognormal row lengths (mean ~165.6) clipped to
+    MovieLens-1M's 20-2,314 ratings per user and scaled to the exact
+    total; each user's distinct items by the same power-law popularity,
+    drawn without replacement (a Gumbel top-k, so even the heaviest
+    user gets all 2,314 from 3,706 items); 0.5-5.0 stars; 1-3 genres per
+    item."""
+    rng = np.random.default_rng(seed)
+    raw = rng.lognormal(4.6, 0.95, ML1M_USERS)
+    lens = np.clip(np.round(raw * ML1M_RATINGS / raw.sum()), 20,
+                   2_314).astype(np.int64)
+    step = 1 if lens.sum() < ML1M_RATINGS else -1
+    order = np.argsort(lens, kind="stable")[::-1]
+    j = 0
+    while lens.sum() != ML1M_RATINGS:   # spread the rounding's remainder
+        u = order[j % len(order)]
+        if 20 <= lens[u] + step <= 2_314:
+            lens[u] += step
+        j += 1
+    log_pop = -0.8 * np.log(np.arange(ML1M_ITEMS) + 10.0)
+    keys = log_pop + rng.gumbel(size=(len(lens), ML1M_ITEMS))
+    ranked = np.argsort(-keys, axis=1, kind="stable")
+    take = np.arange(ML1M_ITEMS)[None, :] < lens[:, None]
+    rows = np.repeat(np.arange(len(lens)), lens)
+    cols = ranked[take]
+    return (rows, cols) + stars_and_genres(rng, len(rows), ML1M_ITEMS)
+
+
+def write_events(seed: int, app_id: int) -> dict:
+    """The ratings as ``rate`` events: 1,000,209 rows through
+    ``insert_raw_batch`` in 100,000-row chunks, 1,000 more through
+    ``insert_batch``, and one ``$set`` of categories per item."""
+    import datetime as dt
+
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.data.event import Event
+
+    rows, cols, values, cats = ml1m_ratings(seed)
+    levents = storage.get_levents()
+    levents.init(app_id)
+    t0 = time.perf_counter()
+    base = dt.datetime(2003, 2, 28, tzinfo=dt.timezone.utc).timestamp()
+    users, items, stars = rows.tolist(), cols.tolist(), values.tolist()
+    for a in range(0, len(users), 100_000):
+        b = min(a + 100_000, len(users))
+        levents.insert_raw_batch([
+            (f"ev{j}", "rate", "user", f"u{users[j]}", "item",
+             f"i{items[j]}", f'{{"rating": {stars[j]!r}}}', base + j, "[]",
+             None, base + j) for j in range(a, b)], app_id)
+    raw_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 7)
+    when = dt.datetime(2003, 3, 1, tzinfo=dt.timezone.utc)
+    extra = [Event(event="rate", entity_type="user",
+                   entity_id=f"u{rng.integers(0, ML1M_USERS)}",
+                   target_entity_type="item",
+                   target_entity_id=f"i{rng.integers(0, ML1M_ITEMS)}",
+                   properties={"rating": float(rng.integers(1, 11) * 0.5)},
+                   event_time=when) for _ in range(1_000)]
+    levents.insert_batch(extra, app_id)
+    levents.insert_batch([
+        Event(event="$set", entity_type="item", entity_id=iid,
+              properties={"categories": list(c)}, event_time=when)
+        for iid, c in cats.items()], app_id)
+    return {"ratings": len(rows) + len(extra), "raw_s": raw_s,
+            "write_s": time.perf_counter() - t0}
+
+
+def lifecycle_engine():
+    """The template's engine with each stage timed, and the trained
+    model kept for the comparison with the deployed one."""
+    from predictionio_tpu_torch.controller import Engine
+    from predictionio_tpu_torch.templates.recommendation import engine as eng
+
+    record: dict = {}
+
+    def timed(cls, method, label):
+        def run(self, *args):
+            t0 = time.perf_counter()
+            out = getattr(cls, method)(self, *args)
+            record[label] = time.perf_counter() - t0
+            if label == "train":
+                record["model"] = out
+            return out
+        return type(cls.__name__, (cls,), {method: run})
+
+    base = eng.engine_factory()
+    return Engine(timed(eng.EventDataSource, "read_training", "read"),
+                  timed(eng.RatingsPreparator, "prepare", "prepare"),
+                  {"als": timed(eng.ALSAlgorithm, "train", "train")},
+                  base.serving_class_map), record
+
+
+def lifecycle_variant(seed: int) -> dict:
+    return {"id": "ml1m", "engineFactory": PORT_FACTORY,
+            "datasource": {"params": {"appName": "MovieLens1M",
+                                      "streamingBlockSize": ML1M_BLOCK,
+                                      "readItemCategories": True}},
+            "preparator": {"params": {"bucketed": True}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": RANK, "numIterations": ITERATIONS,
+                "lambda": LAMBDA, "alpha": ALPHA, "seed": seed}}]}
+
+
+def train_instance(seed: int) -> dict:
+    """``create_workflow`` over the store; the instance must complete,
+    its blob be stored, and both training kernels and the native merge
+    run."""
+    import torch
+
+    from predictionio_tpu_torch.core.context import ComputeContext
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.native import codec
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.workflow import core_workflow
+    from predictionio_tpu_torch.workflow.create_workflow import (
+        WorkflowConfig,
+        create_workflow,
+    )
+
+    engine, record = lifecycle_engine()
+    models = storage.get_model_data_models()
+    persist = {"s": 0.0}
+
+    def timed(fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                persist["s"] += time.perf_counter() - t0
+        return run
+
+    saved = (core_workflow.serialize_models, models.insert)
+    core_workflow.serialize_models = timed(saved[0])
+    models.insert = timed(saved[1])
+    for counter in (als_cuda.assemble_launches, als_cuda.spd_launches,
+                    codec.merge_calls, codec.fill_calls):
+        counter.reset()
+    t0 = time.perf_counter()
+    try:
+        iid = create_workflow(
+            WorkflowConfig(engine_id="ml1m", engine_factory=PORT_FACTORY,
+                           engine_variant="ml1m.json"),
+            lifecycle_variant(seed), engine=engine, ctx=ComputeContext())
+    finally:
+        core_workflow.serialize_models, models.insert = saved
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = {"assemble_normal_equations": als_cuda.assemble_launches.value,
+                "spd_solve": als_cuda.spd_launches.value,
+                "merge_sorted_runs": codec.merge_calls.value,
+                "bucket_fill": codec.fill_calls.value}
+    instance = storage.get_metadata_engine_instances().get(iid)
+    if instance is None or instance.status != "COMPLETED":
+        raise AssertionError(f"engine instance {iid}: {instance}")
+    if models.get(iid) is None:
+        raise AssertionError(f"no model blob stored for {iid}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name} was never called training {iid}")
+    return {"id": iid, "instance": instance, "model": record["model"],
+            "launches": launches, "seconds": {
+                "read": record["read"], "prepare": record["prepare"],
+                "train": record["train"], "persist": persist["s"],
+                "create_workflow": total}}
+
+
+def lifecycle_queries(seed: int) -> list:
+    """40 user, 4 item-similarity, 4 category and 2 unknown-user
+    queries."""
+    rng = np.random.default_rng(seed + 5)
+    users = [f"u{u}" for u in rng.integers(0, ML1M_USERS, 44)]
+    queries = [{"user": u, "num": 10} for u in users[:40]]
+    queries += [{"items": [f"i{i}" for i in rng.integers(0, ML1M_ITEMS, n)],
+                 "num": 10} for n in (1, 2, 3, 5)]
+    queries += [{"user": users[40], "num": 10, "categories": ["g3"]},
+                {"user": users[41], "num": 5, "categories": ["g7", "g11"]},
+                {"user": users[42], "num": 10, "categories": ["g0"],
+                 "blacklist": ["i1", "i2"]},
+                {"user": users[43], "num": 20, "categories": ["g19"]}]
+    queries += [{"user": "no-such-user", "num": 10},
+                {"user": "nobody-either", "num": 3}]
+    return queries
+
+
+def in_process_answers(model, queries: list) -> list:
+    from predictionio_tpu_torch.templates.recommendation.engine import (
+        engine_factory,
+    )
+    from predictionio_tpu_torch.workflow.create_server import (
+        deployment_from_models,
+        query_from_json,
+        serve_query,
+        to_jsonable,
+    )
+
+    engine = engine_factory()
+    params = engine.engine_params_from_variant(lifecycle_variant(0))
+    dep = deployment_from_models(engine, params, [model])
+    qc = dep.algorithms[0].query_class
+    return [to_jsonable(serve_query(dep, query_from_json(q, qc)))
+            for q in queries]
+
+
+def serve_child(store: str) -> int:
+    """``--serve-store``: the second process of phase 6. Deploy the latest
+    completed ``ml1m`` instance from the sqlite file (a fresh process:
+    nothing of the trainer's state), print the address, serve until
+    ``POST /stop``, then print the top-k kernel's launches."""
+    import os
+
+    os.environ["PIO_STORAGE_SOURCES_LC_TYPE"] = "sqlite"
+    os.environ["PIO_STORAGE_SOURCES_LC_PATH"] = store
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.workflow.create_server import (
+        QueryServer,
+        ServerConfig,
+        build_deployment,
+        resolve_engine_instance,
+    )
+
+    storage.reset()
+    als_cuda.launches.reset()
+    t0 = time.perf_counter()
+    config = ServerConfig(ip="127.0.0.1", port=0, engine_id="ml1m",
+                          engine_variant="ml1m.json")
+    instance = resolve_engine_instance(None, config.engine_id,
+                                       config.engine_version,
+                                       config.engine_variant)
+    server = QueryServer(config, build_deployment(instance)).start()
+    print(json.dumps({"address": server.address, "instance": instance.id,
+                      "deploy_s": time.perf_counter() - t0}), flush=True)
+    while server._httpd is not None:
+        time.sleep(0.05)
+    print(json.dumps({"launches": als_cuda.launches.value,
+                      "by_key": [[list(k), n] for k, n in
+                                 sorted(als_cuda.launches.by_key().items())]}),
+          flush=True)
+    return 0
+
+
+def lifecycle(seed: int) -> dict:
+    """Phase 6: events -> engine instance -> stored model -> deploy in a
+    second process -> ``/reload``, at MovieLens-1M's size."""
+    import os
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="pio-lifecycle-")
+    store = os.path.join(work, "pio.db")
+    # the port's registry reads PIO_STORAGE_* once, at its first use
+    os.environ["PIO_STORAGE_SOURCES_LC_TYPE"] = "sqlite"
+    os.environ["PIO_STORAGE_SOURCES_LC_PATH"] = store
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.data.storage.base import AccessKey, App
+
+    storage.reset()
+    child = None
+    try:
+        app_id = storage.get_metadata_apps().insert(App(0, "MovieLens1M"))
+        key = storage.get_metadata_access_keys().insert(
+            AccessKey("", app_id, ()))
+        wrote = write_events(seed, app_id)
+        print(f"[lifecycle] app {app_id} (key {key[:6]}...), "
+              f"{wrote['ratings']} rate events and {ML1M_ITEMS} $set events "
+              f"written in {wrote['write_s']:.2f} s "
+              f"({wrote['raw_s']:.2f} s through insert_raw_batch)")
+        first = train_instance(seed)
+        print(f"[lifecycle] instance {first['id']} COMPLETED: "
+              f"{json.dumps(first['seconds'])} s; calls "
+              f"{first['launches']}")
+        queries = lifecycle_queries(seed)
+        want = in_process_answers(first["model"], queries)
+
+        child = subprocess.Popen(
+            [sys.executable, __file__, "--serve-store", store],
+            stdout=subprocess.PIPE, text=True)
+        hello = read_line(child, timeout=300)
+        if hello.get("instance") != first["id"]:
+            raise AssertionError(f"second process deployed {hello}")
+        base = "http://{}:{}".format(*hello["address"])
+        t0 = time.perf_counter()
+        got = [post(base + "/queries.json", q) for q in queries]
+        first_answer = got[0][2]
+        bad = [(q, g[:2]) for q, g, w in zip(queries, got, want)
+               if g[0] != 200 or g[1] != w]
+        if bad:
+            raise AssertionError(f"{len(bad)} answers of the second process "
+                                 f"differ from the trained model's: "
+                                 f"{bad[:3]}")
+        print(f"[lifecycle] second process deployed {first['id']} in "
+              f"{hello['deploy_s']:.2f} s; first answer {first_answer!r} s; "
+              f"{len(got)} answers equal the in-process model's in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        second = train_instance(seed + 1)
+        print(f"[lifecycle] instance {second['id']} COMPLETED: "
+              f"{json.dumps(second['seconds'])} s")
+        want2 = in_process_answers(second["model"], queries)
+        statuses, stop = [], threading.Event()
+
+        def client():
+            j = 0
+            while not stop.is_set():
+                try:
+                    statuses.append(post(base + "/queries.json",
+                                         queries[j % 40])[0])
+                except Exception as e:  # counted as a failed query
+                    statuses.append(repr(e))
+                j += 1
+
+        clients = [threading.Thread(target=client) for _ in range(8)]
+        for c in clients:
+            c.start()
+        time.sleep(0.5)
+        t1 = time.perf_counter()
+        status, reply, _ = post(base + "/reload", {})
+        reload_s = time.perf_counter() - t1
+        time.sleep(0.5)
+        stop.set()
+        for c in clients:
+            c.join(timeout=120)
+        failed = [x for x in statuses if x != 200]
+        if status != 200 or (reply.get("swappedFrom"),
+                             reply.get("swappedTo")) != (first["id"],
+                                                         second["id"]):
+            raise AssertionError(f"reload answered {status} {reply}")
+        if failed or not statuses:
+            raise AssertionError(f"{len(failed)} of {len(statuses)} queries "
+                                 f"failed during the reload: {failed[:3]}")
+        after = [post(base + "/queries.json", q) for q in queries]
+        bad = [q for q, g, w in zip(queries, after, want2)
+               if g[0] != 200 or g[1] != w]
+        if bad or want2 == want:
+            raise AssertionError(f"after the reload {len(bad)} answers "
+                                 f"differ from the second model's: {bad[:3]}")
+        storage.get_metadata_engine_instances().delete(second["id"])
+        down = post_status(base + "/reload")
+        if down != 409:
+            raise AssertionError(f"a reload to the older instance answered "
+                                 f"{down}, not 409")
+        post(base + "/stop", {})
+        counts = read_line(child, timeout=120)
+        child.wait(timeout=60)
+        if counts["launches"] == 0:
+            raise AssertionError("the second process never launched the "
+                                 "top-k kernel")
+        print(f"[lifecycle] reload {first['id']} -> {second['id']} in "
+              f"{reload_s:.2f} s under 8 clients ({len(statuses)} queries, "
+              f"none failed); {len(after)} answers equal the second model's;"
+              f" the older instance refused with 409; top-k launches in the "
+              f"second process {counts['launches']}: {counts['by_key']}")
+        return {"instances": [first["id"], second["id"]],
+                "write_s": wrote["write_s"],
+                "train_s": [first["seconds"], second["seconds"]],
+                "deploy_s": hello["deploy_s"], "first_answer_s": first_answer,
+                "reload_s": reload_s, "queries_during_reload": len(statuses),
+                "child_launches": counts["launches"]}
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait(timeout=60)
+        storage.reset()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def read_line(proc, timeout: float) -> dict:
+    """The next JSON line ``proc`` prints, waiting at most ``timeout``
+    seconds."""
+    import queue
+
+    box: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: box.put(proc.stdout.readline()),
+                     daemon=True).start()
+    try:
+        line = box.get(timeout=timeout)
+    except queue.Empty:
+        raise AssertionError(f"no line from the second process in "
+                             f"{timeout} s") from None
+    if not line:
+        raise AssertionError(f"the second process ended (exit "
+                             f"{proc.wait(timeout=60)}) without a line")
+    return json.loads(line)
+
+
+def post_status(url: str) -> int:
+    try:
+        return post(url, {})[0]
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+# -- phase 7: model quality --------------------------------------------------------
+
+QUALITY_SHAPE = (943, 1_682, 100_000)   # MovieLens-100K, bench_quality's
+QUALITY_RANK, QUALITY_ITERATIONS, QUALITY_SPLIT_SEED = 32, 10, 7
+QUALITY_SEEDS = (3, 17, 42)
+K_EVAL = 10
+
+
+def structured_ratings(n_users: int, n_items: int, nnz: int, seed: int,
+                       latent_rank: int = 8):
+    """``bench_quality.structured_ratings``: each user's items drawn from
+    softmax(U_u . V_i * 6 + log popularity), so taste clusters exist for
+    a factor model to recover; ratings 1-5 by affinity quintile."""
+    rng = np.random.default_rng(seed)
+    U = rng.normal(size=(n_users, latent_rank)) / np.sqrt(latent_rank)
+    V = rng.normal(size=(n_items, latent_rank)) / np.sqrt(latent_rank)
+    log_pop = -0.5 * np.log(np.arange(1, n_items + 1))
+    user_p = 1.0 / np.arange(1, n_users + 1) ** 0.6
+    user_p /= user_p.sum()
+    counts = np.bincount(rng.choice(n_users, size=nnz, p=user_p),
+                         minlength=n_users)
+    rows = np.empty(nnz, dtype=np.int64)
+    cols = np.empty(nnz, dtype=np.int64)
+    vals = np.empty(nnz, dtype=np.float32)
+    pos = 0
+    affinity_all = U @ V.T * 6.0 + log_pop[None, :]
+    for u in range(n_users):
+        c = int(counts[u])
+        if c == 0:
+            continue
+        logits = affinity_all[u]
+        p = np.exp(logits - logits.max())
+        p /= p.sum()
+        picked = rng.choice(n_items, size=c, p=p)
+        rows[pos:pos + c] = u
+        cols[pos:pos + c] = picked
+        aff = affinity_all[u][picked]
+        qs = np.quantile(affinity_all[u], [0.2, 0.4, 0.6, 0.8])
+        vals[pos:pos + c] = 1.0 + np.searchsorted(qs, aff)
+        pos += c
+    return rows[:pos], cols[:pos], vals[:pos]
+
+
+def build_split(n_users: int, n_items: int, nnz: int, seed: int,
+                holdout_per_user: int = 2, min_ratings: int = 5):
+    """``bench_quality.build_split``: first occurrence of each pair kept,
+    the last 2 drawn items of every user with >= 5 held out."""
+    rows, cols, vals = structured_ratings(n_users, n_items, nnz, seed)
+    key = rows.astype(np.int64) * n_items + cols
+    _, first_idx = np.unique(key, return_index=True)
+    first_idx.sort()
+    rows, cols, vals = rows[first_idx], cols[first_idx], vals[first_idx]
+    held: dict = {}
+    held_mask = np.zeros(len(rows), dtype=bool)
+    for u in range(n_users):
+        idx = np.flatnonzero(rows == u)
+        if len(idx) >= min_ratings:
+            out = idx[-holdout_per_user:]
+            held[u] = set(cols[out].tolist())
+            held_mask[out] = True
+    keep = ~held_mask
+    return rows[keep], cols[keep], vals[keep], held
+
+
+def masked_scores(X, Y, train_rows, train_cols):
+    scores = X @ Y.T
+    scores[train_rows, train_cols] = -np.inf
+    return scores
+
+
+def precision_at_k(scores, held: dict, k: int = K_EVAL) -> float:
+    """``bench_quality.precision_at_k`` on precomputed masked scores."""
+    users = np.fromiter(held.keys(), dtype=np.int64, count=len(held))
+    top = np.argpartition(-scores[users], k, axis=1)[:, :k]
+    hits = np.fromiter(
+        (len(set(top[i].tolist()) & held[u]) for i, u in enumerate(users)),
+        dtype=np.float64, count=len(users))
+    return float(hits.mean() / k)
+
+
+def ndcg_at_k(scores, held: dict, k: int = K_EVAL) -> float:
+    """``bench_quality.ndcg_at_k_factors``: binary-relevance NDCG@k with
+    the 1/log2(rank+1) gain, averaged over the holdout users."""
+    total = 0.0
+    for u, rel in held.items():
+        row = scores[u]
+        top = np.argpartition(-row, k)[:k]
+        top = top[np.argsort(-row[top], kind="stable")]
+        dcg = sum(1.0 / np.log2(pos + 2.0)
+                  for pos, item in enumerate(top.tolist()[:k])
+                  if item in rel)
+        ideal = sum(1.0 / np.log2(pos + 2.0)
+                    for pos in range(min(k, len(rel))))
+        total += float(dcg / ideal)
+    return float(total / len(held))
+
+
+def popularity_precision(train_rows, train_cols, held: dict, n_items: int,
+                         k: int = K_EVAL) -> float:
+    """``bench_quality.popularity_precision``: the most-rated unseen
+    items for everyone, the floor a personal model must beat."""
+    from itertools import islice
+
+    pop_list = np.argsort(
+        -np.bincount(train_cols, minlength=n_items)).tolist()
+    seen: dict = {}
+    for u, i in zip(train_rows.tolist(), train_cols.tolist()):
+        seen.setdefault(u, set()).add(i)
+    hits = 0
+    for u, h in held.items():
+        s = seen.get(u, set())
+        recs = islice((i for i in pop_list if i not in s), k)
+        hits += len(set(recs) & h)
+    return hits / (k * len(held))
+
+
+def quality(dev, shape=QUALITY_SHAPE, rank: int = QUALITY_RANK,
+            iterations: int = QUALITY_ITERATIONS) -> dict:
+    """Phase 7: ``bench_quality.run``'s protocol on the card. The port's
+    ``train_als`` (the two training kernels) at seeds 3 / 17 / 42; the
+    plain trainer from seed 3's init; Precision@10 and NDCG@10 of seed
+    3, its ratio to the plain trainer's (0.99-1.01), and the seed band's
+    lift over popularity (> 1)."""
+    from predictionio_tpu_torch.ops import als as als_mod
+    from predictionio_tpu_torch.ops import als_cuda
+
+    n_users, n_items, nnz = shape
+    rows, cols, vals, held = build_split(n_users, n_items, nnz,
+                                         QUALITY_SPLIT_SEED)
+    user_side = als_mod.pad_ratings(rows, cols, vals, n_users, n_items)
+    item_side = als_mod.pad_ratings(cols, rows, vals, n_items, n_users)
+
+    def params(seed):
+        return als_mod.ALSParams(rank=rank, num_iterations=iterations,
+                                 lambda_=LAMBDA, alpha=ALPHA, seed=seed)
+
+    band, ndcg = [], None
+    for seed in QUALITY_SEEDS:
+        X, Y = als_mod.train_als(user_side, item_side, params(seed), dev)
+        scores = masked_scores(X, Y, rows, cols)
+        band.append(precision_at_k(scores, held))
+        if ndcg is None:
+            ndcg = ndcg_at_k(scores, held)
+    saved = (als_cuda.assemble_normal_equations, als_cuda.spd_solve)
+    als_cuda.assemble_normal_equations = \
+        als_cuda.assemble_normal_equations_plain
+    als_cuda.spd_solve = als_cuda.spd_solve_plain
+    try:
+        Xp, Yp = als_mod.train_als(user_side, item_side,
+                                   params(QUALITY_SEEDS[0]), dev)
+    finally:
+        als_cuda.assemble_normal_equations, als_cuda.spd_solve = saved
+    plain_scores = masked_scores(Xp, Yp, rows, cols)
+    plain = precision_at_k(plain_scores, held)
+    pop = popularity_precision(rows, cols, held, n_items)
+    out = {"precision_at_10": band[0], "ndcg_at_10": ndcg,
+           "plain_precision_at_10": plain,
+           "plain_ndcg_at_10": ndcg_at_k(plain_scores, held),
+           "ratio_vs_plain": band[0] / plain,
+           "seed_band": band, "popularity_precision_at_10": pop,
+           "lift_vs_popularity": float(np.mean(band)) / pop,
+           "holdout_users": len(held), "shape": list(shape), "rank": rank,
+           "iterations": iterations}
+    print(f"[quality] {json.dumps(out)}")
+    if not 0.99 <= out["ratio_vs_plain"] <= 1.01:
+        raise AssertionError(f"Precision@10 {band[0]} is not within 1% of "
+                             f"the plain trainer's {plain}")
+    if not out["lift_vs_popularity"] > 1.0:
+        raise AssertionError(f"the seed band {band} does not beat "
+                             f"popularity ({pop})")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1353,6 +2114,13 @@ def main() -> int:
         help="build, then only time the serving kernel (phase 4) and print "
              "its rows; with a copy of this script at another checkout's "
              "root, times that checkout's package")
+    parser.add_argument(
+        "--prepare-times", action="store_true",
+        help="only run phase 5's ratings through the preparator and print "
+             "its split; with a copy of this script at another checkout's "
+             "root, times that checkout's prepare step")
+    parser.add_argument("--serve-store", metavar="SQLITE_FILE",
+                        help=argparse.SUPPRESS)  # phase 6's second process
     args = parser.parse_args()
 
     import torch
@@ -1360,6 +2128,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    if args.serve_store:
+        return serve_child(args.serve_store)
     from predictionio_tpu_torch.device import resolve_device
 
     dev = resolve_device(None)
@@ -1373,6 +2143,11 @@ def main() -> int:
         print(f"[phase] {name}: {time.perf_counter() - t:.1f} s")
         return out
 
+    if args.prepare_times:
+        out = phase("5 prepare step", prepare_times, args.seed)
+        print(json.dumps({"prepare_times": out}))
+        print(nvidia_smi())
+        return 0
     phase("1 build", build_kernels)
     if args.serving_times:
         rows = phase("4 serving kernel times", timings, dev, args.seed)
@@ -1390,6 +2165,8 @@ def main() -> int:
     crossover = phase("4c route crossover", route_crossover, dev, args.seed)
     train_times = phase("4b training kernel times", training_timings, dev,
                         trained)
+    cycle = phase("6 lifecycle", lifecycle, args.seed)
+    scored = phase("7 quality", quality, dev)
     # the line's headline shape: a full micro-batch (B=256) at the
     # default k bucket (16) on the default GPU store (bf16)
     head = next(r for r in rows
@@ -1434,13 +2211,17 @@ def main() -> int:
             "routes": routes, "timings": train_times["rows"][name]})
     print(f"[done] {time.perf_counter() - t0:.1f} s; HTTP p50 "
           f"{served['p50_ms']!r} ms p99 {served['p99_ms']!r} ms; training "
-          f"iteration {trained['iteration_ms']!r} ms")
+          f"iteration {trained['iteration_ms']!r} ms; prepare "
+          f"{trained['prepare_s']!r} s; lifecycle deploy "
+          f"{cycle['deploy_s']!r} s, reload {cycle['reload_s']!r} s; "
+          f"Precision@10 {scored['precision_at_10']!r} "
+          f"({scored['ratio_vs_plain']!r} of plain, lift "
+          f"{scored['lift_vs_popularity']!r})")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
-    # one card: the run used cuda:0 alone, whatever else is visible
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""Controller API of the port (the training and serving subset)."""
+"""Controller API of the port (the training, persistence and serving
+subset)."""
 
 from predictionio_tpu_torch.controller.algorithms import P2LAlgorithm
 from predictionio_tpu_torch.controller.controllers import (
@@ -13,8 +14,10 @@ from predictionio_tpu_torch.controller.engine import (
     EngineConfigError,
     EngineParams,
     params_from_dict,
+    params_to_dict,
     train_pipeline,
 )
+from predictionio_tpu_torch.controller.persistent import PersistentModel
 from predictionio_tpu_torch.core.base import (
     EmptyParams,
     Params,
@@ -33,7 +36,9 @@ __all__ = [
     "PDataSource",
     "PPreparator",
     "Params",
+    "PersistentModel",
     "WorkflowParams",
     "params_from_dict",
+    "params_to_dict",
     "train_pipeline",
 ]

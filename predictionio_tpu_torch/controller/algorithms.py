@@ -1,9 +1,11 @@
 """Algorithm flavors: the parallel-to-local one serving needs.
 
-The port's copy of ``P2LAlgorithm`` from
+The port's copy of ``P2LAlgorithm`` and ``_persist_or_model`` from
 ``predictionio_tpu/controller/algorithms.py``: the model lives on the
-host and is served through the device, and ``predict_base`` routes to
-the subclass's ``predict``.
+host and is served through the device, ``predict_base`` routes to the
+subclass's ``predict``, and the trained model is stored as it is (or,
+for a :class:`~predictionio_tpu_torch.controller.persistent.
+PersistentModel`, saves itself).
 """
 
 from __future__ import annotations
@@ -11,7 +13,23 @@ from __future__ import annotations
 import abc
 from typing import Any, List, Sequence, Tuple
 
-from predictionio_tpu_torch.core.base import BaseAlgorithm
+from predictionio_tpu_torch.controller.persistent import (
+    PersistentModel,
+    manifest_for,
+)
+from predictionio_tpu_torch.core.base import RETRAIN, BaseAlgorithm, Params
+
+
+def _persist_or_model(model: Any, model_id: str, params: Params,
+                      ctx: Any) -> Any:
+    """A PersistentModel saves itself and is stored as its manifest (or
+    as ``RETRAIN`` when it declines); any other model is stored as it
+    is."""
+    if isinstance(model, PersistentModel):
+        if model.save(model_id, params, ctx):
+            return manifest_for(model)
+        return RETRAIN
+    return model
 
 
 class P2LAlgorithm(BaseAlgorithm):
@@ -37,3 +55,6 @@ class P2LAlgorithm(BaseAlgorithm):
 
     def predict_base(self, model: Any, query: Any) -> Any:
         return self.predict(model, query)
+
+    def make_persistent_model(self, ctx, model_id, algo_params, model):
+        return _persist_or_model(model, model_id, algo_params, ctx)

@@ -2,10 +2,10 @@
 
 The port's copy of ``predictionio_tpu/controller/engine.py``: name ->
 class maps for the four DASE stages, typed params from engine.json
-blocks, the variant -> ``EngineParams`` step, and ``Engine.train`` /
+blocks, the variant -> ``EngineParams`` step, ``Engine.train`` /
 ``train_pipeline`` (read -> prepare -> train each algorithm, with the
-sanity checks and stop-after interruptions). Persisting the trained
-models waits for the storage slice: ``Engine.train`` returns them.
+sanity checks and stop-after interruptions; each model in its stored
+form) and ``Engine.prepare_deploy`` (stored forms -> models to serve).
 """
 
 from __future__ import annotations
@@ -14,12 +14,14 @@ import dataclasses
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 from predictionio_tpu_torch.core.base import (
+    RETRAIN,
     BaseAlgorithm,
     BaseDataSource,
     BasePreparator,
     Doer,
     EmptyParams,
     Params,
+    PersistentModelManifest,
     StopAfterPrepareInterruption,
     StopAfterReadInterruption,
     WorkflowParams,
@@ -89,6 +91,12 @@ def params_from_dict(params_cls: Optional[type],
             f"{where}: cannot construct {params_cls.__name__}: {e}") from e
 
 
+def params_to_dict(params: Params) -> Dict[str, Any]:
+    if dataclasses.is_dataclass(params):
+        return dataclasses.asdict(params)
+    return dict(getattr(params, "__dict__", {}))
+
+
 def _named_block(block: Any, where: str) -> Tuple[str, Mapping[str, Any]]:
     """``{"name": ..., "params": {...}}`` or bare ``{...}`` params for
     the default ("") controller."""
@@ -136,34 +144,74 @@ class Engine:
         name, params = engine_params.serving_params
         return self._make(self.serving_class_map, name, params, "serving")
 
+    def _data_source_and_preparator(self, engine_params: EngineParams
+                                    ) -> Tuple[Any, Any]:
+        ds_name, ds_params = engine_params.data_source_params
+        prep_name, prep_params = engine_params.preparator_params
+        return (self._make(self.data_source_class_map, ds_name, ds_params,
+                           "datasource"),
+                self._make(self.preparator_class_map, prep_name,
+                           prep_params, "preparator"))
+
     def train(self, ctx: Any, engine_params: EngineParams,
-              params: Optional[WorkflowParams] = None) -> List[Any]:
-        """Run the train dataflow and return one trained model per
-        algorithm. ``ctx`` names the device (a
+              params: Optional[WorkflowParams] = None,
+              engine_instance_id: str = "") -> List[Any]:
+        """Run the train dataflow and return one model per algorithm in
+        its stored form (``make_persistent_model``: the model itself for
+        the template's ALS). ``ctx`` names the device (a
         :class:`~predictionio_tpu_torch.core.context.ComputeContext`;
         None = cuda)."""
-        ds_name, ds_params = engine_params.data_source_params
-        data_source = self._make(self.data_source_class_map, ds_name,
-                                 ds_params, "datasource")
-        prep_name, prep_params = engine_params.preparator_params
-        preparator = self._make(self.preparator_class_map, prep_name,
-                                prep_params, "preparator")
-        return train_pipeline(ctx, data_source, preparator,
-                              self._algorithms(engine_params),
-                              params or WorkflowParams())
+        data_source, preparator = self._data_source_and_preparator(
+            engine_params)
+        algorithms = self._algorithms(engine_params)
+        models = train_pipeline(ctx, data_source, preparator, algorithms,
+                                params or WorkflowParams())
+        return [
+            algo.make_persistent_model(
+                ctx, model_id=f"{engine_instance_id}-{ax}-{name}",
+                algo_params=algo_params, model=model)
+            for ax, ((name, algo_params), algo, model) in enumerate(
+                zip(engine_params.algorithm_params_list, algorithms,
+                    models))]
+
+    def prepare_deploy(self, ctx: Any, engine_params: EngineParams,
+                       engine_instance_id: str,
+                       persisted_models: Sequence[Any]) -> List[Any]:
+        """Models to serve from their stored forms: ``RETRAIN`` entries
+        are trained again from the data source, manifests load through
+        their class, stored models pass through."""
+        from predictionio_tpu_torch.controller.persistent import (
+            load_persistent_model,
+        )
+
+        algorithms = self._algorithms(engine_params)
+        persisted = list(persisted_models)
+        if len(persisted) != len(algorithms):
+            raise EngineConfigError(
+                f"{len(persisted)} persisted models for "
+                f"{len(algorithms)} algorithms")
+        if any(m is RETRAIN for m in persisted):
+            data_source, preparator = self._data_source_and_preparator(
+                engine_params)
+            pd = preparator.prepare_base(
+                ctx, data_source.read_training_base(ctx))
+            persisted = [algo.train_base(ctx, pd) if m is RETRAIN else m
+                         for algo, m in zip(algorithms, persisted)]
+        return [
+            load_persistent_model(m, f"{engine_instance_id}-{ax}-{name}",
+                                  algo_params, ctx)
+            if isinstance(m, PersistentModelManifest) else m
+            for ax, (m, (name, algo_params)) in enumerate(
+                zip(persisted, engine_params.algorithm_params_list))]
 
     def engine_params_from_variant(
             self, variant: Mapping[str, Any]) -> EngineParams:
         """A variant's ``datasource``, ``preparator``, ``algorithms`` and
         ``serving`` sections as EngineParams; an absent section means the
-        default ("") controller with EmptyParams. A data source that is
-        not registered keeps its name with EmptyParams (the port reads no
-        event store yet, so a deployment's engine.json still parses);
-        training with it raises."""
+        default ("") controller with EmptyParams."""
         return EngineParams(
             data_source_params=_stage(variant, "datasource",
-                                      self.data_source_class_map,
-                                      defer_unknown=True),
+                                      self.data_source_class_map),
             preparator_params=_stage(variant, "preparator",
                                      self.preparator_class_map),
             algorithm_params_list=self._algorithm_params(variant),
@@ -192,15 +240,12 @@ class Engine:
 
 
 def _stage(variant: Mapping[str, Any], field: str,
-           class_map: Mapping[str, type],
-           defer_unknown: bool = False) -> Tuple[str, Params]:
+           class_map: Mapping[str, type]) -> Tuple[str, Params]:
     """One stage's (name, params) from its variant section."""
     if variant.get(field) is None:
         return "", EmptyParams()
     name, data = _named_block(variant[field], field)
     if name not in class_map:
-        if defer_unknown:
-            return name, EmptyParams()
         raise EngineConfigError(
             f"{field}: controller named {name!r} not registered; "
             f"known: {sorted(class_map)}")
@@ -236,4 +281,4 @@ def train_pipeline(ctx: Any, data_source: BaseDataSource,
 
 
 __all__ = ["Engine", "EngineConfigError", "EngineParams", "params_from_dict",
-           "train_pipeline"]
+           "params_to_dict", "train_pipeline"]

@@ -3,8 +3,10 @@ need.
 
 The port's copy of ``predictionio_tpu/core/base.py``: ``Params``, the
 workflow controls (``WorkflowParams``, the stop-after interruptions,
-``run_sanity_check``), the controller base with its one ``params``
-argument, and the data-source, preparator, algorithm and serving bases.
+``run_sanity_check``), the persistence markers (``RETRAIN``,
+``PersistentModelManifest``), the controller base with its one
+``params`` argument, and the data-source, preparator, algorithm and
+serving bases.
 The evaluator bases come with the slice that ports evaluation.
 """
 
@@ -47,6 +49,35 @@ class StopAfterReadInterruption(TrainingInterruption):
 
 class StopAfterPrepareInterruption(TrainingInterruption):
     pass
+
+
+class _Retrain:
+    """Sentinel: the model was not persisted; retrain at deploy."""
+
+    _instance: Optional["_Retrain"] = None
+
+    def __new__(cls):
+        if cls._instance is None:
+            cls._instance = super().__new__(cls)
+        return cls._instance
+
+    def __repr__(self) -> str:
+        return "RETRAIN"
+
+    def __reduce__(self):  # pickles to the singleton
+        return (_Retrain, ())
+
+
+RETRAIN = _Retrain()
+
+
+@dataclasses.dataclass(frozen=True)
+class PersistentModelManifest:
+    """Stored in place of a model that saved itself; ``class_path`` is
+    ``module:Class`` of its :class:`~predictionio_tpu_torch.controller.
+    persistent.PersistentModel`."""
+
+    class_path: str
 
 
 @runtime_checkable
@@ -109,6 +140,13 @@ class BaseAlgorithm(AbstractDoer, abc.ABC):
     @abc.abstractmethod
     def predict_base(self, model: Any, query: Any) -> Any:
         """Single-query predict (the serving path)."""
+
+    def make_persistent_model(self, ctx: Any, model_id: str,
+                              algo_params: Params, model: Any) -> Any:
+        """The trained model's stored form: the model itself (pickled),
+        a :class:`PersistentModelManifest` (it saved itself) or
+        ``RETRAIN`` (train again at deploy, the default)."""
+        return RETRAIN
 
     @property
     def query_class(self) -> Optional[type]:

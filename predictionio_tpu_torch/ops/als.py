@@ -6,9 +6,12 @@ counterpart is easy to find):
 - **Host layouts** (numpy only): ``PaddedRatings`` / ``pad_ratings`` /
   ``pad_rows_to_block``, the uniform ``[N, L]`` tables, and
   ``RatingsBucket`` / ``BucketedRatings`` / ``bucket_ratings`` /
-  ``bucket_ratings_pair``, the length-bucketed ones. The JAX versions
-  try a native fill first; the port takes their numpy scatter, which
-  gives the same bytes.
+  ``bucket_ratings_pair``, the length-bucketed ones. As in the JAX
+  package, the tables are filled by the native ingest kernels
+  (:mod:`~predictionio_tpu_torch.native.codec`: ``bucket_fill``,
+  ``segment_starts``, and ``merge_sorted_runs`` when the ratings arrive
+  as sorted runs); ``PIO_NATIVE_DISABLE=1`` takes the numpy scatter,
+  which gives the same bytes.
 - **Device math** (fp32 torch): ``_solve_rows`` solves one batch of rows
   through the two CUDA kernels of :mod:`~predictionio_tpu_torch.ops.
   als_cuda`, ``assemble_normal_equations`` then ``spd_solve`` (their
@@ -39,6 +42,7 @@ import torch
 
 from predictionio_tpu_torch.core.base import Params
 from predictionio_tpu_torch.device import DeviceLike, resolve_device
+from predictionio_tpu_torch.native import codec as native_codec
 from predictionio_tpu_torch.ops import als_cuda
 
 
@@ -92,18 +96,40 @@ class PaddedRatings:
 PAD_MULTIPLE = 8
 
 
+def stable_key_order(key: np.ndarray,
+                     runs: Optional[np.ndarray] = None) -> np.ndarray:
+    """``np.argsort(key, kind="stable")``. With ``runs`` (offsets of
+    contiguous runs, ``[0, ..., len(key)]``: the blocks of a streaming
+    read) each run is sorted on its own and the native k-way merge
+    joins them; ties keep index order either way, so the permutation is
+    the same."""
+    if runs is None or len(runs) <= 2:
+        return np.argsort(key, kind="stable")
+    runs = np.asarray(runs, dtype=np.int64)
+    if int(runs[0]) != 0 or int(runs[-1]) != len(key):
+        raise ValueError(f"runs {runs[[0, -1]]} do not span {len(key)} keys")
+    local = np.empty(len(key), dtype=np.int64)
+    for a, b in zip(runs[:-1].tolist(), runs[1:].tolist()):
+        local[a:b] = a + np.argsort(key[a:b], kind="stable")
+    perm = native_codec.merge_sorted_runs(key[local], runs)
+    if perm is None:
+        return np.argsort(key, kind="stable")
+    return local[perm]
+
+
 def dedup_sum_ratings(rows: np.ndarray, cols: np.ndarray,
-                      values: np.ndarray, n_cols: int):
+                      values: np.ndarray, n_cols: int,
+                      runs: Optional[np.ndarray] = None):
     """Sum duplicate (row, col) pairs (the template's ``reduceByKey(_ +
     _)``); returns unique (rows, cols, summed values) sorted by (row,
-    col)."""
+    col). ``runs``: see :func:`stable_key_order`."""
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
     values = np.asarray(values, dtype=np.float32)
     if not len(rows):
         return rows, cols, values
     key = rows * n_cols + cols
-    order = np.argsort(key, kind="stable")
+    order = stable_key_order(key, runs)
     return dedup_sum_sorted(key[order], rows[order], cols[order],
                             values[order])
 
@@ -116,7 +142,9 @@ def dedup_sum_sorted(key: np.ndarray, rows: np.ndarray, cols: np.ndarray,
         return (np.asarray(rows, dtype=np.int64),
                 np.asarray(cols, dtype=np.int64),
                 np.asarray(values, dtype=np.float32))
-    starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+    starts = native_codec.segment_starts(key)
+    if starts is None:
+        starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
     sums = np.add.reduceat(values, starts).astype(np.float32)
     return (rows[starts].astype(np.int64),
             cols[starts].astype(np.int64), sums)
@@ -131,11 +159,12 @@ def _strongest_first(rows, cols, values):
 
 def pad_ratings(rows: np.ndarray, cols: np.ndarray, values: np.ndarray,
                 n_rows: int, n_cols: int, pad_multiple: int = PAD_MULTIPLE,
-                max_len: Optional[int] = None) -> PaddedRatings:
+                max_len: Optional[int] = None,
+                runs: Optional[np.ndarray] = None) -> PaddedRatings:
     """Host-side padding of rating triples for one solve side, after
     summing duplicates. ``max_len`` truncates long rows, keeping their
-    largest-magnitude ratings."""
-    rows, cols, values = dedup_sum_ratings(rows, cols, values, n_cols)
+    largest-magnitude ratings. ``runs``: see :func:`stable_key_order`."""
+    rows, cols, values = dedup_sum_ratings(rows, cols, values, n_cols, runs)
     counts = np.bincount(rows, minlength=n_rows)
     true_top = int(counts.max()) if len(counts) and counts.max() > 0 else 1
     L = true_top if max_len is None else min(true_top, int(max_len))
@@ -152,9 +181,15 @@ def pad_ratings(rows: np.ndarray, cols: np.ndarray, values: np.ndarray,
     out_cols = np.zeros((n_rows, L), dtype=np.int32)
     out_w = np.zeros((n_rows, L), dtype=np.float32)
     out_m = np.zeros((n_rows, L), dtype=np.float32)
-    out_cols[rows, pos] = cols
-    out_w[rows, pos] = values
-    out_m[rows, pos] = 1.0
+    # the uniform table is the one-bucket case of the native fill (row
+    # rank == row index)
+    if not native_codec.bucket_fill(rows, cols, values, pos,
+                                    np.zeros(n_rows, dtype=np.int32),
+                                    np.arange(n_rows, dtype=np.int64),
+                                    [(out_cols, out_w, out_m)]):
+        out_cols[rows, pos] = cols
+        out_w[rows, pos] = values
+        out_m[rows, pos] = 1.0
     return PaddedRatings(out_cols, out_w, out_m, n_rows, n_cols)
 
 
@@ -248,11 +283,13 @@ def bucket_ratings_pair(
         n_rows: int, n_cols: int,
         bucket_lengths: Optional[Sequence[int]] = None,
         max_len: Optional[int] = None, pad_multiple: int = PAD_MULTIPLE,
-        row_multiple: int = 8) -> Tuple[BucketedRatings, BucketedRatings]:
+        row_multiple: int = 8, runs: Optional[np.ndarray] = None
+) -> Tuple[BucketedRatings, BucketedRatings]:
     """Both solve sides from one dedup-sum: the row side from the
     row-grouped result, the column side after one stable re-sort.
-    Returns ``(row_side, col_side)``."""
-    rows, cols, values = dedup_sum_ratings(rows, cols, values, n_cols)
+    Returns ``(row_side, col_side)``. ``runs``: see
+    :func:`stable_key_order`."""
+    rows, cols, values = dedup_sum_ratings(rows, cols, values, n_cols, runs)
     row_side = _bucket_grouped(rows, cols, values, n_rows, n_cols,
                                bucket_lengths, max_len, pad_multiple,
                                row_multiple)
@@ -297,9 +334,13 @@ def _bucket_grouped(rows, cols, values, n_rows: int, n_cols: int,
 
     eff = np.minimum(counts, L_top)
     b_of_row = np.searchsorted(lengths, eff, side="left")
-    b_of_entry = b_of_row[rows]
     rank = np.empty(n_rows, dtype=np.int64)  # valid only at member rows
-    out: List[RatingsBucket] = []
+    # every bucket's zeroed tables first, then one fill: the native one
+    # pass over all entries, or the numpy scatter (one boolean pass over
+    # the entries per bucket), byte for byte the same
+    tables: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+    id_lists: List[np.ndarray] = []
+    table_of_bucket = np.full(len(lengths), -1, dtype=np.int32)
     for b, L in enumerate(lengths):
         members = np.nonzero((b_of_row == b) & (eff > 0))[0]
         if members.size == 0:
@@ -312,12 +353,23 @@ def _bucket_grouped(rows, cols, values, n_rows: int, n_cols: int,
         om = np.zeros((Bp, L), dtype=np.float32)
         row_ids = np.full(Bp, n_rows, dtype=np.int32)  # pad sentinel
         row_ids[:B] = members
-        sel = b_of_entry == b
-        r, p = rank[rows[sel]], pos[sel]
-        oc[r, p] = cols[sel]
-        ow[r, p] = values[sel]
-        om[r, p] = 1.0
-        out.append(RatingsBucket(row_ids, oc, ow, om))
+        table_of_bucket[b] = len(tables)
+        tables.append((oc, ow, om))
+        id_lists.append(row_ids)
+    if tables and not native_codec.bucket_fill(
+            rows, cols, values, pos, table_of_bucket[b_of_row], rank,
+            tables):
+        b_of_entry = b_of_row[rows]
+        for b in range(len(lengths)):
+            if table_of_bucket[b] < 0:
+                continue
+            oc, ow, om = tables[table_of_bucket[b]]
+            sel = b_of_entry == b
+            r, p = rank[rows[sel]], pos[sel]
+            oc[r, p] = cols[sel]
+            ow[r, p] = values[sel]
+            om[r, p] = 1.0
+    out = [RatingsBucket(ids, *t) for ids, t in zip(id_lists, tables)]
     return BucketedRatings(out, n_rows, n_cols)
 
 

@@ -2,19 +2,22 @@
 
 The port's copy of ``predictionio_tpu/templates/recommendation/engine.py``:
 
-- training data (``Rating``, ``TrainingData``, ``IndexedTrainingData``),
-  ``RatingsPreparator`` (entity ids to indices, then the uniform or the
-  length-bucketed layout) and ``ALSAlgorithm.train`` (through
-  ``train_als_auto`` and the two training kernels);
+- ``EventDataSource`` (``rate`` / ``view`` events through
+  ``PEventStore``, in one columnar scan or streamed in blocks, with the
+  items' ``$set`` categories), training data (``Rating``,
+  ``TrainingData``, ``IndexedTrainingData``), ``RatingsPreparator``
+  (entity ids to indices, then the uniform or the length-bucketed
+  layout) and ``ALSAlgorithm.train`` (through ``train_als_auto`` and the
+  two training kernels);
 - the query path: the query and result types, ``ALSModel`` (host
   factors and maps, served through
   :func:`~predictionio_tpu_torch.ops.serving.choose_server`), the shared
   top-k serving logic, and ``ALSAlgorithm.predict`` / ``batch_predict``.
 
-The event-store data source comes with the storage slice (ROADMAP
-queue A item 2): until then the caller registers a data source of its
-own, which returns ``TrainingData`` or ``IndexedTrainingData``. A model
-may also be carried over from arrays with
+Not in this slice (they raise ``NotImplementedError``): the pipelined
+streaming read (``pipelinedIngest``, ROADMAP queue A item 2) and the
+evaluation reads (``read_eval``, sliding windows; queue A item 7). A
+model may also be carried over from arrays with
 :func:`predictionio_tpu_torch.weights.als_model_from_numpy`.
 """
 
@@ -33,15 +36,38 @@ from predictionio_tpu_torch.controller import (
     LFirstServing,
     P2LAlgorithm,
     Params,
+    PDataSource,
     PPreparator,
 )
 from predictionio_tpu_torch.data.bimap import StringIndexBiMap
+from predictionio_tpu_torch.data.store import PEventStore
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.ops.als import (
     ALSParams,
     bucket_ratings_pair,
     pad_ratings,
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class DataSourceParams(Params):
+    """Field for field the JAX template's, so an engine.json written for
+    it parses here. ``streaming_block_size`` streams the read in
+    columnar blocks through an incremental indexer (no whole-store
+    object columns); None keeps the single-scan read.
+    ``read_item_categories`` also reads each item's ``$set``
+    categories, for category queries."""
+
+    app_name: str
+    event_names: Tuple[str, ...] = ("rate",)
+    channel_name: Optional[str] = None
+    streaming_block_size: Optional[int] = None
+    pipelined_ingest: bool = False
+    decode_prefetch: int = 0
+    read_item_categories: bool = False
+    eval_first_until: Optional[str] = None
+    eval_duration_days: float = 7.0
+    eval_count: int = 0
 
 
 @dataclasses.dataclass
@@ -104,16 +130,21 @@ class TrainingData:
 class IndexedTrainingData:
     """Already-indexed rating triples: int64 user/item codes plus their
     BiMaps. The preparator takes them as they are, so no whole-store
-    string columns are ever built."""
+    string columns are ever built. ``runs``, when the triples arrived in
+    blocks, holds where each block begins (``[0, ..., n]``): the
+    preparator's dedup sort then sorts each block on its own and merges
+    them natively."""
 
     def __init__(self, user_map: StringIndexBiMap,
                  item_map: StringIndexBiMap, rows: np.ndarray,
-                 cols: np.ndarray, values: np.ndarray):
+                 cols: np.ndarray, values: np.ndarray,
+                 runs: Optional[np.ndarray] = None):
         self.user_map = user_map
         self.item_map = item_map
         self.rows = rows
         self.cols = cols
         self.values = values
+        self.runs = runs
         self.item_categories: Optional[Dict[str, Tuple[str, ...]]] = None
 
     def __len__(self) -> int:
@@ -123,6 +154,76 @@ class IndexedTrainingData:
         assert len(self), (
             "ratings in TrainingData cannot be empty. Please check if "
             "DataSource generates TrainingData correctly.")
+
+
+class EventDataSource(PDataSource):
+    """Reads rating events: ``rate`` -> its ``rating`` property, any
+    other event name -> an implicit 1.0. One columnar scan, or with
+    ``streaming_block_size`` bounded blocks through an incremental
+    indexer, read on a background thread."""
+
+    params_class = DataSourceParams
+
+    def read_training(self, ctx: Any) -> Any:
+        p: DataSourceParams = self.params
+        if p.pipelined_ingest:
+            raise NotImplementedError(
+                "pipelined_ingest is not ported yet (ROADMAP queue A item "
+                "2, the MovieLens-20M ingest path); use streamingBlockSize "
+                "alone")
+        if p.streaming_block_size:
+            from predictionio_tpu_torch.data.columnar import (
+                StreamingRatingsBuilder,
+                iter_blocks_threaded,
+            )
+
+            builder = StreamingRatingsBuilder()
+            for block in iter_blocks_threaded(
+                    PEventStore.find_columnar_blocks(
+                        app_name=p.app_name,
+                        channel_name=p.channel_name,
+                        entity_type="user",
+                        event_names=list(p.event_names),
+                        target_entity_type="item",
+                        value_property="rating",
+                        default_value=1.0,
+                        block_size=int(p.streaming_block_size),
+                        prefetch=int(p.decode_prefetch))):
+                builder.add_block(block)
+            td = IndexedTrainingData(*builder.finalize(),
+                                     runs=builder.run_offsets)
+        else:
+            batch = PEventStore.find_columnar(
+                app_name=p.app_name,
+                channel_name=p.channel_name,
+                entity_type="user",
+                event_names=list(p.event_names),
+                target_entity_type="item",
+                value_property="rating",
+                default_value=1.0)
+            td = TrainingData(users=batch.entity_ids,
+                              items=batch.target_ids, values=batch.values)
+        td.item_categories = read_item_categories(p)
+        return td
+
+    def read_eval(self, ctx: Any):
+        raise NotImplementedError(
+            "read_eval and the sliding-window evaluation are not ported "
+            "yet (ROADMAP queue A item 7, evaluation)")
+
+
+def read_item_categories(p: DataSourceParams
+                         ) -> Optional[Dict[str, Tuple[str, ...]]]:
+    """Each item's ``$set`` categories, or None when the variant does
+    not ask for them."""
+    if not p.read_item_categories:
+        return None
+    return {
+        iid: tuple(pm.get_opt("categories", list) or ())
+        for iid, pm in PEventStore.aggregate_properties(
+            app_name=p.app_name, channel_name=p.channel_name,
+            entity_type="item").items()
+    }
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,10 +287,12 @@ class RatingsPreparator(PPreparator):
     params_class = PreparatorParams
 
     def prepare(self, ctx: Any, td: Any) -> PreparedData:
+        runs = None
         if isinstance(td, IndexedTrainingData):
             user_map, item_map = td.user_map, td.item_map
             rows = np.asarray(td.rows, dtype=np.int64)
             cols = np.asarray(td.cols, dtype=np.int64)
+            runs = td.runs
         else:
             u_labels, rows = np.unique(td.users.astype(str),
                                        return_inverse=True)
@@ -204,25 +307,38 @@ class RatingsPreparator(PPreparator):
         max_len = getattr(self.params, "max_len", None)
         if getattr(self.params, "bucketed", False):
             user_side, item_side = bucket_ratings_pair(
-                rows, cols, vals, n_u, n_i, max_len=max_len)
+                rows, cols, vals, n_u, n_i, max_len=max_len, runs=runs)
         else:
             user_side = pad_ratings(rows, cols, vals, n_u, n_i,
-                                    max_len=max_len)
+                                    max_len=max_len, runs=runs)
             item_side = pad_ratings(cols, rows, vals, n_i, n_u,
-                                    max_len=max_len)
-        # per-user seen items via one stable sort
-        order = np.argsort(rows, kind="stable")
-        s_rows, s_cols = rows[order], cols[order]
-        starts = np.searchsorted(s_rows, np.arange(n_u))
-        ends = np.searchsorted(s_rows, np.arange(n_u), side="right")
-        seen = {u: s_cols[starts[u]:ends[u]] for u in range(n_u)}
-        cats = None
-        raw_cats = getattr(td, "item_categories", None)
-        if raw_cats is not None:
-            cats = {item_map[iid]: tuple(c)
-                    for iid, c in raw_cats.items() if iid in item_map}
-        return PreparedData(user_map, item_map, user_side, item_side, seen,
-                            item_categories=cats)
+                                    max_len=max_len, runs=runs)
+        return PreparedData(
+            user_map, item_map, user_side, item_side,
+            seen_lists(rows, cols, n_u),
+            item_categories=index_categories(
+                getattr(td, "item_categories", None), item_map))
+
+
+def seen_lists(rows: np.ndarray, cols: np.ndarray,
+               n_rows: int) -> Dict[int, np.ndarray]:
+    """Each user's rated items, through one stable sort."""
+    order = np.argsort(rows, kind="stable")
+    s_rows, s_cols = rows[order], cols[order]
+    starts = np.searchsorted(s_rows, np.arange(n_rows))
+    ends = np.searchsorted(s_rows, np.arange(n_rows), side="right")
+    return {u: s_cols[starts[u]:ends[u]] for u in range(n_rows)}
+
+
+def index_categories(raw: Optional[Dict[str, Tuple[str, ...]]],
+                     item_map: StringIndexBiMap
+                     ) -> Optional[Dict[int, Tuple[str, ...]]]:
+    """Item id -> categories as item index -> categories (items the
+    ratings never name are dropped)."""
+    if raw is None:
+        return None
+    return {item_map[iid]: tuple(c) for iid, c in raw.items()
+            if iid in item_map}
 
 
 @dataclasses.dataclass
@@ -421,10 +537,8 @@ class RecommendationServing(LFirstServing):
 
 
 def engine_factory() -> Engine:
-    """The template's engine. Its data-source map stays empty until the
-    storage slice ports the event-store reader: register one (a
-    ``PDataSource`` returning ``TrainingData`` or
-    ``IndexedTrainingData``) to train."""
-    return Engine({}, RatingsPreparator,
+    """The template's engine: the event-store data source, the
+    preparator, ALS under ``"als"`` (and ``""``) and first serving."""
+    return Engine(EventDataSource, RatingsPreparator,
                   {"als": ALSAlgorithm, "": ALSAlgorithm},
                   {"": RecommendationServing})

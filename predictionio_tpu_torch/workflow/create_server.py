@@ -1,14 +1,17 @@
 """Query server: the deployed engine behind ``POST /queries.json``.
 
-The port's copy of the in-process half of
-``predictionio_tpu/workflow/create_server.py``: a :class:`Deployment`
-built from an engine, its params and its models; ``serve_query``
-(supplement -> predict per algorithm -> serve with the original query);
-the wire JSON (``to_jsonable`` / ``query_from_json``); and a threaded
-HTTP server with ``POST /queries.json``, ``GET /healthz`` and
-``POST /stop``. Resolving an engine instance and its model blob from
-storage, reload, feedback and the observability routes come with later
-slices.
+The port's copy of ``predictionio_tpu/workflow/create_server.py``, the
+part one server needs: resolving an engine instance from storage
+(``resolve_engine_instance``), loading its stored models into a
+:class:`Deployment` (``build_deployment``, or
+``deployment_from_models`` for models already in memory);
+``serve_query`` (supplement -> predict per algorithm -> serve with the
+original query); the wire JSON (``to_jsonable`` / ``query_from_json``);
+and a threaded HTTP server with ``POST /queries.json``, ``POST
+/reload`` (swap to the latest completed instance; an older one is
+refused with 409), ``GET /healthz`` and ``POST /stop``. Feedback, the
+observability routes, fleets and TLS come with later slices; fold-in
+on deploy raises (ROADMAP queue A item 3).
 """
 
 from __future__ import annotations
@@ -30,19 +33,64 @@ from predictionio_tpu_torch.controller.engine import (
     EngineParams,
     params_from_dict,
 )
+from predictionio_tpu_torch.core.context import ComputeContext
+from predictionio_tpu_torch.data import storage
+from predictionio_tpu_torch.data.storage.base import (
+    EngineInstance,
+    StorageError,
+)
+from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.ops.serving import QueryRejectedError
+from predictionio_tpu_torch.workflow import core_workflow
 
 logger = logging.getLogger("pio.torch.queryserver")
 
 
 @dataclasses.dataclass
 class ServerConfig:
-    """Where the server listens, and an optional query it serves once
-    at deploy (after each algorithm's ``warmup_base``)."""
+    """Where the server listens, the engine coordinates ``/reload``
+    resolves the latest completed instance of, and an optional query it
+    serves once at deploy (after each algorithm's ``warmup_base``).
+    ``foldin`` is not ported yet and raises."""
 
+    engine_id: str = "default"
+    engine_version: str = "default"
+    engine_variant: str = "engine.json"
     ip: str = "0.0.0.0"
     port: int = 8000
     warmup_query: Optional[Mapping[str, Any]] = None
+    foldin: bool = False
+
+
+class ReloadDowngradeError(RuntimeError):
+    """``POST /reload`` refused (HTTP 409): the latest completed instance
+    is older than the one deployed. Downgrading takes an explicit
+    redeploy."""
+
+
+def engine_instance_to_engine_params(
+        engine: Engine, instance: EngineInstance) -> EngineParams:
+    """EngineParams from the instance's JSON snapshot of every stage."""
+    def one(block: Mapping[str, Any], class_map, stage: str):
+        name = block.get("name", "")
+        if name not in class_map:
+            raise ValueError(
+                f"{stage}: controller named {name!r} from the engine "
+                f"instance is not registered; known: {sorted(class_map)}")
+        return name, params_from_dict(
+            getattr(class_map[name], "params_class", None),
+            block.get("params", {}), where=f"{stage}[{name!r}]")
+
+    return EngineParams(
+        data_source_params=one(json.loads(instance.data_source_params),
+                               engine.data_source_class_map, "datasource"),
+        preparator_params=one(json.loads(instance.preparator_params),
+                              engine.preparator_class_map, "preparator"),
+        algorithm_params_list=[
+            one(block, engine.algorithm_class_map, f"algorithms[{i}]")
+            for i, block in enumerate(json.loads(instance.algorithms_params))],
+        serving_params=one(json.loads(instance.serving_params),
+                           engine.serving_class_map, "serving"))
 
 
 @functools.lru_cache(maxsize=4096)
@@ -107,19 +155,80 @@ def query_from_json(query_dict: Mapping[str, Any],
 
 
 class Deployment:
-    """One deployed engine state: algorithms, their models, serving."""
+    """One deployed engine state: algorithms, their models, serving, and
+    the engine instance they came from (None for models handed over in
+    memory); swapped whole on reload."""
 
     def __init__(self, engine: Engine, engine_params: EngineParams,
-                 algorithms: List[Any], models: List[Any], serving: Any):
+                 algorithms: List[Any], models: List[Any], serving: Any,
+                 instance: Optional[EngineInstance] = None,
+                 ctx: Optional[ComputeContext] = None):
         self.engine = engine
         self.engine_params = engine_params
         self.algorithms = algorithms
         self.models = models
         self.serving = serving
+        self.instance = instance
+        self.ctx = ctx
 
 
-def build_deployment(engine: Engine, engine_params: EngineParams,
-                     models: List[Any]) -> Deployment:
+def resolve_engine_instance(engine_instance_id: Optional[str],
+                            engine_id: str = "default",
+                            engine_version: str = "default",
+                            engine_variant: str = "engine.json"
+                            ) -> EngineInstance:
+    """The given instance, or the latest ``COMPLETED`` one of the engine
+    coordinates."""
+    instances = storage.get_metadata_engine_instances()
+    if engine_instance_id:
+        instance = instances.get(engine_instance_id)
+        if instance is None:
+            raise StorageError(
+                f"engine instance {engine_instance_id!r} not found")
+        return instance
+    instance = instances.get_latest_completed(engine_id, engine_version,
+                                              engine_variant)
+    if instance is None:
+        raise StorageError(
+            "No valid engine instance found for engine "
+            f"{engine_id} {engine_version} {engine_variant}. "
+            "Try running train first.")
+    return instance
+
+
+def build_deployment(instance: EngineInstance,
+                     ctx: Optional[ComputeContext] = None,
+                     engine: Optional[Engine] = None) -> Deployment:
+    """Load one engine instance into servable state: its engine (from
+    ``instance.engine_factory`` unless given), its params from the
+    snapshot, its stored models (``deserialize_models``, which refuses
+    the JAX package's classes, then ``prepare_deploy``). The models
+    serve on the device ``ctx`` names (None = cuda), whatever device
+    they trained on."""
+    ctx = ctx or ComputeContext()
+    dev = resolve_device(ctx.device)
+    if engine is None:
+        engine = core_workflow.load_engine_factory(instance.engine_factory)()
+    engine_params = engine_instance_to_engine_params(engine, instance)
+    blob = storage.get_model_data_models().get(instance.id)
+    if blob is None:
+        raise StorageError(
+            f"no persisted models for engine instance {instance.id}")
+    models = engine.prepare_deploy(
+        ctx, engine_params, instance.id,
+        core_workflow.deserialize_models(blob.models))
+    for model in models:
+        if hasattr(model, "device"):
+            model.device = str(dev)
+    return deployment_from_models(engine, engine_params, models,
+                                  instance=instance, ctx=ctx)
+
+
+def deployment_from_models(engine: Engine, engine_params: EngineParams,
+                           models: List[Any],
+                           instance: Optional[EngineInstance] = None,
+                           ctx: Optional[ComputeContext] = None
+                           ) -> Deployment:
     """Servable state from models already in memory: instantiate the
     algorithms and the serving, and check that every algorithm of the
     ensemble shares the first one's query type (queries are extracted
@@ -140,7 +249,8 @@ def build_deployment(engine: Engine, engine_params: EngineParams,
             f"class but a later ensemble member expects "
             f"{next(iter(declared)).__name__}")
     return Deployment(engine, engine_params, algorithms, list(models),
-                      engine._serving(engine_params))
+                      engine._serving(engine_params), instance=instance,
+                      ctx=ctx)
 
 
 def warm_up(dep: Deployment,
@@ -192,8 +302,13 @@ class QueryServer:
     HTTP server."""
 
     def __init__(self, config: ServerConfig, deployment: Deployment):
+        if config.foldin:
+            raise NotImplementedError(
+                "fold-in on deploy is not ported yet (ROADMAP queue A "
+                "item 3)")
         self.config = config
         self._deployment = deployment
+        self._swap_lock = threading.Lock()
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
 
@@ -219,6 +334,37 @@ class QueryServer:
             logger.exception("query failed")
             return 500, {"message": str(e)}
         return 200, to_jsonable(prediction)
+
+    def reload(self) -> Dict[str, Any]:
+        """Swap to the latest completed instance of the configured engine
+        coordinates, loaded and warmed while the current deployment
+        keeps answering; an instance older than the deployed one is
+        refused (:class:`ReloadDowngradeError`). Returns both ids."""
+        with self._swap_lock:
+            current = self._deployment
+            latest = storage.get_metadata_engine_instances(
+            ).get_latest_completed(self.config.engine_id,
+                                   self.config.engine_version,
+                                   self.config.engine_variant)
+            if latest is None:
+                raise StorageError(
+                    "No valid engine instance found for reload")
+            deployed = current.instance
+            if deployed is not None and latest.id != deployed.id \
+                    and latest.start_time < deployed.start_time:
+                raise ReloadDowngradeError(
+                    f"refusing to reload: latest completed instance "
+                    f"{latest.id} (started {latest.start_time.isoformat()})"
+                    f" is older than the deployed {deployed.id} (started "
+                    f"{deployed.start_time.isoformat()}); undeploy and "
+                    "redeploy explicitly to downgrade")
+            candidate = build_deployment(latest, current.ctx,
+                                         engine=current.engine)
+            warm_up(candidate, self.config.warmup_query)
+            self._deployment = candidate
+            return {"engineInstanceId": latest.id,
+                    "swappedFrom": None if deployed is None else deployed.id,
+                    "swappedTo": latest.id}
 
     def health_checks(self) -> Dict[str, bool]:
         """Readiness for ``GET /healthz``: a deployment is loaded and its
@@ -308,6 +454,16 @@ class _QueryHandler(BaseHTTPRequestHandler):
                 headers = {"Retry-After":
                            str(max(1, int(payload["retryAfterSec"])))}
             self._respond(status, payload, headers)
+        elif path == "/reload":
+            try:
+                info = self.query_server.reload()
+            except ReloadDowngradeError as e:
+                self._respond(409, {"message": str(e)})
+                return
+            except StorageError as e:
+                self._respond(404, {"message": str(e)})
+                return
+            self._respond(200, {"message": "Reloading...", **info})
         elif path == "/stop":
             self.close_connection = True
             self._respond(200, {"message": "Shutting down."},

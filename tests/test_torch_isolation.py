@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``predictionio_tpu_torch`` (nor
 ``chip_smoke.py``) imports ``jax`` or anything of ``predictionio_tpu``,
-and the training and query paths import, train and serve in a process
-where both are unimportable. ``chip_smoke.py`` refuses to run without a
-GPU."""
+and the training and query paths, from a data source in memory and from
+the event store through a stored engine instance, import, train and
+serve in a process where both are unimportable. ``chip_smoke.py``
+refuses to run without a GPU."""
 
 import ast
 import os
@@ -54,7 +55,7 @@ for name in names:
 from predictionio_tpu_torch.templates.recommendation.engine import engine_factory
 from predictionio_tpu_torch.weights import als_model_from_numpy
 from predictionio_tpu_torch.workflow.create_server import (
-    build_deployment, serve_query, to_jsonable)
+    deployment_from_models, serve_query, to_jsonable)
 rng = np.random.default_rng(0)
 X = rng.integers(-3, 4, (5, 4)).astype(np.float32)
 Y = rng.integers(-3, 4, (40, 4)).astype(np.float32)
@@ -62,7 +63,7 @@ model = als_model_from_numpy(X, Y, [f"u{i}" for i in range(5)],
                              [f"i{i}" for i in range(40)], {0: [1, 2]},
                              device="cpu")
 engine = engine_factory()
-dep = build_deployment(engine, engine.engine_params_from_variant({}), [model])
+dep = deployment_from_models(engine, engine.engine_params_from_variant({}), [model])
 out = to_jsonable(serve_query(dep, {"user": "u0", "num": 3}))
 assert len(out["itemScores"]) == 3, out
 from predictionio_tpu_torch.controller import Engine, PDataSource
@@ -82,12 +83,41 @@ for bucketed in (False, True):
         "preparator": {"params": {"bucketed": bucketed}},
         "algorithms": [{"name": "als", "params": {"rank": 3, "numIterations": 1}}]})
     trained, = trainer.train(ComputeContext(device="cpu"), tp)
-    dep = build_deployment(trainer, tp, [trained])
+    dep = deployment_from_models(trainer, tp, [trained])
     out = to_jsonable(serve_query(dep, {"user": "u1", "num": 2}))
     assert 1 <= len(out["itemScores"]) <= 2, out
+from predictionio_tpu_torch.data import storage
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.data.storage.base import App
+from predictionio_tpu_torch.workflow.create_server import (
+    build_deployment, resolve_engine_instance)
+from predictionio_tpu_torch.workflow.create_workflow import (
+    WorkflowConfig, create_workflow)
+
+storage.reset(storage.StorageConfig(
+    {"M": {"type": "memory"}}, {r: "M" for r in storage.REPOSITORIES}))
+aid = storage.get_metadata_apps().insert(App(0, "app"))
+storage.get_levents().insert_batch([
+    Event(event="rate", entity_type="user", entity_id=f"u{u}",
+          target_entity_type="item", target_entity_id=f"i{i}",
+          properties={"rating": 1.0})
+    for u, i in zip(rng.integers(0, 9, 80), rng.integers(0, 12, 80))], aid)
+iid = create_workflow(
+    WorkflowConfig(engine_factory="predictionio_tpu_torch.templates."
+                                  "recommendation.engine:engine_factory"),
+    {"datasource": {"params": {"appName": "app", "streamingBlockSize": 16}},
+     "preparator": {"params": {"bucketed": True}},
+     "algorithms": [{"name": "als", "params": {"rank": 3,
+                                               "numIterations": 1}}]},
+    ctx=ComputeContext(device="cpu"))
+dep = build_deployment(resolve_engine_instance(None),
+                       ComputeContext(device="cpu"))
+assert dep.instance.id == iid
+out = to_jsonable(serve_query(dep, {"user": "u1", "num": 2}))
+assert 1 <= len(out["itemScores"]) <= 2, out
 assert not any(m == "jax" or m.startswith(("jax.", "predictionio_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
-print("served", len(names), "modules; trained twice")
+print("served", len(names), "modules; trained three times")
 """
 
 

@@ -32,7 +32,7 @@ from predictionio_tpu_torch.weights import als_model_from_numpy
 from predictionio_tpu_torch.workflow.create_server import (
     QueryServer,
     ServerConfig,
-    build_deployment,
+    deployment_from_models,
 )
 
 N_USERS, N_ITEMS, RANK = 30, 200, 6
@@ -70,8 +70,8 @@ def port_server(jax_model, monkeypatch):
         m.user_factors, m.item_factors, m.user_map.labels, m.item_map.labels,
         m.seen, item_categories=m.item_categories, device="cpu")
     engine = teng.engine_factory()
-    dep = build_deployment(engine, engine.engine_params_from_variant(VARIANT),
-                           [model])
+    dep = deployment_from_models(
+        engine, engine.engine_params_from_variant(VARIANT), [model])
     server = QueryServer(ServerConfig(ip="127.0.0.1", port=0), dep).start()
     host, port = server.address
     yield f"http://{host}:{port}", model

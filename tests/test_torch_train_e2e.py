@@ -4,7 +4,8 @@ template.
 The port's ``Engine.train`` reads a data source registered here, runs
 ``RatingsPreparator`` (uniform and bucketed layouts) and
 ``ALSAlgorithm.train`` on ``device="cpu"``, and the trained model is
-deployed with ``build_deployment`` behind the port's ``QueryServer``.
+deployed with ``deployment_from_models`` behind the port's
+``QueryServer``.
 Each ``POST /queries.json`` answer is held against the JAX template's
 ``ALSAlgorithm().train`` + ``predict`` on the same ratings. The port's
 ``init_factors`` is replaced by the JAX package's, so both trainers start
@@ -33,7 +34,7 @@ from predictionio_tpu_torch.templates.recommendation import engine as teng
 from predictionio_tpu_torch.workflow.create_server import (
     QueryServer,
     ServerConfig,
-    build_deployment,
+    deployment_from_models,
 )
 
 N_USERS, N_ITEMS, N_RATINGS, RANK, TOL = 30, 50, 600, 6, 1e-3
@@ -111,7 +112,7 @@ def test_trained_model_serves_like_the_jax_template(monkeypatch, bucketed):
         rank=RANK, num_iterations=5, lambda_=0.05, seed=3))
     jmodel = jalgo.train(None, jpd)
 
-    dep = build_deployment(engine, params, [model])
+    dep = deployment_from_models(engine, params, [model])
     server = QueryServer(ServerConfig(ip="127.0.0.1", port=0), dep).start()
     try:
         host, port = server.address
@@ -132,15 +133,21 @@ def test_trained_model_serves_like_the_jax_template(monkeypatch, bucketed):
 
 
 def test_unregistered_data_source_raises():
-    """The template registers no data source until the storage slice;
-    training through it names the missing controller."""
-    engine = teng.engine_factory()
-    params = engine.engine_params_from_variant(
-        {"datasource": {"params": {"appName": "MyApp"}}})
+    """A data source the engine does not register is refused by name:
+    an engine built without one trains into an error naming the
+    datasource, and a variant naming an unknown one does not parse."""
     from predictionio_tpu_torch.controller import EngineConfigError
 
+    factory = teng.engine_factory()
+    bare = Engine({}, factory.preparator_class_map,
+                  factory.algorithm_class_map, factory.serving_class_map)
+    params = bare.engine_params_from_variant(
+        {"algorithms": [{"name": "als", "params": ALGO}]})
     with pytest.raises(EngineConfigError, match="datasource"):
-        engine.train(ComputeContext(device="cpu"), params)
+        bare.train(ComputeContext(device="cpu"), params)
+    with pytest.raises(EngineConfigError, match="datasource"):
+        factory.engine_params_from_variant(
+            {"datasource": {"name": "jdbc", "params": {"appName": "MyApp"}}})
 
 
 def test_stop_after_prepare_and_sanity():
