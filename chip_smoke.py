@@ -9,8 +9,8 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Print the card (``nvidia-smi``), build every kernel source with
    ``nvcc`` from this checkout (one ``nvcc`` per source, started
-   together) and the native ingest kernels with ``g++`` beside them,
-   and print the build times.
+   together) and the native ingest kernels and JSON lines codec with
+   ``g++`` beside them, and print the build times.
 2. Hold the serving kernel against its plain PyTorch version on the card
    at the serving path's shapes (M=26,744 items, R=64; B in {1, 8, 256};
    k in {16, 128, 129, 2,048, 2,049, 6,000, 26,741}: both sides of the
@@ -26,21 +26,41 @@ Phases (any failure raises and the script exits non-zero):
    shorter than k), top scores tied across chunk boundaries, and rows
    with all but 0, 5, 300 or 6,744 items seen. Prints the launches by
    route.
-5. Train the recommendation template at MovieLens-20M width: about 20M
-   synthetic ratings of 138,493 users x 26,744 items from ``--seed``
-   (lognormal row lengths of mean ~140 capped at 2,048, power-law item
-   popularity, 0.5-5.0 stars) through a local data source,
-   ``RatingsPreparator(bucketed=True)`` and ``Engine.train`` with
+5. Train the recommendation template at MovieLens-20M width from the
+   event store: about 20M synthetic ratings of 138,493 users x 26,744
+   items from ``--seed`` (lognormal row lengths of mean ~140 capped at
+   2,048, power-law item popularity, 0.5-5.0 stars) are written as
+   ``rate`` events in a seeded random order, with one ``$set`` of genres
+   per item, to a ``jsonlfs`` store in a temporary directory (1,000,000
+   events a partition, through ``append_raw_lines``; the script checks
+   the free space first and removes the store after phase 5b).
+   ``create_workflow`` reads them through ``EventDataSource`` with
+   ``pipelinedIngest`` (1,000,000-event blocks, 4 partitions decoded
+   ahead by the native JSON lines codec, each block sorted as it
+   arrives, the runs merged natively) and the categories, prepares them
+   with ``RatingsPreparator(bucketed=True)`` and trains
    ``ALSParams(rank=64, num_iterations=3)``, implicit. Both training
-   kernels' launch counts must rise, and the prepare step must fill its
-   tables through the native ``bucket_fill`` and ``segment_starts``; its
-   split is printed (the dedup's sort and sum, each side's fill, the
-   column re-sort, the seen lists, the categories). One more iteration
-   runs under the profiler (time and device busy share), and the plain
-   trainer runs the same 3 iterations from the same init on the card for
-   comparison. With ``--prepare-times`` the script runs only the
-   prepare step on these ratings: copied to the root of another
-   checkout, it times that checkout's prepare step the same way.
+   kernels' launch counts must rise, and the native ``parse_jsonl``,
+   ``merge_sorted_runs``, ``bucket_fill`` and ``segment_starts`` must
+   run; the write seconds, the read's stages (decode, index, merge) and
+   events/s, and the prepare step's split (the dedup's sort and sum,
+   each side's fill, the column re-sort, the seen lists, the
+   categories) are printed. One more iteration runs under the profiler
+   (time and device busy share), and the plain trainer runs the same 3
+   iterations from the same init on the card for comparison. With
+   ``--prepare-times`` the script runs only the prepare step, on these
+   ratings made in memory: copied to the root of another checkout, it
+   times that checkout's prepare step the same way.
+5b. The scale ingest over the same store: ``ingest_ratings_pipelined``
+   (decode, index and per-block sort overlapped; merge, dedup and both
+   sides' bucket fill, each side copied to the card from pinned memory
+   on a copy stream while the host fills the other; the trainer's
+   warm-up beside them), with each stage's busy seconds, the wall time,
+   the overlap ratio (busy / wall) and the pinning's seconds printed.
+   Every staged table, copied back, must be byte-equal to the table phase
+   5's preparator built, and ``train_als_bucketed`` on the staged sides
+   must give factors bitwise equal to phase 5's model (the same kernels
+   on the same inputs from the same init).
 2b. Hold the two training kernels against their plain versions: the
    assembly on every row of every bucket of both sides (trained and
    integer factors, implicit and explicit weights, the layout's own
@@ -161,9 +181,13 @@ def nvidia_smi() -> str:
 
 # -- phase 1 ----------------------------------------------------------------
 
+HOST_SOURCES = ("ingest_kernels", "jsonl_codec")
+
+
 def build_kernels() -> float:
     """Build every source at once: one nvcc per CUDA source, and g++ for
-    the native ingest kernels on a thread beside them."""
+    the native host kernels (the ingest kernels, the JSON lines codec) on
+    a thread beside them."""
     from predictionio_tpu_torch import native
     from predictionio_tpu_torch.ops import _build, als_cuda
 
@@ -174,7 +198,8 @@ def build_kernels() -> float:
 
     def build_host():
         try:
-            native.load("ingest_kernels")
+            for name in HOST_SOURCES:
+                native.load(name)
             host["seconds"] = time.perf_counter() - t0
         except BaseException as e:  # raised below, after nvcc ends
             host["error"] = e
@@ -190,9 +215,9 @@ def build_kernels() -> float:
           f"nvcc sm_90a, started together, {seconds:.1f} s -> "
           + ", ".join(_build.library_path(n).name
                       for n in als_cuda.KERNEL_NAMES))
-    print(f"[build] native/src/ingest_kernels.cpp: g++ -O3, beside them, "
-          f"{host['seconds']:.1f} s -> "
-          f"{native.library_path('ingest_kernels').name}")
+    print(f"[build] {', '.join(f'native/src/{n}.cpp' for n in HOST_SOURCES)}"
+          f": g++ -O3, beside them, {host['seconds']:.1f} s -> "
+          + ", ".join(native.library_path(n).name for n in HOST_SOURCES))
     return seconds
 
 
@@ -546,58 +571,98 @@ class PrepareSplit:
         return out
 
 
-def smoke_engine():
-    """The template's engine with a local data source in place of the
-    event store (20M events through sqlite would add minutes of host
-    time; the MovieLens-20M ingest path is later work) and a preparator
-    that records its time and output for the later phases."""
-    import dataclasses
+# the store's line of one rating, as ``bench.py``'s scale store writes it
+RATE_LINE = ('{{"event":"rate","entityType":"user","entityId":"u{}",'
+             '"targetEntityType":"item","targetEntityId":"i{}",'
+             '"properties":{{"rating":{}}},'
+             '"eventTime":"2020-01-01T00:00:00+00:00"}}')
+SET_LINE = ('{{"event":"$set","entityType":"item","entityId":"i{}",'
+            '"properties":{{"categories":{}}},'
+            '"eventTime":"2020-01-01T00:00:00+00:00"}}')
+ML20M_APP = "MovieLens20M"
+ML20M_PART = 1_000_000      # events per partition file, and per read block
+ML20M_PREFETCH = 4          # partitions decoded ahead
+LINE_BYTES = 200            # room for one rate line (they take ~177)
 
-    from predictionio_tpu_torch.controller import Engine, Params, PDataSource
-    from predictionio_tpu_torch.data.bimap import StringIndexBiMap
-    from predictionio_tpu_torch.templates.recommendation.engine import (
-        IndexedTrainingData,
-        RatingsPreparator,
-        engine_factory,
-    )
 
-    @dataclasses.dataclass(frozen=True)
-    class SourceParams(Params):
-        seed: int = 0
+def ml20m_store(seed: int) -> dict:
+    """Phase 5's event store: the ML-20M-width ratings as ``rate`` events
+    in a seeded random order (a live stream interleaves its users) and
+    one ``$set`` of genres per item, appended with ``append_raw_lines``
+    to a ``jsonlfs`` store in a temporary directory (1,000,000 events a
+    partition; metadata and models in memory). Fails before writing when
+    the directory's disk lacks room; the caller removes it."""
+    import os
+    import tempfile
 
-    class SyntheticSource(PDataSource):
-        """Already-indexed ratings (no 20M-string np.unique)."""
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.data.storage.base import App
 
-        params_class = SourceParams
+    rows, cols, values, cats = ml20m_ratings(seed)
+    work = tempfile.mkdtemp(prefix="pio-ml20m-")
+    need = LINE_BYTES * (len(rows) + len(cats))
+    free = shutil.disk_usage(work).free
+    if free < 2 * need:
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError(f"phase 5's event store needs about {need / 1e9:.1f}"
+                           f" GB (and as much again for the page cache's "
+                           f"sake) in {work}, which has {free / 1e9:.1f} GB "
+                           f"free; point TMPDIR elsewhere")
+    storage.reset(storage.StorageConfig(
+        sources={"EV": {"type": "jsonlfs", "path": os.path.join(work, "ev"),
+                        "part_max_events": ML20M_PART},
+                 "META": {"type": "memory"}},
+        repositories={"EVENTDATA": "EV", "METADATA": "META",
+                      "MODELDATA": "META"}))
+    t0 = time.perf_counter()
+    app_id = storage.get_metadata_apps().insert(App(0, ML20M_APP))
+    levents = storage.get_levents()
+    levents.init(app_id)
+    order = np.random.default_rng(seed + 11).permutation(len(rows))
+    stars = [repr(k / 2) for k in range(11)]
+    for a in range(0, len(order), ML20M_PART):
+        pick = order[a:a + ML20M_PART]
+        levents.append_raw_lines([
+            RATE_LINE.format(u, i, stars[s]) for u, i, s in zip(
+                rows[pick].tolist(), cols[pick].tolist(),
+                np.rint(values[pick] * 2).astype(np.int64).tolist())],
+            app_id)
+    levents.append_raw_lines([SET_LINE.format(iid[1:], json.dumps(list(c)))
+                              for iid, c in cats.items()], app_id)
+    write_s = time.perf_counter() - t0
+    root = levents._dir(app_id, None)
+    nbytes = sum(os.path.getsize(os.path.join(root, f))
+                 for f in os.listdir(root))
+    print(f"[store] {len(rows)} rate events in a seeded random order and "
+          f"{len(cats)} $set events written to a jsonlfs store in "
+          f"{write_s:.2f} s: {len(os.listdir(root)) - 1} partitions, "
+          f"{nbytes} bytes ({nbytes / (len(rows) + len(cats)):.1f} a line), "
+          f"{free / 1e9:.1f} GB were free")
+    return {"work": work, "app_id": app_id, "ratings": len(rows),
+            "write_s": write_s, "bytes": nbytes}
 
-        def read_training(self, ctx):
-            t0 = time.perf_counter()
-            rows, cols, values, cats = ml20m_ratings(self.params.seed)
-            td = IndexedTrainingData(
-                StringIndexBiMap.from_distinct(
-                    [f"u{u}" for u in range(N_USERS)]),
-                StringIndexBiMap.from_distinct(
-                    [f"i{i}" for i in range(M_ITEMS)]),
-                rows, cols, values)
-            td.item_categories = cats
-            print(f"[train] read: {len(td)} ratings made in "
-                  f"{time.perf_counter() - t0:.1f} s")
-            return td
 
-    class RecordingPreparator(RatingsPreparator):
-        last: dict = {}
+def remove_store(store: dict) -> None:
+    from predictionio_tpu_torch.data import storage
 
-        def prepare(self, ctx, td):
-            t0 = time.perf_counter()
-            pd = super().prepare(ctx, td)
-            RecordingPreparator.last = {
-                "seconds": time.perf_counter() - t0, "pd": pd}
-            return pd
+    storage.reset()
+    shutil.rmtree(store["work"], ignore_errors=True)
 
-    base = engine_factory()
-    return (Engine(SyntheticSource, RecordingPreparator,
-                   base.algorithm_class_map, base.serving_class_map),
-            SourceParams, RecordingPreparator)
+
+def ml20m_variant(seed: int) -> dict:
+    return {"id": "ml20m", "engineFactory": PORT_FACTORY,
+            "datasource": {"params": {
+                "appName": ML20M_APP, "streamingBlockSize": ML20M_PART,
+                "pipelinedIngest": True, "decodePrefetch": ML20M_PREFETCH,
+                "readItemCategories": True}},
+            "preparator": {"params": {"bucketed": True}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": RANK, "numIterations": ITERATIONS,
+                "lambda": LAMBDA, "alpha": ALPHA, "seed": seed}}]}
+
+
+def stage_busy(summary: dict) -> dict:
+    return {k: v["busy_sec"] for k, v in summary["stages"].items()}
 
 
 def bucket_tables(side, dev):
@@ -605,58 +670,72 @@ def bucket_tables(side, dev):
             for b in side.to_device(dev).buckets]
 
 
-def train_full_width(dev, seed: int) -> dict:
+def train_full_width(dev, seed: int, store: dict) -> dict:
+    """Phase 5: ``create_workflow`` over the ML-20M-width store, read with
+    ``pipelinedIngest``; then one profiled iteration and the plain
+    trainer from the same init."""
     import torch
 
-    from predictionio_tpu_torch.controller import EngineParams
     from predictionio_tpu_torch.core.context import ComputeContext
+    from predictionio_tpu_torch.data import storage
     from predictionio_tpu_torch.native import codec
     from predictionio_tpu_torch.ops import als as als_mod
     from predictionio_tpu_torch.ops import als_cuda
-    from predictionio_tpu_torch.templates.recommendation.engine import (
-        PreparatorParams,
+    from predictionio_tpu_torch.workflow.create_workflow import (
+        WorkflowConfig,
+        create_workflow,
     )
 
-    engine, SourceParams, preparator = smoke_engine()
-    params = als_mod.ALSParams(rank=RANK, num_iterations=ITERATIONS,
-                               lambda_=LAMBDA, alpha=ALPHA, seed=seed)
-    engine_params = EngineParams(
-        data_source_params=("", SourceParams(seed)),
-        preparator_params=("", PreparatorParams(bucketed=True)),
-        algorithm_params_list=[("als", params)])
-    t0 = time.perf_counter()
+    engine, record = lifecycle_engine()
     als_cuda.assemble_launches.reset()
     als_cuda.spd_launches.reset()
-    for counter in (codec.fill_calls, codec.segment_calls,
+    for counter in (codec.parse_calls, codec.fill_calls, codec.segment_calls,
                     codec.merge_calls):
         counter.reset()
+    t0 = time.perf_counter()
     with PrepareSplit() as split:
-        model, = engine.train(ComputeContext(), engine_params)
+        iid = create_workflow(
+            WorkflowConfig(engine_id="ml20m", engine_factory=PORT_FACTORY,
+                           engine_variant="ml20m.json"),
+            ml20m_variant(seed), engine=engine, ctx=ComputeContext())
     torch.cuda.synchronize()
+    total = time.perf_counter() - t0
     launches = {"assemble_normal_equations": als_cuda.assemble_launches.value,
                 "spd_solve": als_cuda.spd_launches.value}
-    native_calls = {"bucket_fill": codec.fill_calls.value,
-                    "segment_starts": codec.segment_calls.value,
-                    "merge_sorted_runs": codec.merge_calls.value}
-    total = time.perf_counter() - t0
-    pd, prep_s = preparator.last["pd"], preparator.last["seconds"]
-    for name, n in launches.items():
+    native_calls = {"parse_jsonl": codec.parse_calls.value,
+                    "merge_sorted_runs": codec.merge_calls.value,
+                    "bucket_fill": codec.fill_calls.value,
+                    "segment_starts": codec.segment_calls.value}
+    instance = storage.get_metadata_engine_instances().get(iid)
+    if instance is None or instance.status != "COMPLETED":
+        raise AssertionError(f"engine instance {iid}: {instance}")
+    model, td = record["model"], record["read_out"]
+    pd, prep_s = record["prepare_out"], record["prepare"]
+    for name, n in {**launches, **native_calls}.items():
         if n == 0:
-            raise AssertionError(f"{name} was never launched on the "
-                                 "training path")
-    for name in ("bucket_fill", "segment_starts"):
-        if native_calls[name] == 0:
-            raise AssertionError(f"the native {name} was never called in "
-                                 "the prepare step")
+            raise AssertionError(f"{name} was never called on the training "
+                                 "path")
+    if len(td) != store["ratings"] or td.runs is not None:
+        raise AssertionError(f"the pipelined read gave {len(td)} ratings "
+                             f"(runs {td.runs}), not {store['ratings']} "
+                             f"merged")
+    read = td.timeline.summary()
+    print(f"[train] read {len(td)} ratings in {record['read']!r} s "
+          f"({len(td) / record['read']!r} events/s): stage busy s "
+          f"{json.dumps(stage_busy(read))}, wall {read['wall_sec']!r} s, "
+          f"overlap {read['overlap_ratio']!r}; the categories "
+          f"{record['read'] - read['wall_sec']!r} s")
     prepare_split = split.split(prep_s)
     print(f"[train] prepare step split (s): {json.dumps(prepare_split)}; "
           f"native calls {native_calls}")
     if not (np.isfinite(model.user_factors).all()
             and np.isfinite(model.item_factors).all()):
         raise AssertionError("non-finite trained factors")
-    print(f"[train] Engine.train {total:.1f} s (prepare {prep_s:.1f} s on "
-          f"the host); model {model.user_factors.shape} x "
-          f"{model.item_factors.shape} on {model.device}")
+    print(f"[train] create_workflow {total:.1f} s (read "
+          f"{record['read']:.2f}, prepare {prep_s:.2f} on the host, train "
+          f"{record['train']:.2f}); instance {iid} COMPLETED; model "
+          f"{model.user_factors.shape} x {model.item_factors.shape} on "
+          f"{model.device}")
     for name, side in (("user", pd.user_side), ("item", pd.item_side)):
         print(f"[train] {name} side: {len(side.buckets)} buckets, L "
               f"{[b.max_len for b in side.buckets]}, {side.nnz} ratings in "
@@ -706,7 +785,99 @@ def train_full_width(dev, seed: int) -> dict:
     return {"model": model, "pd": pd, "launches": launches,
             "iteration_ms": wall, "busy_ms": busy, "prepare_s": prep_s,
             "prepare_split": prepare_split, "native_calls": native_calls,
-            "train_errs": errs}
+            "train_errs": errs, "read_s": record["read"],
+            "read_stages": stage_busy(read)}
+
+
+def scale_ingest(dev, seed: int, store: dict, trained: dict) -> dict:
+    """Phase 5b: ``ingest_ratings_pipelined`` over phase 5's store, staging
+    both sides to the card while the host works on (and warming the
+    trainer up beside it); the staged tables must be byte-equal to the
+    preparator's, and training on them bitwise equal to phase 5's
+    model."""
+    import torch
+
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.data.columnar import ingest_ratings_pipelined
+    from predictionio_tpu_torch.native import codec
+    from predictionio_tpu_torch.ops import als as als_mod
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.utils.tracing import StageTimeline
+
+    params = als_mod.ALSParams(rank=RANK, num_iterations=ITERATIONS,
+                               lambda_=LAMBDA, alpha=ALPHA, seed=seed)
+    for counter in (codec.parse_calls, als_cuda.assemble_launches,
+                    als_cuda.spd_launches):
+        counter.reset()
+    timeline = StageTimeline()
+    t0 = time.perf_counter()
+    res = ingest_ratings_pipelined(
+        storage.get_pevents().find_columnar_blocks(
+            store["app_id"], entity_type="user", event_names=["rate"],
+            target_entity_type="item", value_property="rating",
+            default_value=1.0, block_size=ML20M_PART,
+            prefetch=ML20M_PREFETCH),
+        stage_device=True, warmup_params=params, timeline=timeline)
+    staging = [(side.staging.pin_seconds, side.staging.nbytes)
+               if side.staging is not None else None
+               for side in (res.user_side, res.item_side)]
+    if dev.type == "cuda" and None in staging:
+        raise AssertionError(f"a side was not staged asynchronously: "
+                             f"{staging}")
+    res.wait(warmup=False)   # the warm-up's tail belongs to training
+    ingest_s = time.perf_counter() - t0
+    summary = timeline.summary()
+    # the ingest stages proper: waits are idle time, the warm-up training's
+    busy = sum(v for k, v in stage_busy(summary).items()
+               if k not in ("warmup_compile", "warmup_wait", "h2d.wait"))
+    print(f"[ingest] {res.n_events} events, {res.nnz} unique pairs in "
+          f"{ingest_s!r} s ({res.n_events / ingest_s!r} events/s); stage "
+          f"busy s {json.dumps(stage_busy(summary))}; ingest busy {busy!r} "
+          f"s over wall {ingest_s!r} s: overlap {busy / ingest_s!r}")
+    print(f"[ingest] pinning before the copies (s, bytes): user "
+          f"{staging[0]}, item {staging[1]}")
+    pd = trained["pd"]
+    for name, got, want in (("user map", res.user_map, pd.user_map),
+                            ("item map", res.item_map, pd.item_map)):
+        if got.to_dict() != want.to_dict():
+            raise AssertionError(f"the staged {name} differs from phase 5's")
+    for name, got, want in (("user", res.user_side, pd.user_side),
+                            ("item", res.item_side, pd.item_side)):
+        if len(got.buckets) != len(want.buckets):
+            raise AssertionError(f"{name} side: {len(got.buckets)} buckets "
+                                 f"staged, {len(want.buckets)} prepared")
+        for j, (g, w) in enumerate(zip(got.buckets, want.buckets)):
+            for field in ("row_ids", "cols", "weights", "mask"):
+                table = getattr(g, field)
+                if table.device.type != dev.type or (
+                        table.cpu().numpy().tobytes()
+                        != getattr(w, field).tobytes()):
+                    raise AssertionError(f"{name} side bucket {j}: the "
+                                         f"staged {field} differs from the "
+                                         f"preparator's")
+    res.join_warmup()
+    t1 = time.perf_counter()
+    X, Y = als_mod.train_als_bucketed(res.user_side, res.item_side, params,
+                                      dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    model = trained["model"]
+    if X.tobytes() != model.user_factors.tobytes() or \
+            Y.tobytes() != model.item_factors.tobytes():
+        raise AssertionError("factors trained on the staged tables differ "
+                             "from phase 5's")
+    calls = {"parse_jsonl": codec.parse_calls.value,
+             "assemble_normal_equations": als_cuda.assemble_launches.value,
+             "spd_solve": als_cuda.spd_launches.value}
+    for name, n in calls.items():
+        if n == 0:
+            raise AssertionError(f"{name} was never called in phase 5b")
+    print(f"[ingest] staged tables byte-equal to the preparator's; "
+          f"train_als_bucketed on them {train_s:.2f} s, factors bitwise "
+          f"equal to phase 5's; calls {calls}")
+    return {"ingest_s": ingest_s, "events": res.n_events,
+            "stages": stage_busy(summary), "overlap": busy / ingest_s,
+            "staging": staging}
 
 
 def prepare_times(seed: int) -> dict:
@@ -1609,8 +1780,9 @@ def write_events(seed: int, app_id: int) -> dict:
 
 
 def lifecycle_engine():
-    """The template's engine with each stage timed, and the trained
-    model kept for the comparison with the deployed one."""
+    """The template's engine with each stage timed, and each stage's
+    output kept: the training data, the prepared layouts, and the
+    trained model for the comparison with the deployed one."""
     from predictionio_tpu_torch.controller import Engine
     from predictionio_tpu_torch.templates.recommendation import engine as eng
 
@@ -1621,8 +1793,7 @@ def lifecycle_engine():
             t0 = time.perf_counter()
             out = getattr(cls, method)(self, *args)
             record[label] = time.perf_counter() - t0
-            if label == "train":
-                record["model"] = out
+            record["model" if label == "train" else label + "_out"] = out
             return out
         return type(cls.__name__, (cls,), {method: run})
 
@@ -2156,7 +2327,14 @@ def main() -> int:
         return 0
     max_err, checked_routes = phase("2 serving kernel checks", kernel_checks,
                                     dev, args.seed)
-    trained = phase("5 training", train_full_width, dev, args.seed)
+    store = phase("5 event store", ml20m_store, args.seed)
+    try:
+        trained = phase("5 training", train_full_width, dev, args.seed,
+                        store)
+        ingest = phase("5b scale ingest", scale_ingest, dev, args.seed,
+                       store, trained)
+    finally:
+        remove_store(store)
     train_err = phase("2b training kernel checks", training_kernel_checks,
                       dev, trained, args.seed)
     served = phase("3 serving", serve_full_width, trained["model"],
@@ -2211,8 +2389,10 @@ def main() -> int:
             "routes": routes, "timings": train_times["rows"][name]})
     print(f"[done] {time.perf_counter() - t0:.1f} s; HTTP p50 "
           f"{served['p50_ms']!r} ms p99 {served['p99_ms']!r} ms; training "
-          f"iteration {trained['iteration_ms']!r} ms; prepare "
-          f"{trained['prepare_s']!r} s; lifecycle deploy "
+          f"iteration {trained['iteration_ms']!r} ms; store write "
+          f"{store['write_s']!r} s, read {trained['read_s']!r} s, prepare "
+          f"{trained['prepare_s']!r} s; scale ingest {ingest['ingest_s']!r} "
+          f"s (overlap {ingest['overlap']!r}); lifecycle deploy "
           f"{cycle['deploy_s']!r} s, reload {cycle['reload_s']!r} s; "
           f"Precision@10 {scored['precision_at_10']!r} "
           f"({scored['ratio_vs_plain']!r} of plain, lift "

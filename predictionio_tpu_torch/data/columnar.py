@@ -17,9 +17,10 @@ oracle the backend fast paths are tested against.
 The port's copy of ``predictionio_tpu/data/columnar.py``: the columnar
 batch, the streaming builder (which also reports where each block's
 triples begin, so the preparator's dedup sort can merge sorted runs
-natively) and the threaded block reader. The pipelined builder and
-``ingest_ratings_pipelined`` come with the MovieLens-20M ingest path
-(ROADMAP queue A item 2); ``pipelinedIngest`` raises until then.
+natively), the pipelined builder and ``ingest_ratings_pipelined`` (each
+block sorted as it arrives, the runs merged natively, both solve sides
+bucketed and staged to the card while the host works on), and the
+threaded block reader.
 """
 
 from __future__ import annotations
@@ -309,6 +310,226 @@ class StreamingRatingsBuilder:
         vals = (np.concatenate(self._vals) if self._vals
                 else np.empty(0, dtype=np.float32))
         return user_map, item_map, rows, cols, vals
+
+
+class PipelinedRatingsBuilder(StreamingRatingsBuilder):
+    """StreamingRatingsBuilder whose consumer stage also PRE-SORTS each
+    block's triples by their packed (row, col) key as blocks arrive —
+    the per-block share of the dedup sort, done inside the
+    decode/index overlap window. :meth:`finalize_bucketed` then
+    replaces the monolithic O(N log N) argsort over the full COO
+    arrays with a stable O(N log k) k-way merge of the already-sorted
+    runs (native kernel, GIL released) and feeds both solve sides'
+    bucket scatter + async staging to the card from it.
+
+    Byte-identity with the serial path is by construction: the merge
+    permutation equals ``np.argsort(key, kind="stable")`` over the
+    stream-ordered triples (per-block stable sorts + stable merge keep
+    every duplicate pair's stream order), and the dedup summation and
+    bucket scatter are the very same code the serial
+    ``bucket_ratings_pair`` runs.
+
+    Note :meth:`finalize` (the uniform-path contract) returns triples
+    in merged (row, col) order rather than stream order — the same
+    multiset, and identical training inputs for every consumer that
+    dedups (pad_ratings / bucket_ratings_pair both do). A consumer
+    that is sensitive to raw triple ORDER (e.g. a leave-last-out eval
+    split) must use :class:`StreamingRatingsBuilder` instead."""
+
+    def add_block(self, block: ColumnarEvents) -> None:
+        runs_before = len(self._rows)
+        super().add_block(block)
+        if len(self._rows) == runs_before:
+            return  # block empty or fully filtered
+        r, c = self._rows[-1], self._cols[-1]
+        # rows fit 31 bits at any realistic entity count; cols 32
+        key = (r << np.int64(32)) | c
+        order = np.argsort(key, kind="stable")
+        self._rows[-1] = r[order]
+        self._cols[-1] = c[order]
+        self._vals[-1] = self._vals[-1][order]
+
+    def merge_sorted(self):
+        """-> (rows, cols, vals, keys) globally stable-sorted by
+        (row, col): the k-way merge of the per-block sorted runs
+        (``keys`` is the sorted packed key array — callers feed it to
+        the dedup without re-packing). Equal keys keep stream order, so
+        :func:`ops.als.dedup_sum_sorted` sums duplicates in exactly the
+        serial path's order."""
+        from predictionio_tpu_torch.native import codec as _native
+
+        if not self._rows:
+            z = np.empty(0, dtype=np.int64)
+            return z, z.copy(), np.empty(0, dtype=np.float32), z.copy()
+        rows = np.concatenate(self._rows)
+        cols = np.concatenate(self._cols)
+        vals = np.concatenate(self._vals)
+        keys = (rows << np.int64(32)) | cols
+        if len(self._rows) > 1:
+            offsets = np.zeros(len(self._rows) + 1, dtype=np.int64)
+            np.cumsum([len(a) for a in self._rows], out=offsets[1:])
+            perm = _native.merge_sorted_runs(keys, offsets)
+            if perm is None:  # PIO_NATIVE_DISABLE=1: the same permutation
+                perm = np.argsort(keys, kind="stable")
+            rows, cols, vals, keys = \
+                rows[perm], cols[perm], vals[perm], keys[perm]
+        return rows, cols, vals, keys
+
+    def finalize(self):
+        """Uniform-path contract (user_map, item_map, rows, cols,
+        values) — triples arrive merged-sorted, not stream-ordered."""
+        from predictionio_tpu_torch.data.bimap import StringIndexBiMap
+
+        user_map = StringIndexBiMap.from_distinct(list(self._users))
+        item_map = StringIndexBiMap.from_distinct(list(self._items))
+        rows, cols, vals, _ = self.merge_sorted()
+        return user_map, item_map, rows, cols, vals
+
+    def finalize_bucketed(self, bucket_lengths=None, max_len=None,
+                          pad_multiple: int = 8, row_multiple: int = 8,
+                          stage_device: bool = False, device=None,
+                          warmup_params=None,
+                          timeline=None) -> "PipelinedIngestResult":
+        """Merge + dedup + bucketize both solve sides, overlapping each
+        side's async copy to ``device`` (None = cuda) with the other
+        side's host scatter (and, when ``warmup_params`` is given, with
+        :func:`~predictionio_tpu_torch.ops.als.warmup_train_als_bucketed`
+        on a background thread).
+
+        Identical bucket layouts to
+        ``ops.als.bucket_ratings_pair(rows, cols, vals, ...)`` over the
+        stream-ordered triples."""
+        import threading as _threading
+
+        from predictionio_tpu_torch.data.bimap import StringIndexBiMap
+        from predictionio_tpu_torch.ops import als as _als
+        from predictionio_tpu_torch.utils.tracing import StageTimeline
+
+        timeline = timeline if timeline is not None else StageTimeline()
+        parent = None   # the port has no trace context yet
+        user_map = StringIndexBiMap.from_distinct(list(self._users))
+        item_map = StringIndexBiMap.from_distinct(list(self._items))
+        n_u, n_i = len(user_map), len(item_map)
+        with timeline.scope("merge", parent):
+            rows, cols, vals, key = self.merge_sorted()
+            rows, cols, vals = _als.dedup_sum_sorted(key, rows, cols,
+                                                     vals)
+        with timeline.scope("bucket.user", parent):
+            user_side = _als._bucket_grouped(
+                rows, cols, vals, n_u, n_i, bucket_lengths, max_len,
+                pad_multiple, row_multiple)
+        nnz = int(len(rows))
+        user_host = user_side
+        if stage_device:
+            # user side's transfers stream WHILE the item side's
+            # re-sort + scatter runs on host (double buffering)
+            with timeline.scope("h2d.user.dispatch", parent):
+                user_side = user_side.to_device_async(device)
+        with timeline.scope("bucket.item", parent):
+            o = np.argsort(cols, kind="stable")
+            item_side = _als._bucket_grouped(
+                cols[o], rows[o], vals[o], n_i, n_u, bucket_lengths,
+                max_len, pad_multiple, row_multiple)
+        item_host = item_side
+        if stage_device:
+            with timeline.scope("h2d.item.dispatch", parent):
+                item_side = item_side.to_device_async(device)
+        warmup_thread = None
+        if warmup_params is not None:
+            # the kernel build and CUDA set-up hide inside the copy
+            # window; the host-side sides name the signature, so no copy
+            # is awaited
+            def _warm():
+                with timeline.scope("warmup_compile", parent):
+                    _als.warmup_train_als_bucketed(user_host, item_host,
+                                                   warmup_params, device)
+
+            warmup_thread = _threading.Thread(
+                target=_warm, daemon=True, name="pio-ingest-warmup")
+            warmup_thread.start()
+        return PipelinedIngestResult(
+            user_map=user_map, item_map=item_map, user_side=user_side,
+            item_side=item_side, n_events=self.n_events, nnz=nnz,
+            staged=bool(stage_device), timeline=timeline,
+            _warmup_thread=warmup_thread)
+
+
+@dataclasses.dataclass
+class PipelinedIngestResult:
+    """Everything the training step needs, plus the overlap evidence.
+
+    ``user_side``/``item_side`` are :class:`~predictionio_tpu_torch.ops.
+    als.BucketedRatings`; with ``staged`` their tables are device tensors
+    whose copies may still be in flight — call :meth:`wait` (idempotent)
+    before timing-sensitive work, or just train (the trainer waits on
+    each side's copy event first)."""
+
+    user_map: object
+    item_map: object
+    user_side: object
+    item_side: object
+    n_events: int
+    nnz: int
+    staged: bool
+    timeline: object
+    _warmup_thread: object = None
+
+    def wait(self, warmup: bool = True) -> "PipelinedIngestResult":
+        """``warmup=False`` closes only the copy window (ingest is
+        done); the warm-up tail then belongs to the first training
+        call — join it there via :meth:`join_warmup`."""
+        parent = None
+        if self.staged:
+            with self.timeline.scope("h2d.wait", parent):
+                self.user_side.block_until_staged()
+                self.item_side.block_until_staged()
+        if warmup:
+            self.join_warmup()
+        return self
+
+    def join_warmup(self) -> "PipelinedIngestResult":
+        """Wait for the background warm-up (no-op without one); train
+        right after and the kernels are built and set up."""
+        if self._warmup_thread is not None:
+            with self.timeline.scope("warmup_wait"):
+                self._warmup_thread.join()
+            self._warmup_thread = None
+        return self
+
+
+def ingest_ratings_pipelined(blocks, queue_size: int = 4,
+                             bucket_lengths=None, max_len=None,
+                             pad_multiple: int = 8, row_multiple: int = 8,
+                             stage_device: bool = False, device=None,
+                             warmup_params=None,
+                             timeline=None) -> PipelinedIngestResult:
+    """The overlapped ingest pipeline, end to end: drive ``blocks`` (a
+    ColumnarEvents iterator, e.g. ``find_columnar_blocks``) on a
+    producer thread through a bounded queue; index + block-sort each
+    block on the consumer as it arrives; then merge/dedup/bucketize
+    with each side's copy to ``device`` (and the optional training
+    warm-up) overlapping the remaining host work. Returns a
+    :class:`PipelinedIngestResult`; call ``.wait()`` to close the
+    overlap window.
+
+    Training inputs are byte-identical to the serial
+    ``StreamingRatingsBuilder`` + ``bucket_ratings_pair`` chain — see
+    :class:`PipelinedRatingsBuilder`."""
+    from predictionio_tpu_torch.utils.tracing import StageTimeline
+
+    timeline = timeline if timeline is not None else StageTimeline()
+    parent = None   # the port has no trace context yet
+    builder = PipelinedRatingsBuilder()
+    timed_blocks = timeline.wrap_iter(blocks, "decode", parent)
+    for block in iter_blocks_threaded(timed_blocks,
+                                      queue_size=queue_size):
+        with timeline.scope("index", parent):
+            builder.add_block(block)
+    return builder.finalize_bucketed(
+        bucket_lengths=bucket_lengths, max_len=max_len,
+        pad_multiple=pad_multiple, row_multiple=row_multiple,
+        stage_device=stage_device, device=device,
+        warmup_params=warmup_params, timeline=timeline)
 
 
 def iter_blocks_threaded(block_iter, queue_size: int = 4):

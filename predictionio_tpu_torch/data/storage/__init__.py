@@ -4,7 +4,8 @@ Parity target: reference ``Storage.scala`` —
 
 - sources from ``PIO_STORAGE_SOURCES_<NAME>_TYPE`` (+ per-type config keys,
   Storage.scala:124-137); our types: ``memory``, ``sqlite`` (config key
-  ``PATH``), and ``localfs`` for model blobs.
+  ``PATH``), ``localfs`` for model blobs, and ``jsonlfs`` for events
+  (``PATH``, ``PART_MAX_EVENTS``).
 - repositories from ``PIO_STORAGE_REPOSITORIES_{METADATA,EVENTDATA,
   MODELDATA}_{NAME,SOURCE}`` (Storage.scala:144-193).
 - accessors ``get_levents`` / ``get_pevents`` / ``get_metadata_*`` /
@@ -20,10 +21,10 @@ bring-up the reference never had.
 
 The port's copy of ``predictionio_tpu/data/storage/__init__.py``: its own
 registry, read from the same ``PIO_STORAGE_*`` variables, with the
-``memory``, ``sqlite`` and ``localfs`` backends. The JAX package's other
-types (``jsonlfs``, ``resthttp``, ``fleet``) raise ``NotImplementedError``
-naming their ROADMAP item. The DAOs are handed out as they are, without
-the metrics wrapper.
+``memory``, ``sqlite``, ``localfs`` and ``jsonlfs`` backends. The JAX
+package's other types (``resthttp``, ``fleet``) raise
+``NotImplementedError`` naming their ROADMAP item. The DAOs are handed
+out as they are, without the metrics wrapper.
 """
 
 from __future__ import annotations
@@ -63,12 +64,18 @@ BACKENDS: Dict[str, Dict[str, str]] = {
     "localfs": {
         "Models": "predictionio_tpu_torch.data.storage.localfs:LocalFSModels",
     },
+    # EVENTDATA-only partitioned JSONL store — the scale-ingest backend
+    # (JDBCPEvents.scala:31-100 / HBPEvents.scala:83-89 analog); config
+    # keys: PATH, PART_MAX_EVENTS
+    "jsonlfs": {
+        "LEvents": "predictionio_tpu_torch.data.storage.jsonlfs:JsonlFsLEvents",
+        "PEvents": "predictionio_tpu_torch.data.storage.jsonlfs:JsonlFsPEvents",
+    },
 }
 
 # backend types of the JAX package that the port does not have yet, and
 # the ROADMAP item that brings each
 UNPORTED = {
-    "jsonlfs": "queue A item 2, the MovieLens-20M ingest path",
     "resthttp": "queue A item 2, the networked backends",
     "fleet": "queue A item 2, the networked backends",
 }

@@ -15,9 +15,11 @@ Parity targets:
 
 The port's copy of ``predictionio_tpu/data/storage/base.py`` without
 the metrics counters and the circuit breaker (``StorageCircuitOpen``,
-``run_guarded``), which come with the port's telemetry, and without
-the tail reads (``find_since``, ``tail_cursor``, ``tail_watermark``),
-which come with fold-in (ROADMAP queue A item 3).
+``run_guarded``), which come with the port's telemetry. The tail reads
+(``find_since``, ``tail_cursor``, ``tail_watermark``) raise
+``StorageError`` here, as in the JAX package; ``jsonlfs`` implements
+them, and the memory and sqlite backends get them with fold-in (ROADMAP
+queue A item 3).
 """
 
 from __future__ import annotations
@@ -98,6 +100,53 @@ class LEvents(abc.ABC):
         descending event time (only sensible with entity filters, as in the
         reference).
         """
+
+    # -- tail reads (online fold-in) --------------------------------------
+    #
+    # The cursor is an opaque JSON-safe dict each backend mints for its
+    # own notion of arrival order (memory: insertion sequence; sqlite:
+    # rowid; jsonlfs: the per-partition byte watermark of its
+    # materialized-aggregation snapshot; resthttp: whatever the remote
+    # server's backend mints, passed through verbatim). Contract:
+    # every event APPENDED after the cursor was minted is delivered by a
+    # later find_since exactly once in arrival order; a store rewrite
+    # (remove / delete_until / partition rewrite) may invalidate a
+    # cursor, in which case the backend RESETS and replays from the
+    # start — consumers must be replay-tolerant (the fold-in consumer
+    # is: it re-gathers full per-user state, so a replay is wasted work,
+    # never wrong results).
+
+    def find_since(self, app_id: int, channel_id: Optional[int] = None,
+                   cursor: Optional[Dict] = None,
+                   limit: Optional[int] = None
+                   ) -> Tuple[List[Event], Dict]:
+        """Events appended after ``cursor`` (``None`` = from the start)
+        in arrival order, plus the advanced cursor. ``limit`` bounds one
+        call; the returned cursor resumes exactly after the last
+        delivered event."""
+        raise StorageError(
+            f"{type(self).__name__} does not support tail reads "
+            "(find_since)")
+
+    def tail_cursor(self, app_id: int,
+                    channel_id: Optional[int] = None) -> Dict:
+        """A cursor at the CURRENT end of the stream — what a consumer
+        that only wants future events starts from (O(1)-ish; never a
+        store scan)."""
+        raise StorageError(
+            f"{type(self).__name__} does not support tail reads "
+            "(tail_cursor)")
+
+    def tail_watermark(self, app_id: int,
+                       channel_id: Optional[int] = None
+                       ) -> Optional[Dict]:
+        """Observability view of the stream end: ``{"cursor": ...,
+        "lastEventId": ..., "lastEventTime": ...}`` (id/time ``None``
+        for an empty scope), or ``None`` when the backend keeps no
+        cheap notion of it. Surfaced per (app, channel) by the event
+        server's ``GET /stats.json`` — the freshness hook the online
+        fold-in story needs."""
+        return None
 
     def delete_until(self, app_id: int, until_time: _dt.datetime,
                      channel_id: Optional[int] = None) -> int:

@@ -19,7 +19,11 @@ counterpart is easy to find):
   ``als_iterations_bucketed`` are the training loops, as Python loops.
   ``Y^T Y`` is a plain large product and stays ``torch.matmul``.
 - **Trainers**: ``train_als`` and ``train_als_bucketed`` return host
-  fp32 numpy ``(X [N, R], Y [M, R])`` as the JAX ones do.
+  fp32 numpy ``(X [N, R], Y [M, R])`` as the JAX ones do;
+  ``warmup_train_als_bucketed`` readies the card for the second.
+- **Staging**: ``BucketedRatings.to_device_async`` copies the tables to
+  the card from pinned memory on a copy stream of their own, and
+  ``block_until_staged`` hands them to the current stream.
 
 Implicit objective (Hu-Koren-Volinsky, as in MLlib): confidence
 ``c = 1 + alpha * |r|``, preference ``p = 1`` iff ``r > 0``; per row
@@ -35,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -248,18 +253,91 @@ class BucketedRatings:
         slots = self.padded_slots
         return self.nnz / slots if slots else 0.0
 
+    # the copies in flight from :meth:`to_device_async` (None when the
+    # tables are numpy arrays or already usable on every stream)
+    staging: Optional["Staging"] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+
     def to_device(self, device: DeviceLike = None) -> "BucketedRatings":
-        """A new BucketedRatings whose tables are torch tensors on
-        ``device`` (None = cuda); the original stays as it is. Tables
-        already there are not copied."""
+        """A BucketedRatings whose tables are torch tensors on ``device``
+        (None = cuda), usable on the current stream when it returns; the
+        original stays as it is. Tables already there are not copied."""
+        return self.to_device_async(device).block_until_staged()
+
+    def to_device_async(self, device: DeviceLike = None
+                        ) -> "BucketedRatings":
+        """Start every table's copy to ``device`` (None = cuda) without
+        waiting for it, so the host can go on (bucketing the other solve
+        side) while these bytes move. On CUDA the tables are copied into
+        pinned host memory (a copy from pageable memory would not be
+        asynchronous; :attr:`Staging.pin_seconds` says what the pinning
+        took), then to the card with ``non_blocking=True`` on a copy
+        stream of their own, and a CUDA event is recorded after the last
+        copy. On the CPU the copy is synchronous. Call
+        :meth:`block_until_staged` before the tables are used on another
+        stream (``to_device`` and the trainers do). Returns ``self`` when
+        every table is already on ``device``."""
         dev = resolve_device(device)
+        tables = [(b.row_ids, b.cols, b.weights, b.mask)
+                  for b in self.buckets]
+        if all(isinstance(a, torch.Tensor) and a.device.type == dev.type
+               and dev.index in (None, a.device.index)
+               for t in tables for a in t):
+            return self
+        self.block_until_staged()       # the copies below read the tables
+        if dev.type != "cuda":
+            return dataclasses.replace(self, buckets=[
+                RatingsBucket(*(torch.as_tensor(a, device=dev) for a in t))
+                for t in tables])
+        t0 = time.perf_counter()
+        pinned = [[torch.as_tensor(a).pin_memory() for a in t]
+                  for t in tables]
+        pin_seconds = time.perf_counter() - t0
+        stream = torch.cuda.Stream(device=dev)
+        with torch.cuda.stream(stream):
+            moved = [[a.to(dev, non_blocking=True) for a in t]
+                     for t in pinned]
+            done = torch.cuda.Event()
+            done.record(stream)
+        out = dataclasses.replace(self, buckets=[
+            RatingsBucket(*t) for t in moved])
+        out.staging = Staging(
+            event=done, stream=stream, pin_seconds=pin_seconds,
+            nbytes=sum(a.nbytes for t in pinned for a in t),
+            tensors=[a for t in moved for a in t], host=pinned)
+        return out
 
-        def put(a):
-            return torch.as_tensor(a, device=dev)
+    def block_until_staged(self) -> "BucketedRatings":
+        """Wait for this instance's copies from :meth:`to_device_async`,
+        then make them safe on the current stream: it waits on the copy
+        event, and each table records that stream, so its memory is not
+        reused before the current stream's work on it ends. Returns
+        ``self``; a no-op when nothing is in flight."""
+        st = self.staging
+        if st is not None:
+            st.event.synchronize()
+            current = torch.cuda.current_stream(st.stream.device)
+            current.wait_event(st.event)
+            for t in st.tensors:
+                t.record_stream(current)
+            self.staging = None
+        return self
 
-        return dataclasses.replace(self, buckets=[
-            RatingsBucket(put(b.row_ids), put(b.cols), put(b.weights),
-                          put(b.mask)) for b in self.buckets])
+
+@dataclasses.dataclass
+class Staging:
+    """The copies :meth:`BucketedRatings.to_device_async` started: the
+    copy stream and the event recorded after its last copy, the seconds
+    the host spent pinning the tables and their bytes. ``tensors`` are
+    the tables on the card (allocated on the copy stream); ``host``
+    keeps their pinned sources alive until the copies end."""
+
+    event: object
+    stream: object
+    pin_seconds: float
+    nbytes: int
+    tensors: list
+    host: list
 
 
 def bucket_ratings(rows: np.ndarray, cols: np.ndarray, values: np.ndarray,
@@ -581,6 +659,34 @@ def train_als_bucketed(user_side: BucketedRatings, item_side: BucketedRatings,
         X, Y, tables(user_side), tables(item_side),
         slot_budget=int(budget) if budget else None, **_loop_kwargs(params))
     return _to_host(X), _to_host(Y)
+
+
+def warmup_train_als_bucketed(user_side: BucketedRatings,
+                              item_side: BucketedRatings, params,
+                              device: DeviceLike = None) -> bool:
+    """Make the next :func:`train_als_bucketed` call on ``device`` (None =
+    cuda) start computing at once: build and load both kernel libraries
+    (one ``nvcc`` per missing source, all started together) and create
+    the CUDA context with each library's per-device set-up. The
+    pipelined ingest runs this on a background thread while the tables'
+    copies stream. The port compiles nothing per shape, so the sides
+    only name the call's signature; returns True. On the CPU there is
+    nothing to prepare. A grid of configurations raises: the tuning grid
+    is not ported yet (ROADMAP queue A item 7)."""
+    if getattr(params, "configs", None) is not None:
+        raise NotImplementedError(
+            "warming up a config grid (the tuning grid) is not ported yet "
+            "(ROADMAP queue A item 7)")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        from predictionio_tpu_torch.ops import _build
+
+        _build.build_libraries(als_cuda.KERNEL_NAMES)
+        index = dev.index if dev.index is not None \
+            else torch.cuda.current_device()
+        als_cuda._kernel(index)
+        als_cuda._solve_kernels(index)
+    return True
 
 
 def train_als(user_side: PaddedRatings, item_side: PaddedRatings,

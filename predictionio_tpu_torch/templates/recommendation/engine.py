@@ -3,8 +3,9 @@
 The port's copy of ``predictionio_tpu/templates/recommendation/engine.py``:
 
 - ``EventDataSource`` (``rate`` / ``view`` events through
-  ``PEventStore``, in one columnar scan or streamed in blocks, with the
-  items' ``$set`` categories), training data (``Rating``,
+  ``PEventStore``, in one columnar scan or streamed in blocks, serially
+  or pipelined, with the items' ``$set`` categories), training data
+  (``Rating``,
   ``TrainingData``, ``IndexedTrainingData``), ``RatingsPreparator``
   (entity ids to indices, then the uniform or the length-bucketed
   layout) and ``ALSAlgorithm.train`` (through ``train_als_auto`` and the
@@ -14,10 +15,9 @@ The port's copy of ``predictionio_tpu/templates/recommendation/engine.py``:
   :func:`~predictionio_tpu_torch.ops.serving.choose_server`), the shared
   top-k serving logic, and ``ALSAlgorithm.predict`` / ``batch_predict``.
 
-Not in this slice (they raise ``NotImplementedError``): the pipelined
-streaming read (``pipelinedIngest``, ROADMAP queue A item 2) and the
-evaluation reads (``read_eval``, sliding windows; queue A item 7). A
-model may also be carried over from arrays with
+Not in this slice (it raises ``NotImplementedError``): the evaluation
+reads (``read_eval``, sliding windows; ROADMAP queue A item 7). A model
+may also be carried over from arrays with
 :func:`predictionio_tpu_torch.weights.als_model_from_numpy`.
 """
 
@@ -55,6 +55,10 @@ class DataSourceParams(Params):
     it parses here. ``streaming_block_size`` streams the read in
     columnar blocks through an incremental indexer (no whole-store
     object columns); None keeps the single-scan read.
+    ``pipelined_ingest`` (with ``streaming_block_size``) sorts each
+    block as it arrives and merges the sorted runs natively, so the
+    preparator's dedup gets sorted triples; ``decode_prefetch`` lets
+    the store decode that many partitions ahead (``jsonlfs``).
     ``read_item_categories`` also reads each item's ``$set``
     categories, for category queries."""
 
@@ -131,9 +135,12 @@ class IndexedTrainingData:
     """Already-indexed rating triples: int64 user/item codes plus their
     BiMaps. The preparator takes them as they are, so no whole-store
     string columns are ever built. ``runs``, when the triples arrived in
-    blocks, holds where each block begins (``[0, ..., n]``): the
-    preparator's dedup sort then sorts each block on its own and merges
-    them natively."""
+    blocks in stream order, holds where each block begins (``[0, ...,
+    n]``): the preparator's dedup sort then sorts each block on its own
+    and merges them natively; the pipelined read hands over triples
+    already sorted by (row, col) and no runs. ``timeline``, from a
+    streamed read, holds its stages' spans (decode, index, and merge or
+    finalize)."""
 
     def __init__(self, user_map: StringIndexBiMap,
                  item_map: StringIndexBiMap, rows: np.ndarray,
@@ -146,6 +153,7 @@ class IndexedTrainingData:
         self.values = values
         self.runs = runs
         self.item_categories: Optional[Dict[str, Tuple[str, ...]]] = None
+        self.timeline = None
 
     def __len__(self) -> int:
         return int(self.rows.shape[0])
@@ -160,38 +168,59 @@ class EventDataSource(PDataSource):
     """Reads rating events: ``rate`` -> its ``rating`` property, any
     other event name -> an implicit 1.0. One columnar scan, or with
     ``streaming_block_size`` bounded blocks through an incremental
-    indexer, read on a background thread."""
+    indexer, read on a background thread (pipelined with
+    ``pipelined_ingest``)."""
 
     params_class = DataSourceParams
 
     def read_training(self, ctx: Any) -> Any:
+        return self._read_training(pipelined=None)
+
+    def _read_training(self, pipelined: Optional[bool]) -> Any:
+        """``pipelined=None`` follows the params; ``False`` forces the
+        serial builder (an evaluation split consumes the raw triple
+        order, and the pipelined read returns merged (row, col)
+        order)."""
         p: DataSourceParams = self.params
-        if p.pipelined_ingest:
-            raise NotImplementedError(
-                "pipelined_ingest is not ported yet (ROADMAP queue A item "
-                "2, the MovieLens-20M ingest path); use streamingBlockSize "
-                "alone")
+        if p.pipelined_ingest and not p.streaming_block_size:
+            raise ValueError(
+                "pipelined_ingest requires streaming_block_size: the "
+                "pipelined builder consumes streamed columnar blocks "
+                "(set datasource {\"streamingBlockSize\": N} alongside "
+                "\"pipelinedIngest\": true)")
+        if pipelined is None:
+            pipelined = bool(p.pipelined_ingest)
         if p.streaming_block_size:
             from predictionio_tpu_torch.data.columnar import (
+                PipelinedRatingsBuilder,
                 StreamingRatingsBuilder,
                 iter_blocks_threaded,
             )
+            from predictionio_tpu_torch.utils.tracing import StageTimeline
 
-            builder = StreamingRatingsBuilder()
+            builder = (PipelinedRatingsBuilder() if pipelined
+                       else StreamingRatingsBuilder())
+            timeline = StageTimeline()
+            blocks = PEventStore.find_columnar_blocks(
+                app_name=p.app_name,
+                channel_name=p.channel_name,
+                entity_type="user",
+                event_names=list(p.event_names),
+                target_entity_type="item",
+                value_property="rating",
+                default_value=1.0,
+                block_size=int(p.streaming_block_size),
+                prefetch=int(p.decode_prefetch))
+            # decode thread + indexing consumer overlap (bounded queue)
             for block in iter_blocks_threaded(
-                    PEventStore.find_columnar_blocks(
-                        app_name=p.app_name,
-                        channel_name=p.channel_name,
-                        entity_type="user",
-                        event_names=list(p.event_names),
-                        target_entity_type="item",
-                        value_property="rating",
-                        default_value=1.0,
-                        block_size=int(p.streaming_block_size),
-                        prefetch=int(p.decode_prefetch))):
-                builder.add_block(block)
-            td = IndexedTrainingData(*builder.finalize(),
-                                     runs=builder.run_offsets)
+                    timeline.wrap_iter(blocks, "decode")):
+                with timeline.scope("index"):
+                    builder.add_block(block)
+            with timeline.scope("merge" if pipelined else "finalize"):
+                td = IndexedTrainingData(
+                    *builder.finalize(),
+                    runs=None if pipelined else builder.run_offsets)
+            td.timeline = timeline
         else:
             batch = PEventStore.find_columnar(
                 app_name=p.app_name,

@@ -7,7 +7,8 @@ with the same params, in one scan and streamed in blocks, with the
 items' categories, and must give equal training data; the preparator
 then lays both out byte for byte alike (the streamed blocks reach the
 dedup sort as runs, which the port merges natively). The pipelined read
-and the evaluation reads are not ported and raise.
+without ``streamingBlockSize`` raises as the JAX one does, and the
+evaluation reads are not ported and raise.
 """
 
 import datetime as dt
@@ -161,8 +162,8 @@ def test_unported_reads_raise(tmp_path):
     st = configure(PACKAGES[1], "memory", tmp_path)
     fill_store(PACKAGES[1], st, seed=1, n=20)
     piped = teng.EventDataSource(teng.DataSourceParams(
-        app_name="MyApp", streaming_block_size=10, pipelined_ingest=True))
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
+        app_name="MyApp", pipelined_ingest=True))
+    with pytest.raises(ValueError, match="requires streaming_block_size"):
         piped.read_training(None)
     plain = teng.EventDataSource(teng.DataSourceParams(app_name="MyApp"))
     with pytest.raises(NotImplementedError, match="queue A item 7"):

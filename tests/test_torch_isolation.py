@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``predictionio_tpu_torch`` (nor
 ``chip_smoke.py``) imports ``jax`` or anything of ``predictionio_tpu``,
-and the training and query paths, from a data source in memory and from
-the event store through a stored engine instance, import, train and
-serve in a process where both are unimportable. ``chip_smoke.py``
+and the training and query paths, from a data source in memory, from
+the event store through a stored engine instance, and from a ``jsonlfs``
+store through the pipelined read, import, train and serve in a process
+where both are unimportable. ``chip_smoke.py``
 refuses to run without a GPU."""
 
 import ast
@@ -115,9 +116,40 @@ dep = build_deployment(resolve_engine_instance(None),
 assert dep.instance.id == iid
 out = to_jsonable(serve_query(dep, {"user": "u1", "num": 2}))
 assert 1 <= len(out["itemScores"]) <= 2, out
+import tempfile
+with tempfile.TemporaryDirectory() as events_dir:
+    storage.reset(storage.StorageConfig(
+        {"J": {"type": "jsonlfs", "path": events_dir, "part_max_events": 25},
+         "M": {"type": "memory"}},
+        {"EVENTDATA": "J", "METADATA": "M", "MODELDATA": "M"}))
+    aid = storage.get_metadata_apps().insert(App(0, "app"))
+    storage.get_levents().init(aid)
+    storage.get_levents().append_raw_lines([
+        '{"event":"rate","entityType":"user","entityId":"u%d",'
+        '"targetEntityType":"item","targetEntityId":"i%d",'
+        '"properties":{"rating":%d},"eventTime":"2020-01-01T00:00:00Z"}'
+        % (u, i, 1 + u % 5)
+        for u, i in zip(rng.integers(0, 9, 80), rng.integers(0, 12, 80))],
+        aid)
+    iid = create_workflow(
+        WorkflowConfig(engine_factory="predictionio_tpu_torch.templates."
+                                      "recommendation.engine:engine_factory"),
+        {"datasource": {"params": {"appName": "app", "streamingBlockSize": 16,
+                                   "pipelinedIngest": True,
+                                   "decodePrefetch": 2}},
+         "preparator": {"params": {"bucketed": True}},
+         "algorithms": [{"name": "als", "params": {"rank": 3,
+                                                   "numIterations": 1}}]},
+        ctx=ComputeContext(device="cpu"))
+    dep = build_deployment(resolve_engine_instance(None),
+                           ComputeContext(device="cpu"))
+    assert dep.instance.id == iid
+    out = to_jsonable(serve_query(dep, {"user": "u1", "num": 2}))
+    assert 1 <= len(out["itemScores"]) <= 2, out
+    storage.reset()
 assert not any(m == "jax" or m.startswith(("jax.", "predictionio_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
-print("served", len(names), "modules; trained three times")
+print("served", len(names), "modules; trained four times")
 """
 
 

@@ -392,21 +392,31 @@ def test_env_config_parsing_matches_the_jax_registry():
     ({"PIO_STORAGE_SOURCES_X_TYPE": "memory",
       "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "Y"},
      "StorageError", "undefined source"),
-    ({"PIO_STORAGE_SOURCES_J_TYPE": "jsonlfs"}, "NotImplementedError",
-     "queue A item 2"),
+    ({"PIO_STORAGE_SOURCES_J_TYPE": "jsonlfs",
+      "PIO_STORAGE_SOURCES_SQL_TYPE": "sqlite",
+      "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "J",
+      "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "J",
+      "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "SQL"},
+     "StorageError", "does not support Apps"),
     ({"PIO_STORAGE_SOURCES_R_TYPE": "resthttp"}, "NotImplementedError",
      "queue A item 2"),
     ({"PIO_STORAGE_SOURCES_F_TYPE": "fleet"}, "NotImplementedError",
      "queue A item 2"),
 ])
 def test_registry_refuses(env, error, match):
-    from predictionio_tpu_torch.data.storage import StorageConfig
+    """The parser refuses each bad config; a ``jsonlfs`` source (events
+    only) bound to METADATA parses, and its metadata DAO refuses, as in
+    the JAX registry."""
+    from predictionio_tpu_torch.data.storage import (
+        StorageConfig,
+        StorageRegistry,
+    )
     from predictionio_tpu_torch.data.storage.base import StorageError
 
     errors = {"StorageError": StorageError,
               "NotImplementedError": NotImplementedError}
     with pytest.raises(errors[error], match=match):
-        StorageConfig.from_env(env)
+        StorageRegistry(StorageConfig.from_env(env)).get_metadata_apps()
 
 
 def test_localfs_models_and_registry_binding(tmp_path, monkeypatch,
