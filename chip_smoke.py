@@ -81,7 +81,24 @@ Phases (any failure raises and the script exits non-zero):
    same pipeline with the plain version in place of the serving kernel.
    Its launch count must rise, and every launch at k <= 128 (in batches
    below ``CHUNKED_MAX_B``) must take the chunked route; the launches are
-   printed by (route, k, B).
+   printed by (route, k, B). The sequential queries are sent again from
+   a client process, each with a ``traceparent`` of its own; its trace,
+   read back from ``/traces/<id>``, splits its latency into parts that
+   sum to the client's (the median of each part per query kind is
+   printed); every span's children must sum to no more than the span,
+   and the server span must be no longer than the client's latency. A
+   burst is captured
+   with ``tracing.profile_trace``: the device busy share, and the
+   ``device.execute`` spans' CUDA-event time, which must lie between
+   0.98 times the profiler's time of the serving kernel's kernels and
+   the burst's wall time. ``/metrics``, parsed with the port's
+   ``parse_prometheus``, must count the requests sent, the users lane's
+   dispatches and one ``pio_dispatch_device_seconds`` observation per
+   launch of the phase; ``/dispatches.json``'s lane summaries are
+   printed. Last, the sequential queries run from a client process in 10
+   rounds of 5 runs: metrics, tracing and device telemetry on, all
+   killed, and each alone on; each mode's percentiles, and the user
+   queries' split with all on against tracing alone.
 4. Time the serving kernel at every (store, B, k) against its bound, its
    plain version and one library call, and at k <= 128 (bf16, and every
    store at B = 8) split its device time by kernel name under the
@@ -751,7 +768,7 @@ def train_full_width(dev, seed: int, store: dict) -> dict:
     X0, Y0 = als_mod.init_factors(pd.user_side.n_rows, pd.item_side.n_rows,
                                   RANK, seed, dev)
     als_mod.als_iterations_bucketed(X0, Y0, u_t, i_t, num_iterations=1, **kw)
-    wall, busy, kernels = device_busy(lambda: als_mod.als_iterations_bucketed(
+    wall, busy, kernels, _ = device_busy(lambda: als_mod.als_iterations_bucketed(
         X0, Y0, u_t, i_t, num_iterations=1, **kw))
     print(f"[train] one iteration: wall {wall!r} ms, device busy {busy!r} ms "
           f"({100 * busy / wall:.2f}%); kernels "
@@ -1209,25 +1226,80 @@ def burst(base: str, queries: list, clients: int = 8) -> list:
     return out
 
 
+def get_json(url: str):
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def fetch_trace(base: str, trace_id: str) -> dict:
+    """``GET /traces/<id>``. The server retires a trace when its handler
+    returns, just after the response went out, so a 404 is retried for
+    up to a second."""
+    for _ in range(500):
+        try:
+            return get_json(f"{base}/traces/{trace_id}")
+        except urllib.error.HTTPError as e:
+            if e.code != 404:
+                raise
+        time.sleep(0.002)
+    raise AssertionError(f"trace {trace_id} was never retained")
+
+
+def scrape(base: str) -> dict:
+    """``GET /metrics`` parsed with the port's own ``parse_prometheus``."""
+    from predictionio_tpu_torch.utils.metrics import parse_prometheus
+
+    with urllib.request.urlopen(base + "/metrics", timeout=60) as resp:
+        return parse_prometheus(resp.read().decode())
+
+
+def scraped(families: dict, name: str, part: str = "value",
+            **labels) -> float:
+    """One series of a parsed scrape: a counter's value, or a histogram's
+    ``count``; 0 when the series is absent. Labels not given match any."""
+    total = 0.0
+    for series in families.get(name, {}).get("series", ()):
+        if all(series["labels"].get(k) == v for k, v in labels.items()):
+            total += series[part]
+    return total
+
+
+def b1_kernel_names() -> set:
+    """The ``__global__`` functions of the serving kernel's source."""
+    import re
+
+    from predictionio_tpu_torch.ops import _build
+
+    src = (_build.SRC_DIR / "fused_topk.cu").read_text()
+    return set(re.findall(r"__global__\s+void\s+(?:__\w+__\([^)]*\)\s*)*"
+                          r"(\w+)\s*\(", src))
+
+
+def kernel_name(event_name: str) -> str:
+    name = event_name.replace("(anonymous namespace)::", "")
+    return name.split("(")[0].replace("void ", "").split("<")[0]
+
+
 def device_busy(fn) -> tuple:
-    """(wall ms, device-busy ms, launches by kernel name) of ``fn()``
-    under ``torch.profiler``; busy time is the union of the CUDA kernel
-    intervals the profiler recorded."""
+    """(wall ms, device-busy ms, launches by kernel name, device ms by
+    kernel name) of ``fn()`` captured by the port's
+    ``tracing.profile_trace`` (``torch.profiler``, CPU and CUDA); busy
+    time is the union of the CUDA kernel intervals the profiler
+    recorded."""
     import collections
+    import tempfile
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-        torch.cuda.synchronize()
-    with profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        fn()
-        if torch.cuda.is_available():
+    from predictionio_tpu_torch.utils.tracing import profile_trace
+
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as capture_dir:
+        with profile_trace(capture_dir) as prof:
+            t0 = time.perf_counter()
+            fn()
             torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+            wall = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy, end = 0.0, float("-inf")
@@ -1236,13 +1308,298 @@ def device_busy(fn) -> tuple:
         if stop > end:
             busy += stop - max(start, end)
             end = stop
-    names = collections.Counter(
-        e.name.replace("(anonymous namespace)::", "").split("(")[0]
-        for e in events)
-    return wall, busy / 1e3, names
+    names = collections.Counter(kernel_name(e.name) for e in events)
+    ms = collections.Counter()
+    for e in events:
+        ms[kernel_name(e.name)] += (e.time_range.end - e.time_range.start) / 1e3
+    return wall, busy / 1e3, names, ms
+
+
+def query_kind(q: dict) -> str:
+    if "items" in q:
+        return "item-similarity"
+    if q["user"] == "no-such-user":
+        return "unknown user"
+    if "categories" in q:
+        return "category"
+    return "blacklist" if "blacklist" in q else "user"
+
+
+# the parts of a request's latency, in the order printed; they sum to
+# the client's latency
+SPLIT_PARTS = ("client", "server", "http+json", "query.extract",
+               "serve.supplement", "serve.predict", "predict.host",
+               "device.*", "queue_wait", "device_us", "launch+copy",
+               "device.other", "serve.serve", "handler.rest")
+
+
+def span_tree(record: dict) -> tuple:
+    """(server span, children by parent id) of one query's trace."""
+    spans = record["spans"]
+    by_id = {sp["spanId"]: sp for sp in spans}
+    children: dict = {}
+    for sp in spans:
+        children.setdefault(sp["parentId"], []).append(sp)
+    roots = [sp for sp in spans if sp["parentId"] not in by_id]
+    if len(roots) != 1 or not roots[0]["name"].startswith("query POST"):
+        raise AssertionError(f"no single server span: {roots}")
+    return roots[0], children
+
+
+def span_seconds(sp) -> float:
+    return sp["end"] - sp["start"]
+
+
+class CollectorPauses:
+    """The cyclic garbage collector's passes in this process, on the span
+    clock (``gc.callbacks``): (start, end, generation). A pass holds the
+    interpreter lock, so every server thread stalls for it."""
+
+    def __init__(self):
+        from predictionio_tpu_torch.utils.tracing import span_now
+
+        self._now = span_now
+        self.passes: list = []
+        self._started: dict = {}
+
+    def __enter__(self) -> "CollectorPauses":
+        import gc
+
+        gc.callbacks.append(self._callback)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        import gc
+
+        gc.callbacks.remove(self._callback)
+
+    def _callback(self, phase: str, info: dict) -> None:
+        now, thread = self._now(), threading.get_ident()
+        if phase == "start":
+            self._started[thread] = now
+        elif thread in self._started:
+            self.passes.append((self._started.pop(thread), now,
+                                info["generation"]))
+
+    def summary(self) -> str:
+        ms = [(b - a) * 1e3 for a, b, _ in self.passes]
+        return (f"{len(ms)} collector passes "
+                f"({sum(g == 2 for _, _, g in self.passes)} of generation 2), "
+                f"{sum(ms):.3f} ms in all, longest {max(ms, default=0.0):.3f}")
+
+
+def check_spans(record: dict, client_s: float) -> None:
+    """Every span's children sum to no more than the span, and the
+    server span is no longer than the client's latency. A span's times
+    are epoch seconds in doubles (about 0.25 us apart), so each sum may
+    exceed its parent by that rounding: 1 us per child is allowed."""
+    root, children = span_tree(record)
+    for sp in record["spans"]:
+        kids = children.get(sp["spanId"], [])
+        if sum(map(span_seconds, kids)) > span_seconds(sp) + 1e-6 * len(kids):
+            raise AssertionError(
+                f"span {sp['name']} ({span_seconds(sp)!r} s) is shorter than "
+                f"its children {[(k['name'], span_seconds(k)) for k in kids]}")
+    if span_seconds(root) > client_s:
+        raise AssertionError(
+            f"server span {span_seconds(root)!r} s is longer than the "
+            f"client's latency {client_s!r} s")
+
+
+def span_split(record: dict, client_s: float, telemetry: bool = True) -> dict:
+    """One query's trace as the parts of its latency (ms). With device
+    telemetry off there is no ``device.execute``, and its parts read 0."""
+    root, children = span_tree(record)
+    dur = span_seconds
+
+    def child(parent, prefix):
+        found = [sp for sp in children.get(parent["spanId"], [])
+                 if sp["name"].startswith(prefix)]
+        return found[0] if found else None
+
+    ms = {"client": client_s * 1e3, "server": dur(root) * 1e3}
+    ms["http+json"] = ms["client"] - ms["server"]
+    for name in ("query.extract", "serve.supplement", "serve.predict",
+                 "serve.serve"):
+        sp = child(root, name)
+        ms[name] = dur(sp) * 1e3 if sp is not None else 0.0
+    ms["handler.rest"] = ms["server"] - sum(
+        ms[n] for n in ("query.extract", "serve.supplement",
+                        "serve.predict", "serve.serve"))
+    predict = child(root, "serve.predict")
+    device = child(predict, "device.") if predict is not None else None
+    ms["device.*"] = dur(device) * 1e3 if device is not None else 0.0
+    ms["predict.host"] = ms["serve.predict"] - ms["device.*"]
+    execute = child(device, "device.execute") if device is not None else None
+    for name in ("queue_wait", "device_us", "launch+copy", "device.other"):
+        ms[name] = 0.0
+    if execute is not None:
+        attrs = execute["attributes"]
+        if attrs.get("deviceUs") is None:
+            raise AssertionError(f"device.execute has no device time: "
+                                 f"{attrs}")
+        ms["queue_wait"] = (attrs.get("queueWaitUs") or 0.0) / 1e3
+        ms["device_us"] = attrs["deviceUs"] / 1e3
+        ms["launch+copy"] = (attrs["hostUs"] - attrs["deviceUs"]) / 1e3
+        ms["device.other"] = (ms["device.*"] - ms["queue_wait"]
+                              - attrs["hostUs"] / 1e3)
+    elif device is not None and telemetry:
+        raise AssertionError(f"{device['name']} has no device.execute child")
+    return ms
+
+
+def print_split(splits: dict) -> None:
+    """The median of each part per query kind."""
+    print("[serve] span split, median ms per query kind (client = "
+          "http+json + server; server = query.extract + serve.supplement "
+          "+ serve.predict + serve.serve + handler.rest; serve.predict = "
+          "predict.host + device.*; device.* = queue_wait + device_us + "
+          "launch+copy + device.other):")
+    for kind, rows in splits.items():
+        med = {part: float(np.median([r[part] for r in rows]))
+               for part in SPLIT_PARTS}
+        print(f"[serve]   {kind} ({len(rows)}): "
+              + ", ".join(f"{part} {med[part]:.4f}" for part in SPLIT_PARTS))
+
+
+# the client of the sequential runs, in a process of its own so that it
+# never holds the server's interpreter lock: one JSON line in per query
+# ({"query", "headers"}), one out ({"status", "body", "seconds"}); an
+# optional pause (seconds) before each query and after the last
+CLIENT = r"""
+import json, sys, time, urllib.request
+base, pause = sys.argv[1], float(sys.argv[2])
+opener = urllib.request.build_opener()   # built before the first timing
+for line in sys.stdin:
+    time.sleep(pause)
+    job = json.loads(line)
+    req = urllib.request.Request(base + "/queries.json", method="POST",
+                                 data=json.dumps(job["query"]).encode(),
+                                 headers=job["headers"])
+    t0 = time.perf_counter()
+    with opener.open(req, timeout=120) as resp:
+        body = json.loads(resp.read())
+        seconds = time.perf_counter() - t0
+        print(json.dumps({"status": resp.status, "body": body,
+                          "seconds": seconds}), flush=True)
+time.sleep(pause)   # the server finishes the last query before we exit
+"""
+
+
+def client_run(base: str, queries: list, headers=None,
+               pause: float = 0.0) -> list:
+    """Send ``queries`` one after another from a client process;
+    [(query, status, body, seconds)]. ``headers[i]`` go with query i.
+    Back to back (``pause`` 0), a query meets the server still finishing
+    the one before (its trace flush and metrics, after the response went
+    out) on the interpreter lock, as a closed-loop client does; a pause
+    lets each query run alone."""
+    jobs = "".join(json.dumps({"query": q, "headers": (headers or {})
+                               .get(i, {})}) + "\n"
+                   for i, q in enumerate(queries))
+    proc = subprocess.run([sys.executable, "-c", CLIENT, base, str(pause)],
+                          input=jobs, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"client process failed: {proc.stderr}")
+    out = [json.loads(line) for line in proc.stdout.splitlines()]
+    return [(q, r["status"], r["body"], r["seconds"])
+            for q, r in zip(queries, out)]
+
+
+def sequential_latency(base: str, queries: list) -> np.ndarray:
+    """Client ms of ``queries`` sent one after another from a client
+    process."""
+    out = []
+    for q, status, _, seconds in client_run(base, queries):
+        if status != 200:
+            raise AssertionError(f"{q}: HTTP {status}")
+        out.append(seconds * 1e3)
+    return np.asarray(out)
+
+
+OBSERVABILITY_MODES = ("on", "off", "metrics", "tracing", "telemetry")
+
+
+def observability_overhead(base: str, queries: list, rounds: int = 10) -> dict:
+    """The sequential queries from a client process in ``rounds`` rounds,
+    each round one run per mode in turn: metrics, tracing and device
+    telemetry all on, all killed, and each of the three alone on, so the
+    host's drift over the phase falls on every mode alike. Prints each
+    mode's p25 / p50 / p75 / p99 ms over its runs and its runs' p50s;
+    with tracing on, the queries carry a ``traceparent`` each, and the
+    median user-query split of the "on" runs against the tracing-alone
+    runs says where metrics and telemetry add time."""
+    import secrets
+
+    from predictionio_tpu_torch.utils import device_telemetry, metrics, tracing
+
+    switches = {"metrics": metrics.set_enabled,
+                "tracing": tracing.set_tracing_enabled,
+                "telemetry": device_telemetry.set_enabled}
+    lats: dict = {mode: [] for mode in OBSERVABILITY_MODES}
+    splits: dict = {"on": [], "tracing": []}
+    with CollectorPauses() as collector:
+        try:
+            for _ in range(rounds):
+                for mode in OBSERVABILITY_MODES:
+                    for name, switch in switches.items():
+                        switch(mode in ("on", name))
+                    ids = [secrets.token_hex(16) for _ in queries]
+                    headers = {i: {"traceparent":
+                                   f"00-{tid}-{secrets.token_hex(8)}-01"}
+                               for i, tid in enumerate(ids)} \
+                        if mode in splits else None
+                    run = client_run(base, queries, headers)
+                    if any(status != 200 for _, status, _, _ in run):
+                        raise AssertionError(f"a query failed in mode {mode}")
+                    lats[mode].append(np.asarray([r[3] for r in run]) * 1e3)
+                    if mode in splits:
+                        splits[mode] += [
+                            span_split(fetch_trace(base, tid), seconds,
+                                       telemetry=mode == "on")
+                            for (q, _, _, seconds), tid in zip(run, ids)
+                            if query_kind(q) == "user"]
+        finally:
+            for switch in switches.values():
+                switch(True)
+    print(f"[serve] over the on/off runs: {collector.summary()}")
+    out = {}
+    for mode, runs in lats.items():
+        lat = np.concatenate(runs)
+        out[mode] = {f"p{q}_ms": float(np.percentile(lat, q))
+                     for q in (25, 50, 75, 99)}
+        print(f"[serve] observability {mode}"
+              f"{' alone' if mode in switches else ''}: "
+              + ", ".join(f"p{q} {out[mode][f'p{q}_ms']!r}"
+                          for q in (25, 50, 75, 99))
+              + f" ms; runs' p50 "
+              f"{[round(float(np.percentile(r, 50)), 4) for r in runs]}")
+    out["p50_ratio"] = out["on"]["p50_ms"] / out["off"]["p50_ms"]
+    # each round's on run over the same round's killed run: the spread
+    # of these ratios says how far one pair of runs can be trusted
+    paired = sorted(float(np.percentile(a, 50) / np.percentile(b, 50))
+                    for a, b in zip(lats["on"], lats["off"]))
+    out["paired_p50_ratios"] = paired
+    print(f"[serve] observability on / off over {rounds * len(queries)} "
+          f"queries each: p50 {out['on']['p50_ms']!r} / "
+          f"{out['off']['p50_ms']!r} ms (ratio {out['p50_ratio']!r}; the "
+          f"JAX package's gate is 1.05); by round, median "
+          f"{float(np.median(paired))!r}, from {paired[0]!r} to "
+          f"{paired[-1]!r}; alone, p50 over killed: "
+          + ", ".join(f"{name} {out[name]['p50_ms'] / out['off']['p50_ms']!r}"
+                      for name in switches))
+    print("[serve] user-query split, median ms, all on against tracing "
+          "alone: " + ", ".join(
+              f"{part} {float(np.median([r[part] for r in splits['on']])):.4f}"
+              f" / {float(np.median([r[part] for r in splits['tracing']])):.4f}"
+              for part in SPLIT_PARTS))
+    return out
 
 
 def serve_full_width(model, seed: int) -> dict:
+    import secrets
+
     import torch
 
     from predictionio_tpu_torch.ops import als_cuda
@@ -1252,6 +1609,7 @@ def serve_full_width(model, seed: int) -> dict:
         Query,
         engine_factory,
     )
+    from predictionio_tpu_torch.utils import device_telemetry
     from predictionio_tpu_torch.workflow.create_server import (
         QueryServer,
         ServerConfig,
@@ -1295,15 +1653,52 @@ def serve_full_width(model, seed: int) -> dict:
     concurrent[21:21] = [{"user": users[67], "num": 10,
                           "categories": ["g9", "g2"]}]
 
-    with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
-        health = json.loads(resp.read())
+    health = get_json(base + "/healthz")
     if not health["ready"]:
         raise AssertionError(f"server not ready: {health}")
 
+    before, lanes_before = scrape(base), srv.stats()
     als_cuda.launches.reset()
-    answers = [(q, *post(base + "/queries.json", q)) for q in queries]
-    in_burst = burst(base, concurrent)
-    answers += in_burst
+    with CollectorPauses() as collector:
+        answers = [(q, *post(base + "/queries.json", q)) for q in queries]
+        in_burst = burst(base, concurrent)
+    print(f"[serve] over the 77 in-process requests: {collector.summary()}")
+    # the same queries from a client process, each under a trace of its
+    # own and alone on the server (a 5 ms pause before each), read back
+    # from /traces/<id>: the split of its latency
+    def traceparent(trace_id: str) -> dict:
+        return {"traceparent": f"00-{trace_id}-{secrets.token_hex(8)}-01"}
+
+    trace_ids = [secrets.token_hex(16) for _ in queries]
+    with CollectorPauses() as collector:
+        traced = client_run(base, queries, {
+            i: traceparent(tid) for i, tid in enumerate(trace_ids)},
+            pause=0.005)
+    splits: dict = {}
+    resent = []
+    for (q, _, _, seconds), trace_id in zip(traced, trace_ids):
+        record = fetch_trace(base, trace_id)
+        # the server span ends after the answer went out: a stall of the
+        # handler thread just then (a collector pass, the scheduler) ends
+        # it after the client has read the answer. Such a query is sent
+        # again, twice at most; a span that outlasts its client every
+        # time fails below.
+        for _ in range(2):
+            if span_seconds(span_tree(record)[0]) <= seconds:
+                break
+            resent.append((query_kind(q), span_seconds(span_tree(record)[0]),
+                           seconds))
+            trace_id = secrets.token_hex(16)
+            (_, _, _, seconds), = client_run(
+                base, [q], {0: traceparent(trace_id)}, pause=0.005)
+            record = fetch_trace(base, trace_id)
+        check_spans(record, seconds)
+        splits.setdefault(query_kind(q), []).append(
+            span_split(record, seconds))
+    print(f"[serve] traced queries: {collector.summary()}; sent again "
+          f"after their server span outlasted the client's latency (kind, "
+          f"server s, client s): {resent}")
+    answers += traced + in_burst
     launches = als_cuda.launches.value
     if launches == 0:
         raise AssertionError("the kernel was never launched on the main path")
@@ -1314,6 +1709,62 @@ def serve_full_width(model, seed: int) -> dict:
         raise AssertionError(f"the main path's launches at k <= 128 did not "
                              f"all take the chunked route: {by_key}")
     stats = srv.stats()
+    print_split(splits)
+
+    # the profiled burst: the flight recorder's device time against the
+    # profiler's time of the serving kernel's own kernels
+    recorder = device_telemetry.recorder()
+    recorder.reset()
+    wall, busy, kernels, kernel_ms = device_busy(
+        lambda: burst(base, concurrent))
+    records = recorder.snapshot(recorder.capacity)
+    event_ms = sum(r["deviceUs"] for r in records) / 1e3
+    b1_ms = sum(kernel_ms[name] for name in b1_kernel_names())
+    if kernels:
+        print(f"[serve] profiled burst of {len(concurrent)} queries: wall "
+              f"{wall!r} ms, device busy {busy!r} ms "
+              f"({100 * busy / wall:.2f}%); kernels {dict(kernels)}")
+        print(f"[serve] device.execute over the burst: {len(records)} "
+              f"launches, CUDA events {event_ms!r} ms against the "
+              f"profiler's {b1_ms!r} ms of the serving kernel's kernels "
+              f"(ratio {event_ms / b1_ms if b1_ms else float('nan')!r}) and "
+              f"the burst's wall {wall!r} ms")
+        if b1_ms and not 0.98 * b1_ms <= event_ms <= wall:
+            raise AssertionError(
+                f"device.execute's device time {event_ms!r} ms lies outside "
+                f"[0.98 x {b1_ms!r}, {wall!r}] ms")
+    else:
+        print("[serve] device busy share not measured: the profiler "
+              "recorded no CUDA kernels")
+
+    # the scrape: the registry's counts against the phase's own
+    after, lanes_after = scrape(base), srv.stats()
+    sent = 2 * len(queries) + 2 * len(concurrent) + len(resent)
+    all_launches = als_cuda.launches.value
+    counts = {
+        "http_requests": scraped(after, "pio_http_requests_total",
+                                 route="/queries.json")
+        - scraped(before, "pio_http_requests_total", route="/queries.json"),
+        "microbatch_dispatches": scraped(
+            after, "pio_microbatch_dispatches_total", batcher="pio-microbatch")
+        - scraped(before, "pio_microbatch_dispatches_total",
+                  batcher="pio-microbatch"),
+        "dispatch_device_seconds": scraped(
+            after, "pio_dispatch_device_seconds", "count")
+        - scraped(before, "pio_dispatch_device_seconds", "count")}
+    want = {"http_requests": sent,
+            "microbatch_dispatches": lanes_after["users"]["dispatches"]
+            - lanes_before["users"]["dispatches"],
+            "dispatch_device_seconds": all_launches}
+    print(f"[serve] scrape of /metrics: {counts}; the phase's own counts "
+          f"{want}")
+    if counts != {k: float(v) for k, v in want.items()}:
+        raise AssertionError(f"/metrics counts {counts} != {want}")
+    report = get_json(base + "/dispatches.json?limit=0")
+    for lane, summary in report["summary"].items():
+        print(f"[serve] /dispatches.json lane {lane}: {json.dumps(summary)}")
+
+    overhead = observability_overhead(base, queries)
 
     # expected answers: the same pipeline with the plain version in place
     # of the kernel (one extra result of context for near-tie checks)
@@ -1357,36 +1808,31 @@ def serve_full_width(model, seed: int) -> dict:
     finally:
         serving_mod.fused_gather_score_topk = als_cuda.fused_gather_score_topk
     torch.cuda.synchronize()
-    lat = np.asarray([a[3] for a in answers]) * 1e3
+    # the in-process requests only, as the earlier phase 3 measured them
+    timed = answers[:len(queries)] + in_burst
+    lat = np.asarray([a[3] for a in timed]) * 1e3
     print(f"[serve] {checked} answers match the plain pipeline; kernel "
           f"launches {launches}; users lane {stats['users']['dispatches']} "
           f"dispatches for {stats['users']['batchedQueries']} queries")
     print("[serve] kernel launches by (route, k, B): "
           + ", ".join(f"{r} k={k} B={b}: {n}"
                       for (r, k, b), n in sorted(by_key.items())))
-    print(f"[serve] HTTP latency over {len(lat)} requests: p50 "
+    print(f"[serve] HTTP latency over {len(lat)} in-process requests: p50 "
           f"{float(np.percentile(lat, 50))!r} ms, p99 "
           f"{float(np.percentile(lat, 99))!r} ms")
     for j in np.argsort(lat)[::-1][:3]:
         print(f"[serve]   slow: {float(lat[j])!r} ms for "
-              f"{json.dumps(answers[j][0])}")
+              f"{json.dumps(timed[j][0])}")
     narrow = [a[3] * 1e3 for a in in_burst if "categories" not in a[0]]
     print(f"[serve] concurrent burst: {len(narrow)} narrow queries p50 "
           f"{float(np.percentile(narrow, 50))!r} ms, max "
           f"{max(narrow)!r} ms; category queries "
           f"{[a[3] * 1e3 for a in in_burst if 'categories' in a[0]]!r} ms")
-    wall, busy, kernels = device_busy(lambda: burst(base, concurrent))
-    if kernels:
-        print(f"[serve] profiled burst of {len(concurrent)} queries: wall "
-              f"{wall!r} ms, device busy {busy!r} ms "
-              f"({100 * busy / wall:.2f}%); kernels {dict(kernels)}")
-    else:
-        print("[serve] device busy share not measured: the profiler "
-              "recorded no CUDA kernels")
     server.stop()
     return {"launches": launches, "routes": routes_of(by_key),
             "p50_ms": float(np.percentile(lat, 50)),
-            "p99_ms": float(np.percentile(lat, 99))}
+            "p99_ms": float(np.percentile(lat, 99)),
+            "overhead": overhead}
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -1442,8 +1888,7 @@ def kernel_split(fn, iters: int) -> dict:
             torch.cuda.synchronize()
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
-                name = e.name.replace("(anonymous namespace)::", "")
-                name = name.split("(")[0].replace("void ", "").split("<")[0]
+                name = kernel_name(e.name)
                 total[name] += (e.time_range.end - e.time_range.start) / 1e3
                 count[name] += 1
     if any(n != 2 * iters for n in count.values()):
@@ -2388,7 +2833,10 @@ def main() -> int:
             **train_times["heads"][name], "shape": shape,
             "routes": routes, "timings": train_times["rows"][name]})
     print(f"[done] {time.perf_counter() - t0:.1f} s; HTTP p50 "
-          f"{served['p50_ms']!r} ms p99 {served['p99_ms']!r} ms; training "
+          f"{served['p50_ms']!r} ms p99 {served['p99_ms']!r} ms "
+          f"(observability on / off p50 "
+          f"{served['overhead']['on']['p50_ms']!r} / "
+          f"{served['overhead']['off']['p50_ms']!r} ms); training "
           f"iteration {trained['iteration_ms']!r} ms; store write "
           f"{store['write_s']!r} s, read {trained['read_s']!r} s, prepare "
           f"{trained['prepare_s']!r} s; scale ingest {ingest['ingest_s']!r} "

@@ -11,6 +11,7 @@ form) and ``Engine.prepare_deploy`` (stored forms -> models to serve).
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 from predictionio_tpu_torch.core.base import (
@@ -27,6 +28,16 @@ from predictionio_tpu_torch.core.base import (
     WorkflowParams,
     run_sanity_check,
 )
+from predictionio_tpu_torch.utils import metrics
+from predictionio_tpu_torch.utils.tracing import span
+
+
+def _stage_span(stage: str):
+    """One DASE stage: an INFO span (request-id tagged) feeding the
+    ``pio_train_stage_seconds{stage=...}`` histogram."""
+    return span(f"dase.{stage}", level=logging.INFO,
+                histogram=metrics.TRAIN_STAGE_LATENCY.child(stage=stage)
+                if metrics.REGISTRY.enabled else None)
 
 
 class EngineConfigError(ValueError):
@@ -260,20 +271,24 @@ def train_pipeline(ctx: Any, data_source: BaseDataSource,
                    params: WorkflowParams) -> List[Any]:
     """The train dataflow: read -> sanity -> [stop after read] ->
     prepare -> sanity -> [stop after prepare] -> train each algorithm
-    -> sanity each model."""
-    td = data_source.read_training_base(ctx)
+    -> sanity each model. Each stage is a ``dase.*`` span timed into
+    ``pio_train_stage_seconds``."""
+    with _stage_span("read"):
+        td = data_source.read_training_base(ctx)
     if not params.skip_sanity_check:
         run_sanity_check(td)
     if params.stop_after_read:
         raise StopAfterReadInterruption(
             "Stopping after read (stop_after_read)")
-    pd = preparator.prepare_base(ctx, td)
+    with _stage_span("prepare"):
+        pd = preparator.prepare_base(ctx, td)
     if not params.skip_sanity_check:
         run_sanity_check(pd)
     if params.stop_after_prepare:
         raise StopAfterPrepareInterruption(
             "Stopping after prepare (stop_after_prepare)")
-    models = [algo.train_base(ctx, pd) for algo in algorithms]
+    with _stage_span("train"):
+        models = [algo.train_base(ctx, pd) for algo in algorithms]
     if not params.skip_sanity_check:
         for m in models:
             run_sanity_check(m)

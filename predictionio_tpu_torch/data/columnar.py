@@ -403,10 +403,15 @@ class PipelinedRatingsBuilder(StreamingRatingsBuilder):
 
         from predictionio_tpu_torch.data.bimap import StringIndexBiMap
         from predictionio_tpu_torch.ops import als as _als
-        from predictionio_tpu_torch.utils.tracing import StageTimeline
+        from predictionio_tpu_torch.utils.tracing import (
+            StageTimeline,
+            current_trace_context,
+        )
 
         timeline = timeline if timeline is not None else StageTimeline()
-        parent = None   # the port has no trace context yet
+        # the caller's trace (if any) parents every stage span, on
+        # whichever thread the stage runs
+        parent = current_trace_context()
         user_map = StringIndexBiMap.from_distinct(list(self._users))
         item_map = StringIndexBiMap.from_distinct(list(self._items))
         n_u, n_i = len(user_map), len(item_map)
@@ -478,7 +483,9 @@ class PipelinedIngestResult:
         """``warmup=False`` closes only the copy window (ingest is
         done); the warm-up tail then belongs to the first training
         call — join it there via :meth:`join_warmup`."""
-        parent = None
+        from predictionio_tpu_torch.utils.tracing import current_trace_context
+
+        parent = current_trace_context()
         if self.staged:
             with self.timeline.scope("h2d.wait", parent):
                 self.user_side.block_until_staged()
@@ -515,10 +522,13 @@ def ingest_ratings_pipelined(blocks, queue_size: int = 4,
     Training inputs are byte-identical to the serial
     ``StreamingRatingsBuilder`` + ``bucket_ratings_pair`` chain — see
     :class:`PipelinedRatingsBuilder`."""
-    from predictionio_tpu_torch.utils.tracing import StageTimeline
+    from predictionio_tpu_torch.utils.tracing import (
+        StageTimeline,
+        current_trace_context,
+    )
 
     timeline = timeline if timeline is not None else StageTimeline()
-    parent = None   # the port has no trace context yet
+    parent = current_trace_context()
     builder = PipelinedRatingsBuilder()
     timed_blocks = timeline.wrap_iter(blocks, "decode", parent)
     for block in iter_blocks_threaded(timed_blocks,

@@ -13,10 +13,12 @@ Parity targets:
   ``EngineInstances.scala:43-59`` (15 fields), ``EvaluationInstances.scala``,
   ``Models.scala:30-49``.
 
-The port's copy of ``predictionio_tpu/data/storage/base.py`` without
-the metrics counters and the circuit breaker (``StorageCircuitOpen``,
-``run_guarded``), which come with the port's telemetry. The tail reads
-(``find_since``, ``tail_cursor``, ``tail_watermark``) raise
+The port's copy of ``predictionio_tpu/data/storage/base.py`` without the
+circuit breaker (``StorageCircuitOpen``, ``run_guarded``), which comes
+with storage resilience (ROADMAP queue A item 2.5); every
+``aggregate_properties`` read is counted as in the JAX package
+(``pio_aggregate_hits_total``, ``pio_aggregate_replays_total``). The
+tail reads (``find_since``, ``tail_cursor``, ``tail_watermark``) raise
 ``StorageError`` here, as in the JAX package; ``jsonlfs`` implements
 them, and the memory and sqlite backends get them with fold-in (ROADMAP
 queue A item 3).
@@ -35,6 +37,7 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 from predictionio_tpu_torch.data.aggregator import aggregate_properties
 from predictionio_tpu_torch.data.datamap import PropertyMap
 from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.utils import metrics
 
 # Sentinel distinguishing "no filter" from "filter for None"
 # (reference models this as Option[Option[String]], LEvents.scala:137-150).
@@ -47,6 +50,9 @@ class StorageError(RuntimeError):
 
 class LEvents(abc.ABC):
     """Event store DAO scoped by (app_id, channel_id)."""
+
+    # label value for this backend's aggregation metrics
+    metrics_backend = "unknown"
 
     @abc.abstractmethod
     def init(self, app_id: int, channel_id: Optional[int] = None) -> bool:
@@ -216,12 +222,21 @@ class LEvents(abc.ABC):
         issues — is served from materialized state when the backend
         keeps it (O(current entities) instead of O(event history)); any
         ``start_time``/``until_time`` bound falls back to the replay
-        fold so time-travel semantics stay exact."""
+        fold so time-travel semantics stay exact. Every read is
+        accounted in the metrics registry: a materialized hit, a
+        ``bounded`` replay (time-travel query) or a ``fallback`` replay
+        (backend keeps no state)."""
         if start_time is None and until_time is None:
             result = self.materialized_aggregate(app_id, entity_type,
                                                  channel_id)
             if result is not None:
+                metrics.AGGREGATE_HITS.inc(backend=self.metrics_backend)
                 return _apply_required(result, required)
+            metrics.AGGREGATE_REPLAYS.inc(backend=self.metrics_backend,
+                                          reason="fallback")
+        else:
+            metrics.AGGREGATE_REPLAYS.inc(backend=self.metrics_backend,
+                                          reason="bounded")
         return self.aggregate_properties_replay(
             app_id, entity_type, channel_id=channel_id,
             start_time=start_time, until_time=until_time, required=required)

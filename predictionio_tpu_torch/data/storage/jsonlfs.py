@@ -26,15 +26,15 @@ Contracts:
   keep METADATA/MODELDATA on sqlite/memory (the registry raises a clear
   error otherwise, mirroring ``Storage.scala``'s per-repository sources).
 
-The port's copy of ``predictionio_tpu/data/storage/jsonlfs.py``: the same
-files, line format and ``props_snapshot.json``, so a directory written by
-either package reads back equal in the other. Left out: the storage
-counters (the port's storage telemetry, ROADMAP queue A item 2.5). One
-difference in cost, none in result: the snapshot's delta scan looks for
-the special-event prefilter's needles in the raw bytes and decodes only
-the lines that hold one, instead of decoding every appended line first
-(a MovieLens-20M store is 3.5 GB of ``rate`` lines, none of which the
-fold reads). The native codec has no silent fallback: without
+The port's copy of ``predictionio_tpu/data/storage/jsonlfs.py``: the
+same files, line format and ``props_snapshot.json``, so a directory
+written by either package reads back equal in the other, with the same
+aggregation counters (scope drops and backfills). One difference in
+cost, none in result: the snapshot's delta scan looks for the
+special-event prefilter's needles in the raw bytes and decodes only
+the lines that hold one, instead of decoding every appended line first (a
+MovieLens-20M store is 3.5 GB of ``rate`` lines, none of which the fold
+reads). The native codec has no silent fallback: without
 ``PIO_NATIVE_DISABLE=1`` a codec that does not build raises.
 """
 
@@ -68,6 +68,7 @@ from predictionio_tpu_torch.data.storage import base
 from predictionio_tpu_torch.data.storage.base import UNSET
 from predictionio_tpu_torch.data.storage.localfs import atomic_write_bytes
 from predictionio_tpu_torch.data.storage.memory import match_event
+from predictionio_tpu_torch.utils import metrics
 
 DEFAULT_PART_MAX_EVENTS = 500_000
 SNAPSHOT_NAME = "props_snapshot.json"
@@ -122,6 +123,8 @@ def _special_candidates(data: bytes, end: int) -> List[str]:
 
 class JsonlFsLEvents(base.LEvents):
     """LEvents over partitioned JSONL files (one dir per app/channel)."""
+
+    metrics_backend = "jsonlfs"
 
     def __init__(self, config: Optional[dict] = None):
         cfg = config or {}
@@ -622,6 +625,7 @@ class JsonlFsLEvents(base.LEvents):
             self._snapshots.pop(d, None)
         try:
             os.unlink(os.path.join(d, SNAPSHOT_NAME))
+            metrics.AGGREGATE_SCOPE_DROPS.inc(backend=self.metrics_backend)
         except FileNotFoundError:
             pass
 
@@ -695,6 +699,11 @@ class JsonlFsLEvents(base.LEvents):
                 lines, new_mark = self._delta_lines(d, parts,
                                                     snap["watermark"])
                 if lines or new_mark != snap["watermark"]:
+                    if not snap["watermark"]:
+                        # folding the whole store, not a delta: the
+                        # jsonlfs analog of the sqlite scope backfill
+                        metrics.AGGREGATE_BACKFILLS.inc(
+                            backend=self.metrics_backend)
                     delta: List[Event] = []
                     for ln in lines:
                         e = _parse_event_line(ln, d)

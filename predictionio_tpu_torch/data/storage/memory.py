@@ -7,8 +7,8 @@ range is [start, until), equality filters on entity/event/target fields,
 target entity.
 
 The port's copy of ``predictionio_tpu/data/storage/memory.py`` without
-the metrics counters and the tail reads (``find_since``), which come
-with fold-in (ROADMAP queue A item 3).
+the tail reads (``find_since``), which come with fold-in (ROADMAP queue
+A item 3).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from predictionio_tpu_torch.data.aggregator import (
 from predictionio_tpu_torch.data.datamap import PropertyMap
 from predictionio_tpu_torch.data.event import Event, new_event_id, validate_event
 from predictionio_tpu_torch.data.storage import base
+from predictionio_tpu_torch.utils import metrics
 from predictionio_tpu_torch.data.storage.base import (
     UNSET, AccessKey, App, Channel, EngineInstance, EvaluationInstance, Model,
 )
@@ -61,6 +62,8 @@ def match_event(
 
 
 class MemLEvents(base.LEvents):
+    metrics_backend = "memory"
+
     def __init__(self, config: Optional[dict] = None):
         # (app_id, channel_id) -> {event_id: Event}; insertion order kept
         self._tables: Dict[Tuple[int, Optional[int]], Dict[str, Event]] = {}
@@ -83,7 +86,9 @@ class MemLEvents(base.LEvents):
     def remove(self, app_id, channel_id=None) -> bool:
         with self._lock:
             key = self._key(app_id, channel_id)
-            self._props.pop(key, None)
+            if self._props.pop(key, None) is not None:
+                metrics.AGGREGATE_SCOPE_DROPS.inc(
+                    backend=self.metrics_backend)
             return self._tables.pop(key, None) is not None
 
     def close(self) -> None:

@@ -21,9 +21,9 @@ deletes re-derive only the touched entity; ``delete_until``/``remove``
 drop the scope rows so the next read backfills fresh.
 
 The port's copy of ``predictionio_tpu/data/storage/sqlite.py`` without
-the metrics counters, the raw-row export read (``iter_raw_rows``, for
-``pio export``) and the tail reads (``find_since``), which come with
-fold-in (ROADMAP queue A item 3). A store written by either package
+the raw-row export read (``iter_raw_rows``, for ``pio export``) and the
+tail reads (``find_since``), which come with fold-in (ROADMAP queue A
+item 3). A store written by either package
 reads in the other: the schema is the same.
 """
 
@@ -48,6 +48,7 @@ from predictionio_tpu_torch.data.aggregator import (
 from predictionio_tpu_torch.data.datamap import DataMap, PropertyMap
 from predictionio_tpu_torch.data.event import Event, new_event_id, validate_event
 from predictionio_tpu_torch.data.storage import base
+from predictionio_tpu_torch.utils import metrics
 from predictionio_tpu_torch.data.storage.base import (
     UNSET, AccessKey, App, Channel, EngineInstance, EvaluationInstance, Model,
 )
@@ -353,6 +354,7 @@ _EVENT_COLS = ("event_id, event, entity_type, entity_id, target_entity_type, "
 
 
 class SqliteLEvents(base.LEvents):
+    metrics_backend = "sqlite"
     def __init__(self, config: Optional[dict] = None):
         config = config or {}
         self._client = SqliteClient.shared(config.get("path", ":memory:"))
@@ -382,11 +384,14 @@ class SqliteLEvents(base.LEvents):
 
     @staticmethod
     def _drop_materialized(c, aid: int, chan: int) -> None:
-        c.execute(
+        cur = c.execute(
             "DELETE FROM entity_props_scope WHERE app_id=? AND channel_id=?",
             (aid, chan))
         c.execute("DELETE FROM entity_props WHERE app_id=? AND channel_id=?",
                   (aid, chan))
+        if cur.rowcount:
+            metrics.AGGREGATE_SCOPE_DROPS.inc(amount=cur.rowcount,
+                                              backend="sqlite")
 
     @staticmethod
     def _load_state(c, aid: int, chan: int, etype: str,
@@ -537,6 +542,7 @@ class SqliteLEvents(base.LEvents):
                         "INSERT OR REPLACE INTO entity_props_scope"
                         " (app_id, channel_id, entity_type) VALUES (?,?,?)",
                         (aid, chan, entity_type))
+                    metrics.AGGREGATE_BACKFILLS.inc(backend="sqlite")
                     names = ",".join("?" * len(AGGREGATOR_EVENT_NAMES))
                     rows = c.execute(
                         f"SELECT entity_id, event, properties, event_time"

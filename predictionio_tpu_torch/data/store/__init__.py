@@ -6,9 +6,11 @@ Parity targets: ``PEventStore`` (``data/.../store/PEventStore.scala:30-116``),
 (appName, channelName) -> (appId, channelId) via the metadata repositories.
 
 The port's copy of ``predictionio_tpu/data/store/__init__.py``, over the
-port's storage registry, without the circuit breaker, the degraded
-marks and the trace context that the JAX package's deadline-bounded
-reads carry (they come with the port's telemetry).
+port's storage registry, without the circuit breaker and the degraded
+marks of the JAX package's deadline-bounded reads (they come with
+storage resilience, ROADMAP queue A item 2.5). A deadline-bounded read
+runs under the caller's request id and trace context, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from predictionio_tpu_torch.data import storage
 from predictionio_tpu_torch.data.datamap import PropertyMap
 from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage.base import UNSET
+from predictionio_tpu_torch.utils.tracing import carrying_context
 
 
 def app_name_to_id(app_name: str,
@@ -207,7 +210,9 @@ def _bounded(fn, timeout: Optional[float]):
     the deadline raises :class:`LEventStoreTimeoutError`."""
     if timeout is None:
         return fn()
-    box, done, _ = _pool().submit(fn)
+    # the pool thread runs under this thread's request id and trace
+    # context, so a predict-time read lands in the query's trace
+    box, done, _ = _pool().submit(carrying_context(fn))
     if not done.wait(timeout):
         raise LEventStoreTimeoutError(
             f"event-store read exceeded {timeout}s")

@@ -20,8 +20,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 SRC_DIR = Path(__file__).resolve().parent / "src"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -30,6 +31,10 @@ GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+# called with (source name, seconds) after each successful build: how
+# the metrics registry counts builds (metrics.install_jit_compile_listener)
+BUILD_LISTENERS: List[Callable[[str, float], None]] = []
 
 
 def library_path(name: str) -> Path:
@@ -52,6 +57,7 @@ def _build(name: str) -> Path:
                            "the numpy paths)")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    t0 = time.perf_counter()
     proc = subprocess.run(
         [gxx, *GXX_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cpp")],
         capture_output=True, text=True, timeout=300)
@@ -60,6 +66,8 @@ def _build(name: str) -> Path:
             f"native build of {name} failed (g++ exited "
             f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
+    for listener in BUILD_LISTENERS:
+        listener(name, time.perf_counter() - t0)
     return out
 
 

@@ -18,9 +18,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from collections import Counter
 from pathlib import Path
-from typing import Dict, Hashable, Iterable
+from typing import Callable, Dict, Hashable, Iterable, List
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -30,6 +31,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+# called with (source name, seconds) after each successful build: how
+# the metrics registry counts builds (metrics.install_jit_compile_listener)
+BUILD_LISTENERS: List[Callable[[str, float], None]] = []
 
 
 def nvcc_path() -> str:
@@ -59,6 +64,7 @@ def _build_missing(names: Iterable[str]) -> None:
     one ``nvcc`` each, all started together; raises after all have
     ended if any failed."""
     jobs = []
+    t0 = time.perf_counter()
     for name in names:
         out = library_path(name)
         if out.exists():
@@ -69,13 +75,19 @@ def _build_missing(names: Iterable[str]) -> None:
             [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
              str(SRC_DIR / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    logs = [(job, *job[3].communicate()) for job in jobs]
-    for (name, out, tmp, proc), stdout, stderr in logs:
+    # each build's seconds run from the common start to the moment its
+    # output was collected (the builds run in parallel)
+    logs = [(job, *job[3].communicate(), time.perf_counter() - t0)
+            for job in jobs]
+    for (name, out, tmp, proc), stdout, stderr, _ in logs:
         if proc.returncode != 0:
             raise RuntimeError(
                 f"CUDA kernel build of {name} failed (nvcc exited "
                 f"{proc.returncode}):\n{stdout}{stderr}")
         os.replace(tmp, out)
+    for (name, *_), _, _, seconds in logs:
+        for listener in BUILD_LISTENERS:
+            listener(name, seconds)
 
 
 def build_libraries(names: Iterable[str]) -> None:

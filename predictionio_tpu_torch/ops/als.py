@@ -31,8 +31,8 @@ Implicit objective (Hu-Koren-Volinsky, as in MLlib): confidence
 ``(Y_u^T Y_u + lambda * n_u * I) x = Y_u^T r_u``.
 
 Not in this slice (they raise ``NotImplementedError``): the bf16
-training precision and checkpointed training (ROADMAP queue A item 1,
-deferred), and the config grid's ``extra_ridge`` (queue A item 6).
+training precision and checkpointed training (ROADMAP A5, the training
+options), and the config grid's ``extra_ridge`` (ROADMAP A7, tuning).
 """
 
 from __future__ import annotations
@@ -476,7 +476,7 @@ def _check_supported(params: ALSParams) -> None:
     if mode == "bf16":
         raise NotImplementedError(
             f"{source}=bf16: the bf16 training precision is not ported yet "
-            "(ROADMAP queue A item 1, deferred); train in fp32")
+            "(ROADMAP A5, the training options); train in fp32")
     if mode != "fp32":
         raise ValueError(f"{source}={mode!r} is not a known precision mode "
                          "(expected one of: fp32, bf16)")
@@ -484,7 +484,7 @@ def _check_supported(params: ALSParams) -> None:
     if params.checkpoint_every or every not in ("", "0"):
         raise NotImplementedError(
             "checkpointed training (checkpoint_every / PIO_CHECKPOINT_EVERY) "
-            "is not ported yet (ROADMAP queue A item 1, deferred)")
+            "is not ported yet (ROADMAP A5, the training options)")
 
 
 def init_factors(n_rows: int, n_cols: int, rank: int, seed: Optional[int],
@@ -525,7 +525,7 @@ def _solve_rows(Y: torch.Tensor, cols: torch.Tensor, weights: torch.Tensor,
     if extra_ridge is not None:
         raise NotImplementedError(
             "extra_ridge (the config grid's rank padding) is not ported yet "
-            "(ROADMAP queue A item 6: the tuning grid)")
+            "(ROADMAP A7, tuning: the config grid)")
     R = Y.shape[1]
     mask = mask.to(Y.dtype)
     w = weights.to(Y.dtype) * mask            # zero out padded slots
@@ -672,11 +672,11 @@ def warmup_train_als_bucketed(user_side: BucketedRatings,
     copies stream. The port compiles nothing per shape, so the sides
     only name the call's signature; returns True. On the CPU there is
     nothing to prepare. A grid of configurations raises: the tuning grid
-    is not ported yet (ROADMAP queue A item 7)."""
+    is not ported yet (ROADMAP A7, tuning)."""
     if getattr(params, "configs", None) is not None:
         raise NotImplementedError(
             "warming up a config grid (the tuning grid) is not ported yet "
-            "(ROADMAP queue A item 7)")
+            "(ROADMAP A7, tuning)")
     dev = resolve_device(device)
     if dev.type == "cuda":
         from predictionio_tpu_torch.ops import _build

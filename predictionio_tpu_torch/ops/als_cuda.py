@@ -85,6 +85,16 @@ KERNEL_NAMES = (KERNEL_NAME, SOLVE_KERNEL_NAME)
 launches = LaunchCounter()
 assemble_launches = LaunchCounter()
 spd_launches = LaunchCounter()
+# the serving kernel's route last taken on each thread ("plain" for the
+# plain version): what the flight recorder names as the dispatch's kernel
+_route = threading.local()
+
+
+def last_route() -> Optional[str]:
+    """The route of this thread's last top-k (a kernel route, or
+    ``"plain"``), or None before its first."""
+    return getattr(_route, "last", None)
+
 
 _Y_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _bound = None
@@ -105,7 +115,7 @@ def _kernel(device: int):
             fn = lib.pio_fused_topk
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             fn.argtypes = [i, p, i, i, p, i, p, p, i, i, p, p, i, ll, ll, ll,
-                           ll, i, i, i, p, p, ll, p, p, p]
+                           ll, i, i, i, p, p, ll, p, p, p, p, p]
             fn.restype = ctypes.c_int
             err = lib.pio_cuda_error_string
             err.argtypes = [ctypes.c_int]
@@ -196,7 +206,8 @@ def _check_k(k: int, m: int) -> int:
 def fused_gather_score_topk(Q: torch.Tensor, Y, seen_cols: Optional[torch.Tensor],
                             seen_mask: Optional[torch.Tensor], *, k: int,
                             n_items: int, mask_seen: bool = True,
-                            row_valid: Optional[torch.Tensor] = None
+                            row_valid: Optional[torch.Tensor] = None,
+                            events: Optional[Tuple] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``top_k(mask(Y @ Q^T))`` per query row, the contract of the JAX
     package's ``als_pallas.fused_gather_score_topk``.
@@ -210,7 +221,13 @@ def fused_gather_score_topk(Q: torch.Tensor, Y, seen_cols: Optional[torch.Tensor
 
     Returns ``(vals [B, k] f32, idx [B, k] i32)``, rows descending, ties
     to the lowest item id, -inf past the valid candidates (the ids of
-    -inf slots are unspecified)."""
+    -inf slots are unspecified).
+
+    ``events``, a pair of ``torch.cuda.Event(enable_timing=True)``, is
+    recorded on the launching stream just before the first kernel and
+    just after the last (inside the one native launch call), so its
+    elapsed time, read once the results are on the host, is the kernels'
+    own: the flight recorder's device time."""
     data = Y.data if is_quantized(Y) else Y
     if data.device.type == "cpu":
         return fused_gather_score_topk_plain(
@@ -219,7 +236,7 @@ def fused_gather_score_topk(Q: torch.Tensor, Y, seen_cols: Optional[torch.Tensor
     if data.device.type != "cuda":
         raise ValueError(f"unsupported device {data.device}")
     return _launch(Q, Y, seen_cols, seen_mask, k=k, n_items=n_items,
-                   mask_seen=mask_seen, row_valid=row_valid)
+                   mask_seen=mask_seen, row_valid=row_valid, events=events)
 
 
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
@@ -246,7 +263,7 @@ def _check_launch(err: int, what: str, err_string) -> None:
 
 
 def _launch(Q, Y, seen_cols, seen_mask, *, k, n_items, mask_seen, row_valid,
-            route: Optional[str] = None):
+            route: Optional[str] = None, events: Optional[Tuple] = None):
     """Launch the kernel on the route :func:`topk_sort_plan` picks, or on
     ``route`` ("chunked" or "bitonic", where the shape allows it: the
     measurement of the batch at which one overtakes the other)."""
@@ -298,14 +315,23 @@ def _launch(Q, Y, seen_cols, seen_mask, *, k, n_items, mask_seen, row_valid,
     buf = torch.empty(B * (M + 2 * plan.scratch_pairs), dtype=torch.float32,
                       device=dev)
     scratch = buf.data_ptr() + B * M * 4 if plan.scratch_pairs else None
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    current = torch.cuda.current_stream(dev)
+    ev_start = ev_end = None
+    if events is not None:
+        # torch creates an event's CUDA handle at its first record; the
+        # native call records both again around the kernels
+        for ev in events:
+            ev.record(current)
+        ev_start, ev_end = events[0].cuda_event, events[1].cuda_event
     _check_launch(fn(device, Q.data_ptr(), B, R, data.data_ptr(), code, scale,
                      rv, M, int(n_items), sc_ptr, sm_ptr, L, *strides,
                      int(bool(mask_seen)), k, _ROUTE_CODE[plan.route],
                      buf.data_ptr(), scratch, plan.scratch_pairs,
-                     vals.data_ptr(), idx.data_ptr(), stream),
+                     vals.data_ptr(), idx.data_ptr(), current.cuda_stream,
+                     ev_start, ev_end),
                   "fused_topk", err_string)
     launches.add((plan.route, k, B))
+    _route.last = plan.route
     return vals, idx
 
 
@@ -313,17 +339,26 @@ def fused_gather_score_topk_plain(Q: torch.Tensor, Y,
                                   seen_cols: Optional[torch.Tensor],
                                   seen_mask: Optional[torch.Tensor], *, k: int,
                                   n_items: int, mask_seen: bool = True,
-                                  row_valid: Optional[torch.Tensor] = None
+                                  row_valid: Optional[torch.Tensor] = None,
+                                  events: Optional[Tuple] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of :func:`fused_gather_score_topk`:
     :func:`masked_scores_plain`, then a stable descending sort (so ties
     go to the lowest item id, as in ``lax.top_k``; ``torch.topk`` does
-    not promise that)."""
-    k = _check_k(k, (Y.data if is_quantized(Y) else Y).shape[0])
+    not promise that). ``events`` (CUDA tensors only) are recorded on the
+    current stream around its work."""
+    data = Y.data if is_quantized(Y) else Y
+    k = _check_k(k, data.shape[0])
+    if events is not None:
+        events[0].record(torch.cuda.current_stream(data.device))
     scores = masked_scores_plain(Q, Y, seen_cols, seen_mask, n_items=n_items,
                                  mask_seen=mask_seen, row_valid=row_valid)
     vals, order = torch.sort(scores, dim=1, descending=True, stable=True)
-    return vals[:, :k].contiguous(), order[:, :k].to(torch.int32)
+    out = vals[:, :k].contiguous(), order[:, :k].to(torch.int32)
+    if events is not None:
+        events[1].record(torch.cuda.current_stream(data.device))
+    _route.last = "plain"
+    return out
 
 
 def masked_scores_plain(Q: torch.Tensor, Y, seen_cols: Optional[torch.Tensor],

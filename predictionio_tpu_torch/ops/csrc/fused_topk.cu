@@ -744,14 +744,17 @@ int pio_topk_cluster_max_row(int device) {
 // 1) * k + min(k, last chunk) value/id pairs per query (sort_scratch may
 // be null on the other routes). scores is a [B, M] fp32 scratch. Launches
 // on `stream` of CUDA device `device`, which pio_fused_topk_init has set
-// up; returns cudaGetLastError().
+// up; returns cudaGetLastError(). ev_start / ev_end, when not null, are
+// CUDA events recorded on `stream` just before the first kernel and just
+// after the last, so their elapsed time is the kernels' own (the caller's
+// timing; no synchronisation here).
 int pio_fused_topk(int device, const float* Q, int B, int R, const void* Y, int y_dtype,
                    const float* scale, const float* row_valid, int M, int n_items,
                    const int* seen_cols, const float* seen_mask, int L,
                    long long col_sl, long long col_sb, long long mask_sl,
                    long long mask_sb, int mask_seen, int k, int route,
                    float* scores, unsigned* sort_scratch, long long scratch_pairs,
-                   float* vals, int* idx, void* stream) {
+                   float* vals, int* idx, void* stream, void* ev_start, void* ev_end) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || M <= 0 || R <= 0 || k <= 0 || k > M || (y_dtype == 2 && scale == nullptr) ||
       device < 0 || device >= MAX_DEVICES || g_cluster_max_row[device] <= 0)
@@ -775,6 +778,10 @@ int pio_fused_topk(int device, const float* Q, int B, int R, const void* Y, int 
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (ev_start != nullptr) {
+    err = cudaEventRecord(static_cast<cudaEvent_t>(ev_start), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
 
   const dim3 grid1((M + TM - 1) / TM, (B + TB - 1) / TB);
   switch (y_dtype) {
@@ -823,7 +830,10 @@ int pio_fused_topk(int device, const float* Q, int B, int R, const void* Y, int 
   } else {
     sort_row_kernel<<<B, RADIX_THREADS, 0, s>>>(scores, M, k, sort_scratch, vals, idx);
   }
-  return static_cast<int>(cudaGetLastError());
+  err = cudaGetLastError();
+  if (err == cudaSuccess && ev_end != nullptr)
+    err = cudaEventRecord(static_cast<cudaEvent_t>(ev_end), s);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -7,9 +7,14 @@ fused score -> mask -> top-k kernel (:mod:`.als_cuda`), whose k winners
 come back to the host in one copy. Concurrent single queries are
 micro-batched by :class:`BatchDispatcher`.
 
+Each launch of the serving kernel is recorded by the device flight
+recorder (:mod:`~predictionio_tpu_torch.utils.device_telemetry`) and as a
+``device.execute`` span under the query's ``device.*`` span; the
+micro-batcher feeds the ``pio_microbatch_*`` families.
+
 Not here yet (later slices): the AOT ladder (CUDA graphs on the GPU),
 live patching of user rows for fold-in, sharded stores, and the
-memory/ladder reports and telemetry hooks.
+memory/ladder reports.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from predictionio_tpu_torch.device import (
     default_serve_precision,
     resolve_device,
 )
+from predictionio_tpu_torch.ops import als_cuda
 from predictionio_tpu_torch.ops.als_cuda import TOPK_TILE_M, fused_gather_score_topk
 from predictionio_tpu_torch.ops.quantize import (
     QuantFactors,
@@ -40,6 +46,10 @@ from predictionio_tpu_torch.ops.quantize import (
     is_quantized,
     quantize_rows_int8,
 )
+from predictionio_tpu_torch.utils import device_telemetry as _dtel
+from predictionio_tpu_torch.utils import metrics as _metrics
+from predictionio_tpu_torch.utils import tracing as _tracing
+from predictionio_tpu_torch.utils.tracing import span as _trace_span
 
 SERVE_PRECISION_MODES = ("fp32", "bf16", "int8")
 
@@ -171,13 +181,17 @@ def _batch_window() -> float:
 
 class _BatchResult:
     """One batched dispatch's output, shared by every request in the
-    group; each waiting thread renders its own row."""
+    group; each waiting thread renders its own row. ``telemetry`` is the
+    flight record of the launch that produced it (None with telemetry
+    off): the waiters attach it to their ``device.*`` span."""
 
-    __slots__ = ("idx", "scores")
+    __slots__ = ("idx", "scores", "telemetry")
 
-    def __init__(self, idx: np.ndarray, scores: np.ndarray):
+    def __init__(self, idx: np.ndarray, scores: np.ndarray,
+                 telemetry: Optional[Dict[str, Any]] = None):
         self.idx = idx
         self.scores = scores
+        self.telemetry = telemetry
 
     def render(self, row: int, k: int) -> Tuple[np.ndarray, np.ndarray]:
         ri = self.idx[row, :k]
@@ -189,15 +203,22 @@ class _BatchResult:
 class _Pending:
     """One queued query: payload (uid, or item-index tuple), its k, its
     batching deadline (the EDF sort key) and the future its thread waits
-    on."""
+    on. ``arrival`` (monotonic) feeds the flight recorder's queue wait;
+    ``ctx`` carries the submitting thread's trace context, so the
+    dispatcher thread can parent ``device.execute`` under a query's
+    trace."""
 
-    __slots__ = ("payload", "k", "deadline", "seq", "future")
+    __slots__ = ("payload", "k", "deadline", "seq", "future", "arrival",
+                 "ctx")
 
-    def __init__(self, payload, k: int, deadline: float, seq: int):
+    def __init__(self, payload, k: int, deadline: float, seq: int,
+                 arrival: float, ctx=None):
         self.payload = payload
         self.k = k
         self.deadline = deadline
         self.seq = seq
+        self.arrival = arrival
+        self.ctx = ctx
         self.future: Future = Future()
 
     def __lt__(self, other: "_Pending") -> bool:
@@ -216,28 +237,60 @@ class BatchLane:
         self.max_batch = int(max_batch)
         self.dispatch_fn = dispatch_fn
         self.queue: List[_Pending] = []  # dispatcher-owned, EDF-sorted
-        # written under the dispatcher's stats lock
+        # written under the dispatcher's stats lock. `pending` counts the
+        # queries waiting anywhere (handoff deque or lane queue), so the
+        # depth gauge also covers a dispatcher busy in a dispatch
+        self.pending = 0
         self.dispatches = 0
         self.batched_queries = 0
         self.rejections = 0
         self.triggers = {"size": 0, "window": 0, "drain": 0}
+        self.depth_samples: collections.deque = collections.deque(
+            maxlen=512)
 
-    def submit(self, payload, k: int) -> Tuple[np.ndarray, np.ndarray]:
+    def submit(self, payload, k: int,
+               span=None) -> Tuple[np.ndarray, np.ndarray]:
         """Enqueue, block for the shared dispatch, render this request's
-        row. Raises :class:`QueryRejectedError` past the queue deadline."""
+        row. Raises :class:`QueryRejectedError` past the queue deadline.
+        ``span`` (a live trace span) receives the dispatch's flight
+        record as its ``dispatch`` attribute."""
         k = int(k)
         res, row = self._d.submit_wait(self, payload, k)
+        if span is not None and res.telemetry is not None:
+            span.attributes["dispatch"] = res.telemetry
         return res.render(row, k)
 
     def stats(self) -> Dict[str, Any]:
+        """The JAX package's ``batcher_stats`` shape: throughput
+        counters, dispatch triggers, batch-fill ratio and queue-depth
+        percentiles over the last 512 dispatches."""
         with self._d._stats_lock:
-            return {"batcher": self.name,
-                    "dispatches": self.dispatches,
-                    "batchedQueries": self.batched_queries,
-                    "maxBatch": self.max_batch,
-                    "windowSec": self._d.window,
-                    "dispatchTriggers": dict(self.triggers),
-                    "rejectedQueries": self.rejections}
+            depths = list(self.depth_samples)
+            st: Dict[str, Any] = {
+                "batcher": self.name,
+                "dispatches": self.dispatches,
+                "batchedQueries": self.batched_queries,
+                "queueDepth": self.pending,
+                "maxBatch": self.max_batch,
+                "windowSec": self._d.window,
+                "dispatchTriggers": dict(self.triggers),
+                "rejectedQueries": self.rejections,
+                "batchFillRatio": round(
+                    self.batched_queries
+                    / (self.dispatches * self.max_batch), 4)
+                if self.dispatches else 0.0,
+            }
+        if depths:
+            a = np.asarray(depths)
+            st["queueDepthPercentiles"] = {
+                "p50": float(np.percentile(a, 50)),
+                "p90": float(np.percentile(a, 90)),
+                "p99": float(np.percentile(a, 99)),
+                "max": int(a.max()),
+            }
+        else:
+            st["queueDepthPercentiles"] = None
+        return st
 
 
 class BatchDispatcher:
@@ -276,13 +329,24 @@ class BatchDispatcher:
 
     def enqueue(self, lane: BatchLane, payload, k: int) -> Future:
         now = time.monotonic()
-        item = _Pending(payload, k, now + self.window, next(self._seq))
+        item = _Pending(payload, k, now + self.window, next(self._seq),
+                        arrival=now, ctx=_tracing.current_trace_context())
+        # pending rises before the item is visible in the handoff, so the
+        # dispatcher's decrement can never run first
+        with self._stats_lock:
+            lane.pending += 1
         # the closed check and the append are one step against close():
         # nothing can enter the handoff after its final drain
-        with self._thread_lock:
-            if self._closed:
-                raise RuntimeError("serving backend is closed")
-            self._handoff.append((lane, item))
+        try:
+            with self._thread_lock:
+                if self._closed:
+                    raise RuntimeError("serving backend is closed")
+                self._handoff.append((lane, item))
+        except BaseException:
+            with self._stats_lock:
+                lane.pending -= 1
+            raise
+        self._set_queue_gauge(lane)
         self._wake.set()
         self._ensure_thread()
         return item.future
@@ -298,6 +362,7 @@ class BatchDispatcher:
             if fut.cancel():
                 with self._stats_lock:
                     lane.rejections += 1
+                _metrics.MICROBATCH_REJECTIONS.inc(batcher=lane.name)
                 raise QueryRejectedError(
                     f"query queued past {self._deadline}s without a device "
                     "dispatch slot; retry shortly",
@@ -337,10 +402,13 @@ class BatchDispatcher:
             self._drain_handoff()
             for lane in self._lanes:
                 leftover, lane.queue = lane.queue, []
+                with self._stats_lock:
+                    lane.pending -= len(leftover)
                 for it in leftover:
                     if it.future.set_running_or_notify_cancel():
                         it.future.set_exception(
                             RuntimeError("serving backend closed"))
+                self._set_queue_gauge(lane)
 
     # -- dispatcher thread -------------------------------------------------
 
@@ -351,6 +419,9 @@ class BatchDispatcher:
             except IndexError:
                 return
             bisect.insort(lane.queue, item)
+
+    def _set_queue_gauge(self, lane: BatchLane) -> None:
+        _metrics.MICROBATCH_QUEUE_DEPTH.set(lane.pending, batcher=lane.name)
 
     def _all_empty(self) -> bool:
         return not self._handoff and all(not ln.queue for ln in self._lanes)
@@ -404,19 +475,41 @@ class BatchDispatcher:
 
     def _dispatch(self, lane: BatchLane, trigger: str) -> None:
         q = lane.queue
+        with self._stats_lock:
+            depth = lane.pending  # waiting anywhere, handoff included
         group: List[_Pending] = []
+        popped = 0
         while q and len(group) < lane.max_batch:
             it = q.pop(0)  # EDF: the earliest deadlines form the batch
+            popped += 1
             # False: the waiter already shed it with a 503
             if it.future.set_running_or_notify_cancel():
                 group.append(it)
+        with self._stats_lock:
+            lane.pending -= popped
+        self._set_queue_gauge(lane)
         if not group:
             return
         srv = self._srv_ref()
         try:
             if srv is None:
                 raise RuntimeError("serving backend was released")
-            lane.dispatch_fn(srv, group)
+            if _dtel.enabled():
+                # what the launch site cannot see: the oldest grouped
+                # query's queue wait, the group size, and a trace parent
+                # (the dispatcher thread has no trace of its own: it
+                # borrows the first traced query's, so device.execute
+                # lands in a tree)
+                wait = max(0.0, time.monotonic()
+                           - min(it.arrival for it in group))
+                parent = next((it.ctx for it in group
+                               if it.ctx is not None), None)
+                with _dtel.dispatch_scope(queue_wait_us=wait * 1e6,
+                                          group=len(group),
+                                          trace_parent=parent):
+                    lane.dispatch_fn(srv, group)
+            else:
+                lane.dispatch_fn(srv, group)
         except BaseException as e:  # propagate to every waiter
             for it in group:
                 if not it.future.done():
@@ -431,6 +524,15 @@ class BatchDispatcher:
             lane.dispatches += 1
             lane.batched_queries += len(group)
             lane.triggers[trigger] += 1
+            lane.depth_samples.append(depth)
+        _metrics.MICROBATCH_DISPATCHES.inc(batcher=lane.name)
+        _metrics.MICROBATCH_QUERIES.inc(amount=len(group), batcher=lane.name)
+        _metrics.MICROBATCH_BATCH_SIZE.observe(len(group), batcher=lane.name)
+        _metrics.MICROBATCH_TRIGGERS.inc(batcher=lane.name, trigger=trigger)
+        _metrics.MICROBATCH_FILL.observe(len(group) / lane.max_batch,
+                                         batcher=lane.name)
+        _metrics.MICROBATCH_QUEUE_AT_DISPATCH.observe(depth,
+                                                      batcher=lane.name)
 
 
 def _k_buckets(srv: "DeviceTopK",
@@ -446,7 +548,10 @@ def _k_buckets(srv: "DeviceTopK",
 
 
 def _answer(part: List[_Pending], idx: np.ndarray, scores: np.ndarray) -> None:
-    res = _BatchResult(idx, scores)
+    # the launch just recorded on this thread (telemetry on) goes to
+    # every waiter of the part through the shared result
+    res = _BatchResult(idx, scores, telemetry=_dtel.last_record()
+                       if _dtel.enabled() else None)
     for row, it in enumerate(part):
         if not it.future.done():
             it.future.set_result((res, row))
@@ -536,6 +641,7 @@ class DeviceTopK:
             self._seen_cols = torch.from_numpy(cols).to(self.device)
             self._seen_mask = torch.from_numpy(mask).to(self.device)
         self._Yn = None  # normalized item table, built on first item query
+        _live_servers.add(self)
 
     def _to_device(self, a) -> torch.Tensor:
         if isinstance(a, torch.Tensor):
@@ -570,6 +676,8 @@ class DeviceTopK:
             self._dispatcher.close()
 
     def stats(self) -> Dict[str, Dict[str, Any]]:
+        """Micro-batcher counters (consistent snapshots; also exported
+        process-wide as the ``pio_microbatch_*`` families)."""
         out: Dict[str, Dict[str, Any]] = {}
         if self._batcher is not None:
             out["users"] = self._batcher.stats()
@@ -577,7 +685,65 @@ class DeviceTopK:
             out["items"] = self._item_batcher.stats()
         return out
 
+    def store_bytes(self) -> int:
+        """Device bytes the store holds: both factor tables (with int8
+        scales), the seen tables and the normalized item table once
+        built."""
+        total = 0
+        for t in (self._X, self._Y, self._seen_cols, self._seen_mask,
+                  self._Yn):
+            if t is None:
+                continue
+            if is_quantized(t):
+                total += t.data.nbytes + t.scale.nbytes
+            else:
+                total += t.nbytes
+        return total
+
     # -- serving ----------------------------------------------------------
+
+    def _timed_fetch(self, lane: str, kb: int, batch: int,
+                     launch: Callable[[Optional[Tuple]],
+                                      Tuple[torch.Tensor, torch.Tensor]]
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """``launch(events)`` (one launch of the serving kernel) and its
+        copy back. With telemetry on, recorded as one dispatch and one
+        ``device.execute`` span: ``hostUs`` is the host's window from the
+        launch to the end of the copy back; ``deviceUs`` the time between
+        two CUDA events the launch records on its stream just around the
+        kernels, read once the copy back (which the query waits for
+        anyway) has completed, so timing adds no synchronisation. The
+        JAX package times this window on the host clock around
+        ``block_until_ready`` instead. On the CPU there are no events:
+        no device time is recorded, and the span says so. Telemetry off
+        is the killed lane: no clock, no event."""
+        if not _dtel.enabled():
+            return self._fetch(*launch(None))
+        events = None
+        if self.device.type == "cuda":
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        t0 = _tracing.span_now()
+        out = self._fetch(*launch(events))
+        t1 = _tracing.span_now()
+        device_us = (None if events is None
+                     else events[0].elapsed_time(events[1]) * 1e3)
+        rec = _dtel.record_dispatch(
+            lane=lane, kernel=als_cuda.last_route() or "?",
+            precision=self._mode, aot="jit", k_bucket=kb, batch=batch,
+            bucket=batch, host_us=(t1 - t0) * 1e6, device_us=device_us,
+            started_epoch=t0)
+        # {} when the recorder was switched off during this launch
+        attributes = dict(rec or {})
+        if events is None:
+            attributes["deviceTiming"] = (
+                "none: no CUDA events on the CPU (the kernel's plain "
+                "version)")
+        ctx = _dtel.current_dispatch_context() or {}
+        _tracing.record_completed_span(
+            "device.execute", start=t0, end=t1, attributes=attributes,
+            parent=ctx.get("traceParent"))
+        return out
 
     def _fetch(self, vals: torch.Tensor, idx: torch.Tensor
                ) -> Tuple[np.ndarray, np.ndarray]:
@@ -589,14 +755,16 @@ class DeviceTopK:
 
     def user_topk(self, uid: int, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """(item indices, scores) for one user, descending; seen items
-        are masked on the device. Concurrent callers share one dispatch."""
-        if self._batcher is not None:
-            return self._batcher.submit(int(uid), int(k))
-        return self._user_topk_direct(uid, k)
+        are masked on the device. Concurrent callers share one dispatch.
+        The ``device.user_topk`` span covers submit to result."""
+        with _trace_span("device.user_topk", attributes={"k": int(k)}) as sp:
+            if self._batcher is not None:
+                return self._batcher.submit(int(uid), int(k), span=sp)
+            return self._user_topk_direct(uid, k)
 
     def _user_topk_direct(self, uid: int,
                           k: int) -> Tuple[np.ndarray, np.ndarray]:
-        idx, scores = self.users_topk(np.asarray([uid]), k)
+        idx, scores = self._users_topk(np.asarray([uid]), k, "user")
         idx, scores = idx[0], scores[0]
         valid = np.isfinite(scores)
         return idx[valid], scores[valid]
@@ -609,24 +777,33 @@ class DeviceTopK:
         to a power-of-two bucket, capped at n_items, as in the
         reference."""
         uids = np.asarray(uids, dtype=np.int64)
+        with _trace_span("device.users_topk",
+                         attributes={"batch": len(uids), "k": int(k)}):
+            return self._users_topk(uids, k, "users")
+
+    def _users_topk(self, uids: np.ndarray, k: int,
+                    lane: str) -> Tuple[np.ndarray, np.ndarray]:
         kb = min(_bucket(k), self.n_items)
-        u = torch.from_numpy(uids).to(self.device)
+        u = torch.from_numpy(np.asarray(uids, dtype=np.int64)).to(self.device)
         sc = sm = None
         if self._mask_seen:  # the [B, L] rows, read as [L, B] views
             sc, sm = self._seen_cols[u].T, self._seen_mask[u].T
-        vals, idx = fused_gather_score_topk(
-            _gather_rows_f32(self._X, u), self._Y, sc, sm, k=kb,
-            n_items=self.n_items, mask_seen=self._mask_seen)
-        idx, scores = self._fetch(vals, idx)
+        Q = _gather_rows_f32(self._X, u)
+        idx, scores = self._timed_fetch(
+            lane, kb, len(uids), lambda events: fused_gather_score_topk(
+                Q, self._Y, sc, sm, k=kb, n_items=self.n_items,
+                mask_seen=self._mask_seen, events=events))
         return idx[:, :k], scores[:, :k]
 
     def items_topk(self, idxs, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """Item-similarity top-k (summed cosine) for a list of query item
         indices; the query items never recommend themselves."""
-        if self._item_batcher is not None:
-            return self._item_batcher.submit(
-                tuple(int(i) for i in idxs), int(k))
-        return self._items_topk_direct(idxs, k)
+        with _trace_span("device.items_topk",
+                         attributes={"items": len(idxs), "k": int(k)}) as sp:
+            if self._item_batcher is not None:
+                return self._item_batcher.submit(
+                    tuple(int(i) for i in idxs), int(k), span=sp)
+            return self._items_topk_direct(idxs, k)
 
     def _items_topk_direct(self, idxs,
                            k: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -668,6 +845,44 @@ class DeviceTopK:
                               ).to(self.device)
         qf = _gather_rows_f32(Yn, it.long())                 # [G, B, R]
         Q = (qf * mt[..., None]).sum(dim=1)                  # [G, R]
-        vals, idx = fused_gather_score_topk(
-            Q, Yn, it.T, mt.T, k=kb, n_items=self.n_items, mask_seen=True)
-        return self._fetch(vals, idx)
+        return self._timed_fetch(
+            "items", kb, int(idxs.shape[0]),
+            lambda events: fused_gather_score_topk(
+                Q, Yn, it.T, mt.T, k=kb, n_items=self.n_items,
+                mask_seen=True, events=events))
+
+
+_live_servers: "weakref.WeakSet[DeviceTopK]" = weakref.WeakSet()
+
+
+def batcher_stats() -> List[Dict[str, Any]]:
+    """Every live micro-batch lane's stats, process-wide: the
+    ``/stats.json`` ``batchers`` list."""
+    out: List[Dict[str, Any]] = []
+    for srv in list(_live_servers):
+        out.extend(srv.stats().values())
+    return out
+
+
+def _live_store_bytes() -> float:
+    """Device bytes held by the live stores (the pull source of
+    ``pio_device_store_bytes``)."""
+    return float(sum(srv.store_bytes() for srv in list(_live_servers)))
+
+
+# a pull gauge: read at scrape time from whatever servers are live
+_metrics.DEVICE_STORE_BYTES.set_function(_live_store_bytes)
+
+
+def device_report() -> Dict[str, Any]:
+    """The ``/stats.json`` ``device`` block: each live store's bytes and
+    precision, and the flight recorder's counts and per-lane dispatch
+    summary (the JAX package's block without its ladder entries)."""
+    stores = [{"precision": srv.precision, "nUsers": srv.n_users,
+               "nItems": srv.n_items, "totalBytes": srv.store_bytes()}
+              for srv in list(_live_servers)]
+    rec = _dtel.recorder()
+    return {"telemetry": {"enabled": rec.enabled, **rec.counts()},
+            "storeBytes": sum(st["totalBytes"] for st in stores),
+            "stores": stores,
+            "dispatch": rec.summary()}

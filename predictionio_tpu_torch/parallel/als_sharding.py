@@ -3,7 +3,7 @@
 The port's copy of ``train_als_auto`` from
 ``predictionio_tpu/parallel/als_sharding.py``, single device only: the
 sharded trainers of that module come with the sharded store (ROADMAP
-queue A item 5).
+A6).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ def train_als_auto(user_side, item_side, params: ALSParams,
         if len(device) > 1:
             raise NotImplementedError(
                 f"training across {len(device)} devices is not ported yet "
-                "(ROADMAP queue A item 5: the sharded trainers); pass one "
+                "(ROADMAP A6: the sharded trainers); pass one "
                 "device")
         device = device[0] if device else None
     if isinstance(user_side, BucketedRatings):

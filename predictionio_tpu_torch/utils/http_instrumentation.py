@@ -1,0 +1,253 @@
+"""Shared HTTP-handler instrumentation for the stdlib servers.
+
+The port's copy of ``predictionio_tpu/utils/http_instrumentation.py``.
+A server's ``BaseHTTPRequestHandler`` mounts
+:class:`InstrumentedHandlerMixin` so request-id handling, trace
+propagation, response plumbing and per-route accounting are the same on
+every server, and the same as the JAX package's:
+
+- ``_dispatch_instrumented`` binds the request id (accepted from
+  ``X-Request-ID`` or minted) into the tracing contextvar, opens a
+  server span for the request (joining the caller's trace when a W3C
+  ``traceparent`` header is present, minting a fresh head-sampled trace
+  otherwise), times the request, and accounts it under
+  ``pio_http_requests_total`` / ``pio_http_request_seconds`` with the
+  subclass's server label and route pattern. The server span carries
+  method / path / status attributes and flags 5xx responses as errors,
+  so slow or failing requests land in the always-keep lane of the trace
+  buffer (the slow-query log).
+- ``_respond`` / ``_respond_bytes`` echo the request id and the
+  ``traceparent`` of the server span, and record the status the
+  accounting reads.
+- ``_respond_prometheus`` serves the registry's text exposition;
+  ``_respond_traces_index`` / ``_respond_trace`` serve the trace buffer
+  (``GET /traces.json``, ``GET /traces/<id>``: plain span tree,
+  ``?format=perfetto`` Chrome-trace-event JSON, ``?format=html``
+  timeline).
+
+Subclasses set ``metrics_server_label`` and override ``_route_label``
+(route patterns only: an id or a client-chosen name must never mint a
+new series).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import socket
+import threading
+import time
+from http.server import ThreadingHTTPServer
+from typing import Any, Dict, List, Mapping, Optional
+
+from predictionio_tpu_torch.utils import metrics, tracing
+from predictionio_tpu_torch.utils.tracing import (
+    ensure_request_id,
+    reset_request_id,
+    set_request_id,
+)
+
+
+class SeveringThreadingHTTPServer(ThreadingHTTPServer):
+    """ThreadingHTTPServer whose ``server_close`` also severs every
+    ESTABLISHED connection. The stock server only closes the listening
+    socket: established keep-alive connections stay serviceable by
+    their handler threads, so an in-process "stopped" server keeps
+    answering pooled clients — a dead host would not. Severing makes
+    ``stop()`` mean what a host death means, which the blackout /
+    dead-shard suites (and any client with a connection pool) rely on.
+    Idle keep-alive connections see a clean EOF; only a request caught
+    mid-flight gets a reset, exactly like a real crash."""
+
+    def __init__(self, *args, **kwargs):
+        self._live_conns: set = set()
+        self._live_lock = threading.Lock()
+        super().__init__(*args, **kwargs)
+
+    def get_request(self):
+        sock, addr = super().get_request()
+        with self._live_lock:
+            self._live_conns.add(sock)
+        return sock, addr
+
+    def shutdown_request(self, request):
+        with self._live_lock:
+            self._live_conns.discard(request)
+        super().shutdown_request(request)
+
+    def server_close(self):
+        super().server_close()
+        with self._live_lock:
+            conns = list(self._live_conns)
+            self._live_conns.clear()
+        for sock in conns:
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                sock.close()
+            except OSError:
+                pass
+
+
+class InstrumentedHandlerMixin:
+    """Request-id + trace + metrics plumbing over BaseHTTPRequestHandler."""
+
+    metrics_server_label = "unknown"  # subclass overrides
+
+    # headers and body go out as separate small writes; with Nagle on,
+    # the body segment waits for the headers segment's (delayed) ACK —
+    # a flat ~40ms floor under every keep-alive request on Linux
+    disable_nagle_algorithm = True
+
+    def _route_label(self, path: str) -> str:  # subclass overrides
+        return "<other>"
+
+    # -- responses ---------------------------------------------------------
+    def _respond(self, status: int, payload: Any) -> None:
+        self._respond_bytes(status, json.dumps(payload).encode("utf-8"),
+                            "application/json; charset=UTF-8")
+
+    def _respond_bytes(self, status: int, body: bytes,
+                       content_type: str,
+                       extra_headers: Optional[Mapping[str, str]] = None
+                       ) -> None:
+        self._status_sent = status
+        self.send_response(status)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(body)))
+        rid = getattr(self, "_request_id", None)
+        if rid:  # echo the request id for client-side correlation
+            self.send_header("X-Request-ID", rid)
+        tp = getattr(self, "_traceparent", None)
+        if tp:  # echo the trace context the request ran under
+            self.send_header("traceparent", tp)
+        for k, v in (extra_headers or {}).items():
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _respond_prometheus(self) -> None:
+        self._respond_bytes(
+            200, metrics.registry().render_prometheus().encode("utf-8"),
+            "text/plain; version=0.0.4; charset=utf-8")
+
+    def _respond_healthz(self, checks: Mapping[str, bool]) -> None:
+        """``GET /healthz`` — liveness + readiness in one probe, the
+        same shape on every server. Answering at all IS liveness;
+        readiness is the AND of the server's checks (deployment
+        loaded, storage breaker closed, ...), with 503 telling the
+        load balancer to route elsewhere while the process stays up."""
+        checks = {k: bool(v) for k, v in checks.items()}
+        ready = all(checks.values())
+        # pid lets a fleet scraper tell a remote member from an
+        # in-process one (tests), which shares this process's
+        # registry and must not be double-counted in federation
+        self._respond(200 if ready else 503,
+                      {"alive": True, "ready": ready, "checks": checks,
+                       "server": self.metrics_server_label,
+                       "pid": os.getpid()})
+
+    # -- trace endpoints ---------------------------------------------------
+    @staticmethod
+    def _q_first(query: Optional[Dict[str, List[str]]], key: str
+                 ) -> Optional[str]:
+        vals = (query or {}).get(key)
+        return vals[0] if vals else None
+
+    def _respond_traces_index(
+            self, query: Optional[Dict[str, List[str]]] = None) -> None:
+        """GET /traces.json — recent retained traces + the slow-query
+        log. An operator surface like /metrics (same exposure rules)."""
+        buf = tracing.trace_buffer()
+        try:
+            limit = min(int(self._q_first(query, "limit") or 50), 500)
+        except ValueError:
+            limit = 50
+        self._respond(200, {
+            "enabled": buf.enabled,
+            "sampleRate": buf.sample_rate,
+            "slowThresholdSec": buf.slow_threshold_sec,
+            "traces": buf.index(limit),
+            "slowLog": buf.slow_log(limit),
+        })
+
+    def _respond_trace(self, trace_id: str,
+                       query: Optional[Dict[str, List[str]]] = None
+                       ) -> None:
+        """GET /traces/<id> — this process's fragment of one trace:
+        span tree JSON by default, ``?format=perfetto`` (or ``chrome``)
+        for the Perfetto-loadable export, ``?format=html`` timeline."""
+        rec = tracing.trace_buffer().get(trace_id)
+        if rec is None:
+            self._respond(404, {"message": f"trace {trace_id} not found"})
+            return
+        self._respond_trace_record(rec, query)
+
+    def _respond_trace_record(
+            self, rec: Dict[str, Any],
+            query: Optional[Dict[str, List[str]]] = None) -> None:
+        """Render an already-resolved trace record in the requested
+        format (shared by the per-process lookup above and the
+        balancer's fleet-assembled ``GET /traces/<id>``)."""
+        fmt = self._q_first(query, "format") or "tree"
+        if fmt in ("perfetto", "chrome"):
+            self._respond(200, tracing.trace_to_chrome(rec))
+        elif fmt == "html":
+            self._respond_bytes(
+                200, tracing.render_trace_html(rec).encode("utf-8"),
+                "text/html; charset=utf-8")
+        else:
+            self._respond(200, rec)
+
+    # status and observability surfaces never MINT traces: a 15s
+    # Prometheus scrape, a load-balancer GET / probe or a `pio trace`
+    # poll would otherwise fill the bounded ring and evict the traces
+    # worth keeping. A caller who SENDS a traceparent is explicitly
+    # tracing, so these routes still join an existing trace (retention
+    # then rides the caller's sampling decision).
+    _UNTRACED_ROUTES = ("/", "/healthz", "/metrics", "/stats.json",
+                        "/dispatches.json", "/traces.json",
+                        "/traces/<id>")
+
+    # -- dispatch shell ----------------------------------------------------
+    def _dispatch_instrumented(self, method: str, path: str,
+                               handle) -> None:
+        """Run ``handle()`` with the request id and a server trace span
+        bound, then account the request under its route pattern."""
+        self._request_id = ensure_request_id(
+            self.headers.get("X-Request-ID"))
+        self._status_sent: Optional[int] = None
+        self._traceparent: Optional[str] = None
+        parent = tracing.parse_traceparent(self.headers.get("traceparent"))
+        route = self._route_label(path)
+        token = set_request_id(self._request_id)
+        t0 = time.perf_counter()
+        try:
+            if route in self._UNTRACED_ROUTES and parent is None:
+                handle()
+                return
+            with tracing.trace_scope(
+                    f"{self.metrics_server_label} {method} {route}",
+                    parent=parent,
+                    attributes={"method": method, "path": path,
+                                "server": self.metrics_server_label,
+                                "requestId": self._request_id}) as sp:
+                self._traceparent = tracing.current_traceparent()
+                try:
+                    handle()
+                finally:
+                    if sp is not None:
+                        status = self._status_sent or 0
+                        sp.attributes["status"] = status
+                        if status >= 500:
+                            sp.error = True
+        finally:
+            reset_request_id(token)
+            metrics.HTTP_LATENCY.observe(
+                time.perf_counter() - t0,
+                server=self.metrics_server_label, route=route)
+            metrics.HTTP_REQUESTS.inc(
+                server=self.metrics_server_label, route=route,
+                method=method, status=str(self._status_sent or 0))

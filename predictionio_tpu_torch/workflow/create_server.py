@@ -6,12 +6,19 @@ part one server needs: resolving an engine instance from storage
 :class:`Deployment` (``build_deployment``, or
 ``deployment_from_models`` for models already in memory);
 ``serve_query`` (supplement -> predict per algorithm -> serve with the
-original query); the wire JSON (``to_jsonable`` / ``query_from_json``);
-and a threaded HTTP server with ``POST /queries.json``, ``POST
-/reload`` (swap to the latest completed instance; an older one is
-refused with 409), ``GET /healthz`` and ``POST /stop``. Feedback, the
-observability routes, fleets and TLS come with later slices; fold-in
-on deploy raises (ROADMAP queue A item 3).
+original query, each stage a trace span); the wire JSON
+(``to_jsonable`` / ``query_from_json``); and a threaded HTTP server with
+``POST /queries.json``, ``POST /reload`` (swap to the latest completed
+instance; an older one is refused with 409), ``POST /stop``, and the
+observability routes under the JAX package's route labels: ``GET /``
+(status), ``/healthz``, ``/metrics`` (Prometheus text), ``/stats.json``,
+``/dispatches.json`` (the device flight recorder), ``/traces.json`` and
+``/traces/<id>`` (``?format=perfetto`` or ``html``). Every request runs
+under :class:`~predictionio_tpu_torch.utils.http_instrumentation.
+InstrumentedHandlerMixin` (request ids, ``traceparent``, per-route
+metrics). Feedback, plugins, fleets, TLS and the authenticated
+``/profile/*`` routes come with later slices; fold-in on deploy raises
+(ROADMAP queue A item 3).
 """
 
 from __future__ import annotations
@@ -21,8 +28,11 @@ import datetime as _dt
 import functools
 import json
 import logging
+import os
 import threading
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+import time
+import urllib.parse
+from http.server import BaseHTTPRequestHandler
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -40,7 +50,14 @@ from predictionio_tpu_torch.data.storage.base import (
     StorageError,
 )
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.ops import serving as _serving
 from predictionio_tpu_torch.ops.serving import QueryRejectedError
+from predictionio_tpu_torch.utils import device_telemetry, metrics, tracing
+from predictionio_tpu_torch.utils.http_instrumentation import (
+    InstrumentedHandlerMixin,
+    SeveringThreadingHTTPServer,
+)
+from predictionio_tpu_torch.utils.tracing import LatencyHistogram, span
 from predictionio_tpu_torch.workflow import core_workflow
 
 logger = logging.getLogger("pio.torch.queryserver")
@@ -268,11 +285,17 @@ def warm_up(dep: Deployment,
 
 def serve_query(dep: Deployment, query: Any) -> Any:
     """Supplement -> predict per algorithm -> serve with the ORIGINAL
-    query."""
-    supplemented = dep.serving.supplement_base(query)
-    predictions = [algo.predict_base(model, supplemented)
-                   for algo, model in zip(dep.algorithms, dep.models)]
-    return dep.serving.serve_base(query, predictions)
+    query. Each stage is a trace span, so a slow query decomposes into
+    the stage that cost it."""
+    with span("serve.supplement"):
+        supplemented = dep.serving.supplement_base(query)
+    predictions = []
+    for algo, model in zip(dep.algorithms, dep.models):
+        with span("serve.predict",
+                  attributes={"algorithm": type(algo).__name__}):
+            predictions.append(algo.predict_base(model, supplemented))
+    with span("serve.serve"):
+        return dep.serving.serve_base(query, predictions)
 
 
 def _device_ready(dep: Optional[Deployment]) -> bool:
@@ -289,7 +312,7 @@ def _device_ready(dep: Optional[Deployment]) -> bool:
     return True
 
 
-class _HTTPServer(ThreadingHTTPServer):
+class _HTTPServer(SeveringThreadingHTTPServer):
     daemon_threads = True
     # a burst of concurrent clients must not overflow the listen queue
     # (the default holds 5): a dropped connection costs its client a 1 s
@@ -309,11 +332,15 @@ class QueryServer:
         self.config = config
         self._deployment = deployment
         self._swap_lock = threading.Lock()
-        self._httpd: Optional[ThreadingHTTPServer] = None
+        # per-server latency (the status page); every record also feeds
+        # the process-wide pio_query_seconds{variant=...}
+        self.latency = LatencyHistogram()
+        self._httpd: Optional[_HTTPServer] = None
         self._thread: Optional[threading.Thread] = None
 
     def handle_query(self, body: bytes) -> Tuple[int, Any]:
         dep = self._deployment
+        t0 = time.perf_counter()
         try:
             query_dict = json.loads(body.decode("utf-8"))
             if not isinstance(query_dict, dict):
@@ -323,7 +350,9 @@ class QueryServer:
         # extraction errors are the client's fault (400); anything past
         # extraction is an engine failure (500)
         try:
-            query = query_from_json(query_dict, dep.algorithms[0].query_class)
+            with span("query.extract"):
+                query = query_from_json(query_dict,
+                                        dep.algorithms[0].query_class)
         except (ValueError, TypeError) as e:
             return 400, {"message": str(e)}
         try:
@@ -333,7 +362,12 @@ class QueryServer:
         except Exception as e:
             logger.exception("query failed")
             return 500, {"message": str(e)}
-        return 200, to_jsonable(prediction)
+        result = to_jsonable(prediction)
+        took = time.perf_counter() - t0
+        self.latency.record(took)
+        metrics.QUERY_LATENCY.observe(took,
+                                      variant=self.config.engine_variant)
+        return 200, result
 
     def reload(self) -> Dict[str, Any]:
         """Swap to the latest completed instance of the configured engine
@@ -366,6 +400,43 @@ class QueryServer:
                     "swappedFrom": None if deployed is None else deployed.id,
                     "swappedTo": latest.id}
 
+    def status(self) -> Dict[str, Any]:
+        """``GET /``: the deployment and the serving latency summary
+        (the reference's request count and running average, derived
+        from the histogram)."""
+        dep = self._deployment
+        summary = self.latency.summary()
+        inst = dep.instance if dep is not None else None
+        return {
+            "status": "alive",
+            "engineInstanceId": inst.id if inst is not None else None,
+            "engineFactory": inst.engine_factory if inst is not None
+            else None,
+            "startTime": inst.start_time.isoformat() if inst is not None
+            else None,
+            "algorithms": [type(a).__name__ for a in dep.algorithms]
+            if dep is not None else [],
+            "requestCount": summary.get("count", 0),
+            "avgServingSec": summary.get("meanSec", 0.0),
+            "lastServingSec": summary.get("lastSec", 0.0),
+            "servingLatency": summary,
+        }
+
+    def stats_json(self) -> Dict[str, Any]:
+        """``GET /stats.json``: the status page, the live micro-batch
+        lanes' stats, the ``device`` block (store bytes, flight-recorder
+        summary) and the registry snapshot (the state ``GET /metrics``
+        renders as Prometheus text)."""
+        return {**self.status(),
+                "batchers": _serving.batcher_stats(),
+                "device": _serving.device_report(),
+                "metrics": metrics.registry().snapshot()}
+
+    def dispatches_json(self, limit: int = 100) -> Dict[str, Any]:
+        """``GET /dispatches.json``: the device flight recorder's last
+        ``limit`` dispatches and per-lane summaries."""
+        return device_telemetry.recorder().report(limit=limit)
+
     def health_checks(self) -> Dict[str, bool]:
         """Readiness for ``GET /healthz``: a deployment is loaded and its
         device answers."""
@@ -374,7 +445,14 @@ class QueryServer:
 
     def start(self) -> "QueryServer":
         """Warm the deployment, bind (port 0 picks a free port) and serve
-        on a daemon thread."""
+        on a daemon thread. The build counters are live from here, so the
+        kernels' builds at warm-up land in ``pio_jit_compiles_total``;
+        ``$PIO_TRACE_DIR``, as for the JAX package's ``pio deploy``,
+        exports every retained trace there."""
+        metrics.install_jit_compile_listener()
+        trace_dir = os.environ.get("PIO_TRACE_DIR")
+        if trace_dir:
+            tracing.set_trace_dir(trace_dir)
         warm_up(self._deployment, self.config.warmup_query)
         server = self
 
@@ -412,51 +490,92 @@ class QueryServer:
                 srv.close()
 
 
-class _QueryHandler(BaseHTTPRequestHandler):
+class _QueryHandler(InstrumentedHandlerMixin, BaseHTTPRequestHandler):
     query_server: QueryServer
     protocol_version = "HTTP/1.1"
+    metrics_server_label = "query"
+
+    # the JAX query server's route labels; /profile/* and /plugins.json
+    # are not served here yet and count under their own labels as 404s
+    _ROUTES = ("/", "/healthz", "/metrics", "/stats.json",
+               "/dispatches.json", "/plugins.json", "/queries.json",
+               "/profile/start", "/profile/stop", "/reload", "/stop",
+               "/traces.json")
 
     def log_message(self, fmt, *args):
         logger.debug("%s - %s", self.address_string(), fmt % args)
-
-    def _respond(self, status: int, payload: Any,
-                 headers: Optional[Dict[str, str]] = None) -> None:
-        body = json.dumps(payload).encode("utf-8")
-        self.send_response(status)
-        self.send_header("Content-Type", "application/json; charset=UTF-8")
-        self.send_header("Content-Length", str(len(body)))
-        for name, value in (headers or {}).items():
-            self.send_header(name, value)
-        self.end_headers()
-        self.wfile.write(body)
 
     def _body(self) -> bytes:
         length = int(self.headers.get("Content-Length") or 0)
         return self.rfile.read(length) if length else b""
 
+    def _route_label(self, path: str) -> str:
+        if path.startswith("/traces/"):
+            return "/traces/<id>"
+        return path if path in self._ROUTES else "<other>"
+
+    def _dispatch(self, method: str) -> None:
+        parsed = urllib.parse.urlsplit(self.path)
+        path = parsed.path.rstrip("/") or "/"
+        query = urllib.parse.parse_qs(parsed.query)
+        handle = (lambda: self._do_get(path, query)) if method == "GET" \
+            else (lambda: self._do_post(path))
+        self._dispatch_instrumented(method, path, handle)
+
     def do_GET(self):
+        self._dispatch("GET")
+
+    def do_POST(self):
+        self._dispatch("POST")
+
+    def _do_get(self, path: str, query) -> None:
+        srv = self.query_server
         self._body()
-        if self.path.split("?", 1)[0].rstrip("/") == "/healthz":
-            checks = self.query_server.health_checks()
-            ready = all(checks.values())
-            self._respond(200 if ready else 503,
-                          {"alive": True, "ready": ready, "checks": checks})
+        if path == "/":
+            self._respond(200, srv.status())
+        elif path == "/healthz":
+            self._respond_healthz(srv.health_checks())
+        elif path == "/metrics":
+            self._respond_prometheus()
+        elif path == "/stats.json":
+            self._respond(200, srv.stats_json())
+        elif path == "/dispatches.json":
+            try:
+                limit = min(int(self._q_first(query, "limit") or 100),
+                            2048)
+            except ValueError:
+                limit = 100
+            self._respond(200, srv.dispatches_json(limit=limit))
+        elif path == "/traces.json":
+            self._respond_traces_index(query)
+        elif path.startswith("/traces/"):
+            self._respond_trace(path[len("/traces/"):], query)
         else:
             self._respond(404, {"message": "Not Found"})
 
-    def do_POST(self):
+    def _do_post(self, path: str) -> None:
         body = self._body()
-        path = self.path.split("?", 1)[0].rstrip("/")
+        try:
+            self._route_post(path, body)
+        except Exception as e:
+            logger.exception("unhandled error on POST %s", path)
+            try:
+                self._respond(500, {"message": str(e)})
+            except Exception:
+                pass
+
+    def _route_post(self, path: str, body: bytes) -> None:
+        srv = self.query_server
         if path == "/queries.json":
-            status, payload = self.query_server.handle_query(body)
+            status, payload = srv.handle_query(body)
             headers = None
             if status == 503 and "retryAfterSec" in payload:
                 headers = {"Retry-After":
                            str(max(1, int(payload["retryAfterSec"])))}
-            self._respond(status, payload, headers)
+            self._respond_json(status, payload, headers)
         elif path == "/reload":
             try:
-                info = self.query_server.reload()
+                info = srv.reload()
             except ReloadDowngradeError as e:
                 self._respond(409, {"message": str(e)})
                 return
@@ -466,9 +585,14 @@ class _QueryHandler(BaseHTTPRequestHandler):
             self._respond(200, {"message": "Reloading...", **info})
         elif path == "/stop":
             self.close_connection = True
-            self._respond(200, {"message": "Shutting down."},
-                          {"Connection": "close"})
-            threading.Thread(target=self.query_server.stop,
-                             daemon=True).start()
+            self._respond_json(200, {"message": "Shutting down."},
+                               {"Connection": "close"})
+            threading.Thread(target=srv.stop, daemon=True).start()
         else:
             self._respond(404, {"message": "Not Found"})
+
+    def _respond_json(self, status: int, payload: Any,
+                      headers: Optional[Dict[str, str]] = None) -> None:
+        self._respond_bytes(status, json.dumps(payload).encode("utf-8"),
+                            "application/json; charset=UTF-8",
+                            extra_headers=headers)

@@ -413,7 +413,7 @@ class TestNotImplemented:
                              extra_ridge=torch.ones(6))
 
     def test_several_devices_raise(self, sides):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A item 5"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
             train_als_auto(*sides, tals.ALSParams(rank=4), [CPU, CPU])
 
     def test_no_gpu_raises(self, sides):

@@ -181,7 +181,7 @@ def test_cpu_staging_is_synchronous_and_warmup_needs_nothing():
     class Grid:
         configs = [tals.ALSParams()]
 
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         tals.warmup_train_als_bucketed(us, us, Grid(), device="cpu")
 
 

@@ -15,6 +15,7 @@ the scores are separated.
 
 import dataclasses
 import json
+import os
 import threading
 import urllib.error
 import urllib.request
@@ -179,9 +180,11 @@ class TestQueriesAgainstJax:
 class TestServerSurface:
     def test_healthz_and_errors(self, port_server):
         base, _ = port_server
+        # the JAX package's /healthz shape: the server label and pid too
         assert call(base + "/healthz", method="GET") == (200, {
             "alive": True, "ready": True,
-            "checks": {"deployment": True, "device": True}})
+            "checks": {"deployment": True, "device": True},
+            "server": "query", "pid": os.getpid()})
         status, body = call(base + "/queries.json", raw=b"{not json")
         assert status == 400
         status, body = call(base + "/queries.json", payload=[1, 2])
