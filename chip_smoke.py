@@ -132,6 +132,27 @@ Phases (any failure raises and the script exits non-zero):
    model's), and a reload to the older instance must answer 409. The
    second process must have launched the top-k kernel. Each step's
    seconds are printed.
+6b. The quick start through the port's console, at phase 6's size and
+   with its events and variant: every step is a subprocess of
+   ``python -m predictionio_tpu_torch.tools.console`` over a sqlite
+   store of its own. ``pio app new ML1M``, ``pio accesskey list``;
+   ``pio import`` loads the 1,000,209 ratings from a JSONL file in the
+   export format (events/s); ``pio eventserver --port 0`` takes the
+   1,000 extra ``rate`` and the 3,706 item ``$set`` events through
+   ``POST /batch/events.json`` (50 a request, 8 client threads) and 100
+   ``view`` events one ``POST /events.json`` each (events/s, a batch
+   request's p50 and p99), so the store holds phase 6's events in phase
+   6's order; ``pio template get recommendation``, ``pio
+   build`` and ``pio train --trace-dir`` on the card (read, prepare and
+   train seconds from the exported ``dase.*`` spans; both training
+   kernels must launch; the largest factor distance to phase 6's first
+   instance); ``pio deploy`` as a child answers phase 6's queries equal
+   to the model loaded in-process from its own instance, and its
+   ``/dispatches.json`` holds flight records with CUDA-event time;
+   ``POST /profile/start``, ``/profile/stop`` and a second stop (409);
+   ``pio undeploy`` (the child must have launched the top-k kernel, and
+   the port answer nothing after); ``pio export`` writes one line per
+   event written.
 7. Model quality on ``bench_quality.run``'s protocol at its shape
    (943 x 1,682 x 100,000, leave-last-2-out, rank 32, 10 iterations):
    Precision@10 and NDCG@10 of the port's trainer at seeds 3, 17 and
@@ -2514,7 +2535,8 @@ def lifecycle(seed: int) -> dict:
                 "train_s": [first["seconds"], second["seconds"]],
                 "deploy_s": hello["deploy_s"], "first_answer_s": first_answer,
                 "reload_s": reload_s, "queries_during_reload": len(statuses),
-                "child_launches": counts["launches"]}
+                "child_launches": counts["launches"],
+                "first_factors": factors_by_id(first["model"])}
     finally:
         if child is not None and child.poll() is None:
             child.kill()
@@ -2523,9 +2545,9 @@ def lifecycle(seed: int) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def read_line(proc, timeout: float) -> dict:
-    """The next JSON line ``proc`` prints, waiting at most ``timeout``
-    seconds."""
+def read_line(proc, timeout: float, raw: bool = False):
+    """The next line ``proc`` prints (parsed as JSON unless ``raw``),
+    waiting at most ``timeout`` seconds."""
     import queue
 
     box: queue.Queue = queue.Queue()
@@ -2539,7 +2561,7 @@ def read_line(proc, timeout: float) -> dict:
     if not line:
         raise AssertionError(f"the second process ended (exit "
                              f"{proc.wait(timeout=60)}) without a line")
-    return json.loads(line)
+    return line if raw else json.loads(line)
 
 
 def post_status(url: str) -> int:
@@ -2547,6 +2569,441 @@ def post_status(url: str) -> int:
         return post(url, {})[0]
     except urllib.error.HTTPError as e:
         return e.code
+
+
+# -- phase 6b: the quick start through the console --------------------------------
+
+QS_APP = "ML1M"
+QS_SINGLES = 100        # view events, one POST /events.json each
+QS_BATCH = 50           # events per POST /batch/events.json (the cap)
+QS_CLIENTS = 8
+CONSOLE = [sys.executable, "-m", "predictionio_tpu_torch.tools.console"]
+
+
+def factors_by_id(model) -> dict:
+    """Each side's factors keyed by entity id: side -> (sorted ids,
+    rows in that order)."""
+    out = {}
+    for side, bimap, X in (("user", model.user_map, model.user_factors),
+                           ("item", model.item_map, model.item_factors)):
+        labels = np.asarray(bimap.labels)
+        order = np.argsort(labels)
+        out[side] = (labels[order], np.asarray(X, dtype=np.float32)[order])
+    return out
+
+
+def console_env(store: str) -> dict:
+    """The children's environment: the checkout importable, and one
+    sqlite source for every repository (no other PIO_STORAGE_*)."""
+    import os
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PIO_STORAGE_")}
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    env["PIO_STORAGE_SOURCES_QS_TYPE"] = "sqlite"
+    env["PIO_STORAGE_SOURCES_QS_PATH"] = store
+    return env
+
+
+def pio(args: list, env: dict, cwd: str, timeout: float = 600) -> tuple:
+    """One ``pio`` verb as a subprocess; (stdout, seconds). A non-zero
+    exit raises with the verb's stderr."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(CONSOLE + args, env=env, cwd=cwd,
+                          capture_output=True, text=True, timeout=timeout)
+    took = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"pio {' '.join(args)} exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout, took
+
+
+def pio_child(args: list, env: dict, cwd: str, ready: str,
+              timeout: float = 300) -> tuple:
+    """A long-running ``pio`` verb; (process, base URL, seconds until it
+    printed ``<ready> <its address>``)."""
+    import re
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(CONSOLE + args, env=env, cwd=cwd,
+                            stdout=subprocess.PIPE, text=True)
+    line = read_line(proc, timeout, raw=True)
+    found = re.search(ready + r" (http://[0-9.]+:\d+)", line)
+    if found is None:
+        proc.kill()
+        raise AssertionError(f"pio {args[0]} printed {line!r}")
+    return proc, found.group(1), time.perf_counter() - t0
+
+
+def qs_ratings_jsonl(path: str, ratings: tuple) -> int:
+    """Phase 6's 1,000,209 ratings as a JSONL file in ``pio export``'s
+    format (``Event.to_json``: sorted keys, ids ``ev<j>``, event and
+    creation time ``base + j`` seconds)."""
+    import datetime as dt
+
+    from predictionio_tpu_torch.data.event import Event
+
+    rows, cols, values, _ = ratings
+    base = int(dt.datetime(2003, 2, 28, tzinfo=dt.timezone.utc).timestamp())
+    times = np.datetime_as_string(
+        (base + np.arange(len(rows))).astype("datetime64[s]")).tolist()
+    line = ('{"creationTime": "%s+00:00", "entityId": "u%d", '
+            '"entityType": "user", "event": "rate", "eventId": "ev%d", '
+            '"eventTime": "%s+00:00", "properties": {"rating": %r}, '
+            '"targetEntityId": "i%d", "targetEntityType": "item"}\n')
+    users = rows.tolist()
+    with open(path, "w", encoding="utf-8") as f:
+        f.writelines(line % (t, u, j, t, r, i) for j, (t, u, r, i) in
+                     enumerate(zip(times, users, values.tolist(),
+                                   cols.tolist())))
+    with open(path, encoding="utf-8") as f:
+        head = [f.readline() for _ in range(3)]
+    for text in head:   # the template is the export format, byte for byte
+        if Event.from_json(text).to_json() + "\n" != text:
+            raise AssertionError(f"not the export format: {text!r}")
+    return len(users)
+
+
+def qs_front_door_events(seed: int, ratings: tuple) -> tuple:
+    """Phase 6's 1,000 extra ``rate`` and 3,706 ``$set`` events as event
+    JSON, and 100 ``view`` events (read by no training: the template
+    reads ``rate``)."""
+    import datetime as dt
+
+    cats = ratings[3]
+    rng = np.random.default_rng(seed + 7)   # phase 6's draws, in order
+    when = dt.datetime(2003, 3, 1, tzinfo=dt.timezone.utc).isoformat()
+    extra = [{"event": "rate", "entityType": "user",
+              "entityId": f"u{rng.integers(0, ML1M_USERS)}",
+              "targetEntityType": "item",
+              "targetEntityId": f"i{rng.integers(0, ML1M_ITEMS)}",
+              "properties": {"rating": float(rng.integers(1, 11) * 0.5)},
+              "eventTime": when} for _ in range(1_000)]
+    sets = [{"event": "$set", "entityType": "item", "entityId": iid,
+             "properties": {"categories": list(c)}, "eventTime": when}
+            for iid, c in cats.items()]
+    views = [{"event": "view", "entityType": "user", "entityId": f"u{j}",
+              "targetEntityType": "item", "targetEntityId": f"i{j}",
+              "eventTime": when} for j in range(QS_SINGLES)]
+    return extra + sets, views
+
+
+def qs_event_server(base: str, key: str, batch_events: list,
+                    singles: list) -> dict:
+    """The batch events, 50 a request from 8 client threads, then the
+    singles one request each; every item must answer 201."""
+    url = f"{base}/batch/events.json?accessKey={key}"
+    chunks = [batch_events[a:a + QS_BATCH]
+              for a in range(0, len(batch_events), QS_BATCH)]
+    latencies, bad = [], []
+
+    def client(mine):
+        for chunk in mine:
+            t = time.perf_counter()
+            try:
+                status, items, _ = post(url, chunk)
+            except Exception as e:  # reported below; the phase then fails
+                bad.append(repr(e))
+                continue
+            latencies.append(time.perf_counter() - t)
+            if status != 200:
+                bad.append(status)
+            bad.extend(x for x in items if x.get("status") != 201)
+
+    threads = [threading.Thread(target=client,
+                                args=(chunks[c::QS_CLIENTS],))
+               for c in range(QS_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    batch_s = time.perf_counter() - t0
+    if bad or len(latencies) != len(chunks):
+        raise AssertionError(f"{len(bad)} batch items refused, "
+                             f"{len(latencies)}/{len(chunks)} requests "
+                             f"answered: {bad[:3]}")
+    t1 = time.perf_counter()
+    for ev in singles:
+        status, reply, _ = post(f"{base}/events.json?accessKey={key}", ev)
+        if status != 201:
+            raise AssertionError(f"POST /events.json answered {status} "
+                                 f"{reply}")
+    singles_s = time.perf_counter() - t1
+    ms = np.asarray(latencies) * 1e3
+    return {"batch_events": len(batch_events), "requests": len(chunks),
+            "batch_s": batch_s,
+            "batch_events_per_s": len(batch_events) / batch_s,
+            "batch_p50_ms": float(np.percentile(ms, 50)),
+            "batch_p99_ms": float(np.percentile(ms, 99)),
+            "singles": len(singles), "singles_s": singles_s,
+            "singles_events_per_s": len(singles) / singles_s}
+
+
+def dase_seconds(trace_dir: str) -> dict:
+    """Read, prepare and train seconds of the ``pio.train`` trace the
+    child exported."""
+    from predictionio_tpu_torch.utils import tracing
+
+    roots = [r for r in tracing.load_traces_from_dir(trace_dir)
+             if r.get("root") == "pio.train"]
+    if len(roots) != 1:
+        raise AssertionError(f"{len(roots)} pio.train traces in "
+                             f"{trace_dir}")
+    out = {sp["name"][len("dase."):]: sp["durationSec"]
+           for sp in roots[0]["spans"]
+           if sp["name"] in ("dase.read", "dase.prepare", "dase.train")}
+    if len(out) != 3:
+        raise AssertionError(f"the trace holds dase spans {sorted(out)}")
+    return out
+
+
+def launches_line(stdout: str) -> dict:
+    """The kernel launches a ``pio train`` or ``pio deploy`` child
+    printed (its wrappers' counts)."""
+    head = "[INFO] Kernel launches: "
+    for line in stdout.splitlines():
+        if line.startswith(head):
+            return json.loads(line[len(head):])
+    raise AssertionError(f"no kernel launch line in {stdout[-500:]!r}")
+
+
+def qs_engine(work: str, env: dict, key: str, seed: int) -> dict:
+    """``pio accesskey list``, ``pio template get recommendation`` with
+    phase 6's variant written into its ``engine.json``, then ``pio
+    build``; the seconds of each verb's process."""
+    import os
+
+    took = {}
+    listed, took["accesskey list"] = pio(["accesskey", "list"], env, work)
+    if key not in listed:
+        raise AssertionError(f"pio accesskey list: {listed!r}")
+    eng = os.path.join(work, "eng")
+    _, took["template get"] = pio(["template", "get", "recommendation", eng],
+                                  env, work)
+    variant_path = os.path.join(eng, "engine.json")
+    with open(variant_path, encoding="utf-8") as f:
+        variant = json.load(f)
+    want = lifecycle_variant(seed)
+    want["datasource"]["params"]["appName"] = QS_APP
+    for stage in ("datasource", "preparator", "algorithms"):
+        variant[stage] = want[stage]
+    with open(variant_path, "w", encoding="utf-8") as f:
+        json.dump(variant, f)
+    _, took["build"] = pio(["build"], env, eng)
+    return took
+
+
+def quick_start(seed: int, cycle: dict, card: str) -> dict:
+    """Phase 6b: PredictionIO's quick start through the port's console,
+    each verb a subprocess, at phase 6's size, events and variant. The
+    short verbs run beside the writing of the import file, and ``pio
+    export`` (the store takes no more writes after the event server)
+    beside the deployment's checks; every step's seconds are printed."""
+    import os
+    import re
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.workflow.create_server import (
+        build_deployment,
+        resolve_engine_instance,
+    )
+
+    work = tempfile.mkdtemp(prefix="pio-quickstart-")
+    store = os.path.join(work, "pio.db")
+    eng = os.path.join(work, "eng")
+    env = console_env(store)
+    env["PIO_PROFILE_DIR"] = os.path.join(work, "profiles")
+    children = []
+    steps: dict = {}    # step -> seconds, printed at the end
+    out: dict = {"steps": steps}
+    try:
+        said, steps["app new"] = pio(["app", "new", QS_APP], env, work)
+        key = re.search(r"Access Key: (\S+)", said).group(1)
+
+        # the ratings go in first, as in phase 6: the streaming read takes
+        # the store in its storage order, which fixes the index each id
+        # gets, and so each factor's initial value
+        with ThreadPoolExecutor(1) as pool:
+            verbs = pool.submit(qs_engine, work, env, key, seed)
+            t = time.perf_counter()
+            ratings = ml1m_ratings(seed)
+            steps["ratings draw"] = time.perf_counter() - t
+            jsonl = os.path.join(work, "ratings.jsonl")
+            t = time.perf_counter()
+            n_import = qs_ratings_jsonl(jsonl, ratings)
+            steps["JSONL write"] = time.perf_counter() - t
+            t = time.perf_counter()
+            steps.update(verbs.result())
+            steps["short verbs' wait"] = time.perf_counter() - t
+        said, import_s = pio(["import", "--app-name", QS_APP, "--input",
+                              jsonl], env, work)
+        steps["import"] = import_s
+        if f"({n_import} events)" not in said:
+            raise AssertionError(f"pio import said {said!r}")
+        out["import"] = {"events": n_import, "s": import_s,
+                         "events_per_s": n_import / import_s}
+        print(f"[quickstart] pio import: {n_import} events in "
+              f"{import_s!r} s, {n_import / import_s!r} events/s "
+              f"(the process's start included; {card})")
+
+        es, es_base, steps["eventserver ready"] = pio_child(
+            ["eventserver", "--ip", "127.0.0.1", "--port", "0"], env, work,
+            "Event Server is ready at")
+        children.append(es)
+        batch_events, singles = qs_front_door_events(seed, ratings)
+        e = out["event_server"] = qs_event_server(es_base, key,
+                                                  batch_events, singles)
+        steps["event server batches"] = e["batch_s"]
+        steps["event server singles"] = e["singles_s"]
+        t = time.perf_counter()
+        es.terminate()
+        es.wait(timeout=60)
+        steps["eventserver stop"] = time.perf_counter() - t
+        print(f"[quickstart] event server: {e['batch_events']} events in "
+              f"{e['requests']} batch requests from {QS_CLIENTS} clients, "
+              f"{e['batch_events_per_s']!r} events/s, batch request p50 "
+              f"{e['batch_p50_ms']!r} ms p99 {e['batch_p99_ms']!r} ms; "
+              f"{e['singles']} single posts at "
+              f"{e['singles_events_per_s']!r} events/s ({card})")
+
+        trace_dir = os.path.join(work, "traces")
+        said, train_s = pio(["train", "--trace-dir", trace_dir], env, eng)
+        steps["train"] = train_s
+        iid = re.search(r"Engine instance ID: (\S+)", said).group(1)
+        launched = launches_line(said)
+        if not all(launched.values()):
+            raise AssertionError(f"pio train launched {launched}")
+        stages = dase_seconds(trace_dir)
+        out["train"] = {"instance": iid, "s": train_s, **stages,
+                        "launches": launched}
+
+        # the model from its own instance, loaded in this process
+        t = time.perf_counter()
+        storage.reset(storage.StorageConfig(
+            {"QS": {"type": "sqlite", "path": store}},
+            {r: "QS" for r in storage.REPOSITORIES}))
+        instance = resolve_engine_instance(None, "default", "default",
+                                           "engine.json")
+        if instance.id != iid:
+            raise AssertionError(f"latest instance {instance.id}, "
+                                 f"trained {iid}")
+        model = build_deployment(instance).models[0]
+        steps["in-process load"] = time.perf_counter() - t
+        mine, first = factors_by_id(model), cycle["first_factors"]
+        dist = 0.0
+        for side in ("user", "item"):
+            if mine[side][0].tolist() != first[side][0].tolist():
+                raise AssertionError(f"the {side} ids differ from phase 6's")
+            dist = max(dist, float(np.abs(mine[side][1]
+                                          - first[side][1]).max()))
+        out["train"]["factor_distance"] = dist
+        print(f"[quickstart] pio train {iid}: {train_s!r} s (process), "
+              f"read {stages['read']!r} s, prepare {stages['prepare']!r} "
+              f"s, train {stages['train']!r} s (dase spans); launches "
+              f"{launched}; largest factor distance to phase 6's first "
+              f"instance {dist!r} ({card})")
+        if not dist <= 1e-3:
+            raise AssertionError(f"the factors are {dist} from phase 6's")
+
+        queries = lifecycle_queries(seed)
+        t = time.perf_counter()
+        want_answers = in_process_answers(model, queries)
+        steps["in-process answers"] = time.perf_counter() - t
+        dep, base, deploy_s = pio_child(
+            ["deploy", "--ip", "127.0.0.1", "--port", "0"], env, eng,
+            "Engine API is live at")
+        children.append(dep)
+        steps["deploy ready"] = deploy_s
+        exported = os.path.join(work, "export.jsonl")
+        t_export = time.perf_counter()
+        export = subprocess.Popen(
+            CONSOLE + ["export", "--app-name", QS_APP, "--output", exported],
+            env=env, cwd=work, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)
+        children.append(export)
+        t = time.perf_counter()
+        got = [post(base + "/queries.json", q) for q in queries]
+        bad = [(q, g[:2]) for q, g, w in zip(queries, got, want_answers)
+               if g[0] != 200 or g[1] != w]
+        if bad:
+            raise AssertionError(f"{len(bad)} deployed answers differ from "
+                                 f"the instance's in-process answers: "
+                                 f"{bad[:3]}")
+        records = get_json(base + "/dispatches.json?limit=2048")
+        timed = [r for r in records["dispatches"]
+                 if r.get("deviceUs") is not None]
+        if not timed:
+            raise AssertionError(f"/dispatches.json holds no record with "
+                                 f"CUDA-event time: {records['summary']}")
+        steps["deployed queries"] = time.perf_counter() - t
+        t = time.perf_counter()
+        codes = [post_status(base + path) for path in
+                 ("/profile/start", "/profile/stop", "/profile/stop")]
+        if codes != [200, 200, 409]:
+            raise AssertionError(f"/profile/start, stop, stop answered "
+                                 f"{codes}")
+        steps["profile start, stop, stop"] = time.perf_counter() - t
+        port = base.rsplit(":", 1)[1]
+        _, steps["undeploy"] = pio(["undeploy", "--ip", "127.0.0.1",
+                                    "--port", port], env, eng)
+        t = time.perf_counter()
+        tail = dep.stdout.read()
+        if dep.wait(timeout=60) != 0:
+            raise AssertionError(f"pio deploy exited {dep.returncode}")
+        steps["deploy exit"] = time.perf_counter() - t
+        served = launches_line(tail)
+        if not served["fused_gather_score_topk"]:
+            raise AssertionError(f"pio deploy launched {served}")
+        try:
+            urllib.request.urlopen(base + "/", timeout=5)
+        except urllib.error.URLError:
+            pass
+        else:
+            raise AssertionError("the port still answers after undeploy")
+        out["deploy"] = {"s": deploy_s, "queries": len(got),
+                         "timed_records": len(timed), "launches": served}
+        print(f"[quickstart] pio deploy ready in {deploy_s!r} s; "
+              f"{len(got)} answers equal the instance's in-process "
+              f"answers; {len(timed)} flight records with CUDA-event "
+              f"time; /profile/start, stop, stop: {codes}; undeployed; "
+              f"launches {served} ({card})")
+
+        t = time.perf_counter()
+        _, err = export.communicate(timeout=600)
+        steps["export wait"] = time.perf_counter() - t
+        export_s = time.perf_counter() - t_export
+        if export.returncode != 0:
+            raise AssertionError(f"pio export exited {export.returncode}: "
+                                 f"{err[-2000:]}")
+        with open(exported, "rb") as f:
+            lines = sum(block.count(b"\n")
+                        for block in iter(lambda: f.read(1 << 24), b""))
+        written = n_import + len(batch_events) + len(singles)
+        if lines != written:
+            raise AssertionError(f"pio export wrote {lines} lines, "
+                                 f"{written} events were written")
+        out["export"] = {"lines": lines, "s": export_s}
+        print(f"[quickstart] pio export: {lines} lines (the events "
+              f"written) in {export_s!r} s, beside the deployment's "
+              f"checks and undeploy")
+        print("[quickstart] step seconds: " + ", ".join(
+            f"{k} {v!r}" for k, v in steps.items()) + "; the short verbs "
+            "ran beside the ratings draw and JSONL write, and export "
+            "beside the deployed queries, profile, undeploy and deploy "
+            "exit")
+        return out
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait(timeout=60)
+        storage.reset()
+        shutil.rmtree(work, ignore_errors=True)
 
 
 # -- phase 7: model quality --------------------------------------------------------
@@ -2789,6 +3246,7 @@ def main() -> int:
     train_times = phase("4b training kernel times", training_timings, dev,
                         trained)
     cycle = phase("6 lifecycle", lifecycle, args.seed)
+    started = phase("6b quick start", quick_start, args.seed, cycle, card)
     scored = phase("7 quality", quality, dev)
     # the line's headline shape: a full micro-batch (B=256) at the
     # default k bucket (16) on the default GPU store (bf16)
@@ -2842,6 +3300,9 @@ def main() -> int:
           f"{trained['prepare_s']!r} s; scale ingest {ingest['ingest_s']!r} "
           f"s (overlap {ingest['overlap']!r}); lifecycle deploy "
           f"{cycle['deploy_s']!r} s, reload {cycle['reload_s']!r} s; "
+          f"quick start import "
+          f"{started['import']['events_per_s']!r} events/s, event server "
+          f"{started['event_server']['batch_events_per_s']!r} events/s; "
           f"Precision@10 {scored['precision_at_10']!r} "
           f"({scored['ratio_vs_plain']!r} of plain, lift "
           f"{scored['lift_vs_popularity']!r})")

@@ -19,9 +19,8 @@ with storage resilience (ROADMAP queue A item 2.5); every
 ``aggregate_properties`` read is counted as in the JAX package
 (``pio_aggregate_hits_total``, ``pio_aggregate_replays_total``). The
 tail reads (``find_since``, ``tail_cursor``, ``tail_watermark``) raise
-``StorageError`` here, as in the JAX package; ``jsonlfs`` implements
-them, and the memory and sqlite backends get them with fold-in (ROADMAP
-queue A item 3).
+``StorageError`` here, as in the JAX package; the ``jsonlfs``, memory
+and sqlite backends implement them.
 """
 
 from __future__ import annotations

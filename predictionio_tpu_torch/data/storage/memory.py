@@ -6,16 +6,15 @@ range is [start, until), equality filters on entity/event/target fields,
 ``target_entity_type=None`` (explicitly) matches only events WITHOUT a
 target entity.
 
-The port's copy of ``predictionio_tpu/data/storage/memory.py`` without
-the tail reads (``find_since``), which come with fold-in (ROADMAP queue
-A item 3).
+The port's copy of ``predictionio_tpu/data/storage/memory.py``, tail
+reads included.
 """
 
 from __future__ import annotations
 
 import itertools
 import threading
-from typing import Any, Dict, Iterable, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 from predictionio_tpu_torch.data.aggregator import (
     AGGREGATOR_EVENT_NAMES,
@@ -27,7 +26,6 @@ from predictionio_tpu_torch.data.aggregator import (
 from predictionio_tpu_torch.data.datamap import PropertyMap
 from predictionio_tpu_torch.data.event import Event, new_event_id, validate_event
 from predictionio_tpu_torch.data.storage import base
-from predictionio_tpu_torch.utils import metrics
 from predictionio_tpu_torch.data.storage.base import (
     UNSET, AccessKey, App, Channel, EngineInstance, EvaluationInstance, Model,
 )
@@ -63,6 +61,9 @@ def match_event(
 
 class MemLEvents(base.LEvents):
     metrics_backend = "memory"
+    # insert is an upsert keyed by event id: a retried insert with the
+    # same (pre-assigned) ids replays to the identical state
+    idempotent_event_writes = True
 
     def __init__(self, config: Optional[dict] = None):
         # (app_id, channel_id) -> {event_id: Event}; insertion order kept
@@ -73,6 +74,17 @@ class MemLEvents(base.LEvents):
         # aggregate_properties reads it instead of replaying the table
         self._props: Dict[Tuple[int, Optional[int]],
                           Dict[Tuple[str, str], EntityState]] = {}
+        # arrival-ordered event ids per scope — the tail-read (find_since)
+        # order; an id-keyed upsert appends AGAIN so tail consumers see
+        # the newest version (re-delivery, never a miss), and deleted ids
+        # are skipped at read time (until compaction, below)
+        self._seq: Dict[Tuple[int, Optional[int]], List[str]] = {}
+        # tail generation per scope: bumped whenever positions in _seq
+        # stop meaning what an outstanding cursor recorded (scope remove,
+        # tombstone compaction) so the cursor resets to a full replay.
+        # NEVER popped — it must survive a remove + re-ingest, where the
+        # rebuilt _seq can grow past an old cursor's position
+        self._gen: Dict[Tuple[int, Optional[int]], int] = {}
         self._lock = threading.RLock()
 
     def _key(self, app_id, channel_id):
@@ -84,11 +96,16 @@ class MemLEvents(base.LEvents):
         return True
 
     def remove(self, app_id, channel_id=None) -> bool:
+        from predictionio_tpu_torch.utils import metrics
+
         with self._lock:
-            key = self._key(app_id, channel_id)
-            if self._props.pop(key, None) is not None:
+            if self._props.pop(self._key(app_id, channel_id), None) \
+                    is not None:
                 metrics.AGGREGATE_SCOPE_DROPS.inc(
                     backend=self.metrics_backend)
+            key = self._key(app_id, channel_id)
+            if self._seq.pop(key, None) is not None:
+                self._gen[key] = self._gen.get(key, 0) + 1
             return self._tables.pop(key, None) is not None
 
     def close(self) -> None:
@@ -130,6 +147,7 @@ class MemLEvents(base.LEvents):
             table = self._tables.setdefault(key, {})
             replaced = table.get(eid)
             table[eid] = event.with_id(eid)
+            self._seq.setdefault(key, []).append(eid)
             if replaced is not None:
                 # upsert semantics: the replaced event's fold contribution
                 # is gone — re-derive the touched entities. When NEITHER
@@ -142,6 +160,9 @@ class MemLEvents(base.LEvents):
                 if event.event in AGGREGATOR_EVENT_NAMES:
                     self._refold_entity_locked(
                         key, event.entity_type, event.entity_id)
+                # each upsert leaves a duplicate _seq entry behind —
+                # the same unbounded-growth hazard as delete tombstones
+                self._compact_seq_locked(key)
             else:
                 self._fold_in_locked(key, event)
         return eid
@@ -159,7 +180,29 @@ class MemLEvents(base.LEvents):
                 if gone.event in AGGREGATOR_EVENT_NAMES:
                     self._refold_entity_locked(key, gone.entity_type,
                                                gone.entity_id)
+                self._compact_seq_locked(key)
             return gone is not None
+
+    def _compact_seq_locked(self, key) -> None:
+        """Drop tombstones (deleted ids) and upsert duplicates from
+        ``_seq`` once they outnumber the live events — without this, a
+        long-lived store under retention trimming (``delete_until``
+        walks ``delete``) grows one dead entry per ever-inserted event.
+        Compaction renumbers positions, so the generation bumps and
+        outstanding tail cursors replay. Caller holds the lock."""
+        seq = self._seq.get(key)
+        table = self._tables.get(key, {})
+        if seq is None or len(seq) < 64 or len(seq) <= 2 * len(table):
+            return
+        kept_rev: List[str] = []
+        seen = set()
+        for eid in reversed(seq):
+            if eid in table and eid not in seen:
+                seen.add(eid)
+                kept_rev.append(eid)
+        kept_rev.reverse()
+        self._seq[key] = kept_rev
+        self._gen[key] = self._gen.get(key, 0) + 1
 
     def materialized_aggregate(self, app_id, entity_type, channel_id=None
                                ) -> Optional[Dict[str, PropertyMap]]:
@@ -182,6 +225,57 @@ class MemLEvents(base.LEvents):
         if limit is not None and limit >= 0:
             out = out[:limit]
         return iter(out)
+
+    # -- tail reads (find_since contract, base.py) -------------------------
+
+    def find_since(self, app_id, channel_id=None, cursor=None, limit=None):
+        key = self._key(app_id, channel_id)
+        pos = int(cursor.get("pos", 0)) if cursor else 0
+        cgen = int(cursor.get("gen", 0)) if cursor else 0
+        out: List[Event] = []
+        with self._lock:
+            seq = self._seq.get(key, [])
+            table = self._tables.get(key, {})
+            gen = self._gen.get(key, 0)
+            if cgen != gen or pos > len(seq):
+                # positions stopped meaning what the cursor recorded
+                # (scope removed + re-ingested, or _seq compacted):
+                # replay from the start (contract in base.py). The
+                # position check alone cannot catch a re-ingest that
+                # grew PAST the old cursor — the generation does.
+                pos = 0
+            while pos < len(seq):
+                if limit is not None and len(out) >= int(limit):
+                    break
+                e = table.get(seq[pos])
+                if e is not None:
+                    out.append(e)
+                pos += 1
+        return out, {"kind": "memory", "pos": pos, "gen": gen}
+
+    def tail_cursor(self, app_id, channel_id=None):
+        key = self._key(app_id, channel_id)
+        with self._lock:
+            seq = self._seq.get(key, [])
+            return {"kind": "memory", "pos": len(seq),
+                    "gen": self._gen.get(key, 0)}
+
+    def tail_watermark(self, app_id, channel_id=None):
+        key = self._key(app_id, channel_id)
+        with self._lock:
+            seq = self._seq.get(key, [])
+            table = self._tables.get(key, {})
+            last = next((table[eid] for eid in reversed(seq)
+                         if eid in table), None)
+            cursor = {"kind": "memory", "pos": len(seq),
+                      "gen": self._gen.get(key, 0)}
+        return {
+            "cursor": cursor,
+            "lastEventId": None if last is None else last.event_id,
+            "lastEventTime": None if last is None
+            else last.event_time.isoformat(),
+        }
+
 
 class _IdTable:
     """Auto-increment record table keyed by int id."""

@@ -20,11 +20,9 @@ in the same transaction. Out-of-order arrivals, event-id upserts and
 deletes re-derive only the touched entity; ``delete_until``/``remove``
 drop the scope rows so the next read backfills fresh.
 
-The port's copy of ``predictionio_tpu/data/storage/sqlite.py`` without
-the raw-row export read (``iter_raw_rows``, for ``pio export``) and the
-tail reads (``find_since``), which come with fold-in (ROADMAP queue A
-item 3). A store written by either package
-reads in the other: the schema is the same.
+The port's copy of ``predictionio_tpu/data/storage/sqlite.py``, tail
+reads and the raw-row export read included. A store written by either
+package reads in the other: the schema is the same.
 """
 
 from __future__ import annotations
@@ -48,10 +46,10 @@ from predictionio_tpu_torch.data.aggregator import (
 from predictionio_tpu_torch.data.datamap import DataMap, PropertyMap
 from predictionio_tpu_torch.data.event import Event, new_event_id, validate_event
 from predictionio_tpu_torch.data.storage import base
-from predictionio_tpu_torch.utils import metrics
 from predictionio_tpu_torch.data.storage.base import (
     UNSET, AccessKey, App, Channel, EngineInstance, EvaluationInstance, Model,
 )
+from predictionio_tpu_torch.utils import metrics
 
 _SCHEMA = """
 CREATE TABLE IF NOT EXISTS events (
@@ -355,6 +353,10 @@ _EVENT_COLS = ("event_id, event, entity_type, entity_id, target_entity_type, "
 
 class SqliteLEvents(base.LEvents):
     metrics_backend = "sqlite"
+    # INSERT OR REPLACE keyed by (app, channel, event_id): retried
+    # inserts with pre-assigned ids replay to the identical state
+    idempotent_event_writes = True
+
     def __init__(self, config: Optional[dict] = None):
         config = config or {}
         self._client = SqliteClient.shared(config.get("path", ":memory:"))
@@ -628,7 +630,7 @@ class SqliteLEvents(base.LEvents):
         are (event_id, event, entity_type, entity_id, target_entity_type,
         target_entity_id, properties_json, event_time_epoch_sec,
         tags_json, pr_id, creation_time_epoch_sec) — app/channel encoding
-        stays the backend's business. Callers (the import path) are
+        stays the backend's business. Callers (tools/export_import) are
         responsible for validation — this is the data-plane fast lane,
         not the API."""
         aid, chan = int(app_id), self._chan(channel_id)
@@ -668,6 +670,18 @@ class SqliteLEvents(base.LEvents):
                 " creation_time) VALUES (?,?,?,?,?,?,?,?,?,?,?,?,?)", full)
             for key in refold:
                 self._refold_entity(c, aid, chan, *key)
+
+    def iter_raw_rows(self, app_id: int,
+                      channel_id: Optional[int] = None):
+        """Data-plane raw read (inverse of ``insert_raw_batch``, same
+        tuple shape): the columnar exporter streams rows without ever
+        building Event objects."""
+        yield from self._client.query_iter(
+            "SELECT event_id, event, entity_type, entity_id,"
+            " target_entity_type, target_entity_id, properties,"
+            " event_time, tags, pr_id, creation_time FROM events"
+            " WHERE app_id=? AND channel_id=? ORDER BY event_time, rowid",
+            (int(app_id), self._chan(channel_id)))
 
     def get(self, event_id, app_id, channel_id=None) -> Optional[Event]:
         row = self._client.query_one(
@@ -750,6 +764,71 @@ class SqliteLEvents(base.LEvents):
         # callers may write while iterating.
         for row in self._client.query_iter(sql, args):
             yield _row_to_event(row)
+
+    # -- tail reads (find_since contract, base.py) -------------------------
+    # Arrival order = rowid order (INSERT OR REPLACE re-inserts, so an
+    # id-keyed upsert re-surfaces to tail consumers — re-delivery of the
+    # newest version, never a miss).
+
+    def find_since(self, app_id, channel_id=None, cursor=None, limit=None):
+        aid, chan = int(app_id), self._chan(channel_id)
+        after = int(cursor.get("rowid", -1)) if cursor else -1
+        last_eid = cursor.get("eventId") if cursor else None
+        if after >= 0:
+            # the cursor is self-validating: the row it points at must
+            # still exist AND still hold the event it held when the
+            # cursor was minted. A bulk delete followed by re-ingest
+            # RECYCLES rowids (sqlite hands out max+1, so trimming the
+            # tail re-issues the trimmed range) — a bare rowid compare
+            # against MAX(rowid) cannot see that, and would silently
+            # skip every event re-landed at a recycled rowid <= cursor.
+            row = self._client.query_one(
+                "SELECT event_id FROM events WHERE app_id=? AND"
+                " channel_id=? AND rowid=?", (aid, chan, after))
+            if row is None or (last_eid is not None
+                               and row[0] != last_eid):
+                after = -1
+                last_eid = None
+        sql = (f"SELECT {_EVENT_COLS}, rowid FROM events WHERE app_id=?"
+               f" AND channel_id=? AND rowid>? ORDER BY rowid ASC")
+        args: List[Any] = [aid, chan, after]
+        if limit is not None and int(limit) >= 0:
+            sql += f" LIMIT {int(limit)}"
+        events: List[Event] = []
+        last = after
+        for row in self._client.query_iter(sql, args):
+            events.append(_row_to_event(row[:-1]))
+            last = int(row[-1])
+        if events:
+            last_eid = events[-1].event_id
+        cur = {"kind": "sqlite", "rowid": last}
+        if last >= 0 and last_eid is not None:
+            cur["eventId"] = last_eid
+        return events, cur
+
+    def tail_cursor(self, app_id, channel_id=None):
+        row = self._client.query_one(
+            "SELECT rowid, event_id FROM events WHERE app_id=? AND"
+            " channel_id=? ORDER BY rowid DESC LIMIT 1",
+            (int(app_id), self._chan(channel_id)))
+        if row is None:
+            return {"kind": "sqlite", "rowid": -1}
+        return {"kind": "sqlite", "rowid": int(row[0]),
+                "eventId": row[1]}
+
+    def tail_watermark(self, app_id, channel_id=None):
+        row = self._client.query_one(
+            "SELECT event_id, event_time, rowid FROM events WHERE app_id=?"
+            " AND channel_id=? ORDER BY rowid DESC LIMIT 1",
+            (int(app_id), self._chan(channel_id)))
+        if row is None:
+            return {"cursor": {"kind": "sqlite", "rowid": -1},
+                    "lastEventId": None, "lastEventTime": None}
+        return {"cursor": {"kind": "sqlite", "rowid": int(row[2]),
+                           "eventId": row[0]},
+                "lastEventId": row[0],
+                "lastEventTime": _from_ts(row[1]).isoformat()}
+
 
 class SqlitePEvents(base.LEventsBackedPEvents):
     def __init__(self, config: Optional[dict] = None):

@@ -1,0 +1,295 @@
+"""``pio`` lifecycle verbs: build, train, deploy, undeploy, eventserver.
+
+Parity: ``tools/.../console/Console.scala`` dispatch (:698-769) with the
+spark-submit/Runner layer removed — train and deploy run in this
+process, on the device ``--device`` names (default ``cuda``; a missing
+GPU raises, and the CPU runs only when asked for).
+
+Engine location: a directory with an ``engine.json`` variant whose
+``engineFactory`` names a ``module:callable``.
+
+The port's copy of ``predictionio_tpu/tools/run_commands.py``. Options
+whose modules are not ported yet raise and name their ROADMAP item:
+``--precision bf16`` and the checkpoint options (A5), the distributed
+options (A6), ``--foldin on`` (A3), ``--fleet`` above 1 (A2.4) and
+``--feedback`` (A7); ``eval``, ``batchpredict``, ``adminserver`` and
+``dashboard`` raise in :mod:`predictionio_tpu_torch.tools.cli`.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+from typing import Any, Dict
+
+# the workflow (and with it torch) is imported by the verbs that train or
+# serve, so the console's other verbs start without it
+
+
+def _load_variant(path: str) -> Dict[str, Any]:
+    with open(path, "r", encoding="utf-8") as f:
+        return json.load(f)
+
+
+def _workflow_config(args, variant: Dict[str, Any]) -> "WorkflowConfig":
+    from predictionio_tpu_torch.workflow.create_workflow import WorkflowConfig
+
+    factory = getattr(args, "engine_factory", None) or variant.get(
+        "engineFactory", "")
+    if not factory:
+        raise ValueError(
+            "no engine factory: set \"engineFactory\": \"module:callable\" "
+            "in engine.json or pass --engine-factory")
+    return WorkflowConfig(
+        engine_id=getattr(args, "engine_id", None) or variant.get(
+            "id", "default"),
+        engine_version=getattr(args, "engine_version", None) or variant.get(
+            "version", "default"),
+        engine_variant=args.engine_variant,
+        engine_factory=factory,
+        batch=getattr(args, "batch", "") or "",
+        skip_sanity_check=getattr(args, "skip_sanity_check", False),
+        stop_after_read=getattr(args, "stop_after_read", False),
+        stop_after_prepare=getattr(args, "stop_after_prepare", False),
+    )
+
+
+def cmd_build(args) -> int:
+    """Sanity-check the engine dir: variant parses, factory imports, params
+    typecheck (the sbt build + RegisterEngine analog, Console.scala:812-828)."""
+    from predictionio_tpu_torch.workflow import core_workflow
+
+    try:
+        variant = _load_variant(args.engine_variant)
+        config = _workflow_config(args, variant)
+        engine = core_workflow.load_engine_factory(config.engine_factory)()
+        engine.engine_params_from_variant(variant)
+    except Exception as e:
+        print(f"[ERROR] {e}", file=sys.stderr)
+        return 1
+    print("[INFO] Engine is ready for training.")
+    return 0
+
+
+def _apply_metrics_flag(args) -> None:
+    """--metrics on|off -> the process-wide registry switch (None leaves
+    the PIO_METRICS env default in place)."""
+    flag = getattr(args, "metrics", None)
+    if flag is not None:
+        from predictionio_tpu_torch.utils import metrics
+        metrics.set_enabled(flag == "on")
+
+
+def _apply_tracing_flags(args) -> None:
+    """--tracing on|off + --trace-dir/$PIO_TRACE_DIR -> the tracing
+    switch and the JSONL trace export (None leaves PIO_TRACING alone)."""
+    from predictionio_tpu_torch.utils import tracing
+
+    flag = getattr(args, "tracing", None)
+    if flag is not None:
+        tracing.set_tracing_enabled(flag == "on")
+    trace_dir = getattr(args, "trace_dir", None) \
+        or os.environ.get("PIO_TRACE_DIR") or None
+    if trace_dir:
+        tracing.set_trace_dir(trace_dir)
+
+
+def _refuse_unported_train_options(args) -> None:
+    """Raise for the training options whose modules are not ported."""
+    if getattr(args, "precision", None) == "bf16":
+        raise NotImplementedError(
+            "--precision bf16: the bf16 training precision is not ported "
+            "yet (ROADMAP A5, the training options); train in fp32")
+    if any(getattr(args, name, None) not in (None, False) for name in
+           ("checkpoint_every", "checkpoint_dir", "checkpoint_keep",
+            "resume")):
+        raise NotImplementedError(
+            "checkpointed training (--checkpoint-every/-dir/-keep, "
+            "--resume) is not ported yet (ROADMAP A5, the training "
+            "options)")
+    hosts = getattr(args, "num_hosts", None) \
+        or int(os.environ.get("PIO_NUM_HOSTS", "1") or 1)
+    if hosts > 1 or getattr(args, "coordinator", None) \
+            or getattr(args, "process_id", None) is not None:
+        raise NotImplementedError(
+            "training across several hosts (--num-hosts, --coordinator, "
+            "--process-id) is not ported yet (ROADMAP A6, the sharded "
+            "store and trainers)")
+
+
+def cmd_train(args) -> int:
+    """Console train (Console.scala:834-842) -> create_workflow on the
+    ``--device`` (default cuda). A profile dir (--profile-dir /
+    $PIO_PROFILE_DIR) captures a ``torch.profiler`` trace of the whole
+    train pass; the trace root ``pio.train`` holds the ``dase.*`` stage
+    spans."""
+    from predictionio_tpu_torch.core.base import TrainingInterruption
+    from predictionio_tpu_torch.core.context import ComputeContext
+    from predictionio_tpu_torch.device import resolve_device
+    from predictionio_tpu_torch.utils import metrics
+    from predictionio_tpu_torch.utils.tracing import (
+        profile_trace,
+        trace_scope,
+    )
+    from predictionio_tpu_torch.workflow.create_workflow import (
+        create_workflow,
+    )
+
+    _refuse_unported_train_options(args)
+    ctx = ComputeContext(device=resolve_device(args.device))
+    _apply_tracing_flags(args)
+    try:
+        variant = _load_variant(args.engine_variant)
+        config = _workflow_config(args, variant)
+        profile_dir = getattr(args, "profile_dir", None) \
+            or os.environ.get("PIO_PROFILE_DIR") or None
+        metrics.install_jit_compile_listener()
+        with profile_trace(profile_dir), \
+                trace_scope("pio.train",
+                            attributes={"variant": args.engine_variant},
+                            slow_exempt=True):
+            instance_id = create_workflow(config, variant=variant, ctx=ctx)
+    except TrainingInterruption as e:
+        print(f"[INFO] Training interrupted: {e}")
+        return 0
+    except Exception as e:
+        print(f"[ERROR] Training failed: {e}", file=sys.stderr)
+        return 1
+    if instance_id is None:
+        print("[INFO] Training interrupted by a stop-after flag.")
+        return 0
+    print(f"[INFO] Training completed. Engine instance ID: {instance_id}")
+    _print_launches("assemble_normal_equations", "spd_solve")
+    return 0
+
+
+def _print_launches(*kernels: str) -> None:
+    """This process's launches of each named kernel (their wrappers'
+    counts; the plain versions on the CPU count none)."""
+    from predictionio_tpu_torch.ops import als_cuda
+
+    counters = {"fused_gather_score_topk": als_cuda.launches,
+                "assemble_normal_equations": als_cuda.assemble_launches,
+                "spd_solve": als_cuda.spd_launches}
+    print("[INFO] Kernel launches: " + json.dumps(
+        {name: counters[name].value for name in kernels}), flush=True)
+
+
+def _apply_serving_flags(args) -> None:
+    """--serve-precision -> $PIO_SERVE_PRECISION, --batch-window ->
+    $PIO_BATCH_WINDOW: the env vars the serving code reads. The port
+    serves through its one CUDA kernel, so --serve-kernel accepts only
+    auto and fused."""
+    if getattr(args, "serve_kernel", None) == "xla":
+        raise ValueError(
+            "--serve-kernel xla: the port has no XLA program; it serves "
+            "through its CUDA top-k kernel (auto or fused)")
+    serve_precision = getattr(args, "serve_precision", None)
+    if serve_precision:
+        os.environ["PIO_SERVE_PRECISION"] = serve_precision
+    batch_window = getattr(args, "batch_window", None)
+    if batch_window is not None:
+        if batch_window < 0:
+            raise SystemExit("--batch-window must be >= 0")
+        os.environ["PIO_BATCH_WINDOW"] = repr(float(batch_window))
+
+
+def cmd_deploy(args) -> int:
+    """Console deploy (Console.scala:844-878): serve the given or latest
+    COMPLETED engine instance on the ``--device`` (default cuda) until
+    ``POST /stop`` or an interrupt."""
+    from predictionio_tpu_torch.core.context import ComputeContext
+    from predictionio_tpu_torch.device import resolve_device
+    from predictionio_tpu_torch.workflow.create_server import (
+        QueryServer,
+        ServerConfig,
+        build_deployment,
+        resolve_engine_instance,
+    )
+
+    if getattr(args, "foldin", "off") == "on":
+        raise NotImplementedError(
+            "--foldin on: online fold-in is not ported yet (ROADMAP A3)")
+    if int(getattr(args, "fleet", 1) or 1) > 1:
+        raise NotImplementedError(
+            "--fleet: the query fleet is not ported yet (ROADMAP A2.4)")
+    if args.feedback:
+        raise NotImplementedError(
+            "--feedback: the feedback loop is not ported yet (ROADMAP A7, "
+            "the rest of the query server)")
+    ctx = ComputeContext(device=resolve_device(args.device))
+    _apply_metrics_flag(args)
+    _apply_tracing_flags(args)
+    _apply_serving_flags(args)
+    variant_id, variant_version = "default", "default"
+    if os.path.exists(args.engine_variant):
+        variant = _load_variant(args.engine_variant)
+        variant_id = variant.get("id", "default")
+        variant_version = variant.get("version", "default")
+    config = ServerConfig(
+        engine_id=getattr(args, "engine_id", None) or variant_id,
+        engine_version=(getattr(args, "engine_version", None)
+                        or variant_version),
+        engine_variant=args.engine_variant,
+        ip=args.ip,
+        port=args.port,
+        server_config_path=getattr(args, "server_config", None),
+    )
+    try:
+        instance = resolve_engine_instance(
+            args.engine_instance_id, config.engine_id,
+            config.engine_version, config.engine_variant)
+        server = QueryServer(config, build_deployment(instance, ctx)).start()
+    except Exception as e:
+        print(f"[ERROR] Deploy failed: {e}", file=sys.stderr)
+        return 1
+    host, port = server.address
+    print(f"[INFO] Engine is deployed and running. Engine API is live "
+          f"at {server.scheme}://{host}:{port}.", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        server.stop()
+    _print_launches("fused_gather_score_topk")
+    return 0
+
+
+def cmd_undeploy(args) -> int:
+    """Console undeploy (Console.scala:880-890): stop a running server.
+    Probes HTTP first, then HTTPS, so it stops servers deployed with a
+    TLS server.json without needing to know which scheme is live."""
+    from predictionio_tpu_torch.workflow.create_server import undeploy
+
+    if undeploy(args.ip, args.port) \
+            or undeploy(args.ip, args.port, scheme="https"):
+        print("[INFO] Undeployed.")
+        return 0
+    print(f"[ERROR] Nothing at {args.ip}:{args.port} responded to /stop.",
+          file=sys.stderr)
+    return 1
+
+
+def cmd_eventserver(args) -> int:
+    """Console eventserver (Console.scala:741-745)."""
+    from predictionio_tpu_torch.data.api import (
+        EventServer,
+        EventServerConfig,
+    )
+
+    _apply_metrics_flag(args)
+    _apply_tracing_flags(args)  # $PIO_TRACE_DIR exports this side too
+    service_key = getattr(args, "service_key", None) \
+        or os.environ.get("PIO_EVENTSERVER_SERVICE_KEY") or None
+    server = EventServer(EventServerConfig(
+        ip=args.ip, port=args.port, stats=args.stats,
+        service_key=service_key,
+        server_config_path=getattr(args, "server_config", None))).start()
+    host, port = server.address
+    print(f"[INFO] Event Server is ready at {server.scheme}://{host}:{port}.",
+          flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        server.stop()
+    return 0

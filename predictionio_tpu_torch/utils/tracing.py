@@ -1287,13 +1287,26 @@ class ProfilerCapture:
     Captures land under a ``profiles/`` subdirectory next to the
     ``PIO_TRACE_DIR`` JSONL exports (or ``$PIO_PROFILE_DIR``, or a temp
     directory as the last resort), and the slow-query log cross-links
-    entries recorded while a capture was running."""
+    entries recorded while a capture was running.
+
+    The profiler must start and stop on one thread, while a server
+    handles each request on a thread of its own: both run on this
+    capture's one worker thread."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._dir: Optional[str] = None
         self._prof = None
         self._t0: float = 0.0
+        self._worker = None
+
+    def _on_worker(self, fn: Callable[[], Any]) -> Any:
+        if self._worker is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._worker = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="pio-profiler")
+        return self._worker.submit(fn).result()
 
     @property
     def active_dir(self) -> Optional[str]:
@@ -1326,7 +1339,7 @@ class ProfilerCapture:
             os.makedirs(path, exist_ok=True)
             metrics.install_jit_compile_listener()
             prof = _profiler()
-            prof.start()
+            self._on_worker(prof.start)
             self._prof = prof
             self._dir = path
             self._t0 = time.perf_counter()
@@ -1342,9 +1355,12 @@ class ProfilerCapture:
                 raise ProfilerNotRunningError(
                     "no profiler capture is running")
             path, prof = self._dir, self._prof
-            try:
+            def finish():
                 prof.stop()
                 prof.export_chrome_trace(os.path.join(path, TRACE_FILE))
+
+            try:
+                self._on_worker(finish)
             finally:
                 # whatever stop did, the capture is over: clear the slot
                 # and the gauge, or a failed stop would pin

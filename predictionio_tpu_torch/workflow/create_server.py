@@ -13,12 +13,16 @@ instance; an older one is refused with 409), ``POST /stop``, and the
 observability routes under the JAX package's route labels: ``GET /``
 (status), ``/healthz``, ``/metrics`` (Prometheus text), ``/stats.json``,
 ``/dispatches.json`` (the device flight recorder), ``/traces.json`` and
-``/traces/<id>`` (``?format=perfetto`` or ``html``). Every request runs
-under :class:`~predictionio_tpu_torch.utils.http_instrumentation.
+``/traces/<id>`` (``?format=perfetto`` or ``html``), and the operator's
+``POST /profile/start`` and ``/profile/stop`` (a ``torch.profiler``
+capture, gated by the ``server.json`` access key when one is set; 409
+on a second start or an idle stop). Every request runs under
+:class:`~predictionio_tpu_torch.utils.http_instrumentation.
 InstrumentedHandlerMixin` (request ids, ``traceparent``, per-route
-metrics). Feedback, plugins, fleets, TLS and the authenticated
-``/profile/*`` routes come with later slices; fold-in on deploy raises
-(ROADMAP queue A item 3).
+metrics). A ``server.json`` with an ``ssl`` section serves HTTPS, and
+``start`` first asks a stale server on the same port to stop
+(:func:`undeploy`). Feedback and ``/plugins.json`` come with ROADMAP
+A7, fleets with A2.4; fold-in on deploy raises (ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -29,15 +33,23 @@ import functools
 import json
 import logging
 import os
+import ssl
 import threading
 import time
+import urllib.error
 import urllib.parse
+import urllib.request
 from http.server import BaseHTTPRequestHandler
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.common import SSLConfiguration
+from predictionio_tpu_torch.common.auth import (
+    KeyAuthentication,
+    ServerConfig as AuthServerConfig,
+)
 from predictionio_tpu_torch.controller.engine import (
     Engine,
     EngineParams,
@@ -57,18 +69,25 @@ from predictionio_tpu_torch.utils.http_instrumentation import (
     InstrumentedHandlerMixin,
     SeveringThreadingHTTPServer,
 )
-from predictionio_tpu_torch.utils.tracing import LatencyHistogram, span
+from predictionio_tpu_torch.utils.tracing import (
+    LatencyHistogram,
+    ProfilerBusyError,
+    ProfilerNotRunningError,
+    span,
+)
 from predictionio_tpu_torch.workflow import core_workflow
 
 logger = logging.getLogger("pio.torch.queryserver")
+BIND_TRIES = 3  # a stale server's port frees a moment after its /stop
 
 
 @dataclasses.dataclass
 class ServerConfig:
     """Where the server listens, the engine coordinates ``/reload``
-    resolves the latest completed instance of, and an optional query it
-    serves once at deploy (after each algorithm's ``warmup_base``).
-    ``foldin`` is not ported yet and raises."""
+    resolves the latest completed instance of, an optional query it
+    serves once at deploy (after each algorithm's ``warmup_base``), and
+    the ``server.json`` it reads at start. ``foldin`` is not ported yet
+    and raises."""
 
     engine_id: str = "default"
     engine_version: str = "default"
@@ -77,6 +96,10 @@ class ServerConfig:
     port: int = 8000
     warmup_query: Optional[Mapping[str, Any]] = None
     foldin: bool = False
+    # server.json with the access key that gates /profile/* and the TLS
+    # cert/key; None reads $PIO_SERVER_CONFIG or ./server.json, and a
+    # file without an "ssl" section serves plain HTTP
+    server_config_path: Optional[str] = None
 
 
 class ReloadDowngradeError(RuntimeError):
@@ -337,6 +360,8 @@ class QueryServer:
         self.latency = LatencyHistogram()
         self._httpd: Optional[_HTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        self.scheme = "http"  # resolved from server.json at start()
+        self._profile_auth: Optional[KeyAuthentication] = None
 
     def handle_query(self, body: bytes) -> Tuple[int, Any]:
         dep = self._deployment
@@ -437,6 +462,19 @@ class QueryServer:
         ``limit`` dispatches and per-lane summaries."""
         return device_telemetry.recorder().report(limit=limit)
 
+    def profile_start(self) -> Dict[str, Any]:
+        """``POST /profile/start``: begin a single-flight
+        ``torch.profiler`` capture on the live server; a second start
+        while one runs raises :class:`ProfilerBusyError` (HTTP 409)."""
+        return {"message": "profiler capture started",
+                "profileDir": tracing.PROFILER.start()}
+
+    def profile_stop(self) -> Dict[str, Any]:
+        """``POST /profile/stop``: end the active capture; with none
+        running it raises :class:`ProfilerNotRunningError` (HTTP 409)."""
+        return {"message": "profiler capture written",
+                **tracing.PROFILER.stop()}
+
     def health_checks(self) -> Dict[str, bool]:
         """Readiness for ``GET /healthz``: a deployment is loaded and its
         device answers."""
@@ -448,24 +486,58 @@ class QueryServer:
         on a daemon thread. The build counters are live from here, so the
         kernels' builds at warm-up land in ``pio_jit_compiles_total``;
         ``$PIO_TRACE_DIR``, as for the JAX package's ``pio deploy``,
-        exports every retained trace there."""
+        exports every retained trace there. ``server.json`` names the
+        access key of ``/profile/*`` and, in its ``ssl`` section, the TLS
+        pair. A server still answering on a fixed port, in either scheme,
+        is asked to stop first; a failed bind is retried a second later,
+        twice."""
+        auth_cfg = AuthServerConfig.load(self.config.server_config_path)
+        self._profile_auth = KeyAuthentication(auth_cfg)
+        sslc = SSLConfiguration(auth_cfg)
+        self.scheme = "https" if sslc.enabled else "http"
         metrics.install_jit_compile_listener()
         trace_dir = os.environ.get("PIO_TRACE_DIR")
         if trace_dir:
             tracing.set_trace_dir(trace_dir)
         warm_up(self._deployment, self.config.warmup_query)
+        if self.config.port:
+            other = "http" if self.scheme == "https" else "https"
+            if not undeploy(self.config.ip, self.config.port, self.scheme):
+                undeploy(self.config.ip, self.config.port, other)
         server = self
 
         class Handler(_QueryHandler):
             query_server = server
 
-        self._httpd = _HTTPServer((self.config.ip, self.config.port), Handler)
+        for attempt in range(BIND_TRIES):
+            try:
+                self._httpd = _HTTPServer((self.config.ip, self.config.port),
+                                          Handler)
+                break
+            except OSError as e:
+                if attempt + 1 == BIND_TRIES:
+                    raise RuntimeError(
+                        f"bind failed after {BIND_TRIES} tries") from e
+                logger.warning("bind failed (attempt %d): %s",
+                               attempt + 1, e)
+                time.sleep(1.0)
+        if sslc.enabled:
+            sslc.wrap_server(self._httpd)
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         name="pio-torch-queryserver",
                                         daemon=True)
         self._thread.start()
-        logger.info("Query server started on %s:%d", *self.address)
+        logger.info("Query server started on %s://%s:%d", self.scheme,
+                    *self.address)
         return self
+
+    def serve_forever(self) -> None:
+        """Block until the server stops (``POST /stop`` or
+        :meth:`stop`), starting it first when needed."""
+        if self._httpd is None:
+            self.start()
+        assert self._thread is not None
+        self._thread.join()
 
     @property
     def address(self) -> Tuple[str, int]:
@@ -490,13 +562,36 @@ class QueryServer:
                 srv.close()
 
 
+def undeploy(ip: str, port: int, scheme: str = "http") -> bool:
+    """``POST /stop`` to the server at ``ip:port``; True when something
+    answered. With ``scheme="https"`` the certificate is not verified:
+    the probe talks to a local (commonly self-signed) server, and its
+    only action is asking it to stop."""
+    host = "127.0.0.1" if ip == "0.0.0.0" else ip
+    kwargs = {}
+    if scheme == "https":
+        ctx = ssl.create_default_context()
+        ctx.check_hostname = False
+        ctx.verify_mode = ssl.CERT_NONE
+        kwargs["context"] = ctx
+    try:
+        req = urllib.request.Request(f"{scheme}://{host}:{port}/stop",
+                                     data=b"", method="POST")
+        with urllib.request.urlopen(req, timeout=3, **kwargs) as resp:
+            logger.info("Undeployed the server at %s:%d (%d)", host, port,
+                        resp.status)
+            return True
+    except (urllib.error.URLError, OSError):
+        return False
+
+
 class _QueryHandler(InstrumentedHandlerMixin, BaseHTTPRequestHandler):
     query_server: QueryServer
     protocol_version = "HTTP/1.1"
     metrics_server_label = "query"
 
-    # the JAX query server's route labels; /profile/* and /plugins.json
-    # are not served here yet and count under their own labels as 404s
+    # the JAX query server's route labels; /plugins.json is not served
+    # here yet and counts under its own label as a 404
     _ROUTES = ("/", "/healthz", "/metrics", "/stats.json",
                "/dispatches.json", "/plugins.json", "/queries.json",
                "/profile/start", "/profile/stop", "/reload", "/stop",
@@ -519,7 +614,7 @@ class _QueryHandler(InstrumentedHandlerMixin, BaseHTTPRequestHandler):
         path = parsed.path.rstrip("/") or "/"
         query = urllib.parse.parse_qs(parsed.query)
         handle = (lambda: self._do_get(path, query)) if method == "GET" \
-            else (lambda: self._do_post(path))
+            else (lambda: self._do_post(path, query))
         self._dispatch_instrumented(method, path, handle)
 
     def do_GET(self):
@@ -553,10 +648,13 @@ class _QueryHandler(InstrumentedHandlerMixin, BaseHTTPRequestHandler):
         else:
             self._respond(404, {"message": "Not Found"})
 
-    def _do_post(self, path: str) -> None:
+    def _do_post(self, path: str, query) -> None:
         body = self._body()
         try:
-            self._route_post(path, body)
+            if path in ("/profile/start", "/profile/stop"):
+                self._handle_profile(path, query)
+            else:
+                self._route_post(path, body)
         except Exception as e:
             logger.exception("unhandled error on POST %s", path)
             try:
@@ -590,6 +688,23 @@ class _QueryHandler(InstrumentedHandlerMixin, BaseHTTPRequestHandler):
             threading.Thread(target=srv.stop, daemon=True).start()
         else:
             self._respond(404, {"message": "Not Found"})
+
+    def _handle_profile(self, path: str, query) -> None:
+        """On-demand profiler capture: gated by the ``server.json``
+        access key when one is set (403 otherwise), single-flight (409
+        on a second start or an idle stop)."""
+        srv = self.query_server
+        auth = srv._profile_auth
+        if auth is not None and not auth.authenticate(query):
+            self._respond(403, {"message": "invalid accessKey"})
+            return
+        try:
+            if path == "/profile/start":
+                self._respond(200, srv.profile_start())
+            else:
+                self._respond(200, srv.profile_stop())
+        except (ProfilerBusyError, ProfilerNotRunningError) as e:
+            self._respond(409, {"message": str(e)})
 
     def _respond_json(self, status: int, payload: Any,
                       headers: Optional[Dict[str, str]] = None) -> None:

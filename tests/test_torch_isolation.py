@@ -3,8 +3,9 @@
 and the training and query paths, from a data source in memory, from
 the event store through a stored engine instance, and from a ``jsonlfs``
 store through the pipelined read, import, train and serve in a process
-where both are unimportable. ``chip_smoke.py``
-refuses to run without a GPU."""
+where both are unimportable, as does the console's quick start (``pio app
+new``, ``import``, the event server, ``template get``, ``train``,
+``export``). ``chip_smoke.py`` refuses to run without a GPU."""
 
 import ast
 import os
@@ -161,6 +162,63 @@ def test_query_path_runs_with_jax_unimportable():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("served")
+
+
+CONSOLE_RUN = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["predictionio_tpu"] = None
+import json, os, pathlib
+from predictionio_tpu_torch.data import storage
+from predictionio_tpu_torch.data.api import EventServer, EventServerConfig
+from predictionio_tpu_torch.tools import cli
+
+work = pathlib.Path(sys.argv[1])
+storage.reset(storage.StorageConfig(
+    {"S": {"type": "sqlite", "path": str(work / "pio.db")}},
+    {r: "S" for r in storage.REPOSITORIES}))
+assert cli.main(["app", "new", "app"]) == 0
+with open(work / "events.jsonl", "w") as f:
+    for j in range(120):
+        f.write(json.dumps({"event": "rate", "entityType": "user",
+                            "entityId": f"u{j % 9}",
+                            "targetEntityType": "item",
+                            "targetEntityId": f"i{(j * 7) % 13}",
+                            "properties": {"rating": 1.0 + j % 5}}) + "\n")
+assert cli.main(["import", "--app-name", "app", "--input",
+                 str(work / "events.jsonl")]) == 0
+server = EventServer(EventServerConfig(ip="127.0.0.1", port=0)).start()
+server.stop()
+assert cli.main(["template", "get", "recommendation", str(work / "eng")]) == 0
+variant = json.loads((work / "eng" / "engine.json").read_text())
+variant["datasource"]["params"]["appName"] = "app"
+variant["algorithms"][0]["params"].update(rank=3, numIterations=1)
+(work / "eng" / "engine.json").write_text(json.dumps(variant))
+assert cli.main(["train", "--device", "cpu", "--engine-variant",
+                 str(work / "eng" / "engine.json")]) == 0
+assert cli.main(["export", "--app-name", "app", "--output",
+                 str(work / "out.jsonl")]) == 0
+assert len((work / "out.jsonl").read_text().splitlines()) == 120
+storage.reset()
+assert not any(m == "jax" or m.startswith(("jax.", "predictionio_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("console ran")
+"""
+
+
+def test_console_path_runs_with_jax_unimportable(tmp_path):
+    """``pio app new`` -> ``import`` -> the event server ->
+    ``template get`` -> ``train --device cpu`` -> ``export`` in a process
+    where ``jax`` and ``predictionio_tpu`` cannot be imported. The store,
+    the engine directory and the export live in ``tmp_path``, which is
+    also the child's working directory."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", CONSOLE_RUN,
+                           str(tmp_path)], env=env,
+                          cwd=tmp_path, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "console ran" in proc.stdout
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -18,6 +18,7 @@ against the JAX package's, on the CPU.
 
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -349,10 +350,14 @@ def test_query_server_exports_to_pio_trace_dir(tmp_path, monkeypatch):
             headers={"traceparent": f"00-{trace_id}-{'1' * 16}-01"})
         with urllib.request.urlopen(req, timeout=30) as resp:
             assert resp.status == 200
-        for _ in range(500):
+        # the trace is exported just after the response went out: poll
+        # for it (a busy host can take a while)
+        deadline = time.monotonic() + 10.0
+        while True:
             got = jtracing.load_traces_from_dir(str(tmp_path), trace_id)
-            if got:
+            if got or time.monotonic() > deadline:
                 break
+            time.sleep(0.005)
     finally:
         srv.stop()
         ttracing.set_trace_dir(None)
