@@ -71,10 +71,12 @@ Phases (any failure raises and the script exits non-zero):
    bitwise equal to plain, on B in {1, 127, 4,096, 138,493} random SPD
    systems, an ill-scaled family and real training systems at rank 64,
    and at ranks 1-320 on small batches (both workspace routes, the
-   256-column chunk boundary). Then train at rank 256 (2,000 users x
-   1,000 items, 2 iterations, through the large-rank assembly and the
-   device-memory solve) and hold it against the plain trainer from one
-   init.
+   256-column chunk boundary). Both kernels also at the fold-in solve's
+   shapes: B in {8, 64, 256} with all but 1, 5 and 200 rows padding, L
+   in {8, 256, 2,048, 4,096} (past one assembly span). Then train at
+   rank 256 (2,000 users x 1,000 items, 2 iterations, through the
+   large-rank assembly and the device-memory solve) and hold it against
+   the plain trainer from one init.
 3. Serve the model phase 5 trained: start the port's QueryServer, send
    user, blacklist, category, item-similarity and unknown-user queries,
    some from 8 concurrent clients, and check every answer against the
@@ -99,6 +101,39 @@ Phases (any failure raises and the script exits non-zero):
    rounds of 5 runs: metrics, tracing and device telemetry on, all
    killed, and each alone on; each mode's percentiles, and the user
    queries' split with all on against tracing alone.
+3b. Online fold-in at ML-20M width: a sqlite event store in a
+   temporary directory holds the full histories of 512 of phase 5's
+   users in phase 5's event order (the heaviest, at the 2,048 cap,
+   among them); ``QueryServer(ServerConfig(foldin=True))`` serves a
+   model built from phase 5's factors, maps and seen lists (bf16 store,
+   seen ``[138,493, 2,048]``; phase 3's store freed first) with
+   ``PIO_FOLDIN_INTERVAL=0.5``, and the port's event server (``pio
+   eventserver``, a process of its own) writes to the same store.
+   Through ``POST /batch/events.json``, 50 events a request from 8
+   threads of a client process: 1-3 new ratings for 256 of the 512 (the
+   heaviest passes the seen table's width), 256 new users with 5-200
+   ratings each (the store grows along the ladder, ``_bucket(needed,
+   lo=capacity)``, to 276,986 rows), and events the
+   consumer must ignore (``view``, ratings of unknown items, item
+   ``$set``). Checks: (a) every new user answers non-empty within 30 s,
+   with no ``/reload``, and a known user's new items are masked; (b)
+   the store's rows of the 512 folded users equal ``fold_in_users`` with
+   the plain versions of both training kernels on their histories read
+   back from the store, cast to bf16 (within ``FOLDIN_ROW_TOL`` of each
+   row's largest entry); (c) 1,024 users' HTTP answers equal the plain
+   pipeline over the patched store; (d) while the events are folded,
+   untouched users' answers do not move and no query fails, and, on a
+   store of its own, 8 threads' ``users_topk`` for 256 users never see
+   a mix of two row sets another thread alternates (one patch growing
+   the store); (e) each fold launches both training kernels once, the
+   serving kernel launches, ``/metrics`` counts the new and known users
+   and the folds, and ``/dispatches.json`` holds ``foldin`` records
+   with CUDA-event time. Prints each fold's gather / solve / patch ms
+   (from its ``pio.foldin`` trace) and the solve's device us, the
+   growing patches' time under the store lock, the seen tables' bytes,
+   event -> servable p50 / p99 (first post to first non-empty answer,
+   and ``pio_foldin_freshness_seconds``), and query p50 / p99 during
+   the folds beside phase 3's.
 4. Time the serving kernel at every (store, B, k) against its bound, its
    plain version and one library call, and at k <= 128 (bf16, and every
    store at B = 8) split its device time by kernel name under the
@@ -112,7 +147,8 @@ Phases (any failure raises and the script exits non-zero):
    ``CHUNKED_MAX_B``.
 4b. Time the training kernels at the full-width shapes (the assembly on
    every bucket of both sides, the solve on each side's whole batch)
-   against their bounds, plain versions and one library call each; and,
+   against their bounds, plain versions and one library call each; at
+   the fold-in shapes (B, L) = (8, 256), (64, 256), (256, 2,048); and,
    off the main path, the device-memory solve at rank 320 and the
    large-rank assembly at rank 256.
 6. The lifecycle at MovieLens-1M's size (6,040 users x 3,706 items,
@@ -159,8 +195,10 @@ Phases (any failure raises and the script exits non-zero):
    42, its ratio to the plain trainer from seed 3's init (must be
    0.99-1.01) and the seed band's lift over popularity (must exceed 1).
 
-It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``.
+It prints a ``{"kernels": [...]}`` line (the training kernels' ``routes``
+hold the main path's, the large-rank one and ``foldin``, with phase 3b's
+launches), the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -201,6 +239,13 @@ LARGE_RANKS = (209, 256, 320)
 SOLVE_RANKS = (1, 31, 32, 33, 65, 239, 240, 241, 256, 320)
 # phase 2b's large-rank training run
 LARGE_TRAIN = dict(users=2_000, items=1_000, rank=256, iterations=2)
+# the fold-in solve's shapes (phase 3b): a user batch B on the
+# power-of-two ladder from 8, all but a few of its rows padding, and a
+# history length L from 8 to past one assembly span (2,048); phase 2b
+# checks every pair, phase 4b times three
+FOLD_BATCHES = ((8, 1), (64, 5), (256, 200))      # (B, real rows)
+FOLD_LENGTHS = (8, 256, 2048, 4096)
+FOLD_TIMED = ((8, 1, 256), (64, 5, 256), (256, 200, 2048))
 # relative Frobenius distance allowed between the kernel-trained and the
 # plain-trained factors after ITERATIONS iterations from one init: both
 # sum in fp32 in different orders (about 1e-7 relative per normal
@@ -676,8 +721,10 @@ def ml20m_store(seed: int) -> dict:
           f"{write_s:.2f} s: {len(os.listdir(root)) - 1} partitions, "
           f"{nbytes} bytes ({nbytes / (len(rows) + len(cats)):.1f} a line), "
           f"{free / 1e9:.1f} GB were free")
-    return {"work": work, "app_id": app_id, "ratings": len(rows),
-            "write_s": write_s, "bytes": nbytes}
+    return {"work": work, "app_id": app_id, "n_ratings": len(rows),
+            "write_s": write_s, "bytes": nbytes,
+            # phase 3b writes some users' histories in this event order
+            "ratings": (rows, cols, values, order)}
 
 
 def remove_store(store: dict) -> None:
@@ -753,9 +800,9 @@ def train_full_width(dev, seed: int, store: dict) -> dict:
         if n == 0:
             raise AssertionError(f"{name} was never called on the training "
                                  "path")
-    if len(td) != store["ratings"] or td.runs is not None:
+    if len(td) != store["n_ratings"] or td.runs is not None:
         raise AssertionError(f"the pipelined read gave {len(td)} ratings "
-                             f"(runs {td.runs}), not {store['ratings']} "
+                             f"(runs {td.runs}), not {store['n_ratings']} "
                              f"merged")
     read = td.timeline.summary()
     print(f"[train] read {len(td)} ratings in {record['read']!r} s "
@@ -1040,6 +1087,26 @@ def synthetic_rows(dev, rng, shapes=((8, 100_000), (64, 5_000))) -> list:
     return out
 
 
+def fold_rows(dev, rng, B: int, real: int, L: int) -> tuple:
+    """A fold-in solve table as ``pad_fold_in_batch`` lays it out: the
+    first ``real`` of ``B`` rows hold 1 to ``L`` ratings (the first
+    exactly ``L``) of items drawn at random, 0.5 to 5.0 stars; the other
+    rows and slots are padding (weight 0). Returns ``(cols, aw, bw)``
+    with the implicit weights."""
+    import torch
+
+    from predictionio_tpu_torch.ops.als import implicit_weights
+
+    lens = np.zeros(B, dtype=np.int64)
+    lens[:real] = rng.integers(1, L + 1, real)
+    lens[0] = L
+    mask = (np.arange(L)[None, :] < lens[:, None]).astype(np.float32)
+    cols = np.where(mask > 0, rng.integers(0, M_ITEMS, (B, L)), 0)
+    w = (rng.integers(1, 11, (B, L)) * 0.5).astype(np.float32) * mask
+    aw, bw = implicit_weights(torch.from_numpy(w).to(dev), ALPHA)
+    return torch.from_numpy(cols.astype(np.int32)).to(dev), aw, bw
+
+
 def training_kernel_checks(dev, trained: dict, seed: int) -> dict:
     import torch
 
@@ -1090,12 +1157,25 @@ def training_kernel_checks(dev, trained: dict, seed: int) -> dict:
         for cols, aw, bw, label in synthetic_rows(dev, rng,
                                                   ((300, 40), (9, 5_000))):
             both_kinds(Yr, Yi, cols, aw, bw, False, f"R={R} {label}")
+    # the fold-in solve's shapes: mostly padding rows, up to two spans
+    Yt = torch.from_numpy(model.item_factors).to(dev)
+    Yi = torch.from_numpy(rng.integers(-3, 4, tuple(Yt.shape)).astype(
+        np.float32)).to(dev)
+    fold_tables = []
+    for (B, real) in FOLD_BATCHES:
+        for L in FOLD_LENGTHS:
+            cols, aw, bw = fold_rows(dev, rng, B, real, L)
+            both_kinds(Yt, Yi, cols, aw, bw, False,
+                       f"fold B={B} ({real} real) L={L}")
+            fold_tables.append((B, L, cols, aw, bw))
     print(f"[kernel] assemble_normal_equations == plain in {cases} cases "
           f"(every row of every bucket of both sides, {rows_checked} rows, "
           f"in 4 kinds each; 8 x 100,000 and 64 x 5,000 synthetic split "
           f"rows; R in {OTHER_RANKS + LARGE_RANKS} on 300 x 40 and 9 x "
-          f"5,000 rows, the large-rank route from 209; integer fixtures "
-          f"exact; max |err| {worst['assemble']!r})")
+          f"5,000 rows, the large-rank route from 209; the fold-in shapes "
+          f"B x L in {[b for b, _ in FOLD_BATCHES]} x {list(FOLD_LENGTHS)} "
+          f"with all but {[r for _, r in FOLD_BATCHES]} rows padding; "
+          f"integer fixtures exact; max |err| {worst['assemble']!r})")
 
     # solve: random SPD systems, an ill-scaled family, real systems at
     # rank 64, then other ranks; the kernel repeats the plain version's
@@ -1113,16 +1193,18 @@ def training_kernel_checks(dev, trained: dict, seed: int) -> dict:
 
     real_bucket = pd.user_side.buckets[len(pd.user_side.buckets) // 2]
     aw, bw = assembly_weights(real_bucket, False, dev)
-    Yt = torch.from_numpy(model.item_factors).to(dev)
+    gram = Yt.T @ Yt + LAMBDA * torch.eye(RANK, device=dev)
     real = als_cuda.assemble_normal_equations(
-        Yt, torch.as_tensor(real_bucket.cols, device=dev), aw, bw,
-        Yt.T @ Yt + LAMBDA * torch.eye(RANK, device=dev))
+        Yt, torch.as_tensor(real_bucket.cols, device=dev), aw, bw, gram)
+    folds = [(f"fold B={B} L={L}",
+              als_cuda.assemble_normal_equations(Yt, cols, aw, bw, gram))
+             for B, L, cols, aw, bw in fold_tables]
     optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     results = []
     for label, (A, b) in [(f"B={B}", systems(B))
                           for B in (1, 127, 4096, N_USERS)] + [
             ("ill-scaled B=4096", systems(4096, ill=True)),
-            (f"training B={real[1].shape[0]}", real)] + [
+            (f"training B={real[1].shape[0]}", real)] + folds + [
             (f"R={R} B={64 if R <= 65 else 16}",
              systems(64 if R <= 65 else 16, R)) for R in SOLVE_RANKS]:
         R = b.shape[1]
@@ -1618,6 +1700,66 @@ def observability_overhead(base: str, queries: list, rounds: int = 10) -> dict:
     return out
 
 
+def check_against_plain(model, answers: list) -> int:
+    """Each ``(query, status, body, seconds)`` must be a 200 whose items
+    and scores are the same pipeline's with the plain version in place of
+    the serving kernel (one extra result of context for near-tie checks),
+    scores within ``RTOL`` of the largest score the query can reach.
+    Returns the number checked."""
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.ops import serving as serving_mod
+    from predictionio_tpu_torch.templates.recommendation.engine import (
+        ALSAlgorithm,
+        Query,
+    )
+
+    algo = ALSAlgorithm()
+    server = model.device_server()
+    # a model whose store was patched (fold-in) serves rows beyond its
+    # host factors: the norms come from the store itself
+    X = server._X
+    x_norm = (X.float() if not hasattr(X, "scale") else
+              X.data.float() * X.scale[:, None]).norm(dim=1).cpu().numpy()
+    y_norm = float(np.linalg.norm(model.item_factors, axis=1).max())
+    serving_mod.fused_gather_score_topk = \
+        als_cuda.fused_gather_score_topk_plain
+    try:
+        checked = 0
+        for q, status, body, _ in answers:
+            if status != 200:
+                raise AssertionError(f"{q}: HTTP {status} {body}")
+            wide = dict(q, num=q["num"] + 1)
+            want = algo.predict(model, Query(**{
+                k: tuple(v) if isinstance(v, list) else v
+                for k, v in wide.items()}))
+            got = body["itemScores"]
+            exp_items = [s.item for s in want.item_scores]
+            exp_scores = np.asarray([s.score for s in want.item_scores] +
+                                    [-np.inf], dtype=np.float32)
+            if "items" in q:
+                bound = 1.01 * len(q["items"])
+            elif q["user"] in model.user_map:
+                bound = 1.01 * x_norm[model.user_map[q["user"]]] * y_norm
+            else:
+                bound = 0.0
+            n = min(q["num"], len(exp_items))
+            if len(got) != n:
+                raise AssertionError(f"{q}: {len(got)} results, want {n}")
+            kv = np.asarray([[g["score"] for g in got]], dtype=np.float32)
+            item_ids = {it: j for j, it in enumerate(exp_items)}
+            ki = np.asarray([[item_ids.get(g["item"], n + 1 + j)
+                              for j, g in enumerate(got)]])
+            if n:
+                check_topk(kv, ki, exp_scores[None, :n + 1],
+                           np.arange(n + 1)[None, :],
+                           np.asarray([RTOL * bound], np.float32),
+                           exact=False)
+            checked += 1
+    finally:
+        serving_mod.fused_gather_score_topk = als_cuda.fused_gather_score_topk
+    return checked
+
+
 def serve_full_width(model, seed: int) -> dict:
     import secrets
 
@@ -1626,8 +1768,6 @@ def serve_full_width(model, seed: int) -> dict:
     from predictionio_tpu_torch.ops import als_cuda
     from predictionio_tpu_torch.ops import serving as serving_mod
     from predictionio_tpu_torch.templates.recommendation.engine import (
-        ALSAlgorithm,
-        Query,
         engine_factory,
     )
     from predictionio_tpu_torch.utils import device_telemetry
@@ -1787,47 +1927,7 @@ def serve_full_width(model, seed: int) -> dict:
 
     overhead = observability_overhead(base, queries)
 
-    # expected answers: the same pipeline with the plain version in place
-    # of the kernel (one extra result of context for near-tie checks)
-    algo = ALSAlgorithm()
-    x_norm = np.linalg.norm(model.user_factors, axis=1)
-    y_norm = float(np.linalg.norm(model.item_factors, axis=1).max())
-    serving_mod.fused_gather_score_topk = \
-        als_cuda.fused_gather_score_topk_plain
-    try:
-        checked = 0
-        for q, status, body, _ in answers:
-            if status != 200:
-                raise AssertionError(f"{q}: HTTP {status} {body}")
-            wide = dict(q, num=q["num"] + 1)
-            want = algo.predict(model, Query(**{
-                k: tuple(v) if isinstance(v, list) else v
-                for k, v in wide.items()}))
-            got = body["itemScores"]
-            exp_items = [s.item for s in want.item_scores]
-            exp_scores = np.asarray([s.score for s in want.item_scores] +
-                                    [-np.inf], dtype=np.float32)
-            if "items" in q:
-                bound = 1.01 * len(q["items"])
-            elif q["user"] in model.user_map:
-                bound = 1.01 * x_norm[model.user_map[q["user"]]] * y_norm
-            else:
-                bound = 0.0
-            n = min(q["num"], len(exp_items))
-            if len(got) != n:
-                raise AssertionError(f"{q}: {len(got)} results, want {n}")
-            kv = np.asarray([[g["score"] for g in got]], dtype=np.float32)
-            item_ids = {it: j for j, it in enumerate(exp_items)}
-            ki = np.asarray([[item_ids.get(g["item"], n + 1 + j)
-                              for j, g in enumerate(got)]])
-            if n:
-                check_topk(kv, ki, exp_scores[None, :n + 1],
-                           np.arange(n + 1)[None, :],
-                           np.asarray([RTOL * bound], np.float32),
-                           exact=False)
-            checked += 1
-    finally:
-        serving_mod.fused_gather_score_topk = als_cuda.fused_gather_score_topk
+    checked = check_against_plain(model, answers)
     torch.cuda.synchronize()
     # the in-process requests only, as the earlier phase 3 measured them
     timed = answers[:len(queries)] + in_burst
@@ -1854,6 +1954,614 @@ def serve_full_width(model, seed: int) -> dict:
             "p50_ms": float(np.percentile(lat, 50)),
             "p99_ms": float(np.percentile(lat, 99)),
             "overhead": overhead}
+
+
+# -- phase 3b: online fold-in at ML-20M width ---------------------------------
+
+FOLDIN_APP = "FoldIn20M"
+FOLDIN_KNOWN = 512        # users whose full histories the store holds
+FOLDIN_TOUCHED = 256      # of them, given 1-3 new ratings after deploy
+FOLDIN_NEW = 256          # brand-new users, 5-200 ratings each
+FOLDIN_INTERVAL = 0.5     # PIO_FOLDIN_INTERVAL, seconds
+FOLDIN_DEADLINE = 30.0    # event -> servable, seconds
+FOLDIN_HAMMER_S = 3.0     # the hammer's query threads run this long
+# a folded row in the bf16 store against the plain fold cast to bf16,
+# relative to the row's largest entry: one bf16 step (2^-7) where the
+# two fp32 rows round to neighbouring bf16 values, plus the assembly's
+# fp32 reordering carried through the solve (1e-3, the bound phase 5
+# holds the trained factors to)
+FOLDIN_ROW_TOL = 2.0 ** -7 + 1e-3
+
+
+# phase 3b's poster, in a process of its own: the batches of a JSON file
+# (a list of event lists) posted to a URL from N threads, batch b by
+# thread b % N; one line out per batch ({"b", "sent" (epoch seconds),
+# "bad": refused items or the error})
+POSTER = r"""
+import json, sys, threading, time, urllib.request
+url, path, clients = sys.argv[1], sys.argv[2], int(sys.argv[3])
+with open(path) as f:
+    batches = json.load(f)
+lock = threading.Lock()
+
+def client(c):
+    opener = urllib.request.build_opener()
+    for b in range(c, len(batches), clients):
+        req = urllib.request.Request(
+            url, method="POST", data=json.dumps(batches[b]).encode(),
+            headers={"Content-Type": "application/json"})
+        sent = time.time()
+        try:
+            with opener.open(req, timeout=120) as resp:
+                items = json.loads(resp.read())
+                bad = int(resp.status != 200) + sum(
+                    x.get("status") != 201 for x in items)
+        except Exception as e:
+            bad = repr(e)
+        with lock:
+            print(json.dumps({"b": b, "sent": sent, "bad": bad}), flush=True)
+
+threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+"""
+
+
+def foldin_events(rng, model, known: np.ndarray, touched: np.ndarray):
+    """The post-deploy events, in the event server's JSON: 1-3 new
+    ratings for each touched known user (on items not in its seen list),
+    256 new users with 5-200 ratings each, and what the consumer must
+    ignore: ``view`` events of untouched known users, ratings of items
+    the model does not know (by touched users, and by users who rate
+    nothing else), and item ``$set`` events. Each user's ratings come
+    together, as a session does, the sessions and the other events in a
+    seeded random order. Returns (events, {user: new item labels}, new
+    user names)."""
+    labels = model.item_map.labels
+
+    def rate(user, item, value=None):
+        return {"event": "rate", "entityType": "user", "entityId": user,
+                "targetEntityType": "item", "targetEntityId": item,
+                "properties": {"rating": float(
+                    value if value is not None
+                    else rng.integers(1, 11) * 0.5)}}
+
+    sessions, added = [], {}
+    for u in touched.tolist():
+        name = f"u{u}"
+        have = set(model.seen[model.user_map[name]].tolist())
+        fresh = [i for i in rng.choice(M_ITEMS, 8, replace=False).tolist()
+                 if i not in have][:int(rng.integers(1, 4))]
+        added[name] = [labels[i] for i in fresh]
+        sessions.append([rate(name, labels[i]) for i in fresh])
+    new_users = [f"new{j}" for j in range(FOLDIN_NEW)]
+    for name in new_users:
+        n = int(rng.integers(5, 201))
+        sessions.append([rate(name, labels[i]) for i in
+                         rng.choice(M_ITEMS, n, replace=False).tolist()])
+    untouched = np.setdiff1d(known, touched)
+    sessions += [[{"event": "view", "entityType": "user",
+                   "entityId": f"u{int(rng.choice(untouched))}",
+                   "targetEntityType": "item",
+                   "targetEntityId": labels[int(rng.integers(0, M_ITEMS))]}]
+                 for _ in range(200)]
+    sessions += [[rate(f"u{int(rng.choice(touched))}", f"unknown{j}")]
+                 for j in range(50)]
+    sessions += [[rate(f"ghost{j}", f"unknown{j}")] for j in range(50)]
+    sessions += [[{"event": "$set", "entityType": "item",
+                   "entityId": labels[int(rng.integers(0, M_ITEMS))],
+                   "properties": {"categories": ["g0"]}}]
+                 for _ in range(100)]
+    events = [e for j in rng.permutation(len(sessions)) for e in sessions[j]]
+    return events, added, new_users
+
+
+def foldin_hammer(dev, trained: dict, seed: int) -> dict:
+    """Check (d) on the card: a store of its own (phase 5's factors and
+    seen lists, bf16), 8 threads sending ``users_topk`` for 256 users
+    while another alternates those users' rows and seen lists between
+    sets A and B, its third patch also growing the store. Every answer
+    must be set A's answer or set B's."""
+    import torch
+
+    from predictionio_tpu_torch.ops.serving import DeviceTopK, bucket_size
+
+    model = trained["model"]
+    rng = np.random.default_rng(seed + 17)
+    srv = DeviceTopK(model.user_factors, model.item_factors, model.seen,
+                     microbatch=False, device=dev)
+    users = np.arange(N_USERS - 256, N_USERS)
+    donors = rng.choice(N_USERS - 256, 512, replace=False)
+    sets = []
+    for d in (donors[:256], donors[256:]):
+        seen = {int(u): model.seen.get(int(v), np.zeros(0, np.int64))
+                for u, v in zip(users, d)}
+        sets.append((model.user_factors[d], seen))
+    answers = []
+    for rows, seen in sets:
+        srv.patch_users(users, rows, seen_items=seen)
+        answers.append(tuple(a.tobytes() for a in srv.users_topk(users, 16)))
+    if answers[0] == answers[1]:
+        raise AssertionError("the hammer's two sets answer alike")
+    got, errors = [], []
+    stop = threading.Event()
+
+    def query():
+        while not stop.is_set():
+            try:
+                got.append(tuple(a.tobytes()
+                                 for a in srv.users_topk(users, 16)))
+            except Exception as e:  # reported below; the phase then fails
+                errors.append(repr(e))
+                return
+
+    threads = [threading.Thread(target=query) for _ in range(8)]
+    for t in threads:
+        t.start()
+    patches, t0 = 0, time.perf_counter()
+    try:
+        while time.perf_counter() - t0 < FOLDIN_HAMMER_S:
+            rows, seen = sets[patches % 2]
+            uids, rows = users, rows
+            if patches == 2:    # also grows the store (to 276,986 rows)
+                uids = np.append(users, N_USERS)
+                rows = np.concatenate([rows, rows[:1]])
+            srv.patch_users(uids, rows, seen_items=seen)
+            patches += 1
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+    torch.cuda.synchronize()
+    torn = sum(a not in answers for a in got)
+    if errors or torn or not got or srv.user_capacity != bucket_size(
+            N_USERS + 1, lo=N_USERS):
+        raise AssertionError(f"hammer: {len(got)} answers, {torn} torn, "
+                             f"errors {errors[:3]}, capacity "
+                             f"{srv.user_capacity}")
+    out = {"answers": len(got), "patches": patches, "torn": 0,
+           "growth": srv.growths[-1]}
+    print(f"[foldin] hammer: {len(got)} answers of users_topk for 256 users "
+          f"from 8 threads across {patches} patches alternating two row "
+          f"and seen sets (one growing the store to {srv.user_capacity} "
+          f"rows, lock held {srv.growths[-1]['lockSec']!r} s, stream "
+          f"{srv.growths[-1]['deviceSec']!r} s): every "
+          f"answer set A's or set B's")
+    del srv
+    torch.cuda.empty_cache()
+    return out
+
+
+def foldin_full_width(dev, trained: dict, ratings: tuple, seed: int,
+                      served: dict) -> dict:
+    """Phase 3b: fold-in through the deployed server at ML-20M width.
+
+    A sqlite event store holds the full histories of 512 of phase 5's
+    users, in phase 5's event order (the heaviest user, at the 2,048
+    cap, among them); ``QueryServer(ServerConfig(foldin=True))`` serves
+    a model built from phase 5's factors, maps and seen lists, and the
+    port's event server, a ``pio eventserver`` process, writes to the
+    same store. The events of :func:`foldin_events` go through ``POST
+    /batch/events.json`` in 50-event batches from 8 threads of a client
+    process (``POSTER``) while queries run; then checks (a) to (e) of
+    the module docstring. Both processes keep their request handling off
+    this interpreter's lock, as a deployment's would."""
+    import contextlib
+    import os
+    import tempfile
+
+    import torch
+
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.data.bimap import StringIndexBiMap
+    from predictionio_tpu_torch.data.storage.base import AccessKey, App
+    from predictionio_tpu_torch.online import foldin as foldin_mod
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.ops.als import fold_in_users
+    from predictionio_tpu_torch.templates.recommendation.engine import (
+        ALSModel,
+        engine_factory,
+    )
+    from predictionio_tpu_torch.utils import metrics, tracing
+    from predictionio_tpu_torch.workflow.create_server import (
+        QueryServer,
+        ServerConfig,
+        deployment_from_models,
+    )
+
+    base_model = trained["model"]
+    base_model._server = None          # phase 3's store, freed
+    torch.cuda.empty_cache()
+    rows, cols, values, order = ratings
+    rng = np.random.default_rng(seed + 13)
+    lens = np.bincount(rows, minlength=N_USERS)
+    heavy = int(np.argmax(lens))
+    others = np.flatnonzero(lens > 0)
+    others = rng.choice(others[others != heavy], FOLDIN_KNOWN - 1,
+                        replace=False)
+    known = np.concatenate([[heavy], others])
+    touched = known[:FOLDIN_TOUCHED]
+    hist = order[np.isin(rows[order], known)]
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="pio-foldin-")
+    db = os.path.join(work, "pio.db")
+    storage.reset(storage.StorageConfig(
+        sources={"S": {"type": "sqlite", "path": db}},
+        repositories={r: "S" for r in storage.REPOSITORIES}))
+    app_id = storage.get_metadata_apps().insert(App(0, FOLDIN_APP))
+    key = storage.get_metadata_access_keys().insert(AccessKey("", app_id, ()))
+    levents = storage.get_levents()
+    levents.init(app_id)
+    base = 1.5e9
+    users_h, items_h = rows[hist].tolist(), cols[hist].tolist()
+    stars = values[hist].tolist()
+    levents.insert_raw_batch([
+        (f"h{j}", "rate", "user", f"u{users_h[j]}", "item", f"i{items_h[j]}",
+         f'{{"rating": {stars[j]!r}}}', base + j, "[]", None, base + j)
+        for j in range(len(hist))], app_id)
+    write_s = time.perf_counter() - t0
+    # the deployed model: phase 5's factors, maps and seen lists; the
+    # user map and seen dict are copies (fold-in grows them)
+    model = ALSModel(
+        base_model.user_factors, base_model.item_factors,
+        StringIndexBiMap.from_distinct(list(base_model.user_map.labels)),
+        base_model.item_map, dict(base_model.seen),
+        item_categories=base_model.item_categories, device=str(dev))
+    engine = engine_factory()
+    params = engine.engine_params_from_variant({
+        "datasource": {"params": {"appName": FOLDIN_APP}},
+        "algorithms": [{"name": "als", "params": {
+            "rank": RANK, "numIterations": ITERATIONS, "lambda": LAMBDA,
+            "alpha": ALPHA, "seed": seed}}]})
+    als_params = params.algorithm_params_list[0][1]
+    prior_interval = os.environ.get("PIO_FOLDIN_INTERVAL")
+    os.environ["PIO_FOLDIN_INTERVAL"] = repr(FOLDIN_INTERVAL)
+    captured, fold_log = [], []
+    real_scope = foldin_mod.trace_scope
+
+    @contextlib.contextmanager
+    def capturing_scope(name, **kwargs):
+        # each fold's pio.foldin trace, read back as soon as it retires
+        with real_scope(name, **kwargs) as root:
+            yield root
+        if root is not None:
+            record = tracing.trace_buffer().get(root.trace_id)
+            if record is not None:
+                captured.append(record)
+
+    foldin_mod.trace_scope = capturing_scope
+    server = events = None
+    try:
+        t1 = time.perf_counter()
+        server = QueryServer(ServerConfig(ip="127.0.0.1", port=0,
+                                          foldin=True),
+                             deployment_from_models(engine, params,
+                                                    [model])).start()
+        # the event server in a process of its own (``pio eventserver``
+        # over the same sqlite file), as a deployment runs it: its
+        # request handling never holds the query server's interpreter lock
+        events, es_base, _ = pio_child(
+            ["eventserver", "--ip", "127.0.0.1", "--port", "0"],
+            console_env(db), work, "Event Server is ready at")
+        deploy_s = time.perf_counter() - t1
+        srv = model.device_server()
+        consumer = server._foldin
+        print(f"[foldin] {len(hist)} ratings of {FOLDIN_KNOWN} users (the "
+              f"heaviest with {lens[heavy]}) written to a sqlite store in "
+              f"{write_s!r} s; deploy with fold-in and the event server "
+              f"{deploy_s!r} s; cadence PIO_FOLDIN_INTERVAL="
+              f"{consumer._cfg.interval!r} s, PIO_FOLDIN_COUNT="
+              f"{consumer._cfg.count_threshold}")
+        seen_before = (tuple(srv._seen_cols.shape),
+                       srv._seen_cols.nbytes + srv._seen_mask.nbytes)
+        state = {"in_fold": 0}
+        real_fold = consumer._fold
+
+        def timed_fold():
+            state["in_fold"] += 1
+            t = time.perf_counter()
+            patched = consumer.users_patched
+            try:
+                real_fold()
+            finally:
+                state["in_fold"] -= 1
+                fold_log.append({"s": time.perf_counter() - t,
+                                 "users": consumer.users_patched - patched})
+
+        consumer._fold = timed_fold
+        qbase = "http://{}:{}".format(*server.address)
+        ev_url = f"{es_base}/batch/events.json?accessKey={key}"
+
+        # the answers of untouched users before any fold
+        untouched = np.setdiff1d(known, touched)
+        strangers = rng.choice(np.setdiff1d(np.arange(N_USERS), known), 256,
+                               replace=False)
+        steady = [f"u{u}" for u in np.concatenate([untouched, strangers])]
+        steady_idx = np.asarray([model.user_map[u] for u in steady])
+        halves = (steady_idx[:256], steady_idx[256:])   # a full batch each
+
+        def steady_answers():
+            return [tuple(a.tobytes() for a in srv.users_topk(h, 16))
+                    for h in halves]
+
+        steady_want = steady_answers()
+        steady_http = {u: post(qbase + "/queries.json",
+                               {"user": u, "num": 10})[1]["itemScores"]
+                       for u in steady[:64]}
+
+        evs, added, new_users = foldin_events(rng, model, known, touched)
+        batches = [evs[a:a + QS_BATCH] for a in range(0, len(evs), QS_BATCH)]
+        sent_at = [None] * len(batches)
+        first_batch = {}
+        for b, chunk in enumerate(batches):
+            for e in chunk:
+                first_batch.setdefault(e["entityId"], b)
+        before = scrape(qbase)
+        launch0 = (als_cuda.assemble_launches.value,
+                   als_cuda.spd_launches.value, als_cuda.launches.value)
+        bad, lat, served_at = [], [], {}
+        stop_http, stop = threading.Event(), threading.Event()
+        batches_file = os.path.join(work, "batches.json")
+        with open(batches_file, "w") as f:
+            json.dump(batches, f)
+
+        def steady_http_client():
+            j = 0
+            while not stop_http.is_set():
+                u = steady[j % 64]
+                status, body, took = post(qbase + "/queries.json",
+                                          {"user": u, "num": 10})
+                lat.append(took)
+                # the same items; the scores to RTOL (a batch's other rows
+                # may take another sort route, bitwise equal on the card)
+                want = steady_http[u]
+                if status != 200 or [x["item"] for x in body["itemScores"]] \
+                        != [x["item"] for x in want] or not np.allclose(
+                            [x["score"] for x in body["itemScores"]],
+                            [x["score"] for x in want], rtol=RTOL, atol=0):
+                    bad.append(("steady http", u, status, body, want))
+                j += 1
+                time.sleep(0.005)   # a light load: each query alone
+
+        def steady_direct():
+            while not stop.is_set():
+                if steady_answers() != steady_want:
+                    bad.append("an untouched user's answer moved")
+                time.sleep(0.02)
+
+        def poll_new():
+            pending = set(new_users)
+            while pending and not stop.is_set():
+                for name in list(pending):
+                    if name not in model.user_map:
+                        continue
+                    status, body, _ = post(qbase + "/queries.json",
+                                           {"user": name, "num": 10})
+                    if status == 200 and body["itemScores"]:
+                        served_at[name] = time.time()
+                        pending.discard(name)
+                time.sleep(0.001)
+
+        readers = [threading.Thread(target=f) for f in
+                   (steady_http_client, steady_direct, poll_new)]
+        t_post = time.perf_counter()
+        for t in readers:
+            t.start()
+        proc = subprocess.run(
+            [sys.executable, "-c", POSTER, ev_url, batches_file,
+             str(QS_CLIENTS)], capture_output=True, text=True, timeout=600)
+        posted = time.perf_counter()
+        post_s = posted - t_post
+        for line in proc.stdout.splitlines():
+            rec = json.loads(line)
+            sent_at[rec["b"]] = rec["sent"]
+            if rec["bad"]:
+                bad.append(("post", rec))
+        if proc.returncode != 0 or None in sent_at:
+            bad.append(("poster", proc.returncode, proc.stderr[-2000:]))
+        # the HTTP reader stops with the posts, so the last folds' flight
+        # records stay in the recorder's ring; the direct reader and the
+        # new users' poller run on until the folds are done
+        stop_http.set()
+        readers[0].join(timeout=60)
+
+        def quiet() -> bool:
+            return (consumer._cursor.get("rowid")
+                    == levents.tail_cursor(app_id, None)["rowid"]
+                    and not consumer._pending and state["in_fold"] == 0)
+
+        calm = 0
+        while calm < 2 and time.perf_counter() - posted < FOLDIN_DEADLINE:
+            calm = calm + 1 if quiet() else 0
+            time.sleep(0.3)
+        readers[2].join(timeout=max(0.0, FOLDIN_DEADLINE
+                                    - (time.perf_counter() - posted)))
+        stop.set()
+        readers[1].join(timeout=60)
+        if bad or calm < 2 or len(served_at) != FOLDIN_NEW:
+            raise AssertionError(
+                f"fold-in: {len(bad)} failures ({bad[:3]}), quiet {calm}, "
+                f"{len(served_at)}/{FOLDIN_NEW} new users served within "
+                f"{FOLDIN_DEADLINE} s")
+        torch.cuda.synchronize()
+        launches = (als_cuda.assemble_launches.value - launch0[0],
+                    als_cuda.spd_launches.value - launch0[1],
+                    als_cuda.launches.value - launch0[2])
+        st = consumer.stats()
+        if st["foldErrors"] or st["tailErrors"] or st["newUsers"] \
+                != FOLDIN_NEW:
+            raise AssertionError(f"fold-in stats {st}")
+        # (e) each fold launched B3 once and B2 once; B1 served throughout
+        if launches[:2] != (st["folds"], st["folds"]) or not launches[2]:
+            raise AssertionError(f"launches (B3, B2, B1) {launches} for "
+                                 f"{st['folds']} folds")
+        after = scrape(qbase)
+
+        def delta(name, **labels):
+            return scraped(after, name, **labels) \
+                - scraped(before, name, **labels)
+
+        counts = {"new": delta("pio_foldin_users_total", kind="new"),
+                  "known": delta("pio_foldin_users_total", kind="known"),
+                  "folds": delta("pio_foldin_folds_total", status="ok")}
+        want = {"new": float(FOLDIN_NEW),
+                "known": float(st["usersPatched"] - FOLDIN_NEW),
+                "folds": float(st["folds"])}
+        if counts != want or st["usersPatched"] != sum(
+                f["users"] for f in fold_log):
+            raise AssertionError(f"/metrics {counts} != {want}")
+        report = get_json(qbase + "/dispatches.json?limit=2048")
+        fold_records = [r for r in report["dispatches"]
+                        if r["lane"] == "foldin"]
+        # the kernels' CUDA-event windows lie inside the host's wait for
+        # the rows
+        if not fold_records or any(r["deviceUs"] is None
+                                   or r["deviceUs"] > r["hostUs"]
+                                   for r in fold_records):
+            raise AssertionError(f"/dispatches.json fold records "
+                                 f"{fold_records[:3]}")
+
+        # (a) the touched known users: their new items are in their seen
+        # rows on the card, and out of their answers
+        for name, items in added.items():
+            uidx = model.user_map[name]
+            row = set(srv._seen_cols[uidx][srv._seen_mask[uidx] > 0]
+                      .tolist())
+            if not {model.item_map[i] for i in items} <= row:
+                raise AssertionError(f"{name}'s new items are not masked")
+        heavy_len = int((srv._seen_mask[model.user_map[f"u{heavy}"]] > 0)
+                        .sum())
+
+        # (b) the store's rows of the touched users against the plain fold
+        # of their full histories read back from the store
+        folded = [f"u{u}" for u in touched] + new_users
+        cl, vl = [], []
+        for name in folded:
+            c, v = [], []
+            for e in levents.find(app_id, entity_type="user", entity_id=name,
+                                  event_names=["rate"],
+                                  target_entity_type="item"):
+                idx = model.item_map.get(e.target_entity_id)
+                if idx is not None:
+                    c.append(idx)
+                    v.append(float(e.properties.fields["rating"]))
+            cl.append(np.asarray(c, np.int64))
+            vl.append(np.asarray(v, np.float32))
+        saved = (als_cuda.assemble_normal_equations, als_cuda.spd_solve)
+        als_cuda.assemble_normal_equations = \
+            als_cuda.assemble_normal_equations_plain
+        als_cuda.spd_solve = als_cuda.spd_solve_plain
+        try:
+            plain = fold_in_users(srv.item_factors, cl, vl, als_params)
+        finally:
+            als_cuda.assemble_normal_equations, als_cuda.spd_solve = saved
+        uidx = torch.as_tensor([model.user_map[n] for n in folded],
+                               device=dev)
+        stored = srv._X[uidx].float().cpu().numpy()
+        want_rows = torch.from_numpy(plain).to(torch.bfloat16).float().numpy()
+        scale = np.maximum(np.abs(want_rows).max(axis=1, keepdims=True),
+                           1e-30)
+        rel = float((np.abs(stored - want_rows) / scale).max())
+        if not rel <= FOLDIN_ROW_TOL:
+            raise AssertionError(f"folded rows differ from the plain fold "
+                                 f"by {rel!r} of their largest entry")
+
+        # (c) every touched and untouched user's HTTP answer against the
+        # plain pipeline over the patched store
+        queries = [{"user": f"u{u}", "num": 10} for u in known] \
+            + [{"user": n, "num": 10} for n in new_users] \
+            + [{"user": f"u{u}", "num": 10} for u in strangers]
+        checked = check_against_plain(model, burst(qbase, queries))
+
+        # what the phase prints
+        growth = list(srv.growths)
+        seen_after = (tuple(srv._seen_cols.shape),
+                      srv._seen_cols.nbytes + srv._seen_mask.nbytes)
+        splits = []
+        for record in captured:
+            spans = {s["name"]: s for s in record["spans"]}
+            if "foldin.solve" not in spans:
+                continue
+            part = {name: spans[name]["durationSec"] * 1e3
+                    for name in ("foldin.gather", "foldin.solve",
+                                 "foldin.patch")}
+            ex = spans.get("device.execute", {}).get("attributes", {})
+            part.update(users=spans["foldin.solve"]["attributes"]["users"],
+                        B=ex.get("bucket"), L=ex.get("kBucket"),
+                        device_us=ex.get("deviceUs"))
+            splits.append(part)
+        fresh = np.asarray([served_at[n] - sent_at[first_batch[n]]
+                            for n in new_users])
+        hist_fresh = metrics.FOLDIN_FRESHNESS.child().summary()
+        lat_ms = np.asarray(lat) * 1e3
+        users_per_fold = [f["users"] for f in fold_log if f["users"]]
+        print(f"[foldin] {len(evs)} events in {len(batches)} batches of "
+              f"{QS_BATCH} from {QS_CLIENTS} threads in {post_s!r} s; "
+              f"{st['folds']} folds, users per fold {users_per_fold}; "
+              f"launches B3 {launches[0]}, B2 {launches[1]}, B1 "
+              f"{launches[2]}; /metrics {counts}; "
+              f"{len(fold_records)} foldin flight records with deviceUs")
+        for j, p in enumerate(splits):
+            print(f"[foldin] fold {j}: {p['users']} users, B={p['B']} "
+                  f"L={p['L']}: gather {p['foldin.gather']!r} ms, solve "
+                  f"{p['foldin.solve']!r} ms (device {p['device_us']!r} us), "
+                  f"patch {p['foldin.patch']!r} ms")
+        for g in growth:
+            print(f"[foldin] a growing patch held the store lock "
+                  f"{g['lockSec']!r} s (host) and the stream "
+                  f"{g['deviceSec']!r} s (CUDA events): rows {g['rows']}, "
+                  f"seen tables {g['seenShape']}")
+        print(f"[foldin] seen tables {seen_before[0]} = {seen_before[1]} "
+              f"bytes before, {seen_after[0]} = {seen_after[1]} after (the "
+              f"heaviest user's list {heavy_len} long)")
+        print(f"[foldin] event -> servable: first post to first non-empty "
+              f"answer of the {FOLDIN_NEW} new users p50 "
+              f"{float(np.percentile(fresh, 50))!r} s, p99 "
+              f"{float(np.percentile(fresh, 99))!r} s, max "
+              f"{float(fresh.max())!r} s; pio_foldin_freshness_seconds "
+              f"(per folded event, bucket estimate) p50 "
+              f"{hist_fresh.get('p50Sec')!r} s, p99 "
+              f"{hist_fresh.get('p99Sec')!r} s over {hist_fresh['count']}")
+        print(f"[foldin] query latency during the folds ({len(lat)} "
+              f"sequential queries of untouched users): p50 "
+              f"{float(np.percentile(lat_ms, 50))!r} ms, p99 "
+              f"{float(np.percentile(lat_ms, 99))!r} ms; phase 3's p50 "
+              f"{served['p50_ms']!r} ms, p99 {served['p99_ms']!r} ms")
+        print(f"[foldin] {len(folded)} folded rows equal the plain fold "
+              f"(max {rel!r} of a row's largest entry, tolerance "
+              f"{FOLDIN_ROW_TOL!r}); {checked} answers match the plain "
+              f"pipeline; {len(steady)} untouched users' answers unmoved")
+        out = {"folds": st["folds"], "users_per_fold": users_per_fold,
+               "launches": {"assemble_normal_equations": launches[0],
+                            "spd_solve": launches[1],
+                            "fused_gather_score_topk": launches[2]},
+               "splits": splits, "growth": growth,
+               "seen_bytes": [seen_before[1], seen_after[1]],
+               "servable_p50_s": float(np.percentile(fresh, 50)),
+               "servable_p99_s": float(np.percentile(fresh, 99)),
+               "freshness_hist": hist_fresh,
+               "query_p50_ms": float(np.percentile(lat_ms, 50)),
+               "query_p99_ms": float(np.percentile(lat_ms, 99)),
+               "row_err": rel}
+    finally:
+        foldin_mod.trace_scope = real_scope
+        if prior_interval is None:
+            os.environ.pop("PIO_FOLDIN_INTERVAL", None)
+        else:
+            os.environ["PIO_FOLDIN_INTERVAL"] = prior_interval
+        if events is not None:
+            events.terminate()
+            events.wait(timeout=60)
+        if server is not None:
+            server.stop()
+        model._server = None
+        storage.reset()
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["hammer"] = foldin_hammer(dev, trained, seed)
+    return out
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -2027,8 +2735,9 @@ def bound_of(nbytes: float, ops: float) -> tuple:
 
 
 def assembly_work(B: int, L: int, nnz: int, M: int, R: int = RANK) -> tuple:
-    """(bytes, operations) of one assembly: the fixed factors ``Y [M, R]``
-    read once (they fit in L2, so the gather re-reads no device memory),
+    """(bytes, operations) of one assembly: the ``M`` rows of the fixed
+    factors ``Y`` that it gathers read once (they fit in L2, so the
+    gather re-reads no device memory),
     the cols/aw/bw tables read once, gram read once, A and b written
     once; per real slot, one FMA for each entry of A's upper triangle (A
     is symmetric) and R for b."""
@@ -2113,7 +2822,66 @@ def training_timings(dev, trained: dict) -> dict:
         heads[name].update(bound_ms=b_ms, bound_by=b_by)
         print(f"[time] {name} over one iteration's work: kernel "
               f"{heads[name]['ms']!r} ms, bound {b_ms!r} ms ({b_by})")
-    return {"rows": out, "heads": heads, "large": large_rank_timings(dev)}
+    return {"rows": out, "heads": heads, "large": large_rank_timings(dev),
+            "foldin": foldin_timings(dev, trained)}
+
+
+def foldin_timings(dev, trained: dict) -> dict:
+    """The two training kernels at the fold-in solve's shapes (B, L) in
+    ``FOLD_TIMED``, R=64, against the trained item factors: each against
+    its bound, its plain version and one library call (``torch.einsum``
+    over the pre-gathered rows for the assembly; ``torch.linalg.
+    cholesky`` then ``cholesky_solve`` for the solve). The assembly's
+    bound counts the item rows the fold gathers, the distinct items of
+    the real slots (padding slots carry weight 0), not the whole table."""
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+
+    rng = np.random.default_rng(FOLD_TIMED[-1][2])
+    Y = torch.from_numpy(trained["model"].item_factors).to(dev)
+    M, R = Y.shape
+    gram = Y.T @ Y + LAMBDA * torch.eye(R, device=dev)
+    out = {"assemble_normal_equations": [], "spd_solve": []}
+    for B, real, L in FOLD_TIMED:
+        cols, aw, bw = fold_rows(dev, rng, B, real, L)
+        real_slots = (aw != 0) | (bw != 0)
+        nnz = int(real_slots.sum())
+        gathered = min(M, int(cols[real_slots].unique().numel()))
+        Yg = Y[cols.long()]
+
+        def kernel():
+            return als_cuda.assemble_normal_equations(Y, cols, aw, bw, gram)
+
+        t_k = time_ms(kernel, 20)
+        t_p = time_ms(lambda: als_cuda.assemble_normal_equations_plain(
+            Y, cols, aw, bw, gram), 5)
+        t_l = time_ms(lambda: torch.einsum("bl,blr,bls->brs", aw, Yg, Yg),
+                      5)
+        nbytes, ops = assembly_work(B, L, nnz, gathered, R)
+        b_ms, b_by = bound_of(nbytes, ops)
+        out["assemble_normal_equations"].append({
+            "B": B, "real_rows": real, "L": L, "slots": nnz,
+            "rows_gathered": gathered, "ms": t_k,
+            "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
+            "bound_by": b_by})
+        A, b = kernel()
+        s_k = time_ms(lambda: als_cuda.spd_solve(A, b), 20)
+        s_p = time_ms(lambda: als_cuda.spd_solve_plain(A, b), 3)
+        s_l = time_ms(lambda: torch.cholesky_solve(
+            b[:, :, None], torch.linalg.cholesky(A)), 5)
+        sb_ms, sb_by = bound_of(*solve_work(B, R))
+        out["spd_solve"].append({
+            "B": B, "real_rows": real, "ms": s_k, "plain_ms": s_p,
+            "library_ms": s_l, "bound_ms": sb_ms, "bound_by": sb_by})
+        print(f"[time] fold B={B:<4} ({real} real, {gathered} rows) "
+              f"L={L:<5}: assemble kernel "
+              f"{t_k!r} ms  plain {t_p!r} ms  library {t_l!r} ms  bound "
+              f"{b_ms!r} ms ({b_by}); spd_solve kernel {s_k!r} ms  plain "
+              f"{s_p!r} ms  library {s_l!r} ms  bound {sb_ms!r} ms "
+              f"({sb_by})")
+        del Yg, A, b
+    return out
 
 
 def large_rank_timings(dev) -> dict:
@@ -3241,6 +4009,8 @@ def main() -> int:
                       dev, trained, args.seed)
     served = phase("3 serving", serve_full_width, trained["model"],
                    args.seed)
+    folded = phase("3b fold-in", foldin_full_width, dev, trained,
+                   store["ratings"], args.seed, served)
     rows = phase("4 serving kernel times", timings, dev, args.seed)
     crossover = phase("4c route crossover", route_crossover, dev, args.seed)
     train_times = phase("4b training kernel times", training_timings, dev,
@@ -3278,11 +4048,21 @@ def main() -> int:
              "each side's whole batch (one iteration), R=64", "shared")):
         # the main path's route, and the large-rank route off it (its
         # launches from phase 2b's rank-256 training)
+        # the fold-in solve's shapes: launches from phase 3b, the times of
+        # its largest shape (B=256, L=2,048), every timed shape listed
+        fold_rows_t = train_times["foldin"][name]
         routes = [{"route": main_route, "R": RANK,
                    "launches": trained["launches"][name],
                    **train_times["heads"][name]},
                   {**train_times["large"][name],
-                   "launches": train_err["large_rank_training"]["launches"][name]}]
+                   "launches": train_err["large_rank_training"]["launches"][name]},
+                  {"route": "foldin", "R": RANK,
+                   "launches": folded["launches"][name],
+                   **{k: fold_rows_t[-1][k] for k in (
+                       "ms", "plain_ms", "library_ms", "bound_ms",
+                       "bound_by")},
+                   "shape": "B=256 (200 real rows), L=2,048",
+                   "timings": fold_rows_t}]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "predictionio_tpu_torch/ops/csrc/als_solve.cu",
@@ -3295,7 +4075,10 @@ def main() -> int:
           f"(observability on / off p50 "
           f"{served['overhead']['on']['p50_ms']!r} / "
           f"{served['overhead']['off']['p50_ms']!r} ms); training "
-          f"iteration {trained['iteration_ms']!r} ms; store write "
+          f"iteration {trained['iteration_ms']!r} ms; fold-in event -> "
+          f"servable p50 {folded['servable_p50_s']!r} s p99 "
+          f"{folded['servable_p99_s']!r} s over {folded['folds']} folds; "
+          f"store write "
           f"{store['write_s']!r} s, read {trained['read_s']!r} s, prepare "
           f"{trained['prepare_s']!r} s; scale ingest {ingest['ingest_s']!r} "
           f"s (overlap {ingest['overlap']!r}); lifecycle deploy "

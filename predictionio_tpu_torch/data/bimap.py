@@ -86,6 +86,31 @@ class StringIndexBiMap(BiMap):
         """Object ndarray such that labels[i] == key with index i."""
         return self._labels
 
+    def append(self, labels: Sequence[str]) -> List[int]:
+        """Extend the map with NEW labels in place, assigning the next
+        dense indices; returns their indices. A label already mapped, or
+        one given twice, is an error: the caller (online fold-in growing
+        the user universe under a live server) resolves known ids first.
+        The factor store must hold a label's row before the label lands
+        here, so a lock-free ``get`` on the predict path never resolves
+        an index the store does not hold yet."""
+        new = [str(k) for k in labels]
+        if len(set(new)) != len(new):
+            raise ValueError("append: duplicate labels within the batch")
+        for k in new:
+            if k in self._fwd:
+                raise ValueError(f"label {k!r} already mapped")
+        base = len(self._fwd)
+        out = []
+        for i, k in enumerate(new):
+            self._fwd[k] = base + i
+            out.append(base + i)
+        if new:
+            self._labels = np.concatenate(
+                [self._labels, np.asarray(new, dtype=object)])
+            self._inv = None  # the inverse is rebuilt on the next inv_get
+        return out
+
     def decode(self, indices) -> np.ndarray:
         """Vectorised index -> key decoding (for top-k model outputs)."""
         return self._labels[np.asarray(indices)]

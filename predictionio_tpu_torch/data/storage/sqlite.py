@@ -356,6 +356,10 @@ class SqliteLEvents(base.LEvents):
     # INSERT OR REPLACE keyed by (app, channel, event_id): retried
     # inserts with pre-assigned ids replay to the identical state
     idempotent_event_writes = True
+    # entity_id-filtered finds are lookups in idx_events_entity, not
+    # table scans: readers (the fold-in gather) may issue many small
+    # per-entity reads instead of one shared scan
+    indexed_entity_reads = True
 
     def __init__(self, config: Optional[dict] = None):
         config = config or {}

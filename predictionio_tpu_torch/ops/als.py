@@ -24,6 +24,9 @@ counterpart is easy to find):
 - **Staging**: ``BucketedRatings.to_device_async`` copies the tables to
   the card from pinned memory on a copy stream of their own, and
   ``block_until_staged`` hands them to the current stream.
+- **Online fold-in**: ``pad_fold_in_batch`` and ``fold_in_users``, the
+  training half-step for a few users against fixed item factors (the
+  solve of :mod:`~predictionio_tpu_torch.online.foldin`).
 
 Implicit objective (Hu-Koren-Volinsky, as in MLlib): confidence
 ``c = 1 + alpha * |r|``, preference ``p = 1`` iff ``r > 0``; per row
@@ -49,6 +52,8 @@ from predictionio_tpu_torch.core.base import Params
 from predictionio_tpu_torch.device import DeviceLike, resolve_device
 from predictionio_tpu_torch.native import codec as native_codec
 from predictionio_tpu_torch.ops import als_cuda
+from predictionio_tpu_torch.utils import device_telemetry as _dtel
+from predictionio_tpu_torch.utils import tracing as _tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -466,9 +471,11 @@ def zero_empty_rows(X: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return X * (mask.sum(dim=1) > 0).to(X.dtype)[:, None]
 
 
-def _check_supported(params: ALSParams) -> None:
-    """Raise on the training features this slice does not port, named
-    with their ROADMAP item; an unknown precision raises too."""
+def _check_precision(params: ALSParams) -> None:
+    """The training precision (``PIO_ALS_PRECISION`` over
+    ``ALSParams.precision``) must be fp32: bf16 raises naming its
+    ROADMAP item, an unknown mode raises too. Training and the fold-in
+    solve (the training half-step) resolve it alike."""
     forced = os.environ.get("PIO_ALS_PRECISION", "").strip().lower()
     source = "PIO_ALS_PRECISION" if forced else "ALSParams.precision"
     mode = forced or str(params.precision or "fp32").strip().lower()
@@ -480,6 +487,12 @@ def _check_supported(params: ALSParams) -> None:
     if mode != "fp32":
         raise ValueError(f"{source}={mode!r} is not a known precision mode "
                          "(expected one of: fp32, bf16)")
+
+
+def _check_supported(params: ALSParams) -> None:
+    """Raise on the training features this slice does not port, named
+    with their ROADMAP item; an unknown precision raises too."""
+    _check_precision(params)
     every = os.environ.get("PIO_CHECKPOINT_EVERY", "").strip()
     if params.checkpoint_every or every not in ("", "0"):
         raise NotImplementedError(
@@ -506,7 +519,8 @@ def init_factors(n_rows: int, n_cols: int, rank: int, seed: Optional[int],
 def _solve_rows(Y: torch.Tensor, cols: torch.Tensor, weights: torch.Tensor,
                 mask: torch.Tensor, lam: float, alpha: float, implicit: bool,
                 gram: Optional[torch.Tensor] = None, refine: bool = False,
-                extra_ridge=None) -> torch.Tensor:
+                extra_ridge=None, events: Optional[list] = None
+                ) -> torch.Tensor:
     """Normal-equation solve for one batch of rows: fixed factors
     ``Y [M, R]`` and padded ratings ``[B, L]`` (+ validity mask) give new
     factors ``[B, R]``, fp32. ``gram`` (``Y^T Y``) may be passed in so
@@ -518,6 +532,11 @@ def _solve_rows(Y: torch.Tensor, cols: torch.Tensor, weights: torch.Tensor,
     assembly's Gram term is zero and ``lam * max(n_b, 1)`` joins the
     diagonal after it, ``n_b`` counted over the real slots.
     ``refine`` adds one refinement pass ``x += solve(A, b - A x)``.
+    ``events``, a list (CUDA only), gains one pair of
+    ``torch.cuda.Event(enable_timing=True)`` per kernel launch (the
+    assembly, each solve), recorded inside the launch around its
+    kernels: the sum of their elapsed times is the kernels' device time
+    (the fold-in solve's).
 
     The counterpart of both JAX ``_solve_rows`` and ``solve_side_pallas``:
     the port has one solver, the ``spd_solve`` kernel, so JAX's solver
@@ -534,16 +553,26 @@ def _solve_rows(Y: torch.Tensor, cols: torch.Tensor, weights: torch.Tensor,
         aw, bw = implicit_weights(w, alpha)
         if gram is None:
             gram = Y.T @ Y
-        A, b = als_cuda.assemble_normal_equations(
-            Y, cols, aw, bw, gram + lam * eye)
+        gram = gram + lam * eye
     else:
-        A, b = als_cuda.assemble_normal_equations(
-            Y, cols, mask, w, torch.zeros_like(eye))
+        aw, bw, gram = mask, w, torch.zeros_like(eye)
         n_b = mask.sum(dim=1)
+
+    def timed() -> dict:
+        if events is None:
+            return {}
+        events.append((torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True)))
+        return {"events": events[-1]}
+
+    A, b = als_cuda.assemble_normal_equations(Y, cols, aw, bw, gram,
+                                              **timed())
+    if not implicit:
         A.diagonal(dim1=1, dim2=2).add_((lam * n_b.clamp(min=1.0))[:, None])
-    X = als_cuda.spd_solve(A, b)
+    X = als_cuda.spd_solve(A, b, **timed())
     if refine:
-        X = X + als_cuda.spd_solve(A, b - torch.einsum("brs,bs->br", A, X))
+        X = X + als_cuda.spd_solve(A, b - torch.einsum("brs,bs->br", A, X),
+                                   **timed())
     return zero_empty_rows(X, mask)
 
 
@@ -723,3 +752,133 @@ def train_als(user_side: PaddedRatings, item_side: PaddedRatings,
         put(item_side.mask), block=int(block) if block else None,
         **_loop_kwargs(params))
     return _to_host(X)[:n_u], _to_host(Y)[:n_i]
+
+
+# -- online fold-in ---------------------------------------------------------------
+
+def pad_fold_in_batch(cols_list: Sequence[np.ndarray],
+                      vals_list: Sequence[np.ndarray],
+                      row_bucket: int = 8, len_bucket: int = 8,
+                      max_len: Optional[int] = None):
+    """Pad k ragged per-user rating sets into one ``[B, L]`` solve table
+    (the JAX package's ``pad_fold_in_batch``, byte for byte).
+
+    Both dimensions round up the power-of-two ladder (``B`` from
+    ``row_bucket``, ``L`` from ``len_bucket``), so a long-lived server's
+    folds see a handful of shapes. Duplicate (user, item) pairs are
+    summed first, as training sums them (:func:`dedup_sum_ratings`).
+    ``max_len`` applies training's per-row truncation at its EFFECTIVE
+    cap, ``max_len`` rounded up to ``PAD_MULTIPLE``: the
+    largest-magnitude ratings are kept, in a stable order; a fold that
+    cut at the raw ``max_len`` would solve a smaller problem than
+    training did for rows in the rounding gap. Padding rows and slots
+    carry a zero mask, so they solve to zero rows and slice off."""
+    # lazy: serving does not import this module, and stays that way
+    from predictionio_tpu_torch.ops.serving import bucket_size
+
+    k = len(cols_list)
+    cap = None if max_len is None else max(
+        1, -(-int(max_len) // PAD_MULTIPLE) * PAD_MULTIPLE)
+    deduped = []
+    longest = 1
+    for c, v in zip(cols_list, vals_list):
+        c = np.asarray(c, dtype=np.int64)
+        v = np.asarray(v, dtype=np.float32)
+        if len(c):
+            order = np.argsort(c, kind="stable")
+            _, cc, vv = dedup_sum_sorted(c[order], c[order], c[order],
+                                         v[order])
+            if cap is not None and len(cc) > cap:
+                sel = np.argsort(-np.abs(vv), kind="stable")[:cap]
+                cc, vv = cc[sel], vv[sel]
+            deduped.append((cc, vv))
+            longest = max(longest, len(cc))
+        else:
+            deduped.append((c, v))
+    B = bucket_size(max(k, 1), row_bucket)
+    L = bucket_size(longest, len_bucket)
+    cols = np.zeros((B, L), dtype=np.int32)
+    weights = np.zeros((B, L), dtype=np.float32)
+    mask = np.zeros((B, L), dtype=np.float32)
+    for i, (c, v) in enumerate(deduped):
+        m = len(c)
+        cols[i, :m] = c
+        weights[i, :m] = v
+        mask[i, :m] = 1.0
+    return cols, weights, mask
+
+
+def fold_in_users(item_factors, cols_list: Sequence[np.ndarray],
+                  vals_list: Sequence[np.ndarray], params: ALSParams,
+                  max_len: Optional[int] = None,
+                  device: DeviceLike = None) -> np.ndarray:
+    """Solve ``k`` user rows against FIXED item factors: one training
+    half-step (:func:`_solve_rows`, so on the card the assembly kernel
+    then the solve kernel) over the users' padded rating sets.
+
+    ``cols_list[i]`` / ``vals_list[i]`` are user ``i``'s FULL rating set
+    (item indices and values; duplicates are summed here). Returns the
+    ``[k, R]`` fp32 rows, on the host. ``item_factors`` is a host array
+    (placed on ``device``, None = cuda) or a tensor, which stays on its
+    device; any dtype is cast through fp32, so a bf16 serving store
+    folds as an fp32 one would. ``params`` gives ``lambda_``, ``alpha``,
+    ``implicit_prefs`` and ``solve_refine``; a bf16 training precision
+    raises (ROADMAP A5), as training does.
+
+    Each call is one flight-recorder dispatch (lane ``"foldin"``,
+    ``kBucket`` the padded history length L, ``bucket`` the padded user
+    batch B) and a ``device.execute`` span under the ambient span; on
+    the card its device time is the sum of the CUDA-event windows that
+    each kernel launch records around its kernels, read once the rows
+    are on the host. On the card the half-step runs on a stream of its
+    own (it waits for the caller's stream first), so no query kernel
+    that another thread enqueues meanwhile falls inside a window."""
+    _check_precision(params)
+    if isinstance(item_factors, torch.Tensor):
+        Y = item_factors
+    else:
+        Y = torch.from_numpy(np.ascontiguousarray(item_factors)).to(
+            resolve_device(device))
+    Y = Y.float().contiguous()
+    k = len(cols_list)
+    if k == 0:
+        return np.zeros((0, Y.shape[1]), dtype=np.float32)
+    cols, weights, mask = pad_fold_in_batch(cols_list, vals_list,
+                                            max_len=max_len)
+    dev = Y.device
+    ct, wt, mt = (torch.from_numpy(a).to(dev) for a in (cols, weights, mask))
+
+    def solve(events: Optional[list] = None) -> torch.Tensor:
+        return _solve_rows(Y, ct, wt, mt, float(params.lambda_),
+                           float(params.alpha), bool(params.implicit_prefs),
+                           refine=bool(params.solve_refine), events=events)
+
+    on_card = dev.type == "cuda"
+    events = [] if on_card and _dtel.enabled() else None
+    t0 = _tracing.span_now()
+    if on_card:
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            # the copy to the host waits for the side stream, so Y and the
+            # tables are no longer in use when this returns
+            out = _to_host(solve(events)[:k])
+    else:
+        out = _to_host(solve(events)[:k])
+    t1 = _tracing.span_now()
+    if not _dtel.enabled():
+        return out
+    rec = _dtel.record_dispatch(
+        lane="foldin", kernel="als_solve" if events is not None else "plain",
+        precision="fp32", aot="jit", k_bucket=int(cols.shape[1]), batch=k,
+        bucket=int(cols.shape[0]), host_us=(t1 - t0) * 1e6,
+        device_us=None if events is None
+        else sum(e0.elapsed_time(e1) for e0, e1 in events) * 1e3,
+        started_epoch=t0)
+    attributes = dict(rec or {})
+    if events is None:
+        attributes["deviceTiming"] = (
+            "none: no CUDA events on the CPU (the kernels' plain versions)")
+    _tracing.record_completed_span("device.execute", start=t0, end=t1,
+                                   attributes=attributes)
+    return out

@@ -406,13 +406,14 @@ def _solve_kernels(device: int) -> _SolveLib:
             lib = load_kernel_library(SOLVE_KERNEL_NAME)
             p, i = ctypes.c_void_p, ctypes.c_int
             asm = lib.pio_assemble_normal_equations
-            asm.argtypes = [i, p, i, i, p, p, p, i, i, i, i, i, p, p, p, p, p]
+            asm.argtypes = [i, p, i, i, p, p, p, i, i, i, i, i, p, p, p, p, p,
+                            p, p]
             asm.restype = i
             large = lib.pio_assemble_large_rank
-            large.argtypes = [i, p, i, i, p, p, p, i, i, p, p, p, p]
+            large.argtypes = [i, p, i, i, p, p, p, i, i, p, p, p, p, p, p]
             large.restype = i
             solve = lib.pio_spd_solve
-            solve.argtypes = [i, p, p, i, i, p, i, i, p, i, p]
+            solve.argtypes = [i, p, p, i, i, p, i, i, p, i, p, p, p]
             solve.restype = i
             err = lib.pio_als_error_string
             err.argtypes = [i]
@@ -509,9 +510,24 @@ def check_assembly_args(Y: torch.Tensor, cols: torch.Tensor, aw: torch.Tensor,
     return M, R, B, L
 
 
+def _native_events(events: Optional[Tuple], dev) -> Tuple:
+    """The CUDA handles of ``events``, a pair of
+    ``torch.cuda.Event(enable_timing=True)`` or None, for a native launch
+    that records them on its stream just before its first kernel and
+    just after its last: their elapsed time is the kernels' own."""
+    if events is None:
+        return None, None
+    # torch creates an event's CUDA handle at its first record; the
+    # native call records both again around the kernels
+    for ev in events:
+        ev.record(torch.cuda.current_stream(dev))
+    return events[0].cuda_event, events[1].cuda_event
+
+
 def assemble_normal_equations(Y: torch.Tensor, cols: torch.Tensor,
                               aw: torch.Tensor, bw: torch.Tensor,
-                              gram: torch.Tensor
+                              gram: torch.Tensor,
+                              events: Optional[Tuple] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused gather + normal-equation assembly, the contract of the JAX
     package's ``als_pallas.assemble_normal_equations``: returns
@@ -521,7 +537,9 @@ def assemble_normal_equations(Y: torch.Tensor, cols: torch.Tensor,
 
     ``Y [M, R]`` fp32 fixed-side factors; ``cols [B, L]`` int32 gather
     indices; ``aw``/``bw [B, L]`` fp32 weights (padding slots carry
-    weight 0 in both); ``gram [R, R]`` the shared term."""
+    weight 0 in both); ``gram [R, R]`` the shared term. ``events`` (CUDA
+    only), a pair of ``torch.cuda.Event(enable_timing=True)``, is
+    recorded around the kernels inside the native launch."""
     if Y.device.type == "cpu":
         return assemble_normal_equations_plain(Y, cols, aw, bw, gram)
     if Y.device.type != "cuda":
@@ -542,7 +560,8 @@ def assemble_normal_equations(Y: torch.Tensor, cols: torch.Tensor,
         _check_launch(lib.assemble_large(
             device, Y.data_ptr(), M, R, cols.data_ptr(), aw.data_ptr(),
             bw.data_ptr(), B, L, gram.data_ptr(), A.data_ptr(), b.data_ptr(),
-            stream), "assemble_normal_equations", lib.err_string)
+            stream, *_native_events(events, dev)),
+            "assemble_normal_equations", lib.err_string)
         assemble_launches.add()
         return A, b
     plan = assembly_plan(L)
@@ -554,7 +573,8 @@ def assemble_normal_equations(Y: torch.Tensor, cols: torch.Tensor,
                      aw.data_ptr(), bw.data_ptr(), B, L, plan.span,
                      plan.n_spans, int(plan.grouped), gram.data_ptr(),
                      A.data_ptr(), b.data_ptr(),
-                     None if partial is None else partial.data_ptr(), stream),
+                     None if partial is None else partial.data_ptr(), stream,
+                     *_native_events(events, dev)),
                   "assemble_normal_equations", lib.err_string)
     assemble_launches.add()
     return A, b
@@ -562,13 +582,20 @@ def assemble_normal_equations(Y: torch.Tensor, cols: torch.Tensor,
 
 def assemble_normal_equations_plain(Y: torch.Tensor, cols: torch.Tensor,
                                     aw: torch.Tensor, bw: torch.Tensor,
-                                    gram: torch.Tensor
+                                    gram: torch.Tensor,
+                                    events: Optional[Tuple] = None
                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of :func:`assemble_normal_equations`:
-    gather ``[B, L, R]``, then two fp32 einsums."""
+    gather ``[B, L, R]``, then two fp32 einsums. ``events`` (CUDA
+    tensors only) are recorded on the current stream around its work."""
+    if events is not None:
+        events[0].record(torch.cuda.current_stream(Y.device))
     Yg = Y.float()[cols.long()]                                  # [B, L, R]
     A = gram.float() + torch.einsum("bl,blr,bls->brs", aw.float(), Yg, Yg)
-    return A, torch.einsum("bl,blr->br", bw.float(), Yg)
+    out = A, torch.einsum("bl,blr->br", bw.float(), Yg)
+    if events is not None:
+        events[1].record(torch.cuda.current_stream(Y.device))
+    return out
 
 
 # spd_solve_warp_kernel: systems (warps) a block, and the fewest
@@ -612,7 +639,8 @@ def spd_solve_plan(R: int, smem_optin: int) -> SpdSolvePlan:
     return SpdSolvePlan("device", SPD_MAX_WARPS, ws, slots)
 
 
-def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def spd_solve(A: torch.Tensor, b: torch.Tensor,
+              events: Optional[Tuple] = None) -> torch.Tensor:
     """Batched SPD solve ``x: A @ x = b`` with ``A [B, R, R]`` and
     ``b [B, R]`` fp32, the contract of the JAX package's
     ``als_pallas.spd_solve``: non-pivoted Cholesky with the pivot
@@ -620,7 +648,8 @@ def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     substitution. Reads the upper triangle of ``A``. On the GPU the
     result is bitwise equal to :func:`spd_solve_plain`, at any rank:
     :func:`spd_solve_plan` keeps the kernel's workspace in shared memory
-    or, for large ranks, in device memory."""
+    or, for large ranks, in device memory. ``events`` as in
+    :func:`assemble_normal_equations`."""
     if A.device.type == "cpu":
         return spd_solve_plain(A, b)
     if A.device.type != "cuda":
@@ -648,16 +677,21 @@ def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                             x.data_ptr(), int(plan.route == "shared"),
                             plan.warps_per_block,
                             None if workspace is None else workspace.data_ptr(),
-                            slots, stream), "spd_solve", lib.err_string)
+                            slots, stream, *_native_events(events, dev)),
+                  "spd_solve", lib.err_string)
     spd_launches.add()
     return x
 
 
-def spd_solve_plain(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def spd_solve_plain(A: torch.Tensor, b: torch.Tensor,
+                    events: Optional[Tuple] = None) -> torch.Tensor:
     """The plain PyTorch version of :func:`spd_solve`, operation for
     operation the kernel's arithmetic: right-looking Cholesky ``A = U^T
     U`` on the upper triangle (pivot ``max(d, 1e-30)``), then ``U^T y =
-    b`` and ``U x = y`` by column sweeps."""
+    b`` and ``U x = y`` by column sweeps. ``events`` as in
+    :func:`assemble_normal_equations_plain`."""
+    if events is not None:
+        events[0].record(torch.cuda.current_stream(A.device))
     U = A.float().clone()
     v = b.float().clone()
     R = v.shape[1]
@@ -672,5 +706,7 @@ def spd_solve_plain(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for k in reversed(range(R)):
         v[:, k] /= U[:, k, k]
         v[:, :k] -= U[:, :k, k] * v[:, k:k + 1]
+    if events is not None:
+        events[1].record(torch.cuda.current_stream(A.device))
     return v
 

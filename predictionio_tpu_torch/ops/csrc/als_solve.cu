@@ -830,6 +830,21 @@ spd_solve_warp_kernel(const float* __restrict__ A, const float* __restrict__ b,
 
 }  // namespace
 
+// Records `ev`, a CUDA event or null for none, on `s`: the entry points'
+// ev_start / ev_end, recorded just before their first kernel and just
+// after their last, so the caller times the kernels alone.
+static cudaError_t record_event(void* ev, cudaStream_t s) {
+  return ev == nullptr ? cudaSuccess : cudaEventRecord(static_cast<cudaEvent_t>(ev), s);
+}
+
+// An entry point's return: cudaGetLastError() after its launches, then
+// ev_end recorded.
+static int launched(void* ev_end, cudaStream_t s) {
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) err = record_event(ev_end, s);
+  return static_cast<int>(err);
+}
+
 extern "C" {
 
 const char* pio_als_error_string(int err) {
@@ -896,11 +911,13 @@ int pio_als_solve_init(int device) {
 // assemble_reduce_kernel adds to gram in span order. With `grouped` (one
 // span) a block sums several rows, one per slot group. R at most
 // pio_assemble_max_rank(device). Launches on `stream`; returns
-// cudaGetLastError().
+// cudaGetLastError(). ev_start / ev_end, when not null, are CUDA events
+// recorded on `stream` around the kernels (no synchronisation here).
 int pio_assemble_normal_equations(int device, const float* Y, int M, int R, const int* cols,
                                   const float* aw, const float* bw, int B, int L, int span,
                                   int n_spans, int grouped, const float* gram, float* A,
-                                  float* b, float* partial, void* stream) {
+                                  float* b, float* partial, void* stream, void* ev_start,
+                                  void* ev_end) {
   if (B <= 0 || R <= 0 || L < 0 || M <= 0 || span <= 0 || span % ASM_CHUNK != 0 ||
       n_spans < 1 || static_cast<long long>(n_spans) * span < L ||
       (n_spans > 1 && (static_cast<long long>(n_spans - 1) * span >= L || partial == nullptr ||
@@ -919,6 +936,8 @@ int pio_assemble_normal_equations(int device, const float* Y, int M, int R, cons
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = record_event(ev_start, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   auto aligned = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
   const int vec = R % 4 == 0 && aligned(Y) && aligned(gram) && aligned(A) &&
                   (partial == nullptr || aligned(partial));
@@ -927,7 +946,7 @@ int pio_assemble_normal_equations(int device, const float* Y, int M, int R, cons
     const long long blocks = grouped ? (B + shape.groups - 1) / shape.groups : B;
     launch_assemble(static_cast<unsigned>(blocks), shape, s, Y, M, R, cols, aw, bw, B, L, span,
                     1, grouped ? 1 : 0, gram, A, b, rr, static_cast<long long>(R), shape, vec);
-    return static_cast<int>(cudaGetLastError());
+    return launched(ev_end, s);
   }
   launch_assemble(static_cast<unsigned>(static_cast<long long>(B) * n_spans), shape, s, Y, M, R,
                   cols, aw, bw, B, L, span, n_spans, 0, static_cast<const float*>(nullptr),
@@ -936,25 +955,28 @@ int pio_assemble_normal_equations(int device, const float* Y, int M, int R, cons
   if (err != cudaSuccess) return static_cast<int>(err);
   assemble_reduce_kernel<<<static_cast<unsigned>(B), REDUCE_THREADS, 0, s>>>(partial, n_spans,
                                                                             R, gram, A, b);
-  return static_cast<int>(cudaGetLastError());
+  return launched(ev_end, s);
 }
 
 // A [B, R, R] and b [B, R] as pio_assemble_normal_equations computes them,
 // at any rank (the route above pio_assemble_max_rank): one
 // assemble_large_rank_kernel block per (row, upper 32 x 32 tile of A) and
 // one per row for b. Launches on `stream`; returns cudaGetLastError().
+// ev_start / ev_end as in pio_assemble_normal_equations.
 int pio_assemble_large_rank(int device, const float* Y, int M, int R, const int* cols,
                             const float* aw, const float* bw, int B, int L, const float* gram,
-                            float* A, float* b, void* stream) {
+                            float* A, float* b, void* stream, void* ev_start, void* ev_end) {
   const long long rt = (R + LR_TILE - 1) / LR_TILE;
   if (B <= 0 || R <= 0 || L < 0 || M <= 0 || rt * (rt + 1) / 2 + 1 > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = record_event(ev_start, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(B), static_cast<unsigned>(rt * (rt + 1) / 2 + 1));
-  assemble_large_rank_kernel<<<grid, LR_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      Y, M, R, cols, aw, bw, L, gram, A, b);
-  return static_cast<int>(cudaGetLastError());
+  assemble_large_rank_kernel<<<grid, LR_THREADS, 0, s>>>(Y, M, R, cols, aw, bw, L, gram, A, b);
+  return launched(ev_end, s);
 }
 
 // x [B, R] solving A x = b for A [B, R, R] (symmetric positive definite;
@@ -964,9 +986,11 @@ int pio_assemble_large_rank(int device, const float* Y, int M, int R, const int*
 // each warp's workspace in shared memory, `warps` systems a block; else
 // `workspace` holds `slots` workspaces of solve_ws_floats(R) in device
 // memory (slots a multiple of `warps`), one per warp of the grid. Launches
-// on `stream`; returns cudaGetLastError().
+// on `stream`; returns cudaGetLastError(). ev_start / ev_end as in
+// pio_assemble_normal_equations.
 int pio_spd_solve(int device, const float* A, const float* b, int B, int R, float* x, int shared,
-                  int warps, float* workspace, int slots, void* stream) {
+                  int warps, float* workspace, int slots, void* stream, void* ev_start,
+                  void* ev_end) {
   if (B <= 0 || R <= 0 || warps < 1 || warps > SOLVE_MAX_WARPS)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long ws_bytes = solve_ws_floats(R) * static_cast<long long>(sizeof(float));
@@ -978,17 +1002,21 @@ int pio_spd_solve(int device, const float* A, const float* b, int B, int R, floa
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (warps * ws_bytes > optin) return static_cast<int>(cudaErrorInvalidValue);
+  } else if (workspace == nullptr || slots < warps || slots % warps != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  err = record_event(ev_start, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (shared) {
     const long long blocks = (static_cast<long long>(B) + warps - 1) / warps;
     spd_solve_warp_kernel<true><<<static_cast<unsigned>(blocks), warps * 32,
                                   static_cast<size_t>(warps * ws_bytes), s>>>(A, b, x, B, R,
                                                                               nullptr);
   } else {
-    if (workspace == nullptr || slots < warps || slots % warps != 0)
-      return static_cast<int>(cudaErrorInvalidValue);
     spd_solve_warp_kernel<false><<<static_cast<unsigned>(slots / warps), warps * 32, 0, s>>>(
         A, b, x, B, R, workspace);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launched(ev_end, s);
 }
 
 }  // extern "C"

@@ -12,9 +12,13 @@ recorder (:mod:`~predictionio_tpu_torch.utils.device_telemetry`) and as a
 ``device.execute`` span under the query's ``device.*`` span; the
 micro-batcher feeds the ``pio_microbatch_*`` families.
 
+The user store is live-patchable (:meth:`DeviceTopK.patch_users`, the
+write path of online fold-in): rows are rewritten in place and the
+store grows along the power-of-two ladder, under the store lock every
+dispatch snapshots under.
+
 Not here yet (later slices): the AOT ladder (CUDA graphs on the GPU),
-live patching of user rows for fold-in, sharded stores, and the
-memory/ladder reports.
+sharded stores, and the memory/ladder reports.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from predictionio_tpu_torch.ops.quantize import (
     dequantize_rows,
     is_quantized,
     quantize_rows_int8,
+    quantize_rows_int8_np,
 )
 from predictionio_tpu_torch.utils import device_telemetry as _dtel
 from predictionio_tpu_torch.utils import metrics as _metrics
@@ -65,6 +70,17 @@ def _serve_precision_explicit() -> Optional[str]:
             f"PIO_SERVE_PRECISION={mode!r} is not a serving precision "
             f"(expected one of: {', '.join(SERVE_PRECISION_MODES)})")
     return mode
+
+
+def foldin_enabled() -> bool:
+    """``PIO_FOLDIN``, set while a query server deploys with fold-in
+    (``pio deploy --foldin on`` or ``ServerConfig(foldin=True)``) and
+    readable by embedders: the deployed server runs the online fold-in
+    consumer, which needs the updatable :class:`DeviceTopK` store. The
+    port serves every model from that store, so the flag changes no
+    choice here."""
+    return os.environ.get("PIO_FOLDIN", "").strip().lower() in (
+        "1", "on", "true", "yes")
 
 
 def seen_tables(seen: Dict[int, np.ndarray], n_rows: int,
@@ -105,6 +121,14 @@ def _pad_item_rows_for_kernel(Y):
             torch.cat([d, d.new_zeros((pad, d.shape[1]))]),
             torch.cat([s, s.new_ones((pad,))]))
     return torch.cat([Y, Y.new_zeros((pad, Y.shape[1]))])
+
+
+def _grown(t: torch.Tensor, shape, fill: float = 0) -> torch.Tensor:
+    """A new table of ``shape`` filled with ``fill``, ``t`` copied into
+    its leading corner: the live table is left as it was."""
+    out = t.new_full(tuple(shape), fill)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    return out
 
 
 def _normalize_rows(Y):
@@ -594,7 +618,13 @@ class DeviceTopK:
 
     Concurrent ``user_topk``/``items_topk`` callers are micro-batched
     into one dispatch each (``microbatch=False`` or
-    ``PIO_SERVING_MICROBATCH=0`` dispatches per call)."""
+    ``PIO_SERVING_MICROBATCH=0`` dispatches per call).
+
+    The user store is LIVE-PATCHABLE (:meth:`patch_users`, online
+    fold-in): a user dispatch enqueues its gathers of the user rows and
+    seen rows under ``_store_lock``, and a patch enqueues its writes
+    under the same lock, so each query reads the whole store as one
+    patch left it, never a torn mix (see :meth:`patch_users`)."""
 
     ITEM_QUERY_BUCKET = 8  # padded query-item count for similarity queries
 
@@ -606,6 +636,11 @@ class DeviceTopK:
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         self._yn_lock = threading.Lock()
+        self._store_lock = threading.RLock()
+        # one entry per patch that grew the store: the shapes before and
+        # after, the seconds the patch held _store_lock and, on the card,
+        # the seconds of stream time its writes occupy
+        self.growths: List[Dict[str, Any]] = []
         if microbatch is None:
             microbatch = os.environ.get(
                 "PIO_SERVING_MICROBATCH",
@@ -689,9 +724,11 @@ class DeviceTopK:
         """Device bytes the store holds: both factor tables (with int8
         scales), the seen tables and the normalized item table once
         built."""
+        with self._store_lock:
+            tables = (self._X, self._Y, self._seen_cols, self._seen_mask,
+                      self._Yn)
         total = 0
-        for t in (self._X, self._Y, self._seen_cols, self._seen_mask,
-                  self._Yn):
+        for t in tables:
             if t is None:
                 continue
             if is_quantized(t):
@@ -786,9 +823,14 @@ class DeviceTopK:
         kb = min(_bucket(k), self.n_items)
         u = torch.from_numpy(np.asarray(uids, dtype=np.int64)).to(self.device)
         sc = sm = None
-        if self._mask_seen:  # the [B, L] rows, read as [L, B] views
-            sc, sm = self._seen_cols[u].T, self._seen_mask[u].T
-        Q = _gather_rows_f32(self._X, u)
+        # the gathers are enqueued under the lock a patch enqueues its
+        # writes under (see patch_users): Q and the seen rows are one
+        # patch's state, and the kernel reads only them and the item
+        # table, which no patch touches
+        with self._store_lock:
+            if self._mask_seen:  # the [B, L] rows, read as [L, B] views
+                sc, sm = self._seen_cols[u].T, self._seen_mask[u].T
+            Q = _gather_rows_f32(self._X, u)
         idx, scores = self._timed_fetch(
             lane, kb, len(uids), lambda events: fused_gather_score_topk(
                 Q, self._Y, sc, sm, k=kb, n_items=self.n_items,
@@ -851,6 +893,174 @@ class DeviceTopK:
                 Q, Yn, it.T, mt.T, k=kb, n_items=self.n_items,
                 mask_seen=True, events=events))
 
+    # -- live store patching (online fold-in) ------------------------------
+
+    @property
+    def item_factors(self) -> torch.Tensor:
+        """The item factors as served, which the fold-in solve holds
+        fixed: the store's first ``n_items`` rows (the kernel's tile
+        padding cut off) as a contiguous fp32 ``[n_items, R]`` tensor on
+        the store's device, the layout the assembly kernel takes. A bf16
+        store casts through fp32; an int8 store dequantizes with its
+        per-row scales. Built per access, never cached: an fp32 copy kept
+        beside a bf16 or int8 store would hold more device memory than
+        the narrow store saves, and fold-in reads it once a fold."""
+        with self._store_lock:
+            Y = self._Y
+        n = self.n_items
+        if is_quantized(Y):
+            return dequantize_rows(QuantFactors(Y.data[:n], Y.scale[:n]))
+        return Y[:n].float().contiguous()
+
+    @property
+    def user_capacity(self) -> int:
+        """Allocated user rows (>= ``n_users``; grows along the ladder)."""
+        with self._store_lock:
+            return int(self._X.shape[0])
+
+    @property
+    def growable(self) -> bool:
+        """Whether :meth:`patch_users` can grow the user store: always."""
+        return True
+
+    def patch_users(self, uids, factors,
+                    seen_items: Optional[Dict[int, np.ndarray]] = None
+                    ) -> None:
+        """Write freshly solved user rows into the LIVE store (the online
+        fold-in write path: no ``/reload``, no retrain).
+
+        ``uids`` may index past the capacity: the store then grows along
+        the power-of-two ladder (``_bucket(needed, lo=max(cap, 16))``;
+        grown rows are zero, int8 scales 1, until patched). ``factors``
+        rows are cast to the store's dtype, or, in an int8 store,
+        re-quantized with recomputed per-row scales, so a patched row is
+        what quantizing the updated factors at load would give.
+        ``seen_items`` replaces the users' seen rows with their full item
+        sets; the seen tables grow in rows with the store (grown rows
+        mask nothing) and in row length along the same ladder.
+
+        Ordering on the card: the dispatcher thread and the fold-in
+        thread both launch on the device's default stream (neither sets
+        a stream), and a stream runs its work in the order it was
+        enqueued. A query enqueues its gathers of the user and seen rows
+        under ``_store_lock`` (``_users_topk``), and this method enqueues
+        its writes under the same lock, so every query's gathers run
+        wholly before or wholly after a patch's writes: rows are
+        rewritten in place (``index_copy_``) without tearing. What can
+        fail, the host-side rows, their copies to the card and a grown
+        store's allocation and copy, is done before any write to a live
+        table or reference; the seen tables are published before the
+        user rows (new rows with short seen tables would let a grown uid
+        read past them), then ``n_users`` rises. A grown store's old
+        tables are freed to the caching allocator on the same stream,
+        after the gathers already enqueued on them. Each growth records
+        in ``growths`` its shapes, the seconds the patch held the lock
+        (``lockSec``, host time: the copies are enqueued, not waited on)
+        and, on the card, ``deviceSec``: the stream time between two CUDA
+        events, one recorded when the lock is taken and one after the last
+        write, which a query enqueued after the patch waits behind (a
+        query kernel launched meanwhile, outside the lock, counts in it).
+        This method waits for the second event after it releases the
+        lock."""
+        uids = np.asarray(uids, dtype=np.int64)
+        factors = np.asarray(factors, dtype=np.float32)
+        if factors.ndim != 2 or len(uids) != factors.shape[0]:
+            raise ValueError(
+                f"patch_users: {len(uids)} uids vs factors "
+                f"{factors.shape}")
+        if not len(uids):
+            return
+        if uids.min() < 0:
+            raise ValueError("patch_users: negative user index")
+        dev = self.device
+        idx = torch.from_numpy(uids).to(dev)
+        if self._mode == "int8":
+            q = quantize_rows_int8_np(factors)
+            rows = QuantFactors(torch.from_numpy(q.data).to(dev),
+                                torch.from_numpy(q.scale).to(dev))
+        else:
+            rows = torch.from_numpy(factors).to(dev).to(
+                torch.bfloat16 if self._mode == "bf16" else torch.float32)
+        needed = int(uids.max()) + 1
+        events = None
+        if dev.type == "cuda":
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        grown = None
+        with self._store_lock:
+            t0 = time.perf_counter()
+            if events is not None:
+                events[0].record()
+            X = self._X
+            cap = int(X.shape[0])
+            if needed > cap:
+                new_cap = _bucket(needed, lo=max(cap, 16))
+                if is_quantized(X):
+                    X = QuantFactors(
+                        _grown(X.data, (new_cap, X.data.shape[1])),
+                        _grown(X.scale, (new_cap,), 1.0))
+                else:
+                    X = _grown(X, (new_cap, X.shape[1]))
+            seen_before = None if self._seen_cols is None \
+                else tuple(self._seen_cols.shape)
+            seen_prep = None
+            if self._mask_seen and (
+                    seen_items or X.shape[0] > self._seen_cols.shape[0]):
+                # a seen-less growth grows the seen tables too: a grown
+                # uid must find a row of its own (masking nothing)
+                seen_prep = self._prep_seen_locked(seen_items or {},
+                                                   int(X.shape[0]))
+            if seen_prep is not None:
+                cols, mask, sids, row_c, row_m = seen_prep
+                cols.index_copy_(0, sids, row_c)
+                mask.index_copy_(0, sids, row_m)
+                self._seen_cols, self._seen_mask = cols, mask
+            if is_quantized(X):
+                X.data.index_copy_(0, idx, rows.data)
+                X.scale.index_copy_(0, idx, rows.scale)
+            else:
+                X.index_copy_(0, idx, rows)
+            self._X = X
+            self.n_users = max(self.n_users, needed)
+            seen_after = None if self._seen_cols is None \
+                else tuple(self._seen_cols.shape)
+            if int(X.shape[0]) != cap or seen_after != seen_before:
+                if events is not None:
+                    events[1].record()
+                grown = {"rows": [cap, int(X.shape[0])],
+                         "seenShape": [seen_before, seen_after],
+                         "lockSec": time.perf_counter() - t0}
+                self.growths.append(grown)
+        if grown is not None and events is not None:
+            events[1].synchronize()
+            grown["deviceSec"] = events[0].elapsed_time(events[1]) / 1e3
+
+    def _prep_seen_locked(self, seen_items: Dict[int, np.ndarray],
+                          n_rows: int):
+        """The seen tables to publish (grown to ``n_rows`` rows and to
+        the row length the longest new list needs, as new tables, or the
+        live ones when they suffice) and the touched users' replacement
+        rows on the card. Caller holds ``_store_lock``."""
+        cols, mask = self._seen_cols, self._seen_mask
+        rows, L = (int(n) for n in cols.shape)
+        longest = max((len(v) for v in seen_items.values()), default=0)
+        new_L = _bucket(max(longest, 1), lo=L)
+        if new_L > L or n_rows > rows:
+            shape = (max(n_rows, rows), new_L)
+            cols, mask = _grown(cols, shape), _grown(mask, shape)
+        sids = np.fromiter(seen_items.keys(), dtype=np.int64,
+                           count=len(seen_items))
+        row_c = np.zeros((len(sids), new_L), dtype=np.int32)
+        row_m = np.zeros((len(sids), new_L), dtype=np.float32)
+        for i, uid in enumerate(sids):
+            items = np.asarray(seen_items[int(uid)], dtype=np.int32)
+            row_c[i, :len(items)] = items
+            row_m[i, :len(items)] = 1.0
+        dev = self.device
+        return (cols, mask, torch.from_numpy(sids).to(dev),
+                torch.from_numpy(row_c).to(dev),
+                torch.from_numpy(row_m).to(dev))
+
 
 _live_servers: "weakref.WeakSet[DeviceTopK]" = weakref.WeakSet()
 
@@ -878,9 +1088,12 @@ def device_report() -> Dict[str, Any]:
     """The ``/stats.json`` ``device`` block: each live store's bytes and
     precision, and the flight recorder's counts and per-lane dispatch
     summary (the JAX package's block without its ladder entries)."""
-    stores = [{"precision": srv.precision, "nUsers": srv.n_users,
-               "nItems": srv.n_items, "totalBytes": srv.store_bytes()}
-              for srv in list(_live_servers)]
+    stores = []
+    for srv in list(_live_servers):
+        with srv._store_lock:  # n_users and the tables of one patch
+            stores.append({"precision": srv.precision,
+                           "nUsers": srv.n_users, "nItems": srv.n_items,
+                           "totalBytes": srv.store_bytes()})
     rec = _dtel.recorder()
     return {"telemetry": {"enabled": rec.enabled, **rec.counts()},
             "storeBytes": sum(st["totalBytes"] for st in stores),

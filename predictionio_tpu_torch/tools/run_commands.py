@@ -11,9 +11,10 @@ Engine location: a directory with an ``engine.json`` variant whose
 The port's copy of ``predictionio_tpu/tools/run_commands.py``. Options
 whose modules are not ported yet raise and name their ROADMAP item:
 ``--precision bf16`` and the checkpoint options (A5), the distributed
-options (A6), ``--foldin on`` (A3), ``--fleet`` above 1 (A2.4) and
-``--feedback`` (A7); ``eval``, ``batchpredict``, ``adminserver`` and
-``dashboard`` raise in :mod:`predictionio_tpu_torch.tools.cli`.
+options (A6), ``--fleet`` above 1 (A2.4) and ``--feedback`` (A7);
+``eval``, ``batchpredict``, ``adminserver`` and ``dashboard`` raise in
+:mod:`predictionio_tpu_torch.tools.cli`. ``deploy --foldin on`` runs
+the online fold-in consumer.
 """
 
 from __future__ import annotations
@@ -208,9 +209,10 @@ def cmd_deploy(args) -> int:
         resolve_engine_instance,
     )
 
-    if getattr(args, "foldin", "off") == "on":
-        raise NotImplementedError(
-            "--foldin on: online fold-in is not ported yet (ROADMAP A3)")
+    # no env write here: QueryServer.start() sets PIO_FOLDIN from
+    # ServerConfig(foldin=True), and setting it earlier would make start()
+    # keep "1" as the prior value it restores at stop
+    foldin = getattr(args, "foldin", "off") == "on"
     if int(getattr(args, "fleet", 1) or 1) > 1:
         raise NotImplementedError(
             "--fleet: the query fleet is not ported yet (ROADMAP A2.4)")
@@ -235,6 +237,7 @@ def cmd_deploy(args) -> int:
         ip=args.ip,
         port=args.port,
         server_config_path=getattr(args, "server_config", None),
+        foldin=foldin,
     )
     try:
         instance = resolve_engine_instance(

@@ -21,8 +21,13 @@ on a second start or an idle stop). Every request runs under
 InstrumentedHandlerMixin` (request ids, ``traceparent``, per-route
 metrics). A ``server.json`` with an ``ssl`` section serves HTTPS, and
 ``start`` first asks a stale server on the same port to stop
-(:func:`undeploy`). Feedback and ``/plugins.json`` come with ROADMAP
-A7, fleets with A2.4; fold-in on deploy raises (ROADMAP A3).
+(:func:`undeploy`). With ``ServerConfig(foldin=True)`` (``pio deploy
+--foldin on``) an online fold-in consumer
+(:mod:`~predictionio_tpu_torch.online.foldin`) tails the deployment's
+event stream and patches fresh user rows into the live store; while its
+tail fails, answers carry ``degraded: true`` and ``degradedReasons:
+["foldin_stale"]``. Feedback and ``/plugins.json`` come with ROADMAP
+A7, fleets with A2.4.
 """
 
 from __future__ import annotations
@@ -64,7 +69,12 @@ from predictionio_tpu_torch.data.storage.base import (
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.ops import serving as _serving
 from predictionio_tpu_torch.ops.serving import QueryRejectedError
-from predictionio_tpu_torch.utils import device_telemetry, metrics, tracing
+from predictionio_tpu_torch.utils import (
+    device_telemetry,
+    metrics,
+    resilience,
+    tracing,
+)
 from predictionio_tpu_torch.utils.http_instrumentation import (
     InstrumentedHandlerMixin,
     SeveringThreadingHTTPServer,
@@ -86,8 +96,9 @@ class ServerConfig:
     """Where the server listens, the engine coordinates ``/reload``
     resolves the latest completed instance of, an optional query it
     serves once at deploy (after each algorithm's ``warmup_base``), and
-    the ``server.json`` it reads at start. ``foldin`` is not ported yet
-    and raises."""
+    the ``server.json`` it reads at start. ``foldin`` runs the online
+    fold-in consumer (:mod:`~predictionio_tpu_torch.online.foldin`;
+    cadence ``PIO_FOLDIN_INTERVAL`` / ``PIO_FOLDIN_COUNT``)."""
 
     engine_id: str = "default"
     engine_version: str = "default"
@@ -348,12 +359,11 @@ class QueryServer:
     HTTP server."""
 
     def __init__(self, config: ServerConfig, deployment: Deployment):
-        if config.foldin:
-            raise NotImplementedError(
-                "fold-in on deploy is not ported yet (ROADMAP queue A "
-                "item 3)")
         self.config = config
         self._deployment = deployment
+        self._foldin = None  # online.foldin.FoldInConsumer when enabled
+        self._foldin_env_prior: Optional[str] = None
+        self._foldin_env_set = False
         self._swap_lock = threading.Lock()
         # per-server latency (the status page); every record also feeds
         # the process-wide pio_query_seconds{variant=...}
@@ -381,13 +391,27 @@ class QueryServer:
         except (ValueError, TypeError) as e:
             return 400, {"message": str(e)}
         try:
-            prediction = serve_query(dep, query)
+            with resilience.degraded_scope() as degraded:
+                foldin = self._foldin
+                if foldin is not None and foldin.stale:
+                    # the fold-in tail is failing: the answer comes from
+                    # the last-good factors, and says so
+                    resilience.mark_degraded("foldin_stale")
+                prediction = serve_query(dep, query)
         except QueryRejectedError as e:
             return 503, {"message": str(e), "retryAfterSec": e.retry_after}
         except Exception as e:
             logger.exception("query failed")
             return 500, {"message": str(e)}
         result = to_jsonable(prediction)
+        if degraded:
+            # served degraded whatever the result's shape: count always;
+            # the response fields need a JSON object
+            for reason in degraded:
+                metrics.DEGRADED_QUERIES.inc(reason=reason)
+            if isinstance(result, dict):
+                result["degraded"] = True
+                result["degradedReasons"] = list(degraded)
         took = time.perf_counter() - t0
         self.latency.record(took)
         metrics.QUERY_LATENCY.observe(took,
@@ -420,6 +444,11 @@ class QueryServer:
             candidate = build_deployment(latest, current.ctx,
                                          engine=current.engine)
             warm_up(candidate, self.config.warmup_query)
+            if self.config.foldin:
+                # the candidate's fold-in starts before the swap: a
+                # candidate that cannot be tailed fails the reload with
+                # the deployed engine and its consumer intact
+                self._start_foldin(candidate)
             self._deployment = candidate
             return {"engineInstanceId": latest.id,
                     "swappedFrom": None if deployed is None else deployed.id,
@@ -432,7 +461,10 @@ class QueryServer:
         dep = self._deployment
         summary = self.latency.summary()
         inst = dep.instance if dep is not None else None
+        # a snapshot: a concurrent stop() clears self._foldin
+        consumer = self._foldin
         return {
+            "foldin": consumer.stats() if consumer is not None else None,
             "status": "alive",
             "engineInstanceId": inst.id if inst is not None else None,
             "engineFactory": inst.engine_factory if inst is not None
@@ -490,7 +522,9 @@ class QueryServer:
         access key of ``/profile/*`` and, in its ``ssl`` section, the TLS
         pair. A server still answering on a fixed port, in either scheme,
         is asked to stop first; a failed bind is retried a second later,
-        twice."""
+        twice. With ``foldin`` it sets ``PIO_FOLDIN`` and starts the
+        fold-in consumer after the warm-up and before the bind; a failed
+        start stops the consumer and restores ``PIO_FOLDIN``."""
         auth_cfg = AuthServerConfig.load(self.config.server_config_path)
         self._profile_auth = KeyAuthentication(auth_cfg)
         sslc = SSLConfiguration(auth_cfg)
@@ -499,7 +533,61 @@ class QueryServer:
         trace_dir = os.environ.get("PIO_TRACE_DIR")
         if trace_dir:
             tracing.set_trace_dir(trace_dir)
-        warm_up(self._deployment, self.config.warmup_query)
+        if self.config.foldin:
+            # PIO_FOLDIN (serving.foldin_enabled) is set while this server
+            # runs with fold-in; stop() restores the prior value, so an
+            # embedder's next deployment does not inherit the policy
+            if not self._foldin_env_set:
+                self._foldin_env_prior = os.environ.get("PIO_FOLDIN")
+                self._foldin_env_set = True
+            os.environ["PIO_FOLDIN"] = "1"
+        try:
+            warm_up(self._deployment, self.config.warmup_query)
+            if self.config.foldin:
+                self._start_foldin()
+            self._bind(sslc)
+        except BaseException:
+            # a failed start leaks neither the policy nor a tail thread
+            self._stop_foldin()
+            raise
+        logger.info("Query server started on %s://%s:%d", self.scheme,
+                    *self.address)
+        return self
+
+    def _restore_foldin_env(self) -> None:
+        if not self._foldin_env_set:
+            return
+        if self._foldin_env_prior is None:
+            os.environ.pop("PIO_FOLDIN", None)
+        else:
+            os.environ["PIO_FOLDIN"] = self._foldin_env_prior
+        self._foldin_env_set = False
+
+    def _start_foldin(self, deployment: Optional[Deployment] = None) -> None:
+        """(Re)start the fold-in consumer against ``deployment`` (default:
+        the current one). The new consumer starts before the old one
+        stops, so a refusal leaves the old consumer running: ``reload``
+        validates the candidate's fold-in this way before the swap. The
+        overlap is harmless: the old consumer patches the old model's
+        store, which is about to be dropped."""
+        from predictionio_tpu_torch.online.foldin import attach_foldin
+
+        dep = deployment if deployment is not None else self._deployment
+        new = attach_foldin(dep).start()
+        if self._foldin is not None:
+            self._foldin.stop()
+        self._foldin = new
+
+    def _stop_foldin(self) -> None:
+        if self._foldin is not None:
+            self._foldin.stop()
+            self._foldin = None
+        self._restore_foldin_env()
+
+    def _bind(self, sslc: SSLConfiguration) -> None:
+        """Bind the socket (asking a stale server on a fixed port to stop
+        first), wrap it in TLS when ``sslc`` is enabled, and serve on a
+        daemon thread."""
         if self.config.port:
             other = "http" if self.scheme == "https" else "https"
             if not undeploy(self.config.ip, self.config.port, self.scheme):
@@ -527,9 +615,6 @@ class QueryServer:
                                         name="pio-torch-queryserver",
                                         daemon=True)
         self._thread.start()
-        logger.info("Query server started on %s://%s:%d", self.scheme,
-                    *self.address)
-        return self
 
     def serve_forever(self) -> None:
         """Block until the server stops (``POST /stop`` or
@@ -547,8 +632,10 @@ class QueryServer:
         return str(host), int(port)
 
     def stop(self) -> None:
-        """Stop serving, close the socket, and release the models'
-        device servers (their batch dispatchers)."""
+        """Stop the fold-in consumer (restoring ``PIO_FOLDIN``), stop
+        serving, close the socket, and release the models' device
+        servers (their batch dispatchers)."""
+        self._stop_foldin()
         if self._httpd is not None:
             httpd, self._httpd = self._httpd, None
             httpd.shutdown()

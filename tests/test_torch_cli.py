@@ -327,7 +327,6 @@ UNPORTED = [
     (["train", "--device", "cpu", "--resume"], "A5"),
     (["train", "--device", "cpu", "--num-hosts", "2"], "A6"),
     (["train", "--device", "cpu", "--coordinator", "h:1"], "A6"),
-    (["deploy", "--device", "cpu", "--foldin", "on"], "A3"),
     (["deploy", "--device", "cpu", "--fleet", "2"], "A2.4"),
     (["deploy", "--device", "cpu", "--feedback", "--accesskey", "k"],
      "A7"),

@@ -1,9 +1,9 @@
 """The port stands alone: no module of ``predictionio_tpu_torch`` (nor
 ``chip_smoke.py``) imports ``jax`` or anything of ``predictionio_tpu``,
 and the training and query paths, from a data source in memory, from
-the event store through a stored engine instance, and from a ``jsonlfs``
-store through the pipelined read, import, train and serve in a process
-where both are unimportable, as does the console's quick start (``pio app
+the event store through a stored engine instance (and a fold-in of a
+new user into it), and from a ``jsonlfs`` store through the pipelined
+read, import, train and serve in a process where both are unimportable, as does the console's quick start (``pio app
 new``, ``import``, the event server, ``template get``, ``train``,
 ``export``). ``chip_smoke.py`` refuses to run without a GPU."""
 
@@ -117,6 +117,22 @@ dep = build_deployment(resolve_engine_instance(None),
 assert dep.instance.id == iid
 out = to_jsonable(serve_query(dep, {"user": "u1", "num": 2}))
 assert 1 <= len(out["itemScores"]) <= 2, out
+from predictionio_tpu_torch.online.foldin import FoldInConfig, FoldInConsumer
+from predictionio_tpu_torch.ops.als import ALSParams
+
+consumer = FoldInConsumer(dep.models[0], FoldInConfig(app_name="app",
+                                                      interval=0.0),
+                          ALSParams(rank=3, num_iterations=1))
+consumer._scope = (aid, None)
+consumer._cursor = storage.get_levents().tail_cursor(aid, None)
+storage.get_levents().insert_batch([
+    Event(event="rate", entity_type="user", entity_id="fresh",
+          target_entity_type="item", target_entity_id=f"i{i}",
+          properties={"rating": 5.0}) for i in (1, 2, 3)], aid)
+consumer._cycle()
+assert consumer.stats()["newUsers"] == 1, consumer.stats()
+out = to_jsonable(serve_query(dep, {"user": "fresh", "num": 2}))
+assert len(out["itemScores"]) == 2, out
 import tempfile
 with tempfile.TemporaryDirectory() as events_dir:
     storage.reset(storage.StorageConfig(

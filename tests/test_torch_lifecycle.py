@@ -315,7 +315,8 @@ def test_a_jax_stored_model_is_refused_without_importing_it(tmp_path):
 
 def test_workflow_edges(stores):
     """A stop-after flag returns None and leaves no model; a failing
-    training marks its instance FAILED; fold-in on deploy raises."""
+    training marks its instance FAILED; fold-in on deploy starts a
+    consumer tailing the data source's app, stopped with the server."""
     stores("memory")
     config = tcw.WorkflowConfig(engine_factory=FACTORIES[1],
                                 stop_after_prepare=True)
@@ -330,5 +331,27 @@ def test_workflow_edges(stores):
     assert statuses == ["FAILED", "INIT"]
     with pytest.raises(StorageError, match="Try running train first"):
         tserver.resolve_engine_instance(None)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        tserver.QueryServer(tserver.ServerConfig(foldin=True), None)
+    from predictionio_tpu_torch.templates.recommendation.engine import (
+        engine_factory,
+    )
+    from predictionio_tpu_torch.weights import als_model_from_numpy
+
+    rng = np.random.default_rng(0)
+    model = als_model_from_numpy(
+        rng.normal(size=(3, RANK)), rng.normal(size=(N_ITEMS, RANK)),
+        ["u0", "u1", "u2"], [f"i{i}" for i in range(N_ITEMS)], {0: [1]},
+        device="cpu")
+    engine = engine_factory()
+    dep = tserver.deployment_from_models(
+        engine, engine.engine_params_from_variant(variant(3, True)), [model])
+    srv = tserver.QueryServer(tserver.ServerConfig(
+        ip="127.0.0.1", port=0, foldin=True), dep).start()
+    try:
+        consumer = srv._foldin
+        assert consumer is not None and consumer._thread.is_alive()
+        assert consumer._scope == (tstorage.get_metadata_apps().get_by_name(
+            "MyApp").id, None)
+        assert consumer._cfg.event_names == ("rate", "view")
+    finally:
+        srv.stop()
+    assert srv._foldin is None and consumer._thread is None
