@@ -73,10 +73,27 @@ Phases (any failure raises and the script exits non-zero):
    and at ranks 1-320 on small batches (both workspace routes, the
    256-column chunk boundary). Both kernels also at the fold-in solve's
    shapes: B in {8, 64, 256} with all but 1, 5 and 200 rows padding, L
-   in {8, 256, 2,048, 4,096} (past one assembly span). Then train at
-   rank 256 (2,000 users x 1,000 items, 2 iterations, through the
-   large-rank assembly and the device-memory solve) and hold it against
-   the plain trainer from one init.
+   in {8, 256, 2,048, 4,096} (past one assembly span). The assembly's
+   bf16 route (a bf16 factor store, the bf16 training precision) the
+   same way on every bucket of both sides at rank 64, at ranks 1-320
+   (odd ranks, whose bf16 rows are not 4-byte aligned, and both routes)
+   and at the fold-in shapes, each case also bitwise equal to the fp32
+   route on the store widened to fp32. Then train at rank 256 (2,000
+   users x 1,000 items, 2 iterations, through the large-rank assembly
+   and the device-memory solve) and hold it against the plain trainer
+   from one init.
+5c. The training options at ML-20M width on phase 5's tables and
+   params: (a) ``precision="bf16"`` through ``train_als_bucketed`` (every
+   assembly launch on the bf16 route), within ``EPS_BF16`` of the plain
+   bf16 trainer on the card and within ``4 * 3 * EPS_BF16`` of phase 5's
+   fp32 factors (relative Frobenius), and one profiled iteration of each
+   lane (wall, device, B3 / B2 ms); (b) ``checkpoint_every=1`` in fp32
+   and bf16: bitwise equal to the unchunked runs, a preemption after
+   step 1 (``request_stop`` from the progress callback) raises
+   ``TrainingPreempted``, the resume is bitwise equal, the run log holds
+   one run with steps 1-3 and their fit / l2; each save's blob MB and
+   ms, and the median wall with checkpoints over without (printed beside
+   the JAX package's 3% gate, not asserted).
 3. Serve the model phase 5 trained: start the port's QueryServer, send
    user, blacklist, category, item-similarity and unknown-user queries,
    some from 8 concurrent clients, and check every answer against the
@@ -148,9 +165,12 @@ Phases (any failure raises and the script exits non-zero):
 4b. Time the training kernels at the full-width shapes (the assembly on
    every bucket of both sides, the solve on each side's whole batch)
    against their bounds, plain versions and one library call each; at
-   the fold-in shapes (B, L) = (8, 256), (64, 256), (256, 2,048); and,
-   off the main path, the device-memory solve at rank 320 and the
-   large-rank assembly at rank 256.
+   the fold-in shapes (B, L) = (8, 256), (64, 256), (256, 2,048); the
+   assembly's bf16 route on every bucket of both sides (its bound reads
+   the store at 2 bytes a value; its library call is ``torch.einsum``
+   over the bf16 gather widened to fp32); and, off the main path, the
+   device-memory solve at rank 320 and the large-rank assembly at rank
+   256.
 6. The lifecycle at MovieLens-1M's size (6,040 users x 3,706 items,
    1,000,209 ratings, rank 64): a sqlite event store in a temporary
    directory (``PIO_STORAGE_*`` set before the registry's first use),
@@ -188,17 +208,25 @@ Phases (any failure raises and the script exits non-zero):
    ``POST /profile/start``, ``/profile/stop`` and a second stop (409);
    ``pio undeploy`` (the child must have launched the top-k kernel, and
    the port answer nothing after); ``pio export`` writes one line per
-   event written.
+   event written. Then the crash pair: ``pio train --precision bf16
+   --checkpoint-dir D --checkpoint-every 1``, each save held 2 s by
+   ``PIO_FAULTS`` (slow), is killed with SIGKILL once its second
+   checkpoint lands; ``pio train ... --resume`` must give factors bitwise
+   equal to an uninterrupted ``pio train --precision bf16``, and ``pio
+   runs list`` / ``show`` one run whose steps rise to 3.
 7. Model quality on ``bench_quality.run``'s protocol at its shape
    (943 x 1,682 x 100,000, leave-last-2-out, rank 32, 10 iterations):
    Precision@10 and NDCG@10 of the port's trainer at seeds 3, 17 and
    42, its ratio to the plain trainer from seed 3's init (must be
-   0.99-1.01) and the seed band's lift over popularity (must exceed 1).
+   0.99-1.01) and the seed band's lift over popularity (must exceed 1);
+   the bf16 lane's Precision@10 from seed 3 must be at least fp32's
+   minus 0.02 (the JAX package's gate).
 
 It prints a ``{"kernels": [...]}`` line (the training kernels' ``routes``
 hold the main path's, the large-rank one and ``foldin``, with phase 3b's
-launches), the card's name and power limit, and last ``{"ok": true,
-"device": {...}}``.
+launches, and the assembly's ``tiles_bf16``, with phase 5c's), the
+card's name and power limit, and last ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -253,6 +281,27 @@ FOLD_TIMED = ((8, 1, 256), (64, 5, 256), (256, 200, 2048))
 # and the iterations carry on; the JAX package holds its own trainers to
 # 1e-3 after 3 implicit iterations
 TRAIN_RTOL = 1e-3
+# one bf16 rounding (8-bit mantissa). The bf16 lane is held to the JAX
+# package's own bound against fp32, 4 * iterations * EPS_BF16
+# (tests/test_als_precision.py); the bf16 kernel-trained factors to
+# EPS_BF16 against the plain bf16 trainer's: the two sum A and b in
+# other orders, so a factor that lies at a bf16 rounding boundary may
+# take its other neighbour, and the next iterations carry that on
+EPS_BF16 = 2.0 ** -8
+# phase 2b's ranks for B3's bf16 route: odd ranks (a bf16 row of 2R bytes
+# is then not 4-byte aligned), both sides of multiples of 8 (a 16-byte
+# copy of 8 values), the tile route's limit (208) and the large-rank
+# route above it
+BF16_RANKS = (1, 7, 10, 30, 33, 63, 64, 65, 127, 128, 208, 209, 256, 320)
+# phase 5c: trainings timed with and without checkpoints (the median is
+# printed) and the JAX package's gate on the ratio, which is printed and
+# never asserted here (tests/test_train_checkpoint.py:829-843)
+CKPT_REPEATS = 3
+CKPT_OVERHEAD_GATE = 1.03
+# phase 6b: the delay each checkpoint save of the child to be killed
+# takes (PIO_FAULTS slow), so it is still alive when its second
+# checkpoint lands
+KILL_SAVE_DELAY_S = 2.0
 
 
 def nvidia_smi() -> str:
@@ -1064,6 +1113,29 @@ def check_assembly(Y, cols, aw, bw, gram, exact: bool, label: str) -> float:
     return worst
 
 
+def check_assembly_bf16(Y, cols, aw, bw, gram, exact: bool,
+                        label: str) -> float:
+    """B3's bf16 route on a bf16 store ``Y``: held against the plain
+    version on the same tensor as :func:`check_assembly` holds the fp32
+    route (the plain version widens ``Y`` exactly), and bitwise equal to
+    the fp32 route on ``Y.float()``: the route only converts each row as
+    it gathers it, and sums as the fp32 route does. Returns the largest
+    |error| against plain."""
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+
+    worst = check_assembly(Y, cols, aw, bw, gram, exact, label)
+    A, b = als_cuda.assemble_normal_equations(Y, cols, aw, bw, gram)
+    A32, b32 = als_cuda.assemble_normal_equations(Y.float(), cols, aw, bw,
+                                                  gram)
+    torch.cuda.synchronize()
+    if not (torch.equal(A, A32) and torch.equal(b, b32)):
+        raise AssertionError(f"assembly {label}: the bf16 route differs from "
+                             f"the fp32 route on the widened store")
+    return worst
+
+
 def synthetic_rows(dev, rng, shapes=((8, 100_000), (64, 5_000))) -> list:
     """Synthetic rows of ``B x L`` slots, each real up to a random length
     from L/2 (implicit weights, padding last). The default shapes are
@@ -1112,13 +1184,18 @@ def training_kernel_checks(dev, trained: dict, seed: int) -> dict:
 
     from predictionio_tpu_torch.ops import als_cuda
 
+    from predictionio_tpu_torch.ops.als import _round_bf16
+
     model, pd = trained["model"], trained["pd"]
     rng = np.random.default_rng(seed + 3)
     worst = {"assemble": 0.0, "spd": 0.0}
-    cases = rows_checked = 0
+    cases = rows_checked = bf16_cases = 0
 
-    def both_kinds(Yt, Yi, cols, aw, bw, explicit, label):
-        nonlocal cases
+    def both_kinds(Yt, Yi, cols, aw, bw, explicit, label, bf16=False):
+        nonlocal cases, bf16_cases
+        if bf16:    # B3's bf16 route, on the weights the bf16 lane gives it
+            Yt, Yi = Yt.to(torch.bfloat16), Yi.to(torch.bfloat16)
+            aw, bw = _round_bf16(aw), _round_bf16(bw)
         for kind, Y in (("trained", Yt), ("integer", Yi)):
             R = Y.shape[1]
             if kind == "integer":
@@ -1127,11 +1204,15 @@ def training_kernel_checks(dev, trained: dict, seed: int) -> dict:
             elif explicit:
                 gram = torch.zeros((R, R), device=dev)
             else:
-                gram = Y.T @ Y + LAMBDA * torch.eye(R, device=dev)
-            worst["assemble"] = max(worst["assemble"], check_assembly(
+                gram = Y.float().T @ Y.float() + LAMBDA * torch.eye(
+                    R, device=dev)
+            check = check_assembly_bf16 if bf16 else check_assembly
+            worst["assemble"] = max(worst["assemble"], check(
                 Y, cols, aw, bw, gram, kind == "integer",
-                f"{label} explicit={explicit} {kind}"))
+                f"{label} explicit={explicit} {kind}"
+                + (" bf16" if bf16 else "")))
             cases += 1
+            bf16_cases += bf16
 
     for side_name, side in (("user", pd.user_side), ("item", pd.item_side)):
         Yt = torch.from_numpy(side_factors(model, side_name)).to(dev)
@@ -1143,6 +1224,11 @@ def training_kernel_checks(dev, trained: dict, seed: int) -> dict:
             for explicit in (False, True):
                 aw, bw = assembly_weights(bucket, explicit, dev)
                 both_kinds(Yt, Yi, cols, aw, bw, explicit, f"{side_name} L={L}")
+            both_kinds(Yt, Yi, cols, aw, bw, True, f"{side_name} L={L}",
+                       bf16=True)
+            aw, bw = assembly_weights(bucket, False, dev)
+            both_kinds(Yt, Yi, cols, aw, bw, False, f"{side_name} L={L}",
+                       bf16=True)
             rows_checked += B
         if side_name == "item":
             for cols, aw, bw, label in synthetic_rows(dev, rng):
@@ -1157,6 +1243,15 @@ def training_kernel_checks(dev, trained: dict, seed: int) -> dict:
         for cols, aw, bw, label in synthetic_rows(dev, rng,
                                                   ((300, 40), (9, 5_000))):
             both_kinds(Yr, Yi, cols, aw, bw, False, f"R={R} {label}")
+    for R in BF16_RANKS:
+        Yr = torch.from_numpy(0.3 * rng.standard_normal(
+            (M_ITEMS, R)).astype(np.float32)).to(dev)
+        Yi = torch.from_numpy(rng.integers(-3, 4, (M_ITEMS, R)).astype(
+            np.float32)).to(dev)
+        for cols, aw, bw, label in synthetic_rows(dev, rng,
+                                                  ((300, 40), (9, 5_000))):
+            both_kinds(Yr, Yi, cols, aw, bw, False, f"R={R} {label}",
+                       bf16=True)
     # the fold-in solve's shapes: mostly padding rows, up to two spans
     Yt = torch.from_numpy(model.item_factors).to(dev)
     Yi = torch.from_numpy(rng.integers(-3, 4, tuple(Yt.shape)).astype(
@@ -1165,8 +1260,9 @@ def training_kernel_checks(dev, trained: dict, seed: int) -> dict:
     for (B, real) in FOLD_BATCHES:
         for L in FOLD_LENGTHS:
             cols, aw, bw = fold_rows(dev, rng, B, real, L)
-            both_kinds(Yt, Yi, cols, aw, bw, False,
-                       f"fold B={B} ({real} real) L={L}")
+            for bf16 in (False, True):
+                both_kinds(Yt, Yi, cols, aw, bw, False,
+                           f"fold B={B} ({real} real) L={L}", bf16=bf16)
             fold_tables.append((B, L, cols, aw, bw))
     print(f"[kernel] assemble_normal_equations == plain in {cases} cases "
           f"(every row of every bucket of both sides, {rows_checked} rows, "
@@ -1175,7 +1271,11 @@ def training_kernel_checks(dev, trained: dict, seed: int) -> dict:
           f"5,000 rows, the large-rank route from 209; the fold-in shapes "
           f"B x L in {[b for b, _ in FOLD_BATCHES]} x {list(FOLD_LENGTHS)} "
           f"with all but {[r for _, r in FOLD_BATCHES]} rows padding; "
-          f"integer fixtures exact; max |err| {worst['assemble']!r})")
+          f"integer fixtures exact; max |err| {worst['assemble']!r}); "
+          f"{bf16_cases} of them the bf16 route on a bf16 store (every "
+          f"bucket of both sides at R={RANK}, implicit and explicit; R in "
+          f"{BF16_RANKS}; the fold-in shapes), each also bitwise equal to "
+          f"the fp32 route on its fp32 widening")
 
     # solve: random SPD systems, an ill-scaled family, real systems at
     # rank 64, then other ranks; the kernel repeats the plain version's
@@ -1291,6 +1391,220 @@ def train_large_rank(dev, seed: int) -> dict:
 
 
 # -- phase 3: serving the trained model ----------------------------------------
+
+def rel_err(got, want) -> float:
+    got = np.asarray(got, dtype=np.float64)
+    want = np.asarray(want, dtype=np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def iteration_split(ms: dict) -> dict:
+    """B3's and B2's device ms of a profiled iteration, from the profiler's
+    ms by kernel name (B3: the assembly kernels and the spans' reduce)."""
+    return {"B3": sum(v for k, v in ms.items() if k.startswith("assemble")),
+            "B2": sum(v for k, v in ms.items() if k.startswith("spd_solve"))}
+
+
+def training_options(dev, trained: dict, seed: int) -> dict:
+    """Phase 5c: the training options at ML-20M width on phase 5's
+    prepared tables (rank 64, ``ITERATIONS`` iterations, phase 5's
+    params and seed). (a) bf16 through ``train_als_bucketed``: the
+    launches by route (every assembly must take B3's bf16 route), the
+    factors against the plain bf16 trainer on the card from the same
+    init (``EPS_BF16``) and against phase 5's fp32 factors (``4 *
+    ITERATIONS * EPS_BF16``), one profiled iteration of each lane. (b)
+    checkpointed training (``checkpoint_every=1``) in fp32 and bf16:
+    bitwise equal to the unchunked runs, a preemption after step 1
+    (``request_stop`` from the progress callback) raises
+    ``TrainingPreempted`` and the resumed run is bitwise equal too, and
+    the run log holds one run with steps 1..ITERATIONS; each save's blob
+    MB and ms, and the wall with checkpoints over the wall without."""
+    import dataclasses
+    import os
+    import statistics
+    import tempfile
+
+    import torch
+
+    from predictionio_tpu_torch.ops import als as als_mod
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.workflow import checkpoint, runlog
+
+    model, pd = trained["model"], trained["pd"]
+    us, its = pd.user_side.to_device(dev), pd.item_side.to_device(dev)
+    base = als_mod.ALSParams(rank=RANK, num_iterations=ITERATIONS,
+                             lambda_=LAMBDA, alpha=ALPHA, seed=seed)
+    bf16 = dataclasses.replace(base, precision="bf16")
+    out: dict = {}
+
+    # (a) the bf16 lane: the main path of this phase
+    als_cuda.assemble_launches.reset()
+    als_cuda.spd_launches.reset()
+    t0 = time.perf_counter()
+    Xb, Yb = als_mod.train_als_bucketed(us, its, bf16, dev)
+    train_s = time.perf_counter() - t0
+    launches = {"assemble_normal_equations": als_cuda.assemble_launches.value,
+                "spd_solve": als_cuda.spd_launches.value}
+    routes = {"/".join(k): n
+              for k, n in als_cuda.assemble_launches.by_key().items()}
+    if not routes.get("tiles/bf16") or set(routes) != {"tiles/bf16"} \
+            or not launches["spd_solve"]:
+        raise AssertionError(f"the bf16 lane launched {launches}, assembly "
+                             f"routes {routes}")
+    vs_fp32 = {"user": rel_err(Xb, model.user_factors),
+               "item": rel_err(Yb, model.item_factors)}
+    u_t, i_t = bucket_tables(us, dev), bucket_tables(its, dev)
+    kw = dict(lam=LAMBDA, alpha=ALPHA, implicit=True, slot_budget=None)
+    X0, Y0 = als_mod.init_policy_factors(us.n_rows, its.n_rows, RANK, seed,
+                                         "bf16", dev)
+    saved = (als_cuda.assemble_normal_equations, als_cuda.spd_solve)
+    als_cuda.assemble_normal_equations = \
+        als_cuda.assemble_normal_equations_plain
+    als_cuda.spd_solve = als_cuda.spd_solve_plain
+    try:
+        Xp, Yp = als_mod.als_iterations_bucketed(
+            X0, Y0, u_t, i_t, num_iterations=ITERATIONS, **kw)
+    finally:
+        als_cuda.assemble_normal_equations, als_cuda.spd_solve = saved
+    vs_plain = {"user": rel_err(Xb, Xp.float().cpu().numpy()),
+                "item": rel_err(Yb, Yp.float().cpu().numpy())}
+    del Xp, Yp
+    lanes = {}
+    X32, Y32 = als_mod.init_factors(us.n_rows, its.n_rows, RANK, seed, dev)
+    for lane, (Xi, Yi) in (("fp32", (X32, Y32)), ("bf16", (X0, Y0))):
+        als_mod.als_iterations_bucketed(Xi, Yi, u_t, i_t, num_iterations=1,
+                                        **kw)
+        wall, busy, _, ms = device_busy(
+            lambda: als_mod.als_iterations_bucketed(
+                Xi, Yi, u_t, i_t, num_iterations=1, **kw))
+        lanes[lane] = {"wall_ms": wall, "device_ms": busy,
+                       **iteration_split(ms)}
+    out["bf16"] = {"launches": launches, "routes": routes,
+                   "train_s": train_s, "vs_fp32": vs_fp32,
+                   "vs_plain": vs_plain, "iteration": lanes}
+    print(f"[options] bf16 train_als_bucketed at ML-20M width: {train_s!r} s "
+          f"(tables on the card); launches {launches}, assembly routes "
+          f"{routes}; relative Frobenius error against the plain bf16 "
+          f"trainer {vs_plain} (allowed {EPS_BF16!r}), against phase 5's "
+          f"fp32 factors {vs_fp32} (allowed {4 * ITERATIONS * EPS_BF16!r})")
+    print(f"[options] one profiled iteration: " + "; ".join(
+        f"{lane} wall {v['wall_ms']!r} ms, device {v['device_ms']!r} ms "
+        f"(B3 {v['B3']!r} ms, B2 {v['B2']!r} ms)"
+        for lane, v in lanes.items()))
+    if max(vs_plain.values()) > EPS_BF16:
+        raise AssertionError(f"bf16 factors differ from the plain bf16 "
+                             f"trainer's: {vs_plain}")
+    if max(vs_fp32.values()) > 4 * ITERATIONS * EPS_BF16:
+        raise AssertionError(f"bf16 factors are {vs_fp32} from fp32")
+    del X0, Y0, X32, Y32, u_t, i_t
+
+    # (b) checkpointed training
+    saves = []
+    save = checkpoint.TrainCheckpointer.save
+
+    def timed_save(self, step, X, Y, extra=None):
+        t = time.perf_counter()
+        path = save(self, step, X, Y, extra)
+        saves.append({"dir": os.path.basename(self.directory),
+                      "step": int(step),
+                      "mb": os.path.getsize(path) / 1e6,
+                      "ms": (time.perf_counter() - t) * 1e3})
+        return path
+
+    env_keys = ("PIO_CHECKPOINT_DIR", "PIO_CHECKPOINT_EVERY", "PIO_RESUME")
+    env_before = {k: os.environ.get(k) for k in env_keys}
+    work = tempfile.mkdtemp(prefix="pio-ckpt-")
+    checkpoint.TrainCheckpointer.save = timed_save
+    checkpoint.clear_stop()
+
+    def run(params, directory=None, resume=False):
+        for k in env_keys:
+            os.environ.pop(k, None)
+        if directory:
+            os.environ.update(PIO_CHECKPOINT_DIR=directory,
+                              PIO_CHECKPOINT_EVERY="1")
+        if resume:
+            os.environ["PIO_RESUME"] = "1"
+        t = time.perf_counter()
+        X, Y = als_mod.train_als_bucketed(us, its, params, dev)
+        return X, Y, time.perf_counter() - t
+
+    def same(got, want, what):
+        if not (np.array_equal(got[0], want[0])
+                and np.array_equal(got[1], want[1])):
+            raise AssertionError(f"{what}: not bitwise equal to the "
+                                 "unchunked run")
+
+    try:
+        for params in (base, bf16):
+            prec = params.precision
+            ref = run(params)
+            if prec == "fp32":
+                same(ref, (model.user_factors, model.item_factors),
+                     "phase 5c's unchunked fp32 run against phase 5's model")
+            walls = {"off": [], "on": []}
+            for r in range(CKPT_REPEATS):
+                X, Y, w_off = run(params)
+                same((X, Y), ref, f"{prec} unchunked rerun")
+                X, Y, w_on = run(params, os.path.join(work, f"{prec}-{r}"))
+                same((X, Y), ref, f"{prec} checkpoint_every=1")
+                walls["off"].append(w_off)
+                walls["on"].append(w_on)
+            d = os.path.join(work, f"{prec}-preempt")
+
+            def stop_after_step_1(sample):
+                if sample["step"] == 1:
+                    checkpoint.request_stop()
+
+            try:
+                with checkpoint.progress_scope(stop_after_step_1):
+                    run(params, d)
+                raise AssertionError(f"{prec}: no TrainingPreempted")
+            except checkpoint.TrainingPreempted as e:
+                preempted = str(e)
+            finally:
+                checkpoint.clear_stop()
+            X, Y, _ = run(params, d, resume=True)
+            same((X, Y), ref, f"{prec} preempted then resumed")
+            runs = runlog.list_runs(d)
+            samples = runlog.read_run(runs[0]["path"])["samples"] \
+                if len(runs) == 1 else []
+            steps = [s["step"] for s in samples]
+            if steps != list(range(1, ITERATIONS + 1)) or not all(
+                    np.isfinite([s["loss"]["fit"], s["loss"]["l2"]]).all()
+                    for s in samples):
+                raise AssertionError(f"{prec}: run log {runs} holds steps "
+                                     f"{steps}")
+            off, on = (statistics.median(walls[k]) for k in ("off", "on"))
+            out[f"checkpoint_{prec}"] = {
+                "wall_off_s": walls["off"], "wall_on_s": walls["on"],
+                "overhead": on / off, "preempted": preempted,
+                "run": runs[0]["runId"],
+                "loss": [(s["step"], s["loss"]["fit"], s["loss"]["l2"])
+                         for s in samples],
+                "saves": [v for v in saves if v["dir"].startswith(prec)]}
+            print(f"[options] {prec} checkpoint_every=1: bitwise equal to "
+                  f"the unchunked run ({CKPT_REPEATS} runs); preempted after "
+                  f"step 1 ({preempted!r}), resumed bitwise equal; run log "
+                  f"{runs[0]['runId']} steps {steps}, (step, fit, l2) "
+                  f"{out[f'checkpoint_{prec}']['loss']}")
+            print(f"[options] {prec} wall with checkpoints {walls['on']} s, "
+                  f"without {walls['off']} s: median ratio {on / off!r} "
+                  f"(the JAX package's gate {CKPT_OVERHEAD_GATE}, printed "
+                  f"only); saves (step, blob MB, ms): " + ", ".join(
+                      f"({v['step']}, {v['mb']:.1f}, {v['ms']:.1f})"
+                      for v in out[f"checkpoint_{prec}"]["saves"]))
+    finally:
+        checkpoint.TrainCheckpointer.save = save
+        checkpoint.clear_stop()
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
 
 def post(url: str, payload) -> tuple:
     req = urllib.request.Request(url, data=json.dumps(payload).encode(),
@@ -2734,14 +3048,15 @@ def bound_of(nbytes: float, ops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def assembly_work(B: int, L: int, nnz: int, M: int, R: int = RANK) -> tuple:
+def assembly_work(B: int, L: int, nnz: int, M: int, R: int = RANK,
+                  y_bytes: int = 4) -> tuple:
     """(bytes, operations) of one assembly: the ``M`` rows of the fixed
-    factors ``Y`` that it gathers read once (they fit in L2, so the
-    gather re-reads no device memory),
-    the cols/aw/bw tables read once, gram read once, A and b written
-    once; per real slot, one FMA for each entry of A's upper triangle (A
-    is symmetric) and R for b."""
-    nbytes = M * R * 4 + B * L * 12 + R * R * 4 + B * (R * R + R) * 4
+    factors ``Y`` that it gathers read once, ``M * R * bytes(Y)`` (they
+    fit in L2, so the gather re-reads no device memory), the cols/aw/bw
+    tables read once, gram read once, A and b written once; per real
+    slot, one FMA for each entry of A's upper triangle (A is symmetric)
+    and R for b."""
+    nbytes = M * R * y_bytes + B * L * 12 + R * R * 4 + B * (R * R + R) * 4
     return nbytes, 2.0 * nnz * (R * (R + 1) / 2 + R)
 
 
@@ -2823,7 +3138,61 @@ def training_timings(dev, trained: dict) -> dict:
         print(f"[time] {name} over one iteration's work: kernel "
               f"{heads[name]['ms']!r} ms, bound {b_ms!r} ms ({b_by})")
     return {"rows": out, "heads": heads, "large": large_rank_timings(dev),
-            "foldin": foldin_timings(dev, trained)}
+            "foldin": foldin_timings(dev, trained),
+            "bf16": bf16_assembly_timings(dev, trained)}
+
+
+def bf16_assembly_timings(dev, trained: dict) -> dict:
+    """B3's bf16 route at the main path's shapes: every bucket of both
+    sides, R=64, on phase 5's factors cast to bf16 and the implicit
+    weights rounded to bf16 (what the bf16 lane hands it), against its
+    bound (``Y`` read at 2 bytes a value), its plain version and one
+    library call, ``torch.einsum`` over the bf16 gather widened to fp32
+    (gathered beforehand, as phase 4b's fp32 rows gather theirs)."""
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.ops.als import _round_bf16
+
+    model, pd = trained["model"], trained["pd"]
+    rows = []
+    for side_name, side in (("user", pd.user_side), ("item", pd.item_side)):
+        Y = torch.from_numpy(side_factors(model, side_name)).to(dev).to(
+            torch.bfloat16)
+        gram = Y.float().T @ Y.float() + LAMBDA * torch.eye(RANK, device=dev)
+        for bucket in side.buckets:
+            B, L = bucket.cols.shape
+            cols = torch.as_tensor(bucket.cols, device=dev)
+            aw, bw = (_round_bf16(t) for t in assembly_weights(bucket, False,
+                                                               dev))
+            nnz = int(((aw != 0) | (bw != 0)).sum())
+            Yg = Y[cols.long()].float()
+            t_k = time_ms(lambda: als_cuda.assemble_normal_equations(
+                Y, cols, aw, bw, gram), 3)
+            t_p = time_ms(lambda: als_cuda.assemble_normal_equations_plain(
+                Y, cols, aw, bw, gram), 1)
+            t_l = time_ms(lambda: torch.einsum("bl,blr,bls->brs", aw, Yg,
+                                               Yg), 1)
+            del Yg
+            work = assembly_work(B, L, nnz, Y.shape[0], y_bytes=2)
+            b_ms, b_by = bound_of(*work)
+            rows.append({"side": side_name, "B": B, "L": L, "slots": nnz,
+                         "work": work, "ms": t_k, "plain_ms": t_p,
+                         "library_ms": t_l, "bound_ms": b_ms,
+                         "bound_by": b_by})
+            print(f"[time] assemble bf16 {side_name:>4} B={B:<6} L={L:<6} "
+                  f"kernel {t_k!r} ms  plain {t_p!r} ms  library {t_l!r} ms "
+                  f" bound {b_ms!r} ms ({b_by})")
+    b_ms, b_by = bound_of(sum(r["work"][0] for r in rows),
+                          sum(r["work"][1] for r in rows))
+    head = {key: sum(r[key] for r in rows)
+            for key in ("ms", "plain_ms", "library_ms")}
+    head.update(bound_ms=b_ms, bound_by=b_by)
+    print(f"[time] assemble_normal_equations bf16 route over one "
+          f"iteration's work: kernel {head['ms']!r} ms, plain "
+          f"{head['plain_ms']!r} ms, library {head['library_ms']!r} ms, "
+          f"bound {b_ms!r} ms ({b_by})")
+    return {"rows": rows, "head": head}
 
 
 def foldin_timings(dev, trained: dict) -> dict:
@@ -3564,6 +3933,93 @@ def qs_engine(work: str, env: dict, key: str, seed: int) -> dict:
     return took
 
 
+def instance_factors(iid: str) -> tuple:
+    """The factors of engine instance ``iid``'s stored model (the
+    registry already points at the quick start's store)."""
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.workflow.core_workflow import (
+        deserialize_models,
+    )
+
+    model = deserialize_models(
+        storage.get_model_data_models().get(iid).models)[0]
+    return model.user_factors, model.item_factors
+
+
+def qs_kill_and_resume(work: str, eng: str, env: dict, steps: dict) -> dict:
+    """Phase 6b's crash pair through the console: ``pio train --precision
+    bf16 --checkpoint-dir D --checkpoint-every 1`` with each save held
+    ``KILL_SAVE_DELAY_S`` (``PIO_FAULTS`` slow), killed with SIGKILL once
+    its second checkpoint lands, then the same with ``--resume``: its
+    factors must be bitwise equal to an uninterrupted ``pio train
+    --precision bf16`` of the same store and variant, and ``pio runs
+    list`` / ``show`` must print one run whose steps rise to
+    ``ITERATIONS``."""
+    import os
+    import re
+    import signal
+
+    from predictionio_tpu_torch.workflow import runlog
+
+    ck = os.path.join(work, "ckpt")
+    opts = ["--precision", "bf16", "--checkpoint-dir", ck,
+            "--checkpoint-every", "1"]
+    said, steps["train bf16"] = pio(["train", "--precision", "bf16"], env,
+                                    eng)
+    ref = instance_factors(re.search(r"Engine instance ID: (\S+)",
+                                     said).group(1))
+    t = time.perf_counter()
+    child = subprocess.Popen(
+        CONSOLE + ["train"] + opts, cwd=eng, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True, env=dict(
+            env, PIO_FAULTS=f"backend=checkpoint,op=save,kind=slow,"
+                            f"delay={KILL_SAVE_DELAY_S}"))
+    try:
+        second = os.path.join(ck, "ckpt-00000002.json")
+        while not os.path.exists(second):
+            if child.poll() is not None or time.perf_counter() - t > 300:
+                raise AssertionError(f"the checkpointed train ended "
+                                     f"({child.poll()}) before its second "
+                                     f"checkpoint: {child.stderr.read()}")
+            time.sleep(0.02)
+        if child.poll() is not None:
+            raise AssertionError("the checkpointed train ended before its "
+                                 "kill")
+        child.send_signal(signal.SIGKILL)
+        child.wait(timeout=60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=60)
+    steps["train killed after 2 checkpoints"] = time.perf_counter() - t
+    said, steps["train --resume"] = pio(["train"] + opts + ["--resume"], env,
+                                        eng)
+    got = instance_factors(re.search(r"Engine instance ID: (\S+)",
+                                     said).group(1))
+    if not (np.array_equal(got[0], ref[0])
+            and np.array_equal(got[1], ref[1])):
+        raise AssertionError("the resumed instance's factors differ from the "
+                             "uninterrupted bf16 training's")
+    listed, _ = pio(["runs", "list", "--dir", ck], env, work)
+    runs = runlog.list_runs(ck)
+    if len(runs) != 1 or runs[0]["runId"] not in listed:
+        raise AssertionError(f"pio runs list: {listed!r}")
+    shown, _ = pio(["runs", "show", runs[0]["runId"], "--dir", ck], env, work)
+    # monotone, ending at the last iteration: the kill may land between
+    # a checkpoint's manifest and its run-log sample, so a step the
+    # killed child checkpointed can lack its sample
+    table = [int(line.split()[0]) for line in shown.splitlines()
+             if re.match(r"\s+\d+\s+[-0-9.e+]+\s", line)]
+    if not table or table != sorted(set(table)) or table[-1] != ITERATIONS:
+        raise AssertionError(f"pio runs show: steps {table}: {shown!r}")
+    print(f"[quickstart] pio train --precision bf16 --checkpoint-every 1 "
+          f"killed (SIGKILL) after its 2nd checkpoint, resumed with "
+          f"--resume: factors bitwise equal to an uninterrupted bf16 "
+          f"training; pio runs list / show: one run "
+          f"{runs[0]['runId']}, steps {table}")
+    return {"run": runs[0]["runId"], "steps": table}
+
+
 def quick_start(seed: int, cycle: dict, card: str) -> dict:
     """Phase 6b: PredictionIO's quick start through the port's console,
     each verb a subprocess, at phase 6's size, events and variant. The
@@ -3759,6 +4215,8 @@ def quick_start(seed: int, cycle: dict, card: str) -> dict:
         print(f"[quickstart] pio export: {lines} lines (the events "
               f"written) in {export_s!r} s, beside the deployment's "
               f"checks and undeploy")
+
+        out["resume"] = qs_kill_and_resume(work, eng, env, steps)
         print("[quickstart] step seconds: " + ", ".join(
             f"{k} {v!r}" for k, v in steps.items()) + "; the short verbs "
             "ran beside the ratings draw and JSONL write, and export "
@@ -3896,7 +4354,10 @@ def quality(dev, shape=QUALITY_SHAPE, rank: int = QUALITY_RANK,
     ``train_als`` (the two training kernels) at seeds 3 / 17 / 42; the
     plain trainer from seed 3's init; Precision@10 and NDCG@10 of seed
     3, its ratio to the plain trainer's (0.99-1.01), and the seed band's
-    lift over popularity (> 1)."""
+    lift over popularity (> 1); the bf16 lane's Precision@10 from seed
+    3, at least fp32's minus 0.02."""
+    import dataclasses
+
     from predictionio_tpu_torch.ops import als as als_mod
     from predictionio_tpu_torch.ops import als_cuda
 
@@ -3929,7 +4390,13 @@ def quality(dev, shape=QUALITY_SHAPE, rank: int = QUALITY_RANK,
     plain_scores = masked_scores(Xp, Yp, rows, cols)
     plain = precision_at_k(plain_scores, held)
     pop = popularity_precision(rows, cols, held, n_items)
+    # the bf16 lane on the same protocol from seed 3
+    Xb, Yb = als_mod.train_als(
+        user_side, item_side,
+        dataclasses.replace(params(QUALITY_SEEDS[0]), precision="bf16"), dev)
+    bf16 = precision_at_k(masked_scores(Xb, Yb, rows, cols), held)
     out = {"precision_at_10": band[0], "ndcg_at_10": ndcg,
+           "bf16_precision_at_10": bf16,
            "plain_precision_at_10": plain,
            "plain_ndcg_at_10": ndcg_at_k(plain_scores, held),
            "ratio_vs_plain": band[0] / plain,
@@ -3944,6 +4411,10 @@ def quality(dev, shape=QUALITY_SHAPE, rank: int = QUALITY_RANK,
     if not out["lift_vs_popularity"] > 1.0:
         raise AssertionError(f"the seed band {band} does not beat "
                              f"popularity ({pop})")
+    # the JAX package's gate on the bf16 lane (tests/test_als_precision.py)
+    if not bf16 >= band[0] - 0.02:
+        raise AssertionError(f"bf16 Precision@10 {bf16} is more than 0.02 "
+                             f"below fp32's {band[0]}")
     return out
 
 
@@ -4007,6 +4478,8 @@ def main() -> int:
         remove_store(store)
     train_err = phase("2b training kernel checks", training_kernel_checks,
                       dev, trained, args.seed)
+    options = phase("5c training options", training_options, dev, trained,
+                    args.seed)
     served = phase("3 serving", serve_full_width, trained["model"],
                    args.seed)
     folded = phase("3b fold-in", foldin_full_width, dev, trained,
@@ -4063,6 +4536,15 @@ def main() -> int:
                        "bound_by")},
                    "shape": "B=256 (200 real rows), L=2,048",
                    "timings": fold_rows_t}]
+        if name == "assemble_normal_equations":
+            # B3's bf16 route: launches from phase 5c's bf16 training
+            routes.append({
+                "route": "tiles_bf16", "R": RANK,
+                "launches": options["bf16"]["routes"]["tiles/bf16"],
+                **train_times["bf16"]["head"],
+                "shape": "every bucket of both sides (one iteration), R=64, "
+                         "bf16 store",
+                "timings": train_times["bf16"]["rows"]})
         kernels.append({
             "name": name, "route": "cuda",
             "source": "predictionio_tpu_torch/ops/csrc/als_solve.cu",
@@ -4075,7 +4557,11 @@ def main() -> int:
           f"(observability on / off p50 "
           f"{served['overhead']['on']['p50_ms']!r} / "
           f"{served['overhead']['off']['p50_ms']!r} ms); training "
-          f"iteration {trained['iteration_ms']!r} ms; fold-in event -> "
+          f"iteration {trained['iteration_ms']!r} ms (bf16 lane "
+          f"{options['bf16']['iteration']['bf16']['wall_ms']!r} ms; "
+          f"checkpoint_every=1 wall ratio fp32 "
+          f"{options['checkpoint_fp32']['overhead']!r}, bf16 "
+          f"{options['checkpoint_bf16']['overhead']!r}); fold-in event -> "
           f"servable p50 {folded['servable_p50_s']!r} s p99 "
           f"{folded['servable_p99_s']!r} s over {folded['folds']} folds; "
           f"store write "
@@ -4086,8 +4572,9 @@ def main() -> int:
           f"quick start import "
           f"{started['import']['events_per_s']!r} events/s, event server "
           f"{started['event_server']['batch_events_per_s']!r} events/s; "
-          f"Precision@10 {scored['precision_at_10']!r} "
-          f"({scored['ratio_vs_plain']!r} of plain, lift "
+          f"Precision@10 {scored['precision_at_10']!r} (bf16 "
+          f"{scored['bf16_precision_at_10']!r}; "
+          f"{scored['ratio_vs_plain']!r} of plain, lift "
           f"{scored['lift_vs_popularity']!r})")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -25,11 +25,13 @@ daemon thread per deployed engine with ``--foldin on``):
    power-of-two bucket ladder and land in the model's ``user_map`` only
    AFTER the store holds their row.
 
-   Precision interplay: the solve always runs the training lane (fp32;
-   the bf16 training precision raises until ROADMAP A5) whatever the
-   serving store holds: a bf16 store hands the solve its item factors
-   cast through fp32, an int8 store (``PIO_SERVE_PRECISION=int8``) a
-   dequantized fp32 view (``DeviceTopK.item_factors``), and
+   Precision interplay: the solve runs the training lane
+   (``ALSParams.precision`` / ``PIO_ALS_PRECISION``) whatever the
+   serving store holds (``DeviceTopK.item_factors_as``): under fp32 a
+   bf16 store hands the solve its item factors cast through fp32; under
+   bf16 a bf16 store hands over its rows as they are, and an fp32 store
+   its rows rounded to bf16; an int8 store (``PIO_SERVE_PRECISION=int8``)
+   a dequantized view in the lane's dtype; and
    ``patch_users`` re-quantizes the fresh rows with RECOMPUTED per-row
    absmax scales, so a folded row is bit-identical to what
    quantize-at-load would have produced for the same factors.
@@ -54,7 +56,12 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from predictionio_tpu_torch.ops.als import ALSParams, fold_in_users
+from predictionio_tpu_torch.ops.als import (
+    ALSParams,
+    _als_precision_mode,
+    factor_dtype,
+    fold_in_users,
+)
 from predictionio_tpu_torch.utils import device_telemetry, metrics
 from predictionio_tpu_torch.utils.resilience import _env_float
 from predictionio_tpu_torch.utils.tracing import span, trace_scope
@@ -413,8 +420,9 @@ class FoldInConsumer:
                         rows = self._fold_hook(cols_list, vals_list)
                         rec = None
                     else:
-                        rows = fold_in_users(server.item_factors,
-                                             cols_list, vals_list,
+                        Y = server.item_factors_as(factor_dtype(
+                            _als_precision_mode(self._params)))
+                        rows = fold_in_users(Y, cols_list, vals_list,
                                              self._params,
                                              max_len=self._cfg.max_len)
                         # the solve's flight record: fold_in_users just

@@ -12,15 +12,26 @@ counterpart is easy to find):
   ``segment_starts``, and ``merge_sorted_runs`` when the ratings arrive
   as sorted runs); ``PIO_NATIVE_DISABLE=1`` takes the numpy scatter,
   which gives the same bytes.
-- **Device math** (fp32 torch): ``_solve_rows`` solves one batch of rows
+- **Device math** (torch): ``_solve_rows`` solves one batch of rows
   through the two CUDA kernels of :mod:`~predictionio_tpu_torch.ops.
   als_cuda`, ``assemble_normal_equations`` then ``spd_solve`` (their
   plain versions on CPU tensors); ``als_iterations`` and
   ``als_iterations_bucketed`` are the training loops, as Python loops.
   ``Y^T Y`` is a plain large product and stays ``torch.matmul``.
+- **The precision policy** (``PRECISION_MODES``, ``_als_precision_mode``,
+  ``factor_dtype``, ``init_policy_factors``): ``fp32``, or ``bf16``, the
+  ALX storage/compute split: factors stored and gathered bf16, weights
+  rounded to bf16, the normal equations summed and solved in fp32. The
+  factor tensors' dtype carries the policy through the loops.
 - **Trainers**: ``train_als`` and ``train_als_bucketed`` return host
-  fp32 numpy ``(X [N, R], Y [M, R])`` as the JAX ones do;
-  ``warmup_train_als_bucketed`` readies the card for the second.
+  fp32 numpy ``(X [N, R], Y [M, R])`` as the JAX ones do, in either
+  precision; with ``PIO_CHECKPOINT_DIR`` set they run the crash-safe
+  chunked lane of :mod:`~predictionio_tpu_torch.workflow.checkpoint`
+  (atomic checkpoints, preemption, exact resume), bitwise equal to the
+  unchunked loop. ``warmup_train_als_bucketed`` readies the card for the
+  second.
+- **Training objective** (``training_objective``, ``_objective_pack``):
+  the ``[fit, l2, finite]`` sample the chunked lane records per chunk.
 - **Staging**: ``BucketedRatings.to_device_async`` copies the tables to
   the card from pinned memory on a copy stream of their own, and
   ``block_until_staged`` hands them to the current stream.
@@ -33,9 +44,8 @@ Implicit objective (Hu-Koren-Volinsky, as in MLlib): confidence
 ``(Y^T Y + Y^T (C - I) Y + lambda I) x = Y^T C p``. Explicit (ALS-WR):
 ``(Y_u^T Y_u + lambda * n_u * I) x = Y_u^T r_u``.
 
-Not in this slice (they raise ``NotImplementedError``): the bf16
-training precision and checkpointed training (ROADMAP A5, the training
-options), and the config grid's ``extra_ridge`` (ROADMAP A7, tuning).
+Not in this slice (it raises ``NotImplementedError``): the config
+grid's ``extra_ridge`` (ROADMAP A7, tuning).
 """
 
 from __future__ import annotations
@@ -471,33 +481,64 @@ def zero_empty_rows(X: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return X * (mask.sum(dim=1) > 0).to(X.dtype)[:, None]
 
 
-def _check_precision(params: ALSParams) -> None:
-    """The training precision (``PIO_ALS_PRECISION`` over
-    ``ALSParams.precision``) must be fp32: bf16 raises naming its
-    ROADMAP item, an unknown mode raises too. Training and the fold-in
-    solve (the training half-step) resolve it alike."""
+PRECISION_MODES = ("fp32", "bf16")
+
+
+def normalize_precision(value: str, source: str) -> str:
+    """Canonicalize a training precision (``float32`` / ``bfloat16``
+    accepted for ``fp32`` / ``bf16``) or raise ``ValueError`` naming
+    ``source``."""
+    mode = {"float32": "fp32", "bfloat16": "bf16"}.get(value, value)
+    if mode not in PRECISION_MODES:
+        raise ValueError(
+            f"{source}={mode!r} is not a known precision mode "
+            f"(expected one of: {', '.join(PRECISION_MODES)})")
+    return mode
+
+
+def _als_precision_mode(params: Optional[ALSParams] = None) -> str:
+    """The training precision, ``fp32`` or ``bf16``: ``PIO_ALS_PRECISION``
+    over ``ALSParams.precision``; an unknown value raises. Resolved once
+    per ``train_als*`` / ``fold_in_users`` call, so an env change between
+    trainings takes effect."""
     forced = os.environ.get("PIO_ALS_PRECISION", "").strip().lower()
-    source = "PIO_ALS_PRECISION" if forced else "ALSParams.precision"
-    mode = forced or str(params.precision or "fp32").strip().lower()
-    mode = {"float32": "fp32", "bfloat16": "bf16"}.get(mode, mode)
-    if mode == "bf16":
-        raise NotImplementedError(
-            f"{source}=bf16: the bf16 training precision is not ported yet "
-            "(ROADMAP A5, the training options); train in fp32")
-    if mode != "fp32":
-        raise ValueError(f"{source}={mode!r} is not a known precision mode "
-                         "(expected one of: fp32, bf16)")
+    if forced:
+        return normalize_precision(forced, "PIO_ALS_PRECISION")
+    mode = str(getattr(params, "precision", None)
+               or "fp32").strip().lower()
+    return normalize_precision(mode, "ALSParams.precision")
 
 
-def _check_supported(params: ALSParams) -> None:
-    """Raise on the training features this slice does not port, named
-    with their ROADMAP item; an unknown precision raises too."""
-    _check_precision(params)
-    every = os.environ.get("PIO_CHECKPOINT_EVERY", "").strip()
-    if params.checkpoint_every or every not in ("", "0"):
-        raise NotImplementedError(
-            "checkpointed training (checkpoint_every / PIO_CHECKPOINT_EVERY) "
-            "is not ported yet (ROADMAP A5, the training options)")
+def factor_dtype(precision: str) -> torch.dtype:
+    """The factor store's dtype for a resolved precision mode."""
+    return torch.bfloat16 if precision == "bf16" else torch.float32
+
+
+def init_policy_factors(n_rows: int, n_cols: int, rank: int,
+                        seed: Optional[int], precision: str,
+                        device: DeviceLike = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`init_factors` under the precision policy: drawn in fp32,
+    then cast to the factor dtype, so both lanes start from the same
+    numbers up to one rounding."""
+    X, Y = init_factors(n_rows, n_cols, rank, seed, device)
+    dt = factor_dtype(precision)
+    return X.to(dt), Y.to(dt)
+
+
+def _gram(Y: torch.Tensor) -> torch.Tensor:
+    """``Y^T Y`` in fp32. A bf16 store is widened first: a bf16 product
+    in torch returns bf16 and would round the Gram; widened, each
+    product of two bf16 values is exact in fp32 (TF32 stays off) and the
+    sums are fp32, as JAX's ``preferred_element_type=f32``."""
+    Yf = Y.float()
+    return Yf.T @ Yf
+
+
+def _round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 and back: the bf16 lane's weights, which JAX
+    rounds before its products."""
+    return t.to(torch.bfloat16).float()
 
 
 def init_factors(n_rows: int, n_cols: int, rank: int, seed: Optional[int],
@@ -523,8 +564,8 @@ def _solve_rows(Y: torch.Tensor, cols: torch.Tensor, weights: torch.Tensor,
                 ) -> torch.Tensor:
     """Normal-equation solve for one batch of rows: fixed factors
     ``Y [M, R]`` and padded ratings ``[B, L]`` (+ validity mask) give new
-    factors ``[B, R]``, fp32. ``gram`` (``Y^T Y``) may be passed in so
-    bucketed solves share one.
+    factors ``[B, R]`` in ``Y``'s dtype. ``gram`` (``Y^T Y``, fp32) may
+    be passed in so bucketed solves share one.
 
     Implicit: ``lam * I`` is folded into the Gram term the assembly
     adds (as the JAX ``solve_side_pallas`` does; the JAX XLA path adds
@@ -538,6 +579,15 @@ def _solve_rows(Y: torch.Tensor, cols: torch.Tensor, weights: torch.Tensor,
     kernels: the sum of their elapsed times is the kernels' device time
     (the fold-in solve's).
 
+    A bf16 ``Y`` is the bf16 lane (JAX ``_solve_rows_bf16``): the
+    assembly gathers the bf16 rows (B3's bf16 route), the weights are
+    computed in fp32 and rounded to bf16 as JAX rounds them before its
+    products, ``A``/``b`` are summed and solved in fp32, and the new
+    factors are cast to bf16. ``lam * I`` is folded into the Gram term
+    here too (JAX's bf16 lane adds it after the sum; the two orders
+    agree to within fp32 rounding, far inside the lane's bf16
+    tolerance).
+
     The counterpart of both JAX ``_solve_rows`` and ``solve_side_pallas``:
     the port has one solver, the ``spd_solve`` kernel, so JAX's solver
     dispatch ``_spd_solve`` has no counterpart of its own."""
@@ -546,17 +596,20 @@ def _solve_rows(Y: torch.Tensor, cols: torch.Tensor, weights: torch.Tensor,
             "extra_ridge (the config grid's rank padding) is not ported yet "
             "(ROADMAP A7, tuning: the config grid)")
     R = Y.shape[1]
-    mask = mask.to(Y.dtype)
-    w = weights.to(Y.dtype) * mask            # zero out padded slots
-    eye = torch.eye(R, dtype=Y.dtype, device=Y.device)
+    f32 = torch.float32
+    mask = mask.to(f32)
+    w = weights.to(f32) * mask                # zero out padded slots
+    eye = torch.eye(R, dtype=f32, device=Y.device)
     if implicit:
         aw, bw = implicit_weights(w, alpha)
         if gram is None:
-            gram = Y.T @ Y
+            gram = _gram(Y)
         gram = gram + lam * eye
     else:
         aw, bw, gram = mask, w, torch.zeros_like(eye)
         n_b = mask.sum(dim=1)
+    if Y.dtype == torch.bfloat16:
+        aw, bw = _round_bf16(aw), _round_bf16(bw)
 
     def timed() -> dict:
         if events is None:
@@ -573,7 +626,7 @@ def _solve_rows(Y: torch.Tensor, cols: torch.Tensor, weights: torch.Tensor,
     if refine:
         X = X + als_cuda.spd_solve(A, b - torch.einsum("brs,bs->br", A, X),
                                    **timed())
-    return zero_empty_rows(X, mask)
+    return zero_empty_rows(X.to(Y.dtype), mask)
 
 
 def _solve_side_blocked(Y, cols, weights, mask, lam: float, alpha: float,
@@ -598,7 +651,7 @@ def als_iterations(X, Y, u_cols, u_w, u_m, i_cols, i_w, i_m, *, lam: float,
     """The uniform training loop (``_als_iterations_impl``): each
     iteration solves the user side against ``Y``, then the item side
     against the new ``X``. Returns new tensors; the inputs are not
-    changed."""
+    changed. The factors' dtype (fp32 or bf16) is the precision lane."""
     for _ in range(int(num_iterations)):
         X = _solve_side_blocked(Y, u_cols, u_w, u_m, lam, alpha, implicit,
                                 block, refine)
@@ -615,8 +668,9 @@ def _solve_side_bucketed(Y: torch.Tensor, buckets, n_rows_out: int,
     batched solve per bucket (in row blocks of at most ``slot_budget``
     slots when set), results written into the ``[n_rows_out, R]``
     factors. Rows in no bucket keep zero factors; bucket pad rows carry
-    the sentinel ``row_id == n_rows_out`` and are dropped."""
-    gram = Y.T @ Y if implicit else None
+    the sentinel ``row_id == n_rows_out`` and are dropped. The factors
+    keep ``Y``'s dtype; the shared Gram is fp32 (:func:`_gram`)."""
+    gram = _gram(Y) if implicit else None
     # one spare row takes every sentinel write (no host sync to filter
     # them), and is cut off at the end
     X = torch.zeros((n_rows_out + 1, Y.shape[1]), dtype=Y.dtype,
@@ -642,7 +696,7 @@ def als_iterations_bucketed(X, Y, u_buckets, i_buckets, *, lam: float,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The bucketed training loop (``_als_iterations_bucketed_impl``);
     ``u_buckets``/``i_buckets`` are sequences of ``(row_ids, cols,
-    weights, mask)`` tensors."""
+    weights, mask)`` tensors. The factors' dtype is the precision lane."""
     n_u, n_i = X.shape[0], Y.shape[0]
     for _ in range(int(num_iterations)):
         X = _solve_side_bucketed(Y, u_buckets, n_u, lam, alpha, implicit,
@@ -652,16 +706,181 @@ def als_iterations_bucketed(X, Y, u_buckets, i_buckets, *, lam: float,
     return X, Y
 
 
+# -- training objective (the chunked lane's telemetry) -------------------------
+
+def _objective_pack(X: torch.Tensor, Y: torch.Tensor, u_buckets, *,
+                    lam: float, alpha: float, implicit: bool
+                    ) -> torch.Tensor:
+    """``[fit, l2, finite]`` fp32 pack of the objective the solver
+    minimizes (JAX ``_objective_pack_impl``), on the factors' device.
+
+    Implicit (Hu-Koren-Volinsky): ``sum_{u,i} c (p - x.y)^2 + lam (|X|^2
+    + |Y|^2)``; the sum over all pairs is ``sum_u x_u^T (Y^T Y) x_u``
+    plus, over the observed entries, ``bw - 2 bw s + aw s^2`` with ``s =
+    x.y`` and ``(aw, bw)`` exactly :func:`implicit_weights`. Explicit
+    (ALS-WR): ``sum_obs (r - s)^2 + lam (sum_u n_u |x_u|^2 + sum_i n_i
+    |y_i|^2)``, both count-weighted norms from the user-side tables.
+    ``u_buckets`` are ``(row_ids, cols, weights, mask)`` tensors of the
+    user side (pad rows carry the sentinel id one past the end, clipped
+    here; their weights are 0). ``finite`` is 1.0 when both carries are
+    finite: the divergence guard in the same sample. Reads the carries
+    only; sums in fp32 (a bf16 store is widened once)."""
+    f32 = torch.float32
+    finite = (torch.isfinite(X).all() & torch.isfinite(Y).all()).to(f32)
+    Xf, Yf = X.float(), Y.float()
+    fit = torch.zeros((), dtype=f32, device=X.device)
+    l2n = torch.zeros((), dtype=f32, device=X.device)
+    if implicit:
+        fit = fit + ((Xf @ _gram(Yf)) * Xf).sum()
+    for row_ids, cols, w, m in u_buckets:
+        Xb = Xf[row_ids.long().clamp(0, Xf.shape[0] - 1)]        # [B, R]
+        Yg = Yf[cols.long().clamp(0, Yf.shape[0] - 1)]           # [B, L, R]
+        s = torch.einsum("blr,br->bl", Yg, Xb)
+        m32 = m.to(f32)
+        wm = w.to(f32) * m32                   # pads -> aw = bw = 0
+        if implicit:
+            aw, bw = implicit_weights(wm, alpha)
+            fit = fit + (bw - 2.0 * bw * s + aw * s * s).sum()
+        else:
+            fit = fit + (m32 * (wm - s) ** 2).sum()
+            l2n = l2n + (m32.sum(dim=1) * (Xb * Xb).sum(dim=1)).sum()
+            l2n = l2n + (m32[:, :, None] * Yg * Yg).sum()
+    if implicit:
+        l2 = lam * ((Xf * Xf).sum() + (Yf * Yf).sum())
+    else:
+        l2 = lam * l2n
+    return torch.stack([fit, l2, finite])
+
+
+def _objective_statics(params) -> dict:
+    """The objective's hyperparameters for one config."""
+    return dict(lam=float(params.lambda_), alpha=float(params.alpha),
+                implicit=bool(params.implicit_prefs))
+
+
+def _uniform_objective_bucket(cols, weights, mask, n_rows: int) -> tuple:
+    """A uniform ``[N, L]`` table as the one-bucket case: table row ``i``
+    is factor row ``i``."""
+    return (torch.arange(int(n_rows), dtype=torch.int32, device=cols.device),
+            cols, weights, mask)
+
+
+def _train_telemetry_enabled() -> bool:
+    from predictionio_tpu_torch.workflow import runlog as _runlog
+
+    return _runlog.telemetry_enabled()
+
+
+def training_objective(X, Y, user_side, params: ALSParams,
+                       device: DeviceLike = None) -> dict:
+    """One objective sample for a factor pair against the user-side
+    tables (the side whose rows align with ``X``: a uniform
+    :class:`PaddedRatings` or a :class:`BucketedRatings`):
+    ``{"fit", "l2", "total", "finite"}``. Factors may be host numpy
+    (placed on ``device``, None = cuda) or tensors, which stay on their
+    device."""
+    dev = X.device if isinstance(X, torch.Tensor) else resolve_device(device)
+
+    def put(a):
+        return torch.as_tensor(a, device=dev)
+
+    if isinstance(user_side, BucketedRatings):
+        u_t = [tuple(put(a) for a in (b.row_ids, b.cols, b.weights, b.mask))
+               for b in user_side.buckets]
+    else:
+        u_t = [_uniform_objective_bucket(
+            put(user_side.cols), put(user_side.weights),
+            put(user_side.mask), np.shape(X)[0])]
+    pack = _objective_pack(put(X), put(Y), u_t,
+                           **_objective_statics(params)).double().cpu().numpy()
+    return {"fit": float(pack[0]), "l2": float(pack[1]),
+            "total": float(pack[0] + pack[1]),
+            "finite": bool(pack[2] == 1.0)}
+
+
+# -- checkpointed training ------------------------------------------------------
+
+def checkpoint_layout_uniform(user_side: PaddedRatings,
+                              item_side: PaddedRatings):
+    """Layout half of the checkpoint fingerprint for uniform tables:
+    row/col spaces, padded shapes and valid-row counts (JAX's, value
+    for value)."""
+    def side(s):
+        return (int(s.n_rows), int(s.n_cols), int(s.max_len),
+                int(s.valid_rows))
+
+    return ("uniform", side(user_side), side(item_side))
+
+
+def checkpoint_layout_bucketed(user_side: BucketedRatings,
+                               item_side: BucketedRatings):
+    """Layout half of the checkpoint fingerprint for bucketed sides:
+    row/col spaces and every bucket's padded table shape."""
+    def side(s):
+        return (int(s.n_rows), int(s.n_cols),
+                tuple(tuple(int(d) for d in b.cols.shape)
+                      for b in s.buckets))
+
+    return ("bucketed", side(user_side), side(item_side))
+
+
+def _solver_route(dev: torch.device) -> str:
+    """The fingerprint's solver field: what solves on ``dev``, the CUDA
+    kernels (``"cuda"``) or their plain versions (``"plain"``). The two
+    differ in the last bits, so a checkpoint of one does not resume on
+    the other as if it were the same run."""
+    return "cuda" if dev.type == "cuda" else "plain"
+
+
+def _maybe_checkpointer(layout, params: ALSParams, solver: str,
+                        precision: str):
+    """The active ``TrainCheckpointer`` for this call, or None. Reads
+    ``PIO_CHECKPOINT_DIR`` before importing the checkpoint module, so
+    the default path costs one env lookup."""
+    if not os.environ.get("PIO_CHECKPOINT_DIR", "").strip():
+        return None
+    from predictionio_tpu_torch.workflow import checkpoint as _checkpoint
+
+    return _checkpoint.checkpointer_for(layout, params, solver, precision)
+
+
+def _run_lane(run_iters, X, Y, params: ALSParams, ckpt, objective_buckets,
+              dev: torch.device):
+    """``run_iters(X, Y, n)`` over all iterations: at once without a
+    checkpointer, else through ``run_chunked`` (chunks, atomic
+    checkpoints, preemption, the divergence guard and, with telemetry
+    on, an objective sample per chunk against ``objective_buckets``)."""
+    total = int(params.num_iterations)
+    if ckpt is None:
+        return run_iters(X, Y, total)
+    from predictionio_tpu_torch.workflow import checkpoint as _checkpoint
+
+    fdt = X.dtype
+    objective = None
+    if _train_telemetry_enabled():
+        obj_kw = _objective_statics(params)
+
+        def objective(Xc, Yc):
+            return _objective_pack(Xc, Yc, objective_buckets, **obj_kw)
+
+    return _checkpoint.run_chunked(
+        run_iters, X, Y, total, ckpt, to_host=_to_host,
+        from_host=lambda a: torch.from_numpy(np.ascontiguousarray(
+            a, dtype=np.float32)).to(dev).to(fdt),
+        objective=objective)
+
+
 # -- trainers ---------------------------------------------------------------------
 
 def _loop_kwargs(params: ALSParams) -> dict:
     return dict(lam=float(params.lambda_), alpha=float(params.alpha),
                 implicit=bool(params.implicit_prefs),
-                num_iterations=int(params.num_iterations),
                 refine=bool(params.solve_refine))
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
+    """Host fp32 numpy, whatever the factor dtype: persistence, serving
+    and checkpoints see fp32 in either precision lane."""
     return t.to("cpu", torch.float32).numpy()
 
 
@@ -670,23 +889,33 @@ def train_als_bucketed(user_side: BucketedRatings, item_side: BucketedRatings,
                        ) -> Tuple[np.ndarray, np.ndarray]:
     """Train on length-bucketed tables (built with
     :func:`bucket_ratings_pair`) on ``device`` (None = cuda) and return
-    host numpy ``(user_factors [N, R], item_factors [M, R])``. The same
-    per-row solves as :func:`train_als` on the same ratings."""
+    host fp32 numpy ``(user_factors [N, R], item_factors [M, R])``. The
+    same per-row solves as :func:`train_als` on the same ratings. The
+    precision policy and ``PIO_CHECKPOINT_*`` are resolved per call."""
     assert user_side.n_rows >= item_side.n_cols
     assert item_side.n_rows >= user_side.n_cols
-    _check_supported(params)
+    precision = _als_precision_mode(params)
     dev = resolve_device(device)
-    X, Y = init_factors(user_side.n_rows, item_side.n_rows, params.rank,
-                        params.seed, dev)
+    ckpt = _maybe_checkpointer(
+        checkpoint_layout_bucketed(user_side, item_side), params,
+        _solver_route(dev), precision)
+    X, Y = init_policy_factors(user_side.n_rows, item_side.n_rows,
+                               params.rank, params.seed, precision, dev)
 
     def tables(side):
         return [(b.row_ids, b.cols, b.weights, b.mask)
                 for b in side.to_device(dev).buckets]
 
+    u_t, i_t = tables(user_side), tables(item_side)
     budget = params.bucket_slot_budget
-    X, Y = als_iterations_bucketed(
-        X, Y, tables(user_side), tables(item_side),
-        slot_budget=int(budget) if budget else None, **_loop_kwargs(params))
+    kw = dict(slot_budget=int(budget) if budget else None,
+              **_loop_kwargs(params))
+
+    def run_iters(Xc, Yc, n):
+        return als_iterations_bucketed(Xc, Yc, u_t, i_t,
+                                       num_iterations=int(n), **kw)
+
+    X, Y = _run_lane(run_iters, X, Y, params, ckpt, u_t, dev)
     return _to_host(X), _to_host(Y)
 
 
@@ -723,21 +952,25 @@ def train_als(user_side: PaddedRatings, item_side: PaddedRatings,
               ) -> Tuple[np.ndarray, np.ndarray]:
     """Train on uniform tables (``user_side`` padded by user, its cols
     item indices; ``item_side`` by item) on ``device`` (None = cuda) and
-    return host numpy ``(user_factors [N, R], item_factors [M, R])``.
-    With ``solve_block_rows`` set, rows pad to a block multiple; the pad
-    rows' init is zeroed before the first Gram term and the result is
-    cut back to the true rows."""
+    return host fp32 numpy ``(user_factors [N, R], item_factors [M,
+    R])``. With ``solve_block_rows`` set, rows pad to a block multiple;
+    the pad rows' init is zeroed before the first Gram term and the
+    result is cut back to the true rows. The precision policy and
+    ``PIO_CHECKPOINT_*`` are resolved per call."""
     assert user_side.n_rows >= item_side.n_cols
     assert item_side.n_rows >= user_side.n_cols
-    _check_supported(params)
+    precision = _als_precision_mode(params)
     block = params.solve_block_rows
     if block:
         user_side = pad_rows_to_block(user_side, block)
         item_side = pad_rows_to_block(item_side, block)
     dev = resolve_device(device)
+    ckpt = _maybe_checkpointer(
+        checkpoint_layout_uniform(user_side, item_side), params,
+        _solver_route(dev), precision)
     n_u, n_i = user_side.valid_rows, item_side.valid_rows
-    X, Y = init_factors(user_side.n_rows, item_side.n_rows, params.rank,
-                        params.seed, dev)
+    X, Y = init_policy_factors(user_side.n_rows, item_side.n_rows,
+                               params.rank, params.seed, precision, dev)
     # the init filled the pad rows too: zero them, or the first Gram
     # term (Y^T Y over all rows) would see phantom factors
     X[n_u:] = 0.0
@@ -746,11 +979,19 @@ def train_als(user_side: PaddedRatings, item_side: PaddedRatings,
     def put(a):
         return torch.as_tensor(a, device=dev)
 
-    X, Y = als_iterations(
-        X, Y, put(user_side.cols), put(user_side.weights),
-        put(user_side.mask), put(item_side.cols), put(item_side.weights),
-        put(item_side.mask), block=int(block) if block else None,
-        **_loop_kwargs(params))
+    u_cols, u_w, u_m = (put(a) for a in (user_side.cols, user_side.weights,
+                                         user_side.mask))
+    i_tables = [put(a) for a in (item_side.cols, item_side.weights,
+                                 item_side.mask)]
+    kw = dict(block=int(block) if block else None, **_loop_kwargs(params))
+
+    def run_iters(Xc, Yc, n):
+        return als_iterations(Xc, Yc, u_cols, u_w, u_m, *i_tables,
+                              num_iterations=int(n), **kw)
+
+    X, Y = _run_lane(run_iters, X, Y, params, ckpt,
+                     [_uniform_objective_bucket(u_cols, u_w, u_m,
+                                                user_side.n_rows)], dev)
     return _to_host(X)[:n_u], _to_host(Y)[:n_i]
 
 
@@ -820,10 +1061,13 @@ def fold_in_users(item_factors, cols_list: Sequence[np.ndarray],
     (item indices and values; duplicates are summed here). Returns the
     ``[k, R]`` fp32 rows, on the host. ``item_factors`` is a host array
     (placed on ``device``, None = cuda) or a tensor, which stays on its
-    device; any dtype is cast through fp32, so a bf16 serving store
-    folds as an fp32 one would. ``params`` gives ``lambda_``, ``alpha``,
-    ``implicit_prefs`` and ``solve_refine``; a bf16 training precision
-    raises (ROADMAP A5), as training does.
+    device. The precision policy is training's (``ALSParams.precision`` /
+    ``PIO_ALS_PRECISION``, resolved per call): item factors of another
+    dtype are cast through fp32 to the policy's factor dtype, so under
+    ``bf16`` the fold is the bf16 half-step (B3's bf16 route), and a
+    bf16 store folds under ``fp32`` as an fp32 one would. ``params``
+    gives ``lambda_``, ``alpha``, ``implicit_prefs`` and
+    ``solve_refine``.
 
     Each call is one flight-recorder dispatch (lane ``"foldin"``,
     ``kBucket`` the padded history length L, ``bucket`` the padded user
@@ -833,13 +1077,16 @@ def fold_in_users(item_factors, cols_list: Sequence[np.ndarray],
     are on the host. On the card the half-step runs on a stream of its
     own (it waits for the caller's stream first), so no query kernel
     that another thread enqueues meanwhile falls inside a window."""
-    _check_precision(params)
+    precision = _als_precision_mode(params)
     if isinstance(item_factors, torch.Tensor):
         Y = item_factors
     else:
         Y = torch.from_numpy(np.ascontiguousarray(item_factors)).to(
             resolve_device(device))
-    Y = Y.float().contiguous()
+    want = factor_dtype(precision)
+    if Y.dtype != want:
+        Y = Y.float().to(want)
+    Y = Y.contiguous()
     k = len(cols_list)
     if k == 0:
         return np.zeros((0, Y.shape[1]), dtype=np.float32)
@@ -870,7 +1117,7 @@ def fold_in_users(item_factors, cols_list: Sequence[np.ndarray],
         return out
     rec = _dtel.record_dispatch(
         lane="foldin", kernel="als_solve" if events is not None else "plain",
-        precision="fp32", aot="jit", k_bucket=int(cols.shape[1]), batch=k,
+        precision=precision, aot="jit", k_bucket=int(cols.shape[1]), batch=k,
         bucket=int(cols.shape[0]), host_us=(t1 - t0) * 1e6,
         device_us=None if events is None
         else sum(e0.elapsed_time(e1) for e0, e1 in events) * 1e3,

@@ -45,7 +45,11 @@ there has one here:
   are neither gathered nor summed. Ranks up to 208 on an H100; above
   that :func:`assembly_route` picks ``assemble_large_rank_kernel`` in
   the same source, one block per (row, 32x32 tile of ``A``'s upper
-  triangle) and one for ``b``, which takes any rank.
+  triangle) and one for ``b``, which takes any rank. Both take the
+  factor store ``Y`` fp32 or bf16 (the bf16 training precision): a bf16
+  row is converted to fp32 as it is gathered, so everything after the
+  gather is the fp32 route's arithmetic, and the bound reads ``Y`` as
+  ``M*R*bytes(Y)``.
 - ``spd_solve`` (training; ``als_pallas.py:277``, kernel
   ``_spd_solve_kernel``) is ``spd_solve_warp_kernel`` in the same
   source. Bound: ``B*(R(R+1)/2+2R)*4`` bytes (the upper triangle of
@@ -406,11 +410,12 @@ def _solve_kernels(device: int) -> _SolveLib:
             lib = load_kernel_library(SOLVE_KERNEL_NAME)
             p, i = ctypes.c_void_p, ctypes.c_int
             asm = lib.pio_assemble_normal_equations
-            asm.argtypes = [i, p, i, i, p, p, p, i, i, i, i, i, p, p, p, p, p,
-                            p, p]
+            asm.argtypes = [i, p, i, i, i, p, p, p, i, i, i, i, i, p, p, p,
+                            p, p, p, p]
             asm.restype = i
             large = lib.pio_assemble_large_rank
-            large.argtypes = [i, p, i, i, p, p, p, i, i, p, p, p, p, p, p]
+            large.argtypes = [i, p, i, i, i, p, p, p, i, i, p, p, p, p, p,
+                              p]
             large.restype = i
             solve = lib.pio_spd_solve
             solve.argtypes = [i, p, p, i, i, p, i, i, p, i, p, p, p]
@@ -477,11 +482,22 @@ def assembly_plan(L: int, span: int = ASSEMBLY_SPAN) -> AssemblyPlan:
                         n_spans == 1 and L <= ASSEMBLY_GROUPED_MAX)
 
 
-def assembly_route(R: int, max_rank: int) -> str:
-    """The assembly kernel for rank ``R`` when ``assemble_kernel`` takes
-    ranks up to ``max_rank`` (the library's ``pio_assemble_max_rank``):
-    "tiles" (``assemble_kernel``, the main path) or "large_rank"
-    (``assemble_large_rank_kernel``, any rank)."""
+# The factor stores the assembly kernels take, and their code in the
+# library's y_dtype argument.
+_ASM_Y_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def assembly_route(R: int, max_rank: int, dtype: torch.dtype = torch.float32
+                   ) -> str:
+    """The assembly kernel for rank ``R`` and a factor store of ``dtype``
+    (fp32 or bf16) when ``assemble_kernel`` takes ranks up to
+    ``max_rank`` (the library's ``pio_assemble_max_rank``): "tiles"
+    (``assemble_kernel``, the main path) or "large_rank"
+    (``assemble_large_rank_kernel``, any rank). A bf16 row is widened to
+    fp32 as it is gathered into the same shared tile, so both dtypes
+    share the limit; another dtype raises."""
+    if dtype not in _ASM_Y_DTYPE_CODE:
+        raise TypeError(f"Y must be fp32 or bf16, got {dtype}")
     return "tiles" if R <= max_rank else "large_rank"
 
 
@@ -489,17 +505,20 @@ def check_assembly_args(Y: torch.Tensor, cols: torch.Tensor, aw: torch.Tensor,
                         bw: torch.Tensor, gram: torch.Tensor, max_rank: int
                         ) -> Tuple[int, int, int, int]:
     """``(M, R, B, L)`` of an assembly launch, or the error the GPU
-    wrapper raises: tensors on ``Y``'s device, fp32 (``cols`` int32),
-    contiguous, of shapes ``Y [M, R]``, ``cols``/``aw``/``bw [B, L]``,
-    ``gram [R, R]``, and ``R`` at most the kernel's ``max_rank`` (the
-    main route's limit; the large-rank route passes ``R``)."""
+    wrapper raises: tensors on ``Y``'s device, ``Y`` fp32 or bf16, the
+    rest fp32 (``cols`` int32), contiguous, of shapes ``Y [M, R]``,
+    ``cols``/``aw``/``bw [B, L]``, ``gram [R, R]``, and ``R`` at most
+    the kernel's ``max_rank`` (the main route's limit; the large-rank
+    route passes ``R``)."""
     dev = Y.device
     if Y.ndim != 2 or cols.ndim != 2:
         raise ValueError(f"Y must be [M, R] and cols [B, L]; got "
                          f"{tuple(Y.shape)} and {tuple(cols.shape)}")
     M, R = Y.shape
     B, L = cols.shape
-    _require(Y, "Y", torch.float32, (M, R), dev)
+    if Y.dtype not in _ASM_Y_DTYPE_CODE:
+        raise TypeError(f"Y must be fp32 or bf16, got {Y.dtype}")
+    _require(Y, "Y", Y.dtype, (M, R), dev)
     _require(cols, "cols", torch.int32, (B, L), dev)
     _require(aw, "aw", torch.float32, (B, L), dev)
     _require(bw, "bw", torch.float32, (B, L), dev)
@@ -535,11 +554,14 @@ def assemble_normal_equations(Y: torch.Tensor, cols: torch.Tensor,
     aw[b, l] * y y^T`` and ``b[b] = sum_l bw[b, l] * y`` over
     ``y = Y[cols[b, l]]``.
 
-    ``Y [M, R]`` fp32 fixed-side factors; ``cols [B, L]`` int32 gather
-    indices; ``aw``/``bw [B, L]`` fp32 weights (padding slots carry
-    weight 0 in both); ``gram [R, R]`` the shared term. ``events`` (CUDA
-    only), a pair of ``torch.cuda.Event(enable_timing=True)``, is
-    recorded around the kernels inside the native launch."""
+    ``Y [M, R]`` fp32 or bf16 fixed-side factors (a bf16 row is widened
+    to fp32 as it is gathered; the sums are fp32 either way); ``cols
+    [B, L]`` int32 gather indices; ``aw``/``bw [B, L]`` fp32 weights
+    (padding slots carry weight 0 in both); ``gram [R, R]`` the shared
+    term. ``events`` (CUDA only), a pair of
+    ``torch.cuda.Event(enable_timing=True)``, is recorded around the
+    kernels inside the native launch. Launches count by ``(route,
+    dtype)``: ``("tiles" | "large_rank", "fp32" | "bf16")``."""
     if Y.device.type == "cpu":
         return assemble_normal_equations_plain(Y, cols, aw, bw, gram)
     if Y.device.type != "cuda":
@@ -547,7 +569,7 @@ def assemble_normal_equations(Y: torch.Tensor, cols: torch.Tensor,
     dev = Y.device
     device = _device_index(dev)
     lib = _solve_kernels(device)
-    route = assembly_route(Y.shape[-1], lib.assemble_max_rank)
+    route = assembly_route(Y.shape[-1], lib.assemble_max_rank, Y.dtype)
     M, R, B, L = check_assembly_args(
         Y, cols, aw, bw, gram,
         lib.assemble_max_rank if route == "tiles" else Y.shape[-1])
@@ -556,27 +578,30 @@ def assemble_normal_equations(Y: torch.Tensor, cols: torch.Tensor,
     if B == 0:
         return A, b
     stream = torch.cuda.current_stream(dev).cuda_stream
+    y_code = _ASM_Y_DTYPE_CODE[Y.dtype]
+    key = (route, "bf16" if y_code else "fp32")
     if route == "large_rank":
         _check_launch(lib.assemble_large(
-            device, Y.data_ptr(), M, R, cols.data_ptr(), aw.data_ptr(),
-            bw.data_ptr(), B, L, gram.data_ptr(), A.data_ptr(), b.data_ptr(),
-            stream, *_native_events(events, dev)),
+            device, Y.data_ptr(), y_code, M, R, cols.data_ptr(),
+            aw.data_ptr(), bw.data_ptr(), B, L, gram.data_ptr(), A.data_ptr(),
+            b.data_ptr(), stream, *_native_events(events, dev)),
             "assemble_normal_equations", lib.err_string)
-        assemble_launches.add()
+        assemble_launches.add(key)
         return A, b
     plan = assembly_plan(L)
     partial = None
     if plan.n_spans > 1:
         partial = torch.empty(plan.scratch_floats(B, R), dtype=torch.float32,
                               device=dev)
-    _check_launch(lib.assemble(device, Y.data_ptr(), M, R, cols.data_ptr(),
-                     aw.data_ptr(), bw.data_ptr(), B, L, plan.span,
+    _check_launch(lib.assemble(device, Y.data_ptr(), y_code, M, R,
+                     cols.data_ptr(), aw.data_ptr(), bw.data_ptr(), B, L,
+                     plan.span,
                      plan.n_spans, int(plan.grouped), gram.data_ptr(),
                      A.data_ptr(), b.data_ptr(),
                      None if partial is None else partial.data_ptr(), stream,
                      *_native_events(events, dev)),
                   "assemble_normal_equations", lib.err_string)
-    assemble_launches.add()
+    assemble_launches.add(key)
     return A, b
 
 
@@ -586,7 +611,8 @@ def assemble_normal_equations_plain(Y: torch.Tensor, cols: torch.Tensor,
                                     events: Optional[Tuple] = None
                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of :func:`assemble_normal_equations`:
-    gather ``[B, L, R]``, then two fp32 einsums. ``events`` (CUDA
+    gather ``[B, L, R]`` (a bf16 ``Y`` widened to fp32, exactly), then
+    two fp32 einsums. ``events`` (CUDA
     tensors only) are recorded on the current stream around its work."""
     if events is not None:
         events[0].record(torch.cuda.current_stream(Y.device))

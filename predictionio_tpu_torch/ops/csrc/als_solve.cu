@@ -16,11 +16,17 @@
 // given (the TPU kernel padded it to 128 for DMA alignment), up to what
 // one block holds (pio_assemble_max_rank: 208 on an H100); above that the
 // host launches assemble_large_rank_kernel, which takes any rank.
+// Y is fp32 or bf16 (the bf16 training precision's factor store, the
+// bf16 lane of predictionio_tpu/ops/als.py::_solve_rows): the kernels are
+// templated on the factor type, a bf16 row is converted to fp32 as it is
+// gathered (exactly: a bf16 value is the top half of an fp32 one), and
+// everything after the gather is the fp32 route's arithmetic, so the bf16
+// route on Y equals the fp32 route on Y.float() bit for bit.
 // Bound on this card: slots * (R(R+1) + 2R) fp32 operations at 67
 // TFLOP/s (A is symmetric: one FMA per upper-triangle entry per slot)
-// against Y read once (it fits in L2), the [B, L] tables and the A/b
-// outputs at 3.35 TB/s; at R = 64 the operations bind for all but the
-// shortest rows. What the design does about it:
+// against Y read once (M * R * bytes(Y); it fits in L2), the [B, L]
+// tables and the A/b outputs at 3.35 TB/s; at R = 64 the operations bind
+// for all but the shortest rows. What the design does about it:
 // - Long rows are split. A row of L slots is ceil(L / span) blocks
 //   (span = 2,048 from the wrapper), so the few item rows of 10^4-10^5
 //   slots under power-law popularity fill the card instead of leaving a
@@ -40,7 +46,12 @@
 // - The gather is double-buffered with one barrier a chunk: warp 0
 //   compacts each 64-slot chunk's live slots (padding is neither gathered
 //   nor summed) and the next chunk's factor rows arrive by cp.async while
-//   this one is summed.
+//   this one is summed. A bf16 row cannot take cp.async into the fp32
+//   tile (it is converted on the way, and at an odd rank its rows are not
+//   4-byte aligned): its threads load it through registers (16 bytes, 8
+//   values, a load when R % 8 == 0 and Y is 16-byte aligned, else one
+//   value a load) and store it converted before they sum the chunk before
+//   it. The shared tile, and so the largest rank, is the fp32 route's.
 // - The tensor cores are not used. A 3xTF32 version (mma.sync m16n8k8,
 //   which keeps fp32 accuracy) was slower on an H100: the kernel waits on
 //   its gathers and barriers far more than on its FMAs.
@@ -74,6 +85,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -149,6 +161,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// A factor of Y as fp32: Y is float, or bf16 held as its 16 bits
+// (uint16_t), which are the high half of the fp32 value.
+__device__ __forceinline__ float load_factor(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_factor(const uint16_t* p) {
+  return __uint_as_float(static_cast<unsigned>(__ldg(p)) << 16);
+}
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+
 // dst[0..n) = (add[c] +) v[c] for the n <= 8 entries of a row segment
 // inside the matrix; two 16-byte stores when `vec` and n == 8.
 __device__ __forceinline__ void store_row8(float* dst, const float (&v)[8], int n,
@@ -187,15 +208,23 @@ __device__ __forceinline__ void store_row8(float* dst, const float (&v)[8], int 
 // Warp 0 compacts each chunk's live slots (a weight not 0) from it, so
 // padding is neither gathered nor summed, and the chunks ping-pong
 // between two shared buffers: the next chunk's factor rows load by
-// cp.async while this one is summed. Threads past items * groups (the
-// block is a whole number of warps) only stage and gather.
-template <int MAX_THREADS, int MIN_BLOCKS>
+// cp.async while this one is summed (a bf16 chunk through registers, see
+// gather). Threads past items * groups (the block is a whole number of
+// warps) only stage and gather. `vec` (R % 4 == 0, the pointers 16-byte
+// aligned): A's rows take 16-byte stores and fp32 factor rows 16-byte
+// copies; a bf16 row is copied 16 bytes (8 values) at a time when R % 8
+// == 0 and Y is 16-byte aligned.
+template <typename T, int MAX_THREADS, int MIN_BLOCKS>
 __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
-assemble_kernel(const float* __restrict__ Y, int M, int R, const int* __restrict__ cols,
+assemble_kernel(const T* __restrict__ Y, int M, int R, const int* __restrict__ cols,
                 const float* __restrict__ aw, const float* __restrict__ bw, int B, int L,
                 int W, int n_spans, int grouped, const float* __restrict__ gram,
                 float* __restrict__ out_A, float* __restrict__ out_b, long long stride_A,
                 long long stride_b, AsmShape shape, int vec) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kWidth = 16 / sizeof(T);  // factors a 16-byte copy moves
+  const bool gvec =
+      kF32 ? vec != 0 : R % 8 == 0 && reinterpret_cast<uintptr_t>(Y) % 16 == 0;
   extern __shared__ float smem[];
   const int rs = shape.rs, rt = shape.rt, tiles = shape.tiles, items = shape.items;
   const int groups = shape.groups;
@@ -301,8 +330,8 @@ assemble_kernel(const float* __restrict__ Y, int M, int R, const int* __restrict
     }
   };
   // each warp copies whole factor rows, spw rows a pass, lane lq of a row
-  // taking copies lq, lq + qstep, ... of 16 (or 4) bytes
-  const int per = vec ? R / 4 : R;
+  // taking copies lq, lq + qstep, ... of 16 bytes (or one factor)
+  const int per = gvec ? R / kWidth : R;
   const int spw = per >= 32 ? 1 : 32 / per;
   const int lrow = per >= 32 ? 0 : lane / per, lq = lane - lrow * per;
   const int qstep = per >= 32 ? 32 : per, warp = tid >> 5, n_warps = blockDim.x >> 5;
@@ -315,12 +344,22 @@ assemble_kernel(const float* __restrict__ Y, int M, int R, const int* __restrict
       if (s - j * sub >= snlive[m * nsub + j]) continue;  // past the list's live slots
       const int col = scol[m0 + s];
       const bool ok = col >= 0 && col < M;
-      const float* src = ok ? Y + static_cast<long long>(col) * R : Y;
+      const T* src = ok ? Y + static_cast<long long>(col) * R : Y;
       for (int q = lq; q < per; q += qstep) {
-        if (vec)
-          cp_async16(dst + s * rs + skew(4 * q), src + 4 * q, ok ? 16 : 0);
-        else
-          cp_async4(dst + s * rs + skew(q), src + q, ok ? 4 : 0);
+        if constexpr (kF32) {
+          if (gvec)
+            cp_async16(dst + s * rs + skew(4 * q), src + 4 * q, ok ? 16 : 0);
+          else
+            cp_async4(dst + s * rs + skew(q), src + q, ok ? 4 : 0);
+        } else if (gvec) {  // 8 bf16 values -> 8 fp32 (one 32-column group: no skew inside)
+          const uint4 u = ok ? __ldg(reinterpret_cast<const uint4*>(src + 8 * q))
+                             : make_uint4(0u, 0u, 0u, 0u);
+          float4* d = reinterpret_cast<float4*>(dst + s * rs + skew(8 * q));
+          d[0] = make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
+          d[1] = make_float4(bf16_lo(u.z), bf16_hi(u.z), bf16_lo(u.w), bf16_hi(u.w));
+        } else {
+          dst[s * rs + skew(q)] = ok ? load_factor(src + q) : 0.f;
+        }
       }
     }
   };
@@ -450,12 +489,15 @@ assemble_reduce_kernel(const float* __restrict__ P, int n_spans, int R,
 
 // assemble_kernel for `shape`: built for three blocks an SM up to
 // ASM_SMALL_THREADS threads a block (R <= 64), else for one.
-template <typename... Args>
-void launch_assemble(unsigned blocks, const AsmShape& shape, cudaStream_t s, Args... args) {
+template <typename T, typename... Args>
+void launch_assemble(unsigned blocks, const AsmShape& shape, cudaStream_t s, const T* Y,
+                     Args... args) {
   if (shape.threads <= ASM_SMALL_THREADS)
-    assemble_kernel<ASM_SMALL_THREADS, 3><<<blocks, shape.threads, shape.smem_bytes, s>>>(args...);
+    assemble_kernel<T, ASM_SMALL_THREADS, 3>
+        <<<blocks, shape.threads, shape.smem_bytes, s>>>(Y, args...);
   else
-    assemble_kernel<ASM_MAX_THREADS, 1><<<blocks, shape.threads, shape.smem_bytes, s>>>(args...);
+    assemble_kernel<T, ASM_MAX_THREADS, 1>
+        <<<blocks, shape.threads, shape.smem_bytes, s>>>(Y, args...);
 }
 
 // assemble_large_rank_kernel: the assembly above pio_assemble_max_rank.
@@ -467,9 +509,10 @@ void launch_assemble(unsigned blocks, const AsmShape& shape, cudaStream_t s, Arg
 // summed in fp32 FMAs as in assemble_kernel (w * y_i first, then the FMA
 // with y_j). The tile's upper entries are written with gram added, and
 // mirrored into the lower triangle. Simple and correct first: every tile
-// block re-reads the row's slots.
+// block re-reads the row's slots. Y fp32 or bf16 (load_factor).
+template <typename T>
 __global__ void __launch_bounds__(LR_THREADS)
-assemble_large_rank_kernel(const float* __restrict__ Y, int M, int R,
+assemble_large_rank_kernel(const T* __restrict__ Y, int M, int R,
                            const int* __restrict__ cols, const float* __restrict__ aw,
                            const float* __restrict__ bw, int L, const float* __restrict__ gram,
                            float* __restrict__ out_A, float* __restrict__ out_b) {
@@ -487,7 +530,8 @@ assemble_large_rank_kernel(const float* __restrict__ Y, int M, int R,
       for (int l = 0; l < L; ++l) {
         const float w = rb[l];
         const int c = rc[l];
-        if (w != 0.f && c >= 0 && c < M) acc = fmaf(w, __ldg(Y + static_cast<long long>(c) * R + e), acc);
+        if (w != 0.f && c >= 0 && c < M)
+          acc = fmaf(w, load_factor(Y + static_cast<long long>(c) * R + e), acc);
       }
       out_b[row * R + e] = acc;
     }
@@ -507,9 +551,9 @@ assemble_large_rank_kernel(const float* __restrict__ Y, int M, int R,
       const float w = l < L ? ra[l] : 0.f;
       const int col = l < L ? rc[l] : -1;
       const bool ok = w != 0.f && col >= 0 && col < M;
-      const float* y = Y + static_cast<long long>(ok ? col : 0) * R;
-      yi[s][cc] = ok && i0 + cc < R ? w * __ldg(y + i0 + cc) : 0.f;
-      yj[s][cc] = ok && j0 + cc < R ? __ldg(y + j0 + cc) : 0.f;
+      const T* y = Y + static_cast<long long>(ok ? col : 0) * R;
+      yi[s][cc] = ok && i0 + cc < R ? w * load_factor(y + i0 + cc) : 0.f;
+      yj[s][cc] = ok && j0 + cc < R ? load_factor(y + j0 + cc) : 0.f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -889,9 +933,12 @@ int pio_als_solve_init(int device) {
   int optin = 0;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const void* kernels[] = {reinterpret_cast<const void*>(assemble_kernel<ASM_SMALL_THREADS, 3>),
-                           reinterpret_cast<const void*>(assemble_kernel<ASM_MAX_THREADS, 1>),
-                           reinterpret_cast<const void*>(spd_solve_warp_kernel<true>)};
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(assemble_kernel<float, ASM_SMALL_THREADS, 3>),
+      reinterpret_cast<const void*>(assemble_kernel<float, ASM_MAX_THREADS, 1>),
+      reinterpret_cast<const void*>(assemble_kernel<uint16_t, ASM_SMALL_THREADS, 3>),
+      reinterpret_cast<const void*>(assemble_kernel<uint16_t, ASM_MAX_THREADS, 1>),
+      reinterpret_cast<const void*>(spd_solve_warp_kernel<true>)};
   for (const void* k : kernels) {
     err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -901,23 +948,16 @@ int pio_als_solve_init(int device) {
   return 0;
 }
 
-// A [B, R, R] and b [B, R] from Y [M, R], cols / aw / bw [B, L] and gram
-// [R, R]; all fp32 except cols (int32), contiguous, on `device`, which
-// pio_als_solve_init has set up. The host's plan (assembly_plan in
-// ops/als_cuda.py) gives `span` (a multiple of 64), the most slots one
-// block sums for a row, and `n_spans`: with more than one, each row is
-// n_spans blocks of `span` slots (the last holds the rest), each writing
-// a partial to `partial` ([B, n_spans, R * R + R] fp32), which
-// assemble_reduce_kernel adds to gram in span order. With `grouped` (one
-// span) a block sums several rows, one per slot group. R at most
-// pio_assemble_max_rank(device). Launches on `stream`; returns
-// cudaGetLastError(). ev_start / ev_end, when not null, are CUDA events
-// recorded on `stream` around the kernels (no synchronisation here).
-int pio_assemble_normal_equations(int device, const float* Y, int M, int R, const int* cols,
-                                  const float* aw, const float* bw, int B, int L, int span,
-                                  int n_spans, int grouped, const float* gram, float* A,
-                                  float* b, float* partial, void* stream, void* ev_start,
-                                  void* ev_end) {
+}  // extern "C"
+
+namespace {
+
+// pio_assemble_normal_equations for a factor store of type T.
+template <typename T>
+int assemble_entry(int device, const T* Y, int M, int R, const int* cols, const float* aw,
+                   const float* bw, int B, int L, int span, int n_spans, int grouped,
+                   const float* gram, float* A, float* b, float* partial, void* stream,
+                   void* ev_start, void* ev_end) {
   if (B <= 0 || R <= 0 || L < 0 || M <= 0 || span <= 0 || span % ASM_CHUNK != 0 ||
       n_spans < 1 || static_cast<long long>(n_spans) * span < L ||
       (n_spans > 1 && (static_cast<long long>(n_spans - 1) * span >= L || partial == nullptr ||
@@ -958,14 +998,11 @@ int pio_assemble_normal_equations(int device, const float* Y, int M, int R, cons
   return launched(ev_end, s);
 }
 
-// A [B, R, R] and b [B, R] as pio_assemble_normal_equations computes them,
-// at any rank (the route above pio_assemble_max_rank): one
-// assemble_large_rank_kernel block per (row, upper 32 x 32 tile of A) and
-// one per row for b. Launches on `stream`; returns cudaGetLastError().
-// ev_start / ev_end as in pio_assemble_normal_equations.
-int pio_assemble_large_rank(int device, const float* Y, int M, int R, const int* cols,
-                            const float* aw, const float* bw, int B, int L, const float* gram,
-                            float* A, float* b, void* stream, void* ev_start, void* ev_end) {
+// pio_assemble_large_rank for a factor store of type T.
+template <typename T>
+int assemble_large_rank_entry(int device, const T* Y, int M, int R, const int* cols,
+                              const float* aw, const float* bw, int B, int L, const float* gram,
+                              float* A, float* b, void* stream, void* ev_start, void* ev_end) {
   const long long rt = (R + LR_TILE - 1) / LR_TILE;
   if (B <= 0 || R <= 0 || L < 0 || M <= 0 || rt * (rt + 1) / 2 + 1 > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -975,8 +1012,58 @@ int pio_assemble_large_rank(int device, const float* Y, int M, int R, const int*
   err = record_event(ev_start, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(B), static_cast<unsigned>(rt * (rt + 1) / 2 + 1));
-  assemble_large_rank_kernel<<<grid, LR_THREADS, 0, s>>>(Y, M, R, cols, aw, bw, L, gram, A, b);
+  assemble_large_rank_kernel<T><<<grid, LR_THREADS, 0, s>>>(Y, M, R, cols, aw, bw, L, gram, A, b);
   return launched(ev_end, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// A [B, R, R] and b [B, R] from Y [M, R], cols / aw / bw [B, L] and gram
+// [R, R]; Y fp32 (y_dtype 0) or bf16 (y_dtype 1), the rest fp32 except
+// cols (int32), contiguous, on `device`, which pio_als_solve_init has set
+// up. The host's plan (assembly_plan in ops/als_cuda.py) gives `span` (a
+// multiple of 64), the most slots one block sums for a row, and
+// `n_spans`: with more than one, each row is n_spans blocks of `span`
+// slots (the last holds the rest), each writing a partial to `partial`
+// ([B, n_spans, R * R + R] fp32), which assemble_reduce_kernel adds to
+// gram in span order. With `grouped` (one span) a block sums several rows,
+// one per slot group. R at most pio_assemble_max_rank(device), for either
+// factor type. Launches on `stream`; returns cudaGetLastError(). ev_start
+// / ev_end, when not null, are CUDA events recorded on `stream` around
+// the kernels (no synchronisation here).
+int pio_assemble_normal_equations(int device, const void* Y, int y_dtype, int M, int R,
+                                  const int* cols, const float* aw, const float* bw, int B, int L,
+                                  int span, int n_spans, int grouped, const float* gram, float* A,
+                                  float* b, float* partial, void* stream, void* ev_start,
+                                  void* ev_end) {
+  if (y_dtype == 0)
+    return assemble_entry(device, static_cast<const float*>(Y), M, R, cols, aw, bw, B, L, span,
+                          n_spans, grouped, gram, A, b, partial, stream, ev_start, ev_end);
+  if (y_dtype == 1)
+    return assemble_entry(device, static_cast<const uint16_t*>(Y), M, R, cols, aw, bw, B, L,
+                          span, n_spans, grouped, gram, A, b, partial, stream, ev_start, ev_end);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A [B, R, R] and b [B, R] as pio_assemble_normal_equations computes them,
+// at any rank (the route above pio_assemble_max_rank): one
+// assemble_large_rank_kernel block per (row, upper 32 x 32 tile of A) and
+// one per row for b. Y fp32 (y_dtype 0) or bf16 (1). Launches on
+// `stream`; returns cudaGetLastError(). ev_start / ev_end as in
+// pio_assemble_normal_equations.
+int pio_assemble_large_rank(int device, const void* Y, int y_dtype, int M, int R,
+                            const int* cols, const float* aw, const float* bw, int B, int L,
+                            const float* gram, float* A, float* b, void* stream, void* ev_start,
+                            void* ev_end) {
+  if (y_dtype == 0)
+    return assemble_large_rank_entry(device, static_cast<const float*>(Y), M, R, cols, aw, bw,
+                                     B, L, gram, A, b, stream, ev_start, ev_end);
+  if (y_dtype == 1)
+    return assemble_large_rank_entry(device, static_cast<const uint16_t*>(Y), M, R, cols, aw,
+                                     bw, B, L, gram, A, b, stream, ev_start, ev_end);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // x [B, R] solving A x = b for A [B, R, R] (symmetric positive definite;

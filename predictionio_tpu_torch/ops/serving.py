@@ -905,12 +905,24 @@ class DeviceTopK:
         per-row scales. Built per access, never cached: an fp32 copy kept
         beside a bf16 or int8 store would hold more device memory than
         the narrow store saves, and fold-in reads it once a fold."""
+        return self.item_factors_as(torch.float32)
+
+    def item_factors_as(self, dtype: torch.dtype) -> torch.Tensor:
+        """:attr:`item_factors` in ``dtype`` (fp32 or bf16, the fold's
+        training precision): a dense store of that dtype hands over its
+        first ``n_items`` rows as they are (a view, no copy: a bf16 fold
+        against a bf16 store reads the served rows directly); any other
+        store is cast through fp32."""
         with self._store_lock:
             Y = self._Y
         n = self.n_items
         if is_quantized(Y):
-            return dequantize_rows(QuantFactors(Y.data[:n], Y.scale[:n]))
-        return Y[:n].float().contiguous()
+            Yn = dequantize_rows(QuantFactors(Y.data[:n], Y.scale[:n]))
+        else:
+            Yn = Y[:n]
+        if Yn.dtype != dtype:
+            Yn = Yn.float().to(dtype)
+        return Yn.contiguous()
 
     @property
     def user_capacity(self) -> int:

@@ -27,8 +27,10 @@ def train_als_auto(user_side, item_side, params: ALSParams,
     """Train on uniform :class:`~predictionio_tpu_torch.ops.als.
     PaddedRatings` or length-bucketed :class:`~predictionio_tpu_torch.
     ops.als.BucketedRatings` sides (the preparator's choice) on one
-    device (None = cuda). A sequence of several devices raises: the
-    sharded trainers are not ported yet."""
+    device (None = cuda), under the trainers' precision policy and
+    checkpoint lane (``params.precision`` / ``PIO_ALS_PRECISION``,
+    ``PIO_CHECKPOINT_*``, resolved by the trainer per call). A sequence
+    of several devices raises: the sharded trainers are not ported yet."""
     if isinstance(device, (list, tuple)):
         if len(device) > 1:
             raise NotImplementedError(

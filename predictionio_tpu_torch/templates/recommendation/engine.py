@@ -516,10 +516,24 @@ class ALSAlgorithm(P2LAlgorithm):
 
     def train(self, ctx: Any, pd: PreparedData) -> ALSModel:
         from predictionio_tpu_torch.parallel.als_sharding import train_als_auto
+        from predictionio_tpu_torch.workflow import runlog
+        from predictionio_tpu_torch.workflow.checkpoint import (
+            bimap_fingerprint_scope,
+        )
 
         # a ComputeContext names the device; ctx=None means cuda
         dev = resolve_device(getattr(ctx, "device", None))
-        X, Y = train_als_auto(pd.user_side, pd.item_side, self.params, dev)
+        # the entity maps join the checkpoint fingerprint (two stores of
+        # the same shapes but other entities never resume each other's
+        # checkpoints; a no-op while checkpointing is off), and the run
+        # context stamps the run log's header for `pio runs list`
+        with bimap_fingerprint_scope(pd.user_map, pd.item_map), \
+                runlog.run_context_scope(
+                    template="recommendation",
+                    nUsers=pd.user_side.n_rows,
+                    nItems=pd.user_side.n_cols):
+            X, Y = train_als_auto(pd.user_side, pd.item_side, self.params,
+                                  dev)
         return ALSModel(X, Y, pd.user_map, pd.item_map, pd.seen,
                         item_categories=pd.item_categories, device=str(dev))
 

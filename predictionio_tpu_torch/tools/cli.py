@@ -9,8 +9,8 @@ The port's copy of ``predictionio_tpu/tools/cli.py``: the same verbs
 and options, and ``--device`` (default ``cuda``) on ``train`` and
 ``deploy``. The verbs whose modules are not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item: ``eval``,
-``batchpredict``, ``adminserver`` and ``dashboard`` (A7), ``runs`` (A5),
-``top`` (A2.3) and ``status --fleet`` (A2.4).
+``batchpredict``, ``adminserver`` and ``dashboard`` (A7), ``top``
+(A2.3) and ``status --fleet`` (A2.4).
 """
 
 from __future__ import annotations
@@ -459,6 +459,8 @@ def build_parser() -> argparse.ArgumentParser:
     _add_trace_source(trt)
     tr.set_defaults(func=trace_commands.dispatch)
 
+    from predictionio_tpu_torch.tools import runs_command
+
     rn = sub.add_parser(
         "runs",
         help="training run histories: list recorded runs, render one "
@@ -484,7 +486,7 @@ def build_parser() -> argparse.ArgumentParser:
     rnc.add_argument("run_a")
     rnc.add_argument("run_b")
     _add_runs_dir(rnc)
-    rn.set_defaults(func=_unported("runs", "A5, the run log"))
+    rn.set_defaults(func=runs_command.dispatch)
 
     top = sub.add_parser(
         "top",

@@ -8,9 +8,11 @@ GPU raises, and the CPU runs only when asked for).
 Engine location: a directory with an ``engine.json`` variant whose
 ``engineFactory`` names a ``module:callable``.
 
-The port's copy of ``predictionio_tpu/tools/run_commands.py``. Options
-whose modules are not ported yet raise and name their ROADMAP item:
-``--precision bf16`` and the checkpoint options (A5), the distributed
+The port's copy of ``predictionio_tpu/tools/run_commands.py``. ``train``
+takes the training options: ``--precision bf16`` and crash-safe
+checkpointed training (``--checkpoint-dir/-every/-keep``, ``--resume``;
+SIGTERM/SIGINT drain at the next chunk boundary). Options whose modules
+are not ported yet raise and name their ROADMAP item: the distributed
 options (A6), ``--fleet`` above 1 (A2.4) and ``--feedback`` (A7);
 ``eval``, ``batchpredict``, ``adminserver`` and ``dashboard`` raise in
 :mod:`predictionio_tpu_torch.tools.cli`. ``deploy --foldin on`` runs
@@ -98,17 +100,6 @@ def _apply_tracing_flags(args) -> None:
 
 def _refuse_unported_train_options(args) -> None:
     """Raise for the training options whose modules are not ported."""
-    if getattr(args, "precision", None) == "bf16":
-        raise NotImplementedError(
-            "--precision bf16: the bf16 training precision is not ported "
-            "yet (ROADMAP A5, the training options); train in fp32")
-    if any(getattr(args, name, None) not in (None, False) for name in
-           ("checkpoint_every", "checkpoint_dir", "checkpoint_keep",
-            "resume")):
-        raise NotImplementedError(
-            "checkpointed training (--checkpoint-every/-dir/-keep, "
-            "--resume) is not ported yet (ROADMAP A5, the training "
-            "options)")
     hosts = getattr(args, "num_hosts", None) \
         or int(os.environ.get("PIO_NUM_HOSTS", "1") or 1)
     if hosts > 1 or getattr(args, "coordinator", None) \
@@ -117,6 +108,94 @@ def _refuse_unported_train_options(args) -> None:
             "training across several hosts (--num-hosts, --coordinator, "
             "--process-id) is not ported yet (ROADMAP A6, the sharded "
             "store and trainers)")
+
+
+def _apply_precision_flag(args) -> None:
+    """--precision -> $PIO_ALS_PRECISION, which the trainers resolve per
+    call (it overrides the variant's ``precision``)."""
+    precision = getattr(args, "precision", None)
+    if precision:
+        os.environ["PIO_ALS_PRECISION"] = precision
+
+
+def _apply_checkpoint_flags(args) -> None:
+    """--checkpoint-every/-dir/-keep + --resume -> the PIO_CHECKPOINT_*
+    env vars the per-call resolver (workflow/checkpoint.py) reads. When
+    a chunk cadence is set here (or in the env, or by --resume),
+    SIGTERM/SIGINT become graceful preemption: finish the in-flight
+    chunk, write a final checkpoint, exit 0."""
+    every = getattr(args, "checkpoint_every", None)
+    if every is not None and every < 1:
+        raise SystemExit("--checkpoint-every must be >= 1")
+    keep = getattr(args, "checkpoint_keep", None)
+    if keep is not None and keep < 1:
+        raise SystemExit("--checkpoint-keep must be >= 1")
+    cdir = getattr(args, "checkpoint_dir", None)
+    resume = bool(getattr(args, "resume", False))
+    active_dir = (cdir or os.environ.get("PIO_CHECKPOINT_DIR", "")).strip()
+    if (every is not None or resume) and not active_dir:
+        raise SystemExit(
+            "--checkpoint-every/--resume require --checkpoint-dir "
+            "(or $PIO_CHECKPOINT_DIR)")
+    # validated: only now touch the env, so a refused invocation leaves
+    # no knob set behind it
+    if every is not None:
+        os.environ["PIO_CHECKPOINT_EVERY"] = str(every)
+    if cdir:
+        os.environ["PIO_CHECKPOINT_DIR"] = cdir
+    if keep is not None:
+        os.environ["PIO_CHECKPOINT_KEEP"] = str(keep)
+    if resume:
+        os.environ["PIO_RESUME"] = "1"
+    # the drain handlers only when a chunk boundary will honor the stop
+    # flag: a directory alone runs one chunk, and a swallowed SIGTERM
+    # that promises a checkpoint it will not write is worse than the
+    # default kill
+    if active_dir and (
+            every is not None or resume
+            or os.environ.get("PIO_CHECKPOINT_EVERY", "").strip()):
+        from predictionio_tpu_torch.workflow import checkpoint
+
+        checkpoint.clear_stop()
+        checkpoint.install_signal_handlers()
+
+
+def _train_progress_scope():
+    """The `pio train` live meter: each chunk's telemetry sample as one
+    ``\\r``-rewritten progress line on stderr. On when stderr is a TTY,
+    forced on/off with $PIO_TRAIN_PROGRESS; a nullcontext under
+    PIO_TRAIN_TELEMETRY=0 (no samples would arrive)."""
+    import contextlib
+
+    from predictionio_tpu_torch.workflow import checkpoint, runlog
+
+    forced = os.environ.get("PIO_TRAIN_PROGRESS", "").strip().lower()
+    if forced in ("0", "false", "no", "off") \
+            or not runlog.telemetry_enabled() \
+            or not (forced in ("1", "true", "yes", "on")
+                    or sys.stderr.isatty()):
+        return contextlib.nullcontext()
+
+    state = {"width": 0}
+
+    def render(p):
+        total = int(p.get("total") or 0)
+        step = int(p.get("step") or 0)
+        bar_w = 24
+        fill = min(bar_w, int(bar_w * step / total)) if total else 0
+        loss = p.get("loss")
+        msg = (f"[{'#' * fill}{'-' * (bar_w - fill)}] "
+               f"iter {step}/{total} "
+               f"loss {'-' if loss is None else f'{loss:.6g}'} "
+               f"({float(p.get('wallSeconds') or 0):.2f}s/chunk)")
+        sys.stderr.write("\r" + msg.ljust(state["width"]))
+        state["width"] = len(msg)
+        if total and step >= total:
+            sys.stderr.write("\n")
+            state["width"] = 0
+        sys.stderr.flush()
+
+    return checkpoint.progress_scope(render)
 
 
 def cmd_train(args) -> int:
@@ -140,6 +219,8 @@ def cmd_train(args) -> int:
     _refuse_unported_train_options(args)
     ctx = ComputeContext(device=resolve_device(args.device))
     _apply_tracing_flags(args)
+    _apply_precision_flag(args)
+    _apply_checkpoint_flags(args)
     try:
         variant = _load_variant(args.engine_variant)
         config = _workflow_config(args, variant)
@@ -149,7 +230,8 @@ def cmd_train(args) -> int:
         with profile_trace(profile_dir), \
                 trace_scope("pio.train",
                             attributes={"variant": args.engine_variant},
-                            slow_exempt=True):
+                            slow_exempt=True), \
+                _train_progress_scope():
             instance_id = create_workflow(config, variant=variant, ctx=ctx)
     except TrainingInterruption as e:
         print(f"[INFO] Training interrupted: {e}")

@@ -11,6 +11,9 @@ that online fold-in uses:
   (a stale fold-in tail) marks it, and the server stamps ``degraded:
   true`` and ``degradedReasons`` on the response instead of failing it.
 
+- the retry classes ``SAFE`` / ``AMBIGUOUS`` an injected fault
+  (:mod:`~predictionio_tpu_torch.utils.faults`) carries.
+
 ``RetryPolicy``, the circuit breaker and the storage breaker's shell
 come with the networked backends (ROADMAP A2.4 / A2.5).
 """
@@ -24,6 +27,11 @@ import os
 from typing import List, Optional
 
 logger = logging.getLogger("pio.torch.resilience")
+
+# The retry class of a failure (``pio_retry_class``): SAFE, the request
+# provably never executed; AMBIGUOUS, it may or may not have.
+SAFE = "safe"
+AMBIGUOUS = "ambiguous"
 
 
 def _env_float(name: str, default: float) -> float:

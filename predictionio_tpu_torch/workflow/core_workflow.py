@@ -128,8 +128,10 @@ def run_train(engine: Engine, engine_params: EngineParams,
     """Train, store the models and mark the instance ``COMPLETED``.
 
     Returns the instance id, or None when a stop-after flag interrupted
-    training. Any other failure marks the instance ``FAILED`` and
-    raises. ``ctx`` names the device (None = cuda)."""
+    training. A preemption of checkpointed training marks the instance
+    ``INTERRUPTED`` and raises (``TrainingPreempted``); any other failure
+    marks it ``FAILED`` and raises. ``ctx`` names the device (None =
+    cuda)."""
     if _multi_process():
         raise NotImplementedError(
             "run_train across several processes is not ported yet "
@@ -151,6 +153,13 @@ def run_train(engine: Engine, engine_params: EngineParams,
         logger.info("Training completed: engine instance %s", instance_id)
         return instance_id
     except TrainingInterruption as e:
+        if getattr(e, "resumable", False):
+            # a preemption (workflow/checkpoint.py): a final checkpoint
+            # is on disk; the instance is marked terminal and the
+            # interruption propagates, so the CLI says where to resume
+            engine_instances.update(dataclasses.replace(
+                instance, status="INTERRUPTED", end_time=_now()))
+            raise
         logger.info("Training interrupted by %r.", e)
         return None
     except Exception:

@@ -1,0 +1,311 @@
+"""Append-only training run history: one JSONL file per run.
+
+The port's copy of ``predictionio_tpu/workflow/runlog.py``, the same
+file format (a directory written by either package reads in the other).
+The training-side complement of the serving plane's flight recorder:
+every checkpoint chunk appends one sample — step, wall/device seconds,
+the on-device objective decomposition (fit/L2), the device-memory
+watermark and the checkpoint blob size — under ``<checkpoint_dir>/runs/<run_id>.jsonl``.
+The run id is pinned in the checkpoint manifest (``extra.runId``), so
+``pio train --resume`` appends to the SAME history instead of starting
+a new curve, and ``pio runs list|show|compare`` renders the files
+offline long after the process is gone.
+
+Durability follows the jsonlfs torn-tail discipline: appends are
+line-buffered + fsynced, a kill mid-append leaves at most one torn
+trailing line, and the resume path repairs the file — the torn fragment
+is dropped, as are samples beyond the resumed step (a crash after an
+append but before the matching checkpoint landed would otherwise leave
+a phantom future sample), so the step sequence stays monotone across
+any number of preemptions.
+
+``PIO_TRAIN_TELEMETRY=0`` is the plane-wide kill switch: no objective
+program, no run log, no metrics/spans — training byte-identical either
+way (telemetry is a pure observer; the purity suite gates this).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import datetime as _dt
+import glob
+import json
+import logging
+import os
+import uuid
+from typing import Any, Dict, List, Optional
+
+from predictionio_tpu_torch.data.storage.localfs import atomic_write_bytes
+
+logger = logging.getLogger("pio.torch.runlog")
+
+RUNS_SUBDIR = "runs"
+
+
+def telemetry_enabled() -> bool:
+    """Training-plane telemetry kill switch: default ON,
+    ``PIO_TRAIN_TELEMETRY=0`` disables the whole observer (objective
+    program, run log, metrics, spans, progress) in one move."""
+    return os.environ.get("PIO_TRAIN_TELEMETRY", "").strip().lower() \
+        not in ("0", "false", "no", "off")
+
+
+# run metadata bound by the caller that knows WHAT is training — the
+# templates bind their name + entity-space sizes here so a run-log
+# header says more than "some factors"; plumbed the same way the
+# checkpoint fingerprint_scope carries BiMap digests
+_run_context: contextvars.ContextVar[Dict[str, Any]] = \
+    contextvars.ContextVar("pio_train_run_context", default={})
+
+
+@contextlib.contextmanager
+def run_context_scope(**context: Any):
+    """Bind JSON-able run metadata (template name, entity counts, …)
+    into the header of any run log opened inside the scope."""
+    merged = dict(_run_context.get())
+    merged.update(context)
+    token = _run_context.set(merged)
+    try:
+        yield
+    finally:
+        _run_context.reset(token)
+
+
+def current_run_context() -> Dict[str, Any]:
+    return dict(_run_context.get())
+
+
+def new_run_id() -> str:
+    """Sortable-by-start-time, collision-proof run id."""
+    stamp = _dt.datetime.now(tz=_dt.timezone.utc).strftime("%Y%m%dT%H%M%SZ")
+    return f"run-{stamp}-{uuid.uuid4().hex[:8]}"
+
+
+def runs_dir(checkpoint_dir: str) -> str:
+    return os.path.join(checkpoint_dir, RUNS_SUBDIR)
+
+
+def run_path(checkpoint_dir: str, run_id: str) -> str:
+    return os.path.join(runs_dir(checkpoint_dir), f"{run_id}.jsonl")
+
+
+def hbm_bytes_in_use(device=None) -> Optional[int]:
+    """The device-memory bytes torch holds allocated on ``device`` (a
+    ``torch.device``; the watermark each sample records), or None off a
+    CUDA device (the CPU has no such counter)."""
+    if device is None or getattr(device, "type", None) != "cuda":
+        return None
+    import torch
+
+    return int(torch.cuda.memory_allocated(device))
+
+
+def _parse_line(raw: bytes) -> Optional[dict]:
+    """One JSONL line -> dict, or None for torn/garbage fragments (the
+    jsonlfs reader rule: unparsable lines are skipped, never fatal)."""
+    try:
+        entry = json.loads(raw.decode("utf-8"))
+    except (ValueError, UnicodeDecodeError):
+        return None
+    return entry if isinstance(entry, dict) else None
+
+
+class RunLog:
+    """One training run's append-only sample stream."""
+
+    def __init__(self, path: str, run_id: str):
+        self.path = path
+        self.run_id = run_id
+        self._file = None
+        self._broken = False
+
+    # -- lifecycle -------------------------------------------------------
+
+    @classmethod
+    def open(cls, checkpoint_dir: str, run_id: Optional[str] = None, *,
+             resume_step: Optional[int] = None,
+             header: Optional[dict] = None) -> "RunLog":
+        """Open (or create) the run log for ``run_id``.
+
+        A fresh run (``run_id=None`` or no file yet) writes the header
+        line. An existing file is repaired first: the torn trailing
+        fragment a kill-mid-append leaves is dropped, and — when
+        ``resume_step`` is given — samples beyond it too (they belong
+        to chunks whose checkpoint never committed), keeping the step
+        sequence monotone. The repair is an atomic rewrite."""
+        fresh = run_id is None
+        run_id = run_id or new_run_id()
+        d = runs_dir(checkpoint_dir)
+        os.makedirs(d, exist_ok=True)
+        path = run_path(checkpoint_dir, run_id)
+        rl = cls(path, run_id)
+        if not fresh and os.path.exists(path):
+            rl._repair(resume_step)
+        else:
+            head = {"type": "header", "runId": run_id,
+                    "createdAt": _dt.datetime.now(
+                        tz=_dt.timezone.utc).isoformat()}
+            context = current_run_context()
+            if context:
+                head["context"] = context
+            if header:
+                head.update(header)
+            atomic_write_bytes(
+                path, json.dumps(head, sort_keys=True).encode("utf-8")
+                + b"\n")
+        return rl
+
+    def _repair(self, resume_step: Optional[int]) -> None:
+        """Drop the torn tail + any samples past ``resume_step`` and
+        rewrite atomically (resume appends continue the same file)."""
+        try:
+            with open(self.path, "rb") as f:
+                raw = f.read()
+        except OSError:
+            return
+        kept: List[bytes] = []
+        dropped_torn = dropped_future = 0
+        lines = raw.split(b"\n")
+        # a file not ending in \n has a torn final fragment; a file
+        # ending in \n yields one empty trailing element — drop both
+        for i, line in enumerate(lines):
+            if not line.strip():
+                continue
+            entry = _parse_line(line)
+            if entry is None:
+                dropped_torn += 1
+                continue
+            step = entry.get("step")
+            if resume_step is not None and entry.get("type") == "sample" \
+                    and isinstance(step, (int, float)) \
+                    and int(step) > int(resume_step):
+                dropped_future += 1
+                continue
+            kept.append(line)
+        if dropped_torn or dropped_future:
+            logger.warning(
+                "run log %s: repaired on resume (%d torn line(s), %d "
+                "sample(s) past the resumed step %s dropped)",
+                os.path.basename(self.path), dropped_torn,
+                dropped_future, resume_step)
+        if dropped_torn or dropped_future or not raw.endswith(b"\n"):
+            atomic_write_bytes(self.path, b"\n".join(kept) + b"\n"
+                               if kept else b"")
+
+    def close(self) -> None:
+        if self._file is not None:
+            try:
+                self._file.close()
+            except OSError:  # pragma: no cover
+                pass
+            self._file = None
+
+    # -- write path ------------------------------------------------------
+
+    def append(self, sample: dict) -> None:
+        """Append one sample line (fsynced — a later kill tears at most
+        the NEXT line). Never raises into the training loop: telemetry
+        is an observer, a full disk must not abort the run."""
+        if self._broken:
+            return
+        entry = {"type": "sample", "runId": self.run_id}
+        entry.update(sample)
+        try:
+            if self._file is None:
+                self._file = open(self.path, "ab")
+            self._file.write(
+                json.dumps(entry, sort_keys=True).encode("utf-8") + b"\n")
+            self._file.flush()
+            os.fsync(self._file.fileno())
+        except OSError as e:
+            self._broken = True
+            logger.warning("run log %s: append failed (%s); further "
+                           "samples for this run are dropped",
+                           self.path, e)
+
+
+# ---------------------------------------------------------------------------
+# read path (the `pio runs` CLI + tests)
+# ---------------------------------------------------------------------------
+
+def read_run(path: str) -> Dict[str, Any]:
+    """Parse one run-log file: ``{"runId", "header", "samples"}`` with
+    torn/garbage lines skipped (the reader half of the torn-tail
+    discipline) and samples sorted by step."""
+    header: Dict[str, Any] = {}
+    samples: List[dict] = []
+    run_id = os.path.basename(path)
+    if run_id.endswith(".jsonl"):
+        run_id = run_id[:-6]
+    with open(path, "rb") as f:
+        for line in f.read().split(b"\n"):
+            if not line.strip():
+                continue
+            entry = _parse_line(line)
+            if entry is None:
+                continue
+            if entry.get("type") == "header":
+                header = entry
+                run_id = str(entry.get("runId", run_id))
+            elif entry.get("type") == "sample":
+                samples.append(entry)
+    samples.sort(key=lambda s: (int(s.get("step", 0))))
+    return {"runId": run_id, "header": header, "samples": samples}
+
+
+def _loss_total(sample: dict) -> Optional[float]:
+    """The scalar loss a curve plots for one sample: ``loss.total`` on
+    serial runs; the min alive total on grid runs (vectors with None
+    holes for dead configs)."""
+    loss = sample.get("loss")
+    if not isinstance(loss, dict):
+        return None
+    total = loss.get("total")
+    if isinstance(total, (int, float)):
+        return float(total)
+    if isinstance(total, list):
+        vals = [float(v) for v in total if isinstance(v, (int, float))]
+        return min(vals) if vals else None
+    return None
+
+
+def list_runs(directory: str) -> List[Dict[str, Any]]:
+    """Summaries of every run log under ``directory`` (a checkpoint dir
+    or its ``runs/`` subdir directly), newest-updated first."""
+    d = directory
+    if os.path.isdir(os.path.join(d, RUNS_SUBDIR)):
+        d = os.path.join(d, RUNS_SUBDIR)
+    out = []
+    for path in glob.glob(os.path.join(d, "*.jsonl")):
+        try:
+            run = read_run(path)
+        except OSError:
+            continue
+        samples = run["samples"]
+        last = samples[-1] if samples else {}
+        out.append({
+            "runId": run["runId"],
+            "path": path,
+            "samples": len(samples),
+            "lastStep": int(last.get("step", 0)) if samples else None,
+            "totalIterations": last.get("totalIterations")
+            or run["header"].get("totalIterations"),
+            "lastLoss": _loss_total(last) if samples else None,
+            "context": run["header"].get("context") or {},
+            "updatedAt": os.path.getmtime(path),
+        })
+    out.sort(key=lambda r: r["updatedAt"], reverse=True)
+    return out
+
+
+def find_run(directory: str, run_id: str) -> Optional[str]:
+    """Resolve a (possibly abbreviated) run id to its file path."""
+    d = directory
+    if os.path.isdir(os.path.join(d, RUNS_SUBDIR)):
+        d = os.path.join(d, RUNS_SUBDIR)
+    exact = os.path.join(d, f"{run_id}.jsonl")
+    if os.path.exists(exact):
+        return exact
+    matches = sorted(glob.glob(os.path.join(d, f"{run_id}*.jsonl")))
+    return matches[0] if len(matches) == 1 else None

@@ -32,8 +32,6 @@ Tolerances, and why:
   above pass through three rounds of solves.
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 import scipy.linalg
@@ -388,19 +386,6 @@ class TestNotImplemented:
     def sides(self):
         rows, cols, vals, n_u, n_i = ratings(17, n=200)
         return tals.bucket_ratings_pair(rows, cols, vals, n_u, n_i)
-
-    @pytest.mark.parametrize("change,env", [
-        ({"precision": "bf16"}, {}),
-        ({}, {"PIO_ALS_PRECISION": "bfloat16"}),
-        ({"checkpoint_every": 2}, {}),
-        ({}, {"PIO_CHECKPOINT_EVERY": "2"}),
-    ])
-    def test_unported_parameters_raise(self, monkeypatch, sides, change, env):
-        for k, v in env.items():
-            monkeypatch.setenv(k, v)
-        params = dataclasses.replace(tals.ALSParams(rank=4), **change)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_als_auto(*sides, params, CPU)
 
     def test_unknown_precision_raises(self, sides):
         with pytest.raises(ValueError, match="precision"):

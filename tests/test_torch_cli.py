@@ -317,14 +317,9 @@ UNPORTED = [
     (["batchpredict", "--smoke"], "A7"),
     (["adminserver"], "A7"),
     (["dashboard"], "A7"),
-    (["runs", "list"], "A5"),
     (["top", "--once"], "A2.3"),
     (["status", "--fleet", "http://127.0.0.1:1"], "A2.4"),
     (["template", "get", "sequentialrec", "d"], "A7"),
-    (["train", "--device", "cpu", "--precision", "bf16"], "A5"),
-    (["train", "--device", "cpu", "--checkpoint-every", "2",
-      "--checkpoint-dir", "c"], "A5"),
-    (["train", "--device", "cpu", "--resume"], "A5"),
     (["train", "--device", "cpu", "--num-hosts", "2"], "A6"),
     (["train", "--device", "cpu", "--coordinator", "h:1"], "A6"),
     (["deploy", "--device", "cpu", "--fleet", "2"], "A2.4"),

@@ -185,18 +185,6 @@ class TestFoldInUsers:
                                  [v for _, v in sets], tp)
         near(got, X[touched], 1e-5)
 
-    def test_bf16_training_precision_raises(self, monkeypatch):
-        Y = np.ones((4, 2), np.float32)
-        _, tp = params_pair(rank=2, precision="bf16")
-        with pytest.raises(NotImplementedError, match="A5"):
-            tals.fold_in_users(Y, [np.array([1])], [np.ones(1, np.float32)],
-                               tp, device="cpu")
-        monkeypatch.setenv("PIO_ALS_PRECISION", "bf16")
-        _, tp = params_pair(rank=2)
-        with pytest.raises(NotImplementedError, match="PIO_ALS_PRECISION"):
-            tals.fold_in_users(Y, [np.array([1])], [np.ones(1, np.float32)],
-                               tp, device="cpu")
-
     def test_records_a_foldin_dispatch_and_span(self):
         rng = np.random.default_rng(2)
         Y = rng.normal(size=(20, 4)).astype(np.float32)

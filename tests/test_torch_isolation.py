@@ -2,8 +2,10 @@
 ``chip_smoke.py``) imports ``jax`` or anything of ``predictionio_tpu``,
 and the training and query paths, from a data source in memory, from
 the event store through a stored engine instance (and a fold-in of a
-new user into it), and from a ``jsonlfs`` store through the pipelined
-read, import, train and serve in a process where both are unimportable, as does the console's quick start (``pio app
+new user into it, and a bf16 checkpointed training read back by ``pio
+runs list``), and from a ``jsonlfs`` store through the pipelined read,
+import, train and serve in a process where both are unimportable, as
+does the console's quick start (``pio app
 new``, ``import``, the event server, ``template get``, ``train``,
 ``export``). ``chip_smoke.py`` refuses to run without a GPU."""
 
@@ -133,7 +135,25 @@ consumer._cycle()
 assert consumer.stats()["newUsers"] == 1, consumer.stats()
 out = to_jsonable(serve_query(dep, {"user": "fresh", "num": 2}))
 assert len(out["itemScores"]) == 2, out
-import tempfile
+import contextlib, io, os, tempfile
+from predictionio_tpu_torch.tools import cli
+with tempfile.TemporaryDirectory() as ckpt_dir:
+    os.environ.update(PIO_CHECKPOINT_DIR=ckpt_dir, PIO_CHECKPOINT_EVERY="1")
+    iid = create_workflow(
+        WorkflowConfig(engine_factory="predictionio_tpu_torch.templates."
+                                      "recommendation.engine:engine_factory"),
+        {"datasource": {"params": {"appName": "app"}},
+         "preparator": {"params": {"bucketed": True}},
+         "algorithms": [{"name": "als", "params": {
+             "rank": 3, "numIterations": 2, "precision": "bf16"}}]},
+        ctx=ComputeContext(device="cpu"))
+    assert sorted(f for f in os.listdir(ckpt_dir) if f.endswith(".json")) \
+        == ["ckpt-00000001.json", "ckpt-00000002.json"]
+    listing = io.StringIO()
+    with contextlib.redirect_stdout(listing):
+        assert cli.main(["runs", "list", "--dir", ckpt_dir]) == 0
+    assert "2/2" in listing.getvalue(), listing.getvalue()
+    del os.environ["PIO_CHECKPOINT_DIR"], os.environ["PIO_CHECKPOINT_EVERY"]
 with tempfile.TemporaryDirectory() as events_dir:
     storage.reset(storage.StorageConfig(
         {"J": {"type": "jsonlfs", "path": events_dir, "part_max_events": 25},
@@ -166,7 +186,7 @@ with tempfile.TemporaryDirectory() as events_dir:
     storage.reset()
 assert not any(m == "jax" or m.startswith(("jax.", "predictionio_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
-print("served", len(names), "modules; trained four times")
+print("served", len(names), "modules; trained five times")
 """
 
 

@@ -211,11 +211,25 @@ class TestEngineParams:
         assert dataclasses.asdict(gp) == dataclasses.asdict(wp)
 
     def test_train_is_not_ported_yet(self):
-        """Training is ported; the parts of it this slice leaves out
-        (here the bf16 precision) raise naming their ROADMAP item."""
+        """The template's training takes the training options: under the
+        bf16 precision it trains host fp32 factors equal to the trainer's
+        on the same tables, and an unknown precision raises naming its
+        source."""
+        from predictionio_tpu_torch.parallel.als_sharding import (
+            train_als_auto,
+        )
+
         td = teng.TrainingData([teng.Rating("u0", "i0", 4.0),
-                                teng.Rating("u1", "i1", 2.0)])
+                                teng.Rating("u1", "i1", 2.0),
+                                teng.Rating("u1", "i0", 3.0)])
         pd = teng.RatingsPreparator().prepare(None, td)
-        algo = teng.ALSAlgorithm(ALSParams(rank=2, precision="bf16"))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        params = ALSParams(rank=2, seed=1, precision="bf16")
+        model = teng.ALSAlgorithm(params).train(ComputeContext(device="cpu"),
+                                                pd)
+        X, Y = train_als_auto(pd.user_side, pd.item_side, params, "cpu")
+        assert model.user_factors.dtype == np.float32
+        np.testing.assert_array_equal(model.user_factors, X)
+        np.testing.assert_array_equal(model.item_factors, Y)
+        algo = teng.ALSAlgorithm(ALSParams(rank=2, precision="fp16"))
+        with pytest.raises(ValueError, match="ALSParams.precision"):
             algo.train(ComputeContext(device="cpu"), pd)
