@@ -94,6 +94,32 @@ Phases (any failure raises and the script exits non-zero):
    one run with steps 1-3 and their fit / l2; each save's blob MB and
    ms, and the median wall with checkpoints over without (printed beside
    the JAX package's 3% gate, not asserted).
+5d. The tuning grid at ML-20M width on phase 5's ratings, from memory
+   (no second read): each user's last rating in stream order held out,
+   as ``pio eval --grid`` splits them, the rest bucketed and staged once;
+   8 configs (rank 32 / 64 x lambda 0.01 / 0.1 x alpha 1 / 40) and a
+   ninth with alpha = 1e38, 10 iterations, implicit, fp32, through
+   ``train_als_grid_bucketed`` (every assembly launch on B3's config-axis
+   route, one a bucket for all configs; B2 over ``k * B`` systems), and
+   the leaderboard of 4,096 held-out users through ``grid_topk`` (B1, one
+   launch per config per 512 users). Checks: (a) the alive mask is 8 x
+   True then False, the dead lane all zeros, every factor finite; (b)
+   each config against its serial ``train_als_bucketed`` run from the
+   same init: bitwise at rank 64, within 1e-4 / 1e-5 at rank 32, pad
+   columns exactly zero; (c) B3's grid route at the largest bucket's
+   shape bitwise equal to k single launches (fp32, and a bf16 store,
+   which must also equal the fp32 route on the widened store), within
+   the reordering bound of its plain version, and bitwise plain on an
+   integer fixture; (d) ``grid_topk`` through B1 equal to its plain
+   version wherever the scores are finite, and every config's
+   Precision@10 / NDCG@10 equal to the plain pipeline's; (e) with
+   ``PIO_TUNING_HBM_BUDGET`` forcing 3 sub-batches, the factors bitwise
+   the full grid's and the leaderboard equal. Prints the grid's wall and
+   per-iteration time beside the 8 serial trainings', B3's grid route
+   over one grid iteration against k single launches, plain, the library
+   call and its bound, B1 at ``grid_topk``'s shape, the leaderboard's
+   host time, and the peak device memory against
+   ``grid_bytes_per_config * k`` plus the tables.
 3. Serve the model phase 5 trained: start the port's QueryServer, send
    user, blacklist, category, item-similarity and unknown-user queries,
    some from 8 concurrent clients, and check every answer against the
@@ -214,6 +240,16 @@ Phases (any failure raises and the script exits non-zero):
    checkpoint lands; ``pio train ... --resume`` must give factors bitwise
    equal to an uninterrupted ``pio train --precision bf16``, and ``pio
    runs list`` / ``show`` one run whose steps rise to 3.
+6c. ``pio eval`` through the console at ML-1M, on phase 6b's store: a
+   ``pio-torch eval --grid`` child (rank 32 / 64 x lambda 0.01 / 0.1, 10
+   iterations) exits 0 and writes the leaderboard, whose winner carries
+   full ``engineParams``; a ``pio-torch eval chip_smoke:ml1m_evaluation``
+   child (the template's ``RecommendationEvaluation`` over the app, on a
+   ``FastEvalEngine``) exits 0, writes ``best.json`` and stores an
+   ``EVALCOMPLETED`` evaluation instance, its batch prediction launching
+   B1's batched route; each param set's Precision@10 equals the one
+   scored in this process on the same trained factors with B1 and with
+   its plain version.
 7. Model quality on ``bench_quality.run``'s protocol at its shape
    (943 x 1,682 x 100,000, leave-last-2-out, rank 32, 10 iterations):
    Precision@10 and NDCG@10 of the port's trainer at seeds 3, 17 and
@@ -224,8 +260,10 @@ Phases (any failure raises and the script exits non-zero):
 
 It prints a ``{"kernels": [...]}`` line (the training kernels' ``routes``
 hold the main path's, the large-rank one and ``foldin``, with phase 3b's
-launches, and the assembly's ``tiles_bf16``, with phase 5c's), the
-card's name and power limit, and last ``{"ok": true, "device":
+launches, the config grid's, with phase 5d's, and the assembly's
+``tiles_bf16``, with phase 5c's; the serving kernel's ``eval_routes``
+hold ``grid_topk`` and ``batch_predict``, with phases 5d's and 6c's),
+the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -1604,6 +1642,484 @@ def training_options(dev, trained: dict, seed: int) -> dict:
                 os.environ[k] = v
         shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+# -- phase 5d: the tuning grid at ML-20M width -------------------------------------
+
+# the grid: rank x lambda x alpha, and one config whose alpha overflows
+# the fp32 confidence weights to inf in one half-step (the JAX suite's
+# DEAD_ALPHA), masked out while the others train
+GRID_RANKS, GRID_LAMBDAS, GRID_ALPHAS = (32, 64), (0.01, 0.1), (1.0, 40.0)
+GRID_DEAD_ALPHA = 1e38
+GRID_ITERATIONS = 10
+GRID_TOPK = 10
+GRID_USERS = 4_096      # held-out users ranked for the leaderboard
+GRID_SUB_BATCHES = 3    # PIO_TUNING_HBM_BUDGET forces this many
+# a rank-32 config against its serial run: the JAX suite's grid gate (its
+# Gram is a [64, 64] product with zero pad columns, which cuBLAS may sum
+# in another order than the serial [32, 32] one)
+GRID_RTOL, GRID_ATOL = 1e-4, 1e-5
+
+
+def grid_assembly_inputs(res, side, side_name: str, bucket, dev):
+    """One bucket's config-axis assembly inputs from the grid's factors:
+    ``Y [k, M, R]`` (the fixed side), ``cols``, per-config implicit
+    weights ``aw``/``bw [k, B, L]`` and ``gram [k, R, R]`` (each config's
+    Gram, ``lam I`` and ridge folded in), as the grid half-step builds
+    them."""
+    import torch
+
+    from predictionio_tpu_torch.ops import als as als_mod
+
+    grid = res.grid
+    fixed = res.item_factors if side_name == "user" else res.user_factors
+    Y = torch.from_numpy(fixed).to(dev)
+    lam = torch.tensor([c.lambda_ for c in grid.configs],
+                       dtype=torch.float32, device=dev)
+    alpha = torch.tensor([c.alpha for c in grid.configs],
+                         dtype=torch.float32, device=dev)
+    ridge = torch.as_tensor((np.arange(grid.max_rank)[None, :] >= np.asarray(
+        grid.ranks)[:, None]).astype(np.float32), device=dev)
+    grams = als_mod._grid_grams(Y, lam, True, ridge)
+    cols = torch.as_tensor(bucket.cols, device=dev)
+    m = torch.as_tensor(bucket.mask, device=dev)
+    w = torch.as_tensor(bucket.weights, device=dev) * m
+    aw = (alpha[:, None, None] * w.abs()[None]).contiguous()
+    bw = ((w > 0).float()[None] * (1.0 + aw)).contiguous()
+    return Y, cols, aw, bw, grams
+
+
+def grid_assembly_timings(dev, res, sides) -> dict:
+    """B3's config-axis route over one grid iteration's work (every
+    bucket of both sides, all k configs): its time, k single launches of
+    the serial route on the same inputs, the plain version (a loop of the
+    plain assembly), and the library call, ``torch.bmm`` of the weighted
+    gathered rows batched over configs (in row chunks of at most 2^24
+    config-slots, so the gather fits beside the grid). The bound: the
+    configs' bytes (each config's Y, weights, gram, A and b; the shared
+    cols once) and operations (each config's real slots at R_max). And B2
+    over each bucket's ``k * B`` systems: its time, plain, the library
+    call (``cholesky_ex`` + ``cholesky_solve``) and its bound
+    (``solve_head``)."""
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+
+    rows = []
+    for side_name, side in (("user", sides[0]), ("item", sides[1])):
+        for bucket in side.buckets:
+            Y, cols, aw, bw, grams = grid_assembly_inputs(
+                res, side, side_name, bucket, dev)
+            k, M, R = Y.shape
+            B, L = cols.shape
+            Ys = [Y[z].contiguous() for z in range(k)]
+            aws = [aw[z].contiguous() for z in range(k)]
+            bws = [bw[z].contiguous() for z in range(k)]
+            t_g = time_ms(lambda: als_cuda.assemble_normal_equations_grid(
+                Y, cols, aw, bw, grams), 3)
+            t_s = time_ms(lambda: [als_cuda.assemble_normal_equations(
+                Ys[z], cols, aws[z], bws[z], grams[z]) for z in range(k)], 3)
+            t_p = time_ms(lambda: als_cuda.assemble_normal_equations_grid_plain(
+                Y, cols, aw, bw, grams), 1)
+            step = max(1, (1 << 24) // max(1, k * L))
+
+            def library():
+                for s0 in range(0, B, step):
+                    Yg = Y[:, cols[s0:s0 + step].long()]     # [k, b, L, R]
+                    awYg = (aw[:, s0:s0 + step, :, None] * Yg)
+                    torch.bmm(awYg.reshape(-1, L, R).transpose(1, 2),
+                              Yg.reshape(-1, L, R))
+
+            t_l = time_ms(library, 2)
+            # B2 over the grid's k * B systems of this bucket
+            A, b = als_cuda.assemble_normal_equations_grid(Y, cols, aw, bw,
+                                                           grams)
+            A, b = A.reshape(k * B, R, R), b.reshape(k * B, R)
+            solve = {
+                "ms": time_ms(lambda: als_cuda.spd_solve(A, b), 3),
+                "plain_ms": time_ms(lambda: als_cuda.spd_solve_plain(A, b),
+                                    1),
+                "library_ms": time_ms(lambda: torch.cholesky_solve(
+                    b[:, :, None], torch.linalg.cholesky_ex(A)[0]), 3),
+                "work": solve_work(k * B, R)}
+            del A, b
+            nnz = int(((aw[0] != 0) | (bw[0] != 0)).sum())
+            nbytes = k * M * R * 4 + B * L * 4 + k * B * L * 8 \
+                + k * R * R * 4 + k * B * (R * R + R) * 4
+            ops = k * 2.0 * nnz * (R * (R + 1) / 2 + R)
+            rows.append({"side": side_name, "B": B, "L": L, "slots": nnz,
+                         "work": (nbytes, ops), "ms": t_g,
+                         "single_launches_ms": t_s, "plain_ms": t_p,
+                         "library_ms": t_l, "solve": solve})
+            del Y, cols, aw, bw, grams, Ys, aws, bws
+    nbytes = sum(r["work"][0] for r in rows)
+    ops = sum(r["work"][1] for r in rows)
+    b_ms, b_by = bound_of(nbytes, ops)
+    head = {key: sum(r[key] for r in rows)
+            for key in ("ms", "single_launches_ms", "plain_ms",
+                        "library_ms")}
+    head.update(bound_ms=b_ms, bound_by=b_by,
+                launches_per_iteration=len(rows))
+    s_ms, s_by = bound_of(sum(r["solve"]["work"][0] for r in rows),
+                          sum(r["solve"]["work"][1] for r in rows))
+    solve_head = {key: sum(r["solve"][key] for r in rows)
+                  for key in ("ms", "plain_ms", "library_ms")}
+    solve_head.update(bound_ms=s_ms, bound_by=s_by,
+                      launches_per_iteration=len(rows))
+    return {"rows": rows, "head": head, "solve_head": solve_head}
+
+
+def grid_assembly_checks(dev, res, sides) -> dict:
+    """(c): at the largest bucket's shape (the most slots), B3's grid
+    route on all k configs bitwise equal to k single launches, fp32 and
+    on a bf16 store (which must also equal the fp32 grid route on the
+    widened store); each live config's fp32 sums within the reordering
+    bound of the plain version; and, on an integer fixture at that
+    shape, bitwise equal to plain."""
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+
+    name, side, bucket = max(
+        ((n, s, b) for n, s in (("user", sides[0]), ("item", sides[1]))
+         for b in s.buckets), key=lambda t: t[2].cols.numel())
+    Y, cols, aw, bw, grams = grid_assembly_inputs(res, side, name, bucket,
+                                                  dev)
+    k = Y.shape[0]
+    B, L = cols.shape
+
+    def same(*pairs):
+        # bitwise, NaN equal to NaN (the dead config's inf weights meet
+        # its zero factors)
+        return all(torch.equal(x.isnan(), y.isnan()) and torch.equal(
+            x.nan_to_num(nan=0.0), y.nan_to_num(nan=0.0)) for x, y in pairs)
+
+    worst = 0.0
+    for label, Yk in (("fp32", Y), ("bf16", Y.to(torch.bfloat16))):
+        A, b = als_cuda.assemble_normal_equations_grid(Yk, cols, aw, bw,
+                                                       grams)
+        for z in range(k):
+            As, bs = als_cuda.assemble_normal_equations(
+                Yk[z].contiguous(), cols, aw[z].contiguous(),
+                bw[z].contiguous(), grams[z].contiguous())
+            if not same((A[z], As), (b[z], bs)):
+                raise AssertionError(f"grid assembly {label} config {z}: "
+                                     "not bitwise its single launch")
+            # the bf16 route is bitwise the fp32 one on the widened
+            # store (below), so the plain version's bound is held once
+            if res.alive[z] and label == "fp32":
+                worst = max(worst, check_assembly(
+                    Yk[z].contiguous(), cols, aw[z].contiguous(),
+                    bw[z].contiguous(), grams[z].contiguous(), False,
+                    f"grid {label} config {z}"))
+        if label == "bf16":
+            A32, b32 = als_cuda.assemble_normal_equations_grid(
+                Yk.float(), cols, aw, bw, grams)
+            if not same((A, A32), (b, b32)):
+                raise AssertionError("grid assembly: the bf16 route differs "
+                                     "from the fp32 route on the widened "
+                                     "store")
+        del A, b
+    rng = np.random.default_rng(5)
+    Yi = torch.as_tensor(rng.integers(-3, 4, tuple(Y.shape)).astype(
+        np.float32), device=dev)
+    awi = torch.as_tensor((rng.integers(0, 5, (k, B, L)) * 0.5).astype(
+        np.float32), device=dev) * (aw != 0)
+    bwi = torch.as_tensor((rng.integers(0, 5, (k, B, L)) * 0.5).astype(
+        np.float32), device=dev) * (bw != 0)
+    gi = torch.as_tensor(rng.integers(-4, 5, (k,) + tuple(grams.shape[1:]))
+                         .astype(np.float32), device=dev)
+    A, b = als_cuda.assemble_normal_equations_grid(Yi, cols, awi, bwi, gi)
+    n = max(1, (1 << 22) // max(L, 1))
+    for s0 in range(0, B, n):
+        Ap, bp = als_cuda.assemble_normal_equations_grid_plain(
+            Yi, cols[s0:s0 + n], awi[:, s0:s0 + n], bwi[:, s0:s0 + n], gi)
+        if not (torch.equal(A[:, s0:s0 + n], Ap)
+                and torch.equal(b[:, s0:s0 + n], bp)):
+            raise AssertionError("grid assembly on the integer fixture "
+                                 "differs from plain")
+    return {"side": name, "B": B, "L": L, "k": k, "max_abs_err": worst}
+
+
+def grid_topk_timings(dev, res, users, tr, tc) -> dict:
+    """B1 at ``grid_topk``'s shape: one 512-user chunk (the one with the
+    longest training history, so the widest seen list) of config 0,
+    against its plain version, the library call (``torch.topk`` of the
+    masked product) and its bound (the item table read once, the queries
+    and seen lists read once, the winners written; 2*B*M*R
+    operations)."""
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+
+    order = np.argsort(tr, kind="stable")
+    counts = np.bincount(tr, minlength=res.user_factors.shape[1])
+    chunks = [users[s:s + 512] for s in range(0, len(users), 512)]
+    u = max(chunks, key=lambda c: int(counts[c].max()))
+    B, L = len(u), int(counts[u].max())
+    scols = np.asarray(tc)[order]
+    starts = np.searchsorted(np.asarray(tr)[order], u)
+    sc = np.zeros((L, B), np.int32)
+    sm = np.zeros((L, B), np.float32)
+    for j in range(B):
+        n = int(counts[u[j]])
+        sc[:n, j] = scols[starts[j]:starts[j] + n]
+        sm[:n, j] = 1.0
+    sc, sm = torch.from_numpy(sc).to(dev), torch.from_numpy(sm).to(dev)
+    Q = torch.from_numpy(np.ascontiguousarray(res.user_factors[0][u])).to(dev)
+    Y = torch.from_numpy(np.ascontiguousarray(res.item_factors[0])).to(dev)
+    M, R = Y.shape
+    kw = dict(k=GRID_TOPK, n_items=M, mask_seen=True)
+    t_k = time_ms(lambda: als_cuda.fused_gather_score_topk(Q, Y, sc, sm,
+                                                           **kw), 10)
+    t_p = time_ms(lambda: als_cuda.fused_gather_score_topk_plain(
+        Q, Y, sc, sm, **kw), 3)
+    t_l = time_ms(lambda: torch.topk(als_cuda.masked_scores_plain(
+        Q, Y, sc, sm, n_items=M), GRID_TOPK), 5)
+    nbytes = M * R * 4 + B * R * 4 + L * B * 8 + B * GRID_TOPK * 8
+    b_ms, b_by = bound_of(nbytes, 2.0 * B * M * R)
+    return {"B": B, "k": GRID_TOPK, "L": L, "ms": t_k, "plain_ms": t_p,
+            "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def tuning_grid(dev, trained: dict, ratings: tuple, seed: int,
+                card: str) -> dict:
+    """Phase 5d: the tuning grid at ML-20M width on phase 5's ratings (in
+    memory, no second read): leave-last-out in stream order as ``pio
+    eval --grid`` splits them, the train part bucketed and staged once,
+    then the grid of ``GRID_RANKS x GRID_LAMBDAS x GRID_ALPHAS`` plus a
+    config with ``alpha = GRID_DEAD_ALPHA``, ``GRID_ITERATIONS``
+    iterations, implicit, fp32, through ``train_als_grid_bucketed`` (B3's
+    config-axis route, one launch per bucket for every config; B2 over
+    ``k * B`` systems) and the leaderboard of ``GRID_USERS`` held-out
+    users through ``grid_topk`` (B1). Checks (a)-(e) of the module
+    docstring; times the grid, the serial trainings, B3's grid route and
+    B1 at ``grid_topk``'s shape."""
+    import os
+
+    import torch
+
+    from predictionio_tpu_torch.ops import als as als_mod
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.ops import tuning as ops_tuning
+    from predictionio_tpu_torch.tools.run_commands import leave_last_out_split
+    from predictionio_tpu_torch.workflow import tuning as wf_tuning
+
+    rows, cols, values, order = ratings
+    t = time.perf_counter()
+    tr, tc, tv, held = leave_last_out_split(rows[order], cols[order],
+                                            values[order])
+    us, its = als_mod.bucket_ratings_pair(tr, tc, tv, N_USERS, M_ITEMS)
+    split_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_alloc = torch.cuda.memory_allocated(dev)
+    us, its = us.to_device(dev), its.to_device(dev)
+    table_bytes = sum(a.nbytes for s in (us, its) for b in s.buckets
+                      for a in (b.row_ids, b.cols, b.weights, b.mask))
+    base = als_mod.ALSParams(rank=max(GRID_RANKS),
+                             num_iterations=GRID_ITERATIONS, seed=seed)
+    overrides = [{"rank": r, "lambda": lam, "alpha": a}
+                 for r in GRID_RANKS for lam in GRID_LAMBDAS
+                 for a in GRID_ALPHAS]
+    overrides.append({"rank": max(GRID_RANKS), "alpha": GRID_DEAD_ALPHA})
+    grid = ops_tuning.make_grid(base, overrides)
+    rng = np.random.default_rng(seed + 5)
+    test_users = np.sort(rng.choice(np.asarray(sorted(held)), GRID_USERS,
+                                    replace=False))
+    held_s = {int(u): held[int(u)] for u in test_users}
+    print(f"[grid] {len(tr)} train / {len(held)} held-out ratings "
+          f"(leave-last-out in stream order), split and bucketed in "
+          f"{split_s!r} s; tables {table_bytes / 1e9!r} GB on the card; "
+          f"{grid.k} configs x {GRID_ITERATIONS} iterations")
+
+    # the main path: the grid's training and its leaderboard, counted
+    for counter in (als_cuda.assemble_launches, als_cuda.spd_launches,
+                    als_cuda.launches):
+        counter.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = ops_tuning.train_als_grid_bucketed(us, its, grid)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(dev) - base_alloc
+    t = time.perf_counter()
+    board = ops_tuning.grid_leaderboard(res, tr, tc, held_s,
+                                        topk=GRID_TOPK)
+    board_s = time.perf_counter() - t
+    launches = {"assemble": als_cuda.assemble_launches.by_key(),
+                "spd_solve": als_cuda.spd_launches.value,
+                "topk": als_cuda.launches.by_key()}
+    n_buckets = len(us.buckets) + len(its.buckets)
+    tiles_grid = launches["assemble"].get(("tiles_grid", "fp32"), 0)
+    if tiles_grid != GRID_ITERATIONS * n_buckets \
+            or set(launches["assemble"]) != {("tiles_grid", "fp32")}:
+        raise AssertionError(f"the grid's assembly launches "
+                             f"{launches['assemble']}, want "
+                             f"{GRID_ITERATIONS * n_buckets} on tiles_grid")
+    if launches["spd_solve"] != GRID_ITERATIONS * n_buckets:
+        raise AssertionError(f"the grid's solves {launches['spd_solve']}")
+    b1 = sum(launches["topk"].values())
+    if b1 != grid.k * -(-GRID_USERS // 512):
+        raise AssertionError(f"grid_topk launched B1 {launches['topk']}")
+    per_config = wf_tuning.grid_bytes_per_config(N_USERS, M_ITEMS, grid, us,
+                                                 its)
+    # (a) the alive mask, the dead lane, finiteness
+    want_alive = [True] * (grid.k - 1) + [False]
+    if res.alive.tolist() != want_alive:
+        raise AssertionError(f"alive {res.alive.tolist()}")
+    if res.user_factors[-1].any() or res.item_factors[-1].any():
+        raise AssertionError("the dead lane is not all zeros")
+    if not (np.isfinite(res.user_factors).all()
+            and np.isfinite(res.item_factors).all()):
+        raise AssertionError("non-finite grid factors")
+    print(f"[grid] trained in {grid_s!r} s ({1e3 * grid_s / GRID_ITERATIONS!r}"
+          f" ms an iteration, the init and host copies included); alive "
+          f"{res.alive.tolist()}; launches B3 {launches['assemble']} "
+          f"({n_buckets} buckets an iteration), B2 {launches['spd_solve']}, "
+          f"B1 {launches['topk']}; leaderboard of {len(held_s)} users in "
+          f"{board_s!r} s on the host; peak memory {peak / 1e9!r} GB against "
+          f"{per_config * grid.k / 1e9!r} GB (grid_bytes_per_config x k) + "
+          f"{table_bytes / 1e9!r} GB of tables ({card})")
+
+    # (b) each config against its serial run from the same init
+    dists, serial_s = [], 0.0
+    for i, cfg in enumerate(grid.configs[:-1]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        Xs, Ys = als_mod.train_als_bucketed(us, its, cfg)
+        serial_s += time.perf_counter() - t
+        Xg, Yg = res.factors_for(i)
+        d = max(float(np.abs(Xg - Xs).max()), float(np.abs(Yg - Ys).max()))
+        dists.append(d)
+        if res.user_factors[i][:, cfg.rank:].any() \
+                or res.item_factors[i][:, cfg.rank:].any():
+            raise AssertionError(f"config {i}: pad columns not zero")
+        if cfg.rank == max(GRID_RANKS):
+            if not (np.array_equal(Xg, Xs) and np.array_equal(Yg, Ys)):
+                raise AssertionError(f"config {i} (rank {cfg.rank}) is not "
+                                     f"bitwise its serial run: {d}")
+        else:
+            for got, want in ((Xg, Xs), (Yg, Ys)):
+                np.testing.assert_allclose(got, want, rtol=GRID_RTOL,
+                                           atol=GRID_ATOL)
+    print(f"[grid] each config against its serial train_als_bucketed run "
+          f"from the same init, largest |difference|: {dists} (rank "
+          f"{max(GRID_RANKS)} bitwise, rank {min(GRID_RANKS)} within "
+          f"{GRID_RTOL}/{GRID_ATOL}); the {grid.k - 1} serial trainings "
+          f"{serial_s!r} s, the grid {grid_s!r} s ({card})")
+
+    # (c) B3's grid route against plain and single launches
+    checked = grid_assembly_checks(dev, res, (us, its))
+    print(f"[grid] B3 config-axis route at the largest bucket ({checked}): "
+          f"bitwise k single launches (fp32 and a bf16 store), within the "
+          f"reordering bound of plain, bitwise plain on an integer fixture")
+
+    # (d) grid_topk through B1 against plain; the metrics against plain
+    users = np.asarray(sorted(held_s))
+    idx, vals = ops_tuning.grid_topk(res, users, tr, tc, GRID_TOPK,
+                                     with_scores=True)
+    pidx, pvals = ops_tuning.grid_topk_plain(res, users, tr, tc, GRID_TOPK,
+                                             with_scores=True)
+    fin = np.isfinite(pvals)
+    if not (np.array_equal(np.isfinite(vals), fin)
+            and np.array_equal(idx[fin], pidx[fin])):
+        raise AssertionError("grid_topk through B1 differs from plain")
+    plain_board = ops_tuning.grid_leaderboard(
+        res, tr, tc, held_s, topk=GRID_TOPK,
+        topk_fn=ops_tuning.grid_topk_plain)
+    for got, want in zip(board["rows"], plain_board["rows"]):
+        if (got["config"], got["precisionAtK"], got["ndcgAtK"]) != (
+                want["config"], want["precisionAtK"], want["ndcgAtK"]):
+            raise AssertionError(f"leaderboard row {got} differs from the "
+                                 f"plain pipeline's {want}")
+    print(f"[grid] grid_topk: B1 equals plain on {len(users)} users x "
+          f"{grid.k} configs where the scores are finite; leaderboard "
+          f"(precision@{GRID_TOPK}, ndcg) equal to plain's: "
+          + ", ".join(f"{r['config']}:{r['params']} {r['precisionAtK']!r}/"
+                      f"{r['ndcgAtK']!r}" for r in board["rows"]))
+
+    # (e) sub-batches forced through the memory budget
+    budget = per_config * (-(-grid.k // GRID_SUB_BATCHES))
+    prior = os.environ.get("PIO_TUNING_HBM_BUDGET")
+    os.environ["PIO_TUNING_HBM_BUDGET"] = str(budget)
+    try:
+        batches = wf_tuning.plan_grid_batches(grid, N_USERS, M_ITEMS, us,
+                                              its)
+        if len(batches) != GRID_SUB_BATCHES:
+            raise AssertionError(f"the budget gave batches {batches}")
+        for batch in batches:
+            sub = ops_tuning.train_als_grid_bucketed(us, its,
+                                                     grid.subset(batch))
+            for j, i in enumerate(batch):
+                if not (np.array_equal(sub.user_factors[j],
+                                       res.user_factors[i])
+                        and np.array_equal(sub.item_factors[j],
+                                           res.item_factors[i])
+                        and sub.alive[j] == res.alive[i]):
+                    raise AssertionError(f"sub-batch {batch}: config {i} "
+                                         "differs from the full grid")
+        split = wf_tuning.run_grid(us, its, grid, train_rows=tr,
+                                   train_cols=tc, held=held_s,
+                                   topk=GRID_TOPK, warmup=False)
+    finally:
+        if prior is None:
+            os.environ.pop("PIO_TUNING_HBM_BUDGET", None)
+        else:
+            os.environ["PIO_TUNING_HBM_BUDGET"] = prior
+    if split["batches"] != [len(b) for b in batches] \
+            or split["rows"] != board["rows"] \
+            or split["winner"]["config"] != board["winner"]["config"]:
+        raise AssertionError(f"the sub-batched leaderboard differs: "
+                             f"{split['batches']}")
+    print(f"[grid] {GRID_SUB_BATCHES} sub-batches {split['batches']} under "
+          f"PIO_TUNING_HBM_BUDGET={budget}: factors bitwise the full grid's, "
+          f"leaderboard equal; winner config {board['winner']['config']} "
+          f"{board['winner']['params']}")
+
+    asm = grid_assembly_timings(dev, res, (us, its))
+    h = asm["head"]
+    print(f"[time] B3 config-axis route over one grid iteration (k="
+          f"{grid.k}, R_max={grid.max_rank}, {h['launches_per_iteration']} "
+          f"launches): {h['ms']!r} ms; k single launches "
+          f"{h['single_launches_ms']!r} ms; plain {h['plain_ms']!r} ms; "
+          f"library (bmm over configs) {h['library_ms']!r} ms; bound "
+          f"{h['bound_ms']!r} ms ({h['bound_by']}) ({card})")
+    sh = asm["solve_head"]
+    print(f"[time] B2 over the grid's k * B systems (one grid iteration, "
+          f"{sh['launches_per_iteration']} launches): {sh['ms']!r} ms; plain "
+          f"{sh['plain_ms']!r} ms; library {sh['library_ms']!r} ms; bound "
+          f"{sh['bound_ms']!r} ms ({sh['bound_by']}) ({card})")
+    topk_t = grid_topk_timings(dev, res, users, tr, tc)
+    print(f"[time] B1 at grid_topk's shape {topk_t} ({card})")
+    # one grid iteration under the profiler: where its time goes beside B3
+    (_, _, lam, alpha, ridge, u_t, i_t), kw = als_mod._grid_call_args(
+        us, its, grid.configs, "fp32", dev, num_iterations=1)
+    X0, Y0 = ops_tuning.init_grid_factors(N_USERS, M_ITEMS, grid, "fp32",
+                                          dev)
+
+    def one_iteration():
+        als_mod._als_iterations_grid(X0, Y0, lam, alpha, ridge, u_t, i_t,
+                                     **kw)
+
+    one_iteration()
+    wall, busy, _, kernel_ms = device_busy(one_iteration)
+    profiled = {"wall_ms": wall, "busy_ms": busy,
+                "kernel_ms": dict(kernel_ms.most_common(8))}
+    print(f"[grid] one grid iteration profiled: wall {wall!r} ms, device "
+          f"busy {busy!r} ms ({100 * busy / wall:.2f}%); device ms by kernel "
+          f"{profiled['kernel_ms']} ({card})")
+    del us, its, res, X0, Y0, u_t, i_t
+    torch.cuda.empty_cache()
+    return {"launches": {"tiles_grid": tiles_grid,
+                         "spd_solve": launches["spd_solve"], "topk": b1},
+            "grid_s": grid_s, "iteration_ms": 1e3 * grid_s / GRID_ITERATIONS,
+            "serial_s": serial_s, "board_s": board_s, "peak_bytes": peak,
+            "per_config_bytes": per_config, "table_bytes": table_bytes,
+            "distances": dists, "assembly": asm, "topk": topk_t,
+            "checked": checked, "winner": board["winner"],
+            "profiled": profiled}
 
 
 def post(url: str, payload) -> tuple:
@@ -4020,12 +4536,15 @@ def qs_kill_and_resume(work: str, eng: str, env: dict, steps: dict) -> dict:
     return {"run": runs[0]["runId"], "steps": table}
 
 
-def quick_start(seed: int, cycle: dict, card: str) -> dict:
+def quick_start(seed: int, cycle: dict, card: str,
+                keep_store: bool = False) -> dict:
     """Phase 6b: PredictionIO's quick start through the port's console,
     each verb a subprocess, at phase 6's size, events and variant. The
     short verbs run beside the writing of the import file, and ``pio
     export`` (the store takes no more writes after the event server)
-    beside the deployment's checks; every step's seconds are printed."""
+    beside the deployment's checks; every step's seconds are printed.
+    With ``keep_store`` a run that passes leaves its directory and store
+    for phase 6c (``out["kept"]``), which removes them."""
     import os
     import re
     import tempfile
@@ -4222,12 +4741,187 @@ def quick_start(seed: int, cycle: dict, card: str) -> dict:
             "ran beside the ratings draw and JSONL write, and export "
             "beside the deployed queries, profile, undeploy and deploy "
             "exit")
+        if keep_store:
+            out["kept"] = {"work": work, "store": store, "env": env}
         return out
     finally:
         for child in children:
             if child.poll() is None:
                 child.kill()
                 child.wait(timeout=60)
+        storage.reset()
+        if "kept" not in out:
+            shutil.rmtree(work, ignore_errors=True)
+
+
+# -- phase 6c: pio eval through the console at ML-1M ---------------------------------
+
+# the grid the `pio eval --grid` child tunes: rank x lambda, GRID_ITERATIONS
+# iterations, implicit, fp32
+EVAL_GRID_RANKS, EVAL_GRID_LAMBDAS = (32, 64), (0.01, 0.1)
+
+
+def ml1m_evaluation():
+    """The Evaluation phase 6c's ``pio eval`` child loads
+    (``chip_smoke:ml1m_evaluation``): the template's
+    ``RecommendationEvaluation`` over phase 6b's app (its four param sets,
+    Precision@10, ``best.json``), its engine swapped for a
+    ``FastEvalEngine`` of the same classes, so the four param sets share
+    one read of the sqlite store and one prepare."""
+    from predictionio_tpu_torch.controller import FastEvalEngine
+    from predictionio_tpu_torch.templates.recommendation.engine import (
+        RecommendationEvaluation,
+    )
+
+    ev = RecommendationEvaluation(app_name=QS_APP, k=GRID_TOPK)
+    e = ev.engine
+    ev._engine = FastEvalEngine(e.data_source_class_map,
+                                e.preparator_class_map,
+                                e.algorithm_class_map, e.serving_class_map)
+    return ev
+
+
+def eval_scores_in_process(store: str) -> list:
+    """Each param set of :func:`ml1m_evaluation`, trained in this process
+    on the same read and prepare as the child's (the same factors, bit
+    for bit), then scored by Precision@10 twice: with B1 serving the
+    batch (the child's pipeline) and with its plain version in B1's
+    place. Returns ``[(B1 score, plain score), ...]``."""
+    from predictionio_tpu_torch.core.context import ComputeContext
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.ops import serving as serving_mod
+
+    storage.reset(storage.StorageConfig(
+        {"QS": {"type": "sqlite", "path": store}},
+        {r: "QS" for r in storage.REPOSITORIES}))
+    try:
+        ev = ml1m_evaluation()
+        engine, metric = ev.engine, ev.evaluator.metric
+        ctx = ComputeContext()
+        ep0 = ev.engine_params_list[0]
+        ds = engine._make(engine.data_source_class_map,
+                          *ep0.data_source_params, "datasource")
+        prep = engine._make(engine.preparator_class_map,
+                            *ep0.preparator_params, "preparator")
+        [(td, ei, qa)] = ds.read_eval_base(ctx)
+        pd = prep.prepare_base(ctx, td)
+        queries = [(qx, q) for qx, (q, _a) in enumerate(qa)]
+        out = []
+        for ep in ev.engine_params_list:
+            algo = engine._algorithms(ep)[0]
+            model = algo.train_base(ctx, pd)
+            scores = []
+            for fn in (als_cuda.fused_gather_score_topk,
+                       als_cuda.fused_gather_score_topk_plain):
+                serving_mod.fused_gather_score_topk = fn
+                try:
+                    preds = dict(algo.batch_predict_base(ctx, model,
+                                                         queries))
+                finally:
+                    serving_mod.fused_gather_score_topk = \
+                        als_cuda.fused_gather_score_topk
+                scores.append(metric.calculate(ctx, [(ei, [
+                    (q, preds[qx], a) for qx, (q, a) in enumerate(qa)])]))
+            out.append(tuple(scores))
+        return out
+    finally:
+        storage.reset()
+
+
+def console_eval(seed: int, kept: dict, card: str) -> dict:
+    """Phase 6c: ``pio eval`` in both lanes through the console at ML-1M,
+    on phase 6b's store (which it removes after). (1) A ``pio-torch eval
+    --grid`` child (``EVAL_GRID_RANKS x EVAL_GRID_LAMBDAS``,
+    ``GRID_ITERATIONS`` iterations) exits 0 and writes the leaderboard;
+    its winner carries full ``engineParams``; it must launch B3's
+    config-axis route, B2 and B1. (2) A ``pio-torch eval
+    chip_smoke:ml1m_evaluation`` child exits 0, writes ``best.json`` and
+    stores an ``EVALCOMPLETED`` evaluation instance, having launched B1
+    (the batched route: one launch per param set for every held-out
+    user). Each param set's Precision@10 must equal the one scored in
+    this process on the same trained factors by the same pipeline with
+    B1 and with B1's plain version."""
+    import os
+
+    from predictionio_tpu_torch.data import storage
+
+    work, store, env = kept["work"], kept["store"], kept["env"]
+    out: dict = {}
+    try:
+        grid_path = os.path.join(work, "grid.json")
+        with open(grid_path, "w") as f:
+            json.dump({"base": {"rank": max(EVAL_GRID_RANKS),
+                                "numIterations": GRID_ITERATIONS,
+                                "seed": seed},
+                       "configs": [{"rank": r, "lambda": lam}
+                                   for r in EVAL_GRID_RANKS
+                                   for lam in EVAL_GRID_LAMBDAS],
+                       "data": {"appName": QS_APP}}, f)
+        board_path = os.path.join(work, "leaderboard.json")
+        said, grid_s = pio(["eval", "--grid", grid_path, "--grid-out",
+                            board_path, "--topk", str(GRID_TOPK)], env, work)
+        launched = launches_line(said)
+        with open(board_path) as f:
+            board = json.load(f)
+        winner = board["winner"]
+        ep = winner["engineParams"]
+        if len(board["rows"]) != len(EVAL_GRID_RANKS) * len(
+                EVAL_GRID_LAMBDAS) or any(r["diverged"]
+                                          for r in board["rows"]):
+            raise AssertionError(f"leaderboard rows {board['rows']}")
+        if sorted(ep) != ["algorithms", "datasource", "preparator",
+                          "serving"] \
+                or ep["algorithms"][0]["params"]["rank"] \
+                != winner["params"]["rank"] \
+                or ep["datasource"]["params"]["app_name"] != QS_APP:
+            raise AssertionError(f"the winner's engineParams {ep}")
+        if not all(launched.values()):
+            raise AssertionError(f"pio eval --grid launched {launched}")
+        out["grid"] = {"s": grid_s, "launches": launched,
+                       "winner": winner["params"],
+                       "metric": winner["metric"],
+                       "n_test_users": board["nTestUsers"]}
+        print(f"[eval] pio eval --grid: {len(board['rows'])} configs x "
+              f"{GRID_ITERATIONS} iterations in {grid_s!r} s (the process); "
+              f"{board['nTestUsers']} held-out users; winner "
+              f"{winner['params']} precision@{GRID_TOPK} "
+              f"{winner['metric']!r}; launches {launched} ({card})")
+
+        said, eval_s = pio(["eval", f"chip_smoke:ml1m_evaluation"], env,
+                           work)
+        launched = launches_line(said)
+        if not launched["fused_gather_score_topk"] \
+                or not launched["assemble_normal_equations"]:
+            raise AssertionError(f"pio eval launched {launched}")
+        with open(os.path.join(work, "best.json")) as f:
+            best = json.load(f)
+        storage.reset(storage.StorageConfig(
+            {"QS": {"type": "sqlite", "path": store}},
+            {r: "QS" for r in storage.REPOSITORIES}))
+        try:
+            instances = storage.get_metadata_evaluation_instances().get_all()
+        finally:
+            storage.reset()
+        if [i.status for i in instances] != ["EVALCOMPLETED"]:
+            raise AssertionError(f"evaluation instances {instances}")
+        result = json.loads(instances[0].evaluator_results_json)
+        child = [s["score"] for s in result["engineParamsScores"]]
+        mine = eval_scores_in_process(store)
+        if [m[0] for m in mine] != child or [m[1] for m in mine] != child:
+            raise AssertionError(f"Precision@{GRID_TOPK} of the child "
+                                 f"{child}, in process (B1, plain) {mine}")
+        if best["algorithms"] != result["bestEngineParams"]["algorithms"]:
+            raise AssertionError("best.json is not the best params")
+        out["evaluation"] = {"s": eval_s, "launches": launched,
+                             "scores": child, "best_idx": result["bestIdx"]}
+        print(f"[eval] pio eval chip_smoke:ml1m_evaluation in {eval_s!r} s "
+              f"(the process): Precision@{GRID_TOPK} per param set {child} "
+              f"(each equal to this process's on the same factors, with B1 "
+              f"and with plain), best {result['bestIdx']}; best.json and an "
+              f"EVALCOMPLETED instance; launches {launched} ({card})")
+        return out
+    finally:
         storage.reset()
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4480,6 +5174,8 @@ def main() -> int:
                       dev, trained, args.seed)
     options = phase("5c training options", training_options, dev, trained,
                     args.seed)
+    grid = phase("5d tuning grid", tuning_grid, dev, trained,
+                 store["ratings"], args.seed, card)
     served = phase("3 serving", serve_full_width, trained["model"],
                    args.seed)
     folded = phase("3b fold-in", foldin_full_width, dev, trained,
@@ -4489,7 +5185,10 @@ def main() -> int:
     train_times = phase("4b training kernel times", training_timings, dev,
                         trained)
     cycle = phase("6 lifecycle", lifecycle, args.seed)
-    started = phase("6b quick start", quick_start, args.seed, cycle, card)
+    started = phase("6b quick start", quick_start, args.seed, cycle, card,
+                    True)
+    evaluated = phase("6c pio eval", console_eval, args.seed,
+                      started["kept"], card)
     scored = phase("7 quality", quality, dev)
     # the line's headline shape: a full micro-batch (B=256) at the
     # default k bucket (16) on the default GPU store (bf16)
@@ -4513,6 +5212,18 @@ def main() -> int:
                                              "bound_ms", "bound_by")}
                     for r in rows if r["store"] == "bf16"
                     and r["B"] in (1, 256) and r["k"] == M_ITEMS],
+        # the evaluation lanes: grid_topk (phase 5d's leaderboard, timed
+        # at its shape; the launches of 6c's `pio eval --grid` child
+        # beside), and batch_predict in 6c's `pio eval` child
+        "eval_routes": [
+            {"route": "grid_topk", "launches": grid["launches"]["topk"],
+             "console_launches": evaluated["grid"]["launches"][
+                 "fused_gather_score_topk"], **grid["topk"],
+             "shape": f"fp32 store, B={grid['topk']['B']}, "
+                      f"k={GRID_TOPK}, L={grid['topk']['L']}"},
+            {"route": "batch_predict", "console_launches":
+                evaluated["evaluation"]["launches"][
+                    "fused_gather_score_topk"]}],
         "timings": rows}]
     for name, replaces, err, shape, main_route in (
             ("assemble_normal_equations", 141, train_err["assemble"],
@@ -4536,6 +5247,35 @@ def main() -> int:
                        "bound_by")},
                    "shape": "B=256 (200 real rows), L=2,048",
                    "timings": fold_rows_t}]
+        if name == "assemble_normal_equations":
+            # B3's config-axis route: launches from phase 5d's grid
+            # training (and 6c's `pio eval --grid` child beside), its time
+            # over one grid iteration's work (k configs, R_max)
+            g = grid["assembly"]["head"]
+            routes.append({
+                "route": "tiles_grid", "R": RANK, "k": len(GRID_RANKS)
+                * len(GRID_LAMBDAS) * len(GRID_ALPHAS) + 1,
+                "launches": grid["launches"]["tiles_grid"],
+                "console_launches": evaluated["grid"]["launches"][name],
+                **{key: g[key] for key in (
+                    "ms", "single_launches_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "launches_per_iteration")},
+                "max_abs_err": grid["checked"]["max_abs_err"],
+                "shape": "every bucket of both sides (one grid iteration), "
+                         "k=9, R_max=64",
+                "timings": grid["assembly"]["rows"]})
+        else:
+            sh = grid["assembly"]["solve_head"]
+            routes.append({"route": "grid", "R": RANK,
+                           "launches": grid["launches"]["spd_solve"],
+                           "console_launches":
+                               evaluated["grid"]["launches"][name],
+                           **{key: sh[key] for key in (
+                               "ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by", "launches_per_iteration")},
+                           "shape": "k * B systems of every bucket of both "
+                                    "sides (one grid iteration), k=9, "
+                                    "R_max=64"})
         if name == "assemble_normal_equations":
             # B3's bf16 route: launches from phase 5c's bf16 training
             routes.append({
@@ -4561,7 +5301,11 @@ def main() -> int:
           f"{options['bf16']['iteration']['bf16']['wall_ms']!r} ms; "
           f"checkpoint_every=1 wall ratio fp32 "
           f"{options['checkpoint_fp32']['overhead']!r}, bf16 "
-          f"{options['checkpoint_bf16']['overhead']!r}); fold-in event -> "
+          f"{options['checkpoint_bf16']['overhead']!r}); tuning grid "
+          f"{grid['grid_s']!r} s ({grid['iteration_ms']!r} ms an iteration, "
+          f"the serial trainings {grid['serial_s']!r} s); pio eval --grid "
+          f"{evaluated['grid']['s']!r} s, pio eval "
+          f"{evaluated['evaluation']['s']!r} s; fold-in event -> "
           f"servable p50 {folded['servable_p50_s']!r} s p99 "
           f"{folded['servable_p99_s']!r} s over {folded['folds']} folds; "
           f"store write "

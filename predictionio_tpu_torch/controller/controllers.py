@@ -1,11 +1,12 @@
 """Data-source, preparator and serving flavors: the port's copy of
-``PDataSource``, ``PPreparator``, ``IdentityPreparator``, ``LServing``
-and ``LFirstServing`` from ``predictionio_tpu/controller/controllers.py``."""
+``PDataSource``, ``LDataSource``, ``PPreparator``,
+``IdentityPreparator`` (and its ``LIdentityPreparator`` alias),
+``LServing`` and ``LFirstServing`` from ``predictionio_tpu/controller/controllers.py``."""
 
 from __future__ import annotations
 
 import abc
-from typing import Any, Sequence
+from typing import Any, Sequence, Tuple
 
 from predictionio_tpu_torch.core.base import (
     BaseDataSource,
@@ -15,13 +16,38 @@ from predictionio_tpu_torch.core.base import (
 
 
 class PDataSource(BaseDataSource):
-    """Parallel data source: ``read_training(ctx)`` returns TD."""
+    """Parallel data source: ``read_training(ctx)`` returns TD,
+    ``read_eval(ctx)`` the eval sets ``[(TD, EI, [(Q, A), ...]), ...]``
+    (none by default)."""
 
     @abc.abstractmethod
     def read_training(self, ctx: Any) -> Any: ...
 
+    def read_eval(self, ctx: Any
+                  ) -> Sequence[Tuple[Any, Any, Sequence[Tuple[Any, Any]]]]:
+        return []
+
     def read_training_base(self, ctx):
         return self.read_training(ctx)
+
+    def read_eval_base(self, ctx):
+        return self.read_eval(ctx)
+
+
+class LDataSource(BaseDataSource):
+    """Local data source: the reads take no context."""
+
+    @abc.abstractmethod
+    def read_training(self) -> Any: ...
+
+    def read_eval(self) -> Sequence[Tuple[Any, Any, Sequence[Tuple[Any, Any]]]]:
+        return []
+
+    def read_training_base(self, ctx):
+        return self.read_training()
+
+    def read_eval_base(self, ctx):
+        return self.read_eval()
 
 
 class PPreparator(BasePreparator):
@@ -39,6 +65,9 @@ class IdentityPreparator(BasePreparator):
 
     def prepare_base(self, ctx, td):
         return td
+
+
+LIdentityPreparator = IdentityPreparator
 
 
 class LServing(BaseServing):

@@ -1,11 +1,15 @@
-"""Engine, EngineParams and the train dataflow.
+"""Engine, EngineParams and the train and eval dataflows.
 
 The port's copy of ``predictionio_tpu/controller/engine.py``: name ->
 class maps for the four DASE stages, typed params from engine.json
 blocks, the variant -> ``EngineParams`` step, ``Engine.train`` /
 ``train_pipeline`` (read -> prepare -> train each algorithm, with the
 sanity checks and stop-after interruptions; each model in its stored
-form) and ``Engine.prepare_deploy`` (stored forms -> models to serve).
+form), ``Engine.prepare_deploy`` (stored forms -> models to serve), and
+``Engine.eval`` / ``batch_eval`` / ``eval_pipeline`` (each eval set:
+prepare, train, batch-predict, serve; param sets thread-parallel) with
+``expand_engine_params`` (one full EngineParams per swept algorithm
+Params, the tuning grid's rows).
 """
 
 from __future__ import annotations
@@ -58,6 +62,9 @@ class EngineParams:
     algorithm_params_list: Sequence[Tuple[str, Params]] = (("", EmptyParams()),)
     serving_params: Tuple[str, Params] = ("", EmptyParams())
 
+    def replace(self, **kw) -> "EngineParams":
+        return dataclasses.replace(self, **kw)
+
 
 def params_from_dict(params_cls: Optional[type],
                      data: Optional[Mapping[str, Any]],
@@ -106,6 +113,16 @@ def params_to_dict(params: Params) -> Dict[str, Any]:
     if dataclasses.is_dataclass(params):
         return dataclasses.asdict(params)
     return dict(getattr(params, "__dict__", {}))
+
+
+def expand_engine_params(base: EngineParams, algo_name: str,
+                         variants: Sequence[Params]) -> List[EngineParams]:
+    """One full EngineParams per swept algorithm Params: every other
+    stage is ``base``'s, only the named algorithm's params vary. The
+    grid tuner (``pio eval --grid``) pins each leaderboard row, and the
+    winner, to a complete, trainable parameterization this way."""
+    return [base.replace(algorithm_params_list=[(algo_name, p)])
+            for p in variants]
 
 
 def _named_block(block: Any, where: str) -> Tuple[str, Mapping[str, Any]]:
@@ -184,6 +201,35 @@ class Engine:
             for ax, ((name, algo_params), algo, model) in enumerate(
                 zip(engine_params.algorithm_params_list, algorithms,
                     models))]
+
+    def eval(self, ctx: Any, engine_params: EngineParams,
+             params: Optional[WorkflowParams] = None
+             ) -> List[Tuple[Any, List[Tuple[Any, Any, Any]]]]:
+        """The eval dataflow for one param set: ``[(EI, [(Q, P, A),
+        ...]), ...]``, one entry per eval set the data source reads."""
+        data_source, preparator = self._data_source_and_preparator(
+            engine_params)
+        return eval_pipeline(ctx, data_source, preparator,
+                             self._algorithms(engine_params),
+                             self._serving(engine_params))
+
+    def batch_eval(self, ctx: Any, engine_params_list: Sequence[EngineParams],
+                   params: Optional[WorkflowParams] = None
+                   ) -> List[Tuple[EngineParams,
+                                   List[Tuple[Any, List[Tuple[Any, Any, Any]]]]]]:
+        """Evaluate every param set, thread-parallel: param sets are
+        independent full evals, so threads overlap the host work and keep
+        the card's queue fed. ``WorkflowParams.eval_parallelism`` sets
+        the width (1 = serial)."""
+        from predictionio_tpu_torch.utils.concurrency import (
+            eval_workers,
+            parallel_map,
+        )
+
+        wp = params or WorkflowParams()
+        workers = eval_workers(wp.eval_parallelism, len(engine_params_list))
+        return parallel_map(lambda ep: (ep, self.eval(ctx, ep, params)),
+                            engine_params_list, workers)
 
     def prepare_deploy(self, ctx: Any, engine_params: EngineParams,
                        engine_instance_id: str,
@@ -295,5 +341,43 @@ def train_pipeline(ctx: Any, data_source: BaseDataSource,
     return models
 
 
-__all__ = ["Engine", "EngineConfigError", "EngineParams", "params_from_dict",
-           "params_to_dict", "train_pipeline"]
+def eval_pipeline(ctx: Any, data_source: BaseDataSource,
+                  preparator: BasePreparator,
+                  algorithms: Sequence[BaseAlgorithm], serving: Any
+                  ) -> List[Tuple[Any, List[Tuple[Any, Any, Any]]]]:
+    """The eval dataflow (a ``dase.eval`` span): for each eval set,
+    prepare, train every algorithm, supplement the queries,
+    batch-predict per algorithm, regroup per query in algorithm order,
+    and serve with the original (unsupplemented) query, the reference's
+    join."""
+    with _stage_span("eval"):
+        out: List[Tuple[Any, List[Tuple[Any, Any, Any]]]] = []
+        for td, eval_info, qa_pairs in data_source.read_eval_base(ctx):
+            indexed_qas = list(enumerate(qa_pairs))
+            pd = preparator.prepare_base(ctx, td)
+            models = [algo.train_base(ctx, pd) for algo in algorithms]
+            supplemented = [(qx, serving.supplement_base(q))
+                            for qx, (q, _a) in indexed_qas]
+            # per-algorithm predictions keyed by query index
+            predictions: Dict[int, Dict[int, Any]] = {}
+            for ax, (algo, model) in enumerate(zip(algorithms, models)):
+                for qx, p in algo.batch_predict_base(ctx, model,
+                                                     supplemented):
+                    predictions.setdefault(qx, {})[ax] = p
+            qpa: List[Tuple[Any, Any, Any]] = []
+            for qx, (q, a) in indexed_qas:
+                ps_by_ax = predictions.get(qx, {})
+                if len(ps_by_ax) != len(algorithms):
+                    raise RuntimeError(
+                        f"query {qx}: got predictions from "
+                        f"{sorted(ps_by_ax)} but expected all "
+                        f"{len(algorithms)} algorithms")
+                ps = [ps_by_ax[ax] for ax in range(len(algorithms))]
+                qpa.append((q, serving.serve_base(q, ps), a))
+            out.append((eval_info, qpa))
+        return out
+
+
+__all__ = ["Engine", "EngineConfigError", "EngineParams", "eval_pipeline",
+           "expand_engine_params", "params_from_dict", "params_to_dict",
+           "train_pipeline"]

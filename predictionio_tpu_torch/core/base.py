@@ -1,13 +1,12 @@
-"""Base contracts of the DASE pipeline, the subset training and serving
-need.
+"""Base contracts of the DASE pipeline.
 
 The port's copy of ``predictionio_tpu/core/base.py``: ``Params``, the
 workflow controls (``WorkflowParams``, the stop-after interruptions,
 ``run_sanity_check``), the persistence markers (``RETRAIN``,
 ``PersistentModelManifest``), the controller base with its one
-``params`` argument, and the data-source, preparator, algorithm and
-serving bases.
-The evaluator bases come with the slice that ports evaluation.
+``params`` argument, the data-source (training and evaluation reads),
+preparator, algorithm and serving bases, and the evaluator bases
+(``BaseEvaluator``, ``BaseEvaluatorResult``).
 """
 
 from __future__ import annotations
@@ -32,11 +31,16 @@ class EmptyParams(Params):
 class WorkflowParams:
     """Training-process controls: ``stop_after_read`` /
     ``stop_after_prepare`` interrupt the train dataflow after that
-    stage; ``skip_sanity_check`` skips the data and model checks."""
+    stage; ``skip_sanity_check`` skips the data and model checks;
+    ``batch`` is the run's label. ``eval_parallelism`` is the worker threads of a param-set evaluation
+    sweep: 0 picks a CPU-count default (so controllers and metrics must
+    tolerate concurrent param sets), 1 forces a serial sweep."""
 
+    batch: str = ""
     skip_sanity_check: bool = False
     stop_after_read: bool = False
     stop_after_prepare: bool = False
+    eval_parallelism: int = 0
 
 
 class TrainingInterruption(Exception):
@@ -110,11 +114,17 @@ def Doer(clazz: type, params: Optional[Params] = None) -> Any:
 
 
 class BaseDataSource(AbstractDoer, abc.ABC):
-    """Reads the training data."""
+    """Reads the training and the evaluation data."""
 
     @abc.abstractmethod
     def read_training_base(self, ctx: Any) -> Any:
         """Return TD."""
+
+    def read_eval_base(self, ctx: Any
+                       ) -> Sequence[Tuple[Any, Any, Sequence[Tuple[Any, Any]]]]:
+        """Return the eval sets ``[(TD, EI, [(Q, A), ...]), ...]``;
+        default none."""
+        return []
 
 
 class BasePreparator(AbstractDoer, abc.ABC):
@@ -163,3 +173,28 @@ class BaseServing(AbstractDoer, abc.ABC):
 
     @abc.abstractmethod
     def serve_base(self, query: Any, predictions: Sequence[Any]) -> Any: ...
+
+
+class BaseEvaluatorResult:
+    """Evaluation output renderings."""
+
+    #: When True the result is not stored (FakeRun's).
+    no_save: bool = False
+
+    def to_one_liner(self) -> str:
+        return ""
+
+    def to_html(self) -> str:
+        return ""
+
+    def to_json(self) -> str:
+        return ""
+
+
+class BaseEvaluator(AbstractDoer, abc.ABC):
+    """Scores the evaluation output of every param set."""
+
+    @abc.abstractmethod
+    def evaluate_base(self, ctx: Any, evaluation: Any,
+                      engine_eval_data_set: Sequence[Tuple[Any, Any]],
+                      params: WorkflowParams) -> BaseEvaluatorResult: ...

@@ -44,8 +44,13 @@ Implicit objective (Hu-Koren-Volinsky, as in MLlib): confidence
 ``(Y^T Y + Y^T (C - I) Y + lambda I) x = Y^T C p``. Explicit (ALS-WR):
 ``(Y_u^T Y_u + lambda * n_u * I) x = Y_u^T r_u``.
 
-Not in this slice (it raises ``NotImplementedError``): the config
-grid's ``extra_ridge`` (ROADMAP A7, tuning).
+- **The config grid** (``_solve_rows_grid``, ``_solve_side_bucketed_grid``,
+  ``_als_iterations_grid``, ``_grid_call_args``, ``_objective_pack_grid``):
+  ``k`` configurations with a leading config axis on the factors and
+  ``[k]`` ``lam`` / ``alpha`` against one copy of the bucketed tables (JAX
+  ``vmap``s the half-step); each bucket's assembly is one launch for all
+  configs, and rank sweeps ride ``extra_ridge`` (exact-zero pad columns).
+  :mod:`~predictionio_tpu_torch.ops.tuning` trains through them.
 """
 
 from __future__ import annotations
@@ -573,7 +578,13 @@ def _solve_rows(Y: torch.Tensor, cols: torch.Tensor, weights: torch.Tensor,
     assembly's Gram term is zero and ``lam * max(n_b, 1)`` joins the
     diagonal after it, ``n_b`` counted over the real slots.
     ``refine`` adds one refinement pass ``x += solve(A, b - A x)``.
-    ``events``, a list (CUDA only), gains one pair of
+    ``extra_ridge``, an optional ``[R]`` diagonal addition, is the config
+    grid's rank padding (JAX's): a config of rank ``r < R`` carries zero
+    factor columns past ``r``, which zero those rows and columns of ``A``
+    and ``b``; a positive ridge on their diagonal makes them solve to
+    exact zeros and leaves the leading ``r`` coordinates untouched. It
+    joins the Gram term's diagonal (after ``lam * I``), so a zero ridge
+    changes no bit. ``events``, a list (CUDA only), gains one pair of
     ``torch.cuda.Event(enable_timing=True)`` per kernel launch (the
     assembly, each solve), recorded inside the launch around its
     kernels: the sum of their elapsed times is the kernels' device time
@@ -591,10 +602,6 @@ def _solve_rows(Y: torch.Tensor, cols: torch.Tensor, weights: torch.Tensor,
     The counterpart of both JAX ``_solve_rows`` and ``solve_side_pallas``:
     the port has one solver, the ``spd_solve`` kernel, so JAX's solver
     dispatch ``_spd_solve`` has no counterpart of its own."""
-    if extra_ridge is not None:
-        raise NotImplementedError(
-            "extra_ridge (the config grid's rank padding) is not ported yet "
-            "(ROADMAP A7, tuning: the config grid)")
     R = Y.shape[1]
     f32 = torch.float32
     mask = mask.to(f32)
@@ -608,6 +615,10 @@ def _solve_rows(Y: torch.Tensor, cols: torch.Tensor, weights: torch.Tensor,
     else:
         aw, bw, gram = mask, w, torch.zeros_like(eye)
         n_b = mask.sum(dim=1)
+    if extra_ridge is not None:
+        gram = gram.clone()
+        gram.diagonal().add_(torch.as_tensor(extra_ridge, dtype=f32,
+                                             device=Y.device))
     if Y.dtype == torch.bfloat16:
         aw, bw = _round_bf16(aw), _round_bf16(bw)
 
@@ -706,6 +717,153 @@ def als_iterations_bucketed(X, Y, u_buckets, i_buckets, *, lam: float,
     return X, Y
 
 
+# -- the config grid (several configurations in one program) -----------------
+
+def _grid_grams(Y: torch.Tensor, lam: torch.Tensor, implicit: bool,
+                ridge: Optional[torch.Tensor]) -> torch.Tensor:
+    """``[k, R, R]`` fp32 Gram terms of ``k`` configs' factors ``Y [k, M,
+    R]``: implicit, each config's ``_gram(Y[z]) + lam[z] * I`` (the same
+    ``_gram`` call per config as the serial half-step, not one batched
+    product, so cuBLAS sums each in the serial order); explicit, zeros.
+    ``ridge [k, R]`` joins the diagonal (:func:`_solve_rows`'s
+    ``extra_ridge``)."""
+    k, _, R = Y.shape
+    f32 = torch.float32
+    if implicit:
+        eye = torch.eye(R, dtype=f32, device=Y.device)
+        grams = torch.stack([_gram(Y[z]) for z in range(k)]) \
+            + lam[:, None, None] * eye
+    else:
+        grams = torch.zeros((k, R, R), dtype=f32, device=Y.device)
+    if ridge is not None:
+        grams.diagonal(dim1=1, dim2=2).add_(ridge)
+    return grams
+
+
+def _solve_rows_grid(Y: torch.Tensor, cols: torch.Tensor,
+                     weights: torch.Tensor, mask: torch.Tensor,
+                     lam: torch.Tensor, alpha: torch.Tensor, implicit: bool,
+                     grams: torch.Tensor, refine: bool = False
+                     ) -> torch.Tensor:
+    """:func:`_solve_rows` for ``k`` configs at once: ``Y [k, M, R]``,
+    ``lam``/``alpha [k]`` fp32, ``grams`` from :func:`_grid_grams`, the
+    tables ``[B, L]`` shared; returns ``[k, B, R]`` in ``Y``'s dtype.
+    The assembly is one launch for all configs
+    (``als_cuda.assemble_normal_equations_grid``), the solve one launch
+    over the ``[k * B, R, R]`` systems; each config's weights, sums and
+    solve take the serial half-step's operations in its order, so a
+    config equals its serial run bit for bit."""
+    k, _, R = Y.shape
+    B = cols.shape[0]
+    f32 = torch.float32
+    mask = mask.to(f32)
+    w = weights.to(f32) * mask                # zero out padded slots
+    if implicit:
+        aw = alpha[:, None, None] * torch.abs(w)[None]
+        bw = (w > 0).to(f32)[None] * (1.0 + aw)
+    else:
+        aw = mask[None].expand(k, -1, -1).contiguous()
+        bw = w[None].expand(k, -1, -1).contiguous()
+        n_b = mask.sum(dim=1)
+    if Y.dtype == torch.bfloat16:
+        aw, bw = _round_bf16(aw), _round_bf16(bw)
+    A, b = als_cuda.assemble_normal_equations_grid(Y, cols, aw, bw, grams)
+    if not implicit:
+        A.diagonal(dim1=2, dim2=3).add_(
+            (lam[:, None] * n_b.clamp(min=1.0)[None])[:, :, None])
+    A, b = A.reshape(k * B, R, R), b.reshape(k * B, R)
+    X = als_cuda.spd_solve(A, b)
+    if refine:
+        X = X + als_cuda.spd_solve(A, b - torch.einsum("brs,bs->br", A, X))
+    return X.reshape(k, B, R).to(Y.dtype) \
+        * (mask.sum(dim=1) > 0).to(Y.dtype)[None, :, None]
+
+
+def _solve_side_bucketed_grid(Y: torch.Tensor, buckets, n_rows_out: int,
+                              lam: torch.Tensor, alpha: torch.Tensor,
+                              implicit: bool, slot_budget: Optional[int],
+                              ridge: Optional[torch.Tensor] = None,
+                              refine: bool = False) -> torch.Tensor:
+    """:func:`_solve_side_bucketed` for ``k`` configs at once: ``Y [k, M,
+    R]`` in, ``[k, n_rows_out, R]`` out (contiguous), the bucket tables
+    shared with no config axis."""
+    k, _, R = Y.shape
+    grams = _grid_grams(Y, lam, implicit, ridge)
+    X = torch.zeros((k, n_rows_out + 1, R), dtype=Y.dtype, device=Y.device)
+    for row_ids, cols, w, m in buckets:
+        B, L = cols.shape
+        step = B
+        if slot_budget and B * L > slot_budget:
+            step = max(8, (slot_budget // L) // 8 * 8)
+        Xb = torch.cat([
+            _solve_rows_grid(Y, cols[s:s + step], w[s:s + step],
+                             m[s:s + step], lam, alpha, implicit, grams,
+                             refine)
+            for s in range(0, B, step)], dim=1)
+        X[:, row_ids.long()] = Xb
+    return X[:, :n_rows_out].contiguous()
+
+
+def _als_iterations_grid(X, Y, lam, alpha, ridge, u_buckets, i_buckets, *,
+                         implicit: bool, num_iterations: int,
+                         slot_budget: Optional[int] = None,
+                         refine: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The config grid's training loop (JAX ``_als_iterations_grid_impl``,
+    its ``vmap`` over the config axis): ``X [k, N, R]`` / ``Y [k, M, R]``
+    hold one factor set per config, ``lam``/``alpha [k]`` and ``ridge [k,
+    R]`` (1.0 on each config's rank-padded columns) are fp32 tensors, and
+    the bucket tables are shared. Each half-step assembles every config
+    in one launch per bucket and solves all their systems in one."""
+    n_u, n_i = X.shape[1], Y.shape[1]
+    for _ in range(int(num_iterations)):
+        X = _solve_side_bucketed_grid(Y, u_buckets, n_u, lam, alpha,
+                                      implicit, slot_budget, ridge, refine)
+        Y = _solve_side_bucketed_grid(X, i_buckets, n_i, lam, alpha,
+                                      implicit, slot_budget, ridge, refine)
+    return X, Y
+
+
+def _grid_call_args(user_side: BucketedRatings, item_side: BucketedRatings,
+                    configs, precision: str, device: DeviceLike = None,
+                    num_iterations: Optional[int] = None,
+                    r_max: Optional[int] = None):
+    """The ``(args, kw)`` the grid's trainer passes to
+    :func:`_als_iterations_grid` (JAX ``_grid_call_args``): ``args`` is
+    ``(None, None, lam, alpha, ridge, user tables, item tables)`` on
+    ``device`` (None = cuda; the caller inits the factors), ``kw`` the
+    shared statics from ``configs[0]``. ``r_max`` is the factor width
+    (default the largest rank). ``precision`` is resolved by the caller
+    (the port has no compiled signature it must match)."""
+    dev = resolve_device(device)
+    base = configs[0]
+    r_max = max([int(c.rank) for c in configs] + [int(r_max or 0)])
+    f32 = torch.float32
+    lam = torch.tensor([float(c.lambda_) for c in configs], dtype=f32,
+                       device=dev)
+    alpha = torch.tensor([float(c.alpha) for c in configs], dtype=f32,
+                         device=dev)
+    # 1.0 exactly on rank-padded columns, 0.0 on real ones
+    ridge = torch.as_tensor(
+        (np.arange(r_max)[None, :]
+         >= np.asarray([int(c.rank) for c in configs])[:, None]
+         ).astype(np.float32), device=dev)
+
+    def tables(side):
+        return [(b.row_ids, b.cols, b.weights, b.mask)
+                for b in side.to_device(dev).buckets]
+
+    args = (None, None, lam, alpha, ridge, tables(user_side),
+            tables(item_side))
+    kw = dict(implicit=bool(base.implicit_prefs),
+              num_iterations=int(base.num_iterations if num_iterations is None
+                                 else num_iterations),
+              slot_budget=None if not base.bucket_slot_budget
+              else int(base.bucket_slot_budget),
+              refine=bool(base.solve_refine))
+    return args, kw
+
+
 # -- training objective (the chunked lane's telemetry) -------------------------
 
 def _objective_pack(X: torch.Tensor, Y: torch.Tensor, u_buckets, *,
@@ -750,6 +908,20 @@ def _objective_pack(X: torch.Tensor, Y: torch.Tensor, u_buckets, *,
     else:
         l2 = lam * l2n
     return torch.stack([fit, l2, finite])
+
+
+def _objective_pack_grid(X: torch.Tensor, Y: torch.Tensor, lam, alpha,
+                         u_buckets, *, implicit: bool) -> torch.Tensor:
+    """Per-config ``[k, 3]`` packs (JAX ``_objective_pack_grid_impl``):
+    :func:`_objective_pack` of each config's carries with its own
+    ``lam``/``alpha`` (``[k]`` tensors or sequences) against the shared
+    user-side tables; rank-padded columns are zeros and add nothing."""
+    lams = [float(v) for v in torch.as_tensor(lam).tolist()]
+    alphas = [float(v) for v in torch.as_tensor(alpha).tolist()]
+    return torch.stack([
+        _objective_pack(X[z], Y[z], u_buckets, lam=lams[z], alpha=alphas[z],
+                        implicit=implicit)
+        for z in range(X.shape[0])])
 
 
 def _objective_statics(params) -> dict:
@@ -928,13 +1100,11 @@ def warmup_train_als_bucketed(user_side: BucketedRatings,
     the CUDA context with each library's per-device set-up. The
     pipelined ingest runs this on a background thread while the tables'
     copies stream. The port compiles nothing per shape, so the sides
-    only name the call's signature; returns True. On the CPU there is
-    nothing to prepare. A grid of configurations raises: the tuning grid
-    is not ported yet (ROADMAP A7, tuning)."""
-    if getattr(params, "configs", None) is not None:
-        raise NotImplementedError(
-            "warming up a config grid (the tuning grid) is not ported yet "
-            "(ROADMAP A7, tuning)")
+    only name the call's signature, and a config grid (``params`` with
+    ``configs``, a :class:`~predictionio_tpu_torch.ops.tuning.
+    ConfigGrid`) needs what one config needs: the same libraries, whose
+    assembly takes the config axis. Returns True. On the CPU there is
+    nothing to prepare."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         from predictionio_tpu_torch.ops import _build

@@ -49,7 +49,11 @@ there has one here:
   factor store ``Y`` fp32 or bf16 (the bf16 training precision): a bf16
   row is converted to fp32 as it is gathered, so everything after the
   gather is the fp32 route's arithmetic, and the bound reads ``Y`` as
-  ``M*R*bytes(Y)``.
+  ``M*R*bytes(Y)``. The config grid (JAX ``vmap``s the assembly over a
+  leading config axis) is :func:`assemble_normal_equations_grid`: one
+  launch of ``assemble_kernel`` for ``k`` configs, the config in
+  ``blockIdx.y``, each summed as its own launch would sum it (bitwise);
+  its bound is ``k`` times one config's.
 - ``spd_solve`` (training; ``als_pallas.py:277``, kernel
   ``_spd_solve_kernel``) is ``spd_solve_warp_kernel`` in the same
   source. Bound: ``B*(R(R+1)/2+2R)*4`` bytes (the upper triangle of
@@ -393,6 +397,7 @@ def masked_scores_plain(Q: torch.Tensor, Y, seen_cols: Optional[torch.Tensor],
 
 class _SolveLib(NamedTuple):
     assemble: object
+    assemble_grid: object
     assemble_large: object
     solve: object
     err_string: object
@@ -413,6 +418,10 @@ def _solve_kernels(device: int) -> _SolveLib:
             asm.argtypes = [i, p, i, i, i, p, p, p, i, i, i, i, i, p, p, p,
                             p, p, p, p]
             asm.restype = i
+            grid = lib.pio_assemble_normal_equations_grid
+            grid.argtypes = [i, p, i, i, i, i, p, p, p, i, i, i, i, i, p, p,
+                             p, p, p, p, p]
+            grid.restype = i
             large = lib.pio_assemble_large_rank
             large.argtypes = [i, p, i, i, i, p, p, p, i, i, p, p, p, p, p,
                               p]
@@ -427,8 +436,8 @@ def _solve_kernels(device: int) -> _SolveLib:
                          "pio_als_solve_init"):
                 getattr(lib, name).argtypes = [i]
                 getattr(lib, name).restype = i
-            _solve_bound = (lib, asm, large, solve, err)
-        lib, asm, large, solve, err_string = _solve_bound
+            _solve_bound = (lib, asm, grid, large, solve, err)
+        lib, asm, grid, large, solve, err_string = _solve_bound
         if device not in _solve_ready:
             limits = (int(lib.pio_assemble_max_rank(device)),
                       int(lib.pio_als_smem_optin(device)))
@@ -439,7 +448,8 @@ def _solve_kernels(device: int) -> _SolveLib:
                                    f"CUDA error {code} "
                                    f"({err_string(code).decode()})")
             _solve_ready[device] = limits
-    return _SolveLib(asm, large, solve, err_string, *_solve_ready[device])
+    return _SolveLib(asm, grid, large, solve, err_string,
+                     *_solve_ready[device])
 
 
 # Most slots one assembly block sums (a multiple of the kernel's 64-slot
@@ -622,6 +632,81 @@ def assemble_normal_equations_plain(Y: torch.Tensor, cols: torch.Tensor,
     if events is not None:
         events[1].record(torch.cuda.current_stream(Y.device))
     return out
+
+
+def assemble_normal_equations_grid(Y: torch.Tensor, cols: torch.Tensor,
+                                   aw: torch.Tensor, bw: torch.Tensor,
+                                   gram: torch.Tensor
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`assemble_normal_equations` for ``k`` configurations of one
+    solve side at once (the config grid's half-step, JAX's ``vmap`` of
+    the assembly): ``Y [k, M, R]`` (fp32 or bf16), ``aw``/``bw [k, B,
+    L]`` and ``gram [k, R, R]`` carry a config axis, ``cols [B, L]`` is
+    shared; returns ``A [k, B, R, R]`` and ``b [k, B, R]`` fp32.
+
+    On the main route (``tiles``) it is one launch of ``assemble_kernel``
+    for all ``k`` (the config in ``blockIdx.y``), each config summed in
+    the order of its own single-config launch, so ``A[z], b[z]`` are
+    bitwise :func:`assemble_normal_equations` on ``(Y[z], cols, aw[z],
+    bw[z], gram[z])``; its launches count under ``("tiles_grid",
+    dtype)``. Above ``assemble_kernel``'s rank limit each config is one
+    launch of the large-rank route (counted as such)."""
+    if Y.device.type == "cpu":
+        return assemble_normal_equations_grid_plain(Y, cols, aw, bw, gram)
+    if Y.device.type != "cuda":
+        raise ValueError(f"unsupported device {Y.device}")
+    if Y.ndim != 3 or aw.ndim != 3 or bw.ndim != 3 or gram.ndim != 3:
+        raise ValueError(
+            f"Y must be [k, M, R], aw / bw [k, B, L] and gram [k, R, R]; got "
+            f"{tuple(Y.shape)}, {tuple(aw.shape)}, {tuple(bw.shape)}, "
+            f"{tuple(gram.shape)}")
+    k = Y.shape[0]
+    dev = Y.device
+    device = _device_index(dev)
+    lib = _solve_kernels(device)
+    route = assembly_route(Y.shape[-1], lib.assemble_max_rank, Y.dtype)
+    if route == "large_rank":
+        out = [assemble_normal_equations(Y[z], cols, aw[z], bw[z], gram[z])
+               for z in range(k)]
+        return (torch.stack([a for a, _ in out]),
+                torch.stack([b for _, b in out]))
+    M, R, B, L = check_assembly_args(Y[0], cols, aw[0], bw[0], gram[0],
+                                     lib.assemble_max_rank)
+    _require(Y, "Y", Y.dtype, (k, M, R), dev)
+    _require(aw, "aw", torch.float32, (k, B, L), dev)
+    _require(bw, "bw", torch.float32, (k, B, L), dev)
+    _require(gram, "gram", torch.float32, (k, R, R), dev)
+    A = torch.empty((k, B, R, R), dtype=torch.float32, device=dev)
+    b = torch.empty((k, B, R), dtype=torch.float32, device=dev)
+    if B == 0 or k == 0:
+        return A, b
+    plan = assembly_plan(L)
+    partial = None
+    if plan.n_spans > 1:
+        partial = torch.empty(k * plan.scratch_floats(B, R),
+                              dtype=torch.float32, device=dev)
+    y_code = _ASM_Y_DTYPE_CODE[Y.dtype]
+    _check_launch(lib.assemble_grid(
+        device, Y.data_ptr(), y_code, k, M, R, cols.data_ptr(),
+        aw.data_ptr(), bw.data_ptr(), B, L, plan.span, plan.n_spans,
+        int(plan.grouped), gram.data_ptr(), A.data_ptr(), b.data_ptr(),
+        None if partial is None else partial.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, None, None),
+        "assemble_normal_equations_grid", lib.err_string)
+    assemble_launches.add(("tiles_grid", "bf16" if y_code else "fp32"))
+    return A, b
+
+
+def assemble_normal_equations_grid_plain(Y: torch.Tensor, cols: torch.Tensor,
+                                         aw: torch.Tensor, bw: torch.Tensor,
+                                         gram: torch.Tensor
+                                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of :func:`assemble_normal_equations_grid`:
+    :func:`assemble_normal_equations_plain` once per config."""
+    out = [assemble_normal_equations_plain(Y[z], cols, aw[z], bw[z], gram[z])
+           for z in range(Y.shape[0])]
+    return (torch.stack([a for a, _ in out]),
+            torch.stack([b for _, b in out]))
 
 
 # spd_solve_warp_kernel: systems (warps) a block, and the fewest

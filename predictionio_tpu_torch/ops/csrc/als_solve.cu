@@ -1,7 +1,8 @@
 // The two kernels of an ALS half-step, written for Hopper (sm_90a):
 //
 //   assemble_kernel             replaces predictionio_tpu/ops/als_pallas.py::
-//                               assemble_normal_equations (kernel _kernel)
+//                               assemble_normal_equations (kernel _kernel),
+//                               also under the config grid's vmap
 //   assemble_large_rank_kernel  the same, above assemble_kernel's rank limit
 //   spd_solve_warp_kernel       replaces predictionio_tpu/ops/als_pallas.py::
 //                               spd_solve (kernel _spd_solve_kernel)
@@ -55,6 +56,14 @@
 // - The tensor cores are not used. A 3xTF32 version (mma.sync m16n8k8,
 //   which keeps fp32 accuracy) was slower on an H100: the kernel waits on
 //   its gathers and barriers far more than on its FMAs.
+// - The config grid (several hyperparameter configurations of one solve
+//   side, the JAX package's vmap over a config axis) is one launch: the
+//   config is blockIdx.y, and each block offsets Y, aw, bw, gram, A, b and
+//   the partials by its config's strides (CfgStrides); cols is shared.
+//   Each config's block does exactly what the single-config launch's
+//   does, so its sums come out bitwise equal to its own launch, and no
+//   scratch is shared between configs (a NaN stays in its lane). The
+//   single-config entry is the grid entry at K = 1.
 //
 // spd_solve_warp_kernel. One warp solves one system A x = b: non-pivoted
 // Cholesky A = U^T U on the upper triangle, with the pivot clamped at
@@ -116,6 +125,16 @@ struct AsmShape {
   int workers; // items * groups threads sum; the rest, up to a whole warp, only gather
   int threads;
   size_t smem_bytes;
+};
+
+// Per-config element strides of a grid launch (several configurations
+// of one solve side in one launch, the config in blockIdx.y): config z
+// reads Y + z * y, aw / bw + z * w and gram + z * gram, and writes A + z
+// * a and b + z * b (in the split mode A and b are the partials'
+// scratch). The tables' cols are shared. A single-config launch has
+// gridDim.y = 1, so z = 0: every pointer is the launch's own.
+struct CfgStrides {
+  long long y, w, gram, a, b;
 };
 
 // Where column c of a gathered factor row sits in shared memory: four
@@ -220,8 +239,17 @@ assemble_kernel(const T* __restrict__ Y, int M, int R, const int* __restrict__ c
                 const float* __restrict__ aw, const float* __restrict__ bw, int B, int L,
                 int W, int n_spans, int grouped, const float* __restrict__ gram,
                 float* __restrict__ out_A, float* __restrict__ out_b, long long stride_A,
-                long long stride_b, AsmShape shape, int vec) {
+                long long stride_b, AsmShape shape, int vec, CfgStrides cfg) {
   constexpr bool kF32 = std::is_same<T, float>::value;
+  {  // this block's configuration: every pointer below is its own slice
+    const long long z = blockIdx.y;
+    Y += z * cfg.y;
+    aw += z * cfg.w;
+    bw += z * cfg.w;
+    if (gram != nullptr) gram += z * cfg.gram;
+    out_A += z * cfg.a;
+    out_b += z * cfg.b;
+  }
   constexpr int kWidth = 16 / sizeof(T);  // factors a 16-byte copy moves
   const bool gvec =
       kF32 ? vec != 0 : R % 8 == 0 && reinterpret_cast<uintptr_t>(Y) % 16 == 0;
@@ -469,11 +497,20 @@ assemble_kernel(const T* __restrict__ Y, int M, int R, const int* __restrict__ c
 }
 
 // A[row] = gram + (P[row, 0] + P[row, 1] + ...), b[row] = Pb[row, 0] + ...:
-// the spans' partials of assemble_kernel, added in span order.
+// the spans' partials of assemble_kernel, added in span order. Block
+// (row, z) reduces config z's row from its own slices: P + z * p_cfg,
+// gram + z * cfg.gram, A + z * cfg.a and b + z * cfg.b.
 __global__ void __launch_bounds__(REDUCE_THREADS)
 assemble_reduce_kernel(const float* __restrict__ P, int n_spans, int R,
                        const float* __restrict__ gram, float* __restrict__ A,
-                       float* __restrict__ b) {
+                       float* __restrict__ b, long long p_cfg, CfgStrides cfg) {
+  {
+    const long long z = blockIdx.y;
+    P += z * p_cfg;
+    gram += z * cfg.gram;
+    A += z * cfg.a;
+    b += z * cfg.b;
+  }
   const long long row = blockIdx.x;
   const long long stride = static_cast<long long>(R) * R + R;
   const float* pr = P + row * n_spans * stride;
@@ -487,17 +524,19 @@ assemble_reduce_kernel(const float* __restrict__ P, int n_spans, int R,
   }
 }
 
-// assemble_kernel for `shape`: built for three blocks an SM up to
-// ASM_SMALL_THREADS threads a block (R <= 64), else for one.
+// assemble_kernel for `shape` over `configs` configurations (blockIdx.y):
+// built for three blocks an SM up to ASM_SMALL_THREADS threads a block
+// (R <= 64), else for one.
 template <typename T, typename... Args>
-void launch_assemble(unsigned blocks, const AsmShape& shape, cudaStream_t s, const T* Y,
-                     Args... args) {
+void launch_assemble(unsigned blocks, unsigned configs, const AsmShape& shape, cudaStream_t s,
+                     const T* Y, Args... args) {
+  const dim3 grid(blocks, configs);
   if (shape.threads <= ASM_SMALL_THREADS)
     assemble_kernel<T, ASM_SMALL_THREADS, 3>
-        <<<blocks, shape.threads, shape.smem_bytes, s>>>(Y, args...);
+        <<<grid, shape.threads, shape.smem_bytes, s>>>(Y, args...);
   else
     assemble_kernel<T, ASM_MAX_THREADS, 1>
-        <<<blocks, shape.threads, shape.smem_bytes, s>>>(Y, args...);
+        <<<grid, shape.threads, shape.smem_bytes, s>>>(Y, args...);
 }
 
 // assemble_large_rank_kernel: the assembly above pio_assemble_max_rank.
@@ -952,14 +991,15 @@ int pio_als_solve_init(int device) {
 
 namespace {
 
-// pio_assemble_normal_equations for a factor store of type T.
+// pio_assemble_normal_equations(_grid) for a factor store of type T and
+// K configurations (K = 1: one config, gridDim.y = 1).
 template <typename T>
-int assemble_entry(int device, const T* Y, int M, int R, const int* cols, const float* aw,
+int assemble_entry(int device, const T* Y, int K, int M, int R, const int* cols, const float* aw,
                    const float* bw, int B, int L, int span, int n_spans, int grouped,
                    const float* gram, float* A, float* b, float* partial, void* stream,
                    void* ev_start, void* ev_end) {
-  if (B <= 0 || R <= 0 || L < 0 || M <= 0 || span <= 0 || span % ASM_CHUNK != 0 ||
-      n_spans < 1 || static_cast<long long>(n_spans) * span < L ||
+  if (K <= 0 || K > 65535 || B <= 0 || R <= 0 || L < 0 || M <= 0 || span <= 0 ||
+      span % ASM_CHUNK != 0 || n_spans < 1 || static_cast<long long>(n_spans) * span < L ||
       (n_spans > 1 && (static_cast<long long>(n_spans - 1) * span >= L || partial == nullptr ||
                        grouped)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -978,23 +1018,37 @@ int assemble_entry(int device, const T* Y, int M, int R, const int* cols, const 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = record_event(ev_start, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto aligned = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
-  const int vec = R % 4 == 0 && aligned(Y) && aligned(gram) && aligned(A) &&
-                  (partial == nullptr || aligned(partial));
   const long long rr = static_cast<long long>(R) * R;
+  const long long per_partial = static_cast<long long>(B) * n_spans * (rr + R);
+  // each config's slices: Y [M, R], aw / bw [B, L], gram [R, R], A [B, R,
+  // R], b [B, R], the partials [B, n_spans, R * R + R]
+  const CfgStrides cfg{static_cast<long long>(M) * R, static_cast<long long>(B) * L, rr,
+                       static_cast<long long>(B) * rr, static_cast<long long>(B) * R};
+  // the 16-byte paths test base pointers, so every config's slice must
+  // keep their alignment, or the whole launch takes the scalar path
+  auto aligned = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
+  const bool slices_aligned =
+      K == 1 || ((cfg.y * static_cast<long long>(sizeof(T))) % 16 == 0 && cfg.gram % 4 == 0 &&
+                 cfg.a % 4 == 0 && per_partial % 4 == 0);
+  const int vec = R % 4 == 0 && aligned(Y) && aligned(gram) && aligned(A) &&
+                  (partial == nullptr || aligned(partial)) && slices_aligned;
   if (n_spans == 1) {
     const long long blocks = grouped ? (B + shape.groups - 1) / shape.groups : B;
-    launch_assemble(static_cast<unsigned>(blocks), shape, s, Y, M, R, cols, aw, bw, B, L, span,
-                    1, grouped ? 1 : 0, gram, A, b, rr, static_cast<long long>(R), shape, vec);
+    launch_assemble(static_cast<unsigned>(blocks), static_cast<unsigned>(K), shape, s, Y, M, R,
+                    cols, aw, bw, B, L, span, 1, grouped ? 1 : 0, gram, A, b, rr,
+                    static_cast<long long>(R), shape, vec, cfg);
     return launched(ev_end, s);
   }
-  launch_assemble(static_cast<unsigned>(static_cast<long long>(B) * n_spans), shape, s, Y, M, R,
-                  cols, aw, bw, B, L, span, n_spans, 0, static_cast<const float*>(nullptr),
-                  partial, partial + rr, rr + R, rr + R, shape, vec);
+  const CfgStrides split{cfg.y, cfg.w, 0, per_partial, per_partial};
+  launch_assemble(static_cast<unsigned>(static_cast<long long>(B) * n_spans),
+                  static_cast<unsigned>(K), shape, s, Y, M, R, cols, aw, bw, B, L, span, n_spans,
+                  0, static_cast<const float*>(nullptr), partial, partial + rr, rr + R, rr + R,
+                  shape, vec, split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  assemble_reduce_kernel<<<static_cast<unsigned>(B), REDUCE_THREADS, 0, s>>>(partial, n_spans,
-                                                                            R, gram, A, b);
+  assemble_reduce_kernel<<<dim3(static_cast<unsigned>(B), static_cast<unsigned>(K)),
+                           REDUCE_THREADS, 0, s>>>(partial, n_spans, R, gram, A, b, per_partial,
+                                                   cfg);
   return launched(ev_end, s);
 }
 
@@ -1020,6 +1074,27 @@ int assemble_large_rank_entry(int device, const T* Y, int M, int R, const int* c
 
 extern "C" {
 
+// The config grid's assembly: K configurations of one solve side in one
+// launch (the config in blockIdx.y), each exactly the single-config
+// launch on its own slices: Y [K, M, R], aw / bw [K, B, L], gram [K, R,
+// R] in, A [K, B, R, R] and b [K, B, R] out, the partials (split rows)
+// [K, B, n_spans, R * R + R]; cols [B, L] is shared. Every config's sums
+// come out in the order of its own single-config launch, and no scratch
+// is shared between configs. K = 1 is pio_assemble_normal_equations.
+int pio_assemble_normal_equations_grid(int device, const void* Y, int y_dtype, int K, int M,
+                                       int R, const int* cols, const float* aw, const float* bw,
+                                       int B, int L, int span, int n_spans, int grouped,
+                                       const float* gram, float* A, float* b, float* partial,
+                                       void* stream, void* ev_start, void* ev_end) {
+  if (y_dtype == 0)
+    return assemble_entry(device, static_cast<const float*>(Y), K, M, R, cols, aw, bw, B, L,
+                          span, n_spans, grouped, gram, A, b, partial, stream, ev_start, ev_end);
+  if (y_dtype == 1)
+    return assemble_entry(device, static_cast<const uint16_t*>(Y), K, M, R, cols, aw, bw, B, L,
+                          span, n_spans, grouped, gram, A, b, partial, stream, ev_start, ev_end);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // A [B, R, R] and b [B, R] from Y [M, R], cols / aw / bw [B, L] and gram
 // [R, R]; Y fp32 (y_dtype 0) or bf16 (y_dtype 1), the rest fp32 except
 // cols (int32), contiguous, on `device`, which pio_als_solve_init has set
@@ -1038,13 +1113,9 @@ int pio_assemble_normal_equations(int device, const void* Y, int y_dtype, int M,
                                   int span, int n_spans, int grouped, const float* gram, float* A,
                                   float* b, float* partial, void* stream, void* ev_start,
                                   void* ev_end) {
-  if (y_dtype == 0)
-    return assemble_entry(device, static_cast<const float*>(Y), M, R, cols, aw, bw, B, L, span,
-                          n_spans, grouped, gram, A, b, partial, stream, ev_start, ev_end);
-  if (y_dtype == 1)
-    return assemble_entry(device, static_cast<const uint16_t*>(Y), M, R, cols, aw, bw, B, L,
-                          span, n_spans, grouped, gram, A, b, partial, stream, ev_start, ev_end);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return pio_assemble_normal_equations_grid(device, Y, y_dtype, 1, M, R, cols, aw, bw, B, L,
+                                            span, n_spans, grouped, gram, A, b, partial, stream,
+                                            ev_start, ev_end);
 }
 
 // A [B, R, R] and b [B, R] as pio_assemble_normal_equations computes them,

@@ -13,11 +13,14 @@ The port's copy of ``predictionio_tpu/templates/recommendation/engine.py``:
 - the query path: the query and result types, ``ALSModel`` (host
   factors and maps, served through
   :func:`~predictionio_tpu_torch.ops.serving.choose_server`), the shared
-  top-k serving logic, and ``ALSAlgorithm.predict`` / ``batch_predict``.
+  top-k serving logic, ``ALSAlgorithm.predict`` / ``batch_predict``, and
+  the custom-serving variant ``FileBlacklistServing`` (``"fileblacklist"``);
+- evaluation: ``EventDataSource.read_eval`` (leave-last-out per user, or
+  sliding time windows with ``eval_count > 0``), ``ActualResult``,
+  ``PrecisionAtK`` / ``NDCGAtK``, and ``RecommendationEvaluation``, the
+  ``pio eval`` entry over ``RecommendationParamsList``'s grid.
 
-Not in this slice (it raises ``NotImplementedError``): the evaluation
-reads (``read_eval``, sliding windows; ROADMAP queue A item 7). A model
-may also be carried over from arrays with
+A model may also be carried over from arrays with
 :func:`predictionio_tpu_torch.weights.als_model_from_numpy`.
 """
 
@@ -27,13 +30,18 @@ import collections
 import dataclasses
 import math
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from predictionio_tpu_torch.controller import (
     Engine,
+    EngineParams,
+    EngineParamsGenerator,
+    Evaluation,
     LFirstServing,
+    LServing,
+    OptionAverageMetric,
     P2LAlgorithm,
     Params,
     PDataSource,
@@ -60,7 +68,10 @@ class DataSourceParams(Params):
     preparator's dedup gets sorted triples; ``decode_prefetch`` lets
     the store decode that many partitions ahead (``jsonlfs``).
     ``read_item_categories`` also reads each item's ``$set``
-    categories, for category queries."""
+    categories, for category queries. ``eval_count > 0`` makes
+    ``read_eval`` slide time windows: eval set ``k`` trains on the events
+    before ``eval_first_until`` (ISO-8601) ``+ k * eval_duration_days``
+    and tests on the next window; 0 keeps leave-last-out."""
 
     app_name: str
     event_names: Tuple[str, ...] = ("rate",)
@@ -129,6 +140,17 @@ class TrainingData:
         assert len(self), (
             "ratings in TrainingData cannot be empty. Please check if "
             "DataSource generates TrainingData correctly.")
+
+
+def _training_data_prechecked(users: np.ndarray, items: np.ndarray,
+                              values: np.ndarray) -> TrainingData:
+    """TrainingData from columns already checked for None ids: the
+    sliding windows slice one checked scan per window."""
+    td = TrainingData.__new__(TrainingData)
+    td.users, td.items, td.values = users, items, values
+    td.item_categories = None
+    td._ratings = None
+    return td
 
 
 class IndexedTrainingData:
@@ -236,9 +258,76 @@ class EventDataSource(PDataSource):
         return td
 
     def read_eval(self, ctx: Any):
-        raise NotImplementedError(
-            "read_eval and the sliding-window evaluation are not ported "
-            "yet (ROADMAP queue A item 7, evaluation)")
+        """Leave-last-out per user by default: each user's last rating in
+        stream order is held out. With ``eval_count > 0``: time-sliding
+        windows (:meth:`_sliding_eval`)."""
+        p: DataSourceParams = self.params
+        if p.eval_count > 0:
+            return self._sliding_eval(p)
+        from predictionio_tpu_torch.data.sliding import leave_last_out
+
+        # the serial builder even under pipelined_ingest: leave-last-out
+        # splits on the raw triple order, which the pipelined read does
+        # not keep
+        td = self._read_training(pipelined=False)
+        if isinstance(td, IndexedTrainingData):
+            td = TrainingData(users=td.user_map.decode(td.rows),
+                              items=td.item_map.decode(td.cols),
+                              values=td.values)
+        by_user: Dict[str, List[Rating]] = {}
+        for r in td.ratings:
+            by_user.setdefault(r.user, []).append(r)
+        train, holdouts = leave_last_out(by_user)
+        qa = [(Query(user=user, num=10), ActualResult([held.item]))
+              for user, held in holdouts]
+        return [(TrainingData(train), EmptyEvalInfo(), qa)]
+
+    def _sliding_eval(self, p: DataSourceParams):
+        """For k in range(eval_count): train on the events before
+        ``first_until + k * duration`` and hold out each user's items in
+        the following window as the actuals."""
+        import datetime as _dt
+
+        from predictionio_tpu_torch.data.event import _parse_time
+        from predictionio_tpu_torch.data.sliding import sliding_window_masks
+
+        if not p.eval_first_until:
+            raise ValueError(
+                "eval_count > 0 requires eval_first_until (ISO-8601)")
+        if p.streaming_block_size:
+            raise ValueError(
+                "sliding-window eval materializes the scanned window and "
+                "is incompatible with streaming_block_size; drop one of "
+                "the two (the scan is bounded to the eval horizon)")
+        first_until = _parse_time(p.eval_first_until)
+        t0 = first_until.timestamp()
+        dur = float(p.eval_duration_days) * 86400.0
+        horizon = first_until + _dt.timedelta(
+            seconds=dur * int(p.eval_count))
+        # the scan never needs events past the last test window
+        batch = PEventStore.find_columnar(
+            app_name=p.app_name, channel_name=p.channel_name,
+            entity_type="user", event_names=list(p.event_names),
+            target_entity_type="item", value_property="rating",
+            default_value=1.0, until_time=horizon)
+        # check the id columns once; each window slices them
+        TrainingData(users=batch.entity_ids, items=batch.target_ids,
+                     values=batch.values)
+        sets = []
+        for _k, train_mask, test_mask in sliding_window_masks(
+                batch.event_times, t0, dur, int(p.eval_count),
+                hint="move eval_first_until later or reduce eval_count"):
+            td = _training_data_prechecked(
+                batch.entity_ids[train_mask], batch.target_ids[train_mask],
+                batch.values[train_mask])
+            held: Dict[str, List[str]] = {}
+            for u, i in zip(batch.entity_ids[test_mask],
+                            batch.target_ids[test_mask]):
+                held.setdefault(str(u), []).append(str(i))
+            qa = [(Query(user=u, num=10), ActualResult(items))
+                  for u, items in held.items()]
+            sets.append((td, EmptyEvalInfo(), qa))
+        return sets
 
 
 def read_item_categories(p: DataSourceParams
@@ -253,6 +342,11 @@ def read_item_categories(p: DataSourceParams
             app_name=p.app_name, channel_name=p.channel_name,
             entity_type="item").items()
     }
+
+
+@dataclasses.dataclass(frozen=True)
+class EmptyEvalInfo:
+    pass
 
 
 @dataclasses.dataclass(frozen=True)
@@ -276,6 +370,14 @@ class ItemScore:
 @dataclasses.dataclass(frozen=True)
 class PredictedResult:
     item_scores: Tuple[ItemScore, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class ActualResult:
+    items: Tuple[str, ...]
+
+    def __init__(self, items: Sequence[str]):
+        object.__setattr__(self, "items", tuple(items))
 
 
 @dataclasses.dataclass
@@ -579,9 +681,114 @@ class RecommendationServing(LFirstServing):
     """First-serving: the single algorithm's result."""
 
 
+@dataclasses.dataclass(frozen=True)
+class ServingParams(Params):
+    """The custom-serving variant's params: the file that lists disabled
+    item ids, one per line."""
+
+    filepath: str = "disabled.txt"
+
+
+class FileBlacklistServing(LServing):
+    """The custom-serving variant: re-reads the disabled-items file on
+    every query (so an operator can edit it under a live server) and
+    drops those items from the first algorithm's result."""
+
+    params_class = ServingParams
+
+    def serve(self, query: Query,
+              predictions: List[PredictedResult]) -> PredictedResult:
+        import os
+
+        filepath = getattr(self.params, "filepath", "disabled.txt")
+        disabled = set()
+        if os.path.exists(filepath):
+            with open(filepath, "r", encoding="utf-8") as f:
+                disabled = {ln.strip() for ln in f if ln.strip()}
+        head = predictions[0]
+        return PredictedResult(tuple(
+            s for s in head.item_scores if s.item not in disabled))
+
+
+class PrecisionAtK(OptionAverageMetric):
+    """Precision@k on top-N recommendations: for each (query, predicted,
+    actual), the share of the top k recommended items found in the
+    held-out actuals; None (skipped) when the user has no actuals."""
+
+    def __init__(self, k: int = 10):
+        self.k = k
+
+    @property
+    def header(self) -> str:
+        return f"Precision@{self.k}"
+
+    def calculate_qpa(self, q: Query, p: PredictedResult,
+                      a: ActualResult) -> Optional[float]:
+        if not a.items:
+            return None
+        actual = set(a.items)
+        top = [s.item for s in p.item_scores[:self.k]]
+        if not top:
+            return 0.0
+        return sum(1 for i in top if i in actual) / float(self.k)
+
+
+class NDCGAtK(OptionAverageMetric):
+    """NDCG@k on top-N recommendations (binary relevance,
+    :func:`~predictionio_tpu_torch.data.sliding.ndcg_at_k`): rank position
+    counts, unlike :class:`PrecisionAtK`."""
+
+    def __init__(self, k: int = 10):
+        self.k = k
+
+    @property
+    def header(self) -> str:
+        return f"NDCG@{self.k}"
+
+    def calculate_qpa(self, q: Query, p: PredictedResult,
+                      a: ActualResult) -> Optional[float]:
+        if not a.items:
+            return None
+        from predictionio_tpu_torch.data.sliding import ndcg_at_k
+
+        return ndcg_at_k([s.item for s in p.item_scores], a.items, self.k)
+
+
+class RecommendationParamsList(EngineParamsGenerator):
+    """The default tuning grid: rank in (8, 16) x lambda in (0.01, 0.1),
+    10 iterations, seed 3."""
+
+    def __init__(self, app_name: str = "recommendation-app"):
+        super().__init__()
+        self.engine_params_list = [
+            EngineParams(
+                data_source_params=("", DataSourceParams(app_name=app_name)),
+                algorithm_params_list=[
+                    ("als", ALSParams(rank=rank, num_iterations=10,
+                                      lambda_=lam, seed=3))])
+            for rank in (8, 16)
+            for lam in (0.01, 0.1)
+        ]
+
+
+class RecommendationEvaluation(Evaluation, RecommendationParamsList):
+    """The ``pio eval`` entry: the ALS grid scored by Precision@10, the
+    best params written to ``best.json``. It is its own params generator,
+    so ``pio eval <this class>`` needs no second argument and ``app_name``
+    reaches every grid point's data source."""
+
+    def __init__(self, app_name: str = "recommendation-app", k: int = 10):
+        Evaluation.__init__(self)
+        RecommendationParamsList.__init__(self, app_name=app_name)
+        self.engine_metric = (engine_factory(), PrecisionAtK(k))
+
+
 def engine_factory() -> Engine:
     """The template's engine: the event-store data source, the
-    preparator, ALS under ``"als"`` (and ``""``) and first serving."""
+    preparator, ALS under ``"als"`` (and ``""``), first serving under
+    ``""`` and the custom-serving variant under ``"fileblacklist"``
+    (chosen by engine.json's serving section)."""
     return Engine(EventDataSource, RatingsPreparator,
                   {"als": ALSAlgorithm, "": ALSAlgorithm},
-                  {"": RecommendationServing})
+                  {"": RecommendationServing,
+                   "fileblacklist": FileBlacklistServing})

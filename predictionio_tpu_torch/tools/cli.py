@@ -6,11 +6,11 @@ adminserver, dashboard, app (incl. channels), accesskey, template,
 export, import, trace, runs, top.
 
 The port's copy of ``predictionio_tpu/tools/cli.py``: the same verbs
-and options, and ``--device`` (default ``cuda``) on ``train`` and
-``deploy``. The verbs whose modules are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item: ``eval``,
-``batchpredict``, ``adminserver`` and ``dashboard`` (A7), ``top``
-(A2.3) and ``status --fleet`` (A2.4).
+and options, and ``--device`` (default ``cuda``) on ``train``, ``eval``
+and ``deploy``. The verbs whose modules are not ported yet raise
+``NotImplementedError`` naming their ROADMAP item: ``batchpredict``,
+``adminserver`` and ``dashboard`` (A7), ``top`` (A2.3) and ``status
+--fleet`` (A2.4).
 """
 
 from __future__ import annotations
@@ -299,7 +299,8 @@ def build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--topk", type=int, default=10,
                     help="leaderboard metric cutoff (precision@k / "
                          "ndcg@k, with --grid)")
-    ev.set_defaults(func=_unported("eval", "A7, the evaluation stack"))
+    _add_device_arg(ev)
+    ev.set_defaults(func=run_commands.cmd_eval)
 
     dep = sub.add_parser("deploy", help="serve a trained engine instance")
     _add_engine_args(dep)

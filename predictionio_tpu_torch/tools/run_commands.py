@@ -1,4 +1,5 @@
-"""``pio`` lifecycle verbs: build, train, deploy, undeploy, eventserver.
+"""``pio`` lifecycle verbs: build, train, eval, deploy, undeploy,
+eventserver.
 
 Parity: ``tools/.../console/Console.scala`` dispatch (:698-769) with the
 spark-submit/Runner layer removed — train and deploy run in this
@@ -11,16 +12,19 @@ Engine location: a directory with an ``engine.json`` variant whose
 The port's copy of ``predictionio_tpu/tools/run_commands.py``. ``train``
 takes the training options: ``--precision bf16`` and crash-safe
 checkpointed training (``--checkpoint-dir/-every/-keep``, ``--resume``;
-SIGTERM/SIGINT drain at the next chunk boundary). Options whose modules
-are not ported yet raise and name their ROADMAP item: the distributed
-options (A6), ``--fleet`` above 1 (A2.4) and ``--feedback`` (A7);
-``eval``, ``batchpredict``, ``adminserver`` and ``dashboard`` raise in
+SIGTERM/SIGINT drain at the next chunk boundary). ``eval`` runs an
+``Evaluation`` (``best.json``, an ``EVALCOMPLETED`` instance) or, with
+``--grid``, the config grid's leaderboard, on ``--device`` too. Options
+whose modules are not ported yet raise and name their ROADMAP item: the
+distributed options (A6), ``--fleet`` above 1 (A2.4) and ``--feedback``
+(A7); ``batchpredict``, ``adminserver`` and ``dashboard`` raise in
 :mod:`predictionio_tpu_torch.tools.cli`. ``deploy --foldin on`` runs
 the online fold-in consumer.
 """
 
 from __future__ import annotations
 
+import datetime as _dt
 import json
 import os
 import sys
@@ -257,6 +261,220 @@ def _print_launches(*kernels: str) -> None:
                 "spd_solve": als_cuda.spd_launches}
     print("[INFO] Kernel launches: " + json.dumps(
         {name: counters[name].value for name in kernels}), flush=True)
+
+
+def _cmd_eval_grid(args) -> int:
+    """``pio eval --grid grid.json``: the config grid's tuning lane. The
+    grid file's ALSParams configs are checked first (every unknown or
+    non-sweepable field named, before any device work); the app's rate
+    events are read once and split leave-last-out in stream order; every
+    config trains together against one copy of the bucketed tables on
+    ``--device`` (sized to the free memory, diverged configs masked
+    out); every held-out user is ranked under every config through B1.
+    Writes the leaderboard (a metric per config; the winner with its
+    full EngineParams) to ``--grid-out``."""
+    import numpy as np
+
+    from predictionio_tpu_torch.device import resolve_device
+    from predictionio_tpu_torch.ops import als as _als
+    from predictionio_tpu_torch.ops import tuning as ops_tuning
+    from predictionio_tpu_torch.workflow import tuning as wf_tuning
+
+    try:
+        with open(args.grid, "r", encoding="utf-8") as f:
+            spec = json.load(f)
+    except (OSError, ValueError) as e:
+        print(f"[ERROR] cannot read grid file {args.grid}: {e}",
+              file=sys.stderr)
+        return 1
+    if not isinstance(spec, dict):
+        print(f"[ERROR] {args.grid}: grid file must be a JSON object",
+              file=sys.stderr)
+        return 1
+    unknown = sorted(set(spec) - {"base", "configs", "data"})
+    if unknown:
+        for key in unknown:
+            print(f"[ERROR] {args.grid}: unknown section {key!r} "
+                  "(expected: base, configs, data)", file=sys.stderr)
+        return 1
+    try:
+        grid = ops_tuning.grid_from_spec(
+            {k: spec[k] for k in ("base", "configs") if k in spec})
+    except ops_tuning.GridConfigError as e:
+        # one [ERROR] line per problem
+        for line in str(e).splitlines():
+            print(f"[ERROR] {args.grid}: {line.strip()}", file=sys.stderr)
+        return 1
+    data_spec = spec.get("data") or {}
+    app_name = data_spec.get("appName") or data_spec.get("app_name")
+    if not app_name:
+        print(f"[ERROR] {args.grid}: missing data.appName (the event "
+              "app to tune against)", file=sys.stderr)
+        return 1
+    event_names = list(data_spec.get("eventNames", ["rate"]))
+    dev = resolve_device(args.device)
+
+    from predictionio_tpu_torch.data.store import PEventStore
+
+    try:
+        batch = PEventStore.find_columnar(
+            app_name=app_name, channel_name=data_spec.get("channelName"),
+            entity_type="user", event_names=event_names,
+            target_entity_type="item", value_property="rating",
+            default_value=1.0)
+    except Exception as e:
+        print(f"[ERROR] cannot read events for app {app_name!r}: {e}",
+              file=sys.stderr)
+        return 1
+    if len(batch.entity_ids) == 0:
+        print(f"[ERROR] app {app_name!r} has no "
+              f"{'/'.join(event_names)} events to tune on",
+              file=sys.stderr)
+        return 1
+    users, rows = np.unique(np.asarray(batch.entity_ids),
+                            return_inverse=True)
+    items, cols = np.unique(np.asarray(batch.target_ids),
+                            return_inverse=True)
+    vals = np.asarray(batch.values, dtype=np.float32)
+    tr, tc, tv, held = leave_last_out_split(rows, cols, vals)
+    if not len(tr):
+        print(f"[ERROR] app {app_name!r}: no training interactions "
+              "left after the leave-last-out split", file=sys.stderr)
+        return 1
+    user_side, item_side = _als.bucket_ratings_pair(
+        tr, tc, tv, len(users), len(items))
+    user_side, item_side = user_side.to_device(dev), item_side.to_device(dev)
+
+    from predictionio_tpu_torch.controller.engine import EngineParams
+    from predictionio_tpu_torch.data.storage.localfs import (
+        atomic_write_bytes,
+    )
+    from predictionio_tpu_torch.templates.recommendation.engine import (
+        DataSourceParams,
+    )
+
+    ep_base = EngineParams(data_source_params=("", DataSourceParams(
+        app_name=str(app_name), event_names=tuple(event_names))))
+    print(f"[INFO] grid eval: {grid.k} configs x "
+          f"{int(grid.base.num_iterations)} iterations on "
+          f"{len(tr)} train / {len(held)} held-out interactions "
+          f"({len(users)} users, {len(items)} items)")
+    out = args.grid_out
+
+    def stream_partial(partial_board) -> None:
+        # a killed sweep leaves the latest finished sub-batch's board on
+        # disk, written atomically
+        atomic_write_bytes(
+            out, json.dumps(partial_board, indent=2).encode("utf-8"))
+        print(f"[INFO] partial leaderboard "
+              f"({partial_board.get('batchesCompleted')}/"
+              f"{len(partial_board.get('batches') or [])} "
+              f"sub-batches) -> {out}")
+
+    board = wf_tuning.run_grid(
+        user_side, item_side, grid, train_rows=tr, train_cols=tc,
+        held=held, topk=int(getattr(args, "topk", 10) or 10),
+        engine_params_base=ep_base, on_partial=stream_partial, device=dev)
+    atomic_write_bytes(out, json.dumps(board, indent=2).encode("utf-8"))
+    diverged = [r["config"] for r in board["rows"] if r["diverged"]]
+    if diverged:
+        print(f"[WARN] diverged configs masked out: {diverged}")
+    _print_launches("assemble_normal_equations", "spd_solve",
+                    "fused_gather_score_topk")
+    w = board["winner"]
+    if w is None:
+        print("[ERROR] every config diverged — no winner", file=sys.stderr)
+        return 1
+    print(f"[INFO] winner: config {w['config']} {w['params']} "
+          f"{board['metricName']}={w['metric']:.4f} "
+          f"(ndcg@{board['k']}={w['ndcgAtK']:.4f}); leaderboard -> {out}")
+    return 0
+
+
+def leave_last_out_split(rows, cols, vals):
+    """``pio eval --grid``'s holdout: each user's last interaction in
+    stream order is its test target (users with one interaction train
+    on it). Returns ``(train rows, train cols, train values, held)``,
+    ``held`` mapping a user index to its set of held-out item indices."""
+    import numpy as np
+
+    held: Dict[int, set] = {}
+    train_mask = np.ones(len(rows), dtype=bool)
+    order = np.argsort(rows, kind="stable")
+    bounds = np.flatnonzero(np.r_[True, rows[order][1:] != rows[order][:-1],
+                                  True]) if len(rows) else np.zeros(1, int)
+    for a, b in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+        if b - a >= 2:
+            last = order[b - 1]
+            train_mask[last] = False
+            held[int(rows[last])] = {int(cols[last])}
+    return rows[train_mask], cols[train_mask], vals[train_mask], held
+
+
+def cmd_eval(args) -> int:
+    """Console eval (Console.scala:750-757): an Evaluation class and an
+    optional params-generator class -> ``run_evaluation`` on
+    ``--device`` (default cuda); the evaluator's result is stored in an
+    ``EVALCOMPLETED`` EvaluationInstance (and ``best.json`` written when
+    the Evaluation set ``engine_metric``). With ``--grid``, the config
+    grid's lane instead (:func:`_cmd_eval_grid`)."""
+    if getattr(args, "grid", None):
+        return _cmd_eval_grid(args)
+    if not args.evaluation:
+        print("[ERROR] eval needs an Evaluation class "
+              "(module:callable) or --grid grid.json", file=sys.stderr)
+        return 1
+    from predictionio_tpu_torch.controller.evaluation import (
+        EngineParamsGenerator,
+        Evaluation,
+    )
+    from predictionio_tpu_torch.core.base import WorkflowParams
+    from predictionio_tpu_torch.core.context import ComputeContext
+    from predictionio_tpu_torch.data.storage.base import EvaluationInstance
+    from predictionio_tpu_torch.device import resolve_device
+    from predictionio_tpu_torch.workflow import core_workflow
+    from predictionio_tpu_torch.workflow.create_workflow import pio_env_vars
+
+    ctx = ComputeContext(device=resolve_device(args.device))
+    try:
+        evaluation = core_workflow.load_engine_factory(args.evaluation)()
+        if not isinstance(evaluation, Evaluation):
+            raise TypeError(f"{args.evaluation} is not an Evaluation")
+        if args.engine_params_generator:
+            generator = core_workflow.load_engine_factory(
+                args.engine_params_generator)()
+            if not isinstance(generator, EngineParamsGenerator):
+                raise TypeError(f"{args.engine_params_generator} is not an "
+                                "EngineParamsGenerator")
+            params_list = generator.engine_params_list
+        elif isinstance(evaluation, EngineParamsGenerator):
+            params_list = evaluation.engine_params_list
+        else:
+            raise ValueError(
+                "no engine params: pass an EngineParamsGenerator class or "
+                "make the Evaluation also an EngineParamsGenerator")
+    except Exception as e:
+        print(f"[ERROR] {e}", file=sys.stderr)
+        return 1
+    now = _dt.datetime.now(tz=_dt.timezone.utc)
+    batch = getattr(args, "batch", "") or ""
+    instance = EvaluationInstance(
+        id="", status="INIT", start_time=now, end_time=now,
+        evaluation_class=args.evaluation,
+        engine_params_generator_class=args.engine_params_generator or "",
+        batch=batch, env=pio_env_vars())
+    try:
+        result = core_workflow.run_evaluation(
+            evaluation.engine, params_list, instance, evaluation.evaluator,
+            evaluation=evaluation, params=WorkflowParams(batch=batch),
+            ctx=ctx)
+    except Exception as e:
+        print(f"[ERROR] Evaluation failed: {e}", file=sys.stderr)
+        return 1
+    print(f"[INFO] {result.to_one_liner()}")
+    _print_launches("assemble_normal_equations", "spd_solve",
+                    "fused_gather_score_topk")
+    return 0
 
 
 def _apply_serving_flags(args) -> None:

@@ -46,9 +46,15 @@ Design:
   checkpointed (the last intact checkpoint is retained) and
   ``pio_train_diverged_total`` counts the abort.
 
-Not in this slice: the config grid's chunked lane
-(:func:`run_chunked_grid`, ROADMAP A7, tuning) and checkpoints of
-training sharded over several devices or hosts (ROADMAP A6).
+- **The config grid** (:func:`run_chunked_grid`): the same lifecycle
+  for ``k`` stacked configs, with per-config divergence: a non-finite
+  config is masked out (factors zeroed, re-masked every chunk) while its
+  neighbours train on, ``pio_train_diverged_total`` counts each dead
+  config once, the alive mask rides the manifest's ``extra`` block, and
+  only an all-dead grid aborts.
+
+Not in this slice: checkpoints of training sharded over several devices
+or hosts (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -66,7 +72,7 @@ import os
 import re
 import threading
 import time as _time
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -768,9 +774,238 @@ def run_chunked(run_iters: Callable[[Any, Any, int], Tuple[Any, Any]],
     return X, Y
 
 
-def run_chunked_grid(*args, **kwargs):
-    """The config grid's chunked lane: not ported yet (ROADMAP A7,
-    tuning: the config grid)."""
-    raise NotImplementedError(
-        "the config grid's chunked training (run_chunked_grid) is not "
-        "ported yet (ROADMAP A7, tuning: the config grid)")
+# ---------------------------------------------------------------------------
+# The grid (multi-config) chunked loop
+# ---------------------------------------------------------------------------
+
+def _grid_loss_entry(step: int, pack: np.ndarray, alive: np.ndarray
+                     ) -> dict:
+    """One grid history / run-log sample: per-config component lists
+    with ``None`` holes for dead configs."""
+    fit: List[Optional[float]] = []
+    l2: List[Optional[float]] = []
+    tot: List[Optional[float]] = []
+    for i, ok in enumerate(alive):
+        if ok:
+            fit.append(float(pack[i, 0]))
+            l2.append(float(pack[i, 1]))
+            tot.append(float(pack[i, 0] + pack[i, 1]))
+        else:
+            fit.append(None)
+            l2.append(None)
+            tot.append(None)
+    return {"step": int(step), "fit": fit, "l2": l2, "total": tot}
+
+
+def _observe_grid_chunk(rl, run_id: Optional[str], step: int, total: int,
+                        n: int, entry: dict, alive: np.ndarray,
+                        wall_s: float, device_s: Optional[float],
+                        blob_path: Optional[str], device: Any = None) -> None:
+    """The grid's :func:`_observe_chunk`: the gauges follow the best
+    (lowest-total) alive config; the span and the run-log sample carry
+    the per-config lists."""
+    from predictionio_tpu_torch.utils import metrics, tracing
+
+    best = None
+    for i, t in enumerate(entry["total"]):
+        if t is not None and (best is None or t < entry["total"][best]):
+            best = i
+    if best is not None:
+        metrics.TRAIN_LOSS.set(entry["fit"][best], component="fit")
+        metrics.TRAIN_LOSS.set(entry["l2"][best], component="l2")
+        metrics.TRAIN_LOSS.set(entry["total"][best], component="total")
+    metrics.TRAIN_CHUNK_SECONDS.observe(wall_s)
+    end = tracing.span_now()
+    tracing.record_completed_span(
+        "train.chunk", start=end - wall_s, end=end,
+        attributes={"step": int(step), "totalIterations": int(total),
+                    "chunkIterations": int(n),
+                    "aliveConfigs": int(np.count_nonzero(alive)),
+                    "bestConfig": best,
+                    "lossTotal": None if best is None
+                    else entry["total"][best]})
+    _chunk_sample(rl, step, total, n,
+                  {"fit": entry["fit"], "l2": entry["l2"],
+                   "total": entry["total"]},
+                  wall_s, device_s, blob_path,
+                  extra={"aliveConfigs": [bool(a) for a in alive]},
+                  device=device)
+    _emit_progress({"step": int(step), "total": int(total),
+                    "loss": None if best is None
+                    else entry["total"][best],
+                    "aliveConfigs": int(np.count_nonzero(alive)),
+                    "wallSeconds": float(wall_s), "runId": run_id})
+
+
+def _grid_deaths(died_step: Dict[int, int]) -> str:
+    """The all-dead abort's roster: which configs died, and when."""
+    return ", ".join(f"config {i} at iteration {died_step[i]}"
+                     for i in sorted(died_step))
+
+
+def _grid_factors_finite(X, Y) -> np.ndarray:
+    """Per-config finiteness of stacked ``[k, N, R]`` carries: one
+    device reduction to a ``[k]`` bool vector on the host."""
+    import torch
+
+    k = X.shape[0]
+    ok = torch.isfinite(X).reshape(k, -1).all(dim=1) \
+        & torch.isfinite(Y).reshape(k, -1).all(dim=1)
+    return ok.cpu().numpy()
+
+
+def _mask_dead_configs(X, Y, alive: np.ndarray):
+    """Zero the factor lanes of dead configs on the device. Zero factors
+    are usually a fixed point of the half-step, but not when the cause
+    is an overflowing hyperparameter (``inf * 0 = nan`` regenerates NaN
+    from zeros), so the loop re-applies the mask after every chunk while
+    a dead lane exists: one elementwise ``where`` each."""
+    import torch
+
+    m = torch.as_tensor(np.asarray(alive, dtype=bool),
+                        device=X.device)[:, None, None]
+    return (torch.where(m, X, torch.zeros((), dtype=X.dtype,
+                                          device=X.device)),
+            torch.where(m, Y, torch.zeros((), dtype=Y.dtype,
+                                          device=Y.device)))
+
+
+def run_chunked_grid(run_iters: Callable[[Any, Any, int], Tuple[Any, Any]],
+                     X: Any, Y: Any, total_iterations: int,
+                     ckpt: Optional[TrainCheckpointer], *,
+                     to_host: Callable[[Any], np.ndarray],
+                     from_host: Callable[[np.ndarray], Any],
+                     objective: Optional[Callable[[Any, Any], Any]] = None,
+                     history: Optional[List[dict]] = None
+                     ) -> Tuple[Any, Any, np.ndarray]:
+    """:func:`run_chunked` for the config grid: the carries are stacked
+    ``[k, ...]`` and divergence is per config. A non-finite config is
+    masked out (factors zeroed, see :func:`_mask_dead_configs`) and
+    counted once in ``pio_train_diverged_total`` while its neighbours
+    keep training; the run aborts (``TrainingDivergedError``) only when
+    every config is dead. The alive mask rides the manifest's ``extra``
+    block (``aliveConfigs``, with ``gridK``), so a resume does not bring
+    a masked config back. Returns ``(X, Y, alive)``, ``alive`` a host
+    ``[k]`` bool vector.
+
+    ``objective`` returns the ``[k, 3]`` loss packs (the graded guard);
+    the samples go to ``history`` (the leaderboard's loss trajectories)
+    and the run log. The chunked lane samples every chunk; without a
+    checkpointer one sample at the end still grades the result."""
+    from predictionio_tpu_torch.utils import metrics
+
+    total = int(total_iterations)
+    k = int(X.shape[0])
+    alive = np.ones(k, dtype=bool)
+    died_step: Dict[int, int] = {}
+    last_totals: List[Optional[float]] = [None] * k
+
+    def guard_and_mask(X, Y, alive, step, finite=None):
+        if finite is None:
+            finite = _grid_factors_finite(X, Y)
+        finite = np.asarray(finite, dtype=bool)
+        for idx in np.flatnonzero(alive & ~finite):
+            idx = int(idx)
+            died_step[idx] = int(step)
+            lt = last_totals[idx]
+            logger.warning(
+                "grid config %d diverged after iteration %d/%d%s; "
+                "masking it out (factors zeroed, neighbors "
+                "unaffected)", idx, step, total,
+                "" if lt is None
+                else f" (last finite loss total={lt:.6g})")
+            metrics.TRAIN_DIVERGED.inc()
+        alive = alive & finite
+        if not alive.all():
+            # every chunk while a dead lane exists, not just on the
+            # transition: an inf hyperparameter regenerates NaN from the
+            # zeroed factors (inf * 0)
+            X, Y = _mask_dead_configs(X, Y, alive)
+        return X, Y, alive
+
+    if ckpt is None:
+        X, Y = run_iters(X, Y, total)
+        pack = None
+        if objective is not None:
+            pack = np.asarray(objective(X, Y).cpu(), dtype=np.float64)
+            X, Y, alive = guard_and_mask(X, Y, alive, total,
+                                         pack[:, 2] == 1.0)
+        else:
+            X, Y, alive = guard_and_mask(X, Y, alive, total)
+        if not alive.any():
+            raise TrainingDivergedError(
+                f"every grid config diverged within {total} "
+                f"iterations ({_grid_deaths(died_step)}); nothing "
+                "to return")
+        if pack is not None and history is not None:
+            history.append(_grid_loss_entry(total, pack, alive))
+        return X, Y, alive
+
+    step = 0
+    resumed = ckpt.resume_state()
+    if resumed is not None:
+        step, Xh, Yh = resumed
+        if step > total:
+            raise CheckpointMismatchError(
+                f"checkpoint step {step} exceeds this run's "
+                f"num_iterations={total}")
+        if tuple(Xh.shape) != tuple(X.shape) \
+                or tuple(Yh.shape) != tuple(Y.shape):
+            raise CheckpointMismatchError(
+                f"checkpoint factor shapes X{tuple(Xh.shape)}/"
+                f"Y{tuple(Yh.shape)} do not match this grid's "
+                f"X{tuple(X.shape)}/Y{tuple(Y.shape)}; "
+                "refusing to resume")
+        saved = ckpt.resumed_extra.get("aliveConfigs")
+        if isinstance(saved, list) and len(saved) == k:
+            alive = np.asarray(saved, dtype=bool)
+        X, Y = from_host(Xh), from_host(Yh)
+        if not alive.all():
+            X, Y = _mask_dead_configs(X, Y, alive)
+    rl = run_id = None
+    if objective is not None:
+        run_id, rl = _open_runlog(ckpt, step, total)
+    try:
+        for n in chunk_schedule(total - step, ckpt.every):
+            t0 = _time.perf_counter()
+            X, Y = run_iters(X, Y, int(n))
+            pack = device_s = finite = None
+            if objective is not None:
+                _synchronize(X)
+                device_s = _time.perf_counter() - t0
+                pack = np.asarray(objective(X, Y).cpu(), dtype=np.float64)
+                finite = pack[:, 2] == 1.0
+            step += n
+            X, Y, alive = guard_and_mask(X, Y, alive, step, finite)
+            if not alive.any():
+                raise TrainingDivergedError(
+                    f"every grid config diverged by iteration {step}/"
+                    f"{total} ({_grid_deaths(died_step)}); aborting "
+                    f"(last intact checkpoint retained in "
+                    f"{ckpt.directory})")
+            extra = {"aliveConfigs": [bool(a) for a in alive],
+                     "gridK": k}
+            if run_id is not None:
+                extra["runId"] = run_id
+            blob_path = ckpt.save(step, to_host(X), to_host(Y),
+                                  extra=extra)
+            if pack is not None:
+                entry = _grid_loss_entry(step, pack, alive)
+                if history is not None:
+                    history.append(entry)
+                for i, t in enumerate(entry["total"]):
+                    if t is not None:
+                        last_totals[i] = t
+                _observe_grid_chunk(rl, run_id, step, total, int(n),
+                                    entry, alive,
+                                    _time.perf_counter() - t0,
+                                    device_s, blob_path, device=X.device)
+            if step < total and stop_requested():
+                raise TrainingPreempted(
+                    f"stop requested: grid checkpoint saved at "
+                    f"iteration {step}/{total} in {ckpt.directory}; "
+                    f"rerun to resume")
+    finally:
+        if rl is not None:
+            rl.close()
+    return X, Y, alive

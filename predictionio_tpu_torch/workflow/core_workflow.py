@@ -1,19 +1,21 @@
-"""CoreWorkflow: train, store the models and record the engine instance.
+"""CoreWorkflow: train or evaluate, and record the instance.
 
 The port's copy of ``serialize_models``, ``deserialize_models``,
-``load_engine_factory`` and ``run_train`` from
-``predictionio_tpu/workflow/core_workflow.py``: train, pickle the
-models into the Models repository under the instance's id (in the same
-sha256 envelope, so a torn blob is refused), then mark the
-EngineInstance ``COMPLETED`` (``FAILED`` when training raises).
+``load_engine_factory``, ``run_train`` and ``run_evaluation`` from
+``predictionio_tpu/workflow/core_workflow.py``: ``run_train`` trains,
+pickles the models into the Models repository under the instance's id
+(in the same sha256 envelope, so a torn blob is refused), then marks the
+EngineInstance ``COMPLETED`` (``FAILED`` when training raises);
+``run_evaluation`` evaluates every param set, scores them with the
+evaluator and marks the EvaluationInstance ``EVALCOMPLETED`` with the
+rendered results (``FAILED`` when it raises).
 
 A stored blob is a pickle. The port unpickles it through
 :class:`PortUnpickler`, which refuses every class of the JAX package
 (``predictionio_tpu`` and below) without importing it: a model the JAX
-package stored raises ``StorageError`` naming the class. Evaluation
-(``run_evaluation``) comes with ROADMAP queue A item 7, and training
-across several hosts with item 6: ``run_train`` raises when
-``torch.distributed`` spans more than one process.
+package stored raises ``StorageError`` naming the class. Training across
+several hosts comes with ROADMAP queue A item 6: ``run_train`` raises
+when ``torch.distributed`` spans more than one process.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ from predictionio_tpu_torch.controller.persistent import (
     is_jax_package_module,
 )
 from predictionio_tpu_torch.core.base import (
+    BaseEvaluator,
+    BaseEvaluatorResult,
     TrainingInterruption,
     WorkflowParams,
 )
@@ -39,6 +43,7 @@ from predictionio_tpu_torch.core.context import ComputeContext
 from predictionio_tpu_torch.data import storage
 from predictionio_tpu_torch.data.storage.base import (
     EngineInstance,
+    EvaluationInstance,
     Model,
     StorageError,
 )
@@ -164,5 +169,42 @@ def run_train(engine: Engine, engine_params: EngineParams,
         return None
     except Exception:
         engine_instances.update(dataclasses.replace(
+            instance, status="FAILED", end_time=_now()))
+        raise
+
+
+def run_evaluation(engine: Engine,
+                   engine_params_list: Sequence[EngineParams],
+                   evaluation_instance: EvaluationInstance,
+                   evaluator: BaseEvaluator, evaluation: Any = None,
+                   params: Optional[WorkflowParams] = None,
+                   ctx: Optional[ComputeContext] = None
+                   ) -> BaseEvaluatorResult:
+    """``batch_eval`` over every param set, score with the evaluator,
+    and record the EvaluationInstance: ``EVALCOMPLETED`` with the
+    result's one-liner, HTML and JSON (not stored when the result says
+    ``no_save``), ``FAILED`` when anything raises. ``ctx`` names the
+    device (None = cuda)."""
+    params = params or WorkflowParams()
+    ctx = ctx or ComputeContext()
+    evaluation_instances = storage.get_metadata_evaluation_instances()
+    instance_id = evaluation_instances.insert(evaluation_instance)
+    logger.info("Starting evaluation instance ID: %s", instance_id)
+    instance = evaluation_instances.get(instance_id)
+    assert instance is not None
+    try:
+        eval_data = engine.batch_eval(ctx, list(engine_params_list), params)
+        result = evaluator.evaluate_base(ctx, evaluation, eval_data, params)
+        if result.no_save:
+            logger.info("Result not inserted into database: %r", result)
+        else:
+            evaluation_instances.update(dataclasses.replace(
+                instance, status="EVALCOMPLETED", end_time=_now(),
+                evaluator_results=result.to_one_liner(),
+                evaluator_results_html=result.to_html(),
+                evaluator_results_json=result.to_json()))
+        return result
+    except Exception:
+        evaluation_instances.update(dataclasses.replace(
             instance, status="FAILED", end_time=_now()))
         raise

@@ -392,10 +392,25 @@ class TestNotImplemented:
             train_als_auto(*sides, tals.ALSParams(precision="fp64"), CPU)
 
     def test_extra_ridge_raises(self):
-        Y, cols, w, mask, _ = assembly_case(18)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tals._solve_rows(t(Y), t(cols), t(w), t(mask), 0.1, 1.0, True,
-                             extra_ridge=torch.ones(6))
+        """Once a refusal, now the config grid's rank padding: a rank-3
+        factor table padded to 6 (zero columns, unit ridge on their
+        diagonal) solves like JAX's ``_solve_rows(extra_ridge=...)`` to
+        1e-4 of the largest entry, implicit and explicit, and the pad
+        coordinates come out exactly zero."""
+        Y, cols, w, mask, _ = assembly_case(18, integer=False)
+        Y[:, 3:] = 0.0
+        ridge = (np.arange(6) >= 3).astype(np.float32)
+        for implicit in (True, False):
+            want = np.asarray(jals._solve_rows(
+                jnp.asarray(Y), jnp.asarray(cols), jnp.asarray(np.abs(w)),
+                jnp.asarray(mask), 0.1, 1.0, implicit,
+                extra_ridge=jnp.asarray(ridge)))
+            got = tals._solve_rows(t(Y), t(cols), t(np.abs(w)), t(mask), 0.1,
+                                   1.0, implicit,
+                                   extra_ridge=t(ridge)).numpy()
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=1e-4 * np.abs(want).max())
+            assert not got[:, 3:].any()
 
     def test_several_devices_raise(self, sides):
         with pytest.raises(NotImplementedError, match="ROADMAP A6"):

@@ -1,8 +1,8 @@
 """The port's ``pio`` console against the JAX package's, on the CPU.
 
 - ``build_parser`` of both packages has the same verbs and the same
-  options on each (the port adds ``--device`` to ``train`` and
-  ``deploy``).
+  options on each (the port adds ``--device`` to ``train``, ``eval`` and
+  ``deploy``), and ``eval``'s arguments parse alike.
 - ``pio app`` and ``pio accesskey`` print what the JAX console prints,
   access keys aside.
 - ``pio export`` of a store the JAX package wrote, the port's ``pio
@@ -53,7 +53,8 @@ from test_torch_lifecycle import configure, fill
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CPU = ComputeContext(device="cpu")
 UTC = dt.timezone.utc
-PORT_ONLY = {("train", "--device"), ("deploy", "--device")}
+PORT_ONLY = {("train", "--device"), ("eval", "--device"),
+             ("deploy", "--device")}
 
 
 def surface(parser):
@@ -95,6 +96,25 @@ def test_parser_adds_only_the_device_option():
              if k not in JAX_SURFACE[v]}
     assert extra == PORT_ONLY
     assert PORT_SURFACE[("train",)]["--device"][1] == repr("cuda")
+
+
+@pytest.mark.parametrize("argv", [
+    ["eval", "m:Ev"],
+    ["eval", "m:Ev", "m:Gen", "--batch", "b1"],
+    ["eval", "--grid", "g.json", "--grid-out", "out.json", "--topk", "5"],
+    ["eval", "--grid", "g.json", "--device", "cpu"],
+], ids=" ".join)
+def test_eval_parses_as_the_jax_eval(argv):
+    """``eval`` (once refused): both parsers give the same arguments and
+    handlers of the same name; the port's ``--device`` defaults to
+    cuda."""
+    jargv = [a for a in argv if a not in ("--device", "cpu")]
+    want = vars(jcli.build_parser().parse_args(jargv))
+    got = vars(tcli.build_parser().parse_args(argv))
+    assert got.pop("device") == ("cpu" if "--device" in argv else "cuda")
+    assert got.pop("func").__name__ == want.pop("func").__name__ == \
+        "cmd_eval"
+    assert got == want
 
 
 @pytest.fixture
@@ -313,7 +333,6 @@ def test_train_and_deploy_default_to_cuda_and_raise_without_it(
 
 
 UNPORTED = [
-    (["eval", "x:y"], "A7"),
     (["batchpredict", "--smoke"], "A7"),
     (["adminserver"], "A7"),
     (["dashboard"], "A7"),

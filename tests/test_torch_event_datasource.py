@@ -7,8 +7,9 @@ with the same params, in one scan and streamed in blocks, with the
 items' categories, and must give equal training data; the preparator
 then lays both out byte for byte alike (the streamed blocks reach the
 dedup sort as runs, which the port merges natively). The pipelined read
-without ``streamingBlockSize`` raises as the JAX one does, and the
-evaluation reads are not ported and raise.
+without ``streamingBlockSize`` raises as the JAX one does; the default
+evaluation read returns its leave-last-out set
+(``tests/test_torch_evaluation.py`` holds it against the JAX one).
 """
 
 import datetime as dt
@@ -166,8 +167,11 @@ def test_unported_reads_raise(tmp_path):
     with pytest.raises(ValueError, match="requires streaming_block_size"):
         piped.read_training(None)
     plain = teng.EventDataSource(teng.DataSourceParams(app_name="MyApp"))
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        plain.read_eval(None)
+    # read_eval, once refused, returns the leave-last-out eval set
+    [(td, info, qa)] = plain.read_eval(None)
+    assert type(info).__name__ == "EmptyEvalInfo"
+    assert len(td) + len(qa) == len(plain.read_training(None))
+    assert {q.user for q, _ in qa} <= set(td.users.tolist())
     unknown = teng.EventDataSource(teng.DataSourceParams(app_name="NoApp"))
     with pytest.raises(ValueError, match="NoApp"):
         unknown.read_training(None)

@@ -181,8 +181,9 @@ def test_cpu_staging_is_synchronous_and_warmup_needs_nothing():
     class Grid:
         configs = [tals.ALSParams()]
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        tals.warmup_train_als_bucketed(us, us, Grid(), device="cpu")
+    # a config grid's warm-up, once refused, readies what one config needs
+    assert tals.warmup_train_als_bucketed(us, us, Grid(),
+                                          device="cpu") is True
 
 
 def test_stage_timeline_summary_equals_the_jax_one():

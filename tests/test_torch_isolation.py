@@ -7,7 +7,8 @@ runs list``), and from a ``jsonlfs`` store through the pipelined read,
 import, train and serve in a process where both are unimportable, as
 does the console's quick start (``pio app
 new``, ``import``, the event server, ``template get``, ``train``,
-``export``). ``chip_smoke.py`` refuses to run without a GPU."""
+``export``) and the tuning grid (``pio eval --grid``). ``chip_smoke.py``
+refuses to run without a GPU."""
 
 import ast
 import os
@@ -235,6 +236,13 @@ assert cli.main(["train", "--device", "cpu", "--engine-variant",
 assert cli.main(["export", "--app-name", "app", "--output",
                  str(work / "out.jsonl")]) == 0
 assert len((work / "out.jsonl").read_text().splitlines()) == 120
+(work / "grid.json").write_text(json.dumps({
+    "base": {"rank": 3, "numIterations": 1, "seed": 1},
+    "configs": [{"lambda": 0.1}, {"rank": 2}], "data": {"appName": "app"}}))
+assert cli.main(["eval", "--grid", str(work / "grid.json"), "--grid-out",
+                 str(work / "board.json"), "--topk", "3",
+                 "--device", "cpu"]) == 0
+assert json.loads((work / "board.json").read_text())["winner"] is not None
 storage.reset()
 assert not any(m == "jax" or m.startswith(("jax.", "predictionio_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
@@ -244,8 +252,9 @@ print("console ran")
 
 def test_console_path_runs_with_jax_unimportable(tmp_path):
     """``pio app new`` -> ``import`` -> the event server ->
-    ``template get`` -> ``train --device cpu`` -> ``export`` in a process
-    where ``jax`` and ``predictionio_tpu`` cannot be imported. The store,
+    ``template get`` -> ``train --device cpu`` -> ``export`` -> ``eval
+    --grid --device cpu`` in a process where ``jax`` and
+    ``predictionio_tpu`` cannot be imported. The store,
     the engine directory and the export live in ``tmp_path``, which is
     also the child's working directory."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
