@@ -144,6 +144,23 @@ Phases (any failure raises and the script exits non-zero):
    rounds of 5 runs: metrics, tracing and device telemetry on, all
    killed, and each alone on; each mode's percentiles, and the user
    queries' split with all on against tracing alone.
+3c. ``pio batchpredict``'s engine at ML-20M width on phase 5's stored
+   engine instance (put back into a memory store) at phase 3's serving
+   precision: a JSONL file of every known user (``num`` 10), 16 unknown
+   users, 64 known users with a five-item blacklist and 16
+   item-similarity queries; chunks of 256, ``jsonl``. Checks: (a) the
+   summary counts every query and every chunk was scored; (b) the first,
+   the last and random chunks (1,024 queries or more) equal byte for
+   byte the records of ``serve_one`` (the looped single-query path, B1
+   at B = 1) over the same queries; (c) B1's launches by (route, k, B)
+   equal the chunk plan's (one ``users_topk`` launch per chunk and k,
+   bitonic at B >= ``CHUNKED_MAX_B``; one per similarity query); (d) a
+   run stopped after 200 chunks resumes, skips them, scores the rest,
+   and its shards are byte-equal to the clean run's. Prints the wall and
+   scoring seconds, queries/s, B1's device ms over the run (CUDA
+   events), one median chunk's split (extraction and supplement,
+   ``users_topk`` launch and copy, results, render, write and fsync) and
+   the looped path's queries/s.
 3b. Online fold-in at ML-20M width: a sqlite event store in a
    temporary directory holds the full histories of 512 of phase 5's
    users in phase 5's event order (the heaviest, at the 2,048 cap,
@@ -231,10 +248,21 @@ Phases (any failure raises and the script exits non-zero):
    instance); ``pio deploy`` as a child answers phase 6's queries equal
    to the model loaded in-process from its own instance, and its
    ``/dispatches.json`` holds flight records with CUDA-event time;
-   ``POST /profile/start``, ``/profile/stop`` and a second stop (409);
-   ``pio undeploy`` (the child must have launched the top-k kernel, and
+   ``POST /profile/start``, 20 queries, ``/profile/stop`` and a second
+   stop (409), whose ``trace.json`` must hold a ``score_tile_kernel``
+   event (one per B1 launch) for every dispatch of the window, and names
+   the host threads that launched them; ``pio undeploy`` (the child must have launched the top-k kernel, and
    the port answer nothing after); ``pio export`` writes one line per
-   event written. Then the crash pair: ``pio train --precision bf16
+   event written. ``pio eventserver`` and ``pio deploy --feedback
+   --accesskey K`` as children: 24 queries, and the store then holds 24
+   ``predict`` events of entity type ``pio_pr``; ``pio top --once``
+   against that deploy prints the store line (precision, users, items,
+   bytes)
+   and lane lines with dispatches. ``pio batchpredict`` over every user
+   (``--input``, chunks of 16): a clean run, a run killed with SIGKILL
+   once its journal holds a chunk, and its rerun, which must resume at
+   least one chunk and give shards equal to the clean run's. Then the
+   crash pair: ``pio train --precision bf16
    --checkpoint-dir D --checkpoint-every 1``, each save held 2 s by
    ``PIO_FAULTS`` (slow), is killed with SIGKILL once its second
    checkpoint lands; ``pio train ... --resume`` must give factors bitwise
@@ -249,7 +277,9 @@ Phases (any failure raises and the script exits non-zero):
    ``EVALCOMPLETED`` evaluation instance, its batch prediction launching
    B1's batched route; each param set's Precision@10 equals the one
    scored in this process on the same trained factors with B1 and with
-   its plain version.
+   its plain version. ``pio dashboard`` (a child) lists the
+   ``EVALCOMPLETED`` instance, and ``pio adminserver`` creates, lists
+   and deletes an app.
 7. Model quality on ``bench_quality.run``'s protocol at its shape
    (943 x 1,682 x 100,000, leave-last-2-out, rank 32, 10 iterations):
    Precision@10 and NDCG@10 of the port's trainer at seeds 3, 17 and
@@ -262,7 +292,8 @@ It prints a ``{"kernels": [...]}`` line (the training kernels' ``routes``
 hold the main path's, the large-rank one and ``foldin``, with phase 3b's
 launches, the config grid's, with phase 5d's, and the assembly's
 ``tiles_bf16``, with phase 5c's; the serving kernel's ``eval_routes``
-hold ``grid_topk`` and ``batch_predict``, with phases 5d's and 6c's),
+hold ``grid_topk`` and ``batch_predict``, with phases 5d's and 6c's,
+and its ``batch_routes`` phase 3c's and 6b's ``pio batchpredict``),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.
 """
@@ -881,6 +912,8 @@ def train_full_width(dev, seed: int, store: dict) -> dict:
     instance = storage.get_metadata_engine_instances().get(iid)
     if instance is None or instance.status != "COMPLETED":
         raise AssertionError(f"engine instance {iid}: {instance}")
+    # the stored instance outlives the store: phase 3c deploys it again
+    models_blob = storage.get_model_data_models().get(iid)
     model, td = record["model"], record["read_out"]
     pd, prep_s = record["prepare_out"], record["prepare"]
     for name, n in {**launches, **native_calls}.items():
@@ -955,6 +988,7 @@ def train_full_width(dev, seed: int, store: dict) -> dict:
                              f"trainer's: {errs}")
     del u_t, i_t, X0, Y0, Xp, Yp
     return {"model": model, "pd": pd, "launches": launches,
+            "instance": instance, "models_blob": models_blob,
             "iteration_ms": wall, "busy_ms": busy, "prepare_s": prep_s,
             "prepare_split": prepare_split, "native_calls": native_calls,
             "train_errs": errs, "read_s": record["read"],
@@ -2786,6 +2820,320 @@ def serve_full_width(model, seed: int) -> dict:
             "overhead": overhead}
 
 
+# -- phase 3c: pio batchpredict at ML-20M width --------------------------------
+
+BP_CHUNK = 256          # queries per chunk (the B1 bitonic route's B)
+BP_UNKNOWN, BP_BLACKLISTED, BP_SIMILAR = 16, 64, 16
+BP_FAIL_AFTER = 200     # chunks the interrupted run scores
+BP_SAMPLE = 1_024       # queries held byte for byte against serve_one
+
+
+def bp_queries(model, seed: int) -> list:
+    """Phase 3c's query file: every known user ``{"user", "num": 10}`` in
+    index order, with unknown users, known users with a five-item
+    blacklist and item-similarity queries at seeded random places."""
+    rng = np.random.default_rng(seed + 31)
+    users, items = model.user_map.labels, model.item_map.labels
+    queries = [{"user": u, "num": 10} for u in users]
+    extra = [{"user": f"ghost{j}", "num": 10} for j in range(BP_UNKNOWN)]
+    extra += [{"user": users[u], "num": 10, "blacklist": [
+        items[i] for i in rng.choice(len(items), 5, replace=False)]}
+        for u in rng.integers(0, len(users), BP_BLACKLISTED)]
+    extra += [{"items": [items[i] for i in rng.choice(len(items), n,
+                                                      replace=False)],
+               "num": 10} for n in rng.integers(1, 4, BP_SIMILAR)]
+    for q in extra:
+        queries.insert(int(rng.integers(0, len(queries) + 1)), q)
+    return queries
+
+
+def bp_plan(model, srv, queries: list, spans: list) -> "collections.Counter":
+    """The B1 launches by (route, k, B) the chunk plan implies: per chunk,
+    one ``users_topk`` launch per k of its known-user queries (the
+    template's ``batch_predict`` groups them by ``num + |blacklist|``),
+    one launch per item-similarity query (B = 1)."""
+    import collections
+
+    from predictionio_tpu_torch.ops import als_cuda, serving
+
+    rows = int(srv._Y.shape[0])
+    plan: collections.Counter = collections.Counter()
+
+    def add(k: int, B: int) -> None:
+        kb = min(serving.bucket_size(k), srv.n_items)
+        route = als_cuda.topk_sort_plan(kb, rows, B, 1 << 30).route
+        plan[(route, kb, B)] += 1
+
+    for start, stop in spans:
+        groups: collections.Counter = collections.Counter()
+        for q in queries[start:stop]:
+            if q.get("items"):
+                add(q["num"], 1)
+            elif model.user_map.get(q["user"]) is not None:
+                black = {i for i in q.get("blacklist", ())
+                         if model.item_map.get(i) is not None}
+                groups[q["num"] + len(black)] += 1
+        for k, B in groups.items():
+            add(k, B)
+    return plan
+
+
+class ChunkClock:
+    """Per-chunk seconds of a batch-prediction run, from wrappers around
+    the predictor's steps: the chunk (``took``, as the run observes it),
+    ``score_chunk``, each algorithm's ``batch_predict``, the device
+    store's ``users_topk``, the serving's ``serve``, the rendering and
+    the shard write. ``split()`` gives one chunk's parts."""
+
+    def __init__(self, bp, dep):
+        from predictionio_tpu_torch.utils import device_telemetry, metrics
+
+        self.chunks: list = []
+        self.device_us = 0.0
+        self._cur: dict = {}
+        self._undo: list = []
+        algo, model = dep.algorithms[0], dep.models[0]
+        self._wrap(bp, "score_chunk", "score", opens=True)
+        self._wrap(bp, "_render_records", "render")
+        self._wrap(bp, "_write_shard", "write")
+        self._wrap(algo, "batch_predict_base", "predict")
+        self._wrap(model.device_server(), "users_topk", "topk")
+        self._wrap(dep.serving, "serve_base", "serve")
+        hist = metrics.BATCHPREDICT_CHUNK_LATENCY
+        observe = hist.observe
+
+        def observed(took, **labels):
+            self._cur["took"] = took
+            self.chunks.append(self._cur)
+            return observe(took, **labels)
+        hist.observe = observed
+        self._undo.append(lambda: vars(hist).pop("observe"))
+        record = device_telemetry.record_dispatch
+
+        def recorded(**kw):
+            if kw.get("device_us") is not None:
+                self.device_us += kw["device_us"]
+            return record(**kw)
+        device_telemetry.record_dispatch = recorded
+        self._undo.append(lambda: setattr(device_telemetry,
+                                          "record_dispatch", record))
+
+    def _wrap(self, obj, name: str, part: str, opens: bool = False) -> None:
+        fn = getattr(obj, name)
+
+        def timed(*args, **kw):
+            if opens:
+                self._cur = {}
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self._cur[part] = self._cur.get(part, 0.0) \
+                    + time.perf_counter() - t
+        setattr(obj, name, timed)
+        self._undo.append(lambda: vars(obj).pop(name))
+
+    def close(self) -> None:
+        for undo in reversed(self._undo):
+            undo()
+
+    @staticmethod
+    def split(c: dict) -> dict:
+        """One chunk's ms: extraction + supplement, the launches and
+        copies of ``users_topk``, the result objects and serving, the
+        rendering, the shard write with the journal's fsync."""
+        ms = {k: v * 1e3 for k, v in c.items()}
+        g = lambda k: ms.get(k, 0.0)
+        return {"extract+supplement": g("score") - g("predict") - g("serve"),
+                "users_topk launch+copy": g("topk"),
+                "results": g("predict") - g("topk") + g("serve"),
+                "render": g("render"),
+                "write+fsync": g("took") - g("score") - g("render"),
+                "chunk": g("took")}
+
+
+def batch_predict_full_width(trained: dict, seed: int, card: str) -> dict:
+    """Phase 3c: ``pio batchpredict``'s engine at ML-20M width, on phase
+    5's stored engine instance (its instance and model blob put back
+    into a memory store) at phase 3's serving precision, with the query
+    file of :func:`bp_queries` (138,589 queries), chunks of 256, jsonl.
+    Checks: (a) the summary counts every query and every chunk was
+    scored; (b) the records of the first, the last and random chunks,
+    ``BP_SAMPLE`` queries or more, equal byte for byte the records of
+    ``serve_one`` (the looped path: the micro-batcher, B1 at B = 1) over
+    the same queries; (c) B1's launches by (route, k, B) equal the chunk
+    plan's; (d) a run stopped after ``BP_FAIL_AFTER`` chunks
+    (``fail_after_chunks``) resumes, skips them, scores the rest, and
+    its shards are byte-equal to the clean run's. Prints the run's wall
+    and scoring seconds, queries/s, B1's device ms (CUDA events) over
+    the run, one median chunk's split and the looped path's queries/s."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+
+    from predictionio_tpu_torch.batch import predict as bp_mod
+    from predictionio_tpu_torch.core.context import ComputeContext
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.ops import als_cuda
+
+    model = trained["model"]
+    work = tempfile.mkdtemp(prefix="pio-batchpredict-")
+    storage.reset(storage.StorageConfig(
+        {"M": {"type": "memory"}}, {r: "M" for r in storage.REPOSITORIES}))
+    bp = None
+    try:
+        storage.get_metadata_engine_instances().insert(trained["instance"])
+        storage.get_model_data_models().insert(trained["models_blob"])
+        t = time.perf_counter()
+        queries = bp_queries(model, seed)
+        qfile = os.path.join(work, "queries.jsonl")
+        with open(qfile, "w", encoding="utf-8") as f:
+            f.writelines(json.dumps(q) + "\n" for q in queries)
+        write_s = time.perf_counter() - t
+        config = bp_mod.BatchPredictConfig(
+            output_dir=os.path.join(work, "clean"),
+            engine_instance_id=trained["instance"].id, input_path=qfile,
+            chunk_size=BP_CHUNK)
+        ctx = ComputeContext()
+        t = time.perf_counter()
+        bp = bp_mod.BatchPredictor(config, ctx=ctx)
+        dep = bp.load()
+        load_s = time.perf_counter() - t
+        srv = dep.models[0].device_server()
+        print(f"[batch] {len(queries)} queries written in {write_s:.2f} s; "
+              f"instance {trained['instance'].id} loaded and warmed in "
+              f"{load_s:.2f} s ({srv.precision} store, "
+              f"{srv.store_bytes()} bytes)")
+
+        als_cuda.launches.reset()
+        clock = ChunkClock(bp, dep)
+        try:
+            summary = bp.run()
+            torch.cuda.synchronize()
+        finally:
+            clock.close()
+        launches = als_cuda.launches.by_key()
+        spans = [(c["start"], c["start"] + c["count"])
+                 for c in bp_mod.Manifest.load(os.path.join(
+                     config.output_dir, bp_mod.MANIFEST_NAME)).chunks]
+        # (a): every query counted, every chunk of the plan scored, and
+        # the chunks tile the input
+        tiled = ([s for s, _ in spans] == [0] + [e for _, e in spans[:-1]]
+                 and spans[-1][1] == len(queries))
+        if (summary["queries"] != len(queries)
+                or summary["chunks"] != len(spans)
+                or summary["chunksScored"] != len(spans)
+                or summary["chunksSkipped"] != 0 or not tiled):
+            raise AssertionError(f"batch predict summary {summary}, "
+                                 f"{len(spans)} chunks, tiled={tiled}")
+        # (c)
+        plan = bp_plan(model, srv, queries, spans)
+        by_route: dict = {}
+        for (route, _, _), n in launches.items():
+            by_route[route] = by_route.get(route, 0) + n
+        print(f"[batch] B1 launches by route: {by_route}; by (route, k, B): "
+              + ", ".join(f"{r} k={k} B={b}: {n}"
+                          for (r, k, b), n in sorted(launches.items())))
+        if launches != dict(plan):
+            raise AssertionError(f"B1 launches {launches} != the chunk "
+                                 f"plan's {dict(plan)}")
+        # the run's numbers and one median chunk's split
+        took = [c["took"] for c in clock.chunks]
+        median = clock.chunks[int(np.argsort(took)[len(took) // 2])]
+        split = ChunkClock.split(median)
+        mean_split = {k: float(np.mean([ChunkClock.split(c)[k]
+                                        for c in clock.chunks]))
+                      for k in split}
+        qps = summary["queries"] / summary["wallSec"]
+        print(f"[batch] {summary['queries']} queries in {summary['chunks']} "
+              f"chunks: wall {summary['wallSec']!r} s, scoring "
+              f"{summary['scoringSec']!r} s, {summary['queriesPerSec']!r} "
+              f"queries/s scoring, {qps!r} queries/s wall; B1 device "
+              f"{clock.device_us / 1e3!r} ms over the run "
+              f"({clock.device_us / 1e4 / summary['scoringSec']!r}% of the "
+              f"scoring time) ({card})")
+        print(f"[batch] median chunk split (ms): {json.dumps(split)}; mean "
+              f"over the chunks: {json.dumps(mean_split)}")
+
+        # (b) the looped path over sampled chunks, byte for byte
+        rng = np.random.default_rng(seed + 32)
+        picks = [0, len(spans) - 1]
+        while sum(spans[i][1] - spans[i][0] for i in picks) < BP_SAMPLE:
+            j = int(rng.integers(1, len(spans) - 1))
+            if j not in picks:
+                picks.append(j)
+        lines = bp_mod._canonical_query_lines(queries)
+        sampled = 0
+        t = time.perf_counter()
+        for i in picks:
+            start, stop = spans[i]
+            looped = [bp.serve_one(q) for q in queries[start:stop]]
+            want = "".join(r + "\n" for r in bp.__class__._render_records(
+                lines[start:stop], looped)).encode("utf-8")
+            with open(os.path.join(config.output_dir,
+                                   f"part-{i:05d}.jsonl"), "rb") as f:
+                if f.read() != want:
+                    raise AssertionError(f"chunk {i}'s shard differs from "
+                                         "the looped serve_one records")
+            sampled += stop - start
+        loop_s = time.perf_counter() - t
+        print(f"[batch] chunks {sorted(picks)} ({sampled} queries) equal "
+              f"the looped serve_one records byte for byte; the looped path "
+              f"{sampled / loop_s!r} queries/s ({card})")
+
+        # (d) an interrupted run, then its resume
+        resumed = dataclasses.replace(config,
+                                      output_dir=os.path.join(work, "resumed"))
+        als_cuda.launches.reset()
+
+        def run(cfg):
+            # a predictor of its own over the deployment already loaded
+            other = bp_mod.BatchPredictor(cfg, ctx=ctx)
+            other._deployment = dep
+            return other.run()
+
+        try:
+            run(dataclasses.replace(resumed, fail_after_chunks=BP_FAIL_AFTER))
+        except RuntimeError as e:
+            if "fault injection" not in str(e):
+                raise
+        else:
+            raise AssertionError("fail_after_chunks did not stop the run")
+        again = run(resumed)
+        if (again["chunksSkipped"], again["chunksScored"]) != (
+                BP_FAIL_AFTER, len(spans) - BP_FAIL_AFTER):
+            raise AssertionError(f"the resume: {again}")
+        for c in range(len(spans)):
+            name = f"part-{c:05d}.jsonl"
+            with open(os.path.join(config.output_dir, name), "rb") as a, \
+                    open(os.path.join(resumed.output_dir, name), "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"resumed shard {name} differs")
+        print(f"[batch] stopped after {BP_FAIL_AFTER} chunks, resumed: "
+              f"{again['chunksSkipped']} skipped, {again['chunksScored']} "
+              f"scored in {again['wallSec']!r} s; every shard byte-equal to "
+              f"the clean run's ({als_cuda.launches.value} B1 launches over "
+              f"both)")
+        return {"launches": sum(launches.values()), "by_route": by_route,
+                "queries": len(queries), "chunks": len(spans),
+                "wall_s": summary["wallSec"],
+                "scoring_s": summary["scoringSec"],
+                "queries_per_s": summary["queriesPerSec"],
+                "b1_device_ms": clock.device_us / 1e3,
+                "median_split_ms": split, "mean_split_ms": mean_split,
+                "looped_queries_per_s": sampled / loop_s}
+    finally:
+        if bp is not None and bp._deployment is not None:
+            for m in bp._deployment.models:
+                if getattr(m, "_server", None) is not None:
+                    m._server.close()
+                    m._server = None
+        storage.reset()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # -- phase 3b: online fold-in at ML-20M width ---------------------------------
 
 FOLDIN_APP = "FoldIn20M"
@@ -4535,6 +4883,198 @@ def qs_kill_and_resume(work: str, eng: str, env: dict, steps: dict) -> dict:
           f"{runs[0]['runId']}, steps {table}")
     return {"run": runs[0]["runId"], "steps": table}
 
+QS_PROFILE_QUERIES = 20   # user queries inside the /profile window
+QS_FEEDBACK = 24          # queries to the feedback deploy
+QS_BP_CHUNK = 16          # pio batchpredict's chunk size in phase 6b
+
+
+def qs_profile_window(base: str, queries: list) -> dict:
+    """``POST /profile/start``, ``queries`` (known users), ``/profile/stop``
+    twice (200, 200, 409), then the written ``trace.json``: B1's kernel
+    events in it, which host threads launched them (the runtime calls
+    that share their correlation ids), and the dispatches the flight
+    recorder counted in the window. The trace must hold at least one
+    ``score_tile_kernel`` event (one per B1 launch) per dispatch."""
+    import collections
+    import os
+
+    before = get_json(base + "/dispatches.json?limit=0")["recorded"]
+    codes = [post_status(base + "/profile/start")]
+    for q in queries:
+        status, _, _ = post(base + "/queries.json", q)
+        if status != 200:
+            raise AssertionError(f"{q} answered {status} in the window")
+    status, stopped, _ = post(base + "/profile/stop", {})
+    codes += [status, post_status(base + "/profile/stop")]
+    if codes != [200, 200, 409]:
+        raise AssertionError(f"/profile/start, stop, stop answered {codes}")
+    dispatched = get_json(base + "/dispatches.json?limit=0")["recorded"] \
+        - before
+    with open(os.path.join(stopped["profileDir"], "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    names = b1_kernel_names()
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and kernel_name(e.get("name", "")) in names]
+    by_name = collections.Counter(kernel_name(e["name"]) for e in kernels)
+    wanted = {(e.get("args") or {}).get("correlation") for e in kernels}
+    threads = collections.Counter(
+        e.get("tid") for e in events if e.get("cat") == "cuda_runtime"
+        and (e.get("args") or {}).get("correlation") in wanted)
+    print(f"[quickstart] /profile window: {len(queries)} queries, "
+          f"{dispatched} dispatches; trace.json holds {len(kernels)} B1 "
+          f"kernel events {dict(by_name)}, launched from host threads "
+          f"{dict(threads)}")
+    if by_name["score_tile_kernel"] < dispatched or not dispatched:
+        raise AssertionError(
+            f"the /profile capture holds {by_name['score_tile_kernel']} "
+            f"score_tile_kernel events for {dispatched} dispatches")
+    return {"codes": codes, "dispatches": dispatched,
+            "b1_events": dict(by_name), "threads": len(threads)}
+
+
+def qs_feedback_and_top(work: str, eng: str, env: dict, key: str,
+                        queries: list, steps: dict, card: str) -> dict:
+    """``pio-torch deploy --feedback --accesskey K`` against a ``pio
+    eventserver`` child on the quick start's store: ``QS_FEEDBACK``
+    queries, then (a bounded drain) the store must hold one ``predict``
+    event of entity type ``pio_pr`` per query, and no answer carries a
+    ``prId`` (the template's prediction has none); then ``pio-torch top
+    --once`` against the deploy: its store line names the precision,
+    users, items and bytes, and its lane lines count B1 dispatches."""
+    import re
+
+    from predictionio_tpu_torch.data import storage
+
+    children = []
+    try:
+        es, es_base, _ = pio_child(["eventserver", "--ip", "127.0.0.1",
+                                    "--port", "0"], env, work,
+                                   "Event Server is ready at")
+        children.append(es)
+        dep, base, steps["deploy --feedback ready"] = pio_child(
+            # "--accesskey=K": a key may begin with "-" (URL-safe base64)
+            ["deploy", "--ip", "127.0.0.1", "--port", "0", "--feedback",
+             f"--accesskey={key}", "--event-server-ip", "127.0.0.1",
+             "--event-server-port", es_base.rsplit(":", 1)[1]], env, eng,
+            "Engine API is live at")
+        children.append(dep)
+        sent = queries[:QS_FEEDBACK]
+        t = time.perf_counter()
+        for q in sent:
+            status, body, _ = post(base + "/queries.json", q)
+            if status != 200 or "prId" in body:
+                raise AssertionError(f"feedback deploy answered {status} "
+                                     f"{body} to {q}")
+        app = storage.get_metadata_apps().get_by_name(QS_APP)
+        stored = []
+        while time.perf_counter() - t < 30:
+            stored = list(storage.get_levents().find(
+                app.id, entity_type="pio_pr", event_names=["predict"]))
+            if len(stored) >= len(sent):
+                break
+            time.sleep(0.1)
+        drain = time.perf_counter() - t
+        steps["feedback queries and drain"] = drain
+        if len(stored) != len(sent):
+            raise AssertionError(f"{len(stored)} predict events stored for "
+                                 f"{len(sent)} feedback queries")
+        said, steps["top --once"] = pio(["top", "--once", "--url", base],
+                                        env, work)
+        store = [ln for ln in said.splitlines() if ln.startswith("store ")]
+        lanes = [ln for ln in said.splitlines() if ln.startswith("lane ")]
+        if len(store) != 1 or not re.match(
+                r"store    (fp32|bf16|int8)/fused · \d+u × \d+i · "
+                r"[0-9.]+[KMG]iB", 
+                store[0]) or not lanes or any(
+                int(ln.split()[2]) <= 0 for ln in lanes):
+            raise AssertionError(f"pio top --once printed {said!r}")
+        port = base.rsplit(":", 1)[1]
+        pio(["undeploy", "--ip", "127.0.0.1", "--port", port], env, eng)
+        tail = dep.stdout.read()
+        if dep.wait(timeout=60) != 0:
+            raise AssertionError(f"the feedback deploy exited "
+                                 f"{dep.returncode}")
+        print(f"[quickstart] pio deploy --feedback: {len(sent)} queries, "
+              f"{len(stored)} predict events (pio_pr) stored within "
+              f"{drain!r} s of the first; launches "
+              f"{launches_line(tail)}; pio top --once: {store[0]!r}, "
+              f"{lanes!r} ({card})")
+        return {"events": len(stored), "drain_s": drain, "top": said}
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.terminate()
+                child.wait(timeout=60)
+
+
+def qs_batchpredict(work: str, eng: str, env: dict, iid: str, model,
+                    steps: dict, card: str) -> dict:
+    """``pio-torch batchpredict`` over every quick-start user (the events
+    give no ``$set`` user entities, so ``--input`` holds the queries),
+    chunks of ``QS_BP_CHUNK``: a clean run; a second run killed with
+    SIGKILL once its journal holds a finished chunk, then rerun: the
+    rerun skips at least one chunk and its results, shard for shard,
+    equal the clean run's."""
+    import os
+    import re
+    import signal
+
+    from predictionio_tpu_torch.batch import predict as bp_mod
+
+    qfile = os.path.join(work, "bp_queries.jsonl")
+    with open(qfile, "w") as f:
+        f.writelines(json.dumps({"user": u, "num": 10}) + "\n"
+                     for u in model.user_map.labels)
+    args = ["batchpredict", "--engine-instance-id", iid, "--input", qfile,
+            "--chunk-size", str(QS_BP_CHUNK)]
+    clean, killed = (os.path.join(work, d) for d in ("bp_clean", "bp_kill"))
+    said, steps["batchpredict"] = pio(args + ["--output", clean], env, eng)
+    launched = launches_line(said)
+    if not launched["fused_gather_score_topk"]:
+        raise AssertionError(f"pio batchpredict launched {launched}")
+    journal = os.path.join(killed, bp_mod.JOURNAL_NAME)
+    t = time.perf_counter()
+    child = subprocess.Popen(CONSOLE + args + ["--output", killed], cwd=eng,
+                             env=env, stdout=subprocess.DEVNULL,
+                             stderr=subprocess.PIPE, text=True)
+    try:
+        while not (os.path.exists(journal) and os.path.getsize(journal)):
+            if child.poll() is not None or time.perf_counter() - t > 300:
+                break
+            time.sleep(0.002)
+        mid_run = child.poll() is None
+        child.send_signal(signal.SIGKILL)
+        child.wait(timeout=60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=60)
+    steps["batchpredict killed"] = time.perf_counter() - t
+    said, steps["batchpredict rerun"] = pio(args + ["--output", killed],
+                                            env, eng)
+    found = re.search(r"\((\d+) scored, (\d+) resumed\)", said)
+    scored, resumed = int(found.group(1)), int(found.group(2))
+    if resumed < 1:
+        raise AssertionError(f"the rerun resumed no chunk: {said!r}")
+    manifest = bp_mod.Manifest.load(os.path.join(clean,
+                                                 bp_mod.MANIFEST_NAME))
+    for c in manifest.chunks:
+        with open(os.path.join(clean, c["file"]), "rb") as a, \
+                open(os.path.join(killed, c["file"]), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{c['file']} of the rerun differs")
+    if bp_mod.read_results(killed) != bp_mod.read_results(clean):
+        raise AssertionError("the rerun's results differ")
+    print(f"[quickstart] pio batchpredict: {len(model.user_map)} queries in "
+          f"{len(manifest.chunks)} chunks, {steps['batchpredict']!r} s "
+          f"(the process), launches {launched}; killed (SIGKILL) "
+          f"{'mid-run' if mid_run else 'after its end'}, rerun: {scored} "
+          f"scored, {resumed} resumed, every shard equal to the clean "
+          f"run's ({card})")
+    return {"chunks": len(manifest.chunks), "launches": launched,
+            "scored": scored, "resumed": resumed, "mid_run": mid_run,
+            "s": steps["batchpredict"]}
+
 
 def quick_start(seed: int, cycle: dict, card: str,
                 keep_store: bool = False) -> dict:
@@ -4685,12 +5225,9 @@ def quick_start(seed: int, cycle: dict, card: str,
                                  f"CUDA-event time: {records['summary']}")
         steps["deployed queries"] = time.perf_counter() - t
         t = time.perf_counter()
-        codes = [post_status(base + path) for path in
-                 ("/profile/start", "/profile/stop", "/profile/stop")]
-        if codes != [200, 200, 409]:
-            raise AssertionError(f"/profile/start, stop, stop answered "
-                                 f"{codes}")
-        steps["profile start, stop, stop"] = time.perf_counter() - t
+        profiled = qs_profile_window(base, queries[:QS_PROFILE_QUERIES])
+        codes = profiled["codes"]
+        steps["profile start, queries, stop, stop"] = time.perf_counter() - t
         port = base.rsplit(":", 1)[1]
         _, steps["undeploy"] = pio(["undeploy", "--ip", "127.0.0.1",
                                     "--port", port], env, eng)
@@ -4709,12 +5246,13 @@ def quick_start(seed: int, cycle: dict, card: str,
         else:
             raise AssertionError("the port still answers after undeploy")
         out["deploy"] = {"s": deploy_s, "queries": len(got),
-                         "timed_records": len(timed), "launches": served}
+                         "timed_records": len(timed), "launches": served,
+                         "profile": profiled}
         print(f"[quickstart] pio deploy ready in {deploy_s!r} s; "
               f"{len(got)} answers equal the instance's in-process "
               f"answers; {len(timed)} flight records with CUDA-event "
-              f"time; /profile/start, stop, stop: {codes}; undeployed; "
-              f"launches {served} ({card})")
+              f"time; /profile/start, {QS_PROFILE_QUERIES} queries, stop, "
+              f"stop: {codes}; undeployed; launches {served} ({card})")
 
         t = time.perf_counter()
         _, err = export.communicate(timeout=600)
@@ -4735,6 +5273,10 @@ def quick_start(seed: int, cycle: dict, card: str,
               f"written) in {export_s!r} s, beside the deployment's "
               f"checks and undeploy")
 
+        out["feedback"] = qs_feedback_and_top(work, eng, env, key, queries,
+                                              steps, card)
+        out["batchpredict"] = qs_batchpredict(work, eng, env, iid, model,
+                                              steps, card)
         out["resume"] = qs_kill_and_resume(work, eng, env, steps)
         print("[quickstart] step seconds: " + ", ".join(
             f"{k} {v!r}" for k, v in steps.items()) + "; the short verbs "
@@ -4829,6 +5371,52 @@ def eval_scores_in_process(store: str) -> list:
         storage.reset()
 
 
+def console_operator(work: str, env: dict, evaluation_id: str,
+                     card: str) -> dict:
+    """Phase 6c's operator verbs on the quick start's store, each a
+    process: ``pio-torch dashboard`` must list the ``EVALCOMPLETED``
+    instance (its index and its JSON results), and ``pio-torch
+    adminserver`` creates, lists and deletes an app once."""
+    children, took = [], {}
+    try:
+        dash, dash_base, took["dashboard ready"] = pio_child(
+            ["dashboard", "--ip", "127.0.0.1", "--port", "0"], env, work,
+            "Dashboard is ready at")
+        children.append(dash)
+        with urllib.request.urlopen(dash_base + "/", timeout=60) as resp:
+            index = resp.read().decode()
+        results = get_json(f"{dash_base}/engine_instances/{evaluation_id}/"
+                           "evaluator_results.json")
+        if evaluation_id not in index or "engineParamsScores" not in results:
+            raise AssertionError(f"the dashboard lists {index[:500]!r}")
+        adm, adm_base, took["adminserver ready"] = pio_child(
+            ["adminserver", "--ip", "127.0.0.1", "--port", "0"], env, work,
+            "Admin Server is ready at")
+        children.append(adm)
+        status, made, _ = post(adm_base + "/cmd/app", {"name": "AdminApp"})
+        listed = [a["name"] for a in get_json(adm_base + "/cmd/app")["apps"]]
+        req = urllib.request.Request(adm_base + "/cmd/app/AdminApp",
+                                     method="DELETE")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            deleted = json.loads(resp.read())
+        after = [a["name"] for a in get_json(adm_base + "/cmd/app")["apps"]]
+        if status != 200 or made["status"] != 1 or len(made["key"]) != 64 \
+                or "AdminApp" not in listed or deleted["status"] != 1 \
+                or "AdminApp" in after or QS_APP not in after:
+            raise AssertionError(f"adminserver: {made}, {listed}, {deleted}, "
+                                 f"{after}")
+        print(f"[eval] pio dashboard lists the EVALCOMPLETED instance "
+              f"{evaluation_id}; pio adminserver created, listed and "
+              f"deleted AdminApp (apps before {listed}, after {after}); "
+              f"ready in {took} s ({card})")
+        return took
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.terminate()
+                child.wait(timeout=60)
+
+
 def console_eval(seed: int, kept: dict, card: str) -> dict:
     """Phase 6c: ``pio eval`` in both lanes through the console at ML-1M,
     on phase 6b's store (which it removes after). (1) A ``pio-torch eval
@@ -4915,6 +5503,7 @@ def console_eval(seed: int, kept: dict, card: str) -> dict:
             raise AssertionError("best.json is not the best params")
         out["evaluation"] = {"s": eval_s, "launches": launched,
                              "scores": child, "best_idx": result["bestIdx"]}
+        out["operator"] = console_operator(work, env, instances[0].id, card)
         print(f"[eval] pio eval chip_smoke:ml1m_evaluation in {eval_s!r} s "
               f"(the process): Precision@{GRID_TOPK} per param set {child} "
               f"(each equal to this process's on the same factors, with B1 "
@@ -5178,6 +5767,8 @@ def main() -> int:
                  store["ratings"], args.seed, card)
     served = phase("3 serving", serve_full_width, trained["model"],
                    args.seed)
+    batched = phase("3c batch predict", batch_predict_full_width, trained,
+                    args.seed, card)
     folded = phase("3b fold-in", foldin_full_width, dev, trained,
                    store["ratings"], args.seed, served)
     rows = phase("4 serving kernel times", timings, dev, args.seed)
@@ -5224,6 +5815,15 @@ def main() -> int:
             {"route": "batch_predict", "console_launches":
                 evaluated["evaluation"]["launches"][
                     "fused_gather_score_topk"]}],
+        # the offline lane: phase 3c's clean run (users_topk per chunk
+        # and k, bitonic at B >= CHUNKED_MAX_B) and 6b's pio batchpredict
+        "batch_routes": {
+            "launches": batched["launches"], "by_route": batched["by_route"],
+            "queries": batched["queries"], "chunks": batched["chunks"],
+            "queries_per_s": batched["queries_per_s"],
+            "b1_device_ms": batched["b1_device_ms"],
+            "console_launches": started["batchpredict"]["launches"][
+                "fused_gather_score_topk"]},
         "timings": rows}]
     for name, replaces, err, shape, main_route in (
             ("assemble_normal_equations", 141, train_err["assemble"],
@@ -5305,7 +5905,9 @@ def main() -> int:
           f"{grid['grid_s']!r} s ({grid['iteration_ms']!r} ms an iteration, "
           f"the serial trainings {grid['serial_s']!r} s); pio eval --grid "
           f"{evaluated['grid']['s']!r} s, pio eval "
-          f"{evaluated['evaluation']['s']!r} s; fold-in event -> "
+          f"{evaluated['evaluation']['s']!r} s; batch predict "
+          f"{batched['queries_per_s']!r} queries/s over "
+          f"{batched['queries']} queries; fold-in event -> "
           f"servable p50 {folded['servable_p50_s']!r} s p99 "
           f"{folded['servable_p99_s']!r} s over {folded['folds']} folds; "
           f"store write "

@@ -5,7 +5,9 @@ The port's copy of ``LAlgorithm``, ``P2LAlgorithm`` and
 the model lives on the host (a P2L model is served through the device),
 ``predict_base`` routes to the subclass's ``predict``, and the trained
 model is stored as it is (or, for a :class:`~predictionio_tpu_torch.
-controller.persistent.PersistentModel`, saves itself).
+controller.persistent.PersistentModel`, saves itself). Also
+:func:`ordered_batch_results`, the ``batch_predict`` contract check the
+bulk consumers share.
 """
 
 from __future__ import annotations
@@ -18,6 +20,29 @@ from predictionio_tpu_torch.controller.persistent import (
     manifest_for,
 )
 from predictionio_tpu_torch.core.base import RETRAIN, BaseAlgorithm, Params
+
+
+def ordered_batch_results(indexed_queries: Sequence[Tuple[int, Any]],
+                          results: Sequence[Tuple[int, Any]],
+                          who: str = "algorithm") -> List[Any]:
+    """Enforce the ``batch_predict`` contract on a result set: every
+    input query index answered exactly once, nothing extra. Returns the
+    predictions aligned with the input order (``pio batchpredict``
+    routes through here)."""
+    by_qx: dict = {}
+    for qx, p in results:
+        if qx in by_qx:
+            raise RuntimeError(
+                f"{who}.batch_predict answered query {qx} twice")
+        by_qx[qx] = p
+    wanted = [qx for qx, _ in indexed_queries]
+    missing = [qx for qx in wanted if qx not in by_qx]
+    extra = sorted(set(by_qx) - set(wanted))
+    if missing or extra:
+        raise RuntimeError(
+            f"{who}.batch_predict broke the index contract: "
+            f"missing {missing[:5]}, unexpected {extra[:5]}")
+    return [by_qx[qx] for qx in wanted]
 
 
 def _persist_or_model(model: Any, model_id: str, params: Params,

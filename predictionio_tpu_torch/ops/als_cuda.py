@@ -376,11 +376,22 @@ def masked_scores_plain(Q: torch.Tensor, Y, seen_cols: Optional[torch.Tensor],
                         ) -> torch.Tensor:
     """The ``[B, M]`` scores that :func:`fused_gather_score_topk` ranks:
     an fp32 product, -inf on padding rows, invalid rows and each query's
-    seen items."""
+    seen items. On the CPU the product is taken one query at a time (a
+    matrix-vector product per row): BLAS sums a matrix product in an
+    order that depends on the batch's shape, and a query's scores must
+    not depend on the batch it came in (``pio batchpredict``'s chunks
+    give the bytes the looped single-query path gives), as the kernel's
+    do not."""
     Yf = dequantize_rows(Y) if is_quantized(Y) else Y.float()
     M = Yf.shape[0]
+    Qf = Q.float()
+    if Yf.device.type == "cpu":
+        scores = torch.stack([torch.mv(Yf, q) for q in Qf]) if len(Qf) \
+            else Qf.new_zeros((0, M))
+    else:
+        scores = Qf @ Yf.T
     # + 0.0 turns -0.0 into +0.0, so the two tie as in the kernel
-    scores = Q.float() @ Yf.T + 0.0
+    scores = scores + 0.0
     invalid = torch.arange(M, device=Yf.device) >= n_items
     if row_valid is not None:
         invalid |= ~(row_valid > 0)

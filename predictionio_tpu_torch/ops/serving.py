@@ -17,8 +17,10 @@ write path of online fold-in): rows are rewritten in place and the
 store grows along the power-of-two ladder, under the store lock every
 dispatch snapshots under.
 
-Not here yet (later slices): the AOT ladder (CUDA graphs on the GPU),
-sharded stores, and the memory/ladder reports.
+:meth:`DeviceTopK.memory_report` and :func:`device_report` give the
+``/stats.json`` device block in the JAX package's shape. Not here yet
+(later slices): the AOT ladder (CUDA graphs on the GPU; its report is
+the empty ladder meanwhile), sharded stores and the host lane.
 """
 
 from __future__ import annotations
@@ -99,6 +101,27 @@ def seen_tables(seen: Dict[int, np.ndarray], n_rows: int,
     return cols, mask
 
 
+def _dtype_name(dtype: torch.dtype) -> str:
+    """A torch dtype under the JAX package's (numpy's) name:
+    ``float32``, ``bfloat16``, ``int8``."""
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+def _component(f) -> Optional[Dict[str, Any]]:
+    """One table's entry of :meth:`DeviceTopK.memory_report`."""
+    if f is None:
+        return None
+    if is_quantized(f):
+        return {"bytes": int(f.data.nbytes),
+                "scaleBytes": int(f.scale.nbytes),
+                "dtype": _dtype_name(f.data.dtype),
+                "scaleDtype": _dtype_name(f.scale.dtype),
+                "shape": [int(d) for d in f.data.shape]}
+    return {"bytes": int(f.nbytes), "scaleBytes": 0,
+            "dtype": _dtype_name(f.dtype),
+            "shape": [int(d) for d in f.shape]}
+
+
 def _gather_rows_f32(factors, idx: torch.Tensor) -> torch.Tensor:
     """Factor rows gathered by index (any index shape) as fp32; int8
     rows dequantize with their own per-row scales."""
@@ -163,8 +186,18 @@ def choose_server(user_factors, item_factors,
     """The server for a model: :class:`DeviceTopK` on ``device`` (None =
     cuda), at every size. The JAX package's host lane (``HostTopK``,
     picked below a size rule) is not ported: no run on the card has
-    measured where a host matvec and the device cross over. Sharded and
-    two-stage stores join this choice with the slices that port them."""
+    measured where a host matvec and the device cross over. So an
+    explicit ``PIO_SERVING_BACKEND=host`` raises, naming its ROADMAP
+    item; ``auto``, ``device`` and any other value serve on the device
+    (the JAX package lets an unknown value fall through to auto).
+    Sharded and two-stage stores join this choice with the slices that
+    port them."""
+    backend = os.environ.get("PIO_SERVING_BACKEND", "auto").strip().lower()
+    if backend == "host":
+        raise NotImplementedError(
+            "PIO_SERVING_BACKEND=host: HostTopK is not ported yet "
+            "(ROADMAP A8, the host top-k lane: it waits for a measured "
+            "host/device crossover); unset it or use auto or device")
     return DeviceTopK(user_factors, item_factors, seen,
                       n_users=n_users, n_items=n_items, device=device)
 
@@ -724,18 +757,47 @@ class DeviceTopK:
         """Device bytes the store holds: both factor tables (with int8
         scales), the seen tables and the normalized item table once
         built."""
+        return self.memory_report()["totalBytes"]
+
+    def memory_report(self) -> Dict[str, Any]:
+        """Device bytes this store pins, by component and dtype, in the
+        JAX package's shape: the factor tables (int8 stores split data
+        and per-row scales; the item table as padded to the kernel's
+        tile), the seen tables and the normalized item table once built.
+        Reads the live references under ``_store_lock``, so the report
+        follows fold-in growth as it happens. ``kernel`` names the
+        serving program: the port's fused CUDA top-k."""
         with self._store_lock:
-            tables = (self._X, self._Y, self._seen_cols, self._seen_mask,
-                      self._Yn)
-        total = 0
-        for t in tables:
-            if t is None:
-                continue
-            if is_quantized(t):
-                total += t.data.nbytes + t.scale.nbytes
-            else:
-                total += t.nbytes
-        return total
+            X, Y, Yn = self._X, self._Y, self._Yn
+            sc, sm = self._seen_cols, self._seen_mask
+            n_users, n_items = self.n_users, self.n_items
+        components: Dict[str, Any] = {
+            "userFactors": _component(X),
+            "itemFactors": _component(Y),
+            "normalizedItems": _component(Yn),
+            "seen": {"bytes": int(sc.nbytes + sm.nbytes),
+                     "dtype": f"{_dtype_name(sc.dtype)}+"
+                              f"{_dtype_name(sm.dtype)}",
+                     "shape": [int(d) for d in sc.shape]}
+            if self._mask_seen else None,
+        }
+        total = sum(c["bytes"] + c.get("scaleBytes", 0)
+                    for c in components.values() if c is not None)
+        return {"precision": self._mode, "kernel": "fused",
+                "nUsers": n_users, "nItems": n_items,
+                "userCapacity": int(X.shape[0]),
+                "components": components, "totalBytes": int(total)}
+
+    def ladder_report(self) -> Dict[str, Any]:
+        """The AOT ladder's coverage and footprint in the JAX package's
+        shape. The port compiles no ladder yet (CUDA graphs wait for a
+        benchmark cell), so every count is zero."""
+        return {"coverage": {"planned": 0, "compiled": 0, "fallback": 0,
+                             "warmed": 0},
+                "requests": {"hit": 0, "missJit": 0},
+                "cache": {"entries": 0, "maxEntries": 0, "evictions": 0},
+                "memory": {"entries": 0, "entriesAnalyzed": 0,
+                           "totalBytes": 0}}
 
     # -- serving ----------------------------------------------------------
 
@@ -1097,17 +1159,21 @@ _metrics.DEVICE_STORE_BYTES.set_function(_live_store_bytes)
 
 
 def device_report() -> Dict[str, Any]:
-    """The ``/stats.json`` ``device`` block: each live store's bytes and
-    precision, and the flight recorder's counts and per-lane dispatch
-    summary (the JAX package's block without its ladder entries)."""
-    stores = []
+    """The ``/stats.json`` ``device`` block in the JAX package's shape:
+    each live store as ``{"store": memory_report(), "aotLadder":
+    ladder_report()}``, their bytes, the ladders' bytes (0: the port has
+    no ladder yet), and the flight recorder's counts and per-lane
+    dispatch summary."""
+    stores: List[Dict[str, Any]] = []
+    store_bytes = ladder_bytes = 0
     for srv in list(_live_servers):
-        with srv._store_lock:  # n_users and the tables of one patch
-            stores.append({"precision": srv.precision,
-                           "nUsers": srv.n_users, "nItems": srv.n_items,
-                           "totalBytes": srv.store_bytes()})
+        mem, ladder = srv.memory_report(), srv.ladder_report()
+        store_bytes += mem["totalBytes"]
+        ladder_bytes += ladder["memory"]["totalBytes"]
+        stores.append({"store": mem, "aotLadder": ladder})
     rec = _dtel.recorder()
     return {"telemetry": {"enabled": rec.enabled, **rec.counts()},
-            "storeBytes": sum(st["totalBytes"] for st in stores),
+            "storeBytes": store_bytes,
+            "aotLadderBytes": ladder_bytes,
             "stores": stores,
             "dispatch": rec.summary()}

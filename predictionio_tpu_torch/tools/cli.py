@@ -6,33 +6,19 @@ adminserver, dashboard, app (incl. channels), accesskey, template,
 export, import, trace, runs, top.
 
 The port's copy of ``predictionio_tpu/tools/cli.py``: the same verbs
-and options, and ``--device`` (default ``cuda``) on ``train``, ``eval``
-and ``deploy``. The verbs whose modules are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item: ``batchpredict``,
-``adminserver`` and ``dashboard`` (A7), ``top`` (A2.3) and ``status
---fleet`` (A2.4).
+and options, and ``--device`` (default ``cuda``) on ``train``, ``eval``,
+``deploy`` and ``batchpredict``. The options whose modules are not
+ported yet raise ``NotImplementedError`` naming their ROADMAP item:
+``status --fleet`` and ``top --fleet`` (A2.4).
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-from typing import Callable, List, Optional
+from typing import List, Optional
 
 from predictionio_tpu_torch import __version__
-
-
-def _unported(verb: str, item: str) -> Callable[..., int]:
-    """The handler of a verb whose module is not ported yet."""
-    def run(args) -> int:
-        raise NotImplementedError(
-            f"pio {verb} is not ported yet (ROADMAP {item})")
-    return run
-
-
-# the port's pio top comes with the device memory and ladder reports it
-# renders
-DEFAULT_TOP_URL = "http://127.0.0.1:8000"
 
 
 def cmd_version(args) -> int:
@@ -390,7 +376,8 @@ def build_parser() -> argparse.ArgumentParser:
     _add_metrics_arg(bp)
     _add_tracing_args(bp)
     _add_serve_precision_arg(bp)
-    bp.set_defaults(func=_unported("batchpredict", "A7, batch/predict.py"))
+    _add_device_arg(bp)
+    bp.set_defaults(func=run_commands.cmd_batchpredict)
 
     undep = sub.add_parser("undeploy", help="stop a deployed engine server")
     undep.add_argument("--ip", default="0.0.0.0")
@@ -416,15 +403,14 @@ def build_parser() -> argparse.ArgumentParser:
     adm = sub.add_parser("adminserver", help="start the admin REST server")
     adm.add_argument("--ip", default="localhost")
     adm.add_argument("--port", type=int, default=7071)
-    adm.set_defaults(func=_unported("adminserver",
-                                    "A7, tools/admin_server.py"))
+    adm.set_defaults(func=run_commands.cmd_adminserver)
 
     dash = sub.add_parser("dashboard", help="start the evaluation dashboard")
     dash.add_argument("--ip", default="localhost")
     dash.add_argument("--port", type=int, default=9000)
     dash.add_argument("--server-config", default=None,
                       help="server.json with accessKey/ssl settings")
-    dash.set_defaults(func=_unported("dashboard", "A7, tools/dashboard.py"))
+    dash.set_defaults(func=run_commands.cmd_dashboard)
 
     from predictionio_tpu_torch.tools import trace_commands
 
@@ -489,6 +475,8 @@ def build_parser() -> argparse.ArgumentParser:
     _add_runs_dir(rnc)
     rn.set_defaults(func=runs_command.dispatch)
 
+    from predictionio_tpu_torch.tools import top_command
+
     top = sub.add_parser(
         "top",
         help="live terminal view of a deployed query server: QPS, "
@@ -497,7 +485,7 @@ def build_parser() -> argparse.ArgumentParser:
              "/dispatches.json)")
     top.add_argument("--url", default=None, metavar="URL",
                      help="the query server's base URL (default "
-                          f"{DEFAULT_TOP_URL})")
+                          f"{top_command.DEFAULT_URL})")
     top.add_argument("--interval", type=float, default=2.0, metavar="SEC",
                      help="refresh cadence in seconds (default 2)")
     top.add_argument("--once", action="store_true",
@@ -508,7 +496,7 @@ def build_parser() -> argparse.ArgumentParser:
                           "the federated member table + SLO burn-rate "
                           "lines (and warns if the target serves no "
                           "fleet block)")
-    top.set_defaults(func=_unported("top", "A2.3, pio top"))
+    top.set_defaults(func=top_command.cmd_top)
 
     tpl = sub.add_parser("template", help="engine template scaffolds")
     tpl_sub = tpl.add_subparsers(dest="template_command")

@@ -1,5 +1,5 @@
-"""``pio`` lifecycle verbs: build, train, eval, deploy, undeploy,
-eventserver.
+"""``pio`` lifecycle verbs: build, train, eval, deploy, batchpredict,
+undeploy, eventserver, adminserver, dashboard.
 
 Parity: ``tools/.../console/Console.scala`` dispatch (:698-769) with the
 spark-submit/Runner layer removed — train and deploy run in this
@@ -14,12 +14,13 @@ takes the training options: ``--precision bf16`` and crash-safe
 checkpointed training (``--checkpoint-dir/-every/-keep``, ``--resume``;
 SIGTERM/SIGINT drain at the next chunk boundary). ``eval`` runs an
 ``Evaluation`` (``best.json``, an ``EVALCOMPLETED`` instance) or, with
-``--grid``, the config grid's leaderboard, on ``--device`` too. Options
-whose modules are not ported yet raise and name their ROADMAP item: the
-distributed options (A6), ``--fleet`` above 1 (A2.4) and ``--feedback``
-(A7); ``batchpredict``, ``adminserver`` and ``dashboard`` raise in
-:mod:`predictionio_tpu_torch.tools.cli`. ``deploy --foldin on`` runs
-the online fold-in consumer.
+``--grid``, the config grid's leaderboard, on ``--device`` too.
+``batchpredict`` scores a query file (or every known entity) through
+a stored instance in restartable chunks on ``--device``. Options whose
+modules are not ported yet raise and name their ROADMAP item: the
+distributed options (A6) and ``--fleet`` above 1 (A2.4). ``deploy
+--foldin on`` runs the online fold-in consumer, ``deploy --feedback
+--accesskey K`` posts each answered query to the event server.
 """
 
 from __future__ import annotations
@@ -516,10 +517,11 @@ def cmd_deploy(args) -> int:
     if int(getattr(args, "fleet", 1) or 1) > 1:
         raise NotImplementedError(
             "--fleet: the query fleet is not ported yet (ROADMAP A2.4)")
-    if args.feedback:
-        raise NotImplementedError(
-            "--feedback: the feedback loop is not ported yet (ROADMAP A7, "
-            "the rest of the query server)")
+    if args.feedback and not args.accesskey:
+        # the reference refuses feedback without an access key
+        print("[ERROR] Feedback loop cannot be enabled because accessKey "
+              "is empty. Pass --accesskey.", file=sys.stderr)
+        return 1
     ctx = ComputeContext(device=resolve_device(args.device))
     _apply_metrics_flag(args)
     _apply_tracing_flags(args)
@@ -538,6 +540,10 @@ def cmd_deploy(args) -> int:
         port=args.port,
         server_config_path=getattr(args, "server_config", None),
         foldin=foldin,
+        feedback=args.feedback,
+        event_server_ip=args.event_server_ip,
+        event_server_port=args.event_server_port,
+        access_key=args.accesskey,
     )
     try:
         instance = resolve_engine_instance(
@@ -554,6 +560,72 @@ def cmd_deploy(args) -> int:
         server.serve_forever()
     except KeyboardInterrupt:
         server.stop()
+    _print_launches("fused_gather_score_topk")
+    return 0
+
+
+def cmd_batchpredict(args) -> int:
+    """Bulk offline scoring (``pio batchpredict``): queries from a JSONL
+    file or synthesized from the event store, run through the whole DASE
+    serve path in restartable chunks on the ``--device`` (default
+    cuda). See :mod:`predictionio_tpu_torch.batch.predict`."""
+    from predictionio_tpu_torch.batch import (
+        BatchPredictConfig,
+        run_batch_predict,
+        run_smoke,
+    )
+    from predictionio_tpu_torch.core.context import ComputeContext
+    from predictionio_tpu_torch.device import resolve_device
+
+    dev = resolve_device(args.device)
+    _apply_metrics_flag(args)
+    _apply_tracing_flags(args)
+    _apply_serving_flags(args)
+    if args.smoke:
+        return run_smoke(dev)
+    if not args.output:
+        print("[ERROR] --output is required (the shard/manifest "
+              "directory).", file=sys.stderr)
+        return 1
+    try:
+        base = json.loads(args.synthesize_base or "{}")
+        if not isinstance(base, dict):
+            raise ValueError("--synthesize-base must be a JSON object")
+        variant_id, variant_version = "default", "default"
+        if os.path.exists(args.engine_variant):
+            variant = _load_variant(args.engine_variant)
+            variant_id = variant.get("id", "default")
+            variant_version = variant.get("version", "default")
+        config = BatchPredictConfig(
+            output_dir=args.output,
+            engine_instance_id=args.engine_instance_id,
+            engine_id=getattr(args, "engine_id", None) or variant_id,
+            engine_version=(getattr(args, "engine_version", None)
+                            or variant_version),
+            engine_variant=args.engine_variant,
+            input_path=args.input,
+            synthesize_app=args.synthesize_app,
+            synthesize_entity_type=args.synthesize_entity_type,
+            synthesize_field=args.synthesize_field,
+            synthesize_base=base,
+            synthesize_channel=args.channel,
+            chunk_size=args.chunk_size,
+            query_partitions=args.query_partitions,
+            format=args.format,
+        )
+        # --batch is parsed for parity with the JAX verb, where it labels
+        # a compute context that nothing reads; the port's context has no
+        # label, so it has no effect here either.
+        summary = run_batch_predict(config, ctx=ComputeContext(device=dev))
+    except Exception as e:
+        print(f"[ERROR] Batch predict failed: {e}", file=sys.stderr)
+        return 1
+    print(f"[INFO] Batch predict completed: {summary['queries']} queries "
+          f"in {summary['chunks']} chunks "
+          f"({summary['chunksScored']} scored, "
+          f"{summary['chunksSkipped']} resumed) -> "
+          f"{summary['outputDir']} "
+          f"[{summary['queriesPerSec']} q/s scoring]")
     _print_launches("fused_gather_score_topk")
     return 0
 
@@ -595,4 +667,40 @@ def cmd_eventserver(args) -> int:
         server.serve_forever()
     except KeyboardInterrupt:
         server.stop()
+    return 0
+
+
+def cmd_adminserver(args) -> int:
+    """Console adminserver (Console.scala:747-751). Prints the address
+    it bound (``--port 0`` picks a free port)."""
+    from predictionio_tpu_torch.tools.admin_server import (
+        AdminServer,
+        AdminServerConfig,
+    )
+
+    server = AdminServer(AdminServerConfig(ip=args.ip,
+                                           port=args.port)).start()
+    print(f"[INFO] Admin Server is ready at http://{args.ip}:{server.port}.",
+          flush=True)
+    server.serve_forever()
+    return 0
+
+
+def cmd_dashboard(args) -> int:
+    """Console dashboard (Console.scala:753-757). Prints the address it
+    bound (``--port 0`` picks a free port)."""
+    from predictionio_tpu_torch.common import ServerConfig
+    from predictionio_tpu_torch.tools.dashboard import (
+        Dashboard,
+        DashboardConfig,
+    )
+
+    server_config = ServerConfig.load(args.server_config) \
+        if args.server_config else ServerConfig.load()
+    server = Dashboard(DashboardConfig(ip=args.ip, port=args.port,
+                                       server_config=server_config)).start()
+    scheme = "https" if server_config.ssl_certfile else "http"
+    print(f"[INFO] Dashboard is ready at {scheme}://{args.ip}:{server.port}.",
+          flush=True)
+    server.serve_forever()
     return 0

@@ -12,8 +12,11 @@ original query, each stage a trace span); the wire JSON
 instance; an older one is refused with 409), ``POST /stop``, and the
 observability routes under the JAX package's route labels: ``GET /``
 (status), ``/healthz``, ``/metrics`` (Prometheus text), ``/stats.json``,
-``/dispatches.json`` (the device flight recorder), ``/traces.json`` and
-``/traces/<id>`` (``?format=perfetto`` or ``html``), and the operator's
+``/dispatches.json`` (the device flight recorder), ``/plugins.json``
+(the output blockers and sniffers of
+:mod:`~predictionio_tpu_torch.workflow.server_plugins`, run on every
+prediction), ``/traces.json`` and ``/traces/<id>`` (``?format=perfetto``
+or ``html``), and the operator's
 ``POST /profile/start`` and ``/profile/stop`` (a ``torch.profiler``
 capture, gated by the ``server.json`` access key when one is set; 409
 on a second start or an idle stop). Every request runs under
@@ -26,8 +29,10 @@ metrics). A ``server.json`` with an ``ssl`` section serves HTTPS, and
 (:mod:`~predictionio_tpu_torch.online.foldin`) tails the deployment's
 event stream and patches fresh user rows into the live store; while its
 tail fails, answers carry ``degraded: true`` and ``degradedReasons:
-["foldin_stale"]``. Feedback and ``/plugins.json`` come with ROADMAP
-A7, fleets with A2.4.
+["foldin_stale"]``. With ``ServerConfig(feedback=True)`` (``pio deploy
+--feedback --accesskey K``) each answered query is posted to the event
+server as a ``predict`` event of entity type ``pio_pr``, off the
+request's thread. Fleets come with ROADMAP A2.4.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import functools
 import json
 import logging
 import os
+import secrets
 import ssl
 import threading
 import time
@@ -62,6 +68,7 @@ from predictionio_tpu_torch.controller.engine import (
 )
 from predictionio_tpu_torch.core.context import ComputeContext
 from predictionio_tpu_torch.data import storage
+from predictionio_tpu_torch.data.event import new_event_id
 from predictionio_tpu_torch.data.storage.base import (
     EngineInstance,
     StorageError,
@@ -83,12 +90,17 @@ from predictionio_tpu_torch.utils.tracing import (
     LatencyHistogram,
     ProfilerBusyError,
     ProfilerNotRunningError,
+    outbound_context_headers,
     span,
 )
 from predictionio_tpu_torch.workflow import core_workflow
+from predictionio_tpu_torch.workflow.server_plugins import (
+    EngineServerPluginContext,
+)
 
 logger = logging.getLogger("pio.torch.queryserver")
 BIND_TRIES = 3  # a stale server's port frees a moment after its /stop
+UTC = _dt.timezone.utc
 
 
 @dataclasses.dataclass
@@ -98,7 +110,10 @@ class ServerConfig:
     serves once at deploy (after each algorithm's ``warmup_base``), and
     the ``server.json`` it reads at start. ``foldin`` runs the online
     fold-in consumer (:mod:`~predictionio_tpu_torch.online.foldin`;
-    cadence ``PIO_FOLDIN_INTERVAL`` / ``PIO_FOLDIN_COUNT``)."""
+    cadence ``PIO_FOLDIN_INTERVAL`` / ``PIO_FOLDIN_COUNT``).
+    ``feedback`` posts each answered query as a ``predict`` event to the
+    event server at ``event_server_ip:event_server_port`` with
+    ``access_key``."""
 
     engine_id: str = "default"
     engine_version: str = "default"
@@ -107,6 +122,10 @@ class ServerConfig:
     port: int = 8000
     warmup_query: Optional[Mapping[str, Any]] = None
     foldin: bool = False
+    feedback: bool = False
+    event_server_ip: str = "0.0.0.0"
+    event_server_port: int = 7070
+    access_key: Optional[str] = None
     # server.json with the access key that gates /profile/* and the TLS
     # cert/key; None reads $PIO_SERVER_CONFIG or ./server.json, and a
     # file without an "ssl" section serves plain HTTP
@@ -356,11 +375,14 @@ class _HTTPServer(SeveringThreadingHTTPServer):
 
 class QueryServer:
     """The deployment daemon: one :class:`Deployment` behind a threaded
-    HTTP server."""
+    HTTP server; ``plugin_context`` holds the output blockers and
+    sniffers every prediction passes through."""
 
-    def __init__(self, config: ServerConfig, deployment: Deployment):
+    def __init__(self, config: ServerConfig, deployment: Deployment,
+                 plugin_context: Optional[EngineServerPluginContext] = None):
         self.config = config
         self._deployment = deployment
+        self.plugin_context = plugin_context or EngineServerPluginContext()
         self._foldin = None  # online.foldin.FoldInConsumer when enabled
         self._foldin_env_prior: Optional[str] = None
         self._foldin_env_set = False
@@ -376,6 +398,7 @@ class QueryServer:
     def handle_query(self, body: bytes) -> Tuple[int, Any]:
         dep = self._deployment
         t0 = time.perf_counter()
+        query_time = _dt.datetime.now(tz=UTC)
         try:
             query_dict = json.loads(body.decode("utf-8"))
             if not isinstance(query_dict, dict):
@@ -412,11 +435,100 @@ class QueryServer:
             if isinstance(result, dict):
                 result["degraded"] = True
                 result["degradedReasons"] = list(degraded)
+        if self.config.feedback:
+            result = self._feedback(dep, query_dict, query, prediction,
+                                    result, query_time)
+        for blocker in self.plugin_context.output_blockers.values():
+            result = blocker.process(dep.instance, query_dict, result,
+                                     self.plugin_context)
+        for sniffer in self.plugin_context.output_sniffers.values():
+            try:
+                sniffer.process(dep.instance, query_dict, result,
+                                self.plugin_context)
+            except Exception:
+                logger.exception("output sniffer failed")
         took = time.perf_counter() - t0
         self.latency.record(took)
         metrics.QUERY_LATENCY.observe(took,
                                       variant=self.config.engine_variant)
         return 200, result
+
+    def _feedback(self, dep: Deployment, query_dict: Mapping[str, Any],
+                  query: Any, prediction: Any, result: Any,
+                  query_time: _dt.datetime) -> Any:
+        """Post the answered query to the event server as a ``predict``
+        event (entity type ``pio_pr``) on a daemon thread: one retry, a
+        4xx dropped at once, every drop counted in
+        ``pio_feedback_dropped_total``; the response never waits for it.
+        The request's ``X-Request-ID`` / ``traceparent`` go with the
+        POST, so the event server's spans join the query's trace.
+        Returns the result, with ``prId`` when the prediction has one."""
+        org = getattr(prediction, "pr_id", None) or query_dict.get("prId")
+        pr_id = org or secrets.token_hex(32)
+        data = {
+            "event": "predict",
+            # a client-made id: a retried POST whose first attempt was
+            # stored is deduplicated by id-keyed backends
+            "eventId": new_event_id(),
+            "eventTime": query_time.isoformat(),
+            "entityType": "pio_pr",
+            "entityId": pr_id,
+            "properties": {
+                "engineInstanceId": dep.instance.id
+                if dep.instance is not None else None,
+                "query": to_jsonable(query),
+                "prediction": result,
+            },
+        }
+        if "prId" in query_dict:
+            data["prId"] = query_dict["prId"]
+        url = (f"http://{self.config.event_server_ip}:"
+               f"{self.config.event_server_port}/events.json"
+               f"?accessKey={self.config.access_key or ''}")
+        # the context is read now: the POST runs after the response
+        headers = {"Content-Type": "application/json",
+                   **outbound_context_headers()}
+        body = json.dumps(data).encode("utf-8")
+
+        def post():
+            last: Optional[Exception] = None
+            for attempt in range(2):
+                try:
+                    req = urllib.request.Request(
+                        url, data=body, headers=headers, method="POST")
+                    with urllib.request.urlopen(req, timeout=5) as resp:
+                        if resp.status == 201:
+                            return
+                        # another success code: a retry of the same
+                        # payload cannot change the answer
+                        logger.error(
+                            "Feedback event failed. Status code: %d. "
+                            "Data: %s.", resp.status, data)
+                        metrics.FEEDBACK_DROPPED.inc()
+                        return
+                except urllib.error.HTTPError as e:
+                    if e.code < 500:
+                        # refused: the identical payload would be again
+                        logger.error(
+                            "Feedback event refused (%d). Data: %s.",
+                            e.code, data)
+                        metrics.FEEDBACK_DROPPED.inc()
+                        return
+                    last = e
+                    if attempt == 0:
+                        time.sleep(0.2)
+                except Exception as e:
+                    last = e
+                    if attempt == 0:
+                        time.sleep(0.2)
+            metrics.FEEDBACK_DROPPED.inc()
+            logger.error("Feedback event dropped after retry: %s", last)
+
+        threading.Thread(target=post, daemon=True,
+                         name="pio-feedback").start()
+        if hasattr(prediction, "pr_id") and isinstance(result, dict):
+            result = dict(result, prId=pr_id)
+        return result
 
     def reload(self) -> Dict[str, Any]:
         """Swap to the latest completed instance of the configured engine
@@ -455,9 +567,9 @@ class QueryServer:
                     "swappedTo": latest.id}
 
     def status(self) -> Dict[str, Any]:
-        """``GET /``: the deployment and the serving latency summary
-        (the reference's request count and running average, derived
-        from the histogram)."""
+        """``GET /``: the deployment, whether feedback is on, and the
+        serving latency summary (the reference's request count and
+        running average, derived from the histogram)."""
         dep = self._deployment
         summary = self.latency.summary()
         inst = dep.instance if dep is not None else None
@@ -473,6 +585,7 @@ class QueryServer:
             else None,
             "algorithms": [type(a).__name__ for a in dep.algorithms]
             if dep is not None else [],
+            "feedback": self.config.feedback,
             "requestCount": summary.get("count", 0),
             "avgServingSec": summary.get("meanSec", 0.0),
             "lastServingSec": summary.get("lastSec", 0.0),
@@ -677,8 +790,7 @@ class _QueryHandler(InstrumentedHandlerMixin, BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     metrics_server_label = "query"
 
-    # the JAX query server's route labels; /plugins.json is not served
-    # here yet and counts under its own label as a 404
+    # the JAX query server's route labels
     _ROUTES = ("/", "/healthz", "/metrics", "/stats.json",
                "/dispatches.json", "/plugins.json", "/queries.json",
                "/profile/start", "/profile/stop", "/reload", "/stop",
@@ -732,6 +844,8 @@ class _QueryHandler(InstrumentedHandlerMixin, BaseHTTPRequestHandler):
             self._respond_traces_index(query)
         elif path.startswith("/traces/"):
             self._respond_trace(path[len("/traces/"):], query)
+        elif path == "/plugins.json":
+            self._respond(200, srv.plugin_context.describe())
         else:
             self._respond(404, {"message": "Not Found"})
 

@@ -54,7 +54,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 CPU = ComputeContext(device="cpu")
 UTC = dt.timezone.utc
 PORT_ONLY = {("train", "--device"), ("eval", "--device"),
-             ("deploy", "--device")}
+             ("deploy", "--device"), ("batchpredict", "--device")}
 
 
 def surface(parser):
@@ -332,18 +332,45 @@ def test_train_and_deploy_default_to_cuda_and_raise_without_it(
         tcli.main([verb, "--engine-variant", str(path)])
 
 
+@pytest.mark.parametrize("argv,handler", [
+    (["batchpredict", "--engine-instance-id", "i1", "--input", "q.jsonl",
+      "--output", "out", "--chunk-size", "64", "--format", "npz",
+      "--device", "cpu"], "cmd_batchpredict"),
+    (["batchpredict", "--synthesize-app", "MyApp", "--synthesize-base",
+      '{"num": 5}', "--query-partitions", "3", "--serve-precision",
+      "bf16", "--output", "o"], "cmd_batchpredict"),
+    (["top", "--url", "http://127.0.0.1:9", "--once", "--interval", "0.5"],
+     "cmd_top"),
+    (["adminserver", "--ip", "127.0.0.1", "--port", "0"],
+     "cmd_adminserver"),
+    (["dashboard", "--port", "0", "--server-config", "s.json"],
+     "cmd_dashboard"),
+    (["deploy", "--feedback", "--accesskey", "k", "--event-server-ip",
+      "127.0.0.1", "--event-server-port", "7071", "--device", "cpu"],
+     "cmd_deploy"),
+], ids=lambda v: " ".join(v) if isinstance(v, list) else v)
+def test_operator_verbs_parse_as_the_jax_verbs(argv, handler):
+    """``batchpredict``, ``top``, ``adminserver``, ``dashboard`` and
+    ``deploy --feedback`` (once refused): both parsers give the same
+    arguments and handlers of the same name; the port's ``--device``
+    defaults to cuda."""
+    jargv = [a for a in argv if a not in ("--device", "cpu")]
+    want = vars(jcli.build_parser().parse_args(jargv))
+    got = vars(tcli.build_parser().parse_args(argv))
+    if "device" in got:
+        assert got.pop("device") == ("cpu" if "--device" in argv
+                                     else "cuda")
+    assert got.pop("func").__name__ == want.pop("func").__name__ == handler
+    assert got == want
+
+
 UNPORTED = [
-    (["batchpredict", "--smoke"], "A7"),
-    (["adminserver"], "A7"),
-    (["dashboard"], "A7"),
-    (["top", "--once"], "A2.3"),
     (["status", "--fleet", "http://127.0.0.1:1"], "A2.4"),
+    (["top", "--fleet", "--once"], "A2.4"),
     (["template", "get", "sequentialrec", "d"], "A7"),
     (["train", "--device", "cpu", "--num-hosts", "2"], "A6"),
     (["train", "--device", "cpu", "--coordinator", "h:1"], "A6"),
     (["deploy", "--device", "cpu", "--fleet", "2"], "A2.4"),
-    (["deploy", "--device", "cpu", "--feedback", "--accesskey", "k"],
-     "A7"),
 ]
 
 

@@ -266,6 +266,67 @@ def test_console_path_runs_with_jax_unimportable(tmp_path):
     assert "console ran" in proc.stdout
 
 
+BATCH_RUN = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["predictionio_tpu"] = None
+import json, pathlib
+from predictionio_tpu_torch.batch import read_results
+from predictionio_tpu_torch.data import storage
+from predictionio_tpu_torch.tools import admin_server, cli, dashboard
+from predictionio_tpu_torch.workflow import server_plugins
+
+work = pathlib.Path(sys.argv[1])
+storage.reset(storage.StorageConfig(
+    {"S": {"type": "sqlite", "path": str(work / "pio.db")}},
+    {r: "S" for r in storage.REPOSITORIES}))
+assert cli.main(["app", "new", "app"]) == 0
+with open(work / "events.jsonl", "w") as f:
+    for j in range(120):
+        f.write(json.dumps({"event": "rate", "entityType": "user",
+                            "entityId": f"u{j % 9}",
+                            "targetEntityType": "item",
+                            "targetEntityId": f"i{(j * 7) % 41}",
+                            "properties": {"rating": 1.0 + j % 5}}) + "\n")
+assert cli.main(["import", "--app-name", "app", "--input",
+                 str(work / "events.jsonl")]) == 0
+assert cli.main(["template", "get", "recommendation", str(work / "eng")]) == 0
+variant = json.loads((work / "eng" / "engine.json").read_text())
+variant["datasource"]["params"]["appName"] = "app"
+variant["algorithms"][0]["params"].update(rank=3, numIterations=1)
+(work / "eng" / "engine.json").write_text(json.dumps(variant))
+assert cli.main(["train", "--device", "cpu", "--engine-variant",
+                 str(work / "eng" / "engine.json")]) == 0
+(work / "q.jsonl").write_text("".join(
+    json.dumps({"user": f"u{u}", "num": 3}) + "\n" for u in range(12)))
+args = ["batchpredict", "--engine-variant", str(work / "eng" / "engine.json"),
+        "--input", str(work / "q.jsonl"), "--output", str(work / "out"),
+        "--chunk-size", "8", "--device", "cpu"]
+assert cli.main(args) == 0
+assert cli.main(args) == 0   # resumes: every chunk skipped
+results = read_results(str(work / "out"))
+assert len(results) == 12
+assert any(r["prediction"]["itemScores"] for r in results)
+storage.reset()
+assert not any(m == "jax" or m.startswith(("jax.", "predictionio_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("batchpredict ran")
+"""
+
+
+def test_batchpredict_runs_with_jax_unimportable(tmp_path):
+    """``pio-torch batchpredict --device cpu`` (and its resume) over an
+    instance the console trained, in a process where ``jax`` and
+    ``predictionio_tpu`` cannot be imported; the operator modules
+    (admin server, dashboard, server plugins) import there too."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", BATCH_RUN, str(tmp_path)],
+                          env=env, cwd=tmp_path, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "2 resumed" in proc.stdout and "batchpredict ran" in proc.stdout
+
+
 @pytest.mark.parametrize("alone", [False, True])
 def test_chip_smoke_refuses_without_a_gpu(tmp_path, alone):
     """No GPU here: exit non-zero and print no result, whether run from

@@ -279,13 +279,14 @@ class TestServingPolicy:
     def test_device_store_at_every_size(self, monkeypatch, n_items):
         """No size rule and no host lane: models on either side of the
         JAX package's host threshold (1 << 22 item-factor elements) serve
-        from the device store on the device asked for, and the JAX
-        package's backend switch is not read."""
+        from the device store on the device asked for under the auto
+        backend (an explicit ``host`` raises:
+        tests/test_torch_server_surface.py)."""
         rng = np.random.default_rng(4)
         X = rng.normal(size=(4, 64)).astype(np.float32)
         Y = rng.normal(size=(n_items, 64)).astype(np.float32)
         monkeypatch.delenv("PIO_SERVE_PRECISION", raising=False)
-        monkeypatch.setenv("PIO_SERVING_BACKEND", "host")
+        monkeypatch.setenv("PIO_SERVING_BACKEND", "auto")
         srv = tserving.choose_server(X, Y, device="cpu")
         assert isinstance(srv, tserving.DeviceTopK)
         assert srv.precision == "fp32"  # the CPU default, as in JAX
