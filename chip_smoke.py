@@ -280,6 +280,38 @@ Phases (any failure raises and the script exits non-zero):
    its plain version. ``pio dashboard`` (a child) lists the
    ``EVALCOMPLETED`` instance, and ``pio adminserver`` creates, lists
    and deletes an app.
+6d. The networked event store at ML-1M (phase 6's ratings, rank 64, 3
+   iterations): three ``pio-torch eventserver`` children, each over a
+   ``jsonlfs`` directory of its own with the storage wire on, are the
+   shards of a ``fleet`` source (the consistent-hash ring routes each
+   user's events to one); a fourth is a ``resthttp`` source. The
+   ratings are filled straight into the shards along the ring, into the
+   fourth server's store and into a local ``jsonlfs`` store, but for the
+   last 100,000, which go through ``FleetLEvents.insert_batch`` and
+   ``RestLEvents.insert_batch`` (events/s and each shard's share against
+   the ring's are printed). ``create_workflow`` trains in process from
+   the local, the ``resthttp`` and the ``fleet`` source from one
+   injected init (B3 and B2 launch; the dase spans' read, prepare and
+   train seconds and the bytes each shard shipped are printed); the
+   networked factors must be bitwise the local ones when the training
+   data read back byte-equal, else within 1e-4 of the largest entry.
+   The fleet-trained instance is deployed with fold-in over the
+   ``fleet`` source: 30 new users' events, posted through the fleet in
+   one write, must be servable within 30 s p99 (the fold reads each
+   user from the user's shard). Then one shard is killed with SIGKILL:
+   queries keep answering (their ``degradedReasons`` printed), a write
+   to its users fails loud, a child posting 4 of its users' events
+   retries across the outage, and a gateway event server over that
+   shard reads ``/healthz`` storage: false once the breaker opens. The
+   shard restarts on its directory: the breaker closes, ``/healthz``
+   reads true, the 4 users are folded with no event lost (the delay is
+   printed). Every folded row must equal the plain fold's (within
+   ``FOLDIN_ROW_TOL``) and the answers the plain top-k of the patched
+   store. Last, an entity read of one shard's store, by the byte search
+   and by the whole parse it replaced, is timed on the same users; and
+   the registry's wrapped DAO over the local store, its entity reads and
+   50-event ``insert_batch`` writes, with ``PIO_RESILIENCE`` on and off
+   in turns.
 7. Model quality on ``bench_quality.run``'s protocol at its shape
    (943 x 1,682 x 100,000, leave-last-2-out, rank 32, 10 iterations):
    Precision@10 and NDCG@10 of the port's trainer at seeds 3, 17 and
@@ -293,9 +325,9 @@ hold the main path's, the large-rank one and ``foldin``, with phase 3b's
 launches, the config grid's, with phase 5d's, and the assembly's
 ``tiles_bf16``, with phase 5c's; the serving kernel's ``eval_routes``
 hold ``grid_topk`` and ``batch_predict``, with phases 5d's and 6c's,
-and its ``batch_routes`` phase 3c's and 6b's ``pio batchpredict``),
-the card's name and power limit, and last ``{"ok": true, "device":
-{...}}``.
+and its ``batch_routes`` phase 3c's and 6b's ``pio batchpredict``;
+every kernel's ``networked_launches`` phase 6d's), the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -4743,6 +4775,47 @@ def qs_event_server(base: str, key: str, batch_events: list,
             "singles_events_per_s": len(singles) / singles_s}
 
 
+def ingest_times(seed: int, rounds: int) -> dict:
+    """Phase 6b's event-server ingest alone (``pio app new``, then per
+    run a ``pio eventserver`` child over one sqlite store taking the
+    batch and single posts), ``rounds`` times with ``PIO_RESILIENCE=1``
+    and ``=0`` in turns; events/s and batch request p50 of each run. With
+    a copy of this script at another checkout's root, times that
+    checkout's event server (where it reads no ``PIO_RESILIENCE``, both
+    runs of a round are the same code)."""
+    import os
+    import re
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="pio-ingest-")
+    env = console_env(os.path.join(work, "pio.db"))
+    runs = {"1": [], "0": []}
+    try:
+        said, _ = pio(["app", "new", QS_APP], env, work)
+        key = re.search(r"Access Key: (\S+)", said).group(1)
+        batch_events, singles = qs_front_door_events(seed,
+                                                     ml1m_ratings(seed))
+        for _ in range(rounds):
+            for flag in ("1", "0"):
+                es, base, _ = pio_child(
+                    ["eventserver", "--ip", "127.0.0.1", "--port", "0"],
+                    dict(env, PIO_RESILIENCE=flag), work,
+                    "Event Server is ready at")
+                try:
+                    e = qs_event_server(base, key, batch_events, singles)
+                finally:
+                    es.terminate()
+                    es.wait(timeout=60)
+                runs[flag].append((e["batch_events_per_s"],
+                                   e["batch_p50_ms"]))
+                print(f"[ingest] PIO_RESILIENCE={flag}: "
+                      f"{e['batch_events_per_s']!r} events/s, batch "
+                      f"request p50 {e['batch_p50_ms']!r} ms")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return runs
+
+
 def dase_seconds(trace_dir: str) -> dict:
     """Read, prepare and train seconds of the ``pio.train`` trace the
     child exported."""
@@ -5515,6 +5588,707 @@ def console_eval(seed: int, kept: dict, card: str) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# -- phase 6d: the networked event store ----------------------------------------------
+
+NET_APP = "ML1MNet"
+NET_KEY = "chip-smoke-storage-key"
+NET_SHARDS = 3
+NET_WIRE_PART = 100_000   # events written through the wire; the rest filled
+NET_BATCH = 5_000         # events per insert_batch on the wire
+NET_NEW_USERS = 30        # folded through the fleet cursor
+NET_DOWN_USERS = 4        # posted to the killed shard while it is down
+NET_DOWN_SHARD = 1
+NET_ENTITY_USERS = 3      # users read by the byte search and the parse
+NET_LAPS = 5              # the wrapper's on / off laps, each
+NET_LAP_READS = 5         # entity reads in a lap
+NET_LAP_WRITES = 40       # 50-event insert_batch writes in a lap
+NET_DEADLINE = 60.0       # restart -> the killed shard's users servable
+NET_LATER = "2004-01-01T00:00:00"   # the post-deploy events' first time
+NET_POSTER = r"""
+import json, sys, time
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.fleet.router import FleetLEvents
+cfg, path = json.loads(sys.argv[1]), sys.argv[2]
+with open(path) as f:
+    events = [Event.from_dict(d) for d in json.load(f)]
+fleet = FleetLEvents(cfg)
+sent = time.time()
+ids = fleet.insert_batch(events, 1)
+print(json.dumps({"ids": ids, "sent": sent, "acked": time.time()}),
+      flush=True)
+fleet.close()
+"""
+
+
+def net_config(source: dict):
+    from predictionio_tpu_torch.data import storage
+
+    return storage.StorageConfig(
+        sources={"EV": source, "META": {"type": "memory"}},
+        repositories={"EVENTDATA": "EV", "METADATA": "META",
+                      "MODELDATA": "META"})
+
+
+def net_lines(rows, cols, values) -> list:
+    """The ratings as event JSON lines with their ids (``ev<j>``) and
+    distinct event times (one second apart, in order)."""
+    times = np.datetime_as_string(
+        np.datetime64("2003-02-28T00:00:00", "s")
+        + np.arange(len(rows)), unit="s").tolist()
+    users, items, stars = rows.tolist(), cols.tolist(), values.tolist()
+    return ['{"eventId":"ev%d","event":"rate","entityType":"user",'
+            '"entityId":"u%d","targetEntityType":"item","targetEntityId":'
+            '"i%d","properties":{"rating":%r},"eventTime":"%sZ",'
+            '"creationTime":"%sZ"}' % (j, users[j], items[j], stars[j],
+                                       times[j], times[j])
+            for j in range(len(rows))]
+
+
+def net_events(lines: list) -> list:
+    from predictionio_tpu_torch.data.event import Event
+
+    return [Event.from_json(line) for line in lines]
+
+
+def net_server(path: str, work: str, port: int = 0) -> tuple:
+    """A ``pio-torch eventserver`` child over a ``jsonlfs`` directory
+    with the storage wire on; its output goes to a log file. Returns
+    (process, URL)."""
+    import os
+    import re
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PIO_STORAGE_")}
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    env.update({"PIO_STORAGE_SOURCES_EV_TYPE": "jsonlfs",
+                "PIO_STORAGE_SOURCES_EV_PATH": path,
+                "PIO_STORAGE_SOURCES_META_TYPE": "memory",
+                "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "EV",
+                "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "META",
+                "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "META"})
+    log = os.path.join(work, f"{os.path.basename(path)}-{port}-"
+                             f"{time.time_ns()}.log")
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            CONSOLE + ["eventserver", "--ip", "127.0.0.1", "--port",
+                       str(port), "--service-key", NET_KEY],
+            env=env, cwd=work, stdout=out, stderr=subprocess.STDOUT)
+    deadline = time.time() + 60
+    while time.time() < deadline:
+        with open(log) as f:
+            found = re.search(r"ready at (http://[0-9.]+:\d+)\.", f.read())
+        if found:
+            return proc, found.group(1)
+        if proc.poll() is not None:
+            break
+        time.sleep(0.05)
+    proc.kill()
+    with open(log) as f:
+        raise AssertionError(f"eventserver over {path} did not start: "
+                             f"{f.read()[-2000:]}")
+
+
+def healthz(url: str) -> tuple:
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def wait_for(check, timeout: float, what: str, step: float = 0.05) -> float:
+    """Poll ``check()`` until true; the seconds it took."""
+    t0 = time.perf_counter()
+    while not check():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{what}: not within {timeout} s")
+        time.sleep(step)
+    return time.perf_counter() - t0
+
+
+def dase_split(record: dict) -> dict:
+    out = {sp["name"][len("dase."):]: sp["durationSec"]
+           for sp in record["spans"]
+           if sp["name"] in ("dase.read", "dase.prepare", "dase.train")}
+    if len(out) != 3:
+        raise AssertionError(f"the trace holds dase spans {sorted(out)}")
+    return out
+
+
+def net_train(label: str, source: dict, seed: int, init) -> dict:
+    """``create_workflow`` over one event source (its own metadata and
+    model stores in memory), from the injected init, as a ``pio.train``
+    trace; returns its dase split, its launches, its training data and
+    its model."""
+    import torch
+
+    from predictionio_tpu_torch.core.context import ComputeContext
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.ops import als as tals
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.utils import tracing
+    from predictionio_tpu_torch.workflow.create_workflow import (
+        WorkflowConfig,
+        create_workflow,
+    )
+
+    storage.reset(net_config(source))
+    if storage.get_metadata_apps().insert(App(0, NET_APP)) != 1:
+        raise AssertionError("the app id must be 1 in every store")
+    engine, record = lifecycle_engine()
+    variant = {"id": "ml1mnet", "engineFactory": PORT_FACTORY,
+               "datasource": {"params": {"appName": NET_APP}},
+               "preparator": {"params": {"bucketed": True}},
+               "algorithms": [{"name": "als", "params": {
+                   "rank": RANK, "numIterations": ITERATIONS,
+                   "lambda": LAMBDA, "alpha": ALPHA, "seed": seed}}]}
+    a0, s0 = als_cuda.assemble_launches.value, als_cuda.spd_launches.value
+    saved = tals.init_factors
+    tals.init_factors = init
+    parent = tracing.SpanContext(tracing.new_trace_id(),
+                                 tracing.new_span_id(), sampled=True)
+    t0 = time.perf_counter()
+    try:
+        with tracing.trace_scope("pio.train", parent=parent,
+                                 slow_exempt=True):
+            iid = create_workflow(
+                WorkflowConfig(engine_id="ml1mnet",
+                               engine_factory=PORT_FACTORY,
+                               engine_variant="ml1mnet.json"),
+                variant, engine=engine, ctx=ComputeContext())
+        torch.cuda.synchronize()
+    finally:
+        tals.init_factors = saved
+    total = time.perf_counter() - t0
+    trace = tracing.trace_buffer().get(parent.trace_id)
+    if trace is None:
+        raise AssertionError(f"{label}: no pio.train trace kept")
+    launches = {"assemble_normal_equations":
+                als_cuda.assemble_launches.value - a0,
+                "spd_solve": als_cuda.spd_launches.value - s0}
+    if not all(launches.values()):
+        raise AssertionError(f"{label}: training launches {launches}")
+    instance = storage.get_metadata_engine_instances().get(iid)
+    if instance is None or instance.status != "COMPLETED":
+        raise AssertionError(f"{label}: engine instance {instance}")
+    return {"id": iid, "model": record["model"], "data": record["read_out"],
+            "dase": dase_split(trace), "launches": launches, "s": total}
+
+
+def networked_store(seed: int, card: str) -> dict:
+    """Phase 6d: the networked event store at ML-1M (module docstring)."""
+    import collections
+    import datetime as dt
+    import os
+    import signal
+    import statistics
+    import tempfile
+
+    import torch
+
+    from predictionio_tpu_torch.core.context import ComputeContext
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.data.api import EventServer, EventServerConfig
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage import observed, resthttp
+    from predictionio_tpu_torch.data.storage.base import StorageError
+    from predictionio_tpu_torch.data.storage.jsonlfs import JsonlFsLEvents
+    from predictionio_tpu_torch.fleet.ring import HashRing
+    from predictionio_tpu_torch.fleet.router import entity_key
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.ops.als import fold_in_users
+    from predictionio_tpu_torch.utils import resilience
+    from predictionio_tpu_torch.workflow.create_server import (
+        QueryServer,
+        ServerConfig,
+        build_deployment,
+        resolve_engine_instance,
+    )
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="pio-net-")
+    procs: list = []
+    server = gateway = None
+    prior_interval = os.environ.get("PIO_FOLDIN_INTERVAL")
+    try:
+        rows, cols, values, _ = ml1m_ratings(seed)
+        n = len(rows)
+        wire_from = n - NET_WIRE_PART
+        t0 = time.perf_counter()
+        lines = net_lines(rows, cols, values)
+        ring = HashRing(NET_SHARDS)
+        user_shard = np.asarray([ring.node_for(entity_key("user", f"u{u}"))
+                                 for u in range(ML1M_USERS)])
+        ev_shard = user_shard[rows]
+        dirs = {name: os.path.join(work, name) for name in
+                [f"shard{i}" for i in range(NET_SHARDS)] + ["rest", "local"]}
+
+        def fill(name, picks):
+            le = JsonlFsLEvents({"path": dirs[name]})
+            le.init(1)
+            for a in range(0, len(picks), 200_000):
+                le.append_raw_lines([lines[j] for j in picks[a:a + 200_000]],
+                                    1)
+            le.close()
+
+        for i in range(NET_SHARDS):
+            fill(f"shard{i}", np.flatnonzero(ev_shard[:wire_from] == i))
+        fill("rest", np.arange(wire_from))
+        fill("local", np.arange(n))
+        fill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in range(NET_SHARDS):
+            procs.append(net_server(dirs[f"shard{i}"], work))
+        procs.append(net_server(dirs["rest"], work))
+        start_s = time.perf_counter() - t0
+        shard_urls = [url for _, url in procs[:NET_SHARDS]]
+        rest_url = procs[NET_SHARDS][1]
+        fleet_src = {"type": "fleet", "urls": ",".join(shard_urls),
+                     "service_key": NET_KEY}
+        rest_src = {"type": "resthttp", "url": rest_url,
+                    "service_key": NET_KEY}
+        local_src = {"type": "jsonlfs", "path": dirs["local"]}
+
+        # -- the wire part of the write --------------------------------
+        wire_events = net_events(lines[wire_from:])
+        storage.reset(net_config(fleet_src))
+        fleet = storage.get_levents()
+        t0 = time.perf_counter()
+        for a in range(0, NET_WIRE_PART, NET_BATCH):
+            fleet.insert_batch(wire_events[a:a + NET_BATCH], 1)
+        fleet_write_s = time.perf_counter() - t0
+        rest = resthttp.RestLEvents({"url": rest_url,
+                                     "service_key": NET_KEY})
+        t0 = time.perf_counter()
+        for a in range(0, NET_WIRE_PART, NET_BATCH):
+            rest.insert_batch(wire_events[a:a + NET_BATCH], 1)
+        rest_write_s = time.perf_counter() - t0
+        rest.close()
+        counts = np.bincount(ev_shard, minlength=NET_SHARDS)
+        user_counts = np.bincount(user_shard, minlength=NET_SHARDS)
+        print(f"[net] {n} events at ML-1M width; {wire_from} filled "
+              f"straight into the stores along the ring ({fill_s!r} s, "
+              f"the local store too), {NET_WIRE_PART} through the wire: "
+              f"FleetLEvents.insert_batch {fleet_write_s!r} s "
+              f"({NET_WIRE_PART / fleet_write_s!r} events/s), "
+              f"RestLEvents.insert_batch {rest_write_s!r} s "
+              f"({NET_WIRE_PART / rest_write_s!r} events/s); "
+              f"{NET_SHARDS + 1} eventserver children up in {start_s!r} s")
+        for i in range(NET_SHARDS):
+            print(f"[net] shard {i} ({shard_urls[i]}): {int(counts[i])} "
+                  f"events, {float(counts[i] / n)!r} of them; the ring "
+                  f"gives it {float(user_counts[i] / ML1M_USERS)!r} of the "
+                  f"users (1/{NET_SHARDS} = {1 / NET_SHARDS!r})")
+
+        # -- training from each source ---------------------------------
+        g = torch.Generator().manual_seed(seed)
+        init_draw = {}
+
+        def init(n_rows, n_cols, rank, s, device=None):
+            key = (n_rows, n_cols, rank)
+            if key not in init_draw:
+                scale = 1.0 / np.sqrt(rank)
+                init_draw[key] = (torch.randn((n_rows, rank), generator=g)
+                                  * scale,
+                                  torch.randn((n_cols, rank), generator=g)
+                                  * scale)
+            X, Y = init_draw[key]
+            return X.clone().to(device), Y.clone().to(device)
+
+        shipped = collections.Counter()
+        real_stream = resthttp._Wire.stream
+
+        def counting_stream(self, params, op="find"):
+            for chunk in real_stream(self, params, op=op):
+                shipped[self.url] += len(chunk)
+                yield chunk
+
+        resthttp._Wire.stream = counting_stream
+        try:
+            trained = {label: net_train(label, src, seed, init)
+                       for label, src in (("local", local_src),
+                                          ("resthttp", rest_src),
+                                          ("fleet", fleet_src))}
+        finally:
+            resthttp._Wire.stream = real_stream
+        for label, res in trained.items():
+            print(f"[net] train from {label}: {res['s']!r} s; dase read "
+                  f"{res['dase']['read']!r} s, prepare "
+                  f"{res['dase']['prepare']!r} s, train "
+                  f"{res['dase']['train']!r} s; launches {res['launches']}")
+        for i, url in enumerate(shard_urls):
+            print(f"[net] the fleet's training read: shard {i} shipped "
+                  f"{shipped[url]} bytes")
+        print(f"[net] the resthttp training read shipped "
+              f"{shipped[rest_url]} bytes")
+        local = trained["local"]
+        tables_equal = True
+        for label in ("resthttp", "fleet"):
+            other = trained[label]
+            for col in ("users", "items", "values"):
+                tables_equal &= np.array_equal(
+                    np.asarray(getattr(local["data"], col)),
+                    np.asarray(getattr(other["data"], col)))
+        for label in ("resthttp", "fleet"):
+            m, ref = trained[label]["model"], local["model"]
+            if list(m.user_map.labels) != list(ref.user_map.labels) or \
+                    list(m.item_map.labels) != list(ref.item_map.labels):
+                raise AssertionError(f"{label}: entity maps differ")
+            for side in ("user_factors", "item_factors"):
+                a = np.asarray(getattr(m, side))
+                b = np.asarray(getattr(ref, side))
+                if tables_equal:
+                    if not np.array_equal(a, b):
+                        raise AssertionError(
+                            f"{label} {side}: not bitwise the local "
+                            f"training's on byte-equal tables")
+                else:
+                    scale = float(np.abs(b).max())
+                    if not float(np.abs(a - b).max()) <= 1e-4 * scale:
+                        raise AssertionError(f"{label} {side} differ")
+        print(f"[net] factors from resthttp and fleet: "
+              f"{'bitwise equal to' if tables_equal else 'within 1e-4 of'}"
+              f" the local training's (training data "
+              f"{'byte-equal' if tables_equal else 'reordered'})")
+
+        # -- deploy over the fleet and fold through its cursor ---------
+        # (the last training's registry: the fleet, its instance in the
+        # metadata store, a fleet DAO of its own)
+        fleet = storage.get_levents()
+        os.environ["PIO_FOLDIN_INTERVAL"] = repr(FOLDIN_INTERVAL)
+        dep = build_deployment(resolve_engine_instance(
+            trained["fleet"]["id"]), ComputeContext())
+        model = dep.models[0]
+        b1_0 = als_cuda.launches.value
+        server = QueryServer(ServerConfig(ip="127.0.0.1", port=0,
+                                          foldin=True), dep).start()
+        qbase = "http://{}:{}".format(*server.address)
+        consumer = server._foldin
+        srv = model.device_server()
+        rng = np.random.default_rng(seed + 29)
+        known_items = np.asarray(model.item_map.labels)
+        later = dt.datetime.fromisoformat(NET_LATER).replace(
+            tzinfo=dt.timezone.utc)
+        clock = iter(range(10 ** 9))
+
+        def ratings_of(name):
+            k = int(rng.integers(5, 40))
+            picks = rng.choice(len(known_items), k, replace=False)
+            return [Event(event="rate", entity_type="user", entity_id=name,
+                          target_entity_type="item",
+                          target_entity_id=str(known_items[p]),
+                          properties={"rating": float(
+                              rng.integers(1, 11) * 0.5)},
+                          event_time=later + dt.timedelta(
+                              seconds=next(clock)),
+                          event_id=f"{name}-{j}")
+                    for j, p in enumerate(picks)]
+
+        new_users = [f"net-new-{j}" for j in range(NET_NEW_USERS)]
+        posted = {u: ratings_of(u) for u in new_users}
+        served_at: dict = {}
+
+        def servable(names):
+            for name in names:
+                if name in served_at or name not in model.user_map:
+                    continue
+                status, body, _ = post(qbase + "/queries.json",
+                                       {"user": name, "num": 10})
+                if status == 200 and body["itemScores"]:
+                    served_at[name] = time.time()
+            return all(name in served_at for name in names)
+
+        a0, s0 = als_cuda.assemble_launches.value, als_cuda.spd_launches.value
+        folds0 = consumer.stats()["folds"]
+        # the new users' events in one write: the next fold gathers all
+        # of them, one entity read of the owner shard each
+        stop_poll = threading.Event()
+
+        def poll():
+            while not stop_poll.is_set():
+                servable(new_users)
+                time.sleep(0.01)
+
+        poller = threading.Thread(target=poll, daemon=True)
+        poller.start()
+        try:
+            t_sent = time.time()
+            fleet.insert_batch([e for u in new_users for e in posted[u]], 1)
+            wait_for(lambda: len(served_at) >= NET_NEW_USERS,
+                     FOLDIN_DEADLINE + 30,
+                     "the new users servable through the fleet cursor")
+        finally:
+            stop_poll.set()
+            poller.join(timeout=30)
+        fresh = np.asarray([served_at[u] - t_sent for u in new_users])
+        st = consumer.stats()
+        fold_launches = (als_cuda.assemble_launches.value - a0,
+                         als_cuda.spd_launches.value - s0)
+        if st["foldErrors"] or st["tailErrors"] or \
+                fold_launches != (st["folds"] - folds0,) * 2:
+            raise AssertionError(f"fold-in over the fleet: stats {st}, "
+                                 f"launches (B3, B2) {fold_launches}")
+        if float(np.percentile(fresh, 99)) > FOLDIN_DEADLINE:
+            raise AssertionError(f"event -> servable p99 "
+                                 f"{np.percentile(fresh, 99)!r} s")
+        print(f"[net] fold-in over the fleet cursor: {NET_NEW_USERS} new "
+              f"users ({sum(len(v) for v in posted.values())} events in "
+              f"one write) servable p50 "
+              f"{float(np.percentile(fresh, 50))!r} s, p99 "
+              f"{float(np.percentile(fresh, 99))!r} s (limit "
+              f"{FOLDIN_DEADLINE} s); {st['folds'] - folds0} folds, "
+              f"launches B3 {fold_launches[0]}, B2 {fold_launches[1]}")
+
+        # -- kill a shard ----------------------------------------------
+        k = NET_DOWN_SHARD
+        gateway = EventServer(
+            EventServerConfig(ip="127.0.0.1", port=0),
+            reg=storage.StorageRegistry(net_config(
+                {"type": "resthttp", "url": shard_urls[k],
+                 "service_key": NET_KEY}))).start()
+        gw = "http://{}:{}".format(*gateway.address)
+        if healthz(gw)[0] != 200:
+            raise AssertionError(f"the gateway to shard {k} is not ready")
+        down_users = []
+        for u in (f"net-down-{j}" for j in range(10 ** 6)):
+            if ring.node_for(entity_key("user", u)) == k:
+                down_users.append(u)
+                if len(down_users) == NET_DOWN_USERS:
+                    break
+        posted.update({u: ratings_of(u) for u in down_users})
+        batch_file = os.path.join(work, "down-events.json")
+        with open(batch_file, "w") as f:
+            json.dump([e.to_dict() for u in down_users for e in posted[u]],
+                      f)
+        known_on_k = [u for u in model.user_map.labels[:2_000]
+                      if ring.node_for(entity_key("user", u)) == k][:40]
+        kill_proc = procs[k][0]
+        kill_proc.send_signal(signal.SIGKILL)
+        kill_proc.wait(timeout=30)
+        t_kill = time.perf_counter()
+        env = {k_: v for k_, v in os.environ.items()
+               if not k_.startswith("PIO_")}
+        env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+        env.update({"PIO_STORAGE_RETRIES": "600",
+                    "PIO_STORAGE_RETRY_BASE": "0.05",
+                    "PIO_STORAGE_RETRY_MAX": "0.25",
+                    "PIO_STORAGE_OP_DEADLINE": "120",
+                    "PIO_STORAGE_CONNECT_TIMEOUT": "1.0"})
+        poster = subprocess.Popen(
+            [sys.executable, "-c", NET_POSTER, json.dumps(
+                {"urls": ",".join(shard_urls), "service_key": NET_KEY}),
+             batch_file], env=env, cwd=work, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        procs.append((poster, None))
+        loud_event = Event(event="rate", entity_type="user",
+                           entity_id=down_users[0],
+                           target_entity_type="item",
+                           target_entity_id=str(known_items[0]),
+                           properties={"rating": 1.0}, event_time=later,
+                           event_id="net-loud-0")
+        try:
+            fleet.insert(loud_event, 1)
+        except StorageError as e:
+            loud = f"{type(e).__name__}: {e}"
+        else:
+            raise AssertionError("a write to the dead shard was acked")
+        answers = burst(qbase, [{"user": u, "num": 10}
+                                for u in known_on_k + new_users[:10]])
+        if any(status != 200 for _, status, _, _ in answers):
+            raise AssertionError("a query failed while a shard was down")
+        reasons = collections.Counter(
+            r for _, _, body, _ in answers
+            for r in body.get("degradedReasons", []))
+        unready_s = wait_for(lambda: healthz(gw)[0] == 503, 30,
+                             "the gateway's /healthz storage: false")
+        topo = fleet.topology()
+        print(f"[net] shard {k} killed (SIGKILL): {len(answers)} queries "
+              f"answered 200, degradedReasons {dict(reasons)}; a write to "
+              f"it failed loud ({loud[:160]}); the gateway's /healthz "
+              f"{healthz(gw)} {unready_s!r} s after the kill; topology "
+              f"{[(s['index'], s['breakerState']) for s in topo['shards']]}"
+              f" ({topo['healthyShards']}/{NET_SHARDS} healthy)")
+        time.sleep(1.0)
+        port_k = int(shard_urls[k].rsplit(":", 1)[1])
+        procs[k] = net_server(dirs[f"shard{k}"], work, port_k)
+        t_restart = time.time()
+        out, err = poster.communicate(timeout=120)
+        if poster.returncode != 0:
+            raise AssertionError(f"the poster failed: {err[-2000:]}")
+        acked = json.loads(out.strip().splitlines()[-1])
+        ready_s = wait_for(
+            lambda: resilience.breaker_for(shard_urls[k]).state
+            == resilience.CLOSED and healthz(gw)[0] == 200, 60,
+            "the breaker closing after the restart")
+        wait_for(lambda: servable(down_users), NET_DEADLINE,
+                 "the killed shard's users servable after the restart",
+                 0.01)
+        delay = [served_at[u] - t_restart for u in down_users]
+        back = [served_at[u] - acked["acked"] for u in down_users]
+        # none lost: every event posted after deploy is in the fleet
+        stored = {e.event_id for e in fleet.find(1, start_time=later)}
+        want_ids = {e.event_id for evs in posted.values() for e in evs}
+        if stored != want_ids or sorted(acked["ids"]) != sorted(
+                e.event_id for u in down_users for e in posted[u]):
+            raise AssertionError(f"events lost: {len(want_ids - stored)} "
+                                 f"of {len(want_ids)} missing")
+        print(f"[net] shard {k} restarted on its directory: the poster's "
+              f"{len(acked['ids'])} events acked "
+              f"{acked['acked'] - acked['sent']!r} s after sending; the "
+              f"breaker closed and /healthz read storage: true "
+              f"{ready_s!r} s after the restart; the {NET_DOWN_USERS} users "
+              f"servable {min(delay)!r}-{max(delay)!r} s after the restart "
+              f"({min(back)!r}-{max(back)!r} s after the ack); none lost "
+              f"({len(stored)} post-deploy events stored)")
+
+        # -- every folded row against the plain fold; the answers -------
+        folded = new_users + down_users
+        cl = [np.asarray([model.item_map[e.target_entity_id]
+                          for e in posted[u]], np.int64) for u in folded]
+        vl = [np.asarray([e.properties.fields["rating"] for e in posted[u]],
+                         np.float32) for u in folded]
+        als_params = dep.engine_params.algorithm_params_list[0][1]
+        # no fold may run while the kernels are swapped for plain
+        consumer.stop()
+        saved = (als_cuda.assemble_normal_equations, als_cuda.spd_solve)
+        als_cuda.assemble_normal_equations = \
+            als_cuda.assemble_normal_equations_plain
+        als_cuda.spd_solve = als_cuda.spd_solve_plain
+        try:
+            plain = fold_in_users(srv.item_factors, cl, vl, als_params)
+        finally:
+            als_cuda.assemble_normal_equations, als_cuda.spd_solve = saved
+        uidx = torch.as_tensor([model.user_map[u] for u in folded],
+                               device=srv._X.device)
+        stored_rows = srv._X[uidx].float().cpu().numpy()
+        want_rows = torch.from_numpy(plain).to(srv._X.dtype).float().numpy()
+        scale = np.maximum(np.abs(want_rows).max(axis=1, keepdims=True),
+                           1e-30)
+        rel = float((np.abs(stored_rows - want_rows) / scale).max())
+        if not rel <= FOLDIN_ROW_TOL:
+            raise AssertionError(f"folded rows differ from the plain fold "
+                                 f"by {rel!r} of their largest entry")
+        checked = check_against_plain(model, burst(qbase, [
+            {"user": u, "num": 10}
+            for u in folded + list(model.user_map.labels[:50])]))
+        b1 = als_cuda.launches.value - b1_0
+        print(f"[net] {len(folded)} folded rows within {rel!r} of the plain "
+              f"fold's largest entry (limit {FOLDIN_ROW_TOL!r}); {checked} "
+              f"answers equal the plain top-k of the patched store; B1 "
+              f"launched {b1} times in this phase")
+        server.stop()
+        server = None
+
+        # -- an entity read: the byte search against the whole parse ---
+        shard0 = JsonlFsLEvents({"path": dirs["shard0"]})
+        on_0 = [u for u in model.user_map.labels[:500]
+                if ring.node_for(entity_key("user", u)) == 0]
+        entity_kw = dict(entity_type="user", event_names=["rate"],
+                         target_entity_type="item")
+        whole = JsonlFsLEvents({"path": dirs["shard0"]})
+        whole._iter_entity_candidates = lambda d, uid: whole._iter_events(d)
+        search_s, parse_s = [], []
+        for u in on_0[:NET_ENTITY_USERS]:
+            t = time.perf_counter()
+            got = [e.to_json() for e in shard0.find(1, entity_id=u,
+                                                    **entity_kw)]
+            search_s.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            want = [e.to_json() for e in whole.find(1, entity_id=u,
+                                                    **entity_kw)]
+            parse_s.append(time.perf_counter() - t)
+            if not got or got != want:
+                raise AssertionError(f"entity read of {u}: the byte search "
+                                     f"found {len(got)} events, the whole "
+                                     f"parse {len(want)}")
+        print(f"[net] an entity read of shard 0's store "
+              f"({int(counts[0])} events): the byte search {search_s!r} s, "
+              f"the whole parse it replaced {parse_s!r} s, on the same "
+              f"{len(search_s)} users, equal answers ({card})")
+
+        # -- the wrapper's cost: the registry's DAO, on and off --------
+        storage.reset(net_config(local_src))
+        le = storage.get_levents()
+        if observed.unwrap(le) is le:
+            raise AssertionError("the registry handed out an unwrapped DAO")
+        lap_users = list(model.user_map.labels[:NET_LAP_READS])
+        # without ids, as a client posts them: each write stores new events
+        lap_events = [e.with_id(None)
+                      for e in wire_events[:50 * NET_LAP_WRITES]]
+
+        def read_lap():
+            t = time.perf_counter()
+            for u in lap_users:
+                if not list(le.find(1, entity_id=u, **entity_kw)):
+                    raise AssertionError(f"no events of {u} in the "
+                                         "local store")
+            return time.perf_counter() - t
+
+        def write_lap():
+            t = time.perf_counter()
+            for a in range(0, len(lap_events), 50):
+                le.insert_batch(lap_events[a:a + 50], 2)
+            return time.perf_counter() - t
+
+        le.init(2)
+        laps = {(kind, flag): [] for kind in ("read", "write")
+                for flag in (True, False)}
+        for _ in range(NET_LAPS):
+            for flag in (True, False):
+                resilience.set_enabled(flag)
+                laps["read", flag].append(read_lap())
+                laps["write", flag].append(write_lap())
+        resilience.set_enabled(True)
+        wrapper = {f"{kind}_{'on' if flag else 'off'}_s": statistics.median(v)
+                   for (kind, flag), v in laps.items()}
+        print(f"[net] the registry's wrapped jsonlfs DAO, PIO_RESILIENCE on "
+              f"/ off in turns ({NET_LAPS} laps each): {NET_LAP_READS} "
+              f"entity reads {laps['read', True]!r} / "
+              f"{laps['read', False]!r} s, {NET_LAP_WRITES} insert_batch "
+              f"writes of 50 events {laps['write', True]!r} / "
+              f"{laps['write', False]!r} s; medians {wrapper} ({card})")
+        out = {"write": {"fleet_events_per_s": NET_WIRE_PART / fleet_write_s,
+                         "rest_events_per_s": NET_WIRE_PART / rest_write_s,
+                         "shard_events": counts.tolist()},
+               "train": {label: {"dase": r["dase"], "launches": r["launches"]}
+                         for label, r in trained.items()},
+               "shipped": {"fleet": [shipped[u] for u in shard_urls],
+                           "resthttp": shipped[rest_url]},
+               "bitwise": tables_equal,
+               "servable_p50_s": float(np.percentile(fresh, 50)),
+               "servable_p99_s": float(np.percentile(fresh, 99)),
+               "restart_delay_s": max(delay),
+               "fold_launches": {"assemble_normal_equations":
+                                 fold_launches[0],
+                                 "spd_solve": fold_launches[1]},
+               "b1_launches": b1,
+               "entity_search_s": statistics.median(search_s),
+               "entity_parse_s": statistics.median(parse_s),
+               "wrapper": wrapper}
+        print(f"[net] phase 6d took {time.perf_counter() - t_phase!r} s "
+              f"({card})")
+        return out
+    finally:
+        if prior_interval is None:
+            os.environ.pop("PIO_FOLDIN_INTERVAL", None)
+        else:
+            os.environ["PIO_FOLDIN_INTERVAL"] = prior_interval
+        for thing in (server, gateway):
+            if thing is not None:
+                thing.stop()
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=30)
+        resilience.set_enabled(True)
+        resilience.reset_breakers()
+        storage.reset()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # -- phase 7: model quality --------------------------------------------------------
 
 QUALITY_SHAPE = (943, 1_682, 100_000)   # MovieLens-100K, bench_quality's
@@ -5714,6 +6488,15 @@ def main() -> int:
         help="only run phase 5's ratings through the preparator and print "
              "its split; with a copy of this script at another checkout's "
              "root, times that checkout's prepare step")
+    parser.add_argument(
+        "--ingest-times", type=int, metavar="ROUNDS",
+        help="only run phase 6b's event-server ingest, ROUNDS times with "
+             "PIO_RESILIENCE on and off in turns, and print its rates; with "
+             "a copy of this script at another checkout's root, times that "
+             "checkout's event server")
+    parser.add_argument(
+        "--networked", action="store_true",
+        help="build, then only run phase 6d (the networked event store)")
     parser.add_argument("--serve-store", metavar="SQLITE_FILE",
                         help=argparse.SUPPRESS)  # phase 6's second process
     args = parser.parse_args()
@@ -5743,7 +6526,19 @@ def main() -> int:
         print(json.dumps({"prepare_times": out}))
         print(nvidia_smi())
         return 0
+    if args.ingest_times:
+        out = phase("6b event-server ingest", ingest_times, args.seed,
+                    args.ingest_times)
+        print(json.dumps({"ingest_times": out}))
+        print(nvidia_smi())
+        return 0
     phase("1 build", build_kernels)
+    if args.networked:
+        out = phase("6d networked event store", networked_store, args.seed,
+                    card)
+        print(json.dumps({"networked": out}, default=str))
+        print(nvidia_smi())
+        return 0
     if args.serving_times:
         rows = phase("4 serving kernel times", timings, dev, args.seed)
         print(json.dumps({"serving_times": rows}))
@@ -5780,6 +6575,8 @@ def main() -> int:
                     True)
     evaluated = phase("6c pio eval", console_eval, args.seed,
                       started["kept"], card)
+    networked = phase("6d networked event store", networked_store,
+                      args.seed, card)
     scored = phase("7 quality", quality, dev)
     # the line's headline shape: a full micro-batch (B=256) at the
     # default k bucket (16) on the default GPU store (bf16)
@@ -5824,6 +6621,9 @@ def main() -> int:
             "b1_device_ms": batched["b1_device_ms"],
             "console_launches": started["batchpredict"]["launches"][
                 "fused_gather_score_topk"]},
+        # phase 6d: the fleet-deployed server's launches (its folds'
+        # checks and answers)
+        "networked_launches": networked["b1_launches"],
         "timings": rows}]
     for name, replaces, err, shape, main_route in (
             ("assemble_normal_equations", 141, train_err["assemble"],
@@ -5891,7 +6691,13 @@ def main() -> int:
             "replaces": f"predictionio_tpu/ops/als_pallas.py:{replaces}",
             "launches": trained["launches"][name], "max_abs_err": err,
             **train_times["heads"][name], "shape": shape,
-            "routes": routes, "timings": train_times["rows"][name]})
+            "routes": routes, "timings": train_times["rows"][name],
+            # phase 6d: ML-1M trainings from each event source, and the
+            # folds through the fleet cursor
+            "networked_launches": {
+                **{f"train_{label}": res["launches"][name]
+                   for label, res in networked["train"].items()},
+                "folds": networked["fold_launches"][name]}})
     print(f"[done] {time.perf_counter() - t0:.1f} s; HTTP p50 "
           f"{served['p50_ms']!r} ms p99 {served['p99_ms']!r} ms "
           f"(observability on / off p50 "
@@ -5905,7 +6711,12 @@ def main() -> int:
           f"{grid['grid_s']!r} s ({grid['iteration_ms']!r} ms an iteration, "
           f"the serial trainings {grid['serial_s']!r} s); pio eval --grid "
           f"{evaluated['grid']['s']!r} s, pio eval "
-          f"{evaluated['evaluation']['s']!r} s; batch predict "
+          f"{evaluated['evaluation']['s']!r} s; networked store: fleet "
+          f"write {networked['write']['fleet_events_per_s']!r} events/s, "
+          f"fold event -> servable p99 {networked['servable_p99_s']!r} s, "
+          f"killed shard's users servable "
+          f"{networked['restart_delay_s']!r} s after its restart; "
+          f"batch predict "
           f"{batched['queries_per_s']!r} queries/s over "
           f"{batched['queries']} queries; fold-in event -> "
           f"servable p50 {folded['servable_p50_s']!r} s p99 "

@@ -20,9 +20,8 @@ thread-safe, so threads are the idiomatic host-side concurrency here
 (the card is never on this path).
 
 The port's copy of ``predictionio_tpu/data/api/event_server.py``, every
-route included. It differs in one place: the port's storage backends
-have no circuit breaker yet (ROADMAP A2.5), so ``/healthz`` reports the
-event store ready once its DAO resolves.
+route included; ``/healthz`` reports the event store ready while its
+circuit breaker is not refusing calls.
 """
 
 from __future__ import annotations
@@ -47,7 +46,7 @@ from predictionio_tpu_torch.data.event import (
     validate_event,
 )
 from predictionio_tpu_torch.data.storage.base import UNSET
-from predictionio_tpu_torch.utils import metrics
+from predictionio_tpu_torch.utils import metrics, resilience
 from predictionio_tpu_torch.utils.http_instrumentation import (
     InstrumentedHandlerMixin,
     SeveringThreadingHTTPServer,
@@ -497,8 +496,10 @@ class EventServer:
         cache (server restarted, or the first attempt only partially
         committed), so the bulk-ingest hot path pays nothing and the
         common retry pays a hash, not a store scan."""
+        from predictionio_tpu_torch.data.storage.observed import unwrap
+
         le = self.event_client
-        if getattr(le, "idempotent_event_writes", False):
+        if getattr(unwrap(le), "idempotent_event_writes", False):
             return lines
         existing = {e.event_id
                     for e in le.find(app_id=app_id, channel_id=ch)}
@@ -518,11 +519,10 @@ class EventServer:
         return kept
 
     def health_checks(self) -> Dict[str, bool]:
-        """Readiness checks for ``GET /healthz`` (liveness is the
-        response itself): the event store's DAO resolved. The JAX
-        package also asks the store's circuit breaker, which the port's
-        backends do not have yet (ROADMAP A2.5)."""
-        return {"storage": self.event_client is not None}
+        """Readiness checks for ``GET /healthz``: the event store's
+        circuit breaker must not be refusing calls (liveness is the
+        response itself)."""
+        return {"storage": resilience.storage_ready(self.event_client)}
 
     def storage_get_event(self, query, event_id: str) -> Tuple[int, Any]:
         app_id, ch = self._storage_scope(query)
@@ -638,8 +638,11 @@ class EventServer:
         unfiltered = not any(k in query for k in self._STORAGE_FILTER_KEYS)
         le = self.event_client
         from predictionio_tpu_torch.data.storage.jsonlfs import JsonlFsLEvents
+        from predictionio_tpu_torch.data.storage.observed import unwrap
 
-        raw = le
+        # the fast lane needs the concrete backend behind the metrics
+        # wrapper (partition files ARE the wire format)
+        raw = unwrap(le)
         if unfiltered and isinstance(raw, JsonlFsLEvents):
             d = raw._dir(app_id, ch)
             def raw_parts():

@@ -20,11 +20,16 @@ Defaults (no env set): a single sqlite source at ``$PIO_STORAGE_PATH`` or
 bring-up the reference never had.
 
 The port's copy of ``predictionio_tpu/data/storage/__init__.py``: its own
-registry, read from the same ``PIO_STORAGE_*`` variables, with the
-``memory``, ``sqlite``, ``localfs`` and ``jsonlfs`` backends. The JAX
-package's other types (``resthttp``, ``fleet``) raise
-``NotImplementedError`` naming their ROADMAP item. The DAOs are handed
-out as they are, without the metrics wrapper.
+registry, read from the same ``PIO_STORAGE_*`` variables, with every
+backend type of the JAX package: ``memory``, ``sqlite``, ``localfs``,
+``jsonlfs``, and the networked event stores ``resthttp`` (``URL``,
+``SERVICE_KEY``, ``TIMEOUT``, ``CA_FILE``, ``INSECURE_SKIP_VERIFY``) and
+``fleet`` (``URLS``, ``SERVICE_KEY``, ``VIRTUAL_NODES``, plus the
+``resthttp`` keys applied per shard). Every ``LEvents`` the registry
+hands out is wrapped in
+:class:`~predictionio_tpu_torch.data.storage.observed.DAOMetricsWrapper`
+(metrics, retries, the breaker, fault injection); code that checks the
+concrete backend type goes through ``observed.unwrap``.
 """
 
 from __future__ import annotations
@@ -71,13 +76,22 @@ BACKENDS: Dict[str, Dict[str, str]] = {
         "LEvents": "predictionio_tpu_torch.data.storage.jsonlfs:JsonlFsLEvents",
         "PEvents": "predictionio_tpu_torch.data.storage.jsonlfs:JsonlFsPEvents",
     },
-}
-
-# backend types of the JAX package that the port does not have yet, and
-# the ROADMAP item that brings each
-UNPORTED = {
-    "resthttp": "queue A item 2, the networked backends",
-    "fleet": "queue A item 2, the networked backends",
+    # EVENTDATA-only networked backend: DAOs speak HTTP to a remote
+    # event server's /storage wire (the Storage.scala:360-391 remote-DAO
+    # architecture — train on one machine, store on another); config
+    # keys: URL, SERVICE_KEY, TIMEOUT
+    "resthttp": {
+        "LEvents": "predictionio_tpu_torch.data.storage.resthttp:RestLEvents",
+        "PEvents": "predictionio_tpu_torch.data.storage.resthttp:RestPEvents",
+    },
+    # EVENTDATA-only consistent-hash router over N event-server shards:
+    # writes fan out by entity key, reads scatter-gather and merge;
+    # config keys: URLS (comma-separated shard URLs), SERVICE_KEY,
+    # VIRTUAL_NODES, plus resthttp wire keys applied per shard
+    "fleet": {
+        "LEvents": "predictionio_tpu_torch.fleet.router:FleetLEvents",
+        "PEvents": "predictionio_tpu_torch.fleet.router:FleetPEvents",
+    },
 }
 
 
@@ -147,12 +161,6 @@ class StorageConfig:
                     f"Repository {repo} references undefined source {src}. "
                     f"Defined sources: {sorted(sources)}")
         for name, cfg in sources.items():
-            if cfg["type"] in UNPORTED:
-                raise NotImplementedError(
-                    f"Storage source {name} has type {cfg['type']!r}, which "
-                    f"the port does not have yet (ROADMAP "
-                    f"{UNPORTED[cfg['type']]}); ported types: "
-                    f"{sorted(BACKENDS)}")
             if cfg["type"] not in BACKENDS:
                 raise StorageError(
                     f"Storage source {name} has unknown type {cfg['type']!r}. "
@@ -211,6 +219,14 @@ class StorageRegistry:
                     inst = _load(spec)(cfg)
                     if isinstance(inst, base.LEvents) and kind == "PEvents":
                         inst = base.LEventsBackedPEvents(inst)
+                if kind == "LEvents" and isinstance(inst, base.LEvents):
+                    # every event-store DAO the registry hands out reports
+                    # pio_storage_op_* metrics; code needing the concrete
+                    # backend type unwraps via observed.unwrap()
+                    from predictionio_tpu_torch.data.storage.observed import (
+                        DAOMetricsWrapper,
+                    )
+                    inst = DAOMetricsWrapper(inst, backend=cfg["type"])
                 self._cache[key] = inst
             return self._cache[key]
 

@@ -13,9 +13,9 @@ Parity targets:
   ``EngineInstances.scala:43-59`` (15 fields), ``EvaluationInstances.scala``,
   ``Models.scala:30-49``.
 
-The port's copy of ``predictionio_tpu/data/storage/base.py`` without the
-circuit breaker (``StorageCircuitOpen``, ``run_guarded``), which comes
-with storage resilience (ROADMAP queue A item 2.5); every
+The port's copy of ``predictionio_tpu/data/storage/base.py``, with the
+breaker + retry shell the DAO wrapper and the ``resthttp`` wire share
+(:func:`run_guarded`, :class:`StorageCircuitOpen`); every
 ``aggregate_properties`` read is counted as in the JAX package
 (``pio_aggregate_hits_total``, ``pio_aggregate_replays_total``). The
 tail reads (``find_since``, ``tail_cursor``, ``tail_watermark``) raise
@@ -36,7 +36,7 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 from predictionio_tpu_torch.data.aggregator import aggregate_properties
 from predictionio_tpu_torch.data.datamap import PropertyMap
 from predictionio_tpu_torch.data.event import Event
-from predictionio_tpu_torch.utils import metrics
+from predictionio_tpu_torch.utils import metrics, resilience
 
 # Sentinel distinguishing "no filter" from "filter for None"
 # (reference models this as Option[Option[String]], LEvents.scala:137-150).
@@ -47,10 +47,60 @@ class StorageError(RuntimeError):
     pass
 
 
+class StorageCircuitOpen(StorageError,
+                         resilience.CircuitOpenError):
+    """The storage endpoint's circuit breaker refused the call — BOTH a
+    ``StorageError`` (callers treating "storage is down" uniformly, e.g.
+    ``pio status``, catch it) and a ``CircuitOpenError`` (resilience-aware
+    callers read the breaker semantics and the ``pio_retry_after``
+    hint)."""
+
+    def __init__(self, endpoint: str, retry_in: float):
+        resilience.CircuitOpenError.__init__(self, endpoint, retry_in)
+
+    @classmethod
+    def from_error(cls, e: "resilience.CircuitOpenError"
+                   ) -> "StorageCircuitOpen":
+        return cls(e.endpoint, getattr(e, "pio_retry_after", 0.0))
+
+
+def run_guarded(breaker: "resilience.CircuitBreaker",
+                policy: "resilience.RetryPolicy",
+                attempt_fn, *, idempotent: Any = True,
+                on_retry=None, defer_success: bool = False,
+                first_failure=None):
+    """The breaker + retry shell shared by the DAO wrapper
+    (``observed.DAOMetricsWrapper``) and the resthttp ``_Wire``: gate on
+    the breaker (an open circuit surfaces as :class:`StorageCircuitOpen`
+    so "storage is down" handlers catch it), run ``attempt_fn`` under the
+    retry policy, feed the final outcome back to the breaker.
+    ``defer_success`` skips the success mark — for lazy ops (``find``
+    returning a generator) the CALLER records the outcome when iteration
+    ends, so generator creation cannot masquerade as a healthy read.
+    ``first_failure`` (``(exception, start)``): the breaker already
+    admitted attempt 0, which failed; the shell takes over from there
+    (:meth:`~predictionio_tpu_torch.utils.resilience.RetryPolicy.run`)."""
+    if first_failure is None:
+        try:
+            breaker.before_call()
+        except resilience.CircuitOpenError as e:
+            raise StorageCircuitOpen.from_error(e) from None
+    try:
+        result = policy.run(attempt_fn, idempotent=idempotent,
+                            on_retry=on_retry, first_failure=first_failure)
+    except BaseException as e:
+        breaker.record_failure(e)
+        raise
+    if not defer_success:
+        breaker.record_success()
+    return result
+
+
 class LEvents(abc.ABC):
     """Event store DAO scoped by (app_id, channel_id)."""
 
-    # label value for this backend's aggregation metrics
+    # label value for this backend's storage/aggregation metrics;
+    # concrete backends override (memory/sqlite/jsonlfs/resthttp)
     metrics_backend = "unknown"
 
     @abc.abstractmethod

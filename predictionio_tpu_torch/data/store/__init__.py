@@ -6,10 +6,11 @@ Parity targets: ``PEventStore`` (``data/.../store/PEventStore.scala:30-116``),
 (appName, channelName) -> (appId, channelId) via the metadata repositories.
 
 The port's copy of ``predictionio_tpu/data/store/__init__.py``, over the
-port's storage registry, without the circuit breaker and the degraded
-marks of the JAX package's deadline-bounded reads (they come with
-storage resilience, ROADMAP queue A item 2.5). A deadline-bounded read
-runs under the caller's request id and trace context, as in the JAX
+port's storage registry. A predict-time read fails fast while the event
+store's circuit breaker is open, runs under its deadline on a pool
+thread that carries the caller's request id and trace context, and
+marks the active degradation scope with the reason it failed
+(``circuit_open``, ``timeout``, ``storage_error``), as in the JAX
 package.
 """
 
@@ -22,7 +23,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 from predictionio_tpu_torch.data import storage
 from predictionio_tpu_torch.data.datamap import PropertyMap
 from predictionio_tpu_torch.data.event import Event
-from predictionio_tpu_torch.data.storage.base import UNSET
+from predictionio_tpu_torch.data.storage.base import UNSET, StorageCircuitOpen
+from predictionio_tpu_torch.utils import resilience
 from predictionio_tpu_torch.utils.tracing import carrying_context
 
 
@@ -204,22 +206,77 @@ def _pool() -> _DaemonReadPool:
         return _read_pool
 
 
+# (DAO instance, its breaker): re-resolved only when storage.reset()
+# swaps the DAO — predict-time reads must not pay the process-global
+# breaker-registry lock per call
+_breaker_cache: Tuple[Any, Any] = (None, None)
+
+
+def _event_store_breaker():
+    """The circuit breaker guarding the EVENTDATA backend this process
+    reads at predict time (None when storage is not resolvable)."""
+    global _breaker_cache
+
+    try:
+        le = storage.get_levents()
+    except Exception:
+        return None
+    cached_le, cached_br = _breaker_cache
+    if cached_le is le:
+        return cached_br
+    ep = resilience.endpoint_of(le)
+    br = resilience.breaker_for(ep) if ep else None
+    _breaker_cache = (le, br)
+    return br
+
+
 def _bounded(fn, timeout: Optional[float]):
     """Run ``fn`` with an optional deadline (seconds). ``None`` = direct
-    call; otherwise a pool thread runs it and a read still running at
-    the deadline raises :class:`LEventStoreTimeoutError`."""
-    if timeout is None:
-        return fn()
-    # the pool thread runs under this thread's request id and trace
-    # context, so a predict-time read lands in the query's trace
-    box, done, _ = _pool().submit(carrying_context(fn))
-    if not done.wait(timeout):
-        raise LEventStoreTimeoutError(
-            f"event-store read exceeded {timeout}s")
-    ok, value = box[0]
-    if ok:
-        return value
-    raise value
+    call (no extra thread hop on the common local-backend path). The
+    deadline path hops to a pool thread, which would otherwise lose the
+    caller's request-id/trace contextvars — exactly where slow-read
+    attribution matters most — so the snapshot rides along.
+
+    Resilience wiring: when the event store's circuit breaker is open,
+    the read fails IMMEDIATELY (no pool hop, no timeout wait — a
+    blacked-out store must cost a query microseconds, not its full
+    deadline). Every failure marks the active
+    :func:`~predictionio_tpu_torch.utils.resilience.degraded_scope`
+    before propagating, so templates that swallow the error and serve
+    from the device factor store still get the response stamped
+    ``degraded``."""
+    # the kill switch bypasses the breaker HERE too (consulting or
+    # feeding it while disabled would let state accumulate invisibly)
+    br = _event_store_breaker() if resilience.enabled() else None
+    if br is not None and br.is_blocking:
+        resilience.mark_degraded("circuit_open")
+        raise StorageCircuitOpen(br.endpoint, br.retry_in)
+    try:
+        if timeout is None:
+            return fn()
+        box, done, started = _pool().submit(carrying_context(fn))
+        if not done.wait(timeout):
+            err = LEventStoreTimeoutError(
+                f"event-store read exceeded {timeout}s")
+            if br is not None and started.is_set():
+                # a HUNG store never raises inside the DAO (where op
+                # failures are normally counted) — the deadline here is
+                # the only layer that sees it, and without this a
+                # wedged backend would cost every query its full read
+                # timeout instead of tripping the fast-fail breaker.
+                # A task still QUEUED behind busy workers says nothing
+                # about the store: counting client-side congestion as
+                # endpoint failures would open the breaker (and flip
+                # every replica's /healthz) on a healthy backend.
+                br.record_failure(err)
+            raise err
+        ok, value = box[0]
+        if ok:
+            return value
+        raise value
+    except BaseException as e:
+        resilience.mark_degraded(resilience.degrade_reason_for(e))
+        raise
 
 
 class LEventStore:

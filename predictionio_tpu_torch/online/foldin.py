@@ -7,7 +7,10 @@ daemon thread per deployed engine with ``--foldin on``):
    start (``tail_cursor``: only events AFTER deployment fold — history
    is already in the trained factors). The cursor shape is the
    backend's own (memory sequence / sqlite rowid / jsonlfs byte
-   watermark).
+   watermark / opaque over the resthttp wire; a ``fleet`` source
+   composes one per shard, ``{"fleetShards": {url: cursor}}``, and
+   keeps a dead shard's entry where it was, so its events fold late,
+   never lost).
 2. **Accumulate** — rating events (the datasource's event names,
    user->item with a numeric value property) mark their user touched;
    everything else is ignored.
@@ -326,8 +329,9 @@ class FoldInConsumer:
         re-touches them).
 
         Read shape: backends that declare ``indexed_entity_reads``
-        (sqlite) answer an ``entity_id``-filtered find from an index,
-        so per-user reads are cheap. Scan-based backends (memory /
+        (sqlite from an index; a ``fleet`` source from the one owner
+        shard, filtered server-side) answer an ``entity_id``-filtered
+        find cheaply, so they are read per user. Scan-based backends (memory /
         jsonlfs) pay a FULL-store pass per find — there a
         catch-up fold of k users must not cost k whole-store scans
         inside the live query server, so beyond a handful of users one

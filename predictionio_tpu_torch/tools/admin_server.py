@@ -15,9 +15,8 @@ Every request runs under the port's
 :class:`~predictionio_tpu_torch.utils.http_instrumentation.
 InstrumentedHandlerMixin`: ``GET /metrics``, ``/traces.json`` and the
 ``X-Request-ID`` / ``traceparent`` echo. ``GET /healthz`` reports
-whether the event storage resolves (the JAX package also asks the
-store's circuit breaker, which the port's backends do not have yet:
-ROADMAP A2.5).
+whether the event storage resolves and its circuit breaker is not
+refusing calls.
 """
 
 from __future__ import annotations
@@ -36,6 +35,7 @@ from predictionio_tpu_torch.data.storage.base import (
     App,
     generate_access_key,
 )
+from predictionio_tpu_torch.utils import resilience
 from predictionio_tpu_torch.utils.http_instrumentation import (
     InstrumentedHandlerMixin,
     SeveringThreadingHTTPServer,
@@ -170,13 +170,10 @@ class AdminServer:
             self._httpd = None
 
     def health_checks(self) -> Dict[str, bool]:
-        """Readiness for ``GET /healthz``: the event storage this server
-        administers resolves."""
-        try:
-            self.client.registry.get_levents()
-        except Exception:
-            return {"storage": False}
-        return {"storage": True}
+        """Readiness for ``GET /healthz``: the metadata/event storage
+        this server administers resolves and its breaker is closed."""
+        return {"storage": resilience.storage_ready(
+            self.client.registry.get_levents)}
 
     # -- request handling --------------------------------------------------
     def handle(self, method: str, path: str,

@@ -9,7 +9,9 @@ The port's copy of ``predictionio_tpu/tools/cli.py``: the same verbs
 and options, and ``--device`` (default ``cuda``) on ``train``, ``eval``,
 ``deploy`` and ``batchpredict``. The options whose modules are not
 ported yet raise ``NotImplementedError`` naming their ROADMAP item:
-``status --fleet`` and ``top --fleet`` (A2.4).
+``status --fleet`` and ``top --fleet`` (A2.6, the query fleet).
+``status`` prints each shard's health when EVENTDATA is a ``fleet``
+source.
 """
 
 from __future__ import annotations
@@ -28,15 +30,16 @@ def cmd_version(args) -> int:
 
 def cmd_status(args) -> int:
     """Verify storage wiring (Console status -> Storage.verifyAllDataObjects,
-    Storage.scala:335-358). ``--fleet URL`` (a fleet balancer's
-    federated ``/stats.json``) raises: the fleet is not ported yet."""
+    Storage.scala:335-358), then, for a ``fleet`` event store, each
+    shard's health. ``--fleet URL`` (a query-fleet balancer's federated
+    ``/stats.json``) raises: the query fleet is not ported yet."""
     from predictionio_tpu_torch.data import storage
     from predictionio_tpu_torch.data.storage.base import StorageError
 
     if getattr(args, "fleet", None):
         raise NotImplementedError(
             "pio status --fleet: the query fleet is not ported yet "
-            "(ROADMAP A2.4)")
+            "(ROADMAP A2.6)")
     try:
         cfg = storage.registry().config
         print("[INFO] Storage sources:")
@@ -47,11 +50,34 @@ def cmd_status(args) -> int:
         for repo, src in cfg.repositories.items():
             print(f"[INFO]   {repo} -> {src}")
         storage.verify_all_data_objects()
+        _print_fleet_health(storage)
     except StorageError as e:
         print(f"[ERROR] Storage check failed: {e}", file=sys.stderr)
         return 1
     print("[INFO] Your system is all ready to go.")
     return 0
+
+
+def _print_fleet_health(storage) -> None:
+    """When EVENTDATA is the sharded ``fleet`` source, print per-shard
+    health (the same per-URL breaker states the wire feeds)."""
+    try:
+        dao = storage.get_levents()
+    except Exception:
+        return
+    topo = getattr(dao, "topology", None)
+    if not callable(topo):
+        return
+    t = topo()
+    healthy = t.get("healthyShards", 0)
+    shards = t.get("shards", [])
+    print(f"[INFO] Event-store fleet: {healthy}/{len(shards)} shards "
+          f"healthy ({t.get('virtualNodes')} virtual nodes/shard, "
+          f"{t.get('partialReads', 0)} partial reads served)")
+    for s in shards:
+        state = "ok" if s.get("healthy") else "DOWN"
+        print(f"[INFO]   shard {s['index']}: {s['url']} "
+              f"[{state}, breaker {s.get('breakerState')}]")
 
 
 def cmd_app(args) -> int:

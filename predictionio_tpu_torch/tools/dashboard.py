@@ -14,8 +14,7 @@ per-instance evaluator results in txt/html/json, and a CORS-enabled
 Key authentication and TLS come from the port's ``common/``; ``GET
 /metrics`` and the request-id / ``traceparent`` echo from its
 ``utils/http_instrumentation.py``. ``GET /healthz`` reports whether the
-storage resolves (the JAX package also asks the store's circuit
-breaker: ROADMAP A2.5).
+storage resolves and its circuit breaker is not refusing calls.
 """
 
 from __future__ import annotations
@@ -37,7 +36,7 @@ from predictionio_tpu_torch.common import (
     SSLConfiguration,
 )
 from predictionio_tpu_torch.data import storage
-from predictionio_tpu_torch.utils import tracing
+from predictionio_tpu_torch.utils import resilience, tracing
 from predictionio_tpu_torch.utils.http_instrumentation import (
     InstrumentedHandlerMixin,
     SeveringThreadingHTTPServer,
@@ -72,13 +71,10 @@ class Dashboard:
         self._thread: Optional[threading.Thread] = None
 
     def health_checks(self):
-        """Readiness for ``GET /healthz``: the storage the instance list
-        reads resolves."""
-        try:
-            self.registry.get_levents()
-        except Exception:
-            return {"storage": False}
-        return {"storage": True}
+        """Readiness for ``GET /healthz``: the metadata storage the
+        instance list reads resolves and its breaker is closed."""
+        return {"storage": resilience.storage_ready(
+            self.registry.get_levents)}
 
     def start(self) -> "Dashboard":
         server = self

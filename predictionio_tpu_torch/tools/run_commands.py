@@ -18,9 +18,10 @@ SIGTERM/SIGINT drain at the next chunk boundary). ``eval`` runs an
 ``batchpredict`` scores a query file (or every known entity) through
 a stored instance in restartable chunks on ``--device``. Options whose
 modules are not ported yet raise and name their ROADMAP item: the
-distributed options (A6) and ``--fleet`` above 1 (A2.4). ``deploy
---foldin on`` runs the online fold-in consumer, ``deploy --feedback
---accesskey K`` posts each answered query to the event server.
+distributed options (A6) and ``--fleet`` above 1 (A2.6, the query
+fleet). ``deploy --foldin on`` runs the online fold-in consumer,
+``deploy --feedback --accesskey K`` posts each answered query to the
+event server.
 """
 
 from __future__ import annotations
@@ -516,7 +517,7 @@ def cmd_deploy(args) -> int:
     foldin = getattr(args, "foldin", "off") == "on"
     if int(getattr(args, "fleet", 1) or 1) > 1:
         raise NotImplementedError(
-            "--fleet: the query fleet is not ported yet (ROADMAP A2.4)")
+            "--fleet: the query fleet is not ported yet (ROADMAP A2.6)")
     if args.feedback and not args.accesskey:
         # the reference refuses feedback without an access key
         print("[ERROR] Feedback loop cannot be enabled because accessKey "

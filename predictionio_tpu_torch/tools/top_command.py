@@ -8,7 +8,7 @@ host time, the device bytes of the factor store and the AOT ladder (the
 port has no ladder yet: its fields read zero), and the degraded and
 fold-in state. ``--once`` prints one plain frame instead of looping.
 ``--fleet`` (a balancer's federated view) raises: the fleet is not
-ported yet (ROADMAP A2.4); :func:`render` draws the fleet and SLO blocks
+ported yet (ROADMAP A2.6); :func:`render` draws the fleet and SLO blocks
 all the same when a ``/stats.json`` carries them.
 
 The view reads two untraced scrape routes per refresh and nothing else.
@@ -217,7 +217,7 @@ def cmd_top(args) -> int:
     if getattr(args, "fleet", False):
         raise NotImplementedError(
             "pio top --fleet: the query fleet and its federated view are "
-            "not ported yet (ROADMAP A2.4)")
+            "not ported yet (ROADMAP A2.6)")
     try:
         if args.once:
             text, _ = snapshot(url)

@@ -3,11 +3,13 @@
 The port's copy of ``predictionio_tpu/utils/faults.py``. Chaos testing
 that replays exactly: every rule carries its own seed and match
 counter, so the same spec against the same call sequence fires the same
-faults. In the port the training checkpointer consults
-:func:`maybe_fault` (backend ``checkpoint``, op ``save``) before each
-save: ``slow`` holds a save open, ``torn`` writes half a blob and fails.
-The storage DAO wrapper and the networked wire that the JAX package
-also hooks come with ROADMAP A2.4 / A2.5.
+faults. Three layers consult :func:`maybe_fault` before each op: the
+storage DAO wrapper (:mod:`~predictionio_tpu_torch.data.storage.observed`,
+backend = the source type, ``torn`` writes half a batch and fails), the
+``resthttp`` wire (backend ``resthttp``, ``torn`` = the server committed
+but the response was lost) and the training checkpointer (backend
+``checkpoint``, op ``save``: ``slow`` holds a save open, ``torn`` writes
+half a blob and fails).
 
 Spec grammar (README "Resilience & health checks")::
 

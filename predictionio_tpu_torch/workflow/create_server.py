@@ -11,7 +11,8 @@ original query, each stage a trace span); the wire JSON
 ``POST /queries.json``, ``POST /reload`` (swap to the latest completed
 instance; an older one is refused with 409), ``POST /stop``, and the
 observability routes under the JAX package's route labels: ``GET /``
-(status), ``/healthz``, ``/metrics`` (Prometheus text), ``/stats.json``,
+(status), ``/healthz`` (the deployment, its device and the event store's
+breaker), ``/metrics`` (Prometheus text), ``/stats.json``,
 ``/dispatches.json`` (the device flight recorder), ``/plugins.json``
 (the output blockers and sniffers of
 :mod:`~predictionio_tpu_torch.workflow.server_plugins`, run on every
@@ -32,7 +33,7 @@ tail fails, answers carry ``degraded: true`` and ``degradedReasons:
 ["foldin_stale"]``. With ``ServerConfig(feedback=True)`` (``pio deploy
 --feedback --accesskey K``) each answered query is posted to the event
 server as a ``predict`` event of entity type ``pio_pr``, off the
-request's thread. Fleets come with ROADMAP A2.4.
+request's thread. The query fleet comes with ROADMAP A2.6.
 """
 
 from __future__ import annotations
@@ -621,10 +622,14 @@ class QueryServer:
                 **tracing.PROFILER.stop()}
 
     def health_checks(self) -> Dict[str, bool]:
-        """Readiness for ``GET /healthz``: a deployment is loaded and its
-        device answers."""
+        """Readiness for ``GET /healthz``: a deployment is loaded, its
+        device answers, and the event-store breaker is not refusing
+        calls. Liveness is the response itself; readiness going false
+        tells a balancer to drain this server while it keeps serving
+        (degraded) what it can."""
         return {"deployment": self._deployment is not None,
-                "device": _device_ready(self._deployment)}
+                "device": _device_ready(self._deployment),
+                "storage": resilience.storage_ready(storage.get_levents)}
 
     def start(self) -> "QueryServer":
         """Warm the deployment, bind (port 0 picks a free port) and serve

@@ -7,8 +7,9 @@ runs list``), and from a ``jsonlfs`` store through the pipelined read,
 import, train and serve in a process where both are unimportable, as
 does the console's quick start (``pio app
 new``, ``import``, the event server, ``template get``, ``train``,
-``export``) and the tuning grid (``pio eval --grid``). ``chip_smoke.py``
-refuses to run without a GPU."""
+``export``) and the tuning grid (``pio eval --grid``), and training and
+fold-in over a ``resthttp`` and a ``fleet`` event store.
+``chip_smoke.py`` refuses to run without a GPU."""
 
 import ast
 import os
@@ -325,6 +326,97 @@ def test_batchpredict_runs_with_jax_unimportable(tmp_path):
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "2 resumed" in proc.stdout and "batchpredict ran" in proc.stdout
+
+
+NETWORKED_RUN = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["predictionio_tpu"] = None
+import pathlib
+import numpy as np
+from predictionio_tpu_torch.core.context import ComputeContext
+from predictionio_tpu_torch.data import storage
+from predictionio_tpu_torch.data.api import EventServer, EventServerConfig
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.data.storage.base import App
+from predictionio_tpu_torch.ops.als import ALSParams
+from predictionio_tpu_torch.online.foldin import FoldInConfig, FoldInConsumer
+from predictionio_tpu_torch.workflow.create_server import (
+    build_deployment, resolve_engine_instance, serve_query, to_jsonable)
+from predictionio_tpu_torch.workflow.create_workflow import (
+    WorkflowConfig, create_workflow)
+
+work = pathlib.Path(sys.argv[1])
+servers = []
+for i in range(4):
+    reg = storage.StorageRegistry(storage.StorageConfig(
+        {"J": {"type": "jsonlfs", "path": str(work / f"shard{i}")},
+         "M": {"type": "memory"}},
+        {"EVENTDATA": "J", "METADATA": "M", "MODELDATA": "M"}))
+    servers.append(EventServer(EventServerConfig(
+        ip="127.0.0.1", port=0, service_key="k"), reg=reg).start())
+urls = [f"http://127.0.0.1:{s.address[1]}" for s in servers]
+rng = np.random.default_rng(0)
+cpu = ComputeContext(device="cpu")
+for src in ({"type": "resthttp", "url": urls[3], "service_key": "k"},
+            {"type": "fleet", "urls": ",".join(urls[:3]),
+             "service_key": "k"}):
+    storage.reset(storage.StorageConfig(
+        {"EV": src, "M": {"type": "memory"}},
+        {"EVENTDATA": "EV", "METADATA": "M", "MODELDATA": "M"}))
+    aid = storage.get_metadata_apps().insert(App(0, src["type"]))
+    le = storage.get_levents()
+    le.init(aid)
+    le.insert_batch([
+        Event(event="rate", entity_type="user", entity_id=f"u{u}",
+              target_entity_type="item", target_entity_id=f"i{i}",
+              properties={"rating": 1.0 + (u + i) % 5})
+        for u, i in zip(rng.integers(0, 9, 90), rng.integers(0, 12, 90))],
+        aid)
+    create_workflow(
+        WorkflowConfig(engine_factory="predictionio_tpu_torch.templates."
+                                      "recommendation.engine:engine_factory"),
+        {"datasource": {"params": {"appName": src["type"]}},
+         "preparator": {"params": {"bucketed": True}},
+         "algorithms": [{"name": "als", "params": {"rank": 3,
+                                                   "numIterations": 1}}]},
+        ctx=cpu)
+    dep = build_deployment(resolve_engine_instance(None), cpu)
+    consumer = FoldInConsumer(dep.models[0],
+                              FoldInConfig(app_name=src["type"],
+                                           interval=0.0),
+                              ALSParams(rank=3, num_iterations=1))
+    consumer._scope = (aid, None)
+    consumer._cursor = le.tail_cursor(aid, None)
+    le.insert_batch([
+        Event(event="rate", entity_type="user", entity_id="fresh",
+              target_entity_type="item", target_entity_id=f"i{i}",
+              properties={"rating": 5.0}) for i in (1, 2, 3)], aid)
+    consumer._cycle()
+    assert consumer.stats()["newUsers"] == 1, consumer.stats()
+    out = to_jsonable(serve_query(dep, {"user": "fresh", "num": 2}))
+    assert len(out["itemScores"]) == 2, out
+storage.reset()
+for s in servers:
+    s.stop()
+assert not any(m == "jax" or m.startswith(("jax.", "predictionio_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("networked store ran")
+"""
+
+
+def test_networked_store_runs_with_jax_unimportable(tmp_path):
+    """Training (``create_workflow`` on the CPU) and a fold-in of a new
+    user over a ``resthttp`` source and over a three-shard ``fleet``
+    source (four port event servers over ``jsonlfs``, in the process), in
+    a process where ``jax`` and ``predictionio_tpu`` cannot be
+    imported."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", NETWORKED_RUN,
+                           str(tmp_path)], env=env, cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "networked store ran" in proc.stdout
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -392,6 +392,7 @@ def test_registry_binds_jsonlfs_for_events_only(tmp_path):
         JsonlFsLEvents,
         JsonlFsPEvents,
     )
+    from predictionio_tpu_torch.data.storage.observed import unwrap
 
     env = {"PIO_STORAGE_SOURCES_EV_TYPE": "jsonlfs",
            "PIO_STORAGE_SOURCES_EV_PATH": str(tmp_path / "events"),
@@ -402,7 +403,8 @@ def test_registry_binds_jsonlfs_for_events_only(tmp_path):
            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "EV"}
     registry = storage.StorageRegistry(storage.StorageConfig.from_env(env))
     le = registry.get_levents()
-    assert isinstance(le, JsonlFsLEvents)
+    # the registry hands out the metrics wrapper; the backend is behind it
+    assert isinstance(unwrap(le), JsonlFsLEvents)
     assert isinstance(registry.get_pevents(), JsonlFsPEvents)
     assert registry.get_pevents()._l is not le   # its own reader DAO
     aid = registry.get_metadata_apps().insert(App(0, "app"))
@@ -415,3 +417,101 @@ def test_registry_binds_jsonlfs_for_events_only(tmp_path):
     assert len(os.listdir(tmp_path / "events" / f"app_{aid}_-1")) == 4
     with pytest.raises(StorageError, match="does not support Models"):
         registry.get_model_data_models()
+
+
+TRICKY_LINES = [
+    # the same user spelled literally, and a targetEntityId equal to it
+    '{"event":"rate","entityType":"user","entityId":"u1","targetEntityType":'
+    '"item","targetEntityId":"i1","eventTime":"2020-01-01T00:00:01Z",'
+    '"creationTime":"2020-01-01T00:00:00Z"}',
+    '{"event":"rate","entityType":"user","entityId":"u2","targetEntityType":'
+    '"user","targetEntityId":"u1","eventTime":"2020-01-01T00:00:02Z",'
+    '"creationTime":"2020-01-01T00:00:00Z"}',
+    # non-string ids, which Event reads through str()
+    '{"event":"rate","entityType":"user","entityId":5,'
+    '"eventTime":"2020-01-01T00:00:03Z",'
+    '"creationTime":"2020-01-01T00:00:00Z"}',
+    '{"event":"rate","entityType":"user","entityId":true,'
+    '"eventTime":"2020-01-01T00:00:04Z",'
+    '"creationTime":"2020-01-01T00:00:00Z"}',
+    '{"event":"rate","entityType":"user","entityId":[1, 2],'
+    '"eventTime":"2020-01-01T00:00:05Z",'
+    '"creationTime":"2020-01-01T00:00:00Z"}',
+    # ids JSON escapes: a slash (optionally), a quote
+    '{"event":"rate","entityType":"user","entityId":"a\\/b",'
+    '"eventTime":"2020-01-01T00:00:06Z",'
+    '"creationTime":"2020-01-01T00:00:00Z"}',
+    '{"event":"rate","entityType":"user","entityId":"q\\"x",'
+    '"eventTime":"2020-01-01T00:00:07Z",'
+    '"creationTime":"2020-01-01T00:00:00Z"}',
+    '{"event":"rate","entityType":"user","entityId":"u1x",'
+    '"eventTime":"2020-01-01T00:00:08Z",'
+    '"creationTime":"2020-01-01T00:00:00Z"}',
+    "not json",
+    '{"event":"rate","entityType":"user","entityId":"été",'
+    '"eventTime":"2020-01-01T00:00:09Z",'
+    '"creationTime":"2020-01-01T00:00:00Z"}',
+]
+ESCAPED_LINE = ('{"event":"rate","entityType":"user","entityId":'
+                '"\\u0075\\u0031","eventTime":"2020-01-01T00:00:10Z",'
+    '"creationTime":"2020-01-01T00:00:00Z"}')
+ENTITY_IDS = ["u1", "u2", "5", "True", "[1, 2]", "a/b", 'q"x', "u1x",
+              "été", "nobody"]
+
+
+@pytest.mark.parametrize("escaped", [False, True])
+def test_entity_reads_parse_only_candidate_lines(tmp_path, escaped,
+                                                 monkeypatch):
+    """``find(entity_id=...)`` answers as the JAX store's over every
+    spelling a line may give an id; in a partition without a ``\\u``
+    escape it parses only the lines that hold the id's one spelling (a
+    partition with one is parsed whole)."""
+    lines = TRICKY_LINES + ([ESCAPED_LINE] if escaped else [])
+    got = {}
+    for pkg in PACKAGES:
+        m = package_ns(pkg, tmp_path, part_max=4)
+        m.levents.init(APP)
+        m.levents.append_raw_lines(lines, APP)
+        with open(m.levents._parts(m.levents._dir(APP, None))[-1], "ab") as f:
+            f.write(b'{"event":"rate","entityType":"user","entityId":"u1"')
+        parsed = []
+        real = m.mod._parse_event_line
+        monkeypatch.setattr(m.mod, "_parse_event_line",
+                            lambda raw, src: (parsed.append(raw),
+                                              real(raw, src))[1])
+        got[pkg] = {}
+        for uid in ENTITY_IDS:
+            parsed.clear()
+            found = [e.to_json() for e in m.levents.find(APP,
+                                                         entity_id=uid)]
+            got[pkg][uid] = (found, len(parsed))
+    jax, port = got[PACKAGES[0]], got[PACKAGES[1]]
+    assert {u: v[0] for u, v in port.items()} == \
+        {u: v[0] for u, v in jax.items()}
+    assert len(port["u1"][0]) == (2 if escaped else 1)
+    assert [len(port[u][0]) for u in ("5", "True", "[1, 2]", "a/b", 'q"x')] \
+        == [1, 1, 1, 1, 1]
+    whole = len(lines)
+    for uid, (_, n_parsed) in port.items():
+        assert jax[uid][1] == whole  # the JAX store parses every line
+        if uid in ("5", "True", "[1, 2]", "a/b", 'q"x'):
+            assert n_parsed == whole, uid  # no single spelling
+        elif not escaped:
+            assert n_parsed < whole, uid
+
+
+def test_entity_read_of_an_unencodable_id_and_an_empty_partition(tmp_path):
+    """An id UTF-8 cannot spell (a lone surrogate) matches no stored
+    event and raises nothing, as in the JAX store; an empty partition
+    holds no candidates."""
+    got = {}
+    for pkg in PACKAGES:
+        m = package_ns(pkg, tmp_path, part_max=4)
+        m.levents.init(APP)
+        m.levents.append_raw_lines(TRICKY_LINES, APP)
+        d = m.levents._dir(APP, None)
+        open(os.path.join(d, "part-99999.jsonl"), "wb").close()
+        got[pkg] = [[e.to_json() for e in m.levents.find(APP, entity_id=uid)]
+                    for uid in ("\ud800", "u1", "u2")]
+    assert got[PACKAGES[1]] == got[PACKAGES[0]]
+    assert got[PACKAGES[1]][0] == [] and got[PACKAGES[1]][1]

@@ -183,7 +183,8 @@ class TestServerSurface:
         # the JAX package's /healthz shape: the server label and pid too
         assert call(base + "/healthz", method="GET") == (200, {
             "alive": True, "ready": True,
-            "checks": {"deployment": True, "device": True},
+            "checks": {"deployment": True, "device": True,
+                       "storage": True},
             "server": "query", "pid": os.getpid()})
         status, body = call(base + "/queries.json", raw=b"{not json")
         assert status == 400

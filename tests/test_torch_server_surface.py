@@ -399,7 +399,7 @@ def test_top_once_reads_a_port_deploy(served, capsys):
     assert "u × " in store and "i · " in store
     lanes = [ln for ln in text.splitlines() if ln.startswith("lane ")]
     assert lanes and all(int(ln.split()[2]) > 0 for ln in lanes)
-    with pytest.raises(NotImplementedError, match="A2.4"):
+    with pytest.raises(NotImplementedError, match="A2.6"):
         tcli.main(["top", "--once", "--fleet", "--url", base])
 
 

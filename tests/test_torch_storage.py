@@ -398,23 +398,22 @@ def test_env_config_parsing_matches_the_jax_registry():
       "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "J",
       "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "SQL"},
      "StorageError", "does not support Apps"),
-    ({"PIO_STORAGE_SOURCES_R_TYPE": "resthttp"}, "NotImplementedError",
-     "queue A item 2"),
-    ({"PIO_STORAGE_SOURCES_F_TYPE": "fleet"}, "NotImplementedError",
-     "queue A item 2"),
+    ({"PIO_STORAGE_SOURCES_R_TYPE": "resthttp"}, "StorageError",
+     "does not support Apps"),
+    ({"PIO_STORAGE_SOURCES_F_TYPE": "fleet"}, "StorageError",
+     "does not support Apps"),
 ])
 def test_registry_refuses(env, error, match):
-    """The parser refuses each bad config; a ``jsonlfs`` source (events
-    only) bound to METADATA parses, and its metadata DAO refuses, as in
-    the JAX registry."""
+    """The parser refuses each bad config; a ``jsonlfs``, ``resthttp`` or
+    ``fleet`` source (events only) bound to METADATA parses, and its
+    metadata DAO refuses, as in the JAX registry."""
     from predictionio_tpu_torch.data.storage import (
         StorageConfig,
         StorageRegistry,
     )
     from predictionio_tpu_torch.data.storage.base import StorageError
 
-    errors = {"StorageError": StorageError,
-              "NotImplementedError": NotImplementedError}
+    errors = {"StorageError": StorageError}
     with pytest.raises(errors[error], match=match):
         StorageRegistry(StorageConfig.from_env(env)).get_metadata_apps()
 
