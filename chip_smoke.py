@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --serving-times   # phases 1 and 4 only
     python3 chip_smoke.py --prepare-times   # phase 5's prepare step only
+    python3 chip_smoke.py --query-fleet     # phases 1, 5 and 3d only
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -140,7 +141,7 @@ Phases (any failure raises and the script exits non-zero):
    ``parse_prometheus``, must count the requests sent, the users lane's
    dispatches and one ``pio_dispatch_device_seconds`` observation per
    launch of the phase; ``/dispatches.json``'s lane summaries are
-   printed. Last, the sequential queries run from a client process in 10
+   printed. Last, the sequential queries run from a client process in 6
    rounds of 5 runs: metrics, tracing and device telemetry on, all
    killed, and each alone on; each mode's percentiles, and the user
    queries' split with all on against tracing alone.
@@ -194,6 +195,44 @@ Phases (any failure raises and the script exits non-zero):
    event -> servable p50 / p99 (first post to first non-empty answer,
    and ``pio_foldin_freshness_seconds``), and query p50 / p99 during
    the folds beside phase 3's.
+3d. The query fleet (``pio deploy --fleet 3``) at ML-20M width on phase
+   5's stored engine instance (put back into a memory store), bf16
+   store: ``QueryFleet(ServerConfig(ip="127.0.0.1", port=0, <the
+   instance's engine coordinates>), replicas=3)``, each replica loading
+   the instance on its own. (a) Each replica's ``DeviceTopK`` is a store
+   of its own on the card; ``/healthz`` is ready and ``/stats.json``
+   reads 3/3 replicas ready; the replicas' ``memory_report`` bytes fit
+   in ``torch.cuda.memory_allocated``'s growth and in
+   ``device_report()``. (b) Phase 3's five query kinds (sequential) and
+   1,024 user queries from 8 clients through the balancer: every answer
+   equals the plain pipeline's; every user query lands on
+   ``ring.preference(user)[0]`` (each replica's own users lane counts
+   it), and B1 dispatches in every replica. (c) A second instance,
+   trained on phase 5's tables from the next seed (3 iterations, B3 and
+   B2 on the card) and stored; ``POST /reload`` to the balancer while 8
+   clients query 16 users each: no query fails, every answer equals one
+   of the two instances' plain answers, no user gets the old instance's
+   after the new one's, every answer after the roll equals the new
+   instance's, and a reload to the older instance answers 409 with the
+   ``replicas`` list. (d) One replica stopped: its users are answered by
+   the next replica of their ring preference, marked
+   ``degradedReasons: ["replica_down"]``, equal to the plain answers;
+   ``/healthz`` stays ready. (e) The balancer's federated ``/metrics``,
+   parsed with ``parse_prometheus``, counts the balancer's queries as
+   sent, and the replicas' as the registry does (the in-process member
+   counted once); ``/stats.json`` carries ``fleet.members``, ``scrape``
+   and ``alerts``; ``/traces/<id>`` of a query sent with its own
+   ``traceparent`` holds the balancer's span (the client's child) over
+   the replica's; ``/traces.json`` answers. (f) ``pio-torch status
+   --fleet URL`` and ``pio-torch top --fleet --once`` (children) print
+   the fleet line. Printed, not asserted: sequential user-query p50 /
+   p99 straight to a replica and through the balancer, burst queries/s
+   from 8 and 32 clients through a 3-replica and a 1-replica fleet, B1
+   dispatches per replica, the card's busy share over the 32-client
+   burst (profiled) and the ``device.execute`` spans' CUDA-event time
+   against the profiler's B1 time and the burst's wall for each fleet
+   (asserted: within them), device memory
+   per replica and in total.
 4. Time the serving kernel at every (store, B, k) against its bound, its
    plain version and one library call, and at k <= 128 (bf16, and every
    store at B = 8) split its device time by kernel name under the
@@ -258,7 +297,13 @@ Phases (any failure raises and the script exits non-zero):
    ``predict`` events of entity type ``pio_pr``; ``pio top --once``
    against that deploy prints the store line (precision, users, items,
    bytes)
-   and lane lines with dispatches. ``pio batchpredict`` over every user
+   and lane lines with dispatches. ``pio deploy --fleet 2 --foldin on``
+   beside a ``pio eventserver`` child answers phase 6's queries through
+   its balancer equal to the instance loaded in-process; a new user's
+   ratings posted through the event server are servable through the
+   balancer within 30 s; ``pio undeploy`` stops the balancer and both
+   replicas (none answers after) and the child exits, having launched B1,
+   B3 and B2. ``pio batchpredict`` over every user
    (``--input``, chunks of 16): a clean run, a run killed with SIGKILL
    once its journal holds a chunk, and its rerun, which must resume at
    least one chunk and give shards equal to the clean run's. Then the
@@ -326,8 +371,12 @@ launches, the config grid's, with phase 5d's, and the assembly's
 ``tiles_bf16``, with phase 5c's; the serving kernel's ``eval_routes``
 hold ``grid_topk`` and ``batch_predict``, with phases 5d's and 6c's,
 and its ``batch_routes`` phase 3c's and 6b's ``pio batchpredict``;
-every kernel's ``networked_launches`` phase 6d's), the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``.
+every kernel's ``networked_launches`` phase 6d's, and its
+``fleet_launches`` phase 3d's and 6b's fleet child's; the training
+kernels' ``fleet_roll_training`` phase 3d's training of the instance
+the roll swaps to), the card's name
+and power limit, and last ``{"ok": true, "device": {...}}``. With
+``--query-fleet`` the script builds and runs phases 5 and 3d alone.
 """
 
 from __future__ import annotations
@@ -2596,12 +2645,11 @@ def observability_overhead(base: str, queries: list, rounds: int = 10) -> dict:
     return out
 
 
-def check_against_plain(model, answers: list) -> int:
-    """Each ``(query, status, body, seconds)`` must be a 200 whose items
-    and scores are the same pipeline's with the plain version in place of
-    the serving kernel (one extra result of context for near-tie checks),
-    scores within ``RTOL`` of the largest score the query can reach.
-    Returns the number checked."""
+def plain_references(model, queries: list) -> list:
+    """For each query, the same pipeline's answer with the plain version
+    in place of the serving kernel (one extra result of context for
+    near-tie checks) and the largest score the query can reach:
+    ``(items, scores, bound)``."""
     from predictionio_tpu_torch.ops import als_cuda
     from predictionio_tpu_torch.ops import serving as serving_mod
     from predictionio_tpu_torch.templates.recommendation.engine import (
@@ -2620,15 +2668,12 @@ def check_against_plain(model, answers: list) -> int:
     serving_mod.fused_gather_score_topk = \
         als_cuda.fused_gather_score_topk_plain
     try:
-        checked = 0
-        for q, status, body, _ in answers:
-            if status != 200:
-                raise AssertionError(f"{q}: HTTP {status} {body}")
+        refs = []
+        for q in queries:
             wide = dict(q, num=q["num"] + 1)
             want = algo.predict(model, Query(**{
                 k: tuple(v) if isinstance(v, list) else v
                 for k, v in wide.items()}))
-            got = body["itemScores"]
             exp_items = [s.item for s in want.item_scores]
             exp_scores = np.asarray([s.score for s in want.item_scores] +
                                     [-np.inf], dtype=np.float32)
@@ -2638,22 +2683,42 @@ def check_against_plain(model, answers: list) -> int:
                 bound = 1.01 * x_norm[model.user_map[q["user"]]] * y_norm
             else:
                 bound = 0.0
-            n = min(q["num"], len(exp_items))
-            if len(got) != n:
-                raise AssertionError(f"{q}: {len(got)} results, want {n}")
-            kv = np.asarray([[g["score"] for g in got]], dtype=np.float32)
-            item_ids = {it: j for j, it in enumerate(exp_items)}
-            ki = np.asarray([[item_ids.get(g["item"], n + 1 + j)
-                              for j, g in enumerate(got)]])
-            if n:
-                check_topk(kv, ki, exp_scores[None, :n + 1],
-                           np.arange(n + 1)[None, :],
-                           np.asarray([RTOL * bound], np.float32),
-                           exact=False)
-            checked += 1
+            refs.append((exp_items, exp_scores, bound))
     finally:
         serving_mod.fused_gather_score_topk = als_cuda.fused_gather_score_topk
-    return checked
+    return refs
+
+
+def check_answer(q: dict, status: int, body, ref: tuple) -> None:
+    """One answer must be a 200 whose items and scores are ``ref``'s
+    (:func:`plain_references`), scores within ``RTOL`` of the bound."""
+    exp_items, exp_scores, bound = ref
+    if status != 200:
+        raise AssertionError(f"{q}: HTTP {status} {body}")
+    got = body["itemScores"]
+    n = min(q["num"], len(exp_items))
+    if len(got) != n:
+        raise AssertionError(f"{q}: {len(got)} results, want {n}")
+    kv = np.asarray([[g["score"] for g in got]], dtype=np.float32)
+    item_ids = {it: j for j, it in enumerate(exp_items)}
+    ki = np.asarray([[item_ids.get(g["item"], n + 1 + j)
+                      for j, g in enumerate(got)]])
+    if n:
+        check_topk(kv, ki, exp_scores[None, :n + 1],
+                   np.arange(n + 1)[None, :],
+                   np.asarray([RTOL * bound], np.float32), exact=False)
+
+
+def check_against_plain(model, answers: list) -> int:
+    """Each ``(query, status, body, seconds)`` must be a 200 whose items
+    and scores are the same pipeline's with the plain version in place of
+    the serving kernel (one extra result of context for near-tie checks),
+    scores within ``RTOL`` of the largest score the query can reach.
+    Returns the number checked."""
+    refs = plain_references(model, [a[0] for a in answers])
+    for (q, status, body, _), ref in zip(answers, refs):
+        check_answer(q, status, body, ref)
+    return len(answers)
 
 
 def serve_full_width(model, seed: int) -> dict:
@@ -3772,6 +3837,615 @@ def foldin_full_width(dev, trained: dict, ratings: tuple, seed: int,
     torch.cuda.empty_cache()
     out["hammer"] = foldin_hammer(dev, trained, seed)
     return out
+
+
+# -- phase 3d: the query fleet at ML-20M width ----------------------------------
+
+FLEET_REPLICAS = 3
+FLEET_USERS = 1_024       # user queries from FLEET_CLIENTS threads in (b)
+FLEET_CLIENTS = 8
+FLEET_SEQ = 100           # sequential user queries, direct and through the balancer
+FLEET_BURST = 1_024       # user queries in each throughput burst
+FLEET_BURST_CLIENTS = (8, 32)
+FLEET_ROLL_USERS = 16     # users each reload client asks for, in turn
+FLEET_FAILOVER = 16       # the stopped replica's users asked in (d)
+
+
+def lane_counts(fleet) -> list:
+    """Each replica's ``{lane: (batched queries, dispatches)}``, read from
+    its own device store (not from the registry the replicas share)."""
+    out = []
+    for rep in fleet.replicas:
+        stats = rep.server._deployment.models[0].device_server().stats()
+        out.append({lane: (st["batchedQueries"], st["dispatches"])
+                    for lane, st in stats.items()})
+    return out
+
+
+def served_by(before: list, after: list, lane: str = "users") -> list:
+    """The replicas whose ``lane`` took queries between two reads."""
+    return [i for i, (b, a) in enumerate(zip(before, after))
+            if a.get(lane, (0, 0))[0] > b.get(lane, (0, 0))[0]]
+
+
+def post_any(url: str, payload, headers=None) -> tuple:
+    """``post`` that returns an HTTP error's status and JSON body."""
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers=headers or {}, method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read()), \
+                time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), time.perf_counter() - t0
+
+
+def agrees(q: dict, status: int, body, ref: tuple) -> bool:
+    try:
+        check_answer(q, status, body, ref)
+        return True
+    except AssertionError:
+        return False
+
+
+# a client process of closed-loop threads, each on one keep-alive
+# connection: the clients do not share the servers' interpreter lock
+BURSTER = r"""
+import http.client, json, sys, threading, time
+host, port, clients = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+users = json.loads(sys.stdin.read())
+bad, lock = [], threading.Lock()
+barrier = threading.Barrier(clients + 1)
+
+def client(c):
+    conn = http.client.HTTPConnection(host, port, timeout=120)
+    barrier.wait()
+    for u in users[c::clients]:
+        conn.request("POST", "/queries.json",
+                     body=json.dumps({"user": f"u{u}", "num": 10}),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        if resp.status != 200 or not body["itemScores"]:
+            with lock:
+                bad.append((u, resp.status))
+
+threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+for t in threads:
+    t.start()
+barrier.wait()
+t0 = time.perf_counter()
+for t in threads:
+    t.join()
+print(json.dumps({"seconds": time.perf_counter() - t0, "bad": bad}))
+"""
+
+
+# the roll's clients: a process of threads, each asking for its users in
+# turn on one keep-alive connection until the stop file appears; the
+# answers are printed in each thread's order
+ROLLER = r"""
+import http.client, json, os, sys, threading
+host, port, stop_file = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+users = json.loads(sys.argv[4])
+seen = [[] for _ in users]
+barrier = threading.Barrier(len(users) + 1)
+
+def client(c):
+    conn = http.client.HTTPConnection(host, port, timeout=120)
+    barrier.wait()
+    j = 0
+    while not os.path.exists(stop_file):
+        u = users[c][j % len(users[c])]
+        try:
+            conn.request("POST", "/queries.json",
+                         body=json.dumps({"user": u, "num": 10}),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            seen[c].append([u, resp.status, json.loads(resp.read())])
+        except Exception as e:
+            seen[c].append([u, 0, repr(e)])
+            conn = http.client.HTTPConnection(host, port, timeout=120)
+        j += 1
+
+threads = [threading.Thread(target=client, args=(c,))
+           for c in range(len(users))]
+for t in threads:
+    t.start()
+barrier.wait()
+print("started", flush=True)
+for t in threads:
+    t.join()
+print(json.dumps(seen))
+"""
+
+
+def client_burst(base: str, users, clients: int) -> float:
+    """Queries/s of one user query per entry of ``users`` from a
+    ``BURSTER`` process of ``clients`` threads."""
+    host, port = base.rsplit("//", 1)[1].split(":")
+    proc = subprocess.run(
+        [sys.executable, "-c", BURSTER, host, port, str(clients)],
+        input=json.dumps([int(u) for u in users]), capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"burst client failed: {proc.stderr[-2000:]}")
+    res = json.loads(proc.stdout.splitlines()[-1])
+    if res["bad"]:
+        raise AssertionError(f"burst answers failed: {res['bad'][:5]}")
+    return len(users) / res["seconds"]
+
+
+def fleet_bursts(base: str, users) -> tuple:
+    """Queries/s of ``FLEET_BURST`` user queries from each number of
+    closed-loop clients (a client process each), and the last burst's
+    profile: the card's busy share, and the flight recorder's
+    ``device.execute`` CUDA-event time against the profiler's time of
+    B1's kernels and the burst's wall."""
+    from predictionio_tpu_torch.utils import device_telemetry
+
+    *plain, profiled = FLEET_BURST_CLIENTS
+    qps = {clients: client_burst(base, users, clients) for clients in plain}
+    recorder = device_telemetry.recorder()
+    recorder.reset()
+    rate = []
+    wall, busy, kernels, kernel_ms = device_busy(
+        lambda: rate.append(client_burst(base, users, profiled)))
+    qps[profiled] = rate[0]
+    records = recorder.snapshot(recorder.capacity)
+    event_ms = sum(r["deviceUs"] for r in records
+                   if r.get("deviceUs") is not None) / 1e3
+    b1_ms = sum(kernel_ms[name] for name in b1_kernel_names())
+    return qps, {
+        "wall_ms": wall, "busy_ms": busy,
+        "busy_share": busy / wall if wall else None,
+        "records": len(records), "event_ms": event_ms, "b1_ms": b1_ms,
+        "event_over_b1": event_ms / b1_ms if b1_ms else None,
+        "within": bool(b1_ms) and 0.98 * b1_ms <= event_ms <= wall,
+        "profiled": bool(kernels)}
+
+
+def query_fleet_full_width(dev, trained: dict, seed: int, card: str) -> dict:
+    """Phase 3d: ``QueryFleet`` (``pio deploy --fleet 3``) at ML-20M
+    width on phase 5's stored engine instance (put back into a memory
+    store), at phase 3's serving precision; checks (a)-(f) of the module
+    docstring, then the printed timings."""
+    import collections
+    import dataclasses
+    import datetime
+    import gc
+    import os
+    import secrets
+    import tempfile
+    import uuid
+
+    import torch
+
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.data.storage.base import Model
+    from predictionio_tpu_torch.fleet.balancer import QueryFleet
+    from predictionio_tpu_torch.ops import als as als_mod
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.ops import serving as serving_mod
+    from predictionio_tpu_torch.templates.recommendation.engine import (
+        ALSModel,
+    )
+    from predictionio_tpu_torch.utils import metrics
+    from predictionio_tpu_torch.workflow import core_workflow
+    from predictionio_tpu_torch.workflow.create_server import ServerConfig
+
+    base_model = trained["model"]
+    base_model._server = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    inst = trained["instance"]
+    storage.reset(storage.StorageConfig(
+        {"M": {"type": "memory"}}, {r: "M" for r in storage.REPOSITORIES}))
+    storage.get_metadata_engine_instances().insert(inst)
+    storage.get_model_data_models().insert(trained["models_blob"])
+    config = ServerConfig(ip="127.0.0.1", port=0, engine_id=inst.engine_id,
+                          engine_version=inst.engine_version,
+                          engine_variant=inst.engine_variant)
+    R = FLEET_REPLICAS
+    rng = np.random.default_rng(seed + 17)
+    out: dict = {}
+    launches = collections.Counter()
+    fleet = None
+    work = tempfile.mkdtemp(prefix="pio-fleet-")
+    try:
+        # (a) three replicas, each with its own device store on the card
+        als_cuda.launches.reset()
+        allocated0 = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        fleet = QueryFleet(config, replicas=R).start()
+        start_s = time.perf_counter() - t
+        base = "http://%s:%d" % fleet.address
+        models = [rep.server._deployment.models[0] for rep in fleet.replicas]
+        stores = [m.device_server() for m in models]
+        for store in stores:
+            if not isinstance(store, serving_mod.DeviceTopK) \
+                    or store.device.type != dev.type \
+                    or store.precision != "bf16":
+                raise AssertionError(f"a replica serves from {store!r}")
+        if len({id(s) for s in stores}) != R:
+            raise AssertionError("the replicas share a device store")
+        health = get_json(base + "/healthz")
+        stats = get_json(base + "/stats.json")
+        if not health["ready"] or stats["fleet"]["readyReplicas"] != R:
+            raise AssertionError(f"fleet not ready: {health}, "
+                                 f"{stats['fleet']}")
+        per_replica = [s.memory_report()["totalBytes"] for s in stores]
+        report = serving_mod.device_report()
+        allocated = torch.cuda.memory_allocated()
+        if sum(per_replica) > allocated - allocated0 \
+                or report["storeBytes"] < sum(per_replica):
+            raise AssertionError(
+                f"the replicas' stores {per_replica} against device_report "
+                f"{report['storeBytes']} and memory_allocated growth "
+                f"{allocated - allocated0}")
+        print(f"[fleet] {R} replicas started in {start_s!r} s behind "
+              f"{base}: each a bf16 DeviceTopK on {stores[0].device}; "
+              f"store bytes per replica {per_replica}, device_report "
+              f"{report['storeBytes']} over {len(report['stores'])} live "
+              f"stores, torch.cuda.memory_allocated {allocated} ({allocated - allocated0} "
+              f"more than before the fleet) ({card})")
+        out["start_s"] = start_s
+        out["memory"] = {"per_replica": per_replica, "allocated": allocated,
+                         "device_report": report["storeBytes"]}
+
+        # (b) phase 3's five kinds, sequential, and FLEET_USERS user
+        # queries from FLEET_CLIENTS threads: answers equal the plain
+        # pipeline's, every user on its ring owner
+        users = [f"u{u}" for u in rng.integers(0, N_USERS, 68)]
+        queries = [{"user": u, "num": 10} for u in users[:24]]
+        queries += [{"user": u, "num": 10,
+                     "blacklist": [f"i{i}" for i in rng.integers(0, 500, 3)]}
+                    for u in users[24:32]]
+        queries += [{"items": [f"i{i}" for i in rng.integers(0, M_ITEMS, n)],
+                     "num": 10} for n in (1, 1, 2, 2, 3, 3, 5, 9)]
+        queries += [{"user": users[32], "num": 10, "categories": ["g3"]},
+                    {"user": users[33], "num": 5,
+                     "categories": ["g7", "g11"]},
+                    {"user": "no-such-user", "num": 10}]
+        start_counts = lane_counts(fleet)
+        answers, sticky = [], 0
+        for q in queries:
+            before = lane_counts(fleet)
+            answers.append((q, *post(base + "/queries.json", q)))
+            if q.get("user") in base_model.user_map:
+                got = served_by(before, lane_counts(fleet))
+                if got != [fleet.ring.preference(q["user"])[0]]:
+                    raise AssertionError(f"{q['user']} landed on {got}, its "
+                                         f"ring owner is "
+                                         f"{fleet.ring.preference(q['user'])[0]}")
+                sticky += 1
+        concurrent = [{"user": f"u{u}", "num": 10}
+                      for u in rng.integers(0, N_USERS, FLEET_USERS)]
+        before = lane_counts(fleet)
+        in_burst = burst(base, concurrent, FLEET_CLIENTS)
+        after = lane_counts(fleet)
+        owners = collections.Counter(fleet.ring.preference(q["user"])[0]
+                                     for q in concurrent)
+        took = [a["users"][0] - b["users"][0] for b, a in zip(before, after)]
+        if took != [owners[i] for i in range(R)]:
+            raise AssertionError(f"the replicas took {took} of the "
+                                 f"concurrent user queries, their ring "
+                                 f"owners {dict(owners)}")
+        dispatches = [sum(a[lane][1] - b.get(lane, (0, 0))[1] for lane in a)
+                      for b, a in zip(start_counts, after)]
+        if min(dispatches) <= 0:
+            raise AssertionError(f"B1 dispatches per replica {dispatches}")
+        checked = check_against_plain(models[0], answers + in_burst)
+        print(f"[fleet] (b) {checked} answers ({len(queries)} sequential of "
+              f"phase 3's kinds, {len(concurrent)} from {FLEET_CLIENTS} "
+              f"clients) equal the plain pipeline; {sticky} sequential "
+              f"user queries each on its ring owner, the concurrent ones "
+              f"split {took} as the ring; B1 dispatches per replica "
+              f"{dispatches}")
+        out["dispatches_per_replica"] = dispatches
+        out["split"] = took
+
+        # the hop's cost: sequential user queries straight to the ring
+        # owner and through the balancer, alternating
+        direct, hop = [], []
+        for u in rng.integers(0, N_USERS, FLEET_SEQ):
+            q = {"user": f"u{u}", "num": 10}
+            owner = fleet.replicas[fleet.ring.preference(q["user"])[0]]
+            host, port = owner.address
+            direct.append(post(f"http://{host}:{port}/queries.json", q)[2])
+            hop.append(post(base + "/queries.json", q)[2])
+        seq = {name: {"p50_ms": float(np.percentile(v, 50)) * 1e3,
+                      "p99_ms": float(np.percentile(v, 99)) * 1e3}
+               for name, v in (("direct", direct), ("balancer", hop))}
+        print(f"[fleet] sequential user queries ({FLEET_SEQ} each): "
+              f"straight to the replica {json.dumps(seq['direct'])}, "
+              f"through the balancer {json.dumps(seq['balancer'])} ({card})")
+        out["sequential"] = seq
+        burst_users = rng.integers(0, N_USERS, FLEET_BURST)
+        out["burst_qps"], brackets = {}, {}
+        out["burst_qps"][R], brackets[R] = fleet_bursts(base, burst_users)
+
+        # (e) observability: the federated /metrics counts the balancer's
+        # queries once, /stats.json's fleet block, a traced query's tree
+        trace_id = secrets.token_hex(16)
+        client_span = secrets.token_hex(8)
+        status, _, _ = post_any(
+            base + "/queries.json", {"user": users[0], "num": 10},
+            {"traceparent": f"00-{trace_id}-{client_span}-01"})
+        sent = len(queries) + len(concurrent) + FLEET_SEQ \
+            + len(burst_users) * len(FLEET_BURST_CLIENTS) + 1
+        time.sleep(0.2)   # a request is counted just after its answer
+        t = time.perf_counter()
+        fams = scrape(base)
+        scrape_s = time.perf_counter() - t
+        series = fams["pio_http_requests_total"]["series"]
+
+        def counted(server: str, member=None) -> float:
+            return sum(e["value"] for e in series
+                       if e["labels"].get("server") == server
+                       and e["labels"].get("route") == "/queries.json"
+                       and e["labels"].get("member") == member)
+
+        local = {server: sum(
+            e["value"] for e in metrics.registry().snapshot()[
+                "pio_http_requests_total"]["series"]
+            if e["labels"].get("server") == server
+            and e["labels"].get("route") == "/queries.json")
+            for server in ("balancer", "query")}
+        if not (counted("balancer") == counted("balancer", "balancer")
+                == local["balancer"] == sent) \
+                or counted("query") != local["query"]:
+            raise AssertionError(
+                f"federated /metrics counts the balancer's queries "
+                f"{counted('balancer')} (member drill-down "
+                f"{counted('balancer', 'balancer')}), the registry "
+                f"{local}, sent {sent}; replicas' {counted('query')}")
+        stats = get_json(base + "/stats.json")
+        fleet_block = stats["fleet"]
+        if not fleet_block["members"] or "durationSec" not in \
+                fleet_block["scrape"] or "firing" not in stats["alerts"]:
+            raise AssertionError(f"/stats.json: {list(fleet_block)}, "
+                                 f"{stats.get('alerts')}")
+        record = fetch_trace(base, trace_id)
+        spans = {s["name"]: s for s in record["spans"]}
+        root = spans.get("balancer POST /queries.json")
+        replica = spans.get("query POST /queries.json")
+        if status != 200 or root is None or replica is None \
+                or root["parentId"] != client_span \
+                or replica["parentId"] != root["spanId"]:
+            raise AssertionError(f"the assembled trace: "
+                                 f"{sorted(spans)} {record.get('processes')}")
+        index = get_json(base + "/traces.json?limit=5")
+        print(f"[fleet] (e) federated /metrics ({scrape_s!r} s to scrape "
+              f"and parse): the balancer's /queries.json counted "
+              f"{counted('balancer')!r} = sent {sent}, the replicas' "
+              f"{counted('query')!r} = the registry's (the in-process "
+              f"member counted once); /stats.json members "
+              f"{[m['member'] for m in fleet_block['members']]}, scrape "
+              f"{fleet_block['scrape']['durationSec']!r} s, alerts firing "
+              f"{stats['alerts']['firing']}; /traces/{trace_id}: "
+              f"{len(record['spans'])} spans, balancer span at the root "
+              f"over the replica's; /traces.json {len(index['traces'])} "
+              f"traces")
+        out["scrape_s"] = fleet_block["scrape"]["durationSec"]
+
+        # (c) a rolling reload to a second instance under 8 clients
+        pd = trained["pd"]
+        us, its = pd.user_side.to_device(dev), pd.item_side.to_device(dev)
+        als_cuda.assemble_launches.reset()
+        als_cuda.spd_launches.reset()
+        t = time.perf_counter()
+        X2, Y2 = als_mod.train_als_bucketed(us, its, als_mod.ALSParams(
+            rank=RANK, num_iterations=ITERATIONS, lambda_=LAMBDA,
+            alpha=ALPHA, seed=seed + 1), dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        # the smoke's own training, not the fleet's: kept apart
+        out["roll_training"] = {
+            "assemble_normal_equations": als_cuda.assemble_launches.value,
+            "spd_solve": als_cuda.spd_launches.value}
+        del us, its
+        second = ALSModel(np.asarray(X2), np.asarray(Y2),
+                          base_model.user_map, base_model.item_map,
+                          base_model.seen,
+                          item_categories=base_model.item_categories)
+        del X2, Y2
+        now = datetime.datetime.now(tz=datetime.timezone.utc)
+        inst2 = dataclasses.replace(inst, id="ei_" + uuid.uuid4().hex,
+                                    start_time=now, end_time=now)
+        t = time.perf_counter()
+        storage.get_model_data_models().insert(Model(
+            id=inst2.id, models=core_workflow.serialize_models([second])))
+        storage.get_metadata_engine_instances().insert(inst2)
+        store_s = time.perf_counter() - t
+        roll_users = [[f"u{u}" for u in rng.integers(0, N_USERS,
+                                                      FLEET_ROLL_USERS)]
+                      for _ in range(FLEET_CLIENTS)]
+        roll_queries = [{"user": u, "num": 10}
+                        for users_c in roll_users for u in users_c]
+        old_refs = dict(zip(map(json.dumps, roll_queries),
+                            plain_references(models[0], roll_queries)))
+        stop_file = os.path.join(work, "stop-roll")
+        host, port = fleet.address
+        roller = subprocess.Popen(
+            [sys.executable, "-c", ROLLER, host, str(port), stop_file,
+             json.dumps(roll_users)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            if read_line(roller, 60, raw=True).strip() != "started":
+                raise AssertionError("the roll's clients did not start")
+            time.sleep(0.5)
+            t = time.perf_counter()
+            status, body, _ = post_any(base + "/reload", {})
+            reload_s = time.perf_counter() - t
+            time.sleep(0.5)
+        finally:
+            open(stop_file, "w").close()
+            rolled, err = roller.communicate(timeout=120)
+        if roller.returncode != 0:
+            raise AssertionError(f"the roll's clients failed: {err[-2000:]}")
+        seen_by = [[({"user": u, "num": 10}, st, b, 0.0) for u, st, b in c]
+                   for c in json.loads(rolled.splitlines()[-1])]
+        errors = [b for c in seen_by for _, st, b, _ in c if st == 0]
+        if status != 200 or [r["replica"] for r in body["replicas"]] != \
+                list(range(R)) or any(r["swappedTo"] != inst2.id
+                                      for r in body["replicas"]):
+            raise AssertionError(f"/reload answered {status} {body}")
+        new_models = [rep.server._deployment.models[0]
+                      for rep in fleet.replicas]
+        if any(m is old for m, old in zip(new_models, models)):
+            raise AssertionError("a replica kept its deployment")
+        del models, stores, store
+        new_refs = dict(zip(map(json.dumps, roll_queries),
+                            plain_references(new_models[0], roll_queries)))
+        n_answers = sum(len(s) for s in seen_by)
+        failed = [a for s in seen_by for a in s if a[1] != 200]
+        mixed, both = [], 0
+        for c, answers_c in enumerate(seen_by):
+            switched = set()
+            for q, status, body, _ in answers_c:
+                key = json.dumps(q)
+                is_old = agrees(q, status, body, old_refs[key])
+                is_new = agrees(q, status, body, new_refs[key])
+                both += is_old and is_new
+                if not (is_old or is_new):
+                    mixed.append((q, "neither"))
+                elif is_new and not is_old:
+                    switched.add(q["user"])
+                elif q["user"] in switched:
+                    mixed.append((q, "old after new"))
+        if errors or failed or mixed or not n_answers:
+            raise AssertionError(
+                f"during the roll: {len(errors)} errors {errors[:3]}, "
+                f"{len(failed)} failed {failed[:3]}, {len(mixed)} answers "
+                f"out of order or of neither instance {mixed[:3]}")
+        after_roll = [(q, *post(base + "/queries.json", q))
+                      for q in roll_queries]
+        check_against_plain(new_models[0], after_roll)
+        storage.get_metadata_engine_instances().delete(inst2.id)
+        status, refused, _ = post_any(base + "/reload", {})
+        if status != 409 or refused.get("replicas") != [] \
+                or "older" not in refused.get("message", ""):
+            raise AssertionError(f"a reload to the older instance answered "
+                                 f"{status} {refused}")
+        gc.collect()
+        per_replica = [m.device_server().memory_report()["totalBytes"]
+                       for m in new_models]
+        print(f"[fleet] (c) second instance trained in {train_s!r} s (B3 "
+              f"{out['roll_training']['assemble_normal_equations']}, B2 "
+              f"{out['roll_training']['spd_solve']} launches) and stored in "
+              f"{store_s!r} s; /reload rolled {R} replicas in {reload_s!r} s "
+              f"under {FLEET_CLIENTS} clients: {n_answers} answers, none "
+              f"failed, each the old or the new instance's ({both} equal "
+              f"both), no user back to the old after the new; "
+              f"{len(after_roll)} answers after the roll equal the new "
+              f"instance's; a reload to the older one answered 409 with "
+              f"replicas {refused['replicas']}; store bytes per replica "
+              f"{per_replica}, memory_allocated "
+              f"{torch.cuda.memory_allocated()}, device_report "
+              f"{serving_mod.device_report()['storeBytes']} ({card})")
+        out["reload"] = {"s": reload_s, "answers": n_answers,
+                         "train_s": train_s}
+
+        # (d) a stopped replica: its users go to the next in their ring
+        # preference, marked replica_down, and equal the plain answers
+        down = 1
+        fleet.replicas[down].server.stop()
+        moved = []
+        for u in rng.permutation(N_USERS):
+            if fleet.ring.preference(f"u{u}")[0] == down:
+                moved.append({"user": f"u{u}", "num": 10})
+            if len(moved) == FLEET_FAILOVER:
+                break
+        failover = []
+        for q in moved:
+            before = lane_counts(fleet)
+            failover.append((q, *post(base + "/queries.json", q)))
+            got = served_by(before, lane_counts(fleet))
+            want = [fleet.ring.preference(q["user"])[1]]
+            body = failover[-1][2]
+            if got != want or body.get("degradedReasons") != \
+                    ["replica_down"] or body.get("degraded") is not True:
+                raise AssertionError(f"{q['user']} of the stopped replica: "
+                                     f"served by {got} (want {want}), "
+                                     f"{body.get('degradedReasons')}")
+        check_against_plain(new_models[0], failover)
+        health = get_json(base + "/healthz")
+        if not health["ready"]:
+            raise AssertionError(f"/healthz with a replica down: {health}")
+        print(f"[fleet] (d) replica {down} stopped: {len(failover)} of its "
+              f"users answered by their next replica, each marked "
+              f"degradedReasons ['replica_down'], equal the plain pipeline; "
+              f"/healthz ready")
+
+        # (f) the operator commands against the balancer
+        env = console_env(os.path.join(work, "pio.db"))
+        said_status, _ = pio(["status", "--fleet", base], env, work)
+        said_top, _ = pio(["top", "--once", "--fleet", "--url", base], env,
+                          work)
+        fleet_line = [ln for ln in said_status.splitlines()
+                      if ln.startswith("[INFO] Query fleet: ")]
+        members = [ln for ln in said_top.splitlines()
+                   if ln.startswith("member   balancer")]
+        if not fleet_line or f"/{R} replicas ready" not in fleet_line[0] \
+                or not members or "no federated fleet block" in said_top:
+            raise AssertionError(f"pio status --fleet: {said_status!r}; "
+                                 f"pio top --fleet: {said_top!r}")
+        print(f"[fleet] (f) pio-torch status --fleet: {fleet_line[0]!r}; "
+              f"pio-torch top --fleet --once: {members[0]!r}")
+        fleet.stop()
+        launches["fused_gather_score_topk"] += als_cuda.launches.value
+        fleet = None
+        del new_models
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # a one-replica fleet, for the burst rates beside the three's
+        als_cuda.launches.reset()
+        fleet = QueryFleet(config, replicas=1, instance=inst).start()
+        base = "http://%s:%d" % fleet.address
+        out["burst_qps"][1], brackets[1] = fleet_bursts(base, burst_users)
+        fleet.stop()
+        launches["fused_gather_score_topk"] += als_cuda.launches.value
+        fleet = None
+        for n, b in sorted(brackets.items()):
+            if not b["profiled"]:
+                print(f"[fleet] {n}-replica burst: the profiler recorded no "
+                      f"CUDA kernels")
+                continue
+            print(f"[fleet] profiled burst of {FLEET_BURST} queries from "
+                  f"{FLEET_BURST_CLIENTS[-1]} clients through a {n}-replica "
+                  f"fleet: wall {b['wall_ms']!r} ms, card busy "
+                  f"{b['busy_ms']!r} ms ({100 * b['busy_share']:.2f}%); "
+                  f"device.execute CUDA events {b['event_ms']!r} ms over "
+                  f"{b['records']} dispatches against the profiler's "
+                  f"{b['b1_ms']!r} ms of B1's kernels (ratio "
+                  f"{b['event_over_b1']!r}); within [0.98 x B1, wall]: "
+                  f"{b['within']}")
+            # each dispatch's bracket may hold another replica's kernels
+            # and the host's gaps between its own launches, so the sum
+            # is bounded below by B1's kernels and above by the wall
+            if b["b1_ms"] and not b["within"]:
+                raise AssertionError(
+                    f"device.execute's device time {b['event_ms']!r} ms "
+                    f"lies outside [0.98 x {b['b1_ms']!r}, "
+                    f"{b['wall_ms']!r}] ms with {n} replicas")
+        print(f"[fleet] burst queries/s by replicas and clients: "
+              f"{json.dumps(out['burst_qps'])} ({card})")
+        out["brackets"] = brackets
+        out["launches"] = dict(launches)
+        print(f"[fleet] launches of the phase: {dict(launches)}")
+        if not launches["fused_gather_score_topk"]:
+            raise AssertionError("the fleet never launched B1")
+        return out
+    finally:
+        if fleet is not None:
+            fleet.stop()
+        storage.reset()
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -5080,6 +5754,100 @@ def qs_feedback_and_top(work: str, eng: str, env: dict, key: str,
                 child.wait(timeout=60)
 
 
+QS_FLEET = 2              # replicas of 6b's `pio deploy --fleet` child
+QS_FLEET_NEW = 5          # the new user's ratings, through the event server
+
+
+def qs_fleet(work: str, eng: str, env: dict, key: str, queries: list,
+             want_answers: list, steps: dict, card: str) -> dict:
+    """``pio-torch deploy --fleet 2 --foldin on`` over the quick start's
+    store, beside a ``pio eventserver`` child: phase 6's queries through
+    the balancer equal the instance's in-process answers; a new user's
+    ratings, posted through the event server, are servable through the
+    balancer within ``FOLDIN_DEADLINE`` seconds (every replica folds
+    them; the user's ring owner answers); ``pio undeploy`` stops the
+    balancer and both replicas (none answers after) and the child exits
+    with its launches."""
+    children = []
+    fenv = dict(env, PIO_FOLDIN_INTERVAL=str(FOLDIN_INTERVAL))
+    try:
+        es, es_base, _ = pio_child(["eventserver", "--ip", "127.0.0.1",
+                                    "--port", "0"], env, work,
+                                   "Event Server is ready at")
+        children.append(es)
+        dep, base, ready_s = pio_child(
+            ["deploy", "--ip", "127.0.0.1", "--port", "0", "--fleet",
+             str(QS_FLEET), "--foldin", "on"], fenv, eng,
+            "Engine API is live at")
+        children.append(dep)
+        steps["deploy --fleet ready"] = ready_s
+        fleet = get_json(base + "/stats.json")["fleet"]
+        replicas = [r["address"] for r in fleet["replicas"]]
+        if fleet["readyReplicas"] != QS_FLEET or None in replicas:
+            raise AssertionError(f"the fleet child's /stats.json: {fleet}")
+        got = [post(base + "/queries.json", q) for q in queries]
+        bad = [(q, g[:2]) for q, g, w in zip(queries, got, want_answers)
+               if g[0] != 200 or g[1] != w]
+        if bad:
+            raise AssertionError(f"{len(bad)} answers of the fleet differ "
+                                 f"from the instance's in-process answers: "
+                                 f"{bad[:3]}")
+        user = "fleet-new-user"
+        rated = [f"i{i}" for i in range(1, QS_FLEET_NEW + 1)]
+        t0 = time.perf_counter()
+        status, items, _ = post(
+            f"{es_base}/batch/events.json?accessKey={key}",
+            [{"event": "rate", "entityType": "user", "entityId": user,
+              "targetEntityType": "item", "targetEntityId": it,
+              "properties": {"rating": 5.0}} for it in rated])
+        if status != 200 or any(x.get("status") != 201 for x in items):
+            raise AssertionError(f"the new user's events: {status} {items}")
+        body = {}
+        while time.perf_counter() - t0 < FOLDIN_DEADLINE:
+            status, body, _ = post(base + "/queries.json",
+                                   {"user": user, "num": 10})
+            if status == 200 and body["itemScores"]:
+                break
+            time.sleep(0.1)
+        servable_s = time.perf_counter() - t0
+        if not body.get("itemScores") or any(
+                s["item"] in rated for s in body["itemScores"]):
+            raise AssertionError(f"the new user after {servable_s} s: "
+                                 f"{body}")
+        steps["fleet: new user servable"] = servable_s
+        port = base.rsplit(":", 1)[1]
+        _, steps["undeploy --fleet"] = pio(
+            ["undeploy", "--ip", "127.0.0.1", "--port", port], env, eng)
+        tail = dep.stdout.read()
+        if dep.wait(timeout=60) != 0:
+            raise AssertionError(f"the fleet deploy exited {dep.returncode}")
+        launched = launches_line(tail)
+        for url in [base] + [f"http://{a}" for a in replicas]:
+            try:
+                urllib.request.urlopen(url + "/", timeout=5)
+            except urllib.error.URLError:
+                continue
+            raise AssertionError(f"{url} still answers after undeploy")
+        if not all(launched.get(name) for name in (
+                "fused_gather_score_topk", "assemble_normal_equations",
+                "spd_solve")):
+            raise AssertionError(f"the fleet deploy launched {launched}")
+        print(f"[quickstart] pio deploy --fleet {QS_FLEET} --foldin on ready "
+              f"in {ready_s!r} s; {len(got)} answers through the balancer "
+              f"equal the instance's in-process answers; a new user's "
+              f"{QS_FLEET_NEW} ratings posted through the event server "
+              f"servable through the balancer in {servable_s!r} s; "
+              f"undeployed (balancer and replicas {replicas} answer "
+              f"nothing); launches {launched} ({card})")
+        return {"ready_s": ready_s, "servable_s": servable_s,
+                "launches": launched}
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.terminate()
+                child.wait(timeout=60)
+
+
 def qs_batchpredict(work: str, eng: str, env: dict, iid: str, model,
                     steps: dict, card: str) -> dict:
     """``pio-torch batchpredict`` over every quick-start user (the events
@@ -5348,6 +6116,8 @@ def quick_start(seed: int, cycle: dict, card: str,
 
         out["feedback"] = qs_feedback_and_top(work, eng, env, key, queries,
                                               steps, card)
+        out["fleet"] = qs_fleet(work, eng, env, key, queries, want_answers,
+                                steps, card)
         out["batchpredict"] = qs_batchpredict(work, eng, env, iid, model,
                                               steps, card)
         out["resume"] = qs_kill_and_resume(work, eng, env, steps)
@@ -6475,6 +7245,20 @@ def quality(dev, shape=QUALITY_SHAPE, rank: int = QUALITY_RANK,
     return out
 
 
+def fleet_launches(name: str, fleet: dict, started: dict) -> dict:
+    """A kernel's launches in the query fleet: phase 3d's and 6b's
+    ``pio deploy --fleet`` child's, summed and by phase; for the training
+    kernels also phase 3d's training of the instance the roll swaps to
+    (the script's own, not the fleet's)."""
+    by_phase = {"3d": fleet["launches"].get(name, 0),
+                "6b": started["fleet"]["launches"].get(name, 0)}
+    out = {"fleet_launches": sum(by_phase.values()),
+           "fleet_launches_by_phase": by_phase}
+    if name in fleet["roll_training"]:
+        out["fleet_roll_training"] = fleet["roll_training"][name]
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6497,6 +7281,10 @@ def main() -> int:
     parser.add_argument(
         "--networked", action="store_true",
         help="build, then only run phase 6d (the networked event store)")
+    parser.add_argument(
+        "--query-fleet", action="store_true",
+        help="build, then only run phase 5 (store and training) and phase "
+             "3d (the query fleet)")
     parser.add_argument("--serve-store", metavar="SQLITE_FILE",
                         help=argparse.SUPPRESS)  # phase 6's second process
     args = parser.parse_args()
@@ -6539,6 +7327,18 @@ def main() -> int:
         print(json.dumps({"networked": out}, default=str))
         print(nvidia_smi())
         return 0
+    if args.query_fleet:
+        store = phase("5 event store", ml20m_store, args.seed)
+        try:
+            trained = phase("5 training", train_full_width, dev, args.seed,
+                            store)
+        finally:
+            remove_store(store)
+        out = phase("3d query fleet", query_fleet_full_width, dev, trained,
+                    args.seed, card)
+        print(json.dumps({"query_fleet": out}, default=str))
+        print(nvidia_smi())
+        return 0
     if args.serving_times:
         rows = phase("4 serving kernel times", timings, dev, args.seed)
         print(json.dumps({"serving_times": rows}))
@@ -6566,6 +7366,8 @@ def main() -> int:
                     args.seed, card)
     folded = phase("3b fold-in", foldin_full_width, dev, trained,
                    store["ratings"], args.seed, served)
+    fleet = phase("3d query fleet", query_fleet_full_width, dev, trained,
+                  args.seed, card)
     rows = phase("4 serving kernel times", timings, dev, args.seed)
     crossover = phase("4c route crossover", route_crossover, dev, args.seed)
     train_times = phase("4b training kernel times", training_timings, dev,
@@ -6624,6 +7426,9 @@ def main() -> int:
         # phase 6d: the fleet-deployed server's launches (its folds'
         # checks and answers)
         "networked_launches": networked["b1_launches"],
+        # the query fleet: phase 3d's replicas and 6b's `pio deploy
+        # --fleet 2` child
+        **fleet_launches("fused_gather_score_topk", fleet, started),
         "timings": rows}]
     for name, replaces, err, shape, main_route in (
             ("assemble_normal_equations", 141, train_err["assemble"],
@@ -6692,6 +7497,9 @@ def main() -> int:
             "launches": trained["launches"][name], "max_abs_err": err,
             **train_times["heads"][name], "shape": shape,
             "routes": routes, "timings": train_times["rows"][name],
+            # the folds of 6b's `pio deploy --fleet 2 --foldin on` child,
+            # and apart, phase 3d's training of the roll's instance
+            **fleet_launches(name, fleet, started),
             # phase 6d: ML-1M trainings from each event source, and the
             # folds through the fleet cursor
             "networked_launches": {
@@ -6716,6 +7524,12 @@ def main() -> int:
           f"fold event -> servable p99 {networked['servable_p99_s']!r} s, "
           f"killed shard's users servable "
           f"{networked['restart_delay_s']!r} s after its restart; "
+          f"query fleet: sequential p50 through the balancer "
+          f"{fleet['sequential']['balancer']['p50_ms']!r} ms, straight to "
+          f"the replica {fleet['sequential']['direct']['p50_ms']!r} ms, "
+          f"burst queries/s by replicas and clients "
+          f"{json.dumps(fleet['burst_qps'])}, a new user servable through "
+          f"6b's fleet in {started['fleet']['servable_s']!r} s; "
           f"batch predict "
           f"{batched['queries_per_s']!r} queries/s over "
           f"{batched['queries']} queries; fold-in event -> "

@@ -7,11 +7,9 @@ export, import, trace, runs, top.
 
 The port's copy of ``predictionio_tpu/tools/cli.py``: the same verbs
 and options, and ``--device`` (default ``cuda``) on ``train``, ``eval``,
-``deploy`` and ``batchpredict``. The options whose modules are not
-ported yet raise ``NotImplementedError`` naming their ROADMAP item:
-``status --fleet`` and ``top --fleet`` (A2.6, the query fleet).
-``status`` prints each shard's health when EVENTDATA is a ``fleet``
-source.
+``deploy`` and ``batchpredict``. ``status`` prints each shard's health
+when EVENTDATA is a ``fleet`` source, and with ``--fleet URL`` a query
+fleet balancer's federated summary and firing SLO alerts.
 """
 
 from __future__ import annotations
@@ -31,15 +29,12 @@ def cmd_version(args) -> int:
 def cmd_status(args) -> int:
     """Verify storage wiring (Console status -> Storage.verifyAllDataObjects,
     Storage.scala:335-358), then, for a ``fleet`` event store, each
-    shard's health. ``--fleet URL`` (a query-fleet balancer's federated
-    ``/stats.json``) raises: the query fleet is not ported yet."""
+    shard's health. With ``--fleet URL``, also scrape a running
+    balancer's federated ``/stats.json`` and print member health and
+    SLO alerts."""
     from predictionio_tpu_torch.data import storage
     from predictionio_tpu_torch.data.storage.base import StorageError
 
-    if getattr(args, "fleet", None):
-        raise NotImplementedError(
-            "pio status --fleet: the query fleet is not ported yet "
-            "(ROADMAP A2.6)")
     try:
         cfg = storage.registry().config
         print("[INFO] Storage sources:")
@@ -54,7 +49,52 @@ def cmd_status(args) -> int:
     except StorageError as e:
         print(f"[ERROR] Storage check failed: {e}", file=sys.stderr)
         return 1
+    fleet_url = getattr(args, "fleet", None)
+    if fleet_url:
+        if _print_balancer_status(fleet_url) != 0:
+            return 1
     print("[INFO] Your system is all ready to go.")
+    return 0
+
+
+def _print_balancer_status(url: str) -> int:
+    """Federated fleet summary off a balancer's ``/stats.json``
+    (``pio status --fleet URL``)."""
+    from predictionio_tpu_torch.tools import top_command
+
+    try:
+        stats = top_command._fetch(url.rstrip("/") + "/stats.json")
+    except Exception as e:
+        print(f"[ERROR] Fleet balancer {url} unreachable: {e}",
+              file=sys.stderr)
+        return 1
+    fleet = stats.get("fleet") or {}
+    members = fleet.get("members") or []
+    scrape = fleet.get("scrape") or {}
+    print(f"[INFO] Query fleet: {fleet.get('readyReplicas', 0)}/"
+          f"{len(fleet.get('replicas') or [])} replicas ready, "
+          f"{len(members)} observability members "
+          f"(scrape {float(scrape.get('durationSec') or 0) * 1e3:.1f}ms, "
+          f"{len(scrape.get('problems') or [])} problems)")
+    for m in members:
+        state = "ok" if m.get("ok") else (m.get("reason") or "down")
+        if m.get("inProcess"):
+            state += ", in-process"
+        print(f"[INFO]   member {m.get('member', '?')}: "
+              f"{m.get('url') or 'local'} [{state}]")
+    alerts = stats.get("alerts") or {}
+    firing = alerts.get("firing") or []
+    if firing:
+        print(f"[WARN] SLO alerts FIRING: {', '.join(firing)}")
+        for name in firing:
+            obj = (alerts.get("objectives") or {}).get(name) or {}
+            burn = obj.get("burn") or {}
+            print(f"[WARN]   {name}: burn fast {burn.get('fast')} / "
+                  f"slow {burn.get('slow')} (threshold "
+                  f"{alerts.get('burnThreshold')}), since "
+                  f"{obj.get('since', '?')}")
+    else:
+        print("[INFO] SLO alerts: none firing")
     return 0
 
 

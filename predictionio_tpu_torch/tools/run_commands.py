@@ -18,10 +18,10 @@ SIGTERM/SIGINT drain at the next chunk boundary). ``eval`` runs an
 ``batchpredict`` scores a query file (or every known entity) through
 a stored instance in restartable chunks on ``--device``. Options whose
 modules are not ported yet raise and name their ROADMAP item: the
-distributed options (A6) and ``--fleet`` above 1 (A2.6, the query
-fleet). ``deploy --foldin on`` runs the online fold-in consumer,
-``deploy --feedback --accesskey K`` posts each answered query to the
-event server.
+distributed options (A6). ``deploy --foldin on`` runs the online fold-in
+consumer, ``deploy --feedback --accesskey K`` posts each answered query
+to the event server, and ``deploy --fleet N`` serves N replicas behind
+one balancer (``--slo-config`` sets its SLO objectives).
 """
 
 from __future__ import annotations
@@ -501,7 +501,8 @@ def _apply_serving_flags(args) -> None:
 def cmd_deploy(args) -> int:
     """Console deploy (Console.scala:844-878): serve the given or latest
     COMPLETED engine instance on the ``--device`` (default cuda) until
-    ``POST /stop`` or an interrupt."""
+    ``POST /stop`` or an interrupt; with ``--fleet N`` (N > 1), N
+    replicas, each with its own device store, behind one balancer."""
     from predictionio_tpu_torch.core.context import ComputeContext
     from predictionio_tpu_torch.device import resolve_device
     from predictionio_tpu_torch.workflow.create_server import (
@@ -515,9 +516,6 @@ def cmd_deploy(args) -> int:
     # ServerConfig(foldin=True), and setting it earlier would make start()
     # keep "1" as the prior value it restores at stop
     foldin = getattr(args, "foldin", "off") == "on"
-    if int(getattr(args, "fleet", 1) or 1) > 1:
-        raise NotImplementedError(
-            "--fleet: the query fleet is not ported yet (ROADMAP A2.6)")
     if args.feedback and not args.accesskey:
         # the reference refuses feedback without an access key
         print("[ERROR] Feedback loop cannot be enabled because accessKey "
@@ -545,23 +543,39 @@ def cmd_deploy(args) -> int:
         event_server_ip=args.event_server_ip,
         event_server_port=args.event_server_port,
         access_key=args.accesskey,
+        slo_config=getattr(args, "slo_config", None),
     )
+    fleet_n = int(getattr(args, "fleet", 1) or 1)
     try:
         instance = resolve_engine_instance(
             args.engine_instance_id, config.engine_id,
             config.engine_version, config.engine_variant)
-        server = QueryServer(config, build_deployment(instance, ctx)).start()
+        if fleet_n > 1:
+            from predictionio_tpu_torch.fleet.balancer import QueryFleet
+
+            server = QueryFleet(config, replicas=fleet_n, instance=instance,
+                                ctx=ctx).start()
+        else:
+            server = QueryServer(config,
+                                 build_deployment(instance, ctx)).start()
     except Exception as e:
         print(f"[ERROR] Deploy failed: {e}", file=sys.stderr)
         return 1
     host, port = server.address
-    print(f"[INFO] Engine is deployed and running. Engine API is live "
-          f"at {server.scheme}://{host}:{port}.", flush=True)
+    if fleet_n > 1:
+        print(f"[INFO] Engine is deployed on a {fleet_n}-replica fleet. "
+              f"Engine API is live at {server.scheme}://{host}:{port}.",
+              flush=True)
+    else:
+        print(f"[INFO] Engine is deployed and running. Engine API is live "
+              f"at {server.scheme}://{host}:{port}.", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         server.stop()
-    _print_launches("fused_gather_score_topk")
+    # fold-in (--foldin on) assembles and solves each fold's users
+    _print_launches("fused_gather_score_topk", "assemble_normal_equations",
+                    "spd_solve")
     return 0
 
 
@@ -635,7 +649,7 @@ def cmd_undeploy(args) -> int:
     """Console undeploy (Console.scala:880-890): stop a running server.
     Probes HTTP first, then HTTPS, so it stops servers deployed with a
     TLS server.json without needing to know which scheme is live."""
-    from predictionio_tpu_torch.workflow.create_server import undeploy
+    from predictionio_tpu_torch.workflow.undeploy import undeploy
 
     if undeploy(args.ip, args.port) \
             or undeploy(args.ip, args.port, scheme="https"):

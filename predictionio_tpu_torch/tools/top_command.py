@@ -7,9 +7,9 @@ polls), served p50/p99, batch fill, each dispatch lane's device and
 host time, the device bytes of the factor store and the AOT ladder (the
 port has no ladder yet: its fields read zero), and the degraded and
 fold-in state. ``--once`` prints one plain frame instead of looping.
-``--fleet`` (a balancer's federated view) raises: the fleet is not
-ported yet (ROADMAP A2.6); :func:`render` draws the fleet and SLO blocks
-all the same when a ``/stats.json`` carries them.
+Pointed at a query fleet's balancer, :func:`render` also draws the
+fleet's members and SLO blocks; ``--fleet`` says the URL should be one,
+and a frame without the federated block says that it is not.
 
 The view reads two untraced scrape routes per refresh and nothing else.
 """
@@ -200,7 +200,8 @@ def render(stats: Dict[str, Any], dispatches: Dict[str, Any],
     return "\n".join(lines)
 
 
-def snapshot(url: str, prev: Optional[Tuple[float, int]] = None
+def snapshot(url: str, prev: Optional[Tuple[float, int]] = None,
+             expect_fleet: bool = False
              ) -> Tuple[str, Tuple[float, int]]:
     """Fetch + render one frame; returns (text, state-for-next-frame)."""
     stats = _fetch(url.rstrip("/") + "/stats.json")
@@ -209,24 +210,25 @@ def snapshot(url: str, prev: Optional[Tuple[float, int]] = None
     except (urllib.error.URLError, OSError, ValueError):
         dispatches = {}
     text = render(stats, dispatches, prev)
+    if expect_fleet and not (stats.get("fleet") or {}).get("members"):
+        text += ("\nfleet    --fleet requested but " + url +
+                 " has no federated fleet block (not a balancer?)")
     return text, (time.monotonic(), _query_count(stats))
 
 
 def cmd_top(args) -> int:
     url = args.url or DEFAULT_URL
-    if getattr(args, "fleet", False):
-        raise NotImplementedError(
-            "pio top --fleet: the query fleet and its federated view are "
-            "not ported yet (ROADMAP A2.6)")
+    expect_fleet = bool(getattr(args, "fleet", False))
     try:
         if args.once:
-            text, _ = snapshot(url)
+            text, _ = snapshot(url, expect_fleet=expect_fleet)
             print(text)
             return 0
         prev: Optional[Tuple[float, int]] = None
         while True:
             try:
-                text, prev = snapshot(url, prev)
+                text, prev = snapshot(url, prev,
+                                      expect_fleet=expect_fleet)
             except (urllib.error.URLError, OSError) as e:
                 text = f"pio top · {url} unreachable: {e}"
             # ANSI clear + home, then the frame: a refreshing view

@@ -758,39 +758,16 @@ def set_trace_dir(path: Optional[str]) -> None:
     TRACES.set_export_dir(path)
 
 
-def _topmost(record: Dict[str, Any]) -> bool:
-    """Does this fragment hold the trace's root span (no parent)?"""
-    return any(s.get("parentId") is None for s in record.get("spans", ()))
-
-
-def _fold_fragment(prior: Dict[str, Any],
-                   rec: Dict[str, Any]) -> Dict[str, Any]:
-    """Fold one more fragment of the same trace into ``prior`` (the JAX
-    package's ``obs.assemble.fold_fragment``): the fragment holding the
-    topmost span names the merged trace, ``durationSec`` is the max,
-    ``error`` / ``slow`` are OR'd, spans stay fragment-major."""
-    if _topmost(rec) and not _topmost(prior):
-        rec["spans"] = list(rec.get("spans", ())) \
-            + list(prior.get("spans", ()))
-        rec["durationSec"] = max(prior.get("durationSec", 0.0),
-                                 rec.get("durationSec", 0.0))
-        rec["error"] = prior.get("error", False) or rec.get("error", False)
-        rec["slow"] = prior.get("slow", False) or rec.get("slow", False)
-        return rec
-    prior["spans"] = list(prior.get("spans", ()))
-    prior["spans"].extend(rec.get("spans", ()))
-    prior["durationSec"] = max(prior.get("durationSec", 0.0),
-                               rec.get("durationSec", 0.0))
-    prior["error"] = prior.get("error") or rec.get("error", False)
-    prior["slow"] = prior.get("slow") or rec.get("slow", False)
-    return prior
-
-
 def load_traces_from_dir(path: str, trace_id: Optional[str] = None,
                          limit: Optional[int] = None
                          ) -> List[Dict[str, Any]]:
     """Read trace records back from a ``--trace-dir``, merging fragments
     of the same trace_id across files (i.e. across processes)."""
+    # the fold itself (topmost-fragment-wins naming, max-duration, OR'd
+    # error/slow) is shared with the balancer's live trace assembly:
+    # predictionio_tpu_torch/obs/assemble.py. Lazy import: obs is a
+    # consumer of this module.
+    from predictionio_tpu_torch.obs import assemble as _assemble
     merged: "collections.OrderedDict[str, Dict[str, Any]]" = \
         collections.OrderedDict()
     try:
@@ -825,7 +802,7 @@ def load_traces_from_dir(path: str, trace_id: Optional[str] = None,
                         # the fragment holding the TOPMOST span (no
                         # parent) names the merged trace: "pio.train",
                         # not the event server's wire-request root
-                        merged[tid] = _fold_fragment(prior, rec)
+                        merged[tid] = _assemble.fold_fragment(prior, rec)
         except OSError:
             continue
     out = list(merged.values())

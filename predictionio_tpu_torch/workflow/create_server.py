@@ -33,7 +33,8 @@ tail fails, answers carry ``degraded: true`` and ``degradedReasons:
 ["foldin_stale"]``. With ``ServerConfig(feedback=True)`` (``pio deploy
 --feedback --accesskey K``) each answered query is posted to the event
 server as a ``predict`` event of entity type ``pio_pr``, off the
-request's thread. The query fleet comes with ROADMAP A2.6.
+request's thread. :mod:`~predictionio_tpu_torch.fleet.balancer` runs
+several of these servers behind one balancer (``pio deploy --fleet N``).
 """
 
 from __future__ import annotations
@@ -45,7 +46,6 @@ import json
 import logging
 import os
 import secrets
-import ssl
 import threading
 import time
 import urllib.error
@@ -98,6 +98,7 @@ from predictionio_tpu_torch.workflow import core_workflow
 from predictionio_tpu_torch.workflow.server_plugins import (
     EngineServerPluginContext,
 )
+from predictionio_tpu_torch.workflow.undeploy import undeploy
 
 logger = logging.getLogger("pio.torch.queryserver")
 BIND_TRIES = 3  # a stale server's port frees a moment after its /stop
@@ -131,12 +132,25 @@ class ServerConfig:
     # cert/key; None reads $PIO_SERVER_CONFIG or ./server.json, and a
     # file without an "ssl" section serves plain HTTP
     server_config_path: Optional[str] = None
+    # SLO overrides for fleet mode (`pio deploy --fleet N --slo-config
+    # ...`): inline JSON or a file path, layered over the defaults and
+    # $PIO_SLO_* (predictionio_tpu_torch/obs/slo.py)
+    slo_config: Optional[str] = None
 
 
 class ReloadDowngradeError(RuntimeError):
     """``POST /reload`` refused (HTTP 409): the latest completed instance
     is older than the one deployed. Downgrading takes an explicit
-    redeploy."""
+    redeploy.
+
+    ``swapped`` lists the replicas a fleet roll had already swapped
+    before the refusal aborted it (empty for a single server): the 409
+    body names them, so the operator sees how far the roll got."""
+
+    def __init__(self, *args: Any,
+                 swapped: Optional[List[Dict[str, Any]]] = None):
+        super().__init__(*args)
+        self.swapped: List[Dict[str, Any]] = list(swapped or [])
 
 
 def engine_instance_to_engine_params(
@@ -596,12 +610,21 @@ class QueryServer:
     def stats_json(self) -> Dict[str, Any]:
         """``GET /stats.json``: the status page, the live micro-batch
         lanes' stats, the ``device`` block (store bytes, flight-recorder
-        summary) and the registry snapshot (the state ``GET /metrics``
-        renders as Prometheus text)."""
-        return {**self.status(),
-                "batchers": _serving.batcher_stats(),
-                "device": _serving.device_report(),
-                "metrics": metrics.registry().snapshot()}
+        summary), the registry snapshot (the state ``GET /metrics``
+        renders as Prometheus text) and, when EVENTDATA is a ``fleet``
+        source, its shard topology as ``storageFleet``."""
+        from predictionio_tpu_torch.fleet.balancer import _storage_topology
+
+        out = {**self.status(),
+               "batchers": _serving.batcher_stats(),
+               "device": _serving.device_report(),
+               "metrics": metrics.registry().snapshot()}
+        # over the sharded ``fleet`` event source, the shard topology
+        # (per-shard breaker states, partial reads served)
+        topo = _storage_topology()
+        if topo is not None:
+            out["storageFleet"] = topo
+        return out
 
     def dispatches_json(self, limit: int = 100) -> Dict[str, Any]:
         """``GET /dispatches.json``: the device flight recorder's last
@@ -765,29 +788,6 @@ class QueryServer:
             srv = getattr(model, "_server", None)
             if srv is not None:
                 srv.close()
-
-
-def undeploy(ip: str, port: int, scheme: str = "http") -> bool:
-    """``POST /stop`` to the server at ``ip:port``; True when something
-    answered. With ``scheme="https"`` the certificate is not verified:
-    the probe talks to a local (commonly self-signed) server, and its
-    only action is asking it to stop."""
-    host = "127.0.0.1" if ip == "0.0.0.0" else ip
-    kwargs = {}
-    if scheme == "https":
-        ctx = ssl.create_default_context()
-        ctx.check_hostname = False
-        ctx.verify_mode = ssl.CERT_NONE
-        kwargs["context"] = ctx
-    try:
-        req = urllib.request.Request(f"{scheme}://{host}:{port}/stop",
-                                     data=b"", method="POST")
-        with urllib.request.urlopen(req, timeout=3, **kwargs) as resp:
-            logger.info("Undeployed the server at %s:%d (%d)", host, port,
-                        resp.status)
-            return True
-    except (urllib.error.URLError, OSError):
-        return False
 
 
 class _QueryHandler(InstrumentedHandlerMixin, BaseHTTPRequestHandler):

@@ -365,12 +365,9 @@ def test_operator_verbs_parse_as_the_jax_verbs(argv, handler):
 
 
 UNPORTED = [
-    (["status", "--fleet", "http://127.0.0.1:1"], "A2.6"),
-    (["top", "--fleet", "--once"], "A2.6"),
     (["template", "get", "sequentialrec", "d"], "A7"),
     (["train", "--device", "cpu", "--num-hosts", "2"], "A6"),
     (["train", "--device", "cpu", "--coordinator", "h:1"], "A6"),
-    (["deploy", "--device", "cpu", "--fleet", "2"], "A2.6"),
 ]
 
 

@@ -4,8 +4,8 @@ and the training and query paths, from a data source in memory, from
 the event store through a stored engine instance (and a fold-in of a
 new user into it, and a bf16 checkpointed training read back by ``pio
 runs list``), and from a ``jsonlfs`` store through the pipelined read,
-import, train and serve in a process where both are unimportable, as
-does the console's quick start (``pio app
+import, train and serve in a process where both are unimportable (and a
+2-replica query fleet answers a query), as does the console's quick start (``pio app
 new``, ``import``, the event server, ``template get``, ``train``,
 ``export``) and the tuning grid (``pio eval --grid``), and training and
 fold-in over a ``resthttp`` and a ``fleet`` event store.
@@ -156,6 +156,24 @@ with tempfile.TemporaryDirectory() as ckpt_dir:
         assert cli.main(["runs", "list", "--dir", ckpt_dir]) == 0
     assert "2/2" in listing.getvalue(), listing.getvalue()
     del os.environ["PIO_CHECKPOINT_DIR"], os.environ["PIO_CHECKPOINT_EVERY"]
+import json, urllib.request
+from predictionio_tpu_torch.fleet.balancer import QueryFleet
+from predictionio_tpu_torch.workflow.create_server import ServerConfig
+os.environ["PIO_SLO_POLL_SEC"] = "0"
+fleet = QueryFleet(ServerConfig(ip="127.0.0.1", port=0), 2,
+                   ctx=ComputeContext(device="cpu")).start()
+try:
+    req = urllib.request.Request(
+        "http://%s:%d/queries.json" % fleet.address,
+        data=json.dumps({"user": "u1", "num": 2}).encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        out = json.loads(resp.read())
+    assert 1 <= len(out["itemScores"]) <= 2, out
+    assert all(r.server._deployment.models[0].device_server()
+               is not fleet.replicas[0].server._deployment.models[0]
+               .device_server() for r in fleet.replicas[1:])
+finally:
+    fleet.stop()
 with tempfile.TemporaryDirectory() as events_dir:
     storage.reset(storage.StorageConfig(
         {"J": {"type": "jsonlfs", "path": events_dir, "part_max_events": 25},

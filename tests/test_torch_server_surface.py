@@ -399,8 +399,11 @@ def test_top_once_reads_a_port_deploy(served, capsys):
     assert "u × " in store and "i · " in store
     lanes = [ln for ln in text.splitlines() if ln.startswith("lane ")]
     assert lanes and all(int(ln.split()[2]) > 0 for ln in lanes)
-    with pytest.raises(NotImplementedError, match="A2.6"):
-        tcli.main(["top", "--once", "--fleet", "--url", base])
+    # --fleet against a single server: the frame says it is no balancer
+    assert tcli.main(["top", "--once", "--fleet", "--url", base]) == 0
+    last = capsys.readouterr().out.splitlines()[-1]
+    assert last == (f"fleet    --fleet requested but {base} has no "
+                    "federated fleet block (not a balancer?)")
 
 
 def test_top_once_reports_an_unreachable_server(capsys):
