@@ -5,6 +5,7 @@
     python3 chip_smoke.py --serving-times   # phases 1 and 4 only
     python3 chip_smoke.py --prepare-times   # phase 5's prepare step only
     python3 chip_smoke.py --query-fleet     # phases 1, 5 and 3d only
+    python3 chip_smoke.py --seqrec          # 1, 5's store, 3e, 3f, 7's half
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -233,6 +234,36 @@ Phases (any failure raises and the script exits non-zero):
    against the profiler's B1 time and the burst's wall for each fleet
    (asserted: within them), device memory
    per replica and in total.
+3e. Sequential recommendation at ML-20M width (its training runs after
+   5b, on phase 5's store; its serving after phase 7): the store read
+   through ``SequenceDataSource`` (``rate`` events, 1,000,000-event
+   blocks, indexed block by block), ``SequencePreparator`` (the last 64
+   items a user) and ``SeqRecAlgorithm.train`` at ``SEQ_PARAMS`` (rank
+   64, 2 layers, 4 heads, 1,000 Adam steps of 256 rows and 128 shared
+   negatives): the loss must fall, and 256 sampled users' card vectors
+   must equal the port's CPU encode within 1e-4. The read, prepare,
+   train and encode seconds, tokens/s (``training_tokens``) and the peak
+   device memory are printed. The model is deployed (bf16 store) behind
+   a ``QueryServer``: 43 sequential queries and 512 from 8 clients,
+   every answer equal to the plain pipeline (B1's plain version); B1's
+   launches are printed. Then 8 users' histories (phase 5's events, in
+   its order) in a memory store, the model deployed with fold-in, 3 new
+   ratings each: each stored row must equal the re-encode of its user's
+   history on the CPU (within ``FOLDIN_ROW_TOL``), each answer must
+   change and equal plain.
+3f. Two-stage serving at ML-20M width: the ``twostage`` engine's
+   preparator on 3e's read (``max_len`` 2,048), its ALS half (rank 64,
+   3 iterations, B3 and B2) and its seqrec half at ``SEQ_PARAMS``;
+   deployed through ``deployment_from_models`` (``TwoStageServing``
+   bound to one ``TwoStageTopK``, N = 128, bf16): 43 sequential and
+   512 burst queries, every answer equal to the plain pipeline (plain
+   stage 1, then the same re-rank), each batch one ``two``-lane dispatch
+   with one B1 launch at k = N, mask off; the median CUDA-event time of
+   B1's kernels and of stage 2 a dispatch; B1's unmasked route at k =
+   128, B in {1, 256} against plain (within the reordering allowance),
+   timed beside plain, ``torch.topk`` and its bound. Then a composite
+   fold-in of 8 users: the ALS rows equal the plain fold, the stage-2
+   rows the CPU re-encode, every answer changes and equals plain.
 4. Time the serving kernel at every (store, B, k) against its bound, its
    plain version and one library call, and at k <= 128 (bf16, and every
    store at B = 8) split its device time by kernel name under the
@@ -363,7 +394,16 @@ Phases (any failure raises and the script exits non-zero):
    42, its ratio to the plain trainer from seed 3's init (must be
    0.99-1.01) and the seed band's lift over popularity (must exceed 1);
    the bf16 lane's Precision@10 from seed 3 must be at least fp32's
-   minus 0.02 (the JAX package's gate).
+   minus 0.02 (the JAX package's gate). Its sequence half copies
+   ``bench_quality.run_seqrec_check`` and ``run_twostage_check`` (200
+   Markov walks over 100 items): the seqrec loss must fall, its P@10
+   must beat popularity's, and two-stage NDCG@10 through
+   ``TwoStageTopK`` at N = the catalog (fp32 store) must reach max(ALS
+   alone, seqrec alone). Before it, 48 steps of the walks' training on
+   the card are held to the CPU's on one θ and one set of draws: one
+   step's loss and gradients, the loss traces and the users' encodes,
+   each limit checked against the CPU's fp32 run beside an fp64 replay
+   (inside) and a bf16-rounded control (outside).
 
 It prints a ``{"kernels": [...]}`` line (the training kernels' ``routes``
 hold the main path's, the large-rank one and ``foldin``, with phase 3b's
@@ -374,9 +414,14 @@ and its ``batch_routes`` phase 3c's and 6b's ``pio batchpredict``;
 every kernel's ``networked_launches`` phase 6d's, and its
 ``fleet_launches`` phase 3d's and 6b's fleet child's; the training
 kernels' ``fleet_roll_training`` phase 3d's training of the instance
-the roll swaps to), the card's name
+the roll swaps to; the serving kernel's ``sequence_launches`` and
+``unmasked_k128`` phases 3e's and 3f's, the training kernels'
+``twostage_launches`` phase 3f's), the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. With
-``--query-fleet`` the script builds and runs phases 5 and 3d alone.
+``--query-fleet`` the script builds and runs phases 5 and 3d alone;
+with ``--seqrec`` phase 5's store, 3e, 3f and phase 7's sequence half;
+with ``--read-paths`` phase 5's store and 3e's read and prepare two
+ways.
 """
 
 from __future__ import annotations
@@ -641,8 +686,11 @@ def kernel_checks(dev, seed: int) -> tuple:
                        * torch.linalg.vector_norm(Ydq, dim=1).max()
                        ).cpu().numpy()
                 for k in CHECK_KS:
-                    for mask_seen in (True, False)[:2 if kind == "integer"
-                                                  else 1]:
+                    # mask off: every case on the integer fixture, and
+                    # two-stage serving's stage 1 (bf16, k = 128) on both
+                    both = kind == "integer" or (dtype == "bf16"
+                                                 and k == 128)
+                    for mask_seen in (True, False)[:2 if both else 1]:
                         n_items = M_ITEMS - 3
                         worst = max(worst, topk_case(
                             Qt, store, ct, mt, k=min(k, n_items),
@@ -2649,7 +2697,8 @@ def plain_references(model, queries: list) -> list:
     """For each query, the same pipeline's answer with the plain version
     in place of the serving kernel (one extra result of context for
     near-tie checks) and the largest score the query can reach:
-    ``(items, scores, bound)``."""
+    ``(items, scores, bound)``. An ALS, a sequentialrec or a two-stage
+    retrieval model (whose store's stage 1 then runs plain)."""
     from predictionio_tpu_torch.ops import als_cuda
     from predictionio_tpu_torch.ops import serving as serving_mod
     from predictionio_tpu_torch.templates.recommendation.engine import (
@@ -2659,13 +2708,25 @@ def plain_references(model, queries: list) -> list:
 
     algo = ALSAlgorithm()
     server = model.device_server()
+    # a two-stage facet's answers are stage 2's: the bound reads the
+    # stage-2 tables, and stage 1 runs plain too
+    store = getattr(server, "store", server)
+    two = hasattr(store, "seq_item_factors")
     # a model whose store was patched (fold-in) serves rows beyond its
     # host factors: the norms come from the store itself
-    X = server._X
+    X = store._U if two else store._X
     x_norm = (X.float() if not hasattr(X, "scale") else
               X.data.float() * X.scale[:, None]).norm(dim=1).cpu().numpy()
-    y_norm = float(np.linalg.norm(model.item_factors, axis=1).max())
+    Y = (store.seq_item_factors.cpu().numpy() if two else
+         getattr(model, "item_factors", None))
+    if Y is None:       # a sequentialrec model: the tied item table
+        Y = model.item_vectors
+    y_norm = float(np.linalg.norm(Y, axis=1).max())
+    from predictionio_tpu_torch.ops import twostage as twostage_mod
+
     serving_mod.fused_gather_score_topk = \
+        als_cuda.fused_gather_score_topk_plain
+    twostage_mod.fused_gather_score_topk = \
         als_cuda.fused_gather_score_topk_plain
     try:
         refs = []
@@ -2686,6 +2747,8 @@ def plain_references(model, queries: list) -> list:
             refs.append((exp_items, exp_scores, bound))
     finally:
         serving_mod.fused_gather_score_topk = als_cuda.fused_gather_score_topk
+        twostage_mod.fused_gather_score_topk = \
+            als_cuda.fused_gather_score_topk
     return refs
 
 
@@ -7245,6 +7308,1052 @@ def quality(dev, shape=QUALITY_SHAPE, rank: int = QUALITY_RANK,
     return out
 
 
+# -- phases 3e and 3f: sequential recommendation and two-stage serving -------
+
+# the widths of bench.py's seqrec training lane (seqrec_train_bench)
+SEQ_PARAMS = dict(rank=64, n_layers=2, n_heads=4, max_seq_len=64,
+                  num_steps=1000, batch_size=256, n_negatives=128)
+SEQ_CHECK_USERS = 256     # users whose card encode is held to the CPU's
+SEQ_ENCODE_TOL = 1e-4     # of the largest entry of a user's vector
+SEQ_BURST = 512           # user queries from SEQ_CLIENTS threads
+SEQ_CLIENTS = 8
+SEQ_FOLD_USERS = 8        # users given new events under fold-in
+SEQ_FOLD_NEW = 3          # new events each
+SEQ_FOLD_DEADLINE = 60.0  # seconds for every fold to land
+TWO_MAX_LEN = 2_048       # the rating tables' padding cap (PERF.md §4)
+TWO_CANDIDATES = 128      # TwoStageTopK's default N
+# B = 8: the uid bucket each two-lane dispatch of phase 3f runs at
+TWO_ROUTE_BATCHES = (1, 8, 256)
+SEQ_FOLD_APP = "SeqFold"
+
+
+def seqrec_params(seed: int):
+    from predictionio_tpu_torch.ops.seqrec import SeqRecParams
+
+    return SeqRecParams(**SEQ_PARAMS, seed=seed)
+
+
+class SeqrecTrainProbe:
+    """While entered, times the trainer and the encode that
+    ``SeqRecAlgorithm.train`` calls (through the template module's
+    names) and keeps the trainer's loss trace."""
+
+    def __enter__(self) -> "SeqrecTrainProbe":
+        from predictionio_tpu_torch.templates.sequentialrec import (
+            engine as seng,
+        )
+
+        self.spans: dict = {}
+        self.losses = None
+        self._mod = seng
+        self._saved = (seng.train_seqrec, seng.encode_users)
+        seng.train_seqrec = self._timed("train", self._saved[0])
+        seng.encode_users = self._timed("encode", self._saved[1])
+        return self
+
+    def _timed(self, name: str, fn):
+        import torch
+
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.spans[name] = time.perf_counter() - t
+            if name == "train":
+                self.losses = out[1]
+            return out
+        return run
+
+    def __exit__(self, *exc) -> None:
+        self._mod.train_seqrec, self._mod.encode_users = self._saved
+
+
+def sequence_read_train(dev, seed: int) -> dict:
+    """Phase 3e's training: phase 5's store through ``SequenceDataSource``
+    (``rate`` events, 1,000,000-event blocks), ``SequencePreparator``
+    (``max_seq_len`` 64) and ``SeqRecAlgorithm.train`` at
+    ``SEQ_PARAMS``; the loss must fall and 256 users' card vectors must
+    equal the port's CPU encode."""
+    import torch
+
+    from predictionio_tpu_torch.core.context import ComputeContext
+    from predictionio_tpu_torch.ops import seqrec
+    from predictionio_tpu_torch.templates.sequentialrec import (
+        engine as seng,
+    )
+
+    ctx = ComputeContext()
+    t0 = time.perf_counter()
+    td = seng.SequenceDataSource(seng.DataSourceParams(
+        app_name=ML20M_APP, event_names=("rate",),
+        streaming_block_size=ML20M_PART,
+        decode_prefetch=ML20M_PREFETCH)).read_training(ctx)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pd = seng.SequencePreparator(seng.SeqPreparatorParams(
+        max_seq_len=SEQ_PARAMS["max_seq_len"])).prepare(ctx, td)
+    prepare_s = time.perf_counter() - t0
+    params = seqrec_params(seed)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    with SeqrecTrainProbe() as probe:
+        model = seng.SeqRecAlgorithm(params).train(ctx, pd)
+    spans, losses = probe.spans, probe.losses
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    tokens = seqrec.training_tokens(pd.buckets, params)
+    head, tail = float(losses[:20].mean()), float(losses[-20:].mean())
+    lens = np.asarray([len(s) for s in pd.seen.values()])
+    print(f"[seqrec] read {len(td)} events in {read_s:.2f} s, prepared "
+          f"{len(pd.user_map)} users x {len(pd.item_map)} items in "
+          f"{prepare_s:.2f} s (buckets {[b.ids.shape for b in pd.buckets]}, "
+          f"seen mean {lens.mean():.1f})")
+    print(f"[seqrec] train {spans['train']:.2f} s ({len(losses)} steps, "
+          f"{tokens} tokens: {tokens / spans['train']:.0f} tokens/s), "
+          f"encode {spans['encode']:.2f} s; loss first {losses[0]!r} last "
+          f"{losses[-1]!r} (first 20 {head!r}, last 20 {tail!r}); peak "
+          f"device memory {peak} bytes")
+    if not (losses[-1] < losses[0] and tail < head):
+        raise AssertionError(f"the seqrec loss did not fall: {losses[:3]} "
+                             f"... {losses[-3:]}")
+    if not np.isfinite(model.user_vectors).all():
+        raise AssertionError("non-finite user vectors")
+    # (check) sampled users' card vectors against the CPU encode
+    rng = np.random.default_rng(seed + 31)
+    worst = 0.0
+    for bucket in pd.buckets:
+        take = np.sort(rng.choice(len(bucket), size=min(
+            len(bucket), max(1, SEQ_CHECK_USERS * len(bucket)
+                             // len(pd.user_map) + 1)), replace=False))
+        sub = seqrec.SequenceBucket(bucket.rows[take], bucket.ids[take],
+                                    bucket.mask[take])
+        cpu = seqrec.encode_bucket(model.theta, sub, params, device="cpu")
+        card = model.user_vectors[sub.rows]
+        scale = np.maximum(np.abs(cpu).max(axis=1, keepdims=True), 1.0)
+        worst = max(worst, float((np.abs(card - cpu) / scale).max()))
+    print(f"[seqrec] card encode == CPU encode within {worst!r} of the "
+          f"largest entry (limit {SEQ_ENCODE_TOL})")
+    if not worst <= SEQ_ENCODE_TOL:
+        raise AssertionError(f"card encode differs by {worst!r}")
+    return {"td": td, "pd": pd, "model": model, "read_s": read_s,
+            "prepare_s": prepare_s, "train_s": spans["train"],
+            "encode_s": spans["encode"], "tokens": tokens,
+            "tokens_per_s": tokens / spans["train"],
+            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+            "peak_bytes": int(peak), "encode_err": worst}
+
+
+def sequence_read_paths(seed: int) -> dict:
+    """Phase 3e's read of phase 5's store two ways, each followed by
+    ``SequencePreparator``: ``SequenceDataSource``'s streamed read, which
+    indexes block by block, and the same blocks materialized into label
+    columns, which the preparator indexes by ``np.unique`` of the whole
+    columns as strings (the JAX package's read). Prints the read and
+    prepare seconds of each; the two preparations must be equal (maps,
+    buckets and seen lists)."""
+    from predictionio_tpu_torch.core.context import ComputeContext
+    from predictionio_tpu_torch.data.store import PEventStore
+    from predictionio_tpu_torch.templates.sequentialrec import (
+        engine as seng,
+    )
+
+    ctx = ComputeContext()
+    prep = seng.SequencePreparator(seng.SeqPreparatorParams(
+        max_seq_len=SEQ_PARAMS["max_seq_len"]))
+    out, pds = {}, {}
+    t0 = time.perf_counter()
+    td = seng.SequenceDataSource(seng.DataSourceParams(
+        app_name=ML20M_APP, event_names=("rate",),
+        streaming_block_size=ML20M_PART,
+        decode_prefetch=ML20M_PREFETCH)).read_training(ctx)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pds["blocks"] = prep.prepare(ctx, td)
+    out["blocks"] = {"read_s": read_s,
+                     "prepare_s": time.perf_counter() - t0}
+    del td
+    t0 = time.perf_counter()
+    cols = ([], [], [])
+    for block in PEventStore.find_columnar_blocks(
+            block_size=ML20M_PART, prefetch=ML20M_PREFETCH,
+            app_name=ML20M_APP, channel_name=None, entity_type="user",
+            event_names=["rate"], target_entity_type="item",
+            value_property=None, default_value=1.0, until_time=None):
+        block = block.materialize()
+        for col, x in zip(cols, (block.entity_ids, block.target_ids,
+                                 block.event_times)):
+            col.append(x)
+    users, items, times = (np.concatenate(c) for c in cols)
+    keep = np.fromiter((x is not None for x in items), dtype=bool,
+                       count=len(items))
+    td = seng.SequenceTrainingData(users[keep], items[keep], times[keep])
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pds["columns"] = prep.prepare(ctx, td)
+    out["columns"] = {"read_s": read_s,
+                      "prepare_s": time.perf_counter() - t0}
+    a, b = pds["blocks"], pds["columns"]
+    same = (np.array_equal(a.user_map.labels, b.user_map.labels)
+            and np.array_equal(a.item_map.labels, b.item_map.labels)
+            and len(a.buckets) == len(b.buckets)
+            and all(np.array_equal(getattr(x, f), getattr(y, f))
+                    for x, y in zip(a.buckets, b.buckets)
+                    for f in ("rows", "ids", "mask"))
+            and a.seen.keys() == b.seen.keys()
+            and all(np.array_equal(a.seen[u], b.seen[u]) for u in a.seen))
+    print(f"[seqrec] read paths of {len(td)} events: indexed block by "
+          f"block {out['blocks']}, label columns and np.unique "
+          f"{out['columns']}; preparations equal: {same}")
+    if not same:
+        raise AssertionError("the two read paths prepare differently")
+    return out
+
+
+def twostage_train(dev, seed: int, seq: dict) -> dict:
+    """Phase 3f's training: the ``twostage`` engine's preparator
+    (``max_seq_len`` 64, ``max_len`` 2,048) on phase 3e's read, then its
+    ALS half (rank 64, 3 iterations: B3 and B2) and its seqrec half at
+    ``SEQ_PARAMS``."""
+    from predictionio_tpu_torch.core.context import ComputeContext
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.ops.als import ALSParams
+    from predictionio_tpu_torch.templates.twostage import engine as teng
+
+    ctx = ComputeContext()
+    t0 = time.perf_counter()
+    pd = teng.TwoStagePreparator(teng.TwoStagePreparatorParams(
+        max_seq_len=SEQ_PARAMS["max_seq_len"],
+        max_len=TWO_MAX_LEN)).prepare(ctx, seq["td"])
+    prepare_s = time.perf_counter() - t0
+    als_params = ALSParams(rank=RANK, num_iterations=ITERATIONS,
+                           lambda_=LAMBDA, alpha=ALPHA, seed=seed)
+    als_cuda.assemble_launches.reset()
+    als_cuda.spd_launches.reset()
+    t0 = time.perf_counter()
+    als = teng.TwoStageALSAlgorithm(als_params).train(ctx, pd)
+    als_s = time.perf_counter() - t0
+    launches = {"assemble_normal_equations": als_cuda.assemble_launches.value,
+                "spd_solve": als_cuda.spd_launches.value}
+    if not all(launches.values()):
+        raise AssertionError(f"the ALS half launched {launches}")
+    t0 = time.perf_counter()
+    with SeqrecTrainProbe() as probe:
+        rerank = teng.TwoStageSeqRecAlgorithm(seqrec_params(seed)).train(
+            ctx, pd)
+    seq_s = time.perf_counter() - t0
+    losses = probe.losses
+    if not losses[-20:].mean() < losses[:20].mean():
+        raise AssertionError("the re-ranker's loss did not fall")
+    if als.user_map is not rerank.user_map:
+        raise AssertionError("the two halves do not share one user map")
+    u = pd.ratings.user_side
+    print(f"[twostage] prepare {prepare_s:.2f} s (user side "
+          f"{tuple(u.cols.shape)}, item side "
+          f"{tuple(pd.ratings.item_side.cols.shape)}); ALS {als_s:.2f} s "
+          f"({launches}); seqrec {seq_s:.2f} s (loss {losses[0]!r} -> "
+          f"{losses[-1]!r})")
+    return {"pd": pd, "als": als, "rerank": rerank, "als_params": als_params,
+            "prepare_s": prepare_s, "als_s": als_s, "seq_s": seq_s,
+            "launches": launches}
+
+
+def fold_histories(ratings: tuple, users: np.ndarray) -> dict:
+    """``users``' ratings in phase 5's event order (the order the
+    training read saw them): ``{user: [(item, stars), ...]}``."""
+    rows, cols, values, order = ratings
+    pos = np.empty(len(order), dtype=np.int64)
+    pos[order] = np.arange(len(order))
+    out = {}
+    for u in users:
+        idx = np.flatnonzero(rows == u)
+        idx = idx[np.argsort(pos[idx])]
+        out[int(u)] = list(zip(cols[idx].tolist(), values[idx].tolist()))
+    return out
+
+
+def fold_store(histories: dict) -> int:
+    """A memory event store holding ``histories`` as ``rate`` events, one
+    second apart in order (the fold-in gather reads them in event-time
+    order); returns the app id."""
+    import datetime as dt
+
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage.base import App
+
+    storage.reset(storage.StorageConfig(
+        sources={"M": {"type": "memory"}},
+        repositories={r: "M" for r in ("METADATA", "EVENTDATA",
+                                       "MODELDATA")}))
+    app_id = storage.get_metadata_apps().insert(App(0, SEQ_FOLD_APP))
+    t0 = dt.datetime(2020, 1, 1, tzinfo=dt.timezone.utc)
+    events = [Event(event="rate", entity_type="user", entity_id=f"u{u}",
+                    target_entity_type="item", target_entity_id=f"i{c}",
+                    properties={"rating": float(v)},
+                    event_time=t0 + dt.timedelta(seconds=j))
+              for u, hist in histories.items()
+              for j, (c, v) in enumerate(hist)]
+    storage.get_levents().init(app_id)
+    storage.get_levents().insert_batch(events, app_id)
+    return app_id
+
+
+def post_fold_events(app_id: int, histories: dict, rng) -> dict:
+    """``SEQ_FOLD_NEW`` new ratings for each user (items it never rated),
+    later than its history; returns each user's new items."""
+    import datetime as dt
+
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.data.event import Event
+
+    t0 = dt.datetime(2021, 1, 1, tzinfo=dt.timezone.utc)
+    new, events = {}, []
+    for u, hist in histories.items():
+        had = {c for c, _ in hist}
+        items = [int(i) for i in rng.permutation(M_ITEMS)
+                 if int(i) not in had][:SEQ_FOLD_NEW]
+        new[u] = items
+        events += [Event(event="rate", entity_type="user", entity_id=f"u{u}",
+                         target_entity_type="item", target_entity_id=f"i{i}",
+                         properties={"rating": 4.0},
+                         event_time=t0 + dt.timedelta(seconds=j))
+                   for j, i in enumerate(items)]
+    storage.get_levents().insert_batch(events, app_id)
+    return new
+
+
+def wait_folds(consumer, users: int) -> float:
+    """Seconds until every target of ``consumer`` patched ``users``
+    users with nothing pending."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < SEQ_FOLD_DEADLINE:
+        st = consumer.stats()
+        targets = st.get("targets", [st])
+        if all(t["usersPatched"] >= users and t["pendingEvents"] == 0
+               for t in targets):
+            return time.perf_counter() - t0
+        time.sleep(0.05)
+    raise AssertionError(f"the folds did not land in {SEQ_FOLD_DEADLINE} "
+                         f"s: {consumer.stats()}")
+
+
+def reencode_rows(model, consumer, names: list) -> tuple:
+    """The re-encode the fold should have written, on the CPU: the
+    consumer's own gather of ``names`` through the model's fold hook on a
+    CPU copy of θ; and the rows' indices."""
+    import dataclasses
+
+    kept, cols_list, vals_list = consumer._gather(names)
+    if kept != names:
+        raise AssertionError(f"gathered {kept}, expected {names}")
+    cpu = dataclasses.replace(model, device="cpu", _server=None)
+    return (cpu.fold_in_rows(cols_list, vals_list),
+            [model.user_map[n] for n in names])
+
+
+def rows_within(stored: np.ndarray, want: np.ndarray, what: str) -> float:
+    """Stored (bf16) rows against fp32 ``want`` rows: within
+    ``FOLDIN_ROW_TOL`` of each row's largest entry."""
+    scale = np.maximum(np.abs(want).max(axis=1, keepdims=True), 1e-30)
+    rel = float((np.abs(stored - want) / scale).max())
+    if not rel <= FOLDIN_ROW_TOL:
+        raise AssertionError(f"{what}: stored rows differ from the plain "
+                             f"ones by {rel!r} of their largest entry")
+    return rel
+
+
+def sequence_queries(rng, n_users: int) -> tuple:
+    """43 sequential queries (30 users, 5 with a blacklist, 4 by items,
+    2 deep, 2 unknown users) and ``SEQ_BURST`` user queries."""
+    users = [f"u{u}" for u in rng.integers(0, n_users, 41)]
+    seq = [{"user": u, "num": 10} for u in users[:30]]
+    seq += [{"user": u, "num": 10,
+             "blacklist": [f"i{i}" for i in rng.integers(0, 500, 3)]}
+            for u in users[30:35]]
+    seq += [{"items": [f"i{i}" for i in rng.integers(0, M_ITEMS, n)],
+             "num": 10} for n in (1, 2, 3, 5)]
+    seq += [{"user": u, "num": 50} for u in users[35:37]]
+    seq += [{"user": "no-such-user", "num": 10},
+            {"user": "nobody-either", "num": 10}]
+    many = [{"user": f"u{u}", "num": 10}
+            for u in rng.integers(0, n_users, SEQ_BURST)]
+    return seq, many
+
+
+def serve_and_check(dep, model, queries: list, many: list,
+                    store=None) -> dict:
+    """A ``QueryServer`` over ``dep``: the sequential queries, then the
+    burst from ``SEQ_CLIENTS`` threads; every answer against the plain
+    pipeline. Returns the latencies, B1's launches by (route, k, B) and
+    ``store``'s lane counters read just after the queries (before the
+    plain pipeline's own dispatches)."""
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.workflow.create_server import (
+        QueryServer,
+        ServerConfig,
+    )
+
+    server = QueryServer(ServerConfig(ip="127.0.0.1", port=0), dep).start()
+    try:
+        host, port = server.address
+        base = f"http://{host}:{port}"
+        als_cuda.launches.reset()
+        answers = [(q, *post(base + "/queries.json", q)) for q in queries]
+        t0 = time.perf_counter()
+        in_burst = burst(base, many, SEQ_CLIENTS)
+        burst_s = time.perf_counter() - t0
+        launches = dict(als_cuda.launches.by_key())
+        lanes = store.stats() if store is not None else None
+        stages = list(getattr(store, "stage_times", ()))
+        if not launches:
+            raise AssertionError("the serving kernel never launched")
+        checked = check_against_plain(model, answers + in_burst)
+    finally:
+        server.stop()
+    lat = np.asarray([a[3] for a in answers]) * 1e3
+    return {"checked": checked, "launches": launches, "lanes": lanes,
+            "stage_times": stages,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "burst_qps": len(many) / burst_s}
+
+
+def seqrec_serve(dev, seq: dict, ratings: tuple, seed: int) -> dict:
+    """Phase 3e's serving: the trained model deployed (bf16 store) behind
+    a ``QueryServer``; 43 sequential queries and a 512-query burst, each
+    answer equal to the plain pipeline's (B1's plain version). Then
+    fold-in: ``SEQ_FOLD_USERS`` users' histories (phase 5's events) in a
+    memory store, the model deployed with fold-in on, ``SEQ_FOLD_NEW`` new
+    ratings each: every stored row must equal the plain re-encode of its
+    user's history on the CPU, and every user's answer must change."""
+    import os
+
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.templates.sequentialrec import (
+        engine as seng,
+    )
+    from predictionio_tpu_torch.workflow.create_server import (
+        QueryServer,
+        ServerConfig,
+        deployment_from_models,
+    )
+
+    model = seq["model"]
+    engine = seng.engine_factory()
+    variant = {"datasource": {"params": {"appName": SEQ_FOLD_APP,
+                                         "eventNames": ["rate"]}},
+               "preparator": {"params": {"maxSeqLen":
+                                         SEQ_PARAMS["max_seq_len"]}},
+               "algorithms": [{"name": "seqrec", "params": {}}]}
+    params = engine.engine_params_from_variant(variant)
+    t0 = time.perf_counter()
+    dep = deployment_from_models(engine, params, [model])
+    srv = model.device_server()
+    srv.warmup()
+    if srv.precision != "bf16":
+        raise AssertionError(f"expected the bf16 store, got {srv.precision}")
+    deploy_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 41)
+    queries, many = sequence_queries(rng, len(model.user_map))
+    served = serve_and_check(dep, model, queries, many)
+    served.pop("lanes")
+    served.pop("stage_times")
+    print(f"[seqrec] served {served['checked']} answers equal to plain "
+          f"(store and warm-up {deploy_s:.2f} s; sequential p50 "
+          f"{served['p50_ms']!r} ms p99 {served['p99_ms']!r} ms; burst "
+          f"{served['burst_qps']!r} queries/s); B1 launches "
+          f"{served['launches']}")
+    # fold-in over a memory store of SEQ_FOLD_USERS users' histories
+    srv.close()
+    model._server = None
+    torch.cuda.empty_cache()
+    rows = ratings[0]
+    lens = np.bincount(rows, minlength=N_USERS)
+    users = rng.choice(np.flatnonzero(lens >= 12), size=SEQ_FOLD_USERS,
+                       replace=False)
+    hist = fold_histories(ratings, users)
+    app_id = fold_store(hist)
+    os.environ["PIO_FOLDIN_INTERVAL"] = "0.5"
+    names = [f"u{u}" for u in hist]
+    try:
+        dep = deployment_from_models(engine, params, [model])
+        server = QueryServer(ServerConfig(ip="127.0.0.1", port=0,
+                                          foldin=True), dep).start()
+        try:
+            host, port = server.address
+            base = f"http://{host}:{port}"
+            before = {n: post(base + "/queries.json",
+                              {"user": n, "num": 10})[1] for n in names}
+            als_cuda.launches.reset()
+            new = post_fold_events(app_id, hist, rng)
+            fold_s = wait_folds(server._foldin, SEQ_FOLD_USERS)
+            after = [({"user": n, "num": 10},
+                      *post(base + "/queries.json", {"user": n, "num": 10}))
+                     for n in names]
+            fold_launches = dict(als_cuda.launches.by_key())
+            want, uidx = reencode_rows(model, server._foldin, names)
+            store = model.device_server()
+            stored = store._X[torch.as_tensor(uidx, device=dev)
+                              ].float().cpu().numpy()
+            check_against_plain(model, after)
+            folds = server._foldin.stats()["folds"]
+        finally:
+            server.stop()
+    finally:
+        os.environ.pop("PIO_FOLDIN_INTERVAL", None)
+    rel = rows_within(stored, want, "seqrec fold-in")
+    unchanged = [q["user"] for (q, _, body, _) in after
+                 if body == before[q["user"]]]
+    if unchanged:
+        raise AssertionError(f"fold-in left {unchanged}'s answers as they "
+                             "were")
+    for (q, _, body, _) in after:
+        u = int(q["user"][1:])
+        got = {s["item"] for s in body["itemScores"]}
+        if got & {f"i{i}" for i in new[u]}:
+            raise AssertionError(f"{q['user']}'s new items are not masked")
+    print(f"[seqrec] fold-in: {SEQ_FOLD_USERS} users x {SEQ_FOLD_NEW} new "
+          f"events folded in {fold_s:.2f} s; rows == CPU re-encode within "
+          f"{rel!r} of the largest entry; every answer changed and equals "
+          f"plain; {folds} folds")
+    model._server = None
+    return {**served, "deploy_s": deploy_s, "fold_s": fold_s,
+            "fold_rel": rel, "fold_launches": fold_launches}
+
+
+def unmasked_route(dev, store) -> list:
+    """B1's two-stage route on the store phase 3f deployed (its bf16 ALS
+    item table): unmasked, k = ``TWO_CANDIDATES``, at B in
+    ``TWO_ROUTE_BATCHES``; each against its plain version (values within
+    the fp32 reordering allowance, ids at separated scores), then timed
+    against plain, ``torch.topk`` of the product and its bound."""
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.ops.quantize import is_quantized
+
+    Y, n = store._Y, store.n_items
+    Ydq = Y.float()[:n] if not is_quantized(Y) else None
+    per = Y.element_size()
+    rng = np.random.default_rng(7)
+    k = min(TWO_CANDIDATES, n)
+    rows, worst = [], 0.0
+    for B in TWO_ROUTE_BATCHES:
+        uids = torch.as_tensor(rng.integers(0, store.n_users, B), device=dev)
+        Q = store._X[uids].float()
+        kv, ki = als_cuda.fused_gather_score_topk(Q, Y, None, None, k=k,
+                                                  n_items=n, mask_seen=False)
+        pv, pi = als_cuda.fused_gather_score_topk_plain(
+            Q, Y, None, None, k=k + 1, n_items=n, mask_seen=False)
+        tol = (RTOL * torch.linalg.vector_norm(Q, dim=1)
+               * torch.linalg.vector_norm(Ydq, dim=1).max()).cpu().numpy()
+        worst = max(worst, check_topk(kv.cpu().numpy(), ki.cpu().numpy(),
+                                      pv.cpu().numpy(), pi.cpu().numpy(),
+                                      tol, exact=False))
+
+        def kernel():
+            als_cuda.fused_gather_score_topk(Q, Y, None, None, k=k,
+                                             n_items=n, mask_seen=False)
+
+        def plain():
+            als_cuda.fused_gather_score_topk_plain(
+                Q, Y, None, None, k=k, n_items=n, mask_seen=False)
+
+        def library():
+            torch.topk(Q @ Ydq.T, k, dim=1)
+
+        t_k, t_p, t_l = (time_ms(f, 20) for f in (kernel, plain, library))
+        b_ms, b_by = bound_of(n * Q.shape[1] * per + B * Q.shape[1] * 4
+                              + B * k * 8, 2.0 * B * n * Q.shape[1])
+        rows.append({"store": "bf16", "B": B, "k": k, "mask_seen": False,
+                     "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                     "bound_ms": b_ms, "bound_by": b_by})
+        print(f"[twostage] B1 unmasked bf16 B={B} k={k}: kernel {t_k!r} ms "
+              f"plain {t_p!r} ms torch.topk {t_l!r} ms bound {b_ms!r} ms "
+              f"({b_by})")
+    return rows, worst
+
+
+def twostage_serve(dev, seq: dict, two: dict, ratings: tuple,
+                   seed: int) -> dict:
+    """Phase 3f's serving: the ``twostage`` engine's models deployed
+    (``TwoStageServing`` bound to one ``TwoStageTopK``, N = 128, bf16);
+    43 sequential queries and a 512-query burst, each answer equal to
+    the plain pipeline (B1's plain version for stage 1, then the same
+    re-rank); each batch one ``two``-lane dispatch (one B1 launch at k =
+    N). Prints stage 2's CUDA-event time per dispatch beside B1's, and
+    times B1's unmasked route. Then a composite fold-in of
+    ``SEQ_FOLD_USERS`` users: the ALS rows equal the plain fold (both
+    training kernels' plain versions), the stage-2 rows the CPU
+    re-encode, and every answer changes."""
+    import os
+
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.ops.als import fold_in_users
+    from predictionio_tpu_torch.ops.twostage import TwoStageTopK
+    from predictionio_tpu_torch.templates.twostage import engine as teng
+    from predictionio_tpu_torch.workflow.create_server import (
+        QueryServer,
+        ServerConfig,
+        deployment_from_models,
+    )
+
+    als, rerank = two["als"], two["rerank"]
+    engine = teng.engine_factory()
+    variant = {"datasource": {"params": {"appName": SEQ_FOLD_APP,
+                                         "eventNames": ["rate"]}},
+               "preparator": {"params": {
+                   "maxSeqLen": SEQ_PARAMS["max_seq_len"],
+                   "maxLen": TWO_MAX_LEN}},
+               "algorithms": [{"name": "als", "params": {
+                   "rank": RANK, "numIterations": ITERATIONS,
+                   "lambda": LAMBDA, "alpha": ALPHA}},
+                   {"name": "seqrec", "params": {}}]}
+    params = engine.engine_params_from_variant(variant)
+    t0 = time.perf_counter()
+    dep = deployment_from_models(engine, params, [als, rerank])
+    store = als.device_server().store
+    if not (isinstance(store, TwoStageTopK) and dep.serving.fused_bound):
+        raise AssertionError("the two-stage route was not bound")
+    store.warmup()
+    deploy_s = time.perf_counter() - t0
+    if store.precision != "bf16" or store._n_bucket != TWO_CANDIDATES:
+        raise AssertionError(f"store {store.precision}, N bucket "
+                             f"{store._n_bucket}")
+    rng = np.random.default_rng(seed + 43)
+    queries, many = sequence_queries(rng, len(als.user_map))
+    lanes0 = store.stats()
+    store.stage_times.clear()
+    served = serve_and_check(dep, als, queries, many, store=store)
+    lanes = served.pop("lanes")
+    split = np.asarray(served.pop("stage_times"))
+    two_dispatches = lanes["two"]["dispatches"] - lanes0["two"]["dispatches"]
+    at_n = sum(c for (r, k, b), c in served["launches"].items()
+               if k == TWO_CANDIDATES)
+    users_lane = lanes["users"]["dispatches"] - lanes0["users"]["dispatches"]
+    if at_n != two_dispatches or users_lane:
+        raise AssertionError(f"{two_dispatches} two-lane dispatches, "
+                             f"{at_n} B1 launches at k = N, {users_lane} "
+                             "users-lane dispatches")
+    b1_us, s2_us = (float(np.median(split[:, 0])),
+                    float(np.median(split[:, 1]))) if len(split) else (
+                        None, None)
+    print(f"[twostage] served {served['checked']} answers equal to plain "
+          f"(store and warm-up {deploy_s:.2f} s; sequential p50 "
+          f"{served['p50_ms']!r} ms p99 {served['p99_ms']!r} ms; burst "
+          f"{served['burst_qps']!r} queries/s); {two_dispatches} two-lane "
+          f"dispatches, one B1 launch at k = {TWO_CANDIDATES} unmasked each; "
+          f"launches {served['launches']}; per dispatch (median of "
+          f"{len(split)}, CUDA events) B1's kernels {b1_us!r} us, stage 2 "
+          f"{s2_us!r} us")
+    route_rows, route_err = unmasked_route(dev, store)
+    mem = store.memory_report()
+    # the composite fold-in of both stages
+    store.close()
+    als._server = rerank._server = None
+    torch.cuda.empty_cache()
+    rows = ratings[0]
+    lens = np.bincount(rows, minlength=N_USERS)
+    users = rng.choice(np.flatnonzero(lens >= 12), size=SEQ_FOLD_USERS,
+                       replace=False)
+    hist = fold_histories(ratings, users)
+    app_id = fold_store(hist)
+    os.environ["PIO_FOLDIN_INTERVAL"] = "0.5"
+    names = [f"u{u}" for u in hist]
+    try:
+        dep = deployment_from_models(engine, params, [als, rerank])
+        server = QueryServer(ServerConfig(ip="127.0.0.1", port=0,
+                                          foldin=True), dep).start()
+        try:
+            host, port = server.address
+            base = f"http://{host}:{port}"
+            before = {n: post(base + "/queries.json",
+                              {"user": n, "num": 10})[1] for n in names}
+            als_cuda.launches.reset()
+            als_cuda.assemble_launches.reset()
+            als_cuda.spd_launches.reset()
+            post_fold_events(app_id, hist, rng)
+            fold_s = wait_folds(server._foldin, SEQ_FOLD_USERS)
+            after = [({"user": n, "num": 10},
+                      *post(base + "/queries.json", {"user": n, "num": 10}))
+                     for n in names]
+            fold_launches = {
+                "assemble_normal_equations":
+                    als_cuda.assemble_launches.value,
+                "spd_solve": als_cuda.spd_launches.value,
+                "fused_gather_score_topk": als_cuda.launches.value}
+            c_als, c_seq = server._foldin.consumers
+            store = als.device_server().store
+            uidx = torch.as_tensor([als.user_map[n] for n in names],
+                                   device=dev)
+            kept, cl, vl = c_als._gather(names)
+            saved = (als_cuda.assemble_normal_equations, als_cuda.spd_solve)
+            als_cuda.assemble_normal_equations = \
+                als_cuda.assemble_normal_equations_plain
+            als_cuda.spd_solve = als_cuda.spd_solve_plain
+            try:
+                plain = fold_in_users(store.item_factors, cl, vl,
+                                      two["als_params"], max_len=TWO_MAX_LEN)
+            finally:
+                als_cuda.assemble_normal_equations, als_cuda.spd_solve = saved
+            want_x = torch.from_numpy(plain).to(torch.bfloat16).float().numpy()
+            stored_x = store._X[uidx].float().cpu().numpy()
+            want_u, _ = reencode_rows(rerank, c_seq, names)
+            stored_u = store._U[uidx].float().cpu().numpy()
+            check_against_plain(als, after)
+        finally:
+            server.stop()
+    finally:
+        os.environ.pop("PIO_FOLDIN_INTERVAL", None)
+    rel_x = rows_within(stored_x, want_x, "two-stage ALS fold")
+    rel_u = rows_within(stored_u, want_u, "two-stage re-encode")
+    unchanged = [q["user"] for (q, _, body, _) in after
+                 if body == before[q["user"]]]
+    if unchanged:
+        raise AssertionError(f"fold-in left {unchanged}'s answers as they "
+                             "were")
+    if not (fold_launches["assemble_normal_equations"]
+            and fold_launches["spd_solve"]):
+        raise AssertionError(f"the ALS fold launched {fold_launches}")
+    print(f"[twostage] composite fold-in: {SEQ_FOLD_USERS} users in "
+          f"{fold_s:.2f} s; ALS rows == plain fold within {rel_x!r}, "
+          f"stage-2 rows == CPU re-encode within {rel_u!r}; every answer "
+          f"changed and equals plain; launches {fold_launches}")
+    als._server = rerank._server = None
+    return {**served, "deploy_s": deploy_s,
+            "two_dispatches": two_dispatches, "b1_us": b1_us,
+            "stage2_us": s2_us, "route": route_rows,
+            "route_err": route_err, "store_bytes": mem["totalBytes"],
+            "fold_s": fold_s, "fold_rel": [rel_x, rel_u],
+            "fold_launches": fold_launches}
+
+
+# -- phase 7's sequence half --------------------------------------------------
+
+SEQ_Q_SHAPE = (200, 100, 4, 24)    # users, items, lengths (bench_quality)
+SEQ_Q_STEPS, SEQ_Q_RANK, SEQ_Q_SEED = 400, 32, 11
+SEQ_Q_ALS_ITERATIONS = 10          # bench_quality's ITERATIONS
+
+
+def markov_walks(seed: int) -> tuple:
+    """``bench_quality.run_seqrec_check``'s stream: per-user walks item ->
+    (item + stride) % M with a stride of 1, 3 or 7; the held-out item is
+    each walk's next."""
+    n_users, n_items, min_len, max_len = SEQ_Q_SHAPE
+    rng = np.random.default_rng(seed)
+    seqs, nxt = [], []
+    for _ in range(n_users):
+        start = int(rng.integers(0, n_items))
+        stride = int((1, 3, 7)[rng.integers(0, 3)])
+        n = int(rng.integers(min_len, max_len))
+        walk = (start + stride * np.arange(n + 1)) % n_items
+        seqs.append(walk[:-1].astype(np.int64))
+        nxt.append(int(walk[-1]))
+    return seqs, nxt
+
+
+SEQ_REPLAY_STEPS = 48      # steps of the card-against-CPU replay
+# Limits of the card's training against the CPU's on one θ and one set of
+# draws, each set between readings (PERF.md §6; NVIDIA H100 80GB HBM3):
+# above the largest sound gap (the card's against the CPU's: loss 1.8e-4,
+# encodes 0.013; the CPU's fp32 run against an fp64 replay of it: 4.6e-4,
+# 0.028-0.0375), below a control whose θ is rounded to bf16 before each
+# step (2.3e-3, 0.093). Adam's m/√v turns gradients that are rounding
+# noise into lr-sized steps, so 48 steps amplify any rounding; one step
+# from one θ does not, and its limits sit far from both (sound: loss
+# 8.6e-8, gradients 9.5e-7; bf16: 9.7e-6, 0.059).
+SEQ_TRAJ_LOSS_REL = 1e-3   # the loss traces, relative, step by step
+SEQ_TRAJ_ENCODE_REL = 0.06  # the users' encodes, of the largest entry
+SEQ_STEP_LOSS_REL = 1e-6   # one step's loss, relative
+SEQ_STEP_GRAD_REL = 1e-5   # one step's gradients, of each tensor's largest
+
+
+def replay_training(buckets, plan, draws, theta0: dict, p, dev, dtype,
+                    bf16: bool = False) -> tuple:
+    """``train_seqrec``'s steps written out in ``dtype`` on ``dev``, on
+    the given draws: ``loss_and_grads`` and ``adam_update_``, per bucket
+    Adam afresh. ``bf16`` rounds θ to bf16 before each step's loss (the
+    control a limit must catch). Returns (θ as fp32 numpy, losses)."""
+    import torch
+
+    from predictionio_tpu_torch.ops import seqrec
+
+    keys = list(theta0)
+    vals = [torch.tensor(theta0[k], dtype=dtype, device=dev) for k in keys]
+    losses = []
+    for (b, (steps, _)), (sels, negss) in zip(zip(buckets, plan), draws):
+        ids = torch.from_numpy(b.ids).to(dev)
+        mask = torch.from_numpy(b.mask).to(device=dev, dtype=dtype)
+        m = [torch.zeros_like(x) for x in vals]
+        v = [torch.zeros_like(x) for x in vals]
+        t = torch.zeros((), dtype=torch.float32, device=dev)
+        for s in range(steps):
+            sel = torch.as_tensor(sels[s], device=dev)
+            th = dict(zip(keys, vals))
+            if bf16:
+                th = {k: x.to(torch.bfloat16).to(dtype) for k, x in th.items()}
+            value, g = seqrec.loss_and_grads(
+                th, ids[sel], mask[sel], torch.as_tensor(negss[s], device=dev),
+                n_layers=p.n_layers, n_heads=p.n_heads, l2=p.l2)
+            seqrec.adam_update_(vals, m, v, t, [g[k] for k in keys],
+                                p.learning_rate)
+            losses.append(float(value))
+    return ({k: x.float().cpu().numpy() for k, x in zip(keys, vals)},
+            np.asarray(losses))
+
+
+def card_training_check(dev, buckets, n_items: int, params) -> dict:
+    """``train_seqrec`` on the card against the CPU, on one θ and one set
+    of row and negative draws (``SEQ_REPLAY_STEPS`` steps):
+
+    (a) one step from one θ (the start and the CPU's trained θ, the last
+        bucket's first draw): the card's loss and gradients against the
+        CPU's within ``SEQ_STEP_*``, and a step on θ rounded to bf16
+        outside them;
+    (b) the whole run, CUDA-graph steps after the first
+        ``GRAPH_WARMUP_STEPS`` of each bucket: the loss traces and the
+        users' encodes (all encoded on the CPU) within ``SEQ_TRAJ_*`` of
+        the CPU's; the CPU's own fp32 run against an fp64 replay inside
+        them and the bf16 control outside them, so each run shows the
+        limits between what rounding does and what a fault does;
+    (c) the same run with every step eager on the card: the loss traces
+        within 1e-5 relative and the encodes within 1e-4 of the graphed.
+
+    θ's largest differences are printed, not held: Adam turns a gradient
+    that is zero but for rounding (the key projection along the LayerNorm
+    bias, which the softmax cancels) into lr-sized steps whose sign the
+    rounding picks, so θ can differ where the model's function does not;
+    the loss and the encodes are what it computes."""
+    import dataclasses
+
+    import torch
+
+    from predictionio_tpu_torch.ops import seqrec
+
+    cpu = torch.device("cpu")
+    p = dataclasses.replace(params, num_steps=SEQ_REPLAY_STEPS)
+    plan = seqrec.plan_steps(buckets, p)
+    if min(steps for steps, _ in plan) <= seqrec.GRAPH_WARMUP_STEPS + 1:
+        raise AssertionError(f"a bucket too short to capture: {plan}")
+    rng = np.random.default_rng(5)
+    draws = [(rng.integers(0, len(b), (steps, bs)),
+              rng.integers(0, n_items, (steps, p.n_negatives)))
+             for b, (steps, bs) in zip(buckets, plan)]
+    theta0 = seqrec.init_theta(n_items, p)
+    runs = {"card": seqrec.train_seqrec(buckets, n_items, p, theta=theta0,
+                                        device=dev, draws=draws),
+            "cpu": seqrec.train_seqrec(buckets, n_items, p, theta=theta0,
+                                       device=cpu, draws=draws)}
+    saved = seqrec.GRAPH_WARMUP_STEPS
+    seqrec.GRAPH_WARMUP_STEPS = SEQ_REPLAY_STEPS
+    try:
+        runs["card eager"] = seqrec.train_seqrec(
+            buckets, n_items, p, theta=theta0, device=dev, draws=draws)
+    finally:
+        seqrec.GRAPH_WARMUP_STEPS = saved
+    runs["fp64"] = replay_training(buckets, plan, draws, theta0, p, cpu,
+                                   torch.float64)
+    runs["bf16"] = replay_training(buckets, plan, draws, theta0, p, dev,
+                                   torch.float32, bf16=True)
+    n_users = max(int(b.rows.max()) for b in buckets) + 1
+    enc = {name: seqrec.encode_users(th, buckets, n_users, p, device=cpu)
+           for name, (th, _) in runs.items()}
+
+    def gap(a: str, b: str) -> dict:
+        (tha, la), (thb, lb) = runs[a], runs[b]
+        return {"loss_rel": float(np.max(np.abs(la - lb) / np.abs(lb))),
+                "encode_rel": float(np.abs(enc[a] - enc[b]).max()
+                                    / max(np.abs(enc[b]).max(), 1e-30)),
+                "theta_rel": max(float(np.abs(tha[k] - thb[k]).max()
+                                       / max(np.abs(thb[k]).max(), 1e-30))
+                                 for k in thb)}
+
+    traj = {"card_vs_cpu": gap("card", "cpu"),
+            "card_eager_vs_cpu": gap("card eager", "cpu"),
+            "cpu_vs_fp64": gap("cpu", "fp64"),
+            "bf16_vs_cpu": gap("bf16", "cpu"),
+            "graphed_vs_eager": gap("card", "card eager")}
+    # (a) one step from one θ, card against CPU
+    b, (sels, negss) = buckets[-1], draws[-1]
+    sel = torch.as_tensor(sels[0])
+
+    def one_step(theta, device, bf16=False):
+        th = seqrec.theta_to_device(theta, device)
+        if bf16:
+            th = {k: x.to(torch.bfloat16).float() for k, x in th.items()}
+        value, g = seqrec.loss_and_grads(
+            th, torch.from_numpy(b.ids)[sel].to(device),
+            torch.from_numpy(b.mask)[sel].to(device),
+            torch.as_tensor(negss[0], device=device),
+            n_layers=p.n_layers, n_heads=p.n_heads, l2=p.l2)
+        return float(value), {k: x.cpu().numpy() for k, x in g.items()}
+
+    def step_gap(theta, bf16=False) -> dict:
+        lc, gc = one_step(theta, cpu)
+        ld, gd = one_step(theta, dev, bf16)
+        return {"loss_rel": abs(ld - lc) / abs(lc),
+                "grad_rel": max(float(np.abs(gd[k] - gc[k]).max()
+                                      / max(np.abs(gc[k]).max(), 1e-30))
+                                for k in gc)}
+
+    step = {"start": step_gap(theta0), "trained": step_gap(runs["cpu"][0]),
+            "bf16_start": step_gap(theta0, True),
+            "bf16_trained": step_gap(runs["cpu"][0], True)}
+    print(f"[quality] seqrec training on the card against the CPU, "
+          f"{SEQ_REPLAY_STEPS} steps on one θ and one set of draws (plan "
+          f"{plan}; CUDA-graph steps after {saved} a bucket): "
+          f"{json.dumps(traj)}; one step from one θ: {json.dumps(step)}")
+    lim = {"loss_rel": SEQ_TRAJ_LOSS_REL, "encode_rel": SEQ_TRAJ_ENCODE_REL}
+    for name in ("card_vs_cpu", "card_eager_vs_cpu", "cpu_vs_fp64"):
+        if not all(traj[name][k] <= lim[k] for k in lim):
+            raise AssertionError(f"seqrec training {name} outside {lim}: "
+                                 f"{traj[name]}")
+    if not all(traj["bf16_vs_cpu"][k] > lim[k] for k in lim):
+        raise AssertionError(f"the bf16 control is inside {lim}: "
+                             f"{traj['bf16_vs_cpu']}")
+    slim = {"loss_rel": SEQ_STEP_LOSS_REL, "grad_rel": SEQ_STEP_GRAD_REL}
+    for name in ("start", "trained"):
+        if not all(step[name][k] <= slim[k] for k in slim):
+            raise AssertionError(f"one seqrec step from the {name} θ on the "
+                                 f"card outside {slim}: {step[name]}")
+        if not all(step["bf16_" + name][k] > slim[k] for k in slim):
+            raise AssertionError(f"the bf16 step control is inside {slim}: "
+                                 f"{step['bf16_' + name]}")
+    gve = traj["graphed_vs_eager"]
+    if not (gve["loss_rel"] <= 1e-5 and gve["encode_rel"] <= 1e-4):
+        raise AssertionError(f"the graphed training differs from the eager: "
+                             f"{gve}")
+    return {"trajectory": traj, "step": step}
+
+
+def sequence_quality(dev) -> dict:
+    """Phase 7's sequence half, the protocols of
+    ``bench_quality.run_seqrec_check`` and ``run_twostage_check`` on the
+    card: the seqrec encoder trained on the Markov walks (the loss must
+    fall; its Precision@10 of the held-out next item among unseen items
+    must beat popularity's), and ALS (rank 32, 10 iterations) retrieving
+    for it through ``TwoStageTopK`` at N = the catalog on an fp32 store:
+    the two-stage NDCG@10 must reach max(ALS alone, seqrec alone)."""
+    import os
+
+    from predictionio_tpu_torch.data.sliding import ndcg_at_k as ndcg
+    from predictionio_tpu_torch.ops import als as als_mod
+    from predictionio_tpu_torch.ops import seqrec
+    from predictionio_tpu_torch.ops.twostage import TwoStageTopK
+
+    n_users, n_items, _, max_len = SEQ_Q_SHAPE
+    k = K_EVAL
+    seqs, nxt = markov_walks(SEQ_Q_SEED)
+    params = seqrec.SeqRecParams(
+        rank=SEQ_Q_RANK, n_layers=2, n_heads=2, max_seq_len=max_len,
+        num_steps=SEQ_Q_STEPS, batch_size=64, n_negatives=64,
+        learning_rate=0.005, seed=SEQ_Q_SEED)
+    buckets = seqrec.bucket_sequences(seqs, max_len=max_len)
+    replay = card_training_check(dev, buckets, n_items, params)
+    theta, losses = seqrec.train_seqrec(buckets, n_items, params, device=dev)
+    U = seqrec.encode_users(theta, buckets, n_users, params, device=dev)
+    E = theta["item_emb"]
+    head, tail = float(losses[:20].mean()), float(losses[-20:].mean())
+    seen = {u: np.unique(seqs[u]) for u in range(n_users)}
+    pop = np.bincount(np.concatenate(seqs), minlength=n_items)
+    pop_order = np.argsort(-pop).tolist()
+
+    def single(Uf, Ef):
+        hits, total = 0, 0.0
+        for u in range(n_users):
+            s = Ef @ Uf[u]
+            s[seen[u]] = -np.inf
+            top = np.argpartition(-s, k)[:k]
+            top = top[np.argsort(-s[top], kind="stable")]
+            hits += nxt[u] in set(top.tolist())
+            total += ndcg(top.tolist(), {nxt[u]}, k)
+        return hits / (k * n_users), total / n_users
+
+    p_seq, ndcg_seq = single(U, E)
+    pop_hits = 0
+    for u in range(n_users):
+        top = [i for i in pop_order if i not in set(seen[u].tolist())][:k]
+        pop_hits += nxt[u] in top
+    p_pop = pop_hits / (k * n_users)
+    # ALS on the walks' (user, item) set
+    rows = np.concatenate([np.full(len(s), u) for u, s in enumerate(seqs)])
+    cols = np.concatenate(seqs)
+    uniq = np.unique(rows * n_items + cols)
+    rows, cols = uniq // n_items, uniq % n_items
+    vals = np.ones(len(rows), dtype=np.float32)
+    X, Y = als_mod.train_als(
+        als_mod.pad_ratings(rows, cols, vals, n_users, n_items),
+        als_mod.pad_ratings(cols, rows, vals, n_items, n_users),
+        als_mod.ALSParams(rank=SEQ_Q_RANK, num_iterations=SEQ_Q_ALS_ITERATIONS,
+                          lambda_=LAMBDA, alpha=ALPHA, seed=3), dev)
+    _, ndcg_als = single(X, Y)
+    out_two = {}
+    for mode in ("fp32", "bf16"):
+        os.environ["PIO_SERVE_PRECISION"] = mode
+        try:
+            store = TwoStageTopK(X, Y, U, E, seen=seen, candidates=n_items,
+                                 microbatch=False)
+            ids, _ = store.twos_topk(np.arange(n_users), k)
+            store.close()
+        finally:
+            os.environ.pop("PIO_SERVE_PRECISION", None)
+        out_two[mode] = sum(ndcg(ids[u].tolist(), {nxt[u]}, k)
+                            for u in range(n_users)) / n_users
+    out = {"loss_first20_mean": head, "loss_last20_mean": tail,
+           "seqrec_precision_at_10": p_seq, "seqrec_ndcg_at_10": ndcg_seq,
+           "popularity_precision_at_10": p_pop,
+           "ndcg_two_stage": out_two["fp32"],
+           "ndcg_two_stage_bf16": out_two["bf16"],
+           "ndcg_als_alone": ndcg_als, "ndcg_seqrec_alone": ndcg_seq,
+           "card_vs_cpu": replay}
+    print(f"[quality] sequences: {json.dumps(out)}")
+    if not tail < head:
+        raise AssertionError(f"the seqrec loss did not fall: {head} -> {tail}")
+    if not p_seq > p_pop:
+        raise AssertionError(f"seqrec P@10 {p_seq} does not beat popularity "
+                             f"{p_pop}")
+    if not out_two["fp32"] >= max(ndcg_als, ndcg_seq) - 1e-9:
+        raise AssertionError(f"two-stage NDCG@10 {out_two['fp32']} is below "
+                             f"max(ALS {ndcg_als}, seqrec {ndcg_seq})")
+    return out
+
+
+def sequence_summary(seq: dict, two: dict, seq_served: dict,
+                     two_served: dict, seq_quality: dict) -> dict:
+    """Phases 3e, 3f and 7's sequence half in one JSON-able dict."""
+    def launches(served):
+        return {"total": sum(served["launches"].values()),
+                "by_route": routes_of(served["launches"]),
+                "by_k": {str(k): sum(c for (_, kk, _), c
+                                     in served["launches"].items() if kk == k)
+                         for k in sorted({kk for _, kk, _
+                                          in served["launches"]})}}
+
+    keep = ("read_s", "prepare_s", "train_s", "encode_s", "tokens",
+            "tokens_per_s", "loss_first", "loss_last", "peak_bytes",
+            "encode_err")
+    return {
+        "seqrec": {**{k: seq[k] for k in keep},
+                   **{k: seq_served[k] for k in (
+                       "p50_ms", "p99_ms", "burst_qps", "deploy_s",
+                       "fold_s", "fold_rel")}},
+        "twostage": {**{k: two[k] for k in ("prepare_s", "als_s", "seq_s")},
+                     **{k: two_served[k] for k in (
+                         "p50_ms", "p99_ms", "burst_qps", "deploy_s",
+                         "two_dispatches", "b1_us", "stage2_us",
+                         "store_bytes", "fold_s", "fold_rel", "route_err")},
+                     "training_launches": two["launches"],
+                     "fold_launches": two_served["fold_launches"]},
+        "b1_launches": {"3e": launches(seq_served),
+                        "3f": launches(two_served),
+                        "3e_fold": sum(seq_served["fold_launches"].values())},
+        "unmasked_k128": two_served["route"],
+        "quality": seq_quality}
+
+
 def fleet_launches(name: str, fleet: dict, started: dict) -> dict:
     """A kernel's launches in the query fleet: phase 3d's and 6b's
     ``pio deploy --fleet`` child's, summed and by phase; for the training
@@ -7285,6 +8394,15 @@ def main() -> int:
         "--query-fleet", action="store_true",
         help="build, then only run phase 5 (store and training) and phase "
              "3d (the query fleet)")
+    parser.add_argument(
+        "--seqrec", action="store_true",
+        help="build, then only run phase 5's store, 3e (sequentialrec), 3f "
+             "(two-stage serving) and phase 7's sequence half")
+    parser.add_argument(
+        "--read-paths", action="store_true",
+        help="build, then only write phase 5's store and time phase 3e's "
+             "read and prepare two ways (indexed block by block; label "
+             "columns indexed by np.unique)")
     parser.add_argument("--serve-store", metavar="SQLITE_FILE",
                         help=argparse.SUPPRESS)  # phase 6's second process
     args = parser.parse_args()
@@ -7321,10 +8439,40 @@ def main() -> int:
         print(nvidia_smi())
         return 0
     phase("1 build", build_kernels)
+    if args.read_paths:
+        store = phase("5 event store", ml20m_store, args.seed)
+        try:
+            out = phase("3e read paths", sequence_read_paths, args.seed)
+        finally:
+            remove_store(store)
+        print(json.dumps({"read_paths": out}))
+        print(nvidia_smi())
+        return 0
     if args.networked:
         out = phase("6d networked event store", networked_store, args.seed,
                     card)
         print(json.dumps({"networked": out}, default=str))
+        print(nvidia_smi())
+        return 0
+    if args.seqrec:
+        store = phase("5 event store", ml20m_store, args.seed)
+        try:
+            seq = phase("3e seqrec: read, prepare, train",
+                        sequence_read_train, dev, args.seed)
+            two = phase("3f two-stage: prepare, train", twostage_train, dev,
+                        args.seed, seq)
+        finally:
+            remove_store(store)
+        seq.pop("td")
+        two.pop("pd")
+        ratings = store["ratings"]
+        seq_served = phase("3e seqrec: serve, fold-in", seqrec_serve, dev,
+                           seq, ratings, args.seed)
+        two_served = phase("3f two-stage: serve, fold-in", twostage_serve,
+                           dev, seq, two, ratings, args.seed)
+        seq_quality = phase("7 sequence quality", sequence_quality, dev)
+        print(json.dumps({"seqrec": sequence_summary(
+            seq, two, seq_served, two_served, seq_quality)}, default=str))
         print(nvidia_smi())
         return 0
     if args.query_fleet:
@@ -7352,6 +8500,12 @@ def main() -> int:
                         store)
         ingest = phase("5b scale ingest", scale_ingest, dev, args.seed,
                        store, trained)
+        seq = phase("3e seqrec: read, prepare, train", sequence_read_train,
+                    dev, args.seed)
+        two = phase("3f two-stage: prepare, train", twostage_train, dev,
+                    args.seed, seq)
+        seq.pop("td")
+        two.pop("pd")
     finally:
         remove_store(store)
     train_err = phase("2b training kernel checks", training_kernel_checks,
@@ -7380,6 +8534,13 @@ def main() -> int:
     networked = phase("6d networked event store", networked_store,
                       args.seed, card)
     scored = phase("7 quality", quality, dev)
+    seq_served = phase("3e seqrec: serve, fold-in", seqrec_serve, dev, seq,
+                       store["ratings"], args.seed)
+    two_served = phase("3f two-stage: serve, fold-in", twostage_serve, dev,
+                       seq, two, store["ratings"], args.seed)
+    seq_quality = phase("7 sequence quality", sequence_quality, dev)
+    seq_summary = sequence_summary(seq, two, seq_served, two_served,
+                                   seq_quality)
     # the line's headline shape: a full micro-batch (B=256) at the
     # default k bucket (16) on the default GPU store (bf16)
     head = next(r for r in rows
@@ -7429,6 +8590,11 @@ def main() -> int:
         # the query fleet: phase 3d's replicas and 6b's `pio deploy
         # --fleet 2` child
         **fleet_launches("fused_gather_score_topk", fleet, started),
+        # phases 3e and 3f: the sequentialrec model's users lane,
+        # and two-stage serving's stage 1 (mask off, k = N = 128), timed
+        # at B = 1 and 256 on the deployed store beside stage 2
+        "sequence_launches": seq_summary["b1_launches"],
+        "unmasked_k128": seq_summary["unmasked_k128"],
         "timings": rows}]
     for name, replaces, err, shape, main_route in (
             ("assemble_normal_equations", 141, train_err["assemble"],
@@ -7500,6 +8666,10 @@ def main() -> int:
             # the folds of 6b's `pio deploy --fleet 2 --foldin on` child,
             # and apart, phase 3d's training of the roll's instance
             **fleet_launches(name, fleet, started),
+            # phase 3f: the two-stage engine's ALS half and its fold-in
+            "twostage_launches": {
+                "training": two["launches"][name],
+                "fold": two_served["fold_launches"][name]},
             # phase 6d: ML-1M trainings from each event source, and the
             # folds through the fleet cursor
             "networked_launches": {
@@ -7543,6 +8713,10 @@ def main() -> int:
           f"quick start import "
           f"{started['import']['events_per_s']!r} events/s, event server "
           f"{started['event_server']['batch_events_per_s']!r} events/s; "
+          f"seqrec training {seq['tokens_per_s']!r} tokens/s, query p50 "
+          f"{seq_served['p50_ms']!r} ms; two-stage query p50 "
+          f"{two_served['p50_ms']!r} ms (stage 2 {two_served['stage2_us']!r}"
+          f" us beside B1 {two_served['b1_us']!r} us a dispatch); "
           f"Precision@10 {scored['precision_at_10']!r} (bf16 "
           f"{scored['bf16_precision_at_10']!r}; "
           f"{scored['ratio_vs_plain']!r} of plain, lift "

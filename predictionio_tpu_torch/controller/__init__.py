@@ -14,6 +14,7 @@ from predictionio_tpu_torch.controller.controllers import (
     LServing,
     PDataSource,
     PPreparator,
+    TwoStageServing,
 )
 from predictionio_tpu_torch.controller.engine import (
     Engine,
@@ -72,6 +73,7 @@ __all__ = [
     "P2LAlgorithm",
     "PDataSource",
     "PPreparator",
+    "TwoStageServing",
     "Params",
     "PersistentModel",
     "QPAMetric",

@@ -1,17 +1,20 @@
 """Data-source, preparator and serving flavors: the port's copy of
 ``PDataSource``, ``LDataSource``, ``PPreparator``,
 ``IdentityPreparator`` (and its ``LIdentityPreparator`` alias),
-``LServing`` and ``LFirstServing`` from ``predictionio_tpu/controller/controllers.py``."""
+``LServing``, ``LFirstServing`` and ``TwoStageServing`` from
+``predictionio_tpu/controller/controllers.py``."""
 
 from __future__ import annotations
 
 import abc
-from typing import Any, Sequence, Tuple
+import dataclasses
+from typing import Any, Optional, Sequence, Tuple
 
 from predictionio_tpu_torch.core.base import (
     BaseDataSource,
     BasePreparator,
     BaseServing,
+    Params,
 )
 
 
@@ -92,3 +95,58 @@ class LFirstServing(LServing):
 
     def serve(self, query: Any, predictions: Sequence[Any]) -> Any:
         return predictions[0]
+
+
+class TwoStageServing(LServing):
+    """Retrieval + re-rank over ``EngineParams.algorithms = [retrieval,
+    reranker]``: the FIRST algorithm retrieves candidates, the LAST
+    re-scores them. Two modes, one contract:
+
+    * **Fused (live deployments).** ``workflow.create_server`` builds
+      one :class:`~predictionio_tpu_torch.ops.twostage.TwoStageTopK`
+      store over both models' tables and calls :meth:`bind_fused` with
+      a route that serves whole queries through it; ``serve_query``
+      then dispatches once per query batch and :meth:`serve` never
+      runs.
+    * **Unbound (the evaluation pipeline).** :meth:`serve` composes on
+      the host: the first prediction's items are the candidates,
+      re-ordered by the last prediction's scores (candidates the
+      re-ranker did not score keep their retrieval order, after every
+      scored one).
+
+    Both predictions carry ``item_scores`` (the recommendation and
+    sequentialrec templates' ``PredictedResult``)."""
+
+    def __init__(self, params: Optional[Params] = None) -> None:
+        super().__init__(params)
+        self._fused = None
+
+    @property
+    def fused_bound(self) -> bool:
+        """Whether a fused device route is bound (live deployments)."""
+        return self._fused is not None
+
+    def bind_fused(self, route) -> None:
+        """Install the fused route: a callable ``query ->
+        PredictedResult`` through the two-stage store."""
+        self._fused = route
+
+    def serve_fused(self, query: Any) -> Any:
+        """Serve one query through the bound fused route."""
+        return self._fused(query)
+
+    def serve(self, query: Any, predictions: Sequence[Any]) -> Any:
+        head = predictions[0]
+        if len(predictions) < 2:
+            return head
+        tail = predictions[-1]
+        rescores = {s.item: float(s.score)
+                    for s in getattr(tail, "item_scores", ())}
+        candidates = list(getattr(head, "item_scores", ()))
+        scored = [s for s in candidates if s.item in rescores]
+        unscored = [s for s in candidates if s.item not in rescores]
+        scored.sort(key=lambda s: -rescores[s.item])
+        reranked = tuple(
+            [dataclasses.replace(s, score=rescores[s.item])
+             for s in scored] + unscored)
+        return dataclasses.replace(head, item_scores=reranked)

@@ -177,8 +177,13 @@ def dedup_sum_sorted(key: np.ndarray, rows: np.ndarray, cols: np.ndarray,
 
 def _strongest_first(rows, cols, values):
     """Each row's ratings strongest magnitude first, so a ``max_len``
-    cut keeps the heaviest."""
-    order = np.lexsort((-np.abs(values), rows))
+    cut keeps the heaviest. The triples come sorted by row (the dedup's
+    order), so when every magnitude is equal (implicit events, one each)
+    that order is already the answer."""
+    mag = np.abs(values)
+    if not len(mag) or (mag == mag[0]).all():
+        return rows, cols, values
+    order = np.lexsort((-mag, rows))
     return rows[order], cols[order], values[order]
 
 

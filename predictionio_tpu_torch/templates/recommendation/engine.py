@@ -472,8 +472,40 @@ def index_categories(raw: Optional[Dict[str, Tuple[str, ...]]],
             if iid in item_map}
 
 
+class _DeviceServedModel:
+    """The device-serving plumbing every served model shares: the server
+    built on first use by the model's ``_make_server`` hook, under a lock
+    (concurrent first queries must not each build a store), and a pickle
+    that drops the device handles, the lock and the caches derived from
+    the host fields (they rebuild on demand)."""
+
+    _server: Any = None
+
+    def _make_server(self):
+        raise NotImplementedError
+
+    def device_server(self):
+        with self._server_lock:
+            if self._server is None:
+                self._server = self._make_server()
+            return self._server
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["_server"] = None
+        state.pop("_server_lock", None)
+        state.pop("_cat_index", None)
+        state.pop("_cat_black_cache", None)
+        state.pop("_theta_device", None)  # the sequentialrec device cache
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._server_lock = threading.Lock()
+
+
 @dataclasses.dataclass
-class ALSModel:
+class ALSModel(_DeviceServedModel):
     """Host factors and maps. ``device_server()`` builds the server on
     first use: the device store on ``device`` (None = cuda), at every
     size."""
@@ -489,31 +521,11 @@ class ALSModel:
     _server_lock: Any = dataclasses.field(default_factory=threading.Lock,
                                           repr=False, compare=False)
 
-    def __getstate__(self):
-        state = self.__dict__.copy()
-        # device handles and the lock don't pickle; the server is built
-        # again on the first query, on `device`
-        state["_server"] = None
-        state.pop("_server_lock", None)
-        # derived caches rebuild on demand; keep model blobs lean
-        state.pop("_cat_index", None)
-        state.pop("_cat_black_cache", None)
-        return state
+    def _make_server(self):
+        from predictionio_tpu_torch.ops.serving import choose_server
 
-    def __setstate__(self, state):
-        self.__dict__.update(state)
-        self._server_lock = threading.Lock()
-
-    def device_server(self):
-        # locked: concurrent first queries must not each build a store
-        with self._server_lock:
-            if self._server is None:
-                from predictionio_tpu_torch.ops.serving import choose_server
-
-                self._server = choose_server(
-                    self.user_factors, self.item_factors, self.seen,
-                    device=self.device)
-            return self._server
+        return choose_server(self.user_factors, self.item_factors, self.seen,
+                             device=self.device)
 
     def sanity_check(self) -> None:
         assert np.isfinite(self.user_factors).all(), "non-finite user factors"
@@ -535,7 +547,11 @@ def _winners_to_result(idx, scores, black, num: int,
                        item_map: StringIndexBiMap,
                        positive_only: bool = True) -> PredictedResult:
     """Fetched top-k row -> PredictedResult: drop blacklisted, non-finite
-    and (for ALS) non-positive scores, clip to num."""
+    and (with ``positive_only``, implicit ALS) non-positive scores, clip
+    to num. A model whose scores are only relatively calibrated (the
+    sequentialrec encoder's logits) sets ``serve_positive_scores_only =
+    False``: a user whose unseen items all score below zero still has a
+    ranking, and only the device's -inf masks drop."""
     keep = [(i, s) for i, s in zip(idx.tolist(), scores.tolist())
             if i not in black and math.isfinite(s)
             and (s > 0 or not positive_only)][:num]
@@ -606,10 +622,56 @@ def _serve_topk(server, model, query: Query) -> PredictedResult:
         idx, scores = server.user_topk(uidx, k)
     else:
         return PredictedResult(())
-    return _winners_to_result(idx, scores, black, query.num, item_map)
+    return _winners_to_result(
+        idx, scores, black, query.num, item_map,
+        positive_only=getattr(model, "serve_positive_scores_only", True))
 
 
-class ALSAlgorithm(P2LAlgorithm):
+class _DeviceServingAlgo:
+    """Predict, batch-predict and warm-up for every model served by
+    :class:`~predictionio_tpu_torch.ops.serving.DeviceTopK`."""
+
+    def warmup_base(self, model) -> None:
+        """Build the server (and the kernel, on the GPU) at deploy so the
+        first real query pays neither."""
+        if len(model.user_map):
+            model.device_server().warmup()
+
+    def predict(self, model, query: Query) -> PredictedResult:
+        return _serve_topk(model.device_server(), model, _coerce_query(query))
+
+    def _batched_predict(self, model, indexed_queries
+                         ) -> List[Tuple[int, Any]]:
+        """Known-user queries grouped per k and dispatched through
+        ``users_topk`` (one launch per group); item-similarity,
+        category and unknown-user queries take the per-query path."""
+        queries = [(qx, _coerce_query(q)) for qx, q in indexed_queries]
+        server = model.device_server()
+        positive = getattr(model, "serve_positive_scores_only", True)
+        results: Dict[int, Any] = {}
+        groups: Dict[int, List[Tuple[int, int, set, int]]] = {}
+        for qx, q in queries:
+            uidx = (model.user_map.get(q.user)
+                    if q.user is not None and not q.items
+                    and not q.categories else None)
+            if uidx is None:
+                results[qx] = self.predict(model, q)
+                continue
+            black = {model.item_map[i] for i in q.blacklist
+                     if i in model.item_map}
+            groups.setdefault(q.num + len(black), []).append(
+                (qx, uidx, black, q.num))
+        for k, rows in groups.items():
+            uids = np.asarray([r[1] for r in rows], dtype=np.int64)
+            idx, scores = server.users_topk(uids, k)
+            for row, (qx, _, black, num) in enumerate(rows):
+                results[qx] = _winners_to_result(
+                    idx[row], scores[row], black, num, model.item_map,
+                    positive_only=positive)
+        return [(qx, results[qx]) for qx, _ in queries]
+
+
+class ALSAlgorithm(_DeviceServingAlgo, P2LAlgorithm):
     """Implicit ALS: trains on the device ``ctx`` names (None = cuda) and
     serves from there."""
 
@@ -639,42 +701,9 @@ class ALSAlgorithm(P2LAlgorithm):
         return ALSModel(X, Y, pd.user_map, pd.item_map, pd.seen,
                         item_categories=pd.item_categories, device=str(dev))
 
-    def warmup_base(self, model: ALSModel) -> None:
-        """Build the server (and the kernel, on the GPU) at deploy so the
-        first real query pays neither."""
-        if len(model.user_map):
-            model.device_server().warmup()
-
-    def predict(self, model: ALSModel, query: Query) -> PredictedResult:
-        return _serve_topk(model.device_server(), model, _coerce_query(query))
-
     def batch_predict(self, ctx: Any, model: ALSModel,
                       indexed_queries) -> List[Tuple[int, Any]]:
-        """Known-user queries grouped per k and dispatched through
-        ``users_topk`` (one launch per group); item-similarity,
-        category and unknown-user queries take the per-query path."""
-        queries = [(qx, _coerce_query(q)) for qx, q in indexed_queries]
-        server = model.device_server()
-        results: Dict[int, Any] = {}
-        groups: Dict[int, List[Tuple[int, int, set, int]]] = {}
-        for qx, q in queries:
-            uidx = (model.user_map.get(q.user)
-                    if q.user is not None and not q.items
-                    and not q.categories else None)
-            if uidx is None:
-                results[qx] = self.predict(model, q)
-                continue
-            black = {model.item_map[i] for i in q.blacklist
-                     if i in model.item_map}
-            groups.setdefault(q.num + len(black), []).append(
-                (qx, uidx, black, q.num))
-        for k, rows in groups.items():
-            uids = np.asarray([r[1] for r in rows], dtype=np.int64)
-            idx, scores = server.users_topk(uids, k)
-            for row, (qx, _, black, num) in enumerate(rows):
-                results[qx] = _winners_to_result(
-                    idx[row], scores[row], black, num, model.item_map)
-        return [(qx, results[qx]) for qx, _ in queries]
+        return self._batched_predict(model, indexed_queries)
 
 
 class RecommendationServing(LFirstServing):

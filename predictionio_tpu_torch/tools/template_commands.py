@@ -7,9 +7,10 @@ Templates here are importable packages rather than sbt projects, so
 factory instead of cloning.
 
 The port's copy of ``predictionio_tpu/tools/template_commands.py``. The
-port has one template, ``recommendation``, whose ``engine.json`` names
-the port's factory; ``list`` shows the JAX package's other templates as
-not ported, and ``get`` raises for them (ROADMAP A7).
+port has three templates, ``recommendation``, ``sequentialrec`` and
+``twostage``, whose ``engine.json`` names the port's factory; ``list``
+shows the JAX package's other templates as not ported, and ``get``
+raises for them (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -21,6 +22,10 @@ from typing import Dict
 
 PORT_FACTORY = ("predictionio_tpu_torch.templates.recommendation.engine"
                 ":engine_factory")
+
+SEQREC_FACTORY = ("predictionio_tpu_torch.templates.sequentialrec"
+                  ":engine_factory")
+TWOSTAGE_FACTORY = "predictionio_tpu_torch.templates.twostage:engine_factory"
 
 BUILTIN_TEMPLATES: Dict[str, Dict] = {
     "recommendation": {
@@ -39,14 +44,52 @@ BUILTIN_TEMPLATES: Dict[str, Dict] = {
             }],
         },
     },
+    "sequentialrec": {
+        "description": "SASRec-style next-item prediction over per-user "
+                       "event sequences (causal transformer, served "
+                       "through the device top-k store)",
+        "engineFactory": SEQREC_FACTORY,
+        "variant": {
+            "id": "default",
+            "version": "default",
+            "engineFactory": SEQREC_FACTORY,
+            "datasource": {"params": {"appName": "INVALID_APP_NAME"}},
+            "preparator": {"params": {"maxSeqLen": 32}},
+            "algorithms": [{
+                "name": "seqrec",
+                "params": {"rank": 32, "nLayers": 2, "nHeads": 2,
+                           "numSteps": 300, "seed": 7},
+            }],
+        },
+    },
+    "twostage": {
+        "description": "Two-stage serving: ALS retrieves N candidates, the "
+                       "seqrec encoder re-ranks them, one device dispatch "
+                       "per query batch",
+        "engineFactory": TWOSTAGE_FACTORY,
+        "variant": {
+            "id": "default",
+            "version": "default",
+            "engineFactory": TWOSTAGE_FACTORY,
+            "datasource": {"params": {"appName": "INVALID_APP_NAME"}},
+            "preparator": {"params": {"maxSeqLen": 32}},
+            "algorithms": [{
+                "name": "als",
+                "params": {"rank": 32, "numIterations": 10, "seed": 3},
+            }, {
+                "name": "seqrec",
+                "params": {"rank": 32, "nLayers": 2, "nHeads": 2,
+                           "numSteps": 300, "seed": 7},
+            }],
+        },
+    },
 }
 
 # the JAX package's other built-in templates, in its listing order
 UNPORTED_TEMPLATES = (
     "classification", "similarproduct", "similarproduct-recommended-user",
     "helloworld", "friendrecommendation", "similarproduct-dimsum",
-    "regression", "ecommercerecommendation", "sequentialrec", "twostage",
-    "textclassification")
+    "regression", "ecommercerecommendation", "textclassification")
 
 
 def dispatch(args) -> int:
@@ -72,7 +115,7 @@ def template_get(name: str, directory: str) -> int:
     if name in UNPORTED_TEMPLATES:
         raise NotImplementedError(
             f"the {name} template is not ported yet (ROADMAP A7, the other "
-            "templates); the port has: recommendation")
+            f"templates); the port has: {', '.join(BUILTIN_TEMPLATES)}")
     t = BUILTIN_TEMPLATES.get(name)
     if t is None:
         print(f"[ERROR] Template {name} not found. Try 'pio template list'.",

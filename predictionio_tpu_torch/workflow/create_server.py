@@ -62,6 +62,7 @@ from predictionio_tpu_torch.common.auth import (
     KeyAuthentication,
     ServerConfig as AuthServerConfig,
 )
+from predictionio_tpu_torch.controller.controllers import TwoStageServing
 from predictionio_tpu_torch.controller.engine import (
     Engine,
     EngineParams,
@@ -333,9 +334,40 @@ def deployment_from_models(engine: Engine, engine_params: EngineParams,
             f"algorithm {type(algorithms[0]).__name__} declares no query "
             f"class but a later ensemble member expects "
             f"{next(iter(declared)).__name__}")
+    serving = engine._serving(engine_params)
+    if isinstance(serving, TwoStageServing):
+        _bind_two_stage(serving, algorithms, models)
     return Deployment(engine, engine_params, algorithms, list(models),
-                      engine._serving(engine_params), instance=instance,
-                      ctx=ctx)
+                      serving, instance=instance, ctx=ctx)
+
+
+def _bind_two_stage(serving: Any, algorithms: List[Any],
+                    models: List[Any]) -> None:
+    """Put a ``TwoStageServing`` deployment on ONE device store: build a
+    :class:`~predictionio_tpu_torch.ops.twostage.TwoStageTopK` over the
+    retrieval model's factors and the re-ranker's tables (its checks
+    refuse at load, never at query time), point each model's server at
+    its facet of the store, and bind the serving's fused route, so
+    ``serve_query`` dispatches retrieval and re-rank once per query
+    batch."""
+    from predictionio_tpu_torch.ops.twostage import build_two_stage_store
+
+    if len(models) < 2:
+        raise ValueError(
+            "TwoStageServing needs EngineParams.algorithms = "
+            "[retrieval, reranker] (at least two algorithms); got "
+            f"{len(models)} — use LFirstServing for a single-algorithm "
+            "deployment")
+    retrieval, rerank = models[0], models[-1]
+    store = build_two_stage_store(retrieval, rerank)
+    retrieval._server = store.two_facet()
+    # the re-ranked scores are the encoder's logits: a user whose
+    # candidates all score below zero still has a ranking, so the
+    # retrieval model's implicit-ALS positive filter must not drop them
+    retrieval.serve_positive_scores_only = False
+    rerank._server = store.seq_facet()
+    algo0 = algorithms[0]
+    serving.bind_fused(lambda q: algo0.predict_base(retrieval, q))
 
 
 def warm_up(dep: Deployment,
@@ -357,6 +389,13 @@ def serve_query(dep: Deployment, query: Any) -> Any:
     the stage that cost it."""
     with span("serve.supplement"):
         supplemented = dep.serving.supplement_base(query)
+    if getattr(dep.serving, "fused_bound", False):
+        # a two-stage deployment serves the whole query through its one
+        # store: a predict per algorithm would dispatch the stages apart
+        # and bring the candidates to the host
+        with span("serve.fused",
+                  attributes={"serving": type(dep.serving).__name__}):
+            return dep.serving.serve_fused(supplemented)
     predictions = []
     for algo, model in zip(dep.algorithms, dep.models):
         with span("serve.predict",

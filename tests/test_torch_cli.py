@@ -365,7 +365,7 @@ def test_operator_verbs_parse_as_the_jax_verbs(argv, handler):
 
 
 UNPORTED = [
-    (["template", "get", "sequentialrec", "d"], "A7"),
+    (["template", "get", "classification", "d"], "A7"),
     (["train", "--device", "cpu", "--num-hosts", "2"], "A6"),
     (["train", "--device", "cpu", "--coordinator", "h:1"], "A6"),
 ]

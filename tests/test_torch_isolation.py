@@ -7,8 +7,9 @@ runs list``), and from a ``jsonlfs`` store through the pipelined read,
 import, train and serve in a process where both are unimportable (and a
 2-replica query fleet answers a query), as does the console's quick start (``pio app
 new``, ``import``, the event server, ``template get``, ``train``,
-``export``) and the tuning grid (``pio eval --grid``), and training and
-fold-in over a ``resthttp`` and a ``fleet`` event store.
+``export``) and the tuning grid (``pio eval --grid``), training and
+fold-in over a ``resthttp`` and a ``fleet`` event store, and the
+``sequentialrec`` and ``twostage`` templates.
 ``chip_smoke.py`` refuses to run without a GPU."""
 
 import ast
@@ -435,6 +436,79 @@ def test_networked_store_runs_with_jax_unimportable(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "networked store ran" in proc.stdout
+
+
+SEQUENCE_RUN = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["predictionio_tpu"] = None
+import datetime as dt, json, os, urllib.request
+import numpy as np
+from predictionio_tpu_torch.core.context import ComputeContext
+from predictionio_tpu_torch.data import storage
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.data.storage.base import App
+from predictionio_tpu_torch.workflow.create_server import (
+    QueryServer, ServerConfig, build_deployment, resolve_engine_instance,
+    serve_query, to_jsonable)
+from predictionio_tpu_torch.workflow.create_workflow import (
+    WorkflowConfig, create_workflow)
+
+cpu = ComputeContext(device="cpu")
+rng = np.random.default_rng(0)
+storage.reset(storage.StorageConfig(
+    {"M": {"type": "memory"}}, {r: "M" for r in storage.REPOSITORIES}))
+aid = storage.get_metadata_apps().insert(App(0, "app"))
+t0 = dt.datetime(2024, 1, 1, tzinfo=dt.timezone.utc)
+storage.get_levents().insert_batch([
+    Event(event="view", entity_type="user", entity_id=f"u{u}",
+          target_entity_type="item", target_entity_id=f"i{(u + j) % 15}",
+          event_time=t0 + dt.timedelta(minutes=j))
+    for u in range(12) for j in range(int(rng.integers(3, 9)))], aid)
+seqrec = {"name": "seqrec", "params": {"rank": 8, "nLayers": 1,
+                                       "nHeads": 2, "numSteps": 5,
+                                       "batchSize": 4, "nNegatives": 4}}
+for name, algos in (("sequentialrec", [seqrec]),
+                    ("twostage", [{"name": "als", "params": {
+                        "rank": 3, "numIterations": 1}}, seqrec])):
+    factory = f"predictionio_tpu_torch.templates.{name}:engine_factory"
+    iid = create_workflow(WorkflowConfig(engine_factory=factory), {
+        "engineFactory": factory,
+        "datasource": {"params": {"appName": "app",
+                                  "streamingBlockSize": 10}},
+        "preparator": {"params": {"maxSeqLen": 8}},
+        "algorithms": algos}, ctx=cpu)
+    dep = build_deployment(resolve_engine_instance(iid), cpu)
+    out = to_jsonable(serve_query(dep, {"user": "u1", "num": 3}))
+    assert len(out["itemScores"]) == 3, out
+    srv = QueryServer(ServerConfig(ip="127.0.0.1", port=0), dep).start()
+    try:
+        req = urllib.request.Request(
+            "http://%s:%d/queries.json" % srv.address,
+            data=json.dumps({"user": "u2", "num": 2}).encode(),
+            method="POST")
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            assert len(json.loads(resp.read())["itemScores"]) == 2
+    finally:
+        srv.stop()
+assert not any(m == "jax" or m.startswith(("jax.", "predictionio_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("sequence templates ran")
+"""
+
+
+def test_sequence_templates_run_with_jax_unimportable():
+    """The sequentialrec and twostage templates train through
+    ``create_workflow`` on the CPU, deploy and answer, in process and
+    over HTTP, where ``jax`` and ``predictionio_tpu`` cannot be
+    imported."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env.pop("PIO_SERVE_PRECISION", None)
+    proc = subprocess.run([sys.executable, "-c", SEQUENCE_RUN], env=env,
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "sequence templates ran" in proc.stdout
 
 
 @pytest.mark.parametrize("alone", [False, True])
