@@ -6,6 +6,7 @@
     python3 chip_smoke.py --prepare-times   # phase 5's prepare step only
     python3 chip_smoke.py --query-fleet     # phases 1, 5 and 3d only
     python3 chip_smoke.py --seqrec          # 1, 5's store, 3e, 3f, 7's half
+    python3 chip_smoke.py --templates       # phases 1 and 6e only
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -157,7 +158,7 @@ Phases (any failure raises and the script exits non-zero):
    at B = 1) over the same queries; (c) B1's launches by (route, k, B)
    equal the chunk plan's (one ``users_topk`` launch per chunk and k,
    bitonic at B >= ``CHUNKED_MAX_B``; one per similarity query); (d) a
-   run stopped after 200 chunks resumes, skips them, scores the rest,
+   run stopped after 450 chunks resumes, skips them, scores the rest,
    and its shards are byte-equal to the clean run's. Prints the wall and
    scoring seconds, queries/s, B1's device ms over the run (CUDA
    events), one median chunk's split (extraction and supplement,
@@ -173,7 +174,7 @@ Phases (any failure raises and the script exits non-zero):
    eventserver``, a process of its own) writes to the same store.
    Through ``POST /batch/events.json``, 50 events a request from 8
    threads of a client process: 1-3 new ratings for 256 of the 512 (the
-   heaviest passes the seen table's width), 256 new users with 5-200
+   heaviest passes the seen table's width), 96 new users with 5-200
    ratings each (the store grows along the ladder, ``_bucket(needed,
    lo=capacity)``, to 276,986 rows), and events the
    consumer must ignore (``view``, ratings of unknown items, item
@@ -388,6 +389,32 @@ Phases (any failure raises and the script exits non-zero):
    the registry's wrapped DAO over the local store, its entity reads and
    50-event ``insert_batch`` writes, with ``PIO_RESILIENCE`` on and off
    in turns.
+6e. The other templates at ML-1M on a fresh sqlite store: one ``view``
+   per rating of ``ml1m_ratings`` plus 1% viewed twice, a ``buy`` per
+   rating of 4.5 stars or more, a ``$set`` per user and per item (its
+   categories and a year) and a ``constraint/unavailableItems`` ``$set``
+   of 50 items. ``create_workflow`` trains, at the published engine.json
+   parameters (rank 10, 20 iterations, lambda 0.01), similarproduct's
+   ALS and ecommercerecommendation's (``unseenOnly``) on the uniform
+   tables: each must launch B3 and B2 20 x 2 times (one launch a side an
+   iteration), and its factors must be within 1e-4 of the largest entry
+   of the plain trainer's on the card from the same init; B3 and B2 are
+   timed at those tables' shapes (kernel, plain, library, bound). DIMSUM
+   on the same views (a dense [6,040, 3,706] fp32 product on the card)
+   must be within 1e-5 of a float64 oracle on 64 sampled columns.
+   textclassification trains on a synthetic corpus at 20 Newsgroups'
+   size (18,846 documents, 20 classes with overlapping vocabularies) at
+   the template's defaults: its loss must fall and its held-out accuracy
+   beat the majority class, and one epoch on the card must be within
+   1e-5 of each tensor's largest entry of the same epoch on the CPU from
+   one init and one set of permutations. classification, regression,
+   friendrecommendation and helloworld train on small fixtures. Each
+   template is deployed through ``QueryServer`` and answers 50
+   sequential HTTP queries equal to its in-process answers (ids equal,
+   scores within 1e-5 relative; p50 / p99 printed); after deploy a new
+   ``unavailableItems`` ``$set`` must drop those items from ecommerce's
+   next answer. Each training's read, prepare and train seconds and
+   launches and the device memory peak are printed.
 7. Model quality on ``bench_quality.run``'s protocol at its shape
    (943 x 1,682 x 100,000, leave-last-2-out, rank 32, 10 iterations):
    Precision@10 and NDCG@10 of the port's trainer at seeds 3, 17 and
@@ -2617,7 +2644,7 @@ def sequential_latency(base: str, queries: list) -> np.ndarray:
 OBSERVABILITY_MODES = ("on", "off", "metrics", "tracing", "telemetry")
 
 
-def observability_overhead(base: str, queries: list, rounds: int = 10) -> dict:
+def observability_overhead(base: str, queries: list, rounds: int = 6) -> dict:
     """The sequential queries from a client process in ``rounds`` rounds,
     each round one run per mode in turn: metrics, tracing and device
     telemetry all on, all killed, and each of the three alone on, so the
@@ -2984,7 +3011,7 @@ def serve_full_width(model, seed: int) -> dict:
 
 BP_CHUNK = 256          # queries per chunk (the B1 bitonic route's B)
 BP_UNKNOWN, BP_BLACKLISTED, BP_SIMILAR = 16, 64, 16
-BP_FAIL_AFTER = 200     # chunks the interrupted run scores
+BP_FAIL_AFTER = 450     # chunks the interrupted run scores
 BP_SAMPLE = 1_024       # queries held byte for byte against serve_one
 
 
@@ -3299,7 +3326,7 @@ def batch_predict_full_width(trained: dict, seed: int, card: str) -> dict:
 FOLDIN_APP = "FoldIn20M"
 FOLDIN_KNOWN = 512        # users whose full histories the store holds
 FOLDIN_TOUCHED = 256      # of them, given 1-3 new ratings after deploy
-FOLDIN_NEW = 256          # brand-new users, 5-200 ratings each
+FOLDIN_NEW = 96           # brand-new users, 5-200 ratings each
 FOLDIN_INTERVAL = 0.5     # PIO_FOLDIN_INTERVAL, seconds
 FOLDIN_DEADLINE = 30.0    # event -> servable, seconds
 FOLDIN_HAMMER_S = 3.0     # the hammer's query threads run this long
@@ -3908,7 +3935,7 @@ FLEET_REPLICAS = 3
 FLEET_USERS = 1_024       # user queries from FLEET_CLIENTS threads in (b)
 FLEET_CLIENTS = 8
 FLEET_SEQ = 100           # sequential user queries, direct and through the balancer
-FLEET_BURST = 1_024       # user queries in each throughput burst
+FLEET_BURST = 512         # user queries in each throughput burst
 FLEET_BURST_CLIENTS = (8, 32)
 FLEET_ROLL_USERS = 16     # users each reload client asks for, in turn
 FLEET_FAILOVER = 16       # the stopped replica's users asked in (d)
@@ -5620,28 +5647,14 @@ def instance_factors(iid: str) -> tuple:
     return model.user_factors, model.item_factors
 
 
-def qs_kill_and_resume(work: str, eng: str, env: dict, steps: dict) -> dict:
-    """Phase 6b's crash pair through the console: ``pio train --precision
-    bf16 --checkpoint-dir D --checkpoint-every 1`` with each save held
-    ``KILL_SAVE_DELAY_S`` (``PIO_FAULTS`` slow), killed with SIGKILL once
-    its second checkpoint lands, then the same with ``--resume``: its
-    factors must be bitwise equal to an uninterrupted ``pio train
-    --precision bf16`` of the same store and variant, and ``pio runs
-    list`` / ``show`` must print one run whose steps rise to
-    ``ITERATIONS``."""
+def qs_killed_pair(eng: str, env: dict, opts: list, ck: str,
+                   steps: dict) -> tuple:
+    """The checkpointed ``pio train`` killed with SIGKILL once its second
+    checkpoint lands, then resumed: the resumed instance's factors."""
     import os
     import re
     import signal
 
-    from predictionio_tpu_torch.workflow import runlog
-
-    ck = os.path.join(work, "ckpt")
-    opts = ["--precision", "bf16", "--checkpoint-dir", ck,
-            "--checkpoint-every", "1"]
-    said, steps["train bf16"] = pio(["train", "--precision", "bf16"], env,
-                                    eng)
-    ref = instance_factors(re.search(r"Engine instance ID: (\S+)",
-                                     said).group(1))
     t = time.perf_counter()
     child = subprocess.Popen(
         CONSOLE + ["train"] + opts, cwd=eng, stdout=subprocess.DEVNULL,
@@ -5670,6 +5683,44 @@ def qs_kill_and_resume(work: str, eng: str, env: dict, steps: dict) -> dict:
                                         eng)
     got = instance_factors(re.search(r"Engine instance ID: (\S+)",
                                      said).group(1))
+    return got
+
+
+def qs_kill_and_resume(work: str, eng: str, env: dict, steps: dict) -> dict:
+    """Phase 6b's crash pair through the console: ``pio train --precision
+    bf16 --checkpoint-dir D --checkpoint-every 1`` with each save held
+    ``KILL_SAVE_DELAY_S`` (``PIO_FAULTS`` slow), killed with SIGKILL once
+    its second checkpoint lands, then the same with ``--resume``: its
+    factors must be bitwise equal to an uninterrupted ``pio train
+    --precision bf16`` of the same store and variant (a process run
+    beside the pair), and ``pio runs list`` / ``show`` must print one
+    run whose steps rise to ``ITERATIONS``."""
+    import os
+    import re
+
+    from predictionio_tpu_torch.workflow import runlog
+
+    ck = os.path.join(work, "ckpt")
+    opts = ["--precision", "bf16", "--checkpoint-dir", ck,
+            "--checkpoint-every", "1"]
+    # the uninterrupted reference trains beside the killed and resumed pair
+    t_ref = time.perf_counter()
+    reference = subprocess.Popen(
+        CONSOLE + ["train", "--precision", "bf16"], env=env, cwd=eng,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        got = qs_killed_pair(eng, env, opts, ck, steps)
+        ref_said, ref_err = reference.communicate(timeout=600)
+    finally:
+        if reference.poll() is None:
+            reference.kill()
+            reference.wait(timeout=60)
+    steps["train bf16"] = time.perf_counter() - t_ref
+    if reference.returncode != 0:
+        raise AssertionError(f"pio train --precision bf16 exited "
+                             f"{reference.returncode}: {ref_err[-2000:]}")
+    ref = instance_factors(re.search(r"Engine instance ID: (\S+)",
+                                     ref_said).group(1))
     if not (np.array_equal(got[0], ref[0])
             and np.array_equal(got[1], ref[1])):
         raise AssertionError("the resumed instance's factors differ from the "
@@ -5915,10 +5966,10 @@ def qs_batchpredict(work: str, eng: str, env: dict, iid: str, model,
                     steps: dict, card: str) -> dict:
     """``pio-torch batchpredict`` over every quick-start user (the events
     give no ``$set`` user entities, so ``--input`` holds the queries),
-    chunks of ``QS_BP_CHUNK``: a clean run; a second run killed with
-    SIGKILL once its journal holds a finished chunk, then rerun: the
-    rerun skips at least one chunk and its results, shard for shard,
-    equal the clean run's."""
+    chunks of ``QS_BP_CHUNK``: a clean run, and beside it a second run
+    killed with SIGKILL once its journal holds a finished chunk, then
+    rerun: the rerun skips at least one chunk and its results, shard for
+    shard, equal the clean run's."""
     import os
     import re
     import signal
@@ -5932,30 +5983,44 @@ def qs_batchpredict(work: str, eng: str, env: dict, iid: str, model,
     args = ["batchpredict", "--engine-instance-id", iid, "--input", qfile,
             "--chunk-size", str(QS_BP_CHUNK)]
     clean, killed = (os.path.join(work, d) for d in ("bp_clean", "bp_kill"))
-    said, steps["batchpredict"] = pio(args + ["--output", clean], env, eng)
-    launched = launches_line(said)
+    # the clean run beside the killed one and its rerun
+    t_clean = time.perf_counter()
+    clean_run = subprocess.Popen(
+        CONSOLE + args + ["--output", clean], cwd=eng, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        journal = os.path.join(killed, bp_mod.JOURNAL_NAME)
+        t = time.perf_counter()
+        child = subprocess.Popen(CONSOLE + args + ["--output", killed],
+                                 cwd=eng, env=env, stdout=subprocess.DEVNULL,
+                                 stderr=subprocess.PIPE, text=True)
+        try:
+            while not (os.path.exists(journal) and os.path.getsize(journal)):
+                if child.poll() is not None or time.perf_counter() - t > 300:
+                    break
+                time.sleep(0.002)
+            mid_run = child.poll() is None
+            child.send_signal(signal.SIGKILL)
+            child.wait(timeout=60)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait(timeout=60)
+        steps["batchpredict killed"] = time.perf_counter() - t
+        said, steps["batchpredict rerun"] = pio(args + ["--output", killed],
+                                                env, eng)
+        clean_said, clean_err = clean_run.communicate(timeout=600)
+    finally:
+        if clean_run.poll() is None:
+            clean_run.kill()
+            clean_run.wait(timeout=60)
+    steps["batchpredict"] = time.perf_counter() - t_clean
+    if clean_run.returncode != 0:
+        raise AssertionError(f"pio batchpredict exited "
+                             f"{clean_run.returncode}: {clean_err[-2000:]}")
+    launched = launches_line(clean_said)
     if not launched["fused_gather_score_topk"]:
         raise AssertionError(f"pio batchpredict launched {launched}")
-    journal = os.path.join(killed, bp_mod.JOURNAL_NAME)
-    t = time.perf_counter()
-    child = subprocess.Popen(CONSOLE + args + ["--output", killed], cwd=eng,
-                             env=env, stdout=subprocess.DEVNULL,
-                             stderr=subprocess.PIPE, text=True)
-    try:
-        while not (os.path.exists(journal) and os.path.getsize(journal)):
-            if child.poll() is not None or time.perf_counter() - t > 300:
-                break
-            time.sleep(0.002)
-        mid_run = child.poll() is None
-        child.send_signal(signal.SIGKILL)
-        child.wait(timeout=60)
-    finally:
-        if child.poll() is None:
-            child.kill()
-            child.wait(timeout=60)
-    steps["batchpredict killed"] = time.perf_counter() - t
-    said, steps["batchpredict rerun"] = pio(args + ["--output", killed],
-                                            env, eng)
     found = re.search(r"\((\d+) scored, (\d+) resumed\)", said)
     scored, resumed = int(found.group(1)), int(found.group(2))
     if resumed < 1:
@@ -6058,6 +6123,15 @@ def quick_start(seed: int, cycle: dict, card: str,
               f"{e['singles']} single posts at "
               f"{e['singles_events_per_s']!r} events/s ({card})")
 
+        # the store takes no more events: export it beside train and
+        # deploy
+        exported = os.path.join(work, "export.jsonl")
+        t_export = time.perf_counter()
+        export = subprocess.Popen(
+            CONSOLE + ["export", "--app-name", QS_APP, "--output", exported],
+            env=env, cwd=work, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)
+        children.append(export)
         trace_dir = os.path.join(work, "traces")
         said, train_s = pio(["train", "--trace-dir", trace_dir], env, eng)
         steps["train"] = train_s
@@ -6106,13 +6180,6 @@ def quick_start(seed: int, cycle: dict, card: str,
             "Engine API is live at")
         children.append(dep)
         steps["deploy ready"] = deploy_s
-        exported = os.path.join(work, "export.jsonl")
-        t_export = time.perf_counter()
-        export = subprocess.Popen(
-            CONSOLE + ["export", "--app-name", QS_APP, "--output", exported],
-            env=env, cwd=work, stdout=subprocess.DEVNULL,
-            stderr=subprocess.PIPE, text=True)
-        children.append(export)
         t = time.perf_counter()
         got = [post(base + "/queries.json", q) for q in queries]
         bad = [(q, g[:2]) for q, g, w in zip(queries, got, want_answers)
@@ -6174,8 +6241,8 @@ def quick_start(seed: int, cycle: dict, card: str,
                                  f"{written} events were written")
         out["export"] = {"lines": lines, "s": export_s}
         print(f"[quickstart] pio export: {lines} lines (the events "
-              f"written) in {export_s!r} s, beside the deployment's "
-              f"checks and undeploy")
+              f"written) in {export_s!r} s, beside pio train, the "
+              f"deployment's checks and undeploy")
 
         out["feedback"] = qs_feedback_and_top(work, eng, env, key, queries,
                                               steps, card)
@@ -6186,9 +6253,10 @@ def quick_start(seed: int, cycle: dict, card: str,
         out["resume"] = qs_kill_and_resume(work, eng, env, steps)
         print("[quickstart] step seconds: " + ", ".join(
             f"{k} {v!r}" for k, v in steps.items()) + "; the short verbs "
-            "ran beside the ratings draw and JSONL write, and export "
-            "beside the deployed queries, profile, undeploy and deploy "
-            "exit")
+            "ran beside the ratings draw and JSONL write, export beside "
+            "train, the deployed queries, profile, undeploy and deploy "
+            "exit, and the bf16 reference training beside the killed and "
+            "resumed pair")
         if keep_store:
             out["kept"] = {"work": work, "store": store, "env": env}
         return out
@@ -6330,8 +6398,9 @@ def console_eval(seed: int, kept: dict, card: str) -> dict:
     ``GRID_ITERATIONS`` iterations) exits 0 and writes the leaderboard;
     its winner carries full ``engineParams``; it must launch B3's
     config-axis route, B2 and B1. (2) A ``pio-torch eval
-    chip_smoke:ml1m_evaluation`` child exits 0, writes ``best.json`` and
-    stores an ``EVALCOMPLETED`` evaluation instance, having launched B1
+    chip_smoke:ml1m_evaluation`` child, run beside the first, exits 0,
+    writes ``best.json`` and stores an ``EVALCOMPLETED`` evaluation
+    instance, having launched B1
     (the batched route: one launch per param set for every held-out
     user). Each param set's Precision@10 must equal the one scored in
     this process on the same trained factors by the same pipeline with
@@ -6342,6 +6411,7 @@ def console_eval(seed: int, kept: dict, card: str) -> dict:
 
     work, store, env = kept["work"], kept["store"], kept["env"]
     out: dict = {}
+    evaluation = None
     try:
         grid_path = os.path.join(work, "grid.json")
         with open(grid_path, "w") as f:
@@ -6353,6 +6423,12 @@ def console_eval(seed: int, kept: dict, card: str) -> dict:
                                    for lam in EVAL_GRID_LAMBDAS],
                        "data": {"appName": QS_APP}}, f)
         board_path = os.path.join(work, "leaderboard.json")
+        # the Evaluation lane's child runs beside the grid's
+        t_eval = time.perf_counter()
+        evaluation = subprocess.Popen(
+            CONSOLE + ["eval", "chip_smoke:ml1m_evaluation"], env=env,
+            cwd=work, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
         said, grid_s = pio(["eval", "--grid", grid_path, "--grid-out",
                             board_path, "--topk", str(GRID_TOPK)], env, work)
         launched = launches_line(said)
@@ -6382,8 +6458,12 @@ def console_eval(seed: int, kept: dict, card: str) -> dict:
               f"{winner['params']} precision@{GRID_TOPK} "
               f"{winner['metric']!r}; launches {launched} ({card})")
 
-        said, eval_s = pio(["eval", f"chip_smoke:ml1m_evaluation"], env,
-                           work)
+        said, err = evaluation.communicate(timeout=600)
+        eval_s = time.perf_counter() - t_eval
+        if evaluation.returncode != 0:
+            raise AssertionError(f"pio eval chip_smoke:ml1m_evaluation "
+                                 f"exited {evaluation.returncode}: "
+                                 f"{err[-2000:]}")
         launched = launches_line(said)
         if not launched["fused_gather_score_topk"] \
                 or not launched["assemble_normal_equations"]:
@@ -6417,6 +6497,9 @@ def console_eval(seed: int, kept: dict, card: str) -> dict:
               f"EVALCOMPLETED instance; launches {launched} ({card})")
         return out
     finally:
+        if evaluation is not None and evaluation.poll() is None:
+            evaluation.kill()
+            evaluation.wait(timeout=60)
         storage.reset()
         shutil.rmtree(work, ignore_errors=True)
 
@@ -6432,7 +6515,7 @@ NET_NEW_USERS = 30        # folded through the fleet cursor
 NET_DOWN_USERS = 4        # posted to the killed shard while it is down
 NET_DOWN_SHARD = 1
 NET_ENTITY_USERS = 3      # users read by the byte search and the parse
-NET_LAPS = 5              # the wrapper's on / off laps, each
+NET_LAPS = 3              # the wrapper's on / off laps, each
 NET_LAP_READS = 5         # entity reads in a lap
 NET_LAP_WRITES = 40       # 50-event insert_batch writes in a lap
 NET_DEADLINE = 60.0       # restart -> the killed shard's users servable
@@ -7118,6 +7201,792 @@ def networked_store(seed: int, card: str) -> dict:
             proc.wait(timeout=30)
         resilience.set_enabled(True)
         resilience.reset_breakers()
+        storage.reset()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# -- phase 6e: the other templates -------------------------------------------------
+
+OT_APP = "ML1MShop"
+OT_REPEAT = 0.01          # share of ratings viewed a second time
+OT_BUY_STARS = 4.5        # a rating at or above this is also a buy
+OT_UNAVAILABLE = 50       # items of each constraint/unavailableItems $set
+OT_QUERIES = 50           # sequential HTTP queries per template
+OT_DIMSUM_COLUMNS = 64    # columns held to the float64 oracle
+OT_FACTOR_TOL = 1e-4      # ALS factors vs the plain trainer, of the largest
+OT_DIMSUM_TOL = 1e-5      # DIMSUM vs the float64 oracle, absolute
+OT_ANSWER_RTOL = 1e-5     # HTTP vs in-process scores, relative
+OT_TEXT_TOL = 1e-5        # one epoch card vs CPU, of each tensor's largest
+# the published engine.json parameters (PredictionIO's similarproduct and
+# ecommercerecommendation templates: rank 10, 20 iterations, lambda 0.01)
+OT_ALS = {"rank": 10, "numIterations": 20, "lambda": 0.01, "seed": 3}
+# a corpus at 20 Newsgroups' size (18,846 documents, 20 classes); the
+# template's defaults (vocab 4,096, 64 tokens, D 64, 30 epochs, batch 128)
+TEXT_DOCS, TEXT_CLASSES, TEXT_HELD = 18_846, 20, 2_000
+TEXT_OWN, TEXT_SHARED, TEXT_COMMON = 300, 100, 2_000   # words per class
+OT_FACTORY = "predictionio_tpu_torch.templates.{}:{}"
+OT_ALS_TEMPLATES = ("similarproduct", "ecommercerecommendation")
+
+
+def ot_views(seed: int) -> tuple:
+    """ML-1M's ratings as the shop's events: ``(rows, cols, stars, cats,
+    years, repeats)``, ``repeats`` the rating indices viewed again."""
+    rows, cols, stars, cats = ml1m_ratings(seed)
+    rng = np.random.default_rng(seed + 11)
+    repeats = np.sort(rng.choice(len(rows), int(OT_REPEAT * len(rows)),
+                                 replace=False))
+    years = rng.integers(1919, 2001, ML1M_ITEMS)
+    return rows, cols, stars, cats, years, repeats
+
+
+def ot_store(seed: int, app_id: int) -> dict:
+    """One ``view`` per rating plus the repeats, a ``buy`` per rating of
+    ``OT_BUY_STARS`` or more (``insert_raw_batch``, 100,000 rows a call),
+    a ``$set`` per user and per item (categories, year), and one
+    ``constraint/unavailableItems`` ``$set`` of ``OT_UNAVAILABLE``
+    items."""
+    import datetime as dt
+
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.data.event import Event
+
+    rows, cols, stars, cats, years, repeats = ot_views(seed)
+    levents = storage.get_levents()
+    levents.init(app_id)
+    t0 = time.perf_counter()
+    base = dt.datetime(2003, 2, 28, tzinfo=dt.timezone.utc).timestamp()
+    idx = np.concatenate([np.arange(len(rows)), repeats])
+    buys = np.nonzero(stars >= OT_BUY_STARS)[0]
+    raw = [("view", j) for j in idx.tolist()] + \
+        [("buy", j) for j in buys.tolist()]
+    users, items = rows.tolist(), cols.tolist()
+    for a in range(0, len(raw), 100_000):
+        levents.insert_raw_batch([
+            (f"ot{k}", name, "user", f"u{users[j]}", "item", f"i{items[j]}",
+             "{}", base + k, "[]", None, base + k)
+            for k, (name, j) in enumerate(raw[a:a + 100_000], start=a)],
+            app_id)
+    when = dt.datetime(2003, 3, 1, tzinfo=dt.timezone.utc)
+    levents.insert_batch([Event(event="$set", entity_type="user",
+                                entity_id=f"u{u}", event_time=when)
+                          for u in range(ML1M_USERS)], app_id)
+    levents.insert_batch([
+        Event(event="$set", entity_type="item", entity_id=f"i{i}",
+              properties={"categories": list(cats[f"i{i}"]),
+                          "year": int(years[i])}, event_time=when)
+        for i in range(ML1M_ITEMS)], app_id)
+    rng = np.random.default_rng(seed + 13)
+    gone = [f"i{i}" for i in rng.choice(ML1M_ITEMS, OT_UNAVAILABLE,
+                                        replace=False)]
+    levents.insert(Event(event="$set", entity_type="constraint",
+                         entity_id="unavailableItems",
+                         properties={"items": gone}, event_time=when),
+                   app_id)
+    return {"views": len(idx), "buys": len(buys), "unavailable": gone,
+            "years": years, "cats": cats, "rows": rows, "cols": cols,
+            "write_s": time.perf_counter() - t0}
+
+
+def timed_engine(factory: str) -> tuple:
+    """``factory``'s engine with the read, the prepare and each train
+    timed (summed seconds, the card synchronised), and the prepared data
+    kept: ``(engine, record)``."""
+    import torch
+
+    from predictionio_tpu_torch.controller import Engine
+    from predictionio_tpu_torch.workflow import core_workflow
+
+    base = core_workflow.load_engine_factory(factory)()
+    record = {"read": 0.0, "prepare": 0.0, "train": 0.0}
+
+    def timed(cls, method, label):
+        def run(self, *args):
+            t = time.perf_counter()
+            try:
+                out = getattr(cls, method)(self, *args)
+            finally:
+                torch.cuda.synchronize()
+                record[label] += time.perf_counter() - t
+            if label == "prepare":
+                record["pd"] = out
+            return out
+        return type(cls.__name__, (cls,), {method: run})
+
+    def each(class_map, method, label):
+        return {name: timed(cls, method, label)
+                for name, cls in class_map.items()}
+
+    return Engine(each(base.data_source_class_map, "read_training_base",
+                       "read"),
+                  each(base.preparator_class_map, "prepare_base", "prepare"),
+                  each(base.algorithm_class_map, "train_base", "train"),
+                  base.serving_class_map), record
+
+
+def ot_train(name: str, factory: str, variant: dict,
+             keep_pd: bool = False) -> dict:
+    """``create_workflow`` of ``variant`` on the card, the training
+    kernels' launches counted: the instance, the stage seconds and the
+    launches (and the prepared data with ``keep_pd``)."""
+    from predictionio_tpu_torch.core.context import ComputeContext
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.workflow.create_workflow import (
+        WorkflowConfig,
+        create_workflow,
+    )
+
+    engine, record = timed_engine(factory)
+    for counter in (als_cuda.assemble_launches, als_cuda.spd_launches):
+        counter.reset()
+    t = time.perf_counter()
+    iid = create_workflow(
+        WorkflowConfig(engine_id=name, engine_factory=factory),
+        {"id": name, "engineFactory": factory, **variant}, engine=engine,
+        ctx=ComputeContext())
+    total = time.perf_counter() - t
+    launches = {"assemble_normal_equations": als_cuda.assemble_launches.value,
+                "spd_solve": als_cuda.spd_launches.value}
+    print(f"[templates] {name}: instance {iid} in {total:.2f} s; read "
+          f"{record['read']!r} s, prepare {record['prepare']!r} s, train "
+          f"{record['train']!r} s; launches {launches}")
+    return {"id": iid, "s": total, "read_s": record["read"],
+            "prepare_s": record["prepare"], "train_s": record["train"],
+            "launches": launches,
+            **({"pd": record.get("pd")} if keep_pd else {})}
+
+
+class ALSCapture:
+    """Records the uniform tables each ALS template hands the trainer
+    (its module's ``_train_als_auto``), and the factors it returns."""
+
+    def __init__(self):
+        self.calls: list = []
+        self._saved: list = []
+
+    def __enter__(self) -> "ALSCapture":
+        from predictionio_tpu_torch.templates.ecommercerecommendation import (
+            engine as ecomm,
+        )
+        from predictionio_tpu_torch.templates.similarproduct import (
+            engine as similar,
+        )
+
+        for mod in (similar, ecomm):
+            fn = mod._train_als_auto
+
+            def wrapped(us, its, params, device=None, _fn=fn):
+                out = _fn(us, its, params, device)
+                self.calls.append((us, its, params, out))
+                return out
+
+            self._saved.append((mod, fn))
+            mod._train_als_auto = wrapped
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for mod, fn in self._saved:
+            mod._train_als_auto = fn
+        self._saved = []
+
+
+def plain_als_check(dev, call: tuple, label: str) -> dict:
+    """The plain trainer (both kernels' plain versions) on the card from
+    the same init and tables: each factor matrix within
+    ``OT_FACTOR_TOL`` of its largest entry."""
+    from predictionio_tpu_torch.ops import als as als_mod
+    from predictionio_tpu_torch.ops import als_cuda
+
+    us, its, params, (X, Y) = call
+    saved = (als_cuda.assemble_normal_equations, als_cuda.spd_solve)
+    als_cuda.assemble_normal_equations = \
+        als_cuda.assemble_normal_equations_plain
+    als_cuda.spd_solve = als_cuda.spd_solve_plain
+    try:
+        Xp, Yp = als_mod.train_als(us, its, params, dev)
+    finally:
+        als_cuda.assemble_normal_equations, als_cuda.spd_solve = saved
+    errs = {side: float(np.abs(got - want).max() / np.abs(want).max())
+            for side, got, want in (("user", X, Xp), ("item", Y, Yp))}
+    print(f"[templates] {label}: factors vs the plain trainer on the card "
+          f"from the same init, largest |difference| over the largest "
+          f"entry {errs} (limit {OT_FACTOR_TOL}); tables user "
+          f"{list(us.cols.shape)}, item {list(its.cols.shape)}")
+    if max(errs.values()) > OT_FACTOR_TOL:
+        raise AssertionError(f"{label}: factors differ from the plain "
+                             f"trainer's: {errs}")
+    return errs
+
+
+def uniform_timings(dev, call: tuple) -> dict:
+    """B3 and B2 on the uniform route at R = 10, one iteration's work of
+    each side of ``call``'s tables against its trained factors: kernel,
+    plain, library (``torch.bmm`` over the gathered rows; batched
+    Cholesky) and bound."""
+    import torch
+
+    from predictionio_tpu_torch.ops import als as als_mod
+    from predictionio_tpu_torch.ops import als_cuda
+
+    us, its, params, (X, Y) = call
+    R = params.rank
+    eye = torch.eye(R, device=dev)
+    rows = {"assemble_normal_equations": [], "spd_solve": []}
+    for side_name, side, fixed in (("user", us, Y), ("item", its, X)):
+        F = torch.as_tensor(fixed, device=dev)
+        cols = torch.as_tensor(side.cols, device=dev)
+        m = torch.as_tensor(side.mask, device=dev)
+        aw, bw = als_mod.implicit_weights(
+            torch.as_tensor(side.weights, device=dev) * m, params.alpha)
+        gram = F.T @ F + params.lambda_ * eye
+        B, L = side.cols.shape
+        nnz = int(side.mask.sum())
+        Fg = F[cols.long()]
+        awFg = (aw[:, :, None] * Fg).transpose(1, 2)
+
+        def kernel():
+            return als_cuda.assemble_normal_equations(F, cols, aw, bw, gram)
+
+        t_k = time_ms(kernel, 5)
+        t_p = time_ms(lambda: als_cuda.assemble_normal_equations_plain(
+            F, cols, aw, bw, gram), 2)
+        t_l = time_ms(lambda: torch.bmm(awFg, Fg), 3)
+        del Fg, awFg
+        work = assembly_work(B, L, nnz, F.shape[0], R)
+        b_ms, b_by = bound_of(*work)
+        rows["assemble_normal_equations"].append({
+            "side": side_name, "B": B, "L": L, "R": R, "slots": nnz,
+            "work": work, "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+            "bound_ms": b_ms, "bound_by": b_by})
+        print(f"[templates] uniform assemble {side_name:>4} B={B} L={L} "
+              f"R={R}: kernel {t_k!r} ms  plain {t_p!r} ms  library {t_l!r} "
+              f"ms  bound {b_ms!r} ms ({b_by})")
+        A, b = kernel()
+
+        def library():
+            torch.cholesky_solve(b[:, :, None], torch.linalg.cholesky(A))
+
+        t_k = time_ms(lambda: als_cuda.spd_solve(A, b), 5)
+        t_p = time_ms(lambda: als_cuda.spd_solve_plain(A, b), 2)
+        t_l = time_ms(library, 3)
+        work = solve_work(B, R)
+        b_ms, b_by = bound_of(*work)
+        rows["spd_solve"].append({
+            "side": side_name, "B": B, "R": R, "work": work, "ms": t_k,
+            "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
+            "bound_by": b_by})
+        print(f"[templates] uniform spd_solve {side_name:>4} B={B} R={R}: "
+              f"kernel {t_k!r} ms  plain {t_p!r} ms  library {t_l!r} ms  "
+              f"bound {b_ms!r} ms ({b_by})")
+        del A, b
+    heads = {}
+    for name, parts in rows.items():
+        b_ms, b_by = bound_of(sum(r["work"][0] for r in parts),
+                              sum(r["work"][1] for r in parts))
+        heads[name] = {key: sum(r[key] for r in parts)
+                       for key in ("ms", "plain_ms", "library_ms")}
+        heads[name].update(bound_ms=b_ms, bound_by=b_by)
+    return {"rows": rows, "heads": heads}
+
+
+def dimsum_oracle_check(model, store: dict, seed: int) -> float:
+    """DIMSUM's similarities of ``OT_DIMSUM_COLUMNS`` sampled columns
+    against a float64 numpy oracle over the de-duplicated binary view
+    matrix; returns the largest |difference|."""
+    users = sorted({f"u{u}" for u in store["rows"].tolist()})
+    uix = {u: i for i, u in enumerate(users)}
+    A = np.zeros((len(users), len(model.item_map)), dtype=np.float64)
+    A[[uix[f"u{u}"] for u in store["rows"].tolist()],
+      [model.item_map[f"i{i}"] for i in store["cols"].tolist()]] = 1.0
+    An = A / np.maximum(np.linalg.norm(A, axis=0), 1e-12)
+    rng = np.random.default_rng(seed + 17)
+    picked = np.sort(rng.choice(A.shape[1], OT_DIMSUM_COLUMNS,
+                                replace=False))
+    S = An.T @ An[:, picked]
+    S[picked, np.arange(len(picked))] = 0.0
+    err = float(np.abs(model.similarities[:, picked] - S).max())
+    print(f"[templates] DIMSUM [{A.shape[0]:,} x {A.shape[1]:,}] similarities "
+          f"of {len(picked)} sampled columns vs a float64 oracle: largest "
+          f"|difference| {err!r} (limit {OT_DIMSUM_TOL})")
+    if err > OT_DIMSUM_TOL:
+        raise AssertionError(f"DIMSUM similarities differ from the oracle "
+                             f"by {err}")
+    return err
+
+
+def close_answers(got, want, path: str = "") -> list:
+    """Where two answers differ: floats beyond ``OT_ANSWER_RTOL``
+    relative, anything else unequal."""
+    if isinstance(want, float) and isinstance(got, (float, int)):
+        scale = max(abs(want), abs(got), 1e-30)
+        return [] if abs(got - want) <= OT_ANSWER_RTOL * scale else [path]
+    if isinstance(want, dict) and isinstance(got, dict):
+        if sorted(want) != sorted(got):
+            return [path]
+        return [p for k in want for p in close_answers(got[k], want[k],
+                                                       f"{path}.{k}")]
+    if isinstance(want, list) and isinstance(got, list):
+        if len(want) != len(got):
+            return [path]
+        return [p for j, (g, w) in enumerate(zip(got, want))
+                for p in close_answers(g, w, f"{path}[{j}]")]
+    return [] if got == want else [path]
+
+
+def ot_serve(name: str, iid: str, queries: list, after=None) -> dict:
+    """Deploy ``iid`` through ``QueryServer`` and send ``queries`` over
+    HTTP one after another: each answer must equal the deployment's
+    in-process answer (ids equal, scores within ``OT_ANSWER_RTOL``).
+    ``after(base, dep)`` runs against the live server before it stops."""
+    from predictionio_tpu_torch.core.context import ComputeContext
+    from predictionio_tpu_torch.workflow.create_server import (
+        QueryServer,
+        ServerConfig,
+        build_deployment,
+        query_from_json,
+        resolve_engine_instance,
+        serve_query,
+        to_jsonable,
+    )
+
+    dep = build_deployment(resolve_engine_instance(iid), ComputeContext())
+    qcls = dep.algorithms[0].query_class
+    srv = QueryServer(ServerConfig(ip="127.0.0.1", port=0), dep).start()
+    base = "http://{}:{}".format(*srv.address)
+    try:
+        seconds, bad, nonempty = [], [], 0
+        for q in queries:
+            status, body, s = post(base + "/queries.json", q)
+            want = to_jsonable(serve_query(dep, query_from_json(q, qcls)))
+            seconds.append(s)
+            where = close_answers(body, want)
+            if status != 200 or where:
+                bad.append((q, status, where[:3]))
+            nonempty += body not in ([], {}, None) and not (
+                isinstance(body, dict) and any(
+                    v == [] for v in body.values()))
+        if bad:
+            raise AssertionError(f"{name}: {len(bad)} HTTP answers differ "
+                                 f"from the in-process ones: {bad[:3]}")
+        extra = after(base, dep) if after is not None else {}
+    finally:
+        srv.stop()
+    ms = np.asarray(seconds) * 1e3
+    out = {"p50_ms": float(np.percentile(ms, 50)),
+           "p99_ms": float(np.percentile(ms, 99)), "queries": len(queries),
+           "nonempty": nonempty, **extra}
+    print(f"[templates] {name}: {len(queries)} HTTP answers equal the "
+          f"in-process ones ({nonempty} non-empty); sequential p50 "
+          f"{out['p50_ms']!r} ms p99 {out['p99_ms']!r} ms")
+    return out
+
+
+def text_corpus(seed: int, n_docs: int) -> tuple:
+    """``n_docs`` documents of ``TEXT_CLASSES`` labels: each class draws
+    from its own ``TEXT_OWN`` words, ``TEXT_SHARED`` words it shares with
+    the next class, and ``TEXT_COMMON`` words every class uses; 40-200
+    tokens a document (the template reads the first 64)."""
+    rng = np.random.default_rng(seed)
+    words = []
+    for c in range(TEXT_CLASSES):
+        words.append([f"c{c}w{j}" for j in range(TEXT_OWN)]
+                     + [f"s{c}w{j}" for j in range(TEXT_SHARED)]
+                     + [f"s{(c - 1) % TEXT_CLASSES}w{j}"
+                        for j in range(TEXT_SHARED)])
+    common = [f"common{j}" for j in range(TEXT_COMMON)]
+    labels = rng.integers(0, TEXT_CLASSES, n_docs)
+    texts = []
+    for lab in labels.tolist():
+        n = int(rng.integers(40, 201))
+        own = rng.random(n) < 0.3
+        toks = np.where(own, rng.choice(words[lab], n),
+                        rng.choice(common, n))
+        texts.append(" ".join(toks.tolist()))
+    return texts, [f"group{lab}" for lab in labels.tolist()]
+
+
+def ot_text(dev, seed: int, app_id: int) -> dict:
+    """textclassification at 20 Newsgroups' size: the corpus as ``doc``
+    ``$set`` events, ``create_workflow`` with the template's defaults (the
+    loss must fall), held-out accuracy above the majority class, and one
+    epoch on the card against the CPU from one init and one set of
+    permutations."""
+    import dataclasses
+    import datetime as dt
+
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.templates.textclassification import (
+        engine as teng,
+    )
+
+    texts, labels = text_corpus(seed, TEXT_DOCS)
+    when = dt.datetime(2003, 3, 1, tzinfo=dt.timezone.utc)
+    t = time.perf_counter()
+    storage.get_levents().insert_batch([
+        Event(event="$set", entity_type="doc", entity_id=f"d{j}",
+              properties={"text": x, "label": lb}, event_time=when)
+        for j, (x, lb) in enumerate(zip(texts, labels))], app_id)
+    write_s = time.perf_counter() - t
+    losses: list = []
+    trainer = teng._train_embedding_lr
+
+    def logged(*args, **kwargs):
+        return trainer(*args, losses=losses, **kwargs)
+
+    teng._train_embedding_lr = logged
+    try:
+        trained = ot_train("textclassification", OT_FACTORY.format(
+            "textclassification", "engine_factory"), {
+            "datasource": {"params": {"appName": OT_APP + "Text"}},
+            "preparator": {"params": {"vocabSize": 4096, "maxTokens": 64}},
+            "algorithms": [{"name": "lr", "params": {
+                "embeddingDim": 64, "epochs": 30, "batchSize": 128,
+                "seed": seed}}]}, keep_pd=True)
+    finally:
+        teng._train_embedding_lr = trainer
+    if not losses or losses[-1] >= losses[0]:
+        raise AssertionError(f"the text trainer's loss did not fall: "
+                             f"{losses}")
+    from predictionio_tpu_torch.workflow import core_workflow
+    from predictionio_tpu_torch.data.storage import get_model_data_models
+
+    model = core_workflow.deserialize_models(
+        get_model_data_models().get(trained["id"]).models)[0]
+    held, held_labels = text_corpus(seed + 1, TEXT_HELD)
+    ids, mask = teng.encode_texts(held, model.vocab_size, model.max_tokens)
+    pred = np.asarray(model.labels)[model.predict_scores(ids, mask)
+                                     .argmax(axis=1)]
+    accuracy = float((pred == np.asarray(held_labels)).mean())
+    _, counts = np.unique(held_labels, return_counts=True)
+    majority = float(counts.max() / len(held_labels))
+    print(f"[templates] textclassification: {TEXT_DOCS:,} documents "
+          f"written in {write_s:.2f} s; loss by epoch {losses[0]!r} -> "
+          f"{losses[-1]!r} over {len(losses)} epochs; held-out accuracy "
+          f"{accuracy!r} on {TEXT_HELD:,} documents (majority class "
+          f"{majority!r})")
+    if accuracy <= majority:
+        raise AssertionError(f"held-out accuracy {accuracy} does not beat "
+                             f"the majority class {majority}")
+    # one epoch on the card and on the CPU from one init and permutations
+    pd = trained.pop("pd")
+    params = teng.TextLRParams(embedding_dim=64, epochs=1, batch_size=128,
+                               seed=seed)
+    n = len(pd.label_codes)
+    _, pad, _ = teng.lr_batch_layout(n, params.batch_size)
+    init = teng.lr_init(pd.vocab_size, len(pd.labels), params)
+    perms = teng.lr_permutations(n + pad, params)
+    runs = {}
+    for where in ("cuda", "cpu"):
+        t = time.perf_counter()
+        runs[where] = teng._train_embedding_lr(
+            pd.token_ids, pd.mask, pd.label_codes, len(pd.labels),
+            pd.vocab_size, params, device=where, init=init, perms=perms)
+        runs[where + "_s"] = time.perf_counter() - t
+    gaps = {name: float(np.abs(g - c).max() / np.abs(c).max())
+            for name, g, c in zip(("E", "W", "b"), runs["cuda"],
+                                  runs["cpu"])}
+    whole = float(max(np.abs(a - b).max() for a, b in zip(
+        runs["cuda"], runs["cpu"])))
+    print(f"[templates] one epoch of the text trainer, card "
+          f"({runs['cuda_s']:.2f} s) vs CPU ({runs['cpu_s']:.2f} s) from one "
+          f"init and one permutation: largest |difference| over each "
+          f"tensor's largest entry {gaps} (limit {OT_TEXT_TOL}); the run's "
+          f"largest |difference| {whole!r}")
+    if max(gaps.values()) > OT_TEXT_TOL:
+        raise AssertionError(f"the text trainer's epoch on the card differs "
+                             f"from the CPU's: {gaps}")
+    held_queries = [{"text": x} for x in held[:OT_QUERIES]]
+    return {"training": trained, "losses": [losses[0], losses[-1]],
+            "accuracy": accuracy, "majority": majority, "epoch_gap": gaps,
+            "epoch_gap_abs": whole, "queries": held_queries,
+            "write_s": write_s}
+
+
+def ot_small_fixtures(work: str, seed: int, app_id: int) -> dict:
+    """classification, regression, friendrecommendation and helloworld,
+    each on a small fixture: ``{template: (variant, factory, queries)}``."""
+    import datetime as dt
+    import os
+
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.data.event import Event
+
+    rng = np.random.default_rng(seed + 19)
+    when = dt.datetime(2003, 3, 1, tzinfo=dt.timezone.utc)
+    events = []
+    for u in range(300):
+        label = u % 3
+        feats = rng.integers(0, 5, 3) + 6 * (np.arange(3) == label)
+        events.append(Event(event="$set", entity_type="user",
+                            entity_id=f"p{u}", properties={
+                                "plan": float(label),
+                                **{f"attr{a}": float(feats[a])
+                                   for a in range(3)}}, event_time=when))
+    storage.get_levents().insert_batch(events, app_id)
+    X = rng.normal(size=(500, 4))
+    y = X @ np.asarray([1.5, -2.0, 0.5, 3.0]) + rng.normal(0, 0.01, 500)
+    lr_path = os.path.join(work, "lr_data.txt")
+    with open(lr_path, "w") as f:
+        f.write("\n".join(f"{yi!r} " + " ".join(repr(v) for v in row)
+                          for yi, row in zip(y.tolist(), X.tolist())))
+    days = ["Mon", "Tue", "Wed", "Thu", "Fri", "Sat", "Sun"]
+    hello = os.path.join(work, "data.csv")
+    with open(hello, "w") as f:
+        f.write("".join(f"{days[j % 7]},{60 + int(rng.integers(0, 30))}\n"
+                        for j in range(700)))
+    paths = {n: os.path.join(work, n) for n in ("item.txt", "user.txt",
+                                                "act.txt")}
+    with open(paths["item.txt"], "w") as f:
+        f.write("".join(f"{100 + i} c{i % 5} " + ";".join(
+            str(k) for k in rng.choice(50, 4, replace=False)) + "\n"
+            for i in range(200)))
+    with open(paths["user.txt"], "w") as f:
+        f.write("".join(f"{u} " + ";".join(
+            f"{k}:{rng.random():.3f}" for k in rng.choice(50, 5,
+                                                          replace=False))
+            + "\n" for u in range(300)))
+    with open(paths["act.txt"], "w") as f:
+        f.write("".join(f"{int(rng.integers(0, 300))} "
+                        f"{int(rng.integers(0, 300))} 1 2 3\n"
+                        for _ in range(1_000)))
+    return {
+        "classification": ({
+            "datasource": {"params": {"appName": OT_APP + "Text"}},
+            "algorithms": [{"name": "naive", "params": {"lambda": 1.0}}]},
+            OT_FACTORY.format("classification", "engine_factory"),
+            [{"features": [float(v) for v in rng.integers(0, 11, 3)]}
+             for _ in range(OT_QUERIES)]),
+        "regression": ({
+            "datasource": {"params": {"filepath": lr_path}},
+            "preparator": {"params": {"n": 5, "k": 1}}},
+            OT_FACTORY.format("regression", "engine_factory"),
+            [{"features": rng.normal(size=4).tolist()}
+             for _ in range(OT_QUERIES)]),
+        "friendrecommendation": ({
+            "datasource": {"params": {
+                "itemFilePath": paths["item.txt"],
+                "userKeywordFilePath": paths["user.txt"],
+                "userActionFilePath": paths["act.txt"]}}},
+            OT_FACTORY.format("friendrecommendation", "engine_factory"),
+            [{"user": int(rng.integers(0, 310)),
+              "item": int(rng.integers(100, 300))}
+             for _ in range(OT_QUERIES)]),
+        "helloworld": ({"datasource": {"params": {"dataPath": hello}}},
+                       OT_FACTORY.format("helloworld", "engine_factory"),
+                       [{"day": days[j % 7]} for j in range(OT_QUERIES)]),
+    }
+
+
+def ot_queries(store: dict, seed: int) -> dict:
+    """The ALS templates' 50 queries each: similarproduct's plain, category,
+    year-floor, white- and black-list item queries; DIMSUM's item and
+    category queries; ecommerce's user queries (5 of unknown users)."""
+    rng = np.random.default_rng(seed + 23)
+    genres = sorted({g for c in store["cats"].values() for g in c})
+
+    def items(n):
+        return [f"i{i}" for i in rng.choice(ML1M_ITEMS, n, replace=False)]
+
+    similar = []
+    for j in range(OT_QUERIES):
+        q = {"items": items(1 + j % 3), "num": 10}
+        kind = j % 5
+        if kind == 1:
+            q["categories"] = [str(rng.choice(genres))]
+        elif kind == 2:
+            q["recommendFromYear"] = int(rng.integers(1960, 1995))
+        elif kind == 3:
+            q["whiteList"] = items(200)
+        elif kind == 4:
+            q["blackList"] = items(20)
+        similar.append(q)
+    dimsum = [{"items": items(1 + j % 2), "num": 10,
+               **({"categories": [str(rng.choice(genres))]} if j % 2 else {})}
+              for j in range(OT_QUERIES)]
+    ecomm = [{"user": f"u{int(rng.integers(0, ML1M_USERS))}", "num": 10,
+              **({"categories": [str(rng.choice(genres))]} if j % 4 == 1
+                 else {})} for j in range(OT_QUERIES - 5)]
+    ecomm += [{"user": f"stranger{j}", "num": 10} for j in range(5)]
+    return {"similarproduct": similar, "similarproduct-dimsum": dimsum,
+            "ecommercerecommendation": ecomm}
+
+
+def unavailable_check(app_id: int, user: str, seed: int):
+    """After deploy: a new ``constraint/unavailableItems`` ``$set`` (the
+    user's current top 10 among its 50 items) must drop those items
+    from the user's next answer."""
+    def check(base: str, dep) -> dict:
+        import datetime as dt
+
+        from predictionio_tpu_torch.data import storage
+        from predictionio_tpu_torch.data.event import Event
+
+        q = {"user": user, "num": 10}
+        _, before, _ = post(base + "/queries.json", q)
+        top = [s["item"] for s in before["itemScores"]]
+        rng = np.random.default_rng(seed + 29)
+        gone = top + [f"i{i}" for i in rng.choice(
+            ML1M_ITEMS, OT_UNAVAILABLE - len(top), replace=False)]
+        storage.get_levents().insert(Event(
+            event="$set", entity_type="constraint",
+            entity_id="unavailableItems", properties={"items": gone},
+            event_time=dt.datetime.now(tz=dt.timezone.utc)), app_id)
+        _, after, _ = post(base + "/queries.json", q)
+        kept = {s["item"] for s in after["itemScores"]} & set(gone)
+        print(f"[templates] ecommercerecommendation: a new unavailableItems "
+              f"$set of {len(gone)} items (the top {len(top)} of {user}'s "
+              f"answer among them) posted after deploy: the next answer "
+              f"holds {len(after['itemScores'])} items, {len(kept)} of them "
+              f"unavailable")
+        if not top or kept or not after["itemScores"]:
+            raise AssertionError(f"unavailable items still served: {kept} "
+                                 f"(before {top})")
+        return {"unavailable_after_deploy": len(gone)}
+    return check
+
+
+def resolve_device_cuda():
+    from predictionio_tpu_torch.device import resolve_device
+
+    return resolve_device(None)
+
+
+class TemplatesChild:
+    """Phase 6e as ``chip_smoke.py --templates-child``, a process started
+    beside phases 6b-6d: its output goes to a file (a pipe could fill and
+    block it) and is printed, with the phase's own seconds, when
+    :meth:`result` has waited for it."""
+
+    def __init__(self, seed: int):
+        import tempfile
+
+        self.log = tempfile.NamedTemporaryFile(
+            "w+", prefix="pio-templates-", suffix=".log")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, __file__, "--templates-child", "--seed",
+             str(seed)], stdout=self.log, stderr=subprocess.STDOUT,
+            text=True)
+
+    def result(self) -> dict:
+        t = time.perf_counter()
+        code = self.proc.wait(timeout=900)
+        waited = time.perf_counter() - t
+        self.log.seek(0)
+        lines = self.log.read().splitlines()
+        for line in lines[:-1]:
+            print(line)
+        if code != 0 or not lines or not lines[-1].startswith(
+                '{"templates"'):
+            raise AssertionError(f"phase 6e's process exited {code}: "
+                                 + "\n".join(lines[-30:]))
+        out = json.loads(lines[-1])["templates"]
+        print(f"[templates] phase 6e took {out['phase_s']:.1f} s in a "
+              f"process of its own beside phases 6b-6d, which waited "
+              f"{waited:.1f} s more for it")
+        return out
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self.log.close()
+
+
+def other_templates(dev, seed: int, card: str) -> dict:
+    """Phase 6e: the other templates at ML-1M on the card (see the
+    module docstring)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.data.storage.base import App
+
+    work = tempfile.mkdtemp(prefix="pio-templates-")
+    storage.reset(storage.StorageConfig(
+        sources={"S": {"type": "sqlite",
+                       "path": os.path.join(work, "pio.db")}},
+        repositories={r: "S" for r in storage.REPOSITORIES}))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        app_id = storage.get_metadata_apps().insert(App(0, OT_APP))
+        text_app = storage.get_metadata_apps().insert(App(0, OT_APP + "Text"))
+        storage.get_levents().init(text_app)
+        shop = ot_store(seed, app_id)
+        print(f"[templates] store: {shop['views']:,} views "
+              f"({len(shop['rows']):,} ratings, 1% viewed twice), "
+              f"{shop['buys']:,} buys, {ML1M_USERS:,} user and "
+              f"{ML1M_ITEMS:,} item $set events, an unavailableItems $set of "
+              f"{OT_UNAVAILABLE} items, written in {shop['write_s']:.2f} s")
+        ds = {"appName": OT_APP}
+        trained, errs = {}, {}
+        with ALSCapture() as cap:
+            trained["similarproduct"] = ot_train(
+                "similarproduct", OT_FACTORY.format("similarproduct",
+                                                    "engine_factory"),
+                {"datasource": {"params": ds},
+                 "algorithms": [{"name": "als", "params": OT_ALS}]})
+            trained["ecommercerecommendation"] = ot_train(
+                "ecommercerecommendation", OT_FACTORY.format(
+                    "ecommercerecommendation", "engine_factory"),
+                {"datasource": {"params": ds},
+                 "algorithms": [{"name": "als", "params": {
+                     "appName": OT_APP, "unseenOnly": True, **OT_ALS}}]})
+        if len(cap.calls) != 2:
+            raise AssertionError(f"{len(cap.calls)} ALS trainings captured")
+        planned = 2 * OT_ALS["numIterations"]
+        for (name, res), call in zip(list(trained.items()), cap.calls):
+            for kernel, n in res["launches"].items():
+                if n != planned:
+                    raise AssertionError(
+                        f"{name}: {kernel} launched {n} times, the uniform "
+                        f"route plans {planned}")
+            errs[name] = plain_als_check(dev, call, name)
+        uniform = uniform_timings(dev, cap.calls[0])
+        trained["similarproduct-dimsum"] = ot_train(
+            "similarproduct-dimsum", OT_FACTORY.format(
+                "similarproduct", "engine_factory_dimsum"),
+            {"datasource": {"params": ds},
+             "algorithms": [{"name": "dimsum", "params": {"threshold": 0.0}}]})
+        from predictionio_tpu_torch.workflow import core_workflow
+
+        dimsum_model = core_workflow.deserialize_models(
+            storage.get_model_data_models().get(
+                trained["similarproduct-dimsum"]["id"]).models)[0]
+        dimsum_err = dimsum_oracle_check(dimsum_model, shop, seed)
+        del dimsum_model
+        text = ot_text(dev, seed, text_app)
+        trained["textclassification"] = text["training"]
+        small = ot_small_fixtures(work, seed, text_app)
+        for name, (variant, factory, _) in small.items():
+            trained[name] = ot_train(name, factory, variant)
+        queries = ot_queries(shop, seed)
+        queries["textclassification"] = text["queries"]
+        queries.update({k: v[2] for k, v in small.items()})
+        served = {}
+        for name, res in trained.items():
+            after = unavailable_check(app_id, queries[name][0]["user"], seed) \
+                if name == "ecommercerecommendation" else None
+            served[name] = ot_serve(name, res["id"], queries[name], after)
+        peak = torch.cuda.max_memory_allocated()
+        phase_s = time.perf_counter() - t0
+        print(f"[templates] device memory peak {peak / 2**20:.1f} MiB; phase "
+              f"6e took {phase_s:.1f} s ({card})")
+        return {"trainings": {k: {key: v[key] for key in (
+                    "read_s", "prepare_s", "train_s", "s", "launches")}
+                    for k, v in trained.items()},
+                "served": served, "als_vs_plain": errs,
+                "dimsum_err": dimsum_err, "uniform": uniform,
+                "text": {k: text[k] for k in (
+                    "losses", "accuracy", "majority", "epoch_gap",
+                    "epoch_gap_abs", "write_s")},
+                "write_s": shop["write_s"], "peak_bytes": peak,
+                "planned_launches": planned, "phase_s": phase_s}
+    finally:
         storage.reset()
         shutil.rmtree(work, ignore_errors=True)
 
@@ -8403,8 +9272,14 @@ def main() -> int:
         help="build, then only write phase 5's store and time phase 3e's "
              "read and prepare two ways (indexed block by block; label "
              "columns indexed by np.unique)")
+    parser.add_argument(
+        "--templates", action="store_true",
+        help="build, then only run phase 6e (the other templates at "
+             "ML-1M)")
     parser.add_argument("--serve-store", metavar="SQLITE_FILE",
                         help=argparse.SUPPRESS)  # phase 6's second process
+    parser.add_argument("--templates-child", action="store_true",
+                        help=argparse.SUPPRESS)  # phase 6e beside 6b-6d
     args = parser.parse_args()
 
     import torch
@@ -8414,6 +9289,12 @@ def main() -> int:
         return 2
     if args.serve_store:
         return serve_child(args.serve_store)
+    if args.templates_child:
+        # the kernels are built: the parent built them before starting it
+        out = other_templates(resolve_device_cuda(), args.seed,
+                              nvidia_smi())
+        print(json.dumps({"templates": out}, default=str))
+        return 0
     from predictionio_tpu_torch.device import resolve_device
 
     dev = resolve_device(None)
@@ -8446,6 +9327,12 @@ def main() -> int:
         finally:
             remove_store(store)
         print(json.dumps({"read_paths": out}))
+        print(nvidia_smi())
+        return 0
+    if args.templates:
+        out = phase("6e other templates", other_templates, dev, args.seed,
+                    card)
+        print(json.dumps({"templates": out}, default=str))
         print(nvidia_smi())
         return 0
     if args.networked:
@@ -8527,12 +9414,20 @@ def main() -> int:
     train_times = phase("4b training kernel times", training_timings, dev,
                         trained)
     cycle = phase("6 lifecycle", lifecycle, args.seed)
-    started = phase("6b quick start", quick_start, args.seed, cycle, card,
-                    True)
-    evaluated = phase("6c pio eval", console_eval, args.seed,
-                      started["kept"], card)
-    networked = phase("6d networked event store", networked_store,
-                      args.seed, card)
+    # phase 6e runs in a process of its own beside 6b-6d, which spend
+    # their time waiting on the console's processes
+    child = TemplatesChild(args.seed)
+    try:
+        started = phase("6b quick start", quick_start, args.seed, cycle,
+                        card, True)
+        evaluated = phase("6c pio eval", console_eval, args.seed,
+                          started["kept"], card)
+        networked = phase("6d networked event store", networked_store,
+                          args.seed, card)
+        templates = phase("6e other templates (the rest of its wait)",
+                          child.result)
+    finally:
+        child.stop()
     scored = phase("7 quality", quality, dev)
     seq_served = phase("3e seqrec: serve, fold-in", seqrec_serve, dev, seq,
                        store["ratings"], args.seed)
@@ -8647,6 +9542,17 @@ def main() -> int:
                            "shape": "k * B systems of every bucket of both "
                                     "sides (one grid iteration), k=9, "
                                     "R_max=64"})
+        # phase 6e: the similarproduct and ecommercerecommendation
+        # trainings' uniform route at R=10, timed at their tables' shapes
+        u = templates["uniform"]
+        routes.append({
+            "route": "uniform", "R": OT_ALS["rank"],
+            "launches": sum(templates["trainings"][t]["launches"][name]
+                            for t in OT_ALS_TEMPLATES),
+            **u["heads"][name],
+            "shape": "both sides of the similarproduct tables at ML-1M "
+                     "(one iteration), R=10",
+            "timings": u["rows"][name]})
         if name == "assemble_normal_equations":
             # B3's bf16 route: launches from phase 5c's bf16 training
             routes.append({
@@ -8675,7 +9581,11 @@ def main() -> int:
             "networked_launches": {
                 **{f"train_{label}": res["launches"][name]
                    for label, res in networked["train"].items()},
-                "folds": networked["fold_launches"][name]}})
+                "folds": networked["fold_launches"][name]},
+            # phase 6e: each ALS template's training at ML-1M
+            "templates_launches": {
+                t: templates["trainings"][t]["launches"][name]
+                for t in OT_ALS_TEMPLATES}})
     print(f"[done] {time.perf_counter() - t0:.1f} s; HTTP p50 "
           f"{served['p50_ms']!r} ms p99 {served['p99_ms']!r} ms "
           f"(observability on / off p50 "
@@ -8716,7 +9626,10 @@ def main() -> int:
           f"seqrec training {seq['tokens_per_s']!r} tokens/s, query p50 "
           f"{seq_served['p50_ms']!r} ms; two-stage query p50 "
           f"{two_served['p50_ms']!r} ms (stage 2 {two_served['stage2_us']!r}"
-          f" us beside B1 {two_served['b1_us']!r} us a dispatch); "
+          f" us beside B1 {two_served['b1_us']!r} us a dispatch); other "
+          f"templates: query p50 ms "
+          f"{json.dumps({k: v['p50_ms'] for k, v in templates['served'].items()})}"
+          f", text held-out accuracy {templates['text']['accuracy']!r}; "
           f"Precision@10 {scored['precision_at_10']!r} (bf16 "
           f"{scored['bf16_precision_at_10']!r}; "
           f"{scored['ratio_vs_plain']!r} of plain, lift "

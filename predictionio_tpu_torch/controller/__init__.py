@@ -8,11 +8,14 @@ from predictionio_tpu_torch.controller.algorithms import (
 )
 from predictionio_tpu_torch.controller.controllers import (
     IdentityPreparator,
+    LAverageServing,
     LDataSource,
     LFirstServing,
     LIdentityPreparator,
+    LPreparator,
     LServing,
     PDataSource,
+    PIdentityPreparator,
     PPreparator,
     TwoStageServing,
 )
@@ -20,6 +23,7 @@ from predictionio_tpu_torch.controller.engine import (
     Engine,
     EngineConfigError,
     EngineParams,
+    SimpleEngine,
     params_from_dict,
     params_to_dict,
     train_pipeline,
@@ -60,9 +64,11 @@ __all__ = [
     "FastEvalEngine",
     "IdentityPreparator",
     "LAlgorithm",
+    "LAverageServing",
     "LDataSource",
     "LFirstServing",
     "LIdentityPreparator",
+    "LPreparator",
     "LServing",
     "Metric",
     "MetricEvaluator",
@@ -72,11 +78,13 @@ __all__ = [
     "OptionStdevMetric",
     "P2LAlgorithm",
     "PDataSource",
+    "PIdentityPreparator",
     "PPreparator",
     "TwoStageServing",
     "Params",
     "PersistentModel",
     "QPAMetric",
+    "SimpleEngine",
     "StdevMetric",
     "SumMetric",
     "WorkflowParams",

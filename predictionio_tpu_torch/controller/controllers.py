@@ -1,14 +1,15 @@
 """Data-source, preparator and serving flavors: the port's copy of
-``PDataSource``, ``LDataSource``, ``PPreparator``,
-``IdentityPreparator`` (and its ``LIdentityPreparator`` alias),
-``LServing``, ``LFirstServing`` and ``TwoStageServing`` from
+``PDataSource``, ``LDataSource``, ``PPreparator``, ``LPreparator``,
+``IdentityPreparator`` (and its ``PIdentityPreparator`` and
+``LIdentityPreparator`` aliases), ``LServing``, ``LFirstServing``,
+``LAverageServing`` and ``TwoStageServing`` from
 ``predictionio_tpu/controller/controllers.py``."""
 
 from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 from predictionio_tpu_torch.core.base import (
     BaseDataSource,
@@ -63,6 +64,16 @@ class PPreparator(BasePreparator):
         return self.prepare(ctx, td)
 
 
+class LPreparator(BasePreparator):
+    """Local preparator: ``prepare(td)`` returns PD, no context."""
+
+    @abc.abstractmethod
+    def prepare(self, td: Any) -> Any: ...
+
+    def prepare_base(self, ctx, td):
+        return self.prepare(td)
+
+
 class IdentityPreparator(BasePreparator):
     """TD passes through unchanged."""
 
@@ -70,6 +81,7 @@ class IdentityPreparator(BasePreparator):
         return td
 
 
+PIdentityPreparator = IdentityPreparator
 LIdentityPreparator = IdentityPreparator
 
 
@@ -95,6 +107,14 @@ class LFirstServing(LServing):
 
     def serve(self, query: Any, predictions: Sequence[Any]) -> Any:
         return predictions[0]
+
+
+class LAverageServing(LServing):
+    """Averages numeric predictions."""
+
+    def serve(self, query: Any, predictions: Sequence[Any]) -> Any:
+        ps: List[float] = [float(p) for p in predictions]
+        return sum(ps) / len(ps)
 
 
 class TwoStageServing(LServing):

@@ -296,6 +296,20 @@ class Engine:
         return algos
 
 
+class SimpleEngine(Engine):
+    """One data source and one algorithm: the identity preparator and
+    first-serving."""
+
+    def __init__(self, data_source_class: type, algorithm_class: type):
+        from predictionio_tpu_torch.controller.controllers import (
+            IdentityPreparator,
+            LFirstServing,
+        )
+
+        super().__init__(data_source_class, IdentityPreparator,
+                         {"": algorithm_class}, LFirstServing)
+
+
 def _stage(variant: Mapping[str, Any], field: str,
            class_map: Mapping[str, type]) -> Tuple[str, Params]:
     """One stage's (name, params) from its variant section."""

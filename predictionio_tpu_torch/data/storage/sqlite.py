@@ -337,12 +337,16 @@ def _from_ts(x: float) -> _dt.datetime:
 def _row_to_event(row) -> Event:
     (event_id, event, entity_type, entity_id, tet, tei, props, etime, tags,
      pr_id, ctime) = row
+    # most rows carry no properties and no tags, and most were created at
+    # their event time: skip the parser and the second conversion there
+    when = _from_ts(etime)
     return Event(
         event=event, entity_type=entity_type, entity_id=entity_id,
         target_entity_type=tet, target_entity_id=tei,
-        properties=DataMap(json.loads(props)),
-        event_time=_from_ts(etime), tags=tuple(json.loads(tags)),
-        pr_id=pr_id, creation_time=_from_ts(ctime), event_id=event_id,
+        properties=DataMap({} if props == "{}" else json.loads(props)),
+        event_time=when, tags=() if tags == "[]" else tuple(json.loads(tags)),
+        pr_id=pr_id, creation_time=when if ctime == etime
+        else _from_ts(ctime), event_id=event_id,
     )
 
 

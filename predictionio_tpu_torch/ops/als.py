@@ -38,6 +38,9 @@ counterpart is easy to find):
 - **Online fold-in**: ``pad_fold_in_batch`` and ``fold_in_users``, the
   training half-step for a few users against fixed item factors (the
   solve of :mod:`~predictionio_tpu_torch.online.foldin`).
+- **Host scorers** (numpy, as in the JAX package): ``cosine_scores`` and
+  ``predict_scores_for_user``, with which the similarproduct and
+  ecommercerecommendation templates score their queries.
 
 Implicit objective (Hu-Koren-Volinsky, as in MLlib): confidence
 ``c = 1 + alpha * |r|``, preference ``p = 1`` iff ``r > 0``; per row
@@ -1304,3 +1307,25 @@ def fold_in_users(item_factors, cols_list: Sequence[np.ndarray],
     _tracing.record_completed_span("device.execute", start=t0, end=t1,
                                    attributes=attributes)
     return out
+
+
+# -- host scorers ----------------------------------------------------------------
+
+def cosine_scores(query_features: np.ndarray,
+                  item_factors: np.ndarray) -> np.ndarray:
+    """Summed cosine similarity of each item against every query feature
+    row, on the host: the similarproduct and ecommercerecommendation
+    templates' scoring."""
+    q = np.atleast_2d(query_features)
+    qn = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+    inorm = np.maximum(np.linalg.norm(item_factors, axis=1, keepdims=True),
+                       1e-12)
+    yn = item_factors / inorm
+    return (yn @ qn.T).sum(axis=1)
+
+
+def predict_scores_for_user(user_factor: np.ndarray,
+                            item_factors: np.ndarray) -> np.ndarray:
+    """Dot-product scores of every item for one user (MLlib
+    ``recommendProducts``), on the host."""
+    return item_factors @ user_factor

@@ -6,11 +6,9 @@ Templates here are importable packages rather than sbt projects, so
 ``get`` scaffolds an engine directory wired to a built-in template's
 factory instead of cloning.
 
-The port's copy of ``predictionio_tpu/tools/template_commands.py``. The
-port has three templates, ``recommendation``, ``sequentialrec`` and
-``twostage``, whose ``engine.json`` names the port's factory; ``list``
-shows the JAX package's other templates as not ported, and ``get``
-raises for them (ROADMAP A7).
+The port's copy of ``predictionio_tpu/tools/template_commands.py``: the
+same twelve templates in the same order, each ``engine.json`` variant
+the JAX package's except that its factory names the port's module.
 """
 
 from __future__ import annotations
@@ -22,10 +20,6 @@ from typing import Dict
 
 PORT_FACTORY = ("predictionio_tpu_torch.templates.recommendation.engine"
                 ":engine_factory")
-
-SEQREC_FACTORY = ("predictionio_tpu_torch.templates.sequentialrec"
-                  ":engine_factory")
-TWOSTAGE_FACTORY = "predictionio_tpu_torch.templates.twostage:engine_factory"
 
 BUILTIN_TEMPLATES: Dict[str, Dict] = {
     "recommendation": {
@@ -44,15 +38,150 @@ BUILTIN_TEMPLATES: Dict[str, Dict] = {
             }],
         },
     },
+    "classification": {
+        "description": "Naive Bayes classification from $set properties "
+                       "(scala-parallel-classification parity)",
+        "engineFactory":
+            "predictionio_tpu_torch.templates.classification:engine_factory",
+        "variant": {
+            "id": "default",
+            "version": "default",
+            "engineFactory":
+                "predictionio_tpu_torch.templates.classification:engine_factory",
+            "datasource": {"params": {"appName": "INVALID_APP_NAME"}},
+            "algorithms": [{"name": "naive", "params": {"lambda": 1.0}}],
+        },
+    },
+    "similarproduct": {
+        "description": "Item-to-item similarity on view events "
+                       "(scala-parallel-similarproduct parity)",
+        "engineFactory":
+            "predictionio_tpu_torch.templates.similarproduct:engine_factory",
+        "variant": {
+            "id": "default",
+            "version": "default",
+            "engineFactory":
+                "predictionio_tpu_torch.templates.similarproduct:engine_factory",
+            "datasource": {"params": {"appName": "INVALID_APP_NAME"}},
+            "algorithms": [{
+                "name": "als",
+                "params": {"rank": 10, "numIterations": 20, "seed": 3},
+            }],
+        },
+    },
+    "similarproduct-recommended-user": {
+        "description": "Who-to-follow via ALS on follow events "
+                       "(similarproduct recommended-user variant parity)",
+        "engineFactory":
+            "predictionio_tpu_torch.templates.similarproduct"
+            ":engine_factory_recommended_user",
+        "variant": {
+            "id": "default",
+            "version": "default",
+            "engineFactory":
+                "predictionio_tpu_torch.templates.similarproduct"
+                ":engine_factory_recommended_user",
+            "datasource": {"params": {"appName": "INVALID_APP_NAME"}},
+            "algorithms": [{
+                "name": "als",
+                "params": {"rank": 10, "numIterations": 20, "seed": 3},
+            }],
+        },
+    },
+    "helloworld": {
+        "description": "L-flavor day->average-temperature engine "
+                       "(experimental/scala-local-helloworld parity)",
+        "engineFactory":
+            "predictionio_tpu_torch.templates.helloworld:engine_factory",
+        "variant": {
+            "id": "default",
+            "version": "default",
+            "engineFactory":
+                "predictionio_tpu_torch.templates.helloworld:engine_factory",
+            "datasource": {"params": {"dataPath": "data.csv"}},
+        },
+    },
+    "friendrecommendation": {
+        "description": "Keyword-similarity friend/item acceptance on KDD "
+                       "Cup 2012 data (experimental "
+                       "scala-local-friend-recommendation parity)",
+        "engineFactory":
+            "predictionio_tpu_torch.templates.friendrecommendation"
+            ":engine_factory",
+        "variant": {
+            "id": "default",
+            "version": "default",
+            "engineFactory":
+                "predictionio_tpu_torch.templates.friendrecommendation"
+                ":engine_factory",
+            "datasource": {"params": {
+                "itemFilePath": "data/item.txt",
+                "userKeywordFilePath": "data/user_key_word.txt",
+                "userActionFilePath": "data/user_action.txt"}},
+        },
+    },
+    "similarproduct-dimsum": {
+        "description": "Item-item cosine from the raw interaction matrix "
+                       "(experimental similarproduct-dimsum parity)",
+        "engineFactory":
+            "predictionio_tpu_torch.templates.similarproduct"
+            ":engine_factory_dimsum",
+        "variant": {
+            "id": "default",
+            "version": "default",
+            "engineFactory":
+                "predictionio_tpu_torch.templates.similarproduct"
+                ":engine_factory_dimsum",
+            "datasource": {"params": {"appName": "INVALID_APP_NAME"}},
+            "algorithms": [{"name": "dimsum",
+                            "params": {"threshold": 0.1}}],
+        },
+    },
+    "regression": {
+        "description": "L-flavor OLS linear regression from a data file "
+                       "(experimental/scala-local-regression parity)",
+        "engineFactory":
+            "predictionio_tpu_torch.templates.regression:engine_factory",
+        "variant": {
+            "id": "default",
+            "version": "default",
+            "engineFactory":
+                "predictionio_tpu_torch.templates.regression:engine_factory",
+            "datasource": {"params": {"filepath": "lr_data.txt"}},
+            "preparator": {"params": {"n": 0, "k": 0}},
+        },
+    },
+    "ecommercerecommendation": {
+        "description": "ALS + business-rule filters at predict time "
+                       "(scala-parallel-ecommercerecommendation parity)",
+        "engineFactory":
+            "predictionio_tpu_torch.templates.ecommercerecommendation"
+            ":engine_factory",
+        "variant": {
+            "id": "default",
+            "version": "default",
+            "engineFactory":
+                "predictionio_tpu_torch.templates.ecommercerecommendation"
+                ":engine_factory",
+            "datasource": {"params": {"appName": "INVALID_APP_NAME"}},
+            "algorithms": [{
+                "name": "als",
+                "params": {"rank": 10, "numIterations": 20, "seed": 3},
+            }],
+        },
+    },
     "sequentialrec": {
         "description": "SASRec-style next-item prediction over per-user "
                        "event sequences (causal transformer, served "
                        "through the device top-k store)",
-        "engineFactory": SEQREC_FACTORY,
+        "engineFactory":
+            "predictionio_tpu_torch.templates.sequentialrec:engine_factory",
         "variant": {
             "id": "default",
             "version": "default",
-            "engineFactory": SEQREC_FACTORY,
+            "engineFactory":
+                "predictionio_tpu_torch.templates.sequentialrec"
+                ":engine_factory",
             "datasource": {"params": {"appName": "INVALID_APP_NAME"}},
             "preparator": {"params": {"maxSeqLen": 32}},
             "algorithms": [{
@@ -66,11 +195,13 @@ BUILTIN_TEMPLATES: Dict[str, Dict] = {
         "description": "Two-stage serving: ALS retrieves N candidates, the "
                        "seqrec encoder re-ranks them, one device dispatch "
                        "per query batch",
-        "engineFactory": TWOSTAGE_FACTORY,
+        "engineFactory":
+            "predictionio_tpu_torch.templates.twostage:engine_factory",
         "variant": {
             "id": "default",
             "version": "default",
-            "engineFactory": TWOSTAGE_FACTORY,
+            "engineFactory":
+                "predictionio_tpu_torch.templates.twostage:engine_factory",
             "datasource": {"params": {"appName": "INVALID_APP_NAME"}},
             "preparator": {"params": {"maxSeqLen": 32}},
             "algorithms": [{
@@ -83,13 +214,28 @@ BUILTIN_TEMPLATES: Dict[str, Dict] = {
             }],
         },
     },
+    "textclassification": {
+        "description": "Text -> label: hashed embedding table + LR "
+                       "trained on the device, NB over token counts",
+        "engineFactory":
+            "predictionio_tpu_torch.templates.textclassification"
+            ":engine_factory",
+        "variant": {
+            "id": "default",
+            "version": "default",
+            "engineFactory":
+                "predictionio_tpu_torch.templates.textclassification"
+                ":engine_factory",
+            "datasource": {"params": {"appName": "INVALID_APP_NAME"}},
+            "preparator": {"params": {"vocabSize": 4096,
+                                      "maxTokens": 64}},
+            "algorithms": [{
+                "name": "lr",
+                "params": {"embeddingDim": 64, "epochs": 30, "seed": 0},
+            }],
+        },
+    },
 }
-
-# the JAX package's other built-in templates, in its listing order
-UNPORTED_TEMPLATES = (
-    "classification", "similarproduct", "similarproduct-recommended-user",
-    "helloworld", "friendrecommendation", "similarproduct-dimsum",
-    "regression", "ecommercerecommendation", "textclassification")
 
 
 def dispatch(args) -> int:
@@ -106,16 +252,10 @@ def template_list() -> int:
     print(f"[INFO] {'Template':<26} | Description")
     for name, t in BUILTIN_TEMPLATES.items():
         print(f"[INFO] {name:<26} | {t['description']}")
-    for name in UNPORTED_TEMPLATES:
-        print(f"[INFO] {name:<26} | not ported yet (ROADMAP A7)")
     return 0
 
 
 def template_get(name: str, directory: str) -> int:
-    if name in UNPORTED_TEMPLATES:
-        raise NotImplementedError(
-            f"the {name} template is not ported yet (ROADMAP A7, the other "
-            f"templates); the port has: {', '.join(BUILTIN_TEMPLATES)}")
     t = BUILTIN_TEMPLATES.get(name)
     if t is None:
         print(f"[ERROR] Template {name} not found. Try 'pio template list'.",

@@ -304,7 +304,11 @@ def build_deployment(instance: EngineInstance,
         ctx, engine_params, instance.id,
         core_workflow.deserialize_models(blob.models))
     for model in models:
-        if hasattr(model, "device"):
+        # a served model names its device in a dataclass field; other
+        # models (a numpy coefficient vector has a read-only ``device``)
+        # keep theirs
+        if dataclasses.is_dataclass(model) and "device" in {
+                f.name for f in dataclasses.fields(model)}:
             model.device = str(dev)
     return deployment_from_models(engine, engine_params, models,
                                   instance=instance, ctx=ctx)

@@ -1,7 +1,6 @@
 """``pio batchpredict`` on the port against the JAX package, on the CPU,
-for the recommendation template (the similarproduct and classification
-cases of ``tests/test_batchpredict.py`` wait for those templates,
-ROADMAP A7, the other templates).
+for the recommendation template, and the similarproduct and
+classification cases of ``tests/test_batchpredict.py``.
 
 - The chunk plan, ``shard_spans``, ``input_fingerprint`` and
   ``ordered_batch_results`` equal the JAX package's on the same inputs.
@@ -12,6 +11,11 @@ ROADMAP A7, the other templates).
   within 1e-5 relative (fp32 stores; the two trainers sum in other
   orders, about 4e-6 apart at these sizes). Each package's
   ``read_results`` reads the other's output directory.
+- similarproduct (ALS from one injected init) and classification (naive
+  Bayes, bitwise on the host) on the JAX test's events: the query lines
+  byte-equal, the ids and labels equal, the scores within 1e-5 of their
+  scale (the summed cosine's range); the port's shards bytewise its looped
+  ``serve_one``.
 - Inside the port, bytes: its shards equal its looped ``serve_one``
   records byte for byte, a resumed run's shards a clean run's.
 - Crash-resume without re-scoring, a torn shard re-scored, a mismatched
@@ -450,3 +454,141 @@ def test_smoke_entry_point(tmp_path, capsys, monkeypatch):
 def test_batchpredict_defaults_to_cuda_and_raises_without_it(argv):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tcli.main(argv)
+
+
+# -- similarproduct and classification ---------------------------------------
+
+def template_events(pkg, template):
+    """``tests/test_batchpredict.py``'s fixture events for ``template``,
+    as ``pkg``'s events."""
+    Event = importlib.import_module(f"{pkg}.data.event").Event
+
+    def ev(event, etype, eid, tet=None, tei=None, props=None):
+        return Event(event=event, entity_type=etype, entity_id=eid,
+                     target_entity_type=tet, target_entity_id=tei,
+                     properties=props or {}, event_time=T0)
+
+    if template == "classification":
+        rng = np.random.default_rng(2)
+        events = []
+        for u in range(30):
+            label = float(u % 3)
+            feats = (rng.integers(0, 5, size=3)
+                     + np.array([3, 0, 0]) * (label == 0)
+                     + np.array([0, 3, 0]) * (label == 1))
+            events.append(ev("$set", "user", f"u{u}", props={
+                "plan": label, "attr0": float(feats[0]),
+                "attr1": float(feats[1]), "attr2": float(feats[2])}))
+        return events
+    rng = np.random.default_rng(1)
+    events = [ev("$set", "user", f"u{u}") for u in range(12)]
+    events += [ev("$set", "item", f"i{i}", props={
+        "categories": ["c1" if i < 5 else "c2"]}) for i in range(10)]
+    for u in range(12):
+        base = 0 if u < 6 else 5
+        events += [ev("view", "user", f"u{u}", "item",
+                      f"i{base + rng.integers(0, 5)}") for _ in range(6)]
+    return events
+
+
+TEMPLATE_CASES = {
+    "similarproduct": (
+        {"algorithms": [{"name": "als", "params": {
+            "rank": 6, "numIterations": 3, "seed": 0}}]},
+        [{"items": [f"i{i}"], "num": 3} for i in range(10)]
+        + [{"items": ["i0", "i1"], "num": 2, "categories": ["c1"]}]),
+    "classification": (
+        {"algorithms": [{"name": "naive", "params": {}}]},
+        [{"features": [float(a), float(b), 1.0]}
+         for a in range(4) for b in range(3)]),
+}
+
+
+def train_template(st, pkg, template, app):
+    base = importlib.import_module(f"{pkg}.data.storage.base")
+    aid = st.get_metadata_apps().insert(base.App(0, app))
+    st.get_levents().init(aid)
+    st.get_levents().insert_batch(template_events(pkg, template), aid)
+    factory = f"{pkg}.templates.{template}:engine_factory"
+    cw = importlib.import_module(f"{pkg}.workflow.create_workflow")
+    variant = {"datasource": {"params": {"appName": app}},
+               **TEMPLATE_CASES[template][0]}
+    engine = importlib.import_module(
+        f"{pkg}.workflow.core_workflow").load_engine_factory(factory)()
+    params = engine.engine_params_from_variant(variant)
+    instance = cw.new_engine_instance(
+        cw.WorkflowConfig(engine_factory=factory), params)
+    if pkg == PKGS[0]:
+        from predictionio_tpu.controller import ComputeContext as JCtx
+        from predictionio_tpu.workflow import run_train
+        iid = run_train(engine, params, instance, ctx=JCtx())
+    else:
+        from predictionio_tpu_torch.workflow.core_workflow import run_train
+        iid = run_train(engine, params, instance, ctx=CPU)
+    assert iid is not None
+    return iid
+
+
+def assert_predictions_agree(mine, want):
+    """Query lines equal; ids, labels and every other field equal;
+    scores within 1e-5 of their scale: the answer's largest score, or
+    the summed cosine's range (one per query item) when larger."""
+    assert len(mine) == len(want)
+    for m, w in zip(mine, want):
+        assert m["query"] == w["query"]
+        mp, wp = m["prediction"], w["prediction"]
+        if "itemScores" not in wp:
+            assert mp == wp, m["query"]
+            continue
+        assert [s["item"] for s in mp["itemScores"]] == \
+            [s["item"] for s in wp["itemScores"]], m["query"]
+        ws = np.asarray([s["score"] for s in wp["itemScores"]])
+        # a summed cosine ranges over one unit per query item
+        scale = max([np.abs(ws).max()] if len(ws) else [0.0])
+        scale = max(scale, len(m["query"].get("items", ())))
+        np.testing.assert_allclose(
+            [s["score"] for s in mp["itemScores"]], ws, rtol=0,
+            atol=SCORE_RTOL * scale)
+
+
+@pytest.mark.parametrize("template", sorted(TEMPLATE_CASES))
+def test_template_batches_agree_with_jax(template, tmp_path, monkeypatch):
+    monkeypatch.setattr(tals, "init_factors", jax_init)
+    configure(jstorage, "memory", tmp_path / "jax.db")
+    configure(tstorage, "memory", tmp_path / "port.db")
+    try:
+        jid = train_template(jstorage, PKGS[0], template, "bpt")
+        tid = train_template(tstorage, PKGS[1], template, "bpt")
+        queries = TEMPLATE_CASES[template][1]
+        qfile = write_queries(tmp_path, queries, f"{template}.jsonl")
+        jout, tout = str(tmp_path / "jax"), str(tmp_path / "port")
+        jbp.run_batch_predict(jbp.BatchPredictConfig(
+            output_dir=jout, engine_instance_id=jid, input_path=qfile,
+            chunk_size=4))
+        config = port_config(tid, tmp_path, "port", input_path=qfile,
+                             chunk_size=4)
+        summary = run_port(config)
+        assert summary["queries"] == len(queries)
+        # the query lines byte-equal
+        tm = json.load(open(os.path.join(tout, tbp.MANIFEST_NAME)))
+        for c in tm["chunks"]:
+            with open(os.path.join(tout, c["file"]), "rb") as f:
+                tq = [ln.split(b',"query":', 1)[1]
+                      for ln in f.read().splitlines()]
+            with open(os.path.join(jout, c["file"]), "rb") as f:
+                jq = [ln.split(b',"query":', 1)[1]
+                      for ln in f.read().splitlines()]
+            assert tq == jq
+        assert_predictions_agree(tbp.read_results(tout),
+                                 jbp.read_results(jout))
+        # inside the port: the shards are its looped serve_one, bytewise
+        bp = tbp.BatchPredictor(dataclasses.replace(
+            config, output_dir=str(tmp_path / "probe")), ctx=CPU)
+        lines = tbp._canonical_query_lines(queries)
+        expected = b"".join((rec + "\n").encode("utf-8")
+                            for rec in tbp.BatchPredictor._render_records(
+                                lines, [bp.serve_one(q) for q in queries]))
+        assert shard_bytes(tout) == expected
+    finally:
+        jstorage.reset()
+        tstorage.reset()

@@ -12,6 +12,11 @@
   --device cpu`` (a second process) -> ``undeploy`` answers what the
   port's library path answers for the same instance; afterwards the port
   answers nothing.
+- ``template list`` names the JAX listing's twelve templates, and
+  ``template get`` writes the JAX package's ``engine.json`` for each,
+  its factory the port's module; ``similarproduct`` goes ``get`` ->
+  ``build`` -> ``train --device cpu`` -> ``deploy`` (a second process)
+  -> a query -> ``undeploy``.
 - ``train`` and ``deploy`` without ``--device`` raise where CUDA is
   absent, and each verb or option whose module is not ported raises and
   names its ROADMAP item.
@@ -365,7 +370,6 @@ def test_operator_verbs_parse_as_the_jax_verbs(argv, handler):
 
 
 UNPORTED = [
-    (["template", "get", "classification", "d"], "A7"),
     (["train", "--device", "cpu", "--num-hosts", "2"], "A6"),
     (["train", "--device", "cpu", "--coordinator", "h:1"], "A6"),
 ]
@@ -388,8 +392,104 @@ def test_version_status_and_template_list(both_stores, capsys):
     assert "all ready to go" in capsys.readouterr().out
     assert tcli.main(["template", "list"]) == 0
     listing = capsys.readouterr().out
-    assert "recommendation" in listing and "not ported yet" in listing
+    assert jcli.main(["template", "list"]) == 0
+    jax_listing = capsys.readouterr().out
+    names = [ln.split("|")[0].split()[-1] for ln in
+             listing.splitlines()[1:]]
+    assert names == [ln.split("|")[0].split()[-1] for ln in
+                     jax_listing.splitlines()[1:]]
+    assert len(names) == 12 and "not ported" not in listing
     assert tcli.main([]) == 2
+
+
+TEMPLATE_NAMES = ["recommendation", "classification", "similarproduct",
+                  "similarproduct-recommended-user", "helloworld",
+                  "friendrecommendation", "similarproduct-dimsum",
+                  "regression", "ecommercerecommendation", "sequentialrec",
+                  "twostage", "textclassification"]
+
+
+@pytest.mark.parametrize("name", TEMPLATE_NAMES)
+def test_template_get_writes_the_jax_variant_with_the_port_factory(
+        name, tmp_path, capsys):
+    jdir, tdir = tmp_path / "jax", tmp_path / "port"
+    assert jcli.main(["template", "get", name, str(jdir)]) == 0
+    assert tcli.main(["template", "get", name, str(tdir)]) == 0
+    want = json.loads((jdir / "engine.json").read_text())
+    got = json.loads((tdir / "engine.json").read_text())
+    factory = got.pop("engineFactory")
+    module, attr = factory.split(":")
+    jmodule, jattr = want.pop("engineFactory").split(":")
+    assert attr == jattr
+    assert module.replace("predictionio_tpu_torch.", "predictionio_tpu.",
+                          1).replace(".engine", "") == jmodule
+    assert got == want
+    assert (tdir / "template.json").read_text() == \
+        (jdir / "template.json").read_text()
+    import importlib
+
+    assert callable(getattr(importlib.import_module(module), attr))
+    capsys.readouterr()
+
+
+def test_similarproduct_get_build_train_deploy_query_undeploy(both_stores,
+                                                              capsys):
+    from predictionio_tpu_torch.data.storage.base import App
+
+    tmp = both_stores
+    aid = tstorage.get_metadata_apps().insert(App(0, "SimApp"))
+    rng = np.random.default_rng(1)
+    when = dt.datetime(2023, 5, 1, tzinfo=UTC)
+    events = [TEvent(event="$set", entity_type="user", entity_id=f"u{u}",
+                     event_time=when) for u in range(12)]
+    events += [TEvent(event="$set", entity_type="item", entity_id=f"i{i}",
+                      properties={"categories": ["c1" if i < 4 else "c2"]},
+                      event_time=when) for i in range(8)]
+    events += [TEvent(event="view", entity_type="user", entity_id=f"u{u}",
+                      target_entity_type="item",
+                      target_entity_id=f"i{rng.integers(*((0, 4) if u < 6
+                                                          else (4, 8)))}",
+                      event_time=when)
+               for u in range(12) for _ in range(6)]
+    tstorage.get_levents().init(aid)
+    tstorage.get_levents().insert_batch(events, aid)
+    eng = tmp / "sim"
+    assert tcli.main(["template", "get", "similarproduct", str(eng)]) == 0
+    path = eng / "engine.json"
+    variant = json.loads(path.read_text())
+    variant["datasource"]["params"]["appName"] = "SimApp"
+    variant["algorithms"][0]["params"].update(rank=4, numIterations=5)
+    path.write_text(json.dumps(variant))
+    assert tcli.main(["build", "--engine-variant", str(path)]) == 0
+    assert tcli.main(["train", "--device", "cpu", "--engine-variant",
+                      str(path)]) == 0
+    iid = re.search(r"Engine instance ID: (\S+)",
+                    capsys.readouterr().out).group(1)
+    inst = tserver.resolve_engine_instance(None, "default", "default",
+                                           str(path))
+    assert inst.id == iid
+    dep = tserver.build_deployment(inst, CPU)
+    query = {"items": ["i0"], "num": 3}
+    want = tserver.to_jsonable(tserver.serve_query(
+        dep, tserver.query_from_json(query, dep.algorithms[0].query_class)))
+    assert want["itemScores"]
+    child = subprocess.Popen(
+        [sys.executable, "-m", "predictionio_tpu_torch.tools.console",
+         "deploy", "--device", "cpu", "--ip", "127.0.0.1", "--port", "0",
+         "--engine-variant", str(path)],
+        env=_env(tmp / "port.db"), stdout=subprocess.PIPE, text=True)
+    try:
+        port = int(re.search(r"live at http://127\.0\.0\.1:(\d+)",
+                             child.stdout.readline()).group(1))
+        assert _post(f"http://127.0.0.1:{port}/queries.json", query) == \
+            (200, want)
+        assert tcli.main(["undeploy", "--ip", "127.0.0.1", "--port",
+                          str(port)]) == 0
+        assert child.wait(timeout=60) == 0
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=30)
 
 
 # -- the same events, two ways in --------------------------------------------

@@ -8,8 +8,10 @@ import, train and serve in a process where both are unimportable (and a
 2-replica query fleet answers a query), as does the console's quick start (``pio app
 new``, ``import``, the event server, ``template get``, ``train``,
 ``export``) and the tuning grid (``pio eval --grid``), training and
-fold-in over a ``resthttp`` and a ``fleet`` event store, and the
-``sequentialrec`` and ``twostage`` templates.
+fold-in over a ``resthttp`` and a ``fleet`` event store, the
+``sequentialrec`` and ``twostage`` templates, and the other templates
+(similarproduct with DIMSUM, ecommercerecommendation, textclassification,
+classification with ``e2``).
 ``chip_smoke.py`` refuses to run without a GPU."""
 
 import ast
@@ -509,6 +511,100 @@ def test_sequence_templates_run_with_jax_unimportable():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "sequence templates ran" in proc.stdout
+
+
+TEMPLATES_RUN = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["predictionio_tpu"] = None
+import datetime as dt, json, urllib.request
+import numpy as np
+from predictionio_tpu_torch.core.context import ComputeContext
+from predictionio_tpu_torch.data import storage
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.data.storage.base import App
+from predictionio_tpu_torch.workflow.create_server import (
+    QueryServer, ServerConfig, build_deployment, query_from_json,
+    resolve_engine_instance, serve_query, to_jsonable)
+from predictionio_tpu_torch.workflow.create_workflow import (
+    WorkflowConfig, create_workflow)
+
+cpu = ComputeContext(device="cpu")
+rng = np.random.default_rng(0)
+storage.reset(storage.StorageConfig(
+    {"M": {"type": "memory"}}, {r: "M" for r in storage.REPOSITORIES}))
+aid = storage.get_metadata_apps().insert(App(0, "app"))
+t0 = dt.datetime(2024, 1, 1, tzinfo=dt.timezone.utc)
+ev = [Event(event="$set", entity_type="user", entity_id=f"u{u}",
+            properties={"plan": float(u % 2), "attr0": float(u % 2) * 9,
+                        "attr1": 1.0, "attr2": float(1 - u % 2) * 9},
+            event_time=t0) for u in range(12)]
+ev += [Event(event="$set", entity_type="item", entity_id=f"i{i}",
+             properties={"categories": [f"c{i % 2}"]}, event_time=t0)
+       for i in range(10)]
+ev += [Event(event="view" if j % 4 else "buy", entity_type="user",
+             entity_id=f"u{u}", target_entity_type="item",
+             target_entity_id=f"i{int(rng.integers(0, 10))}",
+             event_time=t0 + dt.timedelta(minutes=j))
+       for u in range(12) for j in range(6)]
+ev += [Event(event="$set", entity_type="doc", entity_id=f"d{d}",
+             properties={"text": f"{lb}1 {lb}2 w{d % 3}", "label": lb},
+             event_time=t0) for d, lb in enumerate(["aa", "bb"] * 10)]
+storage.get_levents().insert_batch(ev, aid)
+als = {"rank": 3, "numIterations": 2, "seed": 0}
+cases = [
+    ("similarproduct", {"algorithms": [{"name": "als", "params": als}]},
+     {"items": ["i1"], "num": 3}, "itemScores"),
+    ("similarproduct:engine_factory_dimsum",
+     {"algorithms": [{"name": "dimsum", "params": {}}]},
+     {"items": ["i1"], "num": 3}, "itemScores"),
+    ("ecommercerecommendation", {"algorithms": [{"name": "als", "params": {
+        "appName": "app", **als}}]}, {"user": "u1", "num": 3}, "itemScores"),
+    ("textclassification", {
+        "preparator": {"params": {"vocabSize": 64, "maxTokens": 8}},
+        "algorithms": [{"name": "lr", "params": {"embeddingDim": 4,
+                                                 "epochs": 2}}]},
+     {"text": "aa1 aa2"}, "label"),
+    ("classification", {"algorithms": [{"name": "categorical",
+                                        "params": {}}]},
+     {"features": [9.0, 1.0, 0.0]}, "label")]
+for name, variant, query, key in cases:
+    factory = "predictionio_tpu_torch.templates." + (
+        name if ":" in name else name + ":engine_factory")
+    iid = create_workflow(WorkflowConfig(engine_factory=factory), {
+        "engineFactory": factory,
+        "datasource": {"params": {"appName": "app"}}, **variant}, ctx=cpu)
+    dep = build_deployment(resolve_engine_instance(iid), cpu)
+    want = to_jsonable(serve_query(dep, query_from_json(
+        query, dep.algorithms[0].query_class)))
+    assert want[key] not in ([], None), (name, want)
+    srv = QueryServer(ServerConfig(ip="127.0.0.1", port=0), dep).start()
+    try:
+        req = urllib.request.Request(
+            "http://%s:%d/queries.json" % srv.address,
+            data=json.dumps(query).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            assert json.loads(resp.read()) == want, name
+    finally:
+        srv.stop()
+assert not any(m == "jax" or m.startswith(("jax.", "predictionio_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("other templates ran")
+"""
+
+
+def test_other_templates_run_with_jax_unimportable():
+    """similarproduct (ALS and DIMSUM), ecommercerecommendation,
+    textclassification and classification (``e2``'s categorical NB)
+    train through ``create_workflow`` on the CPU, deploy and answer in
+    process and over HTTP, where ``jax`` and ``predictionio_tpu`` cannot
+    be imported."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", TEMPLATES_RUN], env=env,
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "other templates ran" in proc.stdout
 
 
 @pytest.mark.parametrize("alone", [False, True])
