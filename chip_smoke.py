@@ -7,6 +7,8 @@
     python3 chip_smoke.py --query-fleet     # phases 1, 5 and 3d only
     python3 chip_smoke.py --seqrec          # 1, 5's store, 3e, 3f, 7's half
     python3 chip_smoke.py --templates       # phases 1 and 6e only
+    python3 chip_smoke.py --sharded         # phases 1, 8a, 5 and 8b only
+    python3 chip_smoke.py --crossover       # phases 1 and 8a only
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -431,6 +433,38 @@ Phases (any failure raises and the script exits non-zero):
    step's loss and gradients, the loss traces and the users' encodes,
    each limit checked against the CPU's fp32 run beside an fp64 replay
    (inside) and a bf16-rounded control (outside).
+8a. The host/device crossover (after 4b): ``HostTopK.user_topk`` and
+   ``DeviceTopK.user_topk`` (an fp32 store, micro-batched with its
+   window) on synthetic rank-64 factors at 3,706 (ML-1M), 4,096, 8,192,
+   16,384, 26,744 (ML-20M width), 32,768, 65,536 and 262,144 items:
+   100 sequential queries (p50 / p99) and 320 from 8 threads (q/s) on
+   each lane, twice with the lanes in turns (the readings are the two
+   rounds' means), every sequential answer equal between the lanes (ids, and
+   scores within 1e-5 relative). It prints the table and the largest
+   power of two of item-factor elements up to which the host lane was
+   no slower in both readings, beside ``HOST_SERVE_MAX_ELEMS``; it does
+   not fail on timing. At 3,706 and 16,384 items it also times the
+   batch lane, one ``users_topk`` of 6,040 uids on each lane (answers
+   equal). Every serving phase forces
+   ``PIO_SERVING_BACKEND=device`` (set once at the start, inherited by
+   the children), so the ``auto`` rule never moves them off B1.
+8b. Sharded serving: phase 5's model in a 4-shard density-aware layout
+   on ``[cuda:0] * 4`` (bf16; each logical shard is the card and
+   launches B1 on its own 6,688-position block). Phase 3's 43 sequential
+   queries and 256 user queries from 8 threads through the template's
+   predict must agree with the plain sharded lane on the CPU (the same
+   store on ``["cpu"] * 4``) and, as score sets, with the unsharded
+   store; B1 must launch 4 times a dispatch. 8 new users are folded (B3
+   and B2 on each store's item view: equal rows) and patched into both
+   stores, the sharded one growing by a reshard; their answers agree as
+   score sets. A one-rank NCCL process group joins, all-reduces and
+   leaves. B1's sharded route is timed at k = 16, B = 1 and 256: one
+   shard's launch, a dispatch with the merge (event-timed, and the
+   card's busy and B1 time under the profiler), plain, the library's
+   (each shard's seen hits, its block widened to fp32, the masked
+   product and ``torch.topk``, then ``torch.topk`` of the joined lists,
+   all inside the timed call) and the bound. ``--sharded`` runs phases 1, 8a,
+   5 and 8b alone, ``--crossover`` phases 1 and 8a.
 
 It prints a ``{"kernels": [...]}`` line (the training kernels' ``routes``
 hold the main path's, the large-rank one and ``foldin``, with phase 3b's
@@ -443,7 +477,8 @@ every kernel's ``networked_launches`` phase 6d's, and its
 kernels' ``fleet_roll_training`` phase 3d's training of the instance
 the roll swaps to; the serving kernel's ``sequence_launches`` and
 ``unmasked_k128`` phases 3e's and 3f's, the training kernels'
-``twostage_launches`` phase 3f's), the card's name
+``twostage_launches`` phase 3f's; the serving kernel's
+``sharded_route`` phase 8b's launches and times), the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. With
 ``--query-fleet`` the script builds and runs phases 5 and 3d alone;
 with ``--seqrec`` phase 5's store, 3e, 3f and phase 7's sequence half;
@@ -2811,6 +2846,30 @@ def check_against_plain(model, answers: list) -> int:
     return len(answers)
 
 
+def phase3_queries(seed: int) -> tuple:
+    """Phase 3's 43 sequential queries of five kinds (user, blacklist,
+    item similarity, category, unknown user) and its 34 concurrent
+    ones."""
+    rng = np.random.default_rng(seed + 1)
+    users = [f"u{u}" for u in rng.integers(0, N_USERS, 68)]
+    queries = [{"user": u, "num": 10} for u in users[:24]]
+    queries += [{"user": u, "num": 10,
+                 "blacklist": [f"i{i}" for i in rng.integers(0, 500, 3)]}
+                for u in users[24:32]]
+    queries += [{"items": [f"i{i}" for i in rng.integers(0, M_ITEMS, n)],
+                 "num": 10} for n in (1, 1, 2, 2, 3, 3, 5, 9)]
+    queries += [{"user": users[32], "num": 10, "categories": ["g3"]},
+                {"user": users[33], "num": 5, "categories": ["g7", "g11"]},
+                {"user": "no-such-user", "num": 10}]
+    # two wide (category) queries among the narrow ones: the users lane
+    # splits each batch by k bucket, so the narrow rows keep k = 16
+    concurrent = [{"user": u, "num": 10} for u in users[34:66]]
+    concurrent[5:5] = [{"user": users[66], "num": 10, "categories": ["g5"]}]
+    concurrent[21:21] = [{"user": users[67], "num": 10,
+                          "categories": ["g9", "g2"]}]
+    return queries, concurrent
+
+
 def serve_full_width(model, seed: int) -> dict:
     import secrets
 
@@ -2847,23 +2906,7 @@ def serve_full_width(model, seed: int) -> dict:
           f"{tuple(srv._seen_cols.shape)} = {seen_bytes} bytes on the card")
     host, port = server.address
     base = f"http://{host}:{port}"
-    rng = np.random.default_rng(seed + 1)
-    users = [f"u{u}" for u in rng.integers(0, N_USERS, 68)]
-    queries = [{"user": u, "num": 10} for u in users[:24]]
-    queries += [{"user": u, "num": 10,
-                 "blacklist": [f"i{i}" for i in rng.integers(0, 500, 3)]}
-                for u in users[24:32]]
-    queries += [{"items": [f"i{i}" for i in rng.integers(0, M_ITEMS, n)],
-                 "num": 10} for n in (1, 1, 2, 2, 3, 3, 5, 9)]
-    queries += [{"user": users[32], "num": 10, "categories": ["g3"]},
-                {"user": users[33], "num": 5, "categories": ["g7", "g11"]},
-                {"user": "no-such-user", "num": 10}]
-    # two wide (category) queries among the narrow ones: the users lane
-    # splits each batch by k bucket, so the narrow rows keep k = 16
-    concurrent = [{"user": u, "num": 10} for u in users[34:66]]
-    concurrent[5:5] = [{"user": users[66], "num": 10, "categories": ["g5"]}]
-    concurrent[21:21] = [{"user": users[67], "num": 10,
-                          "categories": ["g9", "g2"]}]
+    queries, concurrent = phase3_queries(seed)
 
     health = get_json(base + "/healthz")
     if not health["ready"]:
@@ -9223,6 +9266,472 @@ def sequence_summary(seq: dict, two: dict, seq_served: dict,
         "quality": seq_quality}
 
 
+# phase 8a: where the host lane and the device store cross over
+CROSS_ITEMS = (3_706, 4_096, 8_192, 16_384, 26_744, 32_768, 65_536, 262_144)
+CROSS_USERS = 2_048       # users of each synthetic fp32 model
+CROSS_SEEN = 20           # seen items each
+CROSS_SEQ = 100           # sequential user queries, each lane and round
+CROSS_BURST = 320         # user queries from CROSS_CLIENTS threads, each lane
+                          # and round (two rounds, the lanes in turns)
+CROSS_CLIENTS = 8
+CROSS_K = 10
+CROSS_RTOL = 1e-5         # host scores against the device store's, relative
+CROSS_BATCH_ITEMS = (3_706, 16_384)  # ML-1M width and the limit's own size
+CROSS_BATCH_USERS = 6_040  # uids of one users_topk call (ML-1M's users)
+
+
+def lane_readings(lane, users: np.ndarray, burst_users: np.ndarray) -> tuple:
+    """``lane.user_topk`` for each user in turn (p50 / p99 ms), then
+    ``burst_users`` from ``CROSS_CLIENTS`` threads (queries/s). Returns
+    ``(reading, answers of the sequential queries)``."""
+    import concurrent.futures
+
+    lane.user_topk(int(users[0]), CROSS_K)
+    lat, answers = [], []
+    for u in users:
+        t = time.perf_counter()
+        answers.append(lane.user_topk(int(u), CROSS_K))
+        lat.append((time.perf_counter() - t) * 1e3)
+    chunks = np.array_split(burst_users, CROSS_CLIENTS)
+
+    def client(part):
+        for u in part:
+            lane.user_topk(int(u), CROSS_K)
+
+    with concurrent.futures.ThreadPoolExecutor(CROSS_CLIENTS) as pool:
+        t = time.perf_counter()
+        list(pool.map(client, chunks))
+        wall = time.perf_counter() - t
+    return ({"p50_ms": float(np.percentile(lat, 50)),
+             "p99_ms": float(np.percentile(lat, 99)),
+             "qps": len(burst_users) / wall}, answers)
+
+
+def batch_lane_reading(host, device, rng, m: int) -> dict:
+    """One ``users_topk`` call of ``CROSS_BATCH_USERS`` uids on each
+    lane (the device store warmed at that batch first), wall ms; the
+    two answers must agree as the sequential ones do."""
+    from predictionio_tpu_torch.ops.serving import HOST_SERVE_MAX_ELEMS
+
+    uids = rng.integers(0, CROSS_USERS, CROSS_BATCH_USERS)
+    device.users_topk(uids, CROSS_K)
+    t = time.perf_counter()
+    hi, hs = host.users_topk(uids, CROSS_K)
+    host_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    di, ds = device.users_topk(uids, CROSS_K)
+    device_ms = (time.perf_counter() - t) * 1e3
+    if not (np.array_equal(hi, di) and np.allclose(
+            hs, ds, rtol=CROSS_RTOL, atol=0)):
+        raise AssertionError(f"{m} items: the batch lanes disagree")
+    auto = "host" if m * RANK <= HOST_SERVE_MAX_ELEMS else "device"
+    print(f"[crossover] batch lane, users_topk of {CROSS_BATCH_USERS} "
+          f"uids at {m} items ({m * RANK} elements; auto serves it from "
+          f"the {auto} lane): host {host_ms!r} ms, device {device_ms!r} ms")
+    return {"users": CROSS_BATCH_USERS, "host_ms": host_ms,
+            "device_ms": device_ms, "auto": auto}
+
+
+def host_crossover(dev, seed: int, card: str) -> dict:
+    """Phase 8a: ``HostTopK.user_topk`` against ``DeviceTopK.user_topk``
+    (the deploy defaults: micro-batched, its 2 ms window) on synthetic
+    fp32 factors at rank 64 and each of ``CROSS_ITEMS`` items, read two
+    ways: ``CROSS_SEQ`` sequential queries (p50 / p99) and
+    ``CROSS_BURST`` from ``CROSS_CLIENTS`` threads (queries/s), two
+    rounds with the lanes in turns, each reading the rounds' mean. Every
+    sequential answer must agree between the lanes (same ids, scores
+    within ``CROSS_RTOL``; normal draws have no exact ties). Prints the
+    table and the largest power of two of item-factor elements up to
+    which the host lane was no slower in both readings, beside
+    ``HOST_SERVE_MAX_ELEMS``. At ``CROSS_BATCH_ITEMS`` it also times the
+    batch lane (``users_topk`` of ``CROSS_BATCH_USERS`` uids, what
+    ``pio batchpredict`` hands the store a chunk at a time), once a
+    lane, the answers held equal. Does not fail on timing."""
+    import os
+
+    from predictionio_tpu_torch.ops import serving as serving_mod
+
+    rng = np.random.default_rng(seed + 80)
+    X = rng.normal(size=(CROSS_USERS, RANK)).astype(np.float32)
+    prior = os.environ.get("PIO_SERVE_PRECISION")
+    # an fp32 store, so the device lane's scores are the host lane's
+    os.environ["PIO_SERVE_PRECISION"] = "fp32"
+    rows = []
+    try:
+        for m in CROSS_ITEMS:
+            Y = rng.normal(size=(m, RANK)).astype(np.float32)
+            seen = {u: rng.choice(m, CROSS_SEEN, replace=False)
+                    for u in range(CROSS_USERS)}
+            users = rng.integers(0, CROSS_USERS, CROSS_SEQ)
+            burst_users = rng.integers(0, CROSS_USERS, CROSS_BURST)
+            host = serving_mod.HostTopK(X, Y, seen)
+            device = serving_mod.DeviceTopK(X, Y, seen, device=dev)
+            device.warmup()
+            try:
+                # two rounds, the lanes in turns, averaged: a reading
+                # taken while the host is busy elsewhere hits both lanes
+                rounds = [lane_readings(lane, users, burst_users)
+                          for _ in range(2) for lane in (host, device)]
+            finally:
+                device.close()
+            h, d = ({key: float(np.mean([r[0][key] for r in rounds[i::2]]))
+                     for key in rounds[0][0]} for i in (0, 1))
+            h_ans, d_ans = rounds[0][1], rounds[1][1]
+            for u, (hi, hs), (di, ds) in zip(users, h_ans, d_ans):
+                if not (np.array_equal(hi, di) and np.allclose(
+                        hs, ds, rtol=CROSS_RTOL, atol=0)):
+                    raise AssertionError(
+                        f"{m} items, user {u}: host {hi} {hs} against "
+                        f"device {di} {ds}")
+            row = {"items": m, "elems": m * RANK, "host": h, "device": d,
+                   "host_no_slower": bool(h["p50_ms"] <= d["p50_ms"]
+                                          and h["qps"] >= d["qps"])}
+            rows.append(row)
+            print(f"[crossover] {m:>7} items ({m * RANK:>10} elements): "
+                  f"host p50 {h['p50_ms']!r} p99 {h['p99_ms']!r} ms "
+                  f"{h['qps']!r} q/s; device p50 {d['p50_ms']!r} p99 "
+                  f"{d['p99_ms']!r} ms {d['qps']!r} q/s; host no slower: "
+                  f"{row['host_no_slower']}")
+            if m in CROSS_BATCH_ITEMS:
+                row["batch"] = batch_lane_reading(host, device, rng, m)
+            del host, device, Y, seen
+    finally:
+        if prior is None:
+            os.environ.pop("PIO_SERVE_PRECISION", None)
+        else:
+            os.environ["PIO_SERVE_PRECISION"] = prior
+    # the host lane's run from the smallest size on, and the largest
+    # power of two of elements inside it
+    ok = 0
+    for row in rows:
+        if not row["host_no_slower"]:
+            break
+        ok = row["elems"]
+    supported = 1 << (ok.bit_length() - 1) if ok else 0
+    print(f"[crossover] the host lane is no slower up to {ok} elements: "
+          f"the reading supports HOST_SERVE_MAX_ELEMS = {supported}; the "
+          f"port's is {serving_mod.HOST_SERVE_MAX_ELEMS} ({card})")
+    return {"rows": rows, "supported_limit": supported,
+            "limit": serving_mod.HOST_SERVE_MAX_ELEMS}
+
+
+# phase 8b: sharded serving on the card
+SHARDS = 4
+SHARD_BURST = 256         # user queries from SHARD_CLIENTS threads
+SHARD_CLIENTS = 8
+SHARD_FOLD_USERS = 8      # new users folded into both stores
+SHARD_TIME_BATCHES = (1, 256)
+
+
+def results_agree(got, want, q: dict, bound: float,
+                  by_set: bool = False) -> None:
+    """Two answers (``PredictedResult``) to ``q``: the same items with
+    scores within ``RTOL`` of the query's largest reachable score (an id
+    may differ only inside a near tie); with ``by_set`` only the sorted
+    scores are held (tie order follows store positions)."""
+    gv = np.asarray([s.score for s in got.item_scores], np.float32)
+    wv = np.asarray([s.score for s in want.item_scores], np.float32)
+    if len(gv) != len(wv):
+        raise AssertionError(f"{q}: {len(gv)} results against {len(wv)}")
+    if not len(gv):
+        return
+    tol = np.asarray([RTOL * bound], np.float32)
+    if by_set:
+        gv, wv = np.sort(gv)[::-1], np.sort(wv)[::-1]
+        if (np.abs(gv - wv) > RTOL * np.abs(wv) + tol[0]).any():
+            raise AssertionError(f"{q}: scores {gv} against {wv}")
+        return
+    ids = {s.item: j for j, s in enumerate(want.item_scores)}
+    ki = np.asarray([[ids.get(s.item, len(wv) + 1 + j)
+                      for j, s in enumerate(got.item_scores)]])
+    check_topk(gv[None, :], ki, np.append(wv, -np.inf)[None, :],
+               np.arange(len(wv) + 1)[None, :], tol, exact=False)
+
+
+def query_bound(model, q: dict, x_norm: np.ndarray, y_norm: float) -> float:
+    if "items" in q:
+        return 1.01 * len(q["items"])
+    if q.get("user") in model.user_map:
+        return 1.01 * x_norm[model.user_map[q["user"]]] * y_norm
+    return 0.0
+
+
+def sharded_timings(dev, srv, model) -> list:
+    """B1's sharded route at k=16 on the sharded store's blocks, B = 1
+    and 256 users: one shard's launch, a whole dispatch (every shard's
+    launch and the merge), its plain version, and the library's (each
+    shard's seen hits, its block widened to fp32, the masked product and
+    ``torch.topk``, then ``torch.topk`` of the joined lists); the bound
+    of the dispatch's work."""
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.ops import serving as serving_mod
+
+    rows = []
+    b1 = b1_kernel_names()
+    shards = srv._shards
+    m = int(shards[0].valid.shape[0])
+    n_pos = m * len(shards)
+    rng = np.random.default_rng(7)
+    for B in SHARD_TIME_BATCHES:
+        u = torch.from_numpy(rng.integers(0, srv.n_users, B)).to(dev)
+        Q = serving_mod._gather_rows_f32(srv._X, u)
+        scq, smq = srv._seen_cols[u], srv._seen_mask[u]
+        sh0 = shards[0]
+        inside = (scq >= 0) & (scq < m) & (smq > 0)
+        lc = torch.where(inside, scq, torch.full_like(scq, -1)).T
+        lm = inside.T.float()
+
+        def one_shard():
+            als_cuda.fused_gather_score_topk(
+                Q, sh0.Y, lc, lm, k=16, n_items=m, row_valid=sh0.valid)
+
+        def dispatch():
+            serving_mod._sharded_score_topk(shards, Q, scq, smq, k=16,
+                                            mask_seen=True)
+
+        def plain():
+            serving_mod.fused_gather_score_topk = \
+                als_cuda.fused_gather_score_topk_plain
+            try:
+                dispatch()
+            finally:
+                serving_mod.fused_gather_score_topk = \
+                    als_cuda.fused_gather_score_topk
+
+        def library():
+            # the same work as a dispatch: each shard's seen hits and
+            # its widened block are found inside the timed call
+            vals, idx = [], []
+            for sh in shards:
+                hb, hc = ((smq > 0) & (scq >= sh.offset)
+                          & (scq < sh.offset + m)).nonzero(as_tuple=True)
+                s = torch.matmul(Q, sh.Y.float().T)
+                s[:, sh.valid <= 0] = float("-inf")
+                s[hb, scq[hb, hc].long() - sh.offset] = float("-inf")
+                v, i = torch.topk(s, 16, dim=1)
+                vals.append(v)
+                idx.append(i + sh.offset)
+            v, sel = torch.topk(torch.cat(vals, 1), 16, dim=1)
+            torch.gather(torch.cat(idx, 1), 1, sel)
+
+        t_one, t_k, t_p, t_l = (time_ms(f, 20) for f in
+                                (one_shard, dispatch, plain, library))
+        # the card's share of an event-timed call: the profiler's busy
+        # time a call, and B1's kernels' time in it
+        device = {}
+        for label, fn in (("shard", one_shard), ("dispatch", dispatch)):
+            _, busy, _, by_name = device_busy(
+                lambda: [fn() for _ in range(20)])
+            device[label] = {"busy_ms": busy / 20, "b1_ms": sum(
+                ms for name, ms in by_name.items() if name in b1) / 20}
+        L = int(scq.shape[1])
+        nbytes = (n_pos * RANK * 2 + n_pos * 4 + B * RANK * 4 + L * B * 8
+                  + B * 16 * 8 * (len(shards) + 1))
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = 2.0 * B * n_pos * RANK / H100_FP32_FLOPS * 1e3
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops \
+            else (t_ops, "operations")
+        row = {"store": "bf16", "B": B, "k": 16, "shards": len(shards),
+               "positions_per_shard": m, "shard_ms": t_one, "ms": t_k,
+               "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
+               "bound_by": b_by, "device": device}
+        rows.append(row)
+        print(f"[sharded] B={B:<3} k=16: one shard's launch {t_one!r} ms "
+              f"(card busy {device['shard']['busy_ms']!r}, B1 "
+              f"{device['shard']['b1_ms']!r}), dispatch ({len(shards)} "
+              f"launches + merge) {t_k!r} ms (card busy "
+              f"{device['dispatch']['busy_ms']!r}, B1 "
+              f"{device['dispatch']['b1_ms']!r}), plain {t_p!r} ms, library "
+              f"{t_l!r} ms, bound {b_ms!r} ms ({b_by})")
+    return rows
+
+
+def sharded_serving(dev, trained: dict, seed: int, card: str) -> dict:
+    """Phase 8b: phase 5's model served through a ``SHARDS``-shard
+    density-aware layout on ``[dev] * SHARDS`` (bf16, the card's
+    default store): every shard is the card and launches B1 on its own
+    block. (a) Phase 3's 43 sequential queries and ``SHARD_BURST`` user
+    queries from ``SHARD_CLIENTS`` threads, through the template's
+    predict, agree with the plain sharded lane on the CPU (same store,
+    ``["cpu"] * SHARDS``: the same items; positions follow from the one
+    layout) and, as score sets, with the unsharded device store; B1
+    launches ``SHARDS`` times a dispatch. (b) ``SHARD_FOLD_USERS`` new
+    users folded (B3 + B2 against each store's item view) and patched
+    into the sharded and the unsharded store, the sharded one growing by
+    a reshard: the folded rows equal, their answers equal as score sets.
+    (c) A one-rank NCCL process group (``initialize`` with a 127.0.0.1
+    coordinator, an all-reduce, ``shutdown``). Then B1's sharded route is
+    timed. Any disagreement raises."""
+    import concurrent.futures
+    import dataclasses
+    import os
+    import socket
+
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.ops import serving as serving_mod
+    from predictionio_tpu_torch.ops.als import ALSParams, fold_in_users
+    from predictionio_tpu_torch.parallel import distributed
+    from predictionio_tpu_torch.templates.recommendation.engine import (
+        ALSAlgorithm,
+        Query,
+    )
+
+    model = trained["model"]
+    X, Y, seen = model.user_factors, model.item_factors, model.seen
+    t0 = time.perf_counter()
+    sharded = serving_mod.DeviceTopK(X, Y, seen, device=[dev] * SHARDS,
+                                     shards=SHARDS)
+    single = serving_mod.DeviceTopK(X, Y, seen, device=dev)
+    prior = os.environ.get("PIO_SERVE_PRECISION")
+    os.environ["PIO_SERVE_PRECISION"] = "bf16"
+    try:
+        cpu = serving_mod.DeviceTopK(X, Y, seen, device=["cpu"] * SHARDS,
+                                     shards=SHARDS, microbatch=False)
+    finally:
+        if prior is None:
+            os.environ.pop("PIO_SERVE_PRECISION", None)
+        else:
+            os.environ["PIO_SERVE_PRECISION"] = prior
+    build_s = time.perf_counter() - t0
+    if sharded.shard_count != SHARDS or sharded.precision != "bf16":
+        raise AssertionError(f"sharded store: {sharded.shard_count} shards, "
+                             f"{sharded.precision}")
+    if not np.array_equal(sharded.item_layout.perm, cpu.item_layout.perm):
+        raise AssertionError("the card's and the CPU's layouts differ")
+    balance = sharded.item_layout.balance_report()
+    print(f"[sharded] stores built in {build_s:.1f} s; layout {balance}; "
+          f"{sharded.memory_report()['shards']}")
+    views = {name: dataclasses.replace(model, _server=srv) for name, srv in
+             (("sharded", sharded), ("single", single), ("cpu", cpu))}
+    algo = ALSAlgorithm()
+    queries, _ = phase3_queries(seed)
+    rng = np.random.default_rng(seed + 81)
+    burst = [{"user": f"u{u}", "num": 10}
+             for u in rng.integers(0, N_USERS, SHARD_BURST)]
+
+    def ask(view, q):
+        return algo.predict(view, Query(**{
+            k: tuple(v) if isinstance(v, list) else v for k, v in q.items()}))
+
+    calls = []
+    launch = sharded._sharded_launch
+
+    def counted(*args):
+        calls.append(1)
+        return launch(*args)
+
+    sharded._sharded_launch = counted
+    als_cuda.launches.reset()
+    t = time.perf_counter()
+    got_seq = [ask(views["sharded"], q) for q in queries]
+    seq_s = time.perf_counter() - t
+    with concurrent.futures.ThreadPoolExecutor(SHARD_CLIENTS) as pool:
+        t = time.perf_counter()
+        got_burst = list(pool.map(lambda q: ask(views["sharded"], q), burst))
+        burst_s = time.perf_counter() - t
+    launches = als_cuda.launches.value
+    by_key = als_cuda.launches.by_key()
+    dispatches = len(calls)
+    del sharded._sharded_launch
+    if not dispatches or launches != SHARDS * dispatches:
+        raise AssertionError(f"B1 launched {launches} times over "
+                             f"{dispatches} sharded dispatches")
+    print(f"[sharded] {len(queries)} sequential queries {seq_s:.3f} s, "
+          f"{SHARD_BURST} from {SHARD_CLIENTS} threads {burst_s:.3f} s "
+          f"({SHARD_BURST / burst_s!r} q/s); B1 launched {launches} times "
+          f"over {dispatches} dispatches ({by_key})")
+    x_norm = np.linalg.norm(X, axis=1)
+    y_norm = float(np.linalg.norm(Y, axis=1).max())
+    checked = 0
+    for q, got in zip(queries + burst, got_seq + got_burst):
+        bound = query_bound(model, q, x_norm, y_norm)
+        results_agree(got, ask(views["cpu"], q), q, bound)
+        results_agree(got, ask(views["single"], q), q, bound, by_set=True)
+        checked += 1
+    print(f"[sharded] {checked} answers agree with the CPU's plain sharded "
+          f"lane and, as score sets, with the unsharded store")
+
+    # (b) fold new users into both stores; the sharded one reshards
+    frng = np.random.default_rng(seed + 82)
+    n0 = sharded.n_users
+    uids = np.arange(n0, n0 + SHARD_FOLD_USERS)
+    cols = [frng.choice(M_ITEMS, int(n), replace=False)
+            for n in frng.integers(5, 60, SHARD_FOLD_USERS)]
+    vals = [frng.integers(1, 6, len(c)).astype(np.float32) for c in cols]
+    params = ALSParams(rank=RANK, num_iterations=ITERATIONS, lambda_=LAMBDA,
+                       alpha=ALPHA)
+    spd_before = als_cuda.spd_launches.value
+    rows = {name: fold_in_users(srv.item_factors, cols, vals, params,
+                                device=dev)
+            for name, srv in (("sharded", sharded), ("single", single))}
+    if not np.array_equal(rows["sharded"], rows["single"]):
+        raise AssertionError("the folded rows differ between the stores")
+    cap_before = sharded.user_capacity
+    for srv in (sharded, single):
+        srv.patch_users(uids, rows["sharded"],
+                        seen_items={int(u): c for u, c in zip(uids, cols)})
+    if sharded.user_capacity <= cap_before \
+            or sharded.user_capacity % SHARDS:
+        raise AssertionError(f"no reshard: {cap_before} -> "
+                             f"{sharded.user_capacity}")
+    x_rows = np.linalg.norm(rows["sharded"], axis=1)
+    for u, xn in zip(uids, x_rows):
+        gi, gs = sharded.user_topk(int(u), 10)
+        wi, ws = single.user_topk(int(u), 10)
+        tol = RTOL * 1.01 * xn * y_norm
+        if len(gs) != len(ws) or (np.abs(np.sort(gs) - np.sort(ws))
+                                  > RTOL * np.abs(np.sort(ws)) + tol).any():
+            raise AssertionError(f"folded user {u}: {gs} against {ws}")
+        if set(gi.tolist()) & set(cols[int(u - n0)].tolist()):
+            raise AssertionError(f"folded user {u}: a seen item served")
+    print(f"[sharded] {SHARD_FOLD_USERS} folded users (B2 launches "
+          f"{als_cuda.spd_launches.value - spd_before}) agree; the sharded "
+          f"store grew {cap_before} -> {sharded.user_capacity} rows "
+          f"({sharded.growths[-1]})")
+
+    # (c) a one-rank NCCL process group
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t = time.perf_counter()
+    joined = distributed.initialize(distributed.DistributedConfig(
+        coordinator=f"127.0.0.1:{port}", num_hosts=1, process_id=0))
+    try:
+        import torch.distributed as dist
+
+        ones = torch.ones(4, device=dev)
+        dist.all_reduce(ones)
+        torch.cuda.synchronize()
+        group = {"joined": joined, "backend": str(dist.get_backend()),
+                 "process_count": distributed.process_count(),
+                 "process_index": distributed.process_index(),
+                 "primary": distributed.is_primary_host(),
+                 "all_reduce": ones.cpu().tolist()}
+    finally:
+        distributed.shutdown()
+    group["s"] = time.perf_counter() - t
+    want = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+    if not (joined and group["backend"] == want
+            and group["process_count"] == 1 and group["primary"]
+            and group["all_reduce"] == [1.0] * 4):
+        raise AssertionError(f"process group: {group}")
+    print(f"[sharded] process group: {group}")
+
+    timed = sharded_timings(dev, sharded, model)
+    for srv in (sharded, single, cpu):
+        srv.close()
+    return {"launches": launches, "dispatches": dispatches,
+            "by_key": {str(k): v for k, v in by_key.items()},
+            "checked": checked, "burst_qps": SHARD_BURST / burst_s,
+            "balance": balance, "build_s": build_s,
+            "grown": [cap_before, sharded.user_capacity],
+            "process_group": group, "timings": timed}
+
+
 def fleet_launches(name: str, fleet: dict, started: dict) -> dict:
     """A kernel's launches in the query fleet: phase 3d's and 6b's
     ``pio deploy --fleet`` child's, summed and by phase; for the training
@@ -9276,6 +9785,13 @@ def main() -> int:
         "--templates", action="store_true",
         help="build, then only run phase 6e (the other templates at "
              "ML-1M)")
+    parser.add_argument(
+        "--crossover", action="store_true",
+        help="build, then only run phase 8a (the host/device crossover)")
+    parser.add_argument(
+        "--sharded", action="store_true",
+        help="build, then only run phase 8a (the host/device crossover), "
+             "phase 5 (store and training) and phase 8b (sharded serving)")
     parser.add_argument("--serve-store", metavar="SQLITE_FILE",
                         help=argparse.SUPPRESS)  # phase 6's second process
     parser.add_argument("--templates-child", action="store_true",
@@ -9287,6 +9803,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    import os
+
+    # every serving phase measures the device store and B1: under auto,
+    # host factors up to HOST_SERVE_MAX_ELEMS item-factor elements (ML-1M
+    # and ML-20M width among them) would serve from the host lane. The
+    # children started below inherit it. Phase 8a builds both lanes
+    # itself, phase 8b its stores.
+    os.environ["PIO_SERVING_BACKEND"] = "device"
     if args.serve_store:
         return serve_child(args.serve_store)
     if args.templates_child:
@@ -9374,6 +9898,27 @@ def main() -> int:
         print(json.dumps({"query_fleet": out}, default=str))
         print(nvidia_smi())
         return 0
+    if args.crossover:
+        out = phase("8a host/device crossover", host_crossover, dev,
+                    args.seed, card)
+        print(json.dumps({"crossover": out}))
+        print(nvidia_smi())
+        return 0
+    if args.sharded:
+        crossing = phase("8a host/device crossover", host_crossover, dev,
+                         args.seed, card)
+        store = phase("5 event store", ml20m_store, args.seed)
+        try:
+            trained = phase("5 training", train_full_width, dev, args.seed,
+                            store)
+        finally:
+            remove_store(store)
+        out = phase("8b sharded serving", sharded_serving, dev, trained,
+                    args.seed, card)
+        print(json.dumps({"crossover": crossing, "sharded": out},
+                         default=str))
+        print(nvidia_smi())
+        return 0
     if args.serving_times:
         rows = phase("4 serving kernel times", timings, dev, args.seed)
         print(json.dumps({"serving_times": rows}))
@@ -9413,6 +9958,10 @@ def main() -> int:
     crossover = phase("4c route crossover", route_crossover, dev, args.seed)
     train_times = phase("4b training kernel times", training_timings, dev,
                         trained)
+    crossing = phase("8a host/device crossover", host_crossover, dev,
+                     args.seed, card)
+    sharded = phase("8b sharded serving", sharded_serving, dev, trained,
+                    args.seed, card)
     cycle = phase("6 lifecycle", lifecycle, args.seed)
     # phase 6e runs in a process of its own beside 6b-6d, which spend
     # their time waiting on the console's processes
@@ -9440,6 +9989,7 @@ def main() -> int:
     # default k bucket (16) on the default GPU store (bf16)
     head = next(r for r in rows
                 if (r["store"], r["B"], r["k"]) == ("bf16", 256, 16))
+    sh_head = next(r for r in sharded["timings"] if r["B"] == 1)
     kernels = [{
         "name": "fused_gather_score_topk", "route": "cuda",
         "source": "predictionio_tpu_torch/ops/csrc/fused_topk.cu",
@@ -9490,6 +10040,18 @@ def main() -> int:
         # at B = 1 and 256 on the deployed store beside stage 2
         "sequence_launches": seq_summary["b1_launches"],
         "unmasked_k128": seq_summary["unmasked_k128"],
+        # phase 8b: the sharded route, one launch a shard a dispatch on
+        # the ML-20M-width store split four ways, its merge included
+        "sharded_route": {
+            "launches": sharded["launches"],
+            "dispatches": sharded["dispatches"],
+            **{key: sh_head[key] for key in (
+                "ms", "shard_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by")},
+            "shape": f"bf16 store, {SHARDS} shards of "
+                     f"{sh_head['positions_per_shard']} positions, B=1, "
+                     f"k=16",
+            "timings": sharded["timings"]},
         "timings": rows}]
     for name, replaces, err, shape, main_route in (
             ("assemble_normal_equations", 141, train_err["assemble"],
@@ -9630,6 +10192,10 @@ def main() -> int:
           f"templates: query p50 ms "
           f"{json.dumps({k: v['p50_ms'] for k, v in templates['served'].items()})}"
           f", text held-out accuracy {templates['text']['accuracy']!r}; "
+          f"host lane up to {crossing['supported_limit']} item-factor "
+          f"elements by phase 8a (HOST_SERVE_MAX_ELEMS "
+          f"{crossing['limit']}); sharded dispatch (4 shards, B=1) "
+          f"{sh_head['ms']!r} ms; "
           f"Precision@10 {scored['precision_at_10']!r} (bf16 "
           f"{scored['bf16_precision_at_10']!r}; "
           f"{scored['ratio_vs_plain']!r} of plain, lift "

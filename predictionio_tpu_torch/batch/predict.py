@@ -33,9 +33,9 @@ Output formats: ``jsonl`` (one ``{"prediction": ..., "query": ...}``
 object per line) or ``npz`` (the record strings as one column, with the
 span). The context is a :class:`ComputeContext` naming the device
 (None = cuda). The JAX package's lane for mesh-sharded models
-(``PAlgorithm``, ``ShardedALSModel``) comes with ROADMAP A6: the port has
-no parallel algorithm flavour yet, and its model unpickler refuses the
-JAX package's classes, naming them.
+(``ShardedALSModel`` under a ``PAlgorithm``) comes with ROADMAP A6.3,
+and the port's model unpickler refuses the JAX package's classes,
+naming them.
 """
 
 from __future__ import annotations
@@ -53,7 +53,10 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 
 from predictionio_tpu_torch.controller.algorithms import ordered_batch_results
-from predictionio_tpu_torch.core.context import ComputeContext
+from predictionio_tpu_torch.core.context import (
+    ComputeContext,
+    workflow_context,
+)
 from predictionio_tpu_torch.parallel.mesh import shard_spans
 from predictionio_tpu_torch.utils import metrics
 from predictionio_tpu_torch.utils.tracing import span, trace_scope
@@ -298,7 +301,7 @@ class BatchPredictor:
                 "exactly one query source required: --input or "
                 "--synthesize-app")
         self.config = config
-        self.ctx = ctx or ComputeContext()
+        self.ctx = ctx or workflow_context(mode="serving")
         self._deployment: Optional[Deployment] = None
 
     def load(self) -> Deployment:

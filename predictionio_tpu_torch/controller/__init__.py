@@ -5,6 +5,7 @@ persistence, and the evaluation stack (metrics, ``Evaluation``,
 from predictionio_tpu_torch.controller.algorithms import (
     LAlgorithm,
     P2LAlgorithm,
+    PAlgorithm,
 )
 from predictionio_tpu_torch.controller.controllers import (
     IdentityPreparator,
@@ -77,6 +78,7 @@ __all__ = [
     "OptionAverageMetric",
     "OptionStdevMetric",
     "P2LAlgorithm",
+    "PAlgorithm",
     "PDataSource",
     "PIdentityPreparator",
     "PPreparator",

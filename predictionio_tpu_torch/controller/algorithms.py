@@ -1,11 +1,15 @@
-"""Algorithm flavors: the local and the parallel-to-local one.
+"""Algorithm flavors: the local, the parallel-to-local and the parallel
+one.
 
-The port's copy of ``LAlgorithm``, ``P2LAlgorithm`` and
+The port's copy of ``LAlgorithm``, ``P2LAlgorithm``, ``PAlgorithm`` and
 ``_persist_or_model`` from ``predictionio_tpu/controller/algorithms.py``:
-the model lives on the host (a P2L model is served through the device),
-``predict_base`` routes to the subclass's ``predict``, and the trained
-model is stored as it is (or, for a :class:`~predictionio_tpu_torch.
-controller.persistent.PersistentModel`, saves itself). Also
+an L or P2L model lives on the host (a P2L model is served through the
+device), ``predict_base`` routes to the subclass's ``predict``, and the
+trained model is stored as it is (or, for a :class:`~predictionio_tpu_
+torch.controller.persistent.PersistentModel`, saves itself). A P model
+lives on its devices: it is never pickled whole, and unless it is a
+PersistentModel it is stored as ``RETRAIN`` and trained again at
+deploy. Also
 :func:`ordered_batch_results`, the ``batch_predict`` contract check the
 bulk consumers share.
 """
@@ -110,3 +114,40 @@ class P2LAlgorithm(BaseAlgorithm):
 
     def make_persistent_model(self, ctx, model_id, algo_params, model):
         return _persist_or_model(model, model_id, algo_params, ctx)
+
+
+class PAlgorithm(BaseAlgorithm):
+    """Parallel algorithm: a device-resident (sharded) model."""
+
+    @abc.abstractmethod
+    def train(self, ctx: Any, pd: Any) -> Any: ...
+
+    @abc.abstractmethod
+    def predict(self, model: Any, query: Any) -> Any: ...
+
+    def batch_predict(self, ctx: Any, model: Any,
+                      indexed_queries: Sequence[Tuple[int, Any]]
+                      ) -> List[Tuple[int, Any]]:
+        """No default: a device-resident model needs a batched predict
+        of its own."""
+        raise NotImplementedError(
+            f"{type(self).__name__} must override batch_predict for "
+            "evaluation over a device-resident model")
+
+    def train_base(self, ctx: Any, pd: Any) -> Any:
+        return self.train(ctx, pd)
+
+    def batch_predict_base(self, ctx, model, indexed_queries):
+        return self.batch_predict(ctx, model, indexed_queries)
+
+    def predict_base(self, model: Any, query: Any) -> Any:
+        return self.predict(model, query)
+
+    def make_persistent_model(self, ctx, model_id, algo_params, model):
+        """A PersistentModel saves itself and is stored as its manifest;
+        any other model is stored as ``RETRAIN``: a device-resident
+        model is never pickled whole."""
+        if isinstance(model, PersistentModel):
+            if model.save(model_id, algo_params, ctx):
+                return manifest_for(model)
+        return RETRAIN

@@ -40,7 +40,10 @@ counterpart is easy to find):
   solve of :mod:`~predictionio_tpu_torch.online.foldin`).
 - **Host scorers** (numpy, as in the JAX package): ``cosine_scores`` and
   ``predict_scores_for_user``, with which the similarproduct and
-  ecommercerecommendation templates score their queries.
+  ecommercerecommendation templates score their queries, and
+  ``top_k_items``. Host helpers: ``transpose_ratings`` (the other solve
+  side of a uniform table) and ``item_interaction_counts`` (the density
+  a sharded serving store's item layout packs by).
 
 Implicit objective (Hu-Koren-Volinsky, as in MLlib): confidence
 ``c = 1 + alpha * |r|``, preference ``p = 1`` iff ``r > 0``; per row
@@ -1309,7 +1312,54 @@ def fold_in_users(item_factors, cols_list: Sequence[np.ndarray],
     return out
 
 
+def item_interaction_counts(item_side) -> np.ndarray:
+    """Interactions per item from an ITEM-side table (rows are items):
+    the density a sharded store's item layout packs by
+    (:func:`~predictionio_tpu_torch.parallel.als_sharding.
+    density_aware_item_layout`). Takes a uniform :class:`PaddedRatings`
+    or a :class:`BucketedRatings`, with numpy or tensor tables; sentinel
+    pad rows count nothing."""
+    if isinstance(item_side, BucketedRatings):
+        counts = np.zeros(item_side.n_rows, dtype=np.int64)
+        for b in item_side.buckets:
+            ids = _host_ints(b.row_ids)
+            # reduce before the copy: a device table sends one [rows]
+            # vector, not the padded mask
+            per_row = _host_ints(b.mask.sum(axis=1))
+            real = ids < item_side.n_rows
+            np.add.at(counts, ids[real], per_row[real])
+        return counts
+    per_row = _host_ints(item_side.mask.sum(axis=1))
+    return per_row[:item_side.n_rows]
+
+
+def _host_ints(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.cpu().numpy()
+    return np.asarray(a).astype(np.int64)
+
+
+def transpose_ratings(pr: PaddedRatings, rows: np.ndarray, cols: np.ndarray,
+                      values: np.ndarray, pad_multiple: int = PAD_MULTIPLE,
+                      max_len: Optional[int] = None) -> PaddedRatings:
+    """The other solve side of ``pr``: the same triples padded by
+    column."""
+    return pad_ratings(cols, rows, values, pr.n_cols, pr.n_rows,
+                       pad_multiple, max_len)
+
+
 # -- host scorers ----------------------------------------------------------------
+
+def top_k_items(scores: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Host top-k ``(indices, scores)``, descending, along the last
+    axis."""
+    k = min(k, scores.shape[-1])
+    idx = np.argpartition(-scores, k - 1, axis=-1)[..., :k]
+    top = np.take_along_axis(scores, idx, axis=-1)
+    order = np.argsort(-top, axis=-1)
+    return np.take_along_axis(idx, order, axis=-1), \
+        np.take_along_axis(top, order, axis=-1)
+
 
 def cosine_scores(query_features: np.ndarray,
                   item_factors: np.ndarray) -> np.ndarray:

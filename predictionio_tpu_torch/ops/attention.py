@@ -9,7 +9,7 @@ whose keys are all masked, and its fused routes sum in another order.
 
 The sequence-parallel variants (``ring_attention``, ``ulysses_attention``
 and their sharded programs) need a mesh of cards and are not ported
-(ROADMAP A6).
+(ROADMAP A6.4).
 """
 
 from __future__ import annotations

@@ -81,3 +81,9 @@ def dequantize_rows_np(quant: QuantFactors) -> np.ndarray:
     data = np.asarray(quant.data)
     scale = np.asarray(quant.scale, dtype=np.float32)
     return data.astype(np.float32) * scale[:, None]
+
+
+def quantization_error_bound(quant: QuantFactors) -> np.ndarray:
+    """Per-row worst-case absolute reconstruction error: half an int8
+    step, ``scale / 2``."""
+    return np.asarray(quant.scale, dtype=np.float32) / 2.0

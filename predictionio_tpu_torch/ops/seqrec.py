@@ -24,7 +24,7 @@ kernel runs on this path). Encodes split a bucket into row chunks under
 a byte budget (:data:`ENCODE_BYTES`): at ML-20M width a whole bucket's
 attention scores would take about 9 GB a layer.
 
-Not ported (ROADMAP A6): ``select_sp_kernel``, ``encode_bucket_mesh`` and
+Not ported (ROADMAP A6.4): ``select_sp_kernel``, ``encode_bucket_mesh`` and
 the mesh lane; ``sp_mode`` ``ring`` / ``ulysses`` raise.
 """
 
@@ -81,7 +81,8 @@ def check_sp_mode(params: SeqRecParams) -> None:
     if params.sp_mode in ("ring", "ulysses"):
         raise NotImplementedError(
             f"sp_mode={params.sp_mode!r}: the sequence-parallel attention "
-            "lanes are not ported yet (ROADMAP A6, the sharded paths); use "
+            "lanes are not ported yet (ROADMAP A6.4, the sequence-parallel "
+            "lanes); use "
             "sp_mode 'auto' or 'off' to encode densely on one device")
 
 

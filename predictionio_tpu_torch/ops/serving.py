@@ -1,11 +1,24 @@
-"""Device-resident top-N serving on one GPU.
+"""Top-N serving: the device store on one GPU or over shards, and the
+host lane.
 
-The port's counterpart of ``predictionio_tpu/ops/serving.py`` for the
-single-device path: the factor tables live on the card (fp32, bf16 or
+The port's counterpart of ``predictionio_tpu/ops/serving.py``. In
+:class:`DeviceTopK` the factor tables live on the card (fp32, bf16 or
 int8 with per-row scales), and every query batch is one call of the
 fused score -> mask -> top-k kernel (:mod:`.als_cuda`), whose k winners
 come back to the host in one copy. Concurrent single queries are
 micro-batched by :class:`BatchDispatcher`.
+
+A sharded store (an ``item_layout``, ``shards`` or ``PIO_SERVE_SHARDS``
+over a plane of several devices, which may name one card several times)
+holds its items in a density-aware layout, one block a shard on its
+device: each dispatch launches the kernel once per shard and merges the
+shards' lists stably, the lower shard first on a tie
+(:func:`_sharded_score_topk`, :func:`_tree_merge_topk`).
+
+:class:`HostTopK` is the host lane, numpy as in the JAX package;
+:func:`choose_server` picks a lane by ``PIO_SERVING_BACKEND``, the
+serving-policy table (:func:`validate_serving_policy`) and the size
+limit :data:`HOST_SERVE_MAX_ELEMS`.
 
 Each launch of the serving kernel is recorded by the device flight
 recorder (:mod:`~predictionio_tpu_torch.utils.device_telemetry`) and as a
@@ -18,9 +31,9 @@ store grows along the power-of-two ladder, under the store lock every
 dispatch snapshots under.
 
 :meth:`DeviceTopK.memory_report` and :func:`device_report` give the
-``/stats.json`` device block in the JAX package's shape. Not here yet
-(later slices): the AOT ladder (CUDA graphs on the GPU; its report is
-the empty ladder meanwhile), sharded stores and the host lane.
+``/stats.json`` device block in the JAX package's shape. Not here yet (a
+later slice): the AOT ladder (CUDA graphs on the GPU; its report is the
+empty ladder meanwhile).
 """
 
 from __future__ import annotations
@@ -34,7 +47,7 @@ import time
 import weakref
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as _FuturesTimeout
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +62,7 @@ from predictionio_tpu_torch.ops.als_cuda import TOPK_TILE_M, fused_gather_score_
 from predictionio_tpu_torch.ops.quantize import (
     QuantFactors,
     dequantize_rows,
+    dequantize_rows_np,
     is_quantized,
     quantize_rows_int8,
     quantize_rows_int8_np,
@@ -74,13 +88,29 @@ def _serve_precision_explicit() -> Optional[str]:
     return mode
 
 
+def _serve_shards_env() -> int:
+    """``PIO_SERVE_SHARDS``: shard the device store's items over this
+    many devices (a density-aware layout from the seen sets). 0 or unset
+    keeps one store. Like the bf16 / int8 stores it is a device policy:
+    a value > 1 forces the device backend under ``auto`` and conflicts
+    with an explicit ``host``. A non-integer raises."""
+    raw = os.environ.get("PIO_SERVE_SHARDS", "").strip()
+    if not raw:
+        return 0
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"PIO_SERVE_SHARDS={raw!r} is not an integer shard count")
+    return max(0, n)
+
+
 def foldin_enabled() -> bool:
     """``PIO_FOLDIN``, set while a query server deploys with fold-in
     (``pio deploy --foldin on`` or ``ServerConfig(foldin=True)``) and
     readable by embedders: the deployed server runs the online fold-in
-    consumer, which needs the updatable :class:`DeviceTopK` store. The
-    port serves every model from that store, so the flag changes no
-    choice here."""
+    consumer, which needs the updatable :class:`DeviceTopK` store, so
+    the flag forces the device backend (:func:`choose_server`)."""
     return os.environ.get("PIO_FOLDIN", "").strip().lower() in (
         "1", "on", "true", "yes")
 
@@ -120,6 +150,17 @@ def _component(f) -> Optional[Dict[str, Any]]:
     return {"bytes": int(f.nbytes), "scaleBytes": 0,
             "dtype": _dtype_name(f.dtype),
             "shape": [int(d) for d in f.shape]}
+
+
+def _joined_component(blocks) -> Dict[str, Any]:
+    """The :func:`_component` of a sharded table: its blocks' bytes
+    summed, its shape the blocks stacked."""
+    parts = [_component(b) for b in blocks]
+    out = dict(parts[0])
+    out["bytes"] = sum(p["bytes"] for p in parts)
+    out["scaleBytes"] = sum(p["scaleBytes"] for p in parts)
+    out["shape"] = [sum(p["shape"][0] for p in parts)] + parts[0]["shape"][1:]
+    return out
 
 
 def _gather_rows_f32(factors, idx: torch.Tensor) -> torch.Tensor:
@@ -178,26 +219,228 @@ def bucket_size(n: int, lo: int = 16) -> int:
 _bucket = bucket_size
 
 
+def _host_array(f) -> np.ndarray:
+    """A factor table as a host numpy array: a tensor (any device, any
+    float dtype) comes over as fp32; numpy input is kept as it is."""
+    if isinstance(f, torch.Tensor):
+        return f.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(f)
+
+
+def _is_bf16(arr) -> bool:
+    """A numpy bfloat16 array (ml_dtypes-backed), by its dtype's name."""
+    return getattr(getattr(arr, "dtype", None), "name", "") == "bfloat16"
+
+
+class HostTopK:
+    """Host-memory top-N server with :class:`DeviceTopK`'s interface:
+    a numpy matvec and ``argpartition`` per query, no device round trip.
+    The port's copy of the JAX package's ``HostTopK`` (the same numpy
+    arithmetic, so the same ids and fp32 scores). :func:`choose_server`
+    picks it for host factors of at most :data:`HOST_SERVE_MAX_ELEMS`
+    item-factor elements, or when ``PIO_SERVING_BACKEND=host`` asks.
+
+    An int8 + scales store is dequantized and a bf16 one widened: the
+    host lane always scores fp32. A tensor (the port's one extra case)
+    is taken to a CPU fp32 array. Ties are not broken toward the lowest
+    id: ``argpartition`` picks the k winners and a stable sort orders
+    them, as in the JAX package."""
+
+    def __init__(self, user_factors, item_factors,
+                 seen: Optional[Dict[int, np.ndarray]] = None,
+                 n_users: Optional[int] = None,
+                 n_items: Optional[int] = None):
+        if is_quantized(user_factors):
+            user_factors = dequantize_rows_np(QuantFactors(
+                _host_array(user_factors.data),
+                _host_array(user_factors.scale)))
+        if is_quantized(item_factors):
+            item_factors = dequantize_rows_np(QuantFactors(
+                _host_array(item_factors.data),
+                _host_array(item_factors.scale)))
+        self._X = _host_array(user_factors)
+        self._Y = _host_array(item_factors)
+        if _is_bf16(self._X):
+            self._X = self._X.astype(np.float32)
+        if _is_bf16(self._Y):
+            self._Y = self._Y.astype(np.float32)
+        self.n_users = int(n_users if n_users is not None
+                           else self._X.shape[0])
+        self.n_items = int(n_items if n_items is not None
+                           else self._Y.shape[0])
+        self._seen = seen or {}
+        self._Yn: Optional[np.ndarray] = None
+
+    def warmup(self, max_k: int = 128, batch_sizes: Tuple[int, ...] = ()
+               ) -> None:
+        """Nothing to build on the host."""
+
+    def close(self) -> None:
+        """Nothing to release (interface parity with DeviceTopK)."""
+
+    def stats(self) -> Dict[str, Dict[str, int]]:
+        """No micro-batcher on the host."""
+        return {}
+
+    def _topk_row(self, scores: np.ndarray, k: int):
+        k = min(k, scores.shape[0])
+        top = np.argpartition(-scores, k - 1)[:k]
+        top = top[np.argsort(-scores[top], kind="stable")]
+        s = scores[top]
+        valid = np.isfinite(s)
+        return top[valid].astype(np.int32), s[valid]
+
+    def _user_scores(self, uid: int) -> np.ndarray:
+        scores = self._Y[:self.n_items] @ self._X[uid]
+        s = self._seen.get(uid)
+        if s is not None and len(s):
+            scores[s[s < self.n_items]] = -np.inf
+        return scores
+
+    def user_topk(self, uid: int, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        return self._topk_row(self._user_scores(uid), k)
+
+    def users_topk(self, uids, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        uids = np.asarray(uids, dtype=np.int64)
+        k = min(k, self.n_items)
+        idx = np.zeros((len(uids), k), dtype=np.int32)
+        scores = np.full((len(uids), k), -np.inf, dtype=np.float32)
+        for row, uid in enumerate(uids):
+            i, s = self._topk_row(self._user_scores(int(uid)), k)
+            idx[row, :len(i)] = i
+            scores[row, :len(s)] = s
+        return idx, scores
+
+    def items_topk(self, idxs, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        if self._Yn is None:
+            Y = self._Y[:self.n_items].astype(np.float32)
+            norms = np.maximum(np.linalg.norm(Y, axis=1, keepdims=True),
+                               1e-12)
+            self._Yn = Y / norms
+        idxs = np.asarray(idxs, dtype=np.int64)
+        scores = self._Yn @ self._Yn[idxs].sum(axis=0)
+        scores[idxs] = -np.inf
+        return self._topk_row(scores, k)
+
+
+# Item-factor elements up to which `auto` serves host factors from
+# HostTopK, from ten readings of chip_smoke.py phase 8a on an NVIDIA
+# H100 80GB HBM3 (power limit 700.00 W) and its 8-core host: fp32
+# factors at rank 64, the device store micro-batched with its 2 ms
+# window. The largest power of two up to which the host lane was no
+# slower both in sequential p50 and in queries/s from 8 threads read
+# 2^17 once, 2^20 three times and 2^21 six times: 2^20 held in nine
+# readings of ten, 2^21 in six, its margin inside the host's spread
+# (at 2^21 the host lane 1,122-3,791 q/s against 1,498-2,398). The host
+# lane's sequential p50 was the lower at every size up to 2^21
+# (0.045-0.32 ms against 3.2-4.8). The same rule picks a host model's
+# batch lane, where HostTopK loops over users: one users_topk of 6,040
+# uids took 325-457 ms at 3,706 items and 672-829 ms at 2^20 elements,
+# against the device store's 1.4-1.9 and 3.4-3.8, so the limit stays
+# at the lower value and ML-20M width (1,711,616) stays on the card.
+HOST_SERVE_MAX_ELEMS = 1 << 20
+
+
+# The serving-policy table: each feature that forces the device backend,
+# and so conflicts with an explicit host backend, as a row of (name,
+# predicate over the policy flags, the message an explicit
+# ``PIO_SERVING_BACKEND=host`` raises when the row is active). Rows,
+# messages and their order are the JAX package's.
+_SERVING_POLICY_ROWS: Tuple[Tuple[str, Callable[[Dict[str, Any]], bool],
+                                  str], ...] = (
+    ("resident",
+     lambda f: not f["host_capable"],
+     "PIO_SERVING_BACKEND=host but the factors are device-resident "
+     "jax Arrays"),
+    ("precision",
+     lambda f: f["explicit_precision"] in ("bf16", "int8"),
+     "PIO_SERVE_PRECISION={explicit_precision} conflicts with "
+     "PIO_SERVING_BACKEND=host: the quantized/bf16 store is a device "
+     "(HBM) policy; host serving is always fp32"),
+    ("foldin",
+     lambda f: f["foldin"],
+     "PIO_FOLDIN=on conflicts with PIO_SERVING_BACKEND=host: "
+     "online fold-in patches the DEVICE factor store in place "
+     "(DeviceTopK.patch_users); host serving has no updatable "
+     "store"),
+    ("sharded",
+     lambda f: f["sharded"],
+     "PIO_SERVE_SHARDS conflicts with PIO_SERVING_BACKEND="
+     "host: sharding the factor store over a mesh is a "
+     "device (HBM) policy; host serving has one store"),
+    ("two_stage",
+     lambda f: f["two_stage"],
+     "two-stage serving conflicts with PIO_SERVING_BACKEND=host: the "
+     "fused retrieval + re-rank top-k runs as ONE device program "
+     "(TwoStageTopK); host serving has no fused candidate lane"),
+)
+
+
+def validate_serving_policy(backend: str, *, host_capable: bool = True,
+                            explicit_precision: Optional[str] = None,
+                            foldin: bool = False, sharded: bool = False,
+                            two_stage: bool = False) -> str:
+    """Rule on one backend / feature combination against
+    :data:`_SERVING_POLICY_ROWS`: ``"host"`` (asked for, and no row
+    forbids it), ``"device"`` (asked for, or an active row forces it) or
+    ``"auto"`` (nothing decided: the caller applies its size rule). An
+    explicit ``host`` raises ``ValueError`` with the first active row's
+    message. An unknown backend falls through to ``auto``."""
+    flags = {"host_capable": bool(host_capable),
+             "explicit_precision": explicit_precision,
+             "foldin": bool(foldin), "sharded": bool(sharded),
+             "two_stage": bool(two_stage)}
+    active = [row for row in _SERVING_POLICY_ROWS if row[1](flags)]
+    if backend == "host":
+        if active:
+            raise ValueError(active[0][2].format(**flags))
+        return "host"
+    if backend == "device" or active:
+        return "device"
+    return "auto"
+
+
+def _on_cuda(f) -> bool:
+    """Whether a factor table is a tensor on a CUDA device."""
+    t = f.data if is_quantized(f) else f
+    return isinstance(t, torch.Tensor) and t.device.type == "cuda"
+
+
+def serving_backend() -> str:
+    """``PIO_SERVING_BACKEND``, trimmed and lower-cased (default auto)."""
+    return os.environ.get("PIO_SERVING_BACKEND", "auto").strip().lower()
+
+
 def choose_server(user_factors, item_factors,
                   seen: Optional[Dict[int, np.ndarray]] = None,
                   n_users: Optional[int] = None,
                   n_items: Optional[int] = None,
-                  device: DeviceLike = None) -> "DeviceTopK":
-    """The server for a model: :class:`DeviceTopK` on ``device`` (None =
-    cuda), at every size. The JAX package's host lane (``HostTopK``,
-    picked below a size rule) is not ported: no run on the card has
-    measured where a host matvec and the device cross over. So an
-    explicit ``PIO_SERVING_BACKEND=host`` raises, naming its ROADMAP
-    item; ``auto``, ``device`` and any other value serve on the device
-    (the JAX package lets an unknown value fall through to auto).
-    Sharded and two-stage stores join this choice with the slices that
-    port them."""
-    backend = os.environ.get("PIO_SERVING_BACKEND", "auto").strip().lower()
-    if backend == "host":
-        raise NotImplementedError(
-            "PIO_SERVING_BACKEND=host: HostTopK is not ported yet "
-            "(ROADMAP A8, the host top-k lane: it waits for a measured "
-            "host/device crossover); unset it or use auto or device")
+                  device=None):
+    """The server for a model, by ``PIO_SERVING_BACKEND``:
+
+    - ``host``: :class:`HostTopK`, unless a policy row forbids it (then
+      ``ValueError`` with the row's message);
+    - ``device``: :class:`DeviceTopK` on ``device`` (None = cuda; a
+      sequence of devices or a :class:`~predictionio_tpu_torch.parallel.
+      mesh.Mesh` is the plane a sharded store spans);
+    - ``auto`` (or any other value): the device store when a policy row
+      forces it (an explicit bf16 / int8 ``PIO_SERVE_PRECISION``,
+      ``PIO_FOLDIN``, ``PIO_SERVE_SHARDS`` > 1, or factors already on a
+      CUDA device), else HostTopK for at most
+      :data:`HOST_SERVE_MAX_ELEMS` item-factor elements and the device
+      store above."""
+    host_capable = not (_on_cuda(user_factors) or _on_cuda(item_factors))
+    decision = validate_serving_policy(
+        serving_backend(), host_capable=host_capable,
+        explicit_precision=_serve_precision_explicit(),
+        foldin=foldin_enabled(), sharded=_serve_shards_env() > 1)
+    if decision == "auto":
+        elems = int(np.prod(item_factors.shape))
+        decision = "host" if host_capable \
+            and elems <= HOST_SERVE_MAX_ELEMS else "device"
+    if decision == "host":
+        return HostTopK(user_factors, item_factors, seen,
+                        n_users=n_users, n_items=n_items)
     return DeviceTopK(user_factors, item_factors, seen,
                       n_users=n_users, n_items=n_items, device=device)
 
@@ -640,11 +883,162 @@ def _dispatch_item_group(srv: "DeviceTopK", group: List[_Pending]) -> None:
             idxs, masks, max(it.k for it in part)))
 
 
+class _ItemShard(NamedTuple):
+    """One shard of a sharded item store: its ``[cap, R]`` block (dense
+    or int8 with scales), its ``[cap]`` validity row (1.0 = a real item),
+    the global position of its first row and its device."""
+
+    Y: Any
+    valid: torch.Tensor
+    offset: int
+    device: torch.device
+
+
+def _explicit_plane(device) -> Optional[List[torch.device]]:
+    """The shard plane ``device`` names: a :class:`~predictionio_tpu_
+    torch.parallel.mesh.Mesh`'s devices or a sequence's (a device may
+    repeat: logical shards on one card), or None for one device."""
+    if hasattr(device, "device_list"):
+        devs = device.device_list()
+    elif isinstance(device, (list, tuple)):
+        devs = list(device)
+    else:
+        return None
+    if not devs:
+        raise ValueError("an empty device plane")
+    return [resolve_device(d) for d in devs]
+
+
+def _default_plane(device: torch.device) -> List[torch.device]:
+    """The plane of a store given one device: every visible card for a
+    CUDA device, the device itself on the CPU."""
+    if device.type == "cuda":
+        from predictionio_tpu_torch.parallel.mesh import default_devices
+
+        return default_devices()
+    return [device]
+
+
+def _store_plane(device) -> List[torch.device]:
+    """The shard plane of a store built with ``device``."""
+    return _explicit_plane(device) or _default_plane(resolve_device(device))
+
+
+def _resolved_shard_count(item_layout, shards: Optional[int],
+                          plane: List[torch.device]) -> int:
+    """The shards a store asks for (``shards``, else PIO_SERVE_SHARDS,
+    else a layout's count), clamped with a warning to the plane's
+    devices, as the JAX package clamps to its visible devices."""
+    n_req = int(shards) if shards is not None else _serve_shards_env()
+    if item_layout is not None and n_req <= 1:
+        n_req = item_layout.n_shards
+    if n_req > 1 and len(plane) < n_req:
+        import logging
+
+        logging.getLogger("pio.serving").warning(
+            "requested %d serve shards but only %d device(s) "
+            "are visible; clamping", n_req, len(plane))
+        n_req = len(plane)
+    return n_req
+
+
+def _to_store_device(f, dev: torch.device):
+    if f is None:
+        return None
+    if is_quantized(f):
+        return QuantFactors(f.data.to(dev), f.scale.to(dev))
+    return f.to(dev)
+
+
+def _tree_merge_topk(vals: List[torch.Tensor], idx: List[torch.Tensor],
+                     k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge the shards' candidate lists (each ``[B, k]``, descending,
+    global positions) into the global top k on the first list's device:
+    a stable descending sort of the lists concatenated in shard order, so
+    a score tie goes to the lower shard, and within a shard to its own
+    order (the lower position). The JAX package's butterfly of pairwise
+    merges and its all-gather reach this answer; in one process the
+    lists are simply joined."""
+    home = vals[0].device
+    cv = torch.cat([v.to(home) for v in vals], dim=1)
+    ci = torch.cat([i.to(home) for i in idx], dim=1)
+    v, sel = torch.sort(cv, dim=1, descending=True, stable=True)
+    return v[:, :k].contiguous(), torch.gather(ci, 1, sel[:, :k])
+
+
+def _sharded_score_topk(shards: List[_ItemShard], Q: torch.Tensor,
+                        sc_q: Optional[torch.Tensor],
+                        sm_q: Optional[torch.Tensor], *, k: int,
+                        mask_seen: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Score + mask + top-k over a sharded item store: each shard runs
+    the serving kernel (:func:`~.als_cuda.fused_gather_score_topk`, B1)
+    once on its own ``[m, R]`` block, with its validity row, the queries'
+    shard-local seen positions (-1 with mask 0 outside the shard) and
+    ``k_local = min(k, m)``, padded to k with -inf; the lists merge by
+    :func:`_tree_merge_topk`.
+
+    ``Q [B, R]`` fp32 queries; ``sc_q`` / ``sm_q`` ``[B, L]`` each query's
+    masked store positions and mask, on the first shard's device. The
+    shards are the layout's equal blocks of ``m`` rows, shard ``s`` at
+    position ``s * m``: every shard's local positions are translated at
+    once, as one ``[n_shards, L, B]`` table. Returns ``(vals [B, k] f32,
+    positions [B, k] i32)`` on the first shard's device."""
+    out_v: List[torch.Tensor] = []
+    out_i: List[torch.Tensor] = []
+    m = int(shards[0].valid.shape[0])
+    kl = min(k, m)
+    lc_all = lm_all = None
+    if mask_seen:
+        starts = torch.arange(len(shards), dtype=sc_q.dtype,
+                              device=sc_q.device) * m
+        loc = sc_q[None] - starts[:, None, None]
+        inside = (loc >= 0) & (loc < m) & (sm_q[None] > 0)
+        lc_all = torch.where(inside, loc, -1).transpose(1, 2)
+        lm_all = inside.transpose(1, 2).float()
+    for s, sh in enumerate(shards):
+        lc = lm = None
+        if mask_seen:
+            lc, lm = lc_all[s].to(sh.device), lm_all[s].to(sh.device)
+        vals, li = fused_gather_score_topk(
+            Q.to(sh.device), sh.Y, lc, lm, k=kl, n_items=m,
+            mask_seen=mask_seen, row_valid=sh.valid)
+        if kl < k:  # a small shard: pad its list
+            vals = torch.cat([vals, vals.new_full((vals.shape[0], k - kl),
+                                                  float("-inf"))], dim=1)
+            li = torch.cat([li, li.new_zeros((li.shape[0], k - kl))], dim=1)
+        out_v.append(vals)
+        out_i.append(li + sh.offset)
+    return _tree_merge_topk(out_v, out_i, k)
+
+
+def _gather_positions_f32(shards: List[_ItemShard],
+                          pos: torch.Tensor) -> torch.Tensor:
+    """Rows of a sharded item store gathered by global position (any
+    index shape) as fp32 on the first shard's device: each shard gives
+    the rows it holds, zeros elsewhere, and the parts are summed."""
+    home = shards[0].device
+    out = None
+    for sh in shards:
+        m = int(sh.valid.shape[0])
+        loc = pos - sh.offset
+        inside = (loc >= 0) & (loc < m)
+        rows = _gather_rows_f32(sh.Y, loc.clamp(0, m - 1).to(sh.device))
+        part = rows.to(home) * inside[..., None]
+        out = part if out is None else out + part
+    return out
+
+
 class DeviceTopK:
-    """Top-N server over factor tables resident on one device.
+    """Top-N server over factor tables resident on one device or
+    sharded over several.
 
     ``user_factors``/``item_factors`` are numpy arrays, tensors, or
     :class:`QuantFactors`; they are copied to ``device`` (None = cuda).
+    ``device`` may also be a sequence of devices or a :class:`~predictionio_
+    tpu_torch.parallel.mesh.Mesh`: the plane a sharded store spans
+    (``item_layout``, ``shards`` or ``PIO_SERVE_SHARDS``; see
+    :meth:`_setup_sharded_store`). A sharded store answers in item ids,
+    ties in store-position order.
     The store's precision is ``PIO_SERVE_PRECISION`` when set, else bf16
     on the GPU and fp32 on the CPU; an input that is already int8 with
     scales stays int8. Scores always accumulate and return in fp32.
@@ -666,8 +1060,11 @@ class DeviceTopK:
                  n_users: Optional[int] = None,
                  n_items: Optional[int] = None,
                  microbatch: Optional[bool] = None,
-                 device: DeviceLike = None):
-        self.device = resolve_device(device)
+                 device=None,
+                 item_layout=None,
+                 shards: Optional[int] = None):
+        plane = _explicit_plane(device)
+        self.device = plane[0] if plane else resolve_device(device)
         self._yn_lock = threading.Lock()
         self._store_lock = threading.RLock()
         # one entry per patch that grew the store: the shapes before and
@@ -701,15 +1098,145 @@ class DeviceTopK:
                            else self._X.shape[0])
         self.n_items = int(n_items if n_items is not None
                            else self._Y.shape[0])
-        self._Y = _pad_item_rows_for_kernel(self._Y)
+        # a sharded store (an item layout, ``shards`` or PIO_SERVE_SHARDS
+        # over a plane of several devices) holds its items as one block a
+        # shard, each on its device, in the layout's position order;
+        # ``_Y`` is then None and ``_shards`` the blocks
+        self._shards: Optional[List[_ItemShard]] = None
+        self._layout = None
+        self._perm_np: Optional[np.ndarray] = None
+        self._inv_np: Optional[np.ndarray] = None
+        self._setup_sharded_store(item_layout, shards, seen, plane)
+        if self._shards is None:
+            self._Y = _pad_item_rows_for_kernel(self._Y)
         self._mask_seen = bool(seen)
         self._seen_cols = self._seen_mask = None
         if self._mask_seen:
-            cols, mask = seen_tables(seen, int(self._X.shape[0]))
+            cols, mask = seen_tables(self._translate_seen(seen),
+                                     int(self._X.shape[0]))
             self._seen_cols = torch.from_numpy(cols).to(self.device)
             self._seen_mask = torch.from_numpy(mask).to(self.device)
         self._Yn = None  # normalized item table, built on first item query
         _live_servers.add(self)
+
+    def _setup_sharded_store(self, item_layout, shards: Optional[int],
+                             seen, plane: Optional[List[torch.device]]
+                             ) -> None:
+        """Place the store over a shard plane when sharding is asked for:
+        an ``item_layout``, ``shards`` or ``PIO_SERVE_SHARDS`` above 1,
+        clamped (with a warning) to the devices of the plane: ``device``
+        when it is a sequence or a :class:`~predictionio_tpu_torch.
+        parallel.mesh.Mesh`, else every visible card (one device on the
+        CPU). Without a layout of that shard count, the density-aware
+        layout is derived from ``seen`` (the seen sets are the
+        interaction sets). The item rows are permuted into the layout
+        (pad slots zero, int8 scale 1) and split into one contiguous
+        ``[cap, R]`` block per shard on its device. The user table and
+        the seen tables stay on the first shard's device; the user rows
+        are padded to a multiple of the shard count."""
+        plane = plane or _default_plane(self.device)
+        n_sh = _resolved_shard_count(item_layout, shards, plane)
+        if n_sh <= 1:
+            return
+        from predictionio_tpu_torch.parallel.als_sharding import (
+            density_aware_item_layout,
+        )
+
+        layout = item_layout
+        if layout is None or layout.n_shards != n_sh:
+            counts = np.zeros(self.n_items, dtype=np.int64)
+            if seen:
+                for items in seen.values():
+                    it = np.asarray(items, dtype=np.int64)
+                    it = it[(it >= 0) & (it < self.n_items)]
+                    np.add.at(counts, it, 1)
+            layout = density_aware_item_layout(counts, n_sh)
+        devices = plane[:n_sh]
+        self.device = devices[0]
+        self._X = _to_store_device(self._X, self.device)
+        self._Y = _to_store_device(self._Y, self.device)
+        perm = torch.from_numpy(layout.perm).to(self.device)
+        real = perm >= 0
+        src = perm.clamp(0, max(int(self._Y.shape[0]) - 1, 0))
+
+        def perm_rows(a, fill):
+            out = a[src]
+            keep = real.view((-1,) + (1,) * (out.ndim - 1))
+            return torch.where(keep, out, out.new_full((), fill))
+
+        if is_quantized(self._Y):
+            Yp = QuantFactors(perm_rows(self._Y.data, 0),
+                              perm_rows(self._Y.scale, 1.0))
+        else:
+            Yp = perm_rows(self._Y, 0.0)
+        valid = torch.from_numpy(layout.valid_mask())
+        cap = layout.cap
+        blocks = []
+        for s, dev in enumerate(devices):
+            rows = slice(s * cap, (s + 1) * cap)
+            if is_quantized(Yp):
+                block = QuantFactors(Yp.data[rows].contiguous().to(dev),
+                                     Yp.scale[rows].contiguous().to(dev))
+            else:
+                block = Yp[rows].contiguous().to(dev)
+            blocks.append(_ItemShard(block, valid[rows].to(dev),
+                                     s * cap, dev))
+        pad = (-int(self._X.shape[0])) % n_sh
+        if pad:
+            X = self._X
+            if is_quantized(X):
+                self._X = QuantFactors(
+                    _grown(X.data, (X.data.shape[0] + pad, X.data.shape[1])),
+                    _grown(X.scale, (X.scale.shape[0] + pad,), 1.0))
+            else:
+                self._X = _grown(X, (X.shape[0] + pad, X.shape[1]))
+        self._Y = None
+        self._shards = blocks
+        self._layout = layout
+        self._perm_np = layout.perm
+        self._inv_np = layout.inv
+
+    def _translate_seen(self, seen):
+        """Item-id seen sets -> store-position seen sets (the identity
+        without a layout). Ids outside ``[0, n_items)`` are dropped:
+        they have no position."""
+        if self._inv_np is None or not seen:
+            return seen
+        inv = self._inv_np
+        out = {}
+        for u, items in seen.items():
+            it = np.asarray(items, dtype=np.int64)
+            it = it[(it >= 0) & (it < self.n_items)]
+            out[u] = inv[it]
+        return out
+
+    def _positions_to_items(self, idx: np.ndarray) -> np.ndarray:
+        """Store positions (the top-k's output) -> item ids on the host.
+        A pad position, or the unspecified id of a -inf slot, maps to -1;
+        every caller drops non-finite scores."""
+        if self._perm_np is None:
+            return idx
+        perm = self._perm_np
+        inside = (idx >= 0) & (idx < len(perm))
+        return np.where(inside, perm[np.where(inside, idx, 0)],
+                        -1).astype(np.int32)
+
+    def _items_to_positions(self, idxs: np.ndarray) -> np.ndarray:
+        """Item ids (a similarity query's input) -> store positions."""
+        if self._inv_np is None:
+            return idxs
+        return self._inv_np[idxs].astype(np.int32)
+
+    @property
+    def shard_count(self) -> int:
+        """Shards the item store spans (1 = a single store)."""
+        return 1 if self._shards is None else len(self._shards)
+
+    @property
+    def item_layout(self):
+        """The :class:`~predictionio_tpu_torch.parallel.als_sharding.
+        ItemShardLayout` of a sharded store, or None."""
+        return self._layout
 
     def _to_device(self, a) -> torch.Tensor:
         if isinstance(a, torch.Tensor):
@@ -771,10 +1298,17 @@ class DeviceTopK:
             X, Y, Yn = self._X, self._Y, self._Yn
             sc, sm = self._seen_cols, self._seen_mask
             n_users, n_items = self.n_users, self.n_items
+            shards, layout = self._shards, self._layout
+        if shards is not None:
+            Y = _joined_component([sh.Y for sh in shards])
+            Yn = None if Yn is None else _joined_component(
+                [sh.Y for sh in Yn])
+        else:
+            Y, Yn = _component(Y), _component(Yn)
         components: Dict[str, Any] = {
             "userFactors": _component(X),
-            "itemFactors": _component(Y),
-            "normalizedItems": _component(Yn),
+            "itemFactors": Y,
+            "normalizedItems": Yn,
             "seen": {"bytes": int(sc.nbytes + sm.nbytes),
                      "dtype": f"{_dtype_name(sc.dtype)}+"
                               f"{_dtype_name(sm.dtype)}",
@@ -783,10 +1317,31 @@ class DeviceTopK:
         }
         total = sum(c["bytes"] + c.get("scaleBytes", 0)
                     for c in components.values() if c is not None)
-        return {"precision": self._mode, "kernel": "fused",
-                "nUsers": n_users, "nItems": n_items,
-                "userCapacity": int(X.shape[0]),
-                "components": components, "totalBytes": int(total)}
+        report = {"precision": self._mode, "kernel": "fused",
+                  "nUsers": n_users, "nItems": n_items,
+                  "userCapacity": int(X.shape[0]),
+                  "components": components, "totalBytes": int(total)}
+        if shards is not None:
+            # each shard's slice, items and interaction mass (the
+            # aggregate hides a hot shard), in the JAX package's terms:
+            # every table's bytes divided evenly over the shards
+            n_sh = len(shards)
+
+            def per_shard(c) -> int:
+                return 0 if c is None else \
+                    (c["bytes"] + c.get("scaleBytes", 0)) // n_sh
+
+            items, mass = layout.items_per_shard, layout.counts_per_shard
+            factor_bytes = sum(per_shard(components[name]) for name in (
+                "userFactors", "itemFactors", "normalizedItems"))
+            report["shardAxis"] = "data"
+            report["nShards"] = n_sh
+            report["shards"] = [{"shard": s, "factorBytes": int(factor_bytes),
+                                 "items": int(items[s]),
+                                 "interactions": int(mass[s])}
+                                for s in range(n_sh)]
+            report["shardBalance"] = layout.balance_report()
+        return report
 
     def ladder_report(self) -> Dict[str, Any]:
         """The AOT ladder's coverage and footprint in the JAX package's
@@ -893,11 +1448,31 @@ class DeviceTopK:
             if self._mask_seen:  # the [B, L] rows, read as [L, B] views
                 sc, sm = self._seen_cols[u].T, self._seen_mask[u].T
             Q = _gather_rows_f32(self._X, u)
+        if self._shards is not None:
+            idx, scores = self._timed_fetch(
+                lane, kb, len(uids), lambda events: self._sharded_launch(
+                    Q, sc.T if self._mask_seen else None,
+                    sm.T if self._mask_seen else None, kb, self._mask_seen,
+                    self._shards, events))
+            return self._positions_to_items(idx[:, :k]), scores[:, :k]
         idx, scores = self._timed_fetch(
             lane, kb, len(uids), lambda events: fused_gather_score_topk(
                 Q, self._Y, sc, sm, k=kb, n_items=self.n_items,
                 mask_seen=self._mask_seen, events=events))
         return idx[:, :k], scores[:, :k]
+
+    def _sharded_launch(self, Q, sc_q, sm_q, kb: int, mask_seen: bool,
+                        shards: List[_ItemShard], events):
+        """:func:`_sharded_score_topk` with the dispatch's CUDA events
+        recorded on the first shard's stream around every shard's launch
+        and the merge."""
+        if events is not None:
+            events[0].record(torch.cuda.current_stream(self.device))
+        out = _sharded_score_topk(shards, Q, sc_q, sm_q, k=kb,
+                                  mask_seen=mask_seen)
+        if events is not None:
+            events[1].record(torch.cuda.current_stream(self.device))
+        return out
 
     def items_topk(self, idxs, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """Item-similarity top-k (summed cosine) for a list of query item
@@ -925,10 +1500,15 @@ class DeviceTopK:
 
     def _normalized_items(self):
         """Row-normalized item table for similarity queries, built once
-        on first use."""
+        on first use (on a sharded store, each shard's block on its
+        device, with its validity row)."""
         with self._yn_lock:
             if self._Yn is None:
-                self._Yn = _normalize_rows(self._Y)
+                if self._shards is not None:
+                    self._Yn = [sh._replace(Y=_normalize_rows(sh.Y))
+                                for sh in self._shards]
+                else:
+                    self._Yn = _normalize_rows(self._Y)
             return self._Yn
 
     def _items_topk_batched(self, idxs: np.ndarray, masks: np.ndarray,
@@ -942,11 +1522,22 @@ class DeviceTopK:
         if not in_range.all():
             masks = masks * in_range.astype(masks.dtype)
             idxs = np.where(in_range, idxs, 0).astype(idxs.dtype)
+        # a sharded store lives in position space: the query items are
+        # translated in, the winners out (on the host, k a query)
+        idxs = self._items_to_positions(idxs)
         Yn = self._normalized_items()
         it = torch.from_numpy(np.ascontiguousarray(idxs, dtype=np.int32)
                               ).to(self.device)
         mt = torch.from_numpy(np.ascontiguousarray(masks, dtype=np.float32)
                               ).to(self.device)
+        if self._shards is not None:
+            qf = _gather_positions_f32(Yn, it.long())        # [G, B, R]
+            Q = (qf * mt[..., None]).sum(dim=1)              # [G, R]
+            idx, scores = self._timed_fetch(
+                "items", kb, int(idxs.shape[0]),
+                lambda events: self._sharded_launch(
+                    Q, it, mt, kb, True, Yn, events))
+            return self._positions_to_items(idx), scores
         qf = _gather_rows_f32(Yn, it.long())                 # [G, B, R]
         Q = (qf * mt[..., None]).sum(dim=1)                  # [G, R]
         return self._timed_fetch(
@@ -976,8 +1567,18 @@ class DeviceTopK:
         against a bf16 store reads the served rows directly); any other
         store is cast through fp32."""
         with self._store_lock:
-            Y = self._Y
+            Y, shards = self._Y, self._shards
         n = self.n_items
+        if shards is not None:
+            # a sharded store hands back item-id order (the fold-in
+            # solve indexes by item id, not by store position)
+            inv = torch.from_numpy(self._inv_np).to(self.device)
+            parts = [_to_store_device(sh.Y, self.device) for sh in shards]
+            if is_quantized(parts[0]):
+                Y = QuantFactors(torch.cat([p.data for p in parts])[inv],
+                                 torch.cat([p.scale for p in parts])[inv])
+            else:
+                Y = torch.cat(parts)[inv]
         if is_quantized(Y):
             Yn = dequantize_rows(QuantFactors(Y.data[:n], Y.scale[:n]))
         else:
@@ -1046,6 +1647,8 @@ class DeviceTopK:
             return
         if uids.min() < 0:
             raise ValueError("patch_users: negative user index")
+        if seen_items:
+            seen_items = self._translate_seen(seen_items)
         dev = self.device
         idx = torch.from_numpy(uids).to(dev)
         if self._mode == "int8":
@@ -1069,6 +1672,10 @@ class DeviceTopK:
             cap = int(X.shape[0])
             if needed > cap:
                 new_cap = _bucket(needed, lo=max(cap, 16))
+                # a sharded store's user rows stay a multiple of its
+                # shard count
+                n_sh = self.shard_count
+                new_cap = -(-new_cap // n_sh) * n_sh
                 if is_quantized(X):
                     X = QuantFactors(
                         _grown(X.data, (new_cap, X.data.shape[1])),

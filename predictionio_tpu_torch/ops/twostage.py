@@ -28,7 +28,8 @@ of the whole catalog: at N = the catalog the two are equal.
 Not ported: the AOT ladder entries (``aot_plan``, ``_aot_lower_entry``,
 ``_warm_entry``: the port has no ladder yet, and :meth:`warmup` runs one
 two-stage query per lane instead), the sharded program and the
-density-permuted ``pos_ids`` layout (ROADMAP A6).
+density-permuted ``pos_ids`` layout (ROADMAP A6.5): a two-stage store
+over more than one shard raises.
 """
 
 from __future__ import annotations
@@ -57,8 +58,15 @@ from predictionio_tpu_torch.ops.serving import (
     _component,
     _gather_rows_f32,
     _grown,
+    _on_cuda,
     _Pending,
+    _resolved_shard_count,
+    _serve_precision_explicit,
+    _serve_shards_env,
+    _store_plane,
     foldin_enabled,
+    serving_backend,
+    validate_serving_policy,
 )
 from predictionio_tpu_torch.utils.tracing import span as _trace_span
 
@@ -149,9 +157,14 @@ class TwoStageTopK(DeviceTopK):
                  n_items: Optional[int] = None,
                  microbatch: Optional[bool] = None,
                  device: DeviceLike = None):
+        if _resolved_shard_count(None, None, _store_plane(device)) > 1:
+            raise NotImplementedError(
+                "two-stage serving over several shards (PIO_SERVE_SHARDS "
+                "> 1) is not ported yet (ROADMAP A6.5, two-stage serving's "
+                "sharded program); unset PIO_SERVE_SHARDS")
         super().__init__(user_factors, item_factors, seen, n_users=n_users,
                          n_items=n_items, microbatch=microbatch,
-                         device=device)
+                         device=device, shards=1)
         self._two_batcher: Optional[BatchLane] = None
         if self._dispatcher is not None:
             self._two_batcher = self._dispatcher.add_lane(
@@ -551,9 +564,10 @@ def build_two_stage_store(retrieval_model, rerank_model,
     ``item_factors`` / ``user_map`` / ``item_map``), ``rerank_model``
     seqrec-shaped (``user_vectors`` / ``item_vectors``), both over one
     user and item map. Refused at load, never at query time: an explicit
-    ``PIO_SERVING_BACKEND=host`` (the host lane is not ported, ROADMAP
-    A8), mismatched maps, and fold-in (``PIO_FOLDIN``) with a re-ranker
-    that cannot re-encode (no ``fold_in_rows``)."""
+    ``PIO_SERVING_BACKEND=host`` (the serving-policy table's
+    ``two_stage`` row: the host lane has no two-stage store), mismatched
+    maps, and fold-in (``PIO_FOLDIN``) with a re-ranker that cannot
+    re-encode (no ``fold_in_rows``)."""
     for attr in ("user_factors", "item_factors", "user_map", "item_map"):
         if getattr(retrieval_model, attr, None) is None:
             raise ValueError(
@@ -580,12 +594,13 @@ def build_two_stage_store(retrieval_model, rerank_model,
             f"({len(retrieval_model.user_map)} vs "
             f"{len(rerank_model.user_map)}) — both algorithms must "
             "train from one Preparator with one shared user map")
-    backend = os.environ.get("PIO_SERVING_BACKEND", "auto").strip().lower()
-    if backend == "host":
-        raise NotImplementedError(
-            "PIO_SERVING_BACKEND=host: two-stage serving runs on the "
-            "device store, and the host top-k lane is not ported yet "
-            "(ROADMAP A8); unset it or use auto or device")
+    validate_serving_policy(
+        serving_backend(),
+        host_capable=not (_on_cuda(retrieval_model.user_factors)
+                          or _on_cuda(retrieval_model.item_factors)),
+        explicit_precision=_serve_precision_explicit(),
+        foldin=foldin_enabled(), sharded=_serve_shards_env() > 1,
+        two_stage=True)
     if foldin_enabled() and not callable(
             getattr(rerank_model, "fold_in_rows", None)):
         raise ValueError(

@@ -480,9 +480,17 @@ class _DeviceServedModel:
     the host fields (they rebuild on demand)."""
 
     _server: Any = None
+    # the device plane a deployment hands the model (its context's mesh,
+    # ``ComputeContext.serving_plane``); None serves on ``device``
+    serve_plane: Any = None
 
     def _make_server(self):
         raise NotImplementedError
+
+    def _serve_device(self):
+        """Where the store is built: the deployment's plane, else the
+        model's ``device``."""
+        return self.device if self.serve_plane is None else self.serve_plane
 
     def device_server(self):
         with self._server_lock:
@@ -494,6 +502,7 @@ class _DeviceServedModel:
         state = self.__dict__.copy()
         state["_server"] = None
         state.pop("_server_lock", None)
+        state.pop("serve_plane", None)
         state.pop("_cat_index", None)
         state.pop("_cat_black_cache", None)
         state.pop("_theta_device", None)  # the sequentialrec device cache
@@ -525,7 +534,7 @@ class ALSModel(_DeviceServedModel):
         from predictionio_tpu_torch.ops.serving import choose_server
 
         return choose_server(self.user_factors, self.item_factors, self.seen,
-                             device=self.device)
+                             device=self._serve_device())
 
     def sanity_check(self) -> None:
         assert np.isfinite(self.user_factors).all(), "non-finite user factors"

@@ -396,7 +396,7 @@ class SeqRecModel(_DeviceServedModel):
         from predictionio_tpu_torch.ops.serving import choose_server
 
         return choose_server(self.user_vectors, self.item_vectors,
-                             self.seen, device=self.device)
+                             self.seen, device=self._serve_device())
 
     def _device_theta(self):
         """θ as device tensors, cached (a fold would otherwise copy the

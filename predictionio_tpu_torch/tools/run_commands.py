@@ -18,7 +18,7 @@ SIGTERM/SIGINT drain at the next chunk boundary). ``eval`` runs an
 ``batchpredict`` scores a query file (or every known entity) through
 a stored instance in restartable chunks on ``--device``. Options whose
 modules are not ported yet raise and name their ROADMAP item: the
-distributed options (A6). ``deploy --foldin on`` runs the online fold-in
+distributed training options (A6.3). ``deploy --foldin on`` runs the online fold-in
 consumer, ``deploy --feedback --accesskey K`` posts each answered query
 to the event server, and ``deploy --fleet N`` serves N replicas behind
 one balancer (``--slo-config`` sets its SLO objectives).
@@ -112,8 +112,8 @@ def _refuse_unported_train_options(args) -> None:
             or getattr(args, "process_id", None) is not None:
         raise NotImplementedError(
             "training across several hosts (--num-hosts, --coordinator, "
-            "--process-id) is not ported yet (ROADMAP A6, the sharded "
-            "store and trainers)")
+            "--process-id) is not ported yet (ROADMAP A6.3, the sharded "
+            "trainers)")
 
 
 def _apply_precision_flag(args) -> None:

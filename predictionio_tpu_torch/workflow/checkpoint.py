@@ -54,7 +54,7 @@ Design:
   only an all-dead grid aborts.
 
 Not in this slice: checkpoints of training sharded over several devices
-or hosts (ROADMAP A6).
+or hosts (ROADMAP A6.3).
 """
 
 from __future__ import annotations

@@ -14,7 +14,7 @@ A stored blob is a pickle. The port unpickles it through
 :class:`PortUnpickler`, which refuses every class of the JAX package
 (``predictionio_tpu`` and below) without importing it: a model the JAX
 package stored raises ``StorageError`` naming the class. Training across
-several hosts comes with ROADMAP queue A item 6: ``run_train`` raises
+several hosts comes with ROADMAP A6.3: ``run_train`` raises
 when ``torch.distributed`` spans more than one process.
 """
 
@@ -39,7 +39,10 @@ from predictionio_tpu_torch.core.base import (
     TrainingInterruption,
     WorkflowParams,
 )
-from predictionio_tpu_torch.core.context import ComputeContext
+from predictionio_tpu_torch.core.context import (
+    ComputeContext,
+    workflow_context,
+)
 from predictionio_tpu_torch.data import storage
 from predictionio_tpu_torch.data.storage.base import (
     EngineInstance,
@@ -140,9 +143,10 @@ def run_train(engine: Engine, engine_params: EngineParams,
     if _multi_process():
         raise NotImplementedError(
             "run_train across several processes is not ported yet "
-            "(ROADMAP queue A item 6, the sharded trainers)")
+            "(ROADMAP A6.3, the sharded trainers)")
     params = params or WorkflowParams()
-    ctx = ctx or ComputeContext()
+    ctx = ctx or workflow_context(
+        mode="train", batch=params.batch or engine_instance.batch)
     engine_instances = storage.get_metadata_engine_instances()
     instance_id = engine_instances.insert(engine_instance)
     instance = engine_instances.get(instance_id)
@@ -186,7 +190,7 @@ def run_evaluation(engine: Engine,
     ``no_save``), ``FAILED`` when anything raises. ``ctx`` names the
     device (None = cuda)."""
     params = params or WorkflowParams()
-    ctx = ctx or ComputeContext()
+    ctx = ctx or workflow_context(mode="eval", batch=params.batch)
     evaluation_instances = storage.get_metadata_evaluation_instances()
     instance_id = evaluation_instances.insert(evaluation_instance)
     logger.info("Starting evaluation instance ID: %s", instance_id)

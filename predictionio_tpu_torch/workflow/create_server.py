@@ -68,7 +68,10 @@ from predictionio_tpu_torch.controller.engine import (
     EngineParams,
     params_from_dict,
 )
-from predictionio_tpu_torch.core.context import ComputeContext
+from predictionio_tpu_torch.core.context import (
+    ComputeContext,
+    workflow_context,
+)
 from predictionio_tpu_torch.data import storage
 from predictionio_tpu_torch.data.event import new_event_id
 from predictionio_tpu_torch.data.storage.base import (
@@ -290,9 +293,11 @@ def build_deployment(instance: EngineInstance,
     snapshot, its stored models (``deserialize_models``, which refuses
     the JAX package's classes, then ``prepare_deploy``). The models
     serve on the device ``ctx`` names (None = cuda), whatever device
-    they trained on."""
-    ctx = ctx or ComputeContext()
+    they trained on; a context given its devices is the plane their
+    stores span (``ComputeContext.serving_plane``)."""
+    ctx = ctx or workflow_context(mode="serving")
     dev = resolve_device(ctx.device)
+    plane = ctx.serving_plane
     if engine is None:
         engine = core_workflow.load_engine_factory(instance.engine_factory)()
     engine_params = engine_instance_to_engine_params(engine, instance)
@@ -310,6 +315,8 @@ def build_deployment(instance: EngineInstance,
         if dataclasses.is_dataclass(model) and "device" in {
                 f.name for f in dataclasses.fields(model)}:
             model.device = str(dev)
+            if plane is not None and hasattr(model, "serve_plane"):
+                model.serve_plane = plane
     return deployment_from_models(engine, engine_params, models,
                                   instance=instance, ctx=ctx)
 

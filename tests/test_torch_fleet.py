@@ -582,6 +582,13 @@ def test_status_text_equals_jax(port_cluster, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
+@pytest.fixture
+def foldin_env(monkeypatch):
+    """A fold-in deployment's environment: PIO_FOLDIN forces the device
+    store the fold patches."""
+    monkeypatch.setenv("PIO_FOLDIN", "1")
+
+
 def _fold_setup(source_cfg):
     """A small model (its own factors, maps, seen lists) deployed on the
     CPU over ``source_cfg``'s event store, and a fold-in consumer tailing
@@ -629,7 +636,8 @@ def _rows(model):
             for u in model.user_map.labels}
 
 
-def test_foldin_over_fleet_equals_single_store(port_cluster, tmp_path):
+def test_foldin_over_fleet_equals_single_store(port_cluster, tmp_path,
+                                              foldin_env):
     users = ["n1", "n2", "u3", "n3", "u7", "n4"]
     try:
         single, c1, le1, aid1 = _fold_setup({"type": "memory"})
@@ -649,7 +657,8 @@ def test_foldin_over_fleet_equals_single_store(port_cluster, tmp_path):
         tstorage.reset()
 
 
-def test_fold_gather_reads_each_user_from_its_shard(port_cluster):
+def test_fold_gather_reads_each_user_from_its_shard(port_cluster,
+                                                   foldin_env):
     """A gather of more than 4 users over a fleet is one entity read of
     each user's owner shard, never a scan of every shard."""
     from predictionio_tpu_torch.data.storage.observed import unwrap
@@ -676,7 +685,7 @@ def test_fold_gather_reads_each_user_from_its_shard(port_cluster):
         tstorage.reset()
 
 
-def test_dead_shard_delays_folds_never_drops(tmp_path):
+def test_dead_shard_delays_folds_never_drops(tmp_path, foldin_env):
     c = ShardCluster("port", "jsonlfs", tmp_path)
     try:
         model, consumer, le, aid = _fold_setup(dict({"type": "fleet"},

@@ -119,6 +119,10 @@ iid = create_workflow(
      "algorithms": [{"name": "als", "params": {"rank": 3,
                                                "numIterations": 1}}]},
     ctx=ComputeContext(device="cpu"))
+# a fold-in deployment: PIO_FOLDIN forces the device store the fold
+# patches (the queries above served from the host lane)
+import os
+os.environ["PIO_FOLDIN"] = "1"
 dep = build_deployment(resolve_engine_instance(None),
                        ComputeContext(device="cpu"))
 assert dep.instance.id == iid
@@ -432,7 +436,8 @@ def test_networked_store_runs_with_jax_unimportable(tmp_path):
     source (four port event servers over ``jsonlfs``, in the process), in
     a process where ``jax`` and ``predictionio_tpu`` cannot be
     imported."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # a fold-in deployment: PIO_FOLDIN forces the device store
+    env = dict(os.environ, PYTHONPATH=str(ROOT), PIO_FOLDIN="1")
     proc = subprocess.run([sys.executable, "-c", NETWORKED_RUN,
                            str(tmp_path)], env=env, cwd=tmp_path,
                           capture_output=True, text=True, timeout=120)

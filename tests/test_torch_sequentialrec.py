@@ -272,16 +272,29 @@ QUERIES = [{"user": f"u{u}", "num": n} for u, n in
     {"user": "nobody", "num": 4}, {"items": ["i1", "i4"], "num": 5}]
 
 
-def test_carried_model_answers_as_jax(carried):
+def test_carried_model_answers_as_jax(carried, monkeypatch):
+    """Under ``auto`` this size serves from the host lane (as JAX's
+    does); under ``device`` from the fp32 device store. Both answer as
+    JAX's model."""
+    from predictionio_tpu_torch.ops import serving as tserving
+
     jalgo, jmodel, talgo, tmodel = carried
-    assert tmodel.device_server().precision == "fp32"
-    for q in QUERIES:
-        assert_same_answer(scored(talgo.predict(tmodel, q)),
-                           scored(jalgo.predict(jmodel, jseq.Query(
-                               user=q.get("user"),
-                               items=tuple(q.get("items", ())),
-                               num=q["num"],
-                               blacklist=tuple(q.get("blacklist", ()))))))
+    for backend, lane in (("auto", tserving.HostTopK),
+                          ("device", tserving.DeviceTopK)):
+        monkeypatch.setenv("PIO_SERVING_BACKEND", backend)
+        tmodel._server = None
+        assert isinstance(tmodel.device_server(), lane)
+        if lane is tserving.DeviceTopK:
+            assert tmodel.device_server().precision == "fp32"
+        for q in QUERIES:
+            assert_same_answer(scored(talgo.predict(tmodel, q)),
+                               scored(jalgo.predict(jmodel, jseq.Query(
+                                   user=q.get("user"),
+                                   items=tuple(q.get("items", ())),
+                                   num=q["num"],
+                                   blacklist=tuple(q.get("blacklist",
+                                                         ()))))))
+        tmodel.device_server().close()
 
 
 def test_batch_predict_equals_single_queries(carried):

@@ -19,8 +19,10 @@ and the serving-backend switch.
 - ``pio top``'s ``render`` gives the JAX text on the same dicts, fleet
   and alert blocks included; ``pio-torch top --once`` reads a port
   deploy.
-- ``PIO_SERVING_BACKEND=host`` raises naming its item; ``auto``,
-  ``device`` and an unknown value serve.
+- ``PIO_SERVING_BACKEND=host`` serves from ``HostTopK`` and raises
+  naming its policy row where a row forbids it; ``auto``, ``device``
+  and an unknown value serve from the device store above the host
+  lane's limit.
 """
 
 import copy
@@ -416,15 +418,25 @@ def test_top_once_reports_an_unreachable_server(capsys):
 
 @pytest.mark.parametrize("backend", ["host", "HOST", " host "])
 def test_host_backend_raises_naming_its_item(monkeypatch, backend):
+    """The host backend serves from HostTopK, and raises with the policy
+    row's message (the JAX package's) where a row forbids it: here an
+    explicit bf16 store."""
     monkeypatch.setenv("PIO_SERVING_BACKEND", backend)
     X = np.ones((3, 4), np.float32)
-    with pytest.raises(NotImplementedError, match="HostTopK.*ROADMAP A8"):
+    assert isinstance(tserving.choose_server(X, X, device="cpu"),
+                      tserving.HostTopK)
+    monkeypatch.setenv("PIO_SERVE_PRECISION", "bf16")
+    with pytest.raises(ValueError, match="PIO_SERVE_PRECISION=bf16 "
+                                         "conflicts with PIO_SERVING_BACKEND"):
         tserving.choose_server(X, X, device="cpu")
 
 
 @pytest.mark.parametrize("backend", ["auto", "device", "bogus", ""])
 def test_other_backends_serve_on_the_device_store(monkeypatch, backend):
+    """Above the host lane's limit (set to 0 here) every backend but
+    ``host`` serves from the device store."""
     monkeypatch.setenv("PIO_SERVING_BACKEND", backend)
+    monkeypatch.setattr(tserving, "HOST_SERVE_MAX_ELEMS", 0)
     rng = np.random.default_rng(2)
     X = rng.normal(size=(3, 4)).astype(np.float32)
     Y = rng.normal(size=(20, 4)).astype(np.float32)
@@ -436,8 +448,10 @@ def test_other_backends_serve_on_the_device_store(monkeypatch, backend):
 
 
 def test_deploy_with_the_host_backend_fails(served, monkeypatch):
-    """The refusal reaches the operator at deploy, not at a query: the
-    warm-up builds the store."""
+    """A refusal of the host backend (here under an explicit int8
+    store) reaches the operator at deploy, not at a query: the warm-up
+    builds the store."""
     monkeypatch.setenv("PIO_SERVING_BACKEND", "host")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    monkeypatch.setenv("PIO_SERVE_PRECISION", "int8")
+    with pytest.raises(ValueError, match="PIO_SERVE_PRECISION=int8"):
         served["start"]("port", feedback=False)

@@ -277,21 +277,31 @@ class TestHostSideHelpers:
 class TestServingPolicy:
     @pytest.mark.parametrize("n_items", [150, 70_000])
     def test_device_store_at_every_size(self, monkeypatch, n_items):
-        """No size rule and no host lane: models on either side of the
-        JAX package's host threshold (1 << 22 item-factor elements) serve
-        from the device store on the device asked for under the auto
-        backend (an explicit ``host`` raises:
-        tests/test_torch_server_surface.py)."""
+        """The auto rule's size limit: host factors of at most
+        ``HOST_SERVE_MAX_ELEMS`` item-factor elements serve from the
+        host lane, larger ones from the device store on the device asked
+        for. The limit is set between the two sizes here (the measured
+        one lies elsewhere); both serve the same answers."""
         rng = np.random.default_rng(4)
         X = rng.normal(size=(4, 64)).astype(np.float32)
         Y = rng.normal(size=(n_items, 64)).astype(np.float32)
         monkeypatch.delenv("PIO_SERVE_PRECISION", raising=False)
         monkeypatch.setenv("PIO_SERVING_BACKEND", "auto")
+        monkeypatch.setattr(tserving, "HOST_SERVE_MAX_ELEMS", 150 * 64)
         srv = tserving.choose_server(X, Y, device="cpu")
-        assert isinstance(srv, tserving.DeviceTopK)
-        assert srv.precision == "fp32"  # the CPU default, as in JAX
+        want = tserving.HostTopK if n_items * 64 <= 150 * 64 \
+            else tserving.DeviceTopK
+        assert isinstance(srv, want)
         assert srv.n_items == n_items
+        if want is tserving.DeviceTopK:
+            assert srv.precision == "fp32"  # the CPU default, as in JAX
+        monkeypatch.setenv("PIO_SERVING_BACKEND", "device")
+        dev = tserving.choose_server(X, Y, device="cpu")
+        for got, ref in zip(srv.users_topk([0, 3], 10),
+                            dev.users_topk([0, 3], 10)):
+            np.testing.assert_allclose(got, ref, rtol=1e-5)
         srv.close()
+        dev.close()
 
     def test_explicit_precision_sets_the_store(self, monkeypatch,
                                                factor_pair):

@@ -338,6 +338,8 @@ def test_query_server_exports_to_pio_trace_dir(tmp_path, monkeypatch):
     dep = tserver.deployment_from_models(
         engine, engine.engine_params_from_variant({}), [model])
     monkeypatch.setenv("PIO_TRACE_DIR", str(tmp_path))
+    # the device store's spans (auto would serve this size on the host)
+    monkeypatch.setenv("PIO_SERVING_BACKEND", "device")
     srv = tserver.QueryServer(tserver.ServerConfig(ip="127.0.0.1", port=0),
                               dep).start()
     trace_id = "5a" * 16

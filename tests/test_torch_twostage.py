@@ -390,7 +390,8 @@ def test_build_store_checks(precision, monkeypatch):
     with pytest.raises(ValueError, match="one shared user map"):
         ttwo.build_two_stage_store(retrieval, short)
     monkeypatch.setenv("PIO_SERVING_BACKEND", "host")
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="two-stage serving conflicts "
+                                         "with PIO_SERVING_BACKEND=host"):
         ttwo.build_two_stage_store(retrieval, rerank)
     monkeypatch.delenv("PIO_SERVING_BACKEND")
     monkeypatch.setenv("PIO_FOLDIN", "on")
