@@ -7,7 +7,7 @@
     python3 chip_smoke.py --query-fleet     # phases 1, 5 and 3d only
     python3 chip_smoke.py --seqrec          # 1, 5's store, 3e, 3f, 7's half
     python3 chip_smoke.py --templates       # phases 1 and 6e only
-    python3 chip_smoke.py --sharded         # phases 1, 8a, 5 and 8b only
+    python3 chip_smoke.py --sharded         # phases 1, 8a, 5, 8b and 8c only
     python3 chip_smoke.py --crossover       # phases 1 and 8a only
 
 Phases (any failure raises and the script exits non-zero):
@@ -463,8 +463,31 @@ Phases (any failure raises and the script exits non-zero):
    card's busy and B1 time under the profiler), plain, the library's
    (each shard's seen hits, its block widened to fp32, the masked
    product and ``torch.topk``, then ``torch.topk`` of the joined lists,
-   all inside the timed call) and the bound. ``--sharded`` runs phases 1, 8a,
-   5 and 8b alone, ``--crossover`` phases 1 and 8a.
+   all inside the timed call) and the bound.
+8c. Sharded training (after 8b) on ``[cuda:0] * 4``, each logical shard
+   the card launching B3 and B2 on its own row block: (a)
+   ``train_als_bucketed_sharded`` on phase 5's bucketed sides at rank 64,
+   3 iterations, phase 5's seed: the factors must equal phase 5's
+   (relative Frobenius error at most 1e-6; the largest difference is
+   printed), B3's and B2's launches must equal the plan (per bucket, one
+   per shard whose block holds a real row), and one sharded iteration is
+   event-timed and profiled (the card's busy share) beside phase 5's
+   single-device one, timed in the same way here. (b)
+   ``train_als_sharded_2d`` on ``mesh_2d(2, 2)`` at ML-1M width (the
+   uniform tables of ``ml1m_ratings``: 6,040 and 3,706 rows) against
+   ``train_als`` on the card under the same limit, and
+   ``train_als_device`` on that mesh: each device holds half of each
+   padded factor table. (c) ``sharded_engine_factory``'s
+   ``ALSShardedAlgorithm.train`` on phase 5's prepared data over a
+   context of ``[cuda:0] * 4``: a ``ShardedALSModel`` whose factor
+   tables are on the card; phase 3's 43 sequential queries through the
+   template's predict agree as score sets with phase 5's model, B1
+   launches 4 times a dispatch, and one ``batch_predict`` of 256 known
+   users gives the looped path's records. (d) A one-rank NCCL process
+   group: (b)'s problem trains through the collective merge (the
+   uniform all-gather) and must equal (b)'s single-device factors
+   bitwise. ``--sharded`` runs phases 1, 8a, 5, 8b and 8c alone,
+   ``--crossover`` phases 1 and 8a.
 
 It prints a ``{"kernels": [...]}`` line (the training kernels' ``routes``
 hold the main path's, the large-rank one and ``foldin``, with phase 3b's
@@ -478,7 +501,9 @@ kernels' ``fleet_roll_training`` phase 3d's training of the instance
 the roll swaps to; the serving kernel's ``sequence_launches`` and
 ``unmasked_k128`` phases 3e's and 3f's, the training kernels'
 ``twostage_launches`` phase 3f's; the serving kernel's
-``sharded_route`` phase 8b's launches and times), the card's name
+``sharded_route`` phase 8b's launches and times, the training kernels'
+``sharded_training`` phase 8c's launches, ms per iteration and busy
+share), the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. With
 ``--query-fleet`` the script builds and runs phases 5 and 3d alone;
 with ``--seqrec`` phase 5's store, 3e, 3f and phase 7's sequence half;
@@ -9732,6 +9757,313 @@ def sharded_serving(dev, trained: dict, seed: int, card: str) -> dict:
             "process_group": group, "timings": timed}
 
 
+# phase 8c: sharded training on the card
+TRAIN_SHARDS = 4
+SHARD_RTOL = 1e-6           # sharded against single-device training
+SHARD_BATCH_USERS = 256     # 8c's batch_predict against the looped path
+
+
+def frobenius(got, want) -> tuple:
+    """(relative Frobenius error, largest absolute difference)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return (float(np.linalg.norm(got - want) / np.linalg.norm(want)),
+            float(np.abs(got - want).max()))
+
+
+def bucket_launch_plan(side, n_shards: int) -> int:
+    """B3's (and B2's) launches for one half-step of the sharded bucketed
+    trainer: per bucket, padded with sentinel rows to a multiple of
+    ``8 * n_shards``, one per shard whose block holds a real row."""
+    plan = 0
+    for b in side.buckets:
+        real = np.asarray(b.row_ids) < side.n_rows
+        pad = (-len(real)) % (8 * n_shards)
+        real = np.concatenate([real, np.zeros(pad, bool)])
+        plan += sum(bool(x.any()) for x in np.split(real, n_shards))
+    return plan
+
+
+def b3_b2_ms(by_name) -> dict:
+    """B3's (the assembly and its span reduction) and B2's device ms in a
+    profile's kernel times."""
+    return {"B3": sum(ms for name, ms in by_name.items()
+                      if name.startswith("assemble")),
+            "B2": by_name.get("spd_solve_warp_kernel", 0.0)}
+
+
+def sharded_training(dev, trained: dict, seed: int, card: str) -> dict:
+    """Phase 8c: sharded training on ``[dev] * TRAIN_SHARDS`` (each logical
+    shard the card, launching B3 and B2 on its own row block): (a) the
+    bucketed data-parallel trainer on phase 5's sides against phase 5's
+    factors, its launches against the plan, one iteration event-timed
+    and profiled beside the single-device one; (b) the 2-D uniform
+    trainer at ML-1M width against ``train_als``, and each device's
+    factor bytes; (c) the PAlgorithm flavor on phase 5's prepared data,
+    answering like phase 5's model; (d) (b) again through the
+    collective merge of a one-rank NCCL group. Any disagreement
+    raises."""
+    import dataclasses
+    import socket
+
+    import torch
+
+    from predictionio_tpu_torch.core.context import workflow_context
+    from predictionio_tpu_torch.ops import als as als_mod
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.parallel import als_sharding, distributed
+    from predictionio_tpu_torch.parallel.mesh import (
+        P,
+        data_parallel_mesh,
+        mesh_2d,
+    )
+    from predictionio_tpu_torch.templates.recommendation.engine import (
+        ALSAlgorithm,
+        Query,
+        ShardedALSModel,
+        sharded_engine_factory,
+    )
+
+    pd, model = trained["pd"], trained["model"]
+    plane = [dev] * TRAIN_SHARDS
+    params = als_mod.ALSParams(rank=RANK, num_iterations=ITERATIONS,
+                               lambda_=LAMBDA, alpha=ALPHA, seed=seed)
+    counters = (als_cuda.assemble_launches, als_cuda.spd_launches)
+
+    # (a) data-parallel, bucketed, at ML-20M width
+    mesh = data_parallel_mesh(devices=plane)
+    for c in counters:
+        c.reset()
+    t = time.perf_counter()
+    X, Y = als_sharding.train_als_bucketed_sharded(
+        pd.user_side, pd.item_side, params, mesh)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    launches = {"assemble_normal_equations":
+                als_cuda.assemble_launches.value,
+                "spd_solve": als_cuda.spd_launches.value}
+    plan = sum(bucket_launch_plan(side, TRAIN_SHARDS)
+               for side in (pd.user_side, pd.item_side))
+    if any(n != plan * ITERATIONS for n in launches.values()):
+        raise AssertionError(f"sharded training launched {launches}, the "
+                             f"plan is {plan} an iteration")
+    errs = {name: frobenius(got, want) for name, got, want in (
+        ("user", X, model.user_factors), ("item", Y, model.item_factors))}
+    if max(e for e, _ in errs.values()) > SHARD_RTOL:
+        raise AssertionError(f"sharded factors differ from phase 5's: "
+                             f"{errs}")
+    print(f"[train-sharded] (a) {TRAIN_SHARDS} shards, bucketed: "
+          f"{train_s:.2f} s; against phase 5's factors relative Frobenius "
+          f"/ largest difference {errs} (limit {SHARD_RTOL}); launches "
+          f"{launches}, {plan} an iteration (the plan) against phase 5's "
+          f"{trained['launches']['spd_solve'] // ITERATIONS}")
+
+    # one iteration each way, from the same init: event-timed, profiled
+    n_u, n_i = pd.user_side.n_rows, pd.item_side.n_rows
+    X0, Y0 = als_mod.init_policy_factors(n_u, n_i, RANK, seed, "fp32",
+                                         "cpu")
+    spec = P(None, None)
+    Xs = als_sharding._place_factor(X0, mesh, spec, n_u)
+    Ys = als_sharding._place_factor(Y0, mesh, spec, n_i)
+    u_t = als_sharding._bucket_tables(pd.user_side, mesh)
+    i_t = als_sharding._bucket_tables(pd.item_side, mesh)
+    solver = als_sharding._Solver(mesh, spec,
+                                  als_sharding._solve_kwargs(params))
+
+    def sharded_iteration():
+        Xc = solver.bucketed(Ys, n_i, u_t, n_u, n_u)
+        solver.bucketed(Xc, n_u, i_t, n_i, n_i)
+
+    su, si = bucket_tables(pd.user_side, dev), bucket_tables(pd.item_side,
+                                                             dev)
+    Xd, Yd = X0.to(dev), Y0.to(dev)
+    kw = dict(lam=LAMBDA, alpha=ALPHA, implicit=True, slot_budget=None)
+
+    def single_iteration():
+        als_mod.als_iterations_bucketed(Xd, Yd, su, si, num_iterations=1,
+                                        **kw)
+
+    sharded_ms, single_ms, sharded_ms2, single_ms2 = (
+        time_ms(f, 5) for f in (sharded_iteration, single_iteration,
+                                sharded_iteration, single_iteration))
+    for c in counters:
+        c.reset()
+    wall, busy, kernels, by_name = device_busy(sharded_iteration)
+    per_iteration = {"assemble_normal_equations":
+                     als_cuda.assemble_launches.value,
+                     "spd_solve": als_cuda.spd_launches.value}
+    swall, sbusy, _, sby_name = device_busy(single_iteration)
+    del su, si, Xd, Yd, u_t, i_t, Xs, Ys
+    timing = {
+        "ms_per_iteration": [sharded_ms, sharded_ms2],
+        "single_ms_per_iteration": [single_ms, single_ms2],
+        "profiled_wall_ms": wall, "busy_ms": busy,
+        "busy_share": busy / wall, "single_profiled_wall_ms": swall,
+        "single_busy_ms": sbusy, "single_busy_share": sbusy / swall,
+        "kernel_ms": b3_b2_ms(by_name),
+        "single_kernel_ms": b3_b2_ms(sby_name),
+        "launches_per_iteration": per_iteration,
+        "kernel_launches": dict(kernels.most_common(6))}
+    print(f"[train-sharded] one iteration, event-timed (turns): sharded "
+          f"{sharded_ms!r} / {sharded_ms2!r} ms, single-device "
+          f"{single_ms!r} / {single_ms2!r} ms (phase 5 profiled "
+          f"{trained['iteration_ms']!r}); profiled: sharded wall {wall!r} "
+          f"ms, the card busy {busy!r} ({100 * busy / wall:.2f}%), "
+          f"B3 / B2 {timing['kernel_ms']}; single wall {swall!r}, busy "
+          f"{sbusy!r} ({100 * sbusy / swall:.2f}%), B3 / B2 "
+          f"{timing['single_kernel_ms']}; launches an iteration "
+          f"{per_iteration}; kernels {timing['kernel_launches']}")
+
+    # (b) 2-D, uniform, at ML-1M width
+    rows, cols, values, _ = ml1m_ratings(seed)
+    us = als_mod.pad_ratings(rows, cols, values, ML1M_USERS, ML1M_ITEMS)
+    is_ = als_mod.pad_ratings(cols, rows, values, ML1M_ITEMS, ML1M_USERS)
+    mesh2 = mesh_2d(2, 2, devices=plane)
+    t = time.perf_counter()
+    X2, Y2 = als_sharding.train_als_sharded_2d(us, is_, params, mesh2)
+    torch.cuda.synchronize()
+    two_d_s = time.perf_counter() - t
+    X1, Y1 = als_mod.train_als(us, is_, params, dev)
+    errs_2d = {name: frobenius(got, want) for name, got, want in (
+        ("user", X2, X1), ("item", Y2, Y1))}
+    if max(e for e, _ in errs_2d.values()) > SHARD_RTOL:
+        raise AssertionError(f"2-D factors differ from train_als: "
+                             f"{errs_2d}")
+    Xm, Ym = als_sharding.train_als_device(us, is_, params, mesh2)
+    factor_bytes = {}
+    for name, tab in (("user", Xm), ("item", Ym)):
+        whole = tab.shape[0] * tab.shape[1] * 4
+        got = tab.block_bytes()
+        if any(b * 2 != whole for b in got) or any(
+                blk.device.type != torch.device(dev).type
+                for blk in tab.blocks):
+            raise AssertionError(f"{name} factor bytes a device {got}, the "
+                                 f"padded table {whole}")
+        factor_bytes[name] = {"per_device": got, "padded_table": whole}
+    del Xm, Ym
+    print(f"[train-sharded] (b) mesh_2d(2, 2), uniform at ML-1M width "
+          f"(user {us.cols.shape}, item {is_.cols.shape} slots): "
+          f"{two_d_s:.2f} s; against train_als {errs_2d}; factor bytes a "
+          f"device {factor_bytes}")
+
+    # (c) the PAlgorithm flavor over a context of the logical shards
+    engine = sharded_engine_factory()
+    algo = engine.algorithm_class_map["als"](params)
+    ctx = workflow_context(devices=plane, device=dev)
+    for c in counters:
+        c.reset()
+    t = time.perf_counter()
+    sharded_model = algo.train(ctx, pd)
+    torch.cuda.synchronize()
+    flavor_s = time.perf_counter() - t
+    flavor_launches = {"assemble_normal_equations":
+                       als_cuda.assemble_launches.value,
+                       "spd_solve": als_cuda.spd_launches.value}
+    if not isinstance(sharded_model, ShardedALSModel) or any(
+            blk.device.type != torch.device(dev).type for tab in (
+                sharded_model.user_factors, sharded_model.item_factors)
+            for blk in tab.blocks):
+        raise AssertionError(f"the flavor's model: {sharded_model!r}")
+    sharded_model.sanity_check()
+    srv = sharded_model.device_server()
+    calls = []
+    launch = srv._sharded_launch
+
+    def counted(*args):
+        calls.append(1)
+        return launch(*args)
+
+    srv._sharded_launch = counted
+    ref = ALSAlgorithm()
+    queries, _ = phase3_queries(seed)
+
+    def query(q):
+        return Query(**{k: tuple(v) if isinstance(v, list) else v
+                        for k, v in q.items()})
+
+    als_cuda.launches.reset()
+    got = [algo.predict(sharded_model, query(q)) for q in queries]
+    b1 = als_cuda.launches.value
+    dispatches = len(calls)
+    del srv._sharded_launch
+    if not dispatches or b1 != TRAIN_SHARDS * dispatches:
+        raise AssertionError(f"B1 launched {b1} times over {dispatches} "
+                             f"sharded dispatches")
+    x_norm = np.linalg.norm(model.user_factors, axis=1)
+    y_norm = float(np.linalg.norm(model.item_factors, axis=1).max())
+    for q, answer in zip(queries, got):
+        results_agree(answer, ref.predict(model, query(q)), q,
+                      query_bound(model, q, x_norm, y_norm), by_set=True)
+    rng = np.random.default_rng(seed + 83)
+    users = [(j, Query(user=f"u{u}", num=10))
+             for j, u in enumerate(rng.integers(0, N_USERS,
+                                                SHARD_BATCH_USERS))]
+    t = time.perf_counter()
+    batched = dict(algo.batch_predict(ctx, sharded_model, users))
+    batch_s = time.perf_counter() - t
+    looped = {j: algo.predict(sharded_model, q) for j, q in users}
+    if batched != looped:
+        raise AssertionError("batch_predict differs from the looped path")
+    srv.close()
+    flavor = {"train_s": flavor_s, "launches": flavor_launches,
+              "b1_launches": b1, "dispatches": dispatches,
+              "checked": len(queries), "batch_users": len(users),
+              "batch_s": batch_s,
+              "layout": sharded_model.item_layout.balance_report()}
+    print(f"[train-sharded] (c) ALSShardedAlgorithm.train over {plane}: "
+          f"{flavor_s:.2f} s, launches {flavor_launches}; "
+          f"{len(queries)} queries agree with phase 5's model as score "
+          f"sets, B1 {b1} launches over {dispatches} dispatches; "
+          f"batch_predict of {len(users)} users {batch_s:.3f} s equals the "
+          f"looped path")
+    del sharded_model, srv
+
+    # (d) a one-rank NCCL world: (b)'s problem through the collective merge
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t = time.perf_counter()
+    joined = distributed.initialize(distributed.DistributedConfig(
+        coordinator=f"127.0.0.1:{port}", num_hosts=1, process_id=0))
+    gathers = []
+    all_gather = distributed.all_gather_rows
+
+    def counted_gather(tensor):
+        gathers.append(tuple(tensor.shape))
+        return all_gather(tensor)
+
+    distributed.all_gather_rows = counted_gather
+    try:
+        import torch.distributed as dist
+
+        backend = str(dist.get_backend())
+        Xc, Yc = als_sharding.train_als_sharded_2d(us, is_, params, mesh2)
+        torch.cuda.synchronize()
+    finally:
+        distributed.all_gather_rows = all_gather
+        distributed.shutdown()
+    collective_s = time.perf_counter() - t
+    want = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+    if not (joined and backend == want
+            and len(gathers) == 2 * ITERATIONS):
+        raise AssertionError(f"the NCCL world: joined {joined}, {backend}, "
+                             f"{len(gathers)} all-gathers")
+    if not (np.array_equal(Xc, X1) and np.array_equal(Yc, Y1)):
+        raise AssertionError(
+            f"factors through the collective merge differ from train_als: "
+            f"{frobenius(Xc, X1)}, {frobenius(Yc, Y1)}")
+    print(f"[train-sharded] (d) one NCCL rank ({backend}): "
+          f"{len(gathers)} all-gathers, factors bitwise equal to "
+          f"train_als; {collective_s:.2f} s with the join")
+    return {"launches": launches, "plan_per_iteration": plan,
+            "train_s": train_s, "errs": errs, "timing": timing,
+            "two_d": {"s": two_d_s, "errs": errs_2d,
+                      "factor_bytes": factor_bytes},
+            "flavor": flavor,
+            "collective": {"backend": backend, "all_gathers": len(gathers),
+                           "s": collective_s}}
+
+
 def fleet_launches(name: str, fleet: dict, started: dict) -> dict:
     """A kernel's launches in the query fleet: phase 3d's and 6b's
     ``pio deploy --fleet`` child's, summed and by phase; for the training
@@ -9915,8 +10247,10 @@ def main() -> int:
             remove_store(store)
         out = phase("8b sharded serving", sharded_serving, dev, trained,
                     args.seed, card)
-        print(json.dumps({"crossover": crossing, "sharded": out},
-                         default=str))
+        trained_sh = phase("8c sharded training", sharded_training, dev,
+                           trained, args.seed, card)
+        print(json.dumps({"crossover": crossing, "sharded": out,
+                          "sharded_training": trained_sh}, default=str))
         print(nvidia_smi())
         return 0
     if args.serving_times:
@@ -9962,6 +10296,8 @@ def main() -> int:
                      args.seed, card)
     sharded = phase("8b sharded serving", sharded_serving, dev, trained,
                     args.seed, card)
+    trained_sh = phase("8c sharded training", sharded_training, dev,
+                       trained, args.seed, card)
     cycle = phase("6 lifecycle", lifecycle, args.seed)
     # phase 6e runs in a process of its own beside 6b-6d, which spend
     # their time waiting on the console's processes
@@ -10124,6 +10460,19 @@ def main() -> int:
                 "shape": "every bucket of both sides (one iteration), R=64, "
                          "bf16 store",
                 "timings": train_times["bf16"]["rows"]})
+        # phase 8c: the sharded trainers, once per shard per bucket
+        tm = trained_sh["timing"]
+        sharded_training_entry = {
+            "launches": trained_sh["launches"][name],
+            "plan_per_iteration": trained_sh["plan_per_iteration"],
+            "single_device_launches": trained["launches"][name],
+            "ms_per_iteration": tm["ms_per_iteration"],
+            "single_ms_per_iteration": tm["single_ms_per_iteration"],
+            "busy_ms": tm["busy_ms"], "busy_share": tm["busy_share"],
+            "single_busy_share": tm["single_busy_share"],
+            "flavor_launches": trained_sh["flavor"]["launches"][name],
+            "shape": f"phase 5's bucketed sides on {TRAIN_SHARDS} logical "
+                     f"shards of one card, R={RANK}"}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "predictionio_tpu_torch/ops/csrc/als_solve.cu",
@@ -10147,7 +10496,8 @@ def main() -> int:
             # phase 6e: each ALS template's training at ML-1M
             "templates_launches": {
                 t: templates["trainings"][t]["launches"][name]
-                for t in OT_ALS_TEMPLATES}})
+                for t in OT_ALS_TEMPLATES},
+            "sharded_training": sharded_training_entry})
     print(f"[done] {time.perf_counter() - t0:.1f} s; HTTP p50 "
           f"{served['p50_ms']!r} ms p99 {served['p99_ms']!r} ms "
           f"(observability on / off p50 "
@@ -10195,7 +10545,9 @@ def main() -> int:
           f"host lane up to {crossing['supported_limit']} item-factor "
           f"elements by phase 8a (HOST_SERVE_MAX_ELEMS "
           f"{crossing['limit']}); sharded dispatch (4 shards, B=1) "
-          f"{sh_head['ms']!r} ms; "
+          f"{sh_head['ms']!r} ms; sharded training iteration (4 shards) "
+          f"{trained_sh['timing']['ms_per_iteration']!r} ms against "
+          f"{trained_sh['timing']['single_ms_per_iteration']!r}; "
           f"Precision@10 {scored['precision_at_10']!r} (bf16 "
           f"{scored['bf16_precision_at_10']!r}; "
           f"{scored['ratio_vs_plain']!r} of plain, lift "

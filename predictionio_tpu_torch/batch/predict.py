@@ -32,10 +32,11 @@ key, so each package's :func:`read_results` reads the other's output.
 Output formats: ``jsonl`` (one ``{"prediction": ..., "query": ...}``
 object per line) or ``npz`` (the record strings as one column, with the
 span). The context is a :class:`ComputeContext` naming the device
-(None = cuda). The JAX package's lane for mesh-sharded models
-(``ShardedALSModel`` under a ``PAlgorithm``) comes with ROADMAP A6.3,
-and the port's model unpickler refuses the JAX package's classes,
-naming them.
+(None = cuda). A model that lives on a device mesh (``ShardedALSModel``
+under a ``PAlgorithm``, stored ``RETRAIN``) is trained again at load,
+and each chunk's user queries are scored against its shards on their
+devices, with no host copy of its factors. The port's model unpickler
+refuses the JAX package's classes, naming them.
 """
 
 from __future__ import annotations

@@ -698,16 +698,27 @@ def _solve_side_bucketed(Y: torch.Tensor, buckets, n_rows_out: int,
     X = torch.zeros((n_rows_out + 1, Y.shape[1]), dtype=Y.dtype,
                     device=Y.device)
     for row_ids, cols, w, m in buckets:
-        B, L = cols.shape
-        step = B
-        if slot_budget and B * L > slot_budget:
-            step = max(8, (slot_budget // L) // 8 * 8)
-        Xb = torch.cat([
-            _solve_rows(Y, cols[s:s + step], w[s:s + step], m[s:s + step],
-                        lam, alpha, implicit, gram, refine)
-            for s in range(0, B, step)])
-        X[row_ids.long()] = Xb
+        X[row_ids.long()] = _solve_bucket(Y, cols, w, m, lam, alpha,
+                                          implicit, gram, slot_budget,
+                                          refine)
     return X[:n_rows_out]
+
+
+def _solve_bucket(Y: torch.Tensor, cols, w, m, lam: float, alpha: float,
+                  implicit: bool, gram: Optional[torch.Tensor],
+                  slot_budget: Optional[int], refine: bool = False
+                  ) -> torch.Tensor:
+    """One bucket's rows solved against ``Y``: one :func:`_solve_rows`
+    call, or one per row block of at most ``slot_budget`` slots when
+    set (a multiple of 8 rows)."""
+    B, L = cols.shape
+    step = B
+    if slot_budget and B * L > slot_budget:
+        step = max(8, (slot_budget // L) // 8 * 8)
+    return torch.cat([
+        _solve_rows(Y, cols[s:s + step], w[s:s + step], m[s:s + step],
+                    lam, alpha, implicit, gram, refine)
+        for s in range(0, B, step)])
 
 
 def als_iterations_bucketed(X, Y, u_buckets, i_buckets, *, lam: float,

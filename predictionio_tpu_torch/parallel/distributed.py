@@ -14,8 +14,12 @@ Each host reads only its own contiguous block of training rows
 (:func:`process_row_block`). A torch process holds its local devices:
 :func:`host_aware_mesh` lays this process's devices out, and a
 collective between processes goes through the process group.
-``make_global_array`` (the JAX package's assembly of one array from
-every host's block) comes with the sharded trainers (ROADMAP A6.3).
+:func:`make_global_array` places this host's block over its mesh as a
+:class:`~predictionio_tpu_torch.parallel.mesh.ShardedTensor`, and
+:func:`process_allgather` joins every host's rows (the JAX package's
+``multihost_utils.process_allgather``); :func:`all_gather_rows` and
+:func:`all_reduce_sum` are the two merges the sharded trainers run
+through the group.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from __future__ import annotations
 import dataclasses
 import os
 from typing import Optional, Sequence, Tuple
+
+import numpy as np
 
 _INITIALIZED = False
 
@@ -112,7 +118,7 @@ def shutdown() -> None:
         _INITIALIZED = False
 
 
-def _group_initialized() -> bool:
+def group_initialized() -> bool:
     """Whether a process group exists, this module's or one set up
     outside it. Imports nothing new in the plain one-process case."""
     import sys
@@ -130,7 +136,7 @@ def is_primary_host() -> bool:
 
 
 def process_count() -> int:
-    if not _group_initialized():
+    if not group_initialized():
         return 1
     import torch.distributed as dist
 
@@ -138,7 +144,7 @@ def process_count() -> int:
 
 
 def process_index() -> int:
-    if not _group_initialized():
+    if not group_initialized():
         return 0
     import torch.distributed as dist
 
@@ -150,7 +156,6 @@ def host_aware_mesh(model: int = 1, devices: Optional[Sequence] = None):
     visible card), whose ``model`` groups never cross a host: with one
     device plane per process they cannot. With ``model == 1`` it is the
     1-D ``data`` mesh."""
-    import numpy as np
     import torch
 
     from predictionio_tpu_torch.parallel.mesh import Mesh, default_devices
@@ -184,3 +189,83 @@ def process_row_block(n_rows: int,
     start = index * base + min(index, extra)
     stop = start + base + (1 if index < extra else 0)
     return start, stop
+
+
+def make_global_array(mesh, spec, local_block):
+    """One array over ``mesh`` by ``spec`` from this host's block (the
+    JAX package's ``make_array_from_process_local_data``): a
+    :class:`~predictionio_tpu_torch.parallel.mesh.ShardedTensor` whose
+    device ``k`` holds its rows of ``local_block`` (numpy or a tensor on
+    any device; a tensor moves device to device, never through host
+    numpy). With a process group of several processes and a spec whose
+    rows split over ``data``, ``local_block`` is this host's
+    :func:`process_row_block` of an array of ``count`` equal blocks;
+    every other spec takes the whole array on each host. Devices that
+    hold the same rows share one copy."""
+    import torch
+
+    from predictionio_tpu_torch.parallel.mesh import (
+        ShardedTensor,
+        row_part,
+        spec_axes,
+    )
+
+    t = local_block if isinstance(local_block, torch.Tensor) \
+        else torch.from_numpy(np.ascontiguousarray(local_block))
+    n_local = int(t.shape[0])
+    count = process_count() if "data" in spec_axes(spec[0]) else 1
+    blocks, placed = [], {}
+    for k, dev in enumerate(mesh.device_list()):
+        part, n_parts = row_part(mesh, spec, k)
+        if n_local % n_parts:
+            raise ValueError(f"{n_local} rows do not split in {n_parts} "
+                             f"equal blocks over {spec}")
+        rows = n_local // n_parts
+        key = (dev, part)
+        if key not in placed:
+            block = t[part * rows:(part + 1) * rows]
+            placed[key] = block.to(dev).contiguous()
+        blocks.append(placed[key])
+    return ShardedTensor(blocks, mesh, spec,
+                         (n_local * count,) + tuple(t.shape[1:]),
+                         row_offset=process_index() * n_local
+                         if count > 1 else 0,
+                         local_rows=n_local)
+
+
+def process_allgather(x):
+    """Every host's rows of ``x`` (a :class:`~predictionio_tpu_torch.
+    parallel.mesh.ShardedTensor`) as one tensor on ``x``'s first device:
+    this host's rows joined there, then, when they are only this host's
+    block, the blocks of every host through the process group. The JAX
+    package's ``multihost_utils.process_allgather(x, tiled=True)``,
+    which lands on the host; the port's stays on the device."""
+    local = x.gathered(0)
+    if x.local_rows == x.shape[0]:
+        return local
+    return all_gather_rows(local)
+
+
+def all_gather_rows(t):
+    """Every process's equal ``[rows, ...]`` block of ``t`` joined in rank
+    order, on ``t``'s device: ``all_gather_into_tensor``, or on gloo
+    ``all_gather`` into views of the result."""
+    import torch.distributed as dist
+
+    count = dist.get_world_size()
+    src = t.contiguous()
+    out = src.new_empty((count * src.shape[0],) + tuple(src.shape[1:]))
+    if dist.get_backend() == "gloo":
+        dist.all_gather(list(out.chunk(count)), src)
+    else:
+        dist.all_gather_into_tensor(out, src)
+    return out
+
+
+def all_reduce_sum(t):
+    """``t`` summed over every process (``all_reduce(SUM)``), in place on
+    ``t``'s device, and returned."""
+    import torch.distributed as dist
+
+    dist.all_reduce(t)
+    return t

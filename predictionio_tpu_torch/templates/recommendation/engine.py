@@ -15,6 +15,10 @@ The port's copy of ``predictionio_tpu/templates/recommendation/engine.py``:
   :func:`~predictionio_tpu_torch.ops.serving.choose_server`), the shared
   top-k serving logic, ``ALSAlgorithm.predict`` / ``batch_predict``, and
   the custom-serving variant ``FileBlacklistServing`` (``"fileblacklist"``);
+- the PAlgorithm flavor, ``sharded_engine_factory``: ``ALSShardedAlgorithm``
+  trains with ``train_als_device`` over the context's mesh and keeps the
+  factors there as a ``ShardedALSModel`` (persisted ``RETRAIN``), served
+  over the mesh's devices;
 - evaluation: ``EventDataSource.read_eval`` (leave-last-out per user, or
   sliding time windows with ``eval_count > 0``), ``ActualResult``,
   ``PrecisionAtK`` / ``NDCGAtK``, and ``RecommendationEvaluation``, the
@@ -43,6 +47,7 @@ from predictionio_tpu_torch.controller import (
     LServing,
     OptionAverageMetric,
     P2LAlgorithm,
+    PAlgorithm,
     Params,
     PDataSource,
     PPreparator,
@@ -694,8 +699,10 @@ class ALSAlgorithm(_DeviceServingAlgo, P2LAlgorithm):
             bimap_fingerprint_scope,
         )
 
-        # a ComputeContext names the device; ctx=None means cuda
-        dev = resolve_device(getattr(ctx, "device", None))
+        # a ComputeContext names the device, or a plane of several
+        # (sharded training over it); ctx=None means cuda
+        plane = _training_plane(ctx)
+        dev = plane[0] if isinstance(plane, list) else plane
         # the entity maps join the checkpoint fingerprint (two stores of
         # the same shapes but other entities never resume each other's
         # checkpoints; a no-op while checkpointing is off), and the run
@@ -706,12 +713,131 @@ class ALSAlgorithm(_DeviceServingAlgo, P2LAlgorithm):
                     nUsers=pd.user_side.n_rows,
                     nItems=pd.user_side.n_cols):
             X, Y = train_als_auto(pd.user_side, pd.item_side, self.params,
-                                  dev)
+                                  plane)
         return ALSModel(X, Y, pd.user_map, pd.item_map, pd.seen,
                         item_categories=pd.item_categories, device=str(dev))
 
     def batch_predict(self, ctx: Any, model: ALSModel,
                       indexed_queries) -> List[Tuple[int, Any]]:
+        return self._batched_predict(model, indexed_queries)
+
+
+def _training_plane(ctx):
+    """Where ``ALSAlgorithm`` trains: the context's devices when it names
+    several (a list: the sharded trainers), else its one device (None =
+    cuda)."""
+    if ctx is not None and getattr(ctx, "device_count", 1) > 1:
+        return list(ctx.devices)
+    return resolve_device(getattr(ctx, "device", None))
+
+
+def _context_mesh(ctx):
+    """The mesh ``ALSShardedAlgorithm`` trains over: the context's mesh
+    when it names its devices or one device, else None (every visible
+    card, laid out by ``train_als_device``)."""
+    if ctx is None:
+        return None
+    if getattr(ctx, "serving_plane", None) is not None:
+        return ctx.serving_plane
+    if getattr(ctx, "device", None) is not None:
+        return ctx.mesh
+    return None
+
+
+@dataclasses.dataclass
+class ShardedALSModel(_DeviceServedModel):
+    """A device-resident model: the factor tables stay on the mesh they
+    trained on (padded :class:`~predictionio_tpu_torch.parallel.mesh.
+    ShardedTensor` s from ``train_als_device``) and never reach the
+    host: the reference's PAlgorithm, whose model lives distributed.
+    Served by :class:`~predictionio_tpu_torch.ops.serving.DeviceTopK`
+    over the mesh's devices (or the deployment's plane), with the item
+    layout the model carries. It does not pickle: its engine persists
+    ``RETRAIN`` and trains again at deploy."""
+
+    user_factors: Any            # ShardedTensor [N_pad, R]
+    item_factors: Any            # ShardedTensor [M_pad, R]
+    n_users: int
+    n_items: int
+    user_map: StringIndexBiMap
+    item_map: StringIndexBiMap
+    seen: Dict[int, np.ndarray]
+    item_categories: Optional[Dict[int, Tuple[str, ...]]] = None
+    # the density-aware item layout of a sharded store
+    # (parallel.als_sharding.ItemShardLayout), carried with the model so
+    # serving and fold-in see one placement; None serves unsharded
+    item_layout: Any = None
+    _server: Any = dataclasses.field(default=None, repr=False, compare=False)
+    _server_lock: Any = dataclasses.field(default_factory=threading.Lock,
+                                          repr=False, compare=False)
+
+    def _make_server(self):
+        from predictionio_tpu_torch.ops.serving import DeviceTopK
+
+        plane = self.serve_plane if self.serve_plane is not None \
+            else self.user_factors.mesh
+        # the whole tables gathered on the first device, device to device
+        return DeviceTopK(
+            self.user_factors.gathered(), self.item_factors.gathered(),
+            self.seen, n_users=self.n_users, n_items=self.n_items,
+            item_layout=self.item_layout, device=plane)
+
+    def sanity_check(self) -> None:
+        # a reduction on the device: the factors are not gathered
+        assert self.user_factors.all_finite(), "non-finite user factors"
+        assert self.item_factors.all_finite(), "non-finite item factors"
+
+    def __getstate__(self):
+        raise TypeError(
+            "a ShardedALSModel lives on its device mesh and does not "
+            "pickle; its engine persists RETRAIN and trains again at "
+            "deploy")
+
+
+class ALSShardedAlgorithm(_DeviceServingAlgo, PAlgorithm):
+    """The PAlgorithm flavor of ALS: trains with ``train_als_device``
+    over the context's mesh and serves from the device tables; no host
+    copy of the factors exists at any point."""
+
+    params_class = ALSParams
+    query_cls = Query
+
+    def train(self, ctx: Any, pd: PreparedData) -> ShardedALSModel:
+        from predictionio_tpu_torch.ops.als import item_interaction_counts
+        from predictionio_tpu_torch.parallel.als_sharding import (
+            density_aware_item_layout,
+            train_als_device,
+        )
+        from predictionio_tpu_torch.workflow import runlog
+        from predictionio_tpu_torch.workflow.checkpoint import (
+            bimap_fingerprint_scope,
+        )
+
+        mesh = _context_mesh(ctx)
+        with bimap_fingerprint_scope(pd.user_map, pd.item_map), \
+                runlog.run_context_scope(
+                    template="recommendation-sharded",
+                    nUsers=pd.user_side.n_rows,
+                    nItems=pd.user_side.n_cols):
+            X, Y = train_als_device(pd.user_side, pd.item_side, self.params,
+                                    mesh)
+        # over several devices the item store takes the density-aware
+        # layout (the power-law head spread over the shards); it travels
+        # in the model
+        layout = None
+        n_dev = X.mesh.size
+        if n_dev > 1:
+            layout = density_aware_item_layout(
+                item_interaction_counts(pd.item_side), n_dev)
+        return ShardedALSModel(
+            X, Y, pd.user_side.n_rows, pd.user_side.n_cols,
+            pd.user_map, pd.item_map, pd.seen,
+            item_categories=pd.item_categories, item_layout=layout)
+
+    def batch_predict(self, ctx: Any, model: ShardedALSModel,
+                      indexed_queries) -> List[Tuple[int, Any]]:
+        """Known-user queries grouped into ``users_topk`` dispatches
+        against the device shards: one round trip a group."""
         return self._batched_predict(model, indexed_queries)
 
 
@@ -830,3 +956,12 @@ def engine_factory() -> Engine:
                   {"als": ALSAlgorithm, "": ALSAlgorithm},
                   {"": RecommendationServing,
                    "fileblacklist": FileBlacklistServing})
+
+
+def sharded_engine_factory() -> Engine:
+    """The engine whose model stays on its device mesh (the PAlgorithm
+    flavor): deploy trains again (``RETRAIN``) and serves from the
+    device."""
+    return Engine(EventDataSource, RatingsPreparator,
+                  {"als": ALSShardedAlgorithm, "": ALSShardedAlgorithm},
+                  RecommendationServing)

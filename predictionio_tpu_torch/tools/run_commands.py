@@ -16,9 +16,10 @@ SIGTERM/SIGINT drain at the next chunk boundary). ``eval`` runs an
 ``Evaluation`` (``best.json``, an ``EVALCOMPLETED`` instance) or, with
 ``--grid``, the config grid's leaderboard, on ``--device`` too.
 ``batchpredict`` scores a query file (or every known entity) through
-a stored instance in restartable chunks on ``--device``. Options whose
-modules are not ported yet raise and name their ROADMAP item: the
-distributed training options (A6.3). ``deploy --foldin on`` runs the online fold-in
+a stored instance in restartable chunks on ``--device``. ``train
+--num-hosts K --coordinator HOST:PORT --process-id i`` joins a process
+group, trains on this host's cards in one collective run, and leaves
+persistence to host 0. ``deploy --foldin on`` runs the online fold-in
 consumer, ``deploy --feedback --accesskey K`` posts each answered query
 to the event server, and ``deploy --fleet N`` serves N replicas behind
 one balancer (``--slo-config`` sets its SLO objectives).
@@ -102,18 +103,6 @@ def _apply_tracing_flags(args) -> None:
         or os.environ.get("PIO_TRACE_DIR") or None
     if trace_dir:
         tracing.set_trace_dir(trace_dir)
-
-
-def _refuse_unported_train_options(args) -> None:
-    """Raise for the training options whose modules are not ported."""
-    hosts = getattr(args, "num_hosts", None) \
-        or int(os.environ.get("PIO_NUM_HOSTS", "1") or 1)
-    if hosts > 1 or getattr(args, "coordinator", None) \
-            or getattr(args, "process_id", None) is not None:
-        raise NotImplementedError(
-            "training across several hosts (--num-hosts, --coordinator, "
-            "--process-id) is not ported yet (ROADMAP A6.3, the sharded "
-            "trainers)")
 
 
 def _apply_precision_flag(args) -> None:
@@ -213,6 +202,7 @@ def cmd_train(args) -> int:
     from predictionio_tpu_torch.core.base import TrainingInterruption
     from predictionio_tpu_torch.core.context import ComputeContext
     from predictionio_tpu_torch.device import resolve_device
+    from predictionio_tpu_torch.parallel import distributed
     from predictionio_tpu_torch.utils import metrics
     from predictionio_tpu_torch.utils.tracing import (
         profile_trace,
@@ -222,12 +212,18 @@ def cmd_train(args) -> int:
         create_workflow,
     )
 
-    _refuse_unported_train_options(args)
     ctx = ComputeContext(device=resolve_device(args.device))
     _apply_tracing_flags(args)
     _apply_precision_flag(args)
     _apply_checkpoint_flags(args)
     try:
+        # the process group (nothing to do on one host): every host runs
+        # this command, each training on its own cards
+        if distributed.initialize(distributed.DistributedConfig.from_args(
+                args)):
+            print(f"[INFO] Joined distributed runtime: host "
+                  f"{distributed.process_index()}/"
+                  f"{distributed.process_count()}")
         variant = _load_variant(args.engine_variant)
         config = _workflow_config(args, variant)
         profile_dir = getattr(args, "profile_dir", None) \
@@ -239,14 +235,22 @@ def cmd_train(args) -> int:
                             slow_exempt=True), \
                 _train_progress_scope():
             instance_id = create_workflow(config, variant=variant, ctx=ctx)
+        primary = distributed.is_primary_host()
     except TrainingInterruption as e:
         print(f"[INFO] Training interrupted: {e}")
         return 0
     except Exception as e:
         print(f"[ERROR] Training failed: {e}", file=sys.stderr)
         return 1
+    finally:
+        distributed.shutdown()
     if instance_id is None:
-        print("[INFO] Training interrupted by a stop-after flag.")
+        if not primary:
+            print("[INFO] Secondary host: training complete; persistence "
+                  "done by host 0.")
+            _print_launches("assemble_normal_equations", "spd_solve")
+        else:
+            print("[INFO] Training interrupted by a stop-after flag.")
         return 0
     print(f"[INFO] Training completed. Engine instance ID: {instance_id}")
     _print_launches("assemble_normal_equations", "spd_solve")

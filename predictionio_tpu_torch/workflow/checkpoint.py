@@ -53,8 +53,11 @@ Design:
   config once, the alive mask rides the manifest's ``extra`` block, and
   only an all-dead grid aborts.
 
-Not in this slice: checkpoints of training sharded over several devices
-or hosts (ROADMAP A6.3).
+Training sharded over one process's devices checkpoints through the
+same lane (the factor tables gathered to the host for a save, scattered
+back over the mesh on resume); training across several processes writes
+no checkpoint and warns when asked for them
+(:mod:`~predictionio_tpu_torch.parallel.als_sharding`).
 """
 
 from __future__ import annotations
@@ -512,9 +515,11 @@ def checkpointer_for(layout: Sequence, params: Any, solver: str,
 
 def _factors_finite(X, Y) -> bool:
     """One device reduction over both factor carries, one scalar to the
-    host."""
+    host (a sharded carry reduces each of its blocks)."""
     import torch
 
+    if hasattr(X, "all_finite"):
+        return X.all_finite() and Y.all_finite()
     return bool((torch.isfinite(X).all() & torch.isfinite(Y).all()).item())
 
 

@@ -13,9 +13,10 @@ rendered results (``FAILED`` when it raises).
 A stored blob is a pickle. The port unpickles it through
 :class:`PortUnpickler`, which refuses every class of the JAX package
 (``predictionio_tpu`` and below) without importing it: a model the JAX
-package stored raises ``StorageError`` naming the class. Training across
-several hosts comes with ROADMAP A6.3: ``run_train`` raises
-when ``torch.distributed`` spans more than one process.
+package stored raises ``StorageError`` naming the class. Across several
+hosts (a ``torch.distributed`` process group, ``pio train --num-hosts``)
+every host trains in the collective run, and only the primary host
+(rank 0) records the instance and stores the models.
 """
 
 from __future__ import annotations
@@ -122,13 +123,6 @@ def load_engine_factory(path: str) -> Callable[[], Engine]:
     return obj
 
 
-def _multi_process() -> bool:
-    import torch.distributed as dist
-
-    return (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1)
-
-
 def run_train(engine: Engine, engine_params: EngineParams,
               engine_instance: EngineInstance,
               params: Optional[WorkflowParams] = None,
@@ -139,14 +133,27 @@ def run_train(engine: Engine, engine_params: EngineParams,
     training. A preemption of checkpointed training marks the instance
     ``INTERRUPTED`` and raises (``TrainingPreempted``); any other failure
     marks it ``FAILED`` and raises. ``ctx`` names the device (None =
-    cuda)."""
-    if _multi_process():
-        raise NotImplementedError(
-            "run_train across several processes is not ported yet "
-            "(ROADMAP A6.3, the sharded trainers)")
+    cuda).
+
+    On a secondary host of a process group (rank > 0) it trains in the
+    collective run and writes nothing: no EngineInstance, no model
+    (host 0 persists, as the reference's driver does); it returns
+    None."""
+    from predictionio_tpu_torch.parallel.distributed import is_primary_host
+
     params = params or WorkflowParams()
     ctx = ctx or workflow_context(
         mode="train", batch=params.batch or engine_instance.batch)
+    if not is_primary_host():
+        try:
+            engine.train(ctx, engine_params, params, engine_instance_id="")
+            logger.info("Secondary host: training complete, persistence "
+                        "left to host 0.")
+        except TrainingInterruption as e:
+            logger.info("Training interrupted by %r.", e)
+        finally:
+            ctx.stop()
+        return None
     engine_instances = storage.get_metadata_engine_instances()
     instance_id = engine_instances.insert(engine_instance)
     instance = engine_instances.get(instance_id)

@@ -18,14 +18,16 @@
   ``build`` -> ``train --device cpu`` -> ``deploy`` (a second process)
   -> a query -> ``undeploy``.
 - ``train`` and ``deploy`` without ``--device`` raise where CUDA is
-  absent, and each verb or option whose module is not ported raises and
-  names its ROADMAP item.
+  absent, and ``train``'s host flags (``--num-hosts``, ``--coordinator``,
+  ``--process-id``) reach the process group, which refuses an incomplete
+  world with the JAX package's message.
 - The same events written through ``insert_raw_batch`` and through
   ``pio import`` plus the event server's ``/batch/events.json`` train to
   the same factors.
 """
 
 import argparse
+import dataclasses
 import datetime as dt
 import json
 import os
@@ -369,18 +371,38 @@ def test_operator_verbs_parse_as_the_jax_verbs(argv, handler):
     assert got == want
 
 
-UNPORTED = [
-    (["train", "--device", "cpu", "--num-hosts", "2"], "A6"),
-    (["train", "--device", "cpu", "--coordinator", "h:1"], "A6"),
+HOST_FLAGS = [
+    (["train", "--device", "cpu", "--num-hosts", "2"],
+     "--coordinator HOST:PORT is required"),
+    (["train", "--device", "cpu", "--coordinator", "h:1"],
+     "--process-id is required"),
 ]
 
 
-@pytest.mark.parametrize("argv,item", UNPORTED, ids=lambda v: (
+@pytest.mark.parametrize("argv,message", HOST_FLAGS, ids=lambda v: (
     " ".join(v) if isinstance(v, list) else v))
-def test_unported_verbs_and_options_raise_with_their_item(argv, item,
-                                                          tmp_path):
-    with pytest.raises(NotImplementedError, match=re.escape(item)):
-        tcli.main(argv)
+def test_train_host_flags_reach_the_process_group(argv, message,
+                                                  monkeypatch, capsys):
+    """Once refused: ``train --num-hosts/--coordinator/--process-id``
+    give the JAX parser's topology, and ``initialize`` refuses an
+    incomplete world with the JAX package's message (training fails, exit
+    1). A whole 2-process world trains in
+    ``test_torch_sharded_training.py``."""
+    from predictionio_tpu.parallel import distributed as jdist
+    from predictionio_tpu_torch.parallel import distributed as tdist
+
+    for var in ("PIO_NUM_HOSTS", "PIO_COORDINATOR", "PIO_PROCESS_ID",
+                "PIO_LOCAL_DEVICE_IDS"):
+        monkeypatch.delenv(var, raising=False)
+    jargv = [a for a in argv if a not in ("--device", "cpu")]
+    want = jdist.DistributedConfig.from_args(
+        jcli.build_parser().parse_args(jargv))
+    got = tdist.DistributedConfig.from_args(tcli.build_parser().parse_args(
+        argv))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.is_multi_host
+    assert tcli.main(argv) == 1
+    assert message in capsys.readouterr().err
 
 
 def test_version_status_and_template_list(both_stores, capsys):

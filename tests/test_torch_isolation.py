@@ -11,8 +11,9 @@ new``, ``import``, the event server, ``template get``, ``train``,
 fold-in over a ``resthttp`` and a ``fleet`` event store, the
 ``sequentialrec`` and ``twostage`` templates, and the other templates
 (similarproduct with DIMSUM, ecommercerecommendation, textclassification,
-classification with ``e2``).
-``chip_smoke.py`` refuses to run without a GPU."""
+classification with ``e2``), and the sharded trainers and the
+PAlgorithm flavor of the recommendation template over four logical
+shards. ``chip_smoke.py`` refuses to run without a GPU."""
 
 import ast
 import os
@@ -610,6 +611,82 @@ def test_other_templates_run_with_jax_unimportable():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "other templates ran" in proc.stdout
+
+
+SHARDED_RUN = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["predictionio_tpu"] = None
+import datetime as dt
+import numpy as np
+from predictionio_tpu_torch.core.context import workflow_context
+from predictionio_tpu_torch.data import storage
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.data.storage.base import App
+from predictionio_tpu_torch.ops import als
+from predictionio_tpu_torch.parallel import (
+    P, mesh_2d, train_als_bucketed_sharded, train_als_sharded_2d)
+from predictionio_tpu_torch.templates.recommendation import ShardedALSModel
+from predictionio_tpu_torch.workflow.create_server import (
+    build_deployment, resolve_engine_instance, serve_query, to_jsonable)
+from predictionio_tpu_torch.workflow.create_workflow import (
+    WorkflowConfig, create_workflow)
+
+plane = workflow_context(devices=["cpu"] * 4, device="cpu")
+rng = np.random.default_rng(0)
+rows, cols = rng.integers(0, 30, 400), rng.integers(0, 20, 400)
+vals = rng.integers(1, 6, 400).astype(np.float32)
+params = als.ALSParams(rank=4, num_iterations=2, seed=0)
+mesh = mesh_2d(2, 2, devices=["cpu"] * 4)
+X, Y = train_als_bucketed_sharded(
+    *als.bucket_ratings_pair(rows, cols, vals, 30, 20), params, mesh,
+    factor_spec=P("model", None), gather=False)
+assert X.mesh.size == 4 and X.blocks[0].shape[0] == X.shape[0] // 2
+X2, _ = train_als_sharded_2d(als.pad_ratings(rows, cols, vals, 30, 20),
+                             als.pad_ratings(cols, rows, vals, 20, 30),
+                             params, mesh)
+assert X2.shape == (30, 4) and np.isfinite(X2).all()
+storage.reset(storage.StorageConfig(
+    {"M": {"type": "memory"}}, {r: "M" for r in storage.REPOSITORIES}))
+aid = storage.get_metadata_apps().insert(App(0, "app"))
+t0 = dt.datetime(2024, 1, 1, tzinfo=dt.timezone.utc)
+storage.get_levents().insert_batch([Event(
+    event="rate", entity_type="user", entity_id=f"u{u}",
+    target_entity_type="item", target_entity_id=f"i{i}",
+    properties={"rating": float(v)}, event_time=t0)
+    for u, i, v in zip(rows, cols, vals)], aid)
+factory = ("predictionio_tpu_torch.templates.recommendation.engine:"
+           "sharded_engine_factory")
+iid = create_workflow(WorkflowConfig(engine_factory=factory), {
+    "engineFactory": factory, "datasource": {"params": {"appName": "app"}},
+    "preparator": {"params": {"bucketed": True}},
+    "algorithms": [{"name": "als", "params": {
+        "rank": 4, "numIterations": 2, "seed": 0}}]}, ctx=plane)
+dep = build_deployment(resolve_engine_instance(iid), plane)
+model = dep.models[0]
+assert isinstance(model, ShardedALSModel), model
+assert model.device_server().shard_count == 4
+out = to_jsonable(serve_query(dep, {"user": "u1", "num": 3}))
+assert len(out["itemScores"]) == 3, out
+assert not any(m == "jax" or m.startswith(("jax.", "predictionio_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("sharded training ran")
+"""
+
+
+def test_sharded_training_runs_with_jax_unimportable():
+    """The sharded trainers (bucketed over a 2 x 2 mesh with the factor
+    tables over ``model``, uniform 2-D) and the PAlgorithm flavor
+    (``sharded_engine_factory`` trained through ``create_workflow`` over
+    four logical shards, deployed over them and answering) run where
+    ``jax`` and ``predictionio_tpu`` cannot be imported."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env.pop("PIO_SERVE_PRECISION", None)
+    proc = subprocess.run([sys.executable, "-c", SHARDED_RUN], env=env,
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "sharded training ran" in proc.stdout
 
 
 @pytest.mark.parametrize("alone", [False, True])
