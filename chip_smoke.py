@@ -8,6 +8,7 @@
     python3 chip_smoke.py --seqrec          # 1, 5's store, 3e, 3f, 7's half
     python3 chip_smoke.py --templates       # phases 1 and 6e only
     python3 chip_smoke.py --sharded         # phases 1, 8a, 5, 8b and 8c only
+    python3 chip_smoke.py --sequence-parallel  # 1, 5's store, 3e/3f training, 8d
     python3 chip_smoke.py --crossover       # phases 1 and 8a only
 
 Phases (any failure raises and the script exits non-zero):
@@ -488,6 +489,27 @@ Phases (any failure raises and the script exits non-zero):
    uniform all-gather) and must equal (b)'s single-device factors
    bitwise. ``--sharded`` runs phases 1, 8a, 5, 8b and 8c alone,
    ``--crossover`` phases 1 and 8a.
+8d. Sequence parallelism and two-stage serving over shards (after 3f's
+   serving), on ``[cuda:0] * 4``. (a) Phase 3e's θ and buckets encoded
+   with ``sp_mode`` ring, ulysses and auto over that mesh (each layer's
+   attention sequence-parallel, the rest on the card once), beside the
+   dense encode: each within rtol 2e-4 / atol 1e-5 (JAX's
+   ``TestMeshLane.TOL``) of 3e's encode; seconds, the largest score
+   block and the peak device memory of each. (b) Phase 3f's models
+   deployed over a context of the 4 devices with ``PIO_SERVE_SHARDS=4``
+   (bf16, N = 128): 43 sequential queries and 256 from 8 threads, each
+   answer equal to the plain pipeline (B1's plain version on each
+   shard, then the same re-rank); B1 must launch 4 times a two-lane
+   dispatch at k = N; ``stage_times``' B1 (all shards) and stage-2 µs,
+   a lone dispatch event-timed and profiled; B1 unmasked at k = 128 on
+   each shard against its plain version, the whole stage 1 at B = 8
+   timed against plain, the library's and its bound; a composite fold
+   of 4 new users growing the store by a reshard, their answers equal
+   to the plain pipeline's. (c) Ulysses' collectives
+   (``all_to_all_single``, ``all_gather``) through a one-rank NCCL
+   group on 1,024 users of the longest class, within (a)'s tolerance.
+   ``--sequence-parallel`` runs phases 1, 5's store, 3e's and 3f's
+   training and 8d alone.
 
 It prints a ``{"kernels": [...]}`` line (the training kernels' ``routes``
 hold the main path's, the large-rank one and ``foldin``, with phase 3b's
@@ -501,7 +523,8 @@ kernels' ``fleet_roll_training`` phase 3d's training of the instance
 the roll swaps to; the serving kernel's ``sequence_launches`` and
 ``unmasked_k128`` phases 3e's and 3f's, the training kernels'
 ``twostage_launches`` phase 3f's; the serving kernel's
-``sharded_route`` phase 8b's launches and times, the training kernels'
+``sharded_route`` phase 8b's launches and times and its
+``twostage_sharded_route`` phase 8d's, the training kernels'
 ``sharded_training`` phase 8c's launches, ms per iteration and busy
 share), the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. With
@@ -10064,6 +10087,443 @@ def sharded_training(dev, trained: dict, seed: int, card: str) -> dict:
                            "s": collective_s}}
 
 
+# phase 8d: sequence-parallel attention and two-stage serving over shards
+
+SP_SHARDS = 4
+SP_MODES = ("ring", "ulysses", "auto")
+SP_TOL = dict(rtol=2e-4, atol=1e-5)   # JAX TestMeshLane.TOL
+SP_COLLECTIVE_USERS = 1_024           # (c)'s users of the longest class
+TWO_SHARD_BURST = 256                 # (b)'s user queries from 8 threads
+TWO_SHARD_FOLD_USERS = 4              # (b)'s new users folded in
+TWO_SHARD_B = 8                       # the uid bucket of a lone dispatch
+
+
+class ScoreBlocks:
+    """While entered, records the score blocks ``ops/attention.py``
+    forms (its ``_scores`` wrapped): the largest one's shape."""
+
+    def __enter__(self) -> "ScoreBlocks":
+        from predictionio_tpu_torch.ops import attention
+
+        self.largest: tuple = ()
+        self._mod, self._saved = attention, attention._scores
+
+        def recorded(q, k, scale):
+            out = self._saved(q, k, scale)
+            if out.numel() > int(np.prod(self.largest or (0,))):
+                self.largest = tuple(out.shape)
+            return out
+
+        attention._scores = recorded
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._mod._scores = self._saved
+
+
+def within_sp_tol(got: np.ndarray, want: np.ndarray) -> tuple:
+    """(every entry within ``SP_TOL``, the largest absolute difference)."""
+    diff = np.abs(got - want)
+    ok = bool((diff <= SP_TOL["atol"] + SP_TOL["rtol"] * np.abs(want)).all())
+    return ok, float(diff.max())
+
+
+def sp_encodes(dev, seq: dict) -> dict:
+    """8d (a): phase 3e's θ and buckets encoded over ``[dev] * 4`` with
+    ``sp_mode`` ring, ulysses and auto, beside the dense encode; each
+    held to 3e's dense encode within ``SP_TOL``. One chunk of the longest
+    class is profiled per scheme: wall, the card's busy ms, kernels."""
+    import dataclasses
+
+    import torch
+
+    from predictionio_tpu_torch.ops import seqrec
+    from predictionio_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    model, pd = seq["model"], seq["pd"]
+    mesh = data_parallel_mesh(devices=[dev] * SP_SHARDS)
+    n_users = len(pd.user_map)
+    rows = {}
+    for mode in ("dense",) + SP_MODES:
+        p = dataclasses.replace(model.enc_params,
+                                sp_mode="off" if mode == "dense" else mode)
+        schemes = sorted({str(seqrec.select_sp_kernel(
+            mesh, "data", int(p.n_heads), b.seq_len, p.sp_mode))
+            for b in pd.buckets})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with ScoreBlocks() as blocks:
+            t = time.perf_counter()
+            U = seqrec.encode_users(
+                model.theta, pd.buckets, n_users, p, device=dev,
+                mesh=None if mode == "dense" else mesh)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t
+        ok, diff = within_sp_tol(U, model.user_vectors)
+        rows[mode] = {"s": s, "schemes": schemes,
+                      "largest_score_block": list(blocks.largest),
+                      "peak_bytes": int(torch.cuda.max_memory_allocated()
+                                        - base),
+                      "max_abs_diff": diff, "within_tol": ok}
+        print(f"[sp-encode] {mode}: {n_users} users in {s:.3f} s "
+              f"(schemes {schemes}); largest score block {blocks.largest}; "
+              f"peak {rows[mode]['peak_bytes']} bytes; against 3e's dense "
+              f"encode max |diff| {diff!r} (within rtol 2e-4 / atol 1e-5: "
+              f"{ok})")
+        if not ok:
+            raise AssertionError(f"the {mode} encode differs from the "
+                                 f"dense one by {diff!r}")
+    # one chunk of the longest class under the profiler, each scheme
+    th = seqrec.theta_to_device(model.theta, dev)
+    bucket = max(pd.buckets, key=lambda b: (b.seq_len, len(b)))
+    step = seqrec.encode_chunk_rows(bucket.seq_len,
+                                    int(th["item_emb"].shape[1]),
+                                    int(model.enc_params.n_heads))
+    sub = seqrec.SequenceBucket(bucket.rows[:step], bucket.ids[:step],
+                                bucket.mask[:step])
+    for mode in ("dense", "ring", "ulysses"):
+        p = dataclasses.replace(model.enc_params, sp_mode=mode)
+        if mode == "dense":
+            run = lambda: seqrec.encode_bucket(th, sub, p, dev)  # noqa
+        else:
+            run = lambda: seqrec.encode_bucket_mesh(th, sub, p, mesh)  # noqa
+        run()
+        wall, busy, names, _ = device_busy(run)
+        rows[mode]["chunk"] = {"rows": len(sub), "wall_ms": wall,
+                               "busy_ms": busy,
+                               "kernels": int(sum(names.values()))}
+        print(f"[sp-encode] {mode}, one chunk of {len(sub)} users of the "
+              f"{sub.seq_len}-long class under the profiler: {wall:.3f} ms "
+              f"wall, the card busy {busy:.3f} ms, "
+              f"{rows[mode]['chunk']['kernels']} kernels")
+    return rows
+
+
+def sharded_stage_one(dev, store) -> dict:
+    """8d (b)'s kernel checks and times on the sharded two-stage store's
+    blocks: B1 unmasked at k = N on each shard against its plain version
+    (B = ``TWO_SHARD_B``), then the whole stage 1 (4 launches and the
+    merge) timed against its plain version, the library's (each shard's
+    block widened, the product, invalid rows -inf, ``torch.topk``, then
+    ``torch.topk`` of the joined lists) and its bound."""
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.ops import serving as serving_mod
+
+    shards = store._shards
+    m = int(shards[0].valid.shape[0])
+    n_pos = m * len(shards)
+    k = min(store._n_bucket, m)
+    rng = np.random.default_rng(17)
+    uids = torch.as_tensor(rng.integers(0, store.n_users, TWO_SHARD_B),
+                           device=dev)
+    Q = serving_mod._gather_rows_f32(store._X, uids)
+    worst = 0.0
+    for sh in shards:
+        kv, ki = als_cuda.fused_gather_score_topk(
+            Q, sh.Y, None, None, k=k, n_items=m, mask_seen=False,
+            row_valid=sh.valid)
+        pv, pi = als_cuda.fused_gather_score_topk_plain(
+            Q, sh.Y, None, None, k=k + 1, n_items=m, mask_seen=False,
+            row_valid=sh.valid)
+        tol = (RTOL * torch.linalg.vector_norm(Q, dim=1)
+               * torch.linalg.vector_norm(sh.Y.float(), dim=1).max()
+               ).cpu().numpy()
+        worst = max(worst, check_topk(kv.cpu().numpy(), ki.cpu().numpy(),
+                                      pv.cpu().numpy(), pi.cpu().numpy(),
+                                      tol, exact=False))
+
+    def stage_one():
+        serving_mod._sharded_score_topk(shards, Q, None, None, k=k,
+                                        mask_seen=False)
+
+    def plain():
+        serving_mod.fused_gather_score_topk = \
+            als_cuda.fused_gather_score_topk_plain
+        try:
+            stage_one()
+        finally:
+            serving_mod.fused_gather_score_topk = \
+                als_cuda.fused_gather_score_topk
+
+    def library():
+        vals, idx = [], []
+        for sh in shards:
+            s = torch.matmul(Q, sh.Y.float().T)
+            s[:, sh.valid <= 0] = float("-inf")
+            v, i = torch.topk(s, k, dim=1)
+            vals.append(v)
+            idx.append(i + sh.offset)
+        v, sel = torch.topk(torch.cat(vals, 1), k, dim=1)
+        torch.gather(torch.cat(idx, 1), 1, sel)
+
+    t_k, t_p, t_l = (time_ms(f, 20) for f in (stage_one, plain, library))
+    _, busy, _, by_name = device_busy(lambda: [stage_one()
+                                               for _ in range(20)])
+    b1 = b1_kernel_names()
+    b_ms, b_by = bound_of(
+        n_pos * RANK * 2 + n_pos * 4 + TWO_SHARD_B * RANK * 4
+        + TWO_SHARD_B * k * 8 * (len(shards) + 1),
+        2.0 * TWO_SHARD_B * n_pos * RANK)
+    row = {"store": "bf16", "B": TWO_SHARD_B, "k": k, "mask_seen": False,
+           "shards": len(shards), "positions_per_shard": m, "ms": t_k,
+           "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
+           "bound_by": b_by, "busy_ms": busy / 20,
+           "b1_ms": sum(v for name, v in by_name.items() if name in b1) / 20,
+           "max_abs_err": worst}
+    print(f"[sp-two] B1 unmasked k={k} on each of {len(shards)} shards == "
+          f"plain (largest |err| {worst!r}); stage 1 at B={TWO_SHARD_B} "
+          f"({len(shards)} launches + merge) {t_k!r} ms (card busy "
+          f"{row['busy_ms']!r}, B1 {row['b1_ms']!r}), plain {t_p!r} ms, "
+          f"library {t_l!r} ms, bound {b_ms!r} ms ({b_by})")
+    return row
+
+
+def sharded_twostage(dev, two: dict, seed: int) -> dict:
+    """8d (b): phase 3f's models deployed through ``TwoStageServing`` over
+    a context of ``[dev] * 4`` with ``PIO_SERVE_SHARDS=4`` (bf16, N =
+    128): 43 sequential queries and ``TWO_SHARD_BURST`` from 8 threads,
+    every answer equal to the plain pipeline (B1's plain version on each
+    shard, then the same re-rank); B1 launches 4 times a two-lane
+    dispatch, at k = N, unmasked. Then a lone dispatch event-timed and
+    profiled (busy, B1 ms), ``stage_times``' B1 / stage-2 µs, B1 held to
+    plain on each shard and stage 1 timed; last a composite fold of
+    ``TWO_SHARD_FOLD_USERS`` new users (B3 + B2 rows, a re-encode, the
+    store growing by a reshard), their answers equal to the plain
+    pipeline's on the same store."""
+    import concurrent.futures
+    import dataclasses
+    import os
+
+    import torch
+
+    from predictionio_tpu_torch.core.context import workflow_context
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.ops import serving as serving_mod
+    from predictionio_tpu_torch.ops import twostage as twostage_mod
+    from predictionio_tpu_torch.ops.als import fold_in_users
+    from predictionio_tpu_torch.templates.twostage import engine as teng
+    from predictionio_tpu_torch.workflow.create_server import (
+        deployment_from_models,
+        query_from_json,
+        serve_query,
+        to_jsonable,
+    )
+
+    als = dataclasses.replace(two["als"], _server=None)
+    rerank = dataclasses.replace(two["rerank"], _server=None)
+    engine = teng.engine_factory()
+    params = engine.engine_params_from_variant({
+        "algorithms": [{"name": "als", "params": {"rank": RANK}},
+                       {"name": "seqrec", "params": {}}]})
+    ctx = workflow_context(mode="serving", devices=[dev] * SP_SHARDS)
+    prior = os.environ.get("PIO_SERVE_SHARDS")
+    os.environ["PIO_SERVE_SHARDS"] = str(SP_SHARDS)
+    try:
+        t0 = time.perf_counter()
+        dep = deployment_from_models(engine, params, [als, rerank], ctx=ctx)
+        store = als.device_server().store
+        store.warmup()
+        build_s = time.perf_counter() - t0
+    finally:
+        if prior is None:
+            os.environ.pop("PIO_SERVE_SHARDS", None)
+        else:
+            os.environ["PIO_SERVE_SHARDS"] = prior
+    if not (dep.serving.fused_bound and store.shard_count == SP_SHARDS
+            and store.precision == "bf16"
+            and store._n_bucket == TWO_CANDIDATES):
+        raise AssertionError(f"store: {store.shard_count} shards, "
+                             f"{store.precision}, N {store._n_bucket}")
+    print(f"[sp-two] store built and warmed in {build_s:.2f} s: "
+          f"{store.item_layout.balance_report()}; "
+          f"{store.memory_report()['totalBytes']} bytes")
+    rng = np.random.default_rng(seed + 87)
+    queries, many = sequence_queries(rng, len(als.user_map))
+    many = many[:TWO_SHARD_BURST]
+
+    def ask(q):
+        t = time.perf_counter()
+        res = serve_query(dep, query_from_json(
+            q, dep.algorithms[0].query_class))
+        return q, 200, to_jsonable(res), time.perf_counter() - t
+
+    lanes0 = store.stats()
+    store.stage_times.clear()
+    als_cuda.launches.reset()
+    t = time.perf_counter()
+    answers = [ask(q) for q in queries]
+    seq_s = time.perf_counter() - t
+    with concurrent.futures.ThreadPoolExecutor(SEQ_CLIENTS) as pool:
+        t = time.perf_counter()
+        answers += list(pool.map(ask, many))
+        burst_s = time.perf_counter() - t
+    launches = als_cuda.launches.value
+    by_key = dict(als_cuda.launches.by_key())
+    lanes = store.stats()
+    split = np.asarray(list(store.stage_times))
+    dispatches = lanes["two"]["dispatches"] - lanes0["two"]["dispatches"]
+    # each shard's list: k = N, or its block when that is shorter
+    k_shard = min(TWO_CANDIDATES, store.item_layout.cap)
+    at_n = sum(c for (r, k, b), c in by_key.items() if k == k_shard)
+    if not dispatches or at_n != SP_SHARDS * dispatches:
+        raise AssertionError(f"{dispatches} two-lane dispatches, {at_n} B1 "
+                             f"launches at k = {k_shard} ({by_key})")
+    checked = check_against_plain(als, answers)
+    b1_us, s2_us = (float(np.median(split[:, 0])),
+                    float(np.median(split[:, 1]))) if len(split) else (
+                        None, None)
+    print(f"[sp-two] {checked} answers equal to plain ({len(queries)} "
+          f"sequential in {seq_s:.3f} s, {len(many)} from {SEQ_CLIENTS} "
+          f"threads in {burst_s:.3f} s: {len(many) / burst_s!r} q/s); "
+          f"{dispatches} two-lane dispatches, B1 {at_n} launches at k = "
+          f"{k_shard} ({at_n / dispatches!r} a dispatch; all {launches}:"
+          f" {by_key}); per dispatch (median of {len(split)}, CUDA events) "
+          f"B1's kernels on {SP_SHARDS} shards {b1_us!r} us, stage 2 "
+          f"{s2_us!r} us")
+    lone = np.arange(TWO_SHARD_B, dtype=np.int64)
+    dispatch_ms = time_ms(lambda: store.twos_topk(lone, 10), 20)
+    _, busy, _, by_name = device_busy(
+        lambda: [store.twos_topk(lone, 10) for _ in range(20)])
+    b1 = b1_kernel_names()
+    lone_row = {"ms": dispatch_ms, "busy_ms": busy / 20,
+                "b1_ms": sum(v for n, v in by_name.items() if n in b1) / 20}
+    print(f"[sp-two] a lone dispatch (B={TWO_SHARD_B}, k=10): "
+          f"{dispatch_ms!r} ms event-timed, the card busy "
+          f"{lone_row['busy_ms']!r} ms, B1 {lone_row['b1_ms']!r} ms")
+    route = sharded_stage_one(dev, store)
+
+    # a composite fold of new users, growing the store by a reshard
+    frng = np.random.default_rng(seed + 88)
+    n0, cap0 = store.n_users, store.user_capacity
+    uids = np.arange(cap0, cap0 + TWO_SHARD_FOLD_USERS)
+    cols = [frng.choice(store.n_items, int(n), replace=False)
+            for n in frng.integers(5, 40, TWO_SHARD_FOLD_USERS)]
+    vals = [np.ones(len(c), np.float32) for c in cols]
+    als_cuda.assemble_launches.reset()
+    als_cuda.spd_launches.reset()
+    x_rows = fold_in_users(store.item_factors, cols, vals,
+                           two["als_params"], max_len=TWO_MAX_LEN,
+                           device=dev)
+    u_rows = rerank.fold_in_rows(cols, vals)
+    fold_launches = {"assemble_normal_equations":
+                     als_cuda.assemble_launches.value,
+                     "spd_solve": als_cuda.spd_launches.value}
+    seen = {int(u): c for u, c in zip(uids, cols)}
+    store.patch_users(uids, x_rows, seen_items=seen)
+    store.patch_seq_users(uids, u_rows, seen_items=seen)
+    if not (store.user_capacity > cap0
+            and store.user_capacity % SP_SHARDS == 0
+            and int(store._U.shape[0]) == store.user_capacity):
+        raise AssertionError(f"no reshard: {cap0} -> {store.user_capacity}")
+    gi, gv = store.twos_topk(uids, 10)
+    saved = (serving_mod.fused_gather_score_topk,
+             twostage_mod.fused_gather_score_topk)
+    serving_mod.fused_gather_score_topk = \
+        twostage_mod.fused_gather_score_topk = \
+        als_cuda.fused_gather_score_topk_plain
+    try:
+        wi, wv = store.twos_topk(uids, 11)
+    finally:
+        (serving_mod.fused_gather_score_topk,
+         twostage_mod.fused_gather_score_topk) = saved
+    u_norm = np.linalg.norm(u_rows, axis=1)
+    e_norm = float(store.seq_item_factors.norm(dim=1).max())
+    check_topk(gv, gi, wv, wi, (RTOL * 1.01 * u_norm * e_norm).astype(
+        np.float32), exact=False)
+    for i, u in enumerate(uids):
+        if set(gi[i][np.isfinite(gv[i])].tolist()) & set(seen[int(u)]
+                                                         .tolist()):
+            raise AssertionError(f"folded user {u}: a seen item served")
+    print(f"[sp-two] composite fold of {TWO_SHARD_FOLD_USERS} new users "
+          f"(launches {fold_launches}): the store grew {cap0} -> "
+          f"{store.user_capacity} rows ({n0} users before); their answers "
+          f"equal the plain pipeline's, seen items masked")
+    store.close()
+    als._server = rerank._server = None
+    return {"launches": at_n, "dispatches": dispatches,
+            "launches_per_dispatch": at_n / dispatches,
+            "by_key": {str(k): v for k, v in by_key.items()},
+            "checked": checked, "burst_qps": len(many) / burst_s,
+            "b1_us": b1_us, "stage2_us": s2_us, "lone": lone_row,
+            "route": route, "build_s": build_s,
+            "grown": [cap0, store.user_capacity],
+            "fold_launches": fold_launches}
+
+
+def sp_collectives(dev, seq: dict) -> dict:
+    """8d (c): Ulysses through a one-rank NCCL process group (its swaps
+    ``all_to_all_single``, its mask ``all_gather``): the longest class's
+    first ``SP_COLLECTIVE_USERS`` users encoded over ``[dev] * 4``,
+    held to 3e's dense encode within ``SP_TOL``."""
+    import dataclasses
+    import socket
+
+    import torch
+
+    from predictionio_tpu_torch.ops import seqrec
+    from predictionio_tpu_torch.parallel import distributed
+    from predictionio_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    model, pd = seq["model"], seq["pd"]
+    bucket = max(pd.buckets, key=lambda b: (b.seq_len, len(b)))
+    take = slice(0, SP_COLLECTIVE_USERS)
+    sub = seqrec.SequenceBucket(bucket.rows[take], bucket.ids[take],
+                                bucket.mask[take])
+    p = dataclasses.replace(model.enc_params, sp_mode="ulysses")
+    mesh = data_parallel_mesh(devices=[dev] * SP_SHARDS)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    import torch.distributed as dist
+
+    calls = {"all_to_all_single": 0, "all_gather": 0}
+    saved = {name: getattr(dist, name) for name in calls}
+
+    def counted(name):
+        def run(*a, **kw):
+            calls[name] += 1
+            return saved[name](*a, **kw)
+        return run
+
+    t = time.perf_counter()
+    joined = distributed.initialize(distributed.DistributedConfig(
+        coordinator=f"127.0.0.1:{port}", num_hosts=1, process_id=0))
+    for name in calls:
+        setattr(dist, name, counted(name))
+    try:
+        backend = str(dist.get_backend())
+        got = seqrec.encode_bucket_mesh(model.theta, sub, p, mesh)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+        distributed.shutdown()
+    s = time.perf_counter() - t
+    ok, diff = within_sp_tol(got, model.user_vectors[sub.rows])
+    want = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+    if not (joined and backend == want and ok
+            and calls["all_to_all_single"] and calls["all_gather"]):
+        raise AssertionError(f"the NCCL world: joined {joined}, {backend}, "
+                             f"{calls}, max |diff| {diff!r}")
+    print(f"[sp-collective] one NCCL rank ({backend}): {len(sub)} users of "
+          f"the {sub.seq_len}-long class through Ulysses' collectives "
+          f"{calls}; against 3e's dense encode max |diff| {diff!r}; "
+          f"{s:.2f} s with the join")
+    return {"backend": backend, "calls": calls, "max_abs_diff": diff,
+            "s": s}
+
+
+def sequence_parallel(dev, seq: dict, two: dict, seed: int) -> dict:
+    """Phase 8d: (a) the sequence-parallel encodes, (b) two-stage serving
+    over four shards, (c) Ulysses through one NCCL rank."""
+    return {"encode": sp_encodes(dev, seq),
+            "twostage": sharded_twostage(dev, two, seed),
+            "collective": sp_collectives(dev, seq)}
+
+
 def fleet_launches(name: str, fleet: dict, started: dict) -> dict:
     """A kernel's launches in the query fleet: phase 3d's and 6b's
     ``pio deploy --fleet`` child's, summed and by phase; for the training
@@ -10120,6 +10580,11 @@ def main() -> int:
     parser.add_argument(
         "--crossover", action="store_true",
         help="build, then only run phase 8a (the host/device crossover)")
+    parser.add_argument(
+        "--sequence-parallel", action="store_true",
+        help="build, then only run phase 5's store, 3e's and 3f's training "
+             "and phase 8d (sequence-parallel encodes, two-stage serving "
+             "over four shards)")
     parser.add_argument(
         "--sharded", action="store_true",
         help="build, then only run phase 8a (the host/device crossover), "
@@ -10216,6 +10681,22 @@ def main() -> int:
         seq_quality = phase("7 sequence quality", sequence_quality, dev)
         print(json.dumps({"seqrec": sequence_summary(
             seq, two, seq_served, two_served, seq_quality)}, default=str))
+        print(nvidia_smi())
+        return 0
+    if args.sequence_parallel:
+        store = phase("5 event store", ml20m_store, args.seed)
+        try:
+            seq = phase("3e seqrec: read, prepare, train",
+                        sequence_read_train, dev, args.seed)
+            two = phase("3f two-stage: prepare, train", twostage_train, dev,
+                        args.seed, seq)
+        finally:
+            remove_store(store)
+        seq.pop("td")
+        two.pop("pd")
+        out = phase("8d sequence parallel, sharded two-stage",
+                    sequence_parallel, dev, seq, two, args.seed)
+        print(json.dumps({"sequence_parallel": out}, default=str))
         print(nvidia_smi())
         return 0
     if args.query_fleet:
@@ -10318,6 +10799,8 @@ def main() -> int:
                        store["ratings"], args.seed)
     two_served = phase("3f two-stage: serve, fold-in", twostage_serve, dev,
                        seq, two, store["ratings"], args.seed)
+    sp = phase("8d sequence parallel, sharded two-stage", sequence_parallel,
+               dev, seq, two, args.seed)
     seq_quality = phase("7 sequence quality", sequence_quality, dev)
     seq_summary = sequence_summary(seq, two, seq_served, two_served,
                                    seq_quality)
@@ -10388,6 +10871,21 @@ def main() -> int:
                      f"{sh_head['positions_per_shard']} positions, B=1, "
                      f"k=16",
             "timings": sharded["timings"]},
+        # phase 8d: two-stage serving's stage 1 over 4 shards, one launch
+        # a shard a two-lane dispatch, unmasked at k = N
+        "twostage_sharded_route": {
+            "launches": sp["twostage"]["launches"],
+            "dispatches": sp["twostage"]["dispatches"],
+            "launches_per_dispatch": sp["twostage"]["launches_per_dispatch"],
+            **{key: sp["twostage"]["route"][key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "busy_ms", "b1_ms", "max_abs_err")},
+            "b1_us": sp["twostage"]["b1_us"],
+            "stage2_us": sp["twostage"]["stage2_us"],
+            "shape": f"bf16 store, {SP_SHARDS} shards of "
+                     f"{sp['twostage']['route']['positions_per_shard']} "
+                     f"positions, B={TWO_SHARD_B}, k={TWO_CANDIDATES}, "
+                     f"mask off"},
         "timings": rows}]
     for name, replaces, err, shape, main_route in (
             ("assemble_normal_equations", 141, train_err["assemble"],
@@ -10548,6 +11046,11 @@ def main() -> int:
           f"{sh_head['ms']!r} ms; sharded training iteration (4 shards) "
           f"{trained_sh['timing']['ms_per_iteration']!r} ms against "
           f"{trained_sh['timing']['single_ms_per_iteration']!r}; "
+          f"sequence-parallel encode s "
+          f"{json.dumps({k: v['s'] for k, v in sp['encode'].items()})}; "
+          f"two-stage over {SP_SHARDS} shards: B1 "
+          f"{sp['twostage']['launches_per_dispatch']!r} launches a "
+          f"dispatch, a lone dispatch {sp['twostage']['lone']['ms']!r} ms; "
           f"Precision@10 {scored['precision_at_10']!r} (bf16 "
           f"{scored['bf16_precision_at_10']!r}; "
           f"{scored['ratio_vs_plain']!r} of plain, lift "

@@ -24,8 +24,14 @@ kernel runs on this path). Encodes split a bucket into row chunks under
 a byte budget (:data:`ENCODE_BYTES`): at ML-20M width a whole bucket's
 attention scores would take about 9 GB a layer.
 
-Not ported (ROADMAP A6.4): ``select_sp_kernel``, ``encode_bucket_mesh`` and
-the mesh lane; ``sp_mode`` ``ring`` / ``ulysses`` raise.
+Mesh lane: given a mesh, :func:`encode_users` runs each layer's
+attention sequence-parallel (:func:`~predictionio_tpu_torch.ops.attention.
+ring_attention` / :func:`~predictionio_tpu_torch.ops.attention.
+ulysses_attention`, picked per length class by :func:`select_sp_kernel`:
+Ulysses when the head count divides the mesh axis, else the ring). The
+rest of the encoder runs once, on the mesh's first device, where the
+JAX package replicates it over the mesh. Training never reads
+``sp_mode``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,7 +46,12 @@ import torch
 from predictionio_tpu_torch.core.base import Params
 from predictionio_tpu_torch.device import DeviceLike, resolve_device
 from predictionio_tpu_torch.ops.als import PAD_MULTIPLE
-from predictionio_tpu_torch.ops.attention import mha_reference
+from predictionio_tpu_torch.ops.attention import (
+    mha_reference,
+    ring_attention,
+    sp_axis_size,
+    ulysses_attention,
+)
 
 # device bytes one encode chunk may take for its attention scores and
 # activations; a bucket larger than that encodes in row chunks
@@ -58,9 +69,11 @@ class SeqRecParams(Params):
     """SASRec-style hyperparameters, field for field the JAX package's.
 
     ``rank`` is also the model width, so a trained model drops into the
-    ``[N, R] x [M, R]`` serving store. ``sp_mode``: ``auto`` and ``off``
-    encode densely on the one device; ``ring`` / ``ulysses`` (the
-    sequence-parallel lanes) raise."""
+    ``[N, R] x [M, R]`` serving store. ``sp_mode`` picks the
+    sequence-parallel attention lane when an encode is given a mesh:
+    ``auto`` (Ulysses when the heads divide the mesh axis, else the
+    ring), ``ring``, ``ulysses``, or ``off`` (dense attention even on a
+    mesh). Without a mesh every mode encodes densely."""
 
     rank: int = 32
     n_layers: int = 2
@@ -74,16 +87,6 @@ class SeqRecParams(Params):
     l2: float = 0.0
     seed: int = 0
     sp_mode: str = "auto"
-
-
-def check_sp_mode(params: SeqRecParams) -> None:
-    """Refuse the sequence-parallel lanes, which need a mesh of cards."""
-    if params.sp_mode in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"sp_mode={params.sp_mode!r}: the sequence-parallel attention "
-            "lanes are not ported yet (ROADMAP A6.4, the sequence-parallel "
-            "lanes); use "
-            "sp_mode 'auto' or 'off' to encode densely on one device")
 
 
 @dataclasses.dataclass
@@ -227,15 +230,18 @@ def _heads_join(x: torch.Tensor) -> torch.Tensor:
 
 
 def encoder_forward(theta: Dict[str, torch.Tensor], ids: torch.Tensor,
-                    mask: torch.Tensor, *, n_layers: int,
-                    n_heads: int) -> torch.Tensor:
+                    mask: torch.Tensor, *, n_layers: int, n_heads: int,
+                    attention_fn=None) -> torch.Tensor:
     """The SASRec encoder: ``[B, L]`` item ids and mask -> ``[B, L, D]``
     hidden states, pad positions exactly zero.
 
     Pre-LN blocks (``x += Wo·MHA(LN(x))``, then ``x += FFN(LN(x))``),
     LayerNorm eps 1e-6, ``item_emb·√D + pos_emb`` times the keep mask at
     the input, a final LayerNorm times the mask; causal and key-padding
-    masking inside the attention."""
+    masking inside the attention. ``attention_fn(q, k, v, mask)``
+    replaces the dense :func:`mha_reference` (the mesh lane passes the
+    sequence-parallel schemes); None keeps the dense call itself, so the
+    training step runs the same kernels with or without this hook."""
     L = ids.shape[1]
     D = theta["item_emb"].shape[1]
     keep = mask[..., None]
@@ -246,8 +252,11 @@ def encoder_forward(theta: Dict[str, torch.Tensor], ids: torch.Tensor,
         q = _heads_split(h @ theta[f"l{i}_wq"], n_heads)
         k = _heads_split(h @ theta[f"l{i}_wk"], n_heads)
         v = _heads_split(h @ theta[f"l{i}_wv"], n_heads)
-        a = _heads_join(mha_reference(q, k, v, causal=True,
-                                      key_padding_mask=mask))
+        if attention_fn is None:
+            a = mha_reference(q, k, v, causal=True, key_padding_mask=mask)
+        else:
+            a = attention_fn(q, k, v, mask)
+        a = _heads_join(a)
         x = x + (a @ theta[f"l{i}_wo"]) * keep
         h2 = _layer_norm(x, theta[f"l{i}_ln2_g"], theta[f"l{i}_ln2_b"])
         f = torch.clamp_min(h2 @ theta[f"l{i}_w1"] + theta[f"l{i}_b1"], 0.0)
@@ -309,7 +318,16 @@ def encode_bucket(theta: Dict[str, Any], bucket: SequenceBucket,
     ``device`` (None = cuda) in row chunks of :func:`encode_chunk_rows`
     rows. ``theta`` may be numpy arrays or tensors already on the
     device (the fold-in passes a cached device copy)."""
-    dev = resolve_device(device)
+    return _encode_chunks(theta, bucket, params, resolve_device(device),
+                          budget)
+
+
+def _encode_chunks(theta: Dict[str, Any], bucket: SequenceBucket,
+                   params: SeqRecParams, dev: torch.device, budget: int,
+                   attention_fn=None) -> np.ndarray:
+    """:func:`encoder_forward` over ``bucket`` on ``dev`` in row chunks of
+    :func:`encode_chunk_rows` rows; each row's last real state, on the
+    host."""
     th = theta_to_device(theta, dev)
     D = int(th["item_emb"].shape[1])
     B, L = bucket.ids.shape
@@ -322,23 +340,88 @@ def encode_bucket(theta: Dict[str, Any], bucket: SequenceBucket,
         m = mask[lo:lo + step]
         h = encoder_forward(th, ids[lo:lo + step], m,
                             n_layers=int(params.n_layers),
-                            n_heads=int(params.n_heads))
+                            n_heads=int(params.n_heads),
+                            attention_fn=attention_fn)
         out[lo:lo + step] = last_hidden(h, m)
     return out.cpu().numpy()
 
 
 def encode_users(theta: Dict[str, Any], buckets: Sequence[SequenceBucket],
                  n_users: int, params: SeqRecParams,
-                 device: DeviceLike = None) -> np.ndarray:
+                 device: DeviceLike = None, mesh=None) -> np.ndarray:
     """All users' vectors ``[n_users, D]``; rows in no bucket (users with
-    no events) stay zero."""
-    check_sp_mode(params)
-    dev = resolve_device(device)
+    no events) stay zero. Encoded on ``device`` (None = cuda), or, given
+    a ``mesh`` and an ``sp_mode`` other than ``off``, by
+    :func:`encode_bucket_mesh` on the mesh's devices."""
+    sp = mesh is not None and params.sp_mode != "off"
+    dev = mesh.device_list()[0] if sp else resolve_device(device)
     th = theta_to_device(theta, dev)
     out = np.zeros((n_users, int(params.rank)), dtype=np.float32)
     for bucket in buckets:
-        out[bucket.rows] = encode_bucket(th, bucket, params, dev)
+        out[bucket.rows] = encode_bucket_mesh(th, bucket, params, mesh) \
+            if sp else encode_bucket(th, bucket, params, dev)
     return out
+
+
+# -- the mesh lane --------------------------------------------------------------
+
+def select_sp_kernel(mesh, axis_name: str, n_heads: int, seq_len: int,
+                     sp_mode: str = "auto") -> Optional[str]:
+    """Which sequence-parallel scheme a (mesh, shape) pair can run:
+    ``ulysses`` when both heads and length divide the axis, else
+    ``ring`` when the length divides, else None (the dense encode: a
+    class shorter than two positions a shard leaves nothing to shard).
+    An explicit ``sp_mode`` forces its scheme and raises when the shape
+    cannot take it; ``off`` is None. The axis counts every process's
+    shards when a process group exists (:func:`~predictionio_tpu_torch.
+    ops.attention.sp_axis_size`)."""
+    size = sp_axis_size(mesh, axis_name)
+    if sp_mode == "off":
+        return None
+    ring_ok = seq_len % size == 0 and seq_len >= 2 * size
+    uly_ok = ring_ok and n_heads % size == 0
+    if sp_mode == "ulysses":
+        if not uly_ok:
+            raise ValueError(
+                f"sp_mode=ulysses needs heads ({n_heads}) and length "
+                f"({seq_len}) divisible by the {size}-way mesh axis")
+        return "ulysses"
+    if sp_mode == "ring":
+        if not ring_ok:
+            raise ValueError(
+                f"sp_mode=ring needs length ({seq_len}) divisible by "
+                f"the {size}-way mesh axis")
+        return "ring"
+    if uly_ok:
+        return "ulysses"
+    if ring_ok:
+        return "ring"
+    return None
+
+
+@torch.no_grad()
+def encode_bucket_mesh(theta: Dict[str, Any], bucket: SequenceBucket,
+                       params: SeqRecParams, mesh, axis_name: str = "data",
+                       budget: int = ENCODE_BYTES) -> np.ndarray:
+    """One bucket's user vectors ``[B, D]`` (host fp32) with each layer's
+    attention sequence-parallel over ``mesh[axis_name]`` (the scheme
+    :func:`select_sp_kernel` picks), in the row chunks of
+    :func:`encode_bucket`. Only the attention is sharded: the rest of
+    the encoder runs once, on the mesh's first device. A length class
+    the axis cannot shard falls back to :func:`encode_bucket` on that
+    device."""
+    dev = mesh.device_list()[0]
+    kernel = select_sp_kernel(mesh, axis_name, int(params.n_heads),
+                              bucket.seq_len, params.sp_mode)
+    if kernel is None:
+        return encode_bucket(theta, bucket, params, dev, budget)
+    sp = ring_attention if kernel == "ring" else ulysses_attention
+
+    def attention_fn(q, k, v, mask):
+        return sp(q, k, v, mesh, axis_name=axis_name, causal=True,
+                  key_padding_mask=mask)
+
+    return _encode_chunks(theta, bucket, params, dev, budget, attention_fn)
 
 
 # -- training ---------------------------------------------------------------------
@@ -448,9 +531,9 @@ def train_seqrec(buckets: Sequence[SequenceBucket], n_items: int,
     and replayed (the same kernels on the same tensors: the step is
     hundreds of small launches). ``draws``, one ``(sel [steps, bs], negs
     [steps, n_negatives])`` pair per bucket, replaces the generator (the
-    tests replay the JAX package's draws). Returns ``(θ as numpy, the
-    loss of every step in execution order)``."""
-    check_sp_mode(params)
+    tests replay the JAX package's draws). ``sp_mode`` is not read: the
+    trainer's attention is dense. Returns ``(θ as numpy, the loss of
+    every step in execution order)``."""
     if not buckets:
         raise ValueError("train_seqrec: no non-empty sequences to train "
                          "on (every user history was empty)")
@@ -544,8 +627,8 @@ __all__ = [
     "SequenceBucket",
     "adam_update_",
     "bucket_sequences",
-    "check_sp_mode",
     "encode_bucket",
+    "encode_bucket_mesh",
     "encode_chunk_rows",
     "encode_users",
     "encoder_forward",
@@ -555,6 +638,7 @@ __all__ = [
     "loss_and_grads",
     "plan_steps",
     "sampled_softmax_loss",
+    "select_sp_kernel",
     "theta_shapes",
     "theta_to_device",
     "train_seqrec",

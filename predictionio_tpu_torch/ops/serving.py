@@ -969,7 +969,9 @@ def _tree_merge_topk(vals: List[torch.Tensor], idx: List[torch.Tensor],
 def _sharded_score_topk(shards: List[_ItemShard], Q: torch.Tensor,
                         sc_q: Optional[torch.Tensor],
                         sm_q: Optional[torch.Tensor], *, k: int,
-                        mask_seen: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                        mask_seen: bool,
+                        events: Optional[List[Tuple]] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Score + mask + top-k over a sharded item store: each shard runs
     the serving kernel (:func:`~.als_cuda.fused_gather_score_topk`, B1)
     once on its own ``[m, R]`` block, with its validity row, the queries'
@@ -981,8 +983,10 @@ def _sharded_score_topk(shards: List[_ItemShard], Q: torch.Tensor,
     masked store positions and mask, on the first shard's device. The
     shards are the layout's equal blocks of ``m`` rows, shard ``s`` at
     position ``s * m``: every shard's local positions are translated at
-    once, as one ``[n_shards, L, B]`` table. Returns ``(vals [B, k] f32,
-    positions [B, k] i32)`` on the first shard's device."""
+    once, as one ``[n_shards, L, B]`` table. ``events``, one pair of CUDA
+    events a shard, is handed to each shard's launch (its kernels' own
+    time). Returns ``(vals [B, k] f32, positions [B, k] i32)`` on the
+    first shard's device."""
     out_v: List[torch.Tensor] = []
     out_i: List[torch.Tensor] = []
     m = int(shards[0].valid.shape[0])
@@ -1001,7 +1005,8 @@ def _sharded_score_topk(shards: List[_ItemShard], Q: torch.Tensor,
             lc, lm = lc_all[s].to(sh.device), lm_all[s].to(sh.device)
         vals, li = fused_gather_score_topk(
             Q.to(sh.device), sh.Y, lc, lm, k=kl, n_items=m,
-            mask_seen=mask_seen, row_valid=sh.valid)
+            mask_seen=mask_seen, row_valid=sh.valid,
+            events=None if events is None else events[s])
         if kl < k:  # a small shard: pad its list
             vals = torch.cat([vals, vals.new_full((vals.shape[0], k - kl),
                                                   float("-inf"))], dim=1)

@@ -1,6 +1,5 @@
 """Two-stage serving: retrieval and re-rank in one dispatch per query
-batch. The port's copy of ``predictionio_tpu/ops/twostage.py`` for one
-card.
+batch. The port's copy of ``predictionio_tpu/ops/twostage.py``.
 
 ALS retrieves N candidates from the whole catalog (stage 1), and the
 sequentialrec encoder's user state re-ranks only those N (stage 2). The
@@ -20,16 +19,24 @@ lane of their own (``pio-microbatch-two``). Both stages fold in online:
 encoded user states, and both grow along one ladder under the one
 ``_store_lock``.
 
+Over shards (an ``item_layout``, ``shards`` or ``PIO_SERVE_SHARDS``
+over a plane of devices, as :class:`~predictionio_tpu_torch.ops.serving.
+DeviceTopK` takes them), stage 1 is the sharded route (B1 once per shard
+on its block, unmasked, at k = the N bucket, the lists merged), and the
+stage-2 item table is re-ordered into the store's positions, so one
+candidate position indexes both stages. The stage-2 tables and the seen
+tables (in position space) stay on the first shard's device, with the
+user table.
+
 Tie-break: stage 1 retrieves without the seen mask, and the candidate
-run is re-sorted ascending by item id before the stable descending sort
-of stage 2, so ties go to the lowest item id as in a brute-force re-rank
-of the whole catalog: at N = the catalog the two are equal.
+run is re-sorted ascending by item id (through a position-to-id table
+on a density-permuted store) before the stable descending sort of stage
+2, so ties go to the lowest item id as in a brute-force re-rank of the
+whole catalog: at N = the catalog the two are equal.
 
 Not ported: the AOT ladder entries (``aot_plan``, ``_aot_lower_entry``,
 ``_warm_entry``: the port has no ladder yet, and :meth:`warmup` runs one
-two-stage query per lane instead), the sharded program and the
-density-permuted ``pos_ids`` layout (ROADMAP A6.5): a two-stage store
-over more than one shard raises.
+two-stage query per lane instead).
 """
 
 from __future__ import annotations
@@ -41,7 +48,6 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from predictionio_tpu_torch.device import DeviceLike
 from predictionio_tpu_torch.ops.als_cuda import fused_gather_score_topk
 from predictionio_tpu_torch.ops.quantize import (
     QuantFactors,
@@ -60,10 +66,9 @@ from predictionio_tpu_torch.ops.serving import (
     _grown,
     _on_cuda,
     _Pending,
-    _resolved_shard_count,
     _serve_precision_explicit,
     _serve_shards_env,
-    _store_plane,
+    _sharded_score_topk,
     foldin_enabled,
     serving_backend,
     validate_serving_policy,
@@ -93,21 +98,27 @@ def _dispatch_two_group(srv: "TwoStageTopK", group: List[_Pending]) -> None:
 def twostage_rerank(E, S: torch.Tensor, vals1: torch.Tensor,
                     pos: torch.Tensor, scq: Optional[torch.Tensor],
                     smq: Optional[torch.Tensor], *, kb: int,
-                    mask_seen: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                    mask_seen: bool,
+                    pos_ids: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stage 2 of a dispatch: candidate gather -> re-rank score -> ONE
     seen mask -> final top-k.
 
-    ``vals1`` / ``pos`` ``[B, nb]`` are stage 1's run (scores, item ids);
-    ``S [B, R2]`` the query users' stage-2 states (fp32); ``E`` the
-    stage-2 item table (fp32, bf16 or int8 :class:`QuantFactors`);
-    ``scq`` / ``smq`` ``[B, L]`` the users' seen ids and mask. The
-    candidates re-sort ascending by item id first and the final sort is
-    stable and descending, so ties go to the lowest item id. A candidate
-    stage 1 scored -inf stays -inf. The seen test looks each candidate up
-    in a ``[B, items]`` table of the users' seen ids, the same answers as
-    the JAX package's ``[B, N, L]`` comparison at a fraction of its size.
-    Returns ``(vals [B, kb] f32, ids [B, kb] i32)``."""
-    order = torch.argsort(pos, dim=1, stable=True)
+    ``vals1`` / ``pos`` ``[B, nb]`` are stage 1's run (scores, store
+    positions); ``S [B, R2]`` the query users' stage-2 states (fp32);
+    ``E`` the stage-2 item table in position order (fp32, bf16 or int8
+    :class:`QuantFactors`); ``scq`` / ``smq`` ``[B, L]`` the users' seen
+    positions and mask. The candidates re-sort ascending by item id
+    first (``pos_ids [positions]`` maps a position to its id on a
+    density-permuted store, pad positions to int32 max; positions are
+    ids without it) and the final sort is stable and descending, so ties
+    go to the lowest item id. A candidate stage 1 scored -inf stays
+    -inf. The seen test looks each candidate up in a ``[B, positions]``
+    table of the users' seen positions, the same answers as the JAX
+    package's ``[B, N, L]`` comparison at a fraction of its size.
+    Returns ``(vals [B, kb] f32, positions [B, kb] i32)``."""
+    key = pos if pos_ids is None else pos_ids[pos.long()]
+    order = torch.argsort(key, dim=1, stable=True)
     pos = torch.gather(pos, 1, order).long()
     vals1 = torch.gather(vals1, 1, order)
     n_rows = int((E.data if is_quantized(E) else E).shape[0])
@@ -132,12 +143,15 @@ def twostage_rerank(E, S: torch.Tensor, vals1: torch.Tensor,
 
 
 class TwoStageTopK(DeviceTopK):
-    """Retrieval + re-rank store over TWO factor stores on one device.
+    """Retrieval + re-rank store over TWO factor stores, on one device
+    or over shards.
 
     Stage 1 is the inherited :class:`DeviceTopK` store (``user_factors``
-    / ``item_factors``, the ALS retrieval model). Stage 2 keeps the
-    re-ranker's tables beside it: ``seq_item_vectors`` (item embeddings,
-    padded to the stage-1 item table's rows) and ``seq_user_vectors``
+    / ``item_factors``, the ALS retrieval model; ``item_layout``,
+    ``shards`` and a ``device`` plane shard it as they shard the parent).
+    Stage 2 keeps the re-ranker's tables beside it on the first device:
+    ``seq_item_vectors`` (item embeddings, re-ordered into the stage-1
+    store's positions and padded to its rows) and ``seq_user_vectors``
     (encoded user states, grown with the stage-1 user capacity). Both
     follow the store's precision (fp32, bf16, or int8 with per-row
     scales).
@@ -147,7 +161,9 @@ class TwoStageTopK(DeviceTopK):
     through :meth:`two_topk` / :meth:`twos_topk`; every inherited lane
     still serves. ``stage_times`` keeps, per dispatch timed with CUDA
     events (telemetry on, on the card), the microseconds of B1's kernels
-    and of stage 2 (from B1's return to the dispatch's end)."""
+    and of stage 2 (from B1's return to the dispatch's end); over
+    shards, B1's kernels on every shard summed and stage 2 from the
+    merge's end."""
 
     def __init__(self, user_factors, item_factors, seq_user_vectors,
                  seq_item_vectors,
@@ -156,15 +172,12 @@ class TwoStageTopK(DeviceTopK):
                  n_users: Optional[int] = None,
                  n_items: Optional[int] = None,
                  microbatch: Optional[bool] = None,
-                 device: DeviceLike = None):
-        if _resolved_shard_count(None, None, _store_plane(device)) > 1:
-            raise NotImplementedError(
-                "two-stage serving over several shards (PIO_SERVE_SHARDS "
-                "> 1) is not ported yet (ROADMAP A6.5, two-stage serving's "
-                "sharded program); unset PIO_SERVE_SHARDS")
+                 device=None, item_layout=None,
+                 shards: Optional[int] = None):
         super().__init__(user_factors, item_factors, seen, n_users=n_users,
                          n_items=n_items, microbatch=microbatch,
-                         device=device, shards=1)
+                         device=device, item_layout=item_layout,
+                         shards=shards)
         self._two_batcher: Optional[BatchLane] = None
         if self._dispatcher is not None:
             self._two_batcher = self._dispatcher.add_lane(
@@ -181,8 +194,36 @@ class TwoStageTopK(DeviceTopK):
         with self._store_lock:
             self._E = self._prep_stage2_items(seq_item_vectors)
             self._U = self._prep_stage2_users(seq_user_vectors)
+        # position -> item id (invalid positions int32 max, so they sort
+        # last): the re-rank sorts candidates by id on a permuted store
+        self._pos_ids: Optional[torch.Tensor] = None
+        if self._perm_np is not None:
+            ids = np.where(self._perm_np >= 0, self._perm_np,
+                           np.iinfo(np.int32).max).astype(np.int32)
+            self._pos_ids = self._to_device(ids)
 
     # -- stage-2 tables ---------------------------------------------------
+
+    def _n_positions(self) -> int:
+        """Rows of the stage-1 item store: its positions."""
+        if self._shards is not None:
+            return int(self._shards[0].valid.shape[0]) * len(self._shards)
+        return int(self._Y.shape[0])
+
+    def _align_rows_to_positions(self, a: np.ndarray, n_pos: int,
+                                 fill) -> np.ndarray:
+        """An item-id-indexed table re-ordered into the stage-1 store's
+        positions (the identity without a layout), padded to ``n_pos``
+        rows with ``fill``: one candidate position indexes both stages'
+        item tables."""
+        out = np.full((n_pos,) + a.shape[1:], fill, dtype=a.dtype)
+        if self._perm_np is not None:
+            real = self._perm_np >= 0
+            out[real] = a[self._perm_np[real]]
+        else:
+            m = min(n_pos, a.shape[0])
+            out[:m] = a[:m]
+        return out
 
     def _cast_stage2(self, data: np.ndarray, scale: Optional[np.ndarray]):
         """Host rows -> a device table in the store's precision (an input
@@ -205,8 +246,9 @@ class TwoStageTopK(DeviceTopK):
         return np.asarray(table), None
 
     def _prep_stage2_items(self, E):
-        """Stage-2 item embeddings padded to the stage-1 item table's
-        rows (zeros, scale 1). Caller holds ``_store_lock``."""
+        """Stage-2 item embeddings in the stage-1 store's position order,
+        padded to its rows (zeros, scale 1). Caller holds
+        ``_store_lock``."""
         data, scale = self._host_rows(E)
         if data.ndim != 2:
             raise ValueError(
@@ -217,14 +259,11 @@ class TwoStageTopK(DeviceTopK):
                 f"stage-2 item table covers {data.shape[0]} items but "
                 f"the stage-1 catalog has {self.n_items}: the two "
                 "stages must be trained against one shared item map")
-        n_pos = int(self._Y.shape[0])
-        out = np.zeros((n_pos, data.shape[1]), dtype=data.dtype)
-        m = min(n_pos, data.shape[0])
-        out[:m] = data[:m]
+        n_pos = self._n_positions()
+        out = self._align_rows_to_positions(data, n_pos, 0)
         if scale is not None:
-            s = np.ones((n_pos,), dtype=np.float32)
-            s[:m] = scale[:m]
-            scale = s
+            scale = self._align_rows_to_positions(
+                np.asarray(scale, dtype=np.float32), n_pos, 1.0)
         return self._cast_stage2(out, scale)
 
     def _prep_stage2_users(self, U):
@@ -291,10 +330,11 @@ class TwoStageTopK(DeviceTopK):
 
     def twos_topk(self, uids, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """Batched two-stage top-k: ONE dispatch (B1 unmasked at the N
-        bucket, then stage 2) and ONE copy back for the batch, padded to
-        its power-of-two bucket. Returns ``(idx [B, k] int32, scores [B,
-        k] float32)``, rows descending; rows may hold -inf past the valid
-        candidates (callers filter per row)."""
+        bucket, once per shard over a sharded store, then stage 2) and
+        ONE copy back for the batch, padded to its power-of-two bucket.
+        Returns ``(idx [B, k] int32 item ids, scores [B, k] float32)``,
+        rows descending; rows may hold -inf past the valid candidates
+        (callers filter per row)."""
         uids = np.asarray(uids, dtype=np.int64)
         n = len(uids)
         with _trace_span("device.twos_topk",
@@ -317,23 +357,34 @@ class TwoStageTopK(DeviceTopK):
                 S = _gather_rows_f32(self._U, u)
                 E = self._E
             split: Dict[str, Any] = {}
+            shards = self._shards
 
             def launch(events):
                 b1 = stage2 = None
                 if events is not None:
-                    # B1's own pair, recorded by its native launch just
-                    # around its kernels; stage 2's from after it
-                    b1 = tuple(torch.cuda.Event(enable_timing=True)
-                               for _ in range(2))
+                    # B1's own pairs (one a shard), recorded by its native
+                    # launch just around its kernels; stage 2's from after
+                    # stage 1
+                    b1 = [tuple(torch.cuda.Event(enable_timing=True)
+                                for _ in range(2))
+                          for _ in range(1 if shards is None
+                                         else len(shards))]
                     stage2 = torch.cuda.Event(enable_timing=True)
                     events[0].record()
-                vals1, pos = fused_gather_score_topk(
-                    Q, self._Y, None, None, k=nb, n_items=self.n_items,
-                    mask_seen=False, events=b1)
+                if shards is None:
+                    vals1, pos = fused_gather_score_topk(
+                        Q, self._Y, None, None, k=nb, n_items=self.n_items,
+                        mask_seen=False, events=None if b1 is None
+                        else b1[0])
+                else:
+                    vals1, pos = _sharded_score_topk(
+                        shards, Q, None, None, k=nb, mask_seen=False,
+                        events=b1)
                 if stage2 is not None:
                     stage2.record()
                 out = twostage_rerank(E, S, vals1, pos, sc, sm, kb=kb,
-                                      mask_seen=self._mask_seen)
+                                      mask_seen=self._mask_seen,
+                                      pos_ids=self._pos_ids)
                 if events is not None:
                     events[1].record()
                     split["events"] = (b1, stage2, events[1])
@@ -342,9 +393,10 @@ class TwoStageTopK(DeviceTopK):
             idx, scores = self._timed_fetch("two", kb, n, launch)
             if "events" in split:
                 b1, stage2, end = split["events"]
-                self.stage_times.append((b1[0].elapsed_time(b1[1]) * 1e3,
-                                         stage2.elapsed_time(end) * 1e3))
-            return idx[:n, :k], scores[:n, :k]
+                self.stage_times.append((
+                    sum(a.elapsed_time(b) for a, b in b1) * 1e3,
+                    stage2.elapsed_time(end) * 1e3))
+            return self._positions_to_items(idx[:n, :k]), scores[:n, :k]
 
     def stats(self) -> Dict[str, Dict[str, Any]]:
         out = super().stats()
@@ -370,10 +422,13 @@ class TwoStageTopK(DeviceTopK):
     @property
     def seq_item_factors(self) -> torch.Tensor:
         """The stage-2 item table in item-id order, fp32 ``[n_items,
-        R2]`` (dequantized per access)."""
+        R2]`` (dequantized, and de-permuted on a sharded store, per
+        access)."""
         with self._store_lock:
             E = self._E
         Ef = dequantize_rows(E) if is_quantized(E) else E.float()
+        if self._inv_np is not None:
+            return Ef[torch.from_numpy(self._inv_np).to(Ef.device)]
         return Ef[:self.n_items].contiguous()
 
     def patch_users(self, uids, factors,
@@ -405,6 +460,8 @@ class TwoStageTopK(DeviceTopK):
             return
         if uids.min() < 0:
             raise ValueError("patch_seq_users: negative user index")
+        if seen_items:
+            seen_items = self._translate_seen(seen_items)
         dev = self.device
         idx = torch.from_numpy(uids).to(dev)
         with self._store_lock:
@@ -554,20 +611,34 @@ class _SeqStoreFacet:
         return None
 
 
+def _retrieval_plane(model):
+    """Where a retrieval model's store is built: its deployment's plane
+    (``serve_plane``), else a sharded model's mesh, else its device."""
+    plane = getattr(model, "serve_plane", None)
+    if plane is None and hasattr(model.user_factors, "gathered"):
+        plane = model.user_factors.mesh
+    return plane if plane is not None else getattr(model, "device", None)
+
+
 def build_two_stage_store(retrieval_model, rerank_model,
                           candidates: Optional[int] = None,
-                          device: DeviceLike = None) -> TwoStageTopK:
+                          device=None) -> TwoStageTopK:
     """Check a two-model deployment and build its ONE store on
-    ``device`` (None: the retrieval model's ``device``, else cuda).
+    ``device``: one device, a sequence of devices or a mesh (None: the
+    retrieval model's serving plane or device, else cuda). The store
+    shards as the retrieval model's ``item_layout`` or
+    ``PIO_SERVE_SHARDS`` asks, over that plane.
 
     ``retrieval_model`` must be ALS-shaped (``user_factors`` /
-    ``item_factors`` / ``user_map`` / ``item_map``), ``rerank_model``
-    seqrec-shaped (``user_vectors`` / ``item_vectors``), both over one
-    user and item map. Refused at load, never at query time: an explicit
-    ``PIO_SERVING_BACKEND=host`` (the serving-policy table's
-    ``two_stage`` row: the host lane has no two-stage store), mismatched
-    maps, and fold-in (``PIO_FOLDIN``) with a re-ranker that cannot
-    re-encode (no ``fold_in_rows``)."""
+    ``item_factors`` / ``user_map`` / ``item_map``; a
+    :class:`~predictionio_tpu_torch.templates.recommendation.engine.
+    ShardedALSModel`'s factors are gathered on their mesh's first device,
+    device to device), ``rerank_model`` seqrec-shaped (``user_vectors`` /
+    ``item_vectors``), both over one user and item map. Refused at load,
+    never at query time: an explicit ``PIO_SERVING_BACKEND=host`` (the
+    serving-policy table's ``two_stage`` row: the host lane has no
+    two-stage store), mismatched maps, and fold-in (``PIO_FOLDIN``) with
+    a re-ranker that cannot re-encode (no ``fold_in_rows``)."""
     for attr in ("user_factors", "item_factors", "user_map", "item_map"):
         if getattr(retrieval_model, attr, None) is None:
             raise ValueError(
@@ -594,10 +665,11 @@ def build_two_stage_store(retrieval_model, rerank_model,
             f"({len(retrieval_model.user_map)} vs "
             f"{len(rerank_model.user_map)}) — both algorithms must "
             "train from one Preparator with one shared user map")
+    X, Y = retrieval_model.user_factors, retrieval_model.item_factors
+    sharded = hasattr(X, "gathered")       # a ShardedTensor pair
     validate_serving_policy(
         serving_backend(),
-        host_capable=not (_on_cuda(retrieval_model.user_factors)
-                          or _on_cuda(retrieval_model.item_factors)),
+        host_capable=not (sharded or _on_cuda(X) or _on_cuda(Y)),
         explicit_precision=_serve_precision_explicit(),
         foldin=foldin_enabled(), sharded=_serve_shards_env() > 1,
         two_stage=True)
@@ -609,12 +681,15 @@ def build_two_stage_store(retrieval_model, rerank_model,
             f"{type(rerank_model).__name__} has none — disable fold-in "
             "or use a re-rank model with an online encode hook")
     if device is None:
-        device = getattr(retrieval_model, "device", None)
+        device = _retrieval_plane(retrieval_model)
+    if sharded:
+        X, Y = X.gathered(), Y.gathered()
     return TwoStageTopK(
-        retrieval_model.user_factors, retrieval_model.item_factors,
-        rerank_model.user_vectors, rerank_model.item_vectors,
+        X, Y, rerank_model.user_vectors, rerank_model.item_vectors,
         seen=getattr(retrieval_model, "seen", None), candidates=candidates,
-        device=device)
+        n_users=getattr(retrieval_model, "n_users", None),
+        n_items=getattr(retrieval_model, "n_items", None), device=device,
+        item_layout=getattr(retrieval_model, "item_layout", None))
 
 
 __all__ = ["DEFAULT_CANDIDATES", "TwoStageTopK", "build_two_stage_store",

@@ -1,5 +1,6 @@
-"""Distributed execution: the mesh, the process group and the sharded
-trainers (the port's copy of ``predictionio_tpu/parallel``). A
+"""Distributed execution: the mesh, the process group, the sharded
+trainers and the sequence-parallel attention (the port's copy of
+``predictionio_tpu/parallel``). A
 :class:`~predictionio_tpu_torch.parallel.mesh.Mesh` names the devices,
 and the code that shards work over it launches on each device itself;
 collectives between processes go through ``torch.distributed``."""
@@ -28,10 +29,15 @@ from predictionio_tpu_torch.parallel.distributed import (
     DistributedConfig,
     host_aware_mesh,
 )
+from predictionio_tpu_torch.ops.attention import (  # sequence parallel
+    ring_attention,
+    ulysses_attention,
+)
 
 __all__ = ["Mesh", "P", "PartitionSpec", "ShardedTensor",
            "data_parallel_mesh", "mesh_2d", "train_als_sharded",
            "train_als_sharded_2d", "train_als_bucketed_sharded",
+           "ring_attention", "ulysses_attention",
            "train_als_device", "train_als_auto", "sharded_train_step",
            "distributed", "DistributedConfig", "host_aware_mesh",
            "ItemShardLayout", "density_aware_item_layout",

@@ -455,16 +455,25 @@ class SeqRecAlgorithm(_DeviceServingAlgo, P2LAlgorithm):
     def train(self, ctx: Any, pd: PreparedSequences) -> SeqRecModel:
         from predictionio_tpu_torch.workflow import runlog
 
-        dev = resolve_device(getattr(ctx, "device", None))
         p = dataclasses.replace(self.params, max_seq_len=pd.max_seq_len) \
             if self.params.max_seq_len != pd.max_seq_len else self.params
+        # a context of several devices trains on its first and encodes
+        # with the sequence-parallel attention over its mesh (the JAX
+        # package's test: more than one visible device and sp_mode on)
+        mesh = None
+        if ctx is not None and getattr(ctx, "device_count", 1) > 1:
+            dev = ctx.devices[0]
+            if p.sp_mode != "off":
+                mesh = ctx.mesh
+        else:
+            dev = resolve_device(getattr(ctx, "device", None))
         with runlog.run_context_scope(template="sequentialrec",
                                       nUsers=len(pd.user_map),
                                       nItems=len(pd.item_map)):
             theta, _ = train_seqrec(pd.buckets, len(pd.item_map), p,
                                     device=dev)
             U = encode_users(theta, pd.buckets, len(pd.user_map), p,
-                             device=dev)
+                             device=dev, mesh=mesh)
         return SeqRecModel(U, theta["item_emb"], pd.user_map, pd.item_map,
                            pd.seen, theta, p, pd.max_seq_len,
                            device=str(dev))

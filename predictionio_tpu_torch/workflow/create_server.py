@@ -347,20 +347,23 @@ def deployment_from_models(engine: Engine, engine_params: EngineParams,
             f"{next(iter(declared)).__name__}")
     serving = engine._serving(engine_params)
     if isinstance(serving, TwoStageServing):
-        _bind_two_stage(serving, algorithms, models)
+        _bind_two_stage(serving, algorithms, models, ctx)
     return Deployment(engine, engine_params, algorithms, list(models),
                       serving, instance=instance, ctx=ctx)
 
 
 def _bind_two_stage(serving: Any, algorithms: List[Any],
-                    models: List[Any]) -> None:
+                    models: List[Any],
+                    ctx: Optional[ComputeContext] = None) -> None:
     """Put a ``TwoStageServing`` deployment on ONE device store: build a
     :class:`~predictionio_tpu_torch.ops.twostage.TwoStageTopK` over the
     retrieval model's factors and the re-ranker's tables (its checks
     refuse at load, never at query time), point each model's server at
     its facet of the store, and bind the serving's fused route, so
     ``serve_query`` dispatches retrieval and re-rank once per query
-    batch."""
+    batch. A context given its devices is the plane the store spans
+    (``PIO_SERVE_SHARDS`` shards over it); else the retrieval model's
+    own plane or device."""
     from predictionio_tpu_torch.ops.twostage import build_two_stage_store
 
     if len(models) < 2:
@@ -370,7 +373,8 @@ def _bind_two_stage(serving: Any, algorithms: List[Any],
             f"{len(models)} — use LFirstServing for a single-algorithm "
             "deployment")
     retrieval, rerank = models[0], models[-1]
-    store = build_two_stage_store(retrieval, rerank)
+    plane = ctx.serving_plane if ctx is not None else None
+    store = build_two_stage_store(retrieval, rerank, device=plane)
     retrieval._server = store.two_facet()
     # the re-ranked scores are the encoder's logits: a user whose
     # candidates all score below zero still has a ranking, so the

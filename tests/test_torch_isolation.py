@@ -689,6 +689,82 @@ def test_sharded_training_runs_with_jax_unimportable():
     assert "sharded training ran" in proc.stdout
 
 
+SEQUENCE_PARALLEL_RUN = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["predictionio_tpu"] = None
+import datetime as dt
+import numpy as np
+import torch
+from predictionio_tpu_torch.core.context import workflow_context
+from predictionio_tpu_torch.data import storage
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.data.storage.base import App
+from predictionio_tpu_torch.ops.attention import mha_reference
+from predictionio_tpu_torch.parallel import (
+    data_parallel_mesh, ring_attention, ulysses_attention)
+from predictionio_tpu_torch.workflow.create_server import (
+    build_deployment, resolve_engine_instance, serve_query, to_jsonable)
+from predictionio_tpu_torch.workflow.create_workflow import (
+    WorkflowConfig, create_workflow)
+
+mesh = data_parallel_mesh(devices=["cpu"] * 4)
+q, k, v = torch.randn(3, 2, 4, 16, 8, generator=torch.Generator().manual_seed(0))
+mask = (torch.arange(16)[None] < torch.tensor([[16], [5]])).float()
+want = mha_reference(q, k, v, causal=True, key_padding_mask=mask)
+for fn in (ring_attention, ulysses_attention):
+    got = fn(q, k, v, mesh, causal=True, key_padding_mask=mask)
+    assert float((got - want).abs().max()) < 2e-5, fn
+plane = workflow_context(devices=["cpu"] * 4, device="cpu")
+rng = np.random.default_rng(0)
+storage.reset(storage.StorageConfig(
+    {"M": {"type": "memory"}}, {r: "M" for r in storage.REPOSITORIES}))
+aid = storage.get_metadata_apps().insert(App(0, "app"))
+t0 = dt.datetime(2024, 1, 1, tzinfo=dt.timezone.utc)
+storage.get_levents().insert_batch([
+    Event(event="view", entity_type="user", entity_id=f"u{u}",
+          target_entity_type="item", target_entity_id=f"i{(u + j) % 15}",
+          event_time=t0 + dt.timedelta(minutes=j))
+    for u in range(12) for j in range(int(rng.integers(3, 9)))], aid)
+seqrec = {"name": "seqrec", "params": {"rank": 8, "nLayers": 1,
+                                       "nHeads": 4, "numSteps": 5,
+                                       "batchSize": 4, "nNegatives": 4,
+                                       "spMode": "ring"}}
+factory = "predictionio_tpu_torch.templates.twostage:engine_factory"
+iid = create_workflow(WorkflowConfig(engine_factory=factory), {
+    "engineFactory": factory,
+    "datasource": {"params": {"appName": "app"}},
+    "preparator": {"params": {"maxSeqLen": 8}},
+    "algorithms": [{"name": "als", "params": {"rank": 3,
+                                              "numIterations": 1}},
+                   seqrec]}, ctx=plane)
+import os
+os.environ["PIO_SERVE_SHARDS"] = "4"
+dep = build_deployment(resolve_engine_instance(iid), plane)
+assert dep.models[0].device_server().store.shard_count == 4
+out = to_jsonable(serve_query(dep, {"user": "u1", "num": 3}))
+assert len(out["itemScores"]) == 3, out
+assert not any(m == "jax" or m.startswith(("jax.", "predictionio_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("sequence parallel ran")
+"""
+
+
+def test_sequence_parallel_and_sharded_two_stage_run_with_jax_unimportable():
+    """Ring and Ulysses attention over four logical shards, the twostage
+    template trained over a four-device context (its re-ranker encoding
+    with the ring) and deployed over four shards (``PIO_SERVE_SHARDS``),
+    where ``jax`` and ``predictionio_tpu`` cannot be imported."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env.pop("PIO_SERVE_PRECISION", None)
+    env.pop("PIO_SERVE_SHARDS", None)
+    proc = subprocess.run([sys.executable, "-c", SEQUENCE_PARALLEL_RUN],
+                          env=env, cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "sequence parallel ran" in proc.stdout
+
+
 @pytest.mark.parametrize("alone", [False, True])
 def test_chip_smoke_refuses_without_a_gpu(tmp_path, alone):
     """No GPU here: exit non-zero and print no result, whether run from

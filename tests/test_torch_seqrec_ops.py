@@ -5,7 +5,8 @@ bitwise: the JAX encoder is no bit-level oracle there); chunked against
 whole encodes (1e-6); one step's loss and every gradient against
 ``jax.value_and_grad`` (1e-5); the Adam update on given gradients
 (1e-6); 20 training steps replaying JAX's own row and negative draws
-(loss trace 1e-5 relative, θ 1e-4); the ``sp_mode`` refusal."""
+(loss trace 1e-5 relative, θ 1e-4); ``sp_mode`` ring / ulysses train
+and encode without a mesh as JAX does (densely; the same tolerances)."""
 
 import functools
 
@@ -293,14 +294,38 @@ def test_own_draws_train_deterministically_and_loss_falls():
 
 
 @pytest.mark.parametrize("mode", ["ring", "ulysses"])
-def test_sequence_parallel_modes_refused(mode):
-    _, tp = params_pair(sp_mode=mode)
-    buckets = tseq.bucket_sequences(chain_sequences(seed=10))
-    with pytest.raises(NotImplementedError, match="A6"):
-        tseq.train_seqrec(buckets, N_ITEMS, tp, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        tseq.encode_users(tseq.init_theta(N_ITEMS, tp), buckets, 30, tp,
-                          device="cpu")
+def test_sequence_parallel_modes_train_and_encode_without_a_mesh(mode):
+    """JAX's trainer never reads ``sp_mode`` and its encode without a
+    mesh is dense whatever the mode: the port trains and encodes so
+    too, from the same θ and JAX's own draws."""
+    jp, tp = params_pair(sp_mode=mode)
+    # the fixture of test_twenty_steps_replaying_jax_draws
+    seqs = chain_sequences(n_users=40, min_len=2, seed=8)
+    buckets = tseq.bucket_sequences(seqs, max_len=16)
+    theta0 = jax_theta(jp)
+    want_theta, want_loss = jseq.train_seqrec(
+        jseq.bucket_sequences(seqs, max_len=16), N_ITEMS, jp, theta=theta0)
+    draws = jax_draws(buckets, tseq.plan_steps(buckets, tp), jp, N_ITEMS)
+    got_theta, got_loss = tseq.train_seqrec(buckets, N_ITEMS, tp,
+                                            theta=theta0, device="cpu",
+                                            draws=draws)
+    # the mode is not read: bitwise the default mode's training
+    _, auto = params_pair()
+    auto_theta, auto_loss = tseq.train_seqrec(buckets, N_ITEMS, auto,
+                                              theta=theta0, device="cpu",
+                                              draws=draws)
+    np.testing.assert_array_equal(got_loss, auto_loss)
+    assert all(np.array_equal(got_theta[k], auto_theta[k]) for k in got_theta)
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-5)
+    for k in want_theta:
+        np.testing.assert_allclose(got_theta[k], want_theta[k], atol=1e-4,
+                                   rtol=1e-4, err_msg=k)
+    want = jseq.encode_users(want_theta, jseq.bucket_sequences(
+        seqs, max_len=16), len(seqs) + 1, jp)
+    got = tseq.encode_users(want_theta, buckets, len(seqs) + 1, tp,
+                            device="cpu")
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    assert (got[-1] == 0).all()
 
 
 @pytest.mark.parametrize("mode", ["auto", "off"])

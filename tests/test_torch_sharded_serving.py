@@ -412,15 +412,30 @@ class TestShardedServingDifferential:
                                        [w["score"] for w in want],
                                        rtol=1e-5, atol=1e-6)
 
-    def test_two_stage_refuses_shards(self, monkeypatch):
+    def test_two_stage_serves_two_shards_as_one(self, monkeypatch):
         from predictionio_tpu_torch.ops.twostage import TwoStageTopK
 
         X, Y, seen = _make_problem(seed=7)
+        one = TwoStageTopK(X, Y, X, Y, seen, candidates=Y.shape[0],
+                           microbatch=False, device="cpu")
         monkeypatch.setenv("PIO_SERVE_SHARDS", "2")
-        with pytest.raises(NotImplementedError, match="A6.5"):
-            TwoStageTopK(X, Y, X, Y, seen, device=CPU4)
-        # one device: the request clamps to one shard, which serves
-        TwoStageTopK(X, Y, X, Y, seen, device="cpu").close()
+        two = TwoStageTopK(X, Y, X, Y, seen, candidates=Y.shape[0],
+                           microbatch=False, device=CPU4)
+        # one device: the request clamps to one shard
+        clamped = TwoStageTopK(X, Y, X, Y, seen, microbatch=False,
+                               device="cpu")
+        try:
+            assert (one.shard_count, two.shard_count,
+                    clamped.shard_count) == (1, 2, 1)
+            uids = np.arange(X.shape[0])
+            for k in (1, 10, Y.shape[0]):
+                wi, wv = one.twos_topk(uids, k)
+                gi, gv = two.twos_topk(uids, k)
+                np.testing.assert_array_equal(gi, wi)
+                np.testing.assert_array_equal(gv, wv)
+        finally:
+            for st in (one, two, clamped):
+                st.close()
 
 
 # ---------------------------------------------------------------------------
