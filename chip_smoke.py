@@ -537,6 +537,7 @@ ways.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import shutil
 import subprocess
@@ -2727,7 +2728,7 @@ def sequential_latency(base: str, queries: list) -> np.ndarray:
 OBSERVABILITY_MODES = ("on", "off", "metrics", "tracing", "telemetry")
 
 
-def observability_overhead(base: str, queries: list, rounds: int = 6) -> dict:
+def observability_overhead(base: str, queries: list, rounds: int = 4) -> dict:
     """The sequential queries from a client process in ``rounds`` rounds,
     each round one run per mode in turn: metrics, tracing and device
     telemetry all on, all killed, and each of the three alone on, so the
@@ -2834,6 +2835,9 @@ def plain_references(model, queries: list) -> list:
     y_norm = float(np.linalg.norm(Y, axis=1).max())
     from predictionio_tpu_torch.ops import twostage as twostage_mod
 
+    # the ladder's graphs would replay the kernel: set them aside
+    aside = ladder_set_aside(store)
+    aside.__enter__()
     serving_mod.fused_gather_score_topk = \
         als_cuda.fused_gather_score_topk_plain
     twostage_mod.fused_gather_score_topk = \
@@ -2859,6 +2863,7 @@ def plain_references(model, queries: list) -> list:
         serving_mod.fused_gather_score_topk = als_cuda.fused_gather_score_topk
         twostage_mod.fused_gather_score_topk = \
             als_cuda.fused_gather_score_topk
+        aside.__exit__(None, None, None)
     return refs
 
 
@@ -2962,6 +2967,7 @@ def serve_full_width(model, seed: int) -> dict:
 
     before, lanes_before = scrape(base), srv.stats()
     als_cuda.launches.reset()
+    als_cuda.graph_launches.reset()
     with CollectorPauses() as collector:
         answers = [(q, *post(base + "/queries.json", q)) for q in queries]
         in_burst = burst(base, concurrent)
@@ -3003,6 +3009,7 @@ def serve_full_width(model, seed: int) -> dict:
           f"server s, client s): {resent}")
     answers += traced + in_burst
     launches = als_cuda.launches.value
+    graph_launches = als_cuda.graph_launches.value
     if launches == 0:
         raise AssertionError("the kernel was never launched on the main path")
     by_key = als_cuda.launches.by_key()
@@ -3075,7 +3082,8 @@ def serve_full_width(model, seed: int) -> dict:
     timed = answers[:len(queries)] + in_burst
     lat = np.asarray([a[3] for a in timed]) * 1e3
     print(f"[serve] {checked} answers match the plain pipeline; kernel "
-          f"launches {launches}; users lane {stats['users']['dispatches']} "
+          f"launches {launches} ({graph_launches} by replays of the "
+          f"ladder's graphs); users lane {stats['users']['dispatches']} "
           f"dispatches for {stats['users']['batchedQueries']} queries")
     print("[serve] kernel launches by (route, k, B): "
           + ", ".join(f"{r} k={k} B={b}: {n}"
@@ -3091,11 +3099,505 @@ def serve_full_width(model, seed: int) -> dict:
           f"{float(np.percentile(narrow, 50))!r} ms, max "
           f"{max(narrow)!r} ms; category queries "
           f"{[a[3] * 1e3 for a in in_burst if 'categories' in a[0]]!r} ms")
-    server.stop()
-    return {"launches": launches, "routes": routes_of(by_key),
+    # the server stays up for phase 3g, which stops it
+    return {"launches": launches, "graph_launches": graph_launches,
+            "routes": routes_of(by_key),
             "p50_ms": float(np.percentile(lat, 50)),
             "p99_ms": float(np.percentile(lat, 99)),
-            "overhead": overhead}
+            "overhead": overhead,
+            "live": {"server": server, "base": base, "model": model,
+                     "queries": queries, "concurrent": concurrent}}
+
+
+def ladder_phase3(served: dict) -> dict:
+    """Phase 3g on phase 3's store (bf16, deployed and warmed to k = 128
+    by its ``QueryServer``): warmed to the whole catalog (the category
+    queries ask k = M), then phase 3's 43 sequential and 34 concurrent
+    queries over HTTP, every dispatch a hit, each answer equal to the
+    plain pipeline; the server stops after."""
+    live = served.pop("live")
+    server, base, model = live["server"], live["base"], live["model"]
+    store = model.device_server()
+
+    def serve():
+        got = [(q, *post(base + "/queries.json", q))
+               for q in live["queries"]]
+        got += burst(base, live["concurrent"])
+        return len(got), lambda: check_against_plain(model, got)
+
+    # an item query of more than 8 items pads its list to 16
+    extra = tuple(("items", min(16, store.n_items), 16, gg)
+                  for gg in (8, 16, 32, 64))
+    try:
+        return ladder_serving(store, "phase 3's store", serve, max_k=M_ITEMS,
+                              extra=extra)
+    finally:
+        server.stop()
+
+
+# -- phase 3g: the serving ladder (CUDA graphs) --------------------------------
+
+LADDER_TIMED = 200         # dispatches a timed median, graph and eager each
+LADDER_ROUNDS = 4          # which alternate in this many rounds
+LADDER_SAMPLE_BB = (8, 256)  # the uid buckets replayed against eager
+
+
+@contextlib.contextmanager
+def ladder_set_aside(store):
+    """``store``'s ladder set aside for the block (an empty program
+    cache): its dispatches run eagerly, through whatever
+    ``fused_gather_score_topk`` the modules hold then (the plain
+    references swap the plain version in). The lookups the block makes
+    are taken back out of the store's counts. A store without a ladder
+    (the host lane) passes through."""
+    from predictionio_tpu_torch.ops.aot import AOTCache
+
+    store = getattr(store, "store", store)      # a two-stage facet
+    if not hasattr(store, "_aot_programs"):
+        yield store
+        return
+    with store._store_lock:
+        saved = (store._aot_programs, store._aot_hits, store._aot_misses)
+        store._aot_programs = AOTCache(max_entries=512, name="set-aside")
+    try:
+        yield store
+    finally:
+        with store._store_lock:
+            (store._aot_programs, store._aot_hits,
+             store._aot_misses) = saved
+
+
+def ladder_warm(store, label: str, max_k: int = 128) -> dict:
+    """(a) ``store.warmup(max_k)``; every planned entry must be captured:
+    ``planned`` = ``compiled``, no ``fallback``, none ``warmed``. Prints
+    the seconds and the graphs' device bytes (measured pool growth)."""
+    t = time.perf_counter()
+    store.warmup(max_k=max_k)
+    warm_s = time.perf_counter() - t
+    rep = store.ladder_report()
+    cov = rep["coverage"]
+    if not (cov["planned"] == cov["compiled"] and cov["fallback"] == 0
+            and cov["warmed"] == 0 and rep["cache"]["entries"]
+            >= cov["planned"]):
+        raise AssertionError(f"{label}: ladder coverage {cov}, cache "
+                             f"{rep['cache']}")
+    print(f"[ladder] {label}: warmed in {warm_s:.2f} s (max_k {max_k}): "
+          f"{cov['compiled']} of {cov['planned']} entries captured; cache "
+          f"{rep['cache']}; graph pool {rep['memory']['totalBytes']} bytes")
+    return {"warm_s": warm_s, "coverage": cov,
+            "entries": rep["cache"]["entries"],
+            "bytes": rep["memory"]["totalBytes"]}
+
+
+def entry_inputs(store, entry: tuple, rng) -> tuple:
+    """Host inputs of a ladder entry's program: random uids (``user`` /
+    ``users`` / ``two``) or random query positions and masks
+    (``items``, the first slot of each row set)."""
+    if entry[0] == "items":
+        _, _, B, gg = entry
+        idx = rng.integers(0, store.n_items, (gg, B)).astype(np.int32)
+        mask = (rng.random((gg, B)) < 0.5).astype(np.float32)
+        mask[:, 0] = 1.0
+        return (store._items_to_positions(idx).astype(np.int32), mask)
+    bb = 1 if entry[0] == "user" else entry[-1]
+    return (rng.integers(0, store.n_users, bb).astype(np.int64),)
+
+
+def replays_equal_eager(store, entries: list, rng) -> dict:
+    """(b) each entry's replay bitwise equal, index and score bytes, to
+    an eager run of its program on the same inputs (the same kernels
+    launched one by one). Returns the count and B1's launches a
+    replay by entry kind (the replays' count over the replays)."""
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+
+    per_replay: dict = {}
+    for entry in entries:
+        inputs = entry_inputs(store, entry, rng)
+        with store._store_lock:
+            prog = store._aot_get_locked(entry)
+            if prog is None:
+                raise AssertionError(f"{entry} is not in the ladder")
+            g0 = als_cuda.graph_launches.value
+            got = prog(*inputs).clone()
+            per_replay.setdefault(entry[0], set()).add(
+                als_cuda.graph_launches.value - g0)
+            fn, _ = store._entry_program(entry)
+            want = fn(*(store._host_to_device(x) for x in inputs))
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            bad = (got.view(torch.int32) != want.view(torch.int32)).sum()
+            raise AssertionError(f"{entry}: the replay differs from the "
+                                 f"eager run in {int(bad)} words")
+    return {"entries": len(entries),
+            "b1_per_replay": {k: sorted(v) for k, v in per_replay.items()}}
+
+
+def replay_against_plain(store, entry: tuple, rng, row_norms) -> float:
+    """B1 inside the replayed graph against its plain version: the
+    entry's replay (k = its bucket less one) held to the same program run
+    eagerly with the plain version swapped in (k + 1 columns), within
+    ``check_topk``'s tolerance; ``row_norms(inputs)`` gives each row's
+    RTOL allowance scale. Returns the largest value error."""
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.ops import serving as serving_mod
+    from predictionio_tpu_torch.ops import twostage as twostage_mod
+
+    kb = entry[1]
+    inputs = entry_inputs(store, entry, rng)
+    with store._store_lock:
+        got = store._aot_get_locked(entry)(*inputs).cpu().numpy()
+        fn, _ = store._entry_program(entry)
+        serving_mod.fused_gather_score_topk = \
+            twostage_mod.fused_gather_score_topk = \
+            als_cuda.fused_gather_score_topk_plain
+        try:
+            want = fn(*(store._host_to_device(x)
+                        for x in inputs)).cpu().numpy()
+        finally:
+            serving_mod.fused_gather_score_topk = \
+                twostage_mod.fused_gather_score_topk = \
+                als_cuda.fused_gather_score_topk
+    kv, ki = got[:, :kb - 1], got[:, kb:2 * kb - 1].view(np.int32)
+    pv, pi = want[:, :kb], want[:, kb:].view(np.int32)
+    tol = (RTOL * 1.01 * row_norms(inputs)).astype(np.float32)
+    return check_topk(kv, ki, pv, pi, tol, exact=False)
+
+
+def ladder_entries(store, two: bool = False) -> list:
+    """(b)'s entries: every ``user`` entry, each k bucket's ``users`` at
+    ``LADDER_SAMPLE_BB``, every ``items`` entry, and (``two``) every
+    ``two`` entry of the store's plan."""
+    with store._store_lock:
+        sig = store._store_sig_locked()
+    plan = [e for s, e in store._aot_programs.keys() if s == sig]
+    entries = [e for e in plan if e[0] in ("user", "items")
+               or (e[0] == "users" and e[2] in LADDER_SAMPLE_BB)
+               or (two and e[0] == "two")]
+    return sorted(set(entries), key=str)
+
+
+def graph_against_eager(store, call, label: str) -> dict:
+    """(e) ``call()`` (one dispatch) with the store's ladder (a replay) and
+    with it set aside (eager), ``LADDER_TIMED`` times each in
+    ``LADDER_ROUNDS`` alternating rounds: medians of the host window (the
+    call's wall, its copy back included) and of the event window (the
+    dispatch's CUDA events around the program, from the flight
+    recorder). Every graph dispatch must be a hit, every eager one a
+    miss."""
+    import contextlib as _ctx
+
+    from predictionio_tpu_torch.utils import device_telemetry
+
+    got = {m: {"host": [], "event": [], "aot": set()}
+           for m in ("graph", "eager")}
+    per = LADDER_TIMED // LADDER_ROUNDS
+    call()
+    with ladder_set_aside(store):
+        call()
+    for _ in range(LADDER_ROUNDS):
+        for mode in ("graph", "eager"):
+            with (ladder_set_aside(store) if mode == "eager"
+                  else _ctx.nullcontext()):
+                for _ in range(per):
+                    t = time.perf_counter()
+                    call()
+                    got[mode]["host"].append((time.perf_counter() - t) * 1e3)
+                    rec = device_telemetry.last_record() or {}
+                    got[mode]["aot"].add(rec.get("aot"))
+                    if rec.get("deviceUs") is not None:
+                        got[mode]["event"].append(rec["deviceUs"] / 1e3)
+    if got["graph"]["aot"] != {"hit"} or got["eager"]["aot"] != {"miss_jit"}:
+        raise AssertionError(f"{label}: graph dispatches {got['graph']['aot']}"
+                             f", eager {got['eager']['aot']}")
+    out = {m: {"host_ms": float(np.median(v["host"])),
+               "event_ms": float(np.median(v["event"])) if v["event"]
+               else None, "n": len(v["host"])} for m, v in got.items()}
+    print(f"[ladder] {label}: graph host {out['graph']['host_ms']!r} ms, "
+          f"event {out['graph']['event_ms']!r} ms; eager host "
+          f"{out['eager']['host_ms']!r} ms, event "
+          f"{out['eager']['event_ms']!r} ms (medians of {per * LADDER_ROUNDS}"
+          f" each)")
+    return out
+
+
+def user_row_norms(store):
+    """Per query row, |x_u| * max |y| on the store's own tables (the
+    allowance scale of a user dispatch)."""
+    import torch
+
+    from predictionio_tpu_torch.ops import serving as serving_mod
+
+    with store._store_lock:
+        X = store._X
+        Y = store.item_factors
+    y_norm = float(Y.norm(dim=1).max())
+
+    def norms(inputs):
+        u = torch.from_numpy(inputs[0]).to(store.device)
+        x = serving_mod._gather_rows_f32(X, u).norm(dim=1)
+        return x.cpu().numpy() * y_norm
+    return norms
+
+
+def ladder_serving(store, label: str, serve, max_k: int,
+                   extra: tuple = ()) -> dict:
+    """Phase 3g on a single-device store: (a) warm to ``max_k``; (b) the
+    sampled entries' replays bitwise their eager runs and B1 in the
+    graphs against plain (k 16, B 8 and 256); (c) ``serve()`` (the
+    phase's queries; it returns the request count and a check of the
+    answers against the plain pipeline, run after the counts are read)
+    must hit the ladder on every dispatch, B1 counted once a replay;
+    (e) graph against eager: a lone dispatch at B = 1 and at B = 8; (d)
+    a growing patch clears the ladder, the next answer equals plain, a
+    warm-up restores it. ``extra`` entries (shapes the phase's queries
+    dispatch beyond the plan) are captured after the warm-up through
+    ``precompile``."""
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.ops import serving as serving_mod
+
+    rng = np.random.default_rng(31)
+    out = {"warm": ladder_warm(store, label, max_k)}
+    if extra:
+        got = store.precompile(list(extra))
+        if got != {"compiled": len(extra), "fallback": 0}:
+            raise AssertionError(f"{label}: precompile of {extra}: {got}")
+        print(f"[ladder] {label}: {len(extra)} entries beyond the plan "
+              f"captured: {sorted(extra)}")
+    entries = ladder_entries(store)
+    t = time.perf_counter()
+    out["replays"] = replays_equal_eager(store, entries, rng)
+    norms = user_row_norms(store)
+    out["plain_err"] = max(
+        replay_against_plain(store, ("users", min(16, store.n_items), bb),
+                             rng, norms) for bb in LADDER_SAMPLE_BB)
+    print(f"[ladder] {label}: {len(entries)} entries' replays bitwise equal "
+          f"to their eager runs ({time.perf_counter() - t:.2f} s); B1 "
+          f"launches a replay {out['replays']['b1_per_replay']}; B1 in the "
+          f"graph against plain (k 16, B {LADDER_SAMPLE_BB}) max error "
+          f"{out['plain_err']!r}")
+    lanes0, rep0 = store.stats(), store.ladder_report()["requests"]
+    als_cuda.launches.reset()
+    als_cuda.graph_launches.reset()
+    served, check = serve()
+    lanes1, rep1 = store.stats(), store.ladder_report()["requests"]
+    # a lane's dispatch splits by k bucket: the device dispatches are the
+    # lookups
+    batches = sum(lanes1[n]["dispatches"] - lanes0[n]["dispatches"]
+                  for n in lanes1)
+    hits, misses = rep1["hit"] - rep0["hit"], rep1["missJit"] - rep0["missJit"]
+    launches = als_cuda.launches.value
+    if not (batches and hits >= batches and misses == 0
+            and launches == hits
+            and als_cuda.graph_launches.value == hits):
+        raise AssertionError(
+            f"{label}: {batches} micro-batches, {hits} hits, {misses} misses"
+            f", B1 {launches} launches ({als_cuda.graph_launches.value} by "
+            "replays)")
+    check()
+    print(f"[ladder] {label}: {served} requests served and equal to plain; "
+          f"{batches} micro-batches, {hits} dispatches, every one a hit "
+          f"(missJit 0); B1 {launches} launches, all by replays")
+    out["served"] = {"requests": served, "batches": batches, "hits": hits,
+                     "launches": launches}
+    u1 = rng.integers(0, store.n_users, 1)
+    u8 = rng.integers(0, store.n_users, 8)
+    out["lone_b1"] = graph_against_eager(
+        store, lambda: store._user_topk_direct(int(u1[0]), 10),
+        f"{label}, a lone dispatch at B = 1")
+    out["lone_b8"] = graph_against_eager(
+        store, lambda: store.users_topk(u8, 10),
+        f"{label}, a lone dispatch at B = 8")
+    # under the profiler: do the replayed graphs' kernels show?
+    _, busy, kernels, _ = device_busy(
+        lambda: [store.users_topk(u8, 10) for _ in range(20)])
+    out["profiled"] = {"busy_ms": busy / 20, "kernels": dict(kernels)}
+    print(f"[ladder] {label}: 20 replays at B = 8 under the profiler: the "
+          f"card busy {busy / 20!r} ms a dispatch; kernels {dict(kernels)}")
+    # (d) a growing patch
+    cap = store.user_capacity
+    rank = int((store._X.data if hasattr(store._X, "scale")
+                else store._X).shape[1])
+    row = (rng.standard_normal((1, rank)) * 0.1).astype(np.float32)
+    store.patch_users(np.asarray([cap]), row)
+    if len(store._aot_programs) or store.user_capacity <= cap:
+        raise AssertionError(f"{label}: the growth {cap} -> "
+                             f"{store.user_capacity} left "
+                             f"{len(store._aot_programs)} programs")
+    rep_g = store.ladder_report()["requests"]
+    gi, gv = store.users_topk(np.asarray([cap]), 10)
+    if store.ladder_report()["requests"]["missJit"] != rep_g["missJit"] + 1:
+        raise AssertionError(f"{label}: the grown store's dispatch was not "
+                             "a miss")
+    with ladder_set_aside(store):
+        serving_mod.fused_gather_score_topk = \
+            als_cuda.fused_gather_score_topk_plain
+        try:
+            wi, wv = store.users_topk(np.asarray([cap]), 11)
+        finally:
+            serving_mod.fused_gather_score_topk = \
+                als_cuda.fused_gather_score_topk
+    norms = user_row_norms(store)       # the grown table's
+    check_topk(gv, gi, wv, wi, (RTOL * 1.01 * norms((np.asarray([cap]),))
+                                ).astype(np.float32), exact=False)
+    out["regrown"] = ladder_warm(store, f"{label} after the growth "
+                                        f"({cap} -> {store.user_capacity} "
+                                        "rows)")
+    torch.cuda.synchronize()
+    return out
+
+
+def ladder_two(store, label: str) -> dict:
+    """Phase 3g on the two-stage store: (a) warm; (b) every ``two``
+    entry's replay (B1 at k = N and stage 2, one graph) bitwise its eager
+    run, the sampled parent entries too, and one against the plain
+    stage 1; (e) a two-stage dispatch at B = 8, graph against eager, the
+    eager dispatches' B1 / stage-2 split beside."""
+    import torch
+
+    from predictionio_tpu_torch.ops import serving as serving_mod
+
+    rng = np.random.default_rng(37)
+    out = {"warm": ladder_warm(store, label)}
+    entries = ladder_entries(store, two=True)
+    t = time.perf_counter()
+    out["replays"] = replays_equal_eager(store, entries, rng)
+    with store._store_lock:
+        U = store._U
+        E = store._E
+    e_norm = float(serving_mod._gather_rows_f32(
+        E, torch.arange(int((E.data if hasattr(E, "scale") else E).shape[0]),
+                        device=store.device)).norm(dim=1).max())
+
+    def norms(inputs):
+        u = torch.from_numpy(inputs[0]).to(store.device)
+        return serving_mod._gather_rows_f32(U, u).norm(dim=1).cpu().numpy() \
+            * e_norm
+    two = min(e for e in entries if e[0] == "two" and e[-1] == 8)
+    out["plain_err"] = replay_against_plain(store, two, rng, norms)
+    print(f"[ladder] {label}: {len(entries)} entries' replays bitwise equal "
+          f"to their eager runs ({time.perf_counter() - t:.2f} s); B1 "
+          f"launches a replay {out['replays']['b1_per_replay']}; {two} "
+          f"against the plain stage 1: max error {out['plain_err']!r}")
+    u8 = rng.integers(0, store.n_users, 8)
+    store.stage_times.clear()
+    out["two_b8"] = graph_against_eager(
+        store, lambda: store.twos_topk(u8, 10),
+        f"{label}, a two-stage dispatch at B = 8")
+    split = np.asarray(list(store.stage_times))
+    if len(split):
+        out["two_b8"]["eager"]["b1_us"] = float(np.median(split[:, 0]))
+        out["two_b8"]["eager"]["stage2_us"] = float(np.median(split[:, 1]))
+        print(f"[ladder] {label}: the eager dispatches' split (median of "
+              f"{len(split)}): B1 {out['two_b8']['eager']['b1_us']!r} us, "
+              f"stage 2 {out['two_b8']['eager']['stage2_us']!r} us")
+    return out
+
+
+def ladder_sharded(store, label: str) -> dict:
+    """Phase 3g on a sharded store over logical shards of one card: one
+    graph a dispatch (every shard's B1, the seen translation, the merge),
+    its replays bitwise the eager runs with B1 counted once a shard, and
+    a lone B = 1 dispatch graph against eager."""
+    rng = np.random.default_rng(41)
+    out = {"warm": ladder_warm(store, label)}
+    entries = [e for e in ladder_entries(store)
+               if e[0] != "items" or e[-1] == 8]
+    out["replays"] = replays_equal_eager(store, entries, rng)
+    per = out["replays"]["b1_per_replay"]
+    if any(v != [store.shard_count] for v in per.values()):
+        raise AssertionError(f"{label}: B1 launches a replay {per}")
+    print(f"[ladder] {label}: {len(entries)} entries' replays bitwise equal "
+          f"to their eager runs; B1 launches a replay {per}")
+    u1 = int(rng.integers(0, store.n_users))
+    out["lone_b1"] = graph_against_eager(
+        store, lambda: store._user_topk_direct(u1, 10),
+        f"{label}, a lone dispatch at B = 1")
+    return out
+
+
+def ladder_only(dev, seed: int, card: str) -> dict:
+    """``--ladder``: phase 3g alone on synthetic stores at ML-20M width
+    (factors from ``seed``, rank 64, bf16, seen lists of lognormal
+    lengths up to 256): the user store served in process (64 users from
+    8 threads through the micro-batcher, 16 item queries, one query over
+    the whole catalog), a two-stage store (N 128) and a 4-shard store on
+    ``[dev] * SHARDS``."""
+    import concurrent.futures
+
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.ops import serving as serving_mod
+    from predictionio_tpu_torch.ops.twostage import TwoStageTopK
+
+    rng = np.random.default_rng(seed + 91)
+    X = (rng.standard_normal((N_USERS, RANK)) * 0.1).astype(np.float32)
+    Y = (rng.standard_normal((M_ITEMS, RANK)) * 0.1).astype(np.float32)
+    lens = np.minimum(rng.lognormal(3.0, 1.0, N_USERS).astype(np.int64) + 1,
+                      256)
+    flat = rng.integers(0, M_ITEMS, int(lens.sum()))
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    seen = {u: flat[s:s + n] for u, (s, n) in enumerate(zip(starts, lens))}
+    t = time.perf_counter()
+    store = serving_mod.DeviceTopK(X, Y, seen, device=dev)
+    print(f"[ladder] synthetic store {store.precision}, seen "
+          f"{tuple(store._seen_cols.shape)}, built in "
+          f"{time.perf_counter() - t:.1f} s")
+    users = rng.integers(0, N_USERS, 64)
+    items = rng.integers(0, M_ITEMS, 16)
+
+    def serve():
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            got = list(pool.map(lambda u: store.user_topk(int(u), 10),
+                                users))
+            got_items = list(pool.map(
+                lambda i: store.items_topk([int(i)], 10), items))
+        wide = store.user_topk(int(users[0]), M_ITEMS)
+
+        def check():
+            with ladder_set_aside(store):
+                serving_mod.fused_gather_score_topk = \
+                    als_cuda.fused_gather_score_topk_plain
+                try:
+                    wi, wv = store.users_topk(users, 11)
+                    want_items = [store.items_topk([int(i)], 10)
+                                  for i in items]
+                    want_wide = store.user_topk(int(users[0]), M_ITEMS)
+                finally:
+                    serving_mod.fused_gather_score_topk = \
+                        als_cuda.fused_gather_score_topk
+            gi = np.stack([g[0] for g in got])
+            gv = np.stack([g[1] for g in got])
+            tol = (RTOL * 1.01 * user_row_norms(store)((users,))
+                   ).astype(np.float32)
+            check_topk(gv, gi, wv, wi, tol, exact=False)
+            for (a, b), (c, d) in zip(got_items, want_items):
+                if len(a) != len(c) or np.abs(b - d).max(initial=0) > 1e-4:
+                    raise AssertionError("an item query differs from plain")
+            if len(wide[0]) != len(want_wide[0]) or np.abs(
+                    wide[1] - want_wide[1]).max() > 1e-3:
+                raise AssertionError("the wide query differs from plain")
+        return len(users) + len(items) + 1, check
+
+    out = {"store": ladder_serving(store, "the synthetic store", serve,
+                                   max_k=M_ITEMS)}
+    store.close()
+    del store
+    torch.cuda.empty_cache()
+    U = (rng.standard_normal((N_USERS, RANK)) * 0.1).astype(np.float32)
+    E = (rng.standard_normal((M_ITEMS, RANK)) * 0.1).astype(np.float32)
+    two = TwoStageTopK(X, Y, U, E, seen=seen, device=dev)
+    out["two"] = ladder_two(two, "the synthetic two-stage store")
+    two.close()
+    del two
+    sharded = serving_mod.DeviceTopK(X, Y, seen, device=[dev] * SHARDS,
+                                     shards=SHARDS)
+    out["sharded"] = ladder_sharded(sharded, "the synthetic 4-shard store")
+    sharded.close()
+    return out
 
 
 # -- phase 3c: pio batchpredict at ML-20M width --------------------------------
@@ -3129,7 +3631,8 @@ def bp_plan(model, srv, queries: list, spans: list) -> "collections.Counter":
     """The B1 launches by (route, k, B) the chunk plan implies: per chunk,
     one ``users_topk`` launch per k of its known-user queries (the
     template's ``batch_predict`` groups them by ``num + |blacklist|``),
-    one launch per item-similarity query (B = 1)."""
+    the group padded to its uid bucket (at least 8), and one launch per
+    item-similarity query (its micro-batch padded to 8 rows)."""
     import collections
 
     from predictionio_tpu_torch.ops import als_cuda, serving
@@ -3146,13 +3649,13 @@ def bp_plan(model, srv, queries: list, spans: list) -> "collections.Counter":
         groups: collections.Counter = collections.Counter()
         for q in queries[start:stop]:
             if q.get("items"):
-                add(q["num"], 1)
+                add(q["num"], 8)
             elif model.user_map.get(q["user"]) is not None:
                 black = {i for i in q.get("blacklist", ())
                          if model.item_map.get(i) is not None}
                 groups[q["num"] + len(black)] += 1
         for k, B in groups.items():
-            add(k, B)
+            add(k, serving.bucket_size(B, lo=8))
     return plan
 
 
@@ -4026,7 +4529,7 @@ FLEET_REPLICAS = 3
 FLEET_USERS = 1_024       # user queries from FLEET_CLIENTS threads in (b)
 FLEET_CLIENTS = 8
 FLEET_SEQ = 100           # sequential user queries, direct and through the balancer
-FLEET_BURST = 512         # user queries in each throughput burst
+FLEET_BURST = 384         # user queries in each throughput burst
 FLEET_BURST_CLIENTS = (8, 32)
 FLEET_ROLL_USERS = 16     # users each reload client asks for, in turn
 FLEET_FAILOVER = 16       # the stopped replica's users asked in (d)
@@ -4694,7 +5197,7 @@ def kernel_split(fn, iters: int) -> dict:
 def timings(dev, seed: int) -> list:
     import torch
 
-    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.ops import als_cuda, aot
 
     rng = np.random.default_rng(seed + 2)
     rows = []
@@ -4733,6 +5236,15 @@ def timings(dev, seed: int) -> list:
                     row["device_ms"] = kernel_split(kernel, 20)
                     split = (f"  device {sum(row['device_ms'].values())!r} "
                              f"ms {row['device_ms']}")
+                if dtype == "bf16":
+                    # the same launch captured alone in a CUDA graph (as
+                    # the serving ladder replays it), its replays timed
+                    prog = aot.capture(
+                        lambda q: als_cuda.fused_gather_score_topk(
+                            q, store, ct, mt, k=k, n_items=M_ITEMS), (Qt,))
+                    row["graph_ms"] = time_ms(prog.graph.replay, iters)
+                    split += f"  in a graph {row['graph_ms']!r} ms"
+                    del prog
                 rows.append(row)
                 print(f"[time] {dtype:>4} B={B:<3} k={k:<5} kernel "
                       f"{t_k!r} ms  plain {t_p!r} ms  library {t_l!r} ms  "
@@ -6606,7 +7118,7 @@ NET_NEW_USERS = 30        # folded through the fleet cursor
 NET_DOWN_USERS = 4        # posted to the killed shard while it is down
 NET_DOWN_SHARD = 1
 NET_ENTITY_USERS = 3      # users read by the byte search and the parse
-NET_LAPS = 3              # the wrapper's on / off laps, each
+NET_LAPS = 2              # the wrapper's on / off laps, each
 NET_LAP_READS = 5         # entity reads in a lap
 NET_LAP_WRITES = 40       # 50-event insert_batch writes in a lap
 NET_DEADLINE = 60.0       # restart -> the killed shard's users servable
@@ -8640,12 +9152,14 @@ def sequence_queries(rng, n_users: int) -> tuple:
 
 
 def serve_and_check(dep, model, queries: list, many: list,
-                    store=None) -> dict:
+                    store=None, after=None) -> dict:
     """A ``QueryServer`` over ``dep``: the sequential queries, then the
     burst from ``SEQ_CLIENTS`` threads; every answer against the plain
     pipeline. Returns the latencies, B1's launches by (route, k, B) and
-    ``store``'s lane counters read just after the queries (before the
-    plain pipeline's own dispatches)."""
+    ``store``'s lane counters read just before and just after the
+    queries (after the deploy's warm-up, before the plain pipeline's own
+    dispatches), and what ``after()`` returns, called while the server
+    still serves (its stop closes the store's micro-batcher)."""
     from predictionio_tpu_torch.ops import als_cuda
     from predictionio_tpu_torch.workflow.create_server import (
         QueryServer,
@@ -8656,6 +9170,9 @@ def serve_and_check(dep, model, queries: list, many: list,
     try:
         host, port = server.address
         base = f"http://{host}:{port}"
+        # after the deploy's warm-up, whose sacrificial queries ride the
+        # store's lanes too
+        lanes0 = store.stats() if store is not None else None
         als_cuda.launches.reset()
         answers = [(q, *post(base + "/queries.json", q)) for q in queries]
         t0 = time.perf_counter()
@@ -8667,11 +9184,12 @@ def serve_and_check(dep, model, queries: list, many: list,
         if not launches:
             raise AssertionError("the serving kernel never launched")
         checked = check_against_plain(model, answers + in_burst)
+        done = after() if after is not None else None
     finally:
         server.stop()
     lat = np.asarray([a[3] for a in answers]) * 1e3
     return {"checked": checked, "launches": launches, "lanes": lanes,
-            "stage_times": stages,
+            "lanes0": lanes0, "stage_times": stages, "after": done,
             "p50_ms": float(np.percentile(lat, 50)),
             "p99_ms": float(np.percentile(lat, 99)),
             "burst_qps": len(many) / burst_s}
@@ -8718,6 +9236,8 @@ def seqrec_serve(dev, seq: dict, ratings: tuple, seed: int) -> dict:
     queries, many = sequence_queries(rng, len(model.user_map))
     served = serve_and_check(dep, model, queries, many)
     served.pop("lanes")
+    served.pop("lanes0")
+    served.pop("after")
     served.pop("stage_times")
     print(f"[seqrec] served {served['checked']} answers equal to plain "
           f"(store and warm-up {deploy_s:.2f} s; sequential p50 "
@@ -8885,10 +9405,17 @@ def twostage_serve(dev, seq: dict, two: dict, ratings: tuple,
                              f"{store._n_bucket}")
     rng = np.random.default_rng(seed + 43)
     queries, many = sequence_queries(rng, len(als.user_map))
-    lanes0 = store.stats()
     store.stage_times.clear()
-    served = serve_and_check(dep, als, queries, many, store=store)
-    lanes = served.pop("lanes")
+    req0 = store.ladder_report()["requests"]
+    served = serve_and_check(
+        dep, als, queries, many, store=store,
+        after=lambda: (store.ladder_report()["requests"],
+                       ladder_two(store, "3f's two-stage store")))
+    req1, ladder = served.pop("after")
+    if req1["missJit"] != req0["missJit"] or req1["hit"] == req0["hit"]:
+        raise AssertionError(f"3f's dispatches missed the ladder: {req0} -> "
+                             f"{req1}")
+    lanes, lanes0 = served.pop("lanes"), served.pop("lanes0")
     split = np.asarray(served.pop("stage_times"))
     two_dispatches = lanes["two"]["dispatches"] - lanes0["two"]["dispatches"]
     at_n = sum(c for (r, k, b), c in served["launches"].items()
@@ -8985,7 +9512,8 @@ def twostage_serve(dev, seq: dict, two: dict, ratings: tuple,
     als._server = rerank._server = None
     return {**served, "deploy_s": deploy_s,
             "two_dispatches": two_dispatches, "b1_us": b1_us,
-            "stage2_us": s2_us, "route": route_rows,
+            "stage2_us": s2_us, "route": route_rows, "ladder": ladder,
+            "ladder_hits": req1["hit"] - req0["hit"],
             "route_err": route_err, "store_bytes": mem["totalBytes"],
             "fold_s": fold_s, "fold_rel": [rel_x, rel_u],
             "fold_launches": fold_launches}
@@ -9770,6 +10298,7 @@ def sharded_serving(dev, trained: dict, seed: int, card: str) -> dict:
     print(f"[sharded] process group: {group}")
 
     timed = sharded_timings(dev, sharded, model)
+    ladder = ladder_sharded(sharded, "8b's 4-shard store")
     for srv in (sharded, single, cpu):
         srv.close()
     return {"launches": launches, "dispatches": dispatches,
@@ -9777,7 +10306,7 @@ def sharded_serving(dev, trained: dict, seed: int, card: str) -> dict:
             "checked": checked, "burst_qps": SHARD_BURST / burst_s,
             "balance": balance, "build_s": build_s,
             "grown": [cap_before, sharded.user_capacity],
-            "process_group": group, "timings": timed}
+            "process_group": group, "timings": timed, "ladder": ladder}
 
 
 # phase 8c: sharded training on the card
@@ -10586,6 +11115,10 @@ def main() -> int:
              "and phase 8d (sequence-parallel encodes, two-stage serving "
              "over four shards)")
     parser.add_argument(
+        "--ladder", action="store_true",
+        help="build, then only run phase 3g (the serving ladder) on "
+             "synthetic stores at ML-20M width")
+    parser.add_argument(
         "--sharded", action="store_true",
         help="build, then only run phase 8a (the host/device crossover), "
              "phase 5 (store and training) and phase 8b (sharded serving)")
@@ -10717,6 +11250,11 @@ def main() -> int:
         print(json.dumps({"crossover": out}))
         print(nvidia_smi())
         return 0
+    if args.ladder:
+        out = phase("3g serving ladder", ladder_only, dev, args.seed, card)
+        print(json.dumps({"ladder": out}, default=str))
+        print(nvidia_smi())
+        return 0
     if args.sharded:
         crossing = phase("8a host/device crossover", host_crossover, dev,
                          args.seed, card)
@@ -10763,6 +11301,7 @@ def main() -> int:
                  store["ratings"], args.seed, card)
     served = phase("3 serving", serve_full_width, trained["model"],
                    args.seed)
+    laddered = phase("3g serving ladder", ladder_phase3, served)
     batched = phase("3c batch predict", batch_predict_full_width, trained,
                     args.seed, card)
     folded = phase("3b fold-in", foldin_full_width, dev, trained,
@@ -10813,8 +11352,11 @@ def main() -> int:
         "name": "fused_gather_score_topk", "route": "cuda",
         "source": "predictionio_tpu_torch/ops/csrc/fused_topk.cu",
         "replaces": "predictionio_tpu/ops/als_pallas.py:453",
-        "launches": served["launches"], "max_abs_err": max_err,
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "launches": served["launches"],
+        # of them, launched by replays of the serving ladder's CUDA graphs
+        "graph_launches": served["graph_launches"], "max_abs_err": max_err,
+        "ms": head["ms"], "graph_ms": head["graph_ms"],
+        "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "shape": "bf16 store, B=256, k=16",
         # launches by route on the main path (phase 3) and in phase 2
@@ -10886,6 +11428,9 @@ def main() -> int:
                      f"{sp['twostage']['route']['positions_per_shard']} "
                      f"positions, B={TWO_SHARD_B}, k={TWO_CANDIDATES}, "
                      f"mask off"},
+        # phase 3g: B1 inside the ladder's graphs, graph against eager
+        "ladder": {"phase3": laddered, "twostage": two_served["ladder"],
+                   "sharded": sharded["ladder"]},
         "timings": rows}]
     for name, replaces, err, shape, main_route in (
             ("assemble_normal_equations", 141, train_err["assemble"],
@@ -11051,6 +11596,15 @@ def main() -> int:
           f"two-stage over {SP_SHARDS} shards: B1 "
           f"{sp['twostage']['launches_per_dispatch']!r} launches a "
           f"dispatch, a lone dispatch {sp['twostage']['lone']['ms']!r} ms; "
+          f"the serving ladder (graph against eager, host ms): B = 1 "
+          f"{laddered['lone_b1']['graph']['host_ms']!r} / "
+          f"{laddered['lone_b1']['eager']['host_ms']!r}, two-stage B = 8 "
+          f"{two_served['ladder']['two_b8']['graph']['host_ms']!r} / "
+          f"{two_served['ladder']['two_b8']['eager']['host_ms']!r}, 4 shards "
+          f"B = 1 {sharded['ladder']['lone_b1']['graph']['host_ms']!r} / "
+          f"{sharded['ladder']['lone_b1']['eager']['host_ms']!r}; ladder "
+          f"bytes {laddered['warm']['bytes']} (phase 3, k to M), "
+          f"{two_served['ladder']['warm']['bytes']} (two-stage); "
           f"Precision@10 {scored['precision_at_10']!r} (bf16 "
           f"{scored['bf16_precision_at_10']!r}; "
           f"{scored['ratio_vs_plain']!r} of plain, lift "

@@ -74,6 +74,7 @@ hold against the JAX package. Each wrapper counts its launches.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from typing import NamedTuple, Optional, Tuple
@@ -91,17 +92,49 @@ KERNEL_NAME = "fused_topk"
 SOLVE_KERNEL_NAME = "als_solve"
 KERNEL_NAMES = (KERNEL_NAME, SOLVE_KERNEL_NAME)
 launches = LaunchCounter()
+# the serving kernel's launches made by replays of captured CUDA graphs
+# (:mod:`.aot`), each also counted in ``launches``
+graph_launches = LaunchCounter()
 assemble_launches = LaunchCounter()
 spd_launches = LaunchCounter()
 # the serving kernel's route last taken on each thread ("plain" for the
 # plain version): what the flight recorder names as the dispatch's kernel
 _route = threading.local()
+# per thread, while a CUDA graph is captured: the launch keys the capture
+# records instead of counting (:func:`recording_launches`)
+_capturing = threading.local()
 
 
 def last_route() -> Optional[str]:
     """The route of this thread's last top-k (a kernel route, or
     ``"plain"``), or None before its first."""
     return getattr(_route, "last", None)
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """While a CUDA graph is captured on this thread: the serving
+    kernel's launches inside it are appended to the yielded list as their
+    ``(route, k, B)`` keys, not counted (a capture runs nothing). A replay
+    counts them through :func:`note_replay`."""
+    keys: list = []
+    prior = getattr(_capturing, "keys", None)
+    _capturing.keys = keys
+    try:
+        yield keys
+    finally:
+        _capturing.keys = prior
+
+
+def note_replay(keys) -> None:
+    """Count one replay of a captured graph: each launch key it recorded
+    in ``launches`` and ``graph_launches``; this thread's route is the
+    last one's."""
+    for key in keys:
+        launches.add(key)
+        graph_launches.add(key)
+    if keys:
+        _route.last = keys[-1][0]
 
 
 _Y_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -312,6 +345,16 @@ def _launch(Q, Y, seen_cols, seen_mask, *, k, n_items, mask_seen, row_valid,
         sc_ptr, sm_ptr = seen_cols.data_ptr(), seen_mask.data_ptr()
         strides = (*seen_cols.stride(), *seen_mask.stride())
     device = _device_index(dev)
+    recorded = getattr(_capturing, "keys", None)
+    if recorded is not None:
+        # the set-up (cudaFuncSetAttribute) cannot run inside a graph, and
+        # an event recorded in one would time the capture, not the replay
+        if device not in _ready_devices:
+            raise RuntimeError(f"fused_topk is not set up on cuda:{device}: "
+                               "launch it once before capturing a graph")
+        if events is not None:
+            raise ValueError("no timing events inside a graph capture: "
+                             "record them around the replay")
     fn, err_string, cluster_max_row = _kernel(device)
     plan = topk_sort_plan(k, M, B, cluster_max_row)
     if route == "chunked":
@@ -338,7 +381,10 @@ def _launch(Q, Y, seen_cols, seen_mask, *, k, n_items, mask_seen, row_valid,
                      vals.data_ptr(), idx.data_ptr(), current.cuda_stream,
                      ev_start, ev_end),
                   "fused_topk", err_string)
-    launches.add((plan.route, k, B))
+    if recorded is not None:
+        recorded.append((plan.route, k, B))
+    else:
+        launches.add((plan.route, k, B))
     _route.last = plan.route
     return vals, idx
 

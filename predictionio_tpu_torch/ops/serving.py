@@ -31,9 +31,18 @@ store grows along the power-of-two ladder, under the store lock every
 dispatch snapshots under.
 
 :meth:`DeviceTopK.memory_report` and :func:`device_report` give the
-``/stats.json`` device block in the JAX package's shape. Not here yet (a
-later slice): the AOT ladder (CUDA graphs on the GPU; its report is the
-empty ladder meanwhile).
+``/stats.json`` device block in the JAX package's shape.
+
+The serving ladder (the JAX package's AOT ladder): :meth:`DeviceTopK.
+warmup` captures every program live traffic can dispatch, one per
+``(lane, k bucket, batch bucket)`` entry of :meth:`DeviceTopK.aot_plan`,
+as a CUDA graph that launches B1 from inside it (:mod:`.aot`). A
+dispatch looks its entry up under the store signature (the shapes and
+the device addresses of every table the graphs read), copies its inputs
+into the graph's static buffers, replays it and copies the result out;
+an entry the ladder lacks runs eagerly, counted as ``missJit``.
+``PIO_SERVE_AOT=0`` captures nothing. :meth:`DeviceTopK.ladder_report`
+gives the coverage, the lookups and the graphs' measured device bytes.
 """
 
 from __future__ import annotations
@@ -59,6 +68,7 @@ from predictionio_tpu_torch.device import (
 )
 from predictionio_tpu_torch.ops import als_cuda
 from predictionio_tpu_torch.ops.als_cuda import TOPK_TILE_M, fused_gather_score_topk
+from predictionio_tpu_torch.ops.aot import AOTCache, capture
 from predictionio_tpu_torch.ops.quantize import (
     QuantFactors,
     dequantize_rows,
@@ -185,6 +195,22 @@ def _pad_item_rows_for_kernel(Y):
             torch.cat([d, d.new_zeros((pad, d.shape[1]))]),
             torch.cat([s, s.new_ones((pad,))]))
     return torch.cat([Y, Y.new_zeros((pad, Y.shape[1]))])
+
+
+def _pack(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``[B, 2k]`` fp32: the scores, then the indices bitcast, so the
+    host fetches both in ONE device-to-host copy."""
+    return torch.cat([vals, idx.view(torch.float32)], dim=1)
+
+
+def _table_sig(t) -> Optional[Tuple]:
+    """A table's shape, dtype and device address (with its scales' for
+    an int8 table): what a captured graph reads from it."""
+    if t is None:
+        return None
+    if is_quantized(t):
+        return ("int8q", _table_sig(t.data), _table_sig(t.scale))
+    return (tuple(t.shape), str(t.dtype), str(t.device), t.data_ptr())
 
 
 def _grown(t: torch.Tensor, shape, fill: float = 0) -> torch.Tensor:
@@ -470,6 +496,14 @@ def _queue_deadline() -> Optional[float]:
     micro-batch queue before a fast 503 (<= 0 disables; default 10)."""
     val = _env_float("PIO_QUERY_QUEUE_DEADLINE", 10.0)
     return val if val > 0 else None
+
+
+def _serve_aot_enabled() -> bool:
+    """``PIO_SERVE_AOT`` (default on): capture the serving ladder at
+    warm-up. Off, every ladder entry falls back and runs eagerly, which
+    :meth:`DeviceTopK.warmup` does once for each."""
+    return os.environ.get("PIO_SERVE_AOT", "1").strip().lower() \
+        not in ("0", "off", "false")
 
 
 def _batch_window() -> float:
@@ -868,19 +902,22 @@ def _dispatch_user_group(srv: "DeviceTopK", group: List[_Pending]) -> None:
 def _dispatch_item_group(srv: "DeviceTopK", group: List[_Pending]) -> None:
     """Item-similarity requests (each a tuple of query-item indices) ->
     one ``_items_topk_batched`` dispatch per k bucket; each row's item
-    list pads to its part's common power-of-two length."""
+    list pads to its part's common power-of-two length, the rows to a
+    power-of-two bucket of at least 8 (a ladder entry; the padding rows
+    query nothing and are never answered)."""
     for part in _k_buckets(srv, group):
         B = srv.ITEM_QUERY_BUCKET
         while B < max(len(it.payload) for it in part):
             B *= 2
-        idxs = np.zeros((len(part), B), dtype=np.int32)
-        masks = np.zeros((len(part), B), dtype=np.float32)
+        G = _bucket(len(part), lo=8)
+        idxs = np.zeros((G, B), dtype=np.int32)
+        masks = np.zeros((G, B), dtype=np.float32)
         for row, it in enumerate(part):
             m = len(it.payload)
             idxs[row, :m] = np.asarray(it.payload, dtype=np.int32)
             masks[row, :m] = 1.0
         _answer(part, *srv._items_topk_batched(
-            idxs, masks, max(it.k for it in part)))
+            idxs, masks, max(it.k for it in part), groups=len(part)))
 
 
 class _ItemShard(NamedTuple):
@@ -1122,7 +1159,21 @@ class DeviceTopK:
             self._seen_cols = torch.from_numpy(cols).to(self.device)
             self._seen_mask = torch.from_numpy(mask).to(self.device)
         self._Yn = None  # normalized item table, built on first item query
+        # the serving ladder: a program per (store signature, entry), a
+        # CUDA graph on the card, captured by warmup() / precompile()
+        # into one memory pool per store; lookups and the last warm-up's
+        # coverage, read by ladder_report()
+        self._aot_programs = AOTCache(max_entries=512, name="serve-ladder")
+        self._graph_pool = None
+        self._aot_hits = 0
+        self._aot_misses = 0
+        self._ladder: Dict[str, int] = {"planned": 0, "compiled": 0,
+                                        "fallback": 0, "warmed": 0}
         _live_servers.add(self)
+        # a registry reset (test isolation) drops the pull gauges, so each
+        # new store sets them again
+        _metrics.DEVICE_STORE_BYTES.set_function(_live_store_bytes)
+        _metrics.AOT_LADDER_BYTES.set_function(_live_ladder_bytes)
 
     def _setup_sharded_store(self, item_layout, shards: Optional[int],
                              seen, plane: Optional[List[torch.device]]
@@ -1262,12 +1313,189 @@ class DeviceTopK:
     def precision(self) -> str:
         return self._mode
 
-    def warmup(self) -> None:
-        """Build the kernel (first use compiles it) and run one query per
-        lane, so the first real query pays neither."""
+    # -- the serving ladder ------------------------------------------------
+
+    def _store_sig_locked(self) -> Tuple:
+        """What every ladder program is keyed on: the shape, dtype and
+        device address of each table a graph reads (the user table, the
+        item table or each shard's block and validity row, the seen
+        tables, the normalized item table once built), the precision and
+        the shard count. A patch that replaces a table (growth) changes
+        it, so no graph ever replays against a freed table; an in-place
+        row patch keeps it, and the graphs read the patched rows. Caller
+        holds ``_store_lock``."""
+        if self._shards is not None:
+            items = tuple((_table_sig(sh.Y), _table_sig(sh.valid))
+                          for sh in self._shards)
+            yn = None if self._Yn is None else tuple(
+                _table_sig(sh.Y) for sh in self._Yn)
+        else:
+            items, yn = _table_sig(self._Y), _table_sig(self._Yn)
+        return (_table_sig(self._X), items, _table_sig(self._seen_cols),
+                _table_sig(self._seen_mask), yn, self._mode,
+                self.shard_count)
+
+    def _aot_get_locked(self, entry: Tuple):
+        return self._aot_programs.get((self._store_sig_locked(), entry))
+
+    def aot_plan(self, max_k: int = 128,
+                 batch_sizes: Tuple[int, ...] = ()) -> List[Tuple]:
+        """Every program live traffic can dispatch at, the one
+        enumeration warm-up and the deploy consult: ``("user", kb)``
+        (one query), ``("users", kb, bb)`` (a uid batch padded to ``bb``)
+        and ``("items", kb, ITEM_QUERY_BUCKET, gg)`` (``gg`` similarity
+        queries). ``kb`` sweeps the k buckets 16, 32, ... up to ``max_k``
+        (clipped to ``n_items``); ``bb`` / ``gg`` sweep 8, 16, ... up to
+        each micro-batch lane's cap (8 without one), ``bb`` further to
+        cover ``batch_sizes``."""
+        ks: List[int] = []
+        k = 16
+        while True:
+            kb = min(k, self.n_items)
+            if kb >= 1 and kb not in ks:
+                ks.append(kb)
+            if k >= max_k or k >= self.n_items:
+                break
+            k *= 2
+        bmax = self._batcher.max_batch if self._batcher is not None else 8
+        for b in batch_sizes:
+            bmax = max(bmax, _bucket(int(b), lo=8))
+        user_buckets = []
+        b = 8
+        while b <= bmax:
+            user_buckets.append(b)
+            b *= 2
+        gmax = self._item_batcher.max_batch \
+            if self._item_batcher is not None else 8
+        item_buckets = []
+        g = 8
+        while g <= gmax:
+            item_buckets.append(g)
+            g *= 2
+        plan: List[Tuple] = []
+        for kb in ks:
+            plan.append(("user", kb))
+            for bb in user_buckets:
+                plan.append(("users", kb, bb))
+            for gg in item_buckets:
+                plan.append(("items", kb, self.ITEM_QUERY_BUCKET, gg))
+        return plan
+
+    def _graphable(self) -> bool:
+        """Whether a dispatch can be one graph: the store lives on one
+        device (a sharded store's shards all on the first's, logical
+        shards of one card included)."""
+        return self._shards is None or all(
+            sh.device == self.device for sh in self._shards)
+
+    def _entry_program(self, entry: Tuple):
+        """``(fn, static inputs)`` of one ladder entry, the inputs zeros
+        of the shapes its dispatch passes, or None for an entry it cannot
+        build (:meth:`_aot_lower_entry`). Caller holds ``_store_lock``."""
+        kind, dev = entry[0], self.device
+        if kind == "user":
+            return (self._users_fn(entry[1]),
+                    (torch.zeros(1, dtype=torch.int64, device=dev),))
+        if kind == "users":
+            return (self._users_fn(entry[1]),
+                    (torch.zeros(entry[2], dtype=torch.int64, device=dev),))
+        if kind == "items":
+            _, kb, B, gg = entry
+            return (self._items_fn(kb),
+                    (torch.zeros((gg, B), dtype=torch.int32, device=dev),
+                     torch.zeros((gg, B), dtype=torch.float32, device=dev)))
+        return self._aot_lower_entry(entry)
+
+    def _ladder_tables_locked(self) -> Tuple:
+        """The tables the graphs read, which each program keeps alive
+        until it is evicted or cleared. Caller holds ``_store_lock``."""
+        return (self._X, self._Y, self._shards, self._seen_cols,
+                self._seen_mask, self._Yn)
+
+    def precompile(self, plan: List[Tuple]) -> Dict[str, int]:
+        """Capture every ladder entry of ``plan`` not in the cache yet
+        (on the CPU: bind it) into the cache the dispatches consult
+        first. Each capture holds ``_store_lock``: no patch and no
+        dispatch of this store runs meanwhile. A store spanning several
+        devices cannot be one graph, so its entries fall back, as
+        ``PIO_SERVE_AOT=0`` makes them all. A capture that fails raises.
+        Returns ``{"compiled": n, "fallback": n}``."""
+        if not _serve_aot_enabled() or not self._graphable():
+            return {"compiled": 0, "fallback": len(plan)}
+        if any(e[0] == "items" for e in plan):
+            self._normalized_items()   # before the signature is taken
+        compiled = fallback = 0
+        for entry in plan:
+            with self._store_lock:
+                sig = self._store_sig_locked()
+                if self._aot_programs.get((sig, entry)) is not None:
+                    compiled += 1
+                    continue
+                built = self._entry_program(entry)
+                if built is None:
+                    fallback += 1
+                    continue
+                if self.device.type == "cuda" and self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                prog = capture(*built, pool=self._graph_pool,
+                               keep=self._ladder_tables_locked())
+                self._aot_programs.put((sig, entry), prog)
+                compiled += 1
+        return {"compiled": compiled, "fallback": fallback}
+
+    def _clear_ladder_locked(self) -> None:
+        """Drop every program (the store's tables were replaced): the
+        graphs and their pool are freed; the next warm-up captures the
+        ladder again. Caller holds ``_store_lock``."""
+        self._aot_programs.clear()
+        self._graph_pool = None
+
+    def _aot_lower_entry(self, entry: Tuple):
+        """``(fn, static inputs)`` of a ladder entry of a kind this class
+        does not know: the hook through which a subclass's lanes (the
+        two-stage ``("two", ...)`` entries) join the same capture, cache
+        and coverage. None: the entry falls back, and :meth:`warmup`
+        runs it once through :meth:`_warm_entry`."""
+        return None
+
+    def _warm_entry(self, entry: Tuple) -> None:
+        """Run one subclass-lane entry eagerly at warm-up. Base class: no
+        such lanes."""
+
+    def warmup(self, max_k: int = 128,
+               batch_sizes: Tuple[int, ...] = ()) -> Dict[str, int]:
+        """Make every ladder program up to ``max_k`` serve-ready at
+        deploy: capture the whole :meth:`aot_plan` (``batch_sizes``
+        widens the uid buckets for callers with known batch shapes),
+        run each entry that fell back once eagerly (the kernel builds and
+        sets up at its first launch), then one sacrificial query per
+        lane. Returns :meth:`precompile`'s counts."""
+        plan = self.aot_plan(max_k=max_k, batch_sizes=tuple(batch_sizes))
+        stats = self.precompile(plan)
+        with self._store_lock:
+            missing = [e for e in plan if self._aot_get_locked(e) is None]
+            self._ladder = {"planned": len(plan),
+                            "compiled": stats["compiled"],
+                            "fallback": stats["fallback"],
+                            "warmed": len(missing)}
+        for entry in missing:
+            if entry[0] == "user":
+                self._user_topk_direct(0, entry[1])
+            elif entry[0] == "users":
+                _, kb, bb = entry
+                self.users_topk(np.zeros(bb, dtype=np.int64), kb)
+            elif entry[0] == "items":
+                _, kb, B, gg = entry
+                self._items_topk_batched(np.zeros((gg, B), dtype=np.int32),
+                                         np.zeros((gg, B), dtype=np.float32),
+                                         kb)
+            else:
+                self._warm_entry(entry)
         kmin = min(16, self.n_items)
-        self._user_topk_direct(0, kmin)
-        self._items_topk_direct([0], kmin)
+        self.user_topk(0, kmin)
+        self.users_topk(np.zeros(8, dtype=np.int64), kmin)
+        self.items_topk([0], kmin)
+        return stats
 
     def close(self) -> None:
         """Release the micro-batch dispatcher (answers pending queries;
@@ -1349,52 +1577,98 @@ class DeviceTopK:
         return report
 
     def ladder_report(self) -> Dict[str, Any]:
-        """The AOT ladder's coverage and footprint in the JAX package's
-        shape. The port compiles no ladder yet (CUDA graphs wait for a
-        benchmark cell), so every count is zero."""
-        return {"coverage": {"planned": 0, "compiled": 0, "fallback": 0,
-                             "warmed": 0},
-                "requests": {"hit": 0, "missJit": 0},
-                "cache": {"entries": 0, "maxEntries": 0, "evictions": 0},
-                "memory": {"entries": 0, "entriesAnalyzed": 0,
-                           "totalBytes": 0}}
+        """The serving ladder in the JAX package's shape: the last
+        warm-up's planned / compiled / fallback / warmed counts, the
+        lookups since (``hit`` replayed a program, ``missJit`` ran
+        eagerly), the cache's entries and evictions, and the device bytes
+        the programs hold (``memory.totalBytes``: the graph pool's growth
+        each capture caused, measured from the allocator's segments)."""
+        with self._store_lock:
+            hits, misses = self._aot_hits, self._aot_misses
+            coverage = dict(self._ladder)
+        return {"coverage": coverage,
+                "requests": {"hit": hits, "missJit": misses},
+                "cache": self._aot_programs.stats(),
+                "memory": self._aot_programs.memory_report()}
 
     # -- serving ----------------------------------------------------------
 
-    def _timed_fetch(self, lane: str, kb: int, batch: int,
-                     launch: Callable[[Optional[Tuple]],
-                                      Tuple[torch.Tensor, torch.Tensor]]
-                     ) -> Tuple[np.ndarray, np.ndarray]:
-        """``launch(events)`` (one launch of the serving kernel) and its
-        copy back. With telemetry on, recorded as one dispatch and one
-        ``device.execute`` span: ``hostUs`` is the host's window from the
-        launch to the end of the copy back; ``deviceUs`` the time between
-        two CUDA events the launch records on its stream just around the
-        kernels, read once the copy back (which the query waits for
-        anyway) has completed, so timing adds no synchronisation. The
-        JAX package times this window on the host clock around
-        ``block_until_ready`` instead. On the CPU there are no events:
-        no device time is recorded, and the span says so. Telemetry off
-        is the killed lane: no clock, no event."""
-        if not _dtel.enabled():
-            return self._fetch(*launch(None))
-        events = None
-        if self.device.type == "cuda":
-            events = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-        t0 = _tracing.span_now()
-        out = self._fetch(*launch(events))
+    def _dispatch_entry(self, entry: Tuple, fn: Callable, host_inputs: Tuple,
+                        *, batch: int, bucket: int,
+                        eager: Optional[Callable] = None
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+        """One laddered dispatch, under ``_store_lock`` (the lock a patch
+        enqueues its writes under): the program lookup, counted as a hit
+        or a miss; on a hit the inputs copied into the program's static
+        buffers and its graph replayed; on a miss ``eager`` (else ``fn``)
+        run on the inputs; then, on the card, the copy of the packed
+        result into pinned host memory enqueued, before another dispatch
+        can replay the program over it. The wait for the copy is outside
+        the lock. Returns ``(idx [rows, kb] i32, scores [rows, kb] f32)``.
+
+        With telemetry on, recorded as one dispatch (``aot`` "hit" or
+        "miss_jit", ``bucket`` the padded bucket, ``kernel`` the route
+        the graph or the launch recorded) and one ``device.execute``
+        span: ``hostUs`` from the lookup to the result on the host,
+        ``deviceUs`` the time between two CUDA events: on a hit the pair
+        the graph records around its work (read under the program's lock,
+        so no other replay re-records it first), on a miss the pair the
+        eager launch records just around its kernels. On the CPU there
+        are no events, and the span says so. Telemetry off: no clock, no
+        event."""
+        tel = _dtel.enabled()
+        cuda = self.device.type == "cuda"
+        events = held = None
+        with self._store_lock:
+            prog = self._aot_get_locked(entry)
+            hit = prog is not None
+            if hit:
+                self._aot_hits += 1
+            else:
+                self._aot_misses += 1
+            if tel:
+                t0 = _tracing.span_now()
+            if hit:
+                if tel and cuda and prog.events is not None:
+                    held = prog.lock
+                    held.acquire()
+                    events = prog.events
+                out = prog(*host_inputs)
+            else:
+                if tel and cuda:
+                    events = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                out = (eager or fn)(*(self._host_to_device(x)
+                                      for x in host_inputs), events=events)
+            if cuda:
+                out = out.to("cpu", non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record()
+            route = als_cuda.last_route() or "?"
+        try:
+            _metrics.AOT_CACHE_REQUESTS.inc(
+                result="hit" if hit else "miss_jit")
+            if cuda:
+                copied.synchronize()
+            device_us = (None if events is None
+                         else events[0].elapsed_time(events[1]) * 1e3)
+        finally:
+            if held is not None:
+                held.release()
+        packed = out.numpy()
+        kb = int(entry[1])
+        idx, scores = packed[:, kb:].view(np.int32), packed[:, :kb]
+        if not tel:
+            return idx, scores
         t1 = _tracing.span_now()
-        device_us = (None if events is None
-                     else events[0].elapsed_time(events[1]) * 1e3)
         rec = _dtel.record_dispatch(
-            lane=lane, kernel=als_cuda.last_route() or "?",
-            precision=self._mode, aot="jit", k_bucket=kb, batch=batch,
-            bucket=batch, host_us=(t1 - t0) * 1e6, device_us=device_us,
+            lane=entry[0], kernel=route, precision=self._mode,
+            aot="hit" if hit else "miss_jit", k_bucket=kb, batch=batch,
+            bucket=bucket, host_us=(t1 - t0) * 1e6, device_us=device_us,
             started_epoch=t0)
-        # {} when the recorder was switched off during this launch
+        # {} when the recorder was switched off during this dispatch
         attributes = dict(rec or {})
-        if events is None:
+        if not cuda:
             attributes["deviceTiming"] = (
                 "none: no CUDA events on the CPU (the kernel's plain "
                 "version)")
@@ -1402,15 +1676,13 @@ class DeviceTopK:
         _tracing.record_completed_span(
             "device.execute", start=t0, end=t1, attributes=attributes,
             parent=ctx.get("traceParent"))
-        return out
+        return idx, scores
 
-    def _fetch(self, vals: torch.Tensor, idx: torch.Tensor
-               ) -> Tuple[np.ndarray, np.ndarray]:
-        """(idx, scores) on the host through ONE device-to-host copy:
-        the indices travel bitcast inside the score buffer."""
-        kb = vals.shape[1]
-        packed = torch.cat([vals, idx.view(torch.float32)], dim=1).cpu().numpy()
-        return packed[:, kb:].view(np.int32), packed[:, :kb]
+    def _host_to_device(self, a) -> torch.Tensor:
+        """A host input (numpy) on the store's device, its copy enqueued
+        without waiting on the stream."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.to(self.device, non_blocking=True)
 
     def user_topk(self, uid: int, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """(item indices, scores) for one user, descending; seen items
@@ -1442,35 +1714,57 @@ class DeviceTopK:
 
     def _users_topk(self, uids: np.ndarray, k: int,
                     lane: str) -> Tuple[np.ndarray, np.ndarray]:
+        """One dispatch of the ``("user", kb)`` entry (one query) or of
+        ``("users", kb, bb)``: the uids padded with uid 0 to their
+        power-of-two bucket ``bb`` (at least 8), the padding rows cut
+        before the results return."""
         kb = min(_bucket(k), self.n_items)
-        u = torch.from_numpy(np.asarray(uids, dtype=np.int64)).to(self.device)
-        sc = sm = None
-        # the gathers are enqueued under the lock a patch enqueues its
-        # writes under (see patch_users): Q and the seen rows are one
-        # patch's state, and the kernel reads only them and the item
-        # table, which no patch touches
-        with self._store_lock:
-            if self._mask_seen:  # the [B, L] rows, read as [L, B] views
-                sc, sm = self._seen_cols[u].T, self._seen_mask[u].T
-            Q = _gather_rows_f32(self._X, u)
-        if self._shards is not None:
-            idx, scores = self._timed_fetch(
-                lane, kb, len(uids), lambda events: self._sharded_launch(
-                    Q, sc.T if self._mask_seen else None,
-                    sm.T if self._mask_seen else None, kb, self._mask_seen,
-                    self._shards, events))
-            return self._positions_to_items(idx[:, :k]), scores[:, :k]
-        idx, scores = self._timed_fetch(
-            lane, kb, len(uids), lambda events: fused_gather_score_topk(
-                Q, self._Y, sc, sm, k=kb, n_items=self.n_items,
-                mask_seen=self._mask_seen, events=events))
-        return idx[:, :k], scores[:, :k]
+        n = len(uids)
+        if lane == "user":
+            bucket, entry = 1, ("user", kb)
+            padded = np.asarray(uids, dtype=np.int64)
+        else:
+            bucket = _bucket(max(n, 1), lo=8)
+            entry = ("users", kb, bucket)
+            padded = np.zeros(bucket, dtype=np.int64)
+            padded[:n] = uids
+        idx, scores = self._dispatch_entry(
+            entry, self._users_fn(kb), (padded,), batch=n, bucket=bucket)
+        return self._positions_to_items(idx[:n, :k]), scores[:n, :k]
+
+    def _users_fn(self, kb: int) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The user lanes' program at k bucket ``kb``: ``u [B]`` int64
+        uids on the device -> the packed ``[B, 2 kb]`` result. It gathers
+        the users' rows and seen rows and launches B1 (once per shard on
+        a sharded store, the lists merged), under ``_store_lock`` (see
+        :meth:`patch_users`), eagerly or captured. ``events`` (an eager
+        call's timing pair) is recorded around the launch. It holds the
+        store weakly: a cached program keeps no store alive."""
+        ref = weakref.ref(self)
+
+        def fn(u: torch.Tensor, events: Optional[Tuple] = None
+               ) -> torch.Tensor:
+            srv = ref()
+            sc = sm = None
+            if srv._mask_seen:  # the [B, L] rows
+                sc, sm = srv._seen_cols[u], srv._seen_mask[u]
+            Q = _gather_rows_f32(srv._X, u)
+            if srv._shards is not None:
+                return _pack(*srv._sharded_launch(
+                    Q, sc, sm, kb, srv._mask_seen, srv._shards, events))
+            # the kernel reads the seen rows as [L, B] views
+            return _pack(*fused_gather_score_topk(
+                Q, srv._Y, None if sc is None else sc.T,
+                None if sm is None else sm.T, k=kb, n_items=srv.n_items,
+                mask_seen=srv._mask_seen, events=events))
+        return fn
 
     def _sharded_launch(self, Q, sc_q, sm_q, kb: int, mask_seen: bool,
-                        shards: List[_ItemShard], events):
-        """:func:`_sharded_score_topk` with the dispatch's CUDA events
-        recorded on the first shard's stream around every shard's launch
-        and the merge."""
+                        shards: List[_ItemShard], events=None):
+        """:func:`_sharded_score_topk` over ``shards`` (B1 once per shard,
+        the lists merged), with ``events``, a CUDA event pair, recorded on
+        the first shard's stream around every shard's launch and the
+        merge."""
         if events is not None:
             events[0].record(torch.cuda.current_stream(self.device))
         out = _sharded_score_topk(shards, Q, sc_q, sm_q, k=kb,
@@ -1517,10 +1811,14 @@ class DeviceTopK:
             return self._Yn
 
     def _items_topk_batched(self, idxs: np.ndarray, masks: np.ndarray,
-                            k: int) -> Tuple[np.ndarray, np.ndarray]:
-        """A [G, B] bucket of item queries, one launch: each group's
-        summed normalized query row is scored against every item, with
-        its query items masked (they play the seen table's role)."""
+                            k: int, groups: Optional[int] = None
+                            ) -> Tuple[np.ndarray, np.ndarray]:
+        """A [G, B] bucket of item queries, one dispatch of the
+        ``("items", kb, B, G)`` entry: each group's summed normalized
+        query row is scored against every item, with its query items
+        masked (they play the seen table's role). ``groups`` counts the
+        real rows (the rest pad the bucket), for the telemetry."""
+        G, B = idxs.shape
         kb = min(_bucket(k), self.n_items)
         # out-of-range query item ids drop from the query (mask 0)
         in_range = (idxs >= 0) & (idxs < self.n_items)
@@ -1529,27 +1827,37 @@ class DeviceTopK:
             idxs = np.where(in_range, idxs, 0).astype(idxs.dtype)
         # a sharded store lives in position space: the query items are
         # translated in, the winners out (on the host, k a query)
-        idxs = self._items_to_positions(idxs)
-        Yn = self._normalized_items()
-        it = torch.from_numpy(np.ascontiguousarray(idxs, dtype=np.int32)
-                              ).to(self.device)
-        mt = torch.from_numpy(np.ascontiguousarray(masks, dtype=np.float32)
-                              ).to(self.device)
-        if self._shards is not None:
-            qf = _gather_positions_f32(Yn, it.long())        # [G, B, R]
-            Q = (qf * mt[..., None]).sum(dim=1)              # [G, R]
-            idx, scores = self._timed_fetch(
-                "items", kb, int(idxs.shape[0]),
-                lambda events: self._sharded_launch(
-                    Q, it, mt, kb, True, Yn, events))
-            return self._positions_to_items(idx), scores
-        qf = _gather_rows_f32(Yn, it.long())                 # [G, B, R]
-        Q = (qf * mt[..., None]).sum(dim=1)                  # [G, R]
-        return self._timed_fetch(
-            "items", kb, int(idxs.shape[0]),
-            lambda events: fused_gather_score_topk(
-                Q, Yn, it.T, mt.T, k=kb, n_items=self.n_items,
+        idxs = np.ascontiguousarray(self._items_to_positions(idxs),
+                                    dtype=np.int32)
+        masks = np.ascontiguousarray(masks, dtype=np.float32)
+        self._normalized_items()
+        idx, scores = self._dispatch_entry(
+            ("items", kb, B, G), self._items_fn(kb), (idxs, masks),
+            batch=G if groups is None else int(groups), bucket=G)
+        return self._positions_to_items(idx), scores
+
+    def _items_fn(self, kb: int) -> Callable[..., torch.Tensor]:
+        """The item lane's program at k bucket ``kb``: ``it [G, B]``
+        int32 query positions and ``mt [G, B]`` fp32 masks on the device
+        -> the packed ``[G, 2 kb]`` result (the store held weakly, as in
+        :meth:`_users_fn`)."""
+        ref = weakref.ref(self)
+
+        def fn(it: torch.Tensor, mt: torch.Tensor,
+               events: Optional[Tuple] = None) -> torch.Tensor:
+            srv = ref()
+            Yn = srv._Yn
+            if srv._shards is not None:
+                qf = _gather_positions_f32(Yn, it.long())        # [G, B, R]
+                Q = (qf * mt[..., None]).sum(dim=1)              # [G, R]
+                return _pack(*srv._sharded_launch(Q, it, mt, kb, True, Yn,
+                                                  events))
+            qf = _gather_rows_f32(Yn, it.long())                 # [G, B, R]
+            Q = (qf * mt[..., None]).sum(dim=1)                  # [G, R]
+            return _pack(*fused_gather_score_topk(
+                Q, Yn, it.T, mt.T, k=kb, n_items=srv.n_items,
                 mask_seen=True, events=events))
+        return fn
 
     # -- live store patching (online fold-in) ------------------------------
 
@@ -1641,7 +1949,12 @@ class DeviceTopK:
         write, which a query enqueued after the patch waits behind (a
         query kernel launched meanwhile, outside the lock, counts in it).
         This method waits for the second event after it releases the
-        lock."""
+        lock.
+
+        A growth replaces tables the ladder's graphs read, so it clears
+        the ladder (they would replay against freed memory); dispatches
+        then run eagerly until the next :meth:`warmup`. An in-place patch
+        keeps the ladder: its graphs read the patched rows."""
         uids = np.asarray(uids, dtype=np.int64)
         factors = np.asarray(factors, dtype=np.float32)
         if factors.ndim != 2 or len(uids) != factors.shape[0]:
@@ -1673,6 +1986,7 @@ class DeviceTopK:
             t0 = time.perf_counter()
             if events is not None:
                 events[0].record()
+            sig_before = self._store_sig_locked()
             X = self._X
             cap = int(X.shape[0])
             if needed > cap:
@@ -1708,6 +2022,9 @@ class DeviceTopK:
                 X.index_copy_(0, idx, rows)
             self._X = X
             self.n_users = max(self.n_users, needed)
+            if self._store_sig_locked() != sig_before:
+                # a grown store: its graphs read the replaced tables
+                self._clear_ladder_locked()
             seen_after = None if self._seen_cols is None \
                 else tuple(self._seen_cols.shape)
             if int(X.shape[0]) != cap or seen_after != seen_before:
@@ -1770,12 +2087,21 @@ def _live_store_bytes() -> float:
 _metrics.DEVICE_STORE_BYTES.set_function(_live_store_bytes)
 
 
+def _live_ladder_bytes() -> float:
+    """Device bytes held by the live stores' ladder graphs (the pull
+    source of ``pio_aot_ladder_bytes``)."""
+    return float(sum(srv.ladder_report()["memory"]["totalBytes"]
+                     for srv in list(_live_servers)))
+
+
+_metrics.AOT_LADDER_BYTES.set_function(_live_ladder_bytes)
+
+
 def device_report() -> Dict[str, Any]:
     """The ``/stats.json`` ``device`` block in the JAX package's shape:
     each live store as ``{"store": memory_report(), "aotLadder":
-    ladder_report()}``, their bytes, the ladders' bytes (0: the port has
-    no ladder yet), and the flight recorder's counts and per-lane
-    dispatch summary."""
+    ladder_report()}``, their bytes, the ladders' measured device bytes,
+    and the flight recorder's counts and per-lane dispatch summary."""
     stores: List[Dict[str, Any]] = []
     store_bytes = ladder_bytes = 0
     for srv in list(_live_servers):

@@ -34,16 +34,18 @@ on a density-permuted store) before the stable descending sort of stage
 2, so ties go to the lowest item id as in a brute-force re-rank of the
 whole catalog: at N = the catalog the two are equal.
 
-Not ported: the AOT ladder entries (``aot_plan``, ``_aot_lower_entry``,
-``_warm_entry``: the port has no ladder yet, and :meth:`warmup` runs one
-two-stage query per lane instead).
+The serving ladder: :meth:`TwoStageTopK.aot_plan` adds a ``("two", kb,
+nb, bb)`` entry per k bucket and uid bucket to the parent's, and each is
+captured as ONE CUDA graph holding both stages (B1 at k = the N bucket,
+once per shard over shards, then the re-rank), so a hit is one replay.
 """
 
 from __future__ import annotations
 
 import collections
 import os
-from typing import Any, Dict, List, Optional, Tuple
+import weakref
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,10 +67,12 @@ from predictionio_tpu_torch.ops.serving import (
     _gather_rows_f32,
     _grown,
     _on_cuda,
+    _pack,
     _Pending,
     _serve_precision_explicit,
     _serve_shards_env,
     _sharded_score_topk,
+    _table_sig,
     foldin_enabled,
     serving_backend,
     validate_serving_policy,
@@ -309,11 +313,54 @@ class TwoStageTopK(DeviceTopK):
         configured candidate bucket and kb, at most the catalog."""
         return min(max(self._n_bucket, kb), self.n_items)
 
-    def warmup(self) -> None:
-        """The parent's warm-up (the user and item lanes), then one
-        two-stage query."""
-        super().warmup()
+    # -- the serving ladder -----------------------------------------------
+
+    def _store_sig_locked(self) -> Tuple:
+        """The parent's signature plus the stage-2 tables and the N
+        bucket."""
+        base = super()._store_sig_locked()
+        if getattr(self, "_U", None) is None:  # mid-__init__
+            return base
+        return base + (_table_sig(self._E), _table_sig(self._U),
+                       _table_sig(self._pos_ids), self._n_bucket)
+
+    def _ladder_tables_locked(self) -> Tuple:
+        return super()._ladder_tables_locked() + (self._E, self._U,
+                                                  self._pos_ids)
+
+    def aot_plan(self, max_k: int = 128,
+                 batch_sizes: Tuple[int, ...] = ()) -> List[Tuple]:
+        """The parent's ladder plus one ``("two", kb, nb, bb)`` entry per
+        (k bucket, uid bucket): steady two-stage traffic captures
+        nothing."""
+        plan = super().aot_plan(max_k=max_k, batch_sizes=batch_sizes)
+        ks = sorted({e[1] for e in plan if e[0] == "user"})
+        buckets = sorted({e[2] for e in plan if e[0] == "users"})
+        for kb in ks:
+            for bb in buckets:
+                plan.append(("two", kb, self._nb_for(kb), bb))
+        return plan
+
+    def _aot_lower_entry(self, entry: Tuple):
+        if entry[0] != "two":
+            return super()._aot_lower_entry(entry)
+        _, kb, nb, bb = entry
+        return (self._two_fn(kb, nb),
+                (torch.zeros(bb, dtype=torch.int64, device=self.device),))
+
+    def _warm_entry(self, entry: Tuple) -> None:
+        if entry[0] != "two":
+            return super()._warm_entry(entry)
+        _, kb, nb, bb = entry
+        self.twos_topk(np.zeros(bb, dtype=np.int64), kb)
+
+    def warmup(self, max_k: int = 128,
+               batch_sizes: Tuple[int, ...] = ()) -> Dict[str, int]:
+        """The parent's warm-up over the whole ladder (the ``two``
+        entries with it), then one sacrificial two-stage query."""
+        stats = super().warmup(max_k=max_k, batch_sizes=batch_sizes)
         self.twos_topk(np.zeros(8, dtype=np.int64), min(16, self.n_items))
+        return stats
 
     def two_topk(self, uid: int, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """(item indices, scores) for one user through retrieval and
@@ -329,12 +376,15 @@ class TwoStageTopK(DeviceTopK):
             return idx[0][valid], scores[0][valid]
 
     def twos_topk(self, uids, k: int) -> Tuple[np.ndarray, np.ndarray]:
-        """Batched two-stage top-k: ONE dispatch (B1 unmasked at the N
-        bucket, once per shard over a sharded store, then stage 2) and
-        ONE copy back for the batch, padded to its power-of-two bucket.
-        Returns ``(idx [B, k] int32 item ids, scores [B, k] float32)``,
-        rows descending; rows may hold -inf past the valid candidates
-        (callers filter per row)."""
+        """Batched two-stage top-k: ONE dispatch of the ``("two", kb, nb,
+        bb)`` entry (B1 unmasked at the N bucket, once per shard over a
+        sharded store, then stage 2) and ONE copy back for the batch,
+        padded with uid 0 to its power-of-two bucket. Returns ``(idx [B,
+        k] int32 item ids, scores [B, k] float32)``, rows descending;
+        rows may hold -inf past the valid candidates (callers filter per
+        row). An eager dispatch on the card with telemetry on appends
+        its B1 / stage-2 microseconds to ``stage_times``; a replayed
+        graph times only as a whole."""
         uids = np.asarray(uids, dtype=np.int64)
         n = len(uids)
         with _trace_span("device.twos_topk",
@@ -344,59 +394,65 @@ class TwoStageTopK(DeviceTopK):
             padded[:n] = uids
             kb = min(_bucket(k), self.n_items)
             nb = self._nb_for(kb)
-            u = torch.from_numpy(padded).to(self.device)
-            sc = sm = None
-            # the gathers are enqueued under the lock a patch enqueues
-            # its writes under: one patch's state for Q, S and the seen
-            # rows; B1 and stage 2 then read only them and the item
-            # tables, which no patch touches
-            with self._store_lock:
-                if self._mask_seen:
-                    sc, sm = self._seen_cols[u], self._seen_mask[u]
-                Q = _gather_rows_f32(self._X, u)
-                S = _gather_rows_f32(self._U, u)
-                E = self._E
+            fn = self._two_fn(kb, nb)
             split: Dict[str, Any] = {}
-            shards = self._shards
-
-            def launch(events):
-                b1 = stage2 = None
-                if events is not None:
-                    # B1's own pairs (one a shard), recorded by its native
-                    # launch just around its kernels; stage 2's from after
-                    # stage 1
-                    b1 = [tuple(torch.cuda.Event(enable_timing=True)
-                                for _ in range(2))
-                          for _ in range(1 if shards is None
-                                         else len(shards))]
-                    stage2 = torch.cuda.Event(enable_timing=True)
-                    events[0].record()
-                if shards is None:
-                    vals1, pos = fused_gather_score_topk(
-                        Q, self._Y, None, None, k=nb, n_items=self.n_items,
-                        mask_seen=False, events=None if b1 is None
-                        else b1[0])
-                else:
-                    vals1, pos = _sharded_score_topk(
-                        shards, Q, None, None, k=nb, mask_seen=False,
-                        events=b1)
-                if stage2 is not None:
-                    stage2.record()
-                out = twostage_rerank(E, S, vals1, pos, sc, sm, kb=kb,
-                                      mask_seen=self._mask_seen,
-                                      pos_ids=self._pos_ids)
-                if events is not None:
-                    events[1].record()
-                    split["events"] = (b1, stage2, events[1])
-                return out
-
-            idx, scores = self._timed_fetch("two", kb, n, launch)
+            idx, scores = self._dispatch_entry(
+                ("two", kb, nb, bb), fn, (padded,), batch=n, bucket=bb,
+                eager=lambda u, events=None: fn(u, events=events,
+                                                split=split))
             if "events" in split:
                 b1, stage2, end = split["events"]
                 self.stage_times.append((
                     sum(a.elapsed_time(b) for a, b in b1) * 1e3,
                     stage2.elapsed_time(end) * 1e3))
             return self._positions_to_items(idx[:n, :k]), scores[:n, :k]
+
+    def _two_fn(self, kb: int, nb: int) -> Callable[..., torch.Tensor]:
+        """The two lane's program: ``u [B]`` int64 uids on the device ->
+        the packed ``[B, 2 kb]`` result. It gathers the users' stage-1
+        rows, stage-2 states and seen rows, launches B1 unmasked at k =
+        ``nb`` (over shards, once per shard, the lists merged) and
+        re-ranks (:func:`twostage_rerank`), under ``_store_lock``,
+        eagerly or captured; the store held weakly. ``events``, an eager
+        call's timing pair, is recorded around the whole dispatch, and
+        then ``split`` (a dict) receives B1's own pairs (one a shard) and
+        stage 2's start and end events."""
+        ref = weakref.ref(self)
+
+        def fn(u: torch.Tensor, events: Optional[Tuple] = None,
+               split: Optional[dict] = None) -> torch.Tensor:
+            srv = ref()
+            sc = sm = None
+            if srv._mask_seen:
+                sc, sm = srv._seen_cols[u], srv._seen_mask[u]
+            Q = _gather_rows_f32(srv._X, u)
+            S = _gather_rows_f32(srv._U, u)
+            shards = srv._shards
+            b1 = stage2 = None
+            if events is not None:
+                b1 = [tuple(torch.cuda.Event(enable_timing=True)
+                            for _ in range(2))
+                      for _ in range(1 if shards is None else len(shards))]
+                stage2 = torch.cuda.Event(enable_timing=True)
+                events[0].record()
+            if shards is None:
+                vals1, pos = fused_gather_score_topk(
+                    Q, srv._Y, None, None, k=nb, n_items=srv.n_items,
+                    mask_seen=False, events=None if b1 is None else b1[0])
+            else:
+                vals1, pos = _sharded_score_topk(
+                    shards, Q, None, None, k=nb, mask_seen=False, events=b1)
+            if stage2 is not None:
+                stage2.record()
+            out = _pack(*twostage_rerank(
+                srv._E, S, vals1, pos, sc, sm, kb=kb,
+                mask_seen=srv._mask_seen, pos_ids=srv._pos_ids))
+            if events is not None:
+                events[1].record()
+                if split is not None:
+                    split["events"] = (b1, stage2, events[1])
+            return out
+        return fn
 
     def stats(self) -> Dict[str, Dict[str, Any]]:
         out = super().stats()
@@ -439,7 +495,10 @@ class TwoStageTopK(DeviceTopK):
         until :meth:`patch_seq_users` writes them)."""
         with self._store_lock:
             super().patch_users(uids, factors, seen_items=seen_items)
+            sig = self._store_sig_locked()
             self._sync_seq_capacity_locked()
+            if self._store_sig_locked() != sig:
+                self._clear_ladder_locked()
 
     def patch_seq_users(self, uids, vectors,
                         seen_items: Optional[Dict[int, np.ndarray]] = None
@@ -465,6 +524,7 @@ class TwoStageTopK(DeviceTopK):
         dev = self.device
         idx = torch.from_numpy(uids).to(dev)
         with self._store_lock:
+            sig_before = self._store_sig_locked()
             U = self._U
             rank2 = int((U.data if is_quantized(U) else U).shape[1])
             if vectors.shape[1] != rank2:
@@ -495,6 +555,8 @@ class TwoStageTopK(DeviceTopK):
                 U.index_copy_(0, idx, torch.from_numpy(vectors).to(dev)
                               .to(U.dtype))
             self.n_users = max(self.n_users, needed)
+            if self._store_sig_locked() != sig_before:
+                self._clear_ladder_locked()
 
     # -- serving facets ---------------------------------------------------
 
@@ -530,8 +592,9 @@ class _TwoStageFacet:
     def items_topk(self, idxs, k: int):
         return self.store.items_topk(idxs, k)
 
-    def warmup(self) -> None:
-        self.store.warmup()
+    def warmup(self, max_k: int = 128,
+               batch_sizes: Tuple[int, ...] = ()) -> Dict[str, int]:
+        return self.store.warmup(max_k=max_k, batch_sizes=batch_sizes)
 
     def patch_users(self, uids, factors, seen_items=None):
         return self.store.patch_users(uids, factors, seen_items=seen_items)
@@ -582,7 +645,8 @@ class _SeqStoreFacet:
     def items_topk(self, idxs, k: int):
         return self.store.items_topk(idxs, k)
 
-    def warmup(self) -> None:
+    def warmup(self, max_k: int = 128,
+               batch_sizes: Tuple[int, ...] = ()) -> None:
         return None
 
     def patch_users(self, uids, factors, seen_items=None):

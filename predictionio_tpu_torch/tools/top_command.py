@@ -4,9 +4,9 @@ The port's copy of ``predictionio_tpu/tools/top_command.py``. It polls
 ``GET /stats.json`` and ``GET /dispatches.json`` and renders what an
 operator reaches for first: QPS (the request counter's delta between
 polls), served p50/p99, batch fill, each dispatch lane's device and
-host time, the device bytes of the factor store and the AOT ladder (the
-port has no ladder yet: its fields read zero), and the degraded and
-fold-in state. ``--once`` prints one plain frame instead of looping.
+host time, the device bytes of the factor store and of the serving
+ladder (its captured CUDA graphs), each store's ladder coverage and
+hits, and the degraded and fold-in state. ``--once`` prints one plain frame instead of looping.
 Pointed at a query fleet's balancer, :func:`render` also draws the
 fleet's members and SLO blocks; ``--fleet`` says the URL should be one,
 and a frame without the federated block says that it is not.

@@ -5,18 +5,20 @@ bounded thread-safe ring that says, for each launch of the serving
 kernel, how much device time it cost, how full its batch was and how
 long it queued:
 
-- every launch of the serving kernel (the batched users lane, the
-  single-user lane, item similarity) records one dispatch record with
-  the JAX package's field names: lane, k bucket, batch and bucket, fill
-  ratio, store precision, kernel (here the route the kernel took:
+- every dispatch of the serving store (the batched users lane, the
+  single-user lane, item similarity, two-stage) records one dispatch
+  record with the JAX package's field names: lane, k bucket, batch and
+  the padded bucket, fill ratio, store precision, kernel (here the route
+  the kernel took, as the launch or the replayed graph recorded it:
   ``chunked``, ``bitonic``, ``cluster_row``, ``radix_row``; ``plain``
-  for the plain version on the CPU), ``aot`` (``"jit"``, the JAX
-  package's value for an unladdered program: the port has no ladder
-  yet), queue wait, ``hostUs`` (the host's window from the launch to the
-  end of the copy back) and ``deviceUs``;
+  for the plain version on the CPU), ``aot`` (``"hit"``: a ladder
+  graph replayed; ``"miss_jit"``: the dispatch ran eagerly), queue
+  wait, ``hostUs`` (the host's window from the lookup to the end of the
+  copy back) and ``deviceUs``;
 - ``deviceUs`` is the time between two CUDA events recorded on the
-  launching stream around the kernel, read after the copy back the
-  query waits for anyway (no added synchronisation). The JAX package
+  stream around the dispatch's program (a replay or the eager run),
+  read after the copy back the query waits for anyway (no added
+  synchronisation). The JAX package
   reads a host clock around ``block_until_ready`` instead. On the CPU
   there are no events: ``deviceUs`` is None and nothing is observed;
 - the ring is bounded (``PIO_DEVICE_TELEMETRY_RING``, default 2048);

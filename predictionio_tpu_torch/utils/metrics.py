@@ -30,10 +30,10 @@ says what:
   (the kernel's plain version) no device time is recorded.
 - ``pio_profile_traces_total`` / ``pio_profile_capture_active`` count
   ``torch.profiler`` captures.
-- ``pio_aot_cache_requests_total``, ``pio_aot_cache_evictions_total``
-  and ``pio_aot_ladder_bytes`` are declared but never fed: the port has
-  no precompiled ladder yet, and every dispatch record says
-  ``aot: "jit"``.
+- ``pio_aot_cache_requests_total`` counts the serving ladder's lookups
+  (``hit``: a CUDA graph replayed; ``miss_jit``: an eager dispatch),
+  ``pio_aot_cache_evictions_total`` its evictions, and
+  ``pio_aot_ladder_bytes`` the device bytes its graphs hold.
 """
 
 from __future__ import annotations
@@ -880,21 +880,20 @@ DISPATCH_DEVICE_SECONDS = REGISTRY.histogram(
     ("lane", "kernel", "precision"), buckets=DEVICE_DISPATCH_BUCKETS)
 AOT_CACHE_REQUESTS = REGISTRY.counter(
     "pio_aot_cache_requests_total",
-    "Serving-program lookups against a precompiled ladder (never fed: "
-    "the port has no ladder yet)",
+    "Serving-program lookups against the captured ladder (hit: a CUDA "
+    "graph replayed; miss_jit: the dispatch ran eagerly)",
     ("result",))
 AOT_CACHE_EVICTIONS = REGISTRY.counter(
     "pio_aot_cache_evictions_total",
-    "Precompiled serving programs evicted from a bounded cache (never "
-    "fed: the port has no ladder yet)", ())
+    "Captured serving programs evicted from a bounded cache", ())
 DEVICE_STORE_BYTES = REGISTRY.gauge(
     "pio_device_store_bytes",
     "HBM bytes pinned by live device factor stores (factors + scales + "
     "seen tables + normalized item matrix, across all live servers)", ())
 AOT_LADDER_BYTES = REGISTRY.gauge(
     "pio_aot_ladder_bytes",
-    "Bytes held by precompiled serving programs (never fed: the port "
-    "has no ladder yet)", ())
+    "Device bytes held by the live stores' captured serving programs "
+    "(their graph pools, measured)", ())
 PROFILE_CAPTURES_ACTIVE = REGISTRY.gauge(
     "pio_profile_capture_active",
     "1 while an on-demand torch.profiler capture is running", ())

@@ -387,12 +387,20 @@ def _bind_two_stage(serving: Any, algorithms: List[Any],
 
 def warm_up(dep: Deployment,
             warmup_query: Optional[Mapping[str, Any]] = None) -> None:
-    """Each algorithm's ``warmup_base`` (builds the device store and the
-    kernel), then an optional sacrificial query through the full path."""
+    """Each algorithm's ``warmup_base`` (builds the device store, whose
+    ``warmup()`` captures the serving ladder), then an optional
+    sacrificial query through the full path. A model with no
+    ``warmup_base`` hook but a ``device_server()`` gets the ladder too:
+    its first queries must not pay for it. A warm-up that fails raises
+    (on the card it is the kernel or a graph that failed)."""
     for algo, model in zip(dep.algorithms, dep.models):
         warmup = getattr(algo, "warmup_base", None)
         if callable(warmup):
             warmup(model)
+            continue
+        device_server = getattr(model, "device_server", None)
+        if callable(device_server):
+            device_server().warmup()
     if warmup_query is not None:
         serve_query(dep, query_from_json(dict(warmup_query),
                                          dep.algorithms[0].query_class))

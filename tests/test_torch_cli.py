@@ -57,6 +57,16 @@ from predictionio_tpu_torch.workflow import create_workflow as tcw
 
 from test_torch_lifecycle import configure, fill
 
+from jax_native_ready import require_jax_native
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_loaded(tmp_path_factory):
+    """The JAX package's native libraries loaded before any comparison
+    (``jax_native_ready``): a build raced by another worker is waited
+    out, never compared against as the Python fallback."""
+    require_jax_native(tmp_path_factory.getbasetemp().parent)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CPU = ComputeContext(device="cpu")
 UTC = dt.timezone.utc

@@ -145,7 +145,11 @@ def test_dispatch_records_match_jax(recorders, factors, monkeypatch,
             srv.users_topk(np.arange(5), 8)
             got[name] = mod.recorder().snapshot(100)
         assert lanes_of(got["port"]) == lanes_of(got["jax"])
-        assert all(r["kernel"] == "plain" and r["aot"] == "jit"
+        # no warm-up: every lookup misses the ladder in both packages,
+        # and each record names the padded bucket it dispatched at
+        assert [(r["aot"], r["bucket"]) for r in got["port"]] == [
+            (r["aot"], r["bucket"]) for r in got["jax"]]
+        assert all(r["kernel"] == "plain" and r["aot"] == "miss_jit"
                    and r["deviceUs"] is None for r in got["port"])
         if microbatch:
             assert {r["queueWaitUs"] is not None for r in got["port"]

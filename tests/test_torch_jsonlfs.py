@@ -29,6 +29,16 @@ from test_torch_storage import (  # the shared event scenarios
     props,
 )
 
+from jax_native_ready import require_jax_native
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_loaded(tmp_path_factory):
+    """The JAX package's native libraries loaded before any comparison
+    (``jax_native_ready``): a build raced by another worker is waited
+    out, never compared against as the Python fallback."""
+    require_jax_native(tmp_path_factory.getbasetemp().parent)
+
 UTC = dt.timezone.utc
 APP = 1
 PACKAGES = ("predictionio_tpu", "predictionio_tpu_torch")

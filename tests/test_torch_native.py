@@ -21,6 +21,16 @@ from predictionio_tpu_torch import native
 from predictionio_tpu_torch.native import codec
 from predictionio_tpu_torch.ops import als as tals
 
+from jax_native_ready import require_jax_native
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_loaded(tmp_path_factory):
+    """The JAX package's native libraries loaded before any comparison
+    (``jax_native_ready``): a build raced by another worker is waited
+    out, never compared against as the Python fallback."""
+    require_jax_native(tmp_path_factory.getbasetemp().parent)
+
 
 def runs_of(n, rng, k):
     cuts = np.sort(rng.choice(np.arange(1, n), size=k - 1, replace=False))

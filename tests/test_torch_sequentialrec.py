@@ -39,6 +39,16 @@ from predictionio_tpu_torch.workflow import core_workflow as tcore
 from predictionio_tpu_torch.workflow import create_server as tserver
 from predictionio_tpu_torch.workflow import create_workflow as tcw
 
+from jax_native_ready import require_jax_native
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_loaded(tmp_path_factory):
+    """The JAX package's native libraries loaded before any comparison
+    (``jax_native_ready``): a build raced by another worker is waited
+    out, never compared against as the Python fallback."""
+    require_jax_native(tmp_path_factory.getbasetemp().parent)
+
 UTC = dt.timezone.utc
 T0 = dt.datetime(2024, 1, 1, tzinfo=UTC)
 APP = "seqapp"

@@ -342,13 +342,16 @@ def test_device_report_key_tree_equals_jax(monkeypatch):
     mine = next(e for e in trep["stores"] if e["store"]["nUsers"] == 12)
     want = next(e for e in jrep["stores"] if e["store"]["nUsers"] == 12)
     assert key_tree(mine) == key_tree(want)
+    # this store was never warmed: its ladder holds nothing, and the
+    # report's total is its stores' (other live stores may hold ladders)
     assert mine["aotLadder"]["memory"]["totalBytes"] == 0
-    assert trep["aotLadderBytes"] == 0
+    assert trep["aotLadderBytes"] == sum(
+        e["aotLadder"]["memory"]["totalBytes"] for e in trep["stores"])
     lane = set(trep["dispatch"]) & set(jrep["dispatch"])
     assert lane
     for name in lane:
-        # "aot" counts dispatches by outcome: the port, with no ladder,
-        # records "jit" where the JAX store's lookup missed ("miss_jit")
+        # "aot" counts dispatches by outcome, "hit" or "miss_jit" as in
+        # the JAX store
         mine, want = (dict(key_tree(rep["dispatch"][name]), aot={})
                       for rep in (trep, jrep))
         assert mine == want
@@ -386,7 +389,12 @@ def test_top_renders_the_jax_text(served, extra):
     for prev in (None, (10.0, 2)):
         got = ttop.render(stats, dispatches, prev=prev, now=12.5)
         assert got == jtop.render(stats, dispatches, prev=prev, now=12.5)
-    assert "ladder 0/0 compiled (+0 warmed)" in got
+    # the deploy warmed its store's ladder: every entry bound, none warmed
+    cov = srv._deployment.models[0].device_server().ladder_report()[
+        "coverage"]
+    assert cov["planned"] > 0 and cov["compiled"] == cov["planned"]
+    assert (f"ladder {cov['planned']}/{cov['planned']} compiled (+0 warmed)"
+            in got)
 
 
 def test_top_once_reads_a_port_deploy(served, capsys):

@@ -4,7 +4,7 @@ JAX on four devices of its forced host platform (conftest).
 
 Mirrors JAX ``tests/test_sharded_serving.py``: ``TestItemShardLayout``
 (the layouts byte-equal to JAX's), ``TestShardedServingDifferential``
-(without its AOT-ladder case: the port has no ladder), ``TestShardedFoldIn``
+(its AOT-ladder case is ``tests/test_torch_aot_ladder.py``), ``TestShardedFoldIn``
 and ``TestShardMemoryReport``. Every lane is held to the port's own
 single store and to JAX's sharded store. A deployment serves over the
 plane of the ``ComputeContext`` it is given.

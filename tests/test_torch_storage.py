@@ -22,6 +22,16 @@ import types
 
 import pytest
 
+from jax_native_ready import require_jax_native
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_loaded(tmp_path_factory):
+    """The JAX package's native libraries loaded before any comparison
+    (``jax_native_ready``): a build raced by another worker is waited
+    out, never compared against as the Python fallback."""
+    require_jax_native(tmp_path_factory.getbasetemp().parent)
+
 UTC = dt.timezone.utc
 APP = 1
 PACKAGES = ("predictionio_tpu", "predictionio_tpu_torch")
