@@ -10,6 +10,7 @@
     python3 chip_smoke.py --sharded         # phases 1, 8a, 5, 8b and 8c only
     python3 chip_smoke.py --sequence-parallel  # 1, 5's store, 3e/3f training, 8d
     python3 chip_smoke.py --crossover       # phases 1 and 8a only
+    python3 chip_smoke.py --training-ladder # 1, 5's store, 5, 5b, 5c, 5d
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -61,12 +62,19 @@ Phases (any failure raises and the script exits non-zero):
    (decode, index and per-block sort overlapped; merge, dedup and both
    sides' bucket fill, each side copied to the card from pinned memory
    on a copy stream while the host fills the other; the trainer's
-   warm-up beside them), with each stage's busy seconds, the wall time,
-   the overlap ratio (busy / wall) and the pinning's seconds printed.
-   Every staged table, copied back, must be byte-equal to the table phase
-   5's preparator built, and ``train_als_bucketed`` on the staged sides
-   must give factors bitwise equal to phase 5's model (the same kernels
-   on the same inputs from the same init).
+   warm-up beside them, capturing one iteration as a CUDA graph on the
+   staged tables once their copies land), with each stage's busy
+   seconds, the wall time, the overlap ratio (busy / wall) and the
+   pinning's seconds printed. Every staged table, copied back, must be
+   byte-equal to the table phase 5's preparator built, and
+   ``train_als_bucketed`` on the staged sides must hit the warmed
+   program (B3 and B2 each once a bucket an iteration, every launch by
+   a replay) and give factors bitwise equal to phase 5's model (trained
+   eagerly: the same kernels on the same inputs from the same init). The
+   capture's seconds and the training pool's bytes are printed, and one
+   iteration as a replay against one eager (CUDA-event windows and
+   wall, medians of 20 in 4 alternating rounds; the device's busy share
+   under the profiler).
 2b. Hold the two training kernels against their plain versions: the
    assembly on every row of every bucket of both sides (trained and
    integer factors, implicit and explicit weights, the layout's own
@@ -99,20 +107,26 @@ Phases (any failure raises and the script exits non-zero):
    ``TrainingPreempted``, the resume is bitwise equal, the run log holds
    one run with steps 1-3 and their fit / l2; each save's blob MB and
    ms, and the median wall with checkpoints over without (printed beside
-   the JAX package's 3% gate, not asserted).
+   the JAX package's 3% gate, not asserted); (c) the fp32
+   ``checkpoint_every=1`` run warmed first (the iteration and the
+   objective sample captured): every iteration and sample a cache hit,
+   B3 and B2 by replays, the factors and the run log's samples bitwise
+   the eager run's.
 5d. The tuning grid at ML-20M width on phase 5's ratings, from memory
    (no second read): each user's last rating in stream order held out,
    as ``pio eval --grid`` splits them, the rest bucketed and staged once;
    8 configs (rank 32 / 64 x lambda 0.01 / 0.1 x alpha 1 / 40) and a
    ninth with alpha = 1e38, 10 iterations, implicit, fp32, through
-   ``train_als_grid_bucketed`` (every assembly launch on B3's config-axis
-   route, one a bucket for all configs; B2 over ``k * B`` systems), and
-   the leaderboard of 4,096 held-out users through ``grid_topk`` (B1, one
-   launch per config per 512 users). Checks: (a) the alive mask is 8 x
-   True then False, the dead lane all zeros, every factor finite; (b)
-   each config against its serial ``train_als_bucketed`` run from the
-   same init: bitwise at rank 64, within 1e-4 / 1e-5 at rank 32, pad
-   columns exactly zero; (c) B3's grid route at the largest bucket's
+   ``train_als_grid_bucketed`` warmed first (the grid's iteration and
+   objective captured; every assembly launch on B3's config-axis route,
+   one a bucket for all configs, B2 over ``k * B`` systems, all by
+   replays), and the leaderboard of 4,096 held-out users through
+   ``grid_topk`` (B1, one launch per config per 512 users). Checks: (a)
+   the alive mask is 8 x True then False, the dead lane all zeros, every
+   factor finite; (b) each config against its serial
+   ``train_als_bucketed`` run (each warmed, by replays) from the same
+   init: bitwise at rank 64, within 1e-4 / 1e-5 at rank 32, pad columns
+   exactly zero; (c) B3's grid route at the largest bucket's
    shape bitwise equal to k single launches (fp32, and a bf16 store,
    which must also equal the fp32 route on the widened store), within
    the reordering bound of its plain version, and bitwise plain on an
@@ -124,8 +138,10 @@ Phases (any failure raises and the script exits non-zero):
    per-iteration time beside the 8 serial trainings', B3's grid route
    over one grid iteration against k single launches, plain, the library
    call and its bound, B1 at ``grid_topk``'s shape, the leaderboard's
-   host time, and the peak device memory against
-   ``grid_bytes_per_config * k`` plus the tables.
+   host time, the peak device memory against
+   ``grid_bytes_per_config * k`` plus the tables, the warm-up's seconds,
+   the training pool's bytes and ``run_grid``'s memory plan before and
+   after the capture, and a grid iteration as a replay against eager.
 3. Serve the model phase 5 trained: start the port's QueryServer, send
    user, blacklist, category, item-similarity and unknown-user queries,
    some from 8 concurrent clients, and check every answer against the
@@ -161,8 +177,9 @@ Phases (any failure raises and the script exits non-zero):
    at B = 1) over the same queries; (c) B1's launches by (route, k, B)
    equal the chunk plan's (one ``users_topk`` launch per chunk and k,
    bitonic at B >= ``CHUNKED_MAX_B``; one per similarity query); (d) a
-   run stopped after 450 chunks resumes, skips them, scores the rest,
-   and its shards are byte-equal to the clean run's. Prints the wall and
+   run over the first 64 chunks' queries stopped after 48 chunks
+   resumes, skips them, scores the rest, and its shards are byte-equal
+   to the clean run's. Prints the wall and
    scoring seconds, queries/s, B1's device ms over the run (CUDA
    events), one median chunk's split (extraction and supplement,
    ``users_topk`` launch and copy, results, render, write and fsync) and
@@ -285,9 +302,13 @@ Phases (any failure raises and the script exits non-zero):
    the fold-in shapes (B, L) = (8, 256), (64, 256), (256, 2,048); the
    assembly's bf16 route on every bucket of both sides (its bound reads
    the store at 2 bytes a value; its library call is ``torch.einsum``
-   over the bf16 gather widened to fp32); and, off the main path, the
-   device-memory solve at rank 320 and the large-rank assembly at rank
-   256.
+   over the bf16 gather widened to fp32); the library calls at the
+   sharded trainer's block shapes (each bucket padded to a multiple of
+   32 rows and cut in 4, ``bmm`` and ``cholesky_ex`` +
+   ``cholesky_solve`` on each block that holds a real row: phase 8c's
+   library column, beside the plain versions there); and, off the main
+   path, the device-memory solve at rank 320 and the large-rank
+   assembly at rank 256.
 6. The lifecycle at MovieLens-1M's size (6,040 users x 3,706 items,
    1,000,209 ratings, rank 64): a sqlite event store in a temporary
    directory (``PIO_STORAGE_*`` set before the registry's first use),
@@ -342,12 +363,14 @@ Phases (any failure raises and the script exits non-zero):
    (``--input``, chunks of 16): a clean run, a run killed with SIGKILL
    once its journal holds a chunk, and its rerun, which must resume at
    least one chunk and give shards equal to the clean run's. Then the
-   crash pair: ``pio train --precision bf16
-   --checkpoint-dir D --checkpoint-every 1``, each save held 2 s by
-   ``PIO_FAULTS`` (slow), is killed with SIGKILL once its second
-   checkpoint lands; ``pio train ... --resume`` must give factors bitwise
-   equal to an uninterrupted ``pio train --precision bf16``, and ``pio
-   runs list`` / ``show`` one run whose steps rise to 3.
+   crash trio starts, and runs beside phases 6c and 6d (their checks
+   wait for it after 6d): ``pio train --precision bf16 --checkpoint-dir
+   D --checkpoint-every 1``, each save held 2 s by ``PIO_FAULTS``
+   (slow), is killed with SIGKILL once its second checkpoint lands;
+   ``pio train ... --resume`` must give factors bitwise equal to an
+   uninterrupted ``pio train --precision bf16`` (the third process, run
+   beside the pair), and ``pio runs list`` / ``show`` one run whose
+   steps rise to 3.
 6c. ``pio eval`` through the console at ML-1M, on phase 6b's store: a
    ``pio-torch eval --grid`` child (rank 32 / 64 x lambda 0.01 / 0.1, 10
    iterations) exits 0 and writes the leaderboard, whose winner carries
@@ -388,7 +411,7 @@ Phases (any failure raises and the script exits non-zero):
    printed). Every folded row must equal the plain fold's (within
    ``FOLDIN_ROW_TOL``) and the answers the plain top-k of the patched
    store. Last, an entity read of one shard's store, by the byte search
-   and by the whole parse it replaced, is timed on the same users; and
+   and by the whole parse it replaced, is timed on the same user; and
    the registry's wrapped DAO over the local store, its entity reads and
    50-event ``insert_batch`` writes, with ``PIO_RESILIENCE`` on and off
    in turns.
@@ -1247,7 +1270,7 @@ def scale_ingest(dev, seed: int, store: dict, trained: dict) -> dict:
     from predictionio_tpu_torch.data.columnar import ingest_ratings_pipelined
     from predictionio_tpu_torch.native import codec
     from predictionio_tpu_torch.ops import als as als_mod
-    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.ops import als_cuda, aot
     from predictionio_tpu_torch.utils.tracing import StageTimeline
 
     params = als_mod.ALSParams(rank=RANK, num_iterations=ITERATIONS,
@@ -1302,6 +1325,22 @@ def scale_ingest(dev, seed: int, store: dict, trained: dict) -> dict:
                                          f"staged {field} differs from the "
                                          f"preparator's")
     res.join_warmup()
+    # the warm-up captured the iteration on the staged tables (the
+    # timeline's warmup_compile: the libraries are built already)
+    pool = aot.train_pool(dev)
+    stages = timeline.summary()["stages"]
+    warm = {"capture_s": stages["warmup_compile"]["busy_sec"],
+            "wait_s": stages["warmup_wait"]["busy_sec"],
+            "programs": len(als_mod._aot_bucketed),
+            "pool_bytes": pool.nbytes()}
+    if warm["programs"] != 1:
+        raise AssertionError(f"the ingest's warm-up cached "
+                             f"{warm['programs']} iteration programs")
+    n_buckets = len(res.user_side.buckets) + len(res.item_side.buckets)
+    calls = {"parse_jsonl": codec.parse_calls.value}
+    for counter in (als_cuda.assemble_launches, als_cuda.spd_launches,
+                    als_cuda.graph_launches):
+        counter.reset()
     t1 = time.perf_counter()
     X, Y = als_mod.train_als_bucketed(res.user_side, res.item_side, params,
                                       dev)
@@ -1312,18 +1351,138 @@ def scale_ingest(dev, seed: int, store: dict, trained: dict) -> dict:
             Y.tobytes() != model.item_factors.tobytes():
         raise AssertionError("factors trained on the staged tables differ "
                              "from phase 5's")
-    calls = {"parse_jsonl": codec.parse_calls.value,
-             "assemble_normal_equations": als_cuda.assemble_launches.value,
-             "spd_solve": als_cuda.spd_launches.value}
-    for name, n in calls.items():
-        if n == 0:
-            raise AssertionError(f"{name} was never called in phase 5b")
-    print(f"[ingest] staged tables byte-equal to the preparator's; "
-          f"train_als_bucketed on them {train_s:.2f} s, factors bitwise "
-          f"equal to phase 5's; calls {calls}")
+    calls.update(replayed_launches(n_buckets * ITERATIONS, "phase 5b"))
+    if calls["parse_jsonl"] == 0:
+        raise AssertionError("parse_jsonl was never called in phase 5b")
+    print(f"[ingest] staged tables byte-equal to the preparator's; warm-up "
+          f"{warm['capture_s']!r} s (the capture; joined after "
+          f"{warm['wait_s']!r} s), {warm['programs']} "
+          f"program, training pool {warm['pool_bytes']} bytes; "
+          f"train_als_bucketed on them {train_s:.2f} s, a cache hit: B3 and "
+          f"B2 {n_buckets} times an iteration each, all by replays; factors "
+          f"bitwise equal to phase 5's (eager); calls {calls}")
+    u_t = bucket_tables(res.user_side, dev)
+    i_t = bucket_tables(res.item_side, dev)
+    X0, Y0 = als_mod.init_factors(N_USERS, M_ITEMS, RANK, seed, dev)
+    kw = dict(lam=LAMBDA, alpha=ALPHA, implicit=True, slot_budget=None)
+    ladder = replay_against_eager(
+        lambda: als_mod.als_iterations_bucketed(X0, Y0, u_t, i_t,
+                                                num_iterations=1, **kw),
+        lambda: als_mod._als_iterations_bucketed_impl(
+            X0, Y0, u_t, i_t, num_iterations=1, **kw),
+        n_buckets, "an iteration at ML-20M width")
+    del u_t, i_t, X0, Y0
+    clear_training_programs()
     return {"ingest_s": ingest_s, "events": res.n_events,
             "stages": stage_busy(summary), "overlap": busy / ingest_s,
-            "staging": staging}
+            "staging": staging, "warm": warm, "train_s": train_s,
+            "launches": calls, "ladder": ladder}
+
+
+LADDER_ITERATIONS = 20     # iterations timed a mode, in LADDER_ROUNDS rounds
+GRID_LADDER_ITERATIONS = 4  # the same for the grid (~170 ms an iteration)
+
+
+def replayed_launches(want: int, label: str) -> dict:
+    """B3's and B2's launches since their counters were reset, each
+    ``want`` and every one by a replay of a training program (a cache
+    hit: ``graph_launches`` holds them too)."""
+    from predictionio_tpu_torch.ops import als_cuda
+
+    by_replay = {"assemble_launches": 0, "spd_launches": 0}
+    for (counter, _), n in als_cuda.graph_launches.by_key().items():
+        if counter in by_replay:
+            by_replay[counter] += n
+    out = {"assemble_normal_equations": als_cuda.assemble_launches.value,
+           "spd_solve": als_cuda.spd_launches.value,
+           "assemble_by_replay": by_replay["assemble_launches"],
+           "spd_by_replay": by_replay["spd_launches"]}
+    if not (out["assemble_normal_equations"] == out["assemble_by_replay"]
+            == out["spd_solve"] == out["spd_by_replay"] == want):
+        raise AssertionError(f"{label}: launches {out}, want {want} of each, "
+                             "all by replays")
+    return out
+
+
+def clear_training_programs() -> None:
+    """Drop every warmed training program (their graphs and the pool's
+    scratch go with them) before the next phase."""
+    import torch
+
+    from predictionio_tpu_torch.ops import als as als_mod
+
+    als_mod.clear_training_programs()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def replay_against_eager(replay, eager, per_iteration: int, label: str,
+                         iterations: int = LADDER_ITERATIONS) -> dict:
+    """One training iteration as a replay of its warmed program against
+    the same iteration run eagerly, ``iterations`` of each in
+    ``LADDER_ROUNDS`` alternating rounds: the median of each iteration's
+    CUDA-event window (events around the call on its stream, so host
+    gaps between eager launches count) and of its wall (host clock to a
+    synchronize); then one of each under the profiler, the device's busy
+    share. ``replay`` must launch B3 and B2 ``per_iteration`` times each
+    by replay, ``eager`` none, and the first call of each must give
+    bitwise the same factors (both start from the same carries)."""
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+
+    got = {m: {"event": [], "wall": []} for m in ("replay", "eager")}
+    calls = {"replay": replay, "eager": eager}
+    # the replay's outputs are its static carries: copied out before the
+    # eager call, which the graph's next replay would overwrite
+    replayed = [t.clone() for t in replay()]
+    for name, r, e in zip(("user", "item"), replayed, eager()):
+        if r.shape != e.shape or r.dtype != e.dtype or not torch.equal(
+                r.contiguous().view(torch.uint8),
+                e.contiguous().view(torch.uint8)):
+            raise AssertionError(f"{label}: the replay's {name} factors "
+                                 "differ from the eager iteration's")
+    per = iterations // LADDER_ROUNDS
+    for _ in range(LADDER_ROUNDS):
+        for mode, fn in calls.items():
+            for _ in range(per):
+                torch.cuda.synchronize()
+                g0 = als_cuda.graph_launches.value
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t = time.perf_counter()
+                start.record()
+                fn()
+                end.record()
+                torch.cuda.synchronize()
+                got[mode]["wall"].append((time.perf_counter() - t) * 1e3)
+                got[mode]["event"].append(start.elapsed_time(end))
+                n = als_cuda.graph_launches.value - g0
+                if n != (2 * per_iteration if mode == "replay" else 0):
+                    raise AssertionError(f"{label}: {mode} made {n} "
+                                         "launches by replay")
+    out = {}
+    for mode, fn in calls.items():
+        wall, busy, kernels, kernel_ms = device_busy(fn)
+        out[mode] = {"event_ms": float(np.median(got[mode]["event"])),
+                     "wall_ms": float(np.median(got[mode]["wall"])),
+                     "profiled_wall_ms": wall, "busy_ms": busy,
+                     "busy_share": busy / wall,
+                     "kernels": sum(kernels.values()),
+                     "kernel_ms": dict(kernel_ms.most_common(8)),
+                     **b3_b2_ms(kernel_ms),
+                     "n": len(got[mode]["wall"])}
+    r, e = out["replay"], out["eager"]
+    print(f"[ladder-train] {label}, replay against eager (factors "
+          f"bitwise equal; medians of "
+          f"{r['n']}): event {r['event_ms']!r} / {e['event_ms']!r} ms, wall "
+          f"{r['wall_ms']!r} / {e['wall_ms']!r} ms; profiled: busy "
+          f"{r['busy_ms']!r} of {r['profiled_wall_ms']!r} ms "
+          f"({100 * r['busy_share']:.2f}%) against {e['busy_ms']!r} of "
+          f"{e['profiled_wall_ms']!r} ms ({100 * e['busy_share']:.2f}%), "
+          f"{r['kernels']} / {e['kernels']} kernels, B3 {r['B3']!r} / "
+          f"{e['B3']!r} ms, B2 {r['B2']!r} / {e['B2']!r} ms")
+    return out
 
 
 def prepare_times(seed: int) -> dict:
@@ -1906,6 +2065,10 @@ def training_options(dev, trained: dict, seed: int) -> dict:
                   f"only); saves (step, blob MB, ms): " + ", ".join(
                       f"({v['step']}, {v['mb']:.1f}, {v['ms']:.1f})"
                       for v in out[f"checkpoint_{prec}"]["saves"]))
+        out["warmed"] = warmed_checkpoint_run(
+            dev, us, its, base, work, run, env_keys,
+            lambda got, what: same(got, (model.user_factors,
+                                         model.item_factors), what))
     finally:
         checkpoint.TrainCheckpointer.save = save
         checkpoint.clear_stop()
@@ -1916,6 +2079,83 @@ def training_options(dev, trained: dict, seed: int) -> dict:
                 os.environ[k] = v
         shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+def warmed_checkpoint_run(dev, us, its, base, work: str, run, env_keys,
+                          same_as_eager) -> dict:
+    """(c) of phase 5c: ``warmup_train_als_bucketed`` with
+    ``checkpoint_every=1`` and telemetry on captures the iteration and
+    the objective sample; the fp32 run that follows takes every
+    iteration and every sample from a cache hit (B3 and B2 by replays),
+    and its factors (``same_as_eager``: phase 5's, which (b)'s eager
+    runs equal) and run-log samples (``fp32-0`` of (b)) equal the eager
+    run's bitwise."""
+    import os
+
+    from predictionio_tpu_torch.ops import als as als_mod
+    from predictionio_tpu_torch.ops import als_cuda, aot
+    from predictionio_tpu_torch.workflow import runlog
+
+    clear_training_programs()
+    d = os.path.join(work, "fp32-warm")
+    for k in env_keys:
+        os.environ.pop(k, None)
+    os.environ.update(PIO_CHECKPOINT_DIR=d, PIO_CHECKPOINT_EVERY="1")
+    t = time.perf_counter()
+    if not als_mod.warmup_train_als_bucketed(us, its, base, dev):
+        raise AssertionError("phase 5c: the warm-up declined")
+    warm_s = time.perf_counter() - t
+    programs = (len(als_mod._aot_bucketed), len(als_mod._aot_objective))
+    if programs != (1, 1):
+        raise AssertionError(f"phase 5c: the warm-up cached {programs} "
+                             "(iteration, objective) programs")
+    pool_bytes = aot.train_pool(dev).nbytes()
+    hits = {"iteration": [], "objective": []}
+    caches = {"iteration": als_mod._aot_bucketed,
+              "objective": als_mod._aot_objective}
+
+    def counting(name, cache):
+        get = type(cache).get
+
+        def counted(key):
+            prog = get(cache, key)
+            hits[name].append(prog is not None)
+            return prog
+        return counted
+
+    for name, cache in caches.items():
+        cache.get = counting(name, cache)
+    for counter in (als_cuda.assemble_launches, als_cuda.spd_launches,
+                    als_cuda.graph_launches):
+        counter.reset()
+    try:
+        X, Y, wall = run(base, d)
+    finally:
+        for cache in caches.values():
+            del cache.get
+    n_buckets = len(us.buckets) + len(its.buckets)
+    launches = replayed_launches(n_buckets * ITERATIONS, "phase 5c (c)")
+    if hits != {"iteration": [True] * ITERATIONS,
+                "objective": [True] * ITERATIONS}:
+        raise AssertionError(f"phase 5c (c): cache lookups {hits}")
+    eager = runlog.read_run(runlog.list_runs(os.path.join(
+        work, "fp32-0"))[0]["path"])["samples"]
+    got = runlog.read_run(runlog.list_runs(d)[0]["path"])["samples"]
+    loss = [[(s["step"], s["loss"]["fit"], s["loss"]["l2"]) for s in run_]
+            for run_ in (got, eager)]
+    if loss[0] != loss[1] or len(loss[0]) != ITERATIONS:
+        raise AssertionError(f"phase 5c (c): the warmed run's samples "
+                             f"{loss[0]} differ from the eager run's "
+                             f"{loss[1]}")
+    same_as_eager((X, Y), "fp32 warmed checkpoint_every=1")
+    clear_training_programs()
+    print(f"[options] fp32 checkpoint_every=1 warmed ({warm_s!r} s to "
+          f"capture the iteration and the objective; training pool "
+          f"{pool_bytes} bytes): every iteration and sample a cache hit, "
+          f"launches {launches}; factors and the samples (step, fit, l2) "
+          f"{loss[0]} bitwise the eager run's; wall {wall!r} s")
+    return {"warm_s": warm_s, "pool_bytes": pool_bytes, "wall_s": wall,
+            "launches": launches, "loss": loss[0]}
 
 
 # -- phase 5d: the tuning grid at ML-20M width -------------------------------------
@@ -2174,7 +2414,7 @@ def tuning_grid(dev, trained: dict, ratings: tuple, seed: int,
     import torch
 
     from predictionio_tpu_torch.ops import als as als_mod
-    from predictionio_tpu_torch.ops import als_cuda
+    from predictionio_tpu_torch.ops import als_cuda, aot
     from predictionio_tpu_torch.ops import tuning as ops_tuning
     from predictionio_tpu_torch.tools.run_commands import leave_last_out_split
     from predictionio_tpu_torch.workflow import tuning as wf_tuning
@@ -2207,9 +2447,29 @@ def tuning_grid(dev, trained: dict, ratings: tuple, seed: int,
           f"{split_s!r} s; tables {table_bytes / 1e9!r} GB on the card; "
           f"{grid.k} configs x {GRID_ITERATIONS} iterations")
 
-    # the main path: the grid's training and its leaderboard, counted
+    # the main path: the grid's training, warmed (its iteration and
+    # objective captured), and its leaderboard, counted
+    plan_before = wf_tuning.plan_grid_batches(grid, N_USERS, M_ITEMS, us, its,
+                                              device=dev)
+    t = time.perf_counter()
+    if not als_mod.warmup_train_als_bucketed(us, its, grid, dev):
+        raise AssertionError("phase 5d: the grid's warm-up declined")
+    warm = {"capture_s": time.perf_counter() - t,
+            "pool_bytes": aot.train_pool(dev).nbytes(),
+            "programs": (len(als_mod._aot_grid),
+                         len(als_mod._aot_objective_grid)),
+            "batches_before": [len(b) for b in plan_before],
+            "batches_after": [len(b) for b in wf_tuning.plan_grid_batches(
+                grid, N_USERS, M_ITEMS, us, its, device=dev)]}
+    if warm["programs"] != (1, 1):
+        raise AssertionError(f"phase 5d: the warm-up cached {warm['programs']}"
+                             " (iteration, objective) grid programs")
+    print(f"[grid] warm-up {warm['capture_s']!r} s (the grid's iteration and "
+          f"objective captured), training pool {warm['pool_bytes']} bytes; "
+          f"run_grid's memory plan {warm['batches_before']} before the "
+          f"capture, {warm['batches_after']} after ({card})")
     for counter in (als_cuda.assemble_launches, als_cuda.spd_launches,
-                    als_cuda.launches):
+                    als_cuda.launches, als_cuda.graph_launches):
         counter.reset()
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
@@ -2234,6 +2494,7 @@ def tuning_grid(dev, trained: dict, ratings: tuple, seed: int,
                              f"{GRID_ITERATIONS * n_buckets} on tiles_grid")
     if launches["spd_solve"] != GRID_ITERATIONS * n_buckets:
         raise AssertionError(f"the grid's solves {launches['spd_solve']}")
+    replayed = replayed_launches(GRID_ITERATIONS * n_buckets, "phase 5d")
     b1 = sum(launches["topk"].values())
     if b1 != grid.k * -(-GRID_USERS // 512):
         raise AssertionError(f"grid_topk launched B1 {launches['topk']}")
@@ -2252,18 +2513,27 @@ def tuning_grid(dev, trained: dict, ratings: tuple, seed: int,
           f" ms an iteration, the init and host copies included); alive "
           f"{res.alive.tolist()}; launches B3 {launches['assemble']} "
           f"({n_buckets} buckets an iteration), B2 {launches['spd_solve']}, "
-          f"B1 {launches['topk']}; leaderboard of {len(held_s)} users in "
+          f"B1 {launches['topk']} (B3 and B2 all by replays: {replayed}); "
+          f"leaderboard of {len(held_s)} users in "
           f"{board_s!r} s on the host; peak memory {peak / 1e9!r} GB against "
           f"{per_config * grid.k / 1e9!r} GB (grid_bytes_per_config x k) + "
           f"{table_bytes / 1e9!r} GB of tables ({card})")
 
-    # (b) each config against its serial run from the same init
+    # (b) each config against its serial run from the same init, each
+    # serial run warmed first (its capture outside the timed window)
     dists, serial_s = [], 0.0
     for i, cfg in enumerate(grid.configs[:-1]):
+        if not als_mod.warmup_train_als_bucketed(us, its, cfg, dev):
+            raise AssertionError(f"phase 5d: config {i}'s warm-up declined")
+        for counter in (als_cuda.assemble_launches, als_cuda.spd_launches,
+                        als_cuda.graph_launches):
+            counter.reset()
         torch.cuda.synchronize()
         t = time.perf_counter()
         Xs, Ys = als_mod.train_als_bucketed(us, its, cfg)
         serial_s += time.perf_counter() - t
+        replayed_launches(GRID_ITERATIONS * n_buckets,
+                          f"phase 5d config {i}'s serial run")
         Xg, Yg = res.factors_for(i)
         d = max(float(np.abs(Xg - Xs).max()), float(np.abs(Yg - Ys).max()))
         dists.append(d)
@@ -2279,7 +2549,8 @@ def tuning_grid(dev, trained: dict, ratings: tuple, seed: int,
                 np.testing.assert_allclose(got, want, rtol=GRID_RTOL,
                                            atol=GRID_ATOL)
     print(f"[grid] each config against its serial train_als_bucketed run "
-          f"from the same init, largest |difference|: {dists} (rank "
+          f"(warmed, by replays) from the same init, largest |difference|: "
+          f"{dists} (rank "
           f"{max(GRID_RANKS)} bitwise, rank {min(GRID_RANKS)} within "
           f"{GRID_RTOL}/{GRID_ATOL}); the {grid.k - 1} serial trainings "
           f"{serial_s!r} s, the grid {grid_s!r} s ({card})")
@@ -2373,19 +2644,23 @@ def tuning_grid(dev, trained: dict, ratings: tuple, seed: int,
     X0, Y0 = ops_tuning.init_grid_factors(N_USERS, M_ITEMS, grid, "fp32",
                                           dev)
 
-    def one_iteration():
-        als_mod._als_iterations_grid(X0, Y0, lam, alpha, ridge, u_t, i_t,
-                                     **kw)
-
-    one_iteration()
-    wall, busy, _, kernel_ms = device_busy(one_iteration)
-    profiled = {"wall_ms": wall, "busy_ms": busy,
-                "kernel_ms": dict(kernel_ms.most_common(8))}
-    print(f"[grid] one grid iteration profiled: wall {wall!r} ms, device "
-          f"busy {busy!r} ms ({100 * busy / wall:.2f}%); device ms by kernel "
+    ladder = replay_against_eager(
+        lambda: als_mod._als_iterations_grid(X0, Y0, lam, alpha, ridge, u_t,
+                                             i_t, **kw),
+        lambda: als_mod._als_iterations_grid_impl(X0, Y0, lam, alpha, ridge,
+                                                  u_t, i_t, **kw),
+        n_buckets, f"a grid iteration (k={grid.k}, R_max={grid.max_rank})",
+        iterations=GRID_LADDER_ITERATIONS)
+    eager = ladder["eager"]
+    profiled = {"wall_ms": eager["profiled_wall_ms"],
+                "busy_ms": eager["busy_ms"],
+                "kernel_ms": eager["kernel_ms"]}
+    print(f"[grid] one grid iteration profiled (eager): wall "
+          f"{profiled['wall_ms']!r} ms, device busy {profiled['busy_ms']!r} "
+          f"ms ({100 * eager['busy_share']:.2f}%); device ms by kernel "
           f"{profiled['kernel_ms']} ({card})")
     del us, its, res, X0, Y0, u_t, i_t
-    torch.cuda.empty_cache()
+    clear_training_programs()
     return {"launches": {"tiles_grid": tiles_grid,
                          "spd_solve": launches["spd_solve"], "topk": b1},
             "grid_s": grid_s, "iteration_ms": 1e3 * grid_s / GRID_ITERATIONS,
@@ -2393,7 +2668,8 @@ def tuning_grid(dev, trained: dict, ratings: tuple, seed: int,
             "per_config_bytes": per_config, "table_bytes": table_bytes,
             "distances": dists, "assembly": asm, "topk": topk_t,
             "checked": checked, "winner": board["winner"],
-            "profiled": profiled}
+            "profiled": profiled, "warm": warm, "ladder": ladder,
+            "replayed": replayed}
 
 
 def post(url: str, payload) -> tuple:
@@ -3604,7 +3880,8 @@ def ladder_only(dev, seed: int, card: str) -> dict:
 
 BP_CHUNK = 256          # queries per chunk (the B1 bitonic route's B)
 BP_UNKNOWN, BP_BLACKLISTED, BP_SIMILAR = 16, 64, 16
-BP_FAIL_AFTER = 450     # chunks the interrupted run scores
+BP_RESUME_CHUNKS = 64   # the interrupted run's input: this many chunks
+BP_FAIL_AFTER = 48      # chunks the interrupted run scores
 BP_SAMPLE = 1_024       # queries held byte for byte against serve_one
 
 
@@ -3743,7 +4020,8 @@ def batch_predict_full_width(trained: dict, seed: int, card: str) -> dict:
     ``BP_SAMPLE`` queries or more, equal byte for byte the records of
     ``serve_one`` (the looped path: the micro-batcher, B1 at B = 1) over
     the same queries; (c) B1's launches by (route, k, B) equal the chunk
-    plan's; (d) a run stopped after ``BP_FAIL_AFTER`` chunks
+    plan's; (d) a run over the first ``BP_RESUME_CHUNKS`` chunks'
+    queries stopped after ``BP_FAIL_AFTER`` chunks
     (``fail_after_chunks``) resumes, skips them, scores the rest, and
     its shards are byte-equal to the clean run's. Prints the run's wall
     and scoring seconds, queries/s, B1's device ms (CUDA events) over
@@ -3864,8 +4142,13 @@ def batch_predict_full_width(trained: dict, seed: int, card: str) -> dict:
               f"the looped serve_one records byte for byte; the looped path "
               f"{sampled / loop_s!r} queries/s ({card})")
 
-        # (d) an interrupted run, then its resume
-        resumed = dataclasses.replace(config,
+        # (d) an interrupted run, then its resume, over the first
+        # BP_RESUME_CHUNKS chunks' queries
+        prefix = os.path.join(work, "prefix.jsonl")
+        n_prefix = spans[BP_RESUME_CHUNKS - 1][1]
+        with open(qfile, "rb") as f, open(prefix, "wb") as g:
+            g.writelines(f.readline() for _ in range(n_prefix))
+        resumed = dataclasses.replace(config, input_path=prefix,
                                       output_dir=os.path.join(work, "resumed"))
         als_cuda.launches.reset()
 
@@ -3884,15 +4167,16 @@ def batch_predict_full_width(trained: dict, seed: int, card: str) -> dict:
             raise AssertionError("fail_after_chunks did not stop the run")
         again = run(resumed)
         if (again["chunksSkipped"], again["chunksScored"]) != (
-                BP_FAIL_AFTER, len(spans) - BP_FAIL_AFTER):
+                BP_FAIL_AFTER, BP_RESUME_CHUNKS - BP_FAIL_AFTER):
             raise AssertionError(f"the resume: {again}")
-        for c in range(len(spans)):
+        for c in range(BP_RESUME_CHUNKS):
             name = f"part-{c:05d}.jsonl"
             with open(os.path.join(config.output_dir, name), "rb") as a, \
                     open(os.path.join(resumed.output_dir, name), "rb") as b:
                 if a.read() != b.read():
                     raise AssertionError(f"resumed shard {name} differs")
-        print(f"[batch] stopped after {BP_FAIL_AFTER} chunks, resumed: "
+        print(f"[batch] the first {BP_RESUME_CHUNKS} chunks' queries "
+              f"stopped after {BP_FAIL_AFTER} chunks, resumed: "
               f"{again['chunksSkipped']} skipped, {again['chunksScored']} "
               f"scored in {again['wallSec']!r} s; every shard byte-equal to "
               f"the clean run's ({als_cuda.launches.value} B1 launches over "
@@ -5339,6 +5623,13 @@ def training_timings(dev, trained: dict) -> dict:
     model, pd = trained["model"], trained["pd"]
     eye = torch.eye(RANK, device=dev)
     out = {"assemble_normal_equations": [], "spd_solve": []}
+    # the plain versions and library calls at the sharded trainer's block
+    # shapes (phase 8c): each bucket padded to a multiple of
+    # 8 * TRAIN_SHARDS rows, one block a shard, timed for each block that
+    # holds a real row
+    sharded = {"assemble_normal_equations": 0.0, "spd_solve": 0.0,
+               "plain": {"assemble_normal_equations": 0.0,
+                         "spd_solve": 0.0}, "blocks": 0}
     for side_name, side in (("user", pd.user_side), ("item", pd.item_side)):
         Y = torch.from_numpy(side_factors(model, side_name)).to(dev)
         gram = Y.T @ Y + LAMBDA * eye
@@ -5359,7 +5650,23 @@ def training_timings(dev, trained: dict) -> dict:
             t_p = time_ms(lambda: als_cuda.assemble_normal_equations_plain(
                 Y, cols, aw, bw, gram), 2)
             t_l = time_ms(lambda: torch.bmm(awYg, Yg), 3)
-            del Yg, awYg
+            A, b = kernel()
+            for lo, hi in shard_blocks(bucket, side.n_rows):
+                aw_s, Y_s = (padded_rows(t, lo, hi) for t in (awYg, Yg))
+                A_s, b_s = padded_rows(A, lo, hi, eye), padded_rows(b, lo, hi)
+                blk = [padded_rows(t, lo, hi) for t in (cols, aw, bw)]
+                sharded["assemble_normal_equations"] += time_ms(
+                    lambda: torch.bmm(aw_s, Y_s), 3)
+                sharded["spd_solve"] += time_ms(
+                    lambda: torch.cholesky_solve(
+                        b_s[:, :, None], torch.linalg.cholesky_ex(A_s)[0]), 3)
+                sharded["plain"]["assemble_normal_equations"] += time_ms(
+                    lambda: als_cuda.assemble_normal_equations_plain(
+                        Y, *blk, gram), 1)
+                sharded["plain"]["spd_solve"] += time_ms(
+                    lambda: als_cuda.spd_solve_plain(A_s, b_s), 1)
+                sharded["blocks"] += 1
+            del Yg, awYg, A, b, aw_s, Y_s, A_s, b_s, blk
             work = assembly_work(B, L, nnz, Y.shape[0])
             b_ms, b_by = bound_of(*work)
             out["assemble_normal_equations"].append({
@@ -5400,9 +5707,41 @@ def training_timings(dev, trained: dict) -> dict:
         heads[name].update(bound_ms=b_ms, bound_by=b_by)
         print(f"[time] {name} over one iteration's work: kernel "
               f"{heads[name]['ms']!r} ms, bound {b_ms!r} ms ({b_by})")
-    return {"rows": out, "heads": heads, "large": large_rank_timings(dev),
+    print(f"[time] at the sharded trainer's block shapes ({TRAIN_SHARDS} "
+          f"shards, {sharded['blocks']} blocks with a real row, one "
+          f"iteration): library bmm {sharded['assemble_normal_equations']!r}"
+          f" ms, cholesky_ex + cholesky_solve {sharded['spd_solve']!r} ms; "
+          f"plain assembly {sharded['plain']['assemble_normal_equations']!r}"
+          f" ms, plain solve {sharded['plain']['spd_solve']!r} ms")
+    return {"rows": out, "heads": heads, "sharded_library": sharded,
+            "large": large_rank_timings(dev),
             "foldin": foldin_timings(dev, trained),
             "bf16": bf16_assembly_timings(dev, trained)}
+
+
+def shard_blocks(bucket, n_rows: int) -> list:
+    """``(lo, hi)`` row spans of the sharded trainer's blocks of one
+    bucket that hold a real row: the bucket padded with sentinel rows to
+    a multiple of ``8 * TRAIN_SHARDS``, one block a shard (``hi`` may
+    pass the bucket's rows: the sentinel padding)."""
+    real = np.asarray(bucket.row_ids) < n_rows
+    step = (len(real) + (-len(real)) % (8 * TRAIN_SHARDS)) // TRAIN_SHARDS
+    return [(lo, lo + step) for lo in range(0, step * TRAIN_SHARDS, step)
+            if real[lo:lo + step].any()]
+
+
+def padded_rows(t, lo: int, hi: int, fill=None):
+    """Rows ``lo:hi`` of ``t`` along its first axis, rows past its end
+    zeros (or ``fill``, repeated): a shard block's shape."""
+    import torch
+
+    part = t[lo:hi]
+    short = (hi - lo) - part.shape[0]
+    if short <= 0:
+        return part
+    pad = (fill.expand(short, *fill.shape) if fill is not None
+           else part.new_zeros((short,) + tuple(t.shape[1:])))
+    return torch.cat([part, pad])
 
 
 def bf16_assembly_timings(dev, trained: dict) -> dict:
@@ -6250,102 +6589,151 @@ def instance_factors(iid: str) -> tuple:
     return model.user_factors, model.item_factors
 
 
-def qs_killed_pair(eng: str, env: dict, opts: list, ck: str,
-                   steps: dict) -> tuple:
-    """The checkpointed ``pio train`` killed with SIGKILL once its second
-    checkpoint lands, then resumed: the resumed instance's factors."""
-    import os
-    import re
-    import signal
-
-    t = time.perf_counter()
-    child = subprocess.Popen(
-        CONSOLE + ["train"] + opts, cwd=eng, stdout=subprocess.DEVNULL,
-        stderr=subprocess.PIPE, text=True, env=dict(
-            env, PIO_FAULTS=f"backend=checkpoint,op=save,kind=slow,"
-                            f"delay={KILL_SAVE_DELAY_S}"))
-    try:
-        second = os.path.join(ck, "ckpt-00000002.json")
-        while not os.path.exists(second):
-            if child.poll() is not None or time.perf_counter() - t > 300:
-                raise AssertionError(f"the checkpointed train ended "
-                                     f"({child.poll()}) before its second "
-                                     f"checkpoint: {child.stderr.read()}")
-            time.sleep(0.02)
-        if child.poll() is not None:
-            raise AssertionError("the checkpointed train ended before its "
-                                 "kill")
-        child.send_signal(signal.SIGKILL)
-        child.wait(timeout=60)
-    finally:
-        if child.poll() is None:
-            child.kill()
-            child.wait(timeout=60)
-    steps["train killed after 2 checkpoints"] = time.perf_counter() - t
-    said, steps["train --resume"] = pio(["train"] + opts + ["--resume"], env,
-                                        eng)
-    got = instance_factors(re.search(r"Engine instance ID: (\S+)",
-                                     said).group(1))
-    return got
-
-
-def qs_kill_and_resume(work: str, eng: str, env: dict, steps: dict) -> dict:
-    """Phase 6b's crash pair through the console: ``pio train --precision
-    bf16 --checkpoint-dir D --checkpoint-every 1`` with each save held
+class KillResume:
+    """Phase 6b's crash trio, started at the end of 6b and run beside 6c
+    and 6d (it waits on its processes): ``pio train --precision bf16
+    --checkpoint-dir D --checkpoint-every 1`` with each save held
     ``KILL_SAVE_DELAY_S`` (``PIO_FAULTS`` slow), killed with SIGKILL once
-    its second checkpoint lands, then the same with ``--resume``: its
-    factors must be bitwise equal to an uninterrupted ``pio train
-    --precision bf16`` of the same store and variant (a process run
-    beside the pair), and ``pio runs list`` / ``show`` must print one
-    run whose steps rise to ``ITERATIONS``."""
-    import os
-    import re
+    its second checkpoint lands, then the same with ``--resume``, beside
+    an uninterrupted ``pio train --precision bf16`` of the same store and
+    variant. :meth:`result` waits for them: the resumed instance's
+    factors must be bitwise equal to the reference's, and ``pio runs
+    list`` / ``show`` must print one run whose steps rise to
+    ``ITERATIONS``; then it removes 6b's store, which it holds from 6b's
+    end (6c reads it meanwhile). :meth:`stop` kills what still runs and
+    removes the store."""
 
-    from predictionio_tpu_torch.workflow import runlog
+    def __init__(self, work: str, store: str, eng: str, env: dict):
+        import os
 
-    ck = os.path.join(work, "ckpt")
-    opts = ["--precision", "bf16", "--checkpoint-dir", ck,
-            "--checkpoint-every", "1"]
-    # the uninterrupted reference trains beside the killed and resumed pair
-    t_ref = time.perf_counter()
-    reference = subprocess.Popen(
-        CONSOLE + ["train", "--precision", "bf16"], env=env, cwd=eng,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    try:
-        got = qs_killed_pair(eng, env, opts, ck, steps)
-        ref_said, ref_err = reference.communicate(timeout=600)
-    finally:
-        if reference.poll() is None:
-            reference.kill()
-            reference.wait(timeout=60)
-    steps["train bf16"] = time.perf_counter() - t_ref
-    if reference.returncode != 0:
-        raise AssertionError(f"pio train --precision bf16 exited "
-                             f"{reference.returncode}: {ref_err[-2000:]}")
-    ref = instance_factors(re.search(r"Engine instance ID: (\S+)",
-                                     ref_said).group(1))
-    if not (np.array_equal(got[0], ref[0])
-            and np.array_equal(got[1], ref[1])):
-        raise AssertionError("the resumed instance's factors differ from the "
-                             "uninterrupted bf16 training's")
-    listed, _ = pio(["runs", "list", "--dir", ck], env, work)
-    runs = runlog.list_runs(ck)
-    if len(runs) != 1 or runs[0]["runId"] not in listed:
-        raise AssertionError(f"pio runs list: {listed!r}")
-    shown, _ = pio(["runs", "show", runs[0]["runId"], "--dir", ck], env, work)
-    # monotone, ending at the last iteration: the kill may land between
-    # a checkpoint's manifest and its run-log sample, so a step the
-    # killed child checkpointed can lack its sample
-    table = [int(line.split()[0]) for line in shown.splitlines()
-             if re.match(r"\s+\d+\s+[-0-9.e+]+\s", line)]
-    if not table or table != sorted(set(table)) or table[-1] != ITERATIONS:
-        raise AssertionError(f"pio runs show: steps {table}: {shown!r}")
-    print(f"[quickstart] pio train --precision bf16 --checkpoint-every 1 "
-          f"killed (SIGKILL) after its 2nd checkpoint, resumed with "
-          f"--resume: factors bitwise equal to an uninterrupted bf16 "
-          f"training; pio runs list / show: one run "
-          f"{runs[0]['runId']}, steps {table}")
-    return {"run": runs[0]["runId"], "steps": table}
+        self.work, self.store, self.eng, self.env = work, store, eng, env
+        self.ck = os.path.join(work, "ckpt")
+        self.opts = ["--precision", "bf16", "--checkpoint-dir", self.ck,
+                     "--checkpoint-every", "1"]
+        self.steps: dict = {}
+        self.children: list = []
+        self.resumed = self.error = None
+        self.t0 = time.perf_counter()
+        self.reference = self._start(["train", "--precision", "bf16"])
+        self.thread = threading.Thread(target=self._pair, daemon=True,
+                                       name="chip-smoke-kill-resume")
+        self.thread.start()
+
+    def _start(self, args: list, stdout=subprocess.PIPE,
+               **env) -> "subprocess.Popen":
+        child = subprocess.Popen(
+            CONSOLE + args, cwd=self.eng, stdout=stdout,
+            stderr=subprocess.PIPE, text=True, env=dict(self.env, **env))
+        self.children.append(child)
+        return child
+
+    def _pair(self) -> None:
+        import os
+        import signal
+
+        try:
+            t = time.perf_counter()
+            child = self._start(["train"] + self.opts,
+                                stdout=subprocess.DEVNULL, PIO_FAULTS=(
+                                    f"backend=checkpoint,op=save,kind=slow,"
+                                    f"delay={KILL_SAVE_DELAY_S}"))
+            second = os.path.join(self.ck, "ckpt-00000002.json")
+            while not os.path.exists(second):
+                if child.poll() is not None or time.perf_counter() - t > 300:
+                    raise AssertionError(
+                        f"the checkpointed train ended ({child.poll()}) "
+                        f"before its second checkpoint: "
+                        f"{child.stderr.read()}")
+                time.sleep(0.02)
+            if child.poll() is not None:
+                raise AssertionError("the checkpointed train ended before "
+                                     "its kill")
+            child.send_signal(signal.SIGKILL)
+            child.wait(timeout=60)
+            self.steps["train killed after 2 checkpoints"] = \
+                time.perf_counter() - t
+            t = time.perf_counter()
+            resume = self._start(["train"] + self.opts + ["--resume"])
+            said, err = resume.communicate(timeout=600)
+            if resume.returncode != 0:
+                raise AssertionError(f"pio train --resume exited "
+                                     f"{resume.returncode}: {err[-2000:]}")
+            self.steps["train --resume"] = time.perf_counter() - t
+            self.resumed = said
+        except BaseException as e:  # re-raised by result()
+            self.error = e
+
+    def result(self) -> dict:
+        import re
+
+        from predictionio_tpu_torch.data import storage
+        from predictionio_tpu_torch.workflow import runlog
+
+        t = time.perf_counter()
+        try:
+            self.thread.join(timeout=900)
+            if self.thread.is_alive():
+                raise AssertionError("the killed / resumed pair did not end")
+            if self.error is not None:
+                raise self.error
+            ref_said, ref_err = self.reference.communicate(timeout=600)
+            self.steps["train bf16"] = time.perf_counter() - self.t0
+            if self.reference.returncode != 0:
+                raise AssertionError(
+                    f"pio train --precision bf16 exited "
+                    f"{self.reference.returncode}: {ref_err[-2000:]}")
+            waited = time.perf_counter() - t
+            storage.reset(storage.StorageConfig(
+                {"QS": {"type": "sqlite", "path": self.store}},
+                {r: "QS" for r in storage.REPOSITORIES}))
+            try:
+                got, ref = (instance_factors(re.search(
+                    r"Engine instance ID: (\S+)", said).group(1))
+                    for said in (self.resumed, ref_said))
+            finally:
+                storage.reset()
+            if not (np.array_equal(got[0], ref[0])
+                    and np.array_equal(got[1], ref[1])):
+                raise AssertionError("the resumed instance's factors differ "
+                                     "from the uninterrupted bf16 "
+                                     "training's")
+            listed, _ = pio(["runs", "list", "--dir", self.ck], self.env,
+                            self.work)
+            runs = runlog.list_runs(self.ck)
+            if len(runs) != 1 or runs[0]["runId"] not in listed:
+                raise AssertionError(f"pio runs list: {listed!r}")
+            shown, _ = pio(["runs", "show", runs[0]["runId"], "--dir",
+                            self.ck], self.env, self.work)
+            # monotone, ending at the last iteration: the kill may land
+            # between a checkpoint's manifest and its run-log sample, so a
+            # step the killed child checkpointed can lack its sample
+            table = [int(line.split()[0]) for line in shown.splitlines()
+                     if re.match(r"\s+\d+\s+[-0-9.e+]+\s", line)]
+            if not table or table != sorted(set(table)) \
+                    or table[-1] != ITERATIONS:
+                raise AssertionError(f"pio runs show: steps {table}: "
+                                     f"{shown!r}")
+            print(f"[quickstart] pio train --precision bf16 "
+                  f"--checkpoint-every 1 killed (SIGKILL) after its 2nd "
+                  f"checkpoint, resumed with --resume: factors bitwise equal "
+                  f"to an uninterrupted bf16 training; pio runs list / show: "
+                  f"one run {runs[0]['runId']}, steps {table}; step seconds "
+                  + ", ".join(f"{k} {v!r}" for k, v in self.steps.items())
+                  + f" (the reference beside the pair, all three beside 6c "
+                  f"and 6d, which waited {waited!r} s more for them)")
+            return {"run": runs[0]["runId"], "steps": table,
+                    "step_s": dict(self.steps), "waited_s": waited}
+        finally:
+            self.stop()
+
+    def stop(self) -> None:
+        for child in self.children:
+            if child.poll() is None:
+                child.kill()
+                child.wait(timeout=60)
+        self.thread.join(timeout=60)
+        shutil.rmtree(self.work, ignore_errors=True)
+
 
 QS_PROFILE_QUERIES = 20   # user queries inside the /profile window
 QS_FEEDBACK = 24          # queries to the feedback deploy
@@ -6655,8 +7043,10 @@ def quick_start(seed: int, cycle: dict, card: str,
     short verbs run beside the writing of the import file, and ``pio
     export`` (the store takes no more writes after the event server)
     beside the deployment's checks; every step's seconds are printed.
-    With ``keep_store`` a run that passes leaves its directory and store
-    for phase 6c (``out["kept"]``), which removes them."""
+    The crash trio (:class:`KillResume`, ``out["resume"]``) starts last
+    and holds the directory and store until its ``result`` or ``stop``
+    removes them; with ``keep_store`` phase 6c reads the store meanwhile
+    (``out["kept"]``)."""
     import os
     import re
     import tempfile
@@ -6853,13 +7243,12 @@ def quick_start(seed: int, cycle: dict, card: str,
                                 steps, card)
         out["batchpredict"] = qs_batchpredict(work, eng, env, iid, model,
                                               steps, card)
-        out["resume"] = qs_kill_and_resume(work, eng, env, steps)
         print("[quickstart] step seconds: " + ", ".join(
             f"{k} {v!r}" for k, v in steps.items()) + "; the short verbs "
             "ran beside the ratings draw and JSONL write, export beside "
             "train, the deployed queries, profile, undeploy and deploy "
-            "exit, and the bf16 reference training beside the killed and "
-            "resumed pair")
+            "exit; the crash trio follows, beside 6c and 6d")
+        out["resume"] = KillResume(work, store, eng, env)
         if keep_store:
             out["kept"] = {"work": work, "store": store, "env": env}
         return out
@@ -6869,7 +7258,7 @@ def quick_start(seed: int, cycle: dict, card: str,
                 child.kill()
                 child.wait(timeout=60)
         storage.reset()
-        if "kept" not in out:
+        if "resume" not in out:
             shutil.rmtree(work, ignore_errors=True)
 
 
@@ -6996,7 +7385,8 @@ def console_operator(work: str, env: dict, evaluation_id: str,
 
 def console_eval(seed: int, kept: dict, card: str) -> dict:
     """Phase 6c: ``pio eval`` in both lanes through the console at ML-1M,
-    on phase 6b's store (which it removes after). (1) A ``pio-torch eval
+    on phase 6b's store (6b's crash trio, running beside, removes it
+    after). (1) A ``pio-torch eval
     --grid`` child (``EVAL_GRID_RANKS x EVAL_GRID_LAMBDAS``,
     ``GRID_ITERATIONS`` iterations) exits 0 and writes the leaderboard;
     its winner carries full ``engineParams``; it must launch B3's
@@ -7104,7 +7494,6 @@ def console_eval(seed: int, kept: dict, card: str) -> dict:
             evaluation.kill()
             evaluation.wait(timeout=60)
         storage.reset()
-        shutil.rmtree(work, ignore_errors=True)
 
 
 # -- phase 6d: the networked event store ----------------------------------------------
@@ -7117,7 +7506,7 @@ NET_BATCH = 5_000         # events per insert_batch on the wire
 NET_NEW_USERS = 30        # folded through the fleet cursor
 NET_DOWN_USERS = 4        # posted to the killed shard while it is down
 NET_DOWN_SHARD = 1
-NET_ENTITY_USERS = 3      # users read by the byte search and the parse
+NET_ENTITY_USERS = 1      # users read by the byte search and the parse
 NET_LAPS = 2              # the wrapper's on / off laps, each
 NET_LAP_READS = 5         # entity reads in a lap
 NET_LAP_WRITES = 40       # 50-event insert_batch writes in a lap
@@ -11119,6 +11508,11 @@ def main() -> int:
         help="build, then only run phase 3g (the serving ladder) on "
              "synthetic stores at ML-20M width")
     parser.add_argument(
+        "--training-ladder", action="store_true",
+        help="build, then only run phase 5's store and phases 5, 5b, 5c "
+             "and 5d (the training ladder: warmed trainings replaying "
+             "their CUDA graphs)")
+    parser.add_argument(
         "--sharded", action="store_true",
         help="build, then only run phase 8a (the host/device crossover), "
              "phase 5 (store and training) and phase 8b (sharded serving)")
@@ -11255,6 +11649,28 @@ def main() -> int:
         print(json.dumps({"ladder": out}, default=str))
         print(nvidia_smi())
         return 0
+    if args.training_ladder:
+        store = phase("5 event store", ml20m_store, args.seed)
+        try:
+            trained = phase("5 training", train_full_width, dev, args.seed,
+                            store)
+            ingest = phase("5b scale ingest", scale_ingest, dev, args.seed,
+                           store, trained)
+        finally:
+            remove_store(store)
+        options = phase("5c training options", training_options, dev,
+                        trained, args.seed)
+        grid = phase("5d tuning grid", tuning_grid, dev, trained,
+                     store["ratings"], args.seed, card)
+        print(json.dumps({"training_ladder": {
+            "5b": {k: ingest[k] for k in ("warm", "train_s", "launches",
+                                          "ladder")},
+            "5c": options["warmed"],
+            "5d": {k: grid[k] for k in ("warm", "ladder", "grid_s",
+                                        "serial_s", "distances")}}},
+            default=str))
+        print(nvidia_smi())
+        return 0
     if args.sharded:
         crossing = phase("8a host/device crossover", host_crossover, dev,
                          args.seed, card)
@@ -11322,6 +11738,7 @@ def main() -> int:
     # phase 6e runs in a process of its own beside 6b-6d, which spend
     # their time waiting on the console's processes
     child = TemplatesChild(args.seed)
+    started = {}
     try:
         started = phase("6b quick start", quick_start, args.seed, cycle,
                         card, True)
@@ -11329,10 +11746,14 @@ def main() -> int:
                           started["kept"], card)
         networked = phase("6d networked event store", networked_store,
                           args.seed, card)
+        started["resume"] = phase(
+            "6b crash trio (the rest of its wait)", started["resume"].result)
         templates = phase("6e other templates (the rest of its wait)",
                           child.result)
     finally:
         child.stop()
+        if isinstance(started.get("resume"), KillResume):
+            started["resume"].stop()
     scored = phase("7 quality", quality, dev)
     seq_served = phase("3e seqrec: serve, fold-in", seqrec_serve, dev, seq,
                        store["ratings"], args.seed)
@@ -11514,8 +11935,32 @@ def main() -> int:
             "busy_ms": tm["busy_ms"], "busy_share": tm["busy_share"],
             "single_busy_share": tm["single_busy_share"],
             "flavor_launches": trained_sh["flavor"]["launches"][name],
+            # phase 4b: the plain version and the library call at the
+            # shards' block shapes
+            "plain_ms": train_times["sharded_library"]["plain"][name],
+            "library_ms": train_times["sharded_library"][name],
             "shape": f"phase 5's bucketed sides on {TRAIN_SHARDS} logical "
                      f"shards of one card, R={RANK}"}
+        # the training ladder: the launches by replays of the warmed
+        # programs (5b's training, 5c's checkpointed run, 5d's grid), and
+        # an iteration as a replay against eager (5b, 5d)
+        by_replay = ("assemble_by_replay" if name.startswith("assemble")
+                     else "spd_by_replay")
+
+        def modes(ladder):
+            return {m: {k: ladder[m][k] for k in (
+                "event_ms", "wall_ms", "busy_ms", "busy_share", "B3",
+                "B2")} for m in ("replay", "eager")}
+
+        ladder_entry = {
+            "launches_by_replay": {
+                "5b": ingest["launches"][by_replay],
+                "5c": options["warmed"]["launches"][by_replay],
+                "5d": grid["replayed"][by_replay]},
+            "iteration": modes(ingest["ladder"]),
+            "grid_iteration": modes(grid["ladder"]),
+            "pool_bytes": {"5b": ingest["warm"]["pool_bytes"],
+                           "5d": grid["warm"]["pool_bytes"]}}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "predictionio_tpu_torch/ops/csrc/als_solve.cu",
@@ -11540,13 +11985,17 @@ def main() -> int:
             "templates_launches": {
                 t: templates["trainings"][t]["launches"][name]
                 for t in OT_ALS_TEMPLATES},
-            "sharded_training": sharded_training_entry})
+            "sharded_training": sharded_training_entry,
+            "training_ladder": ladder_entry})
     print(f"[done] {time.perf_counter() - t0:.1f} s; HTTP p50 "
           f"{served['p50_ms']!r} ms p99 {served['p99_ms']!r} ms "
           f"(observability on / off p50 "
           f"{served['overhead']['on']['p50_ms']!r} / "
           f"{served['overhead']['off']['p50_ms']!r} ms); training "
-          f"iteration {trained['iteration_ms']!r} ms (bf16 lane "
+          f"iteration {trained['iteration_ms']!r} ms (as a replay of its "
+          f"graph {ingest['ladder']['replay']['event_ms']!r} ms event-timed "
+          f"against {ingest['ladder']['eager']['event_ms']!r} eager; bf16 "
+          f"lane "
           f"{options['bf16']['iteration']['bf16']['wall_ms']!r} ms; "
           f"checkpoint_every=1 wall ratio fp32 "
           f"{options['checkpoint_fp32']['overhead']!r}, bf16 "

@@ -424,7 +424,6 @@ class PipelinedRatingsBuilder(StreamingRatingsBuilder):
                 rows, cols, vals, n_u, n_i, bucket_lengths, max_len,
                 pad_multiple, row_multiple)
         nnz = int(len(rows))
-        user_host = user_side
         if stage_device:
             # user side's transfers stream WHILE the item side's
             # re-sort + scatter runs on host (double buffering)
@@ -435,19 +434,23 @@ class PipelinedRatingsBuilder(StreamingRatingsBuilder):
             item_side = _als._bucket_grouped(
                 cols[o], rows[o], vals[o], n_i, n_u, bucket_lengths,
                 max_len, pad_multiple, row_multiple)
-        item_host = item_side
         if stage_device:
             with timeline.scope("h2d.item.dispatch", parent):
                 item_side = item_side.to_device_async(device)
         warmup_thread = None
+        warmup_failure: list = []
         if warmup_params is not None:
             # the kernel build and CUDA set-up hide inside the copy
-            # window; the host-side sides name the signature, so no copy
-            # is awaited
+            # window; the programs are captured on the staged sides (a
+            # graph reads its tables at their device addresses), their
+            # capture waiting on the copies' events, not on the host
             def _warm():
-                with timeline.scope("warmup_compile", parent):
-                    _als.warmup_train_als_bucketed(user_host, item_host,
-                                                   warmup_params, device)
+                try:
+                    with timeline.scope("warmup_compile", parent):
+                        _als.warmup_train_als_bucketed(
+                            user_side, item_side, warmup_params, device)
+                except BaseException as e:   # join_warmup raises it
+                    warmup_failure.append(e)
 
             warmup_thread = _threading.Thread(
                 target=_warm, daemon=True, name="pio-ingest-warmup")
@@ -456,7 +459,8 @@ class PipelinedRatingsBuilder(StreamingRatingsBuilder):
             user_map=user_map, item_map=item_map, user_side=user_side,
             item_side=item_side, n_events=self.n_events, nnz=nnz,
             staged=bool(stage_device), timeline=timeline,
-            _warmup_thread=warmup_thread)
+            _warmup_thread=warmup_thread,
+            _warmup_failure=warmup_failure)
 
 
 @dataclasses.dataclass
@@ -478,6 +482,7 @@ class PipelinedIngestResult:
     staged: bool
     timeline: object
     _warmup_thread: object = None
+    _warmup_failure: object = None
 
     def wait(self, warmup: bool = True) -> "PipelinedIngestResult":
         """``warmup=False`` closes only the copy window (ingest is
@@ -496,11 +501,15 @@ class PipelinedIngestResult:
 
     def join_warmup(self) -> "PipelinedIngestResult":
         """Wait for the background warm-up (no-op without one); train
-        right after and the kernels are built and set up."""
+        right after and the kernels are built and set up, the programs
+        captured. Raises what the warm-up raised (a capture that failed),
+        once."""
         if self._warmup_thread is not None:
             with self.timeline.scope("warmup_wait"):
                 self._warmup_thread.join()
             self._warmup_thread = None
+            if self._warmup_failure:
+                raise self._warmup_failure.pop()
         return self
 
 

@@ -28,8 +28,16 @@ counterpart is easy to find):
   precision; with ``PIO_CHECKPOINT_DIR`` set they run the crash-safe
   chunked lane of :mod:`~predictionio_tpu_torch.workflow.checkpoint`
   (atomic checkpoints, preemption, exact resume), bitwise equal to the
-  unchunked loop. ``warmup_train_als_bucketed`` readies the card for the
-  second.
+  unchunked loop.
+- **The training ladder** (JAX's AOT warm-up): ``warmup_train_als_bucketed``
+  captures one iteration of the bucketed trainer, of the config grid and
+  the objective sample as CUDA graphs (``_TrainProgram``, through
+  :mod:`~predictionio_tpu_torch.ops.aot`) into ``_aot_bucketed``,
+  ``_aot_grid``, ``_aot_objective`` and ``_aot_objective_grid``, keyed
+  by ``_bucketed_aot_key`` (the tables' addresses among it); the loops
+  and the objective replay a program whose key is their call's, bitwise
+  their eager run. ``clear_training_programs`` drops them;
+  ``prepare_training_kernels`` only builds and sets up the kernels.
 - **Training objective** (``training_objective``, ``_objective_pack``):
   the ``[fit, l2, finite]`` sample the chunked lane records per chunk.
 - **Staging**: ``BucketedRatings.to_device_async`` copies the tables to
@@ -62,6 +70,7 @@ Implicit objective (Hu-Koren-Volinsky, as in MLlib): confidence
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -73,8 +82,11 @@ from predictionio_tpu_torch.core.base import Params
 from predictionio_tpu_torch.device import DeviceLike, resolve_device
 from predictionio_tpu_torch.native import codec as native_codec
 from predictionio_tpu_torch.ops import als_cuda
+from predictionio_tpu_torch.ops import aot as _aot
 from predictionio_tpu_torch.utils import device_telemetry as _dtel
 from predictionio_tpu_torch.utils import tracing as _tracing
+
+logger = logging.getLogger("pio.als")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -727,9 +739,34 @@ def als_iterations_bucketed(X, Y, u_buckets, i_buckets, *, lam: float,
                             slot_budget: Optional[int] = None,
                             refine: bool = False
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The bucketed training loop (``_als_iterations_bucketed_impl``);
+    """The bucketed training loop (JAX ``_als_iterations_bucketed``);
     ``u_buckets``/``i_buckets`` are sequences of ``(row_ids, cols,
-    weights, mask)`` tensors. The factors' dtype is the precision lane."""
+    weights, mask)`` tensors. The factors' dtype is the precision lane.
+    A warmed program whose key is this call's
+    (:func:`warmup_train_als_bucketed`) runs the iterations as replays
+    of its graph and returns its static carries, which its next call
+    overwrites; else the loop runs eagerly and returns new tensors. The
+    inputs are not changed either way."""
+    kw = dict(lam=float(lam), alpha=float(alpha), implicit=bool(implicit),
+              slot_budget=slot_budget, refine=bool(refine))
+    if len(_aot_bucketed):
+        prog = _aot_bucketed.get(_bucketed_aot_key(
+            (X, Y, u_buckets, i_buckets), _iteration_statics(X, kw)))
+        if prog is not None:
+            return prog.iterate((X, Y), (u_buckets, i_buckets),
+                                int(num_iterations))
+    return _als_iterations_bucketed_impl(X, Y, u_buckets, i_buckets,
+                                         num_iterations=num_iterations, **kw)
+
+
+def _als_iterations_bucketed_impl(X, Y, u_buckets, i_buckets, *,
+                                  lam: float, alpha: float, implicit: bool,
+                                  num_iterations: int,
+                                  slot_budget: Optional[int] = None,
+                                  refine: bool = False
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`als_iterations_bucketed` run eagerly: each iteration's
+    kernels launched one by one from this loop."""
     n_u, n_i = X.shape[0], Y.shape[0]
     for _ in range(int(num_iterations)):
         X = _solve_side_bucketed(Y, u_buckets, n_u, lam, alpha, implicit,
@@ -831,12 +868,37 @@ def _als_iterations_grid(X, Y, lam, alpha, ridge, u_buckets, i_buckets, *,
                          slot_budget: Optional[int] = None,
                          refine: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The config grid's training loop (JAX ``_als_iterations_grid_impl``,
-    its ``vmap`` over the config axis): ``X [k, N, R]`` / ``Y [k, M, R]``
-    hold one factor set per config, ``lam``/``alpha [k]`` and ``ridge [k,
-    R]`` (1.0 on each config's rank-padded columns) are fp32 tensors, and
-    the bucket tables are shared. Each half-step assembles every config
-    in one launch per bucket and solves all their systems in one."""
+    """The config grid's training loop (JAX ``_als_iterations_grid``):
+    :func:`_als_iterations_grid_impl`, or the replays of a warmed grid
+    program whose key is this call's, which copies ``X``, ``Y``,
+    ``lam``, ``alpha`` and ``ridge`` in and returns its static carries
+    (as :func:`als_iterations_bucketed`)."""
+    kw = dict(implicit=bool(implicit), slot_budget=slot_budget,
+              refine=bool(refine))
+    if len(_aot_grid):
+        prog = _aot_grid.get(_bucketed_aot_key(
+            (X, Y, lam, alpha, ridge, u_buckets, i_buckets),
+            _iteration_statics(X, kw)))
+        if prog is not None:
+            return prog.iterate((X, Y, lam, alpha, ridge),
+                                (u_buckets, i_buckets), int(num_iterations))
+    return _als_iterations_grid_impl(X, Y, lam, alpha, ridge, u_buckets,
+                                     i_buckets, num_iterations=num_iterations,
+                                     **kw)
+
+
+def _als_iterations_grid_impl(X, Y, lam, alpha, ridge, u_buckets, i_buckets,
+                              *, implicit: bool, num_iterations: int,
+                              slot_budget: Optional[int] = None,
+                              refine: bool = False
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The config grid's loop run eagerly (JAX
+    ``_als_iterations_grid_impl``, its ``vmap`` over the config axis):
+    ``X [k, N, R]`` / ``Y [k, M, R]`` hold one factor set per config,
+    ``lam``/``alpha [k]`` and ``ridge [k, R]`` (1.0 on each config's
+    rank-padded columns) are fp32 tensors, and the bucket tables are
+    shared. Each half-step assembles every config in one launch per
+    bucket and solves all their systems in one."""
     n_u, n_i = X.shape[1], Y.shape[1]
     for _ in range(int(num_iterations)):
         X = _solve_side_bucketed_grid(Y, u_buckets, n_u, lam, alpha,
@@ -854,9 +916,10 @@ def _grid_call_args(user_side: BucketedRatings, item_side: BucketedRatings,
     :func:`_als_iterations_grid` (JAX ``_grid_call_args``): ``args`` is
     ``(None, None, lam, alpha, ridge, user tables, item tables)`` on
     ``device`` (None = cuda; the caller inits the factors), ``kw`` the
-    shared statics from ``configs[0]``. ``r_max`` is the factor width
-    (default the largest rank). ``precision`` is resolved by the caller
-    (the port has no compiled signature it must match)."""
+    shared statics from ``configs[0]``, shared with the warm-up so a
+    warmed grid program's key is the call's. ``r_max`` is the factor
+    width (default the largest rank). ``precision`` is resolved by the
+    caller; the carries' dtype carries it into the key."""
     dev = resolve_device(device)
     base = configs[0]
     r_max = max([int(c.rank) for c in configs] + [int(r_max or 0)])
@@ -871,12 +934,8 @@ def _grid_call_args(user_side: BucketedRatings, item_side: BucketedRatings,
          >= np.asarray([int(c.rank) for c in configs])[:, None]
          ).astype(np.float32), device=dev)
 
-    def tables(side):
-        return [(b.row_ids, b.cols, b.weights, b.mask)
-                for b in side.to_device(dev).buckets]
-
-    args = (None, None, lam, alpha, ridge, tables(user_side),
-            tables(item_side))
+    args = (None, None, lam, alpha, ridge, _device_tables(user_side, dev),
+            _device_tables(item_side, dev))
     kw = dict(implicit=bool(base.implicit_prefs),
               num_iterations=int(base.num_iterations if num_iterations is None
                                  else num_iterations),
@@ -891,6 +950,20 @@ def _grid_call_args(user_side: BucketedRatings, item_side: BucketedRatings,
 def _objective_pack(X: torch.Tensor, Y: torch.Tensor, u_buckets, *,
                     lam: float, alpha: float, implicit: bool
                     ) -> torch.Tensor:
+    """:func:`_objective_pack_impl`, or the replay of a warmed objective
+    program whose key is this call's (JAX ``_objective_pack``), which
+    copies the carries in and returns its static pack: the caller
+    copies it out before that program's next call."""
+    kw = dict(lam=float(lam), alpha=float(alpha), implicit=bool(implicit))
+    if len(_aot_objective):
+        prog = _aot_objective.get(_bucketed_aot_key((X, Y, u_buckets), kw))
+        if prog is not None:
+            return prog((X, Y), (u_buckets,))
+    return _objective_pack_impl(X, Y, u_buckets, **kw)
+
+
+def _objective_pack_impl(X: torch.Tensor, Y: torch.Tensor, u_buckets, *,
+                         lam, alpha, implicit: bool) -> torch.Tensor:
     """``[fit, l2, finite]`` fp32 pack of the objective the solver
     minimizes (JAX ``_objective_pack_impl``), on the factors' device.
 
@@ -904,7 +977,10 @@ def _objective_pack(X: torch.Tensor, Y: torch.Tensor, u_buckets, *,
     user side (pad rows carry the sentinel id one past the end, clipped
     here; their weights are 0). ``finite`` is 1.0 when both carries are
     finite: the divergence guard in the same sample. Reads the carries
-    only; sums in fp32 (a bf16 store is widened once)."""
+    only; sums in fp32 (a bf16 store is widened once). ``lam`` and
+    ``alpha`` are floats or 0-d fp32 tensors on the factors' device (the
+    grid's, indexed there: no host read), with the same bits either
+    way."""
     f32 = torch.float32
     finite = (torch.isfinite(X).all() & torch.isfinite(Y).all()).to(f32)
     Xf, Yf = X.float(), Y.float()
@@ -934,15 +1010,31 @@ def _objective_pack(X: torch.Tensor, Y: torch.Tensor, u_buckets, *,
 
 def _objective_pack_grid(X: torch.Tensor, Y: torch.Tensor, lam, alpha,
                          u_buckets, *, implicit: bool) -> torch.Tensor:
+    """:func:`_objective_pack_grid_impl`, or the replay of a warmed grid
+    objective whose key is this call's (as :func:`_objective_pack`)."""
+    kw = dict(implicit=bool(implicit))
+    if len(_aot_objective_grid) and isinstance(lam, torch.Tensor) \
+            and isinstance(alpha, torch.Tensor):
+        prog = _aot_objective_grid.get(_bucketed_aot_key(
+            (X, Y, lam, alpha, u_buckets), kw))
+        if prog is not None:
+            return prog((X, Y, lam, alpha), (u_buckets,))
+    return _objective_pack_grid_impl(X, Y, lam, alpha, u_buckets, **kw)
+
+
+def _objective_pack_grid_impl(X: torch.Tensor, Y: torch.Tensor, lam, alpha,
+                              u_buckets, *, implicit: bool) -> torch.Tensor:
     """Per-config ``[k, 3]`` packs (JAX ``_objective_pack_grid_impl``):
-    :func:`_objective_pack` of each config's carries with its own
-    ``lam``/``alpha`` (``[k]`` tensors or sequences) against the shared
-    user-side tables; rank-padded columns are zeros and add nothing."""
-    lams = [float(v) for v in torch.as_tensor(lam).tolist()]
-    alphas = [float(v) for v in torch.as_tensor(alpha).tolist()]
+    :func:`_objective_pack_impl` of each config's carries with its own
+    ``lam``/``alpha`` (``[k]`` tensors or sequences, read as fp32 on the
+    factors' device and indexed there) against the shared user-side
+    tables; rank-padded columns are zeros and add nothing."""
+    f32 = torch.float32
+    lam = torch.as_tensor(lam, dtype=f32, device=X.device)
+    alpha = torch.as_tensor(alpha, dtype=f32, device=X.device)
     return torch.stack([
-        _objective_pack(X[z], Y[z], u_buckets, lam=lams[z], alpha=alphas[z],
-                        implicit=implicit)
+        _objective_pack_impl(X[z], Y[z], u_buckets, lam=lam[z],
+                             alpha=alpha[z], implicit=implicit)
         for z in range(X.shape[0])])
 
 
@@ -990,6 +1082,191 @@ def training_objective(X, Y, user_side, params: ALSParams,
     return {"fit": float(pack[0]), "l2": float(pack[1]),
             "total": float(pack[0] + pack[1]),
             "finite": bool(pack[2] == 1.0)}
+
+
+# -- the training ladder: warmed programs as CUDA graphs -----------------------
+
+# Warmed training programs by call signature (JAX's AOT executables, with
+# JAX's names and sizes). :func:`warmup_train_als_bucketed` fills them;
+# the loops and the objective consult them while they are not empty.
+_AOT_BUCKETED_MAX = 8
+_aot_bucketed = _aot.AOTCache(_AOT_BUCKETED_MAX, name="train-bucketed")
+_AOT_GRID_MAX = 8
+_aot_grid = _aot.AOTCache(_AOT_GRID_MAX, name="train-grid")
+_AOT_OBJECTIVE_MAX = 8
+_aot_objective = _aot.AOTCache(_AOT_OBJECTIVE_MAX, name="train-objective")
+_aot_objective_grid = _aot.AOTCache(_AOT_OBJECTIVE_MAX,
+                                    name="train-objective-grid")
+
+
+def _bucketed_aot_key(args, kw) -> tuple:
+    """The signature a training program is cached under (JAX
+    ``_bucketed_aot_key``): for each carry (a tensor in ``args``: the
+    factors, and the grid's ``lam`` / ``alpha`` / ``ridge``) its shape,
+    dtype and device; for each table (the tensors of the bucket tuples
+    in ``args``) its shape, dtype, strides, device and ``data_ptr``;
+    then the statics ``kw``, sorted. A graph reads the addresses its
+    tables had at capture, so a program serves exactly the calls whose
+    tables sit there with those shapes, and then reads the call's own
+    tables; a program whose tables were freed just misses (it does not
+    keep them alive). There is no trip count (a program is one
+    iteration, replayed) and no solver (the port has one)."""
+    leaves = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            leaves.append((tuple(a.shape), _dtype_name(a.dtype), a.device))
+            continue
+        for bucket in a:
+            for t in bucket:
+                leaves.append((tuple(t.shape), _dtype_name(t.dtype),
+                               tuple(t.stride()), t.device, t.data_ptr()))
+    return tuple(leaves), tuple(sorted(kw.items()))
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _iteration_statics(X: torch.Tensor, kw: dict) -> dict:
+    """An iteration program's statics: the loop's keywords and the
+    precision its carries' dtype names."""
+    return dict(kw, precision="bf16" if X.dtype == torch.bfloat16
+                else "fp32")
+
+
+def _device_tables(side: BucketedRatings, dev: torch.device) -> list:
+    return [(b.row_ids, b.cols, b.weights, b.mask)
+            for b in side.to_device(dev).buckets]
+
+
+def _bucketed_call_args(user_side: BucketedRatings,
+                        item_side: BucketedRatings, params: ALSParams,
+                        device: DeviceLike = None):
+    """The ``(args, kw)`` :func:`train_als_bucketed` passes to
+    :func:`als_iterations_bucketed` (JAX ``_bucketed_call_args``), shared
+    with the warm-up so a warmed program's key is the call's: ``args``
+    is ``(None, None, user tables, item tables)`` on ``device`` (None =
+    cuda; the caller inits the factors), ``kw`` the loop's statics (no
+    trip count: the caller gives it)."""
+    dev = resolve_device(device)
+    budget = params.bucket_slot_budget
+    args = (None, None, _device_tables(user_side, dev),
+            _device_tables(item_side, dev))
+    return args, dict(slot_budget=int(budget) if budget else None,
+                      **_loop_kwargs(params))
+
+
+def _objective_call_args(user_side: BucketedRatings,
+                         item_side: BucketedRatings, params,
+                         device: DeviceLike = None, configs=None):
+    """The ``(args, statics)`` of the objective the chunked loop samples
+    (JAX ``_objective_call_args``): ``(None, None, user tables)`` and
+    :func:`_objective_statics`; with ``configs`` the grid's ``(None,
+    None, lam, alpha, user tables)`` and ``implicit``. The carries are
+    the caller's."""
+    dev = resolve_device(device)
+    u_t = _device_tables(user_side, dev)
+    if configs is None:
+        return (None, None, u_t), _objective_statics(params)
+    f32 = torch.float32
+    lam = torch.tensor([float(c.lambda_) for c in configs], dtype=f32,
+                       device=dev)
+    alpha = torch.tensor([float(c.alpha) for c in configs], dtype=f32,
+                         device=dev)
+    return ((None, None, lam, alpha, u_t),
+            dict(implicit=bool(configs[0].implicit_prefs)))
+
+
+class _TrainProgram:
+    """One warmed training program: ``step(*carries, *tables)`` bound to
+    static carries and captured with :func:`~.aot.capture` into the
+    device's training pool (:func:`~.aot.train_pool`). An iteration
+    program's step is one iteration that writes the new factors into its
+    own carries, so ``n`` iterations are ``n`` replays; an objective's
+    returns its pack. A call copies the carries in (nothing for one that
+    is already the static buffer), replays and returns the static
+    outputs, which the program's next call overwrites. On the card the
+    graph reads the tables it was captured with, by address (the cache
+    key holds them), and the program keeps no reference to them; on the
+    CPU the step runs on the static carries and the call's tables."""
+
+    def __init__(self, step, carries, tables, device: torch.device):
+        # the tables of the step's run in progress (none between runs);
+        # the captured function holds this list, not the program, so an
+        # evicted program's graph goes as soon as the cache drops it
+        self._tables = [tables]
+        bound = self._tables
+        self._pool = _aot.train_pool(device)
+        try:
+            self.program = self._pool.capture(
+                lambda *bufs: step(*bufs, *bound[0]), carries)
+        finally:
+            bound[0] = ()
+
+    @property
+    def carries(self) -> tuple:
+        return self.program.inputs
+
+    def __call__(self, carries, tables, replays: int = 1):
+        with self._pool.ordered():
+            self._tables[0] = tables
+            try:
+                out = self.program(*carries)
+                for _ in range(replays - 1):
+                    out = self.program(*self.program.inputs)
+            finally:
+                self._tables[0] = ()
+        return out
+
+    def iterate(self, carries, tables, n: int):
+        """``n`` iterations from ``carries``: the static factor carries
+        after ``n`` replays (the given ones for ``n = 0``, as the eager
+        loop returns its inputs)."""
+        if n <= 0:
+            return carries[0], carries[1]
+        return self(carries, tables, n)
+
+    def memory_bytes(self) -> int:
+        return self.program.memory_bytes()
+
+
+def _bucketed_step(kw: dict):
+    def step(X, Y, u_t, i_t):
+        Xn, Yn = _als_iterations_bucketed_impl(X, Y, u_t, i_t,
+                                               num_iterations=1, **kw)
+        X.copy_(Xn)
+        Y.copy_(Yn)
+        return X, Y
+    return step
+
+
+def _grid_step(kw: dict):
+    def step(X, Y, lam, alpha, ridge, u_t, i_t):
+        Xn, Yn = _als_iterations_grid_impl(X, Y, lam, alpha, ridge, u_t, i_t,
+                                           num_iterations=1, **kw)
+        X.copy_(Xn)
+        Y.copy_(Yn)
+        return X, Y
+    return step
+
+
+def _warm(cache, args, kw, carries, step, dev: torch.device) -> None:
+    """Capture ``step`` for the call ``args`` (its carries replaced by the
+    static ``carries``) into ``cache``, unless a program for that key is
+    there already."""
+    args = tuple(carries) + tuple(args[len(carries):])
+    key = _bucketed_aot_key(args, kw)
+    if key in cache:
+        return
+    tables = tuple(a for a in args if not isinstance(a, torch.Tensor))
+    cache.put(key, _TrainProgram(step, carries, tables, dev))
+
+
+def _device_resident(side: BucketedRatings, dev: torch.device) -> bool:
+    return all(isinstance(t, torch.Tensor) and t.device.type == dev.type
+               and dev.index in (None, t.device.index)
+               for b in side.buckets
+               for t in (b.row_ids, b.cols, b.weights, b.mask))
 
 
 # -- checkpointed training ------------------------------------------------------
@@ -1085,7 +1362,10 @@ def train_als_bucketed(user_side: BucketedRatings, item_side: BucketedRatings,
     :func:`bucket_ratings_pair`) on ``device`` (None = cuda) and return
     host fp32 numpy ``(user_factors [N, R], item_factors [M, R])``. The
     same per-row solves as :func:`train_als` on the same ratings. The
-    precision policy and ``PIO_CHECKPOINT_*`` are resolved per call."""
+    precision policy and ``PIO_CHECKPOINT_*`` are resolved per call.
+    After :func:`warmup_train_als_bucketed` on the same device-resident
+    sides, the iterations (and the chunked lane's objective samples) are
+    replays of the warmed programs, bitwise the eager run."""
     assert user_side.n_rows >= item_side.n_cols
     assert item_side.n_rows >= user_side.n_cols
     precision = _als_precision_mode(params)
@@ -1095,15 +1375,9 @@ def train_als_bucketed(user_side: BucketedRatings, item_side: BucketedRatings,
         _solver_route(dev), precision)
     X, Y = init_policy_factors(user_side.n_rows, item_side.n_rows,
                                params.rank, params.seed, precision, dev)
-
-    def tables(side):
-        return [(b.row_ids, b.cols, b.weights, b.mask)
-                for b in side.to_device(dev).buckets]
-
-    u_t, i_t = tables(user_side), tables(item_side)
-    budget = params.bucket_slot_budget
-    kw = dict(slot_budget=int(budget) if budget else None,
-              **_loop_kwargs(params))
+    # args and statics from the helper the warm-up keys its programs by
+    (_, _, u_t, i_t), kw = _bucketed_call_args(user_side, item_side, params,
+                                               dev)
 
     def run_iters(Xc, Yc, n):
         return als_iterations_bucketed(Xc, Yc, u_t, i_t,
@@ -1116,27 +1390,125 @@ def train_als_bucketed(user_side: BucketedRatings, item_side: BucketedRatings,
 def warmup_train_als_bucketed(user_side: BucketedRatings,
                               item_side: BucketedRatings, params,
                               device: DeviceLike = None) -> bool:
-    """Make the next :func:`train_als_bucketed` call on ``device`` (None =
-    cuda) start computing at once: build and load both kernel libraries
-    (one ``nvcc`` per missing source, all started together) and create
-    the CUDA context with each library's per-device set-up. The
-    pipelined ingest runs this on a background thread while the tables'
-    copies stream. The port compiles nothing per shape, so the sides
-    only name the call's signature, and a config grid (``params`` with
-    ``configs``, a :class:`~predictionio_tpu_torch.ops.tuning.
-    ConfigGrid`) needs what one config needs: the same libraries, whose
-    assembly takes the config axis. Returns True. On the CPU there is
-    nothing to prepare."""
-    dev = resolve_device(device)
+    """Make the next :func:`train_als_bucketed` on these sides start
+    computing at once, and run its iterations as CUDA-graph replays
+    (JAX's AOT warm-up; the pipelined ingest runs this on a background
+    thread while the tables' copies stream). Builds and loads both
+    kernel libraries (one ``nvcc`` per missing source, all started
+    together) and sets each up on ``device`` (None = cuda); then
+    captures what JAX lowers, each program one ALS iteration (user then
+    item half-step over every bucket, B3 and B2 launched inside the
+    graph), into the training caches: for a serial ``params`` the
+    bucketed iteration, and the objective sample when telemetry is on
+    and ``PIO_CHECKPOINT_DIR`` is set; for a config grid (``params``
+    with ``configs``, a :class:`~predictionio_tpu_torch.ops.tuning.
+    ConfigGrid`) the grid's iteration, and its objective when telemetry
+    is on. A program is keyed by its tables' addresses
+    (:func:`_bucketed_aot_key`), so the sides must be the device tensors
+    the training will read: staged sides whose copies are in flight are
+    awaited on the device, not on the host. Returns True when every
+    program is captured (on the CPU: bound to its static buffers). On
+    the card, with sides whose tables are on the host, captures nothing,
+    logs why and returns False, after which the trainer runs eagerly. A
+    capture that fails raises. A program stays cached, holding its share
+    of the device's training pool, until :func:`clear_training_programs`
+    or until the ninth signature of its cache evicts it."""
+    dev = prepare_training_kernels(device)
+    sides = (user_side, item_side)
     if dev.type == "cuda":
-        from predictionio_tpu_torch.ops import _build
-
-        _build.build_libraries(als_cuda.KERNEL_NAMES)
-        index = dev.index if dev.index is not None \
-            else torch.cuda.current_device()
-        als_cuda._kernel(index)
-        als_cuda._solve_kernels(index)
+        if not all(_device_resident(side, dev) for side in sides):
+            logger.info("training warm-up on %s: the sides' tables are on "
+                        "the host, so no program is captured (a graph reads "
+                        "the tables at their device addresses); the trainer "
+                        "runs eagerly", dev)
+            return False
+        for side in sides:
+            # copies still in flight: the capture, which follows this
+            # thread's current stream, waits on their event, not the host
+            st = side.staging
+            if st is not None:
+                torch.cuda.current_stream(dev).wait_event(st.event)
+    # the same tables without the staging (another thread may await it)
+    user_side, item_side = (dataclasses.replace(side) for side in sides)
+    configs = getattr(params, "configs", None)
+    if configs is not None:
+        _warm_grid(user_side, item_side, params, configs, dev)
+    else:
+        _warm_serial(user_side, item_side, params, dev)
     return True
+
+
+def prepare_training_kernels(device: DeviceLike = None) -> torch.device:
+    """Build and load both training kernel libraries (one ``nvcc`` per
+    missing source, all started together) and set each up on ``device``
+    (None = cuda), so the next training starts computing at once; the
+    first half of :func:`warmup_train_als_bucketed`, which captures
+    nothing. Returns the device, its index resolved on the card. On the
+    CPU there is nothing to prepare."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev
+    from predictionio_tpu_torch.ops import _build
+
+    _build.build_libraries(als_cuda.KERNEL_NAMES)
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    als_cuda._kernel(index)
+    als_cuda._solve_kernels(index)
+    return torch.device("cuda", index)
+
+
+def clear_training_programs() -> None:
+    """Drop every warmed training program. A program holds its share of
+    the device's training pool (:func:`~.aot.train_pool`) until it goes,
+    and no training releases it; once the last program is gone the pool's
+    memory returns to the allocator's cache (``torch.cuda.empty_cache``
+    hands it back to the device)."""
+    for cache in (_aot_bucketed, _aot_grid, _aot_objective,
+                  _aot_objective_grid):
+        cache.clear()
+
+
+def _warm_serial(user_side, item_side, params, dev: torch.device) -> None:
+    precision = _als_precision_mode(params)
+    dt = factor_dtype(precision)
+    rank = int(params.rank)
+    carries = (torch.zeros((user_side.n_rows, rank), dtype=dt, device=dev),
+               torch.zeros((item_side.n_rows, rank), dtype=dt, device=dev))
+    args, kw = _bucketed_call_args(user_side, item_side, params, dev)
+    _warm(_aot_bucketed, args, _iteration_statics(carries[0], kw), carries,
+          _bucketed_step(kw), dev)
+    if _train_telemetry_enabled() and os.environ.get(
+            "PIO_CHECKPOINT_DIR", "").strip():
+        # serial samples run only inside the chunked checkpoint loop
+        args, okw = _objective_call_args(user_side, item_side, params, dev)
+        _warm(_aot_objective, args, okw, carries,
+              lambda X, Y, u_t: _objective_pack_impl(X, Y, u_t, **okw), dev)
+
+
+def _warm_grid(user_side, item_side, grid, configs, dev: torch.device
+               ) -> None:
+    precision = _als_precision_mode(configs[0])
+    args, kw = _grid_call_args(user_side, item_side, configs, precision, dev,
+                               r_max=getattr(grid, "max_rank", None))
+    kw.pop("num_iterations")
+    lam, alpha, ridge = args[2:5]
+    k, r_max = len(configs), int(ridge.shape[1])
+    dt = factor_dtype(precision)
+    carries = (torch.zeros((k, user_side.n_rows, r_max), dtype=dt,
+                           device=dev),
+               torch.zeros((k, item_side.n_rows, r_max), dtype=dt,
+                           device=dev), lam, alpha, ridge)
+    _warm(_aot_grid, args, _iteration_statics(carries[0], kw), carries,
+          _grid_step(kw), dev)
+    if _train_telemetry_enabled():
+        # grid samples run even without checkpoints: the end-of-run
+        # divergence grading reads one
+        args, okw = _objective_call_args(user_side, item_side, None, dev,
+                                         configs=configs)
+        _warm(_aot_objective_grid, args, okw, carries[:4],
+              lambda X, Y, lam, alpha, u_t: _objective_pack_grid_impl(
+                  X, Y, lam, alpha, u_t, **okw), dev)
 
 
 def train_als(user_side: PaddedRatings, item_side: PaddedRatings,

@@ -69,7 +69,9 @@ there has one here:
 
 For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
 tensor it runs the plain PyTorch version beside it, which the tests
-hold against the JAX package. Each wrapper counts its launches.
+hold against the JAX package. Each wrapper counts its launches; inside a
+CUDA graph's capture it records them instead, and each replay of the
+graph counts them (:func:`recording_launches`, :func:`note_replay`).
 """
 
 from __future__ import annotations
@@ -92,8 +94,8 @@ KERNEL_NAME = "fused_topk"
 SOLVE_KERNEL_NAME = "als_solve"
 KERNEL_NAMES = (KERNEL_NAME, SOLVE_KERNEL_NAME)
 launches = LaunchCounter()
-# the serving kernel's launches made by replays of captured CUDA graphs
-# (:mod:`.aot`), each also counted in ``launches``
+# the launches made by replays of captured CUDA graphs (:mod:`.aot`), by
+# ``(counter, key)``: each also counted in its own counter
 graph_launches = LaunchCounter()
 assemble_launches = LaunchCounter()
 spd_launches = LaunchCounter()
@@ -113,10 +115,12 @@ def last_route() -> Optional[str]:
 
 @contextlib.contextmanager
 def recording_launches():
-    """While a CUDA graph is captured on this thread: the serving
-    kernel's launches inside it are appended to the yielded list as their
-    ``(route, k, B)`` keys, not counted (a capture runs nothing). A replay
-    counts them through :func:`note_replay`."""
+    """While a CUDA graph is captured on this thread: each kernel launch
+    inside it (B1, B3, B2) is appended to the yielded list as its
+    ``(counter, key)`` pair, ``counter`` the name of the module's
+    counter it belongs to (``"launches"``, ``"assemble_launches"`` or
+    ``"spd_launches"``), and not counted (a capture runs nothing). A
+    replay counts them through :func:`note_replay`."""
     keys: list = []
     prior = getattr(_capturing, "keys", None)
     _capturing.keys = keys
@@ -126,15 +130,42 @@ def recording_launches():
         _capturing.keys = prior
 
 
-def note_replay(keys) -> None:
-    """Count one replay of a captured graph: each launch key it recorded
-    in ``launches`` and ``graph_launches``; this thread's route is the
-    last one's."""
-    for key in keys:
-        launches.add(key)
-        graph_launches.add(key)
-    if keys:
-        _route.last = keys[-1][0]
+def note_replay(records) -> None:
+    """Count one replay of a captured graph: each ``(counter, key)`` it
+    recorded in its counter and in ``graph_launches``; this thread's
+    serving route is the last serving launch's."""
+    for counter, key in records:
+        globals()[counter].add(key)
+        graph_launches.add((counter, key))
+    routes = [key[0] for counter, key in records if counter == "launches"]
+    if routes:
+        _route.last = routes[-1]
+
+
+def _count(counter: str, key=None) -> None:
+    """One launch of a kernel: counted in ``counter``, or recorded while
+    this thread captures a graph (:func:`recording_launches`)."""
+    recorded = getattr(_capturing, "keys", None)
+    if recorded is not None:
+        recorded.append((counter, key))
+    else:
+        globals()[counter].add(key)
+
+
+def _check_capture(name: str, ready: dict, device: int,
+                   events: Optional[Tuple]) -> None:
+    """Inside a graph capture on this thread, refuse what a graph cannot
+    hold: a library not yet set up on ``device`` (the set-up calls
+    cudaFuncSetAttribute) and timing events (they would time the
+    capture, not the replay)."""
+    if getattr(_capturing, "keys", None) is None:
+        return
+    if device not in ready:
+        raise RuntimeError(f"{name} is not set up on cuda:{device}: launch it "
+                           "once before capturing a graph")
+    if events is not None:
+        raise ValueError("no timing events inside a graph capture: record "
+                         "them around the replay")
 
 
 _Y_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -345,16 +376,7 @@ def _launch(Q, Y, seen_cols, seen_mask, *, k, n_items, mask_seen, row_valid,
         sc_ptr, sm_ptr = seen_cols.data_ptr(), seen_mask.data_ptr()
         strides = (*seen_cols.stride(), *seen_mask.stride())
     device = _device_index(dev)
-    recorded = getattr(_capturing, "keys", None)
-    if recorded is not None:
-        # the set-up (cudaFuncSetAttribute) cannot run inside a graph, and
-        # an event recorded in one would time the capture, not the replay
-        if device not in _ready_devices:
-            raise RuntimeError(f"fused_topk is not set up on cuda:{device}: "
-                               "launch it once before capturing a graph")
-        if events is not None:
-            raise ValueError("no timing events inside a graph capture: "
-                             "record them around the replay")
+    _check_capture("fused_topk", _ready_devices, device, events)
     fn, err_string, cluster_max_row = _kernel(device)
     plan = topk_sort_plan(k, M, B, cluster_max_row)
     if route == "chunked":
@@ -381,10 +403,7 @@ def _launch(Q, Y, seen_cols, seen_mask, *, k, n_items, mask_seen, row_valid,
                      vals.data_ptr(), idx.data_ptr(), current.cuda_stream,
                      ev_start, ev_end),
                   "fused_topk", err_string)
-    if recorded is not None:
-        recorded.append((plan.route, k, B))
-    else:
-        launches.add((plan.route, k, B))
+    _count("launches", (plan.route, k, B))
     _route.last = plan.route
     return vals, idx
 
@@ -635,6 +654,7 @@ def assemble_normal_equations(Y: torch.Tensor, cols: torch.Tensor,
         raise ValueError(f"unsupported device {Y.device}")
     dev = Y.device
     device = _device_index(dev)
+    _check_capture(SOLVE_KERNEL_NAME, _solve_ready, device, events)
     lib = _solve_kernels(device)
     route = assembly_route(Y.shape[-1], lib.assemble_max_rank, Y.dtype)
     M, R, B, L = check_assembly_args(
@@ -653,7 +673,7 @@ def assemble_normal_equations(Y: torch.Tensor, cols: torch.Tensor,
             aw.data_ptr(), bw.data_ptr(), B, L, gram.data_ptr(), A.data_ptr(),
             b.data_ptr(), stream, *_native_events(events, dev)),
             "assemble_normal_equations", lib.err_string)
-        assemble_launches.add(key)
+        _count("assemble_launches", key)
         return A, b
     plan = assembly_plan(L)
     partial = None
@@ -668,7 +688,7 @@ def assemble_normal_equations(Y: torch.Tensor, cols: torch.Tensor,
                      None if partial is None else partial.data_ptr(), stream,
                      *_native_events(events, dev)),
                   "assemble_normal_equations", lib.err_string)
-    assemble_launches.add(key)
+    _count("assemble_launches", key)
     return A, b
 
 
@@ -720,6 +740,7 @@ def assemble_normal_equations_grid(Y: torch.Tensor, cols: torch.Tensor,
     k = Y.shape[0]
     dev = Y.device
     device = _device_index(dev)
+    _check_capture(SOLVE_KERNEL_NAME, _solve_ready, device, None)
     lib = _solve_kernels(device)
     route = assembly_route(Y.shape[-1], lib.assemble_max_rank, Y.dtype)
     if route == "large_rank":
@@ -750,7 +771,8 @@ def assemble_normal_equations_grid(Y: torch.Tensor, cols: torch.Tensor,
         None if partial is None else partial.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream, None, None),
         "assemble_normal_equations_grid", lib.err_string)
-    assemble_launches.add(("tiles_grid", "bf16" if y_code else "fp32"))
+    _count("assemble_launches",
+           ("tiles_grid", "bf16" if y_code else "fp32"))
     return A, b
 
 
@@ -832,6 +854,7 @@ def spd_solve(A: torch.Tensor, b: torch.Tensor,
     if B == 0:
         return x
     device = _device_index(dev)
+    _check_capture(SOLVE_KERNEL_NAME, _solve_ready, device, events)
     lib = _solve_kernels(device)
     plan = spd_solve_plan(R, lib.smem_optin)
     slots, workspace = 0, None
@@ -847,7 +870,7 @@ def spd_solve(A: torch.Tensor, b: torch.Tensor,
                             None if workspace is None else workspace.data_ptr(),
                             slots, stream, *_native_events(events, dev)),
                   "spd_solve", lib.err_string)
-    spd_launches.add()
+    _count("spd_launches")
     return x
 
 

@@ -1,4 +1,5 @@
-"""The serving ladder's program cache and its CUDA-graph capture.
+"""The program caches of the serving and training ladders, and their
+CUDA-graph capture.
 
 The port's counterpart of ``predictionio_tpu/ops/aot.py``. There,
 ``lower_compile`` turns a jitted program into an XLA executable ahead of
@@ -21,12 +22,21 @@ entry's function bound to the same static buffers, run on each call:
 every cache path works the same, and only the capture waits for a card.
 A capture that fails on a CUDA device raises; it is never served
 eagerly in its place.
+
+The training programs of :mod:`~predictionio_tpu_torch.ops.als` (one
+ALS iteration, the config grid's, the objective samples) share one
+:class:`SharedPool` per device (:func:`train_pool`), apart from the
+stores' pools: captured on the device's one capture stream, each reuses
+the scratch the others freed, so their work must never overlap, which
+:meth:`SharedPool.ordered` enforces.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
+import weakref
 from typing import (Any, Callable, Dict, Hashable, Iterator, Optional,
                     Sequence, Tuple)
 
@@ -137,11 +147,11 @@ class GraphProgram:
     """One ladder entry: ``fn`` bound to static input buffers.
 
     On a CUDA device the program holds the captured ``graph``, its static
-    ``inputs`` and ``outputs``, the key of each serving-kernel launch the
-    capture recorded (``launches``), the device bytes its capture added
-    to the graph pool (``pool_bytes``) and ``events``, two timing events
-    the graph itself records around ``fn``'s work at each replay (None
-    where this runtime cannot time them). A call copies the host inputs
+    ``inputs`` and ``outputs``, the ``(counter, key)`` of each kernel
+    launch the capture recorded (``launches``), the device bytes its
+    capture added to the graph pool (``pool_bytes``) and ``events``, two
+    timing events the graph itself records around ``fn``'s work at each
+    replay (None where this runtime cannot time them). A call copies the host inputs
     into the static buffers (stream-ordered, before the replay), replays
     the graph on the current stream, counts the recorded launches, and
     returns the static outputs, which the next call of this program
@@ -216,9 +226,9 @@ def capture(fn: Callable, static_inputs: Sequence[torch.Tensor], *,
     into ``pool``
     (a ``torch.cuda.graph_pool_handle()`` the graphs of one store share,
     or None for a pool of its own), ``keep`` held by the program. The
-    serving kernel's launches inside
-    the capture are recorded, not counted; each replay counts them. Two
-    external timing events are captured around ``fn``'s work, so a
+    kernels' launches inside the capture are recorded, not counted; each
+    replay counts them. Two external timing events are captured around
+    ``fn``'s work, so a
     replay's device time has no host time in it (a host clock, or an
     event recorded beside the replay, would take in whatever delays the
     launching thread); one trial replay checks that they time. A failed
@@ -268,4 +278,74 @@ def capture(fn: Callable, static_inputs: Sequence[torch.Tensor], *,
                         events=events, keep=keep)
 
 
-__all__ = ["AOTCache", "GraphProgram", "capture", "pool_bytes"]
+class SharedPool:
+    """A graph memory pool whose programs share their scratch, and the
+    order of their work. Captured into one pool on one stream, a program
+    reuses the blocks the programs before it freed, so two of them must
+    never run at once: every capture (:meth:`capture`) and replay of them
+    runs inside :meth:`ordered`. ``handle`` is None until the first
+    capture on the card, and on the CPU, where nothing is captured."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.handle = None
+        self._lock = threading.Lock()
+        self._done = None
+        self._programs: "weakref.WeakSet[GraphProgram]" = weakref.WeakSet()
+
+    @contextlib.contextmanager
+    def ordered(self):
+        """Hold the pool for the block: one thread at a time, and on the
+        card the caller's current stream waits for the pool's last work
+        before the block's and is marked after it, whichever stream that
+        work ran on."""
+        with self._lock:
+            if self.device.type != "cuda":
+                yield
+                return
+            stream = torch.cuda.current_stream(self.device)
+            if self._done is not None:
+                stream.wait_event(self._done)
+            try:
+                yield
+            finally:
+                self._done = torch.cuda.Event()
+                self._done.record(stream)
+
+    def capture(self, fn: Callable, static_inputs: Sequence[torch.Tensor]
+                ) -> GraphProgram:
+        """:func:`capture` into this pool, in order. Once every program
+        of the pool is gone the allocators release it and take no
+        capture into its id again, so the next capture opens a fresh
+        pool."""
+        with self.ordered():
+            if self.device.type == "cuda" and not self._programs:
+                self.handle = torch.cuda.graph_pool_handle()
+            program = capture(fn, static_inputs, pool=self.handle)
+            self._programs.add(program)
+        return program
+
+    def nbytes(self) -> int:
+        """Device bytes the pool holds (0 before a capture and on the
+        CPU)."""
+        return 0 if self.handle is None else pool_bytes(self.handle,
+                                                        self.device)
+
+
+_train_pools: Dict[Tuple[str, Optional[int]], SharedPool] = {}
+_train_pools_lock = threading.Lock()
+
+
+def train_pool(device: torch.device) -> SharedPool:
+    """``device``'s pool for the training programs, made at first use."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (device.type, device.index)
+    with _train_pools_lock:
+        if key not in _train_pools:
+            _train_pools[key] = SharedPool(device)
+        return _train_pools[key]
+
+
+__all__ = ["AOTCache", "GraphProgram", "SharedPool", "capture", "pool_bytes",
+           "train_pool"]

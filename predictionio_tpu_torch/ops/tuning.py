@@ -320,7 +320,10 @@ def train_als_grid_bucketed(user_side: BucketedRatings,
     precision policy resolved per call, crash-safe chunks when
     ``PIO_CHECKPOINT_DIR`` is set (the alive mask in the manifest), host
     fp32 factors out. Raises ``TrainingDivergedError`` when every config
-    diverged."""
+    diverged. After :func:`~predictionio_tpu_torch.ops.als.
+    warmup_train_als_bucketed` with this grid on the same
+    device-resident sides, the iterations and the objective samples replay the warmed programs,
+    bitwise the eager run."""
     assert user_side.n_rows >= item_side.n_cols
     assert item_side.n_rows >= user_side.n_cols
     base = grid.base

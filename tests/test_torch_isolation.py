@@ -689,6 +689,48 @@ def test_sharded_training_runs_with_jax_unimportable():
     assert "sharded training ran" in proc.stdout
 
 
+TRAINING_LADDER_RUN = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["predictionio_tpu"] = None
+import numpy as np
+from predictionio_tpu_torch.ops import als, tuning
+
+rng = np.random.default_rng(0)
+rows, cols = rng.integers(0, 30, 400), rng.integers(0, 20, 400)
+vals = rng.integers(1, 6, 400).astype(np.float32)
+us, its = (s.to_device("cpu")
+           for s in als.bucket_ratings_pair(rows, cols, vals, 30, 20))
+params = als.ALSParams(rank=4, num_iterations=2, seed=0)
+cold = als.train_als_bucketed(us, its, params, "cpu")
+assert als.warmup_train_als_bucketed(us, its, params, "cpu") is True
+assert len(als._aot_bucketed) == 1
+warm = als.train_als_bucketed(us, its, params, "cpu")
+assert all(np.array_equal(a, b) for a, b in zip(cold, warm))
+grid = tuning.make_grid(params, [{"lambda": 0.1}, {"rank": 2}])
+cold = tuning.train_als_grid_bucketed(us, its, grid, "cpu")
+assert als.warmup_train_als_bucketed(us, its, grid, "cpu") is True
+assert len(als._aot_grid) == 1
+warm = tuning.train_als_grid_bucketed(us, its, grid, "cpu")
+assert np.array_equal(cold.user_factors, warm.user_factors)
+assert not any(m == "jax" or m.startswith(("jax.", "predictionio_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("training ladder ran")
+"""
+
+
+def test_training_ladder_runs_with_jax_unimportable():
+    """The training warm-up and a warmed bucketed and grid training (their
+    programs bound to static buffers on the CPU) run where ``jax`` and
+    ``predictionio_tpu`` cannot be imported."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", TRAINING_LADDER_RUN],
+                          env=env, cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "training ladder ran" in proc.stdout
+
+
 SEQUENCE_PARALLEL_RUN = r"""
 import sys
 sys.modules["jax"] = None
