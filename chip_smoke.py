@@ -11,6 +11,7 @@
     python3 chip_smoke.py --sequence-parallel  # 1, 5's store, 3e/3f training, 8d
     python3 chip_smoke.py --crossover       # phases 1 and 8a only
     python3 chip_smoke.py --training-ladder # 1, 5's store, 5, 5b, 5c, 5d
+    python3 chip_smoke.py --large-rank      # 1, 2b's and 4b's large ranks
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -39,8 +40,11 @@ Phases (any failure raises and the script exits non-zero):
    2,048, power-law item popularity, 0.5-5.0 stars) are written as
    ``rate`` events in a seeded random order, with one ``$set`` of genres
    per item, to a ``jsonlfs`` store in a temporary directory (1,000,000
-   events a partition, through ``append_raw_lines``; the script checks
-   the free space first and removes the store after phase 5b).
+   events a partition, through ``append_raw_lines``; the lines built by
+   numpy, no Python call a line, timed apart from the appends, and a
+   CRC-32 of the partitions printed;
+   the script checks the free space first and removes the store after
+   phase 5b).
    ``create_workflow`` reads them through ``EventDataSource`` with
    ``pipelinedIngest`` (1,000,000-event blocks, 4 partitions decoded
    ahead by the native JSON lines codec, each block sorted as it
@@ -81,21 +85,26 @@ Phases (any failure raises and the script exits non-zero):
    zero-weight padding), on synthetic rows the kernel splits across
    blocks (8 of 100,000 slots, 64 of 5,000 ending mid-span), at ranks
    1, 10, 30, 128 and 208 on rows it groups and rows it splits, and its
-   large-rank route at 209, 256 and 320; the solve, which must be
-   bitwise equal to plain, on B in {1, 127, 4,096, 138,493} random SPD
-   systems, an ill-scaled family and real training systems at rank 64,
-   and at ranks 1-320 on small batches (both workspace routes, the
-   256-column chunk boundary). Both kernels also at the fold-in solve's
+   tile-group route at 209, 256, 320 and 385 (four bands, the last of
+   one column); the solve, which must be bitwise equal to plain, on B
+   in {1, 127, 4,096, 138,493} random SPD systems, an ill-scaled family
+   and real training systems at rank 64, and at ranks 1-384 on small
+   batches (one warp a system to 239, one block from 240 to 339 in
+   shared memory, from 340 in device memory; the 256-column chunk
+   boundary). Both kernels also at the fold-in solve's
    shapes: B in {8, 64, 256} with all but 1, 5 and 200 rows padding, L
    in {8, 256, 2,048, 4,096} (past one assembly span). The assembly's
    bf16 route (a bf16 factor store, the bf16 training precision) the
-   same way on every bucket of both sides at rank 64, at ranks 1-320
+   same way on every bucket of both sides at rank 64, at ranks 1-385
    (odd ranks, whose bf16 rows are not 4-byte aligned, and both routes)
    and at the fold-in shapes, each case also bitwise equal to the fp32
    route on the store widened to fp32. Then train at rank 256 (2,000
-   users x 1,000 items, 2 iterations, through the large-rank assembly
-   and the device-memory solve) and hold it against the plain trainer
-   from one init.
+   users x 1,000 items, 2 iterations, through the tile-group assembly
+   and the block solve, no other route) and hold it against the plain
+   trainer from one init. The seconds of the ranks from 339 are
+   printed after phase 6b (``[budget]``). With ``--large-rank`` the
+   script runs only the build, these checks above the tiles route's and
+   the warp solve's ranks, and phase 4b's large-rank timings.
 5c. The training options at ML-20M width on phase 5's tables and
    params: (a) ``precision="bf16"`` through ``train_als_bucketed`` (every
    assembly launch on the bf16 route), within ``EPS_BF16`` of the plain
@@ -306,9 +315,18 @@ Phases (any failure raises and the script exits non-zero):
    sharded trainer's block shapes (each bucket padded to a multiple of
    32 rows and cut in 4, ``bmm`` and ``cholesky_ex`` +
    ``cholesky_solve`` on each block that holds a real row: phase 8c's
-   library column, beside the plain versions there); and, off the main
-   path, the device-memory solve at rank 320 and the large-rank
-   assembly at rank 256.
+   library column, beside the plain versions there); the block solve
+   at ranks 256 and 320 and its device-memory route at 384 (4,096
+   systems), and the tile-group assembly at ranks 256 and 320 (4,096
+   rows of 128 slots), each with its plain time, library call
+   (``cholesky`` + ``cholesky_solve``; ``bmm``) and bound; and one ALS
+   iteration at rank 256 on phase 5's tables (random factors from the
+   seed, one iteration warm, three event-timed, one profiled for the B3
+   / B2 split; every launch on the tile-group and block routes, the
+   factors finite, and one item bucket's A and b within the reordering
+   bound and x bitwise plain on its first 256 rows). After phase 6b a
+   ``[budget]`` line prints these seconds beside those that 6b's
+   overlap of ``pio batchpredict`` with its deploys hides.
 6. The lifecycle at MovieLens-1M's size (6,040 users x 3,706 items,
    1,000,209 ratings, rank 64): a sqlite event store in a temporary
    directory (``PIO_STORAGE_*`` set before the registry's first use),
@@ -359,10 +377,11 @@ Phases (any failure raises and the script exits non-zero):
    ratings posted through the event server are servable through the
    balancer within 30 s; ``pio undeploy`` stops the balancer and both
    replicas (none answers after) and the child exits, having launched B1,
-   B3 and B2. ``pio batchpredict`` over every user
-   (``--input``, chunks of 16): a clean run, a run killed with SIGKILL
-   once its journal holds a chunk, and its rerun, which must resume at
-   least one chunk and give shards equal to the clean run's. Then the
+   B3 and B2. Beside those two deploys, ``pio batchpredict`` over every
+   user (``--input``, chunks of 16): a clean run, a run killed with
+   SIGKILL once its journal holds a chunk, and its rerun, which must
+   resume at least one chunk and give shards equal to the clean run's;
+   the seconds the overlap hides are printed. Then the
    crash trio starts, and runs beside phases 6c and 6d (their checks
    wait for it after 6d): ``pio train --precision bf16 --checkpoint-dir
    D --checkpoint-every 1``, each save held 2 s by ``PIO_FAULTS``
@@ -560,6 +579,7 @@ ways.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import json
 import shutil
@@ -589,11 +609,15 @@ ITERATIONS, LAMBDA, ALPHA = 3, 0.01, 1.0
 # phase 2b's other assembly ranks: one warp a block at 1 and 10, up to
 # the kernel's limit on an H100 (208)
 OTHER_RANKS = (1, 10, 30, 128, 208)
-# the assembly's large-rank route (above 208), and the solve's ranks
-# besides 64: the shared-memory route up to 239, device memory above,
-# and both sides of the 256-column chunk
-LARGE_RANKS = (209, 256, 320)
-SOLVE_RANKS = (1, 31, 32, 33, 65, 239, 240, 241, 256, 320)
+# the assembly's tile-group route (above 208; 385: four bands, the last
+# of one column), and the solve's ranks besides 64: one warp a system up
+# to 239, one block from 240 (both sides of the 256-column chunk) to 339,
+# the block route in device memory from 340
+LARGE_RANKS = (209, 256, 320, 385)
+SOLVE_RANKS = (1, 31, 32, 33, 65, 239, 240, 241, 256, 320, 339, 340, 384)
+# of them, the edges of the block route's shared memory and the ranks
+# beyond (phase 2b prints their seconds)
+EDGE_RANKS = (339, 340, 384, 385)
 # phase 2b's large-rank training run
 LARGE_TRAIN = dict(users=2_000, items=1_000, rank=256, iterations=2)
 # the fold-in solve's shapes (phase 3b): a user batch B on the
@@ -619,9 +643,10 @@ TRAIN_RTOL = 1e-3
 EPS_BF16 = 2.0 ** -8
 # phase 2b's ranks for B3's bf16 route: odd ranks (a bf16 row of 2R bytes
 # is then not 4-byte aligned), both sides of multiples of 8 (a 16-byte
-# copy of 8 values), the tile route's limit (208) and the large-rank
+# copy of 8 values), the tile route's limit (208) and the tile-group
 # route above it
-BF16_RANKS = (1, 7, 10, 30, 33, 63, 64, 65, 127, 128, 208, 209, 256, 320)
+BF16_RANKS = (1, 7, 10, 30, 33, 63, 64, 65, 127, 128, 208, 209, 256, 320,
+              385)
 # phase 5c: trainings timed with and without checkpoints (the median is
 # printed) and the JAX package's gate on the ratio, which is printed and
 # never asserted here (tests/test_train_checkpoint.py:829-843)
@@ -938,23 +963,58 @@ def ml20m_ratings(seed: int):
     return power_law_ratings(rng, lens, M_ITEMS)
 
 
-def power_law_ratings(rng, lens, n_items: int):
-    """Each user's ``lens[u]`` distinct items, drawn by a power-law
-    popularity (twice over, first occurrences kept, cut to length), 0.5
-    to 5.0 stars, and 1-3 of 20 genres per item."""
-    n_users = len(lens)
+def power_law_draws(rng, n_items: int, size: int) -> np.ndarray:
+    """``rng.choice(n_items, size, p=pop / pop.sum())`` for the power-law
+    popularity ``pop``, by numpy's own steps (the cumulative sum of p,
+    normalised by its last entry, and the count of its entries <= each of
+    ``size`` uniform samples from ``rng.random``), the count taken from a
+    table of 2^20 equal buckets of [0, 1) instead of a binary search: the
+    same draws, from the same random numbers, several times faster."""
     pop = 1.0 / (np.arange(n_items) + 10.0) ** 0.8
-    draws = rng.choice(n_items, size=int(2 * lens.sum()), p=pop / pop.sum())
+    cdf = (pop / pop.sum()).cumsum()
+    cdf /= cdf[-1]
+    u = rng.random(size)
+    K = 1 << 20
+    # bucket b = floor(u K) holds b / K <= u < (b + 1) / K exactly (K is a
+    # power of two): the entries below b / K count, those from (b + 1) / K
+    # do not, and the few between are compared one by one
+    edges = np.searchsorted(cdf, np.arange(K + 1) / K, side="left")
+    b = (u * K).astype(np.int64)
+    idx = edges[b]
+    width = edges[b + 1] - idx
+    for t in range(int(width.max())):
+        idx += (t < width) & (cdf[np.minimum(idx, n_items - 1)] <= u)
+    return idx
+
+
+def power_law_pairs(rng, lens, n_items: int) -> tuple:
+    """(rows, cols): each user's ``lens[u]`` distinct items, drawn by a
+    power-law popularity twice over (:func:`power_law_draws`), first
+    occurrences kept in draw order and cut to length."""
+    n_users = len(lens)
+    draws = power_law_draws(rng, n_items, int(2 * lens.sum()))
     user_of = np.repeat(np.arange(n_users), 2 * lens)
     key = user_of * n_items + draws
     order = np.argsort(key, kind="stable")
     first = np.ones(len(key), dtype=bool)
-    first[1:] = key[order][1:] != key[order][:-1]
-    kept = np.sort(order[first])            # first draws, in draw order
+    sorted_key = key[order]
+    first[1:] = sorted_key[1:] != sorted_key[:-1]
+    del sorted_key
+    kept = np.zeros(len(key), dtype=bool)
+    kept[order[first]] = True
+    kept = np.flatnonzero(kept)             # first draws, in draw order
     users = user_of[kept]
-    rank = np.arange(len(kept)) - np.searchsorted(users, users)
+    starts = np.flatnonzero(np.r_[True, users[1:] != users[:-1]])
+    rank = np.arange(len(kept)) - np.repeat(starts, np.diff(np.r_[
+        starts, len(kept)]))                # a user's earlier draws
     sel = rank < lens[users]
-    rows, cols = users[sel], draws[kept][sel]
+    return users[sel], draws[kept][sel]
+
+
+def power_law_ratings(rng, lens, n_items: int):
+    """:func:`power_law_pairs`, 0.5 to 5.0 stars, and 1-3 of 20 genres
+    per item."""
+    rows, cols = power_law_pairs(rng, lens, n_items)
     return (rows, cols) + stars_and_genres(rng, len(rows), n_items)
 
 
@@ -1049,20 +1109,68 @@ ML20M_PREFETCH = 4          # partitions decoded ahead
 LINE_BYTES = 200            # room for one rate line (they take ~177)
 
 
+# RATE_LINE around its three fields (user, item, stars), and the stars'
+# text ("0.0" ... "5.0")
+RATE_PIECES = RATE_LINE.format("\0", "\0", "\0").split("\0")
+STAR_TEXT = [repr(k / 2) for k in range(11)]
+
+
+def decimal_table(n: int) -> np.ndarray:
+    """``[n, w]`` uint8: the decimal digits of 0..n-1, each row
+    left-padded with zero bytes (dropped from the lines afterwards)."""
+    w = len(str(n - 1))
+    v = np.arange(n)
+    ndig = 1 + sum((v >= 10 ** k).astype(np.int64) for k in range(1, w))
+    out = np.zeros((n, w), np.uint8)
+    for k in range(w):
+        out[:, k] = np.where(k >= w - ndig, 48 + (v // 10 ** (w - 1 - k)) % 10,
+                             0)
+    return out
+
+
+def rate_lines(users: np.ndarray, items: np.ndarray, stars: np.ndarray,
+               tables: tuple) -> list:
+    """``RATE_LINE.format(u, i, STAR_TEXT[s])`` for every rating, built
+    by numpy with no Python call a line: each line is a row of bytes, a
+    copy of one template (the fixed pieces and a newline) into which the
+    user's and item's digits and the stars from ``tables`` are written,
+    whose zero pad bytes are then dropped; the lines come from one
+    decode and one split."""
+    fields = [t[v] for t, v in zip(tables, (users, items, stars))]
+    parts, at = [], []
+    for piece, field in zip(RATE_PIECES, fields + [None]):
+        parts.append(np.frombuffer(piece.encode(), np.uint8))
+        if field is not None:
+            at.append(sum(len(q) for q in parts))
+            parts.append(np.zeros(field.shape[1], np.uint8))
+    template = np.concatenate(parts + [np.frombuffer(b"\n", np.uint8)])
+    rows = np.broadcast_to(template, (len(users), len(template))).copy()
+    for a, field in zip(at, fields):
+        rows[:, a:a + field.shape[1]] = field
+    lines = rows.tobytes().replace(b"\0", b"").decode().split("\n")
+    lines.pop()    # after the last newline
+    return lines
+
+
 def ml20m_store(seed: int) -> dict:
     """Phase 5's event store: the ML-20M-width ratings as ``rate`` events
     in a seeded random order (a live stream interleaves its users) and
     one ``$set`` of genres per item, appended with ``append_raw_lines``
     to a ``jsonlfs`` store in a temporary directory (1,000,000 events a
-    partition; metadata and models in memory). Fails before writing when
-    the directory's disk lacks room; the caller removes it."""
+    partition; metadata and models in memory). The rate lines are built
+    by :func:`rate_lines`, timed apart from the appends, and a CRC-32 of
+    the partitions' bytes, in order, is printed. Fails before writing when the directory's disk
+    lacks room; the caller removes it."""
     import os
     import tempfile
+    import zlib
 
     from predictionio_tpu_torch.data import storage
     from predictionio_tpu_torch.data.storage.base import App
 
+    t0 = time.perf_counter()
     rows, cols, values, cats = ml20m_ratings(seed)
+    ratings_s = time.perf_counter() - t0
     work = tempfile.mkdtemp(prefix="pio-ml20m-")
     need = LINE_BYTES * (len(rows) + len(cats))
     free = shutil.disk_usage(work).free
@@ -1082,28 +1190,53 @@ def ml20m_store(seed: int) -> dict:
     app_id = storage.get_metadata_apps().insert(App(0, ML20M_APP))
     levents = storage.get_levents()
     levents.init(app_id)
-    order = np.random.default_rng(seed + 11).permutation(len(rows))
-    stars = [repr(k / 2) for k in range(11)]
-    for a in range(0, len(order), ML20M_PART):
-        pick = order[a:a + ML20M_PART]
-        levents.append_raw_lines([
-            RATE_LINE.format(u, i, stars[s]) for u, i, s in zip(
-                rows[pick].tolist(), cols[pick].tolist(),
-                np.rint(values[pick] * 2).astype(np.int64).tolist())],
-            app_id)
-    levents.append_raw_lines([SET_LINE.format(iid[1:], json.dumps(list(c)))
-                              for iid, c in cats.items()], app_id)
-    write_s = time.perf_counter() - t0
     root = levents._dir(app_id, None)
-    nbytes = sum(os.path.getsize(os.path.join(root, f))
-                 for f in os.listdir(root))
-    print(f"[store] {len(rows)} rate events in a seeded random order and "
+    order = np.random.default_rng(seed + 11).permutation(len(rows))
+    stars = np.rint(values * 2).astype(np.int64)
+    t1 = time.perf_counter()
+    tables = (decimal_table(int(rows.max()) + 1),
+              decimal_table(int(cols.max()) + 1),
+              np.array([list(t.encode()) for t in STAR_TEXT], np.uint8))
+    build_s, crc, summed = time.perf_counter() - t1, [0], []
+
+    def add_crc(path: str) -> None:     # the partitions' bytes, in order
+        with open(path, "rb") as f:
+            for block in iter(lambda: f.read(1 << 24), b""):
+                crc[0] = zlib.crc32(block, crc[0])
+
+    def sum_parts(last: bool) -> None:  # the partitions no append will grow
+        parts = levents._parts(root)
+        for path in parts[len(summed):None if last else -1]:
+            summed.append(path)
+            crc_thread.submit(add_crc, path)
+
+    # the CRC reads each finished partition back on a thread of its own
+    # (reads and zlib let go of the interpreter lock) while the next one
+    # is built
+    with concurrent.futures.ThreadPoolExecutor(1) as crc_thread:
+        for a in range(0, len(order), ML20M_PART):
+            pick = order[a:a + ML20M_PART]
+            t1 = time.perf_counter()
+            lines = rate_lines(rows[pick], cols[pick], stars[pick], tables)
+            build_s += time.perf_counter() - t1
+            levents.append_raw_lines(lines, app_id)
+            sum_parts(False)
+        levents.append_raw_lines([SET_LINE.format(iid[1:], json.dumps(list(c)))
+                                  for iid, c in cats.items()], app_id)
+        sum_parts(True)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(path) for path in summed)
+    print(f"[store] {len(rows)} ratings drawn in {ratings_s:.2f} s; "
+          f"{len(rows)} rate events in a seeded random order and "
           f"{len(cats)} $set events written to a jsonlfs store in "
-          f"{write_s:.2f} s: {len(os.listdir(root)) - 1} partitions, "
+          f"{write_s:.2f} s (the rate lines built in {build_s:.2f} s): "
+          f"{len(summed)} partitions, "
           f"{nbytes} bytes ({nbytes / (len(rows) + len(cats)):.1f} a line), "
-          f"{free / 1e9:.1f} GB were free")
+          f"CRC-32 {crc[0]:08x}; {free / 1e9:.1f} GB were free")
     return {"work": work, "app_id": app_id, "n_ratings": len(rows),
-            "write_s": write_s, "bytes": nbytes,
+            "write_s": write_s, "build_s": build_s,
+            "ratings_s": ratings_s, "crc32": f"{crc[0]:08x}",
+            "bytes": nbytes,
             # phase 3b writes some users' histories in this event order
             "ratings": (rows, cols, values, order)}
 
@@ -1650,12 +1783,167 @@ def fold_rows(dev, rng, B: int, real: int, L: int) -> tuple:
     return torch.from_numpy(cols.astype(np.int32)).to(dev), aw, bw
 
 
-def training_kernel_checks(dev, trained: dict, seed: int) -> dict:
+def assembly_kinds(dev, rng, Yt, Yi, cols, aw, bw, explicit: bool, label: str,
+                   bf16: bool = False) -> float:
+    """B3 against plain on one table in two kinds: trained (or random)
+    factors ``Yt`` with the training's Gram term, and integer factors
+    ``Yi`` with an integer one (exact); with ``bf16`` both as a bf16
+    store on the bf16 lane's rounded weights (B3's bf16 route). Returns
+    the largest |error|."""
+    import torch
+
+    from predictionio_tpu_torch.ops.als import _round_bf16
+
+    if bf16:    # B3's bf16 route, on the weights the bf16 lane gives it
+        Yt, Yi = Yt.to(torch.bfloat16), Yi.to(torch.bfloat16)
+        aw, bw = _round_bf16(aw), _round_bf16(bw)
+    worst = 0.0
+    for kind, Y in (("trained", Yt), ("integer", Yi)):
+        R = Y.shape[1]
+        if kind == "integer":
+            gram = torch.from_numpy(rng.integers(
+                -4, 5, (R, R)).astype(np.float32)).to(dev)
+        elif explicit:
+            gram = torch.zeros((R, R), device=dev)
+        else:
+            gram = Y.float().T @ Y.float() + LAMBDA * torch.eye(R, device=dev)
+        check = check_assembly_bf16 if bf16 else check_assembly
+        worst = max(worst, check(
+            Y, cols, aw, bw, gram, kind == "integer",
+            f"{label} explicit={explicit} {kind}" + (" bf16" if bf16 else "")))
+    return worst
+
+
+def rank_assembly_checks(dev, rng, ranks, bf16_ranks) -> tuple:
+    """B3 at other ranks than the main path's, random and integer
+    factors, on 300 x 40 rows (grouped) and 9 x 5,000 (split into
+    spans): fp32 at ``ranks``, the bf16 route at ``bf16_ranks``. Returns
+    (largest |error|, cases, bf16 cases, seconds by rank)."""
+    import torch
+
+    worst, cases, seconds = 0.0, {False: 0, True: 0}, {}
+    for bf16, rs in ((False, ranks), (True, bf16_ranks)):
+        for R in rs:
+            t = time.perf_counter()
+            # the factors drawn on the device (from a seed off rng)
+            g = torch.Generator(dev).manual_seed(int(rng.integers(1 << 31)))
+            Yr = 0.3 * torch.randn((M_ITEMS, R), device=dev, generator=g)
+            Yi = torch.randint(-3, 4, (M_ITEMS, R), device=dev,
+                               generator=g).float()
+            for cols, aw, bw, label in synthetic_rows(dev, rng,
+                                                      ((300, 40), (9, 5_000))):
+                worst = max(worst, assembly_kinds(
+                    dev, rng, Yr, Yi, cols, aw, bw, False, f"R={R} {label}",
+                    bf16=bf16))
+                cases[bf16] += 2
+            del Yr, Yi
+            seconds[R] = seconds.get(R, 0.0) + time.perf_counter() - t
+    return worst, cases[False] + cases[True], cases[True], seconds
+
+
+def grid_tile_group_check(dev, rng, R: int = 256, k: int = 2) -> int:
+    """The config grid's assembly above the tiles route's rank: one
+    launch of the tile-group route for ``k`` configs (the config in
+    blockIdx.y), each config bitwise its own single-config launch, on
+    grouped rows (300 x 40) and split rows (9 x 5,000). Returns the
+    cases."""
     import torch
 
     from predictionio_tpu_torch.ops import als_cuda
 
-    from predictionio_tpu_torch.ops.als import _round_bf16
+    cases = 0
+    for cols, aw, bw, label in synthetic_rows(dev, rng,
+                                              ((300, 40), (9, 5_000))):
+        g = torch.Generator(dev).manual_seed(int(rng.integers(1 << 31)))
+        Y = 0.3 * torch.randn((k, M_ITEMS, R), device=dev, generator=g)
+        gram = torch.stack([Y[z].T @ Y[z] for z in range(k)])
+        aws = torch.stack([aw * (z + 1) for z in range(k)])
+        bws = torch.stack([bw * (z + 1) for z in range(k)])
+        before = als_cuda.assemble_launches.by_key().get(
+            ("tile_groups_grid", "fp32"), 0)
+        A, b = als_cuda.assemble_normal_equations_grid(Y, cols, aws, bws, gram)
+        if als_cuda.assemble_launches.by_key().get(
+                ("tile_groups_grid", "fp32"), 0) != before + 1:
+            raise AssertionError(f"grid R={R} {label}: not one tile-group "
+                                 f"grid launch")
+        for z in range(k):
+            Az, bz = als_cuda.assemble_normal_equations(Y[z], cols, aws[z],
+                                                        bws[z], gram[z])
+            if not (torch.equal(A[z], Az) and torch.equal(b[z], bz)):
+                raise AssertionError(f"grid R={R} {label} config {z}: not "
+                                     f"bitwise its single launch")
+        cases += 1
+    return cases
+
+
+def spd_systems(dev, B: int, R: int = RANK, ill: bool = False) -> tuple:
+    """B random SPD systems of rank R on the card (seeded), or an
+    ill-scaled family."""
+    import torch
+
+    G = torch.randn((B, R, R), device=dev,
+                    generator=torch.Generator(dev).manual_seed(B + R))
+    A = G @ G.transpose(1, 2)
+    if ill:
+        A = A * 10.0 ** (torch.rand((B, 1, 1), device=dev) * 4 - 2) \
+            + 0.01 * torch.eye(R, device=dev)
+    else:
+        A = A / R + torch.eye(R, device=dev)
+    return A, torch.randn((B, R), device=dev)
+
+
+def solve_plan_of(dev, R: int):
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+
+    props = torch.cuda.get_device_properties(dev)
+    return als_cuda.spd_solve_plan(R, props.shared_memory_per_block_optin,
+                                   props.multi_processor_count)
+
+
+def solve_checks(dev, cases: list) -> list:
+    """B2 on each ``(label, (A, b))``: bitwise equal to the plain version
+    (the kernels repeat its operations entry by entry) and a small
+    residual. Returns (label, route, residual, rank, seconds) of each."""
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+
+    results = []
+    for label, (A, b) in cases:
+        t = time.perf_counter()
+        R = b.shape[1]
+        x = als_cuda.spd_solve(A, b)
+        torch.cuda.synchronize()
+        xp = als_cuda.spd_solve_plain(A, b)
+        res = float(torch.linalg.vector_norm(
+            (A @ x[:, :, None])[:, :, 0] - b) / torch.linalg.vector_norm(b))
+        route = solve_plan_of(dev, R).route
+        if not torch.equal(x, xp):
+            raise AssertionError(
+                f"spd_solve {label} ({route} route): not bitwise equal to "
+                f"plain, max |err| {float((x - xp).abs().max())!r}")
+        if not res < 1e-2:
+            raise AssertionError(f"spd_solve {label}: residual {res!r}")
+        results.append((label, route, res, R, time.perf_counter() - t))
+    return results
+
+
+def solve_report(results: list) -> str:
+    return "; ".join(f"{lab} ({route}): bitwise True, relative residual "
+                     f"{r:.3g}" for lab, route, r, _, _ in results)
+
+
+def rank_solve_cases(dev, ranks) -> list:
+    return [(f"R={R} B={64 if R <= 65 else 16}",
+             spd_systems(dev, 64 if R <= 65 else 16, R)) for R in ranks]
+
+
+def training_kernel_checks(dev, trained: dict, seed: int) -> dict:
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
 
     model, pd = trained["model"], trained["pd"]
     rng = np.random.default_rng(seed + 3)
@@ -1664,26 +1952,10 @@ def training_kernel_checks(dev, trained: dict, seed: int) -> dict:
 
     def both_kinds(Yt, Yi, cols, aw, bw, explicit, label, bf16=False):
         nonlocal cases, bf16_cases
-        if bf16:    # B3's bf16 route, on the weights the bf16 lane gives it
-            Yt, Yi = Yt.to(torch.bfloat16), Yi.to(torch.bfloat16)
-            aw, bw = _round_bf16(aw), _round_bf16(bw)
-        for kind, Y in (("trained", Yt), ("integer", Yi)):
-            R = Y.shape[1]
-            if kind == "integer":
-                gram = torch.from_numpy(rng.integers(
-                    -4, 5, (R, R)).astype(np.float32)).to(dev)
-            elif explicit:
-                gram = torch.zeros((R, R), device=dev)
-            else:
-                gram = Y.float().T @ Y.float() + LAMBDA * torch.eye(
-                    R, device=dev)
-            check = check_assembly_bf16 if bf16 else check_assembly
-            worst["assemble"] = max(worst["assemble"], check(
-                Y, cols, aw, bw, gram, kind == "integer",
-                f"{label} explicit={explicit} {kind}"
-                + (" bf16" if bf16 else "")))
-            cases += 1
-            bf16_cases += bf16
+        worst["assemble"] = max(worst["assemble"], assembly_kinds(
+            dev, rng, Yt, Yi, cols, aw, bw, explicit, label, bf16))
+        cases += 2
+        bf16_cases += 2 * bf16
 
     for side_name, side in (("user", pd.user_side), ("item", pd.item_side)):
         Yt = torch.from_numpy(side_factors(model, side_name)).to(dev)
@@ -1704,25 +1976,17 @@ def training_kernel_checks(dev, trained: dict, seed: int) -> dict:
         if side_name == "item":
             for cols, aw, bw, label in synthetic_rows(dev, rng):
                 both_kinds(Yt, Yi, cols, aw, bw, False, label)
-    # other ranks, from blocks of one warp up to the kernel's limit: rows
-    # a block groups and rows it splits, random and integer factors
-    for R in OTHER_RANKS + LARGE_RANKS:
-        Yr = torch.from_numpy(0.3 * rng.standard_normal(
-            (M_ITEMS, R)).astype(np.float32)).to(dev)
-        Yi = torch.from_numpy(rng.integers(-3, 4, (M_ITEMS, R)).astype(
-            np.float32)).to(dev)
-        for cols, aw, bw, label in synthetic_rows(dev, rng,
-                                                  ((300, 40), (9, 5_000))):
-            both_kinds(Yr, Yi, cols, aw, bw, False, f"R={R} {label}")
-    for R in BF16_RANKS:
-        Yr = torch.from_numpy(0.3 * rng.standard_normal(
-            (M_ITEMS, R)).astype(np.float32)).to(dev)
-        Yi = torch.from_numpy(rng.integers(-3, 4, (M_ITEMS, R)).astype(
-            np.float32)).to(dev)
-        for cols, aw, bw, label in synthetic_rows(dev, rng,
-                                                  ((300, 40), (9, 5_000))):
-            both_kinds(Yr, Yi, cols, aw, bw, False, f"R={R} {label}",
-                       bf16=True)
+    # other ranks, from blocks of one warp up to the tiles route's limit,
+    # then the tile-group route: rows a block groups and rows it splits,
+    # random and integer factors
+    err, n, n_bf16, rank_s = rank_assembly_checks(
+        dev, rng, OTHER_RANKS + LARGE_RANKS, BF16_RANKS)
+    worst["assemble"] = max(worst["assemble"], err)
+    cases += n
+    bf16_cases += n_bf16
+    t = time.perf_counter()
+    grid_cases = grid_tile_group_check(dev, rng)
+    worst["grid_s"] = time.perf_counter() - t
     # the fold-in solve's shapes: mostly padding rows, up to two spans
     Yt = torch.from_numpy(model.item_factors).to(dev)
     Yi = torch.from_numpy(rng.integers(-3, 4, tuple(Yt.shape)).astype(
@@ -1739,29 +2003,20 @@ def training_kernel_checks(dev, trained: dict, seed: int) -> dict:
           f"(every row of every bucket of both sides, {rows_checked} rows, "
           f"in 4 kinds each; 8 x 100,000 and 64 x 5,000 synthetic split "
           f"rows; R in {OTHER_RANKS + LARGE_RANKS} on 300 x 40 and 9 x "
-          f"5,000 rows, the large-rank route from 209; the fold-in shapes "
+          f"5,000 rows, the tile-group route from 209; the fold-in shapes "
           f"B x L in {[b for b, _ in FOLD_BATCHES]} x {list(FOLD_LENGTHS)} "
           f"with all but {[r for _, r in FOLD_BATCHES]} rows padding; "
           f"integer fixtures exact; max |err| {worst['assemble']!r}); "
           f"{bf16_cases} of them the bf16 route on a bf16 store (every "
           f"bucket of both sides at R={RANK}, implicit and explicit; R in "
           f"{BF16_RANKS}; the fold-in shapes), each also bitwise equal to "
-          f"the fp32 route on its fp32 widening")
+          f"the fp32 route on its fp32 widening; the config grid at R=256 "
+          f"(2 configs, one tile-group launch) bitwise each config's own "
+          f"launch in {grid_cases} cases")
 
     # solve: random SPD systems, an ill-scaled family, real systems at
     # rank 64, then other ranks; the kernel repeats the plain version's
     # operations entry by entry, so it must be bitwise equal to it
-    def systems(B, R=RANK, ill=False):
-        G = torch.randn((B, R, R), device=dev,
-                        generator=torch.Generator(dev).manual_seed(B + R))
-        A = G @ G.transpose(1, 2)
-        if ill:
-            A = A * 10.0 ** (torch.rand((B, 1, 1), device=dev) * 4 - 2) \
-                + 0.01 * torch.eye(R, device=dev)
-        else:
-            A = A / R + torch.eye(R, device=dev)
-        return A, torch.randn((B, R), device=dev)
-
     real_bucket = pd.user_side.buckets[len(pd.user_side.buckets) // 2]
     aw, bw = assembly_weights(real_bucket, False, dev)
     gram = Yt.T @ Yt + LAMBDA * torch.eye(RANK, device=dev)
@@ -1770,42 +2025,52 @@ def training_kernel_checks(dev, trained: dict, seed: int) -> dict:
     folds = [(f"fold B={B} L={L}",
               als_cuda.assemble_normal_equations(Yt, cols, aw, bw, gram))
              for B, L, cols, aw, bw in fold_tables]
-    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    results = []
-    for label, (A, b) in [(f"B={B}", systems(B))
-                          for B in (1, 127, 4096, N_USERS)] + [
-            ("ill-scaled B=4096", systems(4096, ill=True)),
-            (f"training B={real[1].shape[0]}", real)] + folds + [
-            (f"R={R} B={64 if R <= 65 else 16}",
-             systems(64 if R <= 65 else 16, R)) for R in SOLVE_RANKS]:
-        R = b.shape[1]
-        x = als_cuda.spd_solve(A, b)
-        torch.cuda.synchronize()
-        xp = als_cuda.spd_solve_plain(A, b)
-        res = float(torch.linalg.vector_norm(
-            (A @ x[:, :, None])[:, :, 0] - b) / torch.linalg.vector_norm(b))
-        route = als_cuda.spd_solve_plan(R, optin).route
-        if not torch.equal(x, xp):
-            raise AssertionError(
-                f"spd_solve {label} ({route} route): not bitwise equal to "
-                f"plain, max |err| {float((x - xp).abs().max())!r}")
-        if not res < 1e-2:
-            raise AssertionError(f"spd_solve {label}: residual {res!r}")
-        results.append((label, route, res))
+    results = solve_checks(dev, [(f"B={B}", spd_systems(dev, B))
+                                 for B in (1, 127, 4096, N_USERS)] + [
+        ("ill-scaled B=4096", spd_systems(dev, 4096, ill=True)),
+        (f"training B={real[1].shape[0]}", real)] + folds
+        + rank_solve_cases(dev, SOLVE_RANKS))
     print(f"[kernel] spd_solve bitwise equal to spd_solve_plain: "
-          + "; ".join(f"{lab} ({route}): bitwise True, relative residual "
-                      f"{r:.3g}" for lab, route, r in results))
+          + solve_report(results))
     worst["large_rank_training"] = train_large_rank(dev, seed)
+    # the seconds of the ranks at the edges of the block route's shared
+    # memory and beyond (EDGE_RANKS)
+    worst["edge_s"] = sum(v for R, v in rank_s.items() if R in EDGE_RANKS) \
+        + sum(s for _, _, _, R, s in results if R in EDGE_RANKS)
     return worst
+
+
+def large_rank_only(dev, seed: int, card: str) -> dict:
+    """``--large-rank``: phase 2b's checks above the tiles route's and
+    the warp solve's ranks (B3 at ``LARGE_RANKS`` in fp32 and
+    ``BF16_RANKS`` above 208 in bf16, B2 at ``SOLVE_RANKS`` from 240,
+    the rank-256 training) and phase 4b's large-rank timings, alone."""
+    rng = np.random.default_rng(seed + 3)
+    err, cases, bf16_cases, _ = rank_assembly_checks(
+        dev, rng, LARGE_RANKS, [R for R in BF16_RANKS if R > OTHER_RANKS[-1]])
+    grid_cases = grid_tile_group_check(dev, rng)
+    print(f"[kernel] assemble_normal_equations tile-group route == plain in "
+          f"{cases} cases (R in {LARGE_RANKS}, bf16 at "
+          f"{[R for R in BF16_RANKS if R > OTHER_RANKS[-1]]}, {bf16_cases} "
+          f"of them, each bitwise the fp32 route on its widening); max |err| "
+          f"{err!r}; the config grid at R=256 (2 configs, one launch) "
+          f"bitwise each config's launch in {grid_cases} cases")
+    results = solve_checks(dev, rank_solve_cases(
+        dev, [R for R in SOLVE_RANKS if R >= 240]))
+    print(f"[kernel] spd_solve bitwise equal to spd_solve_plain: "
+          + solve_report(results))
+    return {"assemble_max_abs_err": err, "assemble_cases": cases,
+            "solve": [{"label": lab, "route": route, "residual": r}
+                      for lab, route, r, _, _ in results],
+            "training": train_large_rank(dev, seed),
+            "timings": large_rank_timings(dev), "card": card}
 
 
 def train_large_rank(dev, seed: int) -> dict:
     """Train at rank 256 on the card through ``train_als_bucketed``: the
-    large-rank assembly and the device-memory solve. Both must launch,
-    and the factors stay within TRAIN_RTOL of the plain trainer's from
-    the same init."""
-    import torch
-
+    tile-group assembly and the block solve. Both must launch, on those
+    routes alone, and the factors stay within TRAIN_RTOL of the plain
+    trainer's from the same init."""
     from predictionio_tpu_torch.ops import als as als_mod
     from predictionio_tpu_torch.ops import als_cuda
 
@@ -1830,9 +2095,15 @@ def train_large_rank(dev, seed: int) -> dict:
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} was never launched at rank {R}")
-    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     routes = (als_cuda.assembly_route(R, OTHER_RANKS[-1]),
-              als_cuda.spd_solve_plan(R, optin).route)
+              solve_plan_of(dev, R).route)
+    by_route = {"assemble_normal_equations":
+                {k[0] for k in als_cuda.assemble_launches.by_key()},
+                "spd_solve": set(als_cuda.spd_launches.by_key())}
+    if by_route != {"assemble_normal_equations": {routes[0]},
+                    "spd_solve": {routes[1]}}:
+        raise AssertionError(f"rank {R}: launches by route {by_route}, "
+                             f"want {routes}")
     X0, Y0 = als_mod.init_factors(user_side.n_rows, item_side.n_rows, R,
                                   seed, dev)
     saved = (als_cuda.assemble_normal_equations, als_cuda.spd_solve)
@@ -1852,13 +2123,13 @@ def train_large_rank(dev, seed: int) -> dict:
             for name, got, want in (("user", X, Xp), ("item", Y, Yp))}
     print(f"[train] rank {R}: {n_u} users x {n_i} items, {len(rows)} "
           f"ratings, {iters} iterations through the {routes[0]} assembly and "
-          f"the {routes[1]}-memory solve; launches {launches}; kernel vs "
+          f"the {routes[1]} solve; launches {launches}; kernel vs "
           f"plain trainer relative Frobenius error {errs} (allowed "
           f"{TRAIN_RTOL})")
     if max(errs.values()) > TRAIN_RTOL:
         raise AssertionError(f"rank-{R} factors differ from the plain "
                              f"trainer's: {errs}")
-    return {"launches": launches, "errs": errs}
+    return {"launches": launches, "routes": routes, "errs": errs}
 
 
 # -- phase 3: serving the trained model ----------------------------------------
@@ -5418,11 +5689,11 @@ def query_fleet_full_width(dev, trained: dict, seed: int, card: str) -> dict:
 
 # -- phase 4 ----------------------------------------------------------------
 
-def time_ms(fn, iters: int) -> float:
+def time_ms(fn, iters: int, warmups: int = 2) -> float:
     import torch
 
-    fn()
-    fn()
+    for _ in range(warmups):
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -5615,7 +5886,7 @@ def solve_work(B: int, R: int = RANK) -> tuple:
         B * (R ** 3 / 3.0 + 2.0 * R * R)
 
 
-def training_timings(dev, trained: dict) -> dict:
+def training_timings(dev, trained: dict, seed: int) -> dict:
     import torch
 
     from predictionio_tpu_torch.ops import als_cuda
@@ -5715,8 +5986,108 @@ def training_timings(dev, trained: dict) -> dict:
           f" ms, plain solve {sharded['plain']['spd_solve']!r} ms")
     return {"rows": out, "heads": heads, "sharded_library": sharded,
             "large": large_rank_timings(dev),
+            "large_iteration": large_rank_iteration(dev, trained, seed),
             "foldin": foldin_timings(dev, trained),
             "bf16": bf16_assembly_timings(dev, trained)}
+
+
+# phase 4b's rank-256 iteration at ML-20M width: its rank, the
+# iterations timed, and the rows of the bucket held against plain
+LARGE_ITER_RANK = 256
+LARGE_ITER_TIMED = 3
+LARGE_ITER_ROWS = 256
+
+
+def large_rank_iteration(dev, trained: dict, seed: int) -> dict:
+    """One ALS iteration at rank 256 on phase 5's tables (ML-20M width,
+    both sides' buckets on the card): random factors from ``seed``, one
+    iteration warm, then LARGE_ITER_TIMED event-timed, the last also
+    under the profiler for the B3 / B2 split. Every launch must take the
+    tile-group assembly and the block solve, the factors stay finite,
+    and one bucket's A, b and x (the item bucket of the longest rows up
+    to 8,192 slots, its first LARGE_ITER_ROWS rows) are held against the
+    plain versions: A and b within the reordering bound, x bitwise."""
+    import torch
+
+    from predictionio_tpu_torch.ops import als as als_mod
+    from predictionio_tpu_torch.ops import als_cuda
+
+    t_all = time.perf_counter()
+    pd = trained["pd"]
+    R = LARGE_ITER_RANK
+    u_t, i_t = bucket_tables(pd.user_side, dev), bucket_tables(pd.item_side,
+                                                               dev)
+    kw = dict(lam=LAMBDA, alpha=ALPHA, implicit=True, slot_budget=None)
+    X, Y = als_mod.init_factors(pd.user_side.n_rows, pd.item_side.n_rows,
+                                R, seed + 7, dev)
+    als_cuda.assemble_launches.reset()
+    als_cuda.spd_launches.reset()
+    t0 = time.perf_counter()
+    X1, Y1 = als_mod.als_iterations_bucketed(X, Y, u_t, i_t,
+                                             num_iterations=1, **kw)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    events = []
+
+    def timed_iteration():
+        nonlocal X1, Y1
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        X1, Y1 = als_mod.als_iterations_bucketed(X1, Y1, u_t, i_t,
+                                                 num_iterations=1, **kw)
+        ev[1].record()
+        events.append(ev)
+
+    for _ in range(LARGE_ITER_TIMED - 1):
+        timed_iteration()
+    # the last one under the profiler as well, for the B3 / B2 split
+    wall, busy, _, ms = device_busy(timed_iteration)
+    iteration_ms = [a.elapsed_time(b) for a, b in events]
+    split = iteration_split(ms)
+    n_buckets = len(u_t) + len(i_t)
+    by_route = {"assemble_normal_equations": als_cuda.assemble_launches.by_key(),
+                "spd_solve": als_cuda.spd_launches.by_key()}
+    want = {"assemble_normal_equations": {("tile_groups", "fp32"):
+                                          (LARGE_ITER_TIMED + 1) * n_buckets},
+            "spd_solve": {"block": (LARGE_ITER_TIMED + 1) * n_buckets}}
+    if by_route != want:
+        raise AssertionError(f"rank-{R} iteration: launches by route "
+                             f"{by_route}, want {want}")
+    if not (torch.isfinite(X1).all() and torch.isfinite(Y1).all()):
+        raise AssertionError(f"non-finite factors at rank {R}")
+    # one bucket held against the plain versions, on a slice of its rows
+    bucket = max((b for b in pd.item_side.buckets
+                  if b.cols.shape[1] <= 8192), key=lambda b: b.cols.shape[1])
+    n = min(LARGE_ITER_ROWS, bucket.cols.shape[0])
+    L = bucket.cols.shape[1]
+    cols = torch.as_tensor(bucket.cols[:n], device=dev)
+    aw, bw = assembly_weights(bucket, False, dev)
+    aw, bw = aw[:n].contiguous(), bw[:n].contiguous()
+    gram = X1.T @ X1 + LAMBDA * torch.eye(R, device=dev)
+    err = check_assembly(X1, cols, aw, bw, gram, False,
+                         f"rank {R} item bucket L={L} rows 0-{n}")
+    A, b = als_cuda.assemble_normal_equations(X1, cols, aw, bw, gram)
+    (_, route, res, _, _), = solve_checks(
+        dev, [(f"rank {R} item bucket L={L}", (A, b))])
+    out = {"R": R, "warm_s": warm_s, "iteration_ms": iteration_ms,
+           "profiled": {"wall_ms": wall, "busy_ms": busy, **split},
+           "launches": {name: {"/".join(k) if isinstance(k, tuple) else k: v
+                               for k, v in d.items()}
+                        for name, d in by_route.items()},
+           "checked": {"bucket_L": L, "rows": n, "assemble_max_abs_err": err,
+                       "solve_route": route, "solve_residual": res}}
+    print(f"[large-iteration] rank {R} at ML-20M width on phase 5's tables "
+          f"({n_buckets} buckets): warm {warm_s!r} s, event-timed ms "
+          f"{iteration_ms}; profiled wall {wall!r} ms, busy {busy!r} ms, "
+          f"B3 {split['B3']!r} ms, B2 {split['B2']!r} ms; launches "
+          f"{out['launches']}; item bucket L={L} rows 0-{n}: A, b within "
+          f"the reordering bound (max |err| {err!r}), x bitwise plain "
+          f"({route}, residual {res:.3g})")
+    del u_t, i_t, X, Y, X1, Y1, A, b, cols, aw, bw, gram
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_all
+    return out
 
 
 def shard_blocks(bucket, n_rows: int) -> list:
@@ -5855,55 +6226,76 @@ def foldin_timings(dev, trained: dict) -> dict:
     return out
 
 
+# phase 4b's large-rank shapes: both routes at these ranks, B3 on
+# LARGE_TIMED_ROWS rows of LARGE_TIMED_SLOTS slots, B2 on
+# LARGE_TIMED_SYSTEMS systems, and B2 above the block route's shared
+# memory (R = 384, the device-memory route)
+LARGE_TIMED_RANKS = (256, 320)
+LARGE_TIMED_DEVICE_RANK = 384
+LARGE_TIMED_ROWS, LARGE_TIMED_SLOTS, LARGE_TIMED_SYSTEMS = 4096, 128, 4096
+
+
 def large_rank_timings(dev) -> dict:
-    """Off the main path, recorded and not judged: the device-memory
-    solve at rank 320 (4,096 systems) and the large-rank assembly at rank
-    256 (4,096 synthetic rows of 128 slots)."""
+    """The large-rank routes at their shapes: the block solve at ranks
+    256 and 320 and its device-memory route at 384 (4,096 systems each),
+    and the tile-group assembly at ranks 256 and 320 (4,096 synthetic
+    rows of 128 slots), each with its plain version, one library call
+    (``cholesky`` + ``cholesky_solve``; ``bmm`` over the weighted
+    gather) and its bound. Returns {"spd_solve": [...],
+    "assemble_normal_equations": [...]}, a row per rank."""
     import torch
 
     from predictionio_tpu_torch.ops import als_cuda
 
-    out = {}
-    R, B = 320, 4096
-    G = torch.randn((B, R, R), device=dev,
-                    generator=torch.Generator(dev).manual_seed(R))
-    A = G @ G.transpose(1, 2) / R + torch.eye(R, device=dev)
-    b = torch.randn((B, R), device=dev)
-    del G
-    t_k = time_ms(lambda: als_cuda.spd_solve(A, b), 3)
-    t_p = time_ms(lambda: als_cuda.spd_solve_plain(A, b), 1)
-    t_l = time_ms(lambda: torch.cholesky_solve(
-        b[:, :, None], torch.linalg.cholesky(A)), 3)
-    b_ms, b_by = bound_of(*solve_work(B, R))
-    out["spd_solve"] = {"route": "device", "R": R, "B": B, "ms": t_k,
-                        "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
-                        "bound_by": b_by}
-    print(f"[time] spd_solve device route R={R} B={B}: kernel {t_k!r} ms  "
-          f"plain {t_p!r} ms  library {t_l!r} ms  bound {b_ms!r} ms ({b_by})")
-    del A, b
+    out = {"spd_solve": [], "assemble_normal_equations": []}
+    B = LARGE_TIMED_SYSTEMS
+    for R in LARGE_TIMED_RANKS + (LARGE_TIMED_DEVICE_RANK,):
+        t0 = time.perf_counter()
+        A, b = spd_systems(dev, B, R)
+        t_k = time_ms(lambda: als_cuda.spd_solve(A, b), 3)
+        # the plain version, one call (R launches of [B, R, R] updates,
+        # 0.2-0.8 s a call)
+        t_p = time_ms(lambda: als_cuda.spd_solve_plain(A, b), 1, warmups=0)
+        t_l = time_ms(lambda: torch.cholesky_solve(
+            b[:, :, None], torch.linalg.cholesky(A)), 3)
+        b_ms, b_by = bound_of(*solve_work(B, R))
+        route = solve_plan_of(dev, R).route
+        out["spd_solve"].append({
+            "route": route, "R": R, "B": B, "ms": t_k, "plain_ms": t_p,
+            "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by,
+            "s": time.perf_counter() - t0})
+        print(f"[time] spd_solve {route} route R={R} B={B}: kernel {t_k!r} "
+              f"ms  plain {t_p!r} ms  library {t_l!r} ms  bound {b_ms!r} ms "
+              f"({b_by})")
+        del A, b
+        torch.cuda.empty_cache()
 
-    R, B, L = 256, 4096, 128
-    rng = np.random.default_rng(R)
-    Y = torch.from_numpy(0.3 * rng.standard_normal((M_ITEMS, R)).astype(
-        np.float32)).to(dev)
-    gram = Y.T @ Y + LAMBDA * torch.eye(R, device=dev)
-    (cols, aw, bw, _), = synthetic_rows(dev, rng, ((B, L),))
-    nnz = int(((aw != 0) | (bw != 0)).sum())
-    Yg = Y[cols.long()]
-    awYg = (aw[:, :, None] * Yg).transpose(1, 2)
-    t_k = time_ms(lambda: als_cuda.assemble_normal_equations(
-        Y, cols, aw, bw, gram), 3)
-    t_p = time_ms(lambda: als_cuda.assemble_normal_equations_plain(
-        Y, cols, aw, bw, gram), 1)
-    t_l = time_ms(lambda: torch.bmm(awYg, Yg), 3)
-    b_ms, b_by = bound_of(*assembly_work(B, L, nnz, M_ITEMS, R))
-    out["assemble_normal_equations"] = {
-        "route": "large_rank", "R": R, "B": B, "L": L, "slots": nnz,
-        "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
-        "bound_by": b_by}
-    print(f"[time] assemble large-rank route R={R} B={B} L={L}: kernel "
-          f"{t_k!r} ms  plain {t_p!r} ms  library {t_l!r} ms  bound "
-          f"{b_ms!r} ms ({b_by})")
+    B, L = LARGE_TIMED_ROWS, LARGE_TIMED_SLOTS
+    for R in LARGE_TIMED_RANKS:
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(R)
+        Y = torch.from_numpy(0.3 * rng.standard_normal(
+            (M_ITEMS, R)).astype(np.float32)).to(dev)
+        gram = Y.T @ Y + LAMBDA * torch.eye(R, device=dev)
+        (cols, aw, bw, _), = synthetic_rows(dev, rng, ((B, L),))
+        nnz = int(((aw != 0) | (bw != 0)).sum())
+        Yg = Y[cols.long()]
+        awYg = (aw[:, :, None] * Yg).transpose(1, 2)
+        t_k = time_ms(lambda: als_cuda.assemble_normal_equations(
+            Y, cols, aw, bw, gram), 3)
+        t_p = time_ms(lambda: als_cuda.assemble_normal_equations_plain(
+            Y, cols, aw, bw, gram), 1)
+        t_l = time_ms(lambda: torch.bmm(awYg, Yg), 3)
+        b_ms, b_by = bound_of(*assembly_work(B, L, nnz, M_ITEMS, R))
+        out["assemble_normal_equations"].append({
+            "route": "tile_groups", "R": R, "B": B, "L": L, "slots": nnz,
+            "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
+            "bound_by": b_by, "s": time.perf_counter() - t0})
+        print(f"[time] assemble tile-group route R={R} B={B} L={L}: kernel "
+              f"{t_k!r} ms  plain {t_p!r} ms  library {t_l!r} ms  bound "
+              f"{b_ms!r} ms ({b_by})")
+        del Y, gram, cols, aw, bw, Yg, awYg
+        torch.cuda.empty_cache()
     return out
 
 
@@ -7237,17 +7629,34 @@ def quick_start(seed: int, cycle: dict, card: str,
               f"written) in {export_s!r} s, beside pio train, the "
               f"deployment's checks and undeploy")
 
-        out["feedback"] = qs_feedback_and_top(work, eng, env, key, queries,
-                                              steps, card)
-        out["fleet"] = qs_fleet(work, eng, env, key, queries, want_answers,
+        # pio batchpredict (its clean run, and the killed run and its
+        # rerun) reads only the instance: it runs beside the feedback and
+        # fleet deploys, and the seconds the overlap hides are printed
+        t = time.perf_counter()
+        with ThreadPoolExecutor(1) as pool:
+            batch = pool.submit(qs_batchpredict, work, eng, env, iid, model,
                                 steps, card)
-        out["batchpredict"] = qs_batchpredict(work, eng, env, iid, model,
-                                              steps, card)
+            out["feedback"] = qs_feedback_and_top(work, eng, env, key,
+                                                  queries, steps, card)
+            out["fleet"] = qs_fleet(work, eng, env, key, queries,
+                                    want_answers, steps, card)
+            deploys_s = time.perf_counter() - t
+            out["batchpredict"] = batch.result()
+        wall_s = time.perf_counter() - t
+        out["overlap"] = {
+            "deploys_s": deploys_s, "batchpredict_s": steps["batchpredict"],
+            "wall_s": wall_s,
+            "hidden_s": deploys_s + steps["batchpredict"] - wall_s}
+        print(f"[quickstart] the feedback and fleet deploys {deploys_s!r} s "
+              f"beside pio batchpredict {steps['batchpredict']!r} s: "
+              f"{wall_s!r} s of wall, {out['overlap']['hidden_s']!r} s "
+              f"hidden")
         print("[quickstart] step seconds: " + ", ".join(
             f"{k} {v!r}" for k, v in steps.items()) + "; the short verbs "
             "ran beside the ratings draw and JSONL write, export beside "
             "train, the deployed queries, profile, undeploy and deploy "
-            "exit; the crash trio follows, beside 6c and 6d")
+            "exit, pio batchpredict beside the feedback and fleet deploys; "
+            "the crash trio follows, beside 6c and 6d")
         out["resume"] = KillResume(work, store, eng, env)
         if keep_store:
             out["kept"] = {"work": work, "store": store, "env": env}
@@ -11513,6 +11922,11 @@ def main() -> int:
              "and 5d (the training ladder: warmed trainings replaying "
              "their CUDA graphs)")
     parser.add_argument(
+        "--large-rank", action="store_true",
+        help="build, then only run phase 2b's large-rank checks (B3's "
+             "tile-group route, B2's block and device-memory routes, the "
+             "rank-256 training) and phase 4b's large-rank timings")
+    parser.add_argument(
         "--sharded", action="store_true",
         help="build, then only run phase 8a (the host/device crossover), "
              "phase 5 (store and training) and phase 8b (sharded serving)")
@@ -11644,6 +12058,12 @@ def main() -> int:
         print(json.dumps({"crossover": out}))
         print(nvidia_smi())
         return 0
+    if args.large_rank:
+        out = phase("2b/4b large-rank routes", large_rank_only, dev,
+                    args.seed, card)
+        print(json.dumps({"large_rank": out}))
+        print(nvidia_smi())
+        return 0
     if args.ladder:
         out = phase("3g serving ladder", ladder_only, dev, args.seed, card)
         print(json.dumps({"ladder": out}, default=str))
@@ -11727,7 +12147,11 @@ def main() -> int:
     rows = phase("4 serving kernel times", timings, dev, args.seed)
     crossover = phase("4c route crossover", route_crossover, dev, args.seed)
     train_times = phase("4b training kernel times", training_timings, dev,
-                        trained)
+                        trained, args.seed)
+    large_s = {f"{name} R={r['R']}": r["s"]
+               for name, rows_ in train_times["large"].items() for r in rows_}
+    large_work_s = train_err["edge_s"] + train_err["grid_s"] \
+        + sum(large_s.values()) + train_times["large_iteration"]["s"]
     crossing = phase("8a host/device crossover", host_crossover, dev,
                      args.seed, card)
     sharded = phase("8b sharded serving", sharded_serving, dev, trained,
@@ -11742,6 +12166,15 @@ def main() -> int:
     try:
         started = phase("6b quick start", quick_start, args.seed, cycle,
                         card, True)
+        print(f"[budget] the large-rank work {large_work_s:.2f} s: phase "
+              f"2b's ranks {EDGE_RANKS} {train_err['edge_s']:.2f} s and "
+              f"its tile-group grid check {train_err['grid_s']:.2f} s; "
+              f"phase 4b's large-rank timings "
+              f"{json.dumps({k: round(v, 2) for k, v in large_s.items()})}"
+              f" s; its rank-{LARGE_ITER_RANK} iteration at ML-20M width "
+              f"{train_times['large_iteration']['s']:.2f} s. Phase 6b's "
+              f"overlap of pio batchpredict with the feedback and fleet "
+              f"deploys hides {started['overlap']['hidden_s']:.2f} s")
         evaluated = phase("6c pio eval", console_eval, args.seed,
                           started["kept"], card)
         networked = phase("6d networked event store", networked_store,
@@ -11863,11 +12296,22 @@ def main() -> int:
         # the fold-in solve's shapes: launches from phase 3b, the times of
         # its largest shape (B=256, L=2,048), every timed shape listed
         fold_rows_t = train_times["foldin"][name]
+        # the large-rank route: its R = 256 row, the launches of phase
+        # 2b's rank-256 training, every timed rank, and phase 4b's
+        # rank-256 iteration at ML-20M width
+        large = train_times["large"][name]
+        li = train_times["large_iteration"]
         routes = [{"route": main_route, "R": RANK,
                    "launches": trained["launches"][name],
                    **train_times["heads"][name]},
-                  {**train_times["large"][name],
-                   "launches": train_err["large_rank_training"]["launches"][name]},
+                  {**large[0],
+                   "launches": train_err["large_rank_training"]["launches"][name],
+                   "timings": large,
+                   "ml20m_iteration": {
+                       "R": li["R"], "iteration_ms": li["iteration_ms"],
+                       "device_ms": li["profiled"][
+                           "B3" if name.startswith("assemble") else "B2"],
+                       "launches": li["launches"][name]}},
                   {"route": "foldin", "R": RANK,
                    "launches": folded["launches"][name],
                    **{k: fold_rows_t[-1][k] for k in (

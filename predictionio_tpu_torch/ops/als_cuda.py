@@ -43,9 +43,11 @@ there has one here:
   rows arrives by ``cp.async`` while this one is summed, one barrier a
   chunk. No ``[B, L, R]`` gather reaches device memory; padding slots
   are neither gathered nor summed. Ranks up to 208 on an H100; above
-  that :func:`assembly_route` picks ``assemble_large_rank_kernel`` in
-  the same source, one block per (row, 32x32 tile of ``A``'s upper
-  triangle) and one for ``b``, which takes any rank. Both take the
+  that :func:`assembly_route` picks the same kernel's tile-group route,
+  which takes any rank: ``A``'s 8x8 tiles fall into bands of at most 20,
+  and each diagonal band and each pair of bands (cut in two above 256
+  tiles) is a block of its own per (row, span), gathering only its
+  segments of each factor row. Both take the
   factor store ``Y`` fp32 or bf16 (the bf16 training precision): a bf16
   row is converted to fp32 as it is gathered, so everything after the
   gather is the fp32 route's arithmetic, and the bound reads ``Y`` as
@@ -55,17 +57,20 @@ there has one here:
   ``blockIdx.y``, each summed as its own launch would sum it (bitwise);
   its bound is ``k`` times one config's.
 - ``spd_solve`` (training; ``als_pallas.py:277``, kernel
-  ``_spd_solve_kernel``) is ``spd_solve_warp_kernel`` in the same
-  source. Bound: ``B*(R(R+1)/2+2R)*4`` bytes (the upper triangle of
-  ``A``, ``b`` and ``x``) against ``B*(R^3/3+2R^2)`` operations; the
-  bytes bind. One warp per system, no block barriers: non-pivoted,
-  up-looking Cholesky with the pivot clamped at ``max(d, 1e-30)``, row
-  by row in registers, then two substitutions, each entry taking the
-  plain version's operations in its order (bitwise equal to it). The
-  warp's workspace (the packed upper triangle of ``U`` and ``v``) lives
-  in shared memory or, at ranks where fewer than two fit a block, in
-  device memory: :func:`spd_solve_plan` picks the route, and any rank
-  runs.
+  ``_spd_solve_kernel``) is ``spd_solve_warp_kernel`` and
+  ``spd_solve_block_kernel`` in the same source. Bound:
+  ``B*(R(R+1)/2+2R)*4`` bytes (the upper triangle of ``A``, ``b`` and
+  ``x``) against ``B*(R^3/3+2R^2)`` operations; the bytes bind at small
+  rank. Non-pivoted, up-looking Cholesky with the pivot clamped at
+  ``max(d, 1e-30)``, row by row in registers, then two substitutions,
+  each entry taking the plain version's operations in its order (bitwise
+  equal to it). The workspace (the packed upper triangle of ``U`` and
+  ``v``) lives in shared memory: one warp a system while two fit a
+  block, else one block of 16 warps a system (for each 32 rows, a warp
+  a row pair takes every earlier step, then the rows are finished pair
+  by pair over the column groups); above one block's shared memory the
+  block route keeps it in device memory. :func:`spd_solve_plan` picks
+  the route, and any rank runs.
 
 For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
 tensor it runs the plain PyTorch version beside it, which the tests
@@ -474,11 +479,11 @@ def masked_scores_plain(Q: torch.Tensor, Y, seen_cols: Optional[torch.Tensor],
 class _SolveLib(NamedTuple):
     assemble: object
     assemble_grid: object
-    assemble_large: object
     solve: object
     err_string: object
-    assemble_max_rank: int   # assemble_kernel's limit on this device
+    assemble_max_rank: int   # assemble_kernel's tiles route's limit
     smem_optin: int          # shared memory one block may opt into
+    sm_count: int            # the device's streaming multiprocessors
 
 
 def _solve_kernels(device: int) -> _SolveLib:
@@ -491,17 +496,13 @@ def _solve_kernels(device: int) -> _SolveLib:
             lib = load_kernel_library(SOLVE_KERNEL_NAME)
             p, i = ctypes.c_void_p, ctypes.c_int
             asm = lib.pio_assemble_normal_equations
-            asm.argtypes = [i, p, i, i, i, p, p, p, i, i, i, i, i, p, p, p,
-                            p, p, p, p]
+            asm.argtypes = [i, p, i, i, i, p, p, p, i, i, i, i, i, i, p, p,
+                            p, p, p, p, p]
             asm.restype = i
             grid = lib.pio_assemble_normal_equations_grid
-            grid.argtypes = [i, p, i, i, i, i, p, p, p, i, i, i, i, i, p, p,
-                             p, p, p, p, p]
+            grid.argtypes = [i, p, i, i, i, i, p, p, p, i, i, i, i, i, i, p,
+                             p, p, p, p, p, p]
             grid.restype = i
-            large = lib.pio_assemble_large_rank
-            large.argtypes = [i, p, i, i, i, p, p, p, i, i, p, p, p, p, p,
-                              p]
-            large.restype = i
             solve = lib.pio_spd_solve
             solve.argtypes = [i, p, p, i, i, p, i, i, p, i, p, p, p]
             solve.restype = i
@@ -512,8 +513,8 @@ def _solve_kernels(device: int) -> _SolveLib:
                          "pio_als_solve_init"):
                 getattr(lib, name).argtypes = [i]
                 getattr(lib, name).restype = i
-            _solve_bound = (lib, asm, grid, large, solve, err)
-        lib, asm, grid, large, solve, err_string = _solve_bound
+            _solve_bound = (lib, asm, grid, solve, err)
+        lib, asm, grid, solve, err_string = _solve_bound
         if device not in _solve_ready:
             limits = (int(lib.pio_assemble_max_rank(device)),
                       int(lib.pio_als_smem_optin(device)))
@@ -523,9 +524,9 @@ def _solve_kernels(device: int) -> _SolveLib:
                 raise RuntimeError(f"als_solve set-up on cuda:{device} failed: "
                                    f"CUDA error {code} "
                                    f"({err_string(code).decode()})")
-            _solve_ready[device] = limits
-    return _SolveLib(asm, grid, large, solve, err_string,
-                     *_solve_ready[device])
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+            _solve_ready[device] = (*limits, int(sms))
+    return _SolveLib(asm, grid, solve, err_string, *_solve_ready[device])
 
 
 # Most slots one assembly block sums (a multiple of the kernel's 64-slot
@@ -575,16 +576,16 @@ _ASM_Y_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 def assembly_route(R: int, max_rank: int, dtype: torch.dtype = torch.float32
                    ) -> str:
-    """The assembly kernel for rank ``R`` and a factor store of ``dtype``
-    (fp32 or bf16) when ``assemble_kernel`` takes ranks up to
-    ``max_rank`` (the library's ``pio_assemble_max_rank``): "tiles"
-    (``assemble_kernel``, the main path) or "large_rank"
-    (``assemble_large_rank_kernel``, any rank). A bf16 row is widened to
-    fp32 as it is gathered into the same shared tile, so both dtypes
-    share the limit; another dtype raises."""
+    """The assembly route for rank ``R`` and a factor store of ``dtype``
+    (fp32 or bf16) when ``assemble_kernel``'s tiles route takes ranks up
+    to ``max_rank`` (the library's ``pio_assemble_max_rank``): "tiles"
+    (one block holds every upper tile of ``A``, the main path) or
+    "tile_groups" (a block per group of ``A``'s tiles, any rank). A bf16
+    row is widened to fp32 as it is gathered into the same shared tile,
+    so both dtypes share the limit; another dtype raises."""
     if dtype not in _ASM_Y_DTYPE_CODE:
         raise TypeError(f"Y must be fp32 or bf16, got {dtype}")
-    return "tiles" if R <= max_rank else "large_rank"
+    return "tiles" if R <= max_rank else "tile_groups"
 
 
 def check_assembly_args(Y: torch.Tensor, cols: torch.Tensor, aw: torch.Tensor,
@@ -594,7 +595,7 @@ def check_assembly_args(Y: torch.Tensor, cols: torch.Tensor, aw: torch.Tensor,
     wrapper raises: tensors on ``Y``'s device, ``Y`` fp32 or bf16, the
     rest fp32 (``cols`` int32), contiguous, of shapes ``Y [M, R]``,
     ``cols``/``aw``/``bw [B, L]``, ``gram [R, R]``, and ``R`` at most
-    the kernel's ``max_rank`` (the main route's limit; the large-rank
+    the kernel's ``max_rank`` (the tiles route's limit; the tile-group
     route passes ``R``)."""
     dev = Y.device
     if Y.ndim != 2 or cols.ndim != 2:
@@ -647,7 +648,7 @@ def assemble_normal_equations(Y: torch.Tensor, cols: torch.Tensor,
     term. ``events`` (CUDA only), a pair of
     ``torch.cuda.Event(enable_timing=True)``, is recorded around the
     kernels inside the native launch. Launches count by ``(route,
-    dtype)``: ``("tiles" | "large_rank", "fp32" | "bf16")``."""
+    dtype)``: ``("tiles" | "tile_groups", "fp32" | "bf16")``."""
     if Y.device.type == "cpu":
         return assemble_normal_equations_plain(Y, cols, aw, bw, gram)
     if Y.device.type != "cuda":
@@ -666,15 +667,6 @@ def assemble_normal_equations(Y: torch.Tensor, cols: torch.Tensor,
         return A, b
     stream = torch.cuda.current_stream(dev).cuda_stream
     y_code = _ASM_Y_DTYPE_CODE[Y.dtype]
-    key = (route, "bf16" if y_code else "fp32")
-    if route == "large_rank":
-        _check_launch(lib.assemble_large(
-            device, Y.data_ptr(), y_code, M, R, cols.data_ptr(),
-            aw.data_ptr(), bw.data_ptr(), B, L, gram.data_ptr(), A.data_ptr(),
-            b.data_ptr(), stream, *_native_events(events, dev)),
-            "assemble_normal_equations", lib.err_string)
-        _count("assemble_launches", key)
-        return A, b
     plan = assembly_plan(L)
     partial = None
     if plan.n_spans > 1:
@@ -683,12 +675,13 @@ def assemble_normal_equations(Y: torch.Tensor, cols: torch.Tensor,
     _check_launch(lib.assemble(device, Y.data_ptr(), y_code, M, R,
                      cols.data_ptr(), aw.data_ptr(), bw.data_ptr(), B, L,
                      plan.span,
-                     plan.n_spans, int(plan.grouped), gram.data_ptr(),
+                     plan.n_spans, int(plan.grouped),
+                     int(route == "tile_groups"), gram.data_ptr(),
                      A.data_ptr(), b.data_ptr(),
                      None if partial is None else partial.data_ptr(), stream,
                      *_native_events(events, dev)),
                   "assemble_normal_equations", lib.err_string)
-    _count("assemble_launches", key)
+    _count("assemble_launches", (route, "bf16" if y_code else "fp32"))
     return A, b
 
 
@@ -721,13 +714,12 @@ def assemble_normal_equations_grid(Y: torch.Tensor, cols: torch.Tensor,
     L]`` and ``gram [k, R, R]`` carry a config axis, ``cols [B, L]`` is
     shared; returns ``A [k, B, R, R]`` and ``b [k, B, R]`` fp32.
 
-    On the main route (``tiles``) it is one launch of ``assemble_kernel``
-    for all ``k`` (the config in ``blockIdx.y``), each config summed in
-    the order of its own single-config launch, so ``A[z], b[z]`` are
-    bitwise :func:`assemble_normal_equations` on ``(Y[z], cols, aw[z],
-    bw[z], gram[z])``; its launches count under ``("tiles_grid",
-    dtype)``. Above ``assemble_kernel``'s rank limit each config is one
-    launch of the large-rank route (counted as such)."""
+    It is one launch of ``assemble_kernel`` for all ``k`` (the config in
+    ``blockIdx.y``), on the route :func:`assembly_route` picks, each
+    config summed in the order of its own single-config launch, so
+    ``A[z], b[z]`` are bitwise :func:`assemble_normal_equations` on
+    ``(Y[z], cols, aw[z], bw[z], gram[z])``; its launches count under
+    ``("tiles_grid" | "tile_groups_grid", dtype)``."""
     if Y.device.type == "cpu":
         return assemble_normal_equations_grid_plain(Y, cols, aw, bw, gram)
     if Y.device.type != "cuda":
@@ -743,13 +735,9 @@ def assemble_normal_equations_grid(Y: torch.Tensor, cols: torch.Tensor,
     _check_capture(SOLVE_KERNEL_NAME, _solve_ready, device, None)
     lib = _solve_kernels(device)
     route = assembly_route(Y.shape[-1], lib.assemble_max_rank, Y.dtype)
-    if route == "large_rank":
-        out = [assemble_normal_equations(Y[z], cols, aw[z], bw[z], gram[z])
-               for z in range(k)]
-        return (torch.stack([a for a, _ in out]),
-                torch.stack([b for _, b in out]))
-    M, R, B, L = check_assembly_args(Y[0], cols, aw[0], bw[0], gram[0],
-                                     lib.assemble_max_rank)
+    M, R, B, L = check_assembly_args(
+        Y[0], cols, aw[0], bw[0], gram[0],
+        lib.assemble_max_rank if route == "tiles" else Y.shape[-1])
     _require(Y, "Y", Y.dtype, (k, M, R), dev)
     _require(aw, "aw", torch.float32, (k, B, L), dev)
     _require(bw, "bw", torch.float32, (k, B, L), dev)
@@ -767,12 +755,13 @@ def assemble_normal_equations_grid(Y: torch.Tensor, cols: torch.Tensor,
     _check_launch(lib.assemble_grid(
         device, Y.data_ptr(), y_code, k, M, R, cols.data_ptr(),
         aw.data_ptr(), bw.data_ptr(), B, L, plan.span, plan.n_spans,
-        int(plan.grouped), gram.data_ptr(), A.data_ptr(), b.data_ptr(),
+        int(plan.grouped), int(route == "tile_groups"), gram.data_ptr(),
+        A.data_ptr(), b.data_ptr(),
         None if partial is None else partial.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream, None, None),
         "assemble_normal_equations_grid", lib.err_string)
     _count("assemble_launches",
-           ("tiles_grid", "bf16" if y_code else "fp32"))
+           (f"{route}_grid", "bf16" if y_code else "fp32"))
     return A, b
 
 
@@ -793,18 +782,27 @@ def assemble_normal_equations_grid_plain(Y: torch.Tensor, cols: torch.Tensor,
 # the shared-memory latency of its serial chain unhidden)
 SPD_MAX_WARPS = 8
 SPD_MIN_SHARED_WARPS = 2
-# the device-memory route's workspaces: at most this many slots and bytes
-SPD_DEVICE_SLOTS = 2048
+# spd_solve_block_kernel: the warps of one system's block, and the floats
+# of pivot scalars its workspace holds past the triangle and v (two slots)
+SPD_BLOCK_WARPS = 16
+SPD_BLOCK_SCALARS = 8
+# the device-memory route's workspaces: one per block of a grid of at
+# most this many blocks an SM, and at most this many bytes in all
+SPD_DEVICE_BLOCKS_PER_SM = 2
 SPD_DEVICE_BYTES = 256 << 20
+_SPD_ROUTE_CODE = {"shared": 0, "block": 1, "device": 2}
 
 
 class SpdSolvePlan(NamedTuple):
-    """Where ``spd_solve_warp_kernel`` keeps each warp's workspace of
-    ``workspace_floats`` (the packed upper triangle of ``U`` and ``v``):
-    route "shared", ``warps_per_block`` of them in a block's shared
-    memory; or route "device", ``slots`` of them in device memory (a
-    multiple of ``warps_per_block``), one per warp of the grid, each warp
-    looping over systems."""
+    """Where the solve keeps each system's workspace of
+    ``workspace_floats`` (the packed upper triangle of ``U`` and ``v``,
+    and for the block routes the pivot scalars): route "shared",
+    ``spd_solve_warp_kernel``, one warp a system, ``warps_per_block``
+    workspaces in a block's shared memory; route "block",
+    ``spd_solve_block_kernel``, one block of ``warps_per_block`` warps a
+    system, its workspace in shared memory; route "device", the same
+    kernel over a grid of ``slots`` blocks, each with a workspace in
+    device memory, each block looping over systems."""
 
     route: str
     warps_per_block: int
@@ -812,21 +810,26 @@ class SpdSolvePlan(NamedTuple):
     slots: int
 
 
-def spd_solve_plan(R: int, smem_optin: int) -> SpdSolvePlan:
-    """The route of a rank-``R`` solve on a device whose blocks may opt
-    into ``smem_optin`` bytes of shared memory (the library's
-    ``pio_als_smem_optin``): shared memory while at least
-    ``SPD_MIN_SHARED_WARPS`` workspaces fit a block, else device memory,
-    with a bounded number of slots (not one per system)."""
+def spd_solve_plan(R: int, smem_optin: int, sm_count: int) -> SpdSolvePlan:
+    """The route of a rank-``R`` solve on a device of ``sm_count``
+    streaming multiprocessors whose blocks may opt into ``smem_optin``
+    bytes of shared memory (the library's ``pio_als_smem_optin``): one
+    warp a system while at least ``SPD_MIN_SHARED_WARPS`` workspaces fit
+    a block, else one block a system in shared memory while its
+    workspace fits, else the same in device memory, with a bounded
+    number of slots (not one per system)."""
     if R < 1:
         raise ValueError(f"rank must be positive, got {R}")
     ws = R * (R + 1) // 2 + R
     fit = smem_optin // (4 * ws)
     if fit >= SPD_MIN_SHARED_WARPS:
         return SpdSolvePlan("shared", min(SPD_MAX_WARPS, fit), ws, 0)
-    slots = min(SPD_DEVICE_SLOTS, SPD_DEVICE_BYTES // (4 * ws))
-    slots = max(SPD_MAX_WARPS, slots // SPD_MAX_WARPS * SPD_MAX_WARPS)
-    return SpdSolvePlan("device", SPD_MAX_WARPS, ws, slots)
+    ws += SPD_BLOCK_SCALARS
+    if 4 * ws <= smem_optin:
+        return SpdSolvePlan("block", SPD_BLOCK_WARPS, ws, 0)
+    slots = min(SPD_DEVICE_BLOCKS_PER_SM * sm_count,
+                SPD_DEVICE_BYTES // (4 * ws))
+    return SpdSolvePlan("device", SPD_BLOCK_WARPS, ws, max(1, slots))
 
 
 def spd_solve(A: torch.Tensor, b: torch.Tensor,
@@ -837,9 +840,9 @@ def spd_solve(A: torch.Tensor, b: torch.Tensor,
     clamped at ``max(d, 1e-30)``, then forward and backward
     substitution. Reads the upper triangle of ``A``. On the GPU the
     result is bitwise equal to :func:`spd_solve_plain`, at any rank:
-    :func:`spd_solve_plan` keeps the kernel's workspace in shared memory
-    or, for large ranks, in device memory. ``events`` as in
-    :func:`assemble_normal_equations`."""
+    :func:`spd_solve_plan` picks one warp or one block a system, and for
+    the largest ranks a workspace in device memory. Launches count by
+    route. ``events`` as in :func:`assemble_normal_equations`."""
     if A.device.type == "cpu":
         return spd_solve_plain(A, b)
     if A.device.type != "cuda":
@@ -856,21 +859,20 @@ def spd_solve(A: torch.Tensor, b: torch.Tensor,
     device = _device_index(dev)
     _check_capture(SOLVE_KERNEL_NAME, _solve_ready, device, events)
     lib = _solve_kernels(device)
-    plan = spd_solve_plan(R, lib.smem_optin)
+    plan = spd_solve_plan(R, lib.smem_optin, lib.sm_count)
     slots, workspace = 0, None
     if plan.route == "device":
-        w = plan.warps_per_block
-        slots = min(plan.slots, -(-B // w) * w)
+        slots = min(plan.slots, B)
         workspace = torch.empty(slots * plan.workspace_floats,
                                 dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _check_launch(lib.solve(device, A.data_ptr(), b.data_ptr(), B, R,
-                            x.data_ptr(), int(plan.route == "shared"),
+                            x.data_ptr(), _SPD_ROUTE_CODE[plan.route],
                             plan.warps_per_block,
                             None if workspace is None else workspace.data_ptr(),
                             slots, stream, *_native_events(events, dev)),
                   "spd_solve", lib.err_string)
-    _count("spd_launches")
+    _count("spd_launches", plan.route)
     return x
 
 

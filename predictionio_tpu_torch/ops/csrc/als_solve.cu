@@ -1,11 +1,13 @@
 // The two kernels of an ALS half-step, written for Hopper (sm_90a):
 //
-//   assemble_kernel             replaces predictionio_tpu/ops/als_pallas.py::
-//                               assemble_normal_equations (kernel _kernel),
-//                               also under the config grid's vmap
-//   assemble_large_rank_kernel  the same, above assemble_kernel's rank limit
-//   spd_solve_warp_kernel       replaces predictionio_tpu/ops/als_pallas.py::
-//                               spd_solve (kernel _spd_solve_kernel)
+//   assemble_kernel         replaces predictionio_tpu/ops/als_pallas.py::
+//                           assemble_normal_equations (kernel _kernel),
+//                           also under the config grid's vmap; at any rank
+//                           (its tile-group route)
+//   spd_solve_warp_kernel   replaces predictionio_tpu/ops/als_pallas.py::
+//   spd_solve_block_kernel  spd_solve (kernel _spd_solve_kernel): one warp
+//                           a system, or one block above the ranks where
+//                           two warps' workspaces fit a block
 //
 // assemble_kernel. For each solve row b with slots l < L it gathers
 // y_l = Y[cols[b, l]] and writes
@@ -15,8 +17,8 @@
 // memory: each block gathers its slots' factor rows into shared memory,
 // which is what the TPU kernel's VMEM gather bought. Rank is taken as
 // given (the TPU kernel padded it to 128 for DMA alignment), up to what
-// one block holds (pio_assemble_max_rank: 208 on an H100); above that the
-// host launches assemble_large_rank_kernel, which takes any rank.
+// one block's threads hold one tile each (pio_assemble_max_rank: 208 on an
+// H100); above that the host launches its tile-group route (below).
 // Y is fp32 or bf16 (the bf16 training precision's factor store, the
 // bf16 lane of predictionio_tpu/ops/als.py::_solve_rows): the kernels are
 // templated on the factor type, a bf16 row is converted to fp32 as it is
@@ -64,31 +66,56 @@
 //   does, so its sums come out bitwise equal to its own launch, and no
 //   scratch is shared between configs (a NaN stays in its lane). The
 //   single-config entry is the grid entry at K = 1.
+// - The tile-group route (kParts) takes any rank: A's tiles fall into
+//   bands of at most 20 tiles (160 columns), and each diagonal band, and
+//   each pair of bands (cut into two halves of its rows above 256 tiles),
+//   is a block of its own (a "part", blockIdx.x % band_parts) with its
+//   tiles and, on the diagonal, its rows' stripes of b. The block gathers
+//   only its part's segments of each factor row (at most 256 columns),
+//   32 slots a chunk, so its shared memory (96 KB) does not grow with the
+//   rank and two blocks (16 warps) share an SM. One slot group: each part
+//   sums its slots in slot order, so an entry's sum is the same whichever
+//   part holds it, and the spans' partials and assemble_reduce_kernel are
+//   the main route's. A task is 3 blocks at R = 256 (two of 152 items,
+//   one of 256), 4 at R = 320 (230, 200, 200, 230); every part re-stages
+//   the row's (cols, aw, bw) slice and gathers its own segments.
 //
 // spd_solve_warp_kernel. One warp solves one system A x = b: non-pivoted
 // Cholesky A = U^T U on the upper triangle, with the pivot clamped at
 // max(d, 1e-30) as in the TPU kernel, then U^T y = b and U x = y by
 // column sweeps. The warp first copies A's upper triangle into its
-// workspace, packed row by row, with every load in flight at once; U then
-// overwrites it in place. The factorization is up-looking: row i of U is
+// workspace in shared memory, packed row by row, with every load in
+// flight at once; U then overwrites it in place. The factorization is
+// up-looking: row i of U is
 // summed in registers (lane l holds columns w + l + 32m, m < 8, of a
 // 256-column window from the 32-column group w that holds the diagonal;
 // a longer row loops over windows) from a_ij and the rows k < i of U, the
 // k loop running over the window's column groups inside the matrix alone.
-// Rows go in pairs, which share each u_kj the k loop loads. Up to rank
-// 256 the sweeps keep v in registers. Every entry takes the
+// Rows go in pairs, which share each u_kj the k loop loads. The sweeps
+// keep v in registers (this kernel takes R <= 256). Every entry takes the
 // plain version's operations in its order, each product rounded before
 // its subtraction (__fmul_rn / __fsub_rn, no FMA contraction), so the
 // result is bitwise equal to it. No block barrier: lanes meet at
-// __syncwarp and shuffles. The workspace holds the packed upper triangle
-// and v, T(R) + R floats (R = 64: 8.6 KB), in shared memory when the
-// host's plan fits two or more a block, else in device memory (fixed
-// slots, each warp looping over systems), so only memory limits the
-// rank. The TPU kernel's batch-on-lanes layout is a TPU device and is not
-// copied.
+// __syncwarp and shuffles. The workspace, solve_ws_floats(R) = T(R) + R
+// floats (R = 64: 8.6 KB), holds the packed upper triangle (the last R
+// are v's room in the block route's layout); the host's plan takes this
+// kernel while two or more fit a block (R <= 239 on an H100). The TPU
+// kernel's batch-on-lanes layout is a TPU device and is not copied.
+//
+// spd_solve_block_kernel. Above that one warp alone walked R^3 / 6
+// dependent products through its workspace, with ~10 warps an SM. Here
+// 16 warps share one system, whose workspace (132,608 bytes at R = 256,
+// 206,720 at 320) fits a block's shared memory up to R = 339: for each
+// 32 rows, one warp a row pair takes every step k of the rows before
+// them, then the 32 rows are finished pair by pair over the column
+// groups, so every entry keeps the warp kernel's sequence (bitwise equal
+// to the plain version) while 16 warps sum at once (see the kernel).
+// Above R = 339 the same
+// kernel keeps the workspace in device memory, one slot per block of a
+// grid of at most two blocks an SM, so only memory limits the rank.
 // Bound on this card: B * (R(R+1)/2 + 2R) * 4 bytes (the upper triangle
 // of A, b and x) at 3.35 TB/s against B * (R^3/3 + 2R^2) fp32
-// operations; the bytes bind.
+// operations; the bytes bind below R of about 120, the operations above.
 
 #include <cuda_runtime.h>
 
@@ -105,10 +132,12 @@ constexpr int ASM_SMALL_THREADS = 192;  // up to here three blocks share an SM
 constexpr int ASM_META = 3;          // chunks of (cols, aw, bw) in flight
 constexpr int ASM_SLICE = 2048;      // most (col, aw, bw) slots a block stages at its start
 constexpr int REDUCE_THREADS = 256;
-constexpr int LR_TILE = 32;          // assemble_large_rank_kernel: 32 x 32 tiles of A
-constexpr int LR_THREADS = 256;      // ... 4 entries a thread
-constexpr int LR_SLOTS = 32;         // ... slots staged at a time
+constexpr int BAND_MAX = 20;         // tile-group route: most tiles of 8 a band
+constexpr int PART_CHUNK = 32;       // ... its slots gathered at a time
+constexpr int PART_THREADS = 256;    // ... the most items (threads) of a part
 constexpr int SOLVE_MAX_WARPS = 8;   // spd_solve_warp_kernel: warps (systems) a block
+constexpr int SOLVE_BLOCK_WARPS = 16;  // spd_solve_block_kernel: warps of one system's block
+constexpr int SOLVE_SCALARS = 8;     // ... its pivot scalars (two slots of 4), after the workspace
 constexpr int SOLVE_CHUNK = 256;     // ... columns of a row one pass covers
 constexpr int SOLVE_MC = SOLVE_CHUNK / 32;  // ... 8 of them a lane
 
@@ -161,6 +190,88 @@ inline AsmShape asm_shape(int R) {
   return s;
 }
 
+// The tile-group route (any rank): A's RT x RT tiles fall into nb bands
+// of nt tiles a side (nb = ceil(RT / BAND_MAX), nt = ceil(RT / nb)), and
+// each part, a block of its own, is a rectangle of tile rows [r0, r1) x
+// tile columns [c0, c1): a diagonal band (its tiles on or above the
+// diagonal, and its rows' stripes of b), or an off-diagonal pair of
+// bands, cut into two halves of its rows when its nt * nt tiles would
+// exceed PART_THREADS. Parts are numbered band by band: the diagonal,
+// then the pairs to its right.
+struct Part {
+  int r0, r1, c0, c1;
+  bool diag;
+};
+
+__host__ __device__ inline int band_count(int rt) { return (rt + BAND_MAX - 1) / BAND_MAX; }
+__host__ __device__ inline int band_tiles(int rt) {
+  const int nb = band_count(rt);
+  return (rt + nb - 1) / nb;
+}
+__host__ __device__ inline int band_halves(int rt) {
+  const int nt = band_tiles(rt);
+  return nt * nt > PART_THREADS ? 2 : 1;
+}
+__host__ __device__ inline int band_parts(int rt) {
+  const int nb = band_count(rt);
+  return nb + nb * (nb - 1) / 2 * band_halves(rt);
+}
+
+__host__ __device__ inline Part part_of(int rt, int part) {
+  const int nb = band_count(rt), nt = band_tiles(rt), sp = band_halves(rt);
+  for (int I = 0; I < nb; ++I) {
+    const int a0 = I * nt, a1 = (I + 1) * nt < rt ? (I + 1) * nt : rt;
+    if (part-- == 0) return Part{a0, a1, a0, a1, true};
+    const int hr = (a1 - a0 + sp - 1) / sp;
+    for (int J = I + 1; J < nb; ++J)
+      for (int h = 0; h < sp; ++h)
+        if (part-- == 0)
+          return Part{a0 + h * hr, a0 + (h + 1) * hr < a1 ? a0 + (h + 1) * hr : a1, J * nt,
+                      (J + 1) * nt < rt ? (J + 1) * nt : rt, false};
+  }
+  return Part{0, 0, 0, 0, false};
+}
+
+// Items (tiles, plus stripes of b on the diagonal) of a part, and its
+// tiles.
+__host__ __device__ inline int part_items(const Part& p, int* tiles) {
+  const int n = p.r1 - p.r0, m = p.c1 - p.c0;
+  *tiles = p.diag ? n * (n + 1) / 2 : n * m;
+  return *tiles + (p.diag ? n : 0);
+}
+
+// The columns a part's gathered rows hold: its rows' segment, and for an
+// off-diagonal part its columns' segment after it.
+__host__ __device__ inline int part_columns(const Part& p) {
+  return 8 * (p.r1 - p.r0 + (p.diag ? 0 : p.c1 - p.c0));
+}
+
+// The tile-group route's block at rank R: one slot group (each part's
+// sums run in slot order), as many threads as the largest part has
+// items, and gathered rows as wide as the widest part's (at most 256
+// columns), so its shared memory does not grow with the rank: two blocks
+// share an SM.
+inline AsmShape part_shape(int R) {
+  AsmShape s;
+  s.rt = (R + 7) / 8;
+  int most = 0, widest = 0;
+  for (int q = 0; q < band_parts(s.rt); ++q) {
+    const Part p = part_of(s.rt, q);
+    int tiles = 0;
+    most = std::max(most, part_items(p, &tiles));
+    widest = std::max(widest, part_columns(p));
+  }
+  s.rs = (skew(widest - 1) + 4) & ~3;
+  s.tiles = s.items = most;
+  s.groups = 1;
+  s.workers = most;
+  s.threads = (most + 31) / 32 * 32;
+  s.smem_bytes = (2 * static_cast<size_t>(PART_CHUNK) * s.rs +
+                  ASM_META * (3 * PART_CHUNK + ASM_GROUPS) + 4 + 3 * ASM_SLICE) *
+                 sizeof(float);
+  return s;
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
@@ -180,9 +291,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// A factor of Y as fp32: Y is float, or bf16 held as its 16 bits
-// (uint16_t), which are the high half of the fp32 value.
-__device__ __forceinline__ float load_factor(const float* p) { return __ldg(p); }
+// A bf16 factor of Y, held as its 16 bits (uint16_t), as fp32: they are
+// the high half of the fp32 value.
 __device__ __forceinline__ float load_factor(const uint16_t* p) {
   return __uint_as_float(static_cast<unsigned>(__ldg(p)) << 16);
 }
@@ -233,7 +343,7 @@ __device__ __forceinline__ void store_row8(float* dst, const float (&v)[8], int 
 // aligned): A's rows take 16-byte stores and fp32 factor rows 16-byte
 // copies; a bf16 row is copied 16 bytes (8 values) at a time when R % 8
 // == 0 and Y is 16-byte aligned.
-template <typename T, int MAX_THREADS, int MIN_BLOCKS>
+template <typename T, int MAX_THREADS, int MIN_BLOCKS, bool kParts>
 __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
 assemble_kernel(const T* __restrict__ Y, int M, int R, const int* __restrict__ cols,
                 const float* __restrict__ aw, const float* __restrict__ bw, int B, int L,
@@ -254,24 +364,47 @@ assemble_kernel(const T* __restrict__ Y, int M, int R, const int* __restrict__ c
   const bool gvec =
       kF32 ? vec != 0 : R % 8 == 0 && reinterpret_cast<uintptr_t>(Y) % 16 == 0;
   extern __shared__ float smem[];
-  const int rs = shape.rs, rt = shape.rt, tiles = shape.tiles, items = shape.items;
+  const int rs = shape.rs, rt = shape.rt;
   const int groups = shape.groups;
+  // kParts: block x is part x % n_parts of task x / n_parts (its tile
+  // group); else the task is the block
+  const int n_parts = kParts ? band_parts(rt) : 1;
+  const long long bx = blockIdx.x / n_parts;
+  const int part = static_cast<int>(blockIdx.x - bx * n_parts);
+  // this block's items and tiles, and the gathered row: columns [c0, c0
+  // + w0) at 0 and, for an off-diagonal part, [c1, c1 + w1) at w0
+  int tiles = shape.tiles, items = shape.items;
+  Part pt{0, rt, 0, rt, true};  // the whole matrix, unless kParts
+  int c0 = 0, w0 = R, c1 = 0, w1 = 0;
+  if constexpr (kParts) {
+    pt = part_of(rt, part);
+    items = part_items(pt, &tiles);
+    c0 = 8 * pt.r0;
+    w0 = min(8 * pt.r1, R) - c0;
+    if (!pt.diag) {
+      c1 = 8 * pt.c0;
+      w1 = min(8 * pt.c1, R) - c1;
+    }
+  }
+  // slots gathered at a time: the tile-group route's rows take half the
+  // main route's chunk, so two of its blocks share an SM
+  constexpr int kChunk = kParts ? PART_CHUNK : ASM_CHUNK;
   const int nsub = grouped ? groups : 1;  // lists of live slots per chunk
-  const int sub = ASM_CHUNK / nsub;       // slots of one list
-  float* ys = smem;  // [2][ASM_CHUNK][rs]; after the slots, [groups - 1][items][64]
+  const int sub = kChunk / nsub;       // slots of one list
+  float* ys = smem;  // [2][kChunk][rs]; after the slots, [groups - 1][items][64]
   float* red = smem;
-  int* scol = reinterpret_cast<int*>(smem + max(2 * ASM_CHUNK * rs, (groups - 1) * items * 64));
-  float* saw = reinterpret_cast<float*>(scol + ASM_META * ASM_CHUNK);
-  float* sbw = saw + ASM_META * ASM_CHUNK;
-  int* snlive = reinterpret_cast<int*>(sbw + ASM_META * ASM_CHUNK);  // [ASM_META][nsub]
+  int* scol = reinterpret_cast<int*>(smem + max(2 * kChunk * rs, (groups - 1) * items * 64));
+  float* saw = reinterpret_cast<float*>(scol + ASM_META * kChunk);
+  float* sbw = saw + ASM_META * kChunk;
+  int* snlive = reinterpret_cast<int*>(sbw + ASM_META * kChunk);  // [ASM_META][nsub]
 
   const int tid = threadIdx.x, lane = tid & 31;
   const unsigned below = (1u << lane) - 1u;
   const int g = tid / items, it = tid - g * items;
-  const bool worker = tid < shape.workers;
+  const bool worker = tid < items * groups;
   const long long n_tasks = static_cast<long long>(B) * n_spans;
-  const long long task = grouped ? blockIdx.x * static_cast<long long>(groups) + g : blockIdx.x;
-  const int l_begin = grouped ? 0 : static_cast<int>(blockIdx.x % n_spans) * W;
+  const long long task = grouped ? bx * groups + g : bx;
+  const int l_begin = grouped ? 0 : static_cast<int>(bx % n_spans) * W;
   const int lj = grouped ? L : min(W, L - l_begin);  // slots of one list
   int& s_last = snlive[ASM_META * ASM_GROUPS];  // the last live slot of any list
   if (tid == 0) s_last = -1;
@@ -283,7 +416,7 @@ assemble_kernel(const T* __restrict__ Y, int M, int R, const int* __restrict__ c
   float* maw = reinterpret_cast<float*>(mcol + nsub * lj);
   float* mbw = maw + nsub * lj;
   for (int j = 0; j < nsub; ++j) {
-    const long long t = grouped ? blockIdx.x * static_cast<long long>(groups) + j : blockIdx.x;
+    const long long t = grouped ? bx * groups + j : bx;
     const bool in = t < n_tasks;
     const long long base = in ? (t / n_spans) * L + l_begin : 0;
     for (int u = tid; u < lj; u += blockDim.x) {
@@ -294,18 +427,30 @@ assemble_kernel(const T* __restrict__ Y, int M, int R, const int* __restrict__ c
   }
   cp_async_commit();
 
+  // item `it`: an upper tile (ti, tj) of A, or a stripe ti of b; (ui,
+  // uj) its place among this block's tiles (the whole matrix unless
+  // kParts), whose segments a gathered row holds at si and sj
   const bool is_b = it >= tiles;
-  int ti = is_b ? it - tiles : 0, tj = 0;
+  const int nl = pt.r1 - pt.r0;  // tile rows of the block
+  int ui = is_b ? it - tiles : 0, uj = 0;
   if (!is_b) {
-    int p = it;
-    while (p >= rt - ti) {
-      p -= rt - ti;
-      ++ti;
+    if (pt.diag) {
+      int p = it;
+      while (p >= nl - ui) {
+        p -= nl - ui;
+        ++ui;
+      }
+      uj = ui + p;
+    } else {
+      const int m = pt.c1 - pt.c0;
+      ui = it / m;
+      uj = it - ui * m;
     }
-    tj = ti + p;
   }
+  const int ti = pt.r0 + ui, tj = (pt.diag ? pt.r0 : pt.c0) + uj;
   const int i0 = ti * 8, j0 = tj * 8;
-  const int si = skew(i0), sj = skew(j0);  // their segments in a gathered row
+  const int si = skew(8 * ui);
+  const int sj = skew((pt.diag ? 0 : 8 * nl) + 8 * uj);
 
   float acc[8][8];
 #pragma unroll
@@ -329,17 +474,17 @@ assemble_kernel(const T* __restrict__ Y, int M, int R, const int* __restrict__ c
 
   auto stage = [&](int c) {  // warp 0: each list's live slots of chunk c, in slot order
     if (tid >= 32) return;
-    const int m = c % ASM_META, m0 = m * ASM_CHUNK;
+    const int m = c % ASM_META, m0 = m * kChunk;
     int first_half = 0;  // the one list's live slots in positions 0..31
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = 32 * h + lane, j = p * nsub / ASM_CHUNK, u = c * sub + p - j * sub;
+    for (int h = 0; h < kChunk / 32; ++h) {
+      const int p = 32 * h + lane, j = p * nsub / kChunk, u = c * sub + p - j * sub;
       const int k = j * lj + u;
       const float a = u < lj ? maw[k] : 0.f, w = u < lj ? mbw[k] : 0.f;
       const bool live = a != 0.f || w != 0.f;
       const unsigned ballot = __ballot_sync(0xffffffffu, live);
       const unsigned seg = sub >= 32 ? 0xffffffffu : 0xffffu << (lane & 16);
-      const int before = h == 1 && sub == ASM_CHUNK ? first_half : 0;
+      const int before = h == 1 && sub == kChunk ? first_half : 0;
       if (live) {
         const int s = m0 + j * sub + before + __popc(ballot & seg & below);
         scol[s] = mcol[k];
@@ -347,8 +492,8 @@ assemble_kernel(const T* __restrict__ Y, int M, int R, const int* __restrict__ c
         sbw[s] = w;
       }
       const int count = __popc(ballot & seg);
-      if (sub == ASM_CHUNK) {
-        if (h == 0)
+      if (sub == kChunk) {
+        if (h + 1 < kChunk / 32)
           first_half = count;
         else if (lane == 0)
           snlive[m * nsub] = first_half + count;
@@ -357,36 +502,47 @@ assemble_kernel(const T* __restrict__ Y, int M, int R, const int* __restrict__ c
       }
     }
   };
-  // each warp copies whole factor rows, spw rows a pass, lane lq of a row
-  // taking copies lq, lq + qstep, ... of 16 bytes (or one factor)
-  const int per = gvec ? R / kWidth : R;
+  // each warp copies whole gathered rows, spw rows a pass, lane lq of a
+  // row taking copies lq, lq + qstep, ... of 16 bytes (or one factor);
+  // copy q < per0 is column c0 + unit * q, at unit * q, the rest band J's
+  const int unit = gvec ? kWidth : 1;
+  const int per0 = w0 / unit, per = per0 + w1 / unit;
   const int spw = per >= 32 ? 1 : 32 / per;
   const int lrow = per >= 32 ? 0 : lane / per, lq = lane - lrow * per;
   const int qstep = per >= 32 ? 32 : per, warp = tid >> 5, n_warps = blockDim.x >> 5;
   auto gather = [&](int c) {  // factor rows of chunk c's live slots
-    const int m = c % ASM_META, m0 = m * ASM_CHUNK;
-    float* dst = ys + (c & 1) * ASM_CHUNK * rs;
+    const int m = c % ASM_META, m0 = m * kChunk;
+    float* dst = ys + (c & 1) * kChunk * rs;
     if (lrow >= spw) return;
-    for (int s = warp * spw + lrow; s < ASM_CHUNK; s += n_warps * spw) {
-      const int j = s * nsub / ASM_CHUNK;
+    for (int s = warp * spw + lrow; s < kChunk; s += n_warps * spw) {
+      const int j = s * nsub / kChunk;
       if (s - j * sub >= snlive[m * nsub + j]) continue;  // past the list's live slots
       const int col = scol[m0 + s];
       const bool ok = col >= 0 && col < M;
       const T* src = ok ? Y + static_cast<long long>(col) * R : Y;
       for (int q = lq; q < per; q += qstep) {
+        int sc = unit * q, dc = sc;  // source column, its place in the gathered row
+        if constexpr (kParts) {
+          if (q < per0) {
+            sc += c0;
+          } else {
+            dc = w0 + unit * (q - per0);
+            sc = c1 + unit * (q - per0);
+          }
+        }
         if constexpr (kF32) {
           if (gvec)
-            cp_async16(dst + s * rs + skew(4 * q), src + 4 * q, ok ? 16 : 0);
+            cp_async16(dst + s * rs + skew(dc), src + sc, ok ? 16 : 0);
           else
-            cp_async4(dst + s * rs + skew(q), src + q, ok ? 4 : 0);
+            cp_async4(dst + s * rs + skew(dc), src + sc, ok ? 4 : 0);
         } else if (gvec) {  // 8 bf16 values -> 8 fp32 (one 32-column group: no skew inside)
-          const uint4 u = ok ? __ldg(reinterpret_cast<const uint4*>(src + 8 * q))
+          const uint4 u = ok ? __ldg(reinterpret_cast<const uint4*>(src + sc))
                              : make_uint4(0u, 0u, 0u, 0u);
-          float4* d = reinterpret_cast<float4*>(dst + s * rs + skew(8 * q));
+          float4* d = reinterpret_cast<float4*>(dst + s * rs + skew(dc));
           d[0] = make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
           d[1] = make_float4(bf16_lo(u.z), bf16_hi(u.z), bf16_lo(u.w), bf16_hi(u.w));
         } else {
-          dst[s * rs + skew(q)] = ok ? load_factor(src + q) : 0.f;
+          dst[s * rs + skew(dc)] = ok ? load_factor(src + sc) : 0.f;
         }
       }
     }
@@ -410,10 +566,10 @@ assemble_kernel(const T* __restrict__ Y, int M, int R, const int* __restrict__ c
       cp_async_commit();
     }
     const int m = c % ASM_META;
-    const float* yb = ys + (c & 1) * ASM_CHUNK * rs;
+    const float* yb = ys + (c & 1) * kChunk * rs;
     const int s0 = grouped ? g * sub : g, step = grouped ? 1 : groups;
     const int s_end = !worker ? s0 : grouped ? g * sub + snlive[m * nsub + g] : snlive[m * nsub];
-    const float* wts = (is_b ? sbw : saw) + m * ASM_CHUNK;
+    const float* wts = (is_b ? sbw : saw) + m * kChunk;
     if (!is_b) {
       for (int s = s0; s < s_end; s += step) {
         const float w = wts[s];
@@ -526,93 +682,21 @@ assemble_reduce_kernel(const float* __restrict__ P, int n_spans, int R,
 
 // assemble_kernel for `shape` over `configs` configurations (blockIdx.y):
 // built for three blocks an SM up to ASM_SMALL_THREADS threads a block
-// (R <= 64), else for one.
+// (R <= 64), else for one; `parts` launches the tile-group route, each
+// task's band_parts blocks in a row.
 template <typename T, typename... Args>
-void launch_assemble(unsigned blocks, unsigned configs, const AsmShape& shape, cudaStream_t s,
-                     const T* Y, Args... args) {
+void launch_assemble(unsigned blocks, unsigned configs, const AsmShape& shape, bool parts,
+                     cudaStream_t s, const T* Y, Args... args) {
   const dim3 grid(blocks, configs);
-  if (shape.threads <= ASM_SMALL_THREADS)
-    assemble_kernel<T, ASM_SMALL_THREADS, 3>
+  if (parts)
+    assemble_kernel<T, PART_THREADS, 2, true>
+        <<<grid, shape.threads, shape.smem_bytes, s>>>(Y, args...);
+  else if (shape.threads <= ASM_SMALL_THREADS)
+    assemble_kernel<T, ASM_SMALL_THREADS, 3, false>
         <<<grid, shape.threads, shape.smem_bytes, s>>>(Y, args...);
   else
-    assemble_kernel<T, ASM_MAX_THREADS, 1>
+    assemble_kernel<T, ASM_MAX_THREADS, 1, false>
         <<<grid, shape.threads, shape.smem_bytes, s>>>(Y, args...);
-}
-
-// assemble_large_rank_kernel: the assembly above pio_assemble_max_rank.
-// Block (row, y) with y < tiles sums the 32 x 32 tile (ti, tj), ti <= tj,
-// of A's upper triangle; block (row, tiles) sums b. Each of the 256
-// threads holds 4 entries of the tile (column c = tid & 31, rows
-// tid >> 5 + 8q). Slots come 32 at a time: their factor segments y[i0..]
-// (times aw) and y[j0..] are read through L2 into shared memory, then
-// summed in fp32 FMAs as in assemble_kernel (w * y_i first, then the FMA
-// with y_j). The tile's upper entries are written with gram added, and
-// mirrored into the lower triangle. Simple and correct first: every tile
-// block re-reads the row's slots. Y fp32 or bf16 (load_factor).
-template <typename T>
-__global__ void __launch_bounds__(LR_THREADS)
-assemble_large_rank_kernel(const T* __restrict__ Y, int M, int R,
-                           const int* __restrict__ cols, const float* __restrict__ aw,
-                           const float* __restrict__ bw, int L, const float* __restrict__ gram,
-                           float* __restrict__ out_A, float* __restrict__ out_b) {
-  __shared__ float yi[LR_SLOTS][LR_TILE];
-  __shared__ float yj[LR_SLOTS][LR_TILE];
-  const long long row = blockIdx.x;
-  const int rt = (R + LR_TILE - 1) / LR_TILE, tiles = rt * (rt + 1) / 2;
-  const int tid = threadIdx.x;
-  const int* rc = cols + row * L;
-  const float* ra = aw + row * L;
-  const float* rb = bw + row * L;
-  if (static_cast<int>(blockIdx.y) == tiles) {  // b: thread t owns entries t, t + 256, ...
-    for (int e = tid; e < R; e += LR_THREADS) {
-      float acc = 0.f;
-      for (int l = 0; l < L; ++l) {
-        const float w = rb[l];
-        const int c = rc[l];
-        if (w != 0.f && c >= 0 && c < M)
-          acc = fmaf(w, load_factor(Y + static_cast<long long>(c) * R + e), acc);
-      }
-      out_b[row * R + e] = acc;
-    }
-    return;
-  }
-  int p = blockIdx.y, ti = 0;
-  while (p >= rt - ti) {
-    p -= rt - ti;
-    ++ti;
-  }
-  const int tj = ti + p, i0 = LR_TILE * ti, j0 = LR_TILE * tj;
-  const int c = tid & 31, a0 = tid >> 5;
-  float acc[LR_TILE * LR_TILE / LR_THREADS] = {};
-  for (int l0 = 0; l0 < L; l0 += LR_SLOTS) {
-    for (int e = tid; e < LR_SLOTS * LR_TILE; e += LR_THREADS) {
-      const int s = e / LR_TILE, cc = e % LR_TILE, l = l0 + s;
-      const float w = l < L ? ra[l] : 0.f;
-      const int col = l < L ? rc[l] : -1;
-      const bool ok = w != 0.f && col >= 0 && col < M;
-      const T* y = Y + static_cast<long long>(ok ? col : 0) * R;
-      yi[s][cc] = ok && i0 + cc < R ? w * load_factor(y + i0 + cc) : 0.f;
-      yj[s][cc] = ok && j0 + cc < R ? load_factor(y + j0 + cc) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int s = 0; s < LR_SLOTS; ++s) {
-      const float y = yj[s][c];
-#pragma unroll
-      for (int q = 0; q < LR_TILE * LR_TILE / LR_THREADS; ++q)
-        acc[q] = fmaf(yi[s][a0 + 8 * q], y, acc[q]);
-    }
-    __syncthreads();
-  }
-  float* oA = out_A + row * R * R;
-  const int j = j0 + c;
-#pragma unroll
-  for (int q = 0; q < LR_TILE * LR_TILE / LR_THREADS; ++q) {
-    const int i = i0 + a0 + 8 * q;
-    if (i >= R || j >= R || j < i) continue;  // the lower entries are the mirror's
-    oA[i * R + j] = gram[i * R + j] + acc[q];
-    if (i != j) oA[j * R + i] = gram[j * R + i] + acc[q];
-  }
 }
 
 // Floats of one system's workspace in spd_solve_warp_kernel: the packed
@@ -794,120 +878,331 @@ __device__ __forceinline__ void solve_sweeps_registers(const float* U, const flo
   }
 }
 
-// The same sweeps for any R, with v in the workspace: v[j] stays with
-// lane j & 31 throughout; only y_k (x_k) crosses lanes, by a shuffle
-// from the lane that holds v[k].
-__device__ __forceinline__ void solve_sweeps_workspace(const float* U, float* v, const float* bs,
-                                                       float* xs, int R, int lane) {
-  for (int j = lane; j < R; j += 32) v[j] = bs[j];
-  for (int k = 0, offk = 0; k < R; offk += R - k, ++k) {  // U^T y = b
-    float yk = 0.f;
-    if (lane == (k & 31)) yk = v[k] / U[offk];
-    yk = __shfl_sync(0xffffffffu, yk, k & 31);
-    const float* Uk = U + offk - k;
-    for (int j = (k & ~31) + lane; j < R; j += 32) {
-      if (j == k)
-        v[j] = yk;
-      else if (j > k)
-        v[j] = __fsub_rn(v[j], __fmul_rn(Uk[j], yk));
-    }
-  }
-  for (int k = R - 1; k >= 0; --k) {  // U x = y
-    float xk = 0.f;
-    if (lane == (k & 31)) xk = v[k] / U[packed_off(k, R)];
-    xk = __shfl_sync(0xffffffffu, xk, k & 31);
-    for (int i = lane; i <= k; i += 32) {
-      if (i == k)
-        v[i] = xk;
-      else
-        v[i] = __fsub_rn(v[i], __fmul_rn(U[packed_off(i, R) + k - i], xk));
-    }
-  }
-  for (int j = lane; j < R; j += 32) xs[j] = v[j];
-}
-
-// spd_solve_warp_kernel: one warp solves one system; kShared puts the
-// warp's workspace in shared memory (warp w of the block at w * ws), else
-// in device memory, one slot per warp of the grid. Systems go to warps
-// sys = w, w + n_warps, ...; with kShared the grid covers B and the loop
-// runs once.
-template <bool kShared>
+// spd_solve_warp_kernel: one warp solves one system, its workspace in
+// shared memory (warp w of the block at w * ws); block b's warp w takes
+// system b * warps + w.
 __global__ void __launch_bounds__(SOLVE_MAX_WARPS * 32)
 spd_solve_warp_kernel(const float* __restrict__ A, const float* __restrict__ b,
-                      float* __restrict__ x, int B, int R, float* __restrict__ ws_dev) {
+                      float* __restrict__ x, int B, int R) {
   static_assert(SOLVE_MC == 8, "solve_row_window is dispatched for 1..8 column groups");
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long ws = solve_ws_floats(R);
-  const long long gw = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;
-  const long long n_warps = static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
-  float* U = kShared ? smem + warp * ws : ws_dev + gw * ws;  // row i at off(i)
-  for (long long sys = gw; sys < B; sys += n_warps) {
+  const long long sys = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (sys >= B) return;
+  float* U = smem + warp * ws;  // row i at off(i)
+  const float* As = A + sys * R * R;
+  // A's upper triangle into the workspace, packed as U will be, every
+  // load in flight at once (cp.async): the rows then wait on no
+  // device-memory load, and U overwrites A in place.
+  for (int i = 0, offi = 0; i < R; offi += R - i, ++i)
+    for (int j = i + lane; j < R; j += 32)
+      cp_async4(U + offi + j - i, As + static_cast<long long>(i) * R + j, 4);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+  // Up-looking Cholesky: row i of U from A's row i and rows k < i of U.
+  // Entry (i, j) takes a = a - u_ki * u_kj for k = 0..i-1 in order, each
+  // product and subtraction rounded, then u_ij = a * inv_i: the plain
+  // version's sequence for that entry, so the result is bitwise equal.
+  // The row's columns from the 32-column group holding the diagonal are
+  // covered in windows of SOLVE_CHUNK; the pivot is s[0] of lane i & 31.
+  // Rows i, i + 1 (i even) go together; an odd rank's last row alone.
+  for (int i = 0, offi = 0; i < R;) {
+    const int w0 = i & ~31;  // i is even: rows i and i + 1 share it
+    float inv0 = 0.f, inv1 = 0.f, u01 = 0.f;
+    if (i + 1 < R) {
+      for (int cb = w0; cb < R; cb += SOLVE_CHUNK) {
+        const bool first = cb == w0;
+        switch (min(SOLVE_MC, (R - cb + 31) >> 5)) {  // column groups inside the matrix
+          case 1: solve_row_pair_window<1>(U, R, i, offi, cb, lane, first, inv0, inv1, u01); break;
+          case 2: solve_row_pair_window<2>(U, R, i, offi, cb, lane, first, inv0, inv1, u01); break;
+          case 3: solve_row_pair_window<3>(U, R, i, offi, cb, lane, first, inv0, inv1, u01); break;
+          case 4: solve_row_pair_window<4>(U, R, i, offi, cb, lane, first, inv0, inv1, u01); break;
+          case 5: solve_row_pair_window<5>(U, R, i, offi, cb, lane, first, inv0, inv1, u01); break;
+          case 6: solve_row_pair_window<6>(U, R, i, offi, cb, lane, first, inv0, inv1, u01); break;
+          case 7: solve_row_pair_window<7>(U, R, i, offi, cb, lane, first, inv0, inv1, u01); break;
+          default: solve_row_pair_window<8>(U, R, i, offi, cb, lane, first, inv0, inv1, u01); break;
+        }
+      }
+      offi += 2 * (R - i) - 1;
+      i += 2;
+    } else {  // the last row of an odd rank
+      for (int cb = w0; cb < R; cb += SOLVE_CHUNK) {
+        const bool first = cb == w0;
+        switch (min(SOLVE_MC, (R - cb + 31) >> 5)) {
+          case 1: solve_row_window<1>(U, R, i, offi, cb, lane, first, inv0); break;
+          case 2: solve_row_window<2>(U, R, i, offi, cb, lane, first, inv0); break;
+          case 3: solve_row_window<3>(U, R, i, offi, cb, lane, first, inv0); break;
+          case 4: solve_row_window<4>(U, R, i, offi, cb, lane, first, inv0); break;
+          case 5: solve_row_window<5>(U, R, i, offi, cb, lane, first, inv0); break;
+          case 6: solve_row_window<6>(U, R, i, offi, cb, lane, first, inv0); break;
+          case 7: solve_row_window<7>(U, R, i, offi, cb, lane, first, inv0); break;
+          default: solve_row_window<8>(U, R, i, offi, cb, lane, first, inv0); break;
+        }
+      }
+      ++i;
+    }
+    __syncwarp();
+  }
+  solve_sweeps_registers(U, b + sys * R, x + sys * R, R, lane);
+}
+
+// Rows r and r + 1 of U over one window of the NM column groups j = cb
+// + lane + 32m inside the matrix, the steps k < k1 only (rows finished
+// earlier): s = a_rj - u_0r u_0j - ... - u_{k1-1,r} u_{k1-1,j}, each
+// product rounded before its subtraction, written back over a_rj (j >=
+// r; row r + 1 at j > r) for the rest of the row's sequence. Each u_kj is
+// loaded once for both rows. r + 1 may lie past the matrix (an odd
+// rank's last row): then only row r is kept.
+template <int NM>
+__device__ __forceinline__ void solve_pair_bulk(float* U, int R, int r, int k1, int cb,
+                                                int lane) {
+  float* U0 = U + packed_off(r, R) - r;  // U0[j] = a_rj
+  float* U1 = U0 + (R - r) - 1;          // U1[j] = a_{r+1,j}
+  const bool two = r + 1 < R;
+  float s0[NM], s1[NM];
+  bool in[NM];
+#pragma unroll
+  for (int m = 0; m < NM; ++m) {
+    const int j = cb + 32 * m + lane;
+    in[m] = j < R;
+    s0[m] = in[m] ? U0[j] : 0.f;
+    s1[m] = in[m] && two ? U1[j] : 0.f;
+  }
+  const float* pi = U + r;          // u_kr and u_{k,r+1} for k = 0
+  const float* pj = U + cb + lane;  // u_kj of the lane's first group, k = 0
+  int step = R - 1;
+#pragma unroll 4
+  for (int k = 0; k < k1; ++k) {
+    const float ukr = pi[0], ukr1 = pi[1];
+#pragma unroll
+    for (int m = 0; m < NM; ++m)
+      if (in[m]) {
+        const float ukj = pj[32 * m];
+        s0[m] = __fsub_rn(s0[m], __fmul_rn(ukr, ukj));
+        s1[m] = __fsub_rn(s1[m], __fmul_rn(ukr1, ukj));
+      }
+    pi += step;
+    pj += step;
+    --step;
+  }
+#pragma unroll
+  for (int m = 0; m < NM; ++m) {
+    const int j = cb + 32 * m + lane;
+    if (in[m] && j >= r) U0[j] = s0[m];
+    if (in[m] && two && j > r) U1[j] = s1[m];
+  }
+}
+
+// U^T y = b, then U x = y, for spd_solve_block_kernel: v in the
+// workspace, its 32-entry chunk c owned by warp c % SOLVE_BLOCK_WARPS.
+// Each sweep goes a chunk at a time: the chunk's owner takes its 32 steps
+// one by one (lane l holds v of the chunk's entry l; y_k (x_k) crosses
+// lanes by a shuffle), a barrier publishes them, and every warp applies
+// the chunk's 32 steps, in order, to the chunks it owns further along.
+// So each v_j takes the plain version's subtractions in its order, each
+// product rounded first, at 2 ceil(R / 32) barriers a system. The block's
+// last barrier frees the workspace for its next system.
+__device__ __forceinline__ void solve_sweeps_block(const float* U, float* v, const float* bs,
+                                                   float* xs, int R, int warp, int lane) {
+  const int nch = (R + 31) >> 5;
+  for (int c = warp; c < nch; c += SOLVE_BLOCK_WARPS)
+    if (32 * c + lane < R) v[32 * c + lane] = bs[32 * c + lane];
+  __syncwarp();
+  for (int p = 0; p < nch; ++p) {  // U^T y = b: steps k of chunk p, ascending
+    const int j = 32 * p + lane, kn = min(32, R - 32 * p);
+    if (warp == p % SOLVE_BLOCK_WARPS) {
+      // lane l: v_j and the diagonal u_jj of the chunk's entry j = 32p + l;
+      // each step's u_kj is loaded off the chain of divisions
+      float vj = j < R ? v[j] : 0.f;
+      const float djj = j < R ? U[packed_off(j, R)] : 1.f;
+#pragma unroll
+      for (int kk = 0; kk < 32; ++kk) {
+        if (kk < kn) {
+          const int k = 32 * p + kk;
+          const float ukj = lane > kk && j < R ? U[packed_off(k, R) - k + j] : 0.f;
+          const float yk = __shfl_sync(0xffffffffu, vj, kk) / __shfl_sync(0xffffffffu, djj, kk);
+          const float next = __fsub_rn(vj, __fmul_rn(ukj, yk));
+          vj = lane == kk ? yk : lane > kk ? next : vj;
+        }
+      }
+      if (j < R) v[j] = vj;
+    }
+    __syncthreads();
+    for (int c = p + 1 + (warp - (p + 1) % SOLVE_BLOCK_WARPS + SOLVE_BLOCK_WARPS) %
+                             SOLVE_BLOCK_WARPS;
+         c < nch; c += SOLVE_BLOCK_WARPS) {
+      const int jc = 32 * c + lane;
+      if (jc >= R) continue;
+      float vj = v[jc];
+      for (int kk = 0; kk < kn; ++kk) {
+        const int k = 32 * p + kk;
+        vj = __fsub_rn(vj, __fmul_rn(U[packed_off(k, R) - k + jc], v[k]));
+      }
+      v[jc] = vj;
+    }
+  }
+  for (int p = nch - 1; p >= 0; --p) {  // U x = y: steps k of chunk p, descending
+    const int i = 32 * p + lane, top = min(31, R - 1 - 32 * p);
+    if (warp == p % SOLVE_BLOCK_WARPS) {
+      float vi = i < R ? v[i] : 0.f;
+      const float dii = i < R ? U[packed_off(i, R)] : 1.f;
+      const int offi = i < R ? packed_off(i, R) - i : 0;  // u_ik at offi + k
+#pragma unroll
+      for (int kk = 31; kk >= 0; --kk) {
+        if (kk <= top) {
+          const int k = 32 * p + kk;
+          const float uik = lane < kk ? U[offi + k] : 0.f;
+          const float xk = __shfl_sync(0xffffffffu, vi, kk) / __shfl_sync(0xffffffffu, dii, kk);
+          const float next = __fsub_rn(vi, __fmul_rn(uik, xk));
+          vi = lane == kk ? xk : lane < kk ? next : vi;
+        }
+      }
+      if (i < R) v[i] = vi;
+    }
+    __syncthreads();
+    for (int c = warp; c < p; c += SOLVE_BLOCK_WARPS) {
+      const int ic = 32 * c + lane;  // c < p: inside the matrix
+      const int offi = packed_off(ic, R) - ic;
+      float vi = v[ic];
+      for (int kk = top; kk >= 0; --kk) {
+        const int k = 32 * p + kk;
+        vi = __fsub_rn(vi, __fmul_rn(U[offi + k], v[k]));
+      }
+      v[ic] = vi;
+    }
+  }
+  __syncthreads();
+  for (int c = warp; c < nch; c += SOLVE_BLOCK_WARPS)
+    if (32 * c + lane < R) xs[32 * c + lane] = v[32 * c + lane];
+  __syncthreads();  // the workspace is free for the block's next system
+}
+
+// spd_solve_block_kernel: one block of SOLVE_BLOCK_WARPS warps solves one
+// system, the ranks where one warp's workspace leaves no room for two in
+// a block. The arithmetic of every entry is spd_solve_warp_kernel's (and
+// the plain version's): a_ij - u_0i u_0j - u_1i u_1j - ... in k order,
+// each product rounded before its subtraction, then times inv_i, so the
+// result is bitwise equal to it; only the division of the work differs.
+// Rows go 32 at a time, the rows [w0, w0 + 32) of one 32-column group:
+// - bulk: warp q takes the group's row pair w0 + 2q, w0 + 2q + 1 and all
+//   its columns from w0, in windows of up to 8 groups, over the steps k
+//   < w0 (rows of earlier groups): the R^3 / 6 products and subtractions
+//   but the group's own, each u_kj loaded once for both rows, 16 warps at
+//   once, and the partial sums written back over A (barrier);
+// - tail: the group's pairs in order. Each warp takes, in its column
+//   groups, the pair's steps k = w0 .. r - 1 (the group's rows finished
+//   before it); warp 0, whose columns w0 .. w0 + 31 hold every diagonal
+//   of the group, then takes the pivots and u_{r,r+1}, finishes the pair
+//   there and hands the pivots to the others (barrier; the scalars
+//   alternate between two slots), which finish the pair in their groups
+//   while warp 0 goes on to the next pair. A group costs one barrier a
+//   pair and two more.
+// Then the block runs the two sweeps (solve_sweeps_block).
+// kShared: the workspace (the packed triangle, v, the pivot scalars) in
+// shared memory, one block per system; else in device memory, one slot
+// per block of the grid, each block looping over systems.
+template <bool kShared>
+__global__ void __launch_bounds__(SOLVE_BLOCK_WARPS * 32, 1)
+spd_solve_block_kernel(const float* __restrict__ A, const float* __restrict__ b,
+                       float* __restrict__ x, int B, int R, float* ws_dev) {
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long ws = solve_ws_floats(R);
+  float* U = kShared ? smem : ws_dev + static_cast<long long>(blockIdx.x) * (ws + SOLVE_SCALARS);
+  float* scal = U + ws;  // [2][4]: inv_r, u_{r,r+1}, inv_{r+1}, by the pair's parity
+  for (long long sys = blockIdx.x; sys < B; sys += gridDim.x) {
     const float* As = A + sys * R * R;
-    // A's upper triangle into the workspace, packed as U will be, every
-    // load in flight at once (cp.async into shared memory): the rows
-    // then wait on no device-memory load, and U overwrites A in place.
-    for (int i = 0, offi = 0; i < R; offi += R - i, ++i)
+    for (int i = warp; i < R; i += SOLVE_BLOCK_WARPS) {
+      const int offi = packed_off(i, R);
       for (int j = i + lane; j < R; j += 32) {
         if (kShared)
           cp_async4(U + offi + j - i, As + static_cast<long long>(i) * R + j, 4);
         else
           U[offi + j - i] = __ldg(As + static_cast<long long>(i) * R + j);
       }
+    }
     if (kShared) {
       cp_async_commit();
       cp_async_wait<0>();
     }
-    __syncwarp();
-    // Up-looking Cholesky: row i of U from A's row i and rows k < i of U.
-    // Entry (i, j) takes a = a - u_ki * u_kj for k = 0..i-1 in order, each
-    // product and subtraction rounded, then u_ij = a * inv_i: the plain
-    // version's sequence for that entry, so the result is bitwise equal.
-    // The row's columns from the 32-column group holding the diagonal are
-    // covered in windows of SOLVE_CHUNK; the pivot is s[0] of lane i & 31.
-    // Rows i, i + 1 (i even) go together; an odd rank's last row alone.
-    for (int i = 0, offi = 0; i < R;) {
-      const int w0 = i & ~31;  // i is even: rows i and i + 1 share it
-      float inv0 = 0.f, inv1 = 0.f, u01 = 0.f;
-      if (i + 1 < R) {
-        for (int cb = w0; cb < R; cb += SOLVE_CHUNK) {
-          const bool first = cb == w0;
-          switch (min(SOLVE_MC, (R - cb + 31) >> 5)) {  // column groups inside the matrix
-            case 1: solve_row_pair_window<1>(U, R, i, offi, cb, lane, first, inv0, inv1, u01); break;
-            case 2: solve_row_pair_window<2>(U, R, i, offi, cb, lane, first, inv0, inv1, u01); break;
-            case 3: solve_row_pair_window<3>(U, R, i, offi, cb, lane, first, inv0, inv1, u01); break;
-            case 4: solve_row_pair_window<4>(U, R, i, offi, cb, lane, first, inv0, inv1, u01); break;
-            case 5: solve_row_pair_window<5>(U, R, i, offi, cb, lane, first, inv0, inv1, u01); break;
-            case 6: solve_row_pair_window<6>(U, R, i, offi, cb, lane, first, inv0, inv1, u01); break;
-            case 7: solve_row_pair_window<7>(U, R, i, offi, cb, lane, first, inv0, inv1, u01); break;
-            default: solve_row_pair_window<8>(U, R, i, offi, cb, lane, first, inv0, inv1, u01); break;
-          }
-        }
-        offi += 2 * (R - i) - 1;
-        i += 2;
-      } else {  // the last row of an odd rank
-        for (int cb = w0; cb < R; cb += SOLVE_CHUNK) {
-          const bool first = cb == w0;
-          switch (min(SOLVE_MC, (R - cb + 31) >> 5)) {
-            case 1: solve_row_window<1>(U, R, i, offi, cb, lane, first, inv0); break;
-            case 2: solve_row_window<2>(U, R, i, offi, cb, lane, first, inv0); break;
-            case 3: solve_row_window<3>(U, R, i, offi, cb, lane, first, inv0); break;
-            case 4: solve_row_window<4>(U, R, i, offi, cb, lane, first, inv0); break;
-            case 5: solve_row_window<5>(U, R, i, offi, cb, lane, first, inv0); break;
-            case 6: solve_row_window<6>(U, R, i, offi, cb, lane, first, inv0); break;
-            case 7: solve_row_window<7>(U, R, i, offi, cb, lane, first, inv0); break;
-            default: solve_row_window<8>(U, R, i, offi, cb, lane, first, inv0); break;
-          }
-        }
-        ++i;
+    __syncthreads();
+    for (int w0 = 0; w0 < R; w0 += 32) {
+      const int wend = min(w0 + 32, R), G = (R - w0 + 31) >> 5;
+      if (w0 > 0) {  // the bulk: warp q, rows w0 + 2q and w0 + 2q + 1
+        const int r = w0 + 2 * warp;
+        if (r < wend)
+          for (int cb = w0; cb < R; cb += SOLVE_CHUNK)
+            switch (min(SOLVE_MC, (R - cb + 31) >> 5)) {
+              case 1: solve_pair_bulk<1>(U, R, r, w0, cb, lane); break;
+              case 2: solve_pair_bulk<2>(U, R, r, w0, cb, lane); break;
+              case 3: solve_pair_bulk<3>(U, R, r, w0, cb, lane); break;
+              case 4: solve_pair_bulk<4>(U, R, r, w0, cb, lane); break;
+              case 5: solve_pair_bulk<5>(U, R, r, w0, cb, lane); break;
+              case 6: solve_pair_bulk<6>(U, R, r, w0, cb, lane); break;
+              case 7: solve_pair_bulk<7>(U, R, r, w0, cb, lane); break;
+              default: solve_pair_bulk<8>(U, R, r, w0, cb, lane); break;
+            }
+        __syncthreads();
       }
-      __syncwarp();
+      for (int p = w0; p < wend; p += 2) {  // the tail: rows p and p + 1
+        float* sc = scal + ((p >> 1) & 1) * 4;
+        float* Up = U + packed_off(p, R) - p;  // Up[j] = a_pj, then u_pj
+        float* Uq = Up + (R - p) - 1;          // row p + 1
+        const bool two = p + 1 < R;
+        const float* Uw = U + packed_off(w0, R) - w0;  // row w0
+        // every warp: its column groups g = warp, warp + 16, ... of rows p
+        // and p + 1, the steps k = w0 .. p - 1 (the group's finished rows)
+        for (int g = warp; g < G; g += SOLVE_BLOCK_WARPS) {
+          const int j = w0 + 32 * g + lane;
+          const bool in = j < R;
+          float s0 = in ? Up[j] : 0.f, s1 = in && two ? Uq[j] : 0.f;
+          const float* pi = Uw + p;  // u_kp and u_{k,p+1} for k = w0
+          const float* pj = Uw + j;  // u_kj for k = w0
+          int step = R - w0 - 1;
+#pragma unroll 4
+          for (int k = w0; k < p; ++k) {
+            const float ukj = in ? *pj : 0.f;
+            s0 = __fsub_rn(s0, __fmul_rn(pi[0], ukj));
+            s1 = __fsub_rn(s1, __fmul_rn(pi[1], ukj));
+            pi += step;
+            pj += step;
+            --step;
+          }
+          if (g == 0) {  // the pair's pivots, from the diagonal's lanes
+            const float inv0 =
+                1.f / sqrtf(fmaxf(__shfl_sync(0xffffffffu, s0, p & 31), 1e-30f));
+            const float u0 = __fmul_rn(s0, inv0);
+            const float u01 = __shfl_sync(0xffffffffu, u0, (p + 1) & 31);
+            const float t1 = __fsub_rn(s1, __fmul_rn(u01, u0));
+            const float inv1 =
+                1.f / sqrtf(fmaxf(__shfl_sync(0xffffffffu, t1, (p + 1) & 31), 1e-30f));
+            if (in && j >= p) Up[j] = u0;
+            if (in && two && j > p) Uq[j] = __fmul_rn(t1, inv1);
+            if (lane == 0) {
+              sc[0] = inv0;
+              sc[1] = u01;
+              sc[2] = inv1;
+            }
+          } else if (in) {  // kept until the pivots arrive
+            Up[j] = s0;
+            if (two) Uq[j] = s1;
+          }
+        }
+        __syncthreads();
+        for (int g = warp > 0 ? warp : SOLVE_BLOCK_WARPS; g < G; g += SOLVE_BLOCK_WARPS) {
+          const int j = w0 + 32 * g + lane;
+          if (j < R) {
+            const float u0 = __fmul_rn(Up[j], sc[0]);
+            Up[j] = u0;
+            if (two) Uq[j] = __fmul_rn(__fsub_rn(Uq[j], __fmul_rn(sc[1], u0)), sc[2]);
+          }
+        }
+      }
+      __syncthreads();  // the group's rows are finished
     }
-    if (R <= SOLVE_CHUNK)
-      solve_sweeps_registers(U, b + sys * R, x + sys * R, R, lane);
-    else
-      solve_sweeps_workspace(U, U + ws - R, b + sys * R, x + sys * R, R, lane);
-    __syncwarp();  // the workspace is free for the warp's next system
+    solve_sweeps_block(U, U + ws - R, b + sys * R, x + sys * R, R, warp, lane);
   }
 }
 
@@ -973,11 +1268,14 @@ int pio_als_solve_init(int device) {
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const void* kernels[] = {
-      reinterpret_cast<const void*>(assemble_kernel<float, ASM_SMALL_THREADS, 3>),
-      reinterpret_cast<const void*>(assemble_kernel<float, ASM_MAX_THREADS, 1>),
-      reinterpret_cast<const void*>(assemble_kernel<uint16_t, ASM_SMALL_THREADS, 3>),
-      reinterpret_cast<const void*>(assemble_kernel<uint16_t, ASM_MAX_THREADS, 1>),
-      reinterpret_cast<const void*>(spd_solve_warp_kernel<true>)};
+      reinterpret_cast<const void*>(assemble_kernel<float, ASM_SMALL_THREADS, 3, false>),
+      reinterpret_cast<const void*>(assemble_kernel<float, ASM_MAX_THREADS, 1, false>),
+      reinterpret_cast<const void*>(assemble_kernel<uint16_t, ASM_SMALL_THREADS, 3, false>),
+      reinterpret_cast<const void*>(assemble_kernel<uint16_t, ASM_MAX_THREADS, 1, false>),
+      reinterpret_cast<const void*>(assemble_kernel<float, PART_THREADS, 2, true>),
+      reinterpret_cast<const void*>(assemble_kernel<uint16_t, PART_THREADS, 2, true>),
+      reinterpret_cast<const void*>(spd_solve_warp_kernel),
+      reinterpret_cast<const void*>(spd_solve_block_kernel<true>)};
   for (const void* k : kernels) {
     err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -992,10 +1290,11 @@ int pio_als_solve_init(int device) {
 namespace {
 
 // pio_assemble_normal_equations(_grid) for a factor store of type T and
-// K configurations (K = 1: one config, gridDim.y = 1).
+// K configurations (K = 1: one config, gridDim.y = 1); `parts`: the
+// tile-group route.
 template <typename T>
 int assemble_entry(int device, const T* Y, int K, int M, int R, const int* cols, const float* aw,
-                   const float* bw, int B, int L, int span, int n_spans, int grouped,
+                   const float* bw, int B, int L, int span, int n_spans, int grouped, int parts,
                    const float* gram, float* A, float* b, float* partial, void* stream,
                    void* ev_start, void* ev_end) {
   if (K <= 0 || K > 65535 || B <= 0 || R <= 0 || L < 0 || M <= 0 || span <= 0 ||
@@ -1003,7 +1302,7 @@ int assemble_entry(int device, const T* Y, int K, int M, int R, const int* cols,
       (n_spans > 1 && (static_cast<long long>(n_spans - 1) * span >= L || partial == nullptr ||
                        grouped)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const AsmShape shape = asm_shape(R);
+  const AsmShape shape = parts ? part_shape(R) : asm_shape(R);
   int optin = 0;
   cudaError_t err =
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -1032,41 +1331,24 @@ int assemble_entry(int device, const T* Y, int K, int M, int R, const int* cols,
                  cfg.a % 4 == 0 && per_partial % 4 == 0);
   const int vec = R % 4 == 0 && aligned(Y) && aligned(gram) && aligned(A) &&
                   (partial == nullptr || aligned(partial)) && slices_aligned;
+  const long long n_parts = parts ? band_parts(shape.rt) : 1;
   if (n_spans == 1) {
     const long long blocks = grouped ? (B + shape.groups - 1) / shape.groups : B;
-    launch_assemble(static_cast<unsigned>(blocks), static_cast<unsigned>(K), shape, s, Y, M, R,
-                    cols, aw, bw, B, L, span, 1, grouped ? 1 : 0, gram, A, b, rr,
-                    static_cast<long long>(R), shape, vec, cfg);
+    launch_assemble(static_cast<unsigned>(blocks * n_parts), static_cast<unsigned>(K), shape,
+                    parts != 0, s, Y, M, R, cols, aw, bw, B, L, span, 1, grouped ? 1 : 0, gram, A,
+                    b, rr, static_cast<long long>(R), shape, vec, cfg);
     return launched(ev_end, s);
   }
   const CfgStrides split{cfg.y, cfg.w, 0, per_partial, per_partial};
-  launch_assemble(static_cast<unsigned>(static_cast<long long>(B) * n_spans),
-                  static_cast<unsigned>(K), shape, s, Y, M, R, cols, aw, bw, B, L, span, n_spans,
-                  0, static_cast<const float*>(nullptr), partial, partial + rr, rr + R, rr + R,
-                  shape, vec, split);
+  launch_assemble(static_cast<unsigned>(static_cast<long long>(B) * n_spans * n_parts),
+                  static_cast<unsigned>(K), shape, parts != 0, s, Y, M, R, cols, aw, bw, B, L,
+                  span, n_spans, 0, static_cast<const float*>(nullptr), partial, partial + rr,
+                  rr + R, rr + R, shape, vec, split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   assemble_reduce_kernel<<<dim3(static_cast<unsigned>(B), static_cast<unsigned>(K)),
                            REDUCE_THREADS, 0, s>>>(partial, n_spans, R, gram, A, b, per_partial,
                                                    cfg);
-  return launched(ev_end, s);
-}
-
-// pio_assemble_large_rank for a factor store of type T.
-template <typename T>
-int assemble_large_rank_entry(int device, const T* Y, int M, int R, const int* cols,
-                              const float* aw, const float* bw, int B, int L, const float* gram,
-                              float* A, float* b, void* stream, void* ev_start, void* ev_end) {
-  const long long rt = (R + LR_TILE - 1) / LR_TILE;
-  if (B <= 0 || R <= 0 || L < 0 || M <= 0 || rt * (rt + 1) / 2 + 1 > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = record_event(ev_start, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(B), static_cast<unsigned>(rt * (rt + 1) / 2 + 1));
-  assemble_large_rank_kernel<T><<<grid, LR_THREADS, 0, s>>>(Y, M, R, cols, aw, bw, L, gram, A, b);
   return launched(ev_end, s);
 }
 
@@ -1084,14 +1366,17 @@ extern "C" {
 int pio_assemble_normal_equations_grid(int device, const void* Y, int y_dtype, int K, int M,
                                        int R, const int* cols, const float* aw, const float* bw,
                                        int B, int L, int span, int n_spans, int grouped,
-                                       const float* gram, float* A, float* b, float* partial,
-                                       void* stream, void* ev_start, void* ev_end) {
+                                       int parts, const float* gram, float* A, float* b,
+                                       float* partial, void* stream, void* ev_start,
+                                       void* ev_end) {
   if (y_dtype == 0)
     return assemble_entry(device, static_cast<const float*>(Y), K, M, R, cols, aw, bw, B, L,
-                          span, n_spans, grouped, gram, A, b, partial, stream, ev_start, ev_end);
+                          span, n_spans, grouped, parts, gram, A, b, partial, stream, ev_start,
+                          ev_end);
   if (y_dtype == 1)
     return assemble_entry(device, static_cast<const uint16_t*>(Y), K, M, R, cols, aw, bw, B, L,
-                          span, n_spans, grouped, gram, A, b, partial, stream, ev_start, ev_end);
+                          span, n_spans, grouped, parts, gram, A, b, partial, stream, ev_start,
+                          ev_end);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1104,75 +1389,63 @@ int pio_assemble_normal_equations_grid(int device, const void* Y, int y_dtype, i
 // slots (the last holds the rest), each writing a partial to `partial`
 // ([B, n_spans, R * R + R] fp32), which assemble_reduce_kernel adds to
 // gram in span order. With `grouped` (one span) a block sums several rows,
-// one per slot group. R at most pio_assemble_max_rank(device), for either
-// factor type. Launches on `stream`; returns cudaGetLastError(). ev_start
-// / ev_end, when not null, are CUDA events recorded on `stream` around
-// the kernels (no synchronisation here).
+// one per slot group. `parts` 0: R at most pio_assemble_max_rank(device),
+// for either factor type; 1: the tile-group route, any rank, each task
+// one block per pair of bands of A's columns. Launches on `stream`;
+// returns cudaGetLastError(). ev_start / ev_end, when not null, are CUDA
+// events recorded on `stream` around the kernels (no synchronisation
+// here).
 int pio_assemble_normal_equations(int device, const void* Y, int y_dtype, int M, int R,
                                   const int* cols, const float* aw, const float* bw, int B, int L,
-                                  int span, int n_spans, int grouped, const float* gram, float* A,
-                                  float* b, float* partial, void* stream, void* ev_start,
-                                  void* ev_end) {
+                                  int span, int n_spans, int grouped, int parts, const float* gram,
+                                  float* A, float* b, float* partial, void* stream,
+                                  void* ev_start, void* ev_end) {
   return pio_assemble_normal_equations_grid(device, Y, y_dtype, 1, M, R, cols, aw, bw, B, L,
-                                            span, n_spans, grouped, gram, A, b, partial, stream,
-                                            ev_start, ev_end);
-}
-
-// A [B, R, R] and b [B, R] as pio_assemble_normal_equations computes them,
-// at any rank (the route above pio_assemble_max_rank): one
-// assemble_large_rank_kernel block per (row, upper 32 x 32 tile of A) and
-// one per row for b. Y fp32 (y_dtype 0) or bf16 (1). Launches on
-// `stream`; returns cudaGetLastError(). ev_start / ev_end as in
-// pio_assemble_normal_equations.
-int pio_assemble_large_rank(int device, const void* Y, int y_dtype, int M, int R,
-                            const int* cols, const float* aw, const float* bw, int B, int L,
-                            const float* gram, float* A, float* b, void* stream, void* ev_start,
-                            void* ev_end) {
-  if (y_dtype == 0)
-    return assemble_large_rank_entry(device, static_cast<const float*>(Y), M, R, cols, aw, bw,
-                                     B, L, gram, A, b, stream, ev_start, ev_end);
-  if (y_dtype == 1)
-    return assemble_large_rank_entry(device, static_cast<const uint16_t*>(Y), M, R, cols, aw,
-                                     bw, B, L, gram, A, b, stream, ev_start, ev_end);
-  return static_cast<int>(cudaErrorInvalidValue);
+                                            span, n_spans, grouped, parts, gram, A, b, partial,
+                                            stream, ev_start, ev_end);
 }
 
 // x [B, R] solving A x = b for A [B, R, R] (symmetric positive definite;
 // the upper triangle is read) and b [B, R], fp32, contiguous, on
 // `device`, which pio_als_solve_init has set up. The host's plan
-// (spd_solve_plan in ops/als_cuda.py) gives the route: `shared` puts
-// each warp's workspace in shared memory, `warps` systems a block; else
-// `workspace` holds `slots` workspaces of solve_ws_floats(R) in device
-// memory (slots a multiple of `warps`), one per warp of the grid. Launches
-// on `stream`; returns cudaGetLastError(). ev_start / ev_end as in
+// (spd_solve_plan in ops/als_cuda.py) gives the route: 0, one warp a
+// system (spd_solve_warp_kernel), `warps` workspaces in a block's shared
+// memory; 1, one block a system (spd_solve_block_kernel), its workspace
+// in shared memory; 2, the same with `slots` workspaces of
+// solve_ws_floats(R) + SOLVE_SCALARS floats in device memory
+// (`workspace`), one per block of a grid of `slots` blocks. Launches on
+// `stream`; returns cudaGetLastError(). ev_start / ev_end as in
 // pio_assemble_normal_equations.
-int pio_spd_solve(int device, const float* A, const float* b, int B, int R, float* x, int shared,
+int pio_spd_solve(int device, const float* A, const float* b, int B, int R, float* x, int route,
                   int warps, float* workspace, int slots, void* stream, void* ev_start,
                   void* ev_end) {
-  if (B <= 0 || R <= 0 || warps < 1 || warps > SOLVE_MAX_WARPS)
+  if (B <= 0 || R <= 0 || route < 0 || route > 2 ||
+      (route == 0 && (warps < 1 || warps > SOLVE_MAX_WARPS || R > SOLVE_CHUNK)) ||
+      (route != 0 && warps != SOLVE_BLOCK_WARPS) ||
+      (route == 2 && (workspace == nullptr || slots < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long ws_bytes = solve_ws_floats(R) * static_cast<long long>(sizeof(float));
+  const long long ws = solve_ws_floats(R);
+  const long long smem = static_cast<long long>(sizeof(float)) *
+                         (route == 0 ? warps * ws : route == 1 ? ws + SOLVE_SCALARS : 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (shared) {
-    int optin = 0;
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (warps * ws_bytes > optin) return static_cast<int>(cudaErrorInvalidValue);
-  } else if (workspace == nullptr || slots < warps || slots % warps != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > optin) return static_cast<int>(cudaErrorInvalidValue);
   err = record_event(ev_start, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (shared) {
+  if (route == 0) {
     const long long blocks = (static_cast<long long>(B) + warps - 1) / warps;
-    spd_solve_warp_kernel<true><<<static_cast<unsigned>(blocks), warps * 32,
-                                  static_cast<size_t>(warps * ws_bytes), s>>>(A, b, x, B, R,
-                                                                              nullptr);
+    spd_solve_warp_kernel<<<static_cast<unsigned>(blocks), warps * 32,
+                            static_cast<size_t>(smem), s>>>(A, b, x, B, R);
+  } else if (route == 1) {
+    spd_solve_block_kernel<true><<<static_cast<unsigned>(B), SOLVE_BLOCK_WARPS * 32,
+                                   static_cast<size_t>(smem), s>>>(A, b, x, B, R, nullptr);
   } else {
-    spd_solve_warp_kernel<false><<<static_cast<unsigned>(slots / warps), warps * 32, 0, s>>>(
-        A, b, x, B, R, workspace);
+    spd_solve_block_kernel<false><<<static_cast<unsigned>(std::min(slots, B)),
+                                    SOLVE_BLOCK_WARPS * 32, 0, s>>>(A, b, x, B, R, workspace);
   }
   return launched(ev_end, s);
 }

@@ -182,7 +182,7 @@ class TestHalfStep:
             (6, 4, 2, 3)
         assert als_cuda.assembly_route(64, 208, torch.bfloat16) == "tiles"
         assert als_cuda.assembly_route(209, 208, torch.bfloat16) == \
-            "large_rank"
+            "tile_groups"
         for dtype in (torch.float16, torch.float64, torch.int8):
             with pytest.raises(TypeError, match="fp32 or bf16"):
                 als_cuda.check_assembly_args(Y.to(dtype), cols, w, w, gram,

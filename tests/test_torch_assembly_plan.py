@@ -175,60 +175,127 @@ class TestAssemblyArgs:
 
 
 class TestLargeRankRoute:
-    """Above ``assemble_kernel``'s rank limit (208 on an H100) the wrapper
-    launches ``assemble_large_rank_kernel``: one block per (row, 32x32
-    tile of A's upper triangle), slots summed in order as ``w * y_i``
-    then an fp32 FMA with ``y_j``, the tile mirrored into the lower
-    triangle. ``check_assembly_args`` guards the main route only."""
+    """Above the tiles route's rank limit (208 on an H100) the wrapper
+    launches ``assemble_kernel``'s tile-group route: A's 8x8 tiles fall
+    into bands of at most 20 tiles, and each diagonal band and each pair
+    of bands (cut into two halves of its rows above 256 tiles) is a block
+    of its own (a part) for each (row, span), with its upper tiles and,
+    on the diagonal, its rows' stripes of b. A part sums its live slots (a weight not 0) in slot
+    order, each as ``w * y_i`` rounded, then an fp32 FMA with ``y_j``;
+    rows longer than a span are cut into spans whose partials
+    ``assemble_reduce_kernel`` adds in span order before ``gram``.
+    ``check_assembly_args`` guards the tiles route only."""
 
     @pytest.mark.parametrize("R,route", [(1, "tiles"), (64, "tiles"),
-                                         (208, "tiles"), (209, "large_rank"),
-                                         (256, "large_rank"),
-                                         (320, "large_rank")])
+                                         (208, "tiles"), (209, "tile_groups"),
+                                         (256, "tile_groups"),
+                                         (320, "tile_groups")])
     def test_route(self, R, route):
         assert als_cuda.assembly_route(R, 208) == route
 
+    BAND_MAX = 20        # most tiles of 8 a band (the kernel's BAND_MAX)
+    PART_THREADS = 256   # most items of a part (the kernel's PART_THREADS)
+
+    @classmethod
+    def parts(cls, R, band_max=BAND_MAX, threads=PART_THREADS):
+        """The kernel's parts at rank R, in its order: (r0, r1, c0, c1,
+        diagonal), tile rows [r0, r1) x tile columns [c0, c1) of nb bands
+        of nt tiles; an off-diagonal pair of bands cut into two halves
+        of its rows when its nt * nt tiles exceed ``threads``."""
+        rt = -(-R // 8)
+        nb = -(-rt // band_max)
+        nt = -(-rt // nb)
+        sp = 2 if nt * nt > threads else 1
+        out = []
+        for I in range(nb):
+            a0, a1 = I * nt, min(rt, (I + 1) * nt)
+            out.append((a0, a1, a0, a1, True))
+            hr = -(-(a1 - a0) // sp)
+            for J in range(I + 1, nb):
+                for h in range(sp):
+                    out.append((a0 + h * hr, min(a1, a0 + (h + 1) * hr),
+                                J * nt, min(rt, (J + 1) * nt), False))
+        return out
+
     @staticmethod
-    def tile_order(Y, cols, aw, bw, gram, tile=32):
-        """The kernel's order in plain PyTorch (the FMA's single rounding
-        through fp64, whose product of two fp32 values is exact)."""
+    def fma(a, b, c):
+        """fp32 a * b + c rounded once (through fp64, whose product of
+        two fp32 values is exact)."""
+        return (a.double() * b.double() + c.double()).float()
+
+    @classmethod
+    def tile_order(cls, Y, cols, aw, bw, gram, span=als_cuda.ASSEMBLY_SPAN,
+                   band_max=BAND_MAX, threads=PART_THREADS):
+        """The tile-group route's order in plain PyTorch: each part of
+        each span sums its slots in slot order, skipping slots whose
+        weights are both 0; one span writes gram + its sums, several
+        their partials, added in span order, then to gram. Every entry
+        of A is written by the one part that holds its upper tile
+        (mirrored below the diagonal); b by the diagonal parts."""
         B, L = cols.shape
         R = Y.shape[1]
-        A = torch.empty((B, R, R))
-        b = torch.zeros((B, R))
-        y_all = Y[cols.long()]                                  # [B, L, R]
-        for l in range(L):
-            b = torch.where(bw[:, l:l + 1] != 0, (
-                bw[:, l:l + 1].double() * y_all[:, l].double()
-                + b.double()).float(), b)
-        for i0 in range(0, R, tile):
-            for j0 in range(i0, R, tile):
-                i1, j1 = min(i0 + tile, R), min(j0 + tile, R)
-                acc = torch.zeros((B, i1 - i0, j1 - j0))
-                for l in range(L):
-                    y = y_all[:, l]
-                    yi = aw[:, l:l + 1] * y[:, i0:i1]           # rounded
-                    acc = (yi[:, :, None].double()
-                           * y[:, None, j0:j1].double() + acc.double()).float()
-                for i in range(i0, i1):
-                    for j in range(max(i, j0), j1):
-                        A[:, i, j] = gram[i, j] + acc[:, i - i0, j - j0]
-                        A[:, j, i] = gram[j, i] + acc[:, i - i0, j - j0]
-        return A, b
+        y_all = Y.float()[cols.long()]                          # [B, L, R]
+        live = (aw != 0) | (bw != 0)
+        written = torch.zeros((R, R), dtype=torch.int64)
+        b_written = torch.zeros(R, dtype=torch.int64)
+        S = torch.zeros((B, R, R))
+        s = torch.zeros((B, R))
+        n_spans = -(-L // span) if L > span else 1
+        for k in range(n_spans):
+            P = torch.zeros((B, R, R))
+            p = torch.zeros((B, R))
+            for r0, r1, c0, c1, diag in cls.parts(R, band_max, threads):
+                ci = slice(8 * r0, min(R, 8 * r1))
+                cj = slice(8 * c0, min(R, 8 * c1))
+                acc = torch.zeros((B, ci.stop - ci.start, cj.stop - cj.start))
+                accb = torch.zeros((B, ci.stop - ci.start))
+                for l in range(k * span, min(L, (k + 1) * span)):
+                    y, on = y_all[:, l], live[:, l, None]
+                    yi = aw[:, l:l + 1] * y[:, ci]              # rounded
+                    acc = torch.where(on[:, :, None], cls.fma(
+                        yi[:, :, None], y[:, None, cj], acc), acc)
+                    if diag:
+                        accb = torch.where(on, cls.fma(
+                            bw[:, l:l + 1], y[:, ci], accb), accb)
+                for a in range(ci.start, ci.stop):
+                    for c in range(max(a, cj.start), cj.stop):
+                        v = acc[:, a - ci.start, c - cj.start]
+                        P[:, a, c] = P[:, c, a] = v
+                        written[a, c] += k == 0
+                if diag:
+                    p[:, ci] = accb
+                    b_written[ci] += k == 0
+            S, s = (P, p) if k == 0 else (S + P, s + p)
+        assert (torch.triu(written) == torch.triu(torch.ones_like(written))).all()
+        assert (b_written == 1).all()
+        return gram + S, s
 
-    @pytest.mark.parametrize("R,L", [(33, 20), (70, 9)])
-    def test_integer_exact(self, R, L):
+    @pytest.mark.parametrize("R,L,band_max,threads", [
+        (33, 20, 20, 256), (70, 9, 20, 256), (70, 9, 2, 256),
+        (41, 12, 1, 256), (41, 12, 2, 3), (57, 6, 3, 5)])
+    def test_integer_exact(self, R, L, band_max, threads):
         Y, cols, aw, bw, gram = (t(a) for a in ragged_case(R, 4, L, R))
-        A, b = self.tile_order(Y, cols, aw, bw, gram)
+        A, b = self.tile_order(Y, cols, aw, bw, gram, band_max=band_max,
+                               threads=threads)
         Ap, bp = als_cuda.assemble_normal_equations_plain(Y, cols, aw, bw, gram)
         assert torch.equal(A, Ap) and torch.equal(b, bp)
 
-    def test_continuous_within_reordering_bound(self):
-        L = 15
+    def test_integer_exact_split_into_spans(self):
+        L = 200
+        Y, cols, aw, bw, gram = (t(a) for a in ragged_case(6, 3, L, 24))
+        A, b = self.tile_order(Y, cols, aw, bw, gram, span=64, band_max=1)
+        Ap, bp = als_cuda.assemble_normal_equations_plain(Y, cols, aw, bw, gram)
+        assert torch.equal(A, Ap) and torch.equal(b, bp)
+
+    @pytest.mark.parametrize("L,span,band_max,threads", [
+        (15, 2048, 20, 256), (150, 64, 2, 256), (40, 2048, 2, 3)])
+    def test_continuous_within_reordering_bound(self, L, span, band_max,
+                                                threads):
         Y, cols, aw, bw, gram = (t(a) for a in ragged_case(
             5, 3, L, 40, integer=False))
         gram = gram + gram.T                    # symmetric, as in training
-        A, b = self.tile_order(Y, cols, aw, bw, gram)
+        A, b = self.tile_order(Y, cols, aw, bw, gram, span=span,
+                               band_max=band_max, threads=threads)
         assert torch.equal(A, A.transpose(1, 2))
         Ap, bp = als_cuda.assemble_normal_equations_plain(Y, cols, aw, bw, gram)
         Aa, ba = als_cuda.assemble_normal_equations_plain(
@@ -237,8 +304,45 @@ class TestLargeRankRoute:
         assert ((A - Ap).abs() <= u * Aa).all()
         assert ((b - bp).abs() <= u * ba).all()
 
+    @staticmethod
+    def items(part):
+        r0, r1, c0, c1, diag = part
+        n = r1 - r0
+        return n * (n + 1) // 2 + n if diag else n * (c1 - c0)
+
+    def test_parts_at_rank_256_320_and_385(self):
+        """R = 256: two bands of 16 tiles, three parts (two diagonal of
+        136 tiles and 16 stripes, one of 256 tiles); R = 320: two bands
+        of 20, the pair cut in halves of 200 tiles; R = 385 (49 tiles):
+        three bands of 17, three diagonal parts and three pairs in
+        halves. No part holds more than 256 items."""
+        assert self.parts(256) == [(0, 16, 0, 16, True),
+                                   (0, 16, 16, 32, False),
+                                   (16, 32, 16, 32, True)]
+        assert [self.items(p) for p in self.parts(256)] == [152, 256, 152]
+        assert [self.items(p) for p in self.parts(320)] == [230, 200, 200,
+                                                            230]
+        assert len(self.parts(385)) == 9
+        for R in range(209, 700):
+            assert max(self.items(p) for p in self.parts(R)) <= 256
+
+    def test_against_pallas_interpret_at_rank_209(self):
+        """The first rank of the tile-group route, two bands (128 + 81
+        columns), against the JAX package's Pallas kernel in interpret
+        mode: both fp32 sums of the same L + 1 terms in other orders."""
+        L = 7
+        Y, cols, aw, bw, gram = ragged_case(209, 2, L, 209, integer=False)
+        jA, jb = als_pallas.assemble_normal_equations(
+            *(jnp.asarray(a) for a in (Y, cols, aw, bw, gram)),
+            interpret=True)
+        A, b = self.tile_order(*(t(a) for a in (Y, cols, aw, bw, gram)))
+        np.testing.assert_allclose(A.numpy(), np.asarray(jA), rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(jA).max()))
+        np.testing.assert_allclose(b.numpy(), np.asarray(jb), rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(jb).max()))
+
     def test_args_of_the_large_route_pass(self):
-        """The wrapper checks the large route's arguments with
+        """The wrapper checks the tile-group route's arguments with
         ``max_rank=R``: every shape check still applies."""
         args = TestAssemblyArgs().args(R=300)
         assert als_cuda.check_assembly_args(*args, max_rank=300) == \
