@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --serving-times   # phases 1 and 4 only
+    python3 chip_smoke.py --topk-routes     # phases 1, 2 and 4c only
     python3 chip_smoke.py --prepare-times   # phase 5's prepare step only
     python3 chip_smoke.py --query-fleet     # phases 1, 5 and 3d only
     python3 chip_smoke.py --seqrec          # 1, 5's store, 3e, 3f, 7's half
@@ -32,7 +33,12 @@ Phases (any failure raises and the script exits non-zero):
    row too wide for the cluster), exactly. Then the chunked route's
    edges, exactly: a store of 2,048 * 13 + 100 items (a last chunk
    shorter than k), top scores tied across chunk boundaries, and rows
-   with all but 0, 5, 300 or 6,744 items seen. Prints the launches by
+   with all but 0, 5, 300 or 6,744 items seen; and the tiled route's
+   (k <= 128 from ``CHUNKED_MAX_B`` queries on), exactly, at B = 100:
+   ties across its 1,024-item chunk edges and in its last chunk of
+   120 items, a store of 1,024 * 26 + 1 items (a last chunk of one),
+   ``n_items`` cut inside a chunk with ``row_valid``, rows with all but 5
+   items seen, every launch on the tiled route. Prints the launches by
    route.
 5. Train the recommendation template at MovieLens-20M width from the
    event store: about 20M synthetic ratings of 138,493 users x 26,744
@@ -155,8 +161,9 @@ Phases (any failure raises and the script exits non-zero):
    user, blacklist, category, item-similarity and unknown-user queries,
    some from 8 concurrent clients, and check every answer against the
    same pipeline with the plain version in place of the serving kernel.
-   Its launch count must rise, and every launch at k <= 128 (in batches
-   below ``CHUNKED_MAX_B``) must take the chunked route; the launches are
+   Its launch count must rise, and every launch at k <= 128 must take
+   the chunked route in batches below ``CHUNKED_MAX_B`` and the tiled
+   route from it; the launches are
    printed by (route, k, B). The sequential queries are sent again from
    a client process, each with a ``traceparent`` of its own; its trace,
    read back from ``/traces/<id>``, splits its latency into parts that
@@ -185,7 +192,7 @@ Phases (any failure raises and the script exits non-zero):
    byte the records of ``serve_one`` (the looped single-query path, B1
    at B = 1) over the same queries; (c) B1's launches by (route, k, B)
    equal the chunk plan's (one ``users_topk`` launch per chunk and k,
-   bitonic at B >= ``CHUNKED_MAX_B``; one per similarity query); (d) a
+   tiled at B >= ``CHUNKED_MAX_B``; one per similarity query); (d) a
    run over the first 64 chunks' queries stopped after 48 chunks
    resumes, skips them, scores the rest, and its shards are byte-equal
    to the clean run's. Prints the wall and
@@ -240,7 +247,7 @@ Phases (any failure raises and the script exits non-zero):
    ``ring.preference(user)[0]`` (each replica's own users lane counts
    it), and B1 dispatches in every replica. (c) A second instance,
    trained on phase 5's tables from the next seed (3 iterations, B3 and
-   B2 on the card) and stored; ``POST /reload`` to the balancer while 8
+   B2 on the card) and stored; ``POST /reload`` to the balancer while 4
    clients query 16 users each: no query fails, every answer equals one
    of the two instances' plain answers, no user gets the old instance's
    after the new one's, every answer after the roll equals the new
@@ -296,15 +303,19 @@ Phases (any failure raises and the script exits non-zero):
    rows the CPU re-encode, every answer changes and equals plain.
 4. Time the serving kernel at every (store, B, k) against its bound, its
    plain version and one library call, and at k <= 128 (bf16, and every
-   store at B = 8) split its device time by kernel name under the
-   profiler; print the HTTP p50/p99. With ``--serving-times`` the script
+   store at B = 8 and 256, the tiled route) split its device time by
+   kernel name under the profiler; print the HTTP p50/p99. With ``--serving-times`` the script
    builds and runs this phase alone: copied to the root of another
    checkout, it times that checkout's kernel the same way.
-4c. At k in {16, 128} on the bf16 store, run the chunked and the bitonic
-   route on the same inputs at B from 1 to 256: their answers must be
-   bitwise equal; print each route's device and event-timed ms and the
-   batch from which the bitonic route is as fast, beside the plan's
-   ``CHUNKED_MAX_B``.
+4c. At k in {16, 128} on the bf16 store, run the chunked, tiled and
+   bitonic routes on the same inputs at B from 1 to 256, and the tiled
+   and bitonic routes at ``grid_topk``'s shape (fp32, B = 512, k = 10,
+   2,047 seen a query): their answers must be bitwise equal; print each
+   route's device and event-timed ms, the tiled route's split by kernel
+   name, the fastest route and the plan's at each batch, and the batch
+   from which the tiled route is as fast as the chunked one, beside the
+   plan's ``CHUNKED_MAX_B``. ``--topk-routes`` builds and runs phases 2
+   and 4c alone.
 4b. Time the training kernels at the full-width shapes (the assembly on
    every bucket of both sides, the solve on each side's whole batch)
    against their bounds, plain versions and one library call each; at
@@ -568,7 +579,10 @@ the roll swaps to; the serving kernel's ``sequence_launches`` and
 ``sharded_route`` phase 8b's launches and times and its
 ``twostage_sharded_route`` phase 8d's, the training kernels'
 ``sharded_training`` phase 8c's launches, ms per iteration and busy
-share), the card's name
+share; the serving kernel's tiled route, ``score_select_tile_kernel``,
+an entry of its own: its launches in phase 3c, by phase with 3's and
+5d's, its times at the headline shape beside the bitonic route's in 4c,
+and at ``grid_topk``'s shape), the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. With
 ``--query-fleet`` the script builds and runs phases 5 and 3d alone;
 with ``--seqrec`` phase 5's store, 3e, 3f and phase 7's sequence half;
@@ -605,6 +619,11 @@ TIME_KS = (16, 128, 2048, M_ITEMS)
 # the whole row (category queries)
 CHECK_KS = (16, 128, 129, 2048, 2049, 6000, M_ITEMS)
 RTOL = 1e-5
+# phase 2's store for the tiled route's last chunk of one item
+TILED_ONE_ITEM = 1024 * 26 + 1
+# phase 2's other ranks for the tiled route: 10 (per-value loads on every
+# store) and 40 (vectorised; the last of three bf16 rank blocks partial)
+TILED_RANKS = (10, 40)
 ITERATIONS, LAMBDA, ALPHA = 3, 0.01, 1.0
 # phase 2b's other assembly ranks: one warp a block at 1 and 10, up to
 # the kernel's limit on an H100 (208)
@@ -775,18 +794,18 @@ def _check_topk(kv, ki, pv, pi, tol, exact, B, k, fin) -> float:
     return float(err.max(initial=0.0))
 
 
-def fixture(kind: str, B: int, rng):
+def fixture(kind: str, B: int, rng, rank: int = RANK):
     """Queries, item table, seen [L, B] tables for one phase-2 case."""
     L = 64
     if kind == "random":
-        Q = rng.normal(size=(B, RANK)).astype(np.float32)
-        Y = rng.normal(size=(M_ITEMS, RANK)).astype(np.float32)
+        Q = rng.normal(size=(B, rank)).astype(np.float32)
+        Y = rng.normal(size=(M_ITEMS, rank)).astype(np.float32)
     else:
         # small integers: every score is an exact integer, ties abound;
         # rows 120..219 are one row that wins every query, so the top
         # ties straddle the 128-row tile boundary
-        Q = rng.integers(1, 4, (B, RANK)).astype(np.float32)
-        Y = rng.integers(-3, 4, (M_ITEMS, RANK)).astype(np.float32)
+        Q = rng.integers(1, 4, (B, rank)).astype(np.float32)
+        Y = rng.integers(-3, 4, (M_ITEMS, rank)).astype(np.float32)
         Y[120:220] = 5.0
         Y[:, 0] = 127.0 * np.sign(Y[:, 0] + 0.5)  # int8 scale 1: exact
     cols = rng.integers(0, M_ITEMS, (L, B)).astype(np.int32)
@@ -890,6 +909,11 @@ def kernel_checks(dev, seed: int) -> tuple:
         topk_case(Qt, store, ct, mt, k=k, n_items=M_ITEMS, row_valid=rv)
         cases += 1
     cases += chunked_route_checks(dev, rng)
+    t = time.perf_counter()
+    tiled_cases = tiled_route_checks(dev, rng)
+    print(f"[phase] 2 of it, the tiled route's checks ({tiled_cases} "
+          f"cases): {time.perf_counter() - t:.1f} s")
+    cases += tiled_cases
     routes = routes_of(als_cuda.launches.by_key())
     print(f"[kernel] fused_gather_score_topk == plain in {cases} cases "
           f"(k in {CHECK_KS} and k = M; integer fixtures exact; max |value "
@@ -945,6 +969,72 @@ def chunked_route_checks(dev, rng) -> int:
             for k in (16, 128, 129):
                 topk_case(Qt, store, ct, mt, k=k, n_items=M_ITEMS)
                 cases += 1
+    return cases
+
+
+def tiled_route_checks(dev, rng) -> int:
+    """The tiled route's edges, each exact on integer data at B = 100
+    (the last tile of 16 queries holds 4; kernel_checks and
+    chunked_route_checks cover B = 256), every launch on the tiled route:
+    top scores tied across the 1,024-item chunk edges
+    and in the last chunk (120 items: shorter than k = 128), seen ids on
+    both sides of an edge, on fp32, bf16 and int8 stores; a store of
+    1,024 * 26 + 1 items (a last chunk of one item, which wins); n_items
+    cut inside a chunk with row_valid; rows with all but 5 items seen;
+    and ranks off the staging's 16-byte pieces and whole rank blocks
+    (``TILED_RANKS``): R = 10 (the templates' rank: per-value loads on
+    every store, a partial last rank block) and R = 40 (vectorised
+    loads, a partial last bf16 block of 16 ranks)."""
+    import torch
+
+    from predictionio_tpu_torch.ops import als_cuda
+
+    before = als_cuda.launches.by_key()
+    cases = 0
+    one, B = TILED_ONE_ITEM, 100
+    Q, Yf, cols, mask = fixture("integer", B, rng)
+    for lo, hi in ((1020, 1030), (5110, 5125), (M_ITEMS - 50, M_ITEMS)):
+        Yf[lo:hi] = 5.0
+    cols[4:8] = np.asarray([1022, 1024, 5119, 5120])[:, None]
+    Qt, ct, mt = (torch.from_numpy(a).to(dev) for a in (Q, cols, mask))
+    for dtype in ("fp32", "bf16", "int8"):
+        store, _ = make_store(Yf, dtype, dev)
+        for k in (1, 16, 128):
+            topk_case(Qt, store, ct, mt, k=k, n_items=M_ITEMS)
+            cases += 1
+    Y1 = Yf[:one].copy()
+    Y1[-1] = 9.0
+    store, _ = make_store(Y1, "int8", dev)
+    cs = torch.from_numpy(cols % one).to(dev)
+    rv = torch.from_numpy((rng.random(one) < 0.8).astype(np.float32)
+                          ).to(dev)
+    for k in (16, 128):
+        topk_case(Qt, store, cs, mt, k=k, n_items=one, m=one)
+        topk_case(Qt, store, cs, mt, k=k, n_items=20_000, m=one,
+                  row_valid=rv)
+        cases += 2
+    store, _ = make_store(Yf, "fp32", dev)
+    L = M_ITEMS - 5
+    many = np.stack([rng.permutation(M_ITEMS)[:L] for _ in range(B)],
+                    axis=1).astype(np.int32)
+    ct = torch.from_numpy(many).to(dev)
+    for k in (16, 128):
+        topk_case(Qt, store, ct, torch.ones((L, B), device=dev), k=k,
+                  n_items=M_ITEMS)
+        cases += 1
+    for rank in TILED_RANKS:
+        Q, Yf, cols, mask = fixture("integer", B, rng, rank=rank)
+        Yf[1020:1030] = 5.0
+        Qt, ct, mt = (torch.from_numpy(a).to(dev) for a in (Q, cols, mask))
+        for dtype in ("fp32", "bf16", "int8"):
+            store, _ = make_store(Yf, dtype, dev)
+            for k in (16, 128):
+                topk_case(Qt, store, ct, mt, k=k, n_items=M_ITEMS)
+                cases += 1
+    after = als_cuda.launches.by_key()
+    routes = {key[0] for key in after if after[key] != before.get(key, 0)}
+    if routes != {"tiled"}:
+        raise AssertionError(f"the tiled route's checks launched {routes}")
     return cases
 
 
@@ -2769,6 +2859,12 @@ def tuning_grid(dev, trained: dict, ratings: tuple, seed: int,
     b1 = sum(launches["topk"].values())
     if b1 != grid.k * -(-GRID_USERS // 512):
         raise AssertionError(f"grid_topk launched B1 {launches['topk']}")
+    topk_routes = routes_of(launches["topk"])
+    want_route = als_cuda.topk_sort_plan(GRID_TOPK, M_ITEMS, 512, 1 << 30).route
+    if set(topk_routes) != {want_route}:
+        raise AssertionError(f"grid_topk's launches by route {topk_routes}, "
+                             f"want {want_route}")
+    print(f"[grid] grid_topk's B1 launches by route {topk_routes}")
     per_config = wf_tuning.grid_bytes_per_config(N_USERS, M_ITEMS, grid, us,
                                                  its)
     # (a) the alive mask, the dead lane, finiteness
@@ -2933,7 +3029,8 @@ def tuning_grid(dev, trained: dict, ratings: tuple, seed: int,
     del us, its, res, X0, Y0, u_t, i_t
     clear_training_programs()
     return {"launches": {"tiles_grid": tiles_grid,
-                         "spd_solve": launches["spd_solve"], "topk": b1},
+                         "spd_solve": launches["spd_solve"], "topk": b1,
+                         "topk_routes": topk_routes},
             "grid_s": grid_s, "iteration_ms": 1e3 * grid_s / GRID_ITERATIONS,
             "serial_s": serial_s, "board_s": board_s, "peak_bytes": peak,
             "per_config_bytes": per_config, "table_bytes": table_bytes,
@@ -3565,6 +3662,12 @@ def serve_full_width(model, seed: int) -> dict:
     if not small or any(route != "chunked" for route in small):
         raise AssertionError(f"the main path's launches at k <= 128 did not "
                              f"all take the chunked route: {by_key}")
+    large = [route for route, k, b in by_key
+             if k <= als_cuda.CHUNK_K_MAX and b >= als_cuda.CHUNKED_MAX_B]
+    if any(route != "tiled" for route in large):
+        raise AssertionError(f"the main path's launches at k <= 128 in "
+                             f"batches of {als_cuda.CHUNKED_MAX_B} or more "
+                             f"did not all take the tiled route: {by_key}")
     stats = srv.stats()
     print_split(splits)
 
@@ -5258,6 +5361,7 @@ def query_fleet_full_width(dev, trained: dict, seed: int, card: str) -> dict:
     import secrets
     import tempfile
     import uuid
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
@@ -5469,7 +5573,7 @@ def query_fleet_full_width(dev, trained: dict, seed: int, card: str) -> dict:
               f"traces")
         out["scrape_s"] = fleet_block["scrape"]["durationSec"]
 
-        # (c) a rolling reload to a second instance under 8 clients
+        # (c) a rolling reload to a second instance under load
         pd = trained["pd"]
         us, its = pd.user_side.to_device(dev), pd.item_side.to_device(dev)
         als_cuda.assemble_launches.reset()
@@ -5618,11 +5722,17 @@ def query_fleet_full_width(dev, trained: dict, seed: int, card: str) -> dict:
               f"degradedReasons ['replica_down'], equal the plain pipeline; "
               f"/healthz ready")
 
-        # (f) the operator commands against the balancer
-        env = console_env(os.path.join(work, "pio.db"))
-        said_status, _ = pio(["status", "--fleet", base], env, work)
-        said_top, _ = pio(["top", "--once", "--fleet", "--url", base], env,
-                          work)
+        # (f) the operator commands against the balancer, side by side,
+        # each over a sqlite file of its own
+        t = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            verbs = [pool.submit(pio, verb, console_env(
+                os.path.join(work, f"{verb[0]}.db")), work) for verb in (
+                ["status", "--fleet", base],
+                ["top", "--once", "--fleet", "--url", base])]
+            (said_status, status_s), (said_top, top_s) = \
+                [v.result() for v in verbs]
+        verbs_s = time.perf_counter() - t
         fleet_line = [ln for ln in said_status.splitlines()
                       if ln.startswith("[INFO] Query fleet: ")]
         members = [ln for ln in said_top.splitlines()
@@ -5632,7 +5742,11 @@ def query_fleet_full_width(dev, trained: dict, seed: int, card: str) -> dict:
             raise AssertionError(f"pio status --fleet: {said_status!r}; "
                                  f"pio top --fleet: {said_top!r}")
         print(f"[fleet] (f) pio-torch status --fleet: {fleet_line[0]!r}; "
-              f"pio-torch top --fleet --once: {members[0]!r}")
+              f"pio-torch top --fleet --once: {members[0]!r}; the two "
+              f"processes {status_s!r} s and {top_s!r} s, side by side "
+              f"{verbs_s!r} s")
+        out["operator_s"] = {"status": status_s, "top": top_s,
+                             "both": verbs_s}
         fleet.stop()
         launches["fused_gather_score_topk"] += als_cuda.launches.value
         fleet = None
@@ -5787,7 +5901,7 @@ def timings(dev, seed: int) -> list:
                        "plain_ms": t_p, "library_ms": t_l,
                        "bound_ms": b_ms, "bound_by": b_by}
                 split = ""
-                if k <= 128 and (dtype == "bf16" or B == 8):
+                if k <= 128 and (dtype == "bf16" or B in (8, 256)):
                     row["device_ms"] = kernel_split(kernel, 20)
                     split = (f"  device {sum(row['device_ms'].values())!r} "
                              f"ms {row['device_ms']}")
@@ -5807,55 +5921,123 @@ def timings(dev, seed: int) -> list:
     return rows
 
 
-# phase 4c's batches: the chunked route against the bitonic route
-CROSSOVER_BATCHES = (1, 8, 16, 32, 64, 96, 128, 192, 256)
+# phase 4c's batches and routes: the chunked, tiled and bitonic routes
+# of k <= 128 on the same inputs
+CROSSOVER_BATCHES = (1, 8, 16, 32, 64, 96, 128, 256)
+CROSSOVER_ROUTES = ("chunked", "tiled", "bitonic")
+# grid_topk's shape (phase 5d): the held-out users of one grid batch,
+# GRID_TOPK, and each user's training items masked (the longest row)
+GRID_TOPK_SHAPE = dict(B=512, k=10, L=2_047)
+
+
+def route_times(call) -> tuple:
+    """One route's device ms per call (profiler, summed over its
+    kernels), the split by kernel name and the event-timed ms."""
+    split = kernel_split(call, 20)
+    return sum(split.values()), split, time_ms(call, 20)
+
+
+def routes_equal(out: dict, label: str) -> None:
+    """Every route's answer bitwise the first's: value bits everywhere,
+    ids wherever the value is finite."""
+    import torch
+
+    rv, ri = next(iter(out.values()))
+    fin = torch.isfinite(rv)
+    for name, (v, i) in list(out.items())[1:]:
+        if not (torch.equal(v.view(torch.int32), rv.view(torch.int32))
+                and torch.equal(i[fin], ri[fin])):
+            raise AssertionError(f"{label}: the {name} route differs from "
+                                 f"the {next(iter(out))} route")
 
 
 def route_crossover(dev, seed: int) -> dict:
-    """The chunked and the bitonic route on the same bf16 inputs at k in
-    {16, 128} and each batch of ``CROSSOVER_BATCHES``: their answers
-    bitwise equal, and each route's device ms per call (profiler, summed
-    over its kernels) and event-timed ms. Returns, per k, the smallest
-    batch from which the bitonic route's device time is at most the
-    chunked route's (None if it never is)."""
+    """The chunked, tiled and bitonic routes on the same bf16 inputs at k
+    in {16, 128} and each batch of ``CROSSOVER_BATCHES``, and the tiled
+    and bitonic routes at ``grid_topk``'s shape (fp32): their answers
+    bitwise equal; each route's device ms per call (profiler, summed
+    over its kernels), split by kernel name, and event-timed ms. Returns
+    per k the fastest route by device time at each batch, the plan's
+    route, and the smallest batch from which the tiled route's device
+    time is at most the chunked route's (None if it never is)."""
     import torch
 
     from predictionio_tpu_torch.ops import als_cuda
 
     rng = np.random.default_rng(seed + 4)
-    first: dict = {}
+    out: dict = {"first_tiled": {}, "by_batch": {}, "grid": None}
+    tiled_s = 0.0    # the seconds of the tiled route's calls and timings
     for k in (16, 128):
-        first[k] = None
+        out["first_tiled"][k] = None
         for B in CROSSOVER_BATCHES:
             Q, Yf, cols, mask = fixture("random", B, rng)
             store, _ = make_store(Yf, "bf16", dev)
             Qt, ct, mt = (torch.from_numpy(a).to(dev) for a in (Q, cols, mask))
-            out, ev, devt = {}, {}, {}
-            for route in ("chunked", "bitonic"):
+            answers, devt, ev = {}, {}, {}
+            for route in CROSSOVER_ROUTES:
                 def call(route=route):
                     return als_cuda._launch(Qt, store, ct, mt, k=k,
                                             n_items=M_ITEMS, mask_seen=True,
                                             row_valid=None, route=route)
-                out[route] = call()
-                ev[route] = time_ms(call, 20)
-                devt[route] = sum(kernel_split(call, 20).values())
-            (cv, ci), (bv, bi) = out["chunked"], out["bitonic"]
-            fin = torch.isfinite(bv)
-            if not (torch.equal(cv.view(torch.int32), bv.view(torch.int32))
-                    and torch.equal(ci[fin], bi[fin])):
-                raise AssertionError(f"the chunked and bitonic routes differ "
-                                     f"at B={B}, k={k}")
-            if first[k] is None and devt["bitonic"] <= devt["chunked"]:
-                first[k] = B
-            print(f"[time] bf16 B={B:<3} k={k:<3} chunked device "
-                  f"{devt['chunked']!r} ms, event {ev['chunked']!r} ms; "
-                  f"bitonic device {devt['bitonic']!r} ms, event "
-                  f"{ev['bitonic']!r} ms")
-    print(f"[time] the bitonic route is as fast from B = {first} on (the "
-          f"plan takes the chunked route below CHUNKED_MAX_B = "
-          f"{als_cuda.CHUNKED_MAX_B}); both routes equal in "
-          f"{2 * len(CROSSOVER_BATCHES)} cases")
-    return first
+                t = time.perf_counter()
+                answers[route] = call()
+                devt[route], split, ev[route] = route_times(call)
+                if route == "tiled":
+                    tiled_split = split
+                    tiled_s += time.perf_counter() - t
+            routes_equal(answers, f"B={B}, k={k}")
+            if (out["first_tiled"][k] is None
+                    and devt["tiled"] <= devt["chunked"]):
+                out["first_tiled"][k] = B
+            plan = als_cuda.topk_sort_plan(k, M_ITEMS, B, 1 << 30).route
+            fastest = min(devt, key=devt.get)
+            out["by_batch"][f"k={k} B={B}"] = {
+                "plan": plan, "fastest": fastest, "device_ms": devt,
+                "event_ms": ev, "tiled_split": tiled_split}
+            print(f"[time] bf16 B={B:<3} k={k:<3} device ms "
+                  + ", ".join(f"{r} {devt[r]!r}" for r in CROSSOVER_ROUTES)
+                  + "; event ms "
+                  + ", ".join(f"{r} {ev[r]!r}" for r in CROSSOVER_ROUTES)
+                  + f"; tiled split {tiled_split}; plan {plan}, fastest "
+                  f"{fastest}")
+    g = GRID_TOPK_SHAPE
+    Q = rng.normal(size=(g["B"], RANK)).astype(np.float32)
+    Yf = rng.normal(size=(M_ITEMS, RANK)).astype(np.float32)
+    cols = np.stack([rng.permutation(M_ITEMS)[:g["L"]]
+                     for _ in range(g["B"])], axis=1).astype(np.int32)
+    Qt, Yt, ct = (torch.from_numpy(a).to(dev) for a in (Q, Yf, cols))
+    mt = torch.ones((g["L"], g["B"]), device=dev)
+    answers, grid = {}, {}
+    for route in ("tiled", "bitonic"):
+        def call(route=route):
+            return als_cuda._launch(Qt, Yt, ct, mt, k=g["k"], n_items=M_ITEMS,
+                                    mask_seen=True, row_valid=None,
+                                    route=route)
+        t = time.perf_counter()
+        answers[route] = call()
+        dev_ms, split, ev_ms = route_times(call)
+        if route == "tiled":
+            tiled_s += time.perf_counter() - t
+        grid[route] = {"device_ms": dev_ms, "event_ms": ev_ms,
+                       "split": split}
+    routes_equal(answers, "grid_topk's shape")
+    out["grid"] = grid
+    print(f"[time] grid_topk's shape (fp32, B={g['B']}, k={g['k']}, "
+          f"L={g['L']}): " + "; ".join(
+              f"{r} device {v['device_ms']!r} ms, event {v['event_ms']!r} "
+              f"ms, split {v['split']}" for r, v in grid.items()))
+    disagree = {key: (r["plan"], r["fastest"])
+                for key, r in out["by_batch"].items()
+                if r["plan"] != r["fastest"]}
+    print(f"[time] the tiled route's device time is at most the chunked "
+          f"route's from B = {out['first_tiled']} on (the plan: chunked "
+          f"below CHUNKED_MAX_B = {als_cuda.CHUNKED_MAX_B}, tiled from "
+          f"it); (plan, fastest) where they differ: {disagree}; the three "
+          f"routes equal in {2 * len(CROSSOVER_BATCHES)} cases and two at "
+          f"grid_topk's shape")
+    print(f"[phase] 4c of it, the tiled column: {tiled_s:.1f} s")
+    out["tiled_s"] = tiled_s
+    return out
 
 
 # -- phase 4b: training kernel times ------------------------------------------
@@ -7792,6 +7974,21 @@ def console_operator(work: str, env: dict, evaluation_id: str,
                 child.wait(timeout=60)
 
 
+def eval_routes(n_users: int, n_sets: int, batch: int) -> dict:
+    """B1's launches by route for ``n_sets`` top-``GRID_TOPK`` passes
+    over ``n_users`` users at ML-1M width, ``batch`` users a launch: the
+    routes ``topk_sort_plan`` gives each batch."""
+    from predictionio_tpu_torch.ops import als_cuda
+
+    out: dict = {}
+    for start in range(0, n_users, batch):
+        b = min(batch, n_users - start)
+        route = als_cuda.topk_sort_plan(GRID_TOPK, ML1M_ITEMS, b,
+                                        1 << 30).route
+        out[route] = out.get(route, 0) + n_sets
+    return out
+
+
 def console_eval(seed: int, kept: dict, card: str) -> dict:
     """Phase 6c: ``pio eval`` in both lanes through the console at ML-1M,
     on phase 6b's store (6b's crash trio, running beside, removes it
@@ -7850,6 +8047,12 @@ def console_eval(seed: int, kept: dict, card: str) -> dict:
             raise AssertionError(f"the winner's engineParams {ep}")
         if not all(launched.values()):
             raise AssertionError(f"pio eval --grid launched {launched}")
+        # grid_topk: one B1 launch per config per 512 held-out users
+        want = eval_routes(board["nTestUsers"], len(board["rows"]), 512)
+        if launched["fused_gather_score_topk_routes"] != want:
+            raise AssertionError(f"pio eval --grid's B1 launches by route "
+                                 f"{launched['fused_gather_score_topk_routes']}"
+                                 f", want {want}")
         out["grid"] = {"s": grid_s, "launches": launched,
                        "winner": winner["params"],
                        "metric": winner["metric"],
@@ -7883,6 +8086,13 @@ def console_eval(seed: int, kept: dict, card: str) -> dict:
             raise AssertionError(f"evaluation instances {instances}")
         result = json.loads(instances[0].evaluator_results_json)
         child = [s["score"] for s in result["engineParamsScores"]]
+        # batch_predict: one B1 launch per param set, its batch every
+        # held-out user (thousands)
+        want = eval_routes(ML1M_USERS, len(child), ML1M_USERS)
+        if launched["fused_gather_score_topk_routes"] != want:
+            raise AssertionError(f"pio eval's B1 launches by route "
+                                 f"{launched['fused_gather_score_topk_routes']}"
+                                 f", want {want}")
         mine = eval_scores_in_process(store)
         if [m[0] for m in mine] != child or [m[1] for m in mine] != child:
             raise AssertionError(f"Precision@{GRID_TOPK} of the child "
@@ -11874,6 +12084,11 @@ def main() -> int:
              "its rows; with a copy of this script at another checkout's "
              "root, times that checkout's package")
     parser.add_argument(
+        "--topk-routes", action="store_true",
+        help="build, then only hold the serving kernel against its plain "
+             "version (phase 2) and run its routes of k <= 128 side by "
+             "side (phase 4c)")
+    parser.add_argument(
         "--prepare-times", action="store_true",
         help="only run phase 5's ratings through the preparator and print "
              "its split; with a copy of this script at another checkout's "
@@ -12108,6 +12323,15 @@ def main() -> int:
                           "sharded_training": trained_sh}, default=str))
         print(nvidia_smi())
         return 0
+    if args.topk_routes:
+        max_err, checked = phase("2 serving kernel checks", kernel_checks,
+                                 dev, args.seed)
+        out = phase("4c route crossover", route_crossover, dev, args.seed)
+        print(json.dumps({"topk_routes": {"max_abs_err": max_err,
+                                          "checked_routes": checked, **out}},
+                         default=str))
+        print(nvidia_smi())
+        return 0
     if args.serving_times:
         rows = phase("4 serving kernel times", timings, dev, args.seed)
         print(json.dumps({"serving_times": rows}))
@@ -12174,7 +12398,12 @@ def main() -> int:
               f" s; its rank-{LARGE_ITER_RANK} iteration at ML-20M width "
               f"{train_times['large_iteration']['s']:.2f} s. Phase 6b's "
               f"overlap of pio batchpredict with the feedback and fleet "
-              f"deploys hides {started['overlap']['hidden_s']:.2f} s")
+              f"deploys hides {started['overlap']['hidden_s']:.2f} s. "
+              f"Phase 4c's tiled column {crossover['tiled_s']:.2f} s; "
+              f"phase 3d (f)'s two console verbs side by side "
+              f"{fleet['operator_s']['both']:.2f} s against "
+              f"{fleet['operator_s']['status'] + fleet['operator_s']['top']:.2f}"
+              f" s one after the other")
         evaluated = phase("6c pio eval", console_eval, args.seed,
                           started["kept"], card)
         networked = phase("6d networked event store", networked_store,
@@ -12215,8 +12444,9 @@ def main() -> int:
         "library_ms": head["library_ms"], "shape": "bf16 store, B=256, k=16",
         # launches by route on the main path (phase 3) and in phase 2
         "routes": served["routes"], "checked_routes": checked_routes,
-        # the batch from which the bitonic route is as fast, per k
-        "crossover_batch": crossover,
+        # per k, the batch from which the tiled route is as fast as the
+        # chunked route (phase 4c)
+        "crossover_batch": crossover["first_tiled"],
         # the category queries' shape: the whole row sorted
         "large_k": [{key: r[key] for key in ("store", "B", "k", "ms",
                                              "plain_ms", "library_ms",
@@ -12236,7 +12466,7 @@ def main() -> int:
                 evaluated["evaluation"]["launches"][
                     "fused_gather_score_topk"]}],
         # the offline lane: phase 3c's clean run (users_topk per chunk
-        # and k, bitonic at B >= CHUNKED_MAX_B) and 6b's pio batchpredict
+        # and k, tiled at B >= CHUNKED_MAX_B) and 6b's pio batchpredict
         "batch_routes": {
             "launches": batched["launches"], "by_route": batched["by_route"],
             "queries": batched["queries"], "chunks": batched["chunks"],
@@ -12286,6 +12516,29 @@ def main() -> int:
         "ladder": {"phase3": laddered, "twostage": two_served["ladder"],
                    "sharded": sharded["ladder"]},
         "timings": rows}]
+    # B1's tiled route (k <= 128 in batches of CHUNKED_MAX_B or more):
+    # its launches in phase 3c's `pio batchpredict` engine (its main user
+    # path), phase 3 and phase 5d's grid_topk; its times at the headline
+    # shape (phase 4), beside the bitonic route it replaced there and at
+    # grid_topk's shape (phase 4c, both on the same inputs; phase 5d)
+    tiled_launches = {"3c": batched["by_route"].get("tiled", 0),
+                      "3": served["routes"].get("tiled", 0),
+                      "5d": grid["launches"]["topk_routes"].get("tiled", 0)}
+    head_4c = crossover["by_batch"]["k=16 B=256"]
+    kernels.append({
+        "name": "score_select_tile_kernel", "route": "cuda",
+        "source": "predictionio_tpu_torch/ops/csrc/fused_topk.cu",
+        "replaces": "predictionio_tpu/ops/als_pallas.py:453",
+        "launches": tiled_launches["3c"],
+        "launches_by_phase": tiled_launches, "max_abs_err": max_err,
+        **{key: head[key] for key in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+        "shape": "bf16 store, B=256, k=16 (the tiled route, its merge and "
+                 "bitmap included)",
+        "device_ms": head_4c["device_ms"], "tiled_split": head_4c[
+            "tiled_split"],
+        "grid_topk": {**grid["topk"], "routes_4c": crossover["grid"]},
+        "first_tiled_batch": crossover["first_tiled"]})
     for name, replaces, err, shape, main_route in (
             ("assemble_normal_equations", 141, train_err["assemble"],
              "every bucket of both sides (one iteration), R=64", "tiles"),

@@ -12,21 +12,24 @@ there has one here:
   scores with fp32 FMAs only (the reference pins ``Precision.HIGHEST``),
   masks seen items by one scatter per (slot, query) instead of comparing
   every tile with every seen slot, and orders each query's row by the
-  route that :func:`topk_sort_plan` picks: for k up to 128 on rows over
-  2,048 items (personal top-N queries) in batches too small to fill the
-  card with one block per query, a radix select per 2,048-item chunk,
-  one block each, into a candidate row per query in item order, then
-  one block per query selecting and sorting the k winners of that row
-  (exactly what one select over the row gives); else a radix select
-  and a bitonic sort in shared memory while the sort width is at most
-  2,048; above it (category queries ask for nearly every item)
-  a stable LSD radix sort of the whole row, in id order, so the lowest
-  id stays first among equal scores, by a cluster of 8 blocks that hold
-  the row in their shared memory and scatter through distributed shared
-  memory, or by one block through a device-memory scratch the wrapper
-  allocates, for a row too wide for the cluster. The [B, M] scores make
-  one round trip through device memory; keeping them on chip is later
-  work.
+  route that :func:`topk_sort_plan` picks. For k up to 128 on rows over
+  2,048 items (personal top-N queries): in batches under
+  ``CHUNKED_MAX_B``, a radix select per 2,048-item chunk, one block
+  each, into a candidate row per query in item order, then one block
+  per query selecting and sorting the k winners of that row (exactly
+  what one select over the row gives); in larger batches the tiled
+  route, which scores and selects each 1,024-item chunk of 16 queries
+  in one block (the scores, masked through a seen bitmap, stay in
+  shared memory; a warp per query picks the chunk's winners) into the
+  same candidate rows and merge. Else a radix select and a bitonic sort
+  in shared memory while the sort width is at most 2,048; above it
+  (category queries ask for nearly every item) a stable LSD radix sort
+  of the whole row, in id order, so the lowest id stays first among
+  equal scores, by a cluster of 8 blocks that hold the row in their
+  shared memory and scatter through distributed shared memory, or by
+  one block through a device-memory scratch the wrapper allocates, for
+  a row too wide for the cluster. Outside the tiled route the [B, M]
+  scores make one round trip through device memory.
 - ``assemble_normal_equations`` (training; ``als_pallas.py:141``, kernel
   ``_kernel``) is ``assemble_kernel`` in ``csrc/als_solve.cu``. Bound:
   ``slots*(R(R+1) + 2R)`` fp32 operations (``A`` is symmetric: one FMA
@@ -218,7 +221,11 @@ class TopkSortPlan(NamedTuple):
     ``route``: "chunked" (each chunk of ``TOPK_CHUNK`` items selects its
     own top k, one block each, into a candidate row of ``scratch_pairs``
     value/id pairs per query, in item order; one block per query then
-    selects and sorts the k winners of that row), "bitonic" (a radix
+    selects and sorts the k winners of that row), "tiled" (the same
+    candidate rows and merge, with chunks of ``TILED_CHUNK`` items, each
+    scored and selected for 16 queries by one block: no [B, M] scores,
+    the seen items read from a bitmap of ``seen_words(m)`` words per
+    query), "bitonic" (a radix
     select of the k winners of the whole row and a bitonic sort of them
     in shared memory), "cluster_row" (no select: a stable radix sort of
     the whole row, in id order, by a cluster of blocks that hold it in
@@ -236,25 +243,36 @@ BITONIC_MAX = 2048
 # kernel's TOPK_CHUNK), and the widest k it takes.
 TOPK_CHUNK = 2048
 CHUNK_K_MAX = 128
-# The chunked route takes batches below this many queries. From there
-# the bitonic route's one block per query fills enough of the card that
-# reading the row five times from L2 costs less than the chunk blocks'
-# fixed costs: on an H100 80GB HBM3 (700 W) its device time was at most
-# the chunked route's from B = 96 on, at k = 16 and at k = 128, and
-# above it at B = 64 (chip_smoke.py phase 4c).
-CHUNKED_MAX_B = 96
-_ROUTE_CODE = {"bitonic": 0, "cluster_row": 1, "radix_row": 2, "chunked": 3}
+# The tiled route's chunk (the kernel's TILE_CHUNK) and the queries one
+# of its blocks scores (TILE_Q).
+TILED_CHUNK = 1024
+TILED_QUERIES = 16
+# The chunked route takes batches below this many queries, the tiled
+# route the rest (k <= CHUNK_K_MAX on rows over TOPK_CHUNK items): on an
+# H100 80GB HBM3 (700 W) the tiled route's device time was at most the
+# chunked route's from B = 32 on at k = 16 and above it at B = 16; at k
+# = 128 the two read within 2% of each other at B = 32, either one ahead
+# from run to run (chip_smoke.py phase 4c).
+CHUNKED_MAX_B = 32
+_ROUTE_CODE = {"bitonic": 0, "cluster_row": 1, "radix_row": 2, "chunked": 3,
+               "tiled": 4}
 
 
-def chunk_candidates(k: int, m: int) -> int:
-    """Candidates per query of the chunked route: ``min(k, n_c)`` from
-    each chunk of ``n_c`` items. Every chunk but the last holds
-    ``TOPK_CHUNK >= k`` items, so the candidate row has no gaps."""
+def chunk_candidates(k: int, m: int, chunk: int = TOPK_CHUNK) -> int:
+    """Candidates per query of the chunked route (``chunk`` =
+    ``TOPK_CHUNK``) or the tiled route (``TILED_CHUNK``): ``min(k,
+    n_c)`` from each chunk of ``n_c`` items. Every chunk but the last
+    holds ``chunk >= k`` items, so the candidate row has no gaps."""
     if not 0 < k <= CHUNK_K_MAX:
         raise ValueError(f"the chunked route takes k in [1, {CHUNK_K_MAX}], "
                          f"got {k}")
-    last = m - (-(-m // TOPK_CHUNK) - 1) * TOPK_CHUNK
-    return (m - last) // TOPK_CHUNK * k + min(k, last)
+    last = m - (-(-m // chunk) - 1) * chunk
+    return (m - last) // chunk * k + min(k, last)
+
+
+def seen_words(m: int) -> int:
+    """32-bit words per query of the tiled route's seen bitmap."""
+    return -(-m // 32)
 
 
 def topk_sort_plan(k: int, m: int, batch: int,
@@ -264,8 +282,10 @@ def topk_sort_plan(k: int, m: int, batch: int,
     ``cluster_max_row`` items (the library's ``pio_topk_cluster_max_row``).
     The kernel launches the route it is given; it refuses only a launch
     its buffers cannot hold."""
-    if k <= CHUNK_K_MAX and m > TOPK_CHUNK and batch < CHUNKED_MAX_B:
-        return TopkSortPlan("chunked", chunk_candidates(k, m))
+    if k <= CHUNK_K_MAX and m > TOPK_CHUNK:
+        if batch < CHUNKED_MAX_B:
+            return TopkSortPlan("chunked", chunk_candidates(k, m))
+        return TopkSortPlan("tiled", chunk_candidates(k, m, TILED_CHUNK))
     if 1 << (k - 1).bit_length() <= BITONIC_MAX:
         return TopkSortPlan("bitonic", 0)
     if m <= cluster_max_row:
@@ -342,8 +362,8 @@ def _check_launch(err: int, what: str, err_string) -> None:
 def _launch(Q, Y, seen_cols, seen_mask, *, k, n_items, mask_seen, row_valid,
             route: Optional[str] = None, events: Optional[Tuple] = None):
     """Launch the kernel on the route :func:`topk_sort_plan` picks, or on
-    ``route`` ("chunked" or "bitonic", where the shape allows it: the
-    measurement of the batch at which one overtakes the other)."""
+    ``route`` ("chunked", "tiled" or "bitonic", where the shape allows
+    it: the measurement of the batch at which one overtakes another)."""
     quant = is_quantized(Y)
     data = Y.data if quant else Y
     dev = data.device
@@ -386,13 +406,17 @@ def _launch(Q, Y, seen_cols, seen_mask, *, k, n_items, mask_seen, row_valid,
     plan = topk_sort_plan(k, M, B, cluster_max_row)
     if route == "chunked":
         plan = TopkSortPlan(route, chunk_candidates(k, M))
+    elif route == "tiled":
+        plan = TopkSortPlan(route, chunk_candidates(k, M, TILED_CHUNK))
     elif route is not None:
         plan = TopkSortPlan(route, 0)
-    # the [B, M] scores, then the route's scratch (B rows of 2 *
-    # scratch_pairs words), in one allocation
-    buf = torch.empty(B * (M + 2 * plan.scratch_pairs), dtype=torch.float32,
+    # the [B, M] scores (on the tiled route the [B, M / 32] seen bitmap),
+    # then the route's scratch (B rows of 2 * scratch_pairs words), in
+    # one allocation
+    row = seen_words(M) if plan.route == "tiled" else M
+    buf = torch.empty(B * (row + 2 * plan.scratch_pairs), dtype=torch.float32,
                       device=dev)
-    scratch = buf.data_ptr() + B * M * 4 if plan.scratch_pairs else None
+    scratch = buf.data_ptr() + B * row * 4 if plan.scratch_pairs else None
     current = torch.cuda.current_stream(dev)
     ev_start = ev_end = None
     if events is not None:

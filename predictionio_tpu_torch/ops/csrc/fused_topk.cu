@@ -10,7 +10,27 @@
 //
 // The TPU kernel walks the item tiles in order and carries a running
 // top-k in VMEM from one grid step to the next. Blocks on this card run
-// in no order, so the work is split in two passes:
+// in no order, so the work is split in two passes. For k up to 128 on
+// rows wider than 2,048 items in batches of CHUNKED_MAX_B (32) queries
+// or more (the host's plan), the tiled route keeps the first pass on
+// chip:
+//
+//   0. tiled: score_select_tile_kernel, one block per (16 queries x
+//      1,024 items), two blocks an SM (110,784 bytes of shared memory
+//      each), scores its tile with register-tiled fp32 FMAs (8 queries x
+//      4 items a thread at a time, the item rows staged by cp.async a
+//      half-chunk and one 32-byte sector a row per step), turns each
+//      score into its key in shared memory, masked by the padding rows,
+//      row_valid and a [B, M / 32] seen bitmap (seen_bits_kernel; the
+//      TPU kernel compared every tile with all L seen slots, here a block
+//      reads 32 words a query), and selects each query's chunk winners
+//      there, a warp per query: a threshold from the maxima of each 4
+//      items' keys, the keys above it compacted in item order, a
+//      rank-count or warp radix select over them. The winners go to a
+//      candidate row per query as the chunked route's do (below), and the
+//      same merge picks the k; the route returns exactly what the chunked
+//      and bitonic routes return. No [B, M] buffer exists; at B = 256, M
+//      = 26,744 the blocks are 27 chunks x 16 tiles.
 //
 //   1. score_tile_kernel: one block per (64 items x 16 queries) tile
 //      computes the scores with fp32 FMAs (no tensor cores, no TF32:
@@ -22,9 +42,9 @@
 //   2. The selection orders each query's row by the route the host picks
 //      (topk_sort_plan in ops/als_cuda.py):
 //      - chunked (k up to 128 on rows wider than a chunk of 2,048 items,
-//        in batches under 96 queries, as for every personal top-N query;
-//        larger batches fill the card with one bitonic block per query
-//        and are faster there): the TPU kernel selects each
+//        in batches under CHUNKED_MAX_B queries, as for every personal
+//        top-N query; larger batches take the tiled route): the TPU
+//        kernel selects each
 //        item tile as it is scored and merges it into a running top-k;
 //        here every chunk is selected at once, each by its own block
 //        (select_chunk_kernel: the chunk's scores copied once into shared
@@ -40,7 +60,8 @@
 //        returns. At M = 26,744 that is 14 blocks per query instead of
 //        one, each reading its 8 KB chunk once, and a merge over 224
 //        candidates at k = 16 (1,784 at k = 128);
-//      - bitonic (k up to 2,048 where the chunked route does not apply):
+//      - bitonic (k up to 2,048 where neither the chunked nor the tiled
+//        route applies):
 //        select_bitonic_kernel finds the k-th largest score by an
 //        MSB-first radix select over order-preserving 32-bit keys (a
 //        second select over ids resolves ties at the threshold to the
@@ -65,11 +86,13 @@
 //
 // Bound on this card: the item table is read once (M*R*bytes(dtype)) and
 // the product is 2*B*M*R fp32 FMAs at the non-tensor fp32 rate; at B=1 the
-// bytes bound it, at B=256 the operations do. The [B, M] score matrix
-// makes one round trip through device memory (about 27 MB at B=256,
-// M=26,744; under 1 MB at B <= 8, which stays in L2), which the TPU
-// design avoided; the chunked route reads it once more and adds the
-// candidate rows (B * cands * 8 bytes). The whole-row sort replaces a
+// bytes bound it, at B=256 the operations do. Outside the tiled route the
+// [B, M] score matrix makes one round trip through device memory (about
+// 27 MB at B=256, M=26,744; under 1 MB at B <= 8, which stays in L2),
+// which the TPU design avoided; the chunked route reads it once more and
+// adds the candidate rows (B * cands * 8 bytes). The tiled route moves
+// the candidate rows and the bitmap only, and reads the item table once
+// per 16 queries (from L2). The whole-row sort replaces a
 // bitonic network that ran log2(N)(log2(N)+1)/2 = 120 block-wide passes
 // through device memory at N = 32,768: a radix pass touches each pair
 // twice with two block barriers per 2,048 pairs, and a pass whose digit
@@ -106,7 +129,50 @@ constexpr int ROUTE_BITONIC = 0;      // select, gather, bitonic sort of k
 constexpr int ROUTE_CLUSTER_ROW = 1;  // radix sort of the whole row by a cluster
 constexpr int ROUTE_RADIX_ROW = 2;    // the same by one block, in device memory
 constexpr int ROUTE_CHUNKED = 3;      // a select per chunk, then a merge per query
+constexpr int ROUTE_TILED = 4;        // score and select a chunk per block, then a merge
 constexpr int SORT_CLUSTER = 8;       // blocks of a cluster that sorts one row
+
+// The tiled route (score_select_tile_kernel): one block per (TILE_Q
+// queries x TILE_CHUNK items), TILE_THREADS threads. A thread scores
+// TILE_QT queries x TILE_J items (items ig + TILE_IG * j, the first
+// TILE_J / 2 in the chunk's first half). Each step stages, through
+// cp.async one step ahead, one half of the chunk (TILE_HALF items) at
+// TileIn<T>::kRB ranks: 32 bytes of each row (fp32, bf16), one sector,
+// two lanes a row.
+constexpr int TILE_Q = 16;
+constexpr int TILE_CHUNK = 1024;
+constexpr int TILE_HALF = TILE_CHUNK / 2;
+constexpr int TILE_THREADS = 256;
+constexpr int TILE_WARPS = TILE_THREADS / 32;
+constexpr int TILE_QT = 8;                            // queries a thread
+constexpr int TILE_IG = TILE_THREADS / (TILE_Q / TILE_QT);  // item groups
+constexpr int TILE_J = TILE_CHUNK / TILE_IG;          // items a thread, TILE_J / 2 a half
+constexpr int TILE_RB_MAX = 16;                       // ranks a step (TileIn<T>::kRB)
+constexpr int TILE_ROW = TILE_CHUNK + 2;              // a query's keys; +2 spreads the stores' banks
+constexpr int TILE_GROUPS = TILE_IG * 2;              // maxima a query, each over 4 items
+constexpr int TILE_CAND = TILE_GROUPS;                // candidates a warp holds for a query
+constexpr int TILE_WORDS = TILE_CHUNK / 32;           // seen bitmap words a chunk
+constexpr int TILE_SEEN_ROW = TILE_WORDS + 1;         // +1 spreads the reads' banks
+constexpr int TILE_SLOT = TILE_HALF * 32;             // a step's items: 32 bytes an item
+// dynamic shared memory, in bytes: the keys; the maxima' top 16 bits;
+// the chunk's seen words; two rank blocks' query slices; then the
+// staging region: two slots of a step's items as loaded (int8: an fp32
+// slot and two raw ones); after scoring, the warps' histograms and
+// candidates
+constexpr int TILE_KEYS_OFF = 0;
+constexpr int TILE_GMAX_OFF = TILE_KEYS_OFF + TILE_Q * TILE_ROW * 4;
+constexpr int TILE_SEEN_OFF = TILE_GMAX_OFF + TILE_Q * TILE_GROUPS * 2;
+constexpr int TILE_QS_OFF = TILE_SEEN_OFF + TILE_Q * TILE_SEEN_ROW * 4;
+constexpr int TILE_STAGE_OFF = TILE_QS_OFF + 2 * TILE_Q * TILE_RB_MAX * 4;
+constexpr int TILE_STAGE_BYTES = 2 * TILE_SLOT;
+constexpr size_t TILE_SMEM = TILE_STAGE_OFF + TILE_STAGE_BYTES;
+static_assert(TILE_GMAX_OFF % 16 == 0 && TILE_SEEN_OFF % 16 == 0 && TILE_QS_OFF % 16 == 0 &&
+                  TILE_STAGE_OFF % 16 == 0, "16-byte regions");
+static_assert(TILE_WARPS * (256 + 2 * TILE_CAND) * 4 <= TILE_STAGE_BYTES,
+              "histograms and candidates fit the staging region");
+static_assert(2 * TILE_WARPS == TILE_Q, "a warp selects two queries");
+static_assert(TILE_J == 8 && TILE_IG * 4 == TILE_HALF,
+              "a thread's items 0-3 lie in the first half, 4-7 in the second");
 
 inline int next_pow2(int k) {
   int n = 1;
@@ -577,6 +643,502 @@ select_chunk_kernel(const float* __restrict__ S, int M, int k, int chunks,
   }
 }
 
+// The tiled route's seen bitmap: bit m % 32 of word [b, m / 32] set for
+// each slot (l, b) whose mask is > 0 and whose id m lies in [0, M). The
+// words were zeroed on the stream before.
+__global__ void seen_bits_kernel(const int* __restrict__ cols, const float* __restrict__ mask,
+                                 long long col_sl, long long col_sb, long long mask_sl,
+                                 long long mask_sb, int L, int B, unsigned* __restrict__ bits,
+                                 int W, int M) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= static_cast<long long>(L) * B) return;
+  const long long l = e / B, b = e % B;
+  const int c = cols[l * col_sl + b * col_sb];
+  if (mask[l * mask_sl + b * mask_sb] > 0.f && c >= 0 && c < M)
+    atomicOr(&bits[b * W + c / 32], 1u << (c & 31));
+}
+
+// One warp's MSB-first radix select of the element of descending rank
+// `rank` (1-based, <= n) among n keys in shared memory, in at most
+// `passes` 8-bit digits; hist is the warp's 256 counters. The contract of
+// radix_select over keys: returns T with *need of the keys == T among the
+// winners and *eq of them in all; a pass whose digit's keys all win ends
+// the select, with T the digits so far and zero low bits. After fewer
+// than four passes without that end, T is the digits so far with zero
+// low bits, and the keys >= T include the `rank` largest.
+__device__ unsigned warp_radix_select(const unsigned* keys, int n, unsigned rank, int passes,
+                                      unsigned* hist, unsigned* need, unsigned* eq) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  unsigned prefix = 0u, pmask = 0u, remaining = rank, eq_count = 0u;
+  for (int pass = 0, shift = 24; pass < passes; ++pass, shift -= 8) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) hist[lane * 8 + j] = 0u;
+    __syncwarp();
+    for (int base = 0; base < n; base += 32) {
+      const int i = base + lane;
+      int bin = -1;
+      if (i < n) {
+        const unsigned key = keys[i];
+        if ((key & pmask) == prefix) bin = static_cast<int>((key >> shift) & 255u);
+      }
+      if (__any_sync(full, bin >= 0)) {
+        const unsigned peers = __match_any_sync(full, bin);
+        if (bin >= 0 && lane == __ffs(peers) - 1)
+          atomicAdd(&hist[bin], static_cast<unsigned>(__popc(peers)));
+      }
+    }
+    __syncwarp();
+    // the digit, as in radix_select: lane l scans bins 255 - 8l down to
+    // 248 - 8l; the lane whose range crosses `remaining` walks them
+    unsigned c[8], s = 0u;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      c[j] = hist[255 - lane * 8 - j];
+      s += c[j];
+    }
+    unsigned inc = s;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned v = __shfl_up_sync(full, inc, o);
+      if (lane >= o) inc += v;
+    }
+    unsigned cum = inc - s, digit = 0u, rem = 0u, cnt = 0u;
+    const bool mine = cum < remaining && remaining <= inc;
+    if (mine) {
+      bool found = false;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (!found && cum + c[j] >= remaining) {
+          found = true;
+          digit = static_cast<unsigned>(255 - lane * 8 - j);
+          rem = remaining - cum;
+          cnt = c[j];
+        }
+        if (!found) cum += c[j];
+      }
+    }
+    const unsigned who = __ballot_sync(full, mine);
+    const unsigned total = __shfl_sync(full, inc, 31);
+    if (who != 0u) {
+      const int src = __ffs(who) - 1;
+      digit = __shfl_sync(full, digit, src);
+      rem = __shfl_sync(full, rem, src);
+      cnt = __shfl_sync(full, cnt, src);
+    } else {  // rank > n: no digit (callers never ask)
+      rem = remaining - total;
+      cnt = hist[0];
+    }
+    __syncwarp();  // every lane has read the counters before the next pass clears them
+    prefix |= digit << shift;
+    pmask |= 255u << shift;
+    remaining = rem;
+    eq_count = cnt;
+    if (eq_count == remaining) break;
+  }
+  *need = remaining;
+  *eq = eq_count;
+  return prefix;
+}
+
+// cp.async of `bytes` (16, 8 or 4) from global to shared memory; the
+// first src_bytes are copied and the rest zero-filled (src_bytes 0: zeros)
+template <int Bytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (Bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+                 "n"(Bytes), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+// A value of type T with all bits zero (0.0 for fp32 and bf16).
+template <typename T>
+__device__ __forceinline__ T zero_of() {
+  T z;
+  unsigned char* b = reinterpret_cast<unsigned char*>(&z);
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(T)); ++i) b[i] = 0;
+  return z;
+}
+
+// How a step's items reach the FMAs, by store type: kRB ranks a step,
+// kRaw bytes an item a step in its landing slot (consecutive items
+// consecutive), and quad(slot, it, d), the fp32 values of ranks 4d ..
+// 4d + 3 of the step's item `it`. fp32 and bf16 items are summed from
+// their landing slot (bf16 widened there, as __bfloat162float); int8
+// items are widened and scaled by the block into an fp32 slot first
+// (kWiden), as score_tile_kernel scales them, since an int8 conversion
+// costs more than the 8 FMAs that would share it.
+template <typename T>
+struct TileIn;
+template <>
+struct TileIn<float> {
+  static constexpr int kRB = 8, kRaw = 32;
+  static constexpr bool kWiden = false;
+  __device__ __forceinline__ static float4 quad(const unsigned char* slot, int it, int d) {
+    return *reinterpret_cast<const float4*>(slot + it * 32 + d * 16);
+  }
+};
+template <>
+struct TileIn<__nv_bfloat16> {
+  static constexpr int kRB = 16, kRaw = 32;
+  static constexpr bool kWiden = false;
+  __device__ __forceinline__ static float4 quad(const unsigned char* slot, int it, int d) {
+    const uint2 w = *reinterpret_cast<const uint2*>(slot + it * 32 + d * 8);
+    return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                       __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+  }
+};
+template <>
+struct TileIn<int8_t> {
+  static constexpr int kRB = 8, kRaw = 8;
+  static constexpr bool kWiden = true;
+  __device__ __forceinline__ static float4 quad(const unsigned char* slot, int it, int d) {
+    return *reinterpret_cast<const float4*>(slot + it * 32 + d * 16);
+  }
+  __device__ __forceinline__ static float4 widen(unsigned w) {
+    return make_float4(static_cast<float>(static_cast<int8_t>(w & 255u)),
+                       static_cast<float>(static_cast<int8_t>((w >> 8) & 255u)),
+                       static_cast<float>(static_cast<int8_t>((w >> 16) & 255u)),
+                       static_cast<float>(static_cast<int8_t>(w >> 24)));
+  }
+};
+
+// The rank-count select of a few candidates (count <= 32 * E): each lane
+// holds E of them (candidate i = lane + 32 e), counts those before each
+// by (key desc, position asc), and the kc with rank < kc are written in
+// candidate order (item order) as value/id pairs.
+template <int E>
+__device__ __forceinline__ void rank_select(const unsigned* ck, const unsigned* cp, int count,
+                                            int kc, unsigned* out, long long pairs, unsigned lo) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  unsigned key[E], rank[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int i = lane + 32 * e;
+    key[e] = i < count ? ck[i] : 0u;
+    rank[e] = 0u;
+  }
+  for (int j = 0; j < count; ++j) {
+    const unsigned kj = ck[j];
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      rank[e] += (kj > key[e] || (kj == key[e] && j < lane + 32 * e)) ? 1u : 0u;
+  }
+  unsigned won = 0u;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int i = lane + 32 * e;
+    const bool win = i < count && rank[e] < static_cast<unsigned>(kc);
+    const unsigned wins = __ballot_sync(full, win);
+    if (win) {
+      const unsigned slot = won + __popc(wins & below);
+      out[slot] = __float_as_uint(key_float(key[e]));
+      out[pairs + slot] = lo + cp[i];
+    }
+    won += __popc(wins);
+  }
+}
+
+// The tiled route, block (c, t): chunk c (items [c * TILE_CHUNK, + n),
+// n <= TILE_CHUNK) of the TILE_Q queries of tile t, scored and selected
+// without leaving the block.
+//
+// Scoring: each score is score_tile_kernel's, bit for bit: one fmaf chain
+// over r from 0 (zeros past R only add +0), bf16 rows widened, int8 rows
+// scaled before their FMAs. A step stages a half of the chunk at kRB
+// ranks and the tile's queries at those ranks by cp.async, issued one
+// step ahead, so loads take no registers and each row's piece is one
+// whole sector; one barrier a step (two with int8's widening). The
+// first half's rank blocks all come before the second half's, so a
+// thread holds TILE_QT x TILE_J / 2 accumulators at a time (no spills
+// at the 128 registers of two blocks an SM), and reads 12 float4s of
+// shared memory for every 128 FMAs. At the end of a half each score
+// becomes its key (float_key; -inf's key for padding rows, row_valid <=
+// 0 and the seen bits staged from the bitmap) in the query's row of
+// keys, and each thread keeps the top 16 bits of the largest key of its
+// 4 items of the half (0 where none lies in the chunk): TILE_GROUPS
+// maxima a query.
+//
+// Selection, warp w for queries w and w + TILE_WARPS, each on its own:
+// lane l holds the maxima l + 32 e. For kc = min(k, n) <= 32, t is the
+// kc-th largest of the lanes' largest maxima (a rank count over the
+// lanes); above, the largest 16-bit t with at least kc maxima >= t (a
+// bitwise search, one warp-wide sum a bit). Either way kc distinct
+// groups hold a key >= t << 16, so the row's kc winners are among its
+// keys >= t << 16. The warp compacts those, in item order; up to 64 of them
+// it ranks by counting (rank_select), more by a radix select
+// (warp_radix_select; over the whole row if more than TILE_CAND), which
+// gives T and `need`: the winners are the keys > T and the first `need`
+// keys == T in item order. They are written in item order to candidate
+// slots [c * k, c * k + kc) as select_chunk_kernel writes them, and the
+// merge is the chunked route's.
+template <typename T, bool Vec>
+__global__ void __launch_bounds__(TILE_THREADS, 2)
+score_select_tile_kernel(const float* __restrict__ Q, const T* __restrict__ Y,
+                         const float* __restrict__ scale, const float* __restrict__ row_valid,
+                         const unsigned* __restrict__ seen_bits, int W, int B, int M, int R,
+                         int n_items, int k, unsigned* __restrict__ cand, long long pairs) {
+  using In = TileIn<T>;
+  constexpr int RB = In::kRB, NQ = RB / 4;
+  constexpr int PIECE = In::kRaw >= 16 ? 16 : In::kRaw;         // bytes a cp.async
+  constexpr int PIECES = TILE_HALF * In::kRaw / PIECE / TILE_THREADS;  // a thread's a step
+  constexpr int LANES = In::kRaw / PIECE;                        // lanes a row
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  unsigned* keys = reinterpret_cast<unsigned*>(tile_smem + TILE_KEYS_OFF);
+  unsigned short* gmax = reinterpret_cast<unsigned short*>(tile_smem + TILE_GMAX_OFF);
+  unsigned* seen = reinterpret_cast<unsigned*>(tile_smem + TILE_SEEN_OFF);
+  float4* qs = reinterpret_cast<float4*>(tile_smem + TILE_QS_OFF);
+  unsigned char* stage = tile_smem + TILE_STAGE_OFF;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qg = tid & 1, ig = tid >> 1;  // queries TILE_QT qg ..; items ig + TILE_IG * j
+  const int c = blockIdx.x;
+  const int lo = c * TILE_CHUNK;
+  const int n = min(TILE_CHUNK, M - lo);
+  const int b0 = blockIdx.y * TILE_Q;
+
+  for (int e = tid; e < TILE_Q * TILE_WORDS; e += TILE_THREADS) {
+    const int q = e / TILE_WORDS, w = lo / 32 + e % TILE_WORDS;
+    seen[q * TILE_SEEN_ROW + e % TILE_WORDS] =
+        (seen_bits != nullptr && b0 + q < B && w < W)
+            ? seen_bits[static_cast<long long>(b0 + q) * W + w]
+            : 0u;
+  }
+
+  // step s: half s / blocks of the chunk's items (TILE_HALF of them),
+  // rank block s % blocks (ranks RB (s % blocks) ..); it lands in slot
+  // s & 1 and is summed from sum_slot(s) (int8: the fp32 slot it is
+  // widened into). A thread's items of a half are done before the next
+  // half begins, so only its TILE_J / 2 accumulators of the half live.
+  const int blocks = (R + RB - 1) / RB;
+  const int steps = 2 * blocks;
+  auto land_slot = [&](int s) {
+    return stage + (In::kWiden ? TILE_SLOT : 0) + (s & 1) * TILE_HALF * In::kRaw;
+  };
+  auto sum_slot = [&](int s) { return In::kWiden ? stage : land_slot(s); };
+  // this thread's pieces: piece e = tid + TILE_THREADS u is bytes
+  // [PIECE (e % LANES), + PIECE) of the step's item e / LANES
+  const long long row_step = static_cast<long long>(TILE_THREADS / LANES) * R;
+  const T* row0 = Y + static_cast<long long>(lo + tid / LANES) * R +
+                  (tid % LANES) * PIECE / static_cast<int>(sizeof(T));
+  // the tile's queries of a rank block: value tid (TILE_Q x RB of them)
+  const int qq = tid / RB, qr = tid % RB;
+  const float* qrow = Q + static_cast<long long>(b0 + qq) * R + qr;
+  const bool q_ok = tid < TILE_Q * RB && b0 + qq < B;
+  float* q_dst = reinterpret_cast<float*>(qs + (qr / 4) * TILE_Q + qq) + qr % 4;
+  // each piece one aligned cp.async (Vec), else value by value (rows of
+  // other widths)
+  auto issue = [&](int s) {
+    const int h = s >= blocks, r0 = (s - h * blocks) * RB, half = h * TILE_HALF;
+    unsigned char* dst = land_slot(s);
+#pragma unroll 1
+    for (int u = 0; u < PIECES; ++u) {
+      const int e = tid + u * TILE_THREADS, it = e / LANES;
+      const bool ok = half + it < n;
+      if constexpr (Vec) {
+        const int off = (e % LANES) * PIECE / static_cast<int>(sizeof(T));
+        const bool in = ok && r0 + off < R;
+        cp_async<PIECE>(dst + e * PIECE,
+                        in ? row0 + static_cast<long long>(half) * R + u * row_step + r0 : Y,
+                        in ? PIECE : 0);
+      } else {
+        constexpr int V = PIECE / static_cast<int>(sizeof(T));
+        const int off = (e % LANES) * V;
+#pragma unroll
+        for (int r = 0; r < V; ++r) {
+          const bool in = ok && r0 + off + r < R;
+          const T v = in ? Y[static_cast<long long>(lo + half + it) * R + r0 + off + r]
+                         : zero_of<T>();
+          reinterpret_cast<T*>(dst + e * PIECE)[r] = v;
+        }
+      }
+    }
+    if (tid < TILE_Q * RB) {
+      const bool ok = q_ok && r0 + qr < R;
+      cp_async<4>(q_dst + (s & 1) * TILE_Q * RB, ok ? qrow + r0 : Q, ok ? 4 : 0);
+    }
+  };
+
+  float acc[TILE_QT][TILE_J / 2];
+#pragma unroll
+  for (int i = 0; i < TILE_QT; ++i)
+#pragma unroll
+    for (int j = 0; j < TILE_J / 2; ++j) acc[i][j] = 0.f;
+  issue(0);
+  cp_async_commit();
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // step s has landed everywhere, and step s - 1 is summed
+    if (s + 1 < steps) issue(s + 1);
+    cp_async_commit();
+    const int h = s >= blocks;
+    if constexpr (In::kWiden) {
+      const int half = h * TILE_HALF;
+#pragma unroll
+      for (int u = 0; u < TILE_HALF * 2 / TILE_THREADS; ++u) {  // 4 ranks an entry
+        const int e = tid + u * TILE_THREADS, it = e >> 1, d = e & 1;
+        float4 v = In::widen(*reinterpret_cast<const unsigned*>(land_slot(s) + it * 8 + d * 4));
+        if (scale != nullptr) {
+          const float sc = half + it < n ? __ldg(scale + lo + half + it) : 1.f;
+          v.x *= sc;
+          v.y *= sc;
+          v.z *= sc;
+          v.w *= sc;
+        }
+        *reinterpret_cast<float4*>(stage + it * 32 + d * 16) = v;
+      }
+      __syncthreads();
+    }
+    const unsigned char* slot = sum_slot(s);
+    const float4* q4 = qs + (s & 1) * TILE_Q * NQ + TILE_QT * qg;
+#pragma unroll
+    for (int d = 0; d < NQ; ++d) {
+      float4 y[TILE_J / 2];
+#pragma unroll
+      for (int jj = 0; jj < TILE_J / 2; ++jj) y[jj] = In::quad(slot, ig + TILE_IG * jj, d);
+#pragma unroll
+      for (int i = 0; i < TILE_QT; ++i) {
+        const float4 qv = q4[d * TILE_Q + i];
+#pragma unroll
+        for (int jj = 0; jj < TILE_J / 2; ++jj) {
+          acc[i][jj] = fmaf(y[jj].x, qv.x, acc[i][jj]);
+          acc[i][jj] = fmaf(y[jj].y, qv.y, acc[i][jj]);
+          acc[i][jj] = fmaf(y[jj].z, qv.z, acc[i][jj]);
+          acc[i][jj] = fmaf(y[jj].w, qv.w, acc[i][jj]);
+        }
+      }
+    }
+    if (s == h * blocks + blocks - 1) {  // the half's scores are whole: keys and maxima
+      unsigned valid = 0u;  // bit jj: item jj of the half lies in the chunk and is a real row
+#pragma unroll
+      for (int jj = 0; jj < TILE_J / 2; ++jj) {
+        const int it = h * TILE_HALF + ig + TILE_IG * jj, m = lo + it;
+        if (it < n && m < n_items && (row_valid == nullptr || __ldg(row_valid + m) > 0.f))
+          valid |= 1u << jj;
+      }
+#pragma unroll
+      for (int i = 0; i < TILE_QT; ++i) {
+        const int q = TILE_QT * qg + i;
+        unsigned* row = keys + q * TILE_ROW;
+        const unsigned* sq = seen + q * TILE_SEEN_ROW;
+        unsigned mx = 0u;
+#pragma unroll
+        for (int jj = 0; jj < TILE_J / 2; ++jj) {
+          const int it = h * TILE_HALF + ig + TILE_IG * jj;
+          if (it < n) {
+            const bool ok = ((valid >> jj) & 1u) && !((sq[it >> 5] >> (it & 31)) & 1u);
+            const unsigned key = float_key(ok ? acc[i][jj] : neg_inf());
+            row[it] = key;
+            mx = max(mx, key);
+          }
+          acc[i][jj] = 0.f;
+        }
+        gmax[q * TILE_GROUPS + ig * 2 + h] = static_cast<unsigned short>(mx >> 16);
+      }
+    }
+  }
+  __syncthreads();  // every key is in, and the staging region is free
+
+  unsigned* hist = reinterpret_cast<unsigned*>(stage) + warp * 256;
+  unsigned* ck = reinterpret_cast<unsigned*>(stage) + TILE_WARPS * 256 + warp * 2 * TILE_CAND;
+  unsigned* cp = ck + TILE_CAND;
+  const int kc = min(k, n);
+  const unsigned full = 0xffffffffu, below = (1u << lane) - 1u;
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {
+    const int q = warp + h * TILE_WARPS;
+    if (b0 + q >= B) break;
+    unsigned g[TILE_GROUPS / 32], lmax = 0u;
+#pragma unroll
+    for (int e = 0; e < TILE_GROUPS / 32; ++e) {
+      g[e] = gmax[q * TILE_GROUPS + lane + 32 * e];
+      lmax = max(lmax, g[e]);
+    }
+    unsigned t = 0u;
+    if (kc <= 32) {
+      // the kc-th largest of the lanes' largest maxima: kc lanes hold a
+      // maximum >= it (a rank count over the lanes)
+      unsigned above = 0u;
+#pragma unroll
+      for (int o = 0; o < 32; ++o) above += __shfl_sync(full, lmax, o) > lmax ? 1u : 0u;
+      t = __reduce_min_sync(full, above < static_cast<unsigned>(kc) ? lmax : 0xffffu);
+    } else {
+#pragma unroll 1
+      for (int bit = 15; bit >= 0; --bit) {
+        const unsigned tc = t | (1u << bit);
+        unsigned cnt = 0u;
+#pragma unroll
+        for (int e = 0; e < TILE_GROUPS / 32; ++e) cnt += g[e] >= tc ? 1u : 0u;
+        if (__reduce_add_sync(full, cnt) >= static_cast<unsigned>(kc)) t = tc;
+      }
+    }
+    const unsigned tau = t << 16;
+    const unsigned* row = keys + q * TILE_ROW;
+    unsigned count = 0u;
+    for (int base = 0; base < n; base += 128) {
+      unsigned key[4];
+      bool take[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = base + 32 * u + lane;
+        key[u] = i < n ? row[i] : 0u;
+        take[u] = i < n && key[u] >= tau;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const unsigned taken = __ballot_sync(full, take[u]);
+        const unsigned slot = count + __popc(taken & below);
+        if (take[u] && slot < TILE_CAND) {
+          ck[slot] = key[u];
+          cp[slot] = static_cast<unsigned>(base + 32 * u + lane);
+        }
+        count += __popc(taken);
+      }
+    }
+    __syncwarp();
+    unsigned* out =
+        cand + static_cast<long long>(b0 + q) * 2 * pairs + static_cast<long long>(c) * k;
+    if (count <= 32u) {
+      rank_select<1>(ck, cp, static_cast<int>(count), kc, out, pairs, static_cast<unsigned>(lo));
+    } else if (count <= 64u) {
+      rank_select<2>(ck, cp, static_cast<int>(count), kc, out, pairs, static_cast<unsigned>(lo));
+    } else {
+      const bool fits = count <= static_cast<unsigned>(TILE_CAND);
+      const unsigned* arr = fits ? ck : row;
+      const int len = fits ? static_cast<int>(count) : n;
+      unsigned need, eq;
+      const unsigned thr =
+          warp_radix_select(arr, len, static_cast<unsigned>(kc), 4, hist, &need, &eq);
+      unsigned won = 0u, ties = 0u;
+      for (int base = 0; base < len; base += 32) {
+        const int i = base + lane;
+        const unsigned key = i < len ? arr[i] : 0u;
+        const bool tie = i < len && key == thr;
+        const unsigned tied = __ballot_sync(full, tie);
+        const bool win = i < len && (key > thr || (tie && ties + __popc(tied & below) < need));
+        const unsigned wins = __ballot_sync(full, win);
+        if (win) {
+          const unsigned slot = won + __popc(wins & below);
+          out[slot] = __float_as_uint(key_float(key));
+          out[pairs + slot] =
+              static_cast<unsigned>(lo) + (fits ? cp[i] : static_cast<unsigned>(i));
+        }
+        won += __popc(wins);
+        ties += __popc(tied);
+      }
+    }
+    __syncwarp();  // the next query's compaction overwrites the candidates
+  }
+}
+
 // The radix_row route, one block per query: the whole row's key/id pairs,
 // in id order, stably radix-sorted by key, descending, in two ping-pong
 // buffers of gscratch (4 * M words per query); the first k are the result.
@@ -697,6 +1259,65 @@ sort_row_cluster_kernel(const float* __restrict__ S, int M, int k, float* __rest
 // buffers of a share of ceil(M / SORT_CLUSTER) pairs per block.
 int g_cluster_max_row[MAX_DEVICES];
 
+// The tiled route's first steps on stream s: the seen bitmap (zeroed,
+// then seen_bits_kernel) when the mask is on, then
+// score_select_tile_kernel over (chunks x query tiles) into the
+// candidate rows.
+cudaError_t launch_tiled(const float* Q, int B, int R, const void* Y, int y_dtype,
+                         const float* scale, const float* row_valid, int M, int n_items,
+                         const int* seen_cols, const float* seen_mask, int L, long long col_sl,
+                         long long col_sb, long long mask_sl, long long mask_sb, int mask_seen,
+                         int k, int chunks, unsigned* bits, unsigned* cand, long long pairs,
+                         cudaStream_t s) {
+  const int W = (M + 31) / 32;
+  const unsigned* seen_bits = nullptr;
+  if (mask_seen && L > 0) {
+    if (bits == nullptr) return cudaErrorInvalidValue;
+    cudaError_t err = cudaMemsetAsync(bits, 0, static_cast<size_t>(B) * W * sizeof(unsigned), s);
+    if (err != cudaSuccess) return err;
+    const long long n = static_cast<long long>(L) * B;
+    seen_bits_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
+        seen_cols, seen_mask, col_sl, col_sb, mask_sl, mask_sb, L, B, bits, W, M);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    seen_bits = bits;
+  }
+  // each piece of a step one aligned cp.async: 4 fp32 or 8 bf16 values
+  // (16 bytes), 8 int8 values (8 bytes)
+  const uintptr_t y = reinterpret_cast<uintptr_t>(Y);
+  const bool vec = y_dtype == 0   ? R % 4 == 0 && y % 16 == 0
+                   : y_dtype == 1 ? R % 8 == 0 && y % 16 == 0
+                                  : R % 8 == 0 && y % 8 == 0;
+  const dim3 grid(static_cast<unsigned>(chunks), static_cast<unsigned>((B + TILE_Q - 1) / TILE_Q));
+  auto go = [&](auto kernel, const auto* Yt) {
+    kernel<<<grid, TILE_THREADS, TILE_SMEM, s>>>(Q, Yt, scale, row_valid, seen_bits, W, B, M, R,
+                                                 n_items, k, cand, pairs);
+  };
+  switch (y_dtype) {
+    case 0: {
+      const float* Yt = static_cast<const float*>(Y);
+      vec ? go(score_select_tile_kernel<float, true>, Yt)
+          : go(score_select_tile_kernel<float, false>, Yt);
+      break;
+    }
+    case 1: {
+      const __nv_bfloat16* Yt = static_cast<const __nv_bfloat16*>(Y);
+      vec ? go(score_select_tile_kernel<__nv_bfloat16, true>, Yt)
+          : go(score_select_tile_kernel<__nv_bfloat16, false>, Yt);
+      break;
+    }
+    case 2: {
+      const int8_t* Yt = static_cast<const int8_t*>(Y);
+      vec ? go(score_select_tile_kernel<int8_t, true>, Yt)
+          : go(score_select_tile_kernel<int8_t, false>, Yt);
+      break;
+    }
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -723,6 +1344,22 @@ int pio_fused_topk_init(int device) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int share = dyn / static_cast<int>(4 * sizeof(unsigned));
+  // the tiled route: its shared memory, two blocks an SM
+  const void* tiled[] = {
+      reinterpret_cast<const void*>(score_select_tile_kernel<float, true>),
+      reinterpret_cast<const void*>(score_select_tile_kernel<__nv_bfloat16, true>),
+      reinterpret_cast<const void*>(score_select_tile_kernel<int8_t, true>),
+      reinterpret_cast<const void*>(score_select_tile_kernel<float, false>),
+      reinterpret_cast<const void*>(score_select_tile_kernel<__nv_bfloat16, false>),
+      reinterpret_cast<const void*>(score_select_tile_kernel<int8_t, false>)};
+  for (const void* fn : tiled) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(TILE_SMEM));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   g_cluster_max_row[device] = SORT_CLUSTER * share;
   return 0;
 }
@@ -741,8 +1378,11 @@ int pio_topk_cluster_max_row(int device) {
 // needs sort_scratch of scratch_pairs >= 2 * M uint32 key/id pairs per
 // query; chunked (k <= CHUNK_K_MAX) cuts the row into chunks of
 // TOPK_CHUNK items and needs sort_scratch of scratch_pairs >= (chunks -
-// 1) * k + min(k, last chunk) value/id pairs per query (sort_scratch may
-// be null on the other routes). scores is a [B, M] fp32 scratch. Launches
+// 1) * k + min(k, last chunk) value/id pairs per query; tiled (k <=
+// CHUNK_K_MAX) the same with chunks of TILE_CHUNK items (sort_scratch may
+// be null on the other routes). scores is a [B, M] fp32 scratch, except
+// on the tiled route: there a [B, ceil(M / 32)] uint32 scratch for the
+// seen bitmap (unused with the mask off). Launches
 // on `stream` of CUDA device `device`, which pio_fused_topk_init has set
 // up; returns cudaGetLastError(). ev_start / ev_end, when not null, are
 // CUDA events recorded on `stream` just before the first kernel and just
@@ -762,10 +1402,11 @@ int pio_fused_topk(int device, const float* Q, int B, int R, const void* Y, int 
   size_t smem = 0;
   const int N = next_pow2(k);  // the bitonic sort's width
   int chunks = 0, cands = 0;
-  if (route == ROUTE_CHUNKED) {
+  if (route == ROUTE_CHUNKED || route == ROUTE_TILED) {
     if (k > CHUNK_K_MAX || sort_scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    chunks = (M + TOPK_CHUNK - 1) / TOPK_CHUNK;
-    cands = (chunks - 1) * k + std::min(k, M - (chunks - 1) * TOPK_CHUNK);
+    const int width = route == ROUTE_TILED ? TILE_CHUNK : TOPK_CHUNK;
+    chunks = (M + width - 1) / width;
+    cands = (chunks - 1) * k + std::min(k, M - (chunks - 1) * width);
     if (scratch_pairs < cands) return static_cast<int>(cudaErrorInvalidValue);
     smem = 2 * static_cast<size_t>(N) * sizeof(unsigned);
   } else if (route == ROUTE_BITONIC) {
@@ -781,6 +1422,20 @@ int pio_fused_topk(int device, const float* Q, int B, int R, const void* Y, int 
   if (ev_start != nullptr) {
     err = cudaEventRecord(static_cast<cudaEvent_t>(ev_start), s);
     if (err != cudaSuccess) return static_cast<int>(err);
+  }
+
+  if (route == ROUTE_TILED) {
+    err = launch_tiled(Q, B, R, Y, y_dtype, scale, row_valid, M, n_items, seen_cols, seen_mask,
+                       L, col_sl, col_sb, mask_sl, mask_sb, mask_seen, k, chunks,
+                       reinterpret_cast<unsigned*>(scores), sort_scratch, scratch_pairs, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    select_bitonic_kernel<<<B, SELECT_THREADS, smem, s>>>(
+        reinterpret_cast<const float*>(sort_scratch), 2 * scratch_pairs, cands, k, N,
+        reinterpret_cast<const int*>(sort_scratch + scratch_pairs), vals, idx);
+    err = cudaGetLastError();
+    if (err == cudaSuccess && ev_end != nullptr)
+      err = cudaEventRecord(static_cast<cudaEvent_t>(ev_end), s);
+    return static_cast<int>(err);
   }
 
   const dim3 grid1((M + TM - 1) / TM, (B + TB - 1) / TB);

@@ -259,14 +259,20 @@ def cmd_train(args) -> int:
 
 def _print_launches(*kernels: str) -> None:
     """This process's launches of each named kernel (their wrappers'
-    counts; the plain versions on the CPU count none)."""
+    counts; the plain versions on the CPU count none), and the serving
+    kernel's by route when it launched."""
     from predictionio_tpu_torch.ops import als_cuda
 
     counters = {"fused_gather_score_topk": als_cuda.launches,
                 "assemble_normal_equations": als_cuda.assemble_launches,
                 "spd_solve": als_cuda.spd_launches}
-    print("[INFO] Kernel launches: " + json.dumps(
-        {name: counters[name].value for name in kernels}), flush=True)
+    out = {name: counters[name].value for name in kernels}
+    if out.get("fused_gather_score_topk"):
+        routes: dict = {}
+        for (route, _, _), n in als_cuda.launches.by_key().items():
+            routes[route] = routes.get(route, 0) + n
+        out["fused_gather_score_topk_routes"] = routes
+    print("[INFO] Kernel launches: " + json.dumps(out), flush=True)
 
 
 def _cmd_eval_grid(args) -> int:

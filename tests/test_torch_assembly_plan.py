@@ -399,13 +399,60 @@ class TestTopkSortPlan:
         (16, 8, "chunked", 224),                    # the main path's batches
         (128, 8, "chunked", 1784),
         (16, als_cuda.CHUNKED_MAX_B - 1, "chunked", 224),
-        (16, als_cuda.CHUNKED_MAX_B, "bitonic", 0),  # one block a query fills the card
-        (128, 256, "bitonic", 0),
+        (16, als_cuda.CHUNKED_MAX_B, "tiled", 432),  # 26 chunks x 16 + 16
+        (128, 256, "tiled", 3448),                  # 26 x 128 + 120
+        (32, als_cuda.CHUNKED_MAX_B, "tiled", 864),
+        (64, als_cuda.CHUNKED_MAX_B, "tiled", 1728),
+        (128, als_cuda.CHUNKED_MAX_B - 1, "chunked", 1784),
+        (128, als_cuda.CHUNKED_MAX_B, "tiled", 3448),
     ])
     def test_large_batches_keep_one_block_per_query(self, k, batch, route,
                                                     scratch):
+        """Large batches at k <= 128 take the tiled route (blocks of 16
+        queries x 1,024 items), whose candidate rows hold each chunk's
+        min(k, n_c)."""
         assert als_cuda.topk_sort_plan(k, 26_744, batch, self.CLUSTER_MAX) \
             == als_cuda.TopkSortPlan(route, scratch)
+
+    @pytest.mark.parametrize("k,m,batch,route,scratch", [
+        (1, 26_744, 96, "tiled", 27),
+        (16, 26_744, 16, "chunked", 224),           # below CHUNKED_MAX_B
+        (10, 26_744, 512, "tiled", 270),            # grid_topk's shape
+        (16, 26_752, 256, "tiled", 432),            # the serving store, padded
+        (100, 26_744, 256, "tiled", 2700),          # last chunk of 120 = k + 20
+        (128, 1024 * 26 + 1, 256, "tiled", 3329),   # a last chunk of 1
+        (128, 2049, 256, "tiled", 257),             # the narrowest row: 3 chunks
+        (16, 2048, 256, "bitonic", 0),              # one chunked-route chunk: no split
+        (129, 26_744, 256, "bitonic", 0),           # past the tiled k
+        (2049, 26_744, 256, "cluster_row", 0),
+        (16, 6_688, 256, "tiled", 112),             # a shard of 4 at ML-20M width
+        (16, 26_744, 6_040, "tiled", 432),          # pio eval's batch_predict
+    ])
+    def test_tiled_route_and_scratch(self, k, m, batch, route, scratch):
+        assert als_cuda.topk_sort_plan(k, m, batch, self.CLUSTER_MAX) == \
+            als_cuda.TopkSortPlan(route, scratch)
+
+    @pytest.mark.parametrize("k,m,want", [
+        (16, 26_744, 26 * 16 + 16), (128, 26_744, 26 * 128 + 120),
+        (128, 1024, 128), (5, 1025, 6), (128, 1024 * 3, 3 * 128)])
+    def test_tiled_candidates(self, k, m, want):
+        assert als_cuda.chunk_candidates(k, m, als_cuda.TILED_CHUNK) == want
+
+    @pytest.mark.parametrize("m,words", [(1, 1), (32, 1), (33, 2),
+                                         (26_744, 836), (26_752, 836)])
+    def test_seen_bitmap_words(self, m, words):
+        assert als_cuda.seen_words(m) == words
+
+    @pytest.mark.parametrize("k", [1, 16, 32, 33, 128])
+    def test_each_batch_has_one_route_at_small_k(self, k):
+        """At k <= 128 on a wide row the chunked route takes every batch
+        below CHUNKED_MAX_B and the tiled route every batch from it."""
+        routes = [als_cuda.topk_sort_plan(k, 26_744, b, self.CLUSTER_MAX)
+                  .route for b in range(1, 1025)]
+        first = routes.index("tiled") + 1
+        assert first == als_cuda.CHUNKED_MAX_B
+        assert set(routes[:first - 1]) == {"chunked"}
+        assert set(routes[first - 1:]) == {"tiled"}
 
     @pytest.mark.parametrize("k", [0, 129, -1])
     def test_chunked_k_out_of_range_raises(self, k):

@@ -766,7 +766,13 @@ def test_capture_records_training_launches_and_replays_count_them():
     assert als_cuda.spd_launches.value - before[1] == 4
 
 
-def test_replays_of_serving_launches_keep_the_route():
+def test_replays_of_serving_launches_keep_the_route(monkeypatch):
+    # counters of this test's own: the process's stay as they were for
+    # the CLI tests that read them (`[INFO] Kernel launches`)
+    from predictionio_tpu_torch.ops._build import LaunchCounter
+
+    for name in ("launches", "graph_launches"):
+        monkeypatch.setattr(als_cuda, name, LaunchCounter())
     with als_cuda.recording_launches() as records:
         als_cuda._count("launches", ("chunked", 16, 1))
     als_cuda.note_replay(records)
